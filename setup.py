@@ -4,7 +4,12 @@ from setuptools import find_packages, setup
 
 setup(
     name="xgboost_ray_tpu",
-    packages=find_packages(include=["xgboost_ray_tpu", "xgboost_ray_tpu.*"]),
+    packages=find_packages(include=[
+        "xgboost_ray_tpu", "xgboost_ray_tpu.*",
+        "xgboost_ray_tpu_torch", "xgboost_ray_tpu_torch.*",
+    ]),
+    # the PyTorch/CUDA port compiles its kernels from these at first use
+    package_data={"xgboost_ray_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},
     version="0.1.0",
     author="xgboost_ray_tpu authors",
     description="TPU-native distributed gradient-boosted-tree training with "

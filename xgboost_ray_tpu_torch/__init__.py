@@ -1,0 +1,26 @@
+"""xgboost_ray_tpu_torch: the PyTorch/CUDA port of xgboost_ray_tpu.
+
+Trains gradient-boosted trees on an NVIDIA H100 with hand-written kernels
+(``csrc/`` CUDA C++ for the histogram, split search and row partition;
+Triton for the fused objective/metric pass), behind the same API as the
+JAX package: ``train``, ``RayDMatrix``, ``RayParams`` and a booster that
+saves the same model file. This package imports ``torch`` and nothing of
+``jax`` or ``xgboost_ray_tpu``. Entry points run on the CUDA device unless
+the caller passes ``device="cpu"`` (the plain PyTorch path the tests use).
+"""
+
+from xgboost_ray_tpu_torch.main import RayParams, train
+from xgboost_ray_tpu_torch.matrix import RayDMatrix, RayShardingMode
+from xgboost_ray_tpu_torch.models.booster import Booster, RayXGBoostBooster
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "__version__",
+    "RayParams",
+    "RayDMatrix",
+    "RayShardingMode",
+    "train",
+    "Booster",
+    "RayXGBoostBooster",
+]

@@ -1,0 +1,146 @@
+"""Build and load the hand-written CUDA kernels in ``csrc/``.
+
+Every ``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its own
+shared library with a plain C interface (no PyTorch headers, so a build
+takes seconds), all sources at once in parallel. Libraries land in
+``xgboost_ray_tpu_torch/_build/<hash>/`` keyed by a hash of the sources and
+flags, so an edited source rebuilds and an unchanged one is reused. The
+wrappers in the op modules load them with ``ctypes`` and pass device
+pointers, sizes and the current CUDA stream; every C entry point returns
+``cudaGetLastError()``, which :func:`check` turns into an exception.
+
+Nothing here runs at import time: the first wrapper call that launches a
+kernel builds the libraries (this is also what ``chip_smoke.py`` times).
+"""
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from typing import Dict, Optional
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(_PKG_DIR, "_build")
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    # K2's gain must round like the plain version: no a*b+c contraction
+    "--fmad=false",
+)
+
+P = ctypes.c_void_p
+I = ctypes.c_int
+F = ctypes.c_float
+
+#: C signatures: library stem -> {function: (argtypes, restype)}
+SIGNATURES = {
+    "histogram": {
+        "xrt_hist_build": (
+            [P, I, P, P, P, I, I, I, I, I, I, I, P, P, P], I),
+    },
+    "split": {
+        "xrt_find_splits": (
+            [P, I, I, I, F, F, F, F, P, P, P, P, P, P, P, P, P, P], I),
+    },
+    "partition": {
+        "xrt_partition": (
+            [P, P, I, I, P, I, I, P, P, P, P, I, P, I, P, P, P, P, P, P, P,
+             P, P, P], I),
+        "xrt_partition_tile": ([], I),
+    },
+}
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(cand):
+        return cand
+    raise RuntimeError(
+        "nvcc not found (PATH or $CUDA_HOME/bin); the CUDA kernels of "
+        "xgboost_ray_tpu_torch are compiled on first use."
+    )
+
+
+def _digest(stem: str) -> str:
+    h = hashlib.sha256()
+    h.update(" ".join(NVCC_FLAGS).encode())
+    for name in sorted(os.listdir(CSRC_DIR)):
+        if name.endswith(".cuh") or name == f"{stem}.cu":
+            with open(os.path.join(CSRC_DIR, name), "rb") as f:
+                h.update(name.encode())
+                h.update(f.read())
+    return h.hexdigest()[:16]
+
+
+def _lib_path(stem: str) -> str:
+    return os.path.join(BUILD_DIR, _digest(stem), f"libxrt_{stem}.so")
+
+
+def build_all() -> Dict[str, str]:
+    """Compile every out-of-date ``csrc/*.cu`` (one ``nvcc`` per source, all
+    started together); returns {stem: library path}."""
+    stems = sorted(f[:-3] for f in os.listdir(CSRC_DIR) if f.endswith(".cu"))
+    paths = {s: _lib_path(s) for s in stems}
+    todo = [s for s in stems if not os.path.exists(paths[s])]
+    procs = []
+    for s in todo:
+        os.makedirs(os.path.dirname(paths[s]), exist_ok=True)
+        tmp = f"{paths[s]}.{os.getpid()}.tmp"
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-I", CSRC_DIR, "-o", tmp,
+               os.path.join(CSRC_DIR, f"{s}.cu")]
+        procs.append((s, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
+    errors = []
+    for s, tmp, proc in procs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"--- {s}.cu ---\n{out.decode(errors='replace')}")
+            continue
+        os.replace(tmp, paths[s])  # atomic: concurrent builders agree
+    if errors:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
+    return paths
+
+
+@functools.lru_cache(maxsize=None)
+def _libraries() -> Dict[str, ctypes.CDLL]:
+    libs = {}
+    for stem, path in build_all().items():
+        lib = ctypes.CDLL(path)
+        for fn, (argtypes, restype) in SIGNATURES.get(stem, {}).items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = restype
+        libs[stem] = lib
+    return libs
+
+
+def library(stem: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<stem>.cu`` (built on first use)."""
+    return _libraries()[stem]
+
+
+def stream_ptr(device) -> int:
+    import torch
+
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def check(code: int, what: str) -> None:
+    """Raise if a C entry point reported a CUDA error."""
+    if code != 0:
+        import torch
+
+        name = torch.cuda.get_device_name() if torch.cuda.is_available() else "?"
+        raise RuntimeError(f"{what}: CUDA error {code} on {name}")
+
+
+def ptr(t) -> Optional[int]:
+    """Device pointer of a tensor (``None`` passes a null pointer)."""
+    return None if t is None else t.data_ptr()
