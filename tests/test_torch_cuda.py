@@ -4,9 +4,9 @@ few bins, empty nodes). Every test skips without a CUDA device; run them on
 the card with ``python -m pytest tests/test_torch_cuda.py -q``.
 
 Tolerances: with integer-valued gh every f32 sum is exact, so K1 and K2 are
-bitwise; K3's outputs are integers and copies (bitwise); K4's gradients
-within 1e-6 and its metric sums within 1e-5 relative; whole trees grown on
-the card and on the CPU from integer gh are bitwise.
+bitwise; K3's outputs, in both modes, are integers and copies (bitwise);
+K4's gradients within 1e-6 and its metric sums within 1e-5 relative; whole
+trees grown on the card and on the CPU from integer gh are bitwise.
 """
 
 import numpy as np
@@ -41,7 +41,11 @@ def _level(n, f, max_bin, n_nodes, seed=0):
 
 
 SHAPES = [(5000, 7, 256, 4), (3000, 60, 64, 3), (2000, 5, 1024, 8),
-          (4000, 3, 16, 1), (70000, 28, 256, 32)]
+          (4000, 3, 16, 1), (70000, 28, 256, 32),
+          # K1 takes at most 32 features per CTA: F = 33 is two feature
+          # tiles (17 + 16), F = 75 three of 25; F = 7 with uint8 bins has
+          # rows 7 bytes wide, unaligned
+          (20000, 33, 255, 4), (30000, 7, 200, 5), (6000, 75, 256, 3)]
 
 
 @pytest.mark.parametrize("n,f,max_bin,n_nodes", SHAPES)
@@ -59,6 +63,22 @@ def test_histogram_and_split_bitwise(cuda, n, f, max_bin, n_nodes):
     sp = ts.find_splits_plain(hp, p)
     for name in sp._fields:
         assert torch.equal(getattr(sk, name).cpu(), getattr(sp, name)), name
+
+
+@pytest.mark.parametrize("dtype", [torch.int16, torch.uint8])
+def test_histogram_root_identity_order(cuda, dtype):
+    """K1's heaviest launch on the main path: one node, rows in id order."""
+    n, f, nbt = 300000, 28, 257 if dtype == torch.int16 else 256
+    rng = np.random.default_rng(5)
+    bins = torch.from_numpy(rng.integers(0, nbt, (n, f))).to(dtype)
+    gh = torch.from_numpy(np.stack([rng.integers(-3, 4, n),
+                                    rng.integers(1, 5, n)], 1).astype(np.float32))
+    order = torch.arange(n, dtype=torch.int32)
+    seg = torch.tensor([0, n], dtype=torch.int32)
+    hk, tk = th.build_histogram(bins.to(cuda), gh.to(cuda), order.to(cuda),
+                                seg.to(cuda), 1, nbt)
+    hp, tp = th.build_histogram_plain(bins, gh, order, seg, 1, nbt)
+    assert torch.equal(hk.cpu(), hp) and torch.equal(tk.cpu(), tp)
 
 
 @pytest.mark.parametrize("n,f,max_bin,n_nodes", SHAPES)
@@ -86,6 +106,21 @@ def test_partition_bitwise(cuda, n, f, max_bin, n_nodes):
         if write_small:
             assert torch.equal(pk.small_rows[:m].cpu(), pp.small_rows[:m])
         assert torch.equal(rv_k.cpu(), rv_p)
+
+
+@pytest.mark.parametrize("n,n_nodes", [(50001, 64), (3000, 8), (7, 2)])
+def test_partition_leaf_values_bitwise(cuda, n, n_nodes):
+    _, _, order, seg = _level(n, 3, 16, n_nodes, seed=6)
+    rng = np.random.default_rng(7)
+    state = torch.from_numpy(np.where(rng.random(n_nodes) < 0.8, th.LEAF,
+                                      th.INACTIVE).astype(np.uint8))
+    nval = torch.from_numpy(rng.standard_normal(n_nodes).astype(np.float32))
+    rv_p = torch.full((n,), 3.0)
+    rv_k = rv_p.to(cuda)
+    th.partition_leaf_values(order, seg, state, nval, rv_p)
+    th.partition_leaf_values(*(t.to(cuda) for t in (order, seg, state, nval)),
+                             rv_k)
+    assert torch.equal(rv_k.cpu(), rv_p)
 
 
 @pytest.mark.parametrize("logistic", [True, False])
@@ -123,6 +158,14 @@ def test_wrappers_reject_bad_inputs(cuda):
         th.build_histogram(bins.float(), gh, order, seg, 2, 257)
     with pytest.raises(ValueError):
         th.build_histogram(bins, gh.double(), order, seg, 2, 257)
+    unaligned = torch.zeros(2 * 1000 + 1, device=cuda)[1:].view(1000, 2)
+    with pytest.raises(ValueError):
+        th.build_histogram(bins, unaligned, order, seg, 2, 257)
+    with pytest.raises(ValueError):  # order must be 16-byte aligned
+        th.partition_leaf_values(
+            torch.zeros(1001, dtype=torch.int32, device=cuda)[1:], seg,
+            torch.full((2,), th.LEAF, dtype=torch.uint8, device=cuda),
+            torch.zeros(2, device=cuda), torch.zeros(1000, device=cuda))
     with pytest.raises(ValueError):
         ts.find_splits(torch.zeros(2, 4, 257, 2, device=cuda).double(),
                        ts.SplitParams())

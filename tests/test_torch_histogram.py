@@ -141,3 +141,33 @@ def test_partition_level_routes_like_the_jax_grower():
     assert np.array_equal(part.small_rows.numpy()[:m], np.asarray(rows)[:m])
     expect = np.where(pos == 1, -1.25, 7.0).astype(np.float32)
     assert np.array_equal(row_value.numpy(), expect)
+
+
+@pytest.mark.parametrize("n_nodes", [64, 8, 1])
+def test_leaf_value_mode_matches_full_partition_on_last_level(n_nodes):
+    """The grower's last K3 call (every node LEAF or INACTIVE, nothing
+    splits): the leaf-value mode writes the same row_value as the full
+    partition, and the full partition leaves order and segments as they
+    were."""
+    rng = np.random.default_rng(8)
+    n = 3001
+    bins = torch.from_numpy(rng.integers(0, 257, (n, 4)).astype(np.int16))
+    pos = rng.integers(0, n_nodes, n).astype(np.int32)
+    if n_nodes > 2:
+        pos[pos == 2] = 1  # an empty node
+    order, seg = _sorted_layout(pos, n_nodes)
+    active = torch.from_numpy(rng.random(n_nodes) < 0.75)
+    state = torch.where(active, th.LEAF, th.INACTIVE).to(torch.uint8)
+    nval = torch.from_numpy(rng.standard_normal(n_nodes).astype(np.float32))
+    no_split = torch.zeros(n_nodes, dtype=torch.int32)
+    rv_full = torch.full((n,), 5.0)
+    part = th.partition_level_plain(order, seg, bins, no_split, no_split,
+                                    active, state, nval, rv_full, False, 256)
+    assert torch.equal(part.order, order)
+    assert torch.equal(part.seg[0::2], seg)
+    rv_leaf = torch.full((n,), 5.0)
+    th.partition_leaf_values(order, seg, state, nval, rv_leaf)
+    assert torch.equal(rv_leaf, rv_full)
+    leaf_rows = np.isin(pos, np.nonzero(active.numpy())[0])
+    expect = np.where(leaf_rows, nval.numpy()[pos], 5.0).astype(np.float32)
+    assert np.array_equal(rv_leaf.numpy(), expect)

@@ -30,6 +30,8 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     # K2's gain must round like the plain version: no a*b+c contraction
     "--fmad=false",
+    # registers, shared memory and spills of every kernel, kept in the log
+    "-Xptxas", "-v",
 )
 
 P = ctypes.c_void_p
@@ -40,7 +42,8 @@ F = ctypes.c_float
 SIGNATURES = {
     "histogram": {
         "xrt_hist_build": (
-            [P, I, P, P, P, I, I, I, I, I, I, I, P, P, P], I),
+            [P, I, P, P, P, I, I, I, I, I, I, I, I, P, P, P], I),
+        "xrt_hist_ctas_per_sm": ([], I),
     },
     "split": {
         "xrt_find_splits": (
@@ -49,7 +52,8 @@ SIGNATURES = {
     "partition": {
         "xrt_partition": (
             [P, P, I, I, P, I, I, P, P, P, P, I, P, I, P, P, P, P, P, P, P,
-             P, P, P], I),
+             P, P, P, P], I),
+        "xrt_leaf_values": ([P, P, I, I, P, P, P, P], I),
         "xrt_partition_tile": ([], I),
     },
 }
@@ -83,6 +87,16 @@ def _lib_path(stem: str) -> str:
     return os.path.join(BUILD_DIR, _digest(stem), f"libxrt_{stem}.so")
 
 
+def _log_path(lib_path: str) -> str:
+    return lib_path[:-3] + ".log"
+
+
+def build_log(stem: str) -> str:
+    """nvcc's output (``-Xptxas -v``) from the build of ``csrc/<stem>.cu``."""
+    with open(_log_path(build_all()[stem]), errors="replace") as f:
+        return f.read()
+
+
 def build_all() -> Dict[str, str]:
     """Compile every out-of-date ``csrc/*.cu`` (one ``nvcc`` per source, all
     started together); returns {stem: library path}."""
@@ -103,6 +117,8 @@ def build_all() -> Dict[str, str]:
         if proc.returncode != 0:
             errors.append(f"--- {s}.cu ---\n{out.decode(errors='replace')}")
             continue
+        with open(_log_path(paths[s]), "wb") as f:
+            f.write(out)
         os.replace(tmp, paths[s])  # atomic: concurrent builders agree
     if errors:
         raise RuntimeError("nvcc failed:\n" + "\n".join(errors))

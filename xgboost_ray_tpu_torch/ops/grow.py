@@ -17,7 +17,8 @@ Per level d (``n_nodes = 2**d``):
 
 Node totals are read off the histogram (K2), as the JAX grower reads them;
 below the last level K1 sums the final nodes' rows without a histogram and
-one more K3 pass hands every row its final leaf value. Nothing here reads a
+K3's leaf-value mode hands every row its final leaf value (no row moves,
+so that pass routes, scans and scatters nothing). Nothing here reads a
 device value on the host: a tree is launches only.
 
 ``allreduce`` is the histogram merge across ranks: the identity at world 1
@@ -34,6 +35,7 @@ from xgboost_ray_tpu_torch.ops.histogram import (
     LEAF,
     SPLIT,
     build_histogram,
+    partition_leaf_values,
     partition_level,
     zero_phantom_missing,
 )
@@ -175,10 +177,7 @@ def build_tree(
     tree.value[sl] = node_value
     tree.cover[sl] = torch.where(active, node_gh[:, 1], zero)
     tree.base_weight[sl] = node_value
-    no_split = torch.zeros(n_nodes, dtype=torch.int32, device=dev)
-    partition_level(
-        order, seg, bins, no_split, no_split, active,
-        torch.where(active, LEAF, INACTIVE).to(torch.uint8), node_value,
-        row_value, write_small=False, missing_bin=cfg.max_bin,
-    )
+    partition_leaf_values(
+        order, seg, torch.where(active, LEAF, INACTIVE).to(torch.uint8),
+        node_value, row_value)
     return tree, row_value

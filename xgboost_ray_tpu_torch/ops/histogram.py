@@ -14,7 +14,10 @@ of each parent's smaller child for the next level's build, and writes the
 leaf value of rows whose leaf is fixed on this level. It replaces
 ``route_right_binned`` and the ``pos`` update of ``ops/grow.py`` with
 ``update_partition_order`` (``:558``) and ``select_small_child_rows``
-(``:603``). Kernel: ``csrc/partition.cu``.
+(``:603``). Kernel: ``csrc/partition.cu``. Its leaf-value mode,
+``partition_leaf_values``, serves the grower's last call, where no row
+moves: it only writes each leaf row's value (the JAX grower's final
+``row_value``, ``ops/grow.py:782``).
 
 Each wrapper sends CPU tensors to its plain PyTorch version and CUDA
 tensors to its kernel (or raises): there is no fallback. ``launches``
@@ -87,16 +90,30 @@ def _check(cond: bool, what: str) -> None:
         raise ValueError(what)
 
 
+#: shared memory one K1 CTA may use: three CTAs share an SM's 228 KB
+_K1_SMEM_BUDGET = 74 * 1024
+#: fewest node-sorted rows a K1 CTA takes, so the flush stays small next to
+#: the accumulation
+_K1_MIN_ROWS = 2048
+
+
 def _hist_launch_shape(device, num_features: int, n_bins_total: int,
-                       capacity: int) -> Tuple[int, int, int]:
-    """(ftile, grid_x, min_rows) for K1: the widest feature tile whose
-    shared histogram fits in 200 KB, about two CTAs per SM, and at least
-    1024 rows per CTA so the flush stays small next to the accumulation."""
-    ftile = max(1, min(num_features, 48, (200 * 1024) // (8 * n_bins_total)))
+                       capacity: int) -> Tuple[int, bool, int, int]:
+    """(ftile, lane_cols, grid_x, min_rows) for K1: the [bin][32 lanes]
+    shared layout where its 256 x nbt bytes fit ``_K1_SMEM_BUDGET``, else
+    the feature-major one; features split into the fewest even tiles of at
+    most 32 that fit; a persistent grid of three CTAs per SM (fewer when
+    ``capacity`` rows give each CTA less than ``_K1_MIN_ROWS``)."""
+    lib = _build.library("histogram")
+    lane_cols = 256 * n_bins_total <= _K1_SMEM_BUDGET
+    fmax = 32 if lane_cols else max(
+        1, min(32, _K1_SMEM_BUDGET // (8 * n_bins_total)))
+    n_tiles = -(-num_features // fmax)
+    ftile = -(-num_features // n_tiles)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    min_rows = 1024
-    grid_x = max(1, min(2 * sms, -(-capacity // min_rows)))
-    return ftile, grid_x, min_rows
+    grid_x = max(1, min(lib.xrt_hist_ctas_per_sm() * sms,
+                        -(-capacity // _K1_MIN_ROWS)))
+    return ftile, lane_cols, grid_x, _K1_MIN_ROWS
 
 
 def build_histogram(bins: torch.Tensor, gh: torch.Tensor, rows: torch.Tensor,
@@ -115,7 +132,8 @@ def build_histogram(bins: torch.Tensor, gh: torch.Tensor, rows: torch.Tensor,
     _check(bins.dtype in (torch.int16, torch.uint8) and bins.is_contiguous(),
            "build_histogram: bins must be contiguous int16 or uint8 [N, F]")
     _check(gh.dtype == torch.float32 and gh.shape == (n, 2)
-           and gh.is_contiguous(), "build_histogram: gh must be f32 [N, 2]")
+           and gh.is_contiguous() and gh.data_ptr() % 8 == 0,
+           "build_histogram: gh must be 8-byte aligned contiguous f32 [N, 2]")
     _check(rows.dtype == torch.int32 and rows.dim() == 1
            and rows.is_contiguous(), "build_histogram: rows must be int32 [M]")
     _check(seg.dtype == torch.int32 and seg.shape == (n_nodes + 1,)
@@ -125,13 +143,14 @@ def build_histogram(bins: torch.Tensor, gh: torch.Tensor, rows: torch.Tensor,
     hist = (torch.zeros((n_nodes, num_features, n_bins_total, 2),
                         dtype=torch.float32, device=dev) if with_hist else None)
     totals = torch.zeros((n_nodes, 2), dtype=torch.float32, device=dev)
-    ftile, grid_x, min_rows = _hist_launch_shape(
+    ftile, lane_cols, grid_x, min_rows = _hist_launch_shape(
         dev, num_features, n_bins_total, rows.shape[0])
     with torch.cuda.device(dev):
         code = _build.library("histogram").xrt_hist_build(
             bins.data_ptr(), bins.element_size(), gh.data_ptr(),
             rows.data_ptr(), seg.data_ptr(), n_nodes, num_features,
-            n_bins_total, ftile, grid_x, min_rows, int(with_hist),
+            n_bins_total, ftile, int(lane_cols), grid_x, min_rows,
+            int(with_hist),
             _build.ptr(hist), totals.data_ptr(), _build.stream_ptr(dev))
     _build.check(code, "K1 histogram")
     build_histogram.launches += 1
@@ -300,7 +319,8 @@ def partition_level(order: torch.Tensor, seg: torch.Tensor, bins: torch.Tensor,
                and t.is_contiguous(), f"partition_level: node array must be "
                f"contiguous {dt} [n_nodes] on {dev}")
     _check(order.dtype == torch.int32 and order.shape == (n,)
-           and order.is_contiguous(), "partition_level: order int32 [N]")
+           and order.is_contiguous() and order.data_ptr() % 16 == 0,
+           "partition_level: order 16-byte aligned int32 [N]")
     _check(seg.dtype == torch.int32 and seg.shape == (n_nodes + 1,)
            and seg.device == dev, "partition_level: seg int32 [n_nodes + 1]")
     _check(bins.device == dev and bins.is_contiguous()
@@ -311,6 +331,7 @@ def partition_level(order: torch.Tensor, seg: torch.Tensor, bins: torch.Tensor,
            "partition_level: row_value f32 [N]")
     n_tiles = max(1, -(-n // lib.xrt_partition_tile()))
     i32 = dict(dtype=torch.int32, device=dev)
+    mask = torch.empty(-(-n // 8), dtype=torch.uint8, device=dev)  # go-right bits
     tile_left = torch.empty(n_tiles, **i32)
     bnd_left = torch.empty(n_nodes + 1, **i32)
     node_left0 = torch.empty(n_nodes + 1, **i32)
@@ -325,7 +346,8 @@ def partition_level(order: torch.Tensor, seg: torch.Tensor, bins: torch.Tensor,
             bins.element_size(), num_features, feature.data_ptr(),
             split_bin.data_ptr(), default_left.data_ptr(), state.data_ptr(),
             missing_bin, node_value.data_ptr(), int(write_small),
-            tile_left.data_ptr(), bnd_left.data_ptr(), node_left0.data_ptr(),
+            mask.data_ptr(), tile_left.data_ptr(), bnd_left.data_ptr(),
+            node_left0.data_ptr(),
             new_order.data_ptr(), new_seg.data_ptr(), small_rows.data_ptr(),
             small_seg.data_ptr(), small_is_right.data_ptr(),
             row_value.data_ptr(), _build.stream_ptr(dev))
@@ -336,3 +358,50 @@ def partition_level(order: torch.Tensor, seg: torch.Tensor, bins: torch.Tensor,
 
 
 partition_level.launches = 0
+
+
+def partition_leaf_values_plain(order, seg, state, node_value,
+                                row_value) -> None:
+    """Plain PyTorch K3 leaf-value mode: ``row_value[order[p]] =
+    node_value[k]`` for every position p of a LEAF node k; the row-value
+    write of ``partition_level_plain`` alone."""
+    node = _node_of_slot(seg, state.shape[0])
+    leaf = state[node] == LEAF
+    row_value[order.long()[leaf]] = node_value[node[leaf]]
+
+
+def partition_leaf_values(order: torch.Tensor, seg: torch.Tensor,
+                          state: torch.Tensor, node_value: torch.Tensor,
+                          row_value: torch.Tensor) -> None:
+    """K3's leaf-value mode, for the grower's last call: every node is a
+    LEAF or INACTIVE, so no row moves and only ``row_value`` (f32 [N],
+    written in place) is produced. No routing, scan or new order."""
+    if not order.is_cuda:
+        partition_leaf_values_plain(order, seg, state, node_value, row_value)
+        return
+    n = order.shape[0]
+    n_nodes = state.shape[0]
+    dev = order.device
+    for t, dt in ((state, torch.uint8), (node_value, torch.float32)):
+        _check(t.device == dev and t.dtype == dt and t.shape == (n_nodes,)
+               and t.is_contiguous(), f"partition_leaf_values: node array "
+               f"must be contiguous {dt} [n_nodes] on {dev}")
+    _check(order.dtype == torch.int32 and order.dim() == 1
+           and order.is_contiguous() and order.data_ptr() % 16 == 0,
+           "partition_leaf_values: order 16-byte aligned int32 [N]")
+    _check(seg.dtype == torch.int32 and seg.shape == (n_nodes + 1,)
+           and seg.device == dev and seg.is_contiguous(),
+           "partition_leaf_values: seg int32 [n_nodes + 1]")
+    _check(row_value.device == dev and row_value.dtype == torch.float32
+           and row_value.shape == (n,) and row_value.is_contiguous(),
+           "partition_leaf_values: row_value f32 [N]")
+    with torch.cuda.device(dev):
+        code = _build.library("partition").xrt_leaf_values(
+            order.data_ptr(), seg.data_ptr(), n_nodes, n, state.data_ptr(),
+            node_value.data_ptr(), row_value.data_ptr(),
+            _build.stream_ptr(dev))
+    _build.check(code, "K3 leaf values")
+    partition_leaf_values.launches += 1
+
+
+partition_leaf_values.launches = 0
