@@ -12,17 +12,22 @@ CUDA device, ``nvcc`` and ``triton``, and nothing of JAX. Phases:
 2. every kernel against its plain PyTorch version on the card, at the main
    path's shapes (HIGGS width F = 28, int16 bins, 257 buckets, a level-5
    fan-out of 32 nodes; K1 also at the root: one node, identity order;
-   K3's leaf-value mode at the final level's 64 nodes), with
-   integer-valued gradients (exact f32 sums: K1 and K2 must be bitwise)
-   and random ones (stated tolerances); each kernel is timed with CUDA
-   events beside its plain version and, where one PyTorch call computes
-   the same function, that call (K1: ``index_add_``; K3: a stable
-   ``torch.sort`` of the child key, which covers only the partition core);
+   K2's level step at level 5 with the sibling prologue (16 parents, 32
+   nodes) and its final-level records and K3's leaf-value mode at the
+   final level's 64 nodes), with integer-valued gradients (exact f32 sums:
+   K1 and K2 must be bitwise) and random ones (stated tolerances; K2's
+   level step and records are bitwise on both); each kernel is timed with
+   CUDA events around its wrapper (``ms``: the host's issue time shows
+   where it is the slower) and by ``torch.profiler`` (``device_ms``: the
+   kernels' own device time per launch), beside its plain version and,
+   where one PyTorch call computes the same function, that call (K1:
+   ``index_add_``; K3: a stable ``torch.sort`` of the child key, which
+   covers only the partition core);
 3. the main path: ``train()`` on a HIGGS-shaped synthetic set (11,000,000 x
    28 rows, depth 6, 256 bins, 10 rounds) with ``num_actors=1`` and ``2``,
    with the launch counters set to 0 before and read after each run, then
-   two more rounds under ``torch.profiler`` (device time by kernel, idle
-   share against the unprofiled round);
+   two more rounds under ``torch.profiler`` (device time by kernel, CUDA
+   launches per round, idle share against the unprofiled round);
 4. the card against the port's CPU path on a 200,000-row slice (3 rounds);
 5. ``save_model`` -> ``load_model`` on the card, ``save_raw`` bytes equal.
 
@@ -31,6 +36,10 @@ the card's name and power limit, and as its last line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
 that line. ``--rows`` and ``--rounds`` shrink phase 3 for a quick run;
 results also go to ``chiprun_out/chip_smoke.json``.
+
+``--profile-only`` runs the build and phase 3's profile alone and prints
+no result line; it also works against an older tree of the package (copy
+this script into that tree), to count that tree's CUDA launches per round.
 """
 
 import argparse
@@ -84,6 +93,30 @@ def cuda_ms(fn, iters=10, warmup=2):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters=10):
+    """Device time per call of ``fn`` of the kernels it launches, from
+    ``torch.profiler``: the port's own kernels, not the wrapper's
+    allocations and fills (PyTorch's ``at::`` kernels, copies, memsets)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for e in prof.key_averages():
+        if (e.device_type != torch.autograd.DeviceType.CUDA or "at::" in e.key
+                or e.key.startswith(("Memcpy", "Memset"))):
+            continue
+        t = getattr(e, "self_device_time_total", None)
+        total += (e.self_cuda_time_total if t is None else t) / 1e3
+    check(total > 0, "torch.profiler saw no device time of the kernels")
+    return total / iters
 
 
 def bound_ms(nbytes, nflops):
@@ -220,6 +253,13 @@ def phase_build_report():
 # ---------------------------------------------------------------------------
 
 
+def bits(t):
+    """A tensor to compare bit for bit (float32 as its int32 pattern)."""
+    import torch
+
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
 def level_inputs(n, f, n_nodes, seed, integer_gh):
     """A level-5-like state: bins, gh, node-sorted rows and segments."""
     import torch
@@ -309,6 +349,43 @@ def phase_kernels(n, records):
             check(same, "K2 split choice differs from the plain version")
             check(err2 <= 1e-4 * float(sp.gain.abs().max()) + 1e-6,
                   f"K2 gain beyond tolerance ({err2})")
+        # K2's level step at level 5: 16 parents (two level-5 histograms
+        # each), their smaller children, 32 nodes formed (a few inactive),
+        # records written and the formed histogram kept
+        g2 = torch.Generator(device="cuda").manual_seed(17)
+        level = dict(
+            hist=hp[0::2].contiguous(), prev_hist=hp[0::2] + hp[1::2],
+            small_is_right=torch.rand(16, generator=g2, device="cuda") < 0.5,
+            active=torch.arange(32, device="cuda") % 13 != 5)
+        cuts = torch.sort(torch.randn(f, nbt - 2, generator=g2, device="cuda"),
+                          dim=1).values
+        fhm = torch.arange(f, device="cuda") % 3 != 0
+        from xgboost_ray_tpu_torch.ops.grow import empty_tree
+        rec_k = S.TreeRecords(empty_tree(127, "cuda"), cuts, fhm, p)
+        rec_p = S.TreeRecords(empty_tree(127, "cuda"), cuts, fhm, p)
+        lk = S.split_level(**level, rec=rec_k)
+        lp = S.split_level_plain(**level, rec=rec_p)
+        torch.cuda.synchronize()
+        level_out = ([(getattr(lk.splits, k), getattr(lp.splits, k))
+                      for k in lk.splits._fields]
+                     + [(getattr(lk, k), getattr(lp, k))
+                        for k in ("node_value", "state", "active", "hist")]
+                     + list(zip(rec_k.tree, rec_p.tree)))
+        check(all(torch.equal(bits(a), bits(b)) for a, b in level_out),
+              "K2 level step not bitwise equal to its plain version")
+        err2l = float((lk.hist - lp.hist).abs().max())
+        # K2's final-level records: 64 nodes, a few inactive
+        gh64 = torch.stack([torch.randn(64, generator=g2, device="cuda") * 40,
+                            torch.rand(64, generator=g2, device="cuda") * 90], 1)
+        act64 = torch.arange(64, device="cuda") % 7 != 3
+        rec64_k = S.TreeRecords(empty_tree(127, "cuda"), cuts, fhm, p)
+        rec64_p = S.TreeRecords(empty_tree(127, "cuda"), cuts, fhm, p)
+        leaf_k = S.leaf_records(gh64, act64, rec64_k)
+        leaf_p = S.leaf_records_plain(gh64, act64, rec64_p)
+        torch.cuda.synchronize()
+        check(all(torch.equal(bits(a), bits(b)) for a, b in
+                  list(zip(leaf_k, leaf_p)) + list(zip(rec64_k.tree, rec64_p.tree))),
+              "K2 leaf records not bitwise equal to their plain version")
         # K3 with a mix of splitting, new-leaf and inactive nodes
         gen = torch.Generator(device="cuda").manual_seed(11)
         feature = torch.randint(0, f, (n_nodes,), generator=gen,
@@ -365,7 +442,8 @@ def phase_kernels(n, records):
         check(err4 <= 1e-6, f"K4 gradients beyond 1e-6 ({err4})")
         rel = float(((sk4 - sp4).abs() / sp4.abs().clamp(min=1e-12)).max())
         check(rel <= 1e-5, f"K4 metric sums beyond 1e-5 relative ({rel})")
-        res[tag] = {"K1": err1, "K1root": err1r, "K2": err2, "K3": 0.0,
+        res[tag] = {"K1": err1, "K1root": err1r, "K2": err2,
+                    "K2level": err2l, "K2leaf": 0.0, "K3": 0.0,
                     "K3leaf": 0.0, "K4": err4}
         emit({"phase": "kernel_vs_plain", "gh": tag, "max_abs_err": res[tag]})
 
@@ -393,6 +471,19 @@ def phase_kernels(n, records):
         del flat, src
         t["K2"] = (cuda_ms(lambda: S.find_splits(hp, p)),
                    cuda_ms(lambda: S.find_splits_plain(hp, p), iters=3))
+        t["K2level"] = (cuda_ms(lambda: S.split_level(**level, rec=rec_k)),
+                        cuda_ms(lambda: S.split_level_plain(**level, rec=rec_p),
+                                iters=3))
+        t["K2leaf"] = (cuda_ms(lambda: S.leaf_records(gh64, act64, rec64_k)),
+                       cuda_ms(lambda: S.leaf_records_plain(gh64, act64,
+                                                            rec64_p), iters=3))
+        # the level step's host issue time: enqueue only, no synchronise
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(50):
+            S.split_level(**level, rec=rec_k)
+        k2_host_ms = (time.perf_counter() - t0) / 50 * 1e3
+        torch.cuda.synchronize()
         t["K3"] = (cuda_ms(lambda: H.partition_level(
                        order, seg, bins, feature, sbin, dl, state, nval, rvk,
                        True, 256)),
@@ -422,8 +513,27 @@ def phase_kernels(n, records):
                        (H.SPLIT, torch.uint8), (0.0, torch.float32))]
         k3_root_ms = cuda_ms(lambda: H.partition_level(
             ident, seg1, bins, *root_nodes, rvk, True, 256))
+        dev_ms = {
+            "K1": device_ms(lambda: H.build_histogram(bins, gh, order, seg,
+                                                      n_nodes, nbt)),
+            "K1root": device_ms(lambda: H.build_histogram(bins, gh, ident,
+                                                          seg1, 1, nbt)),
+            "K2": device_ms(lambda: S.find_splits(hp, p)),
+            "K2level": device_ms(lambda: S.split_level(**level, rec=rec_k)),
+            "K2leaf": device_ms(lambda: S.leaf_records(gh64, act64, rec64_k)),
+            "K3": device_ms(lambda: H.partition_level(
+                order, seg, bins, feature, sbin, dl, state, nval, rvk, True,
+                256)),
+            "K3leaf": device_ms(lambda: H.partition_leaf_values(
+                order64, seg64, state64, nval64, rvk)),
+            "K4": device_ms(lambda: O.round_update(mk, rv, label, weight,
+                                                   True)),
+        }
         emit({"phase": "kernel_context", "k3_root_ms": k3_root_ms,
-              "k3_level5_ms": t["K3"][0]})
+              "k3_level5_ms": t["K3"][0],
+              "k2_level5_host_issue_ms": k2_host_ms,
+              "k2_level5_event_ms": t["K2level"][0],
+              "k2_level5_device_ms": dev_ms["K2level"]})
         t["K4"] = (cuda_ms(lambda: O.round_update(mk, rv, label, weight, True)),
                    cuda_ms(lambda: O.round_update_plain(mp, rv, label, weight,
                                                        True), iters=3))
@@ -439,6 +549,13 @@ def phase_kernels(n, records):
                                2 * n * f),
             # histogram read once; prefix adds + ~30 flops per candidate
             "K2": bound_ms(hist_bytes, n_nodes * f * (2 * nbt + 30 * (nbt - 2))),
+            # 16 parents' and 16 children's histograms read, 32 formed ones
+            # written, a cut read and ~38 bytes of records and outputs per
+            # node; the subtraction, prefix adds and candidates as for K2
+            "K2level": bound_ms(2 * hist_bytes + 16 + 32 + 32 * (4 + 38),
+                                n_nodes * f * (3 * nbt + 30 * (nbt - 2))),
+            # totals and active read; value, state, 4 records written
+            "K2leaf": bound_ms(64 * (8 + 1 + 4 + 1 + 13), 64 * 12),
             # order + one bin per row read, order + compacted list +
             # leaf values written
             "K3": bound_ms(n * 4 + n * 2 + n * 4 + m * 4 + n_leaf_rows * 4, n),
@@ -450,8 +567,9 @@ def phase_kernels(n, records):
         library = {"K1": lib_k1, "K1root": lib_k1root, "K3": lib_k3}
         for k in t:
             records[k].update(
-                ms=t[k][0], plain_ms=t[k][1], bound_ms=bounds[k][0],
-                bound_by=bounds[k][1], library_ms=library.get(k))
+                ms=t[k][0], device_ms=dev_ms[k], plain_ms=t[k][1],
+                bound_ms=bounds[k][0], bound_by=bounds[k][1],
+                library_ms=library.get(k))
     for k in records:
         records[k]["max_abs_err"] = max(res["int"][k], res["rand"][k])
     return res
@@ -468,6 +586,7 @@ def counters():
     from xgboost_ray_tpu_torch.ops import split as S
 
     return {"K1": H.build_histogram, "K2": S.find_splits,
+            "K2level": S.split_level, "K2leaf": S.leaf_records,
             "K3": H.partition_level, "K3leaf": H.partition_leaf_values,
             "K4": O.round_update}
 
@@ -493,16 +612,19 @@ def phase_main(x, y, rounds, depth, actors):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in fns.items()}
-    # per tree: K1 at every level + the final totals, K2 and the full K3 at
-    # every level, K3's leaf-value mode once (the final leaves)
-    expect = {"K1": rounds * (depth + 1), "K2": rounds * depth,
-              "K3": rounds * depth, "K3leaf": rounds, "K4": rounds + 1}
+    # per tree: K1 at every level + the final totals, K2's level step and
+    # the full K3 at every level, K2's final records and K3's leaf-value
+    # mode once (the final leaves); K2's bare search is off the path
+    expect = {"K1": rounds * (depth + 1), "K2": 0, "K2level": rounds * depth,
+              "K2leaf": rounds, "K3": rounds * depth, "K3leaf": rounds,
+              "K4": rounds + 1}
     ll = evals_result["train"]["logloss"]
     check(all(np.isfinite(ll)), f"non-finite train logloss {ll}")
     check(all(b < a for a, b in zip(ll, ll[1:])),
           f"train logloss does not fall every round: {ll}")
     for k in expect:
-        check(launches[k] > 0, f"{k} never launched on the main path")
+        check(launches[k] > 0 or expect[k] == 0,
+              f"{k} never launched on the main path")
         check(launches[k] == expect[k],
               f"{k} launched {launches[k]} times, expected {expect[k]}")
     check(bst.num_boosted_rounds() == rounds, "wrong number of trees")
@@ -548,7 +670,11 @@ def phase_profile(x, y, depth, round_ms, rounds=2):
         wall_ms = (time.perf_counter() - t0) * 1e3
     cuda = torch.autograd.DeviceType.CUDA
     kern = {}
+    syncs = 0  # host waits on the card: scalar reads, stream/device syncs
     for e in prof.key_averages():
+        if e.key in ("aten::_local_scalar_dense", "cudaStreamSynchronize",
+                     "cudaDeviceSynchronize", "cudaMemcpy"):
+            syncs += e.count
         if e.device_type != cuda:
             continue
         t = getattr(e, "self_device_time_total", None)
@@ -556,12 +682,26 @@ def phase_profile(x, y, depth, round_ms, rounds=2):
             t = e.self_cuda_time_total
         kern[e.key] = (kern.get(e.key, (0.0, 0))[0] + t / 1e3,
                        kern.get(e.key, (0.0, 0))[1] + e.count)
+    # K2's level step, device us per launch by tree level
+    lvl = sorted((e.time_range.start, e.time_range.elapsed_us())
+                 for e in prof.events() if e.device_type == cuda
+                 and e.name.startswith("xrt_split_level_kernel"))
+    by_level = ([float(np.mean([t for _, t in lvl[d::depth]]))
+                 for d in range(depth)] if len(lvl) == rounds * depth else None)
     device_ms = sum(v[0] for v in kern.values())
-    top = sorted(kern.items(), key=lambda kv: -kv[1][0])[:12]
+    launches = sum(v[1] for v in kern.values())
+    kernels = sum(v[1] for k, v in kern.items()
+                  if not k.startswith(("Memcpy", "Memset")))
+    top = sorted(kern.items(), key=lambda kv: -kv[1][0])[:20]
     out = {"phase": "profile", "rows": int(x.shape[0]), "rounds": rounds,
            "round_ms_unprofiled": round_ms,
            "device_ms_per_round": device_ms / rounds,
-           "device_idle_share": max(0.0, 1.0 - device_ms / rounds / round_ms),
+           "cuda_launches_per_round": launches / rounds,
+           "kernel_launches_per_round": kernels / rounds,
+           "host_syncs_per_round": syncs / rounds,
+           "split_level_us_by_level": by_level,
+           "device_idle_share": (None if round_ms is None else
+                                 max(0.0, 1.0 - device_ms / rounds / round_ms)),
            "wall_ms_per_round_profiled": wall_ms / rounds,
            "device_idle_share_profiled": max(0.0, 1.0 - device_ms / wall_ms),
            "top_kernels_ms_per_round": [
@@ -636,9 +776,17 @@ KERNELS = {
                    "identity order)", route="cuda",
                    source="xgboost_ray_tpu_torch/csrc/histogram.cu",
                    replaces="46abde5^:xgboost_ray_tpu/ops/hist_pallas.py:105"),
-    "K2": dict(name="K2 node totals + split search", route="cuda",
+    "K2": dict(name="K2 node totals + split search alone (find_splits, "
+               "level 5: 32 nodes)", route="cuda",
                source="xgboost_ray_tpu_torch/csrc/split.cu",
                replaces="xgboost_ray_tpu/ops/split.py:79"),
+    "K2level": dict(name="K2 level step: sibling formation + totals + split "
+                    "search + tree records (level 5: 16 parents, 32 nodes)",
+                    route="cuda", source="xgboost_ray_tpu_torch/csrc/split.cu",
+                    replaces="xgboost_ray_tpu/ops/grow.py:570"),
+    "K2leaf": dict(name="K2 final-level records (64 nodes)", route="cuda",
+                   source="xgboost_ray_tpu_torch/csrc/split.cu",
+                   replaces="xgboost_ray_tpu/ops/grow.py:765"),
     "K3": dict(name="K3 routing + stable partition + small-child compaction",
                route="cuda", source="xgboost_ray_tpu_torch/csrc/partition.cu",
                replaces="xgboost_ray_tpu/ops/histogram.py:558"),
@@ -687,10 +835,14 @@ def run(args):
           "triton_first_launch_seconds": time.perf_counter() - t1})
     build_report = phase_build_report()
 
+    x, y = make_higgs_like(args.rows, 28, seed=0)
+    if args.profile_only:
+        phase_profile(x, y, 6, None)
+        return
+
     records = {k: dict(v) for k, v in KERNELS.items()}
     phase_kernels(args.rows, records)
 
-    x, y = make_higgs_like(args.rows, 28, seed=0)
     if args.rows < 11_000_000:
         emit({"phase": "main_path_cut", "rows": args.rows,
               "reason": "--rows below the 11,000,000-row HIGGS protocol"})
@@ -711,7 +863,8 @@ def run(args):
     phase_save_load(bst)
 
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+             "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+             "library_ms")
     kernels = [{k: records[key][k] for k in order} for key in sorted(records)]
     emit({"kernels": kernels})
     os.makedirs(OUT_DIR, exist_ok=True)
@@ -731,6 +884,10 @@ def main():
     ap.add_argument("--rows", type=int, default=11_000_000)
     ap.add_argument("--rounds", type=int, default=10)
     ap.add_argument("--compare-rows", type=int, default=200_000)
+    ap.add_argument("--profile-only", action="store_true",
+                    help="only the main path's profile (device time and CUDA "
+                         "launches per round; works on an older tree of the "
+                         "package too); prints no result line")
     args = ap.parse_args()
     try:
         run(args)

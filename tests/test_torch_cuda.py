@@ -4,9 +4,11 @@ few bins, empty nodes). Every test skips without a CUDA device; run them on
 the card with ``python -m pytest tests/test_torch_cuda.py -q``.
 
 Tolerances: with integer-valued gh every f32 sum is exact, so K1 and K2 are
-bitwise; K3's outputs, in both modes, are integers and copies (bitwise);
-K4's gradients within 1e-6 and its metric sums within 1e-5 relative; whole
-trees grown on the card and on the CPU from integer gh are bitwise.
+bitwise (K2's level step on every output, its records and the formed
+histogram included, and its final-level records on random totals); K3's
+outputs, in both modes, are integers and copies (bitwise); K4's gradients
+within 1e-6 and its metric sums within 1e-5 relative; whole trees grown on
+the card and on the CPU from integer gh are bitwise on every field.
 """
 
 import numpy as np
@@ -141,15 +143,123 @@ def test_round_update(cuda, logistic):
     assert torch.allclose(sk.cpu(), sp, rtol=1e-5, atol=0)
 
 
-def test_build_tree_card_equals_cpu(cuda):
-    bins, gh, _, _ = _level(20000, 9, 256, 1, seed=4)
-    cuts = torch.sort(torch.randn(9, 255), dim=1).values
-    cfg = tg.GrowConfig(max_depth=6, max_bin=256)
-    tc, rc = tg.build_tree(bins, gh, cuts, cfg)
-    tk, rk = tg.build_tree(bins.to(cuda), gh.to(cuda), cuts.to(cuda), cfg)
+def _bits(t):
+    t = t.cpu()
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def _same_bits(a, b):
+    return torch.equal(_bits(a), _bits(b))
+
+
+def _level_step_inputs(n, f, max_bin, n_par, sibling, seed):
+    """Integer-gh histograms of a level: with ``sibling``, the n_par
+    parents' (prev) and a row subset of each (the smaller children), else
+    the level's own n_par nodes; small_is_right, active (some inactive)."""
+    bins, gh, order, seg = _level(n, f, max_bin, n_par, seed=seed)
+    nbt = max_bin + 1
+    prev, _ = th.build_histogram_plain(bins, gh, order, seg, n_par, nbt)
+    rng = np.random.default_rng(seed + 100)
+    if not sibling:
+        active = torch.from_numpy(rng.random(n_par) < 0.8)
+        return prev, None, None, active
+    keep = torch.from_numpy(rng.random(n) < 0.4)
+    gh_small = gh * keep[:, None].float()
+    small, _ = th.build_histogram_plain(bins, gh_small, order, seg, n_par, nbt)
+    sir = torch.from_numpy(rng.random(n_par) < 0.5)
+    active = torch.from_numpy(rng.random(2 * n_par) < 0.8)
+    return small, prev, sir, active
+
+
+@pytest.mark.parametrize("sibling", [True, False])
+@pytest.mark.parametrize("n,f,max_bin,n_nodes", SHAPES)
+def test_split_level_bitwise(cuda, n, f, max_bin, n_nodes, sibling):
+    hist, prev, sir, active = _level_step_inputs(n, f, max_bin, n_nodes,
+                                                 sibling, seed=9)
+    rng = np.random.default_rng(10)
+    cuts = torch.from_numpy(
+        np.sort(rng.standard_normal((f, max_bin - 1)), 1).astype(np.float32))
+    fhm_mixed = torch.from_numpy(rng.random(f) < 0.5)
+    params = (ts.SplitParams(min_child_weight=2.0),
+              ts.SplitParams(reg_lambda=0.5, reg_alpha=0.7, gamma=1.5,
+                             min_child_weight=3.0, max_delta_step=0.5,
+                             learning_rate=0.1))
+    heap = 2 * active.shape[0] + 1
+    for fhm, p in ((fhm_mixed, params[0]), (None, params[1])):
+        tree_p = tg.empty_tree(heap, "cpu")
+        tree_k = tg.empty_tree(heap, cuda)
+        dev = lambda t: None if t is None else t.to(cuda)  # noqa: E731
+        sp = ts.split_level(hist.clone(), prev, sir, active,
+                            ts.TreeRecords(tree_p, cuts, fhm, p))
+        sk = ts.split_level(dev(hist), dev(prev), dev(sir), dev(active),
+                            ts.TreeRecords(tree_k, dev(cuts), dev(fhm), p))
+        for name in sp.splits._fields:
+            assert _same_bits(getattr(sk.splits, name),
+                              getattr(sp.splits, name)), name
+        for name in ("node_value", "state", "active", "hist"):
+            assert _same_bits(getattr(sk, name), getattr(sp, name)), name
+        for name in tg.Tree._fields:
+            assert _same_bits(getattr(tree_k, name), getattr(tree_p, name)), name
+        # the last split level keeps no histogram
+        none = ts.split_level(dev(hist), dev(prev), dev(sir), dev(active),
+                              ts.TreeRecords(tree_k, dev(cuts), dev(fhm), p),
+                              keep_hist=False)
+        assert none.hist is None
+        assert _same_bits(none.splits.gain, sp.splits.gain)
+
+
+@pytest.mark.parametrize("n_nodes", [1, 64, 300])
+def test_leaf_records_bitwise(cuda, n_nodes):
+    rng = np.random.default_rng(n_nodes)
+    node_gh = torch.from_numpy(np.stack(
+        [rng.standard_normal(n_nodes) * 5,
+         rng.uniform(0.0, 3.0, n_nodes)], 1).astype(np.float32))
+    node_gh[0] = torch.tensor([-0.0, 0.0])
+    active = torch.from_numpy(rng.random(n_nodes) < 0.7)
+    for p in (ts.SplitParams(),
+              ts.SplitParams(reg_alpha=0.4, max_delta_step=0.3,
+                             learning_rate=0.05)):
+        tree_p = tg.empty_tree(2 * n_nodes - 1, "cpu")
+        tree_k = tg.empty_tree(2 * n_nodes - 1, cuda)
+        cuts = torch.zeros(2, 7)
+        vp, stp = ts.leaf_records(node_gh, active,
+                                  ts.TreeRecords(tree_p, cuts, None, p))
+        vk, stk = ts.leaf_records(node_gh.to(cuda), active.to(cuda),
+                                  ts.TreeRecords(tree_k, cuts.to(cuda), None, p))
+        assert _same_bits(vk, vp) and _same_bits(stk, stp)
+        for name in tg.Tree._fields:
+            assert _same_bits(getattr(tree_k, name), getattr(tree_p, name)), name
+
+
+TREE_CASES = {
+    "default": (256, dict(), True),
+    "regularized": (256, dict(reg_lambda=2.0, reg_alpha=0.3, gamma=0.5,
+                              max_delta_step=0.7, learning_rate=0.1), True),
+    "early_leaves": (256, dict(min_child_weight=2000.0), True),
+    "uint8_max_bin_64": (64, dict(), True),
+    "no_sibling_subtraction": (256, dict(reg_alpha=0.1), False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(TREE_CASES))
+def test_build_tree_card_equals_cpu(cuda, case):
+    max_bin, split, sibling = TREE_CASES[case]
+    bins, gh, _, _ = _level(20000, 9, max_bin, 1, seed=4)
+    # features 0, 2, ... have no missing value
+    bins[:, ::2] = bins[:, ::2].clamp(max=max_bin - 1)
+    fhm = (bins == max_bin).any(0)
+    assert fhm.any() and not fhm.all()
+    cuts = torch.sort(torch.randn(9, max_bin - 1), dim=1).values
+    cfg = tg.GrowConfig(max_depth=6, max_bin=max_bin,
+                        split=ts.SplitParams(**split), sibling_subtract=sibling)
+    tc, rc = tg.build_tree(bins, gh, cuts, cfg, feat_has_missing=fhm)
+    tk, rk = tg.build_tree(bins.to(cuda), gh.to(cuda), cuts.to(cuda), cfg,
+                           feat_has_missing=fhm.to(cuda))
     for name in tg.Tree._fields:
-        assert torch.equal(getattr(tk, name).cpu(), getattr(tc, name)), name
-    assert torch.equal(rk.cpu(), rc)
+        assert _same_bits(getattr(tk, name), getattr(tc, name)), name
+    assert _same_bits(rk, rc)
+    if case == "early_leaves":  # nodes stop above the last level
+        assert bool(tc.is_leaf[:31].any())
 
 
 def test_wrappers_reject_bad_inputs(cuda):
@@ -169,6 +279,37 @@ def test_wrappers_reject_bad_inputs(cuda):
     with pytest.raises(ValueError):
         ts.find_splits(torch.zeros(2, 4, 257, 2, device=cuda).double(),
                        ts.SplitParams())
+    with pytest.raises(ValueError):  # float2 loads: 8-byte aligned
+        ts.find_splits(torch.zeros(2 * 4 * 257 * 2 + 1, device=cuda)[1:]
+                       .view(2, 4, 257, 2), ts.SplitParams())
+    rec = ts.TreeRecords(tg.empty_tree(7, cuda),
+                         torch.zeros(4, 255, device=cuda), None,
+                         ts.SplitParams())
+    hist = torch.zeros(2, 4, 257, 2, device=cuda)
+    act = torch.ones(4, dtype=torch.bool, device=cuda)
+    sir = torch.ones(2, dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError):  # active must be bool
+        ts.split_level(hist, hist, sir, act.to(torch.uint8), rec)
+    with pytest.raises(ValueError):  # prev_hist of another shape
+        ts.split_level(hist, hist[:1], sir, act, rec)
+    with pytest.raises(ValueError):  # n_nodes / 2 nodes without prev_hist
+        ts.split_level(hist, None, None, act, rec)
+    with pytest.raises(ValueError):  # cuts of another width
+        ts.split_level(hist, None, None, act[:2],
+                       ts.TreeRecords(tg.empty_tree(7, cuda),
+                                      torch.zeros(4, 100, device=cuda), None,
+                                      ts.SplitParams()))
+    with pytest.raises(ValueError):  # tree arrays of the wrong type
+        bad = tg.empty_tree(7, cuda)._replace(
+            value=torch.zeros(7, dtype=torch.float64, device=cuda))
+        ts.split_level(hist, None, None, act[:2],
+                       ts.TreeRecords(bad, torch.zeros(4, 255, device=cuda),
+                                      None, ts.SplitParams()))
+    with pytest.raises(ValueError):
+        ts.leaf_records(torch.zeros(4, 2, device=cuda).double(), act, rec)
+    with pytest.raises(ValueError):  # a tree too small for the level
+        ts.leaf_records(torch.zeros(8, 2, device=cuda),
+                        torch.ones(8, dtype=torch.bool, device=cuda), rec)
     with pytest.raises(ValueError):
         to.round_update(torch.zeros(5, device=cuda), torch.zeros(4, device=cuda),
                         torch.zeros(5, device=cuda), torch.ones(5, device=cuda),

@@ -87,3 +87,12 @@ def test_build_tree_uint8_bins_and_early_leaves():
                              min_child_weight=40.0)
     assert bool(np.asarray(jt.is_leaf)[:31].any())
     _assert_same_tree(jt, jrv, tt, trv)
+
+
+def test_build_tree_depth6_sibling_regularized():
+    # sibling subtraction on, with the L1 term, the max_delta_step clamp and
+    # a gamma threshold: every record the level step writes, at depth 6
+    bins, cuts, fhm, gh = _problem(3)
+    _assert_same_tree(*_both(bins, cuts, fhm, gh, max_depth=6, sibling=True,
+                             reg_alpha=0.2, max_delta_step=0.3, gamma=0.1,
+                             learning_rate=0.2))

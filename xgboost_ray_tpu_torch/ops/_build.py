@@ -46,8 +46,11 @@ SIGNATURES = {
         "xrt_hist_ctas_per_sm": ([], I),
     },
     "split": {
+        "xrt_split_level": (
+            [P, P, P, P, P, I, P, P, P, P, P, P, P, P, P, P, P], I),
+        "xrt_leaf_records": ([P, P, P, I, P, P, P], I),
         "xrt_find_splits": (
-            [P, I, I, I, F, F, F, F, P, P, P, P, P, P, P, P, P, P], I),
+            [P, I, I, I, F, F, F, F, P, P, P, P, P, P, P], I),
     },
     "partition": {
         "xrt_partition": (
@@ -57,6 +60,21 @@ SIGNATURES = {
         "xrt_partition_tile": ([], I),
     },
 }
+
+
+class TreeArgs(ctypes.Structure):
+    """``XrtTreeArgs`` of ``csrc/split.cu``: what every level of one tree
+    shares (the heap arrays it writes, cuts, feat_has_missing, sizes and
+    split parameters), filled once per tree and passed by pointer."""
+
+    _fields_ = ([(name, P) for name in (
+        "feature", "split_bin", "threshold", "default_left", "is_leaf",
+        "value", "gain", "cover", "base_weight", "cuts", "feat_has_missing")]
+        + [("n_features", I), ("nbt", I)]
+        + [(name, F) for name in (
+            "reg_lambda", "reg_alpha", "gamma", "min_child_weight",
+            "max_delta_step", "learning_rate")])
+
 
 def nvcc_path() -> str:
     found = shutil.which("nvcc")
