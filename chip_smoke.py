@@ -5,8 +5,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one
 CUDA device, ``nvcc`` and ``triton``, and nothing of JAX. Phases:
 
 1. build: compile the CUDA kernels of ``xgboost_ray_tpu_torch/csrc`` (one
-   ``nvcc`` per source, in parallel) and the Triton kernel; report each K1
-   and K3 kernel's registers, shared memory and spills (``-Xptxas -v``)
+   ``nvcc`` per source, in parallel) and the Triton kernel; report each K1,
+   K3 and B8 kernel's registers, shared memory and spills (``-Xptxas -v``)
    and the atomic opcodes ``cuobjdump -sass`` finds in them (whether K1's
    shared float add is native or a compare-and-swap loop);
 2. every kernel against its plain PyTorch version on the card, at the main
@@ -29,13 +29,32 @@ CUDA device, ``nvcc`` and ``triton``, and nothing of JAX. Phases:
    two more rounds under ``torch.profiler`` (device time by kernel, CUDA
    launches per round, idle share against the unprofiled round);
 4. the card against the port's CPU path on a 200,000-row slice (3 rounds);
-5. ``save_model`` -> ``load_model`` on the card, ``save_raw`` bytes equal.
+5. ``save_model`` -> ``load_model`` on the card, ``save_raw`` bytes equal;
+6. predict and serve (the main path of the predict slice): ``train()`` for
+   500 rounds on the same set (``num_actors=1``), keeping the engine's
+   final margins; then, with B8's launch counters set to 0,
+   ``predict(bst, RayDMatrix(x), RayParams(num_actors=2))`` over every row
+   (margins and values: no row's margin may differ from training's by more
+   than 1e-3, the logloss of the values must equal the last
+   ``train-logloss`` within 1e-5), then ``serve.create_server`` with that
+   model (``max_batch`` 256, ``max_delay_ms`` 2.0; 16 clients sending 1-32
+   row requests, 1.5 s of warmup and 6 s measured: probe responses bitwise
+   equal to ``booster.predict``, no kernel build after warmup, no client
+   error) and a node-array server's probes; the counters are read after;
+7. B8 against its plain version at 262,144 rows x 500 trees (bitwise, in
+   both layouts and both modes), and timed at the main path's shapes: the
+   margins over every row, the leaf indices over the booster's chunk.
 
 It prints one JSON line per phase result, the ``{"kernels": [...]}`` line,
 the card's name and power limit, and as its last line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
 that line. ``--rows`` and ``--rounds`` shrink phase 3 for a quick run;
 results also go to ``chiprun_out/chip_smoke.json``.
+
+``--predict-rounds`` shrinks phase 6's model for a quick run.
+``--b8-only`` runs the build, phase 6's model and phase 7's B8 timings
+alone and prints no result line; it works on another tree of the package
+too (copy this script into it), to compare two versions of B8 in one call.
 
 ``--profile-only`` runs the build and phase 3's profile alone and prints
 no result line; it also works against an older tree of the package (copy
@@ -55,6 +74,8 @@ import numpy as np
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12  # float32 outside the tensor cores, H100 SXM
 OUT_DIR = "chiprun_out"
+#: the card's name and power limit, stamped on every result line once known
+CARD = None
 
 
 class SmokeFailure(Exception):
@@ -67,6 +88,8 @@ def check(cond, what):
 
 
 def emit(obj):
+    if CARD is not None and "ok" not in obj:
+        obj = {**obj, "card": CARD}
     print(json.dumps(obj), flush=True)
 
 
@@ -109,13 +132,40 @@ def device_ms(fn, iters=10):
             fn()
         torch.cuda.synchronize()
     total = 0.0
+    seen = []
     for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", None)
+        t = e.self_cuda_time_total if t is None else t
+        seen.append((e.key[:60], str(e.device_type), t))
         if (e.device_type != torch.autograd.DeviceType.CUDA or "at::" in e.key
                 or e.key.startswith(("Memcpy", "Memset"))):
             continue
-        t = getattr(e, "self_device_time_total", None)
-        total += (e.self_cuda_time_total if t is None else t) / 1e3
-    check(total > 0, "torch.profiler saw no device time of the kernels")
+        total += t / 1e3
+    check(total > 0, f"torch.profiler saw no device time of the kernels; "
+                     f"events: {sorted(seen, key=lambda v: -v[2])[:8]}")
+    return total / iters
+
+
+def lone_launch_ms(fn, iters=3):
+    """Device time of a call that enqueues one long kernel: CUDA events
+    around each call on an idle card, averaged. The interval also holds the
+    host's issue time after the first event (tens of microseconds), small
+    beside a kernel of milliseconds. (For B8's full-size launches
+    torch.profiler recorded no device activity on the card this script
+    was written against.)"""
+    import torch
+
+    fn()
+    total = 0.0
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
     return total / iters
 
 
@@ -142,19 +192,28 @@ _TYPE_CODES = {"s": "int16", "h": "uint8"}
 
 
 def kernel_name(mangled):
-    """``_Z15xrt_hist_kernelIsEv...`` -> ``xrt_hist_kernel<int16>``."""
+    """``_Z15xrt_hist_kernelIsLb1EEv...`` -> ``xrt_hist_kernel<int16, true>``,
+    ``_Z18xrt_predict_kernelILi0ELi1EEv...`` -> ``xrt_predict_kernel<0, 1>``."""
     m = re.match(r"_Z(\d+)", mangled)
     if not m:
         return mangled
     start = m.end()
     name = mangled[start:start + int(m.group(1))]
-    t = re.match(r"I([a-z])(?:Lb([01])E)?E", mangled[start + int(m.group(1)):])
-    if t:
-        args = [_TYPE_CODES.get(t.group(1), t.group(1))]
-        if t.group(2) is not None:
-            args.append("true" if t.group(2) == "1" else "false")
-        name += f"<{', '.join(args)}>"
-    return name
+    rest = mangled[start + int(m.group(1)):]
+    if not rest.startswith("I"):
+        return name
+    args, i = [], 1
+    while i < len(rest) and rest[i] != "E":
+        if rest[i] == "L":  # a literal: L<type code><value>E
+            j = rest.index("E", i)
+            code, value = rest[i + 1], rest[i + 2:j]
+            args.append(("true" if value == "1" else "false") if code == "b"
+                        else value)
+            i = j + 1
+        else:
+            args.append(_TYPE_CODES.get(rest[i], rest[i]))
+            i += 1
+    return f"{name}<{', '.join(args)}>"
 
 
 def ptxas_report(log):
@@ -223,14 +282,14 @@ def sass_atomics(lib_path):
 
 
 def phase_build_report():
-    """Registers, shared memory and spills of K1's and K3's kernels, and
-    whether K1's shared float adds compile to a native add or a
+    """Registers, shared memory and spills of K1's, K3's and B8's kernels,
+    and whether K1's shared float adds compile to a native add or a
     compare-and-swap loop."""
     from xgboost_ray_tpu_torch.ops import _build
 
     paths = _build.build_all()
     report = {}
-    for stem in ("histogram", "partition"):
+    for stem in ("histogram", "partition", "predict"):
         report[stem] = {"ptxas": ptxas_report(_build.build_log(stem)),
                         "sass_atomics": sass_atomics(paths[stem])}
     shared = {op: c for fn, ops in report["histogram"]["sass_atomics"].items()
@@ -768,6 +827,320 @@ def phase_save_load(bst):
     check(same, "save_raw bytes differ after save_model/load_model")
 
 
+# ---------------------------------------------------------------------------
+# phase 6: predict and serve
+# ---------------------------------------------------------------------------
+
+
+def b8_counters():
+    """B8's launch counts by row of the kernel table."""
+    from xgboost_ray_tpu_torch.ops import predict as PR
+
+    return {"B8margin": PR.predict_margin.launches_by_layout["heap"],
+            "B8margin_na": PR.predict_margin.launches_by_layout["node_array"],
+            "B8leaf": PR.predict_leaf_index.launches}
+
+
+def reset_b8_counters():
+    from xgboost_ray_tpu_torch.ops import predict as PR
+
+    for fn in (PR.predict_margin, PR.predict_leaf_index):
+        fn.launches = 0
+        fn.launches_by_layout = dict.fromkeys(PR.LAYOUTS, 0)
+
+
+def logloss_of_values(p, y):
+    p = np.asarray(p, np.float64)
+    y = np.asarray(y, np.float64)
+    return float(-np.mean(y * np.log(p) + (1.0 - y) * np.log1p(-p)))
+
+
+def phase_train_model(x, y, rounds):
+    """The served model: ``train()`` for ``rounds`` rounds, keeping the
+    engine's final margins (the after_iteration hook of the last round)."""
+    import torch
+
+    import xgboost_ray_tpu_torch as xrt
+
+    kept = {}
+
+    class KeepMargins:
+        def after_iteration(self, engine, i, res):
+            if i == rounds - 1:
+                kept["margin"] = engine.get_margins()[:, 0]
+
+    dm = xrt.RayDMatrix(x, y)
+    ev, extra = {}, {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bst = xrt.train({"objective": "binary:logistic", "eval_metric": ["logloss"],
+                     "max_depth": 6, "max_bin": 256}, dm, rounds,
+                    evals=[(dm, "train")], evals_result=ev,
+                    additional_results=extra, callbacks=[KeepMargins()],
+                    ray_params=xrt.RayParams(num_actors=1))
+    torch.cuda.synchronize()
+    ll = ev["train"]["logloss"]
+    check(bst.num_trees == rounds, "wrong number of trees")
+    check(all(np.isfinite(ll)), "non-finite train logloss")
+    rt = [r * 1e3 for r in extra["round_times_s"]]
+    emit({"phase": "served_model", "rows": int(x.shape[0]), "rounds": rounds,
+          "train_wall_s": time.perf_counter() - t0,
+          "round_ms_median": float(np.median(rt)),
+          "train_logloss_first_last": [ll[0], ll[-1]]})
+    return bst, kept["margin"], ll[-1]
+
+
+def phase_predict(bst, x, y, train_margin, last_ll):
+    """``predict()`` over every row on the card (two ranks), checked
+    against training's margins and logloss."""
+    import torch
+
+    import xgboost_ray_tpu_torch as xrt
+    from xgboost_ray_tpu_torch.ops.objectives import sigmoid
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    xd = torch.from_numpy(x).to("cuda")
+    torch.cuda.synchronize()
+    h2d_s = time.perf_counter() - t0
+    del xd
+    rp = xrt.RayParams(num_actors=2)
+    dm = xrt.RayDMatrix(x)
+    t0 = time.perf_counter()
+    dm.load_data(2)  # the loader's share of predict(), timed apart
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    margin = xrt.predict(bst, dm, ray_params=rp, output_margin=True)
+    margin_s = time.perf_counter() - t0
+    del dm
+    t0 = time.perf_counter()
+    value = xrt.predict(bst, xrt.RayDMatrix(x), ray_params=rp)
+    value_s = time.perf_counter() - t0
+    check(margin.shape == (x.shape[0],) and value.shape == (x.shape[0],),
+          "predict returned the wrong shape")
+    check(bool(np.isfinite(margin).all()), "non-finite predicted margins")
+    diff = np.abs(margin.astype(np.float64) - train_margin.astype(np.float64))
+    n_over = int((diff > 1e-3).sum())
+    ll = logloss_of_values(value, y)
+    same_values = bool(np.array_equal(
+        value, sigmoid(torch.from_numpy(margin)[:, None])[:, 0].numpy()))
+    out = {"phase": "predict", "rows": int(x.shape[0]),
+           "trees": bst.num_trees, "num_actors": 2,
+           "predict_value_wall_s": value_s, "matrix_load_s": load_s,
+           "predict_margin_wall_after_load_s": margin_s,
+           "h2d_copy_s": h2d_s, "rows_over_1e-3": n_over,
+           "max_abs_margin_diff_vs_training": float(diff.max()),
+           "logloss_predicted": ll, "train_logloss_last": last_ll,
+           "logloss_abs_diff": abs(ll - last_ll),
+           "values_are_sigmoid_of_margins": same_values}
+    emit(out)
+    check(n_over == 0, f"{n_over} rows' predicted margins differ from "
+                       f"training's by more than 1e-3 (max {diff.max()})")
+    check(abs(ll - last_ll) <= 1e-5,
+          f"predicted logloss {ll} vs last train-logloss {last_ll}")
+    check(same_values, "values are not the sigmoid of the margins")
+    return out
+
+
+def _post_json(url, doc, timeout=30.0):
+    import urllib.request
+
+    req = urllib.request.Request(url, json.dumps(doc).encode("utf-8"),
+                                 {"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return json.loads(r.read())
+
+
+def _probe(handle, bst, q):
+    """Every served kind of ``q`` against ``booster.predict``, bitwise."""
+    ok = {}
+    for kind, kw in (("value", {}), ("margin", {"output_margin": True}),
+                     ("leaf", {"pred_leaf": True})):
+        ref = bst.predict(q, **kw)
+        r = _post_json(handle.url + "/predict",
+                       {"data": q.tolist(), "kind": kind})
+        got = np.asarray(r["predictions"], ref.dtype)
+        ok[kind] = bool(got.shape == ref.shape and np.array_equal(got, ref))
+    return ok
+
+
+def phase_serve(bst, x, clients=16, max_batch=256, max_delay_ms=2.0,
+                req_rows_max=32, warm_s=1.5, duration_s=6.0):
+    """The closed loop of ``bench.py``'s serve section on the card."""
+    import threading
+    import urllib.request
+
+    from xgboost_ray_tpu_torch import serve
+
+    handle = serve.create_server(bst, max_batch=max_batch,
+                                 max_delay_ms=max_delay_ms)
+    builds_after_warmup = serve.compile_count()
+    n_rows = x.shape[0]
+    stop = threading.Event()
+    errors = []
+    try:
+        probe = _probe(handle, bst, x[:37])
+
+        def client(seed):
+            rng = np.random.RandomState(seed)
+            while not stop.is_set():
+                n = int(rng.randint(1, req_rows_max + 1))
+                lo = int(rng.randint(0, n_rows - n))
+                body = json.dumps({"data": x[lo:lo + n].tolist()}).encode()
+                req = urllib.request.Request(
+                    handle.url + "/predict", body,
+                    {"Content-Type": "application/json"})
+                try:
+                    with urllib.request.urlopen(req, timeout=30.0) as r:
+                        r.read()
+                except Exception as exc:  # noqa: BLE001 - counted
+                    if not stop.is_set():
+                        errors.append(repr(exc))
+
+        threads = [threading.Thread(target=client, args=(i,), daemon=True)
+                   for i in range(clients)]
+        for t in threads:
+            t.start()
+        time.sleep(warm_s)
+        handle.metrics.reset()
+        del errors[:]
+        time.sleep(duration_s)
+        snap = handle.metrics.snapshot()
+        stop.set()
+        for t in threads:
+            t.join(10.0)
+        with handle.registry.lease() as entry:
+            q32 = x[:32]
+            batch_device_ms = device_ms(
+                lambda: entry.predictor.predict(q32, "value"), iters=20)
+        probe_after = _probe(handle, bst, x[37:74])
+    finally:
+        stop.set()
+        handle.shutdown()
+    builds = serve.compile_count() - builds_after_warmup
+    out = {"phase": "serve", "layout": "heap", "trees": bst.num_trees,
+           "clients": clients, "max_batch": max_batch,
+           "max_delay_ms": max_delay_ms, "req_rows_max": req_rows_max,
+           "warm_s": warm_s, "duration_s": duration_s,
+           "client_errors": len(errors), "errors_sample": errors[:3],
+           "probe_bitwise": probe, "probe_bitwise_after_load": probe_after,
+           "builds_after_warmup": builds,
+           "b8_device_ms_per_batch_32_rows": batch_device_ms,
+           **{k: snap[k] for k in (
+               "requests", "rows", "errors", "qps", "rows_per_s", "batches",
+               "mean_batch_rows", "padding_waste", "latency_p50_ms",
+               "latency_p95_ms", "latency_p99_ms", "latency_mean_ms",
+               "recompile_count")}}
+    emit(out)
+    check(len(errors) == 0, f"{len(errors)} client errors: {errors[:3]}")
+    check(all(probe.values()) and all(probe_after.values()),
+          f"served probes not bitwise equal to booster.predict: {probe}, "
+          f"{probe_after}")
+    check(builds == 0 and snap["recompile_count"] == 0,
+          f"{builds} kernel builds after warmup")
+    check(snap["requests"] > 0, "no request served in the measured window")
+    return out
+
+
+def phase_serve_node_array(bst, x):
+    """A node-array server's probes, bitwise equal to ``booster.predict``."""
+    from xgboost_ray_tpu_torch import serve
+
+    handle = serve.create_server(bst, max_batch=256, max_delay_ms=2.0,
+                                 layout="node_array")
+    try:
+        probe = _probe(handle, bst, x[:37])
+    finally:
+        handle.shutdown()
+    emit({"phase": "serve_node_array", "probe_bitwise": probe})
+    check(all(probe.values()), f"node-array probes differ: {probe}")
+
+
+def phase_b8(bst, x, records, slice_rows=262_144):
+    """B8 against its plain version on a slice (bitwise), then timed at the
+    main path's shapes: margins over every row (the predict() launch), leaf
+    indices over the booster's predict_leaf chunk."""
+    import torch
+
+    from xgboost_ray_tpu_torch.models import booster as B
+    from xgboost_ray_tpu_torch.ops import predict as PR
+
+    m0 = bst.base_score_margin_np()
+    n, f = x.shape
+    t_trees = bst.num_trees
+    fo = {lay: bst.device_forest("cuda", lay) for lay in PR.LAYOUTS}
+    xs = torch.from_numpy(x[:slice_rows]).to("cuda")
+    errs = {}
+    for lay in PR.LAYOUTS:
+        mk = PR.predict_margin(fo[lay], xs, base0=m0)
+        mp = PR.predict_margin_plain(fo[lay], xs, base0=m0)
+        lk = PR.predict_leaf_index(fo[lay], xs)
+        lp = PR.predict_leaf_index_plain(fo[lay], xs)
+        torch.cuda.synchronize()
+        check(torch.equal(bits(mk), bits(mp)),
+              f"B8 margins ({lay}) not bitwise equal to the plain version")
+        check(torch.equal(lk, lp),
+              f"B8 leaf indices ({lay}) not equal to the plain version")
+        errs[lay] = float((mk - mp).abs().max())
+    emit({"phase": "b8_vs_plain", "rows": int(xs.shape[0]), "trees": t_trees,
+          "max_abs_err": errs, "leaf_equal": True})
+    del xs, mk, mp, lk, lp
+
+    xd = torch.from_numpy(x).to("cuda")
+    n_leaf = min(n, max(1, B._CHUNK_BYTES // (4 * (f + t_trees))))
+    # the node visits this run's data needs: a leaf at heap index h was
+    # reached after floor(log2(h + 1)) compares
+    visits, visits_leaf = 0, None
+    for lo in range(0, n, n_leaf):
+        h = PR.predict_leaf_index(fo["heap"], xd[lo:lo + n_leaf])
+        visits += int(torch.floor(torch.log2(h.double() + 1)).sum())
+        if visits_leaf is None:  # the leaf timing's rows: the first chunk
+            visits_leaf = visits
+        del h
+    heap = bst.forest.feature.shape[1]
+    forest_bytes = t_trees * heap * (4 + 4 + 4 + 1 + 1 + 4)
+    out_m = torch.empty((n, 1), device="cuda")
+    xl = xd[:n_leaf]
+    out_l = torch.empty((n_leaf, t_trees), dtype=torch.int32, device="cuda")
+    kernel = {
+        "B8margin": lambda: PR.predict_margin(fo["heap"], xd, base0=m0,
+                                              out=out_m),
+        "B8margin_na": lambda: PR.predict_margin(fo["node_array"], xd,
+                                                 base0=m0, out=out_m),
+        "B8leaf": lambda: PR.predict_leaf_index(fo["heap"], xl, out=out_l),
+    }
+    plain = {
+        "B8margin": lambda: PR.predict_margin_plain(fo["heap"], xd, base0=m0),
+        "B8margin_na": lambda: PR.predict_margin_plain(fo["node_array"], xd,
+                                                       base0=m0),
+        "B8leaf": lambda: PR.predict_leaf_index_plain(fo["heap"], xl),
+    }
+    margin_bound = bound_ms(n * f * 4 + n * 4 + forest_bytes,
+                            visits + 2 * n * t_trees)
+    t = {key: dict(bound=margin_bound, max_abs_err=errs[lay])
+         for key, lay in (("B8margin", "heap"), ("B8margin_na", "node_array"))}
+    t["B8leaf"] = dict(
+        bound=bound_ms(n_leaf * f * 4 + n_leaf * t_trees * 4 + forest_bytes,
+                       visits_leaf), max_abs_err=0.0)
+    for key, fn in kernel.items():
+        t[key]["device_ms"] = lone_launch_ms(fn)
+    for key, fn in kernel.items():
+        t[key]["ms"] = cuda_ms(fn, iters=5, warmup=1)
+    for key, fn in plain.items():
+        t[key]["plain_ms"] = cuda_ms(fn, iters=1, warmup=0)
+    for key, v in t.items():
+        records[key].update(ms=v["ms"], device_ms=v["device_ms"],
+                            plain_ms=v["plain_ms"], bound_ms=v["bound"][0],
+                            bound_by=v["bound"][1], library_ms=None,
+                            max_abs_err=v["max_abs_err"])
+    emit({"phase": "b8_timing", "rows_margin": n, "rows_leaf": n_leaf,
+          "trees": t_trees, "node_visits": visits,
+          "visits_per_row_tree": visits / (n * t_trees),
+          **{k: {kk: (vv if kk != "bound" else list(vv))
+                 for kk, vv in v.items()} for k, v in t.items()}})
+    return t
+
+
 KERNELS = {
     "K1": dict(name="K1 histogram build + node totals (level 5: 32 nodes)",
                route="cuda", source="xgboost_ray_tpu_torch/csrc/histogram.cu",
@@ -797,10 +1170,27 @@ KERNELS = {
     "K4": dict(name="K4 margin update + metric partials + gradients",
                route="triton", source="xgboost_ray_tpu_torch/ops/objectives.py",
                replaces="xgboost_ray_tpu/ops/objectives.py:88"),
+    "B8margin": dict(name="B8 forest walk: margins, heap layout (every row "
+                     "of predict(), 500 trees)", route="cuda",
+                     source="xgboost_ray_tpu_torch/csrc/predict.cu",
+                     replaces="xgboost_ray_tpu/ops/predict.py:52"),
+    "B8margin_na": dict(name="B8 forest walk: margins, node-array layout "
+                        "(every row, 500 trees)", route="cuda",
+                        source="xgboost_ray_tpu_torch/csrc/predict.cu",
+                        replaces="xgboost_ray_tpu/ops/node_array.py:141"),
+    "B8leaf": dict(name="B8 forest walk: leaf indices, heap layout (one "
+                   "predict_leaf chunk, 500 trees)", route="cuda",
+                   source="xgboost_ray_tpu_torch/csrc/predict.cu",
+                   replaces="xgboost_ray_tpu/ops/predict.py:512"),
 }
+
+#: kernels of the training path (phase 3's counters)
+TRAIN_KERNELS = ("K1", "K1root", "K2", "K2level", "K2leaf", "K3", "K3leaf",
+                 "K4")
 
 
 def run(args):
+    global CARD
     import torch
 
     check(torch.cuda.is_available(), "torch.cuda.is_available() is False")
@@ -816,7 +1206,7 @@ def run(args):
     check(not bad, f"JAX modules imported: {bad[:5]}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    card = gpu_name_and_power()
+    card = CARD = gpu_name_and_power()
     emit({"phase": "env", "python": sys.version.split()[0],
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "device": torch.cuda.get_device_name(0), "nvidia_smi": card})
@@ -839,9 +1229,15 @@ def run(args):
     if args.profile_only:
         phase_profile(x, y, 6, None)
         return
+    if args.b8_only:
+        served, _, _ = phase_train_model(x, y, args.predict_rounds)
+        records = {k: dict(KERNELS[k]) for k in ("B8margin", "B8margin_na",
+                                                 "B8leaf")}
+        phase_b8(served, x, records)
+        return
 
     records = {k: dict(v) for k, v in KERNELS.items()}
-    phase_kernels(args.rows, records)
+    phase_kernels(args.rows, {k: records[k] for k in TRAIN_KERNELS})
 
     if args.rows < 11_000_000:
         emit({"phase": "main_path_cut", "rows": args.rows,
@@ -853,7 +1249,7 @@ def run(args):
         results[actors] = {"launches": launches, "round_ms": rt}
         if actors == 1:
             bst = b
-            for k in records:
+            for k in TRAIN_KERNELS:
                 # the root row is K1 at another shape: the same launches
                 records[k]["launches"] = launches[k.replace("root", "")]
     results["profile"] = phase_profile(x, y, 6,
@@ -861,6 +1257,31 @@ def run(args):
     cmp_rows = min(args.compare_rows, args.rows)
     cmp = phase_cpu_vs_card(x[:cmp_rows], y[:cmp_rows])
     phase_save_load(bst)
+
+    # phase 6: predict and serve; B8's counters span predict() and serving
+    served, train_margin, last_ll = phase_train_model(x, y,
+                                                      args.predict_rounds)
+    reset_b8_counters()
+    results["predict"] = phase_predict(served, x, y, train_margin, last_ll)
+    results["serve"] = phase_serve(served, x)
+    phase_serve_node_array(served, x)
+    b8_launches = b8_counters()
+    emit({"phase": "b8_launches", "launches": b8_launches})
+    for k, v in b8_launches.items():
+        check(v > 0, f"{k} never launched on the predict/serve path")
+        records[k]["launches"] = v
+    # phase 7: B8 against its plain version, and its times
+    results["b8"] = phase_b8(served, x, records)
+    pr = results["predict"]
+    emit({"phase": "predict_summary", "rows": pr["rows"], "trees": pr["trees"],
+          "predict_value_wall_s": pr["predict_value_wall_s"],
+          "matrix_load_s": pr["matrix_load_s"],
+          "predict_margin_wall_after_load_s":
+              pr["predict_margin_wall_after_load_s"],
+          "h2d_copy_s": pr["h2d_copy_s"],
+          "b8_device_ms_all_rows": results["b8"]["B8margin"]["device_ms"],
+          "b8_device_ms_per_serve_batch_32_rows":
+              results["serve"]["b8_device_ms_per_batch_32_rows"]})
 
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err",
              "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
@@ -884,6 +1305,12 @@ def main():
     ap.add_argument("--rows", type=int, default=11_000_000)
     ap.add_argument("--rounds", type=int, default=10)
     ap.add_argument("--compare-rows", type=int, default=200_000)
+    ap.add_argument("--predict-rounds", type=int, default=500,
+                    help="rounds of phase 6's served model")
+    ap.add_argument("--b8-only", action="store_true",
+                    help="only the served model and B8's timings (works on "
+                         "another tree of the package too); prints no "
+                         "result line")
     ap.add_argument("--profile-only", action="store_true",
                     help="only the main path's profile (device time and CUDA "
                          "launches per round; works on an older tree of the "

@@ -8,7 +8,10 @@ bitwise (K2's level step on every output, its records and the formed
 histogram included, and its final-level records on random totals); K3's
 outputs, in both modes, are integers and copies (bitwise); K4's gradients
 within 1e-6 and its metric sums within 1e-5 relative; whole trees grown on
-the card and on the CPU from integer gh are bitwise on every field.
+the card and on the CPU from integer gh are bitwise on every field; B8's
+leaf indices and margins (every option: base, tree weights, ntree_limit,
+num_parallel_tree, K = 3, a categorical feature, NaN, both layouts) are
+bitwise equal to the plain version's.
 """
 
 import numpy as np
@@ -18,6 +21,7 @@ import torch
 from xgboost_ray_tpu_torch.ops import grow as tg
 from xgboost_ray_tpu_torch.ops import histogram as th
 from xgboost_ray_tpu_torch.ops import objectives as to
+from xgboost_ray_tpu_torch.ops import predict as tp
 from xgboost_ray_tpu_torch.ops import split as ts
 
 
@@ -314,3 +318,141 @@ def test_wrappers_reject_bad_inputs(cuda):
         to.round_update(torch.zeros(5, device=cuda), torch.zeros(4, device=cuda),
                         torch.zeros(5, device=cuda), torch.ones(5, device=cuda),
                         True)
+
+
+# --------------------------------------------------------------------------
+# B8: the forest walk
+# --------------------------------------------------------------------------
+
+_THRESHOLDS = np.array([-1.0, -0.5, 0.0, 0.5, 1.0], np.float32)
+
+
+def _forest(rng, n_trees, depth, n_features, cat=(), p_leaf=0.15):
+    """Random padded-heap forest, level by level: leaves above the last
+    level, last-level nodes some of which are not marked leaves, unused
+    slots (feature -1) below leaves."""
+    heap = (2 << depth) - 1
+    feature = np.full((n_trees, heap), -1, np.int32)
+    split_bin = np.zeros((n_trees, heap), np.int32)
+    threshold = np.zeros((n_trees, heap), np.float32)
+    default_left = np.zeros((n_trees, heap), bool)
+    is_leaf = np.zeros((n_trees, heap), bool)
+    value = np.zeros((n_trees, heap), np.float32)
+    live = np.ones((n_trees, 1), bool)
+    for k in range(depth + 1):
+        sl = slice((1 << k) - 1, (2 << k) - 1)
+        shape = (n_trees, 1 << k)
+        value[:, sl] = np.where(live, rng.standard_normal(shape) * 0.3, 0.0)
+        if k == depth:
+            is_leaf[:, sl] = live & (rng.random(shape) < 0.7)
+            break
+        leaf = live & (rng.random(shape) < (p_leaf if k else 0.0))
+        split = live & ~leaf
+        f = rng.integers(0, n_features, shape)
+        is_leaf[:, sl] = leaf
+        feature[:, sl] = np.where(split, f, -1)
+        threshold[:, sl] = np.where(split, rng.choice(_THRESHOLDS, shape), 0.0)
+        code = np.where(np.isin(f, cat), rng.integers(0, 5, shape),
+                        rng.integers(0, 255, shape))
+        split_bin[:, sl] = np.where(split, code, 0)
+        default_left[:, sl] = split & (rng.random(shape) < 0.5)
+        live = np.repeat(split, 2, axis=1)
+    z = np.zeros((n_trees, heap), np.float32)
+    return tg.Tree(feature, split_bin, threshold, default_left, is_leaf,
+                   value, z, z, z)
+
+
+def _rows(rng, n, n_features, cat=()):
+    x = rng.standard_normal((n, n_features)).astype(np.float32)
+    ties = rng.random((n, n_features)) < 0.2
+    x[ties] = rng.choice(_THRESHOLDS, int(ties.sum()))
+    x[rng.random((n, n_features)) < 0.1] = np.nan
+    for c in cat:  # codes with halves that round to even
+        x[:, c] = rng.choice(np.array([0, 1, 2, 2.5, 3, 3.5, 4, np.nan],
+                                      np.float32), n)
+    return x
+
+
+def _bits(t):
+    t = t.cpu()
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+B8_CASES = [(f, t, d) for f in (1, 28, 300) for t in (1, 7, 500)
+            for d in (1, 6, 10)]
+
+
+@pytest.mark.parametrize("f,n_trees,depth", B8_CASES)
+def test_predict_walk_bitwise(cuda, f, n_trees, depth):
+    rng = np.random.default_rng(f * 1000 + n_trees * 10 + depth)
+    cat = (f // 2,) if f > 1 else ()
+    n = (5003, 300, 1)[(f + n_trees + depth) % 3]  # never a multiple of 8
+    fo = _forest(rng, n_trees, depth, f, cat)
+    x = torch.from_numpy(_rows(rng, n, f, cat))
+    base = torch.from_numpy(rng.standard_normal((n, 3)).astype(np.float32))
+    tw = torch.from_numpy(rng.uniform(0.2, 1.5, n_trees).astype(np.float32))
+    cat_c = tp.cat_mask(cat, f)
+    xk = x.to(cuda)
+    cat_k = None if cat_c is None else cat_c.to(cuda)
+    for layout in tp.LAYOUTS:
+        pc = tp.device_forest(fo, depth, layout)
+        pk = tp.device_forest(fo, depth, layout, cuda)
+        leaf = tp.predict_leaf_index(pk, xk, cat_k)
+        assert torch.equal(leaf.cpu(), tp.predict_leaf_index(pc, x, cat_c))
+        for opts in (dict(base0=0.25),
+                     dict(base=base[:, :1], tree_weights=tw,
+                          ntree_limit=max(1, n_trees - 3)),
+                     dict(base=base, num_outputs=3, num_parallel_tree=2)):
+            ko = {k: (v.to(cuda) if torch.is_tensor(v) else v)
+                  for k, v in opts.items()}
+            got = tp.predict_margin(pk, xk, cat=cat_k, **ko)
+            ref = tp.predict_margin_plain(pc, x, cat=cat_c, **opts)
+            torch.cuda.synchronize()
+            assert torch.equal(_bits(got), _bits(ref)), (layout, opts)
+
+
+@pytest.mark.parametrize("n", [1, 2, 7, 300, 2500, 5003, 40001])
+def test_predict_walk_every_row_tile(cuda, n):
+    """Every rows-per-CTA choice (8, 4, 2, 1 by batch size) and the
+    ragged last CTA."""
+    rng = np.random.default_rng(n)
+    fo = _forest(rng, 40, 6, 28, (3,))
+    x = torch.from_numpy(_rows(rng, n, 28, (3,)))
+    cat = tp.cat_mask((3,), 28)
+    for layout in tp.LAYOUTS:
+        pc = tp.device_forest(fo, 6, layout)
+        pk = tp.device_forest(fo, 6, layout, cuda)
+        got = tp.predict_margin(pk, x.to(cuda), base0=-0.5, cat=cat.to(cuda))
+        ref = tp.predict_margin_plain(pc, x, base0=-0.5, cat=cat)
+        assert torch.equal(_bits(got), _bits(ref))
+        leaf = tp.predict_leaf_index(pk, x.to(cuda), cat.to(cuda))
+        assert torch.equal(leaf.cpu(), tp.predict_leaf_index_plain(pc, x, cat))
+    assert tp.predict_margin.launches > 0 and tp.predict_leaf_index.launches > 0
+
+
+def test_predict_wrappers_reject_bad_inputs(cuda):
+    rng = np.random.default_rng(0)
+    fo = _forest(rng, 7, 3, 4)
+    pk = tp.device_forest(fo, 3, "heap", cuda)
+    x = torch.from_numpy(_rows(rng, 50, 4)).to(cuda)
+    with pytest.raises(ValueError):  # f64 rows
+        tp.predict_margin(pk, x.double())
+    with pytest.raises(ValueError):  # a strided view
+        tp.predict_margin(pk, torch.zeros(50, 8, device=cuda)[:, ::2])
+    with pytest.raises(ValueError):  # the forest on another device
+        tp.predict_margin(tp.device_forest(fo, 3, "heap"), x)
+    with pytest.raises(ValueError):  # base of another shape
+        tp.predict_margin(pk, x, torch.zeros(50, 2, device=cuda))
+    with pytest.raises(ValueError):  # one weight per tree
+        tp.predict_margin(pk, x, tree_weights=torch.ones(6, device=cuda))
+    with pytest.raises(ValueError):  # out of the wrong dtype
+        tp.predict_leaf_index(pk, x, out=torch.zeros(50, 7, device=cuda))
+    with pytest.raises(ValueError):  # a cat mask per feature, bool
+        tp.predict_leaf_index(pk, x, torch.ones(3, dtype=torch.bool,
+                                                device=cuda))
+    with pytest.raises(ValueError):  # more classes than shared memory holds
+        tp.predict_margin(pk, x, num_outputs=5000)
+    with pytest.raises(ValueError):
+        tp.device_forest(fo, 4, "heap", cuda)  # heap of another depth
+    empty = tp.predict_margin(pk, x[:0])
+    assert empty.shape == (0, 1)

@@ -1,15 +1,17 @@
 """xgboost_ray_tpu_torch: the PyTorch/CUDA port of xgboost_ray_tpu.
 
 Trains gradient-boosted trees on an NVIDIA H100 with hand-written kernels
-(``csrc/`` CUDA C++ for the histogram, split search and row partition;
-Triton for the fused objective/metric pass), behind the same API as the
-JAX package: ``train``, ``RayDMatrix``, ``RayParams`` and a booster that
-saves the same model file. This package imports ``torch`` and nothing of
+(``csrc/`` CUDA C++ for the histogram, split search, row partition and the
+prediction walk; Triton for the fused objective/metric pass), behind the
+same API as the JAX package: ``train``, ``predict``, ``RayDMatrix``,
+``RayParams``, a booster that saves the same model file, and ``serve``
+(online inference). This package imports ``torch`` and nothing of
 ``jax`` or ``xgboost_ray_tpu``. Entry points run on the CUDA device unless
 the caller passes ``device="cpu"`` (the plain PyTorch path the tests use).
 """
 
-from xgboost_ray_tpu_torch.main import RayParams, train
+from xgboost_ray_tpu_torch import serve
+from xgboost_ray_tpu_torch.main import RayParams, predict, train
 from xgboost_ray_tpu_torch.matrix import RayDMatrix, RayShardingMode
 from xgboost_ray_tpu_torch.models.booster import Booster, RayXGBoostBooster
 
@@ -21,6 +23,8 @@ __all__ = [
     "RayDMatrix",
     "RayShardingMode",
     "train",
+    "predict",
+    "serve",
     "Booster",
     "RayXGBoostBooster",
 ]

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from xgboost_ray_tpu_torch.constants import SHARD_COLUMN_FILLS
+from xgboost_ray_tpu_torch.device import resolve_device
 from xgboost_ray_tpu_torch.models.booster import RayXGBoostBooster, stack_trees
 from xgboost_ray_tpu_torch.ops import binning
 from xgboost_ray_tpu_torch.ops.grow import GrowConfig, Tree, build_tree
@@ -59,22 +60,6 @@ def _to_device(arr: np.ndarray, dev: torch.device) -> torch.Tensor:
     if not arr.flags.writeable:
         arr = arr.copy()
     return torch.from_numpy(np.ascontiguousarray(arr)).to(dev)
-
-
-def resolve_device(device) -> torch.device:
-    """``None`` -> the card; the CPU only when the caller asks for it."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "xgboost_ray_tpu_torch trains on a CUDA device and none is "
-                "available; pass device='cpu' to run the plain PyTorch path "
-                "on the CPU."
-            )
-        return torch.device("cuda", torch.cuda.current_device())
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device={device!r} requested but CUDA is not available")
-    return dev
 
 
 class TorchEngine:

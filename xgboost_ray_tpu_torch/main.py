@@ -1,11 +1,16 @@
-"""``train()`` and ``RayParams`` of the port.
+"""``train()``, ``predict()`` and ``RayParams`` of the port.
 
 Port of ``xgboost_ray_tpu/main.py`` for this slice: ``RayParams``
-(``:134``), ``_validate_ray_params`` (``:177``) and ``train`` (``:1681``,
+(``:134``), ``_validate_ray_params`` (``:177``), ``train`` (``:1681``,
 driving the round loop of ``_train`` at ``:678``): validation,
-``evals_result``, ``verbose_eval``, ``additional_results`` and the
+``evals_result``, ``verbose_eval``, ``additional_results``, the
 ``after_iteration`` hook of training callbacks (returning True stops
-training, as in xgboost).
+training, as in xgboost) and ``serve_registry`` (the trained model is
+published into a ``serve.ModelRegistry``); and ``predict`` (``:2306``)
+with ``_predict`` (``:2137``): the ranks' shards are concatenated in rank
+order and walked in one pass on the device, as the reference's
+``_predict_shards_spmd`` (``:2214``) does on its mesh, then split back per
+rank and re-assembled per sharding mode.
 
 World size: the port trains on one device. ``RayParams(num_actors=N)``
 shards the data into N ranks (the JAX package's sharding and
@@ -19,8 +24,14 @@ import warnings
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple, Union
 
+import numpy as np
+
 from xgboost_ray_tpu_torch.engine import TorchEngine
-from xgboost_ray_tpu_torch.matrix import RayDMatrix
+from xgboost_ray_tpu_torch.matrix import (
+    RayDMatrix,
+    _get_sharding_indices,
+    combine_data,
+)
 from xgboost_ray_tpu_torch.models.booster import RayXGBoostBooster
 from xgboost_ray_tpu_torch.params import parse_params
 
@@ -45,7 +56,8 @@ class RayParams:
     placement_options: Optional[Dict[str, Any]] = None
 
 
-def _validate_ray_params(ray_params: Union[None, RayParams, dict]) -> RayParams:
+def _check_ray_params(ray_params: Union[None, RayParams, dict]) -> RayParams:
+    """The reference's validation (``main.py:177``)."""
     if ray_params is None:
         ray_params = RayParams()
     elif isinstance(ray_params, dict):
@@ -66,6 +78,13 @@ def _validate_ray_params(ray_params: Union[None, RayParams, dict]) -> RayParams:
             f"`num_actors` in `ray_params` is smaller than 2 "
             f"({ray_params.num_actors}). Training will NOT be distributed!"
         )
+    return ray_params
+
+
+def _validate_ray_params(ray_params: Union[None, RayParams, dict]) -> RayParams:
+    """Training's validation: the reference's, and the fault-tolerance
+    settings other than their defaults raise."""
+    ray_params = _check_ray_params(ray_params)
     for key, bad in (
         ("elastic_training", ray_params.elastic_training),
         ("max_failed_actors", ray_params.max_failed_actors != 0),
@@ -81,11 +100,11 @@ def _validate_ray_params(ray_params: Union[None, RayParams, dict]) -> RayParams:
 
 
 #: train() keyword arguments of this slice; anything else raises
-_KNOWN_KWARGS = {"verbose_eval", "callbacks"}
+_KNOWN_KWARGS = {"verbose_eval", "callbacks", "serve_registry"}
 #: train() keyword arguments of the JAX package outside this slice
 _OUT_OF_SLICE_KWARGS = {
     "obj", "feval", "custom_metric", "early_stopping_rounds", "maximize",
-    "xgb_model", "serve_registry", "_remote",
+    "xgb_model", "_remote",
 }
 
 
@@ -106,6 +125,8 @@ def train(
     ``device``: ``None`` trains on the current CUDA device and raises when
     there is none; ``"cpu"`` runs the plain PyTorch versions of the kernels
     on the CPU (what the tests use). There is no silent fallback.
+    ``serve_registry``: a ``serve.ModelRegistry`` the trained model is
+    loaded into (its version lands in ``additional_results``).
     """
     start_time = time.time()
     if args:
@@ -179,6 +200,7 @@ def train(
         if stop:
             break
     booster = engine.get_booster()
+    serve_registry = kwargs.get("serve_registry")
     if evals_result is not None:
         evals_result.update(result)
     if additional_results is not None:
@@ -191,4 +213,74 @@ def train(
             "total_time_s": time.time() - start_time,
             "round_times_s": round_times,
         })
+    if serve_registry is not None:
+        version = serve_registry.load(booster)
+        if additional_results is not None:
+            additional_results["serve_model_version"] = version
     return booster
+
+
+def _user_base_margin_shards(data: RayDMatrix, user_bm, n_shards: int):
+    """A user ``base_margin`` addresses global rows (original order): each
+    rank's shard gets its own rows' slice (``main.py:2172-2190``)."""
+    user_bm = np.asarray(user_bm)
+    return [user_bm[_get_sharding_indices(data.sharding, r, n_shards,
+                                          len(user_bm))]
+            for r in range(n_shards)]
+
+
+def _predict(model: RayXGBoostBooster, data: RayDMatrix, device,
+             **kwargs) -> np.ndarray:
+    shards = data.shards()
+    predict_kwargs = dict(kwargs)
+    user_bm = predict_kwargs.pop("base_margin", None)
+    xs = [model._coerce_features(sh["data"]) for sh in shards]
+    sizes = [x.shape[0] for x in xs]
+    x_all = np.concatenate(xs, axis=0) if len(xs) > 1 else xs[0]
+    if user_bm is not None:
+        bms = _user_base_margin_shards(data, user_bm, len(shards))
+    elif any(sh.get("base_margin") is not None for sh in shards):
+        bms = [sh["base_margin"] for sh in shards]
+    else:
+        bms = None
+    base_margin = None
+    if bms is not None:
+        base_margin = np.concatenate([
+            np.asarray(b, np.float32).reshape(sz, -1)
+            for b, sz in zip(bms, sizes)], axis=0)
+    pred = model.predict(x_all, base_margin=base_margin, device=device,
+                         **predict_kwargs)
+    results = np.split(pred, np.cumsum(sizes)[:-1], axis=0)
+    return combine_data(data.sharding, results)
+
+
+def predict(
+    model,
+    data: RayDMatrix,
+    ray_params: Union[None, RayParams, Dict] = None,
+    _remote: Optional[bool] = None,
+    device=None,
+    **kwargs,
+) -> Optional[np.ndarray]:
+    """Distributed prediction (signature of ``xgboost_ray_tpu.predict``):
+    every rank's shard in one walk on ``device`` (the card unless
+    ``device="cpu"``), returned in the matrix's original row order.
+    ``kwargs`` are ``RayXGBoostBooster.predict``'s (``output_margin``,
+    ``pred_leaf``, ``iteration_range``, ``ntree_limit``, ``base_margin``).
+    """
+    from xgboost_ray_tpu_torch.serve.registry import coerce_model
+
+    ray_params = _check_ray_params(ray_params)
+    if _remote:
+        raise NotImplementedError(
+            "predict(_remote=True) is not supported by xgboost_ray_tpu_torch "
+            "yet.")
+    if not isinstance(data, RayDMatrix):
+        raise ValueError(
+            f"The `data` argument passed to `predict()` is not a RayDMatrix, "
+            f"but of type {type(data)}. FIX THIS by instantiating a "
+            f"RayDMatrix first: `data = RayDMatrix(data)`."
+        )
+    model = coerce_model(model)
+    data.load_data(ray_params.num_actors)
+    return _predict(model, data, device, **kwargs)

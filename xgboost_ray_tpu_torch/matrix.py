@@ -1,17 +1,18 @@
 """RayDMatrix: the data handle for ``train()``.
 
 Port of ``xgboost_ray_tpu/matrix.py`` (``:33`` ``RayShardingMode``,
-``:159``/``:320`` the central loader, ``:420`` ``RayDMatrix``) for this
-slice: the driver loads in-memory numpy or pandas data once and row-shards
-it per actor rank; the engine concatenates the shards in rank order and
-moves them to the training device (a RayDMatrix holds host arrays only, so
-it follows whatever device ``train`` uses). Distributed (per-rank file)
-loading, streaming, query groups, label bounds, categorical columns and
-feature weights raise ``NotImplementedError``.
+``:71`` ``combine_data``, ``:159``/``:320`` the central loader, ``:420``
+``RayDMatrix``) for this slice: the calling process loads in-memory numpy
+or pandas data once and row-shards it per actor rank; the engine
+concatenates the shards in rank order and moves them to the training
+device (a RayDMatrix holds host arrays only, so it follows whatever device
+``train`` uses). Distributed (per-rank file) loading, streaming, query
+groups, label bounds, categorical columns and feature weights raise
+``NotImplementedError``.
 """
 
 from enum import Enum
-from typing import Any, Dict, List, Optional, Union
+from typing import Any, Dict, Iterable, List, Optional, Union
 
 import numpy as np
 import pandas as pd
@@ -48,6 +49,32 @@ def _get_sharding_indices(sharding: RayShardingMode, rank: int,
         f"Invalid value for `sharding` parameter: {sharding}. Pass "
         f"RayShardingMode.BATCH or RayShardingMode.INTERLEAVED."
     )
+
+
+def combine_data(sharding: RayShardingMode, data: Iterable) -> np.ndarray:
+    """Re-assemble per-rank prediction shards into original row order (the
+    inverse of ``_get_sharding_indices``)."""
+    if sharding not in (RayShardingMode.BATCH, RayShardingMode.INTERLEAVED):
+        raise ValueError(
+            f"Invalid value for `sharding` parameter: {sharding}. Pass a "
+            f"RayShardingMode enum member, e.g. RayShardingMode.BATCH."
+        )
+    parts = [np.asarray(d) for d in data if len(d)]
+    if not parts:
+        return np.array([])
+    if sharding == RayShardingMode.BATCH:
+        return np.concatenate(parts, axis=0)
+    # INTERLEAVED: ranks may be off by one for uneven splits. Stacking on a
+    # new axis 1 then flattening restores row order for any trailing shape
+    # (scalars, [K] margins, [T] leaf indices).
+    min_len = min(len(d) for d in parts)
+    res = np.stack([d[:min_len] for d in parts], axis=1).reshape(
+        (len(parts) * min_len,) + parts[0].shape[1:]
+    )
+    tails = [d[min_len:] for d in parts if len(d) > min_len]
+    if tails:
+        res = np.concatenate([res] + tails, axis=0)
+    return res
 
 
 def _not_in_slice(what: str) -> NotImplementedError:

@@ -3,7 +3,14 @@
 Port of ``xgboost_ray_tpu/models/booster.py`` (``:760-930``): the forest in
 padded-heap layout (host numpy arrays, ``[T, heap]`` per field of
 ``ops.grow.Tree``), the binning cuts and the parameters, with
-``save_model``/``load_model``, ``save_raw``/``load_raw`` and ``get_dump``.
+``save_model``/``load_model``, ``save_raw``/``load_raw`` and ``get_dump``;
+and prediction (``:145`` ``cat_features``, ``:156`` ``signature``, ``:204``
+``_coerce_features``, ``:254`` ``slice_rounds``, ``:268``
+``base_score_margin_np``, ``:277`` ``predict_margin_np``, ``:680``
+``predict``, ``:732`` ``_margin_to_prediction``) through B8
+(``ops/predict.py``), on the card unless ``device="cpu"``. Rows go to the
+device in chunks of at most ``_CHUNK_BYTES`` of input and output, so a
+large ``pred_leaf`` (``[N, T]`` int32) never has to fit the card at once.
 The JSON is the JAX package's format (``"format":
 "xgboost_ray_tpu.booster"``), so files cross-load both ways. The arrays
 are written as an npz whose zip entries carry a fixed timestamp, so
@@ -15,14 +22,21 @@ import dataclasses
 import io
 import json
 import zipfile
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
+from xgboost_ray_tpu_torch.device import resolve_device
+from xgboost_ray_tpu_torch.ops import predict as predict_ops
 from xgboost_ray_tpu_torch.ops.grow import Tree
-from xgboost_ray_tpu_torch.params import TrainParams
+from xgboost_ray_tpu_torch.ops.objectives import base_score_margin, get_objective
+from xgboost_ray_tpu_torch.params import TrainParams, cat_feature_indices
 
 FORMAT = "xgboost_ray_tpu.booster"
+
+#: most bytes of one predict chunk on the device (rows in, results out)
+_CHUNK_BYTES = 1 << 31
 
 _TREE_DTYPES = {
     "feature": np.int32, "split_bin": np.int32, "threshold": np.float32,
@@ -114,6 +128,205 @@ class RayXGBoostBooster:
     @property
     def num_trees(self) -> int:
         return int(self.forest.feature.shape[0])
+
+    @property
+    def cat_features(self) -> tuple:
+        """Indices of categorical features ('c' in feature_types)."""
+        return cat_feature_indices(self.feature_types)
+
+    def signature(self) -> tuple:
+        """Structural identity of the model (the serve layer's key): the
+        forest and feature shapes, the walk's static parameters and the
+        objective envelope, not the array contents."""
+        p = self.params
+        return (
+            "gbtree",
+            int(self.forest.feature.shape[0]),
+            int(self.forest.feature.shape[1]),
+            self.num_features,
+            self.num_outputs,
+            self.max_depth,
+            p.num_parallel_tree,
+            self.tree_weights is not None,
+            self.cat_features,
+            p.objective,
+            p.num_class,
+            float(p.scale_pos_weight),
+        )
+
+    # -- prediction --------------------------------------------------------
+
+    def _coerce_features(self, data) -> np.ndarray:
+        """numpy or pandas rows -> [N, F] f32. A frame is put in the
+        model's feature order; its category columns become the training
+        category codes (unseen categories NaN, as xgboost)."""
+        import pandas as pd
+
+        if isinstance(data, pd.DataFrame):
+            if self.feature_names and list(data.columns) != list(self.feature_names):
+                cols = [c for c in self.feature_names if c in data.columns]
+                if len(cols) == len(self.feature_names):
+                    data = data[self.feature_names]
+            non_numeric = [
+                c for c in data.columns
+                if not pd.api.types.is_numeric_dtype(data[c].dtype)
+            ]
+            if non_numeric:
+                data = data.copy()
+                col_pos = {c: i for i, c in enumerate(data.columns)}
+                for c in non_numeric:
+                    cats = (self.categories or {}).get(col_pos[c])
+                    if cats is not None:
+                        codes = pd.Categorical(
+                            data[c], categories=list(cats)
+                        ).codes.astype(np.float32)
+                        codes = pd.Series(codes, index=data.index)
+                    elif col_pos[c] in self.cat_features:
+                        raise ValueError(
+                            f"column {c!r} is categorical in the model but no "
+                            f"category mapping was recorded (the model was "
+                            f"trained on integer codes); pass codes encoded "
+                            f"the same way as training."
+                        )
+                    else:
+                        codes = data[c].astype("category").cat.codes.astype(
+                            np.float32)
+                    data[c] = codes.where(codes >= 0, np.nan)
+            data = data.to_numpy()
+        x = np.asarray(data, dtype=np.float32)
+        if x.ndim == 1:
+            x = x[None, :]
+        if x.shape[1] != self.num_features:
+            raise ValueError(
+                f"Feature shape mismatch: model expects {self.num_features}, "
+                f"got {x.shape[1]}"
+            )
+        return x
+
+    def slice_rounds(self, begin: int, end: int) -> "RayXGBoostBooster":
+        """Sub-forest covering boosting rounds [begin, end)."""
+        per_round = self.num_outputs * self.params.num_parallel_tree
+        sl = slice(begin * per_round, end * per_round)
+        out = RayXGBoostBooster(
+            Tree(*[f[sl] for f in self.forest]), self.cuts, self.params,
+            self.base_score, self.feature_names, self.feature_types,
+            tree_weights=(None if self.tree_weights is None
+                          else self.tree_weights[sl]),
+        )
+        out._has_node_stats = self._has_node_stats
+        out.categories = self.categories
+        return out
+
+    def _rounds(self, iteration_range) -> "RayXGBoostBooster":
+        if iteration_range is None or tuple(iteration_range) == (0, 0):
+            return self
+        return self.slice_rounds(iteration_range[0], iteration_range[1])
+
+    def base_score_margin_np(self) -> float:
+        """The margin-space offset implied by this booster's base_score."""
+        return base_score_margin(self.params.objective, self.base_score)
+
+    def device_forest(self, device, layout: str = "heap"):
+        """The walk's fields on ``device`` (``ops.predict.PredictForest``)."""
+        return predict_ops.device_forest(self.forest, self.max_depth, layout,
+                                         device)
+
+    def device_tree_weights(self, device) -> Optional[torch.Tensor]:
+        if self.tree_weights is None:
+            return None
+        return torch.from_numpy(self.tree_weights.copy()).to(device)
+
+    def _chunks(self, n: int, row_bytes: int):
+        step = max(1, _CHUNK_BYTES // max(row_bytes, 1))
+        for lo in range(0, n, step):
+            yield lo, min(lo + step, n)
+
+    def predict_margin(
+        self, x: np.ndarray, ntree_limit: int = 0,
+        base_margin: Optional[np.ndarray] = None, device=None,
+        transform: bool = False,
+    ) -> np.ndarray:
+        """[N, K] raw margins of f32 rows ``x`` (the reference's
+        ``predict_margin_np``), or with ``transform`` the objective's
+        predictions, computed on ``device`` (the card by default)."""
+        dev = resolve_device(device)
+        n, num_features = x.shape
+        k = self.num_outputs
+        m0 = self.base_score_margin_np()
+        fo = self.device_forest(dev)
+        tw = self.device_tree_weights(dev)
+        cat = predict_ops.cat_mask(self.cat_features, num_features, dev)
+        if transform:
+            get_objective(self.params.objective)  # raises outside the slice
+        out = np.empty((n, k) if not transform else (n,), np.float32)
+        row_bytes = 4 * (num_features + 2 * k)
+        for lo, hi in self._chunks(n, row_bytes):
+            xd = torch.from_numpy(np.ascontiguousarray(x[lo:hi])).to(dev)
+            base = None
+            if base_margin is not None:
+                bm = np.full((hi - lo, k), m0, np.float32) + np.asarray(
+                    base_margin[lo:hi], np.float32).reshape(hi - lo, -1)
+                base = torch.from_numpy(bm).to(dev)
+            margin = predict_ops.predict_margin(
+                fo, xd, base, base0=m0, num_outputs=k,
+                num_parallel_tree=self.params.num_parallel_tree,
+                ntree_limit=int(ntree_limit), tree_weights=tw, cat=cat)
+            if transform:
+                margin = self._margin_to_prediction(margin, False)
+            out[lo:hi] = margin.cpu().numpy()
+        return out
+
+    def predict_leaf(self, x: np.ndarray, device=None) -> np.ndarray:
+        """[N, T] int32 heap index of the leaf each row reaches per tree."""
+        dev = resolve_device(device)
+        n, num_features = x.shape
+        fo = self.device_forest(dev)
+        cat = predict_ops.cat_mask(self.cat_features, num_features, dev)
+        out = np.empty((n, self.num_trees), np.int32)
+        for lo, hi in self._chunks(n, 4 * (num_features + self.num_trees)):
+            xd = torch.from_numpy(np.ascontiguousarray(x[lo:hi])).to(dev)
+            out[lo:hi] = predict_ops.predict_leaf_index(fo, xd, cat).cpu().numpy()
+        return out
+
+    def predict(
+        self,
+        data,
+        output_margin: bool = False,
+        pred_leaf: bool = False,
+        pred_contribs: bool = False,
+        pred_interactions: bool = False,
+        ntree_limit: int = 0,
+        iteration_range: Optional[Tuple[int, int]] = None,
+        validate_features: bool = True,
+        base_margin: Optional[np.ndarray] = None,
+        approx_contribs: bool = False,
+        device=None,
+        **_ignored,
+    ) -> np.ndarray:
+        """Predict (API of ``xgboost_ray_tpu.RayXGBoostBooster.predict``):
+        values, margins (``output_margin``) or leaf indices (``pred_leaf``),
+        on the card unless ``device="cpu"``."""
+        if pred_contribs or pred_interactions:
+            raise NotImplementedError(
+                "pred_contribs / pred_interactions (SHAP) are not supported "
+                "by xgboost_ray_tpu_torch yet (ROADMAP queue A15)."
+            )
+        x = self._coerce_features(data)
+        booster = self._rounds(iteration_range)
+        if pred_leaf:
+            return booster.predict_leaf(x, device=device)
+        if output_margin:
+            margin = booster.predict_margin(x, ntree_limit, base_margin, device)
+            return margin[:, 0] if self.num_outputs == 1 else margin
+        return booster.predict_margin(x, ntree_limit, base_margin, device,
+                                      transform=True)
+
+    def _margin_to_prediction(self, margin: torch.Tensor,
+                              output_margin: bool) -> torch.Tensor:
+        """[N, K] margins -> what ``predict`` returns, on their device."""
+        if output_margin:
+            return margin[:, 0] if self.num_outputs == 1 else margin
+        return get_objective(self.params.objective).transform(margin)
 
     # -- serialization -----------------------------------------------------
 

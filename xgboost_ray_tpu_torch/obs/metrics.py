@@ -1,0 +1,289 @@
+"""Metrics primitives of the port: counters, gauges, latency histograms and
+a registry with Prometheus text exposition.
+
+A copy of ``xgboost_ray_tpu/obs/metrics.py`` (``Counter`` ``:71``,
+``Gauge`` ``:96``, ``LatencyHistogram`` ``:135``, ``MetricsRegistry``
+``:218``), kept in the port so that it imports nothing of the JAX package.
+The log-bucket histogram records in O(1) and reads interpolated
+percentiles; a non-finite sample is counted in ``invalid`` and never
+bucketed, a negative one clamps to 0; ``snapshot()`` is one consistent cut
+under the histogram's lock. Stdlib only.
+"""
+
+import math
+import re
+import threading
+from typing import Callable, Dict, List, Optional, Union
+
+__all__ = [
+    "BUCKET_BOUNDS_MS",
+    "Counter",
+    "Gauge",
+    "LatencyHistogram",
+    "MetricsRegistry",
+]
+
+# log-spaced latency bucket upper bounds (ms): 0.05 ms .. ~170 s at ~1.26x
+_BUCKET_BASE_MS = 0.05
+_BUCKET_FACTOR = 1.26
+_N_BUCKETS = 60
+BUCKET_BOUNDS_MS = [
+    _BUCKET_BASE_MS * _BUCKET_FACTOR ** i for i in range(_N_BUCKETS)
+]
+
+_NAME_RE = re.compile(r"^[a-zA-Z_:][a-zA-Z0-9_:]*$")
+
+
+def _check_name(name: str) -> str:
+    if not _NAME_RE.match(name or ""):
+        raise ValueError(f"invalid metric name {name!r}")
+    return name
+
+
+def _fmt(v: Union[int, float]) -> str:
+    """Prometheus sample value: ints bare, floats via repr (stable),
+    non-finite as the exposition format's canonical NaN/+Inf/-Inf tokens
+    (a dead live-gauge probe reads as NaN — it must not kill the scrape)."""
+    if isinstance(v, bool):
+        return str(int(v))
+    if isinstance(v, int):
+        return str(v)
+    f = float(v)
+    if math.isnan(f):
+        return "NaN"
+    if math.isinf(f):
+        return "+Inf" if f > 0 else "-Inf"
+    if f == int(f) and abs(f) < 1e15:
+        return str(int(f))
+    return repr(f)
+
+
+class Counter:
+    """Monotonic counter (thread-safe)."""
+
+    kind = "counter"
+
+    def __init__(self, name: str, help: str = ""):
+        self.name = _check_name(name)
+        self.help = help
+        self._lock = threading.Lock()
+        self._value = 0
+
+    def inc(self, n: int = 1) -> None:
+        with self._lock:
+            self._value += n
+
+    @property
+    def value(self) -> int:
+        with self._lock:
+            return self._value
+
+    def reset(self) -> None:
+        with self._lock:
+            self._value = 0
+
+
+class Gauge:
+    """Point-in-time value: ``set()`` a number or ``set_fn()`` a live
+    callable (queue depth, breaker state) read at export time."""
+
+    kind = "gauge"
+
+    def __init__(self, name: str, help: str = "",
+                 fn: Optional[Callable[[], float]] = None):
+        self.name = _check_name(name)
+        self.help = help
+        self._lock = threading.Lock()
+        self._value: float = 0.0
+        self._fn = fn
+
+    def set(self, v: float) -> None:
+        with self._lock:
+            self._value = v
+            self._fn = None
+
+    def set_fn(self, fn: Optional[Callable[[], float]]) -> None:
+        with self._lock:
+            self._fn = fn
+
+    @property
+    def value(self) -> float:
+        with self._lock:
+            fn = self._fn
+            if fn is None:
+                return self._value
+        try:
+            return fn()
+        except Exception:  # noqa: BLE001 - a dead probe must not kill export
+            return float("nan")
+
+    def reset(self) -> None:
+        with self._lock:
+            self._value = 0.0
+
+
+class LatencyHistogram:
+    """Fixed log-bucket latency histogram with interpolated percentiles."""
+
+    kind = "histogram"
+
+    def __init__(self, name: str = "latency_ms", help: str = ""):
+        self.name = _check_name(name)
+        self.help = help
+        self._lock = threading.Lock()
+        self.counts = [0] * (_N_BUCKETS + 1)  # +1 overflow bucket
+        self.total = 0
+        self.sum_ms = 0.0
+        self.invalid = 0  # non-finite samples, counted but never bucketed
+
+    def record(self, ms: float) -> None:
+        ms = float(ms)
+        if not math.isfinite(ms):
+            with self._lock:
+                self.invalid += 1
+            return
+        if ms < 0.0:
+            ms = 0.0
+        if ms <= BUCKET_BOUNDS_MS[0]:
+            idx = 0
+        elif ms > BUCKET_BOUNDS_MS[-1]:
+            idx = _N_BUCKETS
+        else:
+            idx = int(
+                math.ceil(math.log(ms / _BUCKET_BASE_MS) / math.log(_BUCKET_FACTOR))
+            )
+            idx = min(max(idx, 0), _N_BUCKETS)
+        with self._lock:
+            self.counts[idx] += 1
+            self.total += 1
+            self.sum_ms += ms
+
+    def percentile(self, q: float) -> float:
+        """Interpolated latency at quantile ``q`` in [0, 1]; 0.0 when empty."""
+        with self._lock:
+            return self._percentile_locked(q)
+
+    def _percentile_locked(self, q: float) -> float:
+        if self.total == 0:
+            return 0.0
+        target = q * self.total
+        seen = 0
+        for i, c in enumerate(self.counts):
+            if c == 0:
+                continue
+            if seen + c >= target:
+                hi = (
+                    BUCKET_BOUNDS_MS[i]
+                    if i < _N_BUCKETS
+                    else BUCKET_BOUNDS_MS[-1] * _BUCKET_FACTOR
+                )
+                lo = BUCKET_BOUNDS_MS[i - 1] if 0 < i <= _N_BUCKETS else 0.0
+                frac = (target - seen) / c
+                return lo + frac * (hi - lo)
+            seen += c
+        return BUCKET_BOUNDS_MS[-1]
+
+    def snapshot(self) -> Dict[str, object]:
+        """Consistent cut of every field plus the standard percentiles."""
+        with self._lock:
+            return {
+                "counts": list(self.counts),
+                "total": self.total,
+                "sum_ms": self.sum_ms,
+                "invalid": self.invalid,
+                "mean_ms": self.sum_ms / max(self.total, 1),
+                "p50_ms": self._percentile_locked(0.50),
+                "p95_ms": self._percentile_locked(0.95),
+                "p99_ms": self._percentile_locked(0.99),
+            }
+
+    def reset(self) -> None:
+        with self._lock:
+            self.counts = [0] * (_N_BUCKETS + 1)
+            self.total = 0
+            self.sum_ms = 0.0
+            self.invalid = 0
+
+
+class MetricsRegistry:
+    """Named metric namespace with get-or-create accessors and Prometheus
+    text exposition (each serve endpoint owns one)."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._metrics: Dict[str, object] = {}
+
+    def _get_or_create(self, cls, name: str, help: str, **kwargs):
+        with self._lock:
+            existing = self._metrics.get(name)
+            if existing is not None:
+                if not isinstance(existing, cls):
+                    raise ValueError(
+                        f"metric {name!r} already registered as "
+                        f"{type(existing).__name__}, not {cls.__name__}"
+                    )
+                return existing
+            metric = cls(name, help, **kwargs)
+            self._metrics[name] = metric
+            return metric
+
+    def counter(self, name: str, help: str = "") -> Counter:
+        return self._get_or_create(Counter, name, help)
+
+    def gauge(self, name: str, help: str = "",
+              fn: Optional[Callable[[], float]] = None) -> Gauge:
+        g = self._get_or_create(Gauge, name, help, fn=fn)
+        if fn is not None:
+            g.set_fn(fn)
+        return g
+
+    def histogram(self, name: str, help: str = "") -> LatencyHistogram:
+        return self._get_or_create(LatencyHistogram, name, help)
+
+    def snapshot(self) -> Dict[str, object]:
+        """Flat name→value dict (histograms as their snapshot sub-dict,
+        minus the raw bucket counts)."""
+        with self._lock:
+            metrics = list(self._metrics.values())
+        out: Dict[str, object] = {}
+        for m in metrics:
+            if m.kind == "histogram":
+                snap = m.snapshot()
+                snap.pop("counts")
+                out[m.name] = snap
+            else:
+                out[m.name] = m.value
+        return out
+
+    def reset(self) -> None:
+        with self._lock:
+            metrics = list(self._metrics.values())
+        for m in metrics:
+            m.reset()
+
+    def prometheus_text(self) -> str:
+        """Prometheus 0.0.4 text exposition, deterministically ordered:
+        metrics sorted by name, histogram buckets by ascending ``le``."""
+        with self._lock:
+            metrics = sorted(self._metrics.values(), key=lambda m: m.name)
+        lines: List[str] = []
+        for m in metrics:
+            if m.help:
+                lines.append(f"# HELP {m.name} {m.help}")
+            lines.append(f"# TYPE {m.name} {m.kind}")
+            if m.kind == "histogram":
+                snap = m.snapshot()
+                counts = snap["counts"]
+                cum = 0
+                for bound, c in zip(BUCKET_BOUNDS_MS, counts[:-1]):
+                    cum += c
+                    lines.append(
+                        f'{m.name}_bucket{{le="{_fmt(round(bound, 6))}"}} {cum}'
+                    )
+                cum += counts[-1]
+                lines.append(f'{m.name}_bucket{{le="+Inf"}} {cum}')
+                lines.append(f"{m.name}_sum {_fmt(snap['sum_ms'])}")
+                lines.append(f"{m.name}_count {snap['total']}")
+            else:
+                lines.append(f"{m.name} {_fmt(m.value)}")
+        return "\n".join(lines) + "\n"

@@ -11,6 +11,9 @@ pointers, sizes and the current CUDA stream; every C entry point returns
 
 Nothing here runs at import time: the first wrapper call that launches a
 kernel builds the libraries (this is also what ``chip_smoke.py`` times).
+:func:`compile_count` counts the kernel builds this process made (``nvcc``
+runs and Triton compiles): the serve layer's "no compiles after warmup"
+counter.
 """
 
 import ctypes
@@ -19,7 +22,8 @@ import hashlib
 import os
 import shutil
 import subprocess
-from typing import Dict, Optional
+import threading
+from typing import Dict, List, Optional
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -52,6 +56,9 @@ SIGNATURES = {
         "xrt_find_splits": (
             [P, I, I, I, F, F, F, F, P, P, P, P, P, P, P], I),
     },
+    "predict": {
+        "xrt_predict": ([P, I, I, P], I),
+    },
     "partition": {
         "xrt_partition": (
             [P, P, I, I, P, I, I, P, P, P, P, I, P, I, P, P, P, P, P, P, P,
@@ -74,6 +81,51 @@ class TreeArgs(ctypes.Structure):
         + [(name, F) for name in (
             "reg_lambda", "reg_alpha", "gamma", "min_child_weight",
             "max_delta_step", "learning_rate")])
+
+
+class PredictArgs(ctypes.Structure):
+    """``XrtPredictArgs`` of ``csrc/predict.cu``: one B8 launch's inputs,
+    passed by pointer (edit both together)."""
+
+    _fields_ = ([(name, P) for name in (
+        "x", "feature", "split_bin", "threshold", "default_left", "is_leaf",
+        "value", "cat_mask", "tree_weights", "base", "out_margin",
+        "out_leaf")]
+        + [("n_rows", ctypes.c_longlong)]
+        + [(name, I) for name in (
+            "n_features", "n_trees", "max_depth", "ntree_limit",
+            "num_parallel_tree", "num_outputs", "rows_per_block", "front0",
+            "padded", "top")]
+        + [("m", I * 4), ("front", I * 4), ("base0", F)])
+
+
+_lock = threading.Lock()
+_NVCC_BUILDS = 0
+#: Triton ``JITFunction``s of the port, whose compiled variants
+#: :func:`compile_count` adds (each module registers its kernel when it
+#: first builds it)
+TRITON_KERNELS: List[object] = []
+
+
+def _triton_variants(fn) -> int:
+    """Compiled variants a Triton ``JITFunction`` holds (its per-device
+    caches: ``device_caches`` in Triton 3, ``cache`` before)."""
+    caches = getattr(fn, "device_caches", None)
+    if caches is not None:
+        return sum(len(c[0]) for c in list(caches.values()))
+    caches = getattr(fn, "cache", None)
+    if isinstance(caches, dict):
+        return sum(len(c) for c in list(caches.values()))
+    return 0
+
+
+def compile_count() -> int:
+    """Kernel builds made by this process: ``nvcc`` compiles of ``csrc/``
+    sources plus compiled variants of the port's Triton kernels."""
+    with _lock:
+        builds = _NVCC_BUILDS
+        kernels = list(TRITON_KERNELS)
+    return builds + sum(_triton_variants(fn) for fn in kernels)
 
 
 def nvcc_path() -> str:
@@ -118,6 +170,7 @@ def build_log(stem: str) -> str:
 def build_all() -> Dict[str, str]:
     """Compile every out-of-date ``csrc/*.cu`` (one ``nvcc`` per source, all
     started together); returns {stem: library path}."""
+    global _NVCC_BUILDS
     stems = sorted(f[:-3] for f in os.listdir(CSRC_DIR) if f.endswith(".cu"))
     paths = {s: _lib_path(s) for s in stems}
     todo = [s for s in stems if not os.path.exists(paths[s])]
@@ -132,6 +185,8 @@ def build_all() -> Dict[str, str]:
     errors = []
     for s, tmp, proc in procs:
         out, _ = proc.communicate()
+        with _lock:
+            _NVCC_BUILDS += 1
         if proc.returncode != 0:
             errors.append(f"--- {s}.cu ---\n{out.decode(errors='replace')}")
             continue
@@ -155,9 +210,14 @@ def _libraries() -> Dict[str, ctypes.CDLL]:
     return libs
 
 
+_load_lock = threading.Lock()
+
+
 def library(stem: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<stem>.cu`` (built on first use)."""
-    return _libraries()[stem]
+    """The loaded library of ``csrc/<stem>.cu`` (built on first use; one
+    thread builds, others wait)."""
+    with _load_lock:
+        return _libraries()[stem]
 
 
 def stream_ptr(device) -> int:

@@ -2,8 +2,10 @@
 
 Port of ``xgboost_ray_tpu/ops/objectives.py`` for ``binary:logistic``
 (``_make_logistic``, ``:88``) and ``reg:squarederror``
-(``_make_squarederror``, ``:57``), with the base_score -> margin maps and
-``get_objective`` (``:485``).
+(``_make_squarederror``, ``:57``), with the base_score -> margin maps,
+the prediction transforms (``:99``, ``:66``) and ``get_objective``
+(``:485``). The transform of ``binary:logistic`` is ``jax.nn.sigmoid`` in
+the reference; ``sigmoid`` below is bitwise equal to it on the CPU.
 
 K4 (Triton) fuses the end of boosting round i with the start of round i+1
 in one pass over the rows: ``margin += row_value`` (the new tree's leaf
@@ -27,6 +29,8 @@ import math
 from typing import Tuple
 
 import torch
+
+from xgboost_ray_tpu_torch.ops import _build
 
 LOGISTIC = "binary:logistic"
 SQUARED = "reg:squarederror"
@@ -53,6 +57,12 @@ class Objective:
         # float32 log of the python ratio, as the JAX package computes it
         return float(torch.log(torch.tensor(s / (1.0 - s), dtype=torch.float32)))
 
+    def transform(self, margin: torch.Tensor) -> torch.Tensor:
+        """[N, 1] margins -> [N] predictions (probabilities for
+        ``binary:logistic``, the margin itself for ``reg:squarederror``),
+        on the margins' device."""
+        return sigmoid(margin[:, 0]) if self.logistic else margin[:, 0]
+
 
 def get_objective(name: str) -> Objective:
     if name == LOGISTIC:
@@ -61,8 +71,21 @@ def get_objective(name: str) -> Objective:
         return Objective(name, default_metric="rmse")
     raise NotImplementedError(
         f"objective={name!r} is not supported by xgboost_ray_tpu_torch yet "
-        f"({LOGISTIC} | {SQUARED})."
+        f"({LOGISTIC} | {SQUARED}; the others are ROADMAP queue A10)."
     )
+
+
+#: objectives whose base_score maps to a zero margin (``:125``)
+_ZERO_BASE = ("multi:softprob", "multi:softmax")
+
+
+def base_score_margin(name: str, base_score: float) -> float:
+    """The margin a model starts from (``Objective.base_score_to_margin``):
+    also for the multiclass models the port predicts margins of but does
+    not train yet, whose start is 0.0."""
+    if name in _ZERO_BASE:
+        return 0.0
+    return get_objective(name).base_score_to_margin(base_score)
 
 
 def _fma(a: torch.Tensor, b, c) -> torch.Tensor:
@@ -190,6 +213,7 @@ def _k4_kernel():
         tl.store(gh_ptr + offs * 2, g, mask=mask)
         tl.store(gh_ptr + offs * 2 + 1, h, mask=mask)
 
+    _build.TRITON_KERNELS.append(k4)
     return k4
 
 

@@ -11,7 +11,7 @@ the port does not run yet: nothing is silently ignored.
 
 import dataclasses
 import logging
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Sequence
 
 from xgboost_ray_tpu_torch.constants import (
     HIST_IMPLS,
@@ -100,6 +100,16 @@ class TrainParams:
     monotone_constraints: tuple = ()
     interaction_constraints: tuple = ()
     feature_parallel: int = 1
+
+
+def cat_feature_indices(feature_types: Optional[Sequence[Any]]) -> tuple:
+    """Indices marked categorical ('c') in an xgboost feature_types list
+    (``xgboost_ray_tpu/params.py:195``)."""
+    return tuple(
+        i
+        for i, t in enumerate(feature_types or [])
+        if str(t).lower() in ("c", "categorical")
+    )
 
 
 def _not_in_slice(key: str, value: Any) -> NotImplementedError:
