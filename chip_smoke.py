@@ -30,20 +30,34 @@ CUDA device, ``nvcc`` and ``triton``, and nothing of JAX. Phases:
    launches per round, idle share against the unprofiled round);
 4. the card against the port's CPU path on a 200,000-row slice (3 rounds);
 5. ``save_model`` -> ``load_model`` on the card, ``save_raw`` bytes equal;
-6. predict and serve (the main path of the predict slice): ``train()`` for
-   500 rounds on the same set (``num_actors=1``), keeping the engine's
-   final margins; then, with B8's launch counters set to 0,
-   ``predict(bst, RayDMatrix(x), RayParams(num_actors=2))`` over every row
-   (margins and values: no row's margin may differ from training's by more
-   than 1e-3, the logloss of the values must equal the last
-   ``train-logloss`` within 1e-5), then ``serve.create_server`` with that
-   model (``max_batch`` 256, ``max_delay_ms`` 2.0; 16 clients sending 1-32
-   row requests, 1.5 s of warmup and 6 s measured: probe responses bitwise
-   equal to ``booster.predict``, no kernel build after warmup, no client
-   error) and a node-array server's probes; the counters are read after;
-7. B8 against its plain version at 262,144 rows x 500 trees (bitwise, in
-   both layouts and both modes), and timed at the main path's shapes: the
-   margins over every row, the leaf indices over the booster's chunk.
+6. predict and serve (the main paths of the predict slice): ``train()``
+   for 500 rounds on the same set (``num_actors=1``), keeping the engine's
+   final margins; then four paths, each with B8's launch counters set to 0
+   just before it and read just after, and each count checked exactly:
+   ``predict(bst, RayDMatrix(x), RayParams(num_actors=2))`` over every row,
+   margins and values (one launch per device chunk and call; no row's
+   margin may differ from training's by more than 1e-3, the logloss of the
+   values must equal the last ``train-logloss`` within 1e-5);
+   ``predict(..., pred_leaf=True)`` over two leaf chunks (one launch per
+   chunk; the first rows equal to the plain walk on the CPU); and
+   ``serve.create_server`` with that model in the heap and the node-array
+   layout (``max_batch`` 256, ``max_delay_ms`` 2.0; 16 clients sending
+   1-32 row requests, 1.5 s of warmup and 6 s measured for the heap,
+   0.5 s and 2 s for the node array: the clients are parked at both ends
+   of the window, so the window's launches equal its batches; probe
+   responses bitwise equal to ``booster.predict`` and to the plain walk on
+   the CPU, no kernel build after warmup, no client error);
+7. B8 against its plain version (bitwise, in both layouts and both modes)
+   at 262,144 rows x 500 trees and at every serve bucket (8-256 rows), one
+   row and a size for each rows-per-CTA choice; then timed at the main
+   path's shapes: the margins over every row, the leaf indices over the
+   booster's chunk (``device_ms`` from ``torch.profiler``, as for the
+   other kernels).
+
+Phase 6's model is trained, and phase 7 run, right after phase 1: later in
+the process ``torch.profiler`` records no device activity for B8's
+full-size launches (not in a fresh process, nor after any one of phases
+2-4 alone), so phase 7 runs first. Phase 6's paths run last.
 
 It prints one JSON line per phase result, the ``{"kernels": [...]}`` line,
 the card's name and power limit, and as its last line
@@ -52,8 +66,8 @@ that line. ``--rows`` and ``--rounds`` shrink phase 3 for a quick run;
 results also go to ``chiprun_out/chip_smoke.json``.
 
 ``--predict-rounds`` shrinks phase 6's model for a quick run.
-``--b8-only`` runs the build, phase 6's model and phase 7's B8 timings
-alone and prints no result line; it works on another tree of the package
+``--b8-only`` stops after phase 7 (build, phase 6's model, B8's checks
+and timings) and prints no result line; it works on another tree of the package
 too (copy this script into it), to compare two versions of B8 in one call.
 
 ``--profile-only`` runs the build and phase 3's profile alone and prints
@@ -143,29 +157,6 @@ def device_ms(fn, iters=10):
         total += t / 1e3
     check(total > 0, f"torch.profiler saw no device time of the kernels; "
                      f"events: {sorted(seen, key=lambda v: -v[2])[:8]}")
-    return total / iters
-
-
-def lone_launch_ms(fn, iters=3):
-    """Device time of a call that enqueues one long kernel: CUDA events
-    around each call on an idle card, averaged. The interval also holds the
-    host's issue time after the first event (tens of microseconds), small
-    beside a kernel of milliseconds. (For B8's full-size launches
-    torch.profiler recorded no device activity on the card this script
-    was written against.)"""
-    import torch
-
-    fn()
-    total = 0.0
-    for _ in range(iters):
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        total += start.elapsed_time(end)
     return total / iters
 
 
@@ -890,14 +881,22 @@ def phase_train_model(x, y, rounds):
     return bst, kept["margin"], ll[-1]
 
 
+def predict_chunks(bst, n_rows, row_bytes):
+    """B8 launches of one ``RayXGBoostBooster.predict`` over ``n_rows``
+    rows: one per device chunk."""
+    return len(list(bst._chunks(n_rows, row_bytes)))
+
+
 def phase_predict(bst, x, y, train_margin, last_ll):
     """``predict()`` over every row on the card (two ranks), checked
-    against training's margins and logloss."""
+    against training's margins and logloss; B8's counters are set to 0
+    just before the two calls and read just after."""
     import torch
 
     import xgboost_ray_tpu_torch as xrt
     from xgboost_ray_tpu_torch.ops.objectives import sigmoid
 
+    n, f = x.shape
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     xd = torch.from_numpy(x).to("cuda")
@@ -909,6 +908,7 @@ def phase_predict(bst, x, y, train_margin, last_ll):
     t0 = time.perf_counter()
     dm.load_data(2)  # the loader's share of predict(), timed apart
     load_s = time.perf_counter() - t0
+    reset_b8_counters()
     t0 = time.perf_counter()
     margin = xrt.predict(bst, dm, ray_params=rp, output_margin=True)
     margin_s = time.perf_counter() - t0
@@ -916,7 +916,10 @@ def phase_predict(bst, x, y, train_margin, last_ll):
     t0 = time.perf_counter()
     value = xrt.predict(bst, xrt.RayDMatrix(x), ray_params=rp)
     value_s = time.perf_counter() - t0
-    check(margin.shape == (x.shape[0],) and value.shape == (x.shape[0],),
+    launches = b8_counters()
+    chunks = predict_chunks(bst, n, 4 * (f + 2 * bst.num_outputs))
+    expect = {"B8margin": 2 * chunks, "B8margin_na": 0, "B8leaf": 0}
+    check(margin.shape == (n,) and value.shape == (n,),
           "predict returned the wrong shape")
     check(bool(np.isfinite(margin).all()), "non-finite predicted margins")
     diff = np.abs(margin.astype(np.float64) - train_margin.astype(np.float64))
@@ -924,7 +927,7 @@ def phase_predict(bst, x, y, train_margin, last_ll):
     ll = logloss_of_values(value, y)
     same_values = bool(np.array_equal(
         value, sigmoid(torch.from_numpy(margin)[:, None])[:, 0].numpy()))
-    out = {"phase": "predict", "rows": int(x.shape[0]),
+    out = {"phase": "predict", "rows": int(n),
            "trees": bst.num_trees, "num_actors": 2,
            "predict_value_wall_s": value_s, "matrix_load_s": load_s,
            "predict_margin_wall_after_load_s": margin_s,
@@ -932,13 +935,54 @@ def phase_predict(bst, x, y, train_margin, last_ll):
            "max_abs_margin_diff_vs_training": float(diff.max()),
            "logloss_predicted": ll, "train_logloss_last": last_ll,
            "logloss_abs_diff": abs(ll - last_ll),
-           "values_are_sigmoid_of_margins": same_values}
+           "values_are_sigmoid_of_margins": same_values,
+           "b8_launches": launches, "b8_launches_expected": expect}
     emit(out)
     check(n_over == 0, f"{n_over} rows' predicted margins differ from "
                        f"training's by more than 1e-3 (max {diff.max()})")
     check(abs(ll - last_ll) <= 1e-5,
           f"predicted logloss {ll} vs last train-logloss {last_ll}")
     check(same_values, "values are not the sigmoid of the margins")
+    check(launches == expect, f"B8 launches of predict(): {launches}, "
+                              f"expected {expect} (one per chunk and call)")
+    return out
+
+
+def phase_predict_leaf(bst, x):
+    """``predict(..., pred_leaf=True)`` over two of the booster's leaf
+    chunks (two ranks); B8's counters set to 0 just before, read just
+    after. Checked against the plain walk on the CPU on the first rows."""
+    import xgboost_ray_tpu_torch as xrt
+    from xgboost_ray_tpu_torch.models import booster as B
+
+    f = x.shape[1]
+    row_bytes = 4 * (f + bst.num_trees)
+    chunk = max(1, B._CHUNK_BYTES // row_bytes)
+    n = min(x.shape[0], 2 * chunk)
+    xs = x[:n]
+    dm = xrt.RayDMatrix(xs)
+    dm.load_data(2)
+    reset_b8_counters()
+    t0 = time.perf_counter()
+    leaf = xrt.predict(bst, dm, ray_params=xrt.RayParams(num_actors=2),
+                       pred_leaf=True)
+    wall_s = time.perf_counter() - t0
+    launches = b8_counters()
+    del dm
+    expect = {"B8margin": 0, "B8margin_na": 0,
+              "B8leaf": predict_chunks(bst, n, row_bytes)}
+    ref = bst.predict(xs[:4096], pred_leaf=True, device="cpu")
+    same = bool(leaf.shape == (n, bst.num_trees) and leaf.dtype == np.int32
+                and np.array_equal(leaf[:4096], ref))
+    del leaf
+    out = {"phase": "predict_leaf", "rows": int(n), "trees": bst.num_trees,
+           "chunk_rows": chunk, "num_actors": 2, "wall_s": wall_s,
+           "first_4096_rows_equal_plain_cpu": same,
+           "b8_launches": launches, "b8_launches_expected": expect}
+    emit(out)
+    check(same, "predict(pred_leaf=True) differs from the plain CPU walk")
+    check(launches == expect, f"B8 launches of predict(pred_leaf=True): "
+                              f"{launches}, expected {expect}")
     return out
 
 
@@ -952,73 +996,115 @@ def _post_json(url, doc, timeout=30.0):
 
 
 def _probe(handle, bst, q):
-    """Every served kind of ``q`` against ``booster.predict``, bitwise."""
+    """Every served kind of ``q`` against ``booster.predict`` on the card
+    and against the plain walk on the CPU, bitwise."""
     ok = {}
     for kind, kw in (("value", {}), ("margin", {"output_margin": True}),
                      ("leaf", {"pred_leaf": True})):
-        ref = bst.predict(q, **kw)
         r = _post_json(handle.url + "/predict",
                        {"data": q.tolist(), "kind": kind})
-        got = np.asarray(r["predictions"], ref.dtype)
-        ok[kind] = bool(got.shape == ref.shape and np.array_equal(got, ref))
+        for where, dev in (("card", None), ("cpu", "cpu")):
+            ref = bst.predict(q, device=dev, **kw)
+            got = np.asarray(r["predictions"], ref.dtype)
+            ok[f"{kind}_{where}"] = bool(got.shape == ref.shape
+                                         and np.array_equal(got, ref))
     return ok
 
 
-def phase_serve(bst, x, clients=16, max_batch=256, max_delay_ms=2.0,
-                req_rows_max=32, warm_s=1.5, duration_s=6.0):
-    """The closed loop of ``bench.py``'s serve section on the card."""
+def _closed_loop(handle, x, clients, req_rows_max, warm_s, duration_s):
+    """``clients`` threads send 1-``req_rows_max``-row value requests to
+    ``handle``. After ``warm_s`` the clients are parked until every request
+    is answered; the serve metrics and B8's counters are set to 0 and the
+    clients resume for ``duration_s``, then are parked again and the
+    counters read: every launch of the window is one of its batches.
+    Returns (snapshot at the end of the window, snapshot once parked,
+    launches, client errors)."""
     import threading
     import urllib.request
 
-    from xgboost_ray_tpu_torch import serve
-
-    handle = serve.create_server(bst, max_batch=max_batch,
-                                 max_delay_ms=max_delay_ms)
-    builds_after_warmup = serve.compile_count()
     n_rows = x.shape[0]
     stop = threading.Event()
+    go = threading.Event()
+    go.set()
+    parked = threading.Semaphore(0)
     errors = []
+
+    def client(seed):
+        rng = np.random.RandomState(seed)
+        while not stop.is_set():
+            if not go.is_set():
+                parked.release()
+                go.wait()
+                continue
+            n = int(rng.randint(1, req_rows_max + 1))
+            lo = int(rng.randint(0, n_rows - n))
+            body = json.dumps({"data": x[lo:lo + n].tolist()}).encode()
+            req = urllib.request.Request(
+                handle.url + "/predict", body,
+                {"Content-Type": "application/json"})
+            try:
+                with urllib.request.urlopen(req, timeout=30.0) as r:
+                    r.read()
+            except Exception as exc:  # noqa: BLE001 - counted
+                errors.append(repr(exc))
+
+    def park():
+        go.clear()
+        for _ in range(clients):
+            check(parked.acquire(timeout=60.0), "a serve client hung")
+
+    threads = [threading.Thread(target=client, args=(i,), daemon=True)
+               for i in range(clients)]
     try:
-        probe = _probe(handle, bst, x[:37])
-
-        def client(seed):
-            rng = np.random.RandomState(seed)
-            while not stop.is_set():
-                n = int(rng.randint(1, req_rows_max + 1))
-                lo = int(rng.randint(0, n_rows - n))
-                body = json.dumps({"data": x[lo:lo + n].tolist()}).encode()
-                req = urllib.request.Request(
-                    handle.url + "/predict", body,
-                    {"Content-Type": "application/json"})
-                try:
-                    with urllib.request.urlopen(req, timeout=30.0) as r:
-                        r.read()
-                except Exception as exc:  # noqa: BLE001 - counted
-                    if not stop.is_set():
-                        errors.append(repr(exc))
-
-        threads = [threading.Thread(target=client, args=(i,), daemon=True)
-                   for i in range(clients)]
         for t in threads:
             t.start()
         time.sleep(warm_s)
+        park()
         handle.metrics.reset()
+        reset_b8_counters()
         del errors[:]
+        go.set()
         time.sleep(duration_s)
         snap = handle.metrics.snapshot()
-        stop.set()
-        for t in threads:
-            t.join(10.0)
-        with handle.registry.lease() as entry:
-            q32 = x[:32]
-            batch_device_ms = device_ms(
-                lambda: entry.predictor.predict(q32, "value"), iters=20)
-        probe_after = _probe(handle, bst, x[37:74])
+        park()
+        parked_snap = handle.metrics.snapshot()
+        launches = b8_counters()
     finally:
         stop.set()
+        go.set()
+        for t in threads:
+            t.join(10.0)
+    return snap, parked_snap, launches, errors
+
+
+def phase_serve(bst, x, layout="heap", clients=16, max_batch=256,
+                max_delay_ms=2.0, req_rows_max=32, warm_s=1.5,
+                duration_s=6.0):
+    """The closed loop of ``bench.py``'s serve section on the card, for a
+    server of the given forest layout."""
+    from xgboost_ray_tpu_torch import serve
+
+    handle = serve.create_server(bst, max_batch=max_batch,
+                                 max_delay_ms=max_delay_ms, layout=layout)
+    builds_after_warmup = serve.compile_count()
+    try:
+        probe = _probe(handle, bst, x[:37])
+        snap, parked, launches, errors = _closed_loop(
+            handle, x, clients, req_rows_max, warm_s, duration_s)
+        builds = serve.compile_count() - builds_after_warmup
+        batch_device_ms = None
+        if layout == "heap":
+            with handle.registry.lease() as entry:
+                q32 = x[:32]
+                batch_device_ms = device_ms(
+                    lambda: entry.predictor.predict(q32, "value"), iters=20)
+        probe_after = _probe(handle, bst, x[37:74])
+    finally:
         handle.shutdown()
-    builds = serve.compile_count() - builds_after_warmup
-    out = {"phase": "serve", "layout": "heap", "trees": bst.num_trees,
+    key = "B8margin" if layout == "heap" else "B8margin_na"
+    expect = dict.fromkeys(("B8margin", "B8margin_na", "B8leaf"), 0)
+    expect[key] = parked["batches"]
+    out = {"phase": "serve", "layout": layout, "trees": bst.num_trees,
            "clients": clients, "max_batch": max_batch,
            "max_delay_ms": max_delay_ms, "req_rows_max": req_rows_max,
            "warm_s": warm_s, "duration_s": duration_s,
@@ -1026,6 +1112,7 @@ def phase_serve(bst, x, clients=16, max_batch=256, max_delay_ms=2.0,
            "probe_bitwise": probe, "probe_bitwise_after_load": probe_after,
            "builds_after_warmup": builds,
            "b8_device_ms_per_batch_32_rows": batch_device_ms,
+           "b8_launches": launches, "batches_once_parked": parked["batches"],
            **{k: snap[k] for k in (
                "requests", "rows", "errors", "qps", "rows_per_s", "batches",
                "mean_batch_rows", "padding_waste", "latency_p50_ms",
@@ -1034,26 +1121,14 @@ def phase_serve(bst, x, clients=16, max_batch=256, max_delay_ms=2.0,
     emit(out)
     check(len(errors) == 0, f"{len(errors)} client errors: {errors[:3]}")
     check(all(probe.values()) and all(probe_after.values()),
-          f"served probes not bitwise equal to booster.predict: {probe}, "
-          f"{probe_after}")
+          f"served probes not bitwise equal to booster.predict and the "
+          f"plain CPU walk: {probe}, {probe_after}")
     check(builds == 0 and snap["recompile_count"] == 0,
           f"{builds} kernel builds after warmup")
     check(snap["requests"] > 0, "no request served in the measured window")
+    check(launches == expect, f"B8 launches in the serve window ({layout}): "
+                              f"{launches}, expected one per batch {expect}")
     return out
-
-
-def phase_serve_node_array(bst, x):
-    """A node-array server's probes, bitwise equal to ``booster.predict``."""
-    from xgboost_ray_tpu_torch import serve
-
-    handle = serve.create_server(bst, max_batch=256, max_delay_ms=2.0,
-                                 layout="node_array")
-    try:
-        probe = _probe(handle, bst, x[:37])
-    finally:
-        handle.shutdown()
-    emit({"phase": "serve_node_array", "probe_bitwise": probe})
-    check(all(probe.values()), f"node-array probes differ: {probe}")
 
 
 def phase_b8(bst, x, records, slice_rows=262_144):
@@ -1082,9 +1157,38 @@ def phase_b8(bst, x, records, slice_rows=262_144):
         check(torch.equal(lk, lp),
               f"B8 leaf indices ({lay}) not equal to the plain version")
         errs[lay] = float((mk - mp).abs().max())
+    r_slice = PR.rows_per_block(xs.shape[0], 1, xs.device)
     emit({"phase": "b8_vs_plain", "rows": int(xs.shape[0]), "trees": t_trees,
-          "max_abs_err": errs, "leaf_equal": True})
+          "rows_per_block": r_slice, "max_abs_err": errs, "leaf_equal": True})
     del xs, mk, mp, lk, lp
+
+    # the shapes serving gives B8: every bucket of a max_batch-256 server
+    # (one row per CTA, 256 trees a chunk, the window sums carried up the
+    # window tree), one row, and a size for each other rows-per-CTA choice
+    ctas = 4 * PR._sm_count(torch.cuda.current_device())
+    sizes = (1, 8, 16, 32, 64, 128, 256, 2 * ctas, 4 * ctas)
+    r_by_rows = {}
+    for i, m in enumerate(sizes):
+        lo = (i * 7919) % (n - m)
+        xq = torch.from_numpy(x[lo:lo + m]).to("cuda")
+        r_by_rows[m] = PR.rows_per_block(m, 1, xq.device)
+        for lay in PR.LAYOUTS:
+            mk = PR.predict_margin(fo[lay], xq, base0=m0)
+            mp = PR.predict_margin_plain(fo[lay], xq, base0=m0)
+            lk = PR.predict_leaf_index(fo[lay], xq)
+            lp = PR.predict_leaf_index_plain(fo[lay], xq)
+            torch.cuda.synchronize()
+            check(torch.equal(bits(mk), bits(mp)),
+                  f"B8 margins ({lay}, {m} rows) not bitwise equal to the "
+                  f"plain version")
+            check(torch.equal(lk, lp),
+                  f"B8 leaf indices ({lay}, {m} rows) not equal to the "
+                  f"plain version")
+    emit({"phase": "b8_buckets_vs_plain", "trees": t_trees,
+          "rows_per_block_by_rows": r_by_rows, "bitwise": True})
+    check(set(r_by_rows.values()) | {r_slice} == {1, 2, 4, 8},
+          f"not every rows-per-CTA choice was checked: {r_by_rows}, "
+          f"{r_slice}")
 
     xd = torch.from_numpy(x).to("cuda")
     n_leaf = min(n, max(1, B._CHUNK_BYTES // (4 * (f + t_trees))))
@@ -1123,7 +1227,7 @@ def phase_b8(bst, x, records, slice_rows=262_144):
         bound=bound_ms(n_leaf * f * 4 + n_leaf * t_trees * 4 + forest_bytes,
                        visits_leaf), max_abs_err=0.0)
     for key, fn in kernel.items():
-        t[key]["device_ms"] = lone_launch_ms(fn)
+        t[key]["device_ms"] = device_ms(fn, iters=5)
     for key, fn in kernel.items():
         t[key]["ms"] = cuda_ms(fn, iters=5, warmup=1)
     for key, fn in plain.items():
@@ -1229,14 +1333,17 @@ def run(args):
     if args.profile_only:
         phase_profile(x, y, 6, None)
         return
+    # phase 6's model, then phase 7 (B8 against its plain version and its
+    # times) before the other phases: later in the process torch.profiler
+    # records no device activity for B8's full-size launches (PERF.md §7)
+    records = {k: dict(v) for k, v in KERNELS.items()}
+    served, train_margin, last_ll = phase_train_model(x, y,
+                                                      args.predict_rounds)
+    b8 = phase_b8(served, x, records)
+    torch.cuda.empty_cache()
     if args.b8_only:
-        served, _, _ = phase_train_model(x, y, args.predict_rounds)
-        records = {k: dict(KERNELS[k]) for k in ("B8margin", "B8margin_na",
-                                                 "B8leaf")}
-        phase_b8(served, x, records)
         return
 
-    records = {k: dict(v) for k, v in KERNELS.items()}
     phase_kernels(args.rows, {k: records[k] for k in TRAIN_KERNELS})
 
     if args.rows < 11_000_000:
@@ -1258,20 +1365,23 @@ def run(args):
     cmp = phase_cpu_vs_card(x[:cmp_rows], y[:cmp_rows])
     phase_save_load(bst)
 
-    # phase 6: predict and serve; B8's counters span predict() and serving
-    served, train_margin, last_ll = phase_train_model(x, y,
-                                                      args.predict_rounds)
-    reset_b8_counters()
+    # phase 6: predict and serve, each path with B8's counters set to 0
+    # just before it and read just after
+    results["b8"] = b8
     results["predict"] = phase_predict(served, x, y, train_margin, last_ll)
+    results["predict_leaf"] = phase_predict_leaf(served, x)
     results["serve"] = phase_serve(served, x)
-    phase_serve_node_array(served, x)
-    b8_launches = b8_counters()
-    emit({"phase": "b8_launches", "launches": b8_launches})
+    results["serve_node_array"] = phase_serve(
+        served, x, layout="node_array", warm_s=0.5, duration_s=2.0)
+    by_path = {p: results[p]["b8_launches"] for p in (
+        "predict", "predict_leaf", "serve", "serve_node_array")}
+    b8_launches = {k: sum(v[k] for v in by_path.values())
+                   for k in ("B8margin", "B8margin_na", "B8leaf")}
+    emit({"phase": "b8_launches", "by_path": by_path,
+          "launches": b8_launches})
     for k, v in b8_launches.items():
         check(v > 0, f"{k} never launched on the predict/serve path")
         records[k]["launches"] = v
-    # phase 7: B8 against its plain version, and its times
-    results["b8"] = phase_b8(served, x, records)
     pr = results["predict"]
     emit({"phase": "predict_summary", "rows": pr["rows"], "trees": pr["trees"],
           "predict_value_wall_s": pr["predict_value_wall_s"],

@@ -478,6 +478,35 @@ def test_guards(readme_models):
             tx.serve.ModelRegistry()
 
 
+@pytest.mark.parametrize("form", ["booster", "path", "json_text",
+                                  "json_dict", "pickle"])
+def test_predict_takes_every_model_form(readme_models, tmp_path, form):
+    """``predict()`` and the serving registry share one model coercion
+    (``models.booster.coerce_model``): each form predicts as the booster."""
+    import json
+    import pickle
+
+    _, tb, _, x = readme_models
+    path = tmp_path / "m.json"
+    tb.save_model(str(path))
+    model = {"booster": tb, "path": str(path), "json_text": path.read_text(),
+             "json_dict": json.loads(path.read_text()),
+             "pickle": pickle.dumps(tb)}[form]
+    assert tx.serve.coerce_model is tx.models.booster.coerce_model
+    got = tx.predict(model, tx.RayDMatrix(x[:50]),
+                     ray_params=tx.RayParams(num_actors=2), device="cpu",
+                     output_margin=True)
+    assert np.array_equal(got, tb.predict(x[:50], output_margin=True,
+                                          device="cpu"))
+
+
+def test_predict_rejects_a_model_of_another_type(readme_models):
+    _, _, _, x = readme_models
+    with pytest.raises(TypeError, match="cannot use a model of type list"):
+        tx.predict([1, 2], tx.RayDMatrix(x[:5]),
+                   ray_params=tx.RayParams(num_actors=1), device="cpu")
+
+
 def test_serve_import_pulls_in_no_jax():
     code = (
         "import sys\n"

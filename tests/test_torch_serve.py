@@ -133,6 +133,37 @@ def test_served_bitwise_through_http(binary_model, layout):
         h.shutdown()
 
 
+def test_many_concurrent_clients_no_connection_reset(binary_model):
+    """More clients connect at once than socketserver's default listen
+    backlog of 5 holds: every request is answered, none is reset."""
+    bst, x = binary_model
+    q = np.nan_to_num(x)
+    h = serve.create_server(bst, max_batch=256, max_delay_ms=1.0, device=CPU)
+    assert h._httpd.request_queue_size == serve.http.LISTEN_BACKLOG >= 64
+    start = threading.Barrier(64)
+    errors, answered = [], []
+
+    def client(i):
+        start.wait()
+        for j in range(4):
+            lo = (i * 7 + j) % (len(q) - 3)
+            try:
+                _, r = _post(h.url, "/predict", {"data": q[lo:lo + 3].tolist()})
+                answered.append(len(r["predictions"]))
+            except Exception as exc:  # noqa: BLE001 - the test counts them
+                errors.append(repr(exc))
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(64)]
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(60.0)
+    finally:
+        h.shutdown()
+    assert errors == [] and answered == [3] * 256
+
+
 def test_no_builds_after_warmup_and_same_shape_swap(binary_model,
                                                     binary_model_b):
     bst_a, x = binary_model

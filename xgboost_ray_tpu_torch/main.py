@@ -32,7 +32,7 @@ from xgboost_ray_tpu_torch.matrix import (
     _get_sharding_indices,
     combine_data,
 )
-from xgboost_ray_tpu_torch.models.booster import RayXGBoostBooster
+from xgboost_ray_tpu_torch.models.booster import RayXGBoostBooster, coerce_model
 from xgboost_ray_tpu_torch.params import parse_params
 
 
@@ -268,8 +268,6 @@ def predict(
     ``kwargs`` are ``RayXGBoostBooster.predict``'s (``output_margin``,
     ``pred_leaf``, ``iteration_range``, ``ntree_limit``, ``base_margin``).
     """
-    from xgboost_ray_tpu_torch.serve.registry import coerce_model
-
     ray_params = _check_ray_params(ray_params)
     if _remote:
         raise NotImplementedError(

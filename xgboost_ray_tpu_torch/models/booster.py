@@ -11,6 +11,9 @@ and prediction (``:145`` ``cat_features``, ``:156`` ``signature``, ``:204``
 (``ops/predict.py``), on the card unless ``device="cpu"``. Rows go to the
 device in chunks of at most ``_CHUNK_BYTES`` of input and output, so a
 large ``pred_leaf`` (``[N, T]`` int32) never has to fit the card at once.
+``coerce_model`` turns the model forms ``predict()`` and the serving
+registry accept (booster, pickled bytes, saved-model path, JSON document)
+into a booster.
 The JSON is the JAX package's format (``"format":
 "xgboost_ray_tpu.booster"``), so files cross-load both ways. The arrays
 are written as an npz whose zip entries carry a fixed timestamp, so
@@ -21,6 +24,8 @@ import base64
 import dataclasses
 import io
 import json
+import os
+import pickle
 import zipfile
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -441,3 +446,50 @@ class RayXGBoostBooster:
 
 
 Booster = RayXGBoostBooster
+
+
+def coerce_model(model: Any) -> RayXGBoostBooster:
+    """The booster that ``model`` names: a ``RayXGBoostBooster``, pickled
+    booster bytes, a saved-model path, or the model's JSON document (text or
+    dict), the format both packages write. xgboost's own JSON schema
+    (``models/xgb_export.py`` of the JAX package) comes in a later slice.
+    Used by ``predict()`` and by the serving registry."""
+    if isinstance(model, RayXGBoostBooster):
+        return model
+    if isinstance(model, bytes):
+        # checkpoint bytes this program wrote (pickle runs code: load only
+        # bytes of a trusted source)
+        booster = pickle.loads(model)
+        if not isinstance(booster, RayXGBoostBooster):
+            raise TypeError(
+                f"checkpoint bytes hold a {type(booster).__name__}, not an "
+                f"xgboost_ray_tpu_torch RayXGBoostBooster"
+            )
+        return booster
+    if isinstance(model, dict):
+        doc = model
+    elif isinstance(model, str):
+        if os.path.exists(model):
+            with open(model) as f:
+                doc = json.load(f)
+        else:
+            try:
+                doc = json.loads(model)
+            except ValueError as exc:
+                raise ValueError(
+                    f"model string is neither an existing file path "
+                    f"nor valid JSON: {model[:80]!r}"
+                ) from exc
+    else:
+        raise TypeError(
+            f"cannot use a model of type {type(model).__name__}; pass a "
+            f"RayXGBoostBooster, checkpoint bytes, a saved model path, or "
+            f"its JSON document."
+        )
+    if doc.get("format") == FORMAT:
+        return RayXGBoostBooster._from_dict(doc)
+    raise NotImplementedError(
+        "loading xgboost's JSON model schema is not supported by "
+        "xgboost_ray_tpu_torch yet (a later slice ports "
+        "models/xgb_export.py); save the model with save_model() instead."
+    )

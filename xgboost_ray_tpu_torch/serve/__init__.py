@@ -29,6 +29,7 @@ The replica pool, autoscaler and canary controller, and SHAP outputs, are
 later slices.
 """
 
+from xgboost_ray_tpu_torch.models.booster import coerce_model
 from xgboost_ray_tpu_torch.serve.batcher import (
     MicroBatcher,
     OverloadedError,
@@ -44,11 +45,7 @@ from xgboost_ray_tpu_torch.serve.predictor import (
     bucket_rows,
     compile_count,
 )
-from xgboost_ray_tpu_torch.serve.registry import (
-    ModelRegistry,
-    NoModelError,
-    coerce_model,
-)
+from xgboost_ray_tpu_torch.serve.registry import ModelRegistry, NoModelError
 
 __all__ = [
     "KINDS",

@@ -17,8 +17,9 @@ Port of ``xgboost_ray_tpu/serve/http.py`` (``ServeHandle`` ``:198``,
 
 Error codes: 400 on a feature-count mismatch, a bad kind or a bad body;
 503 before any model; 429 when the queue is over ``max_queue_rows``.
-Each HTTP request runs on its own thread (``ThreadingHTTPServer``); the
-threads meet in the microbatcher, which turns them into padded batches.
+Each HTTP request runs on its own thread (``ThreadingHTTPServer``, with a
+listen backlog of ``LISTEN_BACKLOG`` connections); the threads meet in the
+microbatcher, which turns them into padded batches.
 The replica pool (``n_replicas > 1``) is a later slice.
 """
 
@@ -38,6 +39,18 @@ from xgboost_ray_tpu_torch.serve.batcher import (
 from xgboost_ray_tpu_torch.serve.metrics import ServeMetrics
 from xgboost_ray_tpu_torch.serve.predictor import SERVED_KINDS, compile_count
 from xgboost_ray_tpu_torch.serve.registry import ModelRegistry, NoModelError
+
+
+#: pending connections the listening socket holds. socketserver's default
+#: of 5 is exceeded whenever more clients connect at once than the accept
+#: loop takes in (it shares the GIL with the handler threads), and the
+#: kernel then resets connections: 16 closed-loop clients were enough.
+LISTEN_BACKLOG = 1024
+
+
+class _Server(ThreadingHTTPServer):
+    daemon_threads = True
+    request_queue_size = LISTEN_BACKLOG
 
 
 class _Handler(BaseHTTPRequestHandler):
@@ -238,8 +251,7 @@ class ServeHandle:
         # batcher spawns its flusher thread, so a raising __init__ leaks no
         # thread the caller has no handle to shut down
         handler = type("_BoundHandler", (_Handler,), {"serve_handle": self})
-        self._httpd = ThreadingHTTPServer((host, port), handler)
-        self._httpd.daemon_threads = True
+        self._httpd = _Server((host, port), handler)
         self._server_thread: Optional[threading.Thread] = None
         try:
             if model is not None:

@@ -1,7 +1,7 @@
 """Model registry: the serving layer's single mutable cell.
 
 Port of ``xgboost_ray_tpu/serve/registry.py`` (``NoModelError`` ``:31``,
-``coerce_model`` ``:43``, ``ModelRegistry`` ``:80``). It holds the current
+``ModelRegistry`` ``:80``). It holds the current
 ``(version, booster, CompiledPredictor)`` and swaps it atomically: a load
 builds and warms the new model's predictor outside the lock (kernel builds
 and buffers happen before the swap is visible), then blocks new leases,
@@ -9,15 +9,11 @@ drains in-flight batches and flips the pointer. Every batch runs against
 the entry its ``lease()`` took, so a response is wholly from one model
 version.
 
-Models load from the port's ``RayXGBoostBooster``, pickled booster bytes,
-a saved-model path, or the model's JSON document (text or dict); both
-packages write that format. xgboost's own JSON schema
-(``models/xgb_export.py`` of the JAX package) comes in a later slice.
+Models load through ``models.booster.coerce_model``: the port's
+``RayXGBoostBooster``, pickled booster bytes, a saved-model path, or the
+model's JSON document (text or dict).
 """
 
-import json
-import os
-import pickle
 import threading
 from contextlib import contextmanager
 from dataclasses import dataclass, field
@@ -26,7 +22,7 @@ from typing import Any, Optional
 import torch
 
 from xgboost_ray_tpu_torch.device import resolve_device
-from xgboost_ray_tpu_torch.models.booster import FORMAT, RayXGBoostBooster
+from xgboost_ray_tpu_torch.models.booster import RayXGBoostBooster, coerce_model
 from xgboost_ray_tpu_torch.serve.predictor import (
     SERVED_KINDS,
     CompiledPredictor,
@@ -43,50 +39,6 @@ class ModelEntry:
     booster: RayXGBoostBooster
     predictor: CompiledPredictor
     name: str = ""
-
-
-def coerce_model(model: Any) -> RayXGBoostBooster:
-    """Accept the model shapes training and checkpoints hand around (see
-    module doc)."""
-    if isinstance(model, RayXGBoostBooster):
-        return model
-    if isinstance(model, bytes):
-        # checkpoint bytes this program wrote (pickle runs code: load only
-        # bytes of a trusted source)
-        booster = pickle.loads(model)
-        if not isinstance(booster, RayXGBoostBooster):
-            raise TypeError(
-                f"checkpoint bytes hold a {type(booster).__name__}, not an "
-                f"xgboost_ray_tpu_torch RayXGBoostBooster"
-            )
-        return booster
-    if isinstance(model, dict):
-        doc = model
-    elif isinstance(model, str):
-        if os.path.exists(model):
-            with open(model) as f:
-                doc = json.load(f)
-        else:
-            try:
-                doc = json.loads(model)
-            except ValueError as exc:
-                raise ValueError(
-                    f"serve model string is neither an existing file path "
-                    f"nor valid JSON: {model[:80]!r}"
-                ) from exc
-    else:
-        raise TypeError(
-            f"cannot serve a model of type {type(model).__name__}; pass a "
-            f"RayXGBoostBooster, checkpoint bytes, a saved model path, or "
-            f"its JSON document."
-        )
-    if doc.get("format") == FORMAT:
-        return RayXGBoostBooster._from_dict(doc)
-    raise NotImplementedError(
-        "loading xgboost's JSON model schema is not supported by "
-        "xgboost_ray_tpu_torch yet (a later slice ports "
-        "models/xgb_export.py); save the model with save_model() instead."
-    )
 
 
 @dataclass
