@@ -8,7 +8,8 @@ CUDA device, ``nvcc`` and ``triton``, and nothing of JAX. Phases:
    ``nvcc`` per source, in parallel) and the Triton kernel; report each K1,
    K3 and B8 kernel's registers, shared memory and spills (``-Xptxas -v``)
    and the atomic opcodes ``cuobjdump -sass`` finds in them (whether K1's
-   shared float add is native or a compare-and-swap loop);
+   shared float add is native or a compare-and-swap loop), and the dynamic
+   shared memory per CTA of B8's kernels on the main path;
 2. every kernel against its plain PyTorch version on the card, at the main
    path's shapes (HIGGS width F = 28, int16 bins, 257 buckets, a level-5
    fan-out of 32 nodes; K1 also at the root: one node, identity order;
@@ -35,24 +36,30 @@ CUDA device, ``nvcc`` and ``triton``, and nothing of JAX. Phases:
    final margins; then four paths, each with B8's launch counters set to 0
    just before it and read just after, and each count checked exactly:
    ``predict(bst, RayDMatrix(x), RayParams(num_actors=2))`` over every row,
-   margins and values (one launch per device chunk and call; no row's
-   margin may differ from training's by more than 1e-3, the logloss of the
-   values must equal the last ``train-logloss`` within 1e-5);
+   margins and values (one launch per device chunk and call, the values'
+   through the kernel's fused sigmoid; no row's margin may differ from
+   training's by more than 1e-3, the values must be bitwise the sigmoid of
+   the margins on the CPU and their logloss equal the last
+   ``train-logloss`` within 1e-5);
    ``predict(..., pred_leaf=True)`` over two leaf chunks (one launch per
    chunk; the first rows equal to the plain walk on the CPU); and
    ``serve.create_server`` with that model in the heap and the node-array
    layout (``max_batch`` 256, ``max_delay_ms`` 2.0; 16 clients sending
    1-32 row requests, 1.5 s of warmup and 6 s measured for the heap,
    0.5 s and 2 s for the node array: the clients are parked at both ends
-   of the window, so the window's launches equal its batches; probe
-   responses bitwise equal to ``booster.predict`` and to the plain walk on
-   the CPU, no kernel build after warmup, no client error);
-7. B8 against its plain version (bitwise, in both layouts and both modes)
-   at 262,144 rows x 500 trees and at every serve bucket (8-256 rows), one
-   row and a size for each rows-per-CTA choice; then timed at the main
-   path's shapes: the margins over every row, the leaf indices over the
-   booster's chunk (``device_ms`` from ``torch.profiler``, as for the
-   other kernels).
+   of the window, so the window's launches equal its batches, each a value
+   launch of B8's windows mapping; probe responses bitwise equal to
+   ``booster.predict`` and to the plain walk on the CPU, no kernel build
+   after warmup, no client error); then whether ``torch.profiler`` sees
+   B8's full-size launch this late in the process (recorded only);
+7. B8 against its plain version (bitwise, in both layouts, every mode:
+   margins, values, leaf indices, and each mapping forced) at 262,144 rows
+   x 500 trees and at every serve bucket (8-256 rows), one row and a size
+   for each rows-per-CTA choice of the windows mapping; then timed at the
+   main path's shapes: the margins over every row, the leaf indices over
+   the booster's chunk, and the margins of a serve batch of 8, 32 and 256
+   rows (``device_ms`` from ``torch.profiler``, as for the other
+   kernels).
 
 Phase 6's model is trained, and phase 7 run, right after phase 1: later in
 the process ``torch.profiler`` records no device activity for B8's
@@ -67,8 +74,9 @@ results also go to ``chiprun_out/chip_smoke.json``.
 
 ``--predict-rounds`` shrinks phase 6's model for a quick run.
 ``--b8-only`` stops after phase 7 (build, phase 6's model, B8's checks
-and timings) and prints no result line; it works on another tree of the package
-too (copy this script into it), to compare two versions of B8 in one call.
+and timings) and prints no result line; it works on another tree of the
+package too (copy this script into it; there it checks the modes and
+mappings that tree has), to compare two versions of B8 in one call.
 
 ``--profile-only`` runs the build and phase 3's profile alone and prints
 no result line; it also works against an older tree of the package (copy
@@ -272,17 +280,47 @@ def sass_atomics(lib_path):
     return funcs
 
 
-def phase_build_report():
-    """Registers, shared memory and spills of K1's, K3's and B8's kernels,
-    and whether K1's shared float adds compile to a native add or a
+def b8_main_path_kernels(n_trees, n_rows):
+    """{B8 kernel: (what it runs, dynamic shared memory per CTA)} at the
+    main path's shapes (depth 6, F = 28): the rows mapping of predict()'s
+    margins and leaf chunks, the windows mapping of the serve buckets."""
+    import torch
+
+    from xgboost_ray_tpu_torch.ops import predict as PR
+
+    fo = PR.PredictForest(None, n_trees, 6, "heap", 28, False)
+    out = {}
+    for what, n, leaf in (("predict() margins and values", n_rows, False),
+                          ("predict(pred_leaf=True) chunks", 1_000_000, True),
+                          ("serve batches of 8-256 rows", 32, False)):
+        plan = PR.launch_plan(n, 1, fo, leaf, torch.device("cuda"))
+        name = (f"xrt_rows_kernel<{int(leaf)}, {str(plan.staged).lower()}, "
+                f"false>" if plan.mapping == "rows"
+                else f"xrt_windows_kernel<{int(leaf)}, false>")
+        out[name] = (what, plan.shared_bytes)
+    return out
+
+
+def phase_build_report(n_trees, n_rows):
+    """Registers, shared memory and spills of K1's, K3's and B8's kernels
+    (B8's main-path kernels with their dynamic shared memory per CTA), and
+    whether K1's shared float add compiles to a native add or a
     compare-and-swap loop."""
     from xgboost_ray_tpu_torch.ops import _build
+    from xgboost_ray_tpu_torch.ops import predict as PR
 
     paths = _build.build_all()
     report = {}
     for stem in ("histogram", "partition", "predict"):
         report[stem] = {"ptxas": ptxas_report(_build.build_log(stem)),
                         "sass_atomics": sass_atomics(paths[stem])}
+    if hasattr(PR, "launch_plan"):  # this tree's B8 (not an older one)
+        ptxas = report["predict"]["ptxas"]
+        report["b8_main_path"] = {
+            name: {"runs": what, "dynamic_smem_bytes": smem,
+                   **ptxas.get(name, {"error": "not in the ptxas log"})}
+            for name, (what, smem) in b8_main_path_kernels(
+                n_trees, n_rows).items()}
     shared = {op: c for fn, ops in report["histogram"]["sass_atomics"].items()
               if fn.startswith("xrt_hist_kernel") and isinstance(ops, dict)
               for op, c in ops.items() if op.startswith("ATOMS")}
@@ -824,12 +862,18 @@ def phase_save_load(bst):
 
 
 def b8_counters():
-    """B8's launch counts by row of the kernel table."""
+    """B8's launch counts: margins (and values) by layout and leaf indices
+    (the kernel table's rows), values alone, and the windows mapping's
+    launches (the serve buckets' rows)."""
     from xgboost_ray_tpu_torch.ops import predict as PR
 
-    return {"B8margin": PR.predict_margin.launches_by_layout["heap"],
-            "B8margin_na": PR.predict_margin.launches_by_layout["node_array"],
-            "B8leaf": PR.predict_leaf_index.launches}
+    m, leaf = PR.predict_margin, PR.predict_leaf_index
+    return {"B8margin": m.launches_by_layout["heap"],
+            "B8margin_na": m.launches_by_layout["node_array"],
+            "B8leaf": leaf.launches,
+            "B8value": m.launches_by_mode["value"],
+            "B8windows": (m.launches_by_mapping["windows"]
+                          + leaf.launches_by_mapping["windows"])}
 
 
 def reset_b8_counters():
@@ -838,6 +882,8 @@ def reset_b8_counters():
     for fn in (PR.predict_margin, PR.predict_leaf_index):
         fn.launches = 0
         fn.launches_by_layout = dict.fromkeys(PR.LAYOUTS, 0)
+        fn.launches_by_mapping = dict.fromkeys(PR.MAPPINGS, 0)
+    PR.predict_margin.launches_by_mode = dict.fromkeys(("margin", "value"), 0)
 
 
 def logloss_of_values(p, y):
@@ -918,7 +964,10 @@ def phase_predict(bst, x, y, train_margin, last_ll):
     value_s = time.perf_counter() - t0
     launches = b8_counters()
     chunks = predict_chunks(bst, n, 4 * (f + 2 * bst.num_outputs))
-    expect = {"B8margin": 2 * chunks, "B8margin_na": 0, "B8leaf": 0}
+    # every row goes through the rows mapping; the values through the
+    # kernel's fused sigmoid
+    expect = {"B8margin": 2 * chunks, "B8margin_na": 0, "B8leaf": 0,
+              "B8value": chunks, "B8windows": 0}
     check(margin.shape == (n,) and value.shape == (n,),
           "predict returned the wrong shape")
     check(bool(np.isfinite(margin).all()), "non-finite predicted margins")
@@ -970,7 +1019,8 @@ def phase_predict_leaf(bst, x):
     launches = b8_counters()
     del dm
     expect = {"B8margin": 0, "B8margin_na": 0,
-              "B8leaf": predict_chunks(bst, n, row_bytes)}
+              "B8leaf": predict_chunks(bst, n, row_bytes), "B8value": 0,
+              "B8windows": 0}
     ref = bst.predict(xs[:4096], pred_leaf=True, device="cpu")
     same = bool(leaf.shape == (n, bst.num_trees) and leaf.dtype == np.int32
                 and np.array_equal(leaf[:4096], ref))
@@ -1103,7 +1153,9 @@ def phase_serve(bst, x, layout="heap", clients=16, max_batch=256,
         handle.shutdown()
     key = "B8margin" if layout == "heap" else "B8margin_na"
     expect = dict.fromkeys(("B8margin", "B8margin_na", "B8leaf"), 0)
-    expect[key] = parked["batches"]
+    # every batch: one value launch (the sigmoid fused) of the windows mapping
+    expect.update({key: parked["batches"], "B8value": parked["batches"],
+                   "B8windows": parked["batches"]})
     out = {"phase": "serve", "layout": layout, "trees": bst.num_trees,
            "clients": clients, "max_batch": max_batch,
            "max_delay_ms": max_delay_ms, "req_rows_max": req_rows_max,
@@ -1131,77 +1183,113 @@ def phase_serve(bst, x, layout="heap", clients=16, max_batch=256,
     return out
 
 
+SERVE_ROWS = (8, 32, 256)  # serve buckets timed as rows of the kernel table
+
+
+def b8_visits(fo, xq):
+    """Node visits the rows of ``xq`` need through ``fo``: a leaf at heap
+    index h was reached after floor(log2(h + 1)) compares."""
+    import torch
+
+    from xgboost_ray_tpu_torch.ops import predict as PR
+
+    h = PR.predict_leaf_index(fo, xq)
+    return int(torch.floor(torch.log2(h.double() + 1)).sum())
+
+
 def phase_b8(bst, x, records, slice_rows=262_144):
-    """B8 against its plain version on a slice (bitwise), then timed at the
-    main path's shapes: margins over every row (the predict() launch), leaf
-    indices over the booster's predict_leaf chunk."""
+    """B8 against its plain version (bitwise) on a slice, at every serve
+    bucket, one row and a size for each rows-per-CTA choice, in both
+    layouts and every mode (margins, values, leaf indices) and mapping;
+    then timed at the main path's shapes: margins over every row (the
+    predict() launch), leaf indices over the booster's predict_leaf chunk,
+    and margins at 8, 32 and 256 rows (serve buckets)."""
     import torch
 
     from xgboost_ray_tpu_torch.models import booster as B
     from xgboost_ray_tpu_torch.ops import predict as PR
 
+    # this tree's B8 has the value mode and mappings; an older tree's B8
+    # (copied this script into it for a one-call comparison) has neither
+    new = hasattr(PR, "launch_plan")
+    value_kw = {"transform": bst.params.objective}
     m0 = bst.base_score_margin_np()
     n, f = x.shape
     t_trees = bst.num_trees
     fo = {lay: bst.device_forest("cuda", lay) for lay in PR.LAYOUTS}
-    xs = torch.from_numpy(x[:slice_rows]).to("cuda")
-    errs = {}
-    for lay in PR.LAYOUTS:
-        mk = PR.predict_margin(fo[lay], xs, base0=m0)
-        mp = PR.predict_margin_plain(fo[lay], xs, base0=m0)
-        lk = PR.predict_leaf_index(fo[lay], xs)
-        lp = PR.predict_leaf_index_plain(fo[lay], xs)
-        torch.cuda.synchronize()
-        check(torch.equal(bits(mk), bits(mp)),
-              f"B8 margins ({lay}) not bitwise equal to the plain version")
-        check(torch.equal(lk, lp),
-              f"B8 leaf indices ({lay}) not equal to the plain version")
-        errs[lay] = float((mk - mp).abs().max())
-    r_slice = PR.rows_per_block(xs.shape[0], 1, xs.device)
-    emit({"phase": "b8_vs_plain", "rows": int(xs.shape[0]), "trees": t_trees,
-          "rows_per_block": r_slice, "max_abs_err": errs, "leaf_equal": True})
-    del xs, mk, mp, lk, lp
 
-    # the shapes serving gives B8: every bucket of a max_batch-256 server
-    # (one row per CTA, 256 trees a chunk, the window sums carried up the
-    # window tree), one row, and a size for each other rows-per-CTA choice
+    def plan(m):
+        if not new:
+            return f"R{PR.rows_per_block(m, 1, torch.device('cuda'))}"
+        p = PR.launch_plan(m, 1, fo["heap"], False, torch.device("cuda"))
+        return (f"windows R{p.rows_per_block}" if p.mapping == "windows"
+                else f"rows tile {p.trees_per_tile}")
+
+    def hold(xq, what):
+        """Every mode of B8 on xq, both layouts (and each mapping), against
+        the plain version on the card: bitwise. Returns max abs errors."""
+        errs = {}
+        for lay in PR.LAYOUTS:
+            mp = PR.predict_margin_plain(fo[lay], xq, base0=m0)
+            lp = PR.predict_leaf_index_plain(fo[lay], xq)
+            vp = (PR.predict_margin_plain(fo[lay], xq, base0=m0, **value_kw)
+                  if new else None)
+            for mapping in PR.MAPPINGS if new else (None,):
+                kw = {"mapping": mapping} if new else {}
+                mk = PR.predict_margin(fo[lay], xq, base0=m0, **kw)
+                lk = PR.predict_leaf_index(fo[lay], xq, **kw)
+                torch.cuda.synchronize()
+                check(torch.equal(bits(mk), bits(mp)),
+                      f"B8 margins ({lay}, {mapping}, {what}) not bitwise "
+                      f"equal to the plain version")
+                check(torch.equal(lk, lp),
+                      f"B8 leaf indices ({lay}, {mapping}, {what}) not "
+                      f"equal to the plain version")
+                errs[lay] = max(errs.get(lay, 0.0),
+                                float((mk - mp).abs().max()))
+                if new:
+                    vk = PR.predict_margin(fo[lay], xq, base0=m0, **kw,
+                                           **value_kw)
+                    torch.cuda.synchronize()
+                    check(torch.equal(bits(vk), bits(vp)),
+                          f"B8 values ({lay}, {mapping}, {what}) not "
+                          f"bitwise equal to the plain version")
+        return errs
+
+    xs = torch.from_numpy(x[:slice_rows]).to("cuda")
+    errs = hold(xs, f"{xs.shape[0]} rows")
+    emit({"phase": "b8_vs_plain", "rows": int(xs.shape[0]), "trees": t_trees,
+          "plan": plan(xs.shape[0]), "max_abs_err": errs, "leaf_equal": True,
+          "values_bitwise": new})
+    del xs
+
+    # the shapes serving gives B8: every bucket of a max_batch-256 server,
+    # one row, and a size for each other rows-per-CTA choice
     ctas = 4 * PR._sm_count(torch.cuda.current_device())
-    sizes = (1, 8, 16, 32, 64, 128, 256, 2 * ctas, 4 * ctas)
-    r_by_rows = {}
+    sizes = (1, 8, 16, 32, 64, 128, 256, 2 * ctas, 4 * ctas, 8 * ctas)
+    plans, bucket_errs = {}, {}
     for i, m in enumerate(sizes):
         lo = (i * 7919) % (n - m)
-        xq = torch.from_numpy(x[lo:lo + m]).to("cuda")
-        r_by_rows[m] = PR.rows_per_block(m, 1, xq.device)
-        for lay in PR.LAYOUTS:
-            mk = PR.predict_margin(fo[lay], xq, base0=m0)
-            mp = PR.predict_margin_plain(fo[lay], xq, base0=m0)
-            lk = PR.predict_leaf_index(fo[lay], xq)
-            lp = PR.predict_leaf_index_plain(fo[lay], xq)
-            torch.cuda.synchronize()
-            check(torch.equal(bits(mk), bits(mp)),
-                  f"B8 margins ({lay}, {m} rows) not bitwise equal to the "
-                  f"plain version")
-            check(torch.equal(lk, lp),
-                  f"B8 leaf indices ({lay}, {m} rows) not equal to the "
-                  f"plain version")
+        bucket_errs[m] = hold(torch.from_numpy(x[lo:lo + m]).to("cuda"),
+                              f"{m} rows")
+        plans[m] = plan(m)
     emit({"phase": "b8_buckets_vs_plain", "trees": t_trees,
-          "rows_per_block_by_rows": r_by_rows, "bitwise": True})
-    check(set(r_by_rows.values()) | {r_slice} == {1, 2, 4, 8},
-          f"not every rows-per-CTA choice was checked: {r_by_rows}, "
-          f"{r_slice}")
+          "plan_by_rows": plans, "bitwise": True, "values_bitwise": new})
+    if new:
+        want = {"windows R1", "windows R2", "windows R4", "windows R8"}
+        check(want <= set(plans.values()) and plan(slice_rows).startswith(
+            "rows"), f"not every mapping was checked: {plans}")
 
     xd = torch.from_numpy(x).to("cuda")
     n_leaf = min(n, max(1, B._CHUNK_BYTES // (4 * (f + t_trees))))
-    # the node visits this run's data needs: a leaf at heap index h was
-    # reached after floor(log2(h + 1)) compares
     visits, visits_leaf = 0, None
     for lo in range(0, n, n_leaf):
-        h = PR.predict_leaf_index(fo["heap"], xd[lo:lo + n_leaf])
-        visits += int(torch.floor(torch.log2(h.double() + 1)).sum())
+        visits += b8_visits(fo["heap"], xd[lo:lo + n_leaf])
         if visits_leaf is None:  # the leaf timing's rows: the first chunk
             visits_leaf = visits
-        del h
     heap = bst.forest.feature.shape[1]
+    # the forest as the heap's six separate fields, 18 bytes a node: the
+    # count the B8 rows have always used, whatever the kernel reads
     forest_bytes = t_trees * heap * (4 + 4 + 4 + 1 + 1 + 4)
     out_m = torch.empty((n, 1), device="cuda")
     xl = xd[:n_leaf]
@@ -1226,10 +1314,28 @@ def phase_b8(bst, x, records, slice_rows=262_144):
     t["B8leaf"] = dict(
         bound=bound_ms(n_leaf * f * 4 + n_leaf * t_trees * 4 + forest_bytes,
                        visits_leaf), max_abs_err=0.0)
+    for m in SERVE_ROWS:  # a serve bucket's batch, bound counted alike
+        xq = xd[1000:1000 + m]
+        oq = torch.empty((m, 1), device="cuda")
+        key = f"B8serve{m}"
+        kernel[key] = (lambda xq=xq, oq=oq: PR.predict_margin(
+            fo["heap"], xq, base0=m0, out=oq))
+        plain[key] = (lambda xq=xq: PR.predict_margin_plain(
+            fo["heap"], xq, base0=m0))
+        t[key] = dict(bound=bound_ms(m * f * 4 + m * 4 + forest_bytes,
+                                     b8_visits(fo["heap"], xq)
+                                     + 2 * m * t_trees),
+                      max_abs_err=bucket_errs[m]["heap"], plan=plan(m))
     for key, fn in kernel.items():
-        t[key]["device_ms"] = device_ms(fn, iters=5)
+        t[key]["device_ms"] = device_ms(
+            fn, iters=50 if key.startswith("B8serve") else 5)
+    if new:  # the value mode at full size (the fused sigmoid's cost)
+        t["B8margin"]["value_device_ms"] = device_ms(
+            lambda: PR.predict_margin(fo["heap"], xd, base0=m0, out=out_m,
+                                      **value_kw), iters=5)
     for key, fn in kernel.items():
-        t[key]["ms"] = cuda_ms(fn, iters=5, warmup=1)
+        small = key.startswith("B8serve")
+        t[key]["ms"] = cuda_ms(fn, iters=50 if small else 5, warmup=1)
     for key, fn in plain.items():
         t[key]["plain_ms"] = cuda_ms(fn, iters=1, warmup=0)
     for key, v in t.items():
@@ -1240,9 +1346,32 @@ def phase_b8(bst, x, records, slice_rows=262_144):
     emit({"phase": "b8_timing", "rows_margin": n, "rows_leaf": n_leaf,
           "trees": t_trees, "node_visits": visits,
           "visits_per_row_tree": visits / (n * t_trees),
+          "plan": {"margin": plan(n)},
           **{k: {kk: (vv if kk != "bound" else list(vv))
                  for kk, vv in v.items()} for k, v in t.items()}})
     return t
+
+
+def phase_late_profile(bst, x):
+    """Whether torch.profiler sees B8's full-size margins launch late in the
+    process (after phases 2-6); recorded, not checked."""
+    import torch
+
+    from xgboost_ray_tpu_torch.ops import predict as PR
+
+    xd = torch.from_numpy(x).to("cuda")
+    fo = bst.device_forest("cuda")
+    m0 = bst.base_score_margin_np()
+    try:
+        ms = device_ms(lambda: PR.predict_margin(fo, xd, base0=m0), iters=3)
+    except SmokeFailure as exc:
+        ms, seen = None, str(exc)[:300]
+    else:
+        seen = "device time recorded"
+    out = {"phase": "late_profile", "b8_margin_device_ms": ms,
+           "profiler": seen}
+    emit(out)
+    return out
 
 
 KERNELS = {
@@ -1286,6 +1415,11 @@ KERNELS = {
                    "predict_leaf chunk, 500 trees)", route="cuda",
                    source="xgboost_ray_tpu_torch/csrc/predict.cu",
                    replaces="xgboost_ray_tpu/ops/predict.py:512"),
+    **{f"B8serve{m}": dict(
+        name=f"B8 forest walk: margins, heap layout, a serve batch of {m} "
+             f"rows (windows mapping; launches: every serve batch)",
+        route="cuda", source="xgboost_ray_tpu_torch/csrc/predict.cu",
+        replaces="xgboost_ray_tpu/ops/predict.py:52") for m in SERVE_ROWS},
 }
 
 #: kernels of the training path (phase 3's counters)
@@ -1327,7 +1461,7 @@ def run(args):
     torch.cuda.synchronize()
     emit({"phase": "build", "nvcc_seconds": cuda_build_s,
           "triton_first_launch_seconds": time.perf_counter() - t1})
-    build_report = phase_build_report()
+    build_report = phase_build_report(args.predict_rounds, args.rows)
 
     x, y = make_higgs_like(args.rows, 28, seed=0)
     if args.profile_only:
@@ -1376,12 +1510,17 @@ def run(args):
     by_path = {p: results[p]["b8_launches"] for p in (
         "predict", "predict_leaf", "serve", "serve_node_array")}
     b8_launches = {k: sum(v[k] for v in by_path.values())
-                   for k in ("B8margin", "B8margin_na", "B8leaf")}
+                   for k in ("B8margin", "B8margin_na", "B8leaf", "B8value",
+                             "B8windows")}
     emit({"phase": "b8_launches", "by_path": by_path,
           "launches": b8_launches})
     for k, v in b8_launches.items():
         check(v > 0, f"{k} never launched on the predict/serve path")
-        records[k]["launches"] = v
+    for k in ("B8margin", "B8margin_na", "B8leaf"):
+        records[k]["launches"] = b8_launches[k]
+    for m in SERVE_ROWS:  # the windows kernel: every serve batch
+        records[f"B8serve{m}"]["launches"] = b8_launches["B8windows"]
+    results["late_profile"] = phase_late_profile(served, x)
     pr = results["predict"]
     emit({"phase": "predict_summary", "rows": pr["rows"], "trees": pr["trees"],
           "predict_value_wall_s": pr["predict_value_wall_s"],

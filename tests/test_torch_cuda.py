@@ -9,9 +9,10 @@ histogram included, and its final-level records on random totals); K3's
 outputs, in both modes, are integers and copies (bitwise); K4's gradients
 within 1e-6 and its metric sums within 1e-5 relative; whole trees grown on
 the card and on the CPU from integer gh are bitwise on every field; B8's
-leaf indices and margins (every option: base, tree weights, ntree_limit,
-num_parallel_tree, K = 3, a categorical feature, NaN, both layouts) are
-bitwise equal to the plain version's.
+leaf indices, margins and values (every mapping and option: base, tree
+weights, ntree_limit, num_parallel_tree, K = 3, a categorical feature, NaN,
+both layouts) are bitwise equal to the plain version's (values: a NaN
+matches any NaN, whose payload differs between CPU and card).
 """
 
 import numpy as np
@@ -379,11 +380,19 @@ def _bits(t):
 
 
 B8_CASES = [(f, t, d) for f in (1, 28, 300) for t in (1, 7, 500)
-            for d in (1, 6, 10)]
+            for d in (1, 6, 10)] + [(28, 40, 13)]
+
+
+def _pf(fo, depth, layout, f, cat, device="cpu"):
+    return tp.device_forest(fo, depth, layout, device, num_features=f,
+                            cat_features=cat)
 
 
 @pytest.mark.parametrize("f,n_trees,depth", B8_CASES)
 def test_predict_walk_bitwise(cuda, f, n_trees, depth):
+    """Every mapping (rows over staged tiles, rows reading device memory
+    where tiles do not fit: F = 300 or depth 13, windows), every mode
+    (leaf indices, margins, values) and option against the plain version."""
     rng = np.random.default_rng(f * 1000 + n_trees * 10 + depth)
     cat = (f // 2,) if f > 1 else ()
     n = (5003, 300, 1)[(f + n_trees + depth) % 3]  # never a multiple of 8
@@ -391,68 +400,101 @@ def test_predict_walk_bitwise(cuda, f, n_trees, depth):
     x = torch.from_numpy(_rows(rng, n, f, cat))
     base = torch.from_numpy(rng.standard_normal((n, 3)).astype(np.float32))
     tw = torch.from_numpy(rng.uniform(0.2, 1.5, n_trees).astype(np.float32))
-    cat_c = tp.cat_mask(cat, f)
     xk = x.to(cuda)
-    cat_k = None if cat_c is None else cat_c.to(cuda)
     for layout in tp.LAYOUTS:
-        pc = tp.device_forest(fo, depth, layout)
-        pk = tp.device_forest(fo, depth, layout, cuda)
-        leaf = tp.predict_leaf_index(pk, xk, cat_k)
-        assert torch.equal(leaf.cpu(), tp.predict_leaf_index(pc, x, cat_c))
-        for opts in (dict(base0=0.25),
-                     dict(base=base[:, :1], tree_weights=tw,
-                          ntree_limit=max(1, n_trees - 3)),
-                     dict(base=base, num_outputs=3, num_parallel_tree=2)):
-            ko = {k: (v.to(cuda) if torch.is_tensor(v) else v)
-                  for k, v in opts.items()}
-            got = tp.predict_margin(pk, xk, cat=cat_k, **ko)
-            ref = tp.predict_margin_plain(pc, x, cat=cat_c, **opts)
-            torch.cuda.synchronize()
-            assert torch.equal(_bits(got), _bits(ref)), (layout, opts)
+        pc = _pf(fo, depth, layout, f, cat)
+        pk = _pf(fo, depth, layout, f, cat, cuda)
+        ref_leaf = tp.predict_leaf_index(pc, x)
+        for mapping in tp.MAPPINGS:
+            leaf = tp.predict_leaf_index(pk, xk, mapping=mapping)
+            assert torch.equal(leaf.cpu(), ref_leaf), (layout, mapping)
+            for opts in (dict(base0=0.25),
+                         dict(base=base[:, :1], tree_weights=tw,
+                              ntree_limit=max(1, n_trees - 3)),
+                         dict(base=base[:, :1], tree_weights=tw,
+                              transform="binary:logistic"),
+                         dict(base=base, num_outputs=3, num_parallel_tree=2)):
+                ko = {k: (v.to(cuda) if torch.is_tensor(v) else v)
+                      for k, v in opts.items()}
+                got = tp.predict_margin(pk, xk, mapping=mapping, **ko)
+                ref = tp.predict_margin_plain(pc, x, **opts)
+                torch.cuda.synchronize()
+                assert torch.equal(_bits(got), _bits(ref)), (layout, mapping,
+                                                             opts)
 
 
-@pytest.mark.parametrize("n", [1, 2, 7, 300, 2500, 5003, 40001])
+@pytest.mark.parametrize("n", [1, 2, 7, 300, 2500, 5003, 40001, 70001])
 def test_predict_walk_every_row_tile(cuda, n):
-    """Every rows-per-CTA choice (8, 4, 2, 1 by batch size) and the
-    ragged last CTA."""
+    """Every rows-per-CTA choice of the windows mapping (8, 4, 2, 1 by batch
+    size), the rows mapping's 512-row tiles, each mapping forced, and the
+    ragged last CTA; values of margins near and past the sigmoid's ends."""
     rng = np.random.default_rng(n)
     fo = _forest(rng, 40, 6, 28, (3,))
     x = torch.from_numpy(_rows(rng, n, 28, (3,)))
-    cat = tp.cat_mask((3,), 28)
+    base = torch.from_numpy((rng.standard_normal((n, 1)) * 60).astype(
+        np.float32))
+    base[: min(n, 4), 0] = torch.tensor([np.nan, np.inf, -88.4, -103.0])[
+        : min(n, 4)]
     for layout in tp.LAYOUTS:
-        pc = tp.device_forest(fo, 6, layout)
-        pk = tp.device_forest(fo, 6, layout, cuda)
-        got = tp.predict_margin(pk, x.to(cuda), base0=-0.5, cat=cat.to(cuda))
-        ref = tp.predict_margin_plain(pc, x, base0=-0.5, cat=cat)
-        assert torch.equal(_bits(got), _bits(ref))
-        leaf = tp.predict_leaf_index(pk, x.to(cuda), cat.to(cuda))
-        assert torch.equal(leaf.cpu(), tp.predict_leaf_index_plain(pc, x, cat))
+        pc = _pf(fo, 6, layout, 28, (3,))
+        pk = _pf(fo, 6, layout, 28, (3,), cuda)
+        ref = tp.predict_margin_plain(pc, x, base0=-0.5)
+        ref_v = tp.predict_margin_plain(pc, x, base, transform=LOGISTIC)
+        ref_l = tp.predict_leaf_index_plain(pc, x)
+        for mapping in (None,) + tp.MAPPINGS:
+            got = tp.predict_margin(pk, x.to(cuda), base0=-0.5,
+                                    mapping=mapping)
+            assert torch.equal(_bits(got), _bits(ref)), mapping
+            got = tp.predict_margin(pk, x.to(cuda), base.to(cuda),
+                                    transform=LOGISTIC, mapping=mapping)
+            assert _same_nan(got.cpu(), ref_v), mapping
+            leaf = tp.predict_leaf_index(pk, x.to(cuda), mapping=mapping)
+            assert torch.equal(leaf.cpu(), ref_l), mapping
     assert tp.predict_margin.launches > 0 and tp.predict_leaf_index.launches > 0
+    assert tp.predict_margin.launches_by_mode["value"] > 0
+
+
+LOGISTIC = "binary:logistic"
+
+
+def _same_nan(a, b):
+    """Bitwise, a NaN matching any NaN."""
+    nan = torch.isnan(a)
+    return bool(torch.equal(nan, torch.isnan(b))
+                and torch.equal(_bits(a[~nan]), _bits(b[~nan])))
 
 
 def test_predict_wrappers_reject_bad_inputs(cuda):
     rng = np.random.default_rng(0)
     fo = _forest(rng, 7, 3, 4)
-    pk = tp.device_forest(fo, 3, "heap", cuda)
+    pk = _pf(fo, 3, "heap", 4, (), cuda)
     x = torch.from_numpy(_rows(rng, 50, 4)).to(cuda)
     with pytest.raises(ValueError):  # f64 rows
         tp.predict_margin(pk, x.double())
     with pytest.raises(ValueError):  # a strided view
         tp.predict_margin(pk, torch.zeros(50, 8, device=cuda)[:, ::2])
+    with pytest.raises(ValueError):  # rows of another width than packed for
+        tp.predict_margin(pk, torch.zeros(50, 5, device=cuda))
     with pytest.raises(ValueError):  # the forest on another device
-        tp.predict_margin(tp.device_forest(fo, 3, "heap"), x)
+        tp.predict_margin(_pf(fo, 3, "heap", 4, ()), x)
     with pytest.raises(ValueError):  # base of another shape
         tp.predict_margin(pk, x, torch.zeros(50, 2, device=cuda))
     with pytest.raises(ValueError):  # one weight per tree
         tp.predict_margin(pk, x, tree_weights=torch.ones(6, device=cuda))
     with pytest.raises(ValueError):  # out of the wrong dtype
         tp.predict_leaf_index(pk, x, out=torch.zeros(50, 7, device=cuda))
-    with pytest.raises(ValueError):  # a cat mask per feature, bool
-        tp.predict_leaf_index(pk, x, torch.ones(3, dtype=torch.bool,
-                                                device=cuda))
-    with pytest.raises(ValueError):  # more classes than shared memory holds
-        tp.predict_margin(pk, x, num_outputs=5000)
+    with pytest.raises(ValueError):  # more classes than a grid has rows
+        tp.predict_margin(pk, x, num_outputs=1 << 16)
+    with pytest.raises(ValueError):  # no such mapping
+        tp.predict_margin(pk, x, mapping="nope")
+    with pytest.raises(NotImplementedError):  # an objective outside the port
+        tp.predict_margin(pk, x, transform="multi:softprob")
+    with pytest.raises(NotImplementedError):  # a transform of K = 3
+        tp.predict_margin(pk, x, torch.zeros(50, 3, device=cuda),
+                          num_outputs=3, transform=LOGISTIC)
     with pytest.raises(ValueError):
-        tp.device_forest(fo, 4, "heap", cuda)  # heap of another depth
+        _pf(fo, 4, "heap", 4, (), cuda)  # heap of another depth
+    with pytest.raises(ValueError):  # 2^24 features do not pack
+        _pf(fo, 3, "heap", 1 << 24, (), cuda)
     empty = tp.predict_margin(pk, x[:0])
     assert empty.shape == (0, 1)

@@ -110,6 +110,13 @@ def _jtree(fo):
     return JTree(*[jnp.asarray(f) for f in fo])
 
 
+def _pf(fo, depth, layout="heap", n_features=5):
+    """The packed forest of the random inputs (column ``CAT``
+    categorical)."""
+    return tp.device_forest(fo, depth, layout, num_features=n_features,
+                            cat_features=(CAT,))
+
+
 def _inputs(depth, n_trees, seed=0, n=301, f=5):
     rng = np.random.default_rng(seed + 100 * depth + n_trees)
     return random_forest(rng, n_trees, depth, f), random_rows(rng, n, f), rng
@@ -129,9 +136,8 @@ def test_leaf_index_bitwise_both_layouts(depth, n_trees):
         na, jnp.asarray(x), depth, cat_features=(CAT,)))
     assert np.array_equal(ref, ref_na)
     for layout in tp.LAYOUTS:
-        pf = tp.device_forest(fo, depth, layout)
-        got = tp.predict_leaf_index(pf, torch.from_numpy(x),
-                                    tp.cat_mask((CAT,), x.shape[1]))
+        got = tp.predict_leaf_index(_pf(fo, depth, layout),
+                                    torch.from_numpy(x))
         assert got.dtype == torch.int32
         assert np.array_equal(got.numpy(), ref), layout
 
@@ -139,8 +145,8 @@ def test_leaf_index_bitwise_both_layouts(depth, n_trees):
 def _abs_terms(fo, depth, x, tw=None, n_outputs=1, npt=1):
     """Per row and class, the sum of |leaf value x tree weight| over the
     trees: the scale of the summation error bound."""
-    leaf, _ = tp.walk_plain(tp.device_forest(fo, depth), torch.from_numpy(x),
-                            tp.cat_mask((CAT,), x.shape[1]))
+    leaf, _ = tp.walk_plain(_pf(fo, depth, n_features=x.shape[1]),
+                            torch.from_numpy(x))
     terms = np.abs(leaf.numpy())
     if tw is not None:
         terms = terms * tw[:, None]
@@ -165,9 +171,7 @@ def test_margin_one_output_matches_jax(depth, n_trees):
     n = x.shape[0]
     base = (rng.standard_normal((n, 1)) * 0.2).astype(np.float32)
     tw = rng.uniform(0.2, 1.5, n_trees).astype(np.float32)
-    cat = tp.cat_mask((CAT,), x.shape[1])
-    pfs = {layout: tp.device_forest(fo, depth, layout)
-           for layout in tp.LAYOUTS}
+    pfs = {layout: _pf(fo, depth, layout) for layout in tp.LAYOUTS}
     bitwise = set()
     for name in OPTIONS:
         opts = {}
@@ -187,7 +191,7 @@ def test_margin_one_output_matches_jax(depth, n_trees):
             cat_features=(CAT,), **jopts))
         terms = _abs_terms(fo, depth, x, opts.get("tree_weights"))
         got = {layout: tp.predict_margin(pf, torch.from_numpy(x),
-                                         torch.from_numpy(base), cat=cat,
+                                         torch.from_numpy(base),
                                          **topts).numpy()
                for layout, pf in pfs.items()}
         assert np.array_equal(got["heap"], got["node_array"]), name
@@ -224,8 +228,7 @@ def test_reference_sum_orders_below_33_trees():
     ref = np.asarray(jpred.predict_margin(
         _jtree(fo), jnp.asarray(x), jnp.zeros((x.shape[0], 1)), 3, 1,
         cat_features=(CAT,)))[:, 0]
-    leaf = tp.walk_plain(tp.device_forest(fo, 3), torch.from_numpy(x),
-                         tp.cat_mask((CAT,), x.shape[1]))[0].numpy()
+    leaf = tp.walk_plain(_pf(fo, 3), torch.from_numpy(x))[0].numpy()
     assert np.array_equal((leaf[0] + leaf[2]) + (leaf[1] + leaf[3]), ref)
 
 
@@ -238,8 +241,7 @@ def test_margin_three_outputs_within_sum_bound(n_trees):
     ref = np.asarray(jpred.predict_margin(
         _jtree(fo), jnp.asarray(x), jnp.asarray(base), depth, 3,
         num_parallel_tree=2, cat_features=(CAT,)))
-    leaf, _ = tp.walk_plain(tp.device_forest(fo, depth), torch.from_numpy(x),
-                            tp.cat_mask((CAT,), x.shape[1]))
+    leaf, _ = tp.walk_plain(_pf(fo, depth), torch.from_numpy(x))
     cls = (np.arange(n_trees) // 2) % 3
     abs_sum = np.stack([np.abs(leaf.numpy()[cls == k]).sum(0)
                         for k in range(3)], 1)
@@ -247,10 +249,9 @@ def test_margin_three_outputs_within_sum_bound(n_trees):
     # the base add rounds once more
     bound = n_trees * EPS32 * abs_sum / 2 + 2 * EPS32 * np.abs(ref)
     for layout in tp.LAYOUTS:
-        got = tp.predict_margin(tp.device_forest(fo, depth, layout),
+        got = tp.predict_margin(_pf(fo, depth, layout),
                                 torch.from_numpy(x), torch.from_numpy(base),
-                                num_outputs=3, num_parallel_tree=2,
-                                cat=tp.cat_mask((CAT,), x.shape[1])).numpy()
+                                num_outputs=3, num_parallel_tree=2).numpy()
         assert (np.abs(got - ref) <= bound).all(), layout
 
 
@@ -282,11 +283,173 @@ def test_forest_to_node_array_bitwise_and_walks_agree():
     with pytest.raises(ValueError, match="heap width"):
         tna.forest_to_node_array(fo, 5)
     xt = torch.from_numpy(x)
-    cat = tp.cat_mask((CAT,), x.shape[1])
-    heap = tp.walk_plain(tp.device_forest(fo, 6, "heap"), xt, cat)
-    level = tp.walk_plain(tp.device_forest(fo, 6, "node_array"), xt, cat)
+    heap = tp.walk_plain(_pf(fo, 6, "heap"), xt)
+    level = tp.walk_plain(_pf(fo, 6, "node_array"), xt)
     for a, b in zip(heap, level):
         assert np.array_equal(a.numpy().view(np.int32), b.numpy().view(np.int32))
+
+
+def _owners(fo, depth):
+    """Per tree and heap node: the first leaf at or above it, or -1."""
+    t, heap = fo.feature.shape
+    owner = np.full((t, heap), -1)
+    for i in range(heap):
+        up = owner[:, (i - 1) // 2] if i else np.full(t, -1)
+        here = fo.is_leaf[:, i] & (i < (1 << depth) - 1)
+        owner[:, i] = np.where(up >= 0, up, np.where(here, i, -1))
+    return owner
+
+
+@pytest.mark.parametrize("depth", [3, 5])
+def test_packed_record_round_trips_both_layouts(depth):
+    """Every field the walk reads comes back bitwise from the packed
+    records, in both layouts: splits (numeric and categorical, either
+    default_left), leaves above max_depth, last-level nodes (marked or not)
+    and the unused slots under leaves (copies of their leaf)."""
+    rng = np.random.default_rng(40 + depth)
+    fo = random_forest(rng, 9, depth, 5)
+    fo.feature[0, 0] = 7  # out of range: clamped as the reference gathers
+    heap = (2 << depth) - 1
+    owner = _owners(fo, depth)
+    assert (owner >= 0).any() and (owner < 0).any()
+    recs = {}
+    for layout in tp.LAYOUTS:
+        v, w = (a.numpy() for a in tp.decode_nodes(_pf(fo, depth, layout)))
+        if layout == "node_array":  # back to heap order
+            pos = np.concatenate([
+                (9 * ((1 << k) - 1) + (np.arange(9)[:, None] << k)
+                 + np.arange(1 << k)[None, :]) for k in range(depth + 1)],
+                axis=1)
+            v, w = v[pos], w[pos]
+        else:
+            v, w = v.reshape(9, heap), w.reshape(9, heap)
+        recs[layout] = (v.view(np.int32), w)
+        last = (1 << depth) - 1
+        fc = np.clip(fo.feature, 0, 4)
+        split = (owner < 0) & (np.arange(heap) < last)
+        code = fo.split_bin.astype(np.float32)
+        want = np.where(fc == CAT, code, fo.threshold)
+        assert np.array_equal(v[split].view(np.int32),
+                              want[split].view(np.int32))
+        assert np.array_equal(w[split] & tp.FEATURE_MASK, fc[split])
+        assert np.array_equal((w[split] & tp.DEFAULT_LEFT) != 0,
+                              fo.default_left[split])
+        assert np.array_equal((w[split] & tp.CATEGORICAL) != 0,
+                              fc[split] == CAT)
+        assert not (w[split] & tp.LEAF).any()
+        under = (owner >= 0) & (np.arange(heap) < last)
+        src = np.where(owner >= 0, owner, np.arange(heap))
+        ends = np.take_along_axis(fo.value, src, 1)
+        assert np.array_equal(w[under], np.full(under.sum(), tp.LEAF))
+        assert np.array_equal(v[under].view(np.int32),
+                              ends[under].view(np.int32))
+        assert np.array_equal(v[:, last:].view(np.int32),
+                              ends[:, last:].view(np.int32))
+        assert np.array_equal(w[:, last:], src[:, last:])
+    assert all(np.array_equal(a, b) for a, b in zip(*recs.values()))
+
+
+def test_nan_follows_default_left_either_way():
+    fo = random_forest(np.random.default_rng(2), 2, 1, 5, cat=(), p_leaf=0.0,
+                       p_open_bottom=0.0)
+    fo.feature[:, 0] = [0, 3]
+    fo.default_left[:, 0] = [True, False]
+    x = np.full((3, 5), np.nan, np.float32)
+    x[1, 3] = x[2, 0] = 10.0
+    ref = np.asarray(jpred.predict_leaf_index(_jtree(fo), jnp.asarray(x), 1))
+    for layout in tp.LAYOUTS:
+        got = tp.predict_leaf_index(_pf(fo, 1, layout), torch.from_numpy(x))
+        assert np.array_equal(got.numpy(), ref), layout
+    assert ref[0].tolist() == [1, 2]
+
+
+def _same(a, b):
+    """Bitwise, a NaN matching any NaN (payloads differ by machine)."""
+    a, b = np.asarray(a), np.asarray(b)
+    nan = np.isnan(a)
+    return bool(np.array_equal(nan, np.isnan(b))
+                and np.array_equal(a[~nan].view(np.int32),
+                                   b[~nan].view(np.int32)))
+
+
+def test_plain_transform_is_the_sigmoid_bitwise():
+    """The value mode's plain version: the objective's transform of the
+    margins, bitwise ops/objectives.sigmoid and jax.nn.sigmoid, at NaN,
+    +-inf, +-88.4, results that flush to zero and random margins."""
+    from xgboost_ray_tpu_torch.ops.objectives import sigmoid
+
+    rng = np.random.default_rng(9)
+    special = np.array([np.nan, np.inf, -np.inf, 88.4, -88.4, 88.38, -88.38,
+                        -87.4, -87.0, -86.9, -103.0, 0.0, -0.0, 1e-30, 17.0],
+                       np.float32)
+    m = np.concatenate([special, (rng.standard_normal(3000) * 12).astype(
+        np.float32)])
+    fo = random_forest(rng, 3, 2, 5, cat=())
+    fo.value[:] = 0.0  # the margins are the base margins
+    x = random_rows(rng, m.size, 5)
+    base = torch.from_numpy(m[:, None].copy())
+    for layout in tp.LAYOUTS:
+        pf = _pf(fo, 2, layout)
+        margin = tp.predict_margin(pf, torch.from_numpy(x), base)
+        assert _same(margin.numpy()[:, 0], np.where(m == 0, 0.0, m))
+        value = tp.predict_margin(pf, torch.from_numpy(x), base,
+                                  transform="binary:logistic")
+        assert value.shape == (m.size, 1)
+        got = value.numpy()[:, 0]
+        assert _same(got, sigmoid(margin[:, 0]).numpy())
+        assert _same(got, np.asarray(jax.jit(jax.nn.sigmoid)(
+            jnp.asarray(margin.numpy()[:, 0]))))
+        ident = tp.predict_margin(pf, torch.from_numpy(x), base,
+                                  transform="reg:squarederror")
+        assert _same(ident.numpy(), margin.numpy())
+    flushed = got[np.isin(m, [-87.4, -103.0])]
+    assert (flushed == 0).all() and not np.signbit(flushed).any()
+    with pytest.raises(NotImplementedError, match="A10"):
+        tp.predict_margin(pf, torch.from_numpy(x), transform="rank:pairwise")
+    with pytest.raises(NotImplementedError, match="A10"):
+        tp.predict_margin(pf, torch.from_numpy(x), num_outputs=3,
+                          transform="binary:logistic")
+
+
+def test_feature_index_limit_and_width_checks():
+    fo = random_forest(np.random.default_rng(3), 2, 2, 5)
+    with pytest.raises(ValueError, match="24 bits"):
+        tp.device_forest(fo, 2, num_features=1 << 24)
+    tp.device_forest(fo, 2, num_features=(1 << 24) - 1)
+    pf = _pf(fo, 2)
+    with pytest.raises(ValueError, match="packed for 5 features"):
+        tp.predict_margin(pf, torch.zeros(4, 6))
+    with pytest.raises(ValueError, match="packed for 5 features"):
+        tp.predict_leaf_index(pf, torch.zeros(4, 4))
+
+
+def test_launch_plan_picks_each_mapping(monkeypatch):
+    """The wrapper's choice of mapping, tile and shared memory (on a
+    132-SM card): windows with 1-8 rows a CTA for small batches, rows
+    (512 a CTA) from 132 CTAs, tiles that leave three CTAs an SM where they
+    can, and device-memory reads where not even two trees fit."""
+    monkeypatch.setattr(tp, "_sm_count", lambda index: 132)
+    rng = np.random.default_rng(4)
+    fo6 = _pf(random_forest(rng, 500, 6, 28, cat=()), 6, n_features=28)
+    plan = lambda n, **kw: tp.launch_plan(n, 1, fo6, False, "cpu", **kw)
+    assert [plan(n).rows_per_block for n in (1, 256, 1056, 2112, 4224)] == [
+        1, 1, 2, 4, 8]
+    assert {plan(n).mapping for n in (1, 256, 4224, 131 * 512)} == {"windows"}
+    big = plan(131 * 512 + 1)
+    assert big == tp.LaunchPlan("rows", 1, 8, True,
+                                16 * 8 * 127 + 4 * 28 * 512)
+    assert big.shared_bytes <= tp._SHARED_BUDGETS[0]  # three CTAs an SM
+    leaf = tp.launch_plan(1 << 20, 1, fo6, True, "cpu")
+    assert leaf == tp.LaunchPlan("rows", 1, 32, True, 16 * 32 * 127
+                                 + 4 * 28 * 512 + 4 * 512 * 33)
+    assert plan(5, mapping="rows").mapping == "rows"
+    assert plan(1 << 20, mapping="windows").mapping == "windows"
+    wide = _pf(random_forest(rng, 3, 2, 300, cat=()), 2, n_features=300)
+    assert not tp.launch_plan(1 << 20, 1, wide, False, "cpu").staged
+    deep = _pf(random_forest(rng, 2, 10, 5, cat=(), p_leaf=0.9), 10)
+    assert tp.launch_plan(1 << 20, 1, deep, False, "cpu").trees_per_tile == 2
+    with pytest.raises(ValueError, match="mapping"):
+        plan(5, mapping="nope")
 
 
 # --------------------------------------------------------------------------
@@ -325,8 +488,8 @@ def assert_predictions_match(tb, data, got, ref, **kw):
         return
     b = tb._rounds(kw.get("iteration_range"))
     x = b._coerce_features(data)
-    leaf = tp.walk_plain(b.device_forest("cpu"), torch.from_numpy(x),
-                         tp.cat_mask(b.cat_features, x.shape[1]))[0].numpy()
+    leaf = tp.walk_plain(b.device_forest("cpu"),
+                         torch.from_numpy(x))[0].numpy()
     terms = np.abs(leaf if b.tree_weights is None
                    else leaf * b.tree_weights[:, None]).sum(0)
     bound = b.num_trees * EPS32 * terms + 2 * EPS32 * np.abs(ref)

@@ -7,10 +7,11 @@ padded-heap layout (host numpy arrays, ``[T, heap]`` per field of
 and prediction (``:145`` ``cat_features``, ``:156`` ``signature``, ``:204``
 ``_coerce_features``, ``:254`` ``slice_rounds``, ``:268``
 ``base_score_margin_np``, ``:277`` ``predict_margin_np``, ``:680``
-``predict``, ``:732`` ``_margin_to_prediction``) through B8
-(``ops/predict.py``), on the card unless ``device="cpu"``. Rows go to the
-device in chunks of at most ``_CHUNK_BYTES`` of input and output, so a
-large ``pred_leaf`` (``[N, T]`` int32) never has to fit the card at once.
+``predict``, and ``:732`` ``_margin_to_prediction``, which B8 fuses)
+through B8 (``ops/predict.py``), on the card unless ``device="cpu"``.
+Rows go to the device in chunks of at most ``_CHUNK_BYTES`` of input and
+output, so a large ``pred_leaf`` (``[N, T]`` int32) never has to fit the
+card at once.
 ``coerce_model`` turns the model forms ``predict()`` and the serving
 registry accept (booster, pickled bytes, saved-model path, JSON document)
 into a booster.
@@ -232,9 +233,11 @@ class RayXGBoostBooster:
         return base_score_margin(self.params.objective, self.base_score)
 
     def device_forest(self, device, layout: str = "heap"):
-        """The walk's fields on ``device`` (``ops.predict.PredictForest``)."""
-        return predict_ops.device_forest(self.forest, self.max_depth, layout,
-                                         device)
+        """The packed forest on ``device`` (``ops.predict.PredictForest``),
+        its categorical flags from ``cat_features``."""
+        return predict_ops.device_forest(
+            self.forest, self.max_depth, layout, device,
+            num_features=self.num_features, cat_features=self.cat_features)
 
     def device_tree_weights(self, device) -> Optional[torch.Tensor]:
         if self.tree_weights is None:
@@ -253,16 +256,17 @@ class RayXGBoostBooster:
     ) -> np.ndarray:
         """[N, K] raw margins of f32 rows ``x`` (the reference's
         ``predict_margin_np``), or with ``transform`` the objective's
-        predictions, computed on ``device`` (the card by default)."""
+        predictions ([N], the transform fused into B8), computed on
+        ``device`` (the card by default)."""
         dev = resolve_device(device)
         n, num_features = x.shape
         k = self.num_outputs
         m0 = self.base_score_margin_np()
+        objective = self.params.objective if transform else None
+        if transform:
+            get_objective(objective)  # raises outside the slice
         fo = self.device_forest(dev)
         tw = self.device_tree_weights(dev)
-        cat = predict_ops.cat_mask(self.cat_features, num_features, dev)
-        if transform:
-            get_objective(self.params.objective)  # raises outside the slice
         out = np.empty((n, k) if not transform else (n,), np.float32)
         row_bytes = 4 * (num_features + 2 * k)
         for lo, hi in self._chunks(n, row_bytes):
@@ -275,10 +279,9 @@ class RayXGBoostBooster:
             margin = predict_ops.predict_margin(
                 fo, xd, base, base0=m0, num_outputs=k,
                 num_parallel_tree=self.params.num_parallel_tree,
-                ntree_limit=int(ntree_limit), tree_weights=tw, cat=cat)
-            if transform:
-                margin = self._margin_to_prediction(margin, False)
-            out[lo:hi] = margin.cpu().numpy()
+                ntree_limit=int(ntree_limit), tree_weights=tw,
+                transform=objective)
+            out[lo:hi] = (margin[:, 0] if transform else margin).cpu().numpy()
         return out
 
     def predict_leaf(self, x: np.ndarray, device=None) -> np.ndarray:
@@ -286,11 +289,10 @@ class RayXGBoostBooster:
         dev = resolve_device(device)
         n, num_features = x.shape
         fo = self.device_forest(dev)
-        cat = predict_ops.cat_mask(self.cat_features, num_features, dev)
         out = np.empty((n, self.num_trees), np.int32)
         for lo, hi in self._chunks(n, 4 * (num_features + self.num_trees)):
             xd = torch.from_numpy(np.ascontiguousarray(x[lo:hi])).to(dev)
-            out[lo:hi] = predict_ops.predict_leaf_index(fo, xd, cat).cpu().numpy()
+            out[lo:hi] = predict_ops.predict_leaf_index(fo, xd).cpu().numpy()
         return out
 
     def predict(
@@ -325,13 +327,6 @@ class RayXGBoostBooster:
             return margin[:, 0] if self.num_outputs == 1 else margin
         return booster.predict_margin(x, ntree_limit, base_margin, device,
                                       transform=True)
-
-    def _margin_to_prediction(self, margin: torch.Tensor,
-                              output_margin: bool) -> torch.Tensor:
-        """[N, K] margins -> what ``predict`` returns, on their device."""
-        if output_margin:
-            return margin[:, 0] if self.num_outputs == 1 else margin
-        return get_objective(self.params.objective).transform(margin)
 
     # -- serialization -----------------------------------------------------
 

@@ -57,7 +57,7 @@ SIGNATURES = {
             [P, I, I, I, F, F, F, F, P, P, P, P, P, P, P], I),
     },
     "predict": {
-        "xrt_predict": ([P, I, I, P], I),
+        "xrt_predict": ([P, P], I),
     },
     "partition": {
         "xrt_partition": (
@@ -88,14 +88,13 @@ class PredictArgs(ctypes.Structure):
     passed by pointer (edit both together)."""
 
     _fields_ = ([(name, P) for name in (
-        "x", "feature", "split_bin", "threshold", "default_left", "is_leaf",
-        "value", "cat_mask", "tree_weights", "base", "out_margin",
-        "out_leaf")]
+        "x", "nodes", "tree_weights", "base", "out_margin", "out_leaf")]
         + [("n_rows", ctypes.c_longlong)]
         + [(name, I) for name in (
             "n_features", "n_trees", "max_depth", "ntree_limit",
-            "num_parallel_tree", "num_outputs", "rows_per_block", "front0",
-            "padded", "top")]
+            "num_parallel_tree", "num_outputs", "layout", "mode", "mapping",
+            "has_cat", "rows_per_block", "trees_per_tile", "staged",
+            "shared_bytes", "front0", "padded", "top")]
         + [("m", I * 4), ("front", I * 4), ("base0", F)])
 
 

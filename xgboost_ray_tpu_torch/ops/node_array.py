@@ -9,7 +9,8 @@ Only the six fields the raw-x walk reads are kept.
 
 The walk over it (the port of ``_walk_levels``, ``:105``) is
 ``ops/predict.py``'s, which takes the layout as an argument: the plain
-version and kernel B8 read either layout through one index formula.
+version and kernel B8 read either layout through one index formula, from
+packed node records that ``level_major`` puts in this order.
 """
 
 from typing import NamedTuple
@@ -33,6 +34,17 @@ def level_base(k: int, num_trees: int) -> int:
     return num_trees * ((1 << k) - 1)
 
 
+def level_major(arr: np.ndarray, max_depth: int) -> np.ndarray:
+    """``[T, heap, ...]`` in heap order -> ``[T * heap, ...]`` in the
+    node-array order. Slab k is ``arr[:, 2^k-1 : 2^(k+1)-1]`` flattened
+    tree-major: the reshape of the ``[T, 2^k]`` slice lands (t, p) at
+    ``t * 2^k + p``."""
+    return np.concatenate([
+        arr[:, (1 << k) - 1:(2 << k) - 1].reshape((-1,) + arr.shape[2:])
+        for k in range(max_depth + 1)
+    ])
+
+
 def forest_to_node_array(forest, max_depth: int) -> NodeForest:
     """Permute a stacked padded-heap forest (fields ``[T, heap]``) into the
     level-major node-array layout. Called once per model."""
@@ -45,13 +57,8 @@ def forest_to_node_array(forest, max_depth: int) -> NodeForest:
         )
 
     def permute(field, dtype):
-        arr = np.asarray(field)
-        # slab k is arr[:, 2^k-1 : 2^(k+1)-1] flattened tree-major: the
-        # reshape(-1) of the [T, 2^k] slice lands (t, p) at t*2^k + p
-        return np.concatenate([
-            arr[:, (1 << k) - 1:(1 << (k + 1)) - 1].reshape(-1)
-            for k in range(max_depth + 1)
-        ]).astype(dtype, copy=False)
+        return level_major(np.asarray(field), max_depth).astype(dtype,
+                                                                copy=False)
 
     return NodeForest(
         feature=permute(forest.feature, np.int32),

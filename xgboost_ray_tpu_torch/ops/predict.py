@@ -4,21 +4,30 @@ Port of ``xgboost_ray_tpu/ops/predict.py``: ``_step_right`` (``:23``),
 ``_walk_one_tree`` (``:36``), ``predict_margin`` (``:52``) and
 ``predict_leaf_index`` (``:512``), with the node-array twins of
 ``ops/node_array.py`` (``_walk_levels`` ``:105``, ``predict_margin_na``
-``:141``, ``predict_leaf_index_na`` ``:171``). The forest goes to the device
-once as a :class:`PredictForest`: the six fields the walk reads, flat, in
-the padded-heap or the node-array layout. One index formula per layout
+``:141``, ``predict_leaf_index_na`` ``:171``).
+
+The forest goes to the device once per model as a :class:`PredictForest`:
+one packed 8-byte record per node (``pack_nodes``), in the padded-heap or
+the node-array order. Above the last level a record holds a float (the
+threshold of a numeric split, the category code of a categorical one, the
+value of a leaf) and a word: the feature index, clamped to ``[0, F - 1]``,
+in 24 bits and the flags ``LEAF``, ``DEFAULT_LEFT`` and ``CATEGORICAL``
+above them (the categorical flag from the model's ``cat_features``). Every
+node below a leaf holds a copy of the leaf's record, and a last-level
+record holds the value a row ends with and the heap index of its leaf, so
+a walk is ``max_depth`` steps of one record read, with no leaf test, and
+reads the value and leaf index where it ends. That is the reference's
+walk: a row freezes at its first leaf, and a row that meets none reads the
+level-``max_depth`` node it reaches. One index formula per layout
 (``_node_pos``) is all that differs between the two walks, in the plain
 version and in the kernel alike:
 
 - heap: ``t * heap + 2**k - 1 + p``;
 - node array: ``T * (2**k - 1) + t * 2**k + p``
 
-for slot p of level k of tree t. A row freezes at its first leaf; a row
-that meets none reads ``value`` at the level-``max_depth`` node it reaches.
-Routing: NaN follows ``default_left``; a categorical feature goes right
-when its rounded code (half to even) differs from ``split_bin``; otherwise
-``x >= threshold`` goes right. The feature index is clamped to
-``[0, F - 1]`` before the gather (leaves and unused slots hold -1).
+for slot p of level k of tree t. Routing: NaN follows ``default_left``; a
+categorical feature goes right when its rounded code (half to even)
+differs from the split's code; otherwise ``x >= threshold`` goes right.
 
 Margins. Each tree's leaf value is multiplied by its ``tree_weights`` entry,
 a tree at or past ``ntree_limit`` adds 0.0, and the per-class sums are
@@ -32,12 +41,17 @@ the reduce (weighted leaves are summed with FMAs, a sum of four gathered
 leaves is vectorised), and for K > 1 it sums with a one-hot matrix product
 whose order the CPU GEMM picks; there the two agree within float32
 summation error. ``tests/test_torch_predict.py`` pins where they are
-bitwise.
+bitwise. Values: with ``transform`` (an objective's name) the margins go
+through the objective's prediction transform (``Objective.transform``:
+the sigmoid of ``binary:logistic``), which the kernel fuses into its
+epilogue.
 
 Each wrapper sends CPU tensors to its plain PyTorch version and CUDA
 tensors to the kernel (or raises): there is no fallback. ``launches``
 counts kernel launches (``launches_by_layout`` splits them by forest
-layout). Kernel: ``csrc/predict.cu``.
+layout, ``launches_by_mapping`` by mapping, ``launches_by_mode`` margins
+from values). Kernel: ``csrc/predict.cu``; ``launch_plan`` picks its
+mapping.
 """
 
 import ctypes
@@ -48,72 +62,111 @@ import numpy as np
 import torch
 
 from xgboost_ray_tpu_torch.ops import _build
-from xgboost_ray_tpu_torch.ops.node_array import forest_to_node_array
+from xgboost_ray_tpu_torch.ops.node_array import level_major
+from xgboost_ray_tpu_torch.ops.objectives import get_objective
 from xgboost_ray_tpu_torch.ops.split import tree_sum
 
 #: forest layouts the walk reads: the padded heap and the breadth-first
 #: node array (``ops/node_array.py``)
 LAYOUTS = ("heap", "node_array")
 
-#: the fields the raw-x walk reads, in ``Tree`` order
-WALK_FIELDS = ("feature", "split_bin", "threshold", "default_left", "is_leaf",
-               "value")
+#: kernel mappings: a row per thread over staged tiles (large batches) and a
+#: tree slot per thread with the window sums in shared memory (small ones)
+MAPPINGS = ("rows", "windows")
+
+#: a record's word above the last level: feature index, then the flags
+FEATURE_MASK = (1 << 24) - 1
+LEAF = 1 << 24
+DEFAULT_LEFT = 1 << 25
+CATEGORICAL = 1 << 26
+MAX_FEATURES = 1 << 24
 
 _WINDOW = 32  # the reference's reduce window over trees
 _MAX_TREES = 1 << 20  # four window levels; node indices fit int32 below
 _KERNEL_LEVELS = 4  # XRT_LEVELS of csrc/predict.cu
-_MAX_SHARED = 48 * 1024  # a launch without the opt-in attribute
+_MODES = {"margin": 0, "leaf": 1, "value": 2}  # XRT_MARGIN, ... of the kernel
+_ROW_TILE = 512  # XRT_ROW_TILE: rows per CTA of the rows mapping
+#: shared memory a CTA may take for 3, 2 or 1 CTAs an SM (228 KB, 1 KB
+#: reserved a CTA; above 48 KB after the opt-in attribute)
+_SHARED_BUDGETS = (75 * 1024, 113 * 1024, 227 * 1024)
+_SHARED_MAX = _SHARED_BUDGETS[-1]
 #: rows per plain walk step are (this / trees): the [T, rows] temporaries
 _PLAIN_CHUNK_ELEMS = 1 << 22
 
 
 class PredictForest(NamedTuple):
-    """The walk's fields on one device: each flat ``[T * heap]`` in
-    ``layout`` order."""
+    """The packed forest on one device: ``nodes`` int32 ``[T * heap, 2]``
+    (the record's float bits, its word) in ``layout`` order."""
 
-    feature: torch.Tensor  # int32
-    split_bin: torch.Tensor  # int32
-    threshold: torch.Tensor  # float32
-    default_left: torch.Tensor  # bool
-    is_leaf: torch.Tensor  # bool
-    value: torch.Tensor  # float32
+    nodes: torch.Tensor
     n_trees: int
     max_depth: int
     layout: str
+    num_features: int
+    has_cat: bool
 
 
-def device_forest(forest, max_depth: int, layout: str = "heap",
-                  device="cpu") -> PredictForest:
-    """A stacked padded-heap forest (numpy fields ``[T, heap]``, e.g. a
-    booster's ``forest``) -> :class:`PredictForest` on ``device``."""
-    if layout not in LAYOUTS:
-        raise ValueError(f"unknown forest layout {layout!r}; one of {LAYOUTS}")
-    n_trees, heap = np.asarray(forest.feature).shape
+def pack_nodes(forest, max_depth: int, num_features: int,
+               cat_features: Sequence[int] = ()) -> np.ndarray:
+    """A stacked padded-heap forest (numpy fields ``[T, heap]``) -> packed
+    records ``[T, heap, 2]`` int32 in heap order (see the module note)."""
+    feature = np.asarray(forest.feature)
+    n_trees, heap = feature.shape
     if heap != (2 << max_depth) - 1:
         raise ValueError(f"heap width {heap} does not match max_depth "
                          f"{max_depth}")
-    if layout == "node_array":
-        fields = forest_to_node_array(forest, max_depth)
-    else:
-        fields = [np.asarray(getattr(forest, name)).reshape(-1)
-                  for name in WALK_FIELDS]
-    dtypes = (np.int32, np.int32, np.float32, np.bool_, np.bool_, np.float32)
-    tensors = [torch.from_numpy(np.ascontiguousarray(f, dtype=dt)).to(device)
-               for f, dt in zip(fields, dtypes)]
-    return PredictForest(*tensors, n_trees=int(n_trees),
-                         max_depth=int(max_depth), layout=layout)
+    if not 1 <= num_features < MAX_FEATURES:
+        raise ValueError(f"B8 packs a feature index in 24 bits: "
+                         f"num_features={num_features} must be in "
+                         f"[1, {MAX_FEATURES})")
+    is_leaf = np.asarray(forest.is_leaf, bool)
+    value = np.asarray(forest.value, np.float32)
+    # owner: the first leaf above or at a node (-1: none), by level
+    owner = np.full((n_trees, heap), -1, np.int64)
+    for k in range(max_depth + 1):
+        idx = np.arange((1 << k) - 1, (2 << k) - 1)
+        up = owner[:, (idx - 1) // 2] if k else np.full((n_trees, 1), -1)
+        own = np.where(is_leaf[:, idx] & (k < max_depth), idx[None, :], -1)
+        owner[:, idx] = np.where(up >= 0, up, own)
+    fc = np.clip(feature, 0, num_features - 1).astype(np.int64)
+    cat = np.isin(fc, np.asarray(list(cat_features), np.int64))
+    code = np.asarray(forest.split_bin).astype(np.float32)
+    split_value = np.where(cat, code, np.asarray(forest.threshold, np.float32))
+    word = (fc | np.where(np.asarray(forest.default_left, bool),
+                          DEFAULT_LEFT, 0) | np.where(cat, CATEGORICAL, 0))
+    src = np.where(owner >= 0, owner, np.arange(heap)[None, :])
+    ends = np.take_along_axis(value, src, axis=1)
+    rec_value = np.where(owner >= 0, ends, split_value).astype(np.float32)
+    word = np.where(owner >= 0, LEAF, word)
+    last = slice((1 << max_depth) - 1, heap)
+    rec_value[:, last] = ends[:, last]
+    word[:, last] = src[:, last]
+    out = np.empty((n_trees, heap, 2), np.int32)
+    out[..., 0] = rec_value.view(np.int32)
+    out[..., 1] = word
+    return out
 
 
-def cat_mask(cat_features: Sequence[int], num_features: int,
-             device="cpu") -> Optional[torch.Tensor]:
-    """[F] bool marking categorical features, or None when there are none
-    (``xgboost_ray_tpu/ops/grow.py:78`` ``cat_mask_const``)."""
-    if not cat_features:
-        return None
-    mask = torch.zeros(num_features, dtype=torch.bool, device=device)
-    mask[torch.as_tensor(list(cat_features), dtype=torch.long,
-                         device=device)] = True
-    return mask
+def device_forest(forest, max_depth: int, layout: str = "heap",
+                  device="cpu", *, num_features: int,
+                  cat_features: Sequence[int] = ()) -> PredictForest:
+    """A stacked padded-heap forest (numpy fields ``[T, heap]``, e.g. a
+    booster's ``forest``) -> :class:`PredictForest` on ``device``, packed
+    for rows of ``num_features`` features, ``cat_features`` categorical."""
+    if layout not in LAYOUTS:
+        raise ValueError(f"unknown forest layout {layout!r}; one of {LAYOUTS}")
+    packed = pack_nodes(forest, max_depth, num_features, cat_features)
+    packed = (level_major(packed, max_depth) if layout == "node_array"
+              else packed.reshape(-1, 2))
+    nodes = torch.from_numpy(np.ascontiguousarray(packed)).to(device)
+    return PredictForest(nodes, n_trees=int(packed.shape[0]) // (
+        (2 << max_depth) - 1), max_depth=int(max_depth), layout=layout,
+        num_features=int(num_features), has_cat=bool(len(cat_features)))
+
+
+def decode_nodes(fo: PredictForest):
+    """``(value [T * heap] f32, word [T * heap] int32)`` of the records."""
+    return fo.nodes[:, 0].contiguous().view(torch.float32), fo.nodes[:, 1]
 
 
 # --------------------------------------------------------------------------
@@ -128,20 +181,21 @@ def _node_pos(layout: str, k: int, t_col: torch.Tensor, p: torch.Tensor,
     return n_trees * ((1 << k) - 1) + (t_col << k) + p
 
 
-def _step_right(fo: PredictForest, pos, xv, f, cat):
-    """The reference's routing rule (``predict.py:23``) on gathered nodes.
+def _step_right(fo: PredictForest, v, w, xv):
+    """The reference's routing rule (``predict.py:23``) on gathered records.
     The categorical test compares the rounded code as a float: for the
-    small integer ``split_bin`` values a tree holds it decides as the
-    reference's int32 compare does, also where that cast saturates."""
-    present_right = xv >= fo.threshold[pos]
-    if cat is not None:
-        code_differs = torch.round(xv) != fo.split_bin[pos].to(xv.dtype)
-        present_right = torch.where(cat[f], code_differs, present_right)
-    return torch.where(torch.isnan(xv), ~fo.default_left[pos], present_right)
+    small integer codes a tree holds it decides as the reference's int32
+    compare does, also where that cast saturates."""
+    present_right = xv >= v
+    if fo.has_cat:
+        code_differs = torch.round(xv) != v
+        present_right = torch.where((w & CATEGORICAL) != 0, code_differs,
+                                    present_right)
+    return torch.where(torch.isnan(xv), (w & DEFAULT_LEFT) == 0,
+                       present_right)
 
 
-def walk_plain(fo: PredictForest, x: torch.Tensor,
-               cat: Optional[torch.Tensor] = None):
+def walk_plain(fo: PredictForest, x: torch.Tensor):
     """Level-synchronous walk of every tree for the rows of ``x`` [n, F]
     (the reference's ``_walk_levels`` on either layout). Returns
     ``(leaf_value [T, n] f32, leaf_heap_index [T, n] int32)``."""
@@ -149,29 +203,19 @@ def walk_plain(fo: PredictForest, x: torch.Tensor,
     dev = x.device
     t = fo.n_trees
     heap = (2 << fo.max_depth) - 1
+    values, words = decode_nodes(fo)
     t_col = torch.arange(t, dtype=torch.long, device=dev)[:, None]
     row_base = (torch.arange(n, dtype=torch.long, device=dev)
                 * num_features)[None, :]
     xf = x.reshape(-1)
     p = torch.zeros((t, n), dtype=torch.long, device=dev)
-    done = torch.zeros((t, n), dtype=torch.bool, device=dev)
-    val = torch.zeros((t, n), dtype=torch.float32, device=dev)
-    hidx = torch.zeros((t, n), dtype=torch.long, device=dev)
     for k in range(fo.max_depth):
         pos = _node_pos(fo.layout, k, t_col, p, t, heap)
-        leaf_here = fo.is_leaf[pos]
-        newly = leaf_here & ~done
-        val = torch.where(newly, fo.value[pos], val)
-        hidx = torch.where(newly, ((1 << k) - 1) + p, hidx)
-        done = done | leaf_here
-        f = fo.feature[pos].long().clamp(0, num_features - 1)
-        xv = xf[row_base + f]
-        go_right = _step_right(fo, pos, xv, f, cat)
-        p = torch.where(done, p, 2 * p + go_right.long())
+        w = words[pos]
+        xv = xf[row_base + (w & FEATURE_MASK).long()]
+        p = 2 * p + _step_right(fo, values[pos], w, xv).long()
     pos = _node_pos(fo.layout, fo.max_depth, t_col, p, t, heap)
-    val = torch.where(done, val, fo.value[pos])
-    hidx = torch.where(done, hidx, ((1 << fo.max_depth) - 1) + p)
-    return val, hidx.to(torch.int32)
+    return values[pos], words[pos]
 
 
 def _plain_rows(n_trees: int) -> int:
@@ -187,11 +231,12 @@ def predict_margin_plain(
     num_parallel_tree: int = 1,
     ntree_limit: int = 0,
     tree_weights: Optional[torch.Tensor] = None,  # [T] f32
-    cat: Optional[torch.Tensor] = None,  # [F] bool
     out: Optional[torch.Tensor] = None,  # [N, K] f32
+    transform: Optional[str] = None,  # an objective's name: values
 ) -> torch.Tensor:
     """[N, K] margins: base + (window-tree sum of each class's weighted
-    leaf values) / num_parallel_tree."""
+    leaf values) / num_parallel_tree; with ``transform``, the objective's
+    predictions of them ([N, 1])."""
     n = x.shape[0]
     k = num_outputs
     dev = x.device
@@ -203,7 +248,7 @@ def predict_margin_plain(
     step = _plain_rows(fo.n_trees * k)
     for lo in range(0, n, step):
         hi = min(lo + step, n)
-        leaf, _ = walk_plain(fo, x[lo:hi], cat)  # [T, m]
+        leaf, _ = walk_plain(fo, x[lo:hi])  # [T, m]
         if tree_weights is not None:
             leaf = leaf * tree_weights[:, None]
         if ntree_limit:
@@ -215,11 +260,12 @@ def predict_margin_plain(
             s = tree_sum(torch.where(in_class[None], c[:, :, None], 0.0))
         b = base[lo:hi] if base is not None else base0
         out[lo:hi] = b + s / num_parallel_tree
+    if transform is not None:
+        out[:, 0] = get_objective(transform).transform(out)
     return out
 
 
 def predict_leaf_index_plain(fo: PredictForest, x: torch.Tensor,
-                             cat: Optional[torch.Tensor] = None,
                              out: Optional[torch.Tensor] = None
                              ) -> torch.Tensor:
     """[N, T] int32: the heap index of the leaf each row reaches per tree."""
@@ -229,7 +275,7 @@ def predict_leaf_index_plain(fo: PredictForest, x: torch.Tensor,
     step = _plain_rows(fo.n_trees)
     for lo in range(0, n, step):
         hi = min(lo + step, n)
-        out[lo:hi] = walk_plain(fo, x[lo:hi], cat)[1].T
+        out[lo:hi] = walk_plain(fo, x[lo:hi])[1].T
     return out
 
 
@@ -262,25 +308,58 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def rows_per_block(n: int, num_outputs: int, device) -> int:
-    """Rows per CTA (R; the CTA's 256 threads walk R rows x 256 / R trees):
-    the most of 8, 4, 2, 1 that still gives every SM four CTAs, so a small
-    batch spreads its trees over whole CTAs; fewer when the margin's
-    per-row sums would not fit the shared memory."""
-    ctas = 4 * _sm_count(torch.device(device).index or 0)
-    r = 8
-    while r > 1 and (-(-n // r) < ctas
-                     or _shared_bytes(r, num_outputs) > _MAX_SHARED):
-        r //= 2
-    return r
+class LaunchPlan(NamedTuple):
+    """How one B8 launch maps its work (``csrc/predict.cu``)."""
+
+    mapping: str  # "rows" | "windows"
+    rows_per_block: int  # windows: rows per CTA
+    trees_per_tile: int  # rows: trees per staged forest tile
+    staged: bool  # rows: forest and x tiles in shared memory
+    shared_bytes: int
 
 
-def _shared_bytes(r: int, k: int) -> int:
-    """csrc/predict.cu's dynamic shared memory for the margin mode:
-    contributions [256], slot classes [256], window sums [R * K * W],
-    partials [R * K * 4]."""
-    w = 256 // r // _WINDOW
-    return 4 * (2 * 256 + r * k * w + r * k * _KERNEL_LEVELS)
+def _rows_plan(heap: int, num_features: int, leaf: bool) -> LaunchPlan:
+    """Margins: the largest forest tile that leaves three CTAs an SM, else
+    two, else one. Leaf indices: the largest tile one CTA can hold, as a
+    row's run of indices written at a time is 4 bytes a tree of the tile
+    (``tools/b8_sweep.py``). When not even two trees and the x tile fit,
+    the walk reads device memory."""
+    x_bytes = 4 * num_features * _ROW_TILE
+    for limit in _SHARED_BUDGETS[-1:] if leaf else _SHARED_BUDGETS:
+        for tt in (32, 16, 8, 4, 2):
+            b = (16 * tt * heap + x_bytes
+                 + (4 * _ROW_TILE * (tt + 1) if leaf else 0))
+            if b <= limit:
+                return LaunchPlan("rows", 1, tt, True, b)
+    return LaunchPlan("rows", 1, 16, False, 4 * _ROW_TILE * 17 if leaf else 0)
+
+
+def launch_plan(n: int, num_outputs: int, fo: PredictForest, leaf: bool,
+                device, mapping: Optional[str] = None) -> LaunchPlan:
+    """The rows mapping once its 512-row CTAs give every SM one, else the
+    windows mapping with R rows a CTA: the most of 8, 4, 2, 1 that still
+    gives every SM four CTAs (so a small batch spreads its trees over whole
+    CTAs). ``mapping`` forces one ("windows" raises where its per-window
+    sums do not fit the shared memory)."""
+    if mapping not in (None,) + MAPPINGS:
+        raise ValueError(f"B8: unknown mapping {mapping!r}; one of "
+                         f"{MAPPINGS}")
+    k = 1 if leaf else num_outputs
+    sms = _sm_count(torch.device(device).index or 0)
+    if mapping is None:
+        mapping = "rows" if -(-n // _ROW_TILE) * k >= sms else "windows"
+    heap = (2 << fo.max_depth) - 1
+    if mapping == "windows":
+        r = 8
+        while r > 1 and -(-n // r) * k < 4 * sms:
+            r //= 2
+        m1 = -(-fo.n_trees // _WINDOW)
+        b = 0 if leaf else 4 * r * m1 * (_WINDOW + 2)
+        if b <= _SHARED_MAX:
+            return LaunchPlan("windows", r, 2, False, b)
+        _check(False, f"B8: the windows mapping of {fo.n_trees} trees needs "
+                      f"{b} bytes of shared memory")
+    return _rows_plan(heap, fo.num_features, leaf)
 
 
 def _check(cond: bool, what: str) -> None:
@@ -288,39 +367,58 @@ def _check(cond: bool, what: str) -> None:
         raise ValueError(what)
 
 
-def _check_inputs(fo: PredictForest, x: torch.Tensor, cat) -> None:
-    dev = x.device
-    _check(fo.layout in LAYOUTS, f"B8: unknown layout {fo.layout!r}")
+def _check_x(fo: PredictForest, x: torch.Tensor) -> None:
     _check(x.dtype == torch.float32 and x.dim() == 2 and x.is_contiguous()
-           and x.shape[1] >= 1, "B8: x must be contiguous f32 [N, F]")
+           and x.shape[1] == fo.num_features,
+           f"B8: x must be contiguous f32 [N, {fo.num_features}] (the "
+           f"forest was packed for {fo.num_features} features)")
+
+
+def _check_forest(fo: PredictForest, x: torch.Tensor) -> None:
+    _check(fo.layout in LAYOUTS, f"B8: unknown layout {fo.layout!r}")
     heap = (2 << fo.max_depth) - 1
     _check(1 <= fo.n_trees < _MAX_TREES and fo.n_trees * heap < 2 ** 31,
            f"B8: {fo.n_trees} trees of heap {heap} out of range")
-    dtypes = (torch.int32, torch.int32, torch.float32, torch.bool,
-              torch.bool, torch.float32)
-    for name, dt in zip(WALK_FIELDS, dtypes):
-        f = getattr(fo, name)
-        _check(f.device == dev and f.dtype == dt and f.is_contiguous()
-               and f.shape == (fo.n_trees * heap,),
-               f"B8: forest field {name} must be contiguous {dt} "
-               f"[{fo.n_trees * heap}] on {dev}")
-    _check(cat is None or (cat.device == dev and cat.dtype == torch.bool
-                           and cat.shape == (x.shape[1],)),
-           "B8: cat mask must be bool [F] on the device of x")
+    nodes = fo.nodes
+    _check(nodes.device == x.device and nodes.dtype == torch.int32
+           and nodes.is_contiguous()
+           and nodes.shape == (fo.n_trees * heap, 2)
+           and nodes.data_ptr() % 8 == 0,
+           f"B8: forest records must be contiguous int32 "
+           f"[{fo.n_trees * heap}, 2] on {x.device}")
 
 
-def _args(fo: PredictForest, x: torch.Tensor, cat, r: int, **kw):
+def _transform_mode(transform: Optional[str], k: int) -> str:
+    """The kernel mode of a margin call: ``value`` for the sigmoid of
+    ``binary:logistic``; the identity of ``reg:squarederror`` launches
+    plain margins. Raises for an objective outside the slice (and K > 1)."""
+    if transform is None:
+        return "margin"
+    obj = get_objective(transform)
+    if k != 1:
+        raise NotImplementedError(
+            "B8: transforms of K > 1 outputs (softmax) are ROADMAP queue A10")
+    return "value" if obj.logistic else "margin"
+
+
+def _args(fo: PredictForest, x: torch.Tensor, plan: LaunchPlan, mode: str,
+          **kw):
     front0, padded, top, m, front = tree_windows(fo.n_trees)
     a = _build.PredictArgs()
     a.x = x.data_ptr()
-    for name in WALK_FIELDS:
-        setattr(a, name, getattr(fo, name).data_ptr())
-    a.cat_mask = _build.ptr(cat)
+    a.nodes = fo.nodes.data_ptr()
     a.n_rows = x.shape[0]
     a.n_features = x.shape[1]
     a.n_trees = fo.n_trees
     a.max_depth = fo.max_depth
-    a.rows_per_block = r
+    a.layout = LAYOUTS.index(fo.layout)
+    a.mode = _MODES[mode]
+    a.mapping = MAPPINGS.index(plan.mapping)
+    a.has_cat = int(fo.has_cat)
+    a.rows_per_block = plan.rows_per_block
+    a.trees_per_tile = plan.trees_per_tile
+    a.staged = int(plan.staged)
+    a.shared_bytes = plan.shared_bytes
     a.front0 = front0
     a.padded = padded
     a.top = top
@@ -332,12 +430,11 @@ def _args(fo: PredictForest, x: torch.Tensor, cat, r: int, **kw):
     return a
 
 
-def _launch(a, layout: str, mode: int, dev, stream, what: str) -> None:
+def _launch(a, dev, stream, what: str) -> None:
     s = (stream if stream is not None
          else torch.cuda.current_stream(dev)).cuda_stream
     with torch.cuda.device(dev):
-        code = _build.library("predict").xrt_predict(
-            ctypes.byref(a), LAYOUTS.index(layout), mode, s)
+        code = _build.library("predict").xrt_predict(ctypes.byref(a), s)
     _build.check(code, what)
 
 
@@ -350,31 +447,36 @@ def predict_margin(
     num_parallel_tree: int = 1,
     ntree_limit: int = 0,
     tree_weights: Optional[torch.Tensor] = None,
-    cat: Optional[torch.Tensor] = None,
     out: Optional[torch.Tensor] = None,
     stream: Optional[torch.cuda.Stream] = None,
+    transform: Optional[str] = None,
+    mapping: Optional[str] = None,
 ) -> torch.Tensor:
-    """B8 margin wrapper: [N, K] f32 (see :func:`predict_margin_plain`).
-    ``stream`` defaults to the current stream of ``x``'s device."""
-    if not x.is_cuda:
-        return predict_margin_plain(fo, x, base, base0, num_outputs,
-                                    num_parallel_tree, ntree_limit,
-                                    tree_weights, cat, out)
-    _check_inputs(fo, x, cat)
-    n = x.shape[0]
+    """B8 margin wrapper: [N, K] f32 (see :func:`predict_margin_plain`);
+    with ``transform`` (an objective's name) the values, the transform
+    fused into the kernel. ``stream`` defaults to the current stream of
+    ``x``'s device; ``mapping`` forces one of ``MAPPINGS``."""
+    _check_x(fo, x)
     k = num_outputs
-    dev = x.device
     _check(k >= 1 and num_parallel_tree >= 1 and ntree_limit >= 0,
            "B8: num_outputs and num_parallel_tree must be >= 1")
-    _check(_shared_bytes(1, k) <= _MAX_SHARED,
-           f"B8: num_outputs={k} needs more shared memory than a CTA has")
+    mode = _transform_mode(transform, k)
+    if not x.is_cuda:
+        return predict_margin_plain(fo, x, base, base0, k, num_parallel_tree,
+                                    ntree_limit, tree_weights, out, transform)
+    _check_forest(fo, x)
+    n = x.shape[0]
+    dev = x.device
+    _check(k < 1 << 16, f"B8: num_outputs={k} is more classes than a grid "
+                        f"has rows of CTAs")
     _check(base is None or (base.device == dev and base.dtype == torch.float32
                             and base.shape == (n, k) and base.is_contiguous()),
            "B8: base must be contiguous f32 [N, K] on the device of x")
     _check(tree_weights is None or (
         tree_weights.device == dev and tree_weights.dtype == torch.float32
-        and tree_weights.shape == (fo.n_trees,)),
-        "B8: tree_weights must be f32 [T] on the device of x")
+        and tree_weights.shape == (fo.n_trees,)
+        and tree_weights.is_contiguous()),
+        "B8: tree_weights must be contiguous f32 [T] on the device of x")
     if out is None:
         out = torch.empty((n, k), dtype=torch.float32, device=dev)
     _check(out.device == dev and out.dtype == torch.float32
@@ -382,32 +484,38 @@ def predict_margin(
            "B8: out must be contiguous f32 [N, K] on the device of x")
     if n == 0:
         return out
-    a = _args(fo, x, cat, rows_per_block(n, k, dev),
-              tree_weights=_build.ptr(tree_weights), base=_build.ptr(base),
-              out_margin=out.data_ptr(), ntree_limit=int(ntree_limit),
+    plan = launch_plan(n, k, fo, False, dev, mapping)
+    a = _args(fo, x, plan, mode, tree_weights=_build.ptr(tree_weights),
+              base=_build.ptr(base), out_margin=out.data_ptr(),
+              ntree_limit=int(ntree_limit),
               num_parallel_tree=int(num_parallel_tree), num_outputs=k,
               base0=float(base0))
-    _launch(a, fo.layout, 0, dev, stream, "B8 predict margin")
+    _launch(a, dev, stream, f"B8 predict {mode}")
     predict_margin.launches += 1
     predict_margin.launches_by_layout[fo.layout] += 1
+    predict_margin.launches_by_mode[mode] += 1
+    predict_margin.launches_by_mapping[plan.mapping] += 1
     return out
 
 
 predict_margin.launches = 0
 predict_margin.launches_by_layout = dict.fromkeys(LAYOUTS, 0)
+predict_margin.launches_by_mode = dict.fromkeys(("margin", "value"), 0)
+predict_margin.launches_by_mapping = dict.fromkeys(MAPPINGS, 0)
 
 
 def predict_leaf_index(
     fo: PredictForest,
     x: torch.Tensor,
-    cat: Optional[torch.Tensor] = None,
     out: Optional[torch.Tensor] = None,
     stream: Optional[torch.cuda.Stream] = None,
+    mapping: Optional[str] = None,
 ) -> torch.Tensor:
     """B8 leaf wrapper: [N, T] int32 heap index of each row's leaf."""
+    _check_x(fo, x)
     if not x.is_cuda:
-        return predict_leaf_index_plain(fo, x, cat, out)
-    _check_inputs(fo, x, cat)
+        return predict_leaf_index_plain(fo, x, out)
+    _check_forest(fo, x)
     n = x.shape[0]
     dev = x.device
     if out is None:
@@ -417,13 +525,16 @@ def predict_leaf_index(
            "B8: out must be contiguous int32 [N, T] on the device of x")
     if n == 0:
         return out
-    a = _args(fo, x, cat, rows_per_block(n, 1, dev), out_leaf=out.data_ptr(),
-              num_outputs=1, num_parallel_tree=1)
-    _launch(a, fo.layout, 1, dev, stream, "B8 predict leaf")
+    plan = launch_plan(n, 1, fo, True, dev, mapping)
+    a = _args(fo, x, plan, "leaf", out_leaf=out.data_ptr(), num_outputs=1,
+              num_parallel_tree=1)
+    _launch(a, dev, stream, "B8 predict leaf")
     predict_leaf_index.launches += 1
     predict_leaf_index.launches_by_layout[fo.layout] += 1
+    predict_leaf_index.launches_by_mapping[plan.mapping] += 1
     return out
 
 
 predict_leaf_index.launches = 0
 predict_leaf_index.launches_by_layout = dict.fromkeys(LAYOUTS, 0)
+predict_leaf_index.launches_by_mapping = dict.fromkeys(MAPPINGS, 0)

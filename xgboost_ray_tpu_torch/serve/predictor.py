@@ -4,10 +4,11 @@ Port of ``xgboost_ray_tpu/serve/predictor.py``: ``KINDS``, ``LAYOUTS``,
 ``bucket_rows`` (``:69``) and ``CompiledPredictor`` (``:101``). Online
 traffic has arbitrary batch sizes; every batch is padded up to a
 power-of-two bucket, so the set of launch shapes a model sees is finite.
-The forest's fields go to the device once per model (for ``node_array``,
-permuted once), and each bucket has preallocated device buffers for its
+The forest goes to the device packed once per model (for ``node_array``,
+in its order), and each bucket has preallocated device buffers for its
 rows and its outputs: a batch is copied into its bucket's buffer, zero
-rows pad it, B8 walks the bucket, and the real rows are sliced back. The
+rows pad it, B8 walks the bucket (for ``value`` with the objective's
+transform fused into it), and the real rows are sliced back. The
 walk is row-independent, so padding changes nothing in the real rows:
 served results are bitwise the batch path's (``RayXGBoostBooster.predict``
 on the same device).
@@ -94,8 +95,6 @@ class CompiledPredictor:
         self.m0 = booster.base_score_margin_np()
         self.forest_dev = booster.device_forest(self.device, layout)
         self.tw_dev = booster.device_tree_weights(self.device)
-        self.cat = predict_ops.cat_mask(booster.cat_features,
-                                        booster.num_features, self.device)
         # (bucket, "margin" | "leaf") -> (rows buffer, output buffer)
         self._buffers: Dict[Tuple[int, str], Tuple[torch.Tensor,
                                                    torch.Tensor]] = {}
@@ -151,25 +150,20 @@ class CompiledPredictor:
             if n < bucket:
                 xb[n:].zero_()
             if kind == "leaf":
-                predict_ops.predict_leaf_index(self.forest_dev, xb, self.cat,
-                                               out=ob, stream=stream)
+                predict_ops.predict_leaf_index(self.forest_dev, xb, out=ob,
+                                               stream=stream)
             else:
                 predict_ops.predict_margin(
                     self.forest_dev, xb, None, base0=self.m0,
                     num_outputs=b.num_outputs,
                     num_parallel_tree=b.params.num_parallel_tree,
-                    tree_weights=self.tw_dev, cat=self.cat, out=ob,
-                    stream=stream)
-            res = self._finalize(ob[:n], kind)
+                    tree_weights=self.tw_dev, out=ob, stream=stream,
+                    transform=b.params.objective if kind == "value" else None)
+            res = ob[:n]
+            if kind != "leaf" and b.num_outputs == 1:
+                res = res[:, 0]
             out = res.to("cpu", copy=True).numpy()
         return out, bucket
-
-    def _finalize(self, out: torch.Tensor, kind: str) -> torch.Tensor:
-        if kind == "margin":
-            return self.booster._margin_to_prediction(out, output_margin=True)
-        if kind == "value":
-            return self.booster._margin_to_prediction(out, output_margin=False)
-        return out
 
     def warmup(self, kinds=("value",), max_batch: int = 256) -> int:
         """Run every bucket in [min_bucket, bucket(max_batch)] for the given
