@@ -48,14 +48,16 @@ CUDA device, ``nvcc`` and ``triton``, and nothing of JAX. Phases:
    1-32 row requests, 1.5 s of warmup and 6 s measured for the heap,
    0.5 s and 2 s for the node array: the clients are parked at both ends
    of the window, so the window's launches equal its batches, each a value
-   launch of B8's windows mapping; probe responses bitwise equal to
-   ``booster.predict`` and to the plain walk on the CPU, no kernel build
-   after warmup, no client error); then whether ``torch.profiler`` sees
-   B8's full-size launch this late in the process (recorded only);
+   launch of B8's windows mapping in the server's layout; probe responses
+   bitwise equal to ``booster.predict`` and to the plain walk on the CPU,
+   no kernel build after warmup, no client error); then whether
+   ``torch.profiler`` sees B8's full-size launch this late in the process
+   (recorded only);
 7. B8 against its plain version (bitwise, in both layouts, every mode:
-   margins, values, leaf indices, and each mapping forced) at 262,144 rows
-   x 500 trees and at every serve bucket (8-256 rows), one row and a size
-   for each rows-per-CTA choice of the windows mapping; then timed at the
+   margins, values, leaf indices, and each mapping, forced by the SM count
+   the launch plan reads) at 262,144 rows x 500 trees and at every serve
+   bucket (8-256 rows), one row and a size for each rows-per-CTA choice
+   of the windows mapping; then timed at the
    main path's shapes: the margins over every row, the leaf indices over
    the booster's chunk, and the margins of a serve batch of 8, 32 and 256
    rows (``device_ms`` from ``torch.profiler``, as for the other
@@ -861,19 +863,26 @@ def phase_save_load(bst):
 # ---------------------------------------------------------------------------
 
 
+#: B8's launch counters by (layout, mapping): the kernel table's rows
+B8_PLAN_ROWS = {("heap", "rows"): "B8margin", ("node_array", "rows"):
+                "B8margin_na", ("heap", "windows"): "B8serve",
+                ("node_array", "windows"): "B8serve_na"}
+
+
 def b8_counters():
-    """B8's launch counts: margins (and values) by layout and leaf indices
-    (the kernel table's rows), values alone, and the windows mapping's
-    launches (the serve buckets' rows)."""
+    """B8's launch counts: margins (and values) by layout and mapping, leaf
+    indices of the heap's rows mapping (each a kernel table row; the serve
+    rows read the heap's windows launches), values alone, and every other
+    launch (``B8other``: leaf indices of another plan)."""
     from xgboost_ray_tpu_torch.ops import predict as PR
 
     m, leaf = PR.predict_margin, PR.predict_leaf_index
-    return {"B8margin": m.launches_by_layout["heap"],
-            "B8margin_na": m.launches_by_layout["node_array"],
-            "B8leaf": leaf.launches,
-            "B8value": m.launches_by_mode["value"],
-            "B8windows": (m.launches_by_mapping["windows"]
-                          + leaf.launches_by_mapping["windows"])}
+    out = {key: m.launches_by_plan[plan]
+           for plan, key in B8_PLAN_ROWS.items()}
+    out["B8leaf"] = leaf.launches_by_plan["heap", "rows"]
+    out["B8other"] = m.launches + leaf.launches - sum(out.values())
+    out["B8value"] = m.launches_by_mode["value"]
+    return out
 
 
 def reset_b8_counters():
@@ -882,8 +891,14 @@ def reset_b8_counters():
     for fn in (PR.predict_margin, PR.predict_leaf_index):
         fn.launches = 0
         fn.launches_by_layout = dict.fromkeys(PR.LAYOUTS, 0)
-        fn.launches_by_mapping = dict.fromkeys(PR.MAPPINGS, 0)
+        fn.launches_by_plan = dict.fromkeys(PR.PLANS, 0)
     PR.predict_margin.launches_by_mode = dict.fromkeys(("margin", "value"), 0)
+
+
+def b8_expect(**counts):
+    """B8's counters all 0 but ``counts``."""
+    return {**dict.fromkeys((*B8_PLAN_ROWS.values(), "B8leaf", "B8other",
+                             "B8value"), 0), **counts}
 
 
 def logloss_of_values(p, y):
@@ -966,8 +981,7 @@ def phase_predict(bst, x, y, train_margin, last_ll):
     chunks = predict_chunks(bst, n, 4 * (f + 2 * bst.num_outputs))
     # every row goes through the rows mapping; the values through the
     # kernel's fused sigmoid
-    expect = {"B8margin": 2 * chunks, "B8margin_na": 0, "B8leaf": 0,
-              "B8value": chunks, "B8windows": 0}
+    expect = b8_expect(B8margin=2 * chunks, B8value=chunks)
     check(margin.shape == (n,) and value.shape == (n,),
           "predict returned the wrong shape")
     check(bool(np.isfinite(margin).all()), "non-finite predicted margins")
@@ -1018,9 +1032,7 @@ def phase_predict_leaf(bst, x):
     wall_s = time.perf_counter() - t0
     launches = b8_counters()
     del dm
-    expect = {"B8margin": 0, "B8margin_na": 0,
-              "B8leaf": predict_chunks(bst, n, row_bytes), "B8value": 0,
-              "B8windows": 0}
+    expect = b8_expect(B8leaf=predict_chunks(bst, n, row_bytes))
     ref = bst.predict(xs[:4096], pred_leaf=True, device="cpu")
     same = bool(leaf.shape == (n, bst.num_trees) and leaf.dtype == np.int32
                 and np.array_equal(leaf[:4096], ref))
@@ -1151,11 +1163,10 @@ def phase_serve(bst, x, layout="heap", clients=16, max_batch=256,
         probe_after = _probe(handle, bst, x[37:74])
     finally:
         handle.shutdown()
-    key = "B8margin" if layout == "heap" else "B8margin_na"
-    expect = dict.fromkeys(("B8margin", "B8margin_na", "B8leaf"), 0)
-    # every batch: one value launch (the sigmoid fused) of the windows mapping
-    expect.update({key: parked["batches"], "B8value": parked["batches"],
-                   "B8windows": parked["batches"]})
+    # every batch: one value launch (the sigmoid fused) of the windows
+    # mapping in the server's layout
+    expect = b8_expect(**{B8_PLAN_ROWS[layout, "windows"]: parked["batches"],
+                          "B8value": parked["batches"]})
     out = {"phase": "serve", "layout": layout, "trees": bst.num_trees,
            "clients": clients, "max_batch": max_batch,
            "max_delay_ms": max_delay_ms, "req_rows_max": req_rows_max,
@@ -1184,6 +1195,9 @@ def phase_serve(bst, x, layout="heap", clients=16, max_batch=256,
 
 
 SERVE_ROWS = (8, 32, 256)  # serve buckets timed as rows of the kernel table
+#: SM counts that make B8's launch plan take each mapping at any batch
+#: size: on one SM every batch fills the card in rows; on a vast card none
+SMS_FOR = {"rows": 1, "windows": 1 << 30}
 
 
 def b8_visits(fo, xq):
@@ -1217,6 +1231,12 @@ def phase_b8(bst, x, records, slice_rows=262_144):
     n, f = x.shape
     t_trees = bst.num_trees
     fo = {lay: bst.device_forest("cuda", lay) for lay in PR.LAYOUTS}
+    sm_count = getattr(PR, "_sm_count", None)
+
+    def sms_as(sms):
+        """Make the launch plan read ``sms`` SMs (None: the card's own)."""
+        if new:
+            PR._sm_count = sm_count if sms is None else (lambda index: sms)
 
     def plan(m):
         if not new:
@@ -1235,9 +1255,9 @@ def phase_b8(bst, x, records, slice_rows=262_144):
             vp = (PR.predict_margin_plain(fo[lay], xq, base0=m0, **value_kw)
                   if new else None)
             for mapping in PR.MAPPINGS if new else (None,):
-                kw = {"mapping": mapping} if new else {}
-                mk = PR.predict_margin(fo[lay], xq, base0=m0, **kw)
-                lk = PR.predict_leaf_index(fo[lay], xq, **kw)
+                sms_as(SMS_FOR.get(mapping))
+                mk = PR.predict_margin(fo[lay], xq, base0=m0)
+                lk = PR.predict_leaf_index(fo[lay], xq)
                 torch.cuda.synchronize()
                 check(torch.equal(bits(mk), bits(mp)),
                       f"B8 margins ({lay}, {mapping}, {what}) not bitwise "
@@ -1248,12 +1268,12 @@ def phase_b8(bst, x, records, slice_rows=262_144):
                 errs[lay] = max(errs.get(lay, 0.0),
                                 float((mk - mp).abs().max()))
                 if new:
-                    vk = PR.predict_margin(fo[lay], xq, base0=m0, **kw,
-                                           **value_kw)
+                    vk = PR.predict_margin(fo[lay], xq, base0=m0, **value_kw)
                     torch.cuda.synchronize()
                     check(torch.equal(bits(vk), bits(vp)),
                           f"B8 values ({lay}, {mapping}, {what}) not "
                           f"bitwise equal to the plain version")
+        sms_as(None)
         return errs
 
     xs = torch.from_numpy(x[:slice_rows]).to("cuda")
@@ -1408,7 +1428,8 @@ KERNELS = {
                      source="xgboost_ray_tpu_torch/csrc/predict.cu",
                      replaces="xgboost_ray_tpu/ops/predict.py:52"),
     "B8margin_na": dict(name="B8 forest walk: margins, node-array layout "
-                        "(every row, 500 trees)", route="cuda",
+                        "(every row, 500 trees; predict() walks the heap, "
+                        "so no launch on the main path)", route="cuda",
                         source="xgboost_ray_tpu_torch/csrc/predict.cu",
                         replaces="xgboost_ray_tpu/ops/node_array.py:141"),
     "B8leaf": dict(name="B8 forest walk: leaf indices, heap layout (one "
@@ -1417,7 +1438,8 @@ KERNELS = {
                    replaces="xgboost_ray_tpu/ops/predict.py:512"),
     **{f"B8serve{m}": dict(
         name=f"B8 forest walk: margins, heap layout, a serve batch of {m} "
-             f"rows (windows mapping; launches: every serve batch)",
+             f"rows (windows mapping; launches: every batch of the heap "
+             f"server, all buckets together)",
         route="cuda", source="xgboost_ray_tpu_torch/csrc/predict.cu",
         replaces="xgboost_ray_tpu/ops/predict.py:52") for m in SERVE_ROWS},
 }
@@ -1510,16 +1532,18 @@ def run(args):
     by_path = {p: results[p]["b8_launches"] for p in (
         "predict", "predict_leaf", "serve", "serve_node_array")}
     b8_launches = {k: sum(v[k] for v in by_path.values())
-                   for k in ("B8margin", "B8margin_na", "B8leaf", "B8value",
-                             "B8windows")}
+                   for k in by_path["predict"]}
     emit({"phase": "b8_launches", "by_path": by_path,
           "launches": b8_launches})
     for k, v in b8_launches.items():
-        check(v > 0, f"{k} never launched on the predict/serve path")
+        # the node array's rows mapping is off these paths (predict()
+        # walks the heap); it is held and timed in phase 7
+        check(v > 0 or k in ("B8other", "B8margin_na"),
+              f"{k} never launched on the predict/serve path")
     for k in ("B8margin", "B8margin_na", "B8leaf"):
         records[k]["launches"] = b8_launches[k]
-    for m in SERVE_ROWS:  # the windows kernel: every serve batch
-        records[f"B8serve{m}"]["launches"] = b8_launches["B8windows"]
+    for m in SERVE_ROWS:  # the windows kernel of the heap server's batches
+        records[f"B8serve{m}"]["launches"] = b8_launches["B8serve"]
     results["late_profile"] = phase_late_profile(served, x)
     pr = results["predict"]
     emit({"phase": "predict_summary", "rows": pr["rows"], "trees": pr["trees"],

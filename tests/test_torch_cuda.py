@@ -388,8 +388,17 @@ def _pf(fo, depth, layout, f, cat, device="cpu"):
                             cat_features=cat)
 
 
+#: SM counts that make the wrappers take each mapping at any batch size: on
+#: one SM every batch fills the card in rows; on a vast card none does
+_SMS_FOR = {"rows": 1, "windows": 1 << 30}
+
+
+def _force(mp, mapping):
+    mp.setattr(tp, "_sm_count", lambda index: _SMS_FOR[mapping])
+
+
 @pytest.mark.parametrize("f,n_trees,depth", B8_CASES)
-def test_predict_walk_bitwise(cuda, f, n_trees, depth):
+def test_predict_walk_bitwise(cuda, monkeypatch, f, n_trees, depth):
     """Every mapping (rows over staged tiles, rows reading device memory
     where tiles do not fit: F = 300 or depth 13, windows), every mode
     (leaf indices, margins, values) and option against the plain version."""
@@ -406,7 +415,8 @@ def test_predict_walk_bitwise(cuda, f, n_trees, depth):
         pk = _pf(fo, depth, layout, f, cat, cuda)
         ref_leaf = tp.predict_leaf_index(pc, x)
         for mapping in tp.MAPPINGS:
-            leaf = tp.predict_leaf_index(pk, xk, mapping=mapping)
+            _force(monkeypatch, mapping)
+            leaf = tp.predict_leaf_index(pk, xk)
             assert torch.equal(leaf.cpu(), ref_leaf), (layout, mapping)
             for opts in (dict(base0=0.25),
                          dict(base=base[:, :1], tree_weights=tw,
@@ -416,7 +426,7 @@ def test_predict_walk_bitwise(cuda, f, n_trees, depth):
                          dict(base=base, num_outputs=3, num_parallel_tree=2)):
                 ko = {k: (v.to(cuda) if torch.is_tensor(v) else v)
                       for k, v in opts.items()}
-                got = tp.predict_margin(pk, xk, mapping=mapping, **ko)
+                got = tp.predict_margin(pk, xk, **ko)
                 ref = tp.predict_margin_plain(pc, x, **opts)
                 torch.cuda.synchronize()
                 assert torch.equal(_bits(got), _bits(ref)), (layout, mapping,
@@ -424,7 +434,7 @@ def test_predict_walk_bitwise(cuda, f, n_trees, depth):
 
 
 @pytest.mark.parametrize("n", [1, 2, 7, 300, 2500, 5003, 40001, 70001])
-def test_predict_walk_every_row_tile(cuda, n):
+def test_predict_walk_every_row_tile(cuda, monkeypatch, n):
     """Every rows-per-CTA choice of the windows mapping (8, 4, 2, 1 by batch
     size), the rows mapping's 512-row tiles, each mapping forced, and the
     ragged last CTA; values of margins near and past the sigmoid's ends."""
@@ -442,16 +452,42 @@ def test_predict_walk_every_row_tile(cuda, n):
         ref_v = tp.predict_margin_plain(pc, x, base, transform=LOGISTIC)
         ref_l = tp.predict_leaf_index_plain(pc, x)
         for mapping in (None,) + tp.MAPPINGS:
-            got = tp.predict_margin(pk, x.to(cuda), base0=-0.5,
-                                    mapping=mapping)
-            assert torch.equal(_bits(got), _bits(ref)), mapping
-            got = tp.predict_margin(pk, x.to(cuda), base.to(cuda),
-                                    transform=LOGISTIC, mapping=mapping)
-            assert _same_nan(got.cpu(), ref_v), mapping
-            leaf = tp.predict_leaf_index(pk, x.to(cuda), mapping=mapping)
-            assert torch.equal(leaf.cpu(), ref_l), mapping
+            with monkeypatch.context() as mp:
+                if mapping is not None:
+                    _force(mp, mapping)
+                got = tp.predict_margin(pk, x.to(cuda), base0=-0.5)
+                assert torch.equal(_bits(got), _bits(ref)), mapping
+                got = tp.predict_margin(pk, x.to(cuda), base.to(cuda),
+                                        transform=LOGISTIC)
+                assert _same_nan(got.cpu(), ref_v), mapping
+                leaf = tp.predict_leaf_index(pk, x.to(cuda))
+                assert torch.equal(leaf.cpu(), ref_l), mapping
     assert tp.predict_margin.launches > 0 and tp.predict_leaf_index.launches > 0
     assert tp.predict_margin.launches_by_mode["value"] > 0
+
+
+@pytest.mark.parametrize("n_trees,n", [(10_000, 10_000), (60_000, 300)])
+def test_predict_walk_large_forest(cuda, n_trees, n):
+    """Forests whose windows sums take most of a CTA's shared memory: 10,000
+    trees at 10,000 rows (fewer rows a CTA than the batch size alone would
+    give) and 60,000 trees, whose sums fit no CTA (the rows mapping at a
+    serve-sized batch); margins, values and leaf indices bitwise."""
+    rng = np.random.default_rng(n_trees + n)
+    fo = _forest(rng, n_trees, 2, 28, (3,))
+    x = torch.from_numpy(_rows(rng, n, 28, (3,)))
+    pc = _pf(fo, 2, "heap", 28, (3,))
+    pk = _pf(fo, 2, "heap", 28, (3,), cuda)
+    plan = tp.launch_plan(n, 1, pk, False, cuda)
+    assert plan.mapping == ("windows" if n_trees < 54_000 else "rows")
+    assert plan.shared_bytes <= tp._SHARED_MAX
+    got = tp.predict_margin(pk, x.to(cuda), base0=0.5)
+    assert torch.equal(_bits(got), _bits(tp.predict_margin_plain(
+        pc, x, base0=0.5)))
+    got = tp.predict_margin(pk, x.to(cuda), transform=LOGISTIC)
+    assert _same_nan(got.cpu(), tp.predict_margin_plain(pc, x,
+                                                        transform=LOGISTIC))
+    leaf = tp.predict_leaf_index(pk, x.to(cuda))
+    assert torch.equal(leaf.cpu(), tp.predict_leaf_index_plain(pc, x))
 
 
 LOGISTIC = "binary:logistic"
@@ -485,8 +521,6 @@ def test_predict_wrappers_reject_bad_inputs(cuda):
         tp.predict_leaf_index(pk, x, out=torch.zeros(50, 7, device=cuda))
     with pytest.raises(ValueError):  # more classes than a grid has rows
         tp.predict_margin(pk, x, num_outputs=1 << 16)
-    with pytest.raises(ValueError):  # no such mapping
-        tp.predict_margin(pk, x, mapping="nope")
     with pytest.raises(NotImplementedError):  # an objective outside the port
         tp.predict_margin(pk, x, transform="multi:softprob")
     with pytest.raises(NotImplementedError):  # a transform of K = 3

@@ -431,7 +431,7 @@ def test_launch_plan_picks_each_mapping(monkeypatch):
     monkeypatch.setattr(tp, "_sm_count", lambda index: 132)
     rng = np.random.default_rng(4)
     fo6 = _pf(random_forest(rng, 500, 6, 28, cat=()), 6, n_features=28)
-    plan = lambda n, **kw: tp.launch_plan(n, 1, fo6, False, "cpu", **kw)
+    plan = lambda n: tp.launch_plan(n, 1, fo6, False, "cpu")
     assert [plan(n).rows_per_block for n in (1, 256, 1056, 2112, 4224)] == [
         1, 1, 2, 4, 8]
     assert {plan(n).mapping for n in (1, 256, 4224, 131 * 512)} == {"windows"}
@@ -439,17 +439,41 @@ def test_launch_plan_picks_each_mapping(monkeypatch):
     assert big == tp.LaunchPlan("rows", 1, 8, True,
                                 16 * 8 * 127 + 4 * 28 * 512)
     assert big.shared_bytes <= tp._SHARED_BUDGETS[0]  # three CTAs an SM
+    assert plan(70001).mapping == "rows"
     leaf = tp.launch_plan(1 << 20, 1, fo6, True, "cpu")
     assert leaf == tp.LaunchPlan("rows", 1, 32, True, 16 * 32 * 127
                                  + 4 * 28 * 512 + 4 * 512 * 33)
-    assert plan(5, mapping="rows").mapping == "rows"
-    assert plan(1 << 20, mapping="windows").mapping == "windows"
     wide = _pf(random_forest(rng, 3, 2, 300, cat=()), 2, n_features=300)
     assert not tp.launch_plan(1 << 20, 1, wide, False, "cpu").staged
     deep = _pf(random_forest(rng, 2, 10, 5, cat=(), p_leaf=0.9), 10)
     assert tp.launch_plan(1 << 20, 1, deep, False, "cpu").trees_per_tile == 2
-    with pytest.raises(ValueError, match="mapping"):
-        plan(5, mapping="nope")
+
+
+@pytest.mark.parametrize("n_trees,n,k,want", [
+    (6_800, 4_224, 1, ("windows", 8)),
+    (7_000, 4_224, 1, ("windows", 4)),  # 8 rows' sums do not fit: 4
+    (10_000, 10_000, 1, ("windows", 4)),
+    (30_000, 2_000, 1, ("windows", 1)),
+    (54_600, 8, 1, ("windows", 1)),
+    (54_700, 8, 1, ("rows", 1)),  # not even one row's sums fit
+    (60_000, 1, 10, ("rows", 1)),  # 6,000 trees a class of ten
+])
+def test_launch_plan_fits_windows_sums_or_takes_rows(monkeypatch, n_trees, n,
+                                                     k, want):
+    """A large forest's windows mapping takes fewer rows a CTA until its
+    per-window sums ([R][windows][34] words) fit a CTA's shared memory, and
+    the rows mapping where not even one row's do; it never raises for the
+    size of the forest, in either mode."""
+    monkeypatch.setattr(tp, "_sm_count", lambda index: 132)
+    fo = tp.PredictForest(None, n_trees, 6, "heap", 28, False)
+    got = tp.launch_plan(n, k, fo, False, "cpu")
+    assert (got.mapping, got.rows_per_block) == want
+    assert got.shared_bytes <= tp._SHARED_MAX
+    if got.mapping == "windows":
+        assert got.shared_bytes == (4 * got.rows_per_block
+                                    * -(-n_trees // 32) * 34)
+    leaf = tp.launch_plan(n, 1, fo, True, "cpu")  # no sums in leaf mode
+    assert leaf.shared_bytes <= tp._SHARED_MAX
 
 
 # --------------------------------------------------------------------------

@@ -79,17 +79,12 @@
 #define XRT_WIN 32          // trees per window of the reference's reduce
 #define XRT_LEVELS 4        // window levels (T < 2^20): partials 1..3
 // rows mapping: rows a thread, trees a step (walks in flight: their
-// product), CTAs an SM the registers must allow. tools/b8_sweep.py builds
-// other values; ops/predict.py's _ROW_TILE is XRT_ROW_TILE.
-#ifndef XRT_RPT
+// product), CTAs an SM the registers must allow: 2 rows x 2 trees beat
+// 2 x 1, 2 x 4 and one row a thread on the H100 (PERF.md).
+// ops/predict.py's _ROW_TILE is XRT_ROW_TILE.
 #define XRT_RPT 2
-#endif
-#ifndef XRT_TPS
 #define XRT_TPS 2
-#endif
-#ifndef XRT_MIN_CTAS
 #define XRT_MIN_CTAS 3
-#endif
 #define XRT_ROW_TILE (XRT_RPT * XRT_THREADS)  // rows per CTA
 #define XRT_FEATURE_MASK 0x00FFFFFFu  // above it: leaf (1 << 24, unread),
 #define XRT_F_DEFAULT_LEFT (1u << 25)

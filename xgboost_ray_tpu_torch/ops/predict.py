@@ -49,9 +49,9 @@ epilogue.
 Each wrapper sends CPU tensors to its plain PyTorch version and CUDA
 tensors to the kernel (or raises): there is no fallback. ``launches``
 counts kernel launches (``launches_by_layout`` splits them by forest
-layout, ``launches_by_mapping`` by mapping, ``launches_by_mode`` margins
-from values). Kernel: ``csrc/predict.cu``; ``launch_plan`` picks its
-mapping.
+layout, ``launches_by_plan`` by layout and mapping, ``launches_by_mode``
+margins from values). Kernel: ``csrc/predict.cu``; ``launch_plan`` picks
+its mapping.
 """
 
 import ctypes
@@ -73,6 +73,9 @@ LAYOUTS = ("heap", "node_array")
 #: kernel mappings: a row per thread over staged tiles (large batches) and a
 #: tree slot per thread with the window sums in shared memory (small ones)
 MAPPINGS = ("rows", "windows")
+#: the launch counters' keys: (layout, mapping), one per kernel the
+#: wrappers launch
+PLANS = tuple((lay, m) for lay in LAYOUTS for m in MAPPINGS)
 
 #: a record's word above the last level: feature index, then the flags
 FEATURE_MASK = (1 << 24) - 1
@@ -321,9 +324,9 @@ class LaunchPlan(NamedTuple):
 def _rows_plan(heap: int, num_features: int, leaf: bool) -> LaunchPlan:
     """Margins: the largest forest tile that leaves three CTAs an SM, else
     two, else one. Leaf indices: the largest tile one CTA can hold, as a
-    row's run of indices written at a time is 4 bytes a tree of the tile
-    (``tools/b8_sweep.py``). When not even two trees and the x tile fit,
-    the walk reads device memory."""
+    row's run of indices written at a time is 4 bytes a tree of the tile.
+    When not even two trees and the x tile fit, the walk reads device
+    memory."""
     x_bytes = 4 * num_features * _ROW_TILE
     for limit in _SHARED_BUDGETS[-1:] if leaf else _SHARED_BUDGETS:
         for tt in (32, 16, 8, 4, 2):
@@ -335,31 +338,26 @@ def _rows_plan(heap: int, num_features: int, leaf: bool) -> LaunchPlan:
 
 
 def launch_plan(n: int, num_outputs: int, fo: PredictForest, leaf: bool,
-                device, mapping: Optional[str] = None) -> LaunchPlan:
+                device) -> LaunchPlan:
     """The rows mapping once its 512-row CTAs give every SM one, else the
     windows mapping with R rows a CTA: the most of 8, 4, 2, 1 that still
     gives every SM four CTAs (so a small batch spreads its trees over whole
-    CTAs). ``mapping`` forces one ("windows" raises where its per-window
-    sums do not fit the shared memory)."""
-    if mapping not in (None,) + MAPPINGS:
-        raise ValueError(f"B8: unknown mapping {mapping!r}; one of "
-                         f"{MAPPINGS}")
+    CTAs) and whose per-window sums fit a CTA's shared memory. A forest too
+    large for even one row's sums takes the rows mapping."""
     k = 1 if leaf else num_outputs
     sms = _sm_count(torch.device(device).index or 0)
-    if mapping is None:
-        mapping = "rows" if -(-n // _ROW_TILE) * k >= sms else "windows"
-    heap = (2 << fo.max_depth) - 1
-    if mapping == "windows":
+    if -(-n // _ROW_TILE) * k < sms:
         r = 8
         while r > 1 and -(-n // r) * k < 4 * sms:
             r //= 2
-        m1 = -(-fo.n_trees // _WINDOW)
-        b = 0 if leaf else 4 * r * m1 * (_WINDOW + 2)
-        if b <= _SHARED_MAX:
-            return LaunchPlan("windows", r, 2, False, b)
-        _check(False, f"B8: the windows mapping of {fo.n_trees} trees needs "
-                      f"{b} bytes of shared memory")
-    return _rows_plan(heap, fo.num_features, leaf)
+        # [R][m1][33] contributions and [R][m1] window sums (margins only)
+        row_bytes = 0 if leaf else 4 * -(-fo.n_trees // _WINDOW) * (
+            _WINDOW + 2)
+        while r > 1 and r * row_bytes > _SHARED_MAX:
+            r //= 2
+        if r * row_bytes <= _SHARED_MAX:
+            return LaunchPlan("windows", r, 2, False, r * row_bytes)
+    return _rows_plan((2 << fo.max_depth) - 1, fo.num_features, leaf)
 
 
 def _check(cond: bool, what: str) -> None:
@@ -450,12 +448,11 @@ def predict_margin(
     out: Optional[torch.Tensor] = None,
     stream: Optional[torch.cuda.Stream] = None,
     transform: Optional[str] = None,
-    mapping: Optional[str] = None,
 ) -> torch.Tensor:
     """B8 margin wrapper: [N, K] f32 (see :func:`predict_margin_plain`);
     with ``transform`` (an objective's name) the values, the transform
     fused into the kernel. ``stream`` defaults to the current stream of
-    ``x``'s device; ``mapping`` forces one of ``MAPPINGS``."""
+    ``x``'s device."""
     _check_x(fo, x)
     k = num_outputs
     _check(k >= 1 and num_parallel_tree >= 1 and ntree_limit >= 0,
@@ -484,7 +481,7 @@ def predict_margin(
            "B8: out must be contiguous f32 [N, K] on the device of x")
     if n == 0:
         return out
-    plan = launch_plan(n, k, fo, False, dev, mapping)
+    plan = launch_plan(n, k, fo, False, dev)
     a = _args(fo, x, plan, mode, tree_weights=_build.ptr(tree_weights),
               base=_build.ptr(base), out_margin=out.data_ptr(),
               ntree_limit=int(ntree_limit),
@@ -494,14 +491,14 @@ def predict_margin(
     predict_margin.launches += 1
     predict_margin.launches_by_layout[fo.layout] += 1
     predict_margin.launches_by_mode[mode] += 1
-    predict_margin.launches_by_mapping[plan.mapping] += 1
+    predict_margin.launches_by_plan[fo.layout, plan.mapping] += 1
     return out
 
 
 predict_margin.launches = 0
 predict_margin.launches_by_layout = dict.fromkeys(LAYOUTS, 0)
 predict_margin.launches_by_mode = dict.fromkeys(("margin", "value"), 0)
-predict_margin.launches_by_mapping = dict.fromkeys(MAPPINGS, 0)
+predict_margin.launches_by_plan = dict.fromkeys(PLANS, 0)
 
 
 def predict_leaf_index(
@@ -509,7 +506,6 @@ def predict_leaf_index(
     x: torch.Tensor,
     out: Optional[torch.Tensor] = None,
     stream: Optional[torch.cuda.Stream] = None,
-    mapping: Optional[str] = None,
 ) -> torch.Tensor:
     """B8 leaf wrapper: [N, T] int32 heap index of each row's leaf."""
     _check_x(fo, x)
@@ -525,16 +521,16 @@ def predict_leaf_index(
            "B8: out must be contiguous int32 [N, T] on the device of x")
     if n == 0:
         return out
-    plan = launch_plan(n, 1, fo, True, dev, mapping)
+    plan = launch_plan(n, 1, fo, True, dev)
     a = _args(fo, x, plan, "leaf", out_leaf=out.data_ptr(), num_outputs=1,
               num_parallel_tree=1)
     _launch(a, dev, stream, "B8 predict leaf")
     predict_leaf_index.launches += 1
     predict_leaf_index.launches_by_layout[fo.layout] += 1
-    predict_leaf_index.launches_by_mapping[plan.mapping] += 1
+    predict_leaf_index.launches_by_plan[fo.layout, plan.mapping] += 1
     return out
 
 
 predict_leaf_index.launches = 0
 predict_leaf_index.launches_by_layout = dict.fromkeys(LAYOUTS, 0)
-predict_leaf_index.launches_by_mapping = dict.fromkeys(MAPPINGS, 0)
+predict_leaf_index.launches_by_plan = dict.fromkeys(PLANS, 0)
