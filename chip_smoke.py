@@ -8,25 +8,40 @@ CUDA device, ``nvcc`` and ``triton``, and nothing of JAX. Phases:
    ``nvcc`` per source, in parallel) and the Triton kernel; report each K1,
    K3 and B8 kernel's registers, shared memory and spills (``-Xptxas -v``)
    and the atomic opcodes ``cuobjdump -sass`` finds in them (whether K1's
-   shared float add is native or a compare-and-swap loop), and the dynamic
+   shared adds are native or a compare-and-swap loop), and the dynamic
    shared memory per CTA of B8's kernels on the main path;
 2. every kernel against its plain PyTorch version on the card, at the main
    path's shapes (HIGGS width F = 28, int16 bins, 257 buckets, a level-5
    fan-out of 32 nodes; K1 also at the root: one node, identity order;
    K2's level step at level 5 with the sibling prologue (16 parents, 32
    nodes) and its final-level records and K3's leaf-value mode at the
-   final level's 64 nodes), with integer-valued gradients (exact f32 sums:
-   K1 and K2 must be bitwise) and random ones (stated tolerances; K2's
-   level step and records are bitwise on both); each kernel is timed with
+   final level's 64 nodes), with integer-valued gradients (exact sums: K1's
+   dequantised output equals the f32 sums and K2 must be bitwise) and
+   random ones (stated tolerances; K2's level step and records are bitwise
+   on both); K1's int64 sums and its dequantise step are bitwise against
+   ``build_histogram_fixed_plain`` / ``dequantize_plain`` on both; K3
+   also with the smaller children chosen from counts merged with a second
+   rank's (what it does above one rank), compacted into N slots; each
+   kernel is timed with
    CUDA events around its wrapper (``ms``: the host's issue time shows
    where it is the slower) and by ``torch.profiler`` (``device_ms``: the
    kernels' own device time per launch), beside its plain version and,
-   where one PyTorch call computes the same function, that call (K1:
-   ``index_add_``; K3: a stable ``torch.sort`` of the child key, which
-   covers only the partition core);
+   where one PyTorch call computes the same function, that call (K1: an
+   int64 ``index_add_``; the dequantise step: int64 times f32; K3: a
+   stable ``torch.sort`` of the child key, which covers only the partition
+   core);
 3. the main path: ``train()`` on a HIGGS-shaped synthetic set (11,000,000 x
-   28 rows, depth 6, 256 bins, 10 rounds) with ``num_actors=1`` and ``2``,
-   with the launch counters set to 0 before and read after each run, then
+   28 rows, depth 6, 256 bins, 10 rounds) with ``num_actors=1`` twice and
+   ``2`` once (folded onto the card), with the launch counters set to 0
+   before and read after each run; determinism (ROADMAP C1): the three
+   runs' dumps equal and their final margins bitwise; ranks (A6): two
+   ranks sharing the card in one gloo world (``distributed.launch_world``)
+   train the same config on their shards and must give the 1-rank dump
+   and margins bitwise, each rank's kernel launches counted from 0 just
+   before its ``train()`` and checked exactly (world size, backend,
+   all-reduce bytes per round and round times printed; the NCCL path, a
+   rank per card, and ``train()`` alone spawning its NCCL ranks run only
+   with two or more cards and are reported as not run otherwise); then
    two more rounds under ``torch.profiler`` (device time by kernel, CUDA
    launches per round, idle share against the unprofiled round);
 4. the card against the port's CPU path on a 200,000-row slice (3 rounds);
@@ -83,6 +98,18 @@ mappings that tree has), to compare two versions of B8 in one call.
 ``--profile-only`` runs the build and phase 3's profile alone and prints
 no result line; it also works against an older tree of the package (copy
 this script into that tree), to count that tree's CUDA launches per round.
+
+``--k1-time`` runs the build and then times K1 alone (``torch.profiler``
+device time at level 5 and at the root of the 11M x 28 set, and whether
+it is bitwise its fixed-point plain version there) and a 10-round
+``train()`` (median round, md5 of the dump); it prints one JSON line and
+no result line, and works in an older tree too (one from before K1's
+fixed point is timed with its f32 K1), so two trees are compared in turns
+in one call.
+
+``--ranks-only`` runs the build, the 1-rank main path and the ranks phase
+(on a host of two or more cards also the NCCL path, against the 1-rank
+run) and prints no result line.
 """
 
 import argparse
@@ -306,8 +333,8 @@ def b8_main_path_kernels(n_trees, n_rows):
 def phase_build_report(n_trees, n_rows):
     """Registers, shared memory and spills of K1's, K3's and B8's kernels
     (B8's main-path kernels with their dynamic shared memory per CTA), and
-    whether K1's shared float add compiles to a native add or a
-    compare-and-swap loop."""
+    whether K1's shared adds compile to native adds or a compare-and-swap
+    loop."""
     from xgboost_ray_tpu_torch.ops import _build
     from xgboost_ray_tpu_torch.ops import predict as PR
 
@@ -329,9 +356,9 @@ def phase_build_report(n_trees, n_rows):
     if not shared:
         finding = "no ATOMS opcode found in xrt_hist_kernel"
     elif any("CAS" in op for op in shared):
-        finding = "shared float add compiles to a compare-and-swap loop"
+        finding = "a shared add compiles to a compare-and-swap loop"
     else:
-        finding = "shared float add compiles to a native ATOMS add"
+        finding = "every shared add compiles to a native ATOMS add"
     report["k1_shared_atomic_finding"] = finding
     report["k1_shared_atomic_opcodes"] = shared
     emit({"phase": "build_report", **report})
@@ -375,6 +402,50 @@ def level_inputs(n, f, n_nodes, seed, integer_gh):
     return bins.contiguous(), gh.contiguous(), order, seg
 
 
+def hold_k1(bins, gh, rows, seg, n_nodes, nbt, qs, integer_gh, what):
+    """K1 against ``build_histogram_fixed_plain`` on the card: raw int64
+    histogram and totals bitwise, the totals-only launch bitwise, the
+    dequantise kernel bitwise against ``dequantize_plain``; then the
+    dequantised sums against the f32 plain sums. Returns (max abs error
+    against the f32 sums, max abs error of the dequantise kernel: 0)."""
+    import torch
+
+    from xgboost_ray_tpu_torch.ops import histogram as H
+
+    hk, tk = H.build_histogram(bins, gh, rows, seg, n_nodes, nbt, qscale=qs)
+    hq, tq = H.build_histogram_fixed_plain(bins, gh, rows, seg, n_nodes, nbt,
+                                           qs)
+    _, tk0 = H.build_histogram(bins, gh, rows, seg, n_nodes, nbt,
+                               with_hist=False, qscale=qs)
+    torch.cuda.synchronize()
+    check(hk.dtype == torch.int64 and torch.equal(hk, hq)
+          and torch.equal(tk, tq) and torch.equal(tk0, tq),
+          f"K1 ({what}) int64 sums not bitwise equal to the fixed-point "
+          f"plain version")
+    dk, dtk = H.dequantize(hk, qs), H.dequantize(tk, qs)
+    dq, dtq = H.dequantize_plain(hq, qs), H.dequantize_plain(tq, qs)
+    torch.cuda.synchronize()
+    check(torch.equal(bits(dk), bits(dq)) and torch.equal(bits(dtk), bits(dtq)),
+          f"K1 dequantise ({what}) not bitwise equal to its plain version")
+    del hk, hq, dq
+    hp, tp = H.build_histogram_plain(bins, gh, rows, seg, n_nodes, nbt)
+    err = max(float((dk - hp).abs().max()), float((dtk - tp).abs().max()))
+    if integer_gh:
+        check(torch.equal(dk, hp) and torch.equal(dtk, tp),
+              f"K1 ({what}) dequantised sums differ from the exact f32 sums "
+              f"with integer gh (max err {err})")
+    else:
+        habs, tabs = H.build_histogram_plain(bins, gh.abs(), rows, seg,
+                                             n_nodes, nbt)
+        # the f32 sums' own rounding sets the tolerance: a node total adds
+        # up to N / 32 values (the dequantised sums are the closer ones)
+        ok = (((dk - hp).abs() <= 1e-4 * habs).all()
+              and ((dtk - tp).abs() <= 1e-4 * tabs).all())
+        check(bool(ok), f"K1 ({what}) dequantised beyond 1e-4 x sum|gh| of "
+                        f"the f32 sums (max err {err})")
+    return err, 0.0
+
+
 def phase_kernels(n, records):
     import torch
 
@@ -389,41 +460,25 @@ def phase_kernels(n, records):
         tag = "int" if integer_gh else "rand"
         bins, gh, order, seg = level_inputs(n, f, n_nodes, 7 if integer_gh else 8,
                                             integer_gh)
-        # K1
-        hk, tk = H.build_histogram(bins, gh, order, seg, n_nodes, nbt)
+        # K1: int64 sums bitwise against the fixed-point plain version, the
+        # dequantise kernel bitwise against its plain version; the
+        # dequantised sums against the f32 plain sums (exact with integer
+        # gh, within 1e-4 x sum|gh| with random gh)
+        qs = H.quant_scales(gh, n)
+        err1, err1d = hold_k1(bins, gh, order, seg, n_nodes, nbt, qs,
+                              integer_gh, "level 5")
         hp, tp = H.build_histogram_plain(bins, gh, order, seg, n_nodes, nbt)
-        torch.cuda.synchronize()
-        err1 = float((hk - hp).abs().max())
-        if integer_gh:
-            check(torch.equal(hk, hp) and torch.equal(tk, tp),
-                  f"K1 not bitwise with integer gh (max err {err1})")
-        else:
-            habs, _ = H.build_histogram_plain(bins, gh.abs(), order, seg,
-                                              n_nodes, nbt)
-            ok = ((hk - hp).abs() <= 1e-4 * habs + 1e-6).all()
-            check(bool(ok), f"K1 beyond 1e-4 x sum|gh| (max err {err1})")
         # K1 at the root: one node, identity order (the heaviest launch of
         # the main path). Integer gh here keeps |sum| < 2**24 over all rows
-        # (g in -1..1, h in 0..1), so totals are exact too.
+        # (g in -1..1, h in 0..1), so the f32 totals are exact too.
         ident = torch.arange(n, dtype=torch.int32, device="cuda")
         seg1 = torch.tensor([0, n], dtype=torch.int32, device="cuda")
         gh1 = (torch.stack([torch.remainder(gh[:, 0], 3) - 1,
                             torch.remainder(gh[:, 1], 2)], 1).contiguous()
                if integer_gh else gh)
-        hk1, tk1 = H.build_histogram(bins, gh1, ident, seg1, 1, nbt)
-        hp1, tp1 = H.build_histogram_plain(bins, gh1, ident, seg1, 1, nbt)
-        torch.cuda.synchronize()
-        err1r = float((hk1 - hp1).abs().max())
-        if integer_gh:
-            check(torch.equal(hk1, hp1) and torch.equal(tk1, tp1),
-                  f"K1 (root) not bitwise with integer gh (max err {err1r})")
-        else:
-            habs1, tabs1 = H.build_histogram_plain(bins, gh1.abs(), ident,
-                                                   seg1, 1, nbt)
-            ok = (((hk1 - hp1).abs() <= 1e-4 * habs1 + 1e-6).all()
-                  and ((tk1 - tp1).abs() <= 1e-4 * tabs1 + 1e-6).all())
-            check(bool(ok), f"K1 (root) beyond 1e-4 x sum|gh| (max err {err1r})")
-        del hk1, hp1
+        qs1 = H.quant_scales(gh1, n)
+        err1r, _ = hold_k1(bins, gh1, ident, seg1, 1, nbt, qs1, integer_gh,
+                           "root")
         # K2 on one histogram (the plain one) through both
         sk = S.find_splits(hp, p)
         sp = S.find_splits_plain(hp, p)
@@ -500,6 +555,29 @@ def phase_kernels(n, records):
               and torch.equal(pk.small_is_right, pp.small_is_right)
               and torch.equal(pk.small_rows[:m], pp.small_rows[:m])
               and torch.equal(rvk, rvp), "K3 differs from the plain version")
+        # K3 above one rank: the smaller child chosen from the children's
+        # counts merged with a second rank's (here each child's count plus
+        # twice its sibling's, which turns most choices round), compacted
+        # into N slots
+        def merge(c):
+            return c + 2 * c.view(-1, 2).flip(1).reshape(-1)
+
+        pk = H.partition_level(order, seg, bins, feature, sbin, dl, state,
+                               nval, rvk, True, 256, merge_counts=merge)
+        pp = H.partition_level_plain(order, seg, bins, feature, sbin, dl,
+                                     state, nval, rvp, True, 256,
+                                     merge_counts=merge)
+        torch.cuda.synchronize()
+        mw = int(pp.small_seg[-1])
+        check(mw > n // 2 and pk.small_rows.shape == (n,),
+              f"K3's merged choice packed {mw} of {n} rows in "
+              f"{pk.small_rows.shape[0]} slots")
+        check(torch.equal(pk.order, pp.order) and torch.equal(pk.seg, pp.seg)
+              and torch.equal(pk.small_seg, pp.small_seg)
+              and torch.equal(pk.small_is_right, pp.small_is_right)
+              and torch.equal(pk.small_rows[:mw], pp.small_rows[:mw])
+              and torch.equal(rvk, rvp),
+              "K3 with merged counts differs from the plain version")
         # K3 leaf-value mode at the final level of a depth-6 tree: 64 nodes,
         # every row moves nowhere, rows of LEAF nodes take the node's value
         node64 = torch.randint(0, 64, (n,), generator=gen, device="cuda")
@@ -532,7 +610,7 @@ def phase_kernels(n, records):
         check(err4 <= 1e-6, f"K4 gradients beyond 1e-6 ({err4})")
         rel = float(((sk4 - sp4).abs() / sp4.abs().clamp(min=1e-12)).max())
         check(rel <= 1e-5, f"K4 metric sums beyond 1e-5 relative ({rel})")
-        res[tag] = {"K1": err1, "K1root": err1r, "K2": err2,
+        res[tag] = {"K1": err1, "K1root": err1r, "K1deq": err1d, "K2": err2,
                     "K2level": err2l, "K2leaf": 0.0, "K3": 0.0,
                     "K3leaf": 0.0, "K4": err4}
         emit({"phase": "kernel_vs_plain", "gh": tag, "max_abs_err": res[tag]})
@@ -542,23 +620,36 @@ def phase_kernels(n, records):
         # timings on the random-gh inputs (main-path shapes)
         t = {}
         t["K1"] = (cuda_ms(lambda: H.build_histogram(bins, gh, order, seg,
-                                                     n_nodes, nbt)),
-                   cuda_ms(lambda: H.build_histogram_plain(
-                       bins, gh, order, seg, n_nodes, nbt), iters=3))
+                                                     n_nodes, nbt, qscale=qs)),
+                   cuda_ms(lambda: H.build_histogram_fixed_plain(
+                       bins, gh, order, seg, n_nodes, nbt, qs), iters=3))
+        # yardstick: one int64 index_add_ of the quantised rows (the
+        # quantisation and the bucket ids precomputed)
         flat = H.flat_bucket_ids(bins, order, seg, n_nodes, nbt)
-        src = gh[order.long()][:, None, :].expand(n, f, 2).reshape(-1, 2)
-        out = torch.zeros((n_nodes * f * nbt, 2), device="cuda")
+        src = H.quantize_gh(gh[order.long()], qs)[:, None, :].expand(
+            n, f, 2).reshape(-1, 2)
+        out = torch.zeros((n_nodes * f * nbt, 2), dtype=torch.int64,
+                          device="cuda")
         lib_k1 = cuda_ms(lambda: out.index_add_(0, flat, src), iters=3)
-        del flat, src
+        del flat, src, out
         t["K1root"] = (cuda_ms(lambda: H.build_histogram(bins, gh, ident, seg1,
-                                                         1, nbt)),
-                       cuda_ms(lambda: H.build_histogram_plain(
-                           bins, gh, ident, seg1, 1, nbt), iters=3))
+                                                         1, nbt, qscale=qs)),
+                       cuda_ms(lambda: H.build_histogram_fixed_plain(
+                           bins, gh, ident, seg1, 1, nbt, qs), iters=3))
         flat = H.flat_bucket_ids(bins, ident, seg1, 1, nbt)
-        src = gh[:, None, :].expand(n, f, 2).reshape(-1, 2)
-        out1 = torch.zeros((f * nbt, 2), device="cuda")
+        src = H.quantize_gh(gh, qs)[:, None, :].expand(n, f, 2).reshape(-1, 2)
+        out1 = torch.zeros((f * nbt, 2), dtype=torch.int64, device="cuda")
         lib_k1root = cuda_ms(lambda: out1.index_add_(0, flat, src), iters=3)
-        del flat, src
+        del flat, src, out1
+        # the dequantise step at level 5's shape: the 16 parents' smaller
+        # children (the main path's largest); yardstick: int64 * f32 in one
+        # PyTorch call (type promotion: float(sum) * 2^-e)
+        h16 = H.build_histogram(bins, gh, order, seg, n_nodes, nbt,
+                                qscale=qs)[0][:16].contiguous()
+        inv = qs[2:]
+        t["K1deq"] = (cuda_ms(lambda: H.dequantize(h16, qs), iters=50),
+                      cuda_ms(lambda: H.dequantize_plain(h16, qs), iters=10))
+        lib_k1deq = cuda_ms(lambda: torch.mul(h16, inv), iters=50)
         t["K2"] = (cuda_ms(lambda: S.find_splits(hp, p)),
                    cuda_ms(lambda: S.find_splits_plain(hp, p), iters=3))
         t["K2level"] = (cuda_ms(lambda: S.split_level(**level, rec=rec_k)),
@@ -605,9 +696,11 @@ def phase_kernels(n, records):
             ident, seg1, bins, *root_nodes, rvk, True, 256))
         dev_ms = {
             "K1": device_ms(lambda: H.build_histogram(bins, gh, order, seg,
-                                                      n_nodes, nbt)),
+                                                      n_nodes, nbt, qscale=qs)),
             "K1root": device_ms(lambda: H.build_histogram(bins, gh, ident,
-                                                          seg1, 1, nbt)),
+                                                          seg1, 1, nbt,
+                                                          qscale=qs)),
+            "K1deq": device_ms(lambda: H.dequantize(h16, qs), iters=50),
             "K2": device_ms(lambda: S.find_splits(hp, p)),
             "K2level": device_ms(lambda: S.split_level(**level, rec=rec_k)),
             "K2leaf": device_ms(lambda: S.leaf_records(gh64, act64, rec64_k)),
@@ -632,11 +725,17 @@ def phase_kernels(n, records):
         n_leaf64 = int(sum(int(seg64[k + 1] - seg64[k])
                            for k in range(64) if int(state64[k]) == H.LEAF))
         hist_bytes = n_nodes * f * nbt * 2 * 4
+        cells16 = 16 * f * nbt * 2
         bounds = {
-            # bins + rows + gh read once, histogram and totals written once
-            "K1": bound_ms(n * f * 2 + n * 4 + n * 8 + hist_bytes, 2 * n * f),
-            "K1root": bound_ms(n * f * 2 + n * 4 + n * 8 + f * nbt * 2 * 4,
-                               2 * n * f),
+            # bins + rows + gh read once, the int64 histogram and totals
+            # written once; an add per (row, feature) and plane, a multiply
+            # and a conversion per row and plane
+            "K1": bound_ms(n * f * 2 + n * 4 + n * 8 + 2 * hist_bytes
+                           + n_nodes * 16, 2 * n * f + 4 * n),
+            "K1root": bound_ms(n * f * 2 + n * 4 + n * 8 + f * nbt * 2 * 8
+                               + 16, 2 * n * f + 4 * n),
+            # int64 sums read, f32 written; a conversion and a multiply each
+            "K1deq": bound_ms(cells16 * (8 + 4), 2 * cells16),
             # histogram read once; prefix adds + ~30 flops per candidate
             "K2": bound_ms(hist_bytes, n_nodes * f * (2 * nbt + 30 * (nbt - 2))),
             # 16 parents' and 16 children's histograms read, 32 formed ones
@@ -654,7 +753,8 @@ def phase_kernels(n, records):
             # margin, row_value, label, weight read; margin, gh written
             "K4": bound_ms(n * 4 * 4 + n * 4 + n * 8, 60 * n),
         }
-        library = {"K1": lib_k1, "K1root": lib_k1root, "K3": lib_k3}
+        library = {"K1": lib_k1, "K1root": lib_k1root, "K1deq": lib_k1deq,
+                   "K3": lib_k3}
         for k in t:
             records[k].update(
                 ms=t[k][0], device_ms=dev_ms[k], plain_ms=t[k][1],
@@ -670,15 +770,25 @@ def phase_kernels(n, records):
 # ---------------------------------------------------------------------------
 
 
-def counters():
-    from xgboost_ray_tpu_torch.ops import histogram as H
-    from xgboost_ray_tpu_torch.ops import objectives as O
-    from xgboost_ray_tpu_torch.ops import split as S
+def train_expect(rounds, depth):
+    """Launches of each training kernel in ``rounds`` rounds at ``depth``:
+    per tree K1 at every level + the final totals, each dequantised once,
+    K2's level step and the full K3 at every level, K2's final records and
+    K3's leaf-value mode once (the final leaves); K4 once a round and once
+    at set-up; K2's bare search is off the path."""
+    return {"K1": rounds * (depth + 1), "K1deq": rounds * (depth + 1),
+            "K2": 0, "K2level": rounds * depth,
+            "K2leaf": rounds, "K3": rounds * depth, "K3leaf": rounds,
+            "K4": rounds + 1}
 
-    return {"K1": H.build_histogram, "K2": S.find_splits,
-            "K2level": S.split_level, "K2leaf": S.leaf_records,
-            "K3": H.partition_level, "K3leaf": H.partition_leaf_values,
-            "K4": O.round_update}
+
+def check_launches(launches, expect, what):
+    for k in expect:
+        check(launches[k] > 0 or expect[k] == 0,
+              f"{k} never launched on {what}")
+        check(launches[k] == expect[k],
+              f"{k} launched {launches[k]} times on {what}, expected "
+              f"{expect[k]}")
 
 
 def phase_main(x, y, rounds, depth, actors):
@@ -689,34 +799,40 @@ def phase_main(x, y, rounds, depth, actors):
     params = {"objective": "binary:logistic",
               "eval_metric": ["logloss", "error"],
               "max_depth": depth, "max_bin": 256}
+    from xgboost_ray_tpu_torch.distributed import _KeepEngine
+    from xgboost_ray_tpu_torch.engine import kernel_counters
+    from xgboost_ray_tpu_torch.matrix import RayShardingMode, combine_data
+
     dm = xrt.RayDMatrix(x, y)
     evals_result, extra = {}, {}
-    fns = counters()
+    keep = _KeepEngine()
+    fns = kernel_counters()
     for fn in fns.values():
         fn.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
+    # card 0 named: on a host of several cards train() alone would spawn a
+    # rank a card (phase_ranks' NCCL path); the main path folds onto one
     bst = xrt.train(params, dm, rounds, evals=[(dm, "train")],
                     evals_result=evals_result, additional_results=extra,
+                    callbacks=[keep], device="cuda:0",
                     ray_params=xrt.RayParams(num_actors=actors))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in fns.items()}
-    # per tree: K1 at every level + the final totals, K2's level step and
-    # the full K3 at every level, K2's final records and K3's leaf-value
-    # mode once (the final leaves); K2's bare search is off the path
-    expect = {"K1": rounds * (depth + 1), "K2": 0, "K2level": rounds * depth,
-              "K2leaf": rounds, "K3": rounds * depth, "K3leaf": rounds,
-              "K4": rounds + 1}
+    # the engine's margins are the shards concatenated in rank order: put
+    # them back in row order (INTERLEAVED sharding)
+    margins = keep.engine.get_margins()[:, 0]
+    sizes = [len(range(r, x.shape[0], actors)) for r in range(actors)]
+    margins = combine_data(RayShardingMode.INTERLEAVED,
+                           np.split(margins, np.cumsum(sizes)[:-1]))
+    del keep
+    expect = train_expect(rounds, depth)
     ll = evals_result["train"]["logloss"]
     check(all(np.isfinite(ll)), f"non-finite train logloss {ll}")
     check(all(b < a for a, b in zip(ll, ll[1:])),
           f"train logloss does not fall every round: {ll}")
-    for k in expect:
-        check(launches[k] > 0 or expect[k] == 0,
-              f"{k} never launched on the main path")
-        check(launches[k] == expect[k],
-              f"{k} launched {launches[k]} times, expected {expect[k]}")
+    check_launches(launches, expect, "the main path")
     check(bst.num_boosted_rounds() == rounds, "wrong number of trees")
     rt = [r * 1e3 for r in extra["round_times_s"]]
     emit({"phase": "main_path", "rows": int(x.shape[0]), "features": int(x.shape[1]),
@@ -725,8 +841,128 @@ def phase_main(x, y, rounds, depth, actors):
           "train_logloss": ll, "train_error": evals_result["train"]["error"],
           "round_ms": rt, "round_ms_median": float(np.median(rt)),
           "setup_s": extra["setup_time_s"], "sketch_s": extra["sketch_time_s"],
-          "train_wall_s": wall})
-    return bst, launches, rt
+          "train_wall_s": wall, "world_size": extra["world_size"],
+          "allreduce_bytes_per_round": extra["allreduce_bytes_per_round"]})
+    return bst, launches, rt, margins
+
+
+def same_bits(a, b):
+    """Two float32 host arrays equal bit for bit."""
+    return a.shape == b.shape and np.array_equal(a.view(np.int32),
+                                                 b.view(np.int32))
+
+
+def phase_determinism(runs):
+    """C1: the main-path config trained twice in this process (and once
+    with its rows in two shards folded onto the card) gives the same dump
+    and bitwise the same margins."""
+    (b1, m1), (b2, m2), (b3, m3) = runs
+    d1 = b1.get_dump()
+    out = {"phase": "determinism", "runs": ["num_actors=1", "num_actors=1",
+                                            "num_actors=2 (folded)"],
+           "dump_equal_rerun": b2.get_dump() == d1,
+           "margins_bitwise_rerun": same_bits(m2, m1),
+           "dump_equal_two_shards": b3.get_dump() == d1,
+           "margins_bitwise_two_shards": same_bits(m3, m1),
+           "margin_max_abs_diff_rerun": float(np.abs(m2 - m1).max()),
+           "margin_max_abs_diff_two_shards": float(np.abs(m3 - m1).max())}
+    emit(out)
+    check(out["dump_equal_rerun"] and out["margins_bitwise_rerun"],
+          "training the main path twice gave different models or margins")
+    check(out["dump_equal_two_shards"] and out["margins_bitwise_two_shards"],
+          "num_actors=2 on one card gave another model or margins than 1")
+    return out
+
+
+def ranks_world(data, params, rounds, depth, backend, ref_dump, ref_margins):
+    """``_train_rank`` in a 2-rank world over ``backend`` (each rank on its
+    INTERLEAVED shard): the ranks' report, with each rank's kernel launches
+    (set to 0 just before its ``train()``) checked exactly."""
+    from xgboost_ray_tpu_torch import distributed as D
+    from xgboost_ray_tpu_torch.matrix import RayShardingMode, combine_data
+    from xgboost_ray_tpu_torch.models.booster import RayXGBoostBooster
+
+    t0 = time.perf_counter()
+    out = D.launch_world(D._train_rank, 2, "cuda", data, params, rounds,
+                         backend=backend)
+    wall = time.perf_counter() - t0
+    margins = combine_data(RayShardingMode.INTERLEAVED,
+                           [o["margins"] for o in out])
+    extra = out[0]["additional_results"]
+    rt = [r * 1e3 for r in extra["round_times_s"]]
+    expect = train_expect(rounds, depth)
+    res = {"world_size": extra["world_size"], "backend": extra["backend"],
+           "allreduce_bytes_per_round": extra["allreduce_bytes_per_round"],
+           "round_ms": rt, "round_ms_median": float(np.median(rt)),
+           "round_ms_median_rank1": float(np.median(
+               [r * 1e3 for r in out[1]["additional_results"]["round_times_s"]])),
+           "setup_s": extra["setup_time_s"],
+           "launch_and_train_wall_s": wall,
+           "train_logloss": out[0]["evals_result"]["train"]["logloss"],
+           "launches": [o["launches"] for o in out], "expected": expect,
+           "dumps_equal_one_rank": [
+               RayXGBoostBooster.load_raw(o["model"]).get_dump() == ref_dump
+               for o in out],
+           "margins_bitwise_one_rank": same_bits(margins, ref_margins)}
+    check(res["world_size"] == 2 and res["backend"] == backend,
+          f"the ranks ran as {res['world_size']} over {res['backend']}")
+    for r, o in enumerate(out):
+        check_launches(o["launches"], expect, f"rank {r} over {backend}")
+    check(all(res["dumps_equal_one_rank"]),
+          f"a rank's model over {backend} differs from the 1-rank model")
+    check(res["margins_bitwise_one_rank"],
+          f"the 2-rank margins over {backend} are not bitwise the 1-rank "
+          f"margins")
+    return res
+
+
+def phase_ranks(x, y, rounds, depth, ref_bst, ref_margins):
+    """A6 on the card at full width: two ranks in one gloo world sharing
+    the card (int64 CUDA all-reduces), each on its INTERLEAVED shard, give
+    the 1-rank model and margins bit for bit, each rank's kernels launched
+    as on the main path. Where there are two or more cards the same runs
+    over NCCL, a card a rank, and ``train`` alone (no device named) spawns
+    its NCCL ranks; with one card the NCCL path is reported as not run."""
+    import torch
+
+    import xgboost_ray_tpu_torch as xrt
+    from xgboost_ray_tpu_torch import distributed as D
+
+    params = {"objective": "binary:logistic",
+              "eval_metric": ["logloss", "error"],
+              "max_depth": depth, "max_bin": 256}
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    data = D.share({"x": x, "label": y})
+    share_s = time.perf_counter() - t0
+    ref_dump = ref_bst.get_dump()
+    res = {"phase": "ranks", "rows": int(x.shape[0]), "rounds": rounds,
+           "share_s": share_s,
+           **ranks_world(data, params, rounds, depth, "gloo", ref_dump,
+                         ref_margins)}
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        nccl = ranks_world(data, params, rounds, depth, "nccl", ref_dump,
+                           ref_margins)
+        ev, extra = {}, {}
+        dm = xrt.RayDMatrix(x, y)
+        bst = xrt.train(params, dm, rounds, evals=[(dm, "train")],
+                        evals_result=ev, additional_results=extra,
+                        ray_params=xrt.RayParams(num_actors=2))
+        nccl["train_alone"] = {
+            "world_size": extra["world_size"], "backend": extra["backend"],
+            "dump_equal_one_rank": bst.get_dump() == ref_dump,
+            "round_ms_median": float(np.median(extra["round_times_s"])) * 1e3}
+        res["nccl"] = nccl
+        check(nccl["train_alone"]["world_size"] == 2
+              and nccl["train_alone"]["backend"] == "nccl"
+              and nccl["train_alone"]["dump_equal_one_rank"],
+              f"train() alone on {cards} cards: {nccl['train_alone']}")
+    else:
+        res["nccl"] = {"not_run": f"{cards} device"}
+    del data
+    emit(res)
+    return res
 
 
 def phase_profile(x, y, depth, round_ms, rounds=2):
@@ -803,6 +1039,53 @@ def phase_profile(x, y, depth, round_ms, rounds=2):
 # ---------------------------------------------------------------------------
 # phase 4: card against the CPU path
 # ---------------------------------------------------------------------------
+
+
+def phase_k1_time(n_rows, rounds):
+    """K1's device time at level 5 and at the root, and the main path's
+    median round, of the package this script is run beside."""
+    import hashlib
+
+    import torch
+
+    import xgboost_ray_tpu_torch as xrt
+    from xgboost_ray_tpu_torch.ops import histogram as H
+
+    f, nbt = 28, 257
+    out = {"phase": "k1_time", "package": os.path.dirname(xrt.__file__),
+           "rows": n_rows}
+    bins, gh, order, seg = level_inputs(n_rows, f, 32, 8, False)
+    kw = {}
+    if hasattr(H, "quant_scales"):
+        qs = H.quant_scales(gh, n_rows)
+        kw = {"qscale": qs}
+        hk, tk = H.build_histogram(bins, gh, order, seg, 32, nbt, **kw)
+        hq, tq = H.build_histogram_fixed_plain(bins, gh, order, seg, 32, nbt,
+                                               qs)
+        out["level5_bitwise"] = bool(torch.equal(hk, hq)
+                                     and torch.equal(tk, tq))
+        del hk, tk, hq, tq
+    ident = torch.arange(n_rows, dtype=torch.int32, device="cuda")
+    seg1 = torch.tensor([0, n_rows], dtype=torch.int32, device="cuda")
+    out["k1_level5_device_ms"] = device_ms(lambda: H.build_histogram(
+        bins, gh, order, seg, 32, nbt, **kw))
+    out["k1_root_device_ms"] = device_ms(lambda: H.build_histogram(
+        bins, gh, ident, seg1, 1, nbt, **kw))
+    del bins, gh, order, seg, ident
+    torch.cuda.empty_cache()
+    x, y = make_higgs_like(n_rows, f, seed=0)
+    dm = xrt.RayDMatrix(x, y)
+    extra = {}
+    bst = xrt.train({"objective": "binary:logistic",
+                     "eval_metric": ["logloss"], "max_depth": 6,
+                     "max_bin": 256}, dm, rounds, evals=[(dm, "train")],
+                    additional_results=extra, device="cuda:0",
+                    ray_params=xrt.RayParams(num_actors=1))
+    rt = [r * 1e3 for r in extra["round_times_s"]]
+    out.update(round_ms_median=float(np.median(rt)), round_ms=rt,
+               dump_md5=hashlib.md5("".join(bst.get_dump()).encode())
+               .hexdigest())
+    emit(out)
 
 
 def phase_cpu_vs_card(x, y, rounds=3):
@@ -1395,13 +1678,20 @@ def phase_late_profile(bst, x):
 
 
 KERNELS = {
-    "K1": dict(name="K1 histogram build + node totals (level 5: 32 nodes)",
+    "K1": dict(name="K1 histogram build + node totals, int64 fixed point "
+               "(level 5: 32 nodes)",
                route="cuda", source="xgboost_ray_tpu_torch/csrc/histogram.cu",
                replaces="46abde5^:xgboost_ray_tpu/ops/hist_pallas.py:105"),
-    "K1root": dict(name="K1 histogram build + node totals (root: 1 node, "
+    "K1root": dict(name="K1 histogram build + node totals, int64 fixed point "
+                   "(root: 1 node, "
                    "identity order)", route="cuda",
                    source="xgboost_ray_tpu_torch/csrc/histogram.cu",
                    replaces="46abde5^:xgboost_ray_tpu/ops/hist_pallas.py:105"),
+    "K1deq": dict(name="K1 dequantise: merged int64 sums -> the f32 "
+                  "histogram K2 reads (level 5: 16 parents' smaller "
+                  "children)", route="cuda",
+                  source="xgboost_ray_tpu_torch/csrc/histogram.cu",
+                  replaces="46abde5^:xgboost_ray_tpu/ops/hist_pallas.py:105"),
     "K2": dict(name="K2 node totals + split search alone (find_splits, "
                "level 5: 32 nodes)", route="cuda",
                source="xgboost_ray_tpu_torch/csrc/split.cu",
@@ -1445,8 +1735,8 @@ KERNELS = {
 }
 
 #: kernels of the training path (phase 3's counters)
-TRAIN_KERNELS = ("K1", "K1root", "K2", "K2level", "K2leaf", "K3", "K3leaf",
-                 "K4")
+TRAIN_KERNELS = ("K1", "K1root", "K1deq", "K2", "K2level", "K2leaf", "K3",
+                 "K3leaf", "K4")
 
 
 def run(args):
@@ -1483,6 +1773,14 @@ def run(args):
     torch.cuda.synchronize()
     emit({"phase": "build", "nvcc_seconds": cuda_build_s,
           "triton_first_launch_seconds": time.perf_counter() - t1})
+    if args.k1_time:
+        phase_k1_time(args.rows, args.rounds)
+        return
+    if args.ranks_only:
+        x, y = make_higgs_like(args.rows, 28, seed=0)
+        bst, _, _, margins = phase_main(x, y, args.rounds, 6, 1)
+        phase_ranks(x, y, args.rounds, 6, bst, margins)
+        return
     build_report = phase_build_report(args.predict_rounds, args.rows)
 
     x, y = make_higgs_like(args.rows, 28, seed=0)
@@ -1506,17 +1804,21 @@ def run(args):
         emit({"phase": "main_path_cut", "rows": args.rows,
               "reason": "--rows below the 11,000,000-row HIGGS protocol"})
     results = {}
-    bst = None
-    for actors in (1, 2):
-        b, launches, rt = phase_main(x, y, args.rounds, 6, actors)
-        results[actors] = {"launches": launches, "round_ms": rt}
-        if actors == 1:
-            bst = b
+    runs = []
+    for i, (key, actors) in enumerate((("1", 1), ("1_rerun", 1), ("2", 2))):
+        b, launches, rt, margins = phase_main(x, y, args.rounds, 6, actors)
+        results[key] = {"launches": launches, "round_ms": rt}
+        runs.append((b, margins))
+        if i == 0:
             for k in TRAIN_KERNELS:
                 # the root row is K1 at another shape: the same launches
                 records[k]["launches"] = launches[k.replace("root", "")]
+    bst = runs[0][0]
+    results["determinism"] = phase_determinism(runs)
+    results["ranks"] = phase_ranks(x, y, args.rounds, 6, bst, runs[0][1])
+    del runs
     results["profile"] = phase_profile(x, y, 6,
-                                       float(np.median(results[1]["round_ms"])))
+                                       float(np.median(results["1"]["round_ms"])))
     cmp_rows = min(args.compare_rows, args.rows)
     cmp = phase_cpu_vs_card(x[:cmp_rows], y[:cmp_rows])
     phase_save_load(bst)
@@ -1588,6 +1890,14 @@ def main():
                     help="only the main path's profile (device time and CUDA "
                          "launches per round; works on an older tree of the "
                          "package too); prints no result line")
+    ap.add_argument("--k1-time", action="store_true",
+                    help="only K1's times and the main path's median round "
+                         "(works on an older tree of the package too); "
+                         "prints no result line")
+    ap.add_argument("--ranks-only", action="store_true",
+                    help="only the 1-rank main path and the ranks phase (on "
+                         "a host of two or more cards: the NCCL path); "
+                         "prints no result line")
     args = ap.parse_args()
     try:
         run(args)

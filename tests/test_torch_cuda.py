@@ -3,16 +3,23 @@ device, at shapes off the main path (feature tiles, uint8 bins, 1024 bins,
 few bins, empty nodes). Every test skips without a CUDA device; run them on
 the card with ``python -m pytest tests/test_torch_cuda.py -q``.
 
-Tolerances: with integer-valued gh every f32 sum is exact, so K1 and K2 are
-bitwise (K2's level step on every output, its records and the formed
+Tolerances: K1 sums in fixed point, so its int64 histogram and totals and
+their dequantised f32 values are bitwise equal to
+``build_histogram_fixed_plain``'s, with integer and random gh alike; with
+integer-valued gh every sum is exact, so K1's dequantised output also
+equals the f32 plain sums and K2 is bitwise (K2's level step on every
+output, its records and the formed
 histogram included, and its final-level records on random totals); K3's
-outputs, in both modes, are integers and copies (bitwise); K4's gradients
+outputs, in both modes and with the smaller children chosen from merged
+counts, are integers and copies (bitwise); K4's gradients
 within 1e-6 and its metric sums within 1e-5 relative; whole trees grown on
 the card and on the CPU from integer gh are bitwise on every field; B8's
 leaf indices, margins and values (every mapping and option: base, tree
 weights, ntree_limit, num_parallel_tree, K = 3, a categorical feature, NaN,
 both layouts) are bitwise equal to the plain version's (values: a NaN
-matches any NaN, whose payload differs between CPU and card).
+matches any NaN, whose payload differs between CPU and card). Training on
+the card reruns bit for bit, and a 2-rank gloo world on one card gives the
+1-rank model and margins bit for bit.
 """
 
 import numpy as np
@@ -55,16 +62,32 @@ SHAPES = [(5000, 7, 256, 4), (3000, 60, 64, 3), (2000, 5, 1024, 8),
           (20000, 33, 255, 4), (30000, 7, 200, 5), (6000, 75, 256, 3)]
 
 
+def _k1_against_fixed_plain(cpu, dev, n_nodes, nbt):
+    """K1 (raw int64 and dequantised by the kernel) against the fixed-point
+    plain version, bitwise; returns the card's dequantised hist, totals."""
+    qs = th.quant_scales(dev[1], dev[1].shape[0])
+    hk, tk = th.build_histogram(*dev, n_nodes, nbt, qscale=qs)
+    hq, tq = th.build_histogram_fixed_plain(*cpu, n_nodes, nbt, qs.cpu())
+    assert hk.dtype == tk.dtype == torch.int64
+    assert torch.equal(hk.cpu(), hq) and torch.equal(tk.cpu(), tq)
+    _, tk2 = th.build_histogram(*dev, n_nodes, nbt, with_hist=False,
+                                qscale=qs)
+    assert torch.equal(tk2.cpu(), tq)
+    dk, dtk = th.dequantize(hk, qs), th.dequantize(tk, qs)
+    assert _same_bits(dk, th.dequantize_plain(hq, qs.cpu()))
+    assert _same_bits(dtk, th.dequantize_plain(tq, qs.cpu()))
+    return dk, dtk
+
+
 @pytest.mark.parametrize("n,f,max_bin,n_nodes", SHAPES)
 def test_histogram_and_split_bitwise(cuda, n, f, max_bin, n_nodes):
     cpu = _level(n, f, max_bin, n_nodes)
     dev = [t.to(cuda) for t in cpu]
     nbt = max_bin + 1
-    hk, tk = th.build_histogram(*dev, n_nodes, nbt)
+    hk, tk = _k1_against_fixed_plain(cpu, dev, n_nodes, nbt)
+    # integer gh: the dequantised sums are exact, the f32 plain sums too
     hp, tp = th.build_histogram_plain(*cpu, n_nodes, nbt)
     assert torch.equal(hk.cpu(), hp) and torch.equal(tk.cpu(), tp)
-    _, tk2 = th.build_histogram(*dev, n_nodes, nbt, with_hist=False)
-    assert torch.equal(tk2.cpu(), tp)
     p = ts.SplitParams(min_child_weight=2.0)
     sk = ts.find_splits(hk, p)
     sp = ts.find_splits_plain(hp, p)
@@ -82,10 +105,29 @@ def test_histogram_root_identity_order(cuda, dtype):
                                     rng.integers(1, 5, n)], 1).astype(np.float32))
     order = torch.arange(n, dtype=torch.int32)
     seg = torch.tensor([0, n], dtype=torch.int32)
-    hk, tk = th.build_histogram(bins.to(cuda), gh.to(cuda), order.to(cuda),
-                                seg.to(cuda), 1, nbt)
+    cpu = [bins, gh, order, seg]
+    hk, tk = _k1_against_fixed_plain(cpu, [t.to(cuda) for t in cpu], 1, nbt)
     hp, tp = th.build_histogram_plain(bins, gh, order, seg, 1, nbt)
     assert torch.equal(hk.cpu(), hp) and torch.equal(tk.cpu(), tp)
+
+
+@pytest.mark.parametrize("n,f,max_bin,n_nodes", SHAPES)
+def test_histogram_fixed_point_random_gh_bitwise(cuda, n, f, max_bin, n_nodes):
+    """Random gh over a wide range of magnitudes: K1's int64 sums and their
+    dequantised values bitwise equal to the fixed-point plain version's,
+    and within 1e-5 x sum |v| of the f32 plain sums."""
+    bins, _, order, seg = _level(n, f, max_bin, n_nodes, seed=3)
+    rng = np.random.default_rng(4)
+    gh = np.stack([rng.standard_normal(n) * np.exp(rng.uniform(-8, 8, n)),
+                   rng.uniform(0.0, 0.25, n)], 1).astype(np.float32)
+    cpu = [bins, torch.from_numpy(gh), order, seg]
+    hk, tk = _k1_against_fixed_plain(cpu, [t.to(cuda) for t in cpu],
+                                     n_nodes, max_bin + 1)
+    hp, tp = th.build_histogram_plain(*cpu, n_nodes, max_bin + 1)
+    habs, tabs = th.build_histogram_plain(bins, cpu[1].abs(), order, seg,
+                                          n_nodes, max_bin + 1)
+    assert bool(((hk.cpu() - hp).abs() <= 1e-5 * habs).all())
+    assert bool(((tk.cpu() - tp).abs() <= 1e-5 * tabs).all())
 
 
 @pytest.mark.parametrize("n,f,max_bin,n_nodes", SHAPES)
@@ -97,15 +139,22 @@ def test_partition_bitwise(cuda, n, f, max_bin, n_nodes):
     dl = torch.from_numpy(rng.random(n_nodes) < 0.5)
     state = torch.from_numpy(rng.integers(0, 3, n_nodes).astype(np.uint8))
     nval = torch.from_numpy(rng.standard_normal(n_nodes).astype(np.float32))
-    for write_small in (True, False):
+    def other_rank(c):  # merged with a rank holding twice the siblings
+        return c + 2 * c.view(-1, 2).flip(1).reshape(-1)
+
+    for write_small, merge in ((True, None), (False, None),
+                               (True, other_rank)):
         rv_p = torch.zeros(n)
         rv_k = torch.zeros(n, device=cuda)
         pp = th.partition_level(order, seg, bins, feature, sbin, dl, state,
-                                nval, rv_p, write_small, max_bin)
+                                nval, rv_p, write_small, max_bin,
+                                merge_counts=merge)
         pk = th.partition_level(*(t.to(cuda) for t in (
             order, seg, bins, feature, sbin, dl, state, nval)), rv_k,
-            write_small, max_bin)
+            write_small, max_bin, merge_counts=merge)
         m = int(pp.small_seg[-1])
+        if merge is not None:
+            assert pk.small_rows.shape == (n,)
         assert torch.equal(pk.order.cpu(), pp.order)
         assert torch.equal(pk.seg.cpu(), pp.seg)
         assert torch.equal(pk.small_seg.cpu(), pp.small_seg)
@@ -269,13 +318,23 @@ def test_build_tree_card_equals_cpu(cuda, case):
 
 def test_wrappers_reject_bad_inputs(cuda):
     bins, gh, order, seg = [t.to(cuda) for t in _level(1000, 4, 256, 2)]
+    qs = th.quant_scales(gh, 1000)
     with pytest.raises(ValueError):
-        th.build_histogram(bins.float(), gh, order, seg, 2, 257)
+        th.build_histogram(bins.float(), gh, order, seg, 2, 257, qscale=qs)
     with pytest.raises(ValueError):
-        th.build_histogram(bins, gh.double(), order, seg, 2, 257)
+        th.build_histogram(bins, gh.double(), order, seg, 2, 257, qscale=qs)
     unaligned = torch.zeros(2 * 1000 + 1, device=cuda)[1:].view(1000, 2)
     with pytest.raises(ValueError):
-        th.build_histogram(bins, unaligned, order, seg, 2, 257)
+        th.build_histogram(bins, unaligned, order, seg, 2, 257, qscale=qs)
+    with pytest.raises(ValueError, match="fixed point"):  # K1 needs qscale
+        th.build_histogram(bins, gh, order, seg, 2, 257)
+    with pytest.raises(ValueError, match="fixed point"):
+        th.build_histogram(bins, gh, order, seg, 2, 257, qscale=qs.double())
+    sums = torch.zeros(2, 4, 257, 2, dtype=torch.int64, device=cuda)
+    with pytest.raises(ValueError):
+        th.dequantize(sums.float(), qs)
+    with pytest.raises(ValueError):
+        th.dequantize(sums, qs[:2].contiguous())
     with pytest.raises(ValueError):  # order must be 16-byte aligned
         th.partition_leaf_values(
             torch.zeros(1001, dtype=torch.int32, device=cuda)[1:], seg,
@@ -319,6 +378,75 @@ def test_wrappers_reject_bad_inputs(cuda):
         to.round_update(torch.zeros(5, device=cuda), torch.zeros(4, device=cuda),
                         torch.zeros(5, device=cuda), torch.ones(5, device=cuda),
                         True)
+
+
+def _card_train(x, y, rounds, params=None):
+    """train() on the card; (dump, final training margins, evals_result)."""
+    import xgboost_ray_tpu_torch as tx
+    from xgboost_ray_tpu_torch.distributed import _KeepEngine
+
+    keep = _KeepEngine()
+    dm = tx.RayDMatrix(x, y)
+    ev = {}
+    bst = tx.train(params or {"objective": "binary:logistic",
+                              "eval_metric": ["logloss"]},
+                   dm, rounds, evals=[(dm, "train")], evals_result=ev,
+                   callbacks=[keep], ray_params=tx.RayParams(num_actors=1))
+    return bst.get_dump(), keep.engine.get_margins()[:, 0], ev
+
+
+def _card_set(n=60000, f=10, seed=21):
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal((n, f)) * rng.uniform(0.1, 50, f)).astype(np.float32)
+    x[rng.random((n, f)) < 0.03] = np.nan
+    logit = np.nan_to_num(x[:, 0]) / 20 - np.nan_to_num(x[:, 3]) / 7
+    y = (rng.random(n) < 1 / (1 + np.exp(-logit))).astype(np.float32)
+    return x, y
+
+
+def test_training_reruns_bitwise(cuda):
+    """Training twice on the card (random gradients from the objective):
+    the same dump and bitwise the same margins (K1's fixed point)."""
+    x, y = _card_set()
+    d1, m1, e1 = _card_train(x, y, 6)
+    d2, m2, e2 = _card_train(x, y, 6)
+    assert d1 == d2
+    assert np.array_equal(m1.view(np.int32), m2.view(np.int32))
+    assert e1 == e2
+
+
+def test_gloo_world_on_one_card_equals_one_rank(cuda):
+    """Two ranks sharing the card over gloo (int64 CUDA all-reduces): the
+    1-rank model and margins, bit for bit."""
+    from xgboost_ray_tpu_torch import distributed as D
+    from xgboost_ray_tpu_torch.matrix import RayShardingMode, combine_data
+
+    x, y = _card_set(seed=22)
+    d1, m1, _ = _card_train(x, y, 5)
+    out = D.launch_world(D._train_rank, 2, "cuda",
+                         D.share({"x": x, "label": y}),
+                         {"objective": "binary:logistic",
+                          "eval_metric": ["logloss"]}, 5,
+                         backend="gloo")
+    import xgboost_ray_tpu_torch as tx
+
+    # each rank's kernels, counted from 0 just before its train(): the
+    # main path's launches (depth 6, 5 rounds; K3 chose from merged counts)
+    expect = {"K1": 35, "K1deq": 35, "K2": 0, "K2level": 30, "K2leaf": 5,
+              "K3": 30, "K3leaf": 5, "K4": 6}
+    # int64 histograms and totals, int64 child counts, the f32 MAX of
+    # (max|g|, max|h|) for the round's scales, the four f64 metric sums
+    hist_cells = 10 * 257 * 2 * (1 + sum(1 << (d - 1) for d in range(1, 6)))
+    ring_bytes = (hist_cells * 8 + sum(2 * (1 << d) * 8 for d in range(5))
+                  + 64 * 2 * 8 + 2 * 4 + 4 * 8)
+    for o in out:
+        assert tx.RayXGBoostBooster.load_raw(o["model"]).get_dump() == d1
+        extra = o["additional_results"]
+        assert extra["backend"] == "gloo" and extra["world_size"] == 2
+        assert extra["allreduce_bytes_per_round"] == ring_bytes
+        assert o["launches"] == expect
+    m2 = combine_data(RayShardingMode.INTERLEAVED, [o["margins"] for o in out])
+    assert np.array_equal(m2.view(np.int32), m1.view(np.int32))
 
 
 # --------------------------------------------------------------------------

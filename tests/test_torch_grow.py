@@ -96,3 +96,31 @@ def test_build_tree_depth6_sibling_regularized():
     _assert_same_tree(*_both(bins, cuts, fhm, gh, max_depth=6, sibling=True,
                              reg_alpha=0.2, max_delta_step=0.3, gamma=0.1,
                              learning_rate=0.2))
+
+
+def test_build_tree_with_a_merge_is_the_one_rank_tree():
+    """A one-rank merge (the identity, recording its operands) through the
+    grower's world path: every level's histogram and the final totals are
+    merged as f32, the children's counts as int64 inside K3, whose smaller
+    children are then chosen from the merged counts and packed into N
+    slots; the tree and row values equal the grower without a merge, bit
+    for bit."""
+    bins, cuts, fhm, gh = _problem(4)
+    gh = torch.from_numpy(np.nan_to_num(gh))  # rows with a missing x[:, 0]
+    cfg = tg.GrowConfig(max_depth=6, max_bin=256)
+    t0, r0 = tg.build_tree(bins, gh, cuts, cfg, feat_has_missing=fhm)
+    seen = []
+
+    def merge(t):
+        seen.append(t.dtype)
+        return t
+
+    t1, r1 = tg.build_tree(bins, gh, cuts, cfg, feat_has_missing=fhm,
+                           allreduce=merge)
+    assert int((t0.feature >= 0).sum()) > 20  # a deep tree
+    for name in tg.Tree._fields:
+        assert torch.equal(getattr(t1, name), getattr(t0, name)), name
+    assert torch.equal(r1, r0)
+    # levels 0-4: histogram, then the children's counts; level 5's
+    # histogram; the final totals
+    assert seen == [torch.float32, torch.int64] * 5 + [torch.float32] * 2

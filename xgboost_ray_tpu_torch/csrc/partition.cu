@@ -31,6 +31,14 @@
 //      so the writes are coalesced; and the leaf values.
 // A thread owns XRT_ITEMS consecutive positions: it binary-searches the
 // node of its first position once and steps forward across boundaries.
+// Above one rank the smaller child must be the same on every rank, so it is
+// chosen from the children's counts summed over the ranks (grow.py:509-526):
+// the caller runs phases 1-2 without the choice (xrt_partition_route),
+// all-reduces the counts, and phase 3 (xrt_partition_scatter) first makes
+// the choice from them in one CTA (xrt_part_choose_kernel, the same code as
+// phase 2's) and then compacts as at one rank, into a list of n slots (a
+// child that is the smaller one over all ranks may hold most of this
+// rank's rows).
 // The grower's last call, where every node is a leaf or inactive and no row
 // moves, takes the leaf-value pass alone (xrt_leaf_values): one light pass
 // that writes row_value[order[p]] = node_value[node(p)] for leaf nodes.
@@ -155,13 +163,41 @@ xrt_part_route_kernel(const int* __restrict__ order, const int* __restrict__ seg
   }
 }
 
+// The smaller child of every parent and the compacted segment starts, by
+// the whole CTA: from `child_counts` [2 n_nodes] (the counts summed over
+// the ranks) or, when it is null, from this rank's children's segments
+// `new_seg`. Right on ties (grow.py:526); non-splitting nodes send every
+// row left: their (empty) right child is the "smaller" one and nothing is
+// compacted for them. small_seg counts this rank's rows of the chosen
+// child, prefix-summed.
+__device__ void xrt_choose_small(int n_nodes, const uint8_t* __restrict__ state,
+                                 const int* __restrict__ new_seg,
+                                 const long long* __restrict__ child_counts,
+                                 int* __restrict__ small_seg,
+                                 uint8_t* __restrict__ small_is_right) {
+  for (int k = threadIdx.x; k < n_nodes; k += blockDim.x) {
+    const int lc = new_seg[2 * k + 1] - new_seg[2 * k];
+    const int rc = new_seg[2 * k + 2] - new_seg[2 * k + 1];
+    const long long glc = child_counts ? child_counts[2 * k] : lc;
+    const long long grc = child_counts ? child_counts[2 * k + 1] : rc;
+    const bool sir = state[k] == XRT_SPLIT ? grc <= glc : true;
+    small_is_right[k] = sir ? 1 : 0;
+    small_seg[k + 1] = sir ? rc : lc;  // counts; prefix-summed below
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    small_seg[0] = 0;
+    for (int k = 1; k <= n_nodes; ++k) small_seg[k] += small_seg[k - 1];
+  }
+}
+
 __global__ void __launch_bounds__(1024)
 xrt_part_scan_kernel(int n_tiles, int n, const int* __restrict__ seg,
                      int n_nodes, const uint8_t* __restrict__ state,
                      int* __restrict__ tile_left,  // in: counts, out: offsets
                      const int* __restrict__ bnd_left,
                      int* __restrict__ node_left0, int* __restrict__ new_seg,
-                     int* __restrict__ small_seg,
+                     int choose, int* __restrict__ small_seg,
                      uint8_t* __restrict__ small_is_right) {
   __shared__ int warp_sums[32];
   __shared__ int carry;
@@ -206,23 +242,25 @@ xrt_part_scan_kernel(int n_tiles, int n, const int* __restrict__ seg,
   __syncthreads();
   for (int k = threadIdx.x; k < n_nodes; k += blockDim.x) {
     const int lc = node_left0[k + 1] - node_left0[k];
-    const int rc = (seg[k + 1] - seg[k]) - lc;
     new_seg[2 * k + 1] = seg[k] + lc;
     new_seg[2 * k + 2] = seg[k + 1];
-    // non-splitting nodes send every row left: their (empty) right child
-    // is the "smaller" one and nothing is compacted for them
-    const bool sir = state[k] == XRT_SPLIT ? rc <= lc : true;
-    small_is_right[k] = sir ? 1 : 0;
-    small_seg[k + 1] = sir ? rc : lc;  // counts; prefix-summed below
   }
-  if (threadIdx.x == 0) {
-    new_seg[0] = 0;
-    small_seg[0] = 0;
-  }
+  if (threadIdx.x == 0) new_seg[0] = 0;
   __syncthreads();
-  if (threadIdx.x == 0) {
-    for (int k = 1; k <= n_nodes; ++k) small_seg[k] += small_seg[k - 1];
-  }
+  if (choose)
+    xrt_choose_small(n_nodes, state, new_seg, nullptr, small_seg,
+                     small_is_right);
+}
+
+// Phase 3's choice from the counts summed over the ranks (one CTA).
+__global__ void __launch_bounds__(1024)
+xrt_part_choose_kernel(int n_nodes, const uint8_t* __restrict__ state,
+                       const int* __restrict__ new_seg,
+                       const long long* __restrict__ child_counts,
+                       int* __restrict__ small_seg,
+                       uint8_t* __restrict__ small_is_right) {
+  xrt_choose_small(n_nodes, state, new_seg, child_counts, small_seg,
+                   small_is_right);
 }
 
 __global__ void __launch_bounds__(XRT_THREADS)
@@ -332,14 +370,13 @@ xrt_leaf_values_kernel(const int* __restrict__ order,
 }
 
 template <typename BinT>
-static int launch_partition(
-    const int* order, const int* seg, int n_nodes, int n, const void* bins,
-    int n_features, const int* feature, const int* split_bin,
-    const uint8_t* default_left, const uint8_t* state, int missing_bin,
-    const float* node_value, int write_small, uint8_t* mask, int* tile_left,
-    int* bnd_left, int* node_left0, int* new_order, int* new_seg,
-    int* small_rows, int* small_seg, uint8_t* small_is_right,
-    float* row_value, cudaStream_t s) {
+static int launch_route(const int* order, const int* seg, int n_nodes, int n,
+                        const void* bins, int n_features, const int* feature,
+                        const int* split_bin, const uint8_t* default_left,
+                        const uint8_t* state, int missing_bin, uint8_t* mask,
+                        int* tile_left, int* bnd_left, int* node_left0,
+                        int* new_seg, int choose, int* small_seg,
+                        uint8_t* small_is_right, cudaStream_t s) {
   const int n_tiles = (n + XRT_TILE - 1) / XRT_TILE;
   xrt_part_route_kernel<BinT><<<n_tiles, XRT_THREADS, 0, s>>>(
       order, seg, n_nodes, n, (const BinT*)bins, n_features, feature,
@@ -348,46 +385,67 @@ static int launch_partition(
   if (err != cudaSuccess) return (int)err;
   xrt_part_scan_kernel<<<1, 1024, 0, s>>>(n_tiles, n, seg, n_nodes, state,
                                           tile_left, bnd_left, node_left0,
-                                          new_seg, small_seg, small_is_right);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+                                          new_seg, choose, small_seg,
+                                          small_is_right);
+  return (int)cudaGetLastError();
+}
+
+// Phases 1-2. order [n] int32 (16-byte aligned), seg [n_nodes + 1] with
+// seg[n_nodes] == n. Scratch: mask [ceil(n / 8)] bytes, tile_left
+// [n_tiles], bnd_left [n_nodes + 1], node_left0 [n_nodes + 1] (n_tiles =
+// ceil(n / tile)); phase 3 reads them. Outputs: new_seg [2 n_nodes + 1]
+// and, with `choose` (one rank), small_seg [n_nodes + 1] and
+// small_is_right [n_nodes] from this rank's counts.
+extern "C" int xrt_partition_route(const int* order, const int* seg,
+                                   int n_nodes, int n, const void* bins,
+                                   int bin_bytes, int n_features,
+                                   const int* feature, const int* split_bin,
+                                   const uint8_t* default_left,
+                                   const uint8_t* state, int missing_bin,
+                                   uint8_t* mask, int* tile_left,
+                                   int* bnd_left, int* node_left0,
+                                   int* new_seg, int choose, int* small_seg,
+                                   uint8_t* small_is_right, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (bin_bytes == 1)
+    return launch_route<uint8_t>(
+        order, seg, n_nodes, n, bins, n_features, feature, split_bin,
+        default_left, state, missing_bin, mask, tile_left, bnd_left,
+        node_left0, new_seg, choose, small_seg, small_is_right, s);
+  return launch_route<int16_t>(
+      order, seg, n_nodes, n, bins, n_features, feature, split_bin,
+      default_left, state, missing_bin, mask, tile_left, bnd_left,
+      node_left0, new_seg, choose, small_seg, small_is_right, s);
+}
+
+// Phase 3, after xrt_partition_route on the same scratch. child_counts:
+// null when the route phase chose the smaller children, else [2 n_nodes]
+// int64 children's counts summed over the ranks, from which they are
+// chosen here first. Outputs: new_order [n], small_rows (only the first
+// small_seg[n_nodes] are written: at most n / 2 with this rank's choice,
+// at most n with the ranks'), small_seg, small_is_right, row_value [n]
+// (only the rows of nodes that become leaves on this level are written).
+extern "C" int xrt_partition_scatter(
+    const int* order, const int* seg, int n_nodes, int n,
+    const uint8_t* state, const float* node_value, int write_small,
+    const uint8_t* mask, const int* tile_left, const int* node_left0,
+    const int* new_seg, const long long* child_counts, int* small_seg,
+    uint8_t* small_is_right, int* new_order, int* small_rows,
+    float* row_value, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (child_counts) {
+    xrt_part_choose_kernel<<<1, 1024, 0, s>>>(n_nodes, state, new_seg,
+                                              child_counts, small_seg,
+                                              small_is_right);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int n_tiles = (n + XRT_TILE - 1) / XRT_TILE;
   xrt_part_scatter_kernel<<<n_tiles, XRT_THREADS, 0, s>>>(
       order, seg, n_nodes, n, state, node_value, write_small, mask, tile_left,
       node_left0, new_seg, small_seg, small_is_right, new_order, small_rows,
       row_value);
   return (int)cudaGetLastError();
-}
-
-// order [n] int32 (16-byte aligned), seg [n_nodes + 1] with seg[n_nodes]
-// == n. Scratch: mask [ceil(n / 8)] bytes, tile_left [n_tiles],
-// bnd_left [n_nodes + 1], node_left0 [n_nodes + 1] (n_tiles = ceil(n /
-// tile)). Outputs: new_order [n], new_seg [2 n_nodes + 1], small_rows
-// [>= n / 2] (only the first small_seg[n_nodes] are written), small_seg
-// [n_nodes + 1], small_is_right [n_nodes], row_value [n] (only the rows of
-// nodes that become leaves on this level are written).
-extern "C" int xrt_partition(const int* order, const int* seg, int n_nodes,
-                             int n, const void* bins, int bin_bytes,
-                             int n_features, const int* feature,
-                             const int* split_bin,
-                             const uint8_t* default_left, const uint8_t* state,
-                             int missing_bin, const float* node_value,
-                             int write_small, uint8_t* mask, int* tile_left,
-                             int* bnd_left, int* node_left0, int* new_order,
-                             int* new_seg, int* small_rows, int* small_seg,
-                             uint8_t* small_is_right, float* row_value,
-                             void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (bin_bytes == 1)
-    return launch_partition<uint8_t>(
-        order, seg, n_nodes, n, bins, n_features, feature, split_bin,
-        default_left, state, missing_bin, node_value, write_small, mask,
-        tile_left, bnd_left, node_left0, new_order, new_seg, small_rows,
-        small_seg, small_is_right, row_value, s);
-  return launch_partition<int16_t>(
-      order, seg, n_nodes, n, bins, n_features, feature, split_bin,
-      default_left, state, missing_bin, node_value, write_small, mask,
-      tile_left, bnd_left, node_left0, new_order, new_seg, small_rows,
-      small_seg, small_is_right, row_value, s);
 }
 
 // Leaf-value mode: order [n] (16-byte aligned), seg [n_nodes + 1],

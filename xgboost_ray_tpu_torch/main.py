@@ -12,20 +12,32 @@ order and walked in one pass on the device, as the reference's
 ``_predict_shards_spmd`` (``:2214``) does on its mesh, then split back per
 rank and re-assembled per sharding mode.
 
-World size: the port trains on one device. ``RayParams(num_actors=N)``
-shards the data into N ranks (the JAX package's sharding and
-concatenation order) and runs them on that device, as the JAX package does
-on a host with one device (``main.py:401-402`` folds actors onto the
-available devices). NCCL ranks come in a later slice.
+Ranks (``distributed.py``). Inside an initialised ``torch.distributed``
+world of W ranks (``distributed.init_distributed``, the JAX package's
+multi-host flow), rank r trains on shard r of the RayDMatrix when
+``num_actors`` equals W (with more actors, on the r-th of W contiguous
+groups of shards, folded in rank order; fewer raise), the ranks merge
+histograms, sketch and metrics by all-reduce, and every rank returns the
+same booster. Called alone with ``num_actors > 1`` on the cards of a host
+with two or more CUDA devices (``device`` None or ``"cuda"``), ``train``
+spawns ``min(num_actors, device_count)`` ranks over NCCL, one card each,
+runs itself inside that world (``distributed._train_rank``) and returns
+rank 0's booster. On one card (the host's only one, or
+``device="cuda:k"``) or on the CPU the shards fold onto the one device, as
+the JAX package folds actors onto the available devices
+(``main.py:401-402``, ``engine.py:239-244``).
 """
 
+import pickle
 import time
 import warnings
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
+import torch
 
+from xgboost_ray_tpu_torch import distributed
 from xgboost_ray_tpu_torch.engine import TorchEngine
 from xgboost_ray_tpu_torch.matrix import (
     RayDMatrix,
@@ -122,9 +134,12 @@ def train(
 ) -> RayXGBoostBooster:
     """Train a gbtree model (signature of ``xgboost_ray_tpu.train``).
 
-    ``device``: ``None`` trains on the current CUDA device and raises when
-    there is none; ``"cpu"`` runs the plain PyTorch versions of the kernels
-    on the CPU (what the tests use). There is no silent fallback.
+    ``device``: ``None`` (or ``"cuda"``) trains on the host's cards, one
+    rank a card up to ``num_actors`` where there are two or more, else on
+    the current CUDA device, and raises when there is none; ``"cuda:k"``
+    trains on card k alone; ``"cpu"`` runs the plain PyTorch versions of
+    the kernels on the CPU (what the tests use). There is no silent
+    fallback.
     ``serve_registry``: a ``serve.ModelRegistry`` the trained model is
     loaded into (its version lands in ``additional_results``).
     """
@@ -164,16 +179,52 @@ def train(
     parsed = parse_params(params)
     verbose_eval = kwargs.get("verbose_eval", False)
     callbacks = list(kwargs.get("callbacks") or [])
+    run = dict(num_boost_round=num_boost_round, verbose_eval=verbose_eval,
+               callbacks=callbacks)
 
     t_load = time.time()
-    dtrain.load_data(ray_params.num_actors)
-    engine = TorchEngine(
-        dtrain.shards(), parsed, device=device,
-        eval_names=eval_names, feature_names=dtrain.resolved_feature_names,
-        feature_types=dtrain.feature_types,
-    )
-    setup_s = time.time() - t_load
+    world = distributed.process_count()
+    num_actors = ray_params.num_actors
+    n_spawn = _spawn_ranks(device, num_actors) if world == 1 else 1
+    if n_spawn > 1:
+        booster, result, stats = _train_spawned(
+            dtrain, params, num_actors, n_spawn, "cuda",
+            dict(eval_names=eval_names, **run))
+    else:
+        if world > 1:
+            if num_actors < world:
+                raise ValueError(
+                    f"train() inside a world of {world} ranks needs "
+                    f"RayParams(num_actors>={world}), got {num_actors}.")
+            ranks = [int(r) for r in np.array_split(
+                np.arange(num_actors), world)[distributed.process_index()]]
+            dtrain.load_data(num_actors, ranks=ranks)
+            shards = dtrain.shards(ranks)
+        else:
+            dtrain.load_data(num_actors)
+            shards = dtrain.shards()
+        engine = TorchEngine(shards, parsed, device=device,
+                             eval_names=eval_names,
+                             feature_names=dtrain.resolved_feature_names,
+                             feature_types=dtrain.feature_types)
+        booster, result, stats = _run_rounds(engine, time.time() - t_load,
+                                             **run)
+    serve_registry = kwargs.get("serve_registry")
+    if evals_result is not None:
+        evals_result.update(result)
+    if additional_results is not None:
+        additional_results.update(stats)
+        additional_results["total_time_s"] = time.time() - start_time
+    if serve_registry is not None:
+        version = serve_registry.load(booster)
+        if additional_results is not None:
+            additional_results["serve_model_version"] = version
+    return booster
 
+
+def _run_rounds(engine: TorchEngine, setup_s: float, num_boost_round: int,
+                verbose_eval, callbacks):
+    """The round loop of one rank: (booster, evals_result, stats)."""
     result: Dict[str, Dict[str, List[float]]] = {}
     round_times = []
     t_train = time.time()
@@ -185,7 +236,7 @@ def train(
             for metric_name, value in row.items():
                 result.setdefault(set_name, {}).setdefault(
                     metric_name, []).append(value)
-        if verbose_eval and (
+        if verbose_eval and engine.coll.rank == 0 and (
             verbose_eval is True or (i % max(int(verbose_eval), 1) == 0)
         ):
             flat = "\t".join(
@@ -193,6 +244,8 @@ def train(
                 for sn, ms in result.items() for mn, v in ms.items()
             )
             print(f"[{i}]\t{flat}")
+        # every rank sees the same all-reduced metrics, so callbacks that
+        # decide from them stop every rank in the same round
         stop = False
         for cb in callbacks:
             if hasattr(cb, "after_iteration"):
@@ -200,24 +253,63 @@ def train(
         if stop:
             break
     booster = engine.get_booster()
-    serve_registry = kwargs.get("serve_registry")
-    if evals_result is not None:
-        evals_result.update(result)
-    if additional_results is not None:
-        additional_results.update({
-            "train_n": engine.n_rows,
-            "device": str(engine.device),
-            "setup_time_s": setup_s,
-            "sketch_time_s": engine.sketch_seconds,
-            "training_time_s": time.time() - t_train,
-            "total_time_s": time.time() - start_time,
-            "round_times_s": round_times,
-        })
-    if serve_registry is not None:
-        version = serve_registry.load(booster)
-        if additional_results is not None:
-            additional_results["serve_model_version"] = version
-    return booster
+    stats = {
+        "train_n": engine.n_global,
+        "device": str(engine.device),
+        "world_size": engine.coll.world,
+        "backend": engine.coll.backend,
+        "allreduce_bytes_per_round": engine.allreduce_bytes_per_round,
+        "setup_time_s": setup_s,
+        "sketch_time_s": engine.sketch_seconds,
+        "training_time_s": time.time() - t_train,
+        "round_times_s": round_times,
+    }
+    return booster, result, stats
+
+
+def _spawn_ranks(device, num_actors: int) -> int:
+    """Ranks ``train`` spawns when called alone: one a card, up to
+    ``num_actors``, where ``device`` names the host's cards (None or
+    ``"cuda"``; not one card ``"cuda:k"``, nor the CPU) and there are two
+    or more; 1 (no spawn: the shards fold onto one device) otherwise."""
+    if num_actors < 2 or not torch.cuda.is_available():
+        return 1
+    if device is not None:
+        dev = torch.device(device)
+        if dev.type != "cuda" or dev.index is not None:
+            return 1
+    return min(num_actors, torch.cuda.device_count())
+
+
+def _train_spawned(dtrain: RayDMatrix, params: Dict, num_actors: int,
+                   n_ranks: int, device_type: str, options: Dict):
+    """Spawn ``n_ranks`` ranks (``distributed.World``: NCCL with a card
+    each, gloo on the CPU) that run ``train()`` inside their world
+    (``distributed._train_rank``) on ``dtrain``'s data, shared once, each
+    loading its own shards of ``num_actors``; rank 0's (booster,
+    evals_result, additional_results). ``options``: ``eval_names``,
+    ``num_boost_round``, ``verbose_eval``, ``callbacks``."""
+    options = dict(options)
+    try:
+        pickle.dumps(options["callbacks"])
+    except (pickle.PicklingError, AttributeError, TypeError) as exc:
+        raise ValueError(
+            f"train() spawns {n_ranks} ranks here and sends them the "
+            f"callbacks, which must be picklable: {exc}") from exc
+    fields = dtrain.loader.load_fields()
+    data = distributed.share({"x": fields["data"], "label": fields["label"],
+                              "weight": fields["weight"],
+                              "base_margin": fields["base_margin"]})
+    rounds = options.pop("num_boost_round")
+    options.update(
+        sharding=dtrain.sharding.name, num_actors=num_actors,
+        device=None if device_type == "cuda" else device_type,
+        feature_names=dtrain.resolved_feature_names,
+        feature_types=dtrain.feature_types)
+    out = distributed.launch_world(distributed._train_rank, n_ranks,
+                                   device_type, data, params, rounds, options)
+    return (RayXGBoostBooster.load_raw(out[0]["model"]),
+            out[0]["evals_result"], out[0]["additional_results"])
 
 
 def _user_base_margin_shards(data: RayDMatrix, user_bm, n_shards: int):

@@ -3,10 +3,11 @@
 Port of ``xgboost_ray_tpu/matrix.py`` (``:33`` ``RayShardingMode``,
 ``:71`` ``combine_data``, ``:159``/``:320`` the central loader, ``:420``
 ``RayDMatrix``) for this slice: the calling process loads in-memory numpy
-or pandas data once and row-shards it per actor rank; the engine
-concatenates the shards in rank order and moves them to the training
-device (a RayDMatrix holds host arrays only, so it follows whatever device
-``train`` uses). Distributed (per-rank file) loading, streaming, query
+or pandas data once and row-shards it per actor rank (a rank of a
+``torch.distributed`` world takes only its own shard: no other rank's rows
+are copied); the engine concatenates the shards it is given in rank order
+and moves them to the training device (a RayDMatrix holds host arrays
+only, so it follows whatever device ``train`` uses). Distributed (per-rank file) loading, streaming, query
 groups, label bounds, categorical columns and feature weights raise
 ``NotImplementedError``.
 """
@@ -138,7 +139,9 @@ class _CentralRayDMatrixLoader:
         return {"data": feats, "label": arr(label), "weight": arr(weight),
                 "base_margin": arr(base_margin)}
 
-    def load_data(self, num_actors: int, sharding: RayShardingMode):
+    def load_data(self, num_actors: int, sharding: RayShardingMode,
+                  ranks: Iterable[int]):
+        """The shards of ``ranks`` only: {rank: fields}, and the row count."""
         fields = self.load_fields()
         n = fields["data"].shape[0]
         if num_actors > n:
@@ -147,7 +150,7 @@ class _CentralRayDMatrixLoader:
                 f"dataset has only {n} rows. Use fewer actors."
             )
         refs = {}
-        for rank in range(num_actors):
+        for rank in ranks:
             idx = _get_sharding_indices(sharding, rank, num_actors, n)
             refs[rank] = {k: (v[idx] if v is not None else None)
                           for k, v in fields.items()}
@@ -216,7 +219,10 @@ class RayDMatrix:
         if num_actors is not None and not lazy:
             self.load_data(num_actors)
 
-    def load_data(self, num_actors: Optional[int] = None):
+    def load_data(self, num_actors: Optional[int] = None,
+                  ranks: Optional[Iterable[int]] = None):
+        """Shard the data for ``num_actors`` ranks, materialising the shards
+        of ``ranks`` (default: every rank) that are not loaded yet."""
         if num_actors is not None:
             if self.num_actors is not None and self.num_actors != num_actors:
                 raise ValueError(
@@ -226,14 +232,23 @@ class RayDMatrix:
             self.num_actors = num_actors
         if self.num_actors is None:
             raise ValueError("Pass `num_actors` to load a RayDMatrix.")
-        if self.loaded:
+        wanted = range(self.num_actors) if ranks is None else ranks
+        todo = [r for r in wanted if r not in self.refs]
+        if not todo:
             return
-        self.refs, self.n = self.loader.load_data(self.num_actors, self.sharding)
-        self.loaded = True
+        refs, self.n = self.loader.load_data(self.num_actors, self.sharding,
+                                             todo)
+        self.refs.update(refs)
+        self.loaded = len(self.refs) == self.num_actors
 
-    def shards(self) -> List[Dict[str, Optional[np.ndarray]]]:
-        """Every rank's shard, in rank order."""
-        return [self.refs[r] for r in range(self.num_actors)]
+    def shards(self, ranks: Optional[Iterable[int]] = None
+               ) -> List[Dict[str, Optional[np.ndarray]]]:
+        """The shards of ``ranks`` (default: every rank), in rank order."""
+        ranks = range(self.num_actors) if ranks is None else ranks
+        missing = [r for r in ranks if r not in self.refs]
+        if missing:
+            raise RuntimeError(f"RayDMatrix: shards {missing} are not loaded")
+        return [self.refs[r] for r in ranks]
 
     @property
     def resolved_feature_names(self) -> Optional[List[str]]:

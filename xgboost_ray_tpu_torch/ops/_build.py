@@ -46,7 +46,8 @@ F = ctypes.c_float
 SIGNATURES = {
     "histogram": {
         "xrt_hist_build": (
-            [P, I, P, P, P, I, I, I, I, I, I, I, I, P, P, P], I),
+            [P, I, P, P, P, I, I, I, I, I, I, I, P, P, P, P], I),
+        "xrt_hist_dequant": ([P, P, ctypes.c_longlong, P, I, P], I),
         "xrt_hist_ctas_per_sm": ([], I),
     },
     "split": {
@@ -60,9 +61,11 @@ SIGNATURES = {
         "xrt_predict": ([P, P], I),
     },
     "partition": {
-        "xrt_partition": (
-            [P, P, I, I, P, I, I, P, P, P, P, I, P, I, P, P, P, P, P, P, P,
-             P, P, P, P], I),
+        "xrt_partition_route": (
+            [P, P, I, I, P, I, I, P, P, P, P, I, P, P, P, P, P, I, P, P, P],
+            I),
+        "xrt_partition_scatter": (
+            [P, P, I, I, P, P, I, P, P, P, P, P, P, P, P, P, P, P], I),
         "xrt_leaf_values": ([P, P, I, I, P, P, P, P], I),
         "xrt_partition_tile": ([], I),
     },

@@ -10,6 +10,11 @@ Port of the device half of ``xgboost_ray_tpu/ops/binning.py`` (``:264``
 3. cut points read off its CDF at the equi-weight quantiles;
 4. ``bin = #cuts <= x`` (``searchsorted`` right), NaN -> ``max_bin``.
 
+Across ranks (``coll``, the engine's collectives) the min/max go through
+an all-reduce MIN/MAX, the fine histogram and the per-feature missing-value
+counts through an all-reduce SUM: the ``pmin``/``pmax``/``psum`` of
+``engine.py:876-903``.
+
 The arithmetic is the JAX package's, op for op in float32 (with the cut
 read-off fused as its compiled program fuses it), so cuts and bins are
 bitwise equal to it. This runs once per ``train``; a hand kernel for it
@@ -119,14 +124,22 @@ def bin_matrix(x: torch.Tensor, cuts: torch.Tensor, max_bin: int) -> torch.Tenso
 
 
 def sketch_and_bin(x: torch.Tensor, weight: Optional[torch.Tensor],
-                   max_bin: int):
-    """The one-process sketch -> cuts -> bins pipeline. Returns (bins [N, F],
-    cuts [F, max_bin - 1] f32, feat_has_missing [F] bool)."""
+                   max_bin: int, coll=None):
+    """The sketch -> cuts -> bins pipeline over this rank's rows ``x``, its
+    merges through ``coll`` (the engine's ``distributed.Collectives``; None
+    at world 1). Returns (bins [N, F], cuts [F, max_bin - 1] f32,
+    feat_has_missing [F] bool), cuts and the mask the same on every rank."""
     mn, mx = feature_min_max(x)
+    if coll is not None:
+        mn, mx = coll.min(mn), coll.max(mx)
     hist = sketch_histogram(x, mn, mx, weight)
+    if coll is not None:
+        hist = coll.sum(hist)
     cuts = cuts_from_sketch(mn, mx, hist, max_bin)
     bins = bin_matrix(x, cuts, max_bin)
-    has_missing = torch.zeros(x.shape[1], dtype=torch.bool, device=x.device)
+    missing = torch.zeros(x.shape[1], dtype=torch.int64, device=x.device)
     for lo in range(0, x.shape[0], _BLOCK_ROWS):
-        has_missing |= (bins[lo:lo + _BLOCK_ROWS] == max_bin).any(0)
-    return bins, cuts, has_missing
+        missing += (bins[lo:lo + _BLOCK_ROWS] == max_bin).sum(0)
+    if coll is not None:
+        missing = coll.sum(missing)
+    return bins, cuts, missing > 0

@@ -24,8 +24,16 @@ hands every row its final leaf value (no row moves, so that pass routes,
 scans and scatters nothing). Nothing here reads a device value on the
 host: a tree is launches only.
 
-``allreduce`` is the histogram merge across ranks: the identity at world 1
-(the ``allreduce`` argument of ``ops/grow.py:269``).
+``allreduce`` is the merge across ranks (the ``allreduce`` argument of
+``ops/grow.py:269``): None at world 1, else the engine's all-reduce SUM,
+which counts its bytes. It merges every histogram and the final totals
+and, as the reference does (``ops/grow.py:509-526``), the per-child row
+counts inside K3 (``merge_counts``): the smaller child must be the same on
+every rank, so above world 1 K3 chooses it from the merged counts. On
+the card K1 sums in fixed point (``qscale``: the round's scales,
+``ops/histogram.quant_scales``), so the merge takes the int64 histogram
+and totals and ``dequantize`` gives K2 their f32 values after it; on the
+CPU the sums are f32, as the JAX package's.
 """
 
 import dataclasses
@@ -35,8 +43,10 @@ import torch
 
 from xgboost_ray_tpu_torch.ops.histogram import (
     build_histogram,
+    dequantize,
     partition_leaf_values,
     partition_level,
+    quant_scales,
 )
 from xgboost_ray_tpu_torch.ops.split import (
     SplitParams,
@@ -98,12 +108,25 @@ def build_tree(
     cuts: torch.Tensor,  # [F, max_bin - 1] raw cut values
     cfg: GrowConfig,
     feat_has_missing: Optional[torch.Tensor] = None,  # [F] bool
-    allreduce: Callable[[torch.Tensor], torch.Tensor] = lambda x: x,
+    allreduce: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+    qscale: Optional[torch.Tensor] = None,  # [4] f32 fixed-point scales
 ):
     """Grow one tree. Returns (Tree, row_value [N]): the learning-rate
-    scaled leaf value each row lands in."""
+    scaled leaf value each row lands in.
+
+    With ``qscale`` (always on the card; there this rank's own scales when
+    the caller passes none) the histograms are summed in fixed point and
+    dequantised after ``allreduce``; without it, on the CPU, they are f32."""
     n = bins.shape[0]
     dev = bins.device
+    if qscale is None and bins.is_cuda:
+        qscale = quant_scales(gh, n)
+
+    def merged(h):
+        if allreduce is not None:
+            h = allreduce(h)
+        return h if qscale is None else dequantize(h, qscale)
+
     nbt = cfg.max_bin + 1
     tree = empty_tree(cfg.heap_size, dev)
     rec = TreeRecords(tree, cuts, feat_has_missing, cfg.split)
@@ -121,18 +144,20 @@ def build_tree(
             # build each parent's smaller child; K2 forms the sibling as
             # parent - it
             hist_small, _ = build_histogram(
-                bins, gh, part.small_rows, part.small_seg, n_nodes // 2, nbt)
-            step = split_level(allreduce(hist_small), prev_hist,
+                bins, gh, part.small_rows, part.small_seg, n_nodes // 2, nbt,
+                qscale=qscale)
+            step = split_level(merged(hist_small), prev_hist,
                                part.small_is_right, active, rec, keep)
         else:
-            hist, _ = build_histogram(bins, gh, order, seg, n_nodes, nbt)
-            step = split_level(allreduce(hist), None, None, active, rec, keep)
+            hist, _ = build_histogram(bins, gh, order, seg, n_nodes, nbt,
+                                      qscale=qscale)
+            step = split_level(merged(hist), None, None, active, rec, keep)
         sp = step.splits
         part = partition_level(
             order, seg, bins, sp.feature, sp.split_bin, sp.default_left,
             step.state, step.node_value, row_value,
-            write_small=keep,
-            missing_bin=cfg.max_bin,
+            write_small=keep, missing_bin=cfg.max_bin,
+            merge_counts=allreduce if keep else None,
         )
         order, seg = part.order, part.seg
         prev_hist, active = step.hist, step.active
@@ -141,7 +166,7 @@ def build_tree(
     # (g, h) totals (K1 without the histogram), and its rows take the value
     n_nodes = 1 << cfg.max_depth
     _, totals = build_histogram(bins, gh, order, seg, n_nodes, nbt,
-                                with_hist=False)
-    node_value, state = leaf_records(allreduce(totals), active, rec)
+                                with_hist=False, qscale=qscale)
+    node_value, state = leaf_records(merged(totals), active, rec)
     partition_leaf_values(order, seg, state, node_value, row_value)
     return tree, row_value

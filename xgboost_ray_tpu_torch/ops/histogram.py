@@ -8,13 +8,25 @@ provider of the JAX package (``xgboost_ray_tpu/ops/histogram.py:430``
 blocks, ``:809`` ``node_sums``; ``ops/provider.py:95-165``): every
 ``hist_impl`` value resolves to it. Kernel: ``csrc/histogram.cu``.
 
+The kernel sums in fixed point: each row's (g, h) is quantised to int64 with
+the round's power-of-two scales (``quant_scales``) and the sums are int64,
+so they are the same bits in any order of the atomics, over any shard
+layout and after an integer all-reduce; ``dequantize`` turns the merged sums
+into the f32 histogram K2 reads. Its plain version is
+``build_histogram_fixed_plain`` (the card's checks). On the CPU the grower
+keeps the f32 ``build_histogram_plain``, which sums in the JAX package's
+order and is bitwise equal to it.
+
 K3, ``partition_level``: routes every row of a level by its node's split,
 keeps the rows sorted by node with a stable segmented split, packs the rows
 of each parent's smaller child for the next level's build, and writes the
 leaf value of rows whose leaf is fixed on this level. It replaces
 ``route_right_binned`` and the ``pos`` update of ``ops/grow.py`` with
 ``update_partition_order`` (``:558``) and ``select_small_child_rows``
-(``:603``). Kernel: ``csrc/partition.cu``. Its leaf-value mode,
+(``:603``). Above one rank the smaller child is chosen from the children's
+counts summed over the ranks (``merge_counts``), as the JAX grower's
+``psum`` of them (``ops/grow.py:509-526``), so every rank builds the same
+children. Kernel: ``csrc/partition.cu``. Its leaf-value mode,
 ``partition_leaf_values``, serves the grower's last call, where no row
 moves: it only writes each leaf row's value (the JAX grower's final
 ``row_value``, ``ops/grow.py:782``).
@@ -28,7 +40,7 @@ Row layout: ``rows[seg[k]:seg[k + 1]]`` are node k's rows in increasing
 row id; ``seg`` is int32 ``[n_nodes + 1]`` (``seg[n_nodes]`` = rows used).
 """
 
-from typing import NamedTuple, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -85,50 +97,169 @@ def build_histogram_plain(bins: torch.Tensor, gh: torch.Tensor,
     return hist.reshape(n_nodes, num_features, n_bins_total, 2), totals
 
 
+#: exponent range of the fixed-point scales: 2^e and 2^-e stay normal f32
+_E_MIN, _E_MAX = -126, 126
+#: the bound every sum stays under: n_global * (max|v| * 2^e + 1) < 2^62
+_Q_LIMIT = 2.0 ** 62
+
+
+def _pow2(e: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """2^e, exactly, from integer-valued ``e`` (built from the exponent
+    bits: no rounding of exp2/pow)."""
+    if dtype == torch.float64:
+        return ((e.long() + 1023) << 52).view(torch.float64)
+    return ((e.int() + 127) << 23).view(torch.float32)
+
+
+def scales_for(absmax: torch.Tensor, n_global: int) -> torch.Tensor:
+    """The fixed-point scales for (max|g|, max|h|) ``absmax`` (f32 [2]) over
+    ``n_global`` rows: f32 [4] = (2^eg, 2^eh, 2^-eg, 2^-eh) on ``absmax``'s
+    device, each e the largest with n_global * (max|v| * 2^e + 1) < 2^62
+    (clamped to [-126, 126]; 126 where the max is 0). A few launches and
+    no host read: ``floor(log2(...))`` may be one off, so the first of
+    e0 + 1, e0, e0 - 1 that fits is taken."""
+    n = max(1, int(n_global))
+    md = absmax.double()
+    e0 = torch.floor(torch.log2((_Q_LIMIT / n - 1.0) / md))  # inf at max 0
+    cand = (e0 + torch.arange(1, -2, -1, dtype=torch.float64,
+                              device=md.device)[:, None]).clamp(_E_MIN, _E_MAX)
+    fits = n * (md * _pow2(cand, torch.float64) + 1.0) < _Q_LIMIT
+    e = torch.where(fits[0], cand[0], torch.where(fits[1], cand[1], cand[2]))
+    return _pow2(torch.cat([e, -e]), torch.float32)
+
+
+def quant_scales(gh: torch.Tensor, n_global: int,
+                 reduce_max: Optional[
+                     Callable[[torch.Tensor], torch.Tensor]] = None
+                 ) -> torch.Tensor:
+    """A round's fixed-point scales (``scales_for``) from its gradients
+    ``gh`` [N, 2]: the per-column max of |gh|, merged across ranks by
+    ``reduce_max`` (an all-reduce MAX), stays on ``gh``'s device."""
+    absmax = (torch.linalg.vector_norm(gh, float("inf"), dim=0)
+              if gh.shape[0]
+              else torch.zeros(2, dtype=torch.float32, device=gh.device))
+    if reduce_max is not None:
+        absmax = reduce_max(absmax)
+    return scales_for(absmax, n_global)
+
+
+def quantize_gh(gh: torch.Tensor, qscale: torch.Tensor) -> torch.Tensor:
+    """[N, 2] int64 ``llrint(v * 2^e)`` per column (an exact product, round
+    half to even): what K1 adds for each row."""
+    return torch.round(gh * qscale[:2]).to(torch.int64)
+
+
+def build_histogram_fixed_plain(bins: torch.Tensor, gh: torch.Tensor,
+                                rows: torch.Tensor, seg: torch.Tensor,
+                                n_nodes: int, n_bins_total: int,
+                                qscale: torch.Tensor, with_hist: bool = True):
+    """What K1 computes: int64 ``index_add_`` of the quantised (g, h) over
+    the node-sorted rows. Returns (hist [n_nodes, F, n_bins_total, 2] int64
+    or None without ``with_hist``, totals [n_nodes, 2] int64); integer sums,
+    so any order gives the same bits."""
+    num_features = bins.shape[1]
+    m = int(seg[-1])
+    qr = quantize_gh(gh[rows[:m].long()], qscale)
+    totals = torch.zeros((n_nodes, 2), dtype=torch.int64, device=bins.device)
+    totals.index_add_(0, _node_of_slot(seg, n_nodes), qr)
+    if not with_hist:
+        return None, totals
+    hist = torch.zeros((n_nodes * num_features * n_bins_total, 2),
+                       dtype=torch.int64, device=bins.device)
+    hist.index_add_(0, flat_bucket_ids(bins, rows, seg, n_nodes, n_bins_total),
+                    qr[:, None, :].expand(m, num_features, 2).reshape(-1, 2))
+    return hist.reshape(n_nodes, num_features, n_bins_total, 2), totals
+
+
+def dequantize_plain(h: torch.Tensor, qscale: torch.Tensor) -> torch.Tensor:
+    """int64 sums [..., 2] -> f32: float(sum) rounded to nearest, times
+    2^-e (exact)."""
+    return h.to(torch.float32) * qscale[2:]
+
+
 def _check(cond: bool, what: str) -> None:
     if not cond:
         raise ValueError(what)
 
 
-#: shared memory one K1 CTA may use: three CTAs share an SM's 228 KB
-_K1_SMEM_BUDGET = 74 * 1024
+def dequantize(h: torch.Tensor, qscale: torch.Tensor) -> torch.Tensor:
+    """The f32 histogram or totals K2 reads from merged int64 sums [..., 2]
+    (``dequantize_plain``'s function; a small kernel in
+    ``csrc/histogram.cu`` on the card, ``launches`` counts it)."""
+    if not h.is_cuda:
+        return dequantize_plain(h, qscale)
+    dev = h.device
+    _check(h.dtype == torch.int64 and h.shape[-1] == 2 and h.is_contiguous()
+           and h.data_ptr() % 16 == 0,
+           "dequantize: sums must be 16-byte aligned contiguous int64 [..., 2]")
+    _check(qscale.device == dev and qscale.dtype == torch.float32
+           and qscale.shape == (4,) and qscale.is_contiguous(),
+           "dequantize: qscale must be f32 [4] on the sums' device")
+    out = torch.empty(h.shape, dtype=torch.float32, device=dev)
+    n_pairs = h.numel() // 2
+    grid = max(1, min(-(-n_pairs // 256), 4096))  # grid-stride above
+    with torch.cuda.device(dev):
+        code = _build.library("histogram").xrt_hist_dequant(
+            h.data_ptr(), out.data_ptr(), n_pairs, qscale.data_ptr(), grid,
+            _build.stream_ptr(dev))
+    _build.check(code, "K1 dequantise")
+    dequantize.launches += 1
+    return out
+
+
+dequantize.launches = 0
+
+
+#: shared memory one K1 CTA may use: two CTAs share an SM's 228 KB
+_K1_SMEM_BUDGET = 113 * 1024
 #: fewest node-sorted rows a K1 CTA takes, so the flush stays small next to
 #: the accumulation
 _K1_MIN_ROWS = 2048
 
 
 def _hist_launch_shape(device, num_features: int, n_bins_total: int,
-                       capacity: int) -> Tuple[int, bool, int, int]:
-    """(ftile, lane_cols, grid_x, min_rows) for K1: the [bin][32 lanes]
-    shared layout where its 256 x nbt bytes fit ``_K1_SMEM_BUDGET``, else
-    the feature-major one; features split into the fewest even tiles of at
-    most 32 that fit; a persistent grid of three CTAs per SM (fewer when
-    ``capacity`` rows give each CTA less than ``_K1_MIN_ROWS``)."""
+                       capacity: int) -> Tuple[int, int, int]:
+    """(ftile, grid_x, min_rows) for K1: features split into the fewest
+    even tiles whose four 32-bit word planes (16 x nbt bytes a feature, at
+    most 32 features) fit ``_K1_SMEM_BUDGET``; a persistent grid of two
+    CTAs per SM (fewer when ``capacity`` rows give each CTA less than
+    ``_K1_MIN_ROWS``)."""
     lib = _build.library("histogram")
-    lane_cols = 256 * n_bins_total <= _K1_SMEM_BUDGET
-    fmax = 32 if lane_cols else max(
-        1, min(32, _K1_SMEM_BUDGET // (8 * n_bins_total)))
+    fmax = max(1, min(32, _K1_SMEM_BUDGET // (16 * n_bins_total)))
     n_tiles = -(-num_features // fmax)
     ftile = -(-num_features // n_tiles)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     grid_x = max(1, min(lib.xrt_hist_ctas_per_sm() * sms,
                         -(-capacity // _K1_MIN_ROWS)))
-    return ftile, lane_cols, grid_x, _K1_MIN_ROWS
+    return ftile, grid_x, _K1_MIN_ROWS
 
 
 def build_histogram(bins: torch.Tensor, gh: torch.Tensor, rows: torch.Tensor,
                     seg: torch.Tensor, n_nodes: int, n_bins_total: int,
-                    with_hist: bool = True):
+                    with_hist: bool = True,
+                    qscale: Optional[torch.Tensor] = None):
     """K1 wrapper: (hist [n_nodes, F, n_bins_total, 2], totals [n_nodes, 2])
     over ``rows[seg[k]:seg[k+1]]`` for each node k; ``with_hist=False``
-    computes the totals only (hist is None)."""
+    computes the totals only (hist is None).
+
+    CUDA tensors need the round's ``qscale`` (``quant_scales``): K1 sums
+    int64 fixed point (``dequantize`` makes them f32). CPU tensors take the
+    f32 ``build_histogram_plain``, the JAX package's sums, and no
+    ``qscale``."""
     if not bins.is_cuda:
+        _check(qscale is None, "build_histogram: the CPU sums f32 and takes "
+               "no qscale (K1's fixed point is the card's)")
         return build_histogram_plain(bins, gh, rows, seg, n_nodes,
                                      n_bins_total, with_hist)
     n, num_features = bins.shape
     dev = bins.device
     for t in (gh, rows, seg):
         _check(t.device == dev, "build_histogram: tensors on different devices")
+    _check(qscale is not None and qscale.device == dev
+           and qscale.dtype == torch.float32 and qscale.shape == (4,)
+           and qscale.is_contiguous(),
+           "build_histogram: K1 sums in fixed point and needs the round's "
+           "qscale (f32 [4] on the device, ops/histogram.quant_scales)")
     _check(bins.dtype in (torch.int16, torch.uint8) and bins.is_contiguous(),
            "build_histogram: bins must be contiguous int16 or uint8 [N, F]")
     _check(gh.dtype == torch.float32 and gh.shape == (n, 2)
@@ -141,16 +272,16 @@ def build_histogram(bins: torch.Tensor, gh: torch.Tensor, rows: torch.Tensor,
            "build_histogram: seg must be int32 [n_nodes + 1]")
     _check(n_bins_total <= 1025, "build_histogram: max_bin <= 1024")
     hist = (torch.zeros((n_nodes, num_features, n_bins_total, 2),
-                        dtype=torch.float32, device=dev) if with_hist else None)
-    totals = torch.zeros((n_nodes, 2), dtype=torch.float32, device=dev)
-    ftile, lane_cols, grid_x, min_rows = _hist_launch_shape(
+                        dtype=torch.int64, device=dev) if with_hist else None)
+    totals = torch.zeros((n_nodes, 2), dtype=torch.int64, device=dev)
+    ftile, grid_x, min_rows = _hist_launch_shape(
         dev, num_features, n_bins_total, rows.shape[0])
     with torch.cuda.device(dev):
         code = _build.library("histogram").xrt_hist_build(
             bins.data_ptr(), bins.element_size(), gh.data_ptr(),
             rows.data_ptr(), seg.data_ptr(), n_nodes, num_features,
-            n_bins_total, ftile, int(lane_cols), grid_x, min_rows,
-            int(with_hist),
+            n_bins_total, ftile, grid_x, min_rows,
+            int(with_hist), qscale.data_ptr(),
             _build.ptr(hist), totals.data_ptr(), _build.stream_ptr(dev))
     _build.check(code, "K1 histogram")
     build_histogram.launches += 1
@@ -158,6 +289,20 @@ def build_histogram(bins: torch.Tensor, gh: torch.Tensor, rows: torch.Tensor,
 
 
 build_histogram.launches = 0
+
+
+class AllreduceBytes:
+    """Per-rank wire bytes of the collectives, under the ring model of the
+    reference's ``AllreduceBytes`` (``xgboost_ray_tpu/ops/histogram.py:96``):
+    an all-reduce moves ``2 (n - 1) / n x bytes(operand)``; 0 at world 1."""
+
+    def __init__(self, n_actors: int):
+        self.n = max(1, int(n_actors))
+        self.total = 0
+
+    def add_allreduce(self, t: torch.Tensor) -> None:
+        self.total += int(2 * (self.n - 1) * t.numel() * t.element_size()
+                          / self.n)
 
 
 def node_sums(gh: torch.Tensor, pos: torch.Tensor, n_nodes: int) -> torch.Tensor:
@@ -183,7 +328,7 @@ def zero_phantom_missing(h: torch.Tensor, feat_has_missing) -> torch.Tensor:
 class LevelPartition(NamedTuple):
     order: torch.Tensor  # [N] int32, node-sorted for the 2 n_nodes children
     seg: torch.Tensor  # [2 n_nodes + 1] int32
-    small_rows: torch.Tensor  # [>= N // 2] int32, first small_seg[-1] valid
+    small_rows: torch.Tensor  # [N // 2 or N] int32, first small_seg[-1] valid
     small_seg: torch.Tensor  # [n_nodes + 1] int32 (by parent)
     small_is_right: torch.Tensor  # [n_nodes] bool
 
@@ -231,14 +376,17 @@ def update_partition_order(order: torch.Tensor, counts: torch.Tensor,
 
 
 def select_small_child_rows(order: torch.Tensor, counts: torch.Tensor,
-                            small_is_right: torch.Tensor):
-    """Pack every parent's smaller child into [N // 2] slots (the JAX
-    ``select_small_child_rows``). Returns (rows with sentinel N, parent of
-    slot, valid mask, counts_sel [n_par])."""
+                            small_is_right: torch.Tensor,
+                            n_slots: Optional[int] = None):
+    """Pack every parent's chosen child into ``n_slots`` slots (default
+    N // 2, the JAX ``select_small_child_rows``; N when the choice was made
+    from all ranks' counts, so a child smaller over the world may be the
+    larger one here). Returns (rows with sentinel N, parent of slot, valid
+    mask, counts_sel [n_par])."""
     n = order.shape[0]
     dev = order.device
     n_par = small_is_right.shape[0]
-    n_half = max(n // 2, 1)
+    n_half = max(n // 2, 1) if n_slots is None else n_slots
     counts = counts.long()
     c_small = (2 * torch.arange(n_par, device=dev)
                + small_is_right.long())
@@ -258,7 +406,8 @@ def select_small_child_rows(order: torch.Tensor, counts: torch.Tensor,
 
 def partition_level_plain(order, seg, bins, feature, split_bin, default_left,
                           state, node_value, row_value, write_small: bool,
-                          missing_bin: int) -> LevelPartition:
+                          missing_bin: int,
+                          merge_counts=None) -> LevelPartition:
     """Plain PyTorch K3, composed from the JAX package's functions."""
     from xgboost_ray_tpu_torch.ops.grow import route_right_binned
 
@@ -277,11 +426,14 @@ def partition_level_plain(order, seg, bins, feature, split_bin, default_left,
     new_order, new_counts = update_partition_order(order, counts, go_right)
     lc, rc = new_counts[0::2], new_counts[1::2]
     split = state == SPLIT
-    small_is_right = torch.where(split, rc <= lc,
+    world = (new_counts.long() if merge_counts is None
+             else merge_counts(new_counts.long()))
+    small_is_right = torch.where(split, world[1::2] <= world[0::2],
                                  torch.ones_like(split))
     if write_small:
         small_rows, _, _, counts_sel = select_small_child_rows(
-            new_order, new_counts, small_is_right)
+            new_order, new_counts, small_is_right,
+            None if merge_counts is None else n)
     else:
         small_rows = torch.empty(1, dtype=torch.int32, device=dev)
         counts_sel = torch.where(small_is_right, rc, lc)
@@ -299,14 +451,21 @@ def partition_level(order: torch.Tensor, seg: torch.Tensor, bins: torch.Tensor,
                     feature: torch.Tensor, split_bin: torch.Tensor,
                     default_left: torch.Tensor, state: torch.Tensor,
                     node_value: torch.Tensor, row_value: torch.Tensor,
-                    write_small: bool, missing_bin: int) -> LevelPartition:
+                    write_small: bool, missing_bin: int,
+                    merge_counts: Optional[
+                        Callable[[torch.Tensor], torch.Tensor]] = None
+                    ) -> LevelPartition:
     """K3 wrapper. ``state`` [n_nodes] uint8 (INACTIVE / SPLIT / LEAF);
     ``row_value`` [N] f32 is written in place for the rows of LEAF nodes
-    (``node_value``)."""
+    (``node_value``). ``merge_counts`` (above one rank: the all-reduce SUM)
+    takes the children's row counts, int64 [2 n_nodes], and returns them
+    summed over the ranks; the smaller child of each parent is then chosen
+    from those, the same on every rank, and ``small_rows`` has N slots."""
     if not order.is_cuda:
         return partition_level_plain(order, seg, bins, feature, split_bin,
                                      default_left, state, node_value,
-                                     row_value, write_small, missing_bin)
+                                     row_value, write_small, missing_bin,
+                                     merge_counts)
     n, num_features = bins.shape
     n_nodes = feature.shape[0]
     dev = order.device
@@ -337,21 +496,37 @@ def partition_level(order: torch.Tensor, seg: torch.Tensor, bins: torch.Tensor,
     node_left0 = torch.empty(n_nodes + 1, **i32)
     new_order = torch.empty(n, **i32)
     new_seg = torch.empty(2 * n_nodes + 1, **i32)
-    small_rows = torch.empty(max(n // 2, 1) if write_small else 1, **i32)
+    slots = max(n // 2, 1) if merge_counts is None else max(n, 1)
+    small_rows = torch.empty(slots if write_small else 1, **i32)
     small_seg = torch.empty(n_nodes + 1, **i32)
     small_is_right = torch.empty(n_nodes, dtype=torch.bool, device=dev)
+    stream = _build.stream_ptr(dev)
     with torch.cuda.device(dev):
-        code = lib.xrt_partition(
+        code = lib.xrt_partition_route(
             order.data_ptr(), seg.data_ptr(), n_nodes, n, bins.data_ptr(),
             bins.element_size(), num_features, feature.data_ptr(),
             split_bin.data_ptr(), default_left.data_ptr(), state.data_ptr(),
-            missing_bin, node_value.data_ptr(), int(write_small),
-            mask.data_ptr(), tile_left.data_ptr(), bnd_left.data_ptr(),
-            node_left0.data_ptr(),
-            new_order.data_ptr(), new_seg.data_ptr(), small_rows.data_ptr(),
-            small_seg.data_ptr(), small_is_right.data_ptr(),
-            row_value.data_ptr(), _build.stream_ptr(dev))
-    _build.check(code, "K3 partition")
+            missing_bin, mask.data_ptr(), tile_left.data_ptr(),
+            bnd_left.data_ptr(), node_left0.data_ptr(), new_seg.data_ptr(),
+            int(merge_counts is None), small_seg.data_ptr(),
+            small_is_right.data_ptr(), stream)
+    _build.check(code, "K3 partition (route)")
+    world = None
+    if merge_counts is not None:
+        world = merge_counts((new_seg[1:] - new_seg[:-1]).long())
+        _check(world.device == dev and world.dtype == torch.int64
+               and world.shape == (2 * n_nodes,) and world.is_contiguous(),
+               "partition_level: merge_counts must give int64 [2 n_nodes] "
+               "on the device")
+    with torch.cuda.device(dev):
+        code = lib.xrt_partition_scatter(
+            order.data_ptr(), seg.data_ptr(), n_nodes, n, state.data_ptr(),
+            node_value.data_ptr(), int(write_small), mask.data_ptr(),
+            tile_left.data_ptr(), node_left0.data_ptr(), new_seg.data_ptr(),
+            _build.ptr(world), small_seg.data_ptr(),
+            small_is_right.data_ptr(), new_order.data_ptr(),
+            small_rows.data_ptr(), row_value.data_ptr(), stream)
+    _build.check(code, "K3 partition (scatter)")
     partition_level.launches += 1
     return LevelPartition(new_order, new_seg, small_rows, small_seg,
                           small_is_right)
