@@ -6,7 +6,7 @@ CUDA device, ``nvcc`` and ``triton``, and nothing of JAX. Phases:
 
 1. build: compile the CUDA kernels of ``xgboost_ray_tpu_torch/csrc`` (one
    ``nvcc`` per source, in parallel) and the Triton kernel; report each K1,
-   K3 and B8 kernel's registers, shared memory and spills (``-Xptxas -v``)
+   K3, B8 and B4 kernel's registers, shared memory and spills (``-Xptxas -v``)
    and the atomic opcodes ``cuobjdump -sass`` finds in them (whether K1's
    shared adds are native or a compare-and-swap loop), and the dynamic
    shared memory per CTA of B8's kernels on the main path;
@@ -77,6 +77,25 @@ CUDA device, ``nvcc`` and ``triton``, and nothing of JAX. Phases:
    the booster's chunk, and the margins of a serve batch of 8, 32 and 256
    rows (``device_ms`` from ``torch.profiler``, as for the other
    kernels).
+
+8. held-out eval sets (``evals``, right after phase 2), the HIGGS
+   protocol's split: the first 10,500,000 rows train, the last 500,000 are
+   the test set (``evals=[(dtrain, "train"), (dtest, "test")]``, 10
+   rounds, ``eval_metric`` error then logloss); ``train()`` without and
+   with the test set in turns (without, with, with, without: round times,
+   each run's launches counted from 0 and checked exactly, with the test
+   set one B4 and one K4 eval-mode launch a round); B4 bitwise against its
+   plain version over the test rows for every tree, K4's eval mode against
+   its plain version (margins bitwise, partials within 1e-5 relative), both
+   timed (B4's bound from the 32-byte sectors of bins its walks read); the
+   test margins within 1e-4 of ``booster.predict(x_test,
+   output_margin=True)``; 30 rounds with ``early_stopping_rounds=3``
+   (``best_iteration`` the argmin of the test logloss, stopped 3 rounds
+   after it or at round 30); a warm start, 5 rounds then 5 more through
+   ``xgb_model``, twice (10 trees, the first 5 the uninterrupted run's, the
+   rerun bitwise; the margin difference to the uninterrupted run printed);
+   and ROADMAP C2, every row sketched with random positive weights twice
+   and with its rows in two shards folded: bitwise the same cuts.
 
 Phase 6's model is trained, and phase 7 run, right after phase 1: later in
 the process ``torch.profiler`` records no device activity for B8's
@@ -340,9 +359,10 @@ def phase_build_report(n_trees, n_rows):
 
     paths = _build.build_all()
     report = {}
-    for stem in ("histogram", "partition", "predict"):
-        report[stem] = {"ptxas": ptxas_report(_build.build_log(stem)),
-                        "sass_atomics": sass_atomics(paths[stem])}
+    for stem in ("histogram", "partition", "predict", "walk"):
+        if stem in paths:  # B4's walk.cu: not in an older tree
+            report[stem] = {"ptxas": ptxas_report(_build.build_log(stem)),
+                            "sass_atomics": sass_atomics(paths[stem])}
     if hasattr(PR, "launch_plan"):  # this tree's B8 (not an older one)
         ptxas = report["predict"]["ptxas"]
         report["b8_main_path"] = {
@@ -775,11 +795,12 @@ def train_expect(rounds, depth):
     per tree K1 at every level + the final totals, each dequantised once,
     K2's level step and the full K3 at every level, K2's final records and
     K3's leaf-value mode once (the final leaves); K4 once a round and once
-    at set-up; K2's bare search is off the path."""
+    at set-up; K2's bare search is off the path; B4 and K4's eval mode only
+    with a held-out eval set (``evals_expect``)."""
     return {"K1": rounds * (depth + 1), "K1deq": rounds * (depth + 1),
             "K2": 0, "K2level": rounds * depth,
             "K2leaf": rounds, "K3": rounds * depth, "K3leaf": rounds,
-            "K4": rounds + 1}
+            "K4": rounds + 1, "B4": 0, "K4eval": 0}
 
 
 def check_launches(launches, expect, what):
@@ -800,15 +821,16 @@ def phase_main(x, y, rounds, depth, actors):
               "eval_metric": ["logloss", "error"],
               "max_depth": depth, "max_bin": 256}
     from xgboost_ray_tpu_torch.distributed import _KeepEngine
-    from xgboost_ray_tpu_torch.engine import kernel_counters
+    from xgboost_ray_tpu_torch.engine import (
+        kernel_launches,
+        reset_kernel_launches,
+    )
     from xgboost_ray_tpu_torch.matrix import RayShardingMode, combine_data
 
     dm = xrt.RayDMatrix(x, y)
     evals_result, extra = {}, {}
     keep = _KeepEngine()
-    fns = kernel_counters()
-    for fn in fns.values():
-        fn.launches = 0
+    reset_kernel_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     # card 0 named: on a host of several cards train() alone would spawn a
@@ -819,7 +841,7 @@ def phase_main(x, y, rounds, depth, actors):
                     ray_params=xrt.RayParams(num_actors=actors))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k: fn.launches for k, fn in fns.items()}
+    launches = kernel_launches()
     # the engine's margins are the shards concatenated in rank order: put
     # them back in row order (INTERLEAVED sharding)
     margins = keep.engine.get_margins()[:, 0]
@@ -1677,6 +1699,282 @@ def phase_late_profile(bst, x):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 8: held-out eval sets (B4), early stopping, warm start, C2
+# ---------------------------------------------------------------------------
+
+#: the HIGGS protocol's test set: "the last 500,000 examples are used as a
+#: test set" (UCI HIGGS description)
+TEST_ROWS = 500_000
+
+
+def evals_expect(rounds, depth):
+    """Launches of a ``train()`` with one held-out eval set: the main
+    path's, plus one B4 walk and one K4 eval-mode pass a round."""
+    return {**train_expect(rounds, depth), "B4": rounds,
+            "K4": 2 * rounds + 1, "K4eval": rounds}
+
+
+def b4_work(tree, bins, depth, missing_bin):
+    """(distinct 32-byte sectors of ``bins`` the walk reads, node visits)
+    of one B4 walk on this data: the bytes and operations of its bound."""
+    import torch
+
+    n, f = bins.shape
+    rows = torch.arange(n, device=bins.device)
+    idx = torch.zeros(n, dtype=torch.int64, device=bins.device)
+    addrs, visits = [], 0
+    for _ in range(depth):
+        live = ~tree.is_leaf[idx]
+        feat = tree.feature[idx].clamp(0, f - 1).long()
+        addrs.append(((rows * f + feat) * bins.element_size())[live] // 32)
+        visits += int(live.sum())
+        bv = bins.gather(1, feat[:, None])[:, 0].int()
+        right = torch.where(bv == missing_bin, ~tree.default_left[idx],
+                            bv > tree.split_bin[idx])
+        idx = torch.where(live, 2 * idx + 1 + right.long(), idx)
+    return int(torch.unique(torch.cat(addrs)).numel()), visits
+
+
+def phase_evals(x, y, records, rounds=10, depth=6, es_rounds=30):
+    """The HIGGS protocol with its test set: the first rows train, the last
+    ``TEST_ROWS`` are ``evals=[(dtrain, "train"), (dtest, "test")]``. Round
+    times without and with the test set in turns (without, with, with,
+    without), each run's launches counted from 0 and checked exactly; B4
+    bitwise against its plain version for every tree over the test rows
+    and timed, K4's eval mode against its plain version and timed; the
+    test margins within 1e-4 of ``booster.predict(x_test,
+    output_margin=True)``; early stopping over ``es_rounds``; a warm start
+    (5 + 5 rounds) against the uninterrupted run and against itself; and
+    ROADMAP C2: a weighted sketch of every row twice and from two shards
+    folded, bitwise the same cuts."""
+    import torch
+
+    import xgboost_ray_tpu_torch as xrt
+    from xgboost_ray_tpu_torch.distributed import _KeepEngine
+    from xgboost_ray_tpu_torch.engine import (
+        kernel_launches,
+        reset_kernel_launches,
+    )
+    from xgboost_ray_tpu_torch.ops import binning as BN
+    from xgboost_ray_tpu_torch.ops import grow as G
+    from xgboost_ray_tpu_torch.ops import objectives as O
+
+    n_test = min(TEST_ROWS, x.shape[0] // 10)
+    xt, yt, xv, yv = x[:-n_test], y[:-n_test], x[-n_test:], y[-n_test:]
+    params = {"objective": "binary:logistic",
+              "eval_metric": ["error", "logloss"],  # early stopping: logloss
+              "max_depth": depth, "max_bin": 256}
+
+    def run(n_rounds, held_out=True, **kw):
+        dtrain = xrt.RayDMatrix(xt, yt)
+        evals = [(dtrain, "train")]
+        if held_out:
+            evals.append((xrt.RayDMatrix(xv, yv), "test"))
+        keep, ev, extra = _KeepEngine(), {}, {}
+        reset_kernel_launches()
+        torch.cuda.synchronize()
+        bst = xrt.train(params, dtrain, n_rounds, evals=evals,
+                        evals_result=ev, additional_results=extra,
+                        callbacks=[keep], device="cuda:0",
+                        ray_params=xrt.RayParams(num_actors=1), **kw)
+        torch.cuda.synchronize()
+        out = {"bst": bst, "ev": ev, "launches": kernel_launches(),
+               "round_ms": [r * 1e3 for r in extra["round_times_s"]],
+               "setup_s": extra["setup_time_s"], "engine": keep.engine,
+               "margins": keep.engine.get_margins()[:, 0]}
+        if held_out:
+            out["test_margins"] = keep.engine.evals[1].margins.cpu().numpy()
+        return out
+
+    res = {"phase": "evals", "train_rows": int(xt.shape[0]),
+           "test_rows": int(n_test), "rounds": rounds}
+    timed = {False: [], True: []}
+    for held_out in (False, True, True, False):
+        r = run(rounds, held_out)
+        check_launches(r["launches"], evals_expect(rounds, depth) if held_out
+                       else train_expect(rounds, depth),
+                       f"train() {'with' if held_out else 'without'} the "
+                       f"test set")
+        timed[held_out].append(r)
+        if held_out and len(timed[True]) == 1:
+            kept = r  # its engine: B4 and K4 are held and timed on it
+        else:
+            r.pop("engine")
+    first, again = timed[True]
+    check(first["bst"].get_dump() == again["bst"].get_dump()
+          and same_bits(first["test_margins"], again["test_margins"])
+          and first["ev"] == again["ev"],
+          "train() with the test set twice gave other models, test margins "
+          "or eval histories")
+    ev = first["ev"]
+    ll = ev["test"]["logloss"]
+    check(all(np.isfinite(ll)) and ll[-1] < ll[0],
+          f"test logloss does not fall: {ll}")
+    pred = first["bst"].predict(xv, output_margin=True)
+    margin_err = float(np.abs(first["test_margins"] - pred).max())
+    check(margin_err <= 1e-4, f"test margins differ from the booster's "
+                              f"predicted margins by {margin_err} > 1e-4")
+    res.update(
+        eval_history=ev, launches=first["launches"],
+        expected=evals_expect(rounds, depth),
+        round_ms_without_test=[r["round_ms"] for r in timed[False]],
+        round_ms_with_test=[r["round_ms"] for r in timed[True]],
+        round_ms_median_without_test=[float(np.median(r["round_ms"]))
+                                      for r in timed[False]],
+        round_ms_median_with_test=[float(np.median(r["round_ms"]))
+                                   for r in timed[True]],
+        setup_s_with_test=[r["setup_s"] for r in timed[True]],
+        test_margin_max_abs_diff_to_predict=margin_err)
+    del timed, again
+
+    # B4 and K4's eval mode against their plain versions, then timed, on
+    # the kept run's test bins and trees
+    engine = kept.pop("engine")
+    es = engine.evals[1]
+    err_b4 = 0.0
+    for t, tree in enumerate(engine.trees):
+        got = G.predict_tree_binned(tree, es.bins, depth, 256)
+        ref = G.predict_tree_binned_plain(tree, es.bins, depth, 256)
+        check(torch.equal(got.view(torch.int32), ref.view(torch.int32)),
+              f"B4 differs from its plain version on tree {t}")
+        err_b4 = max(err_b4, float((got - ref).abs().max()))
+    tree = engine.trees[-1]
+    walk = lambda: G.predict_tree_binned(tree, es.bins, depth, 256)  # noqa: E731
+    # on the path the test set's 28 MB of bins and 10 MB of K4 inputs are
+    # cold: the round before streamed ~0.6 GB of training bins through the
+    # 50 MB L2. device_ms writes 64 MB between launches (a fill kernel,
+    # which device_ms does not count); device_ms_l2_warm repeats the
+    # launch on the same inputs
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    sectors, visits = b4_work(tree, es.bins, depth, 256)
+    heap = tree.feature.shape[0]
+    b4_bound = bound_ms(sectors * 32 + n_test * 4 + heap * 13, visits)
+    records["B4"].update(
+        launches=first["launches"]["B4"], max_abs_err=err_b4,
+        ms=cuda_ms(walk, iters=20),
+        device_ms=profiled_ms(lambda: (flush.zero_(), walk())),
+        device_ms_l2_warm=profiled_ms(walk),
+        plain_ms=cuda_ms(lambda: G.predict_tree_binned_plain(
+            tree, es.bins, depth, 256), iters=3),
+        bound_ms=b4_bound[0], bound_by=b4_bound[1], library_ms=None)
+    value = walk()
+    m0 = es.margins.clone()
+    mk, mp = m0.clone(), m0.clone()
+    _, sk = O.round_update(mk, value, es.label, es.weight, True,
+                           with_gh=False)
+    _, sp = O.round_update_plain(mp, value, es.label, es.weight, True,
+                                 with_gh=False)
+    check(torch.equal(mk, mp), "K4's eval mode: margins differ")
+    rel = float(((sk - sp).abs() / sp.abs().clamp_min(1e-30)).max())
+    check(rel <= 1e-5, f"K4's eval mode: metric sums beyond 1e-5 ({rel})")
+    k4e = lambda: O.round_update(mk, value, es.label, es.weight, True,  # noqa: E731
+                                 with_gh=False)
+    k4_bound = bound_ms(n_test * 4 * 5, 45 * n_test)
+    records["K4eval"].update(
+        launches=first["launches"]["K4eval"],
+        max_abs_err=float((sk - sp).abs().max()),
+        ms=cuda_ms(k4e, iters=20),
+        device_ms=profiled_ms(lambda: (flush.zero_(), k4e())),
+        device_ms_l2_warm=profiled_ms(k4e),
+        plain_ms=cuda_ms(lambda: O.round_update_plain(
+            mp, value, es.label, es.weight, True, with_gh=False), iters=3),
+        bound_ms=k4_bound[0], bound_by=k4_bound[1], library_ms=None)
+    res.update(b4_sectors=sectors, b4_visits=visits,
+               b4_visits_per_row=visits / n_test,
+               b4={k: records["B4"][k] for k in (
+                   "ms", "device_ms", "device_ms_l2_warm", "plain_ms",
+                   "bound_ms", "bound_by")},
+               k4_eval={k: records["K4eval"][k] for k in (
+                   "ms", "device_ms", "device_ms_l2_warm", "plain_ms",
+                   "bound_ms", "max_abs_err")})
+    del engine, es, tree, value, m0, mk, mp, walk, k4e, flush
+    torch.cuda.empty_cache()
+
+    # early stopping on the test logloss
+    es_run = run(es_rounds, early_stopping_rounds=3)
+    hist = es_run["ev"]["test"]["logloss"]
+    best = es_run["bst"].best_iteration
+    res["early_stopping"] = {"rounds_run": len(hist), "best_iteration": best,
+                             "best_score": es_run["bst"].best_score,
+                             "test_logloss": hist}
+    check(best == int(np.argmin(hist)), f"best_iteration {best} is not the "
+                                        f"argmin of the test logloss {hist}")
+    check(len(hist) in (es_rounds, best + 4)
+          and es_run["bst"].num_boosted_rounds() == len(hist),
+          f"early stopping ran {len(hist)} rounds (best {best})")
+    del es_run
+
+    # warm start: half the rounds, then the rest from them, twice
+    half = rounds // 2
+    five = run(half)
+    warm = [run(rounds - half, xgb_model=five["bst"]) for _ in range(2)]
+    dump = warm[0]["bst"].get_dump()
+    res["warm_start"] = {
+        "trees": warm[0]["bst"].num_trees,
+        "init_trees_equal_uninterrupted":
+            dump[:half] == first["bst"].get_dump()[:half],
+        "rerun_dump_equal": warm[1]["bst"].get_dump() == dump,
+        "rerun_margins_bitwise": same_bits(warm[0]["margins"],
+                                           warm[1]["margins"])
+        and same_bits(warm[0]["test_margins"], warm[1]["test_margins"]),
+        "margin_max_abs_diff_to_uninterrupted": float(
+            np.abs(warm[0]["margins"] - first["margins"]).max()),
+        "test_margin_max_abs_diff_to_uninterrupted": float(
+            np.abs(warm[0]["test_margins"] - first["test_margins"]).max()),
+        "test_logloss": warm[0]["ev"]["test"]["logloss"]}
+    ws = res["warm_start"]
+    check(ws["trees"] == rounds
+          and warm[0]["bst"].num_boosted_rounds() == rounds,
+          f"the warm start has {ws['trees']} trees, not {rounds}")
+    check(ws["init_trees_equal_uninterrupted"],
+          "the warm start's init trees differ from the uninterrupted run's")
+    check(ws["rerun_dump_equal"] and ws["rerun_margins_bitwise"],
+          "the warm start repeated gave another model or other margins")
+    del five, warm, first, kept
+    torch.cuda.empty_cache()
+
+    # C2: the weighted sketch of every row, twice and from two shards
+    rng = np.random.RandomState(1)
+    w = rng.uniform(0.05, 3.0, x.shape[0]).astype(np.float32)
+    xd, wd = torch.from_numpy(x).cuda(), torch.from_numpy(w).cuda()
+    cuts = [BN.sketch_and_bin(xd, wd, 256)[1] for _ in range(2)]
+    order = torch.cat([torch.arange(r, x.shape[0], 2, device="cuda")
+                       for r in range(2)])
+    cuts.append(BN.sketch_and_bin(xd[order], wd[order], 256)[1])
+    mn, mx = BN.feature_min_max(xd)
+    f32 = [BN.sketch_histogram(v, mn, mx, u) for v, u in
+           ((xd, wd), (xd, wd), (xd[order], wd[order]))]
+    res["c2"] = {
+        "rows": int(x.shape[0]),
+        "cuts_bitwise_rerun": same_bits(cuts[0].cpu().numpy(),
+                                        cuts[1].cpu().numpy()),
+        "cuts_bitwise_two_shards": same_bits(cuts[0].cpu().numpy(),
+                                             cuts[2].cpu().numpy()),
+        # the f32 sums the card took before (recorded, not checked)
+        "f32_sketch_bitwise_rerun": bool(torch.equal(f32[0], f32[1])),
+        "f32_sketch_bitwise_two_shards": bool(torch.equal(f32[0], f32[2])),
+        "f32_cuts_bitwise_two_shards": bool(torch.equal(
+            BN.cuts_from_sketch(mn, mx, f32[0], 256),
+            BN.cuts_from_sketch(mn, mx, f32[2], 256)))}
+    check(res["c2"]["cuts_bitwise_rerun"]
+          and res["c2"]["cuts_bitwise_two_shards"],
+          f"the weighted sketch's cuts moved: {res['c2']}")
+    del xd, wd, order, cuts, f32
+    torch.cuda.empty_cache()
+    emit(res)
+    return res
+
+
+def profiled_ms(fn):
+    """``device_ms`` where ``torch.profiler`` records the kernel, None where
+    it records no device time (``PERF.md`` §7)."""
+    try:
+        return device_ms(fn)
+    except SmokeFailure:
+        return None
+
+
 KERNELS = {
     "K1": dict(name="K1 histogram build + node totals, int64 fixed point "
                "(level 5: 32 nodes)",
@@ -1726,6 +2024,14 @@ KERNELS = {
                    "predict_leaf chunk, 500 trees)", route="cuda",
                    source="xgboost_ray_tpu_torch/csrc/predict.cu",
                    replaces="xgboost_ray_tpu/ops/predict.py:512"),
+    "B4": dict(name="B4 binned tree walk: one depth-6 tree over the 500,000 "
+               "test rows (int16 bins, 28 features)", route="cuda",
+               source="xgboost_ray_tpu_torch/csrc/walk.cu",
+               replaces="xgboost_ray_tpu/ops/grow.py:786"),
+    "K4eval": dict(name="K4 eval mode: margin update + metric partials, no "
+                   "gradients (500,000 test rows)", route="triton",
+                   source="xgboost_ray_tpu_torch/ops/objectives.py",
+                   replaces="xgboost_ray_tpu/engine.py:1427"),
     **{f"B8serve{m}": dict(
         name=f"B8 forest walk: margins, heap layout, a serve batch of {m} "
              f"rows (windows mapping; launches: every batch of the heap "
@@ -1771,8 +2077,16 @@ def run(args):
     z = torch.zeros(4, device="cuda")
     O.round_update(z, z.clone(), z.clone(), torch.ones(4, device="cuda"), True)
     torch.cuda.synchronize()
-    emit({"phase": "build", "nvcc_seconds": cuda_build_s,
-          "triton_first_launch_seconds": time.perf_counter() - t1})
+    build = {"phase": "build", "nvcc_seconds": cuda_build_s,
+             "triton_first_launch_seconds": time.perf_counter() - t1}
+    if hasattr(O.round_update, "eval_launches"):  # not in an older tree
+        t1 = time.perf_counter()
+        O.round_update(z, z.clone(), z.clone(), torch.ones(4, device="cuda"),
+                       True, with_gh=False)
+        torch.cuda.synchronize()
+        build["triton_eval_mode_first_launch_seconds"] = (
+            time.perf_counter() - t1)
+    emit(build)
     if args.k1_time:
         phase_k1_time(args.rows, args.rounds)
         return
@@ -1799,11 +2113,11 @@ def run(args):
         return
 
     phase_kernels(args.rows, {k: records[k] for k in TRAIN_KERNELS})
+    results = {"evals": phase_evals(x, y, records)}
 
     if args.rows < 11_000_000:
         emit({"phase": "main_path_cut", "rows": args.rows,
               "reason": "--rows below the 11,000,000-row HIGGS protocol"})
-    results = {}
     runs = []
     for i, (key, actors) in enumerate((("1", 1), ("1_rerun", 1), ("2", 2))):
         b, launches, rt, margins = phase_main(x, y, args.rounds, 6, actors)

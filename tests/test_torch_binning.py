@@ -67,3 +67,52 @@ def test_bin_matrix_against_given_cuts():
 def test_bin_dtype_matches():
     for mb in (2, 16, 255, 256, 1024):
         assert tb.bin_dtype(mb) == jb.bin_dtype(mb)
+
+
+def _fixed_sums(x, w, n_global, mn, mx):
+    qs = tb.sketch_scale(w, n_global)
+    return tb.sketch_histogram(x, mn, mx, w, qs), qs
+
+
+def test_fixed_point_sketch_sums_are_order_and_shard_free():
+    """The card's sketch sums (ROADMAP C2), called on the CPU: int64
+    fixed-point sums of random weights are the same bits after a row
+    permutation and when two shards are summed apart and merged (an
+    all-reduce's integer add); the f32 sums differ in both."""
+    x, w = _data(3, n=20000)
+    xt, wt = torch.from_numpy(x), torch.from_numpy(w)
+    mn, mx = tb.feature_min_max(xt)
+    ref, qs = _fixed_sums(xt, wt, len(x), mn, mx)
+    assert ref.dtype == torch.int64
+    perm = torch.from_numpy(np.random.default_rng(4).permutation(len(x)))
+    assert torch.equal(_fixed_sums(xt[perm], wt[perm], len(x), mn, mx)[0], ref)
+    halves = [(xt[r::2], wt[r::2]) for r in range(2)]
+    folded = sum(tb.sketch_histogram(xs, mn, mx, ws, qs) for xs, ws in halves)
+    assert torch.equal(folded, ref)
+    # the per-shard scale from the merged max|w| is the world's
+    assert torch.equal(tb.sketch_scale(halves[0][1], len(x),
+                                       lambda m: torch.maximum(
+                                           m, halves[1][1].abs().amax())),
+                       qs)
+    f32 = tb.sketch_histogram(xt, mn, mx, wt)
+    assert not torch.equal(tb.sketch_histogram(xt[perm], mn, mx, wt[perm]), f32)
+    deq = tb.dequantize_sketch(ref, qs)
+    assert deq.dtype == torch.float32
+    np.testing.assert_allclose(deq.numpy(), f32.numpy(), rtol=1e-5, atol=1e-3)
+
+
+@pytest.mark.parametrize("weighted", [None, "ones"])
+def test_fixed_point_sketch_equals_f32_with_unit_weights(weighted):
+    """With unit weights every bucket is an integer count below 2^24: the
+    fixed-point sums, made f32, are the f32 sums bit for bit, so the card's
+    main-path cuts equal the CPU's (and the JAX package's)."""
+    x, _ = _data(5, n=20000)
+    xt = torch.from_numpy(x)
+    w = None if weighted is None else torch.ones(len(x))
+    mn, mx = tb.feature_min_max(xt)
+    q, qs = _fixed_sums(xt, w, len(x), mn, mx)
+    f32 = tb.sketch_histogram(xt, mn, mx, w)
+    deq = tb.dequantize_sketch(q, qs)
+    assert np.array_equal(deq.numpy().view(np.int32), f32.numpy().view(np.int32))
+    assert torch.equal(tb.cuts_from_sketch(mn, mx, deq, 256),
+                       tb.cuts_from_sketch(mn, mx, f32, 256))

@@ -19,7 +19,13 @@ weights, ntree_limit, num_parallel_tree, K = 3, a categorical feature, NaN,
 both layouts) are bitwise equal to the plain version's (values: a NaN
 matches any NaN, whose payload differs between CPU and card). Training on
 the card reruns bit for bit, and a 2-rank gloo world on one card gives the
-1-rank model and margins bit for bit.
+1-rank model and margins bit for bit (with a held-out eval set too, whose
+history is world 1's within 1e-6: K4's metric partials are f32 sums per
+CTA of each rank's rows). B4's row values are bitwise its plain
+version's (every bin dtype, depths 1-8 staged in shared memory, depth 11
+read through the read-only path); K4's eval mode gives bitwise the margins
+and partial sums of its gh mode; a weighted sketch on the card gives the
+same cuts on a rerun and from two shards (ROADMAP C2).
 """
 
 import numpy as np
@@ -404,6 +410,146 @@ def _card_set(n=60000, f=10, seed=21):
     return x, y
 
 
+def _held_out_train(x, y, xv, yv, rounds, **kw):
+    """train() on the card with (x, y) and the held-out (xv, yv): (dump,
+    final training margins, evals_result, kernel launches)."""
+    import xgboost_ray_tpu_torch as tx
+    from xgboost_ray_tpu_torch.distributed import _KeepEngine
+    from xgboost_ray_tpu_torch.engine import (
+        kernel_launches,
+        reset_kernel_launches,
+    )
+
+    keep = _KeepEngine()
+    dm, dv = tx.RayDMatrix(x, y), tx.RayDMatrix(xv, yv)
+    ev = {}
+    reset_kernel_launches()
+    bst = tx.train({"objective": "binary:logistic",
+                    "eval_metric": ["error", "logloss"]},
+                   dm, rounds, evals=[(dm, "train"), (dv, "valid")],
+                   evals_result=ev, callbacks=[keep],
+                   ray_params=tx.RayParams(num_actors=1), **kw)
+    launches = kernel_launches()
+    return bst, keep.engine.get_margins()[:, 0], ev, launches
+
+
+def test_held_out_eval_on_the_card(cuda):
+    """A held-out set: one B4 and one eval-mode K4 launch a round, its
+    history equal to the plain path's within 1e-6, its final margins within
+    1e-5 of the booster's own prediction; a rerun is bitwise; early
+    stopping and a warm start run on the card."""
+    x, y = _card_set(seed=23)
+    xv, yv = _card_set(n=7001, seed=24)
+    bst, m1, ev, launches = _held_out_train(x, y, xv, yv, 6)
+    assert launches["B4"] == 6 and launches["K4eval"] == 6
+    assert launches["K4"] == 7 + 6
+    _, m2, ev2, _ = _held_out_train(x, y, xv, yv, 6)
+    assert ev2 == ev and np.array_equal(m1.view(np.int32), m2.view(np.int32))
+    assert ev["valid"]["logloss"][-1] < ev["valid"]["logloss"][0]
+    import xgboost_ray_tpu_torch as tx
+
+    dm, dv, cpu_ev = tx.RayDMatrix(x, y), tx.RayDMatrix(xv, yv), {}
+    tx.train({"objective": "binary:logistic",
+              "eval_metric": ["error", "logloss"]}, dm, 6, device="cpu",
+             evals=[(dm, "train"), (dv, "valid")], evals_result=cpu_ev,
+             ray_params=tx.RayParams(num_actors=1))
+    np.testing.assert_allclose(ev["valid"]["logloss"],
+                               cpu_ev["valid"]["logloss"], rtol=0, atol=1e-6)
+    early, _, eev, _ = _held_out_train(x, y, xv, yv, 40,
+                                       early_stopping_rounds=2)
+    hist = eev["valid"]["logloss"]
+    assert early.best_iteration == int(np.argmin(hist))
+    assert len(hist) in (40, early.best_iteration + 3)
+    warm, _, _, _ = _held_out_train(x, y, xv, yv, 3, xgb_model=bst)
+    assert warm.num_boosted_rounds() == 9
+    assert warm.get_dump()[:6] == bst.get_dump()
+
+
+@pytest.mark.parametrize("dtype,max_bin", [(torch.uint8, 255),
+                                           (torch.int16, 256),
+                                           (torch.int16, 1000)])
+@pytest.mark.parametrize("depth", [1, 2, 3, 4, 5, 6, 7, 8, 11])
+def test_binned_walk_bitwise(cuda, dtype, max_bin, depth):
+    """B4 against its plain version: trees with leaves at every depth,
+    unused nodes below them, the missing bin both ways."""
+    rng = np.random.default_rng(depth * 7 + max_bin)
+    n, f = 20011, 13
+    heap = (1 << (depth + 1)) - 1
+    bins = rng.integers(0, max_bin + 1, (n, f))
+    bins[rng.random((n, f)) < 0.1] = max_bin
+    bins = torch.from_numpy(bins).to(dtype)
+    feature = np.full(heap, -1, np.int32)
+    is_leaf = np.zeros(heap, bool)
+    live = np.zeros(heap, bool)
+    live[0] = True
+    for i in range(heap):
+        if not live[i]:
+            continue
+        if i >= heap // 2 or (i > 0 and rng.random() < 0.25):
+            is_leaf[i] = True
+            continue
+        feature[i] = rng.integers(0, f)
+        live[2 * i + 1] = live[2 * i + 2] = True
+    tree = tg.Tree(
+        feature=torch.from_numpy(feature),
+        split_bin=torch.from_numpy(rng.integers(0, max_bin, heap).astype(np.int32)),
+        threshold=torch.zeros(heap),
+        default_left=torch.from_numpy(rng.random(heap) < 0.5),
+        is_leaf=torch.from_numpy(is_leaf),
+        value=torch.from_numpy(rng.standard_normal(heap).astype(np.float32)),
+        gain=torch.zeros(heap), cover=torch.zeros(heap),
+        base_weight=torch.zeros(heap))
+    ref = tg.predict_tree_binned_plain(tree, bins, depth, max_bin)
+    before = tg.predict_tree_binned.launches
+    got = tg.predict_tree_binned(tg.Tree(*[t.to(cuda) for t in tree]),
+                                 bins.to(cuda), depth, max_bin)
+    assert tg.predict_tree_binned.launches == before + 1
+    assert _same_bits(got, ref)
+
+
+def test_round_update_eval_mode_bitwise(cuda):
+    """K4's eval mode: no gradients, and bitwise the margins and partial
+    sums of the gh mode on the same inputs."""
+    rng = np.random.default_rng(5)
+    n = 500001
+    m = torch.from_numpy((rng.standard_normal(n) * 4).astype(np.float32)).to(cuda)
+    rv, y, w = (torch.from_numpy(a).to(cuda) for a in (
+        (rng.standard_normal(n) * 0.2).astype(np.float32),
+        (rng.random(n) > 0.5).astype(np.float32),
+        rng.uniform(0.5, 2, n).astype(np.float32)))
+    for logistic in (True, False):
+        mg, me = m.clone(), m.clone()
+        _, sg = to.round_update(mg, rv, y, w, logistic, 1.5)
+        before = to.round_update.eval_launches
+        gh, se = to.round_update(me, rv, y, w, logistic, 1.5, with_gh=False)
+        assert gh is None and to.round_update.eval_launches == before + 1
+        assert _same_bits(me, mg)
+        assert torch.equal(se, sg)
+
+
+def test_weighted_sketch_reruns_and_shards_bitwise(cuda):
+    """ROADMAP C2: the sketch's weighted sums are int64 fixed point on the
+    card, so a rerun and the rows in two shards folded give the same cuts
+    (and, with unit weights, the CPU's f32 cuts)."""
+    from xgboost_ray_tpu_torch.ops import binning as tb
+
+    rng = np.random.default_rng(9)
+    n, f = 300000, 12
+    x = (rng.standard_normal((n, f)) * rng.uniform(0.1, 50, f)).astype(np.float32)
+    x[rng.random((n, f)) < 0.05] = np.nan
+    w = rng.uniform(0.01, 3.0, n).astype(np.float32)
+    xd, wd = torch.from_numpy(x).to(cuda), torch.from_numpy(w).to(cuda)
+    _, c1, m1 = tb.sketch_and_bin(xd, wd, 256)
+    _, c2, _ = tb.sketch_and_bin(xd, wd, 256)
+    order = np.concatenate([np.arange(n)[0::2], np.arange(n)[1::2]])
+    _, c3, m3 = tb.sketch_and_bin(xd[order], wd[order], 256)
+    assert _same_bits(c1, c2) and _same_bits(c1, c3)
+    assert torch.equal(m1, m3)
+    _, cu, _ = tb.sketch_and_bin(xd, torch.ones_like(wd), 256)
+    _, cc, _ = tb.sketch_and_bin(torch.from_numpy(x), torch.ones(n), 256)
+    assert _same_bits(cu, cc)
+
+
 def test_training_reruns_bitwise(cuda):
     """Training twice on the card (random gradients from the objective):
     the same dump and bitwise the same margins (K1's fixed point)."""
@@ -433,7 +579,7 @@ def test_gloo_world_on_one_card_equals_one_rank(cuda):
     # each rank's kernels, counted from 0 just before its train(): the
     # main path's launches (depth 6, 5 rounds; K3 chose from merged counts)
     expect = {"K1": 35, "K1deq": 35, "K2": 0, "K2level": 30, "K2leaf": 5,
-              "K3": 30, "K3leaf": 5, "K4": 6}
+              "K3": 30, "K3leaf": 5, "K4": 6, "B4": 0, "K4eval": 0}
     # int64 histograms and totals, int64 child counts, the f32 MAX of
     # (max|g|, max|h|) for the round's scales, the four f64 metric sums
     hist_cells = 10 * 257 * 2 * (1 + sum(1 << (d - 1) for d in range(1, 6)))
@@ -445,6 +591,38 @@ def test_gloo_world_on_one_card_equals_one_rank(cuda):
         assert extra["backend"] == "gloo" and extra["world_size"] == 2
         assert extra["allreduce_bytes_per_round"] == ring_bytes
         assert o["launches"] == expect
+    m2 = combine_data(RayShardingMode.INTERLEAVED, [o["margins"] for o in out])
+    assert np.array_equal(m2.view(np.int32), m1.view(np.int32))
+
+
+def test_gloo_world_with_held_out_set_equals_one_rank(cuda):
+    """Two ranks sharing the card, each on its shard of the training and
+    the held-out matrix: world 1's model and training margins bit for bit,
+    its eval history within 1e-6, B4 and K4's eval mode launched once a
+    round on each."""
+    from xgboost_ray_tpu_torch import distributed as D
+    from xgboost_ray_tpu_torch.matrix import RayShardingMode, combine_data
+
+    x, y = _card_set(seed=25)
+    xv, yv = _card_set(n=9001, seed=26)
+    bst, m1, ev, _ = _held_out_train(x, y, xv, yv, 4)
+    out = D.launch_world(
+        D._train_rank, 2, "cuda", D.share({"x": x, "label": y}),
+        {"objective": "binary:logistic", "eval_metric": ["error", "logloss"]},
+        4, {"eval_names": ["train", "valid"],
+            "eval_data": [None, dict(D.share({"x": xv, "label": yv}),
+                                     sharding="INTERLEAVED")]},
+        backend="gloo")
+    import xgboost_ray_tpu_torch as tx
+
+    for o in out:
+        assert tx.RayXGBoostBooster.load_raw(o["model"]).get_dump() == bst.get_dump()
+        # K4's metric partials are f32 sums per CTA of each rank's rows
+        for s in ("train", "valid"):
+            for m in ("error", "logloss"):
+                np.testing.assert_allclose(o["evals_result"][s][m], ev[s][m],
+                                           rtol=0, atol=1e-6)
+        assert o["launches"]["B4"] == 4 and o["launches"]["K4eval"] == 4
     m2 = combine_data(RayShardingMode.INTERLEAVED, [o["margins"] for o in out])
     assert np.array_equal(m2.view(np.int32), m1.view(np.int32))
 

@@ -263,3 +263,61 @@ def test_rank_loads_only_its_shard():
         dm.shards()
     dm.load_data(3)  # the rest, for a later whole-matrix use
     assert [s["data"].shape[0] for s in dm.shards()] == [190, 190, 189]
+
+
+def test_world2_held_out_eval_matches_world1(world2):
+    """A held-out eval set in a 2-rank world: each rank evaluates its own
+    shard of it, and the merged partials give world 1's eval history
+    (within 1e-6: f32 sums associated per rank) and, on the card's
+    bitwise path, world 1's model (``tests/test_torch_cuda.py``); here the
+    models predict within 1e-5, as ``test_world_size_invariance`` holds."""
+    x, y = _cancer()
+    xt, yt, xv, yv = x[:400], y[:400], x[400:], y[400:]
+    held = dict(D.share({"x": xv, "label": yv}), sharding="BATCH")
+    out = world2.run(D._train_rank, D.share({"x": xt, "label": yt}),
+                     README_PARAMS, 10,
+                     {"device": "cpu", "eval_names": ["train", "valid"],
+                      "eval_data": [None, held]})
+    assert out[0]["model"] == out[1]["model"]
+    dtrain = tx.RayDMatrix(xt, yt)
+    dvalid = tx.RayDMatrix(xv, yv, sharding=RayShardingMode.BATCH)
+    ev = {}
+    one = tx.train(README_PARAMS, dtrain, 10, device="cpu",
+                   evals=[(dtrain, "train"), (dvalid, "valid")],
+                   evals_result=ev, ray_params=tx.RayParams(num_actors=2))
+    two = out[0]["evals_result"]
+    assert list(two) == ["train", "valid"]
+    for s in ("train", "valid"):
+        for m in ("logloss", "error"):
+            np.testing.assert_allclose(two[s][m], ev[s][m], rtol=0, atol=1e-6)
+    np.testing.assert_allclose(
+        tx.RayXGBoostBooster.load_raw(out[0]["model"]).predict(xv, device="cpu"),
+        one.predict(xv, device="cpu"), atol=1e-5)
+
+
+def test_spawned_train_carries_eval_sets_and_init_model(world2):
+    """``train``'s spawn path with a held-out eval matrix and an init model
+    (sent as ``save_raw`` bytes): the ranks load their own shards of both
+    matrices and continue the model, as ``train()`` inside the world
+    does."""
+    x, y = _cancer()
+    xt, yt, xv, yv = x[:400], y[:400], x[400:], y[400:]
+    dtrain, dvalid = tx.RayDMatrix(xt, yt), tx.RayDMatrix(xv, yv)
+    init = tx.RayXGBoostBooster.load_raw(world2.run(
+        D._train_rank, D.share({"x": xt, "label": yt}), README_PARAMS, 2,
+        {"device": "cpu"})[0]["model"])
+    opts = dict(eval_names=["train", "valid"], eval_matrices=[None, dvalid],
+                num_boost_round=3, verbose_eval=False, callbacks=[],
+                early_stopping_rounds=None, maximize=None,
+                xgb_model=init.save_raw())
+    bst, ev, stats = tmain._train_spawned(dtrain, README_PARAMS, 2, 2, "cpu",
+                                          opts)
+    ref = world2.run(
+        D._train_rank, D.share({"x": xt, "label": yt}), README_PARAMS, 3,
+        {"device": "cpu", "eval_names": ["train", "valid"], "xgb_model":
+         init.save_raw(), "eval_data": [None, dict(D.share(
+             {"x": xv, "label": yv}), sharding="INTERLEAVED")]})[0]
+    assert stats["world_size"] == 2 and list(ev) == ["train", "valid"]
+    assert bst.num_boosted_rounds() == 5
+    assert bst.get_dump()[:2] == init.get_dump()
+    assert bst.save_raw() == ref["model"] and ev == ref["evals_result"]

@@ -289,6 +289,15 @@ def _numpy(data: Dict[str, Optional[torch.Tensor]], key: str):
     return None if t is None else t.numpy()
 
 
+def _matrix(data: Dict[str, Any], sharding: str, **kwargs):
+    from xgboost_ray_tpu_torch.matrix import RayDMatrix, RayShardingMode
+
+    return RayDMatrix(_numpy(data, "x"), _numpy(data, "label"),
+                      weight=_numpy(data, "weight"),
+                      base_margin=_numpy(data, "base_margin"),
+                      sharding=RayShardingMode[sharding], **kwargs)
+
+
 def _train_rank(rank: int, world: int, data: Dict[str, Optional[torch.Tensor]],
                 params: Dict, num_boost_round: int,
                 options: Optional[Dict] = None) -> Dict[str, Any]:
@@ -296,39 +305,46 @@ def _train_rank(rank: int, world: int, data: Dict[str, Optional[torch.Tensor]],
     ``label``, optional ``weight`` / ``base_margin``; every rank gets the
     whole set and loads only its own shards). ``options``: ``sharding`` (a
     ``RayShardingMode`` name), ``num_actors`` (default: the world size),
-    ``device``, ``eval_names`` (default ``["train"]``), ``feature_names``,
-    ``feature_types``, ``callbacks``, ``verbose_eval``, ``keep_bins``.
+    ``device``, ``eval_names`` (default ``["train"]``), ``eval_data``
+    (beside the names: None for the training matrix, else a held-out set's
+    ``data`` with its ``sharding``; default all None), ``feature_names``,
+    ``feature_types``, ``callbacks``, ``verbose_eval``,
+    ``early_stopping_rounds``, ``maximize``, ``xgb_model`` (``save_raw``
+    bytes), ``keep_bins``.
     Returns the model (``save_raw`` bytes), evals_result,
     additional_results, this rank's final training margins, the launches of
-    every training kernel in ``train()`` (``engine.kernel_counters``, set
+    every training kernel in ``train()`` (``engine.kernel_launches``, set
     to 0 just before it) and, with ``keep_bins``, its bins and the cuts."""
-    from xgboost_ray_tpu_torch.engine import kernel_counters
+    from xgboost_ray_tpu_torch.engine import (
+        kernel_launches,
+        reset_kernel_launches,
+    )
     from xgboost_ray_tpu_torch.main import RayParams, train
-    from xgboost_ray_tpu_torch.matrix import RayDMatrix, RayShardingMode
+    from xgboost_ray_tpu_torch.models.booster import RayXGBoostBooster
 
     options = dict(options or {})
-    dm = RayDMatrix(_numpy(data, "x"), _numpy(data, "label"),
-                    weight=_numpy(data, "weight"),
-                    base_margin=_numpy(data, "base_margin"),
-                    feature_names=options.get("feature_names"),
-                    feature_types=options.get("feature_types"),
-                    sharding=RayShardingMode[options.get("sharding",
-                                                         "INTERLEAVED")])
+    dm = _matrix(data, options.get("sharding", "INTERLEAVED"),
+                 feature_names=options.get("feature_names"),
+                 feature_types=options.get("feature_types"))
+    names = options.get("eval_names", ["train"])
+    evals = [(dm if ed is None else _matrix(ed, ed["sharding"]), name)
+             for ed, name in zip(options.get("eval_data") or
+                                 [None] * len(names), names)]
+    raw = options.get("xgb_model")
     keep = _KeepEngine()
     ev, extra = {}, {}
-    counters = kernel_counters()
-    for fn in counters.values():
-        fn.launches = 0
-    bst = train(params, dm, num_boost_round,
-                evals=[(dm, name) for name in options.get("eval_names",
-                                                          ["train"])],
+    reset_kernel_launches()
+    bst = train(params, dm, num_boost_round, evals=evals,
                 evals_result=ev, additional_results=extra,
                 ray_params=RayParams(num_actors=options.get("num_actors",
                                                             world)),
                 device=options.get("device"),
                 verbose_eval=options.get("verbose_eval", False),
-                callbacks=[*options.get("callbacks", ()), keep])
-    launches = {k: fn.launches for k, fn in counters.items()}
+                callbacks=[*options.get("callbacks", ()), keep],
+                early_stopping_rounds=options.get("early_stopping_rounds"),
+                maximize=options.get("maximize"),
+                xgb_model=None if raw is None else RayXGBoostBooster.load_raw(raw))
+    launches = kernel_launches()
     eng = keep.engine
     out = {"model": bst.save_raw(), "evals_result": ev,
            "additional_results": extra, "launches": launches,

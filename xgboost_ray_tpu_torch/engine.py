@@ -2,33 +2,42 @@
 
 Port of ``xgboost_ray_tpu/engine.py`` ``TpuEngine`` for this slice:
 ``__init__`` (``:176``: shard assembly, objective and base margin, grow
-config), ``_sketch_and_bin`` (``:876``), the round body
-(``_round_closures``/``step``, ``:1191``/``:1864``) and ``get_booster``
-(``:2136``). There is no init booster (``_init_margins_from_bins`` of
-``:933`` has nothing to walk) and no eval set other than the training set.
+config, the init booster's margins and trees, ``:700-728``, and
+``iteration_offset``, ``:824``), the eval sets (``_EvalSet``, ``:139``;
+``_add_eval_set``, ``:1106-1188``), ``_sketch_and_bin`` (``:876``), the
+round body (``_round_closures``/``step``, ``:1191``/``:1864``) and
+``get_booster`` (``:2136``, the init forest first, ``:2049``).
 
 The world is the default ``torch.distributed`` process group (one rank at
 world 1, where every collective is the identity). Each rank keeps only the
 shards it is given (its own, or at world 1 all of them, concatenated in
 rank order as the JAX package folds actors onto one device) and merges
 through ``distributed.Collectives``, the ``psum``/``pmin``/``pmax`` of the
-reference: the sketch's min/max, fine histogram and missing counts
+reference: the sketch's min/max, max|w|, fine histogram and missing counts
 (``ops/binning.py``), the global row count once at set-up, and per round
 the MAX of (max|g|, max|h|) that sets K1's fixed-point scales, every
 histogram and the final totals (``ops/grow.build_tree``'s ``allreduce``),
-and the metric partial sums.
+and the metric partial sums of every eval set in one all-reduce.
 
 One round is K1/K2/K3 per level (``ops/grow.build_tree``) and one K4 pass
 (``ops/objectives.round_update``) that adds the tree to the margins, takes
 the metric sums and computes the next round's gradients; the first round's
-gradients come from a K4 pass with a zero tree. On the card K1 sums in
-fixed point (on the CPU the f32 sums of the JAX package), so a round on
-the card gives the same bits at every world size and on every rerun. The
-only device -> host read per round is the four metric sums.
+gradients come from a K4 pass with a zero tree. A held-out eval set (binned
+once with the merged training cuts; label, weight and margins on the
+device) takes one B4 walk of the new tree (``ops/grow.predict_tree_binned``)
+and one K4 pass in its eval mode a round (the margin add and the metric
+sums, no gradients). On the card K1 sums in fixed point (on the CPU the
+f32 sums of the JAX package), so a round on the card gives the same bits
+at every world size and on every rerun. The only device -> host read per
+round is the metric sums.
+
+An init booster (``xgb_model``) starts every set's margins at ``base +
+booster.predict_margin(x) - its base margin`` (B8 on the card, the plain
+walk on the CPU) and its forest goes before the new trees.
 """
 
 import time
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -38,7 +47,12 @@ from xgboost_ray_tpu_torch.device import resolve_device
 from xgboost_ray_tpu_torch.distributed import Collectives
 from xgboost_ray_tpu_torch.models.booster import RayXGBoostBooster, stack_trees
 from xgboost_ray_tpu_torch.ops import binning
-from xgboost_ray_tpu_torch.ops.grow import GrowConfig, Tree, build_tree
+from xgboost_ray_tpu_torch.ops.grow import (
+    GrowConfig,
+    Tree,
+    build_tree,
+    predict_tree_binned,
+)
 from xgboost_ray_tpu_torch.ops.histogram import (
     build_histogram,
     dequantize,
@@ -63,7 +77,22 @@ def kernel_counters() -> Dict[str, Callable]:
     return {"K1": build_histogram, "K1deq": dequantize, "K2": find_splits,
             "K2level": split_level, "K2leaf": leaf_records,
             "K3": partition_level, "K3leaf": partition_leaf_values,
-            "K4": round_update}
+            "K4": round_update, "B4": predict_tree_binned}
+
+
+def kernel_launches() -> Dict[str, int]:
+    """Launches of every training kernel since ``reset_kernel_launches``,
+    with K4's eval-mode launches apart as ``K4eval`` (``K4`` counts both
+    modes)."""
+    out = {k: fn.launches for k, fn in kernel_counters().items()}
+    out["K4eval"] = round_update.eval_launches
+    return out
+
+
+def reset_kernel_launches() -> None:
+    for fn in kernel_counters().values():
+        fn.launches = 0
+    round_update.eval_launches = 0
 
 
 def _concat_shards(shards: Sequence[Dict[str, Optional[np.ndarray]]]):
@@ -95,17 +124,36 @@ def _to_device(arr: np.ndarray, dev: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(arr)).to(dev)
 
 
+class _EvalSet:
+    """One entry of ``evals`` (the JAX ``_EvalSet``): the training set
+    (``is_train``: its metrics are the training round's), or a held-out set
+    whose bins (the training cuts), label, weight and margins stay on the
+    device."""
+
+    def __init__(self, name: str, is_train: bool):
+        self.name = name
+        self.is_train = is_train
+        self.bins: Optional[torch.Tensor] = None
+        self.label: Optional[torch.Tensor] = None
+        self.weight: Optional[torch.Tensor] = None
+        self.margins: Optional[torch.Tensor] = None
+
+
 class TorchEngine:
     def __init__(
         self,
         shards: Sequence[Dict[str, Optional[np.ndarray]]],
         params: TrainParams,
         device=None,
-        eval_names: Sequence[str] = (),
+        evals: Sequence[Tuple[Sequence[Dict[str, Optional[np.ndarray]]],
+                              str]] = (),
+        init_booster: Optional[RayXGBoostBooster] = None,
         feature_names: Optional[List[str]] = None,
         feature_types: Optional[List[str]] = None,
     ):
-        """``shards``: this rank's shard dicts."""
+        """``shards``: this rank's shard dicts; ``evals``: (shards, name)
+        pairs, ``shards`` itself (the same object) for the training set;
+        ``init_booster``: the model training continues."""
         self.params = params
         self.device = resolve_device(device)
         self.coll = Collectives()
@@ -132,7 +180,6 @@ class TorchEngine:
         )
         self.metric_names = list(params.eval_metric) or [
             self.objective.default_metric]
-        self.eval_names = list(eval_names)
 
         x, label, weight, base_margin = _concat_shards(shards)
         self.n_rows, self.n_features = x.shape
@@ -146,21 +193,65 @@ class TorchEngine:
                        else torch.ones(self.n_rows, dtype=torch.float32, device=dev))
         t0 = time.perf_counter()
         self.bins, self.cuts, self.feat_has_missing = binning.sketch_and_bin(
-            x_dev, self.weight, params.max_bin, coll)
+            x_dev, self.weight, params.max_bin, coll, self.n_global)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         self.sketch_seconds = time.perf_counter() - t0
         del x_dev
-        margins = np.full(self.n_rows, self.base_margin0, np.float32)
-        if base_margin is not None:
-            margins = margins + base_margin.astype(np.float32)
-        self.margins = _to_device(margins, dev)
+        self._init_trees: List[Tree] = []
+        self._init_has_stats = True
+        self.iteration_offset = 0
+        if init_booster is not None:
+            self._init_has_stats = init_booster._has_node_stats
+            self.iteration_offset = init_booster.num_boosted_rounds()
+            if init_booster.num_trees:
+                self._init_trees = [init_booster.forest]
+        self.margins = _to_device(
+            self._start_margins(x, base_margin, init_booster), dev)
         self.trees: List[Tree] = []
+
+        self.evals: List[_EvalSet] = []
+        for eval_shards, name in evals:
+            self._add_eval_set(eval_shards, name, shards, init_booster)
+
         # round 0's gradients: K4 with a zero tree
         self.gh, _ = round_update(
             self.margins, torch.zeros_like(self.margins), self.label,
             self.weight, self.objective.logistic, params.scale_pos_weight)
         self.qscale = self._scales()
+
+    def _start_margins(self, x: np.ndarray, base_margin: Optional[np.ndarray],
+                       init_booster: Optional[RayXGBoostBooster]) -> np.ndarray:
+        """A set's first margins [N] f32 on the host: the base margin, plus
+        the rows' ``base_margin``, plus the init booster's trees (its margin
+        less its base; ``engine.py:700-728``, ``:1172-1183``)."""
+        margins = np.full(x.shape[0], self.base_margin0, np.float32)
+        if base_margin is not None:
+            margins = margins + base_margin.astype(np.float32)
+        if init_booster is not None and init_booster.num_trees:
+            pm = init_booster.predict_margin(
+                init_booster._coerce_features(x), device=self.device)
+            margins = margins + (pm.reshape(-1)
+                                 - init_booster.base_score_margin_np())
+        return margins
+
+    def _add_eval_set(self, eval_shards, name: str, train_shards,
+                      init_booster: Optional[RayXGBoostBooster]) -> None:
+        if eval_shards is train_shards:
+            self.evals.append(_EvalSet(name, True))
+            return
+        x, label, weight, base_margin = _concat_shards(eval_shards)
+        dev = self.device
+        es = _EvalSet(name, False)
+        x_dev = _to_device(x, dev)
+        es.bins = binning.bin_matrix(x_dev, self.cuts, self.params.max_bin)
+        del x_dev
+        es.label = _to_device(label, dev)
+        es.weight = (_to_device(weight, dev) if weight is not None
+                     else torch.ones(x.shape[0], dtype=torch.float32, device=dev))
+        es.margins = _to_device(
+            self._start_margins(x, base_margin, init_booster), dev)
+        self.evals.append(es)
 
     def _scales(self) -> Optional[torch.Tensor]:
         """K1's fixed-point scales of the gradients ``self.gh`` on the card
@@ -182,28 +273,40 @@ class TorchEngine:
             qscale=self.qscale,
         )
         self.trees.append(tree)
-        self.gh, sums = round_update(
-            self.margins, row_value, self.label, self.weight,
-            self.objective.logistic, self.params.scale_pos_weight)
+        logistic, spw = self.objective.logistic, self.params.scale_pos_weight
+        self.gh, sums = round_update(self.margins, row_value, self.label,
+                                     self.weight, logistic, spw)
         self.qscale = self._scales()  # the next round's
-        if not self.eval_names:
+        if not self.evals:
             self.allreduce_bytes_per_round = coll.bytes.total
             return {}
-        sums = coll.sum(sums)
+        parts = [sums]
+        for es in self.evals:
+            if not es.is_train:
+                value = predict_tree_binned(tree, es.bins, self.cfg.max_depth,
+                                            self.cfg.max_bin)
+                parts.append(round_update(es.margins, value, es.label,
+                                          es.weight, logistic, spw,
+                                          with_gh=False)[1])
+        parts = coll.sum(torch.stack(parts)).cpu()
         self.allreduce_bytes_per_round = coll.bytes.total
-        values = metric_values(sums, self.metric_names)
-        return {name: dict(values) for name in self.eval_names}
+        held_out = iter(parts[1:])
+        return {es.name: metric_values(parts[0] if es.is_train
+                                       else next(held_out), self.metric_names)
+                for es in self.evals}
 
     def get_margins(self) -> np.ndarray:
         """This rank's training margins [n_rows, 1]."""
         return self.margins.cpu().numpy()[:, None]
 
     def get_booster(self) -> RayXGBoostBooster:
-        return RayXGBoostBooster(
-            stack_trees(self.trees),
+        booster = RayXGBoostBooster(
+            stack_trees(self._init_trees + self.trees),
             self.cuts.cpu().numpy(),
             self.params,
             self.base_score,
             feature_names=self.feature_names,
             feature_types=self.feature_types,
         )
+        booster._has_node_stats = self._init_has_stats
+        return booster

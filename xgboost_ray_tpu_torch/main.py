@@ -2,30 +2,36 @@
 
 Port of ``xgboost_ray_tpu/main.py`` for this slice: ``RayParams``
 (``:134``), ``_validate_ray_params`` (``:177``), ``train`` (``:1681``,
-driving the round loop of ``_train`` at ``:678``): validation,
-``evals_result``, ``verbose_eval``, ``additional_results``, the
-``after_iteration`` hook of training callbacks (returning True stops
-training, as in xgboost) and ``serve_registry`` (the trained model is
-published into a ``serve.ModelRegistry``); and ``predict`` (``:2306``)
-with ``_predict`` (``:2137``): the ranks' shards are concatenated in rank
-order and walked in one pass on the device, as the reference's
-``_predict_shards_spmd`` (``:2214``) does on its mesh, then split back per
-rank and re-assembled per sharding mode.
+driving the round loop of ``_train`` at ``:678``): validation, eval sets
+(the training matrix or held-out matrices, each loaded like ``dtrain``),
+``evals_result``, ``verbose_eval``, ``additional_results``, early stopping
+on the last metric of the last eval set (``early_stopping_rounds``,
+``maximize``; ``:1276-1285``, ``:1520-1534``, ``best_iteration`` and
+``best_score`` at ``:1558-1562``), warm start from ``xgb_model``, the
+``before_training``/``before_iteration``/``after_iteration``/
+``after_training`` hooks of training callbacks (``after_iteration``
+returning True stops training, as in xgboost) and ``serve_registry`` (the
+trained model is published into a ``serve.ModelRegistry``); and
+``predict`` (``:2306``) with ``_predict`` (``:2137``): the ranks' shards
+are concatenated in rank order and walked in one pass on the device, as
+the reference's ``_predict_shards_spmd`` (``:2214``) does on its mesh,
+then split back per rank and re-assembled per sharding mode.
 
 Ranks (``distributed.py``). Inside an initialised ``torch.distributed``
 world of W ranks (``distributed.init_distributed``, the JAX package's
 multi-host flow), rank r trains on shard r of the RayDMatrix when
 ``num_actors`` equals W (with more actors, on the r-th of W contiguous
-groups of shards, folded in rank order; fewer raise), the ranks merge
-histograms, sketch and metrics by all-reduce, and every rank returns the
-same booster. Called alone with ``num_actors > 1`` on the cards of a host
-with two or more CUDA devices (``device`` None or ``"cuda"``), ``train``
-spawns ``min(num_actors, device_count)`` ranks over NCCL, one card each,
-runs itself inside that world (``distributed._train_rank``) and returns
-rank 0's booster. On one card (the host's only one, or
-``device="cuda:k"``) or on the CPU the shards fold onto the one device, as
-the JAX package folds actors onto the available devices
-(``main.py:401-402``, ``engine.py:239-244``).
+groups of shards, folded in rank order; fewer raise) and evaluates on the
+same shards of every eval matrix, the ranks merge histograms, sketch and
+metrics by all-reduce, and every rank returns the same booster. Called
+alone with ``num_actors > 1`` on the cards of a host with two or more CUDA
+devices (``device`` None or ``"cuda"``), ``train`` spawns
+``min(num_actors, device_count)`` ranks over NCCL, one card each, runs
+itself inside that world (``distributed._train_rank``) and returns rank
+0's booster. On one card (the host's only one, or ``device="cuda:k"``) or
+on the CPU the shards fold onto the one device, as the JAX package folds
+actors onto the available devices (``main.py:401-402``,
+``engine.py:239-244``).
 """
 
 import pickle
@@ -45,6 +51,7 @@ from xgboost_ray_tpu_torch.matrix import (
     combine_data,
 )
 from xgboost_ray_tpu_torch.models.booster import RayXGBoostBooster, coerce_model
+from xgboost_ray_tpu_torch.ops.metrics import is_maximize_metric
 from xgboost_ray_tpu_torch.params import parse_params
 
 
@@ -112,12 +119,10 @@ def _validate_ray_params(ray_params: Union[None, RayParams, dict]) -> RayParams:
 
 
 #: train() keyword arguments of this slice; anything else raises
-_KNOWN_KWARGS = {"verbose_eval", "callbacks", "serve_registry"}
+_KNOWN_KWARGS = {"verbose_eval", "callbacks", "serve_registry",
+                 "early_stopping_rounds", "maximize", "xgb_model"}
 #: train() keyword arguments of the JAX package outside this slice
-_OUT_OF_SLICE_KWARGS = {
-    "obj", "feval", "custom_metric", "early_stopping_rounds", "maximize",
-    "xgb_model", "_remote",
-}
+_OUT_OF_SLICE_KWARGS = {"obj", "feval", "custom_metric", "_remote"}
 
 
 def train(
@@ -142,6 +147,13 @@ def train(
     fallback.
     ``serve_registry``: a ``serve.ModelRegistry`` the trained model is
     loaded into (its version lands in ``additional_results``).
+    ``xgb_model``: a model to continue (a booster, its pickled bytes, a
+    saved-model path or its JSON document: ``coerce_model``); its trees come
+    first in the result and ``num_boost_round`` more are added.
+    ``early_stopping_rounds``: stop when the last metric of the last eval
+    set has not improved for that many rounds (larger is better for the
+    metrics of ``is_maximize_metric`` unless ``maximize`` says otherwise);
+    the booster's ``best_iteration`` / ``best_score`` record the best round.
     """
     start_time = time.time()
     if args:
@@ -167,20 +179,21 @@ def train(
             f"but of type {type(dtrain)}. FIX THIS by instantiating a "
             f"RayDMatrix first: `dtrain = RayDMatrix(data, labels)`."
         )
-    eval_names = []
+    evals = list(evals)
     for deval, name in evals:
-        if deval is not dtrain:
-            raise NotImplementedError(
-                f"eval set {name!r} is not the training matrix: "
-                f"xgboost_ray_tpu_torch evaluates on the training set only "
-                f"in this slice."
+        if not isinstance(deval, RayDMatrix):
+            raise ValueError(
+                f"Evaluation data must be a RayDMatrix, got {type(deval)} "
+                f"for eval set {name!r}."
             )
-        eval_names.append(name)
     parsed = parse_params(params)
-    verbose_eval = kwargs.get("verbose_eval", False)
-    callbacks = list(kwargs.get("callbacks") or [])
-    run = dict(num_boost_round=num_boost_round, verbose_eval=verbose_eval,
-               callbacks=callbacks)
+    init_booster = (None if kwargs.get("xgb_model") is None
+                    else coerce_model(kwargs["xgb_model"]))
+    run = dict(num_boost_round=num_boost_round,
+               verbose_eval=kwargs.get("verbose_eval", False),
+               callbacks=list(kwargs.get("callbacks") or []),
+               early_stopping_rounds=kwargs.get("early_stopping_rounds"),
+               maximize=kwargs.get("maximize"))
 
     t_load = time.time()
     world = distributed.process_count()
@@ -189,7 +202,11 @@ def train(
     if n_spawn > 1:
         booster, result, stats = _train_spawned(
             dtrain, params, num_actors, n_spawn, "cuda",
-            dict(eval_names=eval_names, **run))
+            dict(eval_names=[name for _, name in evals],
+                 eval_matrices=[None if deval is dtrain else deval
+                                for deval, _ in evals],
+                 xgb_model=None if init_booster is None
+                 else init_booster.save_raw(), **run))
     else:
         if world > 1:
             if num_actors < world:
@@ -198,15 +215,21 @@ def train(
                     f"RayParams(num_actors>={world}), got {num_actors}.")
             ranks = [int(r) for r in np.array_split(
                 np.arange(num_actors), world)[distributed.process_index()]]
-            dtrain.load_data(num_actors, ranks=ranks)
-            shards = dtrain.shards(ranks)
         else:
-            dtrain.load_data(num_actors)
-            shards = dtrain.shards()
-        engine = TorchEngine(shards, parsed, device=device,
-                             eval_names=eval_names,
-                             feature_names=dtrain.resolved_feature_names,
-                             feature_types=dtrain.feature_types)
+            ranks = None
+        dtrain.load_data(num_actors, ranks=ranks)
+        shards = dtrain.shards(ranks)
+        eval_shards = []
+        for deval, name in evals:
+            if deval is not dtrain:
+                deval.load_data(num_actors, ranks=ranks)
+            eval_shards.append(
+                (shards if deval is dtrain else deval.shards(ranks), name))
+        engine = TorchEngine(
+            shards, parsed, device=device, evals=eval_shards,
+            init_booster=init_booster,
+            feature_names=dtrain.resolved_feature_names,
+            feature_types=dtrain.feature_types)
         booster, result, stats = _run_rounds(engine, time.time() - t_load,
                                              **run)
     serve_registry = kwargs.get("serve_registry")
@@ -223,12 +246,28 @@ def train(
 
 
 def _run_rounds(engine: TorchEngine, setup_s: float, num_boost_round: int,
-                verbose_eval, callbacks):
-    """The round loop of one rank: (booster, evals_result, stats)."""
+                verbose_eval, callbacks, early_stopping_rounds=None,
+                maximize=None):
+    """The round loop of one rank: (booster, evals_result, stats). Every
+    rank sees the same all-reduced metrics, so callbacks and early stopping
+    that decide from them stop every rank in the same round."""
     result: Dict[str, Dict[str, List[float]]] = {}
+    es_set = es_metric = None
+    es_maximize, es_best, es_best_iter = False, None, -1
+    if early_stopping_rounds is not None and engine.evals:
+        es_set = engine.evals[-1].name
+        es_metric = engine.metric_names[-1]
+        es_maximize = (maximize if maximize is not None
+                       else is_maximize_metric(es_metric))
     round_times = []
     t_train = time.time()
+    for cb in callbacks:
+        if hasattr(cb, "before_training"):
+            cb.before_training(engine)
     for i in range(num_boost_round):
+        for cb in callbacks:
+            if hasattr(cb, "before_iteration"):
+                cb.before_iteration(engine, i, result)
         t0 = time.perf_counter()
         metrics = engine.step(i)
         round_times.append(time.perf_counter() - t0)
@@ -244,15 +283,27 @@ def _run_rounds(engine: TorchEngine, setup_s: float, num_boost_round: int,
                 for sn, ms in result.items() for mn, v in ms.items()
             )
             print(f"[{i}]\t{flat}")
-        # every rank sees the same all-reduced metrics, so callbacks that
-        # decide from them stop every rank in the same round
         stop = False
         for cb in callbacks:
             if hasattr(cb, "after_iteration"):
                 stop = bool(cb.after_iteration(engine, i, result)) or stop
+        if es_metric is not None:
+            cur = result[es_set][es_metric][-1]
+            if (es_best is None or (es_maximize and cur > es_best)
+                    or (not es_maximize and cur < es_best)):
+                es_best, es_best_iter = cur, i
+            elif i - es_best_iter >= early_stopping_rounds:
+                stop = True
         if stop:
             break
     booster = engine.get_booster()
+    if es_best_iter >= 0:
+        # the round of the whole model, init booster's rounds included
+        booster.best_iteration = engine.iteration_offset + es_best_iter
+        booster.best_score = es_best
+    for cb in callbacks:
+        if hasattr(cb, "after_training"):
+            cb.after_training(engine)
     stats = {
         "train_n": engine.n_global,
         "device": str(engine.device),
@@ -285,10 +336,14 @@ def _train_spawned(dtrain: RayDMatrix, params: Dict, num_actors: int,
                    n_ranks: int, device_type: str, options: Dict):
     """Spawn ``n_ranks`` ranks (``distributed.World``: NCCL with a card
     each, gloo on the CPU) that run ``train()`` inside their world
-    (``distributed._train_rank``) on ``dtrain``'s data, shared once, each
-    loading its own shards of ``num_actors``; rank 0's (booster,
-    evals_result, additional_results). ``options``: ``eval_names``,
-    ``num_boost_round``, ``verbose_eval``, ``callbacks``."""
+    (``distributed._train_rank``) on ``dtrain``'s data and every held-out
+    eval matrix's, each shared once, each rank loading its own shards of
+    ``num_actors``; rank 0's (booster, evals_result, additional_results).
+    ``options``: ``eval_names``, ``eval_matrices`` (beside the names: None
+    for ``dtrain``, else the eval RayDMatrix; default all None),
+    ``num_boost_round``, ``verbose_eval``, ``callbacks``,
+    ``early_stopping_rounds``, ``maximize``, ``xgb_model`` (``save_raw``
+    bytes or None)."""
     options = dict(options)
     try:
         pickle.dumps(options["callbacks"])
@@ -296,10 +351,12 @@ def _train_spawned(dtrain: RayDMatrix, params: Dict, num_actors: int,
         raise ValueError(
             f"train() spawns {n_ranks} ranks here and sends them the "
             f"callbacks, which must be picklable: {exc}") from exc
-    fields = dtrain.loader.load_fields()
-    data = distributed.share({"x": fields["data"], "label": fields["label"],
-                              "weight": fields["weight"],
-                              "base_margin": fields["base_margin"]})
+    data = _share_fields(dtrain)
+    options["eval_data"] = [
+        None if dm is None else dict(_share_fields(dm),
+                                     sharding=dm.sharding.name)
+        for dm in options.pop("eval_matrices", None)
+        or [None] * len(options["eval_names"])]
     rounds = options.pop("num_boost_round")
     options.update(
         sharding=dtrain.sharding.name, num_actors=num_actors,
@@ -310,6 +367,15 @@ def _train_spawned(dtrain: RayDMatrix, params: Dict, num_actors: int,
                                    device_type, data, params, rounds, options)
     return (RayXGBoostBooster.load_raw(out[0]["model"]),
             out[0]["evals_result"], out[0]["additional_results"])
+
+
+def _share_fields(dm: RayDMatrix):
+    """A matrix's loaded fields as tensors in shared memory, for the ranks
+    (each rank rebuilds the matrix and loads its own shards)."""
+    fields = dm.loader.load_fields()
+    return distributed.share({"x": fields["data"], "label": fields["label"],
+                              "weight": fields["weight"],
+                              "base_margin": fields["base_margin"]})
 
 
 def _user_base_margin_shards(data: RayDMatrix, user_bm, n_shards: int):

@@ -69,6 +69,10 @@ SIGNATURES = {
         "xrt_leaf_values": ([P, P, I, I, P, P, P, P], I),
         "xrt_partition_tile": ([], I),
     },
+    "walk": {
+        "xrt_walk_binned": (
+            [P, P, P, P, P, I, P, I, ctypes.c_longlong, I, I, I, P, P], I),
+    },
 }
 
 

@@ -1,9 +1,12 @@
 """Level-wise (depth-wise) tree growth over node-sorted rows.
 
 Port of ``xgboost_ray_tpu/ops/grow.py``: ``GrowConfig`` (``:164``), the
-padded-heap ``Tree`` (``:239``), ``route_right_binned`` (``:65``) and the
+padded-heap ``Tree`` (``:239``), ``route_right_binned`` (``:65``), the
 depthwise ``build_tree`` (``:269-785``) on its order-tracking path with
-sibling subtraction (``:433-438``, ``:529-561``) — the accelerator path.
+sibling subtraction (``:433-438``, ``:529-561``) — the accelerator path —
+and B4, ``predict_tree_binned`` (``:786``): one tree walked over binned
+rows, what the engine adds to an eval set's margins each round (kernel:
+``csrc/walk.cu``; ``predict_tree_binned_plain`` beside it).
 
 Per level d (``n_nodes = 2**d``):
 
@@ -41,6 +44,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from xgboost_ray_tpu_torch.ops import _build
 from xgboost_ray_tpu_torch.ops.histogram import (
     build_histogram,
     dequantize,
@@ -170,3 +174,72 @@ def build_tree(
     node_value, state = leaf_records(merged(totals), active, rec)
     partition_leaf_values(order, seg, state, node_value, row_value)
     return tree, row_value
+
+
+# --------------------------------------------------------------------------
+# B4: the binned tree walk
+# --------------------------------------------------------------------------
+
+
+def predict_tree_binned_plain(tree: Tree, bins: torch.Tensor, max_depth: int,
+                              missing_bin: int) -> torch.Tensor:
+    """Walk one tree over binned rows ``bins`` [N, F]; the leaf value of
+    every row [N] f32 (the JAX ``predict_tree_binned``, numeric features):
+    ``max_depth`` steps, a leaf keeping its index."""
+    n, num_features = bins.shape
+    idx = torch.zeros(n, dtype=torch.int64, device=bins.device)
+    for _ in range(max_depth):
+        f = tree.feature[idx].clamp(0, num_features - 1).long()
+        bv = bins.gather(1, f[:, None])[:, 0].to(torch.int32)
+        go_right = route_right_binned(bv, tree.split_bin[idx],
+                                      tree.default_left[idx], missing_bin)
+        nxt = 2 * idx + 1 + go_right.long()
+        idx = torch.where(tree.is_leaf[idx], idx, nxt)
+    return tree.value[idx]
+
+
+_WALK_DTYPES = {"feature": torch.int32, "split_bin": torch.int32,
+                "default_left": torch.bool, "is_leaf": torch.bool,
+                "value": torch.float32}
+
+
+def predict_tree_binned(tree: Tree, bins: torch.Tensor, max_depth: int,
+                        missing_bin: int) -> torch.Tensor:
+    """B4 wrapper: row values [N] f32 of ``tree`` (a heap of
+    ``2^(max_depth + 1) - 1`` nodes) over ``bins`` [N, F] (uint8 or int16).
+    CPU tensors take ``predict_tree_binned_plain``; CUDA tensors launch the
+    kernel of ``csrc/walk.cu`` (``predict_tree_binned.launches`` counts
+    them) or raise."""
+    if not bins.is_cuda:
+        return predict_tree_binned_plain(tree, bins, max_depth, missing_bin)
+    n, num_features = bins.shape
+    dev = bins.device
+    heap = (1 << (max_depth + 1)) - 1
+    if not (bins.dtype in (torch.uint8, torch.int16) and bins.is_contiguous()
+            and num_features >= 1):
+        raise ValueError("predict_tree_binned: bins must be contiguous uint8 "
+                         "or int16 [N, F]")
+    for name, dtype in _WALK_DTYPES.items():
+        t = getattr(tree, name)
+        if (t.device != dev or t.dtype != dtype or t.shape != (heap,)
+                or not t.is_contiguous()):
+            raise ValueError(
+                f"predict_tree_binned: tree.{name} must be a contiguous "
+                f"{dtype} [{heap}] on the bins' device (max_depth "
+                f"{max_depth})")
+    out = torch.empty(n, dtype=torch.float32, device=dev)
+    if n == 0:
+        return out
+    with torch.cuda.device(dev):
+        code = _build.library("walk").xrt_walk_binned(
+            tree.feature.data_ptr(), tree.split_bin.data_ptr(),
+            tree.default_left.data_ptr(), tree.is_leaf.data_ptr(),
+            tree.value.data_ptr(), heap, bins.data_ptr(), bins.element_size(),
+            n, num_features, max_depth, missing_bin, out.data_ptr(),
+            _build.stream_ptr(dev))
+    _build.check(code, "B4 binned walk")
+    predict_tree_binned.launches += 1
+    return out
+
+
+predict_tree_binned.launches = 0

@@ -114,7 +114,8 @@ def _pow2(e: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 def scales_for(absmax: torch.Tensor, n_global: int) -> torch.Tensor:
     """The fixed-point scales for (max|g|, max|h|) ``absmax`` (f32 [2]) over
     ``n_global`` rows: f32 [4] = (2^eg, 2^eh, 2^-eg, 2^-eh) on ``absmax``'s
-    device, each e the largest with n_global * (max|v| * 2^e + 1) < 2^62
+    device (for any f32 [k] of maxima, the k scales then their inverses:
+    the sketch's weights take k = 1), each e the largest with n_global * (max|v| * 2^e + 1) < 2^62
     (clamped to [-126, 126]; 126 where the max is 0). A few launches and
     no host read: ``floor(log2(...))`` may be one off, so the first of
     e0 + 1, e0, e0 - 1 that fits is taken."""

@@ -1,13 +1,15 @@
 """Evaluation metrics of this slice: logloss, error, rmse.
 
 Port of ``xgboost_ray_tpu/ops/metrics.py`` ``_logloss`` (``:36``),
-``_error`` (``:43``) and ``_rmse`` (``:27``). Each metric reduces to a
+``_error`` (``:43``) and ``_rmse`` (``:27``), and the direction early
+stopping takes (``parse_metric_name``, ``:442``; ``is_maximize_metric``,
+``:452``). Each metric reduces to a
 (numerator, denominator) pair of weighted sums; the engine divides on the
 host, as ``engine.TpuEngine.step`` does. On the card the sums come out of
 K4 (``ops/objectives.round_update``) as per-block partials.
 """
 
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -59,3 +61,18 @@ def metric_values(sums: torch.Tensor, names: Sequence[str]) -> Dict[str, float]:
         else:
             raise NotImplementedError(f"eval_metric={name!r}")
     return out
+
+
+def parse_metric_name(name: str) -> Tuple[str, Optional[float]]:
+    """Split 'ndcg@10' / 'error@0.7' style names into (base, arg)."""
+    if "@" in name:
+        base, arg = name.split("@", 1)
+        # xgboost's "ndcg@10-" means "minus" convention; strip trailing '-'
+        return base, float(arg.rstrip("-"))
+    return name, None
+
+
+def is_maximize_metric(name: str) -> bool:
+    """Whether a larger value of the metric is better (early stopping)."""
+    base, _ = parse_metric_name(name)
+    return base in ("auc", "ndcg", "map", "aucpr", "auc_exact")

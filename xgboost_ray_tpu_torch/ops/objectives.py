@@ -12,7 +12,11 @@ in one pass over the rows: ``margin += row_value`` (the new tree's leaf
 value per row), the metric partial sums on the new margin (logloss, error,
 squared error, weight: ``ops/metrics.py`` ``_logloss``/``_error``/
 ``_rmse``), and the next round's (g, h). Round 0 runs it with
-``row_value = 0``. What bounds it: bytes — five f32 reads/writes per row
+``row_value = 0``. Its eval mode (``with_gh=False``) serves a held-out
+eval set: the same margin add and partials over that set's rows (its
+``row_value`` from B4, ``ops/grow.predict_tree_binned``), no (g, h)
+written; the partials replace the eval metrics of the reference's round
+(``engine.py:1427-1462``). What bounds it: bytes — five f32 reads/writes per row
 plus the (g, h) pair; one block reduction per CTA writes the partials, which
 the wrapper sums. ``max(p (1 - p), 1e-16)`` and the softplus form of the
 logloss are kept as the JAX functions write them. The plain version
@@ -26,7 +30,7 @@ with ``u = 1 + e``, within a few ulps of the plain ``logaddexp``.
 import dataclasses
 import functools
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -148,15 +152,18 @@ def grad_hess(margin: torch.Tensor, label: torch.Tensor, weight: torch.Tensor,
 
 def round_update_plain(margin: torch.Tensor, row_value: torch.Tensor,
                        label: torch.Tensor, weight: torch.Tensor,
-                       logistic: bool, scale_pos_weight: float = 1.0
-                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch K4: updates ``margin`` in place; returns (gh [N, 2],
-    partial sums [4] f64 in ``PARTIALS`` order)."""
+                       logistic: bool, scale_pos_weight: float = 1.0,
+                       with_gh: bool = True
+                       ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
+    """Plain PyTorch K4: updates ``margin`` in place; returns (gh [N, 2], or
+    None without ``with_gh``, partial sums [4] f64 in ``PARTIALS`` order)."""
     from xgboost_ray_tpu_torch.ops.metrics import metric_partials
 
     margin.add_(row_value)
-    g, h = grad_hess(margin, label, weight, logistic, scale_pos_weight)
     sums = metric_partials(margin, label, weight)
+    if not with_gh:
+        return None, sums
+    g, h = grad_hess(margin, label, weight, logistic, scale_pos_weight)
     return torch.stack([g, h], dim=1), sums
 
 
@@ -167,7 +174,8 @@ def _k4_kernel():
 
     @triton.jit
     def k4(margin_ptr, rv_ptr, label_ptr, weight_ptr, gh_ptr, part_ptr, n,
-           spw, LOGISTIC_OBJ: tl.constexpr, BLOCK: tl.constexpr):
+           spw, LOGISTIC_OBJ: tl.constexpr, WITH_GH: tl.constexpr,
+           BLOCK: tl.constexpr):
         pid = tl.program_id(0)
         offs = pid * BLOCK + tl.arange(0, BLOCK)
         mask = offs < n
@@ -203,15 +211,16 @@ def _k4_kernel():
         tl.store(part_ptr + pid * 4 + 1, tl.sum(w * wrong, axis=0))
         tl.store(part_ptr + pid * 4 + 2, tl.sum(w * d * d, axis=0))
         tl.store(part_ptr + pid * 4 + 3, tl.sum(w, axis=0))
-        if LOGISTIC_OBJ:
-            ww = w * tl.where(pos, spw, 1.0)
-            g = (p - y) * ww
-            h = tl.maximum(p * (1.0 - p), 1e-16) * ww
-        else:
-            g = d * w
-            h = w
-        tl.store(gh_ptr + offs * 2, g, mask=mask)
-        tl.store(gh_ptr + offs * 2 + 1, h, mask=mask)
+        if WITH_GH:
+            if LOGISTIC_OBJ:
+                ww = w * tl.where(pos, spw, 1.0)
+                g = (p - y) * ww
+                h = tl.maximum(p * (1.0 - p), 1e-16) * ww
+            else:
+                g = d * w
+                h = w
+            tl.store(gh_ptr + offs * 2, g, mask=mask)
+            tl.store(gh_ptr + offs * 2 + 1, h, mask=mask)
 
     _build.TRITON_KERNELS.append(k4)
     return k4
@@ -222,14 +231,16 @@ _K4_BLOCK = 1024
 
 def round_update(margin: torch.Tensor, row_value: torch.Tensor,
                  label: torch.Tensor, weight: torch.Tensor, logistic: bool,
-                 scale_pos_weight: float = 1.0
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+                 scale_pos_weight: float = 1.0, with_gh: bool = True
+                 ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
     """K4 wrapper: CPU tensors take the plain version; CUDA tensors launch
-    the Triton kernel (``round_update.launches`` counts the launches)."""
+    the Triton kernel (``round_update.launches`` counts every launch,
+    ``round_update.eval_launches`` those of the eval mode, ``with_gh=False``:
+    no gradients, gh is None)."""
     tensors = (margin, row_value, label, weight)
     if not margin.is_cuda:
         return round_update_plain(margin, row_value, label, weight, logistic,
-                                  scale_pos_weight)
+                                  scale_pos_weight, with_gh)
     n = margin.shape[0]
     for t in tensors:
         if (t.device != margin.device or t.dtype != torch.float32
@@ -239,16 +250,20 @@ def round_update(margin: torch.Tensor, row_value: torch.Tensor,
                 "contiguous float32 [N] tensors on one CUDA device"
             )
     n_blocks = max(1, math.ceil(n / _K4_BLOCK))
-    gh = torch.empty((n, 2), dtype=torch.float32, device=margin.device)
+    gh = (torch.empty((n, 2), dtype=torch.float32, device=margin.device)
+          if with_gh else None)
     part = torch.empty((n_blocks, 4), dtype=torch.float32, device=margin.device)
     with torch.cuda.device(margin.device):
         _k4_kernel()[(n_blocks,)](
-            margin, row_value, label, weight, gh, part, n,
-            float(scale_pos_weight), LOGISTIC_OBJ=bool(logistic),
-            BLOCK=_K4_BLOCK, num_warps=4,
+            margin, row_value, label, weight, margin if gh is None else gh,
+            part, n, float(scale_pos_weight), LOGISTIC_OBJ=bool(logistic),
+            WITH_GH=bool(with_gh), BLOCK=_K4_BLOCK, num_warps=4,
         )
     round_update.launches += 1
+    if not with_gh:
+        round_update.eval_launches += 1
     return gh, part.sum(0, dtype=torch.float64)
 
 
 round_update.launches = 0
+round_update.eval_launches = 0
