@@ -97,6 +97,29 @@ CUDA device, ``nvcc`` and ``triton``, and nothing of JAX. Phases:
    and ROADMAP C2, every row sketched with random positive weights twice
    and with its rows in two shards folded: bitwise the same cuts.
 
+9. multiclass (``multiclass``, right after phase 8): Covertype's shape
+   (``make_covertype_like``: 581,012 rows x 54 features, 10 continuous
+   then 4 + 40 one-hot columns, labels a seeded function of the features
+   with Covertype's class counts), the last 116,202 rows the test set,
+   ``multi:softprob`` with ``num_class`` 7, depth 6, 256 bins, 10 rounds
+   (70 trees); ``train()`` without and with the test set in turns, each
+   run's launches counted from 0 and checked exactly (per tree the binary
+   path's K1-K3, one training-mode softmax pass a round and round 0's;
+   with the test set one B4 over the round's 7 trees and one eval-mode
+   pass a round); reruns and two shards folded give equal dumps and
+   bitwise margins; the test mlogloss falls and the test margins are the
+   booster's within 1e-4; the softmax pass in each mode and B4 at T = 7
+   bitwise against their plain versions on the phase's tensors (partial
+   sums within 1e-5 relative) and timed, the transform beside
+   ``torch.softmax``; K1 and K2's level step at 54 features; a profile
+   of two rounds; ``predict()`` over every row (values bitwise the plain
+   transform of B8's margins, one B8 and one transform launch a chunk);
+   a server of the model (probes bitwise, no build after warmup, a short
+   closed loop: every batch one B8 margin launch and one transform
+   launch, no client error); early stopping on the test mlogloss; a
+   5 + 5 warm start twice; the card against the CPU path on 50,000 rows
+   and 3 rounds (phase 4's rule).
+
 Phase 6's model is trained, and phase 7 run, right after phase 1: later in
 the process ``torch.profiler`` records no device activity for B8's
 full-size launches (not in a fresh process, nor after any one of phases
@@ -125,6 +148,9 @@ it is bitwise its fixed-point plain version there) and a 10-round
 no result line, and works in an older tree too (one from before K1's
 fixed point is timed with its f32 K1), so two trees are compared in turns
 in one call.
+
+``--multiclass-only`` runs the build and phase 9 alone and prints its
+kernel rows but no result line.
 
 ``--ranks-only`` runs the build, the 1-rank main path and the ranks phase
 (on a host of two or more cards also the NCCL path, against the 1-rank
@@ -800,7 +826,7 @@ def train_expect(rounds, depth):
     return {"K1": rounds * (depth + 1), "K1deq": rounds * (depth + 1),
             "K2": 0, "K2level": rounds * depth,
             "K2leaf": rounds, "K3": rounds * depth, "K3leaf": rounds,
-            "K4": rounds + 1, "B4": 0, "K4eval": 0}
+            "K4": rounds + 1, "B4": 0, "K4eval": 0, "SMX": 0, "SMXeval": 0}
 
 
 def check_launches(launches, expect, what):
@@ -1187,7 +1213,16 @@ def b8_counters():
     out["B8leaf"] = leaf.launches_by_plan["heap", "rows"]
     out["B8other"] = m.launches + leaf.launches - sum(out.values())
     out["B8value"] = m.launches_by_mode["value"]
+    # the softmax pass's transform mode after B8 (K-output values; absent
+    # in a tree of the package from before it)
+    out["SMXtransform"] = getattr(_softmax_transform(), "launches", 0)
     return out
+
+
+def _softmax_transform():
+    from xgboost_ray_tpu_torch.ops import objectives as O
+
+    return getattr(O, "softmax_transform", None)
 
 
 def reset_b8_counters():
@@ -1198,12 +1233,14 @@ def reset_b8_counters():
         fn.launches_by_layout = dict.fromkeys(PR.LAYOUTS, 0)
         fn.launches_by_plan = dict.fromkeys(PR.PLANS, 0)
     PR.predict_margin.launches_by_mode = dict.fromkeys(("margin", "value"), 0)
+    if _softmax_transform() is not None:
+        _softmax_transform().launches = 0
 
 
 def b8_expect(**counts):
-    """B8's counters all 0 but ``counts``."""
+    """B8's counters (and the softmax transform's) all 0 but ``counts``."""
     return {**dict.fromkeys((*B8_PLAN_ROWS.values(), "B8leaf", "B8other",
-                             "B8value"), 0), **counts}
+                             "B8value", "SMXtransform"), 0), **counts}
 
 
 def logloss_of_values(p, y):
@@ -1717,22 +1754,28 @@ def evals_expect(rounds, depth):
 
 def b4_work(tree, bins, depth, missing_bin):
     """(distinct 32-byte sectors of ``bins`` the walk reads, node visits)
-    of one B4 walk on this data: the bytes and operations of its bound."""
+    of one B4 walk on this data: the bytes and operations of its bound. A
+    tree of [T, heap] fields is a launch over T trees: the sectors of all
+    T walks together."""
     import torch
 
     n, f = bins.shape
+    trees = ([type(tree)(*[a[t] for a in tree])
+              for t in range(tree.feature.shape[0])]
+             if tree.feature.dim() == 2 else [tree])
     rows = torch.arange(n, device=bins.device)
-    idx = torch.zeros(n, dtype=torch.int64, device=bins.device)
     addrs, visits = [], 0
-    for _ in range(depth):
-        live = ~tree.is_leaf[idx]
-        feat = tree.feature[idx].clamp(0, f - 1).long()
-        addrs.append(((rows * f + feat) * bins.element_size())[live] // 32)
-        visits += int(live.sum())
-        bv = bins.gather(1, feat[:, None])[:, 0].int()
-        right = torch.where(bv == missing_bin, ~tree.default_left[idx],
-                            bv > tree.split_bin[idx])
-        idx = torch.where(live, 2 * idx + 1 + right.long(), idx)
+    for tr in trees:
+        idx = torch.zeros(n, dtype=torch.int64, device=bins.device)
+        for _ in range(depth):
+            live = ~tr.is_leaf[idx]
+            feat = tr.feature[idx].clamp(0, f - 1).long()
+            addrs.append(((rows * f + feat) * bins.element_size())[live] // 32)
+            visits += int(live.sum())
+            bv = bins.gather(1, feat[:, None])[:, 0].int()
+            right = torch.where(bv == missing_bin, ~tr.default_left[idx],
+                                bv > tr.split_bin[idx])
+            idx = torch.where(live, 2 * idx + 1 + right.long(), idx)
     return int(torch.unique(torch.cat(addrs)).numel()), visits
 
 
@@ -1784,7 +1827,7 @@ def phase_evals(x, y, records, rounds=10, depth=6, es_rounds=30):
                "setup_s": extra["setup_time_s"], "engine": keep.engine,
                "margins": keep.engine.get_margins()[:, 0]}
         if held_out:
-            out["test_margins"] = keep.engine.evals[1].margins.cpu().numpy()
+            out["test_margins"] = keep.engine.evals[1].margins.cpu().numpy()[:, 0]
         return out
 
     res = {"phase": "evals", "train_rows": int(xt.shape[0]),
@@ -1859,7 +1902,7 @@ def phase_evals(x, y, records, rounds=10, depth=6, es_rounds=30):
             tree, es.bins, depth, 256), iters=3),
         bound_ms=b4_bound[0], bound_by=b4_bound[1], library_ms=None)
     value = walk()
-    m0 = es.margins.clone()
+    m0 = es.margins.view(-1).clone()
     mk, mp = m0.clone(), m0.clone()
     _, sk = O.round_update(mk, value, es.label, es.weight, True,
                            with_gh=False)
@@ -1966,6 +2009,585 @@ def phase_evals(x, y, records, rounds=10, depth=6, es_rounds=30):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 9: multiclass at Covertype's width (multi:softprob, K = 7)
+# ---------------------------------------------------------------------------
+
+#: UCI Covertype (Blackard & Dean): 581,012 rows x 54 features (10
+#: continuous, then 4 wilderness-area and 40 soil-type one-hot columns), 7
+#: classes of these counts
+COVERTYPE_CLASS_COUNTS = (211_840, 283_301, 35_754, 2_747, 9_493, 17_367,
+                          20_510)
+COVERTYPE_ROWS = sum(COVERTYPE_CLASS_COUNTS)
+#: the held-out rows: the last 116,202 (the first 464,810 train)
+COVERTYPE_TEST = 116_202
+
+
+def make_covertype_like(n_rows, seed=0):
+    """Covertype's layout from a numpy seed: f32 [n_rows, 54] (10
+    continuous columns at the data set's means and spreads, a 4-column
+    wilderness one-hot and a 40-column soil one-hot, exactly one 1 in each
+    group of every row) and f32 labels 0-6: the rows ranked by a seeded
+    score of their features plus noise, cut into blocks of Covertype's
+    class counts (scaled to ``n_rows``), so trees learn them."""
+    rng = np.random.RandomState(seed)
+    loc = np.array([2959, 156, 14, 269, 46, 2350, 212, 223, 143, 1980],
+                   np.float32)
+    scale = np.array([280, 112, 7.5, 212, 58, 1559, 27, 20, 38, 1324],
+                     np.float32)
+    z = rng.standard_normal((n_rows, 10)).astype(np.float32)
+    wild = rng.choice(4, n_rows, p=[0.45, 0.05, 0.44, 0.06])
+    soil = rng.choice(40, n_rows, p=rng.dirichlet(np.full(40, 0.5)))
+    x = np.zeros((n_rows, 54), np.float32)
+    x[:, :10] = z * scale + loc
+    x[np.arange(n_rows), 10 + wild] = 1.0
+    x[np.arange(n_rows), 14 + soil] = 1.0
+    score = (z @ rng.standard_normal(10).astype(np.float32)
+             + rng.standard_normal(4)[wild] + rng.standard_normal(40)[soil]
+             + 0.5 * rng.standard_normal(n_rows))
+    counts = np.floor(np.array(COVERTYPE_CLASS_COUNTS) * n_rows
+                      / sum(COVERTYPE_CLASS_COUNTS)).astype(np.int64)
+    counts[np.argmax(counts)] += n_rows - counts.sum()
+    order = np.argsort(score, kind="stable")
+    y = np.empty(n_rows, np.float32)
+    start = 0
+    for c in rng.permutation(7):
+        y[order[start:start + counts[c]]] = c
+        start += counts[c]
+    return x, y
+
+
+class _cpu_fixed_point:
+    """With ``on``, a ``train()`` on the CPU sums K1's histograms in the
+    card's int64 fixed point (``build_histogram_fixed_plain``, its
+    dequantise step's plain version, the round's scales from
+    ``quant_scales``) instead of the f32 sums of the JAX package."""
+
+    def __init__(self, on):
+        self.on = on
+
+    def __enter__(self):
+        if not self.on:
+            return self
+        from xgboost_ray_tpu_torch import engine as E
+        from xgboost_ray_tpu_torch.ops import grow as G
+        from xgboost_ray_tpu_torch.ops import histogram as H
+
+        def fixed(bins, gh, rows, seg, n_nodes, nbt, with_hist=True,
+                  qscale=None):
+            return H.build_histogram_fixed_plain(bins, gh, rows, seg, n_nodes,
+                                                 nbt, qscale, with_hist)
+
+        def scales(engine):
+            return H.quant_scales(engine.gh, engine.n_global, engine.coll.max)
+
+        self.saved = [(G, "build_histogram", G.build_histogram),
+                      (G, "dequantize", G.dequantize),
+                      (E.TorchEngine, "_scales", E.TorchEngine._scales)]
+        G.build_histogram, G.dequantize = fixed, H.dequantize_plain
+        E.TorchEngine._scales = scales
+        return self
+
+    def __exit__(self, *exc):
+        for obj, name, value in getattr(self, "saved", ()):
+            setattr(obj, name, value)
+
+
+def multiclass_expect(rounds, depth, k, held_out):
+    """Launches of a ``train()`` of K classes: per tree the binary path's
+    (``train_expect`` over rounds x K trees), one training-mode softmax
+    pass a round and round 0's in place of K4; with a held-out set one B4
+    launch over the round's K trees and one eval-mode pass a round."""
+    out = {**train_expect(rounds * k, depth), "K4": 0, "SMX": rounds + 1}
+    if held_out:
+        out.update(B4=rounds, SMX=2 * rounds + 1, SMXeval=rounds)
+    return out
+
+
+def _kernel_record(records, key, fn, plain, bound, flush, launches, err,
+                   library=None):
+    """Time ``fn`` (events, device time L2 flushed and warm) beside its
+    plain version; fill ``records[key]``."""
+    records[key].update(
+        launches=launches, max_abs_err=err, ms=cuda_ms(fn, iters=20),
+        device_ms=profiled_ms(lambda: (flush.zero_(), fn())),
+        device_ms_l2_warm=profiled_ms(fn),
+        plain_ms=cuda_ms(plain, iters=3), bound_ms=bound[0],
+        bound_by=bound[1], library_ms=library)
+
+
+def phase_k1_k2_f54(n, records, launches):
+    """K1 and K2's level step at Covertype's 54 features (K1 in two feature
+    tiles of 27) and the phase's training rows, level 5 (32 nodes): K1
+    bitwise against its fixed-point plain version, K2 bitwise against its
+    plain version, both timed."""
+    import torch
+
+    from xgboost_ray_tpu_torch.ops import histogram as H
+    from xgboost_ray_tpu_torch.ops import split as S
+    from xgboost_ray_tpu_torch.ops.grow import empty_tree
+
+    f, nbt, n_nodes = 54, 257, 32
+    bins, gh, order, seg = level_inputs(n, f, n_nodes, 9, False)
+    qs = H.quant_scales(gh, n)
+    err1, _ = hold_k1(bins, gh, order, seg, n_nodes, nbt, qs, False,
+                      "level 5, F = 54")
+    hp, _ = H.build_histogram_plain(bins, gh, order, seg, n_nodes, nbt)
+    g2 = torch.Generator(device="cuda").manual_seed(19)
+    level = dict(
+        hist=hp[0::2].contiguous(), prev_hist=hp[0::2] + hp[1::2],
+        small_is_right=torch.rand(16, generator=g2, device="cuda") < 0.5,
+        active=torch.arange(32, device="cuda") % 13 != 5)
+    cuts = torch.sort(torch.randn(f, nbt - 2, generator=g2, device="cuda"),
+                      dim=1).values
+    fhm = torch.arange(f, device="cuda") % 3 != 0
+    p = S.SplitParams()
+    rec_k = S.TreeRecords(empty_tree(127, "cuda"), cuts, fhm, p)
+    rec_p = S.TreeRecords(empty_tree(127, "cuda"), cuts, fhm, p)
+    lk = S.split_level(**level, rec=rec_k)
+    lp = S.split_level_plain(**level, rec=rec_p)
+    torch.cuda.synchronize()
+    pairs = ([(getattr(lk.splits, k), getattr(lp.splits, k))
+              for k in lk.splits._fields]
+             + [(getattr(lk, k), getattr(lp, k))
+                for k in ("node_value", "state", "active", "hist")]
+             + list(zip(rec_k.tree, rec_p.tree)))
+    check(all(torch.equal(bits(a), bits(b)) for a, b in pairs),
+          "K2 level step at F = 54 not bitwise equal to its plain version")
+    flat = H.flat_bucket_ids(bins, order, seg, n_nodes, nbt)
+    src = H.quantize_gh(gh[order.long()], qs)[:, None, :].expand(
+        n, f, 2).reshape(-1, 2)
+    out = torch.zeros((n_nodes * f * nbt, 2), dtype=torch.int64,
+                      device="cuda")
+    lib_k1 = cuda_ms(lambda: out.index_add_(0, flat, src), iters=3)
+    del flat, src, out
+    hist_bytes = n_nodes * f * nbt * 2 * 4
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    _kernel_record(
+        records, "K1f54",
+        lambda: H.build_histogram(bins, gh, order, seg, n_nodes, nbt,
+                                  qscale=qs),
+        lambda: H.build_histogram_fixed_plain(bins, gh, order, seg, n_nodes,
+                                              nbt, qs),
+        bound_ms(n * f * 2 + n * 4 + n * 8 + 2 * hist_bytes + n_nodes * 16,
+                 2 * n * f + 4 * n), flush, launches["K1"], err1, lib_k1)
+    _kernel_record(
+        records, "K2levelf54", lambda: S.split_level(**level, rec=rec_k),
+        lambda: S.split_level_plain(**level, rec=rec_p),
+        bound_ms(2 * hist_bytes + 16 + 32 + 32 * (4 + 38),
+                 n_nodes * f * (3 * nbt + 30 * (nbt - 2))),
+        flush, launches["K2level"], float((lk.hist - lp.hist).abs().max()))
+    del bins, gh, order, seg, hp, level, flush
+    torch.cuda.empty_cache()
+
+
+def phase_multiclass(records, rounds=10, depth=6, es_rounds=30,
+                     cmp_rows=50_000, cmp_rounds=3):
+    """Covertype's configuration: ``multi:softprob``, K = 7, depth 6, 256
+    bins, ``eval_metric`` merror then mlogloss, 464,810 rows train and the
+    last 116,202 are the test set. ``train()`` without and with the test
+    set in turns (without, with, with, without), each run's launches
+    counted from 0 and checked exactly; determinism (the two runs with the
+    test set, and a run with the rows in two shards folded, equal dumps and
+    bitwise margins); the test mlogloss falls and the test margins equal
+    ``booster.predict(x_test, output_margin=True)`` within 1e-4; the
+    softmax pass (each mode) and B4 over a round's 7 trees against their
+    plain versions on the phase's own tensors, timed; K1 and K2 at 54
+    features; a profile of two rounds; ``predict()`` over every row
+    (values bitwise the plain transform of B8's margins, rows summing to
+    1; ``multi:softmax`` the argmax classes); a server of the model
+    (probes bitwise, no build after warmup, a short closed loop with no
+    client error); early stopping on the test mlogloss; a 5 + 5 warm
+    start twice; the card against the CPU path on ``cmp_rows`` rows."""
+    import torch
+
+    import xgboost_ray_tpu_torch as xrt
+    from xgboost_ray_tpu_torch import serve
+    from xgboost_ray_tpu_torch.distributed import _KeepEngine
+    from xgboost_ray_tpu_torch.engine import (
+        kernel_launches,
+        reset_kernel_launches,
+    )
+    from xgboost_ray_tpu_torch.matrix import RayShardingMode, combine_data
+    from xgboost_ray_tpu_torch.ops import grow as G
+    from xgboost_ray_tpu_torch.ops import objectives as O
+
+    k = 7
+    t_phase = time.perf_counter()
+    x, y = make_covertype_like(COVERTYPE_ROWS, seed=0)
+    xt, yt = x[:-COVERTYPE_TEST], y[:-COVERTYPE_TEST]
+    xv, yv = x[-COVERTYPE_TEST:], y[-COVERTYPE_TEST:]
+    n_train = xt.shape[0]
+    params = {"objective": "multi:softprob", "num_class": k,
+              "eval_metric": ["merror", "mlogloss"],  # stops on mlogloss
+              "max_depth": depth, "max_bin": 256}
+
+    def run(n_rounds, held_out=True, actors=1, rows=None, device="cuda:0",
+            **kw):
+        xr, yr = (xt, yt) if rows is None else (xt[:rows], yt[:rows])
+        dtrain = xrt.RayDMatrix(xr, yr)
+        evals = [(dtrain, "train")]
+        if held_out:
+            evals.append((xrt.RayDMatrix(xv, yv), "test"))
+        keep, ev, extra = _KeepEngine(), {}, {}
+        reset_kernel_launches()
+        if device != "cpu":
+            torch.cuda.synchronize()
+        bst = xrt.train(params, dtrain, n_rounds, evals=evals,
+                        evals_result=ev, additional_results=extra,
+                        callbacks=[keep], device=device,
+                        ray_params=xrt.RayParams(num_actors=actors), **kw)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        launches = kernel_launches()
+        m = keep.engine.get_margins()
+        sizes = [len(range(r, xr.shape[0], actors)) for r in range(actors)]
+        out = {"bst": bst, "ev": ev, "launches": launches,
+               "round_ms": [r * 1e3 for r in extra["round_times_s"]],
+               "setup_s": extra["setup_time_s"], "engine": keep.engine,
+               "margins": combine_data(RayShardingMode.INTERLEAVED,
+                                       np.split(m, np.cumsum(sizes)[:-1]))}
+        if held_out:
+            out["test_margins"] = keep.engine.evals[1].margins.cpu().numpy()
+        return out
+
+    res = {"phase": "multiclass", "rows": int(COVERTYPE_ROWS),
+           "train_rows": int(n_train), "test_rows": int(COVERTYPE_TEST),
+           "features": int(x.shape[1]), "classes": k, "rounds": rounds,
+           "max_depth": depth, "class_counts": np.bincount(
+               y.astype(np.int64), minlength=k).tolist()}
+    timed = {False: [], True: []}
+    for held_out in (False, True, True, False):
+        r = run(rounds, held_out)
+        check_launches(r["launches"],
+                       multiclass_expect(rounds, depth, k, held_out),
+                       f"multiclass train() {'with' if held_out else 'without'}"
+                       f" the test set")
+        check(r["bst"].num_trees == rounds * k,
+              f"{r['bst'].num_trees} trees, not {rounds * k}")
+        timed[held_out].append(r)
+        if held_out and len(timed[True]) == 1:
+            kept = r
+        else:
+            r.pop("engine")
+    first, again = timed[True]
+    folded = run(rounds, held_out=False, actors=2)
+    folded.pop("engine")
+    base = timed[False][0]
+    det = {"dump_equal_rerun": first["bst"].get_dump()
+           == again["bst"].get_dump(),
+           "margins_bitwise_rerun": same_bits(first["margins"],
+                                              again["margins"])
+           and same_bits(first["test_margins"], again["test_margins"]),
+           "evals_equal_rerun": first["ev"] == again["ev"],
+           "dump_equal_two_shards": folded["bst"].get_dump()
+           == base["bst"].get_dump(),
+           "margins_bitwise_two_shards": same_bits(folded["margins"],
+                                                   base["margins"]),
+           "dump_equal_with_and_without_test_set": first["bst"].get_dump()
+           == base["bst"].get_dump()}
+    res["determinism"] = det
+    check(all(det.values()), f"multiclass determinism: {det}")
+    ev = first["ev"]
+    ll = ev["test"]["mlogloss"]
+    check(all(np.isfinite(ll)) and ll[-1] < ll[0],
+          f"test mlogloss does not fall: {ll}")
+    pred = first["bst"].predict(xv, output_margin=True)
+    margin_err = float(np.abs(first["test_margins"] - pred).max())
+    check(margin_err <= 1e-4, f"multiclass test margins differ from the "
+                              f"booster's predicted margins by {margin_err}")
+    res.update(
+        eval_history=ev, launches=first["launches"],
+        expected=multiclass_expect(rounds, depth, k, True),
+        round_ms_without_test=[r["round_ms"] for r in timed[False]],
+        round_ms_with_test=[r["round_ms"] for r in timed[True]],
+        round_ms_median_without_test=[float(np.median(r["round_ms"]))
+                                      for r in timed[False]],
+        round_ms_median_with_test=[float(np.median(r["round_ms"]))
+                                   for r in timed[True]],
+        setup_s=[r["setup_s"] for r in timed[False] + timed[True]],
+        test_margin_max_abs_diff_to_predict=margin_err)
+    bst = first["bst"]
+    del timed, again, folded, base
+
+    # the softmax pass (each mode) and B4 over a round's 7 trees against
+    # their plain versions on the kept run's tensors, then timed
+    engine = kept.pop("engine")
+    es = engine.evals[1]
+    err_b4 = 0.0
+    for t, forest in enumerate(engine.trees):
+        got = G.predict_tree_binned(forest, es.bins, depth, 256)
+        ref = G.predict_tree_binned_plain(forest, es.bins, depth, 256)
+        check(got.shape == (k, COVERTYPE_TEST)
+              and torch.equal(bits(got), bits(ref)),
+              f"B4 over round {t}'s {k} trees differs from its plain version")
+        err_b4 = max(err_b4, float((got - ref).abs().max()))
+    forest = engine.trees[-1]
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    sectors, visits = b4_work(forest, es.bins, depth, 256)
+    heap = forest.feature.shape[1]
+    _kernel_record(
+        records, "B4k", lambda: G.predict_tree_binned(forest, es.bins, depth,
+                                                      256),
+        lambda: G.predict_tree_binned_plain(forest, es.bins, depth, 256),
+        bound_ms(sectors * 32 + COVERTYPE_TEST * 4 * k + k * heap * 13,
+                 visits), flush, first["launches"]["B4"], err_b4)
+    rv_test = G.predict_tree_binned(forest, es.bins, depth, 256)
+    rv_train = G.predict_tree_binned(forest, engine.bins, depth, 256)
+    label, weight = engine.label, engine.weight
+
+    def hold_pass(m0, rv, lab, w, with_gh, what):
+        mk, mp = m0.clone(), m0.clone()
+        ghk, sk = O.softmax_update(mk, rv, lab, w, with_gh)
+        ghp, sp = O.softmax_update_plain(mp, rv, lab, w, with_gh)
+        torch.cuda.synchronize()
+        check(torch.equal(bits(mk), bits(mp)), f"softmax pass ({what}): "
+                                               f"margins differ")
+        rel = float(((sk - sp).abs() / sp.abs().clamp_min(1e-30)).max())
+        check(rel <= 1e-5, f"softmax pass ({what}): partial sums beyond "
+                           f"1e-5 relative ({rel})")
+        err = float((sk - sp).abs().max())
+        ulps = 0
+        if with_gh:
+            ulps = int((bits(ghk).long() - bits(ghp).long()).abs().max())
+            err = max(err, float((ghk - ghp).abs().max()))
+            check(ulps == 0, f"softmax pass ({what}): gradients {ulps} ulps "
+                             f"from the plain version's")
+        return err, rel, ulps
+
+    m_train = engine.margins.clone()
+    err_t, rel_t, ulps_t = hold_pass(m_train, rv_train, label, weight, True,
+                                     "training mode")
+    err_e, rel_e, _ = hold_pass(es.margins, rv_test, es.label, es.weight,
+                                False, "eval mode")
+    n_tr, n_te = n_train, COVERTYPE_TEST
+    # bytes: margins read and written, the K row values, label and weight
+    # read, the [K, N, 2] gradients written; ~64 flops a (row, class)
+    _kernel_record(
+        records, "SMX", lambda: O.softmax_update(m_train, rv_train, label,
+                                                 weight),
+        lambda: O.softmax_update_plain(m_train.clone(), rv_train, label,
+                                       weight),
+        bound_ms(n_tr * (12 * k + 8 + 8 * k), 64 * k * n_tr), flush,
+        first["launches"]["SMX"], err_t)
+    m_test = es.margins.clone()
+    _kernel_record(
+        records, "SMXeval", lambda: O.softmax_update(
+            m_test, rv_test, es.label, es.weight, with_gh=False),
+        lambda: O.softmax_update_plain(m_test.clone(), rv_test, es.label,
+                                       es.weight, with_gh=False),
+        bound_ms(n_te * (12 * k + 8), 40 * k * n_te), flush,
+        first["launches"]["SMXeval"], err_e)
+    emit({"phase": "multiclass_kernels", **{
+        key: {f: records[key].get(f) for f in (
+            "launches", "max_abs_err", "ms", "device_ms", "device_ms_l2_warm",
+            "plain_ms", "bound_ms")} for key in ("B4k", "SMX", "SMXeval")}})
+    res["kernels"] = {"softmax_training_partials_rel": rel_t,
+                      "softmax_training_gradient_ulps": ulps_t,
+                      "softmax_eval_partials_rel": rel_e,
+                      "b4_sectors": sectors, "b4_visits": visits,
+                      "b4_visits_per_row_and_tree": visits / n_te / k}
+
+    # a profile of two rounds with the test set: device time by kernel
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(2):
+            engine.step(rounds + i)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kern, host = {}, {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            # host time by op (where a round's host time goes)
+            host[e.key] = host.get(e.key, 0.0) + e.self_cpu_time_total / 2e3
+            continue
+        t = getattr(e, "self_device_time_total", None)
+        t = e.self_cuda_time_total if t is None else t
+        kern[e.key] = (kern.get(e.key, (0.0, 0))[0] + t / 1e3 / 2,
+                       kern.get(e.key, (0.0, 0))[1] + e.count / 2)
+    dev_round = sum(v[0] for v in kern.values())
+    med_with = float(np.median(res["round_ms_median_with_test"]))
+    res["profile"] = {
+        "device_ms_per_round": dev_round,
+        "cuda_launches_per_round": sum(v[1] for v in kern.values()),
+        "round_ms_unprofiled": med_with,
+        "device_idle_share": max(0.0, 1.0 - dev_round / med_with),
+        "wall_ms_per_round_profiled": wall_ms / 2,
+        "top_kernels_ms_per_round": [
+            [key[:80], v[0], v[1]] for key, v in
+            sorted(kern.items(), key=lambda kv: -kv[1][0])[:16]],
+        "host_ms_per_round": sum(host.values()),
+        "top_host_ops_ms_per_round": [
+            [key[:60], v] for key, v in
+            sorted(host.items(), key=lambda kv: -kv[1])[:12]]}
+    del engine, es, kept, m_train, m_test, rv_test, rv_train, label, weight
+    del forest, flush
+    torch.cuda.empty_cache()
+
+    # K1 and K2 at 54 features
+    phase_k1_k2_f54(n_train, records, first["launches"])
+
+    # predict() over every row (num_actors=2), B8 and the softmax pass's
+    # counters set to 0 just before and read just after
+    rp = xrt.RayParams(num_actors=2)
+    reset_b8_counters()
+    t0 = time.perf_counter()
+    values = xrt.predict(bst, xrt.RayDMatrix(x), ray_params=rp)
+    value_s = time.perf_counter() - t0
+    launches = b8_counters()
+    chunks = predict_chunks(bst, x.shape[0], 4 * (x.shape[1] + 2 * k))
+    expect = b8_expect(B8margin=chunks, SMXtransform=chunks)
+    margins = bst.predict(x, output_margin=True)
+    plain = O.softmax_transform_plain(torch.from_numpy(margins), True).numpy()
+    row_sum_err = float(np.abs(values.astype(np.float64).sum(1) - 1).max())
+    soft = xrt.RayXGBoostBooster.load_raw(bst.save_raw())
+    soft.params.objective = "multi:softmax"
+    classes = soft.predict(x)
+    pred = {"rows": int(x.shape[0]), "trees": bst.num_trees,
+            "predict_value_wall_s": value_s, "launches": launches,
+            "expected": expect, "values_bitwise_plain_transform":
+                same_bits(values, plain),
+            "row_sum_max_abs_err": row_sum_err,
+            "softmax_classes_are_argmax": bool(np.array_equal(
+                classes, np.argmax(plain, axis=1).astype(np.float32)))}
+    res["predict"] = pred
+    check(values.shape == (x.shape[0], k), f"predict() gave {values.shape}")
+    check(pred["values_bitwise_plain_transform"], "predicted values are not "
+          "the plain transform of B8's margins bit for bit")
+    check(row_sum_err <= 1e-6, f"probabilities sum to 1 within {row_sum_err}")
+    check(pred["softmax_classes_are_argmax"], "multi:softmax classes are not "
+          "the first argmax of the probabilities")
+    check(launches == expect, f"predict() launches {launches}, expected "
+                              f"{expect}")
+    # the transform mode on every row's margins, timed (library yardstick:
+    # torch.softmax, which the port never calls)
+    md = torch.from_numpy(margins).cuda()
+    got = O.softmax_transform(md, True)
+    check(torch.equal(bits(got.cpu()), bits(torch.from_numpy(plain))),
+          "softmax pass (transform mode) differs from its plain version")
+    got_c = O.softmax_transform(md, False)
+    check(torch.equal(got_c.cpu(), O.softmax_transform_plain(
+        torch.from_numpy(margins), False)), "softmax pass (classes) differs")
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    n_all = x.shape[0]
+    _kernel_record(
+        records, "SMXtransform", lambda: O.softmax_transform(md, True),
+        lambda: O.softmax_transform_plain(md, True),
+        bound_ms(n_all * 8 * k, 40 * k * n_all), flush,
+        launches["SMXtransform"], 0.0,
+        library=cuda_ms(lambda: torch.softmax(md, 1), iters=20))
+    del md, got, got_c, flush, values, plain, margins, classes, soft
+    torch.cuda.empty_cache()
+
+    # a server of the model: probes bitwise, no build after warmup, a short
+    # closed loop (every batch one B8 margin launch and one transform)
+    handle = serve.create_server(bst, max_batch=256, max_delay_ms=2.0)
+    builds0 = serve.compile_count()
+    try:
+        probe = _probe(handle, bst, xv[:37])
+        snap, parked, slaunch, errors = _closed_loop(
+            handle, xv, 8, 32, 0.5, 2.0)
+        builds = serve.compile_count() - builds0
+    finally:
+        handle.shutdown()
+    sexpect = b8_expect(B8serve=parked["batches"],
+                        SMXtransform=parked["batches"])
+    res["serve"] = {"probe_bitwise": probe, "builds_after_warmup": builds,
+                    "client_errors": len(errors), "launches": slaunch,
+                    "expected": sexpect,
+                    **{kk: snap[kk] for kk in (
+                        "requests", "batches", "qps", "mean_batch_rows",
+                        "latency_p50_ms", "latency_p99_ms")}}
+    check(all(probe.values()), f"multiclass serve probes not bitwise: {probe}")
+    check(builds == 0, f"{builds} kernel builds after warmup")
+    check(len(errors) == 0, f"{len(errors)} client errors: {errors[:3]}")
+    check(slaunch == sexpect, f"serve launches {slaunch}, expected {sexpect}")
+
+    # early stopping on the test mlogloss
+    es_run = run(es_rounds, early_stopping_rounds=3)
+    hist = es_run["ev"]["test"]["mlogloss"]
+    best = es_run["bst"].best_iteration
+    res["early_stopping"] = {"rounds_run": len(hist), "best_iteration": best,
+                             "best_score": es_run["bst"].best_score,
+                             "test_mlogloss": hist}
+    check(best == int(np.argmin(hist)), f"best_iteration {best} is not the "
+                                        f"argmin of the test mlogloss {hist}")
+    check(len(hist) in (es_rounds, best + 4)
+          and es_run["bst"].num_trees == k * len(hist),
+          f"early stopping ran {len(hist)} rounds (best {best})")
+    del es_run
+
+    # a 5 + 5 warm start, twice
+    half = rounds // 2
+    five = run(half)
+    warm = [run(rounds - half, xgb_model=five["bst"]) for _ in range(2)]
+    dump = warm[0]["bst"].get_dump()
+    ws = {"trees": warm[0]["bst"].num_trees,
+          "init_trees_equal_uninterrupted":
+              dump[:half * k] == bst.get_dump()[:half * k],
+          "rerun_dump_equal": warm[1]["bst"].get_dump() == dump,
+          "rerun_margins_bitwise": same_bits(warm[0]["margins"],
+                                             warm[1]["margins"])
+          and same_bits(warm[0]["test_margins"], warm[1]["test_margins"]),
+          "margin_max_abs_diff_to_uninterrupted": float(
+              np.abs(warm[0]["margins"] - first["margins"]).max())}
+    res["warm_start"] = ws
+    check(ws["trees"] == rounds * k, f"the warm start has {ws['trees']} trees")
+    check(ws["init_trees_equal_uninterrupted"] and ws["rerun_dump_equal"]
+          and ws["rerun_margins_bitwise"], f"multiclass warm start: {ws}")
+    del five, warm, first
+    torch.cuda.empty_cache()
+
+    # the card against the CPU path on a cut of the rows. Phase 4's rule
+    # (the first round's trees equal, per-round mlogloss within 1e-5,
+    # margins within 1e-3) is held against the CPU path summing K1's
+    # histograms in the card's fixed point (``build_histogram_fixed_plain``;
+    # every other kernel's plain version as it is): there the whole model
+    # must be the card's. The CPU path's own f32 sums (the JAX package's)
+    # are recorded beside it: a rare class's trees split on gains below the
+    # f32 sums' rounding, so their trees differ from the exact sums' while
+    # the mlogloss stays within 1e-3.
+    cmp = {}
+    for device in ("cuda:0", "cpu-fixed", "cpu"):
+        with _cpu_fixed_point(device == "cpu-fixed"):
+            r = run(cmp_rounds, held_out=False, rows=cmp_rows,
+                    device=device.replace("-fixed", ""))
+        cmp[device] = (r["bst"], r["ev"]["train"]["mlogloss"], r["margins"])
+    fields = ("feature", "split_bin", "default_left", "is_leaf")
+    card = cmp["cuda:0"]
+    res["cpu_vs_card"] = {"rows": cmp_rows, "rounds": cmp_rounds}
+    for key, name in (("cpu-fixed", "cpu_fixed_point"), ("cpu", "cpu_f32")):
+        bc, llc, mc = cmp[key]
+        res["cpu_vs_card"][name] = {
+            "first_round_trees_differ_in": [
+                f for f in fields if not np.array_equal(
+                    getattr(card[0].forest, f)[:k], getattr(bc.forest, f)[:k])],
+            "dump_equal": card[0].get_dump() == bc.get_dump(),
+            "mlogloss_max_abs_diff": float(np.max(np.abs(
+                np.array(card[1]) - np.array(llc)))),
+            "margin_max_abs_diff": float(np.max(np.abs(card[2] - mc))),
+            "mlogloss_card": card[1], "mlogloss_cpu": llc}
+    fx, f32 = res["cpu_vs_card"]["cpu_fixed_point"], res["cpu_vs_card"]["cpu_f32"]
+    emit({"phase": "multiclass_cpu_vs_card", **res["cpu_vs_card"]})
+    check(not fx["first_round_trees_differ_in"],
+          f"the first round's trees differ between the card and the CPU "
+          f"(fixed-point sums) in {fx['first_round_trees_differ_in']}")
+    check(fx["mlogloss_max_abs_diff"] <= 1e-5,
+          f"per-round mlogloss differs by {fx['mlogloss_max_abs_diff']}")
+    check(fx["margin_max_abs_diff"] <= 1e-3,
+          f"final margins differ by {fx['margin_max_abs_diff']} > 1e-3")
+    check(f32["mlogloss_max_abs_diff"] <= 1e-3,
+          f"per-round mlogloss of the CPU's f32 sums differs by "
+          f"{f32['mlogloss_max_abs_diff']} > 1e-3")
+    res["phase_s"] = time.perf_counter() - t_phase
+    emit(res)
+    return res
+
+
 def profiled_ms(fn):
     """``device_ms`` where ``torch.profiler`` records the kernel, None where
     it records no device time (``PERF.md`` §7)."""
@@ -2032,6 +2654,35 @@ KERNELS = {
                    "gradients (500,000 test rows)", route="triton",
                    source="xgboost_ray_tpu_torch/ops/objectives.py",
                    replaces="xgboost_ray_tpu/engine.py:1427"),
+    "SMX": dict(name="softmax pass, training mode: margins += a round's 7 "
+                "row values, mlogloss / merror / weight partials, [K, N, 2] "
+                "gradients (464,810 Covertype rows x 7 classes)",
+                route="triton",
+                source="xgboost_ray_tpu_torch/ops/objectives.py",
+                replaces="xgboost_ray_tpu/ops/objectives.py:107"),
+    "SMXeval": dict(name="softmax pass, eval mode: margins += the round's "
+                    "row values, partials, no gradients (116,202 test rows "
+                    "x 7 classes)", route="triton",
+                    source="xgboost_ray_tpu_torch/ops/objectives.py",
+                    replaces="xgboost_ray_tpu/ops/metrics.py:55"),
+    "SMXtransform": dict(name="softmax pass, transform mode: probabilities "
+                         "from B8's margins (every one of 581,012 rows x 7 "
+                         "classes)", route="triton",
+                         source="xgboost_ray_tpu_torch/ops/objectives.py",
+                         replaces="xgboost_ray_tpu/ops/objectives.py:115"),
+    "B4k": dict(name="B4 binned tree walk: a round's 7 depth-6 trees in one "
+                "launch over the 116,202 test rows (int16 bins, 54 features)",
+                route="cuda", source="xgboost_ray_tpu_torch/csrc/walk.cu",
+                replaces="xgboost_ray_tpu/ops/grow.py:786"),
+    "K1f54": dict(name="K1 histogram build + node totals, int64 fixed point, "
+                  "at 54 features (two tiles of 27; level 5: 32 nodes, "
+                  "464,810 rows)", route="cuda",
+                  source="xgboost_ray_tpu_torch/csrc/histogram.cu",
+                  replaces="46abde5^:xgboost_ray_tpu/ops/hist_pallas.py:105"),
+    "K2levelf54": dict(name="K2 level step at 54 features (level 5: 16 "
+                       "parents, 32 nodes)", route="cuda",
+                       source="xgboost_ray_tpu_torch/csrc/split.cu",
+                       replaces="xgboost_ray_tpu/ops/grow.py:570"),
     **{f"B8serve{m}": dict(
         name=f"B8 forest walk: margins, heap layout, a serve batch of {m} "
              f"rows (windows mapping; launches: every batch of the heap "
@@ -2039,6 +2690,10 @@ KERNELS = {
         route="cuda", source="xgboost_ray_tpu_torch/csrc/predict.cu",
         replaces="xgboost_ray_tpu/ops/predict.py:52") for m in SERVE_ROWS},
 }
+
+#: the kernel table's rows of phase 9
+MULTICLASS_KERNELS = ("SMX", "SMXeval", "SMXtransform", "B4k", "K1f54",
+                      "K2levelf54")
 
 #: kernels of the training path (phase 3's counters)
 TRAIN_KERNELS = ("K1", "K1root", "K1deq", "K2", "K2level", "K2leaf", "K3",
@@ -2086,9 +2741,23 @@ def run(args):
         torch.cuda.synchronize()
         build["triton_eval_mode_first_launch_seconds"] = (
             time.perf_counter() - t1)
+    if hasattr(O, "softmax_update"):  # not in an older tree
+        t1 = time.perf_counter()
+        m7 = torch.zeros(4, 7, device="cuda")
+        O.softmax_update(m7, torch.zeros(7, 4, device="cuda"), z.clone(),
+                         torch.ones(4, device="cuda"))
+        O.softmax_transform(m7, True)
+        torch.cuda.synchronize()
+        build["triton_softmax_first_launches_seconds"] = (
+            time.perf_counter() - t1)
     emit(build)
     if args.k1_time:
         phase_k1_time(args.rows, args.rounds)
+        return
+    if args.multiclass_only:
+        records = {k: dict(v) for k, v in KERNELS.items()}
+        phase_multiclass(records)
+        emit({"multiclass_kernels": {k: records[k] for k in MULTICLASS_KERNELS}})
         return
     if args.ranks_only:
         x, y = make_higgs_like(args.rows, 28, seed=0)
@@ -2113,7 +2782,8 @@ def run(args):
         return
 
     phase_kernels(args.rows, {k: records[k] for k in TRAIN_KERNELS})
-    results = {"evals": phase_evals(x, y, records)}
+    results = {"evals": phase_evals(x, y, records),
+               "multiclass": phase_multiclass(records)}
 
     if args.rows < 11_000_000:
         emit({"phase": "main_path_cut", "rows": args.rows,
@@ -2153,8 +2823,9 @@ def run(args):
           "launches": b8_launches})
     for k, v in b8_launches.items():
         # the node array's rows mapping is off these paths (predict()
-        # walks the heap); it is held and timed in phase 7
-        check(v > 0 or k in ("B8other", "B8margin_na"),
+        # walks the heap); it is held and timed in phase 7; the softmax
+        # transform runs on phase 9's paths (a K-output model), not these
+        check(v > 0 or k in ("B8other", "B8margin_na", "SMXtransform"),
               f"{k} never launched on the predict/serve path")
     for k in ("B8margin", "B8margin_na", "B8leaf"):
         records[k]["launches"] = b8_launches[k]
@@ -2208,6 +2879,9 @@ def main():
                     help="only K1's times and the main path's median round "
                          "(works on an older tree of the package too); "
                          "prints no result line")
+    ap.add_argument("--multiclass-only", action="store_true",
+                    help="only the build and phase 9 (multiclass at "
+                         "Covertype's width); prints no result line")
     ap.add_argument("--ranks-only", action="store_true",
                     help="only the 1-rank main path and the ranks phase (on "
                          "a host of two or more cards: the NCCL path); "

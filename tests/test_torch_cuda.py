@@ -23,9 +23,14 @@ the card reruns bit for bit, and a 2-rank gloo world on one card gives the
 history is world 1's within 1e-6: K4's metric partials are f32 sums per
 CTA of each rank's rows). B4's row values are bitwise its plain
 version's (every bin dtype, depths 1-8 staged in shared memory, depth 11
-read through the read-only path); K4's eval mode gives bitwise the margins
-and partial sums of its gh mode; a weighted sketch on the card gives the
-same cuts on a rerun and from two shards (ROADMAP C2).
+read through the read-only path; T trees of a round in one launch, staged
+and not); K4's eval mode gives bitwise the margins and partial sums of its
+gh mode; a weighted sketch on the card gives the same cuts on a rerun and
+from two shards (ROADMAP C2). The softmax pass (K outputs) gives bitwise
+the plain version's margins, gradients, probabilities and classes, its
+partial sums within 1e-5 relative (f32 sums per CTA), and its eval mode
+the training mode's margins and sums bit for bit; multiclass training on
+the card reruns bit for bit, with its rows in two shards folded too.
 """
 
 import numpy as np
@@ -62,6 +67,8 @@ def _level(n, f, max_bin, n_nodes, seed=0):
 
 SHAPES = [(5000, 7, 256, 4), (3000, 60, 64, 3), (2000, 5, 1024, 8),
           (4000, 3, 16, 1), (70000, 28, 256, 32),
+          # Covertype's width: K1 takes two feature tiles of 27
+          (60000, 54, 256, 16),
           # K1 takes at most 32 features per CTA: F = 33 is two feature
           # tiles (17 + 16), F = 75 three of 25; F = 7 with uint8 bins has
           # rows 7 bytes wide, unaligned
@@ -579,7 +586,8 @@ def test_gloo_world_on_one_card_equals_one_rank(cuda):
     # each rank's kernels, counted from 0 just before its train(): the
     # main path's launches (depth 6, 5 rounds; K3 chose from merged counts)
     expect = {"K1": 35, "K1deq": 35, "K2": 0, "K2level": 30, "K2leaf": 5,
-              "K3": 30, "K3leaf": 5, "K4": 6, "B4": 0, "K4eval": 0}
+              "K3": 30, "K3leaf": 5, "K4": 6, "B4": 0, "K4eval": 0,
+              "SMX": 0, "SMXeval": 0}
     # int64 histograms and totals, int64 child counts, the f32 MAX of
     # (max|g|, max|h|) for the round's scales, the four f64 metric sums
     hist_cells = 10 * 257 * 2 * (1 + sum(1 << (d - 1) for d in range(1, 6)))
@@ -827,8 +835,13 @@ def test_predict_wrappers_reject_bad_inputs(cuda):
         tp.predict_leaf_index(pk, x, out=torch.zeros(50, 7, device=cuda))
     with pytest.raises(ValueError):  # more classes than a grid has rows
         tp.predict_margin(pk, x, num_outputs=1 << 16)
+    # multi:softprob's values: B8's margins, then the softmax pass
+    probs = tp.predict_margin(pk, x, num_outputs=7, transform="multi:softprob")
+    margins = tp.predict_margin(pk, x, num_outputs=7)
+    assert probs.shape == (50, 7)
+    assert _same_bits(probs, to.softmax_transform_plain(margins.cpu(), True))
     with pytest.raises(NotImplementedError):  # an objective outside the port
-        tp.predict_margin(pk, x, transform="multi:softprob")
+        tp.predict_margin(pk, x, transform="reg:gamma")
     with pytest.raises(NotImplementedError):  # a transform of K = 3
         tp.predict_margin(pk, x, torch.zeros(50, 3, device=cuda),
                           num_outputs=3, transform=LOGISTIC)
@@ -838,3 +851,190 @@ def test_predict_wrappers_reject_bad_inputs(cuda):
         _pf(fo, 3, "heap", 1 << 24, (), cuda)
     empty = tp.predict_margin(pk, x[:0])
     assert empty.shape == (0, 1)
+
+
+def _softmax_rows(n, k, seed):
+    rng = np.random.default_rng(seed)
+    m = (rng.standard_normal((n, k)) * rng.choice([0.1, 3.0, 40.0], (n, 1))
+         ).astype(np.float32)
+    m[:min(n, 50)] = np.round(m[:min(n, 50)])  # ties inside a row
+    rv = (rng.standard_normal((k, n)) * 0.3).astype(np.float32)
+    y = rng.integers(0, k, n).astype(np.float32)
+    w = rng.uniform(0.2, 3.0, n).astype(np.float32)
+    return [torch.from_numpy(a) for a in (m, rv, y, w)]
+
+
+@pytest.mark.parametrize("k", [2, 3, 7])
+@pytest.mark.parametrize("n", [1, 777, 100003])
+def test_softmax_update_bitwise(cuda, n, k):
+    """The softmax pass's training mode against its plain version: margins
+    and gradients bitwise, partial sums within 1e-5 relative; its eval mode
+    the same margins and sums bit for bit, no gradients."""
+    m, rv, y, w = _softmax_rows(n, k, seed=n + k)
+    mp = m.clone()
+    ghp, sp = to.softmax_update_plain(mp, rv, y, w)
+    mk = m.to(cuda)
+    before = to.softmax_update.launches
+    ghk, sk = to.softmax_update(mk, rv.to(cuda), y.to(cuda), w.to(cuda))
+    assert to.softmax_update.launches == before + 1
+    assert _same_bits(mk, mp)
+    assert _same_bits(ghk, ghp)
+    assert torch.allclose(sk.cpu(), sp, rtol=1e-5, atol=1e-6)
+    me = m.to(cuda)
+    gh, se = to.softmax_update(me, rv.to(cuda), y.to(cuda), w.to(cuda),
+                               with_gh=False)
+    assert gh is None and _same_bits(me, mk) and torch.equal(se, sk)
+
+
+def test_softmax_update_labels_out_of_range(cuda):
+    """Labels outside [0, K): no one-hot entry (the gradient row is p w),
+    the mlogloss partial NaN as the plain version's, merror counts them."""
+    m, rv, y, w = _softmax_rows(4000, 3, seed=9)
+    y[:6] = torch.tensor([-1.0, 3.0, 2.5, float("nan"), 1e10, -3.0])
+    mp = m.clone()
+    ghp, sp = to.softmax_update_plain(mp, rv, y, w)
+    mk = m.to(cuda)
+    ghk, sk = to.softmax_update(mk, rv.to(cuda), y.to(cuda), w.to(cuda))
+    assert _same_bits(ghk, ghp) and _same_bits(mk, mp)
+    assert torch.isnan(sk[0]) and torch.isnan(sp[0])
+    assert torch.allclose(sk[1:].cpu(), sp[1:], rtol=1e-5)
+
+
+@pytest.mark.parametrize("prob", [True, False])
+@pytest.mark.parametrize("k", [2, 3, 7])
+def test_softmax_transform_bitwise_on_card(cuda, k, prob):
+    m, _, _, _ = _softmax_rows(30001, k, seed=k)
+    ref = to.softmax_transform_plain(m, prob)
+    before = to.softmax_transform.launches
+    got = to.softmax_transform(m.to(cuda), prob)
+    assert to.softmax_transform.launches == before + 1
+    assert got.shape == ref.shape and _same_bits(got, ref)
+
+
+def _random_forest_heaps(rng, t, depth, f, max_bin):
+    """T random heaps of one depth (leaves at every depth, unused nodes
+    below them) as a tree of [T, heap] fields."""
+    heap = (1 << (depth + 1)) - 1
+    feature = np.full((t, heap), -1, np.int32)
+    is_leaf = np.zeros((t, heap), bool)
+    for j in range(t):
+        live = np.zeros(heap, bool)
+        live[0] = True
+        for i in range(heap):
+            if not live[i]:
+                continue
+            if i >= heap // 2 or (i > 0 and rng.random() < 0.2):
+                is_leaf[j, i] = True
+                continue
+            feature[j, i] = rng.integers(0, f)
+            live[2 * i + 1] = live[2 * i + 2] = True
+    return tg.Tree(
+        feature=torch.from_numpy(feature),
+        split_bin=torch.from_numpy(
+            rng.integers(0, max_bin, (t, heap)).astype(np.int32)),
+        threshold=torch.zeros(t, heap),
+        default_left=torch.from_numpy(rng.random((t, heap)) < 0.5),
+        is_leaf=torch.from_numpy(is_leaf),
+        value=torch.from_numpy(
+            rng.standard_normal((t, heap)).astype(np.float32)),
+        gain=torch.zeros(t, heap), cover=torch.zeros(t, heap),
+        base_weight=torch.zeros(t, heap))
+
+
+@pytest.mark.parametrize("t,depth", [(3, 4), (7, 6), (7, 9), (1, 6)])
+def test_binned_walk_trees_bitwise(cuda, t, depth):
+    """B4 over T trees in one launch ([T, N]) against T calls of the plain
+    walk: 7 trees of depth 6 are staged in shared memory, of depth 9 read
+    through the read-only path."""
+    rng = np.random.default_rng(t * 10 + depth)
+    n, f, max_bin = 30011, 54, 256
+    bins = rng.integers(0, max_bin + 1, (n, f))
+    bins[rng.random((n, f)) < 0.1] = max_bin
+    bins = torch.from_numpy(bins).to(torch.int16)
+    forest = _random_forest_heaps(rng, t, depth, f, max_bin)
+    ref = tg.predict_tree_binned_plain(forest, bins, depth, max_bin)
+    before = tg.predict_tree_binned.launches
+    got = tg.predict_tree_binned(tg.Tree(*[a.to(cuda) for a in forest]),
+                                 bins.to(cuda), depth, max_bin)
+    assert tg.predict_tree_binned.launches == before + 1
+    assert got.shape == (t, n) and _same_bits(got, ref)
+
+
+def _multiclass_set(n=40000, k=5, seed=31):
+    rng = np.random.default_rng(seed)
+    cont = rng.standard_normal((n, 10)).astype(np.float32)
+    group = rng.integers(0, 4, n)
+    x = np.concatenate([cont, np.eye(4, dtype=np.float32)[group]], axis=1)
+    score = cont[:, :k] + rng.standard_normal((4, k))[group]
+    y = np.argmax(score + 0.5 * rng.standard_normal((n, k)), 1)
+    return x, y.astype(np.float32)
+
+
+def _multiclass_train(x, y, rounds, actors=1, held_out=None, **params):
+    """train() of multi:softprob on the card: (booster, final training
+    margins [N, K] in row order, evals_result, kernel launches)."""
+    import xgboost_ray_tpu_torch as tx
+    from xgboost_ray_tpu_torch.distributed import _KeepEngine
+    from xgboost_ray_tpu_torch.engine import (
+        kernel_launches,
+        reset_kernel_launches,
+    )
+    from xgboost_ray_tpu_torch.matrix import RayShardingMode, combine_data
+
+    keep, ev = _KeepEngine(), {}
+    dm = tx.RayDMatrix(x, y)
+    evals = [(dm, "train")]
+    if held_out is not None:
+        evals.append((tx.RayDMatrix(*held_out), "valid"))
+    reset_kernel_launches()
+    bst = tx.train({"objective": "multi:softprob", "num_class": 5,
+                    "eval_metric": ["merror", "mlogloss"], **params},
+                   dm, rounds, evals=evals, evals_result=ev,
+                   callbacks=[keep], device="cuda:0",
+                   ray_params=tx.RayParams(num_actors=actors))
+    launches = kernel_launches()
+    m = keep.engine.get_margins()
+    sizes = [len(range(r, x.shape[0], actors)) for r in range(actors)]
+    m = combine_data(RayShardingMode.INTERLEAVED,
+                     np.split(m, np.cumsum(sizes)[:-1]))
+    return bst, m, ev, launches
+
+
+def test_multiclass_training_reruns_bitwise(cuda):
+    """multi:softprob (K = 5) on the card: K trees a round through K1-K3,
+    one softmax pass a round (and round 0's); a rerun and two shards folded
+    give the same dump and bitwise margins; with a held-out set one B4 over
+    the round's K trees and one eval-mode pass a round; the held-out
+    history is the CPU path's within 1e-5."""
+    x, y = _multiclass_set()
+    b1, m1, e1, l1 = _multiclass_train(x, y, 4)
+    assert l1["SMX"] == 5 and l1["SMXeval"] == 0 and l1["K4"] == 0
+    assert l1["K1"] == 4 * 5 * 7 and l1["K3leaf"] == 4 * 5
+    assert b1.num_trees == 20 and m1.shape == (x.shape[0], 5)
+    b2, m2, e2, _ = _multiclass_train(x, y, 4)
+    b3, m3, e3, _ = _multiclass_train(x, y, 4, actors=2)
+    assert b1.get_dump() == b2.get_dump() == b3.get_dump()
+    assert _same_bits(torch.from_numpy(m2), torch.from_numpy(m1))
+    assert _same_bits(torch.from_numpy(m3), torch.from_numpy(m1))
+    # the metric partials are f32 sums per CTA of the rows in shard order
+    assert e1 == e2
+    for name in e1["train"]:
+        np.testing.assert_allclose(e3["train"][name], e1["train"][name],
+                                   rtol=1e-6)
+    xv, yv = _multiclass_set(n=9001, seed=32)
+    bh, _, eh, lh = _multiclass_train(x, y, 4, held_out=(xv, yv))
+    assert bh.get_dump() == b1.get_dump()
+    assert lh["B4"] == 4 and lh["SMXeval"] == 4 and lh["SMX"] == 9
+    assert eh["valid"]["mlogloss"][-1] < eh["valid"]["mlogloss"][0]
+    import xgboost_ray_tpu_torch as tx
+
+    dm, dv, cpu_ev = tx.RayDMatrix(x, y), tx.RayDMatrix(xv, yv), {}
+    tx.train({"objective": "multi:softprob", "num_class": 5,
+              "eval_metric": ["merror", "mlogloss"]}, dm, 4, device="cpu",
+             evals=[(dm, "train"), (dv, "valid")], evals_result=cpu_ev,
+             ray_params=tx.RayParams(num_actors=1))
+    np.testing.assert_allclose(eh["valid"]["mlogloss"],
+                               cpu_ev["valid"]["mlogloss"], rtol=0, atol=1e-5)
+    vals = bh.predict(xv)
+    assert vals.shape == (9001, 5)
+    assert np.array_equal(vals, bh.predict(xv, device="cpu"))

@@ -83,12 +83,15 @@ def test_round_update_plain_and_metric_partials():
 
 
 def test_objective_envelopes():
-    for name in ("binary:logistic", "reg:squarederror"):
-        j, t = jo.get_objective(name), to.get_objective(name)
+    for name in ("binary:logistic", "reg:squarederror", "multi:softprob",
+                 "multi:softmax"):
+        k = 3 if name.startswith("multi:") else 0
+        j, t = jo.get_objective(name, k), to.get_objective(name, k)
         assert t.default_metric == j.default_metric
+        assert t.num_outputs == j.num_outputs
         for s in (0.5, 0.2, 0.93, 1.7, 0.0):
             if name == "binary:logistic" and s >= 1:
                 continue
             assert t.base_score_to_margin(s) == j.base_score_to_margin(s)
-    with pytest.raises(NotImplementedError, match="multi:softprob"):
-        to.get_objective("multi:softprob")
+    with pytest.raises(NotImplementedError, match="reg:gamma"):
+        to.get_objective("reg:gamma")

@@ -11,8 +11,9 @@ SHARD_COLUMN_FILLS = {
 }
 
 #: the objectives, metrics and histogram-impl names of this slice
-SUPPORTED_OBJECTIVES = ("binary:logistic", "reg:squarederror")
-SUPPORTED_METRICS = ("logloss", "error", "rmse")
+SUPPORTED_OBJECTIVES = ("binary:logistic", "reg:squarederror",
+                        "multi:softprob", "multi:softmax")
+SUPPORTED_METRICS = ("logloss", "error", "rmse", "mlogloss", "merror")
 HIST_IMPLS = ("auto", "scatter", "onehot", "partition", "mixed")
 
 __all__ = [

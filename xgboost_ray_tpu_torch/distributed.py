@@ -312,7 +312,8 @@ def _train_rank(rank: int, world: int, data: Dict[str, Optional[torch.Tensor]],
     ``early_stopping_rounds``, ``maximize``, ``xgb_model`` (``save_raw``
     bytes), ``keep_bins``.
     Returns the model (``save_raw`` bytes), evals_result,
-    additional_results, this rank's final training margins, the launches of
+    additional_results, this rank's final training margins ([n] for one
+    output, [n, K] for K), the launches of
     every training kernel in ``train()`` (``engine.kernel_launches``, set
     to 0 just before it) and, with ``keep_bins``, its bins and the cuts."""
     from xgboost_ray_tpu_torch.engine import (
@@ -346,9 +347,10 @@ def _train_rank(rank: int, world: int, data: Dict[str, Optional[torch.Tensor]],
                 xgb_model=None if raw is None else RayXGBoostBooster.load_raw(raw))
     launches = kernel_launches()
     eng = keep.engine
+    margins = eng.get_margins()
     out = {"model": bst.save_raw(), "evals_result": ev,
            "additional_results": extra, "launches": launches,
-           "margins": eng.get_margins()[:, 0]}
+           "margins": margins[:, 0] if margins.shape[1] == 1 else margins}
     if options.get("keep_bins"):
         out["bins"] = eng.bins.cpu().numpy()
         out["cuts"] = eng.cuts.cpu().numpy()

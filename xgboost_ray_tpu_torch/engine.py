@@ -26,10 +26,23 @@ gradients come from a K4 pass with a zero tree. A held-out eval set (binned
 once with the merged training cuts; label, weight and margins on the
 device) takes one B4 walk of the new tree (``ops/grow.predict_tree_binned``)
 and one K4 pass in its eval mode a round (the margin add and the metric
-sums, no gradients). On the card K1 sums in fixed point (on the CPU the
-f32 sums of the JAX package), so a round on the card gives the same bits
-at every world size and on every rerun. The only device -> host read per
-round is the metric sums.
+sums, no gradients).
+
+With K outputs (``multi:softprob`` / ``multi:softmax``, ``num_class`` K)
+a round is the JAX ``tree_round`` (``engine.py:1315-1420``): margins are
+[N, K], the gradients [K, N, 2] planes taken from the round-start margins,
+K1's scales per class ([K, 4], one all-reduce MAX of [K, 2] maxima),
+``build_tree`` once per class writing class k's tree and row values into
+row k of the round's [K, heap] forest and [K, N] row values, then one
+softmax pass (``ops/objectives.softmax_update``) in place of K4; a
+held-out set takes one B4 launch over the round's K trees and one softmax
+pass in its eval mode. A round is K trees, round-major (tree t is class
+``t % K``), as the reference stacks them.
+
+On the card K1 sums in fixed point (on the CPU the f32 sums of the JAX
+package), so a round on the card gives the same bits at every world size
+and on every rerun. The only device -> host read per round is the metric
+sums.
 
 An init booster (``xgb_model``) starts every set's margins at ``base +
 booster.predict_margin(x) - its base margin`` (B8 on the card, the plain
@@ -51,6 +64,7 @@ from xgboost_ray_tpu_torch.ops.grow import (
     GrowConfig,
     Tree,
     build_tree,
+    empty_tree,
     predict_tree_binned,
 )
 from xgboost_ray_tpu_torch.ops.histogram import (
@@ -61,7 +75,11 @@ from xgboost_ray_tpu_torch.ops.histogram import (
     quant_scales,
 )
 from xgboost_ray_tpu_torch.ops.metrics import metric_values
-from xgboost_ray_tpu_torch.ops.objectives import get_objective, round_update
+from xgboost_ray_tpu_torch.ops.objectives import (
+    get_objective,
+    round_update,
+    softmax_update,
+)
 from xgboost_ray_tpu_torch.ops.split import (
     SplitParams,
     find_splits,
@@ -77,15 +95,17 @@ def kernel_counters() -> Dict[str, Callable]:
     return {"K1": build_histogram, "K1deq": dequantize, "K2": find_splits,
             "K2level": split_level, "K2leaf": leaf_records,
             "K3": partition_level, "K3leaf": partition_leaf_values,
-            "K4": round_update, "B4": predict_tree_binned}
+            "K4": round_update, "B4": predict_tree_binned,
+            "SMX": softmax_update}
 
 
 def kernel_launches() -> Dict[str, int]:
     """Launches of every training kernel since ``reset_kernel_launches``,
-    with K4's eval-mode launches apart as ``K4eval`` (``K4`` counts both
-    modes)."""
+    with the eval-mode launches of K4 and of the softmax pass apart as
+    ``K4eval`` and ``SMXeval`` (``K4`` and ``SMX`` count both modes)."""
     out = {k: fn.launches for k, fn in kernel_counters().items()}
     out["K4eval"] = round_update.eval_launches
+    out["SMXeval"] = softmax_update.eval_launches
     return out
 
 
@@ -93,6 +113,7 @@ def reset_kernel_launches() -> None:
     for fn in kernel_counters().values():
         fn.launches = 0
     round_update.eval_launches = 0
+    softmax_update.eval_launches = 0
 
 
 def _concat_shards(shards: Sequence[Dict[str, Optional[np.ndarray]]]):
@@ -160,7 +181,8 @@ class TorchEngine:
         self.allreduce_bytes_per_round = 0
         self.feature_names = feature_names
         self.feature_types = feature_types
-        self.objective = get_objective(params.objective)
+        self.objective = get_objective(params.objective, params.num_class)
+        self.n_outputs = self.objective.num_outputs
         base_score = (params.base_score if params.base_score is not None
                       else self.objective.default_base_score)
         self.base_score = float(base_score)
@@ -208,30 +230,34 @@ class TorchEngine:
                 self._init_trees = [init_booster.forest]
         self.margins = _to_device(
             self._start_margins(x, base_margin, init_booster), dev)
+        # one entry a round: its tree, or with K outputs its K trees
+        # ([K, heap] fields)
         self.trees: List[Tree] = []
 
         self.evals: List[_EvalSet] = []
         for eval_shards, name in evals:
             self._add_eval_set(eval_shards, name, shards, init_booster)
 
-        # round 0's gradients: K4 with a zero tree
-        self.gh, _ = round_update(
-            self.margins, torch.zeros_like(self.margins), self.label,
-            self.weight, self.objective.logistic, params.scale_pos_weight)
+        # round 0's gradients: the round pass with zero trees
+        self.gh, _ = self._update(
+            self.margins, torch.zeros((self.n_outputs, self.n_rows),
+                                      dtype=torch.float32, device=dev),
+            self.label, self.weight)
         self.qscale = self._scales()
 
     def _start_margins(self, x: np.ndarray, base_margin: Optional[np.ndarray],
                        init_booster: Optional[RayXGBoostBooster]) -> np.ndarray:
-        """A set's first margins [N] f32 on the host: the base margin, plus
-        the rows' ``base_margin``, plus the init booster's trees (its margin
-        less its base; ``engine.py:700-728``, ``:1172-1183``)."""
-        margins = np.full(x.shape[0], self.base_margin0, np.float32)
+        """A set's first margins [N, K] f32 on the host: the base margin,
+        plus the rows' ``base_margin``, plus the init booster's trees (its
+        margin less its base; ``engine.py:700-728``, ``:1172-1183``)."""
+        n = x.shape[0]
+        margins = np.full((n, self.n_outputs), self.base_margin0, np.float32)
         if base_margin is not None:
-            margins = margins + base_margin.astype(np.float32)
+            margins = margins + base_margin.reshape(n, -1).astype(np.float32)
         if init_booster is not None and init_booster.num_trees:
             pm = init_booster.predict_margin(
                 init_booster._coerce_features(x), device=self.device)
-            margins = margins + (pm.reshape(-1)
+            margins = margins + (pm.reshape(n, -1)
                                  - init_booster.base_score_margin_np())
         return margins
 
@@ -253,29 +279,50 @@ class TorchEngine:
             self._start_margins(x, base_margin, init_booster), dev)
         self.evals.append(es)
 
+    def _update(self, margins: torch.Tensor, row_value: torch.Tensor,
+                label: torch.Tensor, weight: torch.Tensor,
+                with_gh: bool = True):
+        """The round pass over one set: ``margins`` [N, K] += ``row_value``
+        [K, N].T in place; (gh [K, N, 2] or None, its metric partial sums).
+        K4 for one output, the softmax pass for K."""
+        if self.objective.softmax:
+            return softmax_update(margins, row_value, label, weight, with_gh)
+        gh, sums = round_update(margins.view(-1), row_value.view(-1), label,
+                                weight, self.objective.logistic,
+                                self.params.scale_pos_weight, with_gh)
+        return (None if gh is None else gh.view(1, -1, 2)), sums
+
     def _scales(self) -> Optional[torch.Tensor]:
-        """K1's fixed-point scales of the gradients ``self.gh`` on the card
-        (None on the CPU, which sums f32): issued as soon as K4 has produced
-        them, so their few launches queue behind K4 rather than after the
-        round's metric read."""
+        """K1's fixed-point scales [K, 4] of the gradients ``self.gh`` on
+        the card, one row a class (None on the CPU, which sums f32): issued
+        as soon as the round pass has produced them, so their few launches
+        queue behind it rather than after the round's metric read."""
         if self.device.type != "cuda":
             return None
         return quant_scales(self.gh, self.n_global, self.coll.max)
 
     def step(self, iteration: int) -> Dict[str, Dict[str, float]]:
-        """One boosting round; returns {eval_name: {metric: value}}."""
+        """One boosting round (K trees); returns {eval_name: {metric:
+        value}}."""
         coll = self.coll
         coll.bytes.total = 0
-        tree, row_value = build_tree(
-            self.bins, self.gh, self.cuts, self.cfg,
-            feat_has_missing=self.feat_has_missing,
-            allreduce=coll.sum if coll.world > 1 else None,
-            qscale=self.qscale,
-        )
-        self.trees.append(tree)
-        logistic, spw = self.objective.logistic, self.params.scale_pos_weight
-        self.gh, sums = round_update(self.margins, row_value, self.label,
-                                     self.weight, logistic, spw)
+        k_out = self.n_outputs
+        forest = empty_tree(self.cfg.heap_size, self.device, k_out)
+        row_value = torch.empty((k_out, self.n_rows), dtype=torch.float32,
+                                device=self.device)
+        for k in range(k_out):
+            build_tree(
+                self.bins, self.gh[k], self.cuts, self.cfg,
+                feat_has_missing=self.feat_has_missing,
+                allreduce=coll.sum if coll.world > 1 else None,
+                qscale=None if self.qscale is None else self.qscale[k],
+                tree=Tree(*[f[k] for f in forest]), row_value=row_value[k],
+            )
+        # one output: the round's tree itself ([heap] fields), as before
+        walked = forest if k_out > 1 else Tree(*[f[0] for f in forest])
+        self.trees.append(walked)
+        self.gh, sums = self._update(self.margins, row_value, self.label,
+                                     self.weight)
         self.qscale = self._scales()  # the next round's
         if not self.evals:
             self.allreduce_bytes_per_round = coll.bytes.total
@@ -283,21 +330,24 @@ class TorchEngine:
         parts = [sums]
         for es in self.evals:
             if not es.is_train:
-                value = predict_tree_binned(tree, es.bins, self.cfg.max_depth,
+                value = predict_tree_binned(walked, es.bins,
+                                            self.cfg.max_depth,
                                             self.cfg.max_bin)
-                parts.append(round_update(es.margins, value, es.label,
-                                          es.weight, logistic, spw,
-                                          with_gh=False)[1])
+                parts.append(self._update(es.margins,
+                                          value.view(k_out, -1), es.label,
+                                          es.weight, with_gh=False)[1])
         parts = coll.sum(torch.stack(parts)).cpu()
         self.allreduce_bytes_per_round = coll.bytes.total
         held_out = iter(parts[1:])
+        names = self.objective.partials
         return {es.name: metric_values(parts[0] if es.is_train
-                                       else next(held_out), self.metric_names)
+                                       else next(held_out), self.metric_names,
+                                       names)
                 for es in self.evals}
 
     def get_margins(self) -> np.ndarray:
-        """This rank's training margins [n_rows, 1]."""
-        return self.margins.cpu().numpy()[:, None]
+        """This rank's training margins [n_rows, K]."""
+        return self.margins.cpu().numpy()
 
     def get_booster(self) -> RayXGBoostBooster:
         booster = RayXGBoostBooster(

@@ -256,18 +256,23 @@ class RayXGBoostBooster:
     ) -> np.ndarray:
         """[N, K] raw margins of f32 rows ``x`` (the reference's
         ``predict_margin_np``), or with ``transform`` the objective's
-        predictions ([N], the transform fused into B8), computed on
+        predictions: [N] (the sigmoid fused into B8; ``multi:softmax``'s
+        classes) or [N, K] (``multi:softprob``'s probabilities; the softmax
+        objectives' transform is the softmax pass after B8), computed on
         ``device`` (the card by default)."""
         dev = resolve_device(device)
         n, num_features = x.shape
         k = self.num_outputs
         m0 = self.base_score_margin_np()
         objective = self.params.objective if transform else None
+        width = k
         if transform:
-            get_objective(objective)  # raises outside the slice
+            get_objective(objective, k)  # raises outside the slice
+            width = predict_ops.value_width(objective, k)
         fo = self.device_forest(dev)
         tw = self.device_tree_weights(dev)
-        out = np.empty((n, k) if not transform else (n,), np.float32)
+        out = np.empty((n, width) if width > 1 or not transform else (n,),
+                       np.float32)
         row_bytes = 4 * (num_features + 2 * k)
         for lo, hi in self._chunks(n, row_bytes):
             xd = torch.from_numpy(np.ascontiguousarray(x[lo:hi])).to(dev)
@@ -281,7 +286,7 @@ class RayXGBoostBooster:
                 num_parallel_tree=self.params.num_parallel_tree,
                 ntree_limit=int(ntree_limit), tree_weights=tw,
                 transform=objective)
-            out[lo:hi] = (margin[:, 0] if transform else margin).cpu().numpy()
+            out[lo:hi] = margin.reshape(out[lo:hi].shape).cpu().numpy()
         return out
 
     def predict_leaf(self, x: np.ndarray, device=None) -> np.ndarray:

@@ -71,7 +71,7 @@ SIGNATURES = {
     },
     "walk": {
         "xrt_walk_binned": (
-            [P, P, P, P, P, I, P, I, ctypes.c_longlong, I, I, I, P, P], I),
+            [P, P, P, P, P, I, I, P, I, ctypes.c_longlong, I, I, I, P, P], I),
     },
 }
 

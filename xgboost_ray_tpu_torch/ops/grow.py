@@ -4,9 +4,10 @@ Port of ``xgboost_ray_tpu/ops/grow.py``: ``GrowConfig`` (``:164``), the
 padded-heap ``Tree`` (``:239``), ``route_right_binned`` (``:65``), the
 depthwise ``build_tree`` (``:269-785``) on its order-tracking path with
 sibling subtraction (``:433-438``, ``:529-561``) — the accelerator path —
-and B4, ``predict_tree_binned`` (``:786``): one tree walked over binned
-rows, what the engine adds to an eval set's margins each round (kernel:
-``csrc/walk.cu``; ``predict_tree_binned_plain`` beside it).
+and B4, ``predict_tree_binned`` (``:786``): one tree, or a round's K trees
+in one launch, walked over binned rows, what the engine adds to an eval
+set's margins each round (kernel: ``csrc/walk.cu``;
+``predict_tree_binned_plain`` beside it).
 
 Per level d (``n_nodes = 2**d``):
 
@@ -93,12 +94,16 @@ class Tree(NamedTuple):
     base_weight: torch.Tensor  # float32 lr-scaled leaf_weight of every node
 
 
-def empty_tree(heap_size: int, device) -> Tree:
+def empty_tree(heap_size: int, device, n_trees: Optional[int] = None) -> Tree:
+    """An unused heap of ``heap_size`` nodes, or with ``n_trees`` that many
+    ([n_trees, heap_size] fields)."""
+    shape = (heap_size,) if n_trees is None else (n_trees, heap_size)
+
     def z(dtype):
-        return torch.zeros(heap_size, dtype=dtype, device=device)
+        return torch.zeros(shape, dtype=dtype, device=device)
 
     return Tree(
-        feature=torch.full((heap_size,), -1, dtype=torch.int32, device=device),
+        feature=torch.full(shape, -1, dtype=torch.int32, device=device),
         split_bin=z(torch.int32), threshold=z(torch.float32),
         default_left=z(torch.bool), is_leaf=z(torch.bool),
         value=z(torch.float32), gain=z(torch.float32),
@@ -114,9 +119,13 @@ def build_tree(
     feat_has_missing: Optional[torch.Tensor] = None,  # [F] bool
     allreduce: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
     qscale: Optional[torch.Tensor] = None,  # [4] f32 fixed-point scales
+    tree: Optional[Tree] = None,  # [heap] fields to write the tree into
+    row_value: Optional[torch.Tensor] = None,  # [N] f32 to write into
 ):
     """Grow one tree. Returns (Tree, row_value [N]): the learning-rate
-    scaled leaf value each row lands in.
+    scaled leaf value each row lands in. ``tree`` and ``row_value``, where
+    given, are written in place and returned (a round of K trees writes
+    class k's into row k of its [K, heap] and [K, N] tensors).
 
     With ``qscale`` (always on the card; there this rank's own scales when
     the caller passes none) the histograms are summed in fixed point and
@@ -132,9 +141,11 @@ def build_tree(
         return h if qscale is None else dequantize(h, qscale)
 
     nbt = cfg.max_bin + 1
-    tree = empty_tree(cfg.heap_size, dev)
+    if tree is None:
+        tree = empty_tree(cfg.heap_size, dev)
     rec = TreeRecords(tree, cuts, feat_has_missing, cfg.split)
-    row_value = torch.empty(n, dtype=torch.float32, device=dev)
+    if row_value is None:
+        row_value = torch.empty(n, dtype=torch.float32, device=dev)
     order = torch.arange(n, dtype=torch.int32, device=dev)
     seg = torch.tensor([0, n], dtype=torch.int32, device=dev)
     active = torch.ones(1, dtype=torch.bool, device=dev)
@@ -185,7 +196,13 @@ def predict_tree_binned_plain(tree: Tree, bins: torch.Tensor, max_depth: int,
                               missing_bin: int) -> torch.Tensor:
     """Walk one tree over binned rows ``bins`` [N, F]; the leaf value of
     every row [N] f32 (the JAX ``predict_tree_binned``, numeric features):
-    ``max_depth`` steps, a leaf keeping its index."""
+    ``max_depth`` steps, a leaf keeping its index. A tree of [T, heap]
+    fields is T trees, walked one after the other: [T, N]."""
+    if tree.feature.dim() == 2:
+        return torch.stack([
+            predict_tree_binned_plain(Tree(*[f[t] for f in tree]), bins,
+                                      max_depth, missing_bin)
+            for t in range(tree.feature.shape[0])])
     n, num_features = bins.shape
     idx = torch.zeros(n, dtype=torch.int64, device=bins.device)
     for _ in range(max_depth):
@@ -206,37 +223,41 @@ _WALK_DTYPES = {"feature": torch.int32, "split_bin": torch.int32,
 def predict_tree_binned(tree: Tree, bins: torch.Tensor, max_depth: int,
                         missing_bin: int) -> torch.Tensor:
     """B4 wrapper: row values [N] f32 of ``tree`` (a heap of
-    ``2^(max_depth + 1) - 1`` nodes) over ``bins`` [N, F] (uint8 or int16).
-    CPU tensors take ``predict_tree_binned_plain``; CUDA tensors launch the
-    kernel of ``csrc/walk.cu`` (``predict_tree_binned.launches`` counts
-    them) or raise."""
+    ``2^(max_depth + 1) - 1`` nodes) over ``bins`` [N, F] (uint8 or int16);
+    for a tree of [T, heap] fields (a round's T trees of equal depth) the
+    row values [T, N] of all T in one launch. CPU tensors take
+    ``predict_tree_binned_plain``; CUDA tensors launch the kernel of
+    ``csrc/walk.cu`` (``predict_tree_binned.launches`` counts them) or
+    raise."""
     if not bins.is_cuda:
         return predict_tree_binned_plain(tree, bins, max_depth, missing_bin)
     n, num_features = bins.shape
     dev = bins.device
     heap = (1 << (max_depth + 1)) - 1
+    shape = tree.feature.shape[:-1] + (heap,)
+    n_trees = shape[0] if len(shape) == 2 else 1
     if not (bins.dtype in (torch.uint8, torch.int16) and bins.is_contiguous()
             and num_features >= 1):
         raise ValueError("predict_tree_binned: bins must be contiguous uint8 "
                          "or int16 [N, F]")
     for name, dtype in _WALK_DTYPES.items():
         t = getattr(tree, name)
-        if (t.device != dev or t.dtype != dtype or t.shape != (heap,)
-                or not t.is_contiguous()):
+        if (t.device != dev or t.dtype != dtype or t.shape != shape
+                or not t.is_contiguous() or n_trees < 1):
             raise ValueError(
                 f"predict_tree_binned: tree.{name} must be a contiguous "
-                f"{dtype} [{heap}] on the bins' device (max_depth "
-                f"{max_depth})")
-    out = torch.empty(n, dtype=torch.float32, device=dev)
+                f"{dtype} [{heap}] or [T, {heap}] on the bins' device "
+                f"(max_depth {max_depth})")
+    out = torch.empty(shape[:-1] + (n,), dtype=torch.float32, device=dev)
     if n == 0:
         return out
     with torch.cuda.device(dev):
         code = _build.library("walk").xrt_walk_binned(
             tree.feature.data_ptr(), tree.split_bin.data_ptr(),
             tree.default_left.data_ptr(), tree.is_leaf.data_ptr(),
-            tree.value.data_ptr(), heap, bins.data_ptr(), bins.element_size(),
-            n, num_features, max_depth, missing_bin, out.data_ptr(),
-            _build.stream_ptr(dev))
+            tree.value.data_ptr(), heap, n_trees, bins.data_ptr(),
+            bins.element_size(), n, num_features, max_depth, missing_bin,
+            out.data_ptr(), _build.stream_ptr(dev))
     _build.check(code, "B4 binned walk")
     predict_tree_binned.launches += 1
     return out

@@ -114,19 +114,20 @@ def _pow2(e: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 def scales_for(absmax: torch.Tensor, n_global: int) -> torch.Tensor:
     """The fixed-point scales for (max|g|, max|h|) ``absmax`` (f32 [2]) over
     ``n_global`` rows: f32 [4] = (2^eg, 2^eh, 2^-eg, 2^-eh) on ``absmax``'s
-    device (for any f32 [k] of maxima, the k scales then their inverses:
-    the sketch's weights take k = 1), each e the largest with n_global * (max|v| * 2^e + 1) < 2^62
-    (clamped to [-126, 126]; 126 where the max is 0). A few launches and
-    no host read: ``floor(log2(...))`` may be one off, so the first of
-    e0 + 1, e0, e0 - 1 that fits is taken."""
+    device (for any f32 [..., k] of maxima, along the last axis the k scales
+    then their inverses: the sketch's weights take k = 1, K classes' (g, h)
+    maxima [K, 2] give [K, 4]), each e the largest with n_global * (max|v| *
+    2^e + 1) < 2^62 (clamped to [-126, 126]; 126 where the max is 0). A few
+    launches and no host read: ``floor(log2(...))`` may be one off, so the
+    first of e0 + 1, e0, e0 - 1 that fits is taken."""
     n = max(1, int(n_global))
     md = absmax.double()
     e0 = torch.floor(torch.log2((_Q_LIMIT / n - 1.0) / md))  # inf at max 0
-    cand = (e0 + torch.arange(1, -2, -1, dtype=torch.float64,
-                              device=md.device)[:, None]).clamp(_E_MIN, _E_MAX)
+    step = torch.arange(1, -2, -1, dtype=torch.float64, device=md.device)
+    cand = (e0 + step.view(3, *([1] * md.dim()))).clamp(_E_MIN, _E_MAX)
     fits = n * (md * _pow2(cand, torch.float64) + 1.0) < _Q_LIMIT
     e = torch.where(fits[0], cand[0], torch.where(fits[1], cand[1], cand[2]))
-    return _pow2(torch.cat([e, -e]), torch.float32)
+    return _pow2(torch.cat([e, -e], dim=-1), torch.float32)
 
 
 def quant_scales(gh: torch.Tensor, n_global: int,
@@ -134,11 +135,15 @@ def quant_scales(gh: torch.Tensor, n_global: int,
                      Callable[[torch.Tensor], torch.Tensor]] = None
                  ) -> torch.Tensor:
     """A round's fixed-point scales (``scales_for``) from its gradients
-    ``gh`` [N, 2]: the per-column max of |gh|, merged across ranks by
-    ``reduce_max`` (an all-reduce MAX), stays on ``gh``'s device."""
-    absmax = (torch.linalg.vector_norm(gh, float("inf"), dim=0)
-              if gh.shape[0]
-              else torch.zeros(2, dtype=torch.float32, device=gh.device))
+    ``gh`` [N, 2], or [K, N, 2] for K classes: the per-column max of |gh|
+    ([2], or each class's [K, 2] in one pass), merged across ranks by
+    ``reduce_max`` (one all-reduce MAX), stays on ``gh``'s device: [4], or
+    [K, 4] (class k's scales in row k, so a rare class's small (g, h) keep
+    their resolution)."""
+    absmax = (torch.linalg.vector_norm(gh, float("inf"), dim=-2)
+              if gh.shape[-2]
+              else torch.zeros(gh.shape[:-2] + (2,), dtype=torch.float32,
+                               device=gh.device))
     if reduce_max is not None:
         absmax = reduce_max(absmax)
     return scales_for(absmax, n_global)

@@ -25,6 +25,22 @@ so on the CPU the gradients equal the JAX package's bit for bit; the
 kernel evaluates the same exp with ``tl.fma``. For the logloss the kernel
 uses Triton's ``exp``/``log`` and ``log1p(e)`` as ``log(u) * e / (u - 1)``
 with ``u = 1 + e``, within a few ulps of the plain ``logaddexp``.
+
+``multi:softprob`` / ``multi:softmax`` with K = ``num_class`` outputs
+(``_make_softmax``, ``:107-128``): ``p = softmax(m)``, ``g = (p -
+onehot(y)) w``, ``h = max(2 p (1 - p), 1e-16) w``, a zero base margin, the
+probabilities or the first argmax as the prediction. Their pass over the
+rows is the softmax pass (Triton, below), K4's counterpart for K outputs,
+in three modes: training (``softmax_update``: the K trees' row values
+added to the [N, K] margins, the ``mlogloss``/``merror``/weight partials,
+the next round's gradients as [K, N, 2] planes, class k's [N, 2]
+contiguous for K1-K3), eval (the same without gradients) and transform
+(``softmax_transform``: probabilities or classes from margins, for predict
+and serve). The plain versions follow the reference's compiled CPU
+program bit for bit: the max and the sum over classes in class order, the
+Cephes exp (``exp_f32``), a subnormal result flushed to zero as XLA's CPU
+flushes it, labels cast to int32 as XLA casts them (truncated, saturated,
+NaN to 0).
 """
 
 import dataclasses
@@ -38,9 +54,13 @@ from xgboost_ray_tpu_torch.ops import _build
 
 LOGISTIC = "binary:logistic"
 SQUARED = "reg:squarederror"
+SOFTPROB = "multi:softprob"
+SOFTMAX = "multi:softmax"
 
 #: metric partial sums written by K4, in this order
 PARTIALS = ("logloss", "error", "sqerr", "weight")
+#: metric partial sums written by the softmax pass, in this order
+SOFTMAX_PARTIALS = ("mlogloss", "merror", "weight")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,12 +68,25 @@ class Objective:
     name: str
     default_metric: str
     default_base_score: float = 0.5
+    #: outputs per row: 1, or num_class for the softmax objectives
+    num_outputs: int = 1
 
     @property
     def logistic(self) -> bool:
         return self.name == LOGISTIC
 
+    @property
+    def softmax(self) -> bool:
+        return self.name in _ZERO_BASE
+
+    @property
+    def partials(self) -> Tuple[str, ...]:
+        """The names of the metric partial sums its round pass writes."""
+        return SOFTMAX_PARTIALS if self.softmax else PARTIALS
+
     def base_score_to_margin(self, s: float) -> float:
+        if self.softmax:
+            return 0.0
         if not self.logistic:
             return float(s)
         if not 0 < s < 1:
@@ -62,31 +95,43 @@ class Objective:
         return float(torch.log(torch.tensor(s / (1.0 - s), dtype=torch.float32)))
 
     def transform(self, margin: torch.Tensor) -> torch.Tensor:
-        """[N, 1] margins -> [N] predictions (probabilities for
-        ``binary:logistic``, the margin itself for ``reg:squarederror``),
-        on the margins' device."""
+        """[N, K] margins -> predictions on the margins' device: [N]
+        probabilities for ``binary:logistic``, the margin itself for
+        ``reg:squarederror``, [N, K] probabilities for ``multi:softprob``,
+        [N] classes (f32) for ``multi:softmax``."""
+        if self.softmax:
+            return softmax_transform_plain(margin, self.name == SOFTPROB)
         return sigmoid(margin[:, 0]) if self.logistic else margin[:, 0]
 
 
-def get_objective(name: str) -> Objective:
+def get_objective(name: str, num_class: int = 0) -> Objective:
+    """The objective ``name``; the softmax objectives take ``num_class``
+    (>= 2) outputs."""
     if name == LOGISTIC:
         return Objective(name, default_metric="logloss")
     if name == SQUARED:
         return Objective(name, default_metric="rmse")
+    if name in _ZERO_BASE:
+        if num_class < 2:
+            raise ValueError("multi:* objectives require num_class >= 2")
+        return Objective(name, default_metric=(
+            "mlogloss" if name == SOFTPROB else "merror"),
+            num_outputs=int(num_class))
     raise NotImplementedError(
         f"objective={name!r} is not supported by xgboost_ray_tpu_torch yet "
-        f"({LOGISTIC} | {SQUARED}; the others are ROADMAP queue A10)."
+        f"({LOGISTIC} | {SQUARED} | {SOFTPROB} | {SOFTMAX}; the others are "
+        f"ROADMAP queue A10)."
     )
 
 
 #: objectives whose base_score maps to a zero margin (``:125``)
-_ZERO_BASE = ("multi:softprob", "multi:softmax")
+_ZERO_BASE = (SOFTPROB, SOFTMAX)
 
 
 def base_score_margin(name: str, base_score: float) -> float:
-    """The margin a model starts from (``Objective.base_score_to_margin``):
-    also for the multiclass models the port predicts margins of but does
-    not train yet, whose start is 0.0."""
+    """The margin a model starts from (``Objective.base_score_to_margin``),
+    also for a model of an objective the port predicts margins of but does
+    not train."""
     if name in _ZERO_BASE:
         return 0.0
     return get_objective(name).base_score_to_margin(base_score)
@@ -267,3 +312,309 @@ def round_update(margin: torch.Tensor, row_value: torch.Tensor,
 
 round_update.launches = 0
 round_update.eval_launches = 0
+
+
+# --------------------------------------------------------------------------
+# multi:softprob / multi:softmax and the softmax pass
+# --------------------------------------------------------------------------
+
+
+def _ftz(x: torch.Tensor) -> torch.Tensor:
+    """A subnormal float32 result flushed to a zero of its sign, as the
+    reference's CPU program flushes every one."""
+    return torch.where(x.abs() < _F32_TINY, x * 0.0, x)
+
+
+def label_class(label: torch.Tensor) -> torch.Tensor:
+    """[N] int64 class index of f32 labels, cast as XLA casts float32 to
+    int32 (``label.astype(jnp.int32)``): truncated toward zero, saturated,
+    NaN to 0. No range check, as in the reference: a label outside [0, K)
+    has no one-hot entry and its ``mlogloss`` term is NaN (below -K) or
+    wraps (in [-K, 0))."""
+    v = torch.nan_to_num(label.double(), nan=0.0)
+    return v.clamp(-2.0 ** 31, 2.0 ** 31 - 1).trunc().long()
+
+
+def first_argmax(v: torch.Tensor) -> torch.Tensor:
+    """[N] int64 index of each row's first maximum of ``v`` [N, K]
+    (``jnp.argmax``: a NaN counts as the maximum, the first one wins)."""
+    best = v[:, 0]
+    arg = torch.zeros(v.shape[0], dtype=torch.int64, device=v.device)
+    for k in range(1, v.shape[1]):
+        vk = v[:, k]
+        better = (vk > best) | (torch.isnan(vk) & ~torch.isnan(best))
+        best = torch.where(better, vk, best)
+        arg = torch.where(better, k, arg)
+    return arg
+
+
+def softmax_parts(m: torch.Tensor):
+    """The reference's softmax of [N, K] margins, in class order: (row max
+    [N], shifted ``m - max`` [N, K], ``exp(shifted)`` [N, K], their sum
+    [N]), each step flushed as the reference's CPU program flushes it."""
+    mx = m[:, 0]
+    for k in range(1, m.shape[1]):
+        mx = torch.maximum(mx, m[:, k])
+    d = _ftz(m - mx[:, None])
+    e = _ftz(exp_f32(d))
+    s = e[:, 0]
+    for k in range(1, m.shape[1]):
+        s = s + e[:, k]
+    return mx, d, e, s
+
+
+def softmax_probs(m: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softmax(m, axis=-1)`` of [N, K] f32 margins, bitwise its
+    compiled CPU form."""
+    _, _, e, s = softmax_parts(m)
+    return _ftz(e / s[:, None])
+
+
+def softmax_grad_hess(margin: torch.Tensor, label: torch.Tensor,
+                      weight: torch.Tensor):
+    """(g, h), each [N, K] f32: ``_make_softmax``'s closure."""
+    k = margin.shape[1]
+    p = softmax_probs(margin)
+    y = (label_class(label)[:, None]
+         == torch.arange(k, device=margin.device)[None, :]).to(p.dtype)
+    w = weight[:, None]
+    g = _ftz((p - y) * w)
+    h = _ftz(torch.clamp(2.0 * p * (1.0 - p), min=1e-16) * w)
+    return g, h
+
+
+def softmax_transform_plain(margin: torch.Tensor, prob: bool) -> torch.Tensor:
+    """Plain softmax pass, transform mode: [N, K] probabilities
+    (``multi:softprob``) or [N] f32 first-argmax classes of the
+    probabilities (``multi:softmax``) from [N, K] margins."""
+    p = softmax_probs(margin)
+    return p if prob else first_argmax(p).to(torch.float32)
+
+
+def softmax_update_plain(margin: torch.Tensor, row_value: torch.Tensor,
+                         label: torch.Tensor, weight: torch.Tensor,
+                         with_gh: bool = True
+                         ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
+    """Plain softmax pass, training and eval modes: adds ``row_value``
+    [K, N] to ``margin`` [N, K] in place; returns (gh [K, N, 2], or None
+    without ``with_gh``, partial sums [3] f64 in ``SOFTMAX_PARTIALS``
+    order)."""
+    from xgboost_ray_tpu_torch.ops.metrics import softmax_partials
+
+    margin.add_(row_value.T)
+    sums = softmax_partials(margin, label, weight)
+    if not with_gh:
+        return None, sums
+    g, h = softmax_grad_hess(margin, label, weight)
+    return torch.stack([g.T, h.T], dim=2).contiguous(), sums
+
+
+@functools.lru_cache(maxsize=None)
+def _softmax_kernel():
+    import triton
+    import triton.language as tl
+
+    @triton.jit
+    def smx(m_ptr, rv_ptr, label_ptr, weight_ptr, gh_ptr, part_ptr, out_ptr,
+            n, K: tl.constexpr, MODE: tl.constexpr, PROB: tl.constexpr,
+            BLOCK: tl.constexpr):
+        # MODE 0: training, 1: eval (no gh), 2: transform (no label, no
+        # margin write; PROB: probabilities, else the first argmax class)
+        pid = tl.program_id(0)
+        offs = pid * BLOCK + tl.arange(0, BLOCK)
+        mask = offs < n
+        row = offs.to(tl.int64)
+        n64 = tl.zeros([BLOCK], dtype=tl.int64) + n
+        if MODE < 2:
+            y = tl.load(label_ptr + row, mask=mask, other=0.0)
+            w = tl.load(weight_ptr + row, mask=mask, other=0.0)
+            yi = y.to(tl.int32)
+            yk = tl.where(yi < 0, yi + K, yi)
+        # pass 1: the (updated) margins' max, first argmax, the label's one
+        mx = tl.full([BLOCK], float("-inf"), tl.float32)
+        best = tl.full([BLOCK], float("-inf"), tl.float32)
+        arg = tl.zeros([BLOCK], dtype=tl.int32)
+        m_y = tl.full([BLOCK], float("nan"), tl.float32)
+        for k in tl.static_range(K):
+            v = tl.load(m_ptr + row * K + k, mask=mask, other=0.0)
+            if MODE < 2:
+                v = v + tl.load(rv_ptr + k * n64 + row, mask=mask, other=0.0)
+            mx = tl.maximum(mx, v)
+            better = (v > best) | ((v != v) & (best == best))
+            best = tl.where(better, v, best)
+            arg = tl.where(better, k, arg)
+            if MODE < 2:
+                m_y = tl.where(yk == k, v, m_y)
+        # pass 2: the sum of exp(m - max) in class order (the plain
+        # version's exp_f32: Cephes with fused multiply-adds)
+        s = tl.zeros([BLOCK], dtype=tl.float32)
+        for k in tl.static_range(K):
+            v = tl.load(m_ptr + row * K + k, mask=mask, other=0.0)
+            if MODE < 2:
+                v = v + tl.load(rv_ptr + k * n64 + row, mask=mask, other=0.0)
+            d = v - mx
+            d = tl.where(tl.abs(d) < 1.1754943508222875e-38, d * 0.0, d)
+            xc = tl.minimum(tl.maximum(d, -88.3762626647949), 88.3762626647950)
+            fx = tl.floor(tl.fma(xc, 1.44269504088896341, 0.5))
+            r = tl.fma(fx, -0.693359375, xc)
+            r = tl.fma(fx, 2.12194440e-4, r)
+            r2 = r * r
+            q = tl.fma(r, 1.9875691500e-4, 1.3981999507e-3)
+            q = tl.fma(q, r, 8.3334519073e-3)
+            q = tl.fma(q, r, 4.1665795894e-2)
+            q = tl.fma(q, r, 1.6666665459e-1)
+            q = tl.fma(q, r, 5.0000001201e-1)
+            q = 1.0 + tl.fma(q, r2, r)
+            two_n = ((fx.to(tl.int32) + 127) << 23).to(tl.float32, bitcast=True)
+            e = tl.maximum(q * two_n, d)
+            e = tl.where(tl.abs(e) < 1.1754943508222875e-38, e * 0.0, e)
+            s = s + e
+        if MODE < 2:
+            # mlogloss: -(log_softmax(m)[y]) (NaN for a label out of range,
+            # as take_along_axis gives); merror: argmax(m) != y
+            ll = tl.log(s) - (m_y - mx)
+            wrong = tl.where(arg != yi, 1.0, 0.0)
+            tl.store(part_ptr + pid * 3 + 0,
+                     tl.sum(tl.where(mask, w * ll, 0.0), axis=0))
+            tl.store(part_ptr + pid * 3 + 1, tl.sum(w * wrong, axis=0))
+            tl.store(part_ptr + pid * 3 + 2, tl.sum(w, axis=0))
+        # pass 3: write the margins, and the gradients or the values
+        pbest = tl.full([BLOCK], float("-inf"), tl.float32)
+        parg = tl.zeros([BLOCK], dtype=tl.int32)
+        for k in tl.static_range(K):
+            v = tl.load(m_ptr + row * K + k, mask=mask, other=0.0)
+            if MODE < 2:
+                v = v + tl.load(rv_ptr + k * n64 + row, mask=mask, other=0.0)
+                tl.store(m_ptr + row * K + k, v, mask=mask)
+            if MODE != 1:
+                d = v - mx
+                d = tl.where(tl.abs(d) < 1.1754943508222875e-38, d * 0.0, d)
+                xc = tl.minimum(tl.maximum(d, -88.3762626647949),
+                                88.3762626647950)
+                fx = tl.floor(tl.fma(xc, 1.44269504088896341, 0.5))
+                r = tl.fma(fx, -0.693359375, xc)
+                r = tl.fma(fx, 2.12194440e-4, r)
+                r2 = r * r
+                q = tl.fma(r, 1.9875691500e-4, 1.3981999507e-3)
+                q = tl.fma(q, r, 8.3334519073e-3)
+                q = tl.fma(q, r, 4.1665795894e-2)
+                q = tl.fma(q, r, 1.6666665459e-1)
+                q = tl.fma(q, r, 5.0000001201e-1)
+                q = 1.0 + tl.fma(q, r2, r)
+                two_n = ((fx.to(tl.int32) + 127) << 23).to(tl.float32,
+                                                           bitcast=True)
+                e = tl.maximum(q * two_n, d)
+                e = tl.where(tl.abs(e) < 1.1754943508222875e-38, e * 0.0, e)
+                p = tl.math.div_rn(e, s)
+                p = tl.where(tl.abs(p) < 1.1754943508222875e-38, p * 0.0, p)
+                if MODE == 0:
+                    onehot = tl.where(yi == k, 1.0, 0.0)
+                    g = (p - onehot) * w
+                    g = tl.where(tl.abs(g) < 1.1754943508222875e-38, g * 0.0, g)
+                    h = tl.maximum(2.0 * p * (1.0 - p), 1e-16) * w
+                    h = tl.where(tl.abs(h) < 1.1754943508222875e-38, h * 0.0, h)
+                    base = k * n64 * 2 + row * 2
+                    tl.store(gh_ptr + base, g, mask=mask)
+                    tl.store(gh_ptr + base + 1, h, mask=mask)
+                elif PROB:
+                    tl.store(out_ptr + row * K + k, p, mask=mask)
+                else:
+                    better = (p > pbest) | ((p != p) & (pbest == pbest))
+                    pbest = tl.where(better, p, pbest)
+                    parg = tl.where(better, k, parg)
+        if MODE == 2:
+            if not PROB:
+                tl.store(out_ptr + row, parg.to(tl.float32), mask=mask)
+
+    _build.TRITON_KERNELS.append(smx)
+    return smx
+
+
+_SMX_BLOCK = 512
+
+
+def _smx_launch(mode: int, margin: torch.Tensor, row_value, label, weight,
+                gh, part, out, prob: bool) -> None:
+    n, k = margin.shape
+    with torch.cuda.device(margin.device):
+        _softmax_kernel()[(_smx_blocks(n),)](
+            margin, margin if row_value is None else row_value,
+            margin if label is None else label,
+            margin if weight is None else weight,
+            margin if gh is None else gh, margin if part is None else part,
+            margin if out is None else out, n, K=k, MODE=mode,
+            PROB=bool(prob), BLOCK=_SMX_BLOCK, num_warps=4,
+        )
+
+
+def _smx_blocks(n: int) -> int:
+    return max(1, math.ceil(n / _SMX_BLOCK))
+
+
+def _check_margin(margin: torch.Tensor, what: str) -> None:
+    if not (margin.dtype == torch.float32 and margin.dim() == 2
+            and margin.shape[1] >= 2 and margin.is_contiguous()):
+        raise ValueError(f"{what}: margin must be contiguous float32 [N, K] "
+                         f"with K >= 2")
+
+
+def softmax_update(margin: torch.Tensor, row_value: torch.Tensor,
+                   label: torch.Tensor, weight: torch.Tensor,
+                   with_gh: bool = True
+                   ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
+    """Softmax pass wrapper, training mode (eval mode with
+    ``with_gh=False``): ``margin`` [N, K] += ``row_value`` [K, N].T in
+    place; returns (gh [K, N, 2] or None, partial sums [3] f64 in
+    ``SOFTMAX_PARTIALS`` order). CPU tensors take
+    ``softmax_update_plain``; CUDA tensors launch the Triton kernel
+    (``softmax_update.launches`` counts every launch,
+    ``softmax_update.eval_launches`` those of the eval mode)."""
+    if not margin.is_cuda:
+        return softmax_update_plain(margin, row_value, label, weight, with_gh)
+    _check_margin(margin, "softmax_update")
+    n, k = margin.shape
+    for t, shape in ((row_value, (k, n)), (label, (n,)), (weight, (n,))):
+        if (t.device != margin.device or t.dtype != torch.float32
+                or t.shape != shape or not t.is_contiguous()):
+            raise ValueError(
+                "softmax_update: row_value [K, N], label [N] and weight [N] "
+                "must be contiguous float32 on the margins' CUDA device")
+    gh = (torch.empty((k, n, 2), dtype=torch.float32, device=margin.device)
+          if with_gh else None)
+    part = torch.empty((_smx_blocks(n), 3), dtype=torch.float32,
+                       device=margin.device)
+    _smx_launch(0 if with_gh else 1, margin, row_value, label, weight, gh,
+                part, None, True)
+    softmax_update.launches += 1
+    if not with_gh:
+        softmax_update.eval_launches += 1
+    return gh, part.sum(0, dtype=torch.float64)
+
+
+softmax_update.launches = 0
+softmax_update.eval_launches = 0
+
+
+def softmax_transform(margin: torch.Tensor, prob: bool,
+                      out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Softmax pass wrapper, transform mode: [N, K] probabilities (``prob``)
+    or [N] f32 classes from [N, K] margins, into ``out`` if given. CPU
+    tensors take ``softmax_transform_plain``; CUDA tensors launch the
+    Triton kernel (``softmax_transform.launches``)."""
+    if not margin.is_cuda:
+        res = softmax_transform_plain(margin, prob)
+        return res if out is None else out.copy_(res)
+    _check_margin(margin, "softmax_transform")
+    shape = tuple(margin.shape) if prob else (margin.shape[0],)
+    if out is None:
+        out = torch.empty(shape, dtype=torch.float32, device=margin.device)
+    if (out.device != margin.device or out.dtype != torch.float32
+            or tuple(out.shape) != shape or not out.is_contiguous()):
+        raise ValueError(f"softmax_transform: out must be contiguous float32 "
+                         f"{list(shape)} on the margins' device")
+    _smx_launch(2, margin, None, None, None, None, None, out, prob)
+    softmax_transform.launches += 1
+    return out
+
+
+softmax_transform.launches = 0

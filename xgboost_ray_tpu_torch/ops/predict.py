@@ -44,7 +44,10 @@ summation error. ``tests/test_torch_predict.py`` pins where they are
 bitwise. Values: with ``transform`` (an objective's name) the margins go
 through the objective's prediction transform (``Objective.transform``:
 the sigmoid of ``binary:logistic``), which the kernel fuses into its
-epilogue.
+epilogue. The softmax of ``multi:softprob`` / ``multi:softmax`` cannot be
+fused: the kernel lays classes out as ``blockIdx.y``, so no thread holds a
+row's K sums; their values are B8's margins, then the softmax pass in its
+transform mode (``ops/objectives.softmax_transform``), two launches.
 
 Each wrapper sends CPU tensors to its plain PyTorch version and CUDA
 tensors to the kernel (or raises): there is no fallback. ``launches``
@@ -54,6 +57,7 @@ margins from values). Kernel: ``csrc/predict.cu``; ``launch_plan`` picks
 its mapping.
 """
 
+import contextlib
 import ctypes
 import functools
 from typing import NamedTuple, Optional, Sequence
@@ -63,7 +67,11 @@ import torch
 
 from xgboost_ray_tpu_torch.ops import _build
 from xgboost_ray_tpu_torch.ops.node_array import level_major
-from xgboost_ray_tpu_torch.ops.objectives import get_objective
+from xgboost_ray_tpu_torch.ops.objectives import (
+    SOFTPROB,
+    get_objective,
+    softmax_transform,
+)
 from xgboost_ray_tpu_torch.ops.split import tree_sum
 
 #: forest layouts the walk reads: the padded heap and the breadth-first
@@ -239,7 +247,8 @@ def predict_margin_plain(
 ) -> torch.Tensor:
     """[N, K] margins: base + (window-tree sum of each class's weighted
     leaf values) / num_parallel_tree; with ``transform``, the objective's
-    predictions of them ([N, 1])."""
+    predictions of them ([N, 1], or [N, K] probabilities for
+    ``multi:softprob``)."""
     n = x.shape[0]
     k = num_outputs
     dev = x.device
@@ -264,7 +273,10 @@ def predict_margin_plain(
         b = base[lo:hi] if base is not None else base0
         out[lo:hi] = b + s / num_parallel_tree
     if transform is not None:
-        out[:, 0] = get_objective(transform).transform(out)
+        obj = get_objective(transform, k)
+        if obj.softmax:
+            return obj.transform(out).reshape(n, -1)
+        out[:, 0] = obj.transform(out)
     return out
 
 
@@ -389,14 +401,25 @@ def _check_forest(fo: PredictForest, x: torch.Tensor) -> None:
 def _transform_mode(transform: Optional[str], k: int) -> str:
     """The kernel mode of a margin call: ``value`` for the sigmoid of
     ``binary:logistic``; the identity of ``reg:squarederror`` launches
-    plain margins. Raises for an objective outside the slice (and K > 1)."""
+    plain margins; ``softmax`` for the softmax objectives (margins, then the
+    softmax pass). Raises for an objective outside the slice and for a
+    one-output transform of K > 1 outputs."""
     if transform is None:
         return "margin"
-    obj = get_objective(transform)
+    obj = get_objective(transform, k)
+    if obj.softmax:
+        return "softmax"
     if k != 1:
         raise NotImplementedError(
-            "B8: transforms of K > 1 outputs (softmax) are ROADMAP queue A10")
+            f"B8: {transform!r} transforms one output, not K = {k} (the "
+            f"other K-output transforms are ROADMAP queue A10)")
     return "value" if obj.logistic else "margin"
+
+
+def value_width(transform: str, k: int) -> int:
+    """Columns of the values of a ``transform`` call over K outputs: K
+    probabilities for ``multi:softprob``, else one."""
+    return k if transform == SOFTPROB else 1
 
 
 def _args(fo: PredictForest, x: torch.Tensor, plan: LaunchPlan, mode: str,
@@ -450,14 +473,35 @@ def predict_margin(
     transform: Optional[str] = None,
 ) -> torch.Tensor:
     """B8 margin wrapper: [N, K] f32 (see :func:`predict_margin_plain`);
-    with ``transform`` (an objective's name) the values, the transform
-    fused into the kernel. ``stream`` defaults to the current stream of
-    ``x``'s device."""
+    with ``transform`` (an objective's name) the values, [N, 1] or, for
+    ``multi:softprob``, [N, K] (``value_width``): the transform fused into
+    the kernel, or for the softmax objectives the softmax pass after it
+    (``out`` then holds the values). ``stream`` defaults to the current
+    stream of ``x``'s device."""
     _check_x(fo, x)
     k = num_outputs
     _check(k >= 1 and num_parallel_tree >= 1 and ntree_limit >= 0,
            "B8: num_outputs and num_parallel_tree must be >= 1")
     mode = _transform_mode(transform, k)
+    if mode == "softmax":
+        shape = (x.shape[0], value_width(transform, k))
+        _check(out is None or (out.device == x.device
+                               and out.dtype == torch.float32
+                               and tuple(out.shape) == shape
+                               and out.is_contiguous()),
+               f"B8: out must be contiguous f32 {list(shape)} on the device "
+               f"of x for {transform!r} values")
+        margin = predict_margin(fo, x, base, base0, k, num_parallel_tree,
+                                ntree_limit, tree_weights, None, stream)
+        if out is None:
+            out = torch.empty(shape, dtype=torch.float32, device=x.device)
+        ctx = (torch.cuda.stream(stream) if stream is not None
+               else contextlib.nullcontext())
+        with ctx:
+            softmax_transform(margin, transform == SOFTPROB,
+                              out=out if transform == SOFTPROB
+                              else out.view(-1))
+        return out
     if not x.is_cuda:
         return predict_margin_plain(fo, x, base, base0, k, num_parallel_tree,
                                     ntree_limit, tree_weights, out, transform)

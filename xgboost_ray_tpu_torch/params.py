@@ -249,6 +249,8 @@ def parse_params(params: Optional[Dict[str, Any]]) -> TrainParams:
         )
     if not 1 < out.max_bin <= 1024:
         raise ValueError("max_bin must be in (1, 1024]")
+    if out.objective.startswith("multi:") and out.num_class < 2:
+        raise ValueError("multi:* objectives require num_class >= 2")
 
     # --- outside this slice: raise, naming the key -------------------------
     for key, bad in (
@@ -264,12 +266,16 @@ def parse_params(params: Optional[Dict[str, Any]]) -> TrainParams:
         ("colsample_bylevel", out.colsample_bylevel < 1.0),
         ("colsample_bynode", out.colsample_bynode < 1.0),
         ("num_parallel_tree", out.num_parallel_tree != 1),
-        ("num_class", out.num_class not in (0, 1)),
+        ("num_class", out.num_class not in (0, 1)
+         and not out.objective.startswith("multi:")),
         ("feature_parallel", int(out.feature_parallel or 1) != 1),
     ):
         if bad:
             raise _not_in_slice(key, getattr(out, key))
+    multi = out.objective.startswith("multi:")
     for m in out.eval_metric:
-        if m not in SUPPORTED_METRICS:
+        # the softmax metrics go with the softmax objectives, the others
+        # with the one-output ones
+        if m not in SUPPORTED_METRICS or (m in ("mlogloss", "merror")) != multi:
             raise _not_in_slice("eval_metric", m)
     return out

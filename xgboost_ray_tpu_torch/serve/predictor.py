@@ -8,7 +8,9 @@ The forest goes to the device packed once per model (for ``node_array``,
 in its order), and each bucket has preallocated device buffers for its
 rows and its outputs: a batch is copied into its bucket's buffer, zero
 rows pad it, B8 walks the bucket (for ``value`` with the objective's
-transform fused into it), and the real rows are sliced back. The
+transform fused into it; a ``multi:softprob`` / ``multi:softmax`` model's
+``value`` is B8's margins, then the softmax pass: [rows, K] probabilities
+or [rows] classes), and the real rows are sliced back. The
 walk is row-independent, so padding changes nothing in the real rows:
 served results are bitwise the batch path's (``RayXGBoostBooster.predict``
 on the same device).
@@ -94,23 +96,28 @@ class CompiledPredictor:
         self.signature = booster.signature()
         self.m0 = booster.base_score_margin_np()
         self.forest_dev = booster.device_forest(self.device, layout)
+        #: columns of a ``value`` response: K for multi:softprob, else one
+        self.value_width = predict_ops.value_width(booster.params.objective,
+                                                   booster.num_outputs)
         self.tw_dev = booster.device_tree_weights(self.device)
-        # (bucket, "margin" | "leaf") -> (rows buffer, output buffer)
+        # (bucket, "margin" | "value" | "leaf") -> (rows buffer, output
+        # buffer)
         self._buffers: Dict[Tuple[int, str], Tuple[torch.Tensor,
                                                    torch.Tensor]] = {}
         self._lock = threading.Lock()
 
     def _bucket_buffers(self, bucket: int, kind: str):
         b = self.booster
-        key = (bucket, "leaf" if kind == "leaf" else "margin")
+        key = (bucket, kind)
         bufs = self._buffers.get(key)
         if bufs is None:
             x = torch.zeros((bucket, b.num_features), dtype=torch.float32,
                             device=self.device)
-            out = (torch.empty((bucket, b.num_trees), dtype=torch.int32,
-                               device=self.device) if kind == "leaf" else
-                   torch.empty((bucket, b.num_outputs), dtype=torch.float32,
-                               device=self.device))
+            width = {"leaf": b.num_trees, "margin": b.num_outputs,
+                     "value": self.value_width}[kind]
+            out = torch.empty((bucket, width), device=self.device,
+                              dtype=torch.int32 if kind == "leaf"
+                              else torch.float32)
             bufs = self._buffers[key] = (x, out)
         return bufs
 
@@ -160,7 +167,7 @@ class CompiledPredictor:
                     tree_weights=self.tw_dev, out=ob, stream=stream,
                     transform=b.params.objective if kind == "value" else None)
             res = ob[:n]
-            if kind != "leaf" and b.num_outputs == 1:
+            if kind != "leaf" and res.shape[1] == 1:
                 res = res[:, 0]
             out = res.to("cpu", copy=True).numpy()
         return out, bucket
