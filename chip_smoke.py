@@ -5,8 +5,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one
 CUDA device, ``nvcc`` and ``triton``, and nothing of JAX. Phases:
 
 1. build: compile the CUDA kernels of ``xgboost_ray_tpu_torch/csrc`` (one
-   ``nvcc`` per source, in parallel) and the Triton kernel; report each K1,
-   K3, B8 and B4 kernel's registers, shared memory and spills (``-Xptxas -v``)
+   ``nvcc`` per source, in parallel) and the Triton kernel (K4); time the
+   softmax pass's first launches; report each K1, K3, B8, B4 and softmax
+   kernel's registers, shared memory and spills (``-Xptxas -v``)
    and the atomic opcodes ``cuobjdump -sass`` finds in them (whether K1's
    shared adds are native or a compare-and-swap loop), and the dynamic
    shared memory per CTA of B8's kernels on the main path;
@@ -87,7 +88,9 @@ CUDA device, ``nvcc`` and ``triton``, and nothing of JAX. Phases:
    set one B4 and one K4 eval-mode launch a round); B4 bitwise against its
    plain version over the test rows for every tree, K4's eval mode against
    its plain version (margins bitwise, partials within 1e-5 relative), both
-   timed (B4's bound from the 32-byte sectors of bins its walks read); the
+   timed (B4's bound from the 32-byte sectors of bins its walks read; B4
+   also on each mapping of its launch plan, each bitwise, beside the plan's
+   choice and the bytes a tiled walk reads); the
    test margins within 1e-4 of ``booster.predict(x_test,
    output_margin=True)``; 30 rounds with ``early_stopping_rounds=3``
    (``best_iteration`` the argmin of the test logloss, stopped 3 rounds
@@ -118,7 +121,10 @@ CUDA device, ``nvcc`` and ``triton``, and nothing of JAX. Phases:
    closed loop: every batch one B8 margin launch and one transform
    launch, no client error); early stopping on the test mlogloss; a
    5 + 5 warm start twice; the card against the CPU path on 50,000 rows
-   and 3 rounds (phase 4's rule).
+   and 3 rounds (phase 4's rule); and ``multi:softprob`` at K = 33 classes
+   (the softmax pass's path above 32 classes: 10,000 rows, 3 rounds, labels
+   a seeded score's quantiles), launches checked, against the CPU path
+   summing in the card's fixed point by phase 4's rule.
 
 Phase 6's model is trained, and phase 7 run, right after phase 1: later in
 the process ``torch.profiler`` records no device activity for B8's
@@ -150,7 +156,10 @@ fixed point is timed with its f32 K1), so two trees are compared in turns
 in one call.
 
 ``--multiclass-only`` runs the build and phase 9 alone and prints its
-kernel rows but no result line.
+kernel rows but no result line; ``--evals-only`` the same for phase 8.
+Both work in an older tree of the package too (copy this script into its
+root), so two versions of the softmax pass and B4 are timed in turns in
+one call.
 
 ``--ranks-only`` runs the build, the 1-rank main path and the ranks phase
 (on a host of two or more cards also the NCCL path, against the 1-rank
@@ -214,10 +223,31 @@ def cuda_ms(fn, iters=10, warmup=2):
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters=10):
+def host_call_us(fn, iters=200, runs=5):
+    """Host time per call of ``fn`` called back to back, in us: its Python,
+    argument set-up and launch, not the device's work (200 launches stay
+    far from the launch queue's bound). The median of ``runs`` runs, each
+    followed by a synchronize."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    per_call = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        per_call.append((time.perf_counter() - t0) / iters * 1e6)
+        torch.cuda.synchronize()
+    return float(np.median(per_call))
+
+
+def device_ms(fn, iters=10, only=None):
     """Device time per call of ``fn`` of the kernels it launches, from
     ``torch.profiler``: the port's own kernels, not the wrapper's
-    allocations and fills (PyTorch's ``at::`` kernels, copies, memsets)."""
+    allocations and fills (PyTorch's ``at::`` kernels, copies, memsets);
+    with ``only``, the kernels whose name holds it (any case), PyTorch's
+    too (a library call's)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -233,8 +263,9 @@ def device_ms(fn, iters=10):
         t = getattr(e, "self_device_time_total", None)
         t = e.self_cuda_time_total if t is None else t
         seen.append((e.key[:60], str(e.device_type), t))
-        if (e.device_type != torch.autograd.DeviceType.CUDA or "at::" in e.key
-                or e.key.startswith(("Memcpy", "Memset"))):
+        if e.device_type != torch.autograd.DeviceType.CUDA or (
+                (only.lower() not in e.key.lower()) if only else
+                ("at::" in e.key or e.key.startswith(("Memcpy", "Memset")))):
             continue
         total += t / 1e3
     check(total > 0, f"torch.profiler saw no device time of the kernels; "
@@ -385,8 +416,8 @@ def phase_build_report(n_trees, n_rows):
 
     paths = _build.build_all()
     report = {}
-    for stem in ("histogram", "partition", "predict", "walk"):
-        if stem in paths:  # B4's walk.cu: not in an older tree
+    for stem in ("histogram", "partition", "predict", "walk", "softmax"):
+        if stem in paths:  # walk.cu, softmax.cu: not in older trees
             report[stem] = {"ptxas": ptxas_report(_build.build_log(stem)),
                             "sass_atomics": sass_atomics(paths[stem])}
     if hasattr(PR, "launch_plan"):  # this tree's B8 (not an older one)
@@ -1779,6 +1810,46 @@ def b4_work(tree, bins, depth, missing_bin):
     return int(torch.unique(torch.cat(addrs)).numel()), visits
 
 
+def b4_mappings(forest, bins, depth, flush):
+    """B4 on each mapping of its launch plan (``ops/grow.walk_plan``), each
+    held bitwise against the plain version and timed (device time L2
+    flushed and warm, events), beside the plan's own choice and the bytes a
+    tiled walk reads (every byte of the bins, the row values written, the
+    forest's 13 bytes a node). Empty for a tree of the package without
+    launch plans (the first B4, one mapping)."""
+    import torch
+
+    from xgboost_ray_tpu_torch.ops import grow as G
+
+    if not hasattr(G, "walk_plan"):
+        return {}
+    n, f = bins.shape
+    t = forest.feature.shape[0] if forest.feature.dim() == 2 else 1
+    heap = forest.feature.shape[-1]
+    ref = G.predict_tree_binned_plain(forest, bins, depth, 256)
+    tiled_bytes = n * f * bins.element_size() + t * n * 4 + t * heap * 13
+    out = {"plan": G.walk_plan(f, bins.element_size(), t, depth)._asdict(),
+           "tiled_bytes_read": tiled_bytes,
+           "tiled_bytes_ms": bound_ms(tiled_bytes, 0)[0]}
+    for mapping in G.WALK_MAPPINGS:
+        plan = G.walk_plan(f, bins.element_size(), t, depth, mapping)
+
+        def fn(plan=plan):
+            return G.predict_tree_binned(forest, bins, depth, 256, plan=plan)
+
+        check(torch.equal(bits(fn()), bits(ref)),
+              f"B4 ({mapping} mapping) differs from its plain version")
+        out[mapping] = {"shared_bytes": plan.shared_bytes,
+                        "rows_per_tile": plan.rows_per_tile,
+                        "trees_per_group": plan.trees_per_group,
+                        "ms": cuda_ms(fn, iters=20),
+                        "device_ms": profiled_ms(
+                            lambda: (flush.zero_(), fn())),
+                        "device_ms_read_flush": read_flushed_ms(fn),
+                        "device_ms_l2_warm": profiled_ms(fn)}
+    return out
+
+
 def phase_evals(x, y, records, rounds=10, depth=6, es_rounds=30):
     """The HIGGS protocol with its test set: the first rows train, the last
     ``TEST_ROWS`` are ``evals=[(dtrain, "train"), (dtest, "test")]``. Round
@@ -1897,10 +1968,13 @@ def phase_evals(x, y, records, rounds=10, depth=6, es_rounds=30):
         launches=first["launches"]["B4"], max_abs_err=err_b4,
         ms=cuda_ms(walk, iters=20),
         device_ms=profiled_ms(lambda: (flush.zero_(), walk())),
+        device_ms_read_flush=read_flushed_ms(walk),
         device_ms_l2_warm=profiled_ms(walk),
         plain_ms=cuda_ms(lambda: G.predict_tree_binned_plain(
             tree, es.bins, depth, 256), iters=3),
-        bound_ms=b4_bound[0], bound_by=b4_bound[1], library_ms=None)
+        bound_ms=b4_bound[0], bound_by=b4_bound[1], library_ms=None,
+        mappings=b4_mappings(tree, es.bins, depth, flush),
+        host_us=host_call_us(walk))
     value = walk()
     m0 = es.margins.view(-1).clone()
     mk, mp = m0.clone(), m0.clone()
@@ -1926,8 +2000,9 @@ def phase_evals(x, y, records, rounds=10, depth=6, es_rounds=30):
     res.update(b4_sectors=sectors, b4_visits=visits,
                b4_visits_per_row=visits / n_test,
                b4={k: records["B4"][k] for k in (
-                   "ms", "device_ms", "device_ms_l2_warm", "plain_ms",
-                   "bound_ms", "bound_by")},
+                   "ms", "host_us", "device_ms", "device_ms_read_flush",
+                   "device_ms_l2_warm", "plain_ms", "bound_ms", "bound_by",
+                   "mappings")},
                k4_eval={k: records["K4eval"][k] for k in (
                    "ms", "device_ms", "device_ms_l2_warm", "plain_ms",
                    "bound_ms", "max_abs_err")})
@@ -2104,16 +2179,31 @@ def multiclass_expect(rounds, depth, k, held_out):
     return out
 
 
+def read_flushed_ms(fn):
+    """``fn``'s device time with the L2 flushed by reading 64 MB between
+    launches. ``device_ms`` flushes by writing 64 MB (``zero_``), which
+    leaves the L2 full of dirty lines that the kernel's own traffic then
+    writes back to device memory; a read leaves clean lines, so this is
+    the kernel's cold time without that write-back."""
+    import torch
+
+    buf = torch.ones(16 << 20, dtype=torch.float32, device="cuda")
+    return profiled_ms(lambda: (buf.sum(), fn()))
+
+
 def _kernel_record(records, key, fn, plain, bound, flush, launches, err,
                    library=None):
-    """Time ``fn`` (events, device time L2 flushed and warm) beside its
-    plain version; fill ``records[key]``."""
+    """Time ``fn`` (events, device time L2 flushed by a write and by a
+    read, and warm) beside its plain version, then the host time a
+    call (last: its 1,000 calls change the margins a pass updates in
+    place, and with them its device time); fill ``records[key]``."""
     records[key].update(
         launches=launches, max_abs_err=err, ms=cuda_ms(fn, iters=20),
         device_ms=profiled_ms(lambda: (flush.zero_(), fn())),
+        device_ms_read_flush=read_flushed_ms(fn),
         device_ms_l2_warm=profiled_ms(fn),
         plain_ms=cuda_ms(plain, iters=3), bound_ms=bound[0],
-        bound_by=bound[1], library_ms=library)
+        bound_by=bound[1], library_ms=library, host_us=host_call_us(fn))
 
 
 def phase_k1_k2_f54(n, records, launches):
@@ -2179,6 +2269,34 @@ def phase_k1_k2_f54(n, records, launches):
         flush, launches["K2level"], float((lk.hist - lp.hist).abs().max()))
     del bins, gh, order, seg, hp, level, flush
     torch.cuda.empty_cache()
+
+
+def hold_softmax_update(m0, rv, lab, w, with_gh, what):
+    """The softmax pass's training (``with_gh``) or eval mode on copies of
+    the margins ``m0`` against its plain version on the same card tensors:
+    margins and gradients bitwise (0 ulps), partial sums within 1e-5
+    relative. Returns (max abs err, partials' relative err, ulps)."""
+    import torch
+
+    from xgboost_ray_tpu_torch.ops import objectives as O
+
+    mk, mp = m0.clone(), m0.clone()
+    ghk, sk = O.softmax_update(mk, rv, lab, w, with_gh)
+    ghp, sp = O.softmax_update_plain(mp, rv, lab, w, with_gh)
+    torch.cuda.synchronize()
+    check(torch.equal(bits(mk), bits(mp)), f"softmax pass ({what}): "
+                                           f"margins differ")
+    rel = float(((sk - sp).abs() / sp.abs().clamp_min(1e-30)).max())
+    check(rel <= 1e-5, f"softmax pass ({what}): partial sums beyond "
+                       f"1e-5 relative ({rel})")
+    err = float((sk - sp).abs().max())
+    ulps = 0
+    if with_gh:
+        ulps = int((bits(ghk).long() - bits(ghp).long()).abs().max())
+        err = max(err, float((ghk - ghp).abs().max()))
+        check(ulps == 0, f"softmax pass ({what}): gradients {ulps} ulps "
+                         f"from the plain version's")
+    return err, rel, ulps
 
 
 def phase_multiclass(records, rounds=10, depth=6, es_rounds=30,
@@ -2332,34 +2450,16 @@ def phase_multiclass(records, rounds=10, depth=6, es_rounds=30,
         lambda: G.predict_tree_binned_plain(forest, es.bins, depth, 256),
         bound_ms(sectors * 32 + COVERTYPE_TEST * 4 * k + k * heap * 13,
                  visits), flush, first["launches"]["B4"], err_b4)
+    records["B4k"]["mappings"] = b4_mappings(forest, es.bins, depth, flush)
     rv_test = G.predict_tree_binned(forest, es.bins, depth, 256)
     rv_train = G.predict_tree_binned(forest, engine.bins, depth, 256)
     label, weight = engine.label, engine.weight
 
-    def hold_pass(m0, rv, lab, w, with_gh, what):
-        mk, mp = m0.clone(), m0.clone()
-        ghk, sk = O.softmax_update(mk, rv, lab, w, with_gh)
-        ghp, sp = O.softmax_update_plain(mp, rv, lab, w, with_gh)
-        torch.cuda.synchronize()
-        check(torch.equal(bits(mk), bits(mp)), f"softmax pass ({what}): "
-                                               f"margins differ")
-        rel = float(((sk - sp).abs() / sp.abs().clamp_min(1e-30)).max())
-        check(rel <= 1e-5, f"softmax pass ({what}): partial sums beyond "
-                           f"1e-5 relative ({rel})")
-        err = float((sk - sp).abs().max())
-        ulps = 0
-        if with_gh:
-            ulps = int((bits(ghk).long() - bits(ghp).long()).abs().max())
-            err = max(err, float((ghk - ghp).abs().max()))
-            check(ulps == 0, f"softmax pass ({what}): gradients {ulps} ulps "
-                             f"from the plain version's")
-        return err, rel, ulps
-
     m_train = engine.margins.clone()
-    err_t, rel_t, ulps_t = hold_pass(m_train, rv_train, label, weight, True,
-                                     "training mode")
-    err_e, rel_e, _ = hold_pass(es.margins, rv_test, es.label, es.weight,
-                                False, "eval mode")
+    err_t, rel_t, ulps_t = hold_softmax_update(
+        m_train, rv_train, label, weight, True, "training mode")
+    err_e, rel_e, _ = hold_softmax_update(es.margins, rv_test, es.label,
+                                          es.weight, False, "eval mode")
     n_tr, n_te = n_train, COVERTYPE_TEST
     # bytes: margins read and written, the K row values, label and weight
     # read, the [K, N, 2] gradients written; ~64 flops a (row, class)
@@ -2380,8 +2480,10 @@ def phase_multiclass(records, rounds=10, depth=6, es_rounds=30,
         first["launches"]["SMXeval"], err_e)
     emit({"phase": "multiclass_kernels", **{
         key: {f: records[key].get(f) for f in (
-            "launches", "max_abs_err", "ms", "device_ms", "device_ms_l2_warm",
-            "plain_ms", "bound_ms")} for key in ("B4k", "SMX", "SMXeval")}})
+            "launches", "max_abs_err", "ms", "host_us", "device_ms",
+            "device_ms_read_flush", "device_ms_l2_warm", "plain_ms",
+            "bound_ms", "mappings")}
+        for key in ("B4k", "SMX", "SMXeval")}})
     res["kernels"] = {"softmax_training_partials_rel": rel_t,
                       "softmax_training_gradient_ulps": ulps_t,
                       "softmax_eval_partials_rel": rel_e,
@@ -2480,6 +2582,15 @@ def phase_multiclass(records, rounds=10, depth=6, es_rounds=30,
         bound_ms(n_all * 8 * k, 40 * k * n_all), flush,
         launches["SMXtransform"], 0.0,
         library=cuda_ms(lambda: torch.softmax(md, 1), iters=20))
+    # the yardstick's device time, measured as the kernel's
+    rbuf = torch.ones(16 << 20, dtype=torch.float32, device="cuda")
+    records["SMXtransform"]["library_device_ms"] = {
+        "write_flush": device_ms(lambda: (flush.zero_(), torch.softmax(md, 1)),
+                                 only="softmax"),
+        "read_flush": device_ms(lambda: (rbuf.sum(), torch.softmax(md, 1)),
+                                only="softmax"),
+        "l2_warm": device_ms(lambda: torch.softmax(md, 1), only="softmax")}
+    del rbuf
     del md, got, got_c, flush, values, plain, margins, classes, soft
     torch.cuda.empty_cache()
 
@@ -2583,8 +2694,110 @@ def phase_multiclass(records, rounds=10, depth=6, es_rounds=30,
     check(f32["mlogloss_max_abs_diff"] <= 1e-3,
           f"per-round mlogloss of the CPU's f32 sums differs by "
           f"{f32['mlogloss_max_abs_diff']} > 1e-3")
+    res["k33"] = phase_k33(xt)
     res["phase_s"] = time.perf_counter() - t_phase
     emit(res)
+    return res
+
+
+def phase_k33(x, rows=10_000, rounds=3, depth=6, k=33):
+    """``multi:softprob`` at K = 33 classes (the softmax pass's path above
+    32 classes, whose class sum is the reference's window-32 tree) on the
+    first ``rows`` rows of ``x``, labels a seeded score's 33 quantiles:
+    ``train()`` on the card, launches checked, against the CPU path summing
+    in the card's fixed point: there the whole model must be the card's
+    (equal dumps, margins bitwise). Then the wide pass's four modes on the
+    card run's own margins, labels and last round's row values, each
+    bitwise its plain version on the same tensors (partial sums within
+    1e-5 relative)."""
+    import torch
+
+    import xgboost_ray_tpu_torch as xrt
+    from xgboost_ray_tpu_torch.distributed import _KeepEngine
+    from xgboost_ray_tpu_torch.engine import (
+        kernel_launches,
+        reset_kernel_launches,
+    )
+    from xgboost_ray_tpu_torch.ops import grow as G
+    from xgboost_ray_tpu_torch.ops import objectives as O
+
+    rng = np.random.RandomState(33)
+    xs = x[:rows]
+    score = xs @ rng.standard_normal(xs.shape[1]).astype(np.float32) / (
+        xs.std(0) + 1e-6).sum() + 0.2 * rng.standard_normal(rows)
+    y = np.empty(rows, np.float32)
+    y[np.argsort(score, kind="stable")] = np.arange(rows) * k // rows
+    params = {"objective": "multi:softprob", "num_class": k,
+              "eval_metric": ["merror", "mlogloss"], "max_depth": depth,
+              "max_bin": 256}
+    out, engines = {}, {}
+    for device in ("cuda:0", "cpu"):
+        keep, ev = _KeepEngine(), {}
+        dm = xrt.RayDMatrix(xs, y)
+        reset_kernel_launches()
+        with _cpu_fixed_point(device == "cpu"):
+            bst = xrt.train(params, dm, rounds, evals=[(dm, "train")],
+                            evals_result=ev, callbacks=[keep], device=device,
+                            ray_params=xrt.RayParams(num_actors=1))
+        if device != "cpu":
+            torch.cuda.synchronize()
+        out[device] = (bst, ev["train"]["mlogloss"],
+                       keep.engine.get_margins(), kernel_launches())
+        engines[device] = keep.engine
+    card, cpu = out["cuda:0"], out["cpu"]
+    fields = ("feature", "split_bin", "default_left", "is_leaf")
+    res = {"rows": rows, "classes": k, "rounds": rounds,
+           "launches": card[3],
+           "expected": multiclass_expect(rounds, depth, k, False),
+           "first_round_trees_differ_in": [
+               f for f in fields if not np.array_equal(
+                   getattr(card[0].forest, f)[:k],
+                   getattr(cpu[0].forest, f)[:k])],
+           "dump_equal": card[0].get_dump() == cpu[0].get_dump(),
+           "margins_bitwise": same_bits(card[2], cpu[2]),
+           "mlogloss_card": card[1], "mlogloss_cpu_fixed_point": cpu[1],
+           "mlogloss_max_abs_diff": float(np.max(np.abs(
+               np.array(card[1]) - np.array(cpu[1])))),
+           "margin_max_abs_diff": float(np.max(np.abs(card[2] - cpu[2])))}
+    emit({"phase": "multiclass_k33", **res})
+    check_launches(card[3], res["expected"], "multiclass train() at K = 33")
+    check(not res["first_round_trees_differ_in"],
+          f"K = 33: the first round's trees differ between the card and the "
+          f"CPU (fixed-point sums) in {res['first_round_trees_differ_in']}")
+    check(res["mlogloss_max_abs_diff"] <= 1e-5,
+          f"K = 33: per-round mlogloss differs by "
+          f"{res['mlogloss_max_abs_diff']}")
+    check(res["margin_max_abs_diff"] <= 1e-3,
+          f"K = 33: final margins differ by {res['margin_max_abs_diff']}")
+    check(res["dump_equal"] and res["margins_bitwise"],
+          "K = 33: the card's model is not the CPU path's (fixed-point "
+          "sums): dumps equal "
+          f"{res['dump_equal']}, margins bitwise {res['margins_bitwise']}")
+    check(card[1][-1] < card[1][0], f"K = 33: mlogloss does not fall: "
+                                    f"{card[1]}")
+
+    # the wide pass on the card run's tensors: its margins plus the last
+    # round's row values (B4 over its 33 trees) in training and eval mode,
+    # then both transforms of the margins, each against its plain version
+    eng = engines["cuda:0"]
+    rv = G.predict_tree_binned(eng.trees[-1], eng.bins, depth, 256)
+    wide = {}
+    for with_gh, mode in ((True, "training"), (False, "eval")):
+        err, rel, ulps = hold_softmax_update(
+            eng.margins, rv, eng.label, eng.weight, with_gh,
+            f"K = 33, {mode} mode")
+        wide[mode] = {"max_abs_err": err, "partials_rel": rel,
+                      "gradient_ulps": ulps}
+    for prob, mode in ((True, "prob"), (False, "class")):
+        got = O.softmax_transform(eng.margins, prob)
+        ref = O.softmax_transform_plain(eng.margins, prob)
+        check(torch.equal(bits(got), bits(ref)),
+              f"softmax pass (K = 33, transform mode {mode}) differs from "
+              f"its plain version")
+        wide[mode] = {"bitwise": True}
+    res["wide_pass"] = wide
+    emit({"phase": "multiclass_k33_wide_pass", **wide})
+    del engines, eng, rv
     return res
 
 
@@ -2657,18 +2870,18 @@ KERNELS = {
     "SMX": dict(name="softmax pass, training mode: margins += a round's 7 "
                 "row values, mlogloss / merror / weight partials, [K, N, 2] "
                 "gradients (464,810 Covertype rows x 7 classes)",
-                route="triton",
-                source="xgboost_ray_tpu_torch/ops/objectives.py",
+                route="cuda",
+                source="xgboost_ray_tpu_torch/csrc/softmax.cu",
                 replaces="xgboost_ray_tpu/ops/objectives.py:107"),
     "SMXeval": dict(name="softmax pass, eval mode: margins += the round's "
                     "row values, partials, no gradients (116,202 test rows "
-                    "x 7 classes)", route="triton",
-                    source="xgboost_ray_tpu_torch/ops/objectives.py",
+                    "x 7 classes)", route="cuda",
+                    source="xgboost_ray_tpu_torch/csrc/softmax.cu",
                     replaces="xgboost_ray_tpu/ops/metrics.py:55"),
     "SMXtransform": dict(name="softmax pass, transform mode: probabilities "
                          "from B8's margins (every one of 581,012 rows x 7 "
-                         "classes)", route="triton",
-                         source="xgboost_ray_tpu_torch/ops/objectives.py",
+                         "classes)", route="cuda",
+                         source="xgboost_ray_tpu_torch/csrc/softmax.cu",
                          replaces="xgboost_ray_tpu/ops/objectives.py:115"),
     "B4k": dict(name="B4 binned tree walk: a round's 7 depth-6 trees in one "
                 "launch over the 116,202 test rows (int16 bins, 54 features)",
@@ -2742,14 +2955,17 @@ def run(args):
         build["triton_eval_mode_first_launch_seconds"] = (
             time.perf_counter() - t1)
     if hasattr(O, "softmax_update"):  # not in an older tree
+        # the CUDA pass's first training and transform launches (in a
+        # tree from before it, the Triton pass's compile and launch)
         t1 = time.perf_counter()
         m7 = torch.zeros(4, 7, device="cuda")
         O.softmax_update(m7, torch.zeros(7, 4, device="cuda"), z.clone(),
                          torch.ones(4, device="cuda"))
         O.softmax_transform(m7, True)
         torch.cuda.synchronize()
-        build["triton_softmax_first_launches_seconds"] = (
-            time.perf_counter() - t1)
+        build["softmax_first_launches_seconds"] = time.perf_counter() - t1
+        build["softmax_route"] = ("cuda" if hasattr(O, "softmax_plan")
+                                  else "triton")
     emit(build)
     if args.k1_time:
         phase_k1_time(args.rows, args.rounds)
@@ -2758,6 +2974,12 @@ def run(args):
         records = {k: dict(v) for k, v in KERNELS.items()}
         phase_multiclass(records)
         emit({"multiclass_kernels": {k: records[k] for k in MULTICLASS_KERNELS}})
+        return
+    if args.evals_only:
+        records = {k: dict(v) for k, v in KERNELS.items()}
+        x, y = make_higgs_like(args.rows, 28, seed=0)
+        phase_evals(x, y, records)
+        emit({"evals_kernels": {k: records[k] for k in ("B4", "K4eval")}})
         return
     if args.ranks_only:
         x, y = make_higgs_like(args.rows, 28, seed=0)
@@ -2882,6 +3104,10 @@ def main():
     ap.add_argument("--multiclass-only", action="store_true",
                     help="only the build and phase 9 (multiclass at "
                          "Covertype's width); prints no result line")
+    ap.add_argument("--evals-only", action="store_true",
+                    help="only the build and phase 8 (held-out eval sets at "
+                         "the HIGGS split; works on an older tree of the "
+                         "package too); prints no result line")
     ap.add_argument("--ranks-only", action="store_true",
                     help="only the 1-rank main path and the ranks phase (on "
                          "a host of two or more cards: the NCCL path); "

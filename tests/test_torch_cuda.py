@@ -22,15 +22,17 @@ the card reruns bit for bit, and a 2-rank gloo world on one card gives the
 1-rank model and margins bit for bit (with a held-out eval set too, whose
 history is world 1's within 1e-6: K4's metric partials are f32 sums per
 CTA of each rank's rows). B4's row values are bitwise its plain
-version's (every bin dtype, depths 1-8 staged in shared memory, depth 11
-read through the read-only path; T trees of a round in one launch, staged
-and not); K4's eval mode gives bitwise the margins and partial sums of its
-gh mode; a weighted sketch on the card gives the same cuts on a rerun and
-from two shards (ROADMAP C2). The softmax pass (K outputs) gives bitwise
-the plain version's margins, gradients, probabilities and classes, its
-partial sums within 1e-5 relative (f32 sums per CTA), and its eval mode
-the training mode's margins and sums bit for bit; multiclass training on
-the card reruns bit for bit, with its rows in two shards folded too.
+version's (every bin dtype, both mappings, the forest staged whole, in
+groups or not at all, depths 1-12, T trees of a round in one launch, row
+counts at tile boundaries); K4's eval mode gives bitwise the margins and
+partial sums of its gh mode; a weighted sketch on the card gives the same
+cuts on a rerun and from two shards (ROADMAP C2). The softmax pass (K
+outputs, 2-1000: both paths) gives bitwise the plain version's margins,
+gradients, probabilities and classes (NaN where the plain version's is
+NaN), its partial sums within 1e-5 relative (f32 sums per CTA) and
+bitwise from rerun to rerun, and its eval mode the training mode's
+margins and sums bit for bit; multiclass training on the card reruns bit
+for bit, with its rows in two shards folded too.
 """
 
 import numpy as np
@@ -478,7 +480,8 @@ def test_held_out_eval_on_the_card(cuda):
 @pytest.mark.parametrize("depth", [1, 2, 3, 4, 5, 6, 7, 8, 11])
 def test_binned_walk_bitwise(cuda, dtype, max_bin, depth):
     """B4 against its plain version: trees with leaves at every depth,
-    unused nodes below them, the missing bin both ways."""
+    unused nodes below them, the missing bin both ways (the launch plan's
+    choice: depths 1-11 staged whole beside the row tiles)."""
     rng = np.random.default_rng(depth * 7 + max_bin)
     n, f = 20011, 13
     heap = (1 << (depth + 1)) - 1
@@ -864,26 +867,93 @@ def _softmax_rows(n, k, seed):
     return [torch.from_numpy(a) for a in (m, rv, y, w)]
 
 
-@pytest.mark.parametrize("k", [2, 3, 7])
-@pytest.mark.parametrize("n", [1, 777, 100003])
+#: K: every register-path bound, the wide path; N: one row, a ragged
+#: count, a CTA's 256 rows and one either side, many CTAs
+SMX_KS = [2, 3, 7, 16, 32, 33, 100, 1000]
+SMX_NS = [1, 777, 255, 256, 257, 100003]
+
+
+def _plain_reference(n, k):
+    """Where the softmax pass's plain version runs for a comparison: on the
+    CPU, or for large inputs on the card (its ops are the same IEEE float32
+    and float64 arithmetic there; test_softmax_plain_on_card_is_plain_on_cpu
+    holds the two together)."""
+    return "cuda" if n * k > 4_000_000 else "cpu"
+
+
+@pytest.mark.parametrize("k", SMX_KS)
+@pytest.mark.parametrize("n", SMX_NS)
 def test_softmax_update_bitwise(cuda, n, k):
     """The softmax pass's training mode against its plain version: margins
-    and gradients bitwise, partial sums within 1e-5 relative; its eval mode
-    the same margins and sums bit for bit, no gradients."""
+    and gradients bitwise, partial sums within 1e-5 relative and bitwise
+    from rerun to rerun; its eval mode the same margins and sums bit for
+    bit, no gradients."""
     m, rv, y, w = _softmax_rows(n, k, seed=n + k)
-    mp = m.clone()
-    ghp, sp = to.softmax_update_plain(mp, rv, y, w)
+    dev = _plain_reference(n, k)
+    mp = m.to(dev, copy=True)
+    ghp, sp = to.softmax_update_plain(mp, rv.to(dev), y.to(dev), w.to(dev))
     mk = m.to(cuda)
     before = to.softmax_update.launches
     ghk, sk = to.softmax_update(mk, rv.to(cuda), y.to(cuda), w.to(cuda))
     assert to.softmax_update.launches == before + 1
-    assert _same_bits(mk, mp)
-    assert _same_bits(ghk, ghp)
-    assert torch.allclose(sk.cpu(), sp, rtol=1e-5, atol=1e-6)
+    assert _same_bits(mk, mp.cpu())
+    assert _same_bits(ghk, ghp.cpu())
+    assert torch.allclose(sk.cpu(), sp.cpu(), rtol=1e-5, atol=1e-6)
+    m2 = m.to(cuda)
+    _, s2 = to.softmax_update(m2, rv.to(cuda), y.to(cuda), w.to(cuda))
+    assert torch.equal(s2, sk)  # reruns: the same f32 sums per CTA
     me = m.to(cuda)
     gh, se = to.softmax_update(me, rv.to(cuda), y.to(cuda), w.to(cuda),
                                with_gh=False)
     assert gh is None and _same_bits(me, mk) and torch.equal(se, sk)
+
+
+def test_softmax_plain_on_card_is_plain_on_cpu(cuda):
+    """The plain pass gives the same bits on the card as on the CPU (the
+    reference the larger card tests take), at both paths' K."""
+    for k in (7, 100):
+        m, rv, y, w = _softmax_rows(3001, k, seed=k)
+        mc, mg = m.clone(), m.to(cuda)
+        ghc, _ = to.softmax_update_plain(mc, rv, y, w)
+        ghg, _ = to.softmax_update_plain(mg, rv.to(cuda), y.to(cuda),
+                                         w.to(cuda))
+        assert _same_bits(mg, mc) and _same_bits(ghg, ghc)
+        for prob in (True, False):
+            assert _same_bits(to.softmax_transform_plain(m.to(cuda), prob),
+                              to.softmax_transform_plain(m, prob))
+
+
+@pytest.mark.parametrize("k", [3, 8, 33])
+def test_softmax_special_margins(cuda, k):
+    """NaN, +-inf and +-1e30 margins and labels outside [0, K): every
+    output where the plain version's is NaN is NaN (payloads differ between
+    CPU and card), every other output bitwise; the partials NaN where the
+    plain ones are."""
+    m, rv, y, w = _softmax_rows(2000, k, seed=40 + k)
+    m[0, 1] = float("nan")
+    m[1, 0] = float("inf")
+    m[2, -1] = float("-inf")
+    m[3] = float("-inf")
+    m[4, :2] = float("inf")
+    m[5, 0], m[5, -1] = 1e30, -1e30
+    m[6] = 1e30
+    m[7, 0] = -1e30
+    y[8:14] = torch.tensor([-1.0, float(k), 2.5, float("nan"), 1e10, -k])
+    for lo, hi in ((0, 2000), (8, 2000), (14, 2000)):
+        mp, mk = m[lo:hi].clone(), m[lo:hi].to(cuda)
+        args = [t[lo:hi] for t in (y, w)]
+        ghp, sp = to.softmax_update_plain(mp, rv[:, lo:hi].contiguous(),
+                                          *args)
+        ghk, sk = to.softmax_update(mk, rv[:, lo:hi].contiguous().to(cuda),
+                                    *[t.to(cuda) for t in args])
+        assert _same_nan(mk.cpu(), mp) and _same_nan(ghk.cpu(), ghp)
+        assert torch.equal(torch.isnan(sk.cpu()), torch.isnan(sp))
+        ok = ~torch.isnan(sp)
+        assert torch.allclose(sk.cpu()[ok], sp[ok], rtol=1e-5)
+        for prob in (True, False):
+            assert _same_nan(
+                to.softmax_transform(m[lo:hi].to(cuda), prob).cpu(),
+                to.softmax_transform_plain(m[lo:hi], prob))
 
 
 def test_softmax_update_labels_out_of_range(cuda):
@@ -901,14 +971,19 @@ def test_softmax_update_labels_out_of_range(cuda):
 
 
 @pytest.mark.parametrize("prob", [True, False])
-@pytest.mark.parametrize("k", [2, 3, 7])
-def test_softmax_transform_bitwise_on_card(cuda, k, prob):
-    m, _, _, _ = _softmax_rows(30001, k, seed=k)
-    ref = to.softmax_transform_plain(m, prob)
+@pytest.mark.parametrize("k", SMX_KS)
+@pytest.mark.parametrize("n", SMX_NS)
+def test_softmax_transform_bitwise_on_card(cuda, n, k, prob):
+    m, _, _, _ = _softmax_rows(n, k, seed=k)
+    dev = _plain_reference(n, k)
+    ref = to.softmax_transform_plain(m.to(dev), prob).cpu()
     before = to.softmax_transform.launches
     got = to.softmax_transform(m.to(cuda), prob)
     assert to.softmax_transform.launches == before + 1
     assert got.shape == ref.shape and _same_bits(got, ref)
+    out = torch.empty_like(got)
+    assert to.softmax_transform(m.to(cuda), prob, out=out) is out
+    assert _same_bits(out, ref)
 
 
 def _random_forest_heaps(rng, t, depth, f, max_bin):
@@ -944,8 +1019,7 @@ def _random_forest_heaps(rng, t, depth, f, max_bin):
 @pytest.mark.parametrize("t,depth", [(3, 4), (7, 6), (7, 9), (1, 6)])
 def test_binned_walk_trees_bitwise(cuda, t, depth):
     """B4 over T trees in one launch ([T, N]) against T calls of the plain
-    walk: 7 trees of depth 6 are staged in shared memory, of depth 9 read
-    through the read-only path."""
+    walk (the launch plan's choice)."""
     rng = np.random.default_rng(t * 10 + depth)
     n, f, max_bin = 30011, 54, 256
     bins = rng.integers(0, max_bin + 1, (n, f))
@@ -958,6 +1032,71 @@ def test_binned_walk_trees_bitwise(cuda, t, depth):
                                  bins.to(cuda), depth, max_bin)
     assert tg.predict_tree_binned.launches == before + 1
     assert got.shape == (t, n) and _same_bits(got, ref)
+
+
+#: (F, T, depth): one feature; HIGGS's and Covertype's widths; forests
+#: staged whole, in groups, and (depth 12 x 7 trees) one tree a group; a
+#: 100-tree round; rows too wide to tile (F = 2000: the gather mapping)
+WALK_CASES = [(1, 1, 1), (28, 1, 6), (54, 7, 6), (28, 20, 9), (54, 100, 6),
+              (1, 100, 1), (28, 7, 12), (54, 1, 12), (2000, 7, 6),
+              (2000, 20, 9)]
+
+
+def _walk_plans(f, bb, t, depth):
+    """Every mapping the shape allows, each with the plan's forest, with
+    the forest in groups of about a third and with it unstaged."""
+    plans = []
+    for mapping in tg.WALK_MAPPINGS:
+        try:
+            plan = tg.walk_plan(f, bb, t, depth, mapping)
+        except ValueError:  # rows too wide to tile
+            continue
+        heap = (2 << depth) - 1
+        tiles = plan.shared_bytes - (-(-12 * plan.trees_per_group * heap
+                                       // 16) * 16)
+        plans.append(plan)
+        if t > 1:
+            g = -(-t // 3)
+            groups = plan._replace(
+                trees_per_group=g, n_groups=-(-t // g),
+                shared_bytes=tiles + -(-12 * g * heap // 16) * 16)
+            if groups.shared_bytes <= tg.WALK_SHARED_MAX:
+                plans.append(groups)
+        plans.append(plan._replace(trees_per_group=0, n_groups=1,
+                                   shared_bytes=tiles))
+    return plans
+
+
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.int16])
+@pytest.mark.parametrize("f,t,depth", WALK_CASES)
+def test_binned_walk_plans_bitwise(cuda, dtype, f, t, depth):
+    """B4 on both mappings and every forest staging (whole, in groups,
+    unstaged) against its plain version, at row counts on either side of a
+    tile (1, R - 1, R, R + 1, 5R + 3) and at enough rows for every CTA of
+    the persistent grid to walk several tiles."""
+    max_bin = 255 if dtype == torch.uint8 else 256
+    bb = 1 if dtype == torch.uint8 else 2
+    rng = np.random.default_rng(f * 1000 + t * 10 + depth)
+    n_max = min(2_000_003, (48 << 20) // (f * bb), 3_000_000 // t)
+    bins = rng.integers(0, max_bin + 1, (n_max, f))
+    bins[rng.random((n_max, f)) < 0.1] = max_bin
+    bins = torch.from_numpy(bins).to(dtype)
+    forest = _random_forest_heaps(rng, t, depth, f, max_bin)
+    ref = tg.predict_tree_binned_plain(forest, bins, depth, max_bin)
+    gforest = tg.Tree(*[a.to(cuda) for a in forest])
+    gbins = bins.to(cuda)
+    for plan in _walk_plans(f, bb, t, depth):
+        r = plan.rows_per_tile
+        for n in sorted({1, r - 1, r, r + 1, 5 * r + 3, n_max}):
+            if n > n_max:
+                continue
+            before = tg.predict_tree_binned.launches_by_mapping[plan.mapping]
+            got = tg.predict_tree_binned(gforest, gbins[:n], depth, max_bin,
+                                         plan=plan)
+            assert (tg.predict_tree_binned.launches_by_mapping[plan.mapping]
+                    == before + 1)
+            assert got.shape == (t, n), (plan, n)
+            assert _same_bits(got, ref[:, :n]), (plan, n)
 
 
 def _multiclass_set(n=40000, k=5, seed=31):

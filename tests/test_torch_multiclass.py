@@ -74,14 +74,23 @@ def _data(k, seed=0):
     return x, np.argmax(score, axis=1).astype(np.float32)
 
 
-def _rows(k, seed, n=20000):
-    """Margins with wide spreads, tied rows and out-of-range labels."""
+def _rows(k, seed, n=20000, special=False):
+    """Margins with wide spreads, tied rows and out-of-range labels; with
+    ``special`` also rows holding NaN, +-inf and +-1e30 margins."""
     rng = np.random.default_rng(seed)
     m = (rng.standard_normal((n, k)) * rng.choice([0.1, 3.0, 40.0], (n, 1))
          ).astype(np.float32)
     m[:50] = np.round(m[:50])  # ties inside a row
     m[50:60] = 1.5  # all classes tied
     m[60:70, 0] = 200.0  # one class far above the rest
+    if special:
+        m[70, 1] = np.nan
+        m[71, 0] = np.inf
+        m[72, -1] = -np.inf
+        m[73] = -np.inf
+        m[74, 0], m[74, 1] = np.inf, np.inf
+        m[75, 0], m[75, -1] = 1e30, -1e30
+        m[76] = 1e30
     y = rng.integers(0, k, n).astype(np.float32)
     y[:8] = [-1.0, float(k), 2.5, np.nan, 1e10, -1e10, -float(k), 0.99]
     w = rng.uniform(0.2, 3.0, n).astype(np.float32)
@@ -90,6 +99,15 @@ def _rows(k, seed, n=20000):
 
 def _bits(a):
     return np.asarray(a, np.float32).view(np.int32)
+
+
+def _same(a, b):
+    """Bitwise equal where the reference is a number; NaN where it is NaN
+    (NaN payloads are not compared)."""
+    a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+    nan = np.isnan(b)
+    return (a.shape == b.shape and np.array_equal(np.isnan(a), nan)
+            and np.array_equal(_bits(a)[~nan], _bits(b)[~nan]))
 
 
 def _t(*arrays):
@@ -102,25 +120,25 @@ def _t(*arrays):
 # --------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("k", [3, 7])
+@pytest.mark.parametrize("k", [3, 7, 32, 33, 100])
 def test_softmax_grad_hess_bitwise(k):
     """Gradients of the plain pass against ``_make_softmax``'s closure
     compiled on the CPU, labels outside [0, K) included (their one-hot row
     is zero, as ``jax.nn.one_hot`` gives)."""
-    m, y, w = _rows(k, 1)
+    m, y, w = _rows(k, 1, special=True)
     g, h = jax.jit(jo._make_softmax(k, True).grad_hess)(m, y, w)
     tg_, th_ = to.softmax_grad_hess(*_t(m, y, w))
-    assert np.array_equal(_bits(tg_.numpy()), _bits(g))
-    assert np.array_equal(_bits(th_.numpy()), _bits(h))
+    assert _same(tg_.numpy(), g) and _same(th_.numpy(), h)
+    assert not np.isnan(np.asarray(g)[200:]).any()  # numbers past the rows
 
 
-@pytest.mark.parametrize("k", [3, 7])
+@pytest.mark.parametrize("k", [3, 7, 32, 33, 100])
 def test_softmax_metric_terms_and_partials(k):
     """Per-row ``mlogloss`` / ``merror`` terms against the reference's
     (``take_along_axis``: a label in [-K, 0) wraps, one beyond is NaN;
     ``argmax`` keeps the first maximum), and the partial sums against
     ``_mlogloss`` / ``_merror`` within 1e-6 relative."""
-    m, y, w = _rows(k, 2)
+    m, y, w = _rows(k, 2, special=True)
 
     def jax_terms(m, y):
         logp = jax.nn.log_softmax(m, axis=-1)
@@ -135,8 +153,12 @@ def test_softmax_metric_terms_and_partials(k):
     ok = ~np.isnan(jll)
     np.testing.assert_allclose(tll[ok], jll[ok], rtol=1e-6, atol=1e-6)
     assert np.array_equal(tm.merror_terms(tm_, ty).numpy(), jwrong)
-    # sums over the rows whose label is in range, then all rows (NaN)
-    for rows in (slice(8, None), slice(None)):
+    # sums over the rows whose label is in range and whose margins are
+    # finite (all but rows 0-7 and the special rows 70-76), then all rows
+    # (NaN)
+    finite = np.ones(len(m), bool)
+    finite[:8] = finite[70:77] = False
+    for rows in (finite, slice(None)):
         sums = tm.softmax_partials(*_t(m[rows], y[rows], w[rows])).numpy()
         jl = jax.jit(jm._mlogloss)(m[rows], y[rows], w[rows])
         je = jax.jit(jm._merror)(m[rows], y[rows], w[rows])
@@ -147,22 +169,22 @@ def test_softmax_metric_terms_and_partials(k):
 
 
 @pytest.mark.parametrize("prob", [True, False])
-@pytest.mark.parametrize("k", [3, 7])
+@pytest.mark.parametrize("k", [3, 7, 32, 33, 100])
 def test_softmax_transform_bitwise(k, prob):
     """The transform mode against ``_make_softmax(K, prob).transform``,
     compiled and eager (the reference's booster transforms eagerly):
     probabilities bitwise, classes the first argmax of the probabilities
     (ties included)."""
-    m, _, _ = _rows(k, 3)
+    m, _, _ = _rows(k, 3, special=True)
     obj = jo._make_softmax(k, prob)
     got = to.softmax_transform(torch.from_numpy(m), prob).numpy()
     for ref in (np.asarray(jax.jit(obj.transform)(m)),
                 np.asarray(obj.transform(jnp.asarray(m)))):
         assert got.shape == ref.shape and got.dtype == ref.dtype
-        assert np.array_equal(_bits(got), _bits(ref))
+        assert _same(got, ref)
 
 
-@pytest.mark.parametrize("k", [3, 7])
+@pytest.mark.parametrize("k", [3, 7, 32, 33, 100])
 def test_softmax_pass_modes_compose(k):
     """The plain pass's three modes against their composition: training
     adds the K trees' row values to the margins in place, then takes the

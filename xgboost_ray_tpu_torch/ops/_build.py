@@ -69,9 +69,13 @@ SIGNATURES = {
         "xrt_leaf_values": ([P, P, I, I, P, P, P, P], I),
         "xrt_partition_tile": ([], I),
     },
+    "softmax": {
+        "xrt_softmax": ([P, P], I),
+        "xrt_softmax_ctas": ([P, P], I),
+    },
     "walk": {
-        "xrt_walk_binned": (
-            [P, P, P, P, P, I, I, P, I, ctypes.c_longlong, I, I, I, P, P], I),
+        "xrt_walk_binned": ([P, P], I),
+        "xrt_walk_ctas": ([P, P], I),
     },
 }
 
@@ -103,6 +107,33 @@ class PredictArgs(ctypes.Structure):
             "has_cat", "rows_per_block", "trees_per_tile", "staged",
             "shared_bytes", "front0", "padded", "top")]
         + [("m", I * 4), ("front", I * 4), ("base0", F)])
+
+
+class WalkArgs(ctypes.Structure):
+    """``XrtWalkArgs`` of ``csrc/walk.cu``: one B4 launch, passed by
+    pointer (edit both together)."""
+
+    _fields_ = ([(name, P) for name in (
+        "feature", "split_bin", "default_left", "is_leaf", "value", "bins",
+        "out")]
+        + [("n_rows", ctypes.c_longlong)]
+        + [(name, I) for name in (
+            "n_features", "bin_bytes", "n_trees", "max_depth", "missing_bin",
+            "mapping", "rows_per_tile", "trees_per_group", "shared_bytes",
+            "grid")])
+
+
+class SoftmaxArgs(ctypes.Structure):
+    """``XrtSoftmaxArgs`` of ``csrc/softmax.cu``: one launch of the softmax
+    pass, passed by pointer (edit both together)."""
+
+    _fields_ = ([(name, P) for name in (
+        "margin", "row_value", "label", "weight", "gh", "part", "out")]
+        + [("n", ctypes.c_longlong)]
+        + [(name, I) for name in (
+            "k", "mode", "kmax", "pitch", "shared_bytes")]
+        + [("kmagic", ctypes.c_uint)]
+        + [("front0", I), ("top", I), ("front", I * 6), ("grid", I)])
 
 
 _lock = threading.Lock()

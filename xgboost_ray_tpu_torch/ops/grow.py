@@ -40,7 +40,9 @@ and totals and ``dequantize`` gives K2 their f32 values after it; on the
 CPU the sums are f32, as the JAX package's.
 """
 
+import ctypes
 import dataclasses
+import functools
 from typing import Callable, NamedTuple, Optional
 
 import torch
@@ -219,16 +221,108 @@ _WALK_DTYPES = {"feature": torch.int32, "split_bin": torch.int32,
                 "default_left": torch.bool, "is_leaf": torch.bool,
                 "value": torch.float32}
 
+#: B4's mappings (``csrc/walk.cu``): row tiles staged in shared memory, or
+#: each visit's bin gathered from device memory
+WALK_MAPPINGS = ("tiled", "gather")
+#: dynamic shared memory a CTA may take after the opt-in attribute
+WALK_SHARED_MAX = 227 * 1024
+#: a tile buffer's bytes: the target, and the most for the 32-row tile of
+#: wide rows (wider rows take the gather mapping)
+_WALK_TILE_BYTES = 32 * 1024
+_WALK_TILE_MAX = 100 * 1024
+_WALK_MIN_ROWS, _WALK_MAX_ROWS = 32, 1024
+_WALK_GATHER_ROWS = 512  # rows a tile of the gather mapping (no staging)
+_WALK_STAGES = 2  # kStages of the kernel: tile buffers a CTA
+_NODE_BYTES = 12  # a staged node: its 8-byte record and its f32 value
+#: the records' 24-bit feature field
+WALK_MAX_FEATURES = 1 << 24
+
+
+class WalkPlan(NamedTuple):
+    """How one B4 launch maps its work (``csrc/walk.cu``)."""
+
+    mapping: str  # "tiled" | "gather"
+    rows_per_tile: int  # R, a power of two
+    trees_per_group: int  # G trees staged at once; 0: forest not staged
+    n_groups: int
+    shared_bytes: int  # dynamic shared memory a CTA: forest + tile buffers
+
+
+def _round16(b: int) -> int:
+    return -(-b // 16) * 16
+
+
+@functools.lru_cache(maxsize=None)
+def walk_plan(num_features: int, bin_bytes: int, n_trees: int,
+              max_depth: int, mapping: Optional[str] = None) -> WalkPlan:
+    """B4's launch plan. Tiled unless the 32-row tile of these rows exceeds
+    100 KB: R rows a tile, the most (a power of two, 32-1024) whose tile
+    holds at most 32 KB, ``_WALK_STAGES`` tile buffers; then the forest's
+    nodes (12 bytes each) beside them: all T trees where they fit in a
+    CTA's 227 KB, else groups of as many trees as fit, else (deeper trees)
+    none, read from device memory. The kernel runs as many CTAs as an SM
+    holds at the plan's shared memory. ``mapping`` forces one."""
+    heap = (2 << max_depth) - 1
+    row_bytes = num_features * bin_bytes
+    if mapping is None:
+        mapping = ("tiled" if _WALK_MIN_ROWS * row_bytes <= _WALK_TILE_MAX
+                   else "gather")
+    if mapping not in WALK_MAPPINGS:
+        raise ValueError(f"B4: unknown mapping {mapping!r}")
+    if mapping == "tiled":
+        rows = _WALK_MAX_ROWS
+        while rows > _WALK_MIN_ROWS and rows * row_bytes > _WALK_TILE_BYTES:
+            rows //= 2
+        tiles = _WALK_STAGES * _round16(rows * row_bytes)
+        if tiles > WALK_SHARED_MAX:
+            raise ValueError(f"B4: rows of {row_bytes} bytes do not tile")
+    else:
+        rows, tiles = _WALK_GATHER_ROWS, 0
+    forest = _round16(_NODE_BYTES * n_trees * heap)
+    if tiles + forest <= WALK_SHARED_MAX:
+        return WalkPlan(mapping, rows, n_trees, 1, tiles + forest)
+    per_group = (WALK_SHARED_MAX - tiles - 15) // (_NODE_BYTES * heap)
+    if per_group < 1:
+        return WalkPlan(mapping, rows, 0, 1, tiles)
+    n_groups = -(-n_trees // per_group)
+    group = -(-n_trees // n_groups)
+    return WalkPlan(mapping, rows, group, n_groups,
+                    tiles + _round16(_NODE_BYTES * group * heap))
+
+
+@functools.lru_cache(maxsize=None)
+def _walk_ctas(device_index: int, bin_bytes: int, plan: WalkPlan) -> int:
+    """The persistent grid's most on this device for ``plan``: the CTAs
+    its SMs hold at the plan's shared memory. The C call also sets the
+    kernel's attributes for every later launch, so it is made once a
+    device and plan."""
+    a = _build.WalkArgs()
+    a.bin_bytes = bin_bytes
+    a.mapping = WALK_MAPPINGS.index(plan.mapping)
+    a.trees_per_group = plan.trees_per_group
+    a.shared_bytes = plan.shared_bytes
+    ctas = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        code = _build.library("walk").xrt_walk_ctas(ctypes.byref(a),
+                                                    ctypes.byref(ctas))
+    _build.check(code, "B4's grid")
+    if ctas.value < 1:
+        raise RuntimeError(f"B4: no CTA fits {plan}")
+    return ctas.value
+
 
 def predict_tree_binned(tree: Tree, bins: torch.Tensor, max_depth: int,
-                        missing_bin: int) -> torch.Tensor:
+                        missing_bin: int,
+                        plan: Optional[WalkPlan] = None) -> torch.Tensor:
     """B4 wrapper: row values [N] f32 of ``tree`` (a heap of
     ``2^(max_depth + 1) - 1`` nodes) over ``bins`` [N, F] (uint8 or int16);
     for a tree of [T, heap] fields (a round's T trees of equal depth) the
     row values [T, N] of all T in one launch. CPU tensors take
     ``predict_tree_binned_plain``; CUDA tensors launch the kernel of
-    ``csrc/walk.cu`` (``predict_tree_binned.launches`` counts them) or
-    raise."""
+    ``csrc/walk.cu`` with ``plan`` (default ``walk_plan``; bins that are not
+    16-byte aligned take the gather mapping) or raise.
+    ``predict_tree_binned.launches`` counts the launches,
+    ``.launches_by_mapping`` them by mapping."""
     if not bins.is_cuda:
         return predict_tree_binned_plain(tree, bins, max_depth, missing_bin)
     n, num_features = bins.shape
@@ -237,9 +331,9 @@ def predict_tree_binned(tree: Tree, bins: torch.Tensor, max_depth: int,
     shape = tree.feature.shape[:-1] + (heap,)
     n_trees = shape[0] if len(shape) == 2 else 1
     if not (bins.dtype in (torch.uint8, torch.int16) and bins.is_contiguous()
-            and num_features >= 1):
+            and 1 <= num_features <= WALK_MAX_FEATURES):
         raise ValueError("predict_tree_binned: bins must be contiguous uint8 "
-                         "or int16 [N, F]")
+                         "or int16 [N, F], 1 <= F <= 2^24")
     for name, dtype in _WALK_DTYPES.items():
         t = getattr(tree, name)
         if (t.device != dev or t.dtype != dtype or t.shape != shape
@@ -248,19 +342,35 @@ def predict_tree_binned(tree: Tree, bins: torch.Tensor, max_depth: int,
                 f"predict_tree_binned: tree.{name} must be a contiguous "
                 f"{dtype} [{heap}] or [T, {heap}] on the bins' device "
                 f"(max_depth {max_depth})")
+    aligned = bins.data_ptr() % 16 == 0
+    if plan is None:
+        plan = walk_plan(num_features, bins.element_size(), n_trees,
+                         max_depth, None if aligned else "gather")
+    elif plan.mapping == "tiled" and not aligned:
+        raise ValueError("predict_tree_binned: the tiled mapping needs "
+                         "16-byte aligned bins")
     out = torch.empty(shape[:-1] + (n,), dtype=torch.float32, device=dev)
     if n == 0:
         return out
+    a = _build.WalkArgs()
+    a.feature, a.split_bin, a.default_left, a.is_leaf, a.value = (
+        getattr(tree, name).data_ptr() for name in _WALK_DTYPES)
+    a.bins, a.out = bins.data_ptr(), out.data_ptr()
+    a.n_rows, a.n_features, a.bin_bytes = n, num_features, bins.element_size()
+    a.n_trees, a.max_depth, a.missing_bin = n_trees, max_depth, missing_bin
+    a.mapping = WALK_MAPPINGS.index(plan.mapping)
+    a.rows_per_tile = plan.rows_per_tile
+    a.trees_per_group = plan.trees_per_group
+    a.shared_bytes = plan.shared_bytes
+    a.grid = _walk_ctas(dev.index or 0, a.bin_bytes, plan)
     with torch.cuda.device(dev):
         code = _build.library("walk").xrt_walk_binned(
-            tree.feature.data_ptr(), tree.split_bin.data_ptr(),
-            tree.default_left.data_ptr(), tree.is_leaf.data_ptr(),
-            tree.value.data_ptr(), heap, n_trees, bins.data_ptr(),
-            bins.element_size(), n, num_features, max_depth, missing_bin,
-            out.data_ptr(), _build.stream_ptr(dev))
+            ctypes.byref(a), _build.stream_ptr(dev))
     _build.check(code, "B4 binned walk")
     predict_tree_binned.launches += 1
+    predict_tree_binned.launches_by_mapping[plan.mapping] += 1
     return out
 
 
 predict_tree_binned.launches = 0
+predict_tree_binned.launches_by_mapping = dict.fromkeys(WALK_MAPPINGS, 0)

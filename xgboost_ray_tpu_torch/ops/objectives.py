@@ -30,27 +30,31 @@ with ``u = 1 + e``, within a few ulps of the plain ``logaddexp``.
 (``_make_softmax``, ``:107-128``): ``p = softmax(m)``, ``g = (p -
 onehot(y)) w``, ``h = max(2 p (1 - p), 1e-16) w``, a zero base margin, the
 probabilities or the first argmax as the prediction. Their pass over the
-rows is the softmax pass (Triton, below), K4's counterpart for K outputs,
+rows is the softmax pass (CUDA C++, ``csrc/softmax.cu``; ``softmax_plan``
+picks its path), K4's counterpart for K outputs,
 in three modes: training (``softmax_update``: the K trees' row values
 added to the [N, K] margins, the ``mlogloss``/``merror``/weight partials,
 the next round's gradients as [K, N, 2] planes, class k's [N, 2]
 contiguous for K1-K3), eval (the same without gradients) and transform
 (``softmax_transform``: probabilities or classes from margins, for predict
 and serve). The plain versions follow the reference's compiled CPU
-program bit for bit: the max and the sum over classes in class order, the
-Cephes exp (``exp_f32``), a subnormal result flushed to zero as XLA's CPU
-flushes it, labels cast to int32 as XLA casts them (truncated, saturated,
-NaN to 0).
+program bit for bit: the max over classes in class order, the sum as XLA's
+CPU reduce takes it (in class order up to 32 classes, a window-32 tree
+above: ``ops/split.tree_sum``), the Cephes exp (``exp_f32``), a subnormal
+result flushed to zero as XLA's CPU flushes it, labels cast to int32 as
+XLA casts them (truncated, saturated, NaN to 0).
 """
 
+import ctypes
 import dataclasses
 import functools
 import math
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from xgboost_ray_tpu_torch.ops import _build
+from xgboost_ray_tpu_torch.ops.split import tree_sum
 
 LOGISTIC = "binary:logistic"
 SQUARED = "reg:squarederror"
@@ -349,18 +353,19 @@ def first_argmax(v: torch.Tensor) -> torch.Tensor:
 
 
 def softmax_parts(m: torch.Tensor):
-    """The reference's softmax of [N, K] margins, in class order: (row max
-    [N], shifted ``m - max`` [N, K], ``exp(shifted)`` [N, K], their sum
-    [N]), each step flushed as the reference's CPU program flushes it."""
+    """The reference's softmax of [N, K] margins: (row max [N], shifted
+    ``m - max`` [N, K], ``exp(shifted)`` [N, K], their sum [N]), each step
+    flushed as the reference's CPU program flushes it. The sum is XLA's
+    CPU reduce over the class axis (``ops/split.tree_sum``): in class order
+    up to 32 classes, above that windows of 32 over the zero-padded axis
+    (half the padding in front), each window and then the window sums added
+    in order."""
     mx = m[:, 0]
     for k in range(1, m.shape[1]):
         mx = torch.maximum(mx, m[:, k])
     d = _ftz(m - mx[:, None])
     e = _ftz(exp_f32(d))
-    s = e[:, 0]
-    for k in range(1, m.shape[1]):
-        s = s + e[:, k]
-    return mx, d, e, s
+    return mx, d, e, tree_sum(e)
 
 
 def softmax_probs(m: torch.Tensor) -> torch.Tensor:
@@ -409,146 +414,114 @@ def softmax_update_plain(margin: torch.Tensor, row_value: torch.Tensor,
     return torch.stack([g.T, h.T], dim=2).contiguous(), sums
 
 
+#: rows a CTA of the softmax pass takes, one a thread (kThreads of
+#: ``csrc/softmax.cu``)
+SMX_ROWS_PER_CTA = 256
+#: the register path's compile-time bounds on K (KMAX of the kernel)
+SMX_KMAX = (4, 8, 16, 32)
+_SMX_LEVELS = 6  # kLevels of the kernel: the wide path takes K <= 32^6
+_SMX_MODES = {"train": 0, "eval": 1, "prob": 2, "class": 3}
+
+
+class SoftmaxPlan(NamedTuple):
+    """How one launch of the softmax pass maps its work
+    (``csrc/softmax.cu``): ``kmax`` 4-32 is the register path (persistent
+    CTAs, their rows staged at ``pitch`` floats a row in two stage buffers,
+    ``shared_bytes`` of shared memory, which the launch takes), 0 the wide
+    path (K > 32: the class sum's window tree ``front0``, ``top``,
+    ``front``)."""
+
+    kmax: int
+    pitch: int
+    shared_bytes: int
+    front0: int
+    top: int
+    front: Tuple[int, ...]
+
+
 @functools.lru_cache(maxsize=None)
-def _softmax_kernel():
-    import triton
-    import triton.language as tl
+def softmax_plan(k: int, mode: str = "train") -> SoftmaxPlan:
+    """The softmax pass's path for K classes in ``mode`` (``train``,
+    ``eval``, ``prob``, ``class``): up to 32 the register path of the
+    least bound of ``SMX_KMAX`` at or above K, its rows staged at a pitch
+    of K floats (K odd) or K + 1 (K even: thread r's reads of its row fall
+    in distinct banks), two stage buffers of 256 rows (in training and eval
+    mode with their K row values, labels and weights: ``shared_bytes``);
+    above 32 the wide path with the window tree of ``ops/split.tree_sum``
+    over K classes."""
+    if k < 2:
+        raise ValueError(f"softmax pass: K = {k} < 2 classes")
+    if k <= SMX_KMAX[-1]:
+        kmax = next(b for b in SMX_KMAX if b >= k)
+        pitch = k + 1 - k % 2
+        labels = k + 2 if _SMX_MODES[mode] <= _SMX_MODES["eval"] else 0
+        return SoftmaxPlan(kmax, pitch,
+                           2 * 4 * SMX_ROWS_PER_CTA * (pitch + labels), 0, 0,
+                           (0,) * _SMX_LEVELS)
+    from xgboost_ray_tpu_torch.ops.predict import tree_windows
 
-    @triton.jit
-    def smx(m_ptr, rv_ptr, label_ptr, weight_ptr, gh_ptr, part_ptr, out_ptr,
-            n, K: tl.constexpr, MODE: tl.constexpr, PROB: tl.constexpr,
-            BLOCK: tl.constexpr):
-        # MODE 0: training, 1: eval (no gh), 2: transform (no label, no
-        # margin write; PROB: probabilities, else the first argmax class)
-        pid = tl.program_id(0)
-        offs = pid * BLOCK + tl.arange(0, BLOCK)
-        mask = offs < n
-        row = offs.to(tl.int64)
-        n64 = tl.zeros([BLOCK], dtype=tl.int64) + n
-        if MODE < 2:
-            y = tl.load(label_ptr + row, mask=mask, other=0.0)
-            w = tl.load(weight_ptr + row, mask=mask, other=0.0)
-            yi = y.to(tl.int32)
-            yk = tl.where(yi < 0, yi + K, yi)
-        # pass 1: the (updated) margins' max, first argmax, the label's one
-        mx = tl.full([BLOCK], float("-inf"), tl.float32)
-        best = tl.full([BLOCK], float("-inf"), tl.float32)
-        arg = tl.zeros([BLOCK], dtype=tl.int32)
-        m_y = tl.full([BLOCK], float("nan"), tl.float32)
-        for k in tl.static_range(K):
-            v = tl.load(m_ptr + row * K + k, mask=mask, other=0.0)
-            if MODE < 2:
-                v = v + tl.load(rv_ptr + k * n64 + row, mask=mask, other=0.0)
-            mx = tl.maximum(mx, v)
-            better = (v > best) | ((v != v) & (best == best))
-            best = tl.where(better, v, best)
-            arg = tl.where(better, k, arg)
-            if MODE < 2:
-                m_y = tl.where(yk == k, v, m_y)
-        # pass 2: the sum of exp(m - max) in class order (the plain
-        # version's exp_f32: Cephes with fused multiply-adds)
-        s = tl.zeros([BLOCK], dtype=tl.float32)
-        for k in tl.static_range(K):
-            v = tl.load(m_ptr + row * K + k, mask=mask, other=0.0)
-            if MODE < 2:
-                v = v + tl.load(rv_ptr + k * n64 + row, mask=mask, other=0.0)
-            d = v - mx
-            d = tl.where(tl.abs(d) < 1.1754943508222875e-38, d * 0.0, d)
-            xc = tl.minimum(tl.maximum(d, -88.3762626647949), 88.3762626647950)
-            fx = tl.floor(tl.fma(xc, 1.44269504088896341, 0.5))
-            r = tl.fma(fx, -0.693359375, xc)
-            r = tl.fma(fx, 2.12194440e-4, r)
-            r2 = r * r
-            q = tl.fma(r, 1.9875691500e-4, 1.3981999507e-3)
-            q = tl.fma(q, r, 8.3334519073e-3)
-            q = tl.fma(q, r, 4.1665795894e-2)
-            q = tl.fma(q, r, 1.6666665459e-1)
-            q = tl.fma(q, r, 5.0000001201e-1)
-            q = 1.0 + tl.fma(q, r2, r)
-            two_n = ((fx.to(tl.int32) + 127) << 23).to(tl.float32, bitcast=True)
-            e = tl.maximum(q * two_n, d)
-            e = tl.where(tl.abs(e) < 1.1754943508222875e-38, e * 0.0, e)
-            s = s + e
-        if MODE < 2:
-            # mlogloss: -(log_softmax(m)[y]) (NaN for a label out of range,
-            # as take_along_axis gives); merror: argmax(m) != y
-            ll = tl.log(s) - (m_y - mx)
-            wrong = tl.where(arg != yi, 1.0, 0.0)
-            tl.store(part_ptr + pid * 3 + 0,
-                     tl.sum(tl.where(mask, w * ll, 0.0), axis=0))
-            tl.store(part_ptr + pid * 3 + 1, tl.sum(w * wrong, axis=0))
-            tl.store(part_ptr + pid * 3 + 2, tl.sum(w, axis=0))
-        # pass 3: write the margins, and the gradients or the values
-        pbest = tl.full([BLOCK], float("-inf"), tl.float32)
-        parg = tl.zeros([BLOCK], dtype=tl.int32)
-        for k in tl.static_range(K):
-            v = tl.load(m_ptr + row * K + k, mask=mask, other=0.0)
-            if MODE < 2:
-                v = v + tl.load(rv_ptr + k * n64 + row, mask=mask, other=0.0)
-                tl.store(m_ptr + row * K + k, v, mask=mask)
-            if MODE != 1:
-                d = v - mx
-                d = tl.where(tl.abs(d) < 1.1754943508222875e-38, d * 0.0, d)
-                xc = tl.minimum(tl.maximum(d, -88.3762626647949),
-                                88.3762626647950)
-                fx = tl.floor(tl.fma(xc, 1.44269504088896341, 0.5))
-                r = tl.fma(fx, -0.693359375, xc)
-                r = tl.fma(fx, 2.12194440e-4, r)
-                r2 = r * r
-                q = tl.fma(r, 1.9875691500e-4, 1.3981999507e-3)
-                q = tl.fma(q, r, 8.3334519073e-3)
-                q = tl.fma(q, r, 4.1665795894e-2)
-                q = tl.fma(q, r, 1.6666665459e-1)
-                q = tl.fma(q, r, 5.0000001201e-1)
-                q = 1.0 + tl.fma(q, r2, r)
-                two_n = ((fx.to(tl.int32) + 127) << 23).to(tl.float32,
-                                                           bitcast=True)
-                e = tl.maximum(q * two_n, d)
-                e = tl.where(tl.abs(e) < 1.1754943508222875e-38, e * 0.0, e)
-                p = tl.math.div_rn(e, s)
-                p = tl.where(tl.abs(p) < 1.1754943508222875e-38, p * 0.0, p)
-                if MODE == 0:
-                    onehot = tl.where(yi == k, 1.0, 0.0)
-                    g = (p - onehot) * w
-                    g = tl.where(tl.abs(g) < 1.1754943508222875e-38, g * 0.0, g)
-                    h = tl.maximum(2.0 * p * (1.0 - p), 1e-16) * w
-                    h = tl.where(tl.abs(h) < 1.1754943508222875e-38, h * 0.0, h)
-                    base = k * n64 * 2 + row * 2
-                    tl.store(gh_ptr + base, g, mask=mask)
-                    tl.store(gh_ptr + base + 1, h, mask=mask)
-                elif PROB:
-                    tl.store(out_ptr + row * K + k, p, mask=mask)
-                else:
-                    better = (p > pbest) | ((p != p) & (pbest == pbest))
-                    pbest = tl.where(better, p, pbest)
-                    parg = tl.where(better, k, parg)
-        if MODE == 2:
-            if not PROB:
-                tl.store(out_ptr + row, parg.to(tl.float32), mask=mask)
-
-    _build.TRITON_KERNELS.append(smx)
-    return smx
+    front0, _, top, _, front = tree_windows(k)
+    if top >= _SMX_LEVELS:
+        raise ValueError(f"softmax pass: K = {k} classes exceed the kernel's "
+                         f"{_SMX_LEVELS - 1} window levels")
+    return SoftmaxPlan(0, 0, 0, front0, top,
+                       tuple(front[:_SMX_LEVELS])
+                       + (0,) * (_SMX_LEVELS - len(front)))
 
 
-_SMX_BLOCK = 512
-
-
-def _smx_launch(mode: int, margin: torch.Tensor, row_value, label, weight,
-                gh, part, out, prob: bool) -> None:
+def _smx_args(mode: str, margin: torch.Tensor, row_value=None, label=None,
+              weight=None, gh=None, part=None, out=None):
     n, k = margin.shape
-    with torch.cuda.device(margin.device):
-        _softmax_kernel()[(_smx_blocks(n),)](
-            margin, margin if row_value is None else row_value,
-            margin if label is None else label,
-            margin if weight is None else weight,
-            margin if gh is None else gh, margin if part is None else part,
-            margin if out is None else out, n, K=k, MODE=mode,
-            PROB=bool(prob), BLOCK=_SMX_BLOCK, num_warps=4,
-        )
+    plan = softmax_plan(k, mode)
+    a = _build.SoftmaxArgs()
+    a.margin = margin.data_ptr()
+    a.row_value, a.label, a.weight, a.gh, a.part, a.out = (
+        _build.ptr(t) for t in (row_value, label, weight, gh, part, out))
+    a.n, a.k, a.mode = n, k, _SMX_MODES[mode]
+    a.kmax, a.pitch, a.shared_bytes = plan.kmax, plan.pitch, plan.shared_bytes
+    a.kmagic = -(-(1 << 32) // k) & 0xFFFFFFFF
+    a.front0, a.top = plan.front0, plan.top
+    for i, f in enumerate(plan.front):
+        a.front[i] = f
+    return a
 
 
-def _smx_blocks(n: int) -> int:
-    return max(1, math.ceil(n / _SMX_BLOCK))
+@functools.lru_cache(maxsize=None)
+def _smx_ctas(device_index: int, k: int, mode: str) -> int:
+    """The register path's persistent grid on this device: the CTAs its
+    SMs hold at the shared memory K and the mode take. The C call also
+    sets the kernel's attributes for every later launch, so it is made
+    once a device, K and mode."""
+    a = _smx_args(mode, torch.empty((0, k)))
+    ctas = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        code = _build.library("softmax").xrt_softmax_ctas(
+            ctypes.byref(a), ctypes.byref(ctas))
+    _build.check(code, f"softmax pass's grid ({mode}, K = {k})")
+    if ctas.value < 1:
+        raise RuntimeError(f"softmax pass: no CTA fits ({mode}, K = {k})")
+    return ctas.value
+
+
+def _smx_grid(margin: torch.Tensor, mode: str) -> int:
+    """CTAs of one launch (the partials' rows): the register path's
+    persistent grid, at most a CTA a tile of 256 rows; the wide path a CTA
+    a tile."""
+    n, k = margin.shape
+    tiles = -(-n // SMX_ROWS_PER_CTA)
+    if k > SMX_KMAX[-1]:
+        return tiles
+    return min(tiles, _smx_ctas(margin.device.index or 0, k, mode))
+
+
+def _smx_launch(mode: str, margin: torch.Tensor, grid: int, **tensors) -> None:
+    a = _smx_args(mode, margin, **tensors)
+    a.grid = grid
+    dev = margin.device
+    with torch.cuda.device(dev):
+        code = _build.library("softmax").xrt_softmax(
+            ctypes.byref(a), _build.stream_ptr(dev))
+    _build.check(code, f"softmax pass ({mode})")
 
 
 def _check_margin(margin: torch.Tensor, what: str) -> None:
@@ -566,8 +539,8 @@ def softmax_update(margin: torch.Tensor, row_value: torch.Tensor,
     ``with_gh=False``): ``margin`` [N, K] += ``row_value`` [K, N].T in
     place; returns (gh [K, N, 2] or None, partial sums [3] f64 in
     ``SOFTMAX_PARTIALS`` order). CPU tensors take
-    ``softmax_update_plain``; CUDA tensors launch the Triton kernel
-    (``softmax_update.launches`` counts every launch,
+    ``softmax_update_plain``; CUDA tensors launch the kernel of
+    ``csrc/softmax.cu`` (``softmax_update.launches`` counts every launch,
     ``softmax_update.eval_launches`` those of the eval mode)."""
     if not margin.is_cuda:
         return softmax_update_plain(margin, row_value, label, weight, with_gh)
@@ -581,10 +554,13 @@ def softmax_update(margin: torch.Tensor, row_value: torch.Tensor,
                 "must be contiguous float32 on the margins' CUDA device")
     gh = (torch.empty((k, n, 2), dtype=torch.float32, device=margin.device)
           if with_gh else None)
-    part = torch.empty((_smx_blocks(n), 3), dtype=torch.float32,
-                       device=margin.device)
-    _smx_launch(0 if with_gh else 1, margin, row_value, label, weight, gh,
-                part, None, True)
+    if n == 0:
+        return gh, torch.zeros(3, dtype=torch.float64, device=margin.device)
+    mode = "train" if with_gh else "eval"
+    grid = _smx_grid(margin, mode)
+    part = torch.empty((grid, 3), dtype=torch.float32, device=margin.device)
+    _smx_launch(mode, margin, grid, row_value=row_value, label=label,
+                weight=weight, gh=gh, part=part)
     softmax_update.launches += 1
     if not with_gh:
         softmax_update.eval_launches += 1
@@ -600,7 +576,7 @@ def softmax_transform(margin: torch.Tensor, prob: bool,
     """Softmax pass wrapper, transform mode: [N, K] probabilities (``prob``)
     or [N] f32 classes from [N, K] margins, into ``out`` if given. CPU
     tensors take ``softmax_transform_plain``; CUDA tensors launch the
-    Triton kernel (``softmax_transform.launches``)."""
+    kernel of ``csrc/softmax.cu`` (``softmax_transform.launches``)."""
     if not margin.is_cuda:
         res = softmax_transform_plain(margin, prob)
         return res if out is None else out.copy_(res)
@@ -612,8 +588,10 @@ def softmax_transform(margin: torch.Tensor, prob: bool,
             or tuple(out.shape) != shape or not out.is_contiguous()):
         raise ValueError(f"softmax_transform: out must be contiguous float32 "
                          f"{list(shape)} on the margins' device")
-    _smx_launch(2, margin, None, None, None, None, None, out, prob)
-    softmax_transform.launches += 1
+    if margin.shape[0]:
+        mode = "prob" if prob else "class"
+        _smx_launch(mode, margin, _smx_grid(margin, mode), out=out)
+        softmax_transform.launches += 1
     return out
 
 
