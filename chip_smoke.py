@@ -2,11 +2,12 @@
 """Drive xgboost_ray_tpu_torch on one NVIDIA GPU and check it end to end.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one
-CUDA device, ``nvcc`` and ``triton``, and nothing of JAX. Phases:
+CUDA device and ``nvcc``, and nothing of JAX (``triton``, where installed,
+is only where it may find ``cuobjdump``). Phases:
 
 1. build: compile the CUDA kernels of ``xgboost_ray_tpu_torch/csrc`` (one
-   ``nvcc`` per source, in parallel) and the Triton kernel (K4); time the
-   softmax pass's first launches; report each K1, K3, B8, B4 and softmax
+   ``nvcc`` per source, in parallel); time K4's first launches in both
+   modes and the softmax pass's; report each K1, K3, B8, B4, K4 and softmax
    kernel's registers, shared memory and spills (``-Xptxas -v``)
    and the atomic opcodes ``cuobjdump -sass`` finds in them (whether K1's
    shared adds are native or a compare-and-swap loop), and the dynamic
@@ -19,14 +20,17 @@ CUDA device, ``nvcc`` and ``triton``, and nothing of JAX. Phases:
    final level's 64 nodes), with integer-valued gradients (exact sums: K1's
    dequantised output equals the f32 sums and K2 must be bitwise) and
    random ones (stated tolerances; K2's level step and records are bitwise
-   on both); K1's int64 sums and its dequantise step are bitwise against
+   on both; K4's margins and gradients bitwise, 0 ulps, its partials within
+   1e-5 relative); K1's int64 sums and its dequantise step are bitwise against
    ``build_histogram_fixed_plain`` / ``dequantize_plain`` on both; K3
    also with the smaller children chosen from counts merged with a second
    rank's (what it does above one rank), compacted into N slots; each
    kernel is timed with
    CUDA events around its wrapper (``ms``: the host's issue time shows
    where it is the slower) and by ``torch.profiler`` (``device_ms``: the
-   kernels' own device time per launch), beside its plain version and,
+   kernels' own device time per launch; K4 also with the L2 flushed by a
+   write and by a read, warm, and its host time a call), beside its plain
+   version and,
    where one PyTorch call computes the same function, that call (K1: an
    int64 ``index_add_``; the dequantise step: int64 times f32; K3: a
    stable ``torch.sort`` of the child key, which covers only the partition
@@ -45,7 +49,10 @@ CUDA device, ``nvcc`` and ``triton``, and nothing of JAX. Phases:
    with two or more cards and are reported as not run otherwise); then
    two more rounds under ``torch.profiler`` (device time by kernel, CUDA
    launches per round, idle share against the unprofiled round);
-4. the card against the port's CPU path on a 200,000-row slice (3 rounds);
+4. the card against the port's CPU path on a 200,000-row slice (3 rounds):
+   against the f32 CPU path the first tree equal, logloss within 1e-5 and
+   margins within 1e-3; against the CPU path summing in the card's fixed
+   point the whole model (dumps equal, final margins bitwise);
 5. ``save_model`` -> ``load_model`` on the card, ``save_raw`` bytes equal;
 6. predict and serve (the main paths of the predict slice): ``train()``
    for 500 rounds on the same set (``num_actors=1``), keeping the engine's
@@ -85,7 +92,8 @@ CUDA device, ``nvcc`` and ``triton``, and nothing of JAX. Phases:
    rounds, ``eval_metric`` error then logloss); ``train()`` without and
    with the test set in turns (without, with, with, without: round times,
    each run's launches counted from 0 and checked exactly, with the test
-   set one B4 and one K4 eval-mode launch a round); B4 bitwise against its
+   set one B4 and one K4 eval-mode launch a round; no kernel build in any
+   of them); B4 bitwise against its
    plain version over the test rows for every tree, K4's eval mode against
    its plain version (margins bitwise, partials within 1e-5 relative), both
    timed (B4's bound from the 32-byte sectors of bins its walks read; B4
@@ -160,6 +168,12 @@ kernel rows but no result line; ``--evals-only`` the same for phase 8.
 Both work in an older tree of the package too (copy this script into its
 root), so two versions of the softmax pass and B4 are timed in turns in
 one call.
+
+``--kernels-only`` runs the build and phase 2 alone and prints its kernel
+rows but no result line; it works in an older tree too (copy this script
+into its root; there K4's gradients are held within 1e-6, as that tree's
+Triton K4 was), so two versions of K4's gh mode are timed in turns in one
+call.
 
 ``--ranks-only`` runs the build, the 1-rank main path and the ranks phase
 (on a host of two or more cards also the NCCL path, against the 1-rank
@@ -242,12 +256,12 @@ def host_call_us(fn, iters=200, runs=5):
     return float(np.median(per_call))
 
 
-def device_ms(fn, iters=10, only=None):
+def device_ms(fn, iters=10, only=None, every=False):
     """Device time per call of ``fn`` of the kernels it launches, from
     ``torch.profiler``: the port's own kernels, not the wrapper's
     allocations and fills (PyTorch's ``at::`` kernels, copies, memsets);
     with ``only``, the kernels whose name holds it (any case), PyTorch's
-    too (a library call's)."""
+    too (a library call's); with ``every``, all of its device work."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -264,8 +278,8 @@ def device_ms(fn, iters=10, only=None):
         t = e.self_cuda_time_total if t is None else t
         seen.append((e.key[:60], str(e.device_type), t))
         if e.device_type != torch.autograd.DeviceType.CUDA or (
-                (only.lower() not in e.key.lower()) if only else
-                ("at::" in e.key or e.key.startswith(("Memcpy", "Memset")))):
+                not every and ((only.lower() not in e.key.lower()) if only else
+                ("at::" in e.key or e.key.startswith(("Memcpy", "Memset"))))):
             continue
         total += t / 1e3
     check(total > 0, f"torch.profiler saw no device time of the kernels; "
@@ -407,17 +421,18 @@ def b8_main_path_kernels(n_trees, n_rows):
 
 
 def phase_build_report(n_trees, n_rows):
-    """Registers, shared memory and spills of K1's, K3's and B8's kernels
-    (B8's main-path kernels with their dynamic shared memory per CTA), and
-    whether K1's shared adds compile to native adds or a compare-and-swap
-    loop."""
+    """Registers, shared memory and spills of every kernel (K1, K3, B8, B4,
+    the softmax pass, K4; B8's main-path kernels with their dynamic shared
+    memory per CTA), and whether K1's shared adds compile to native adds or
+    a compare-and-swap loop."""
     from xgboost_ray_tpu_torch.ops import _build
     from xgboost_ray_tpu_torch.ops import predict as PR
 
     paths = _build.build_all()
     report = {}
-    for stem in ("histogram", "partition", "predict", "walk", "softmax"):
-        if stem in paths:  # walk.cu, softmax.cu: not in older trees
+    for stem in ("histogram", "partition", "predict", "walk", "softmax",
+                 "objective"):
+        if stem in paths:  # walk, softmax, objective: not in older trees
             report[stem] = {"ptxas": ptxas_report(_build.build_log(stem)),
                             "sass_atomics": sass_atomics(paths[stem])}
     if hasattr(PR, "launch_plan"):  # this tree's B8 (not an older one)
@@ -683,14 +698,20 @@ def phase_kernels(n, records):
         ghp, sp4 = O.round_update_plain(mp, rv, label, weight, True)
         torch.cuda.synchronize()
         err4 = float((ghk - ghp).abs().max())
-        check(torch.equal(mk, mp), "K4 margin update differs")
-        check(err4 <= 1e-6, f"K4 gradients beyond 1e-6 ({err4})")
+        ulps4 = int((bits(ghk).long() - bits(ghp).long()).abs().max())
+        check(torch.equal(bits(mk), bits(mp)), "K4 margin update differs")
+        if hasattr(O, "k4_plan"):  # the CUDA K4: bitwise its plain version
+            check(ulps4 == 0, f"K4 gradients {ulps4} ulps from the plain "
+                              f"version's")
+        else:  # an older tree's Triton K4
+            check(err4 <= 1e-6, f"K4 gradients beyond 1e-6 ({err4})")
         rel = float(((sk4 - sp4).abs() / sp4.abs().clamp(min=1e-12)).max())
         check(rel <= 1e-5, f"K4 metric sums beyond 1e-5 relative ({rel})")
         res[tag] = {"K1": err1, "K1root": err1r, "K1deq": err1d, "K2": err2,
                     "K2level": err2l, "K2leaf": 0.0, "K3": 0.0,
                     "K3leaf": 0.0, "K4": err4}
-        emit({"phase": "kernel_vs_plain", "gh": tag, "max_abs_err": res[tag]})
+        emit({"phase": "kernel_vs_plain", "gh": tag, "max_abs_err": res[tag],
+              "k4_gradient_ulps": ulps4, "k4_partials_rel": rel})
 
         if integer_gh:
             continue
@@ -786,9 +807,18 @@ def phase_kernels(n, records):
                 256)),
             "K3leaf": device_ms(lambda: H.partition_leaf_values(
                 order64, seg64, state64, nval64, rvk)),
-            "K4": device_ms(lambda: O.round_update(mk, rv, label, weight,
-                                                   True)),
         }
+        # K4 with the L2 flushed by a write (device_ms) and by a read, and
+        # warm; its host time a call is taken last, below
+        k4 = lambda: O.round_update(mk, rv, label, weight, True)  # noqa: E731
+        flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+        dev_ms["K4"] = profiled_ms(lambda: (flush.zero_(), k4()))
+        k4_more = {"device_ms_read_flush": read_flushed_ms(k4),
+                   "device_ms_l2_warm": profiled_ms(k4),
+                   # every kernel of a call (a Triton K4's sum kernel too)
+                   "call_device_ms_l2_warm": device_ms(k4, every=True),
+                   "gradient_ulps": ulps4, "partials_rel": rel}
+        del flush
         emit({"phase": "kernel_context", "k3_root_ms": k3_root_ms,
               "k3_level5_ms": t["K3"][0],
               "k2_level5_host_issue_ms": k2_host_ms,
@@ -837,6 +867,12 @@ def phase_kernels(n, records):
                 ms=t[k][0], device_ms=dev_ms[k], plain_ms=t[k][1],
                 bound_ms=bounds[k][0], bound_by=bounds[k][1],
                 library_ms=library.get(k))
+        # last: its 1,000 calls change the margins K4 updates in place
+        records["K4"].update(k4_more, host_us=host_call_us(k4))
+        emit({"phase": "k4_gh_mode", **{k: records["K4"][k] for k in (
+            "ms", "host_us", "device_ms", "device_ms_read_flush",
+            "device_ms_l2_warm", "call_device_ms_l2_warm", "plain_ms",
+            "bound_ms", "gradient_ulps", "partials_rel")}})
     for k in records:
         records[k]["max_abs_err"] = max(res["int"][k], res["rand"][k])
     return res
@@ -1168,11 +1204,16 @@ def phase_k1_time(n_rows, rounds):
 
 
 def phase_cpu_vs_card(x, y, rounds=3):
+    """The main path's configuration on a slice, on the card and on the CPU
+    twice: with the f32 sums of the JAX package (the first tree equal,
+    logloss within 1e-5, margins within 1e-3) and summing in the card's
+    fixed point (``_cpu_fixed_point``), where the card's model must be the
+    CPU's: dumps equal, final margins bitwise."""
     import xgboost_ray_tpu_torch as xrt
 
     params = {"objective": "binary:logistic", "eval_metric": ["logloss"]}
     out = {}
-    for device in ("cuda", "cpu"):
+    for device, fixed in (("cuda", False), ("cpu", False), ("cpu", True)):
         seen = {}
 
         class Keep:
@@ -1181,12 +1222,21 @@ def phase_cpu_vs_card(x, y, rounds=3):
 
         dm = xrt.RayDMatrix(x, y)
         ev = {}
-        bst = xrt.train(params, dm, rounds, evals=[(dm, "train")],
-                        evals_result=ev, device=device, callbacks=[Keep()],
-                        ray_params=xrt.RayParams(num_actors=1))
-        out[device] = (bst, ev["train"]["logloss"],
-                       seen["engine"].get_margins()[:, 0])
-    (bg, llg, mg), (bc, llc, mc) = out["cuda"], out["cpu"]
+        with _cpu_fixed_point(fixed):
+            bst = xrt.train(params, dm, rounds, evals=[(dm, "train")],
+                            evals_result=ev, device=device,
+                            callbacks=[Keep()],
+                            ray_params=xrt.RayParams(num_actors=1))
+        out[device, fixed] = (bst, ev["train"]["logloss"],
+                              seen["engine"].get_margins()[:, 0])
+    (bg, llg, mg), (bc, llc, mc) = out["cuda", False], out["cpu", False]
+    bx, llx, mx = out["cpu", True]
+    fixed_point = {"dump_equal": bg.get_dump() == bx.get_dump(),
+                   "margins_bitwise": same_bits(mg, mx),
+                   "logloss_cpu_fixed_point": llx,
+                   "logloss_max_abs_diff": float(np.max(np.abs(
+                       np.array(llg) - np.array(llx)))),
+                   "margin_max_abs_diff": float(np.max(np.abs(mg - mx)))}
     fields = ("feature", "split_bin", "default_left", "is_leaf")
     diff = [k for k in fields
             if not np.array_equal(getattr(bg.forest, k)[0], getattr(bc.forest, k)[0])]
@@ -1200,11 +1250,15 @@ def phase_cpu_vs_card(x, y, rounds=3):
     dm_ = float(np.max(np.abs(mg - mc)))
     emit({"phase": "cpu_vs_card", "rows": int(x.shape[0]), "rounds": rounds,
           "first_tree_equal": not diff, "logloss_max_abs_diff": dll,
-          "margin_max_abs_diff": dm_, "logloss_card": llg, "logloss_cpu": llc})
+          "margin_max_abs_diff": dm_, "logloss_card": llg, "logloss_cpu": llc,
+          "cpu_fixed_point": fixed_point})
     check(not diff, f"first tree differs between card and CPU in {diff}")
     check(dll <= 1e-5, f"per-round logloss differs by {dll} > 1e-5")
     check(dm_ <= 1e-3, f"final margins differ by {dm_} > 1e-3")
-    return {"logloss": dll, "margin": dm_}
+    check(fixed_point["dump_equal"] and fixed_point["margins_bitwise"],
+          f"the card's model is not the CPU path's summing in the card's "
+          f"fixed point: {fixed_point}")
+    return {"logloss": dll, "margin": dm_, "cpu_fixed_point": fixed_point}
 
 
 def phase_save_load(bst):
@@ -1903,6 +1957,9 @@ def phase_evals(x, y, records, rounds=10, depth=6, es_rounds=30):
 
     res = {"phase": "evals", "train_rows": int(xt.shape[0]),
            "test_rows": int(n_test), "rounds": rounds}
+    from xgboost_ray_tpu_torch.ops import _build
+
+    builds = _build.compile_count()
     timed = {False: [], True: []}
     for held_out in (False, True, True, False):
         r = run(rounds, held_out)
@@ -1915,6 +1972,13 @@ def phase_evals(x, y, records, rounds=10, depth=6, es_rounds=30):
             kept = r  # its engine: B4 and K4 are held and timed on it
         else:
             r.pop("engine")
+    # kernel builds during the four runs (a tree with a Triton K4 compiles
+    # its eval variant in the first run with the test set)
+    res["kernel_builds_during_runs"] = _build.compile_count() - builds
+    if hasattr(O, "k4_plan"):
+        check(res["kernel_builds_during_runs"] == 0,
+              f"{res['kernel_builds_during_runs']} kernel builds during "
+              f"train() after the build phase")
     first, again = timed[True]
     check(first["bst"].get_dump() == again["bst"].get_dump()
           and same_bits(first["test_margins"], again["test_margins"])
@@ -1938,6 +2002,7 @@ def phase_evals(x, y, records, rounds=10, depth=6, es_rounds=30):
                                       for r in timed[False]],
         round_ms_median_with_test=[float(np.median(r["round_ms"]))
                                    for r in timed[True]],
+        first_round_ms_with_test=[r["round_ms"][0] for r in timed[True]],
         setup_s_with_test=[r["setup_s"] for r in timed[True]],
         test_margin_max_abs_diff_to_predict=margin_err)
     del timed, again
@@ -1987,16 +2052,16 @@ def phase_evals(x, y, records, rounds=10, depth=6, es_rounds=30):
     check(rel <= 1e-5, f"K4's eval mode: metric sums beyond 1e-5 ({rel})")
     k4e = lambda: O.round_update(mk, value, es.label, es.weight, True,  # noqa: E731
                                  with_gh=False)
+    # margin, row value, label, weight read, margin written: 20 B a row
     k4_bound = bound_ms(n_test * 4 * 5, 45 * n_test)
-    records["K4eval"].update(
-        launches=first["launches"]["K4eval"],
-        max_abs_err=float((sk - sp).abs().max()),
-        ms=cuda_ms(k4e, iters=20),
-        device_ms=profiled_ms(lambda: (flush.zero_(), k4e())),
-        device_ms_l2_warm=profiled_ms(k4e),
-        plain_ms=cuda_ms(lambda: O.round_update_plain(
-            mp, value, es.label, es.weight, True, with_gh=False), iters=3),
-        bound_ms=k4_bound[0], bound_by=k4_bound[1], library_ms=None)
+    _kernel_record(
+        records, "K4eval", k4e,
+        lambda: O.round_update_plain(mp, value, es.label, es.weight, True,
+                                     with_gh=False),
+        k4_bound, flush, first["launches"]["K4eval"],
+        float((sk - sp).abs().max()))
+    records["K4eval"].update(partials_rel=rel,
+                             call_device_ms_l2_warm=device_ms(k4e, every=True))
     res.update(b4_sectors=sectors, b4_visits=visits,
                b4_visits_per_row=visits / n_test,
                b4={k: records["B4"][k] for k in (
@@ -2004,8 +2069,9 @@ def phase_evals(x, y, records, rounds=10, depth=6, es_rounds=30):
                    "device_ms_l2_warm", "plain_ms", "bound_ms", "bound_by",
                    "mappings")},
                k4_eval={k: records["K4eval"][k] for k in (
-                   "ms", "device_ms", "device_ms_l2_warm", "plain_ms",
-                   "bound_ms", "max_abs_err")})
+                   "ms", "host_us", "device_ms", "device_ms_read_flush",
+                   "device_ms_l2_warm", "call_device_ms_l2_warm", "plain_ms",
+                   "bound_ms", "max_abs_err", "partials_rel")})
     del engine, es, tree, value, m0, mk, mp, walk, k4e, flush
     torch.cuda.empty_cache()
 
@@ -2843,8 +2909,9 @@ KERNELS = {
                    route="cuda",
                    source="xgboost_ray_tpu_torch/csrc/partition.cu",
                    replaces="xgboost_ray_tpu/ops/grow.py:782"),
-    "K4": dict(name="K4 margin update + metric partials + gradients",
-               route="triton", source="xgboost_ray_tpu_torch/ops/objectives.py",
+    "K4": dict(name="K4 margin update + metric partials + gradients "
+               "(11,000,000 rows)", route="cuda",
+               source="xgboost_ray_tpu_torch/csrc/objective.cu",
                replaces="xgboost_ray_tpu/ops/objectives.py:88"),
     "B8margin": dict(name="B8 forest walk: margins, heap layout (every row "
                      "of predict(), 500 trees)", route="cuda",
@@ -2864,8 +2931,8 @@ KERNELS = {
                source="xgboost_ray_tpu_torch/csrc/walk.cu",
                replaces="xgboost_ray_tpu/ops/grow.py:786"),
     "K4eval": dict(name="K4 eval mode: margin update + metric partials, no "
-                   "gradients (500,000 test rows)", route="triton",
-                   source="xgboost_ray_tpu_torch/ops/objectives.py",
+                   "gradients (500,000 test rows)", route="cuda",
+                   source="xgboost_ray_tpu_torch/csrc/objective.cu",
                    replaces="xgboost_ray_tpu/engine.py:1427"),
     "SMX": dict(name="softmax pass, training mode: margins += a round's 7 "
                 "row values, mlogloss / merror / weight partials, [K, N, 2] "
@@ -2941,18 +3008,21 @@ def run(args):
     cuda_build_s = time.perf_counter() - t0
     for stem in _build.SIGNATURES:
         _build.library(stem)
+    # K4's first launch in each mode (in a tree from before the CUDA K4,
+    # Triton's compile of each variant and its launch)
     t1 = time.perf_counter()
     z = torch.zeros(4, device="cuda")
     O.round_update(z, z.clone(), z.clone(), torch.ones(4, device="cuda"), True)
     torch.cuda.synchronize()
     build = {"phase": "build", "nvcc_seconds": cuda_build_s,
-             "triton_first_launch_seconds": time.perf_counter() - t1}
+             "k4_first_launch_seconds": time.perf_counter() - t1,
+             "k4_route": "cuda" if hasattr(O, "k4_plan") else "triton"}
     if hasattr(O.round_update, "eval_launches"):  # not in an older tree
         t1 = time.perf_counter()
         O.round_update(z, z.clone(), z.clone(), torch.ones(4, device="cuda"),
                        True, with_gh=False)
         torch.cuda.synchronize()
-        build["triton_eval_mode_first_launch_seconds"] = (
+        build["k4_eval_mode_first_launch_seconds"] = (
             time.perf_counter() - t1)
     if hasattr(O, "softmax_update"):  # not in an older tree
         # the CUDA pass's first training and transform launches (in a
@@ -2974,6 +3044,11 @@ def run(args):
         records = {k: dict(v) for k, v in KERNELS.items()}
         phase_multiclass(records)
         emit({"multiclass_kernels": {k: records[k] for k in MULTICLASS_KERNELS}})
+        return
+    if args.kernels_only:
+        records = {k: dict(v) for k, v in KERNELS.items()}
+        phase_kernels(args.rows, {k: records[k] for k in TRAIN_KERNELS})
+        emit({"phase2_kernels": {k: records[k] for k in TRAIN_KERNELS}})
         return
     if args.evals_only:
         records = {k: dict(v) for k, v in KERNELS.items()}
@@ -3108,6 +3183,11 @@ def main():
                     help="only the build and phase 8 (held-out eval sets at "
                          "the HIGGS split; works on an older tree of the "
                          "package too); prints no result line")
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="only the build and phase 2 (every training kernel "
+                         "against its plain version, timed; works on an "
+                         "older tree of the package too); prints no result "
+                         "line")
     ap.add_argument("--ranks-only", action="store_true",
                     help="only the 1-rank main path and the ranks phase (on "
                          "a host of two or more cards: the NCCL path); "

@@ -11,8 +11,10 @@ equals the f32 plain sums and K2 is bitwise (K2's level step on every
 output, its records and the formed
 histogram included, and its final-level records on random totals); K3's
 outputs, in both modes and with the smaller children chosen from merged
-counts, are integers and copies (bitwise); K4's gradients
-within 1e-6 and its metric sums within 1e-5 relative; whole trees grown on
+counts, are integers and copies (bitwise); K4's margins and gradients
+bitwise (0 ulps, at the sigmoid's edges too; NaN where the plain version's
+is NaN), its metric sums within 1e-5 relative and bitwise on a rerun, one
+launch a call; whole trees grown on
 the card and on the CPU from integer gh are bitwise on every field; B8's
 leaf indices, margins and values (every mapping and option: base, tree
 weights, ntree_limit, num_parallel_tree, K = 3, a categorical feature, NaN,
@@ -194,22 +196,113 @@ def test_partition_leaf_values_bitwise(cuda, n, n_nodes):
     assert torch.equal(rv_k.cpu(), rv_p)
 
 
-@pytest.mark.parametrize("logistic", [True, False])
-def test_round_update(cuda, logistic):
-    rng = np.random.default_rng(3)
-    n = 100003
-    m = torch.from_numpy((rng.standard_normal(n) * 4).astype(np.float32))
-    rv = torch.from_numpy((rng.standard_normal(n) * 0.2).astype(np.float32))
-    y = torch.from_numpy((rng.random(n) > 0.5).astype(np.float32))
-    w = torch.from_numpy(rng.uniform(0.5, 2, n).astype(np.float32))
+#: K4's row counts at its vector (4 rows), warp (128 rows) and tile (2,048
+#: rows) boundaries and HIGGS's test set plus one
+K4_NS = [0, 1, 3, 4, 5, 127, 129, 2047, 2048, 2049, 100003, 500001]
+#: margins at the sigmoid's edges: +-87, where p turns subnormal and is
+#: flushed (-87.3 .. -88.0), past the exp's clamp (+-88.5, +-100), NaN,
+#: +-inf, signed zeros, subnormal margins
+K4_EDGES = [87.0, -87.0, 87.3, -87.3, -87.34, -87.35, -87.4, -88.0, -88.38,
+            88.5, -88.5, 100.0, -100.0, float("nan"), float("inf"),
+            float("-inf"), 0.0, -0.0, 1e-40, -1e-40]
+
+
+def _k4_rows(n, seed, edges=False):
+    """Seeded K4 inputs on the CPU; with ``edges`` the first rows take the
+    edge margins (a zero row value), a soft label and subnormal operands."""
+    rng = np.random.default_rng(seed)
+    m = (rng.standard_normal(n) * 4).astype(np.float32)
+    rv = (rng.standard_normal(n) * 0.2).astype(np.float32)
+    y = (rng.random(n) > 0.5).astype(np.float32)
+    w = rng.uniform(0.5, 2, n).astype(np.float32)
+    if edges:
+        k = len(K4_EDGES)
+        m[:k], rv[:k] = K4_EDGES, 0.0
+        m[k:k + 200] = np.float32(-87.25) - np.arange(200, dtype=np.float32) * 0.005
+        rv[k:k + 200] = 0.0
+        y[k + 200:k + 203] = [0.3, 1e-40, 0.7]
+        w[k + 203:k + 206] = [1e-40, 1e-39, 1e30]
+    return [torch.from_numpy(a) for a in (m, rv, y, w)]
+
+
+def _ulps(a, b):
+    """The most ulps between two f32 tensors where neither is NaN."""
+    ok = ~(torch.isnan(a) | torch.isnan(b))
+    d = (_bits(a[ok]).long() - _bits(b[ok]).long()).abs()
+    return int(d.max()) if d.numel() else 0
+
+
+def _k4_hold(m, rv, y, w, cuda, logistic, spw=1.5):
+    """K4 on the card against its plain version on the CPU: margins and
+    gradients bitwise (0 ulps on g and h; NaN where the plain version's is
+    NaN), the partials NaN where the plain ones are and elsewhere within
+    1e-5 relative. Returns the card's (margins, gh, partials)."""
     mp = m.clone()
-    ghp, sp = to.round_update(mp, rv, y, w, logistic, 1.5)
+    ghp, sp = to.round_update(mp, rv, y, w, logistic, spw)
     mk = m.to(cuda)
     ghk, sk = to.round_update(mk, rv.to(cuda), y.to(cuda), w.to(cuda),
-                              logistic, 1.5)
-    assert torch.equal(mk.cpu(), mp)
-    assert float((ghk.cpu() - ghp).abs().max()) <= 1e-6
-    assert torch.allclose(sk.cpu(), sp, rtol=1e-5, atol=0)
+                              logistic, spw)
+    what = f"n = {m.shape[0]}, logistic = {logistic}"
+    assert _same_nan(mk.cpu(), mp), what
+    assert _same_nan(ghk.cpu(), ghp), (
+        f"{what}: gradients {_ulps(ghk.cpu(), ghp)} ulps from the plain "
+        f"version's")
+    nan = torch.isnan(sp)
+    assert torch.equal(torch.isnan(sk.cpu()), nan)
+    assert torch.allclose(sk.cpu()[~nan], sp[~nan], rtol=1e-5, atol=0)
+    return mk, ghk, sk
+
+
+@pytest.mark.parametrize("logistic", [True, False])
+def test_round_update(cuda, logistic):
+    """K4's gh mode against its plain version at row counts on its vector
+    and tile boundaries and at the sigmoid's edges: margins and gradients
+    bitwise (0 ulps), partials within 1e-5 relative and bitwise on a
+    rerun, one launch a call."""
+    for n in K4_NS:
+        m, rv, y, w = _k4_rows(n, seed=n, edges=n >= 2048)
+        before = to.round_update.launches
+        mk, ghk, sk = _k4_hold(m, rv, y, w, cuda, logistic)
+        assert to.round_update.launches == before + 1
+        m2 = m.to(cuda)
+        gh2, s2 = to.round_update(m2, rv.to(cuda), y.to(cuda), w.to(cuda),
+                                  logistic, 1.5)
+        assert _same_bits(m2, mk) and _same_bits(gh2, ghk)
+        assert torch.equal(s2.view(torch.int64), sk.view(torch.int64)), n
+
+
+def test_round_update_unaligned_rows(cuda):
+    """Inputs 4 bytes off 16-byte alignment take the kernel's scalar path:
+    the same margins, gradients and partials bit for bit as the aligned
+    vector path, and both the plain version's."""
+    n = 100003
+    m, rv, y, w = _k4_rows(n, seed=9, edges=True)
+    for logistic in (True, False):
+        mk, ghk, sk = _k4_hold(m, rv, y, w, cuda, logistic)
+        off = [torch.zeros(n + 1, device=cuda)[1:] for _ in range(4)]
+        for dst, src in zip(off, (m, rv, y, w)):
+            dst.copy_(src)
+        gho, so = to.round_update(*off, logistic, 1.5)
+        assert _same_bits(off[0], mk) and _same_bits(gho, ghk)
+        assert torch.equal(so.view(torch.int64), sk.view(torch.int64))
+
+
+def test_round_update_one_launch(cuda):
+    """One CUDA launch a call in both modes (the sums come out of the
+    kernel: no reduction launch after it), as torch.profiler counts them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    m, rv, y, w = (t.to(cuda) for t in _k4_rows(500001, seed=2))
+    for with_gh in (True, False):
+        to.round_update(m, rv, y, w, True, with_gh=with_gh)  # the workspace
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            to.round_update(m, rv, y, w, True, with_gh=with_gh)
+            torch.cuda.synchronize()
+        on_card = [e.name for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        assert len(on_card) == 1 and "xrt_k4" in on_card[0], on_card
 
 
 def _bits(t):

@@ -1,8 +1,8 @@
 """xgboost_ray_tpu_torch: the PyTorch/CUDA port of xgboost_ray_tpu.
 
 Trains gradient-boosted trees on an NVIDIA H100 with hand-written kernels
-(``csrc/`` CUDA C++ for the histogram, split search, row partition and the
-prediction walk; Triton for the fused objective/metric pass), behind the
+(``csrc/`` CUDA C++ for the histogram, split search, row partition, the
+fused objective/metric passes and the tree walks; no Triton), behind the
 same API as the JAX package: ``train``, ``predict``, ``RayDMatrix``,
 ``RayParams``, a booster that saves the same model file, and ``serve``
 (online inference). This package imports ``torch`` and nothing of

@@ -12,8 +12,8 @@ pointers, sizes and the current CUDA stream; every C entry point returns
 Nothing here runs at import time: the first wrapper call that launches a
 kernel builds the libraries (this is also what ``chip_smoke.py`` times).
 :func:`compile_count` counts the kernel builds this process made (``nvcc``
-runs and Triton compiles): the serve layer's "no compiles after warmup"
-counter.
+runs: the port has no Triton or other JIT-compiled kernel): the serve
+layer's "no compiles after warmup" counter.
 """
 
 import ctypes
@@ -23,7 +23,7 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import Dict, List, Optional
+from typing import Dict, Optional
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -76,6 +76,9 @@ SIGNATURES = {
     "walk": {
         "xrt_walk_binned": ([P, P], I),
         "xrt_walk_ctas": ([P, P], I),
+    },
+    "objective": {
+        "xrt_k4": ([P, P], I),
     },
 }
 
@@ -136,33 +139,26 @@ class SoftmaxArgs(ctypes.Structure):
         + [("front0", I), ("top", I), ("front", I * 6), ("grid", I)])
 
 
+class K4Args(ctypes.Structure):
+    """``XrtK4Args`` of ``csrc/objective.cu``: one K4 launch, passed by
+    pointer (edit both together)."""
+
+    _fields_ = ([(name, P) for name in (
+        "margin", "row_value", "label", "weight", "gh", "part", "ticket",
+        "out")]
+        + [("n", ctypes.c_longlong), ("grid", I), ("mode", I),
+           ("scale_pos_weight", F)])
+
+
 _lock = threading.Lock()
 _NVCC_BUILDS = 0
-#: Triton ``JITFunction``s of the port, whose compiled variants
-#: :func:`compile_count` adds (each module registers its kernel when it
-#: first builds it)
-TRITON_KERNELS: List[object] = []
-
-
-def _triton_variants(fn) -> int:
-    """Compiled variants a Triton ``JITFunction`` holds (its per-device
-    caches: ``device_caches`` in Triton 3, ``cache`` before)."""
-    caches = getattr(fn, "device_caches", None)
-    if caches is not None:
-        return sum(len(c[0]) for c in list(caches.values()))
-    caches = getattr(fn, "cache", None)
-    if isinstance(caches, dict):
-        return sum(len(c) for c in list(caches.values()))
-    return 0
 
 
 def compile_count() -> int:
     """Kernel builds made by this process: ``nvcc`` compiles of ``csrc/``
-    sources plus compiled variants of the port's Triton kernels."""
+    sources (the port's only kernel builds)."""
     with _lock:
-        builds = _NVCC_BUILDS
-        kernels = list(TRITON_KERNELS)
-    return builds + sum(_triton_variants(fn) for fn in kernels)
+        return _NVCC_BUILDS
 
 
 def nvcc_path() -> str:

@@ -7,8 +7,9 @@ stopping takes (``parse_metric_name``, ``:442``; ``is_maximize_metric``,
 ``:452``). Each metric reduces to a
 (numerator, denominator) pair of weighted sums; the engine divides on the
 host, as ``engine.TpuEngine.step`` does. On the card the sums come out of
-K4 (``ops/objectives.round_update``) or, for K outputs, the softmax pass
-(``ops/objectives.softmax_update``) as per-block partials.
+K4 (``ops/objectives.round_update``: the kernel adds its CTAs' partials) or,
+for K outputs, the softmax pass (``ops/objectives.softmax_update``: per-CTA
+partials the wrapper adds).
 """
 
 from typing import Dict, Optional, Sequence, Tuple

@@ -7,24 +7,25 @@ the prediction transforms (``:99``, ``:66``) and ``get_objective``
 (``:485``). The transform of ``binary:logistic`` is ``jax.nn.sigmoid`` in
 the reference; ``sigmoid`` below is bitwise equal to it on the CPU.
 
-K4 (Triton) fuses the end of boosting round i with the start of round i+1
-in one pass over the rows: ``margin += row_value`` (the new tree's leaf
-value per row), the metric partial sums on the new margin (logloss, error,
-squared error, weight: ``ops/metrics.py`` ``_logloss``/``_error``/
-``_rmse``), and the next round's (g, h). Round 0 runs it with
-``row_value = 0``. Its eval mode (``with_gh=False``) serves a held-out
-eval set: the same margin add and partials over that set's rows (its
-``row_value`` from B4, ``ops/grow.predict_tree_binned``), no (g, h)
+K4 (CUDA C++, ``csrc/objective.cu``) fuses the end of boosting round i
+with the start of round i+1 in one pass over the rows: ``margin +=
+row_value`` (the new tree's leaf value per row), the metric partial sums on
+the new margin (logloss, error, squared error, weight: ``ops/metrics.py``
+``_logloss``/``_error``/``_rmse``), and the next round's (g, h). Round 0
+runs it with ``row_value = 0``. Its eval mode (``with_gh=False``) serves a
+held-out eval set: the same margin add and partials over that set's rows
+(its ``row_value`` from B4, ``ops/grow.predict_tree_binned``), no (g, h)
 written; the partials replace the eval metrics of the reference's round
-(``engine.py:1427-1462``). What bounds it: bytes — five f32 reads/writes per row
-plus the (g, h) pair; one block reduction per CTA writes the partials, which
-the wrapper sums. ``max(p (1 - p), 1e-16)`` and the softplus form of the
+(``engine.py:1427-1462``). What bounds it: bytes — four f32 reads and the
+margin's write per row, plus the (g, h) pair; ``k4_plan`` sizes its
+persistent grid from the row count and the SMs, and one launch gives the
+[4] f64 sums (the last CTA adds the CTAs' f32 quadruples). The port has no
+Triton kernel. ``max(p (1 - p), 1e-16)`` and the softplus form of the
 logloss are kept as the JAX functions write them. The plain version
-evaluates the sigmoid with the reference's own float32 exp (``exp_f32``),
-so on the CPU the gradients equal the JAX package's bit for bit; the
-kernel evaluates the same exp with ``tl.fma``. For the logloss the kernel
-uses Triton's ``exp``/``log`` and ``log1p(e)`` as ``log(u) * e / (u - 1)``
-with ``u = 1 + e``, within a few ulps of the plain ``logaddexp``.
+evaluates the sigmoid with the reference's own float32 exp (``exp_f32``)
+and reads and flushes subnormals as the reference's CPU program does
+(``grad_hess``), so on the CPU the gradients equal the JAX package's bit
+for bit, and the kernel's equal the plain version's.
 
 ``multi:softprob`` / ``multi:softmax`` with K = ``num_class`` outputs
 (``_make_softmax``, ``:107-128``): ``p = softmax(m)``, ``g = (p -
@@ -48,7 +49,6 @@ XLA casts them (truncated, saturated, NaN to 0).
 import ctypes
 import dataclasses
 import functools
-import math
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -187,16 +187,26 @@ def sigmoid(m: torch.Tensor) -> torch.Tensor:
                                                   device=p.device), p)
 
 
+def _ftz(x: torch.Tensor) -> torch.Tensor:
+    """A subnormal float32 flushed to a zero of its sign, as the
+    reference's CPU program flushes every result and reads every operand."""
+    return torch.where(x.abs() < _F32_TINY, x * 0.0, x)
+
+
 def grad_hess(margin: torch.Tensor, label: torch.Tensor, weight: torch.Tensor,
               logistic: bool, scale_pos_weight: float = 1.0):
-    """(g, h), each [N] f32 — the JAX closures' formulas."""
+    """(g, h), each [N] f32 — the JAX closures' formulas as the reference's
+    CPU program evaluates them: subnormal margins, labels and weights read
+    as zero and every subnormal difference or product flushed (``_ftz``);
+    the squared error's h is the weight itself, as there."""
+    m, y, w = _ftz(margin), _ftz(label), _ftz(weight)
     if logistic:
-        p = sigmoid(margin)
-        w = weight * torch.where(label > 0.5, scale_pos_weight, 1.0)
-        g = (p - label) * w
-        h = torch.clamp(p * (1.0 - p), min=1e-16) * w
+        p = sigmoid(m)
+        w = _ftz(w * torch.where(y > 0.5, scale_pos_weight, 1.0))
+        g = _ftz(_ftz(p - y) * w)
+        h = _ftz(torch.clamp(p * (1.0 - p), min=1e-16) * w)
         return g, h
-    return (margin - label) * weight, weight
+    return _ftz(_ftz(m - y) * w), weight
 
 
 def round_update_plain(margin: torch.Tensor, row_value: torch.Tensor,
@@ -216,102 +226,101 @@ def round_update_plain(margin: torch.Tensor, row_value: torch.Tensor,
     return torch.stack([g, h], dim=1), sums
 
 
+#: rows a tile of K4 (``kTileRows`` of ``csrc/objective.cu``: 512 threads
+#: of 4 rows) and the most CTAs an SM its persistent grid takes
+K4_TILE_ROWS = 2048
+K4_CTAS_PER_SM = 2
+_K4_MODES = {"eval": 0, "logistic": 1, "squared": 2}
+
+
+class K4Plan(NamedTuple):
+    """How one K4 launch maps N rows: ``tiles`` tiles of ``K4_TILE_ROWS``
+    rows, CTA c taking tiles c, c + grid, c + 2 grid, ... in order."""
+
+    tiles: int
+    grid: int
+
+
 @functools.lru_cache(maxsize=None)
-def _k4_kernel():
-    import triton
-    import triton.language as tl
-
-    @triton.jit
-    def k4(margin_ptr, rv_ptr, label_ptr, weight_ptr, gh_ptr, part_ptr, n,
-           spw, LOGISTIC_OBJ: tl.constexpr, WITH_GH: tl.constexpr,
-           BLOCK: tl.constexpr):
-        pid = tl.program_id(0)
-        offs = pid * BLOCK + tl.arange(0, BLOCK)
-        mask = offs < n
-        m = tl.load(margin_ptr + offs, mask=mask, other=0.0)
-        m = m + tl.load(rv_ptr + offs, mask=mask, other=0.0)
-        tl.store(margin_ptr + offs, m, mask=mask)
-        y = tl.load(label_ptr + offs, mask=mask, other=0.0)
-        w = tl.load(weight_ptr + offs, mask=mask, other=0.0)
-        pos = y > 0.5
-        # logloss: softplus(-m) for y = 1, softplus(m) for y = 0
-        z = tl.where(pos, -m, m)
-        e = tl.exp(-tl.abs(z))
-        u = 1.0 + e
-        l1p = tl.where(u == 1.0, e, tl.log(u) * (e / (u - 1.0)))
-        ll = tl.maximum(z, 0.0) + l1p
-        # sigmoid through the plain version's float32 exp (Cephes, fused)
-        xc = tl.minimum(tl.maximum(-m, -88.3762626647949), 88.3762626647950)
-        fx = tl.floor(tl.fma(xc, 1.44269504088896341, 0.5))
-        r = tl.fma(fx, -0.693359375, xc)
-        r = tl.fma(fx, 2.12194440e-4, r)
-        r2 = r * r
-        q = tl.fma(r, 1.9875691500e-4, 1.3981999507e-3)
-        q = tl.fma(q, r, 8.3334519073e-3)
-        q = tl.fma(q, r, 4.1665795894e-2)
-        q = tl.fma(q, r, 1.6666665459e-1)
-        q = tl.fma(q, r, 5.0000001201e-1)
-        q = 1.0 + tl.fma(q, r2, r)
-        two_n = ((fx.to(tl.int32) + 127) << 23).to(tl.float32, bitcast=True)
-        p = 1.0 / (1.0 + tl.maximum(q * two_n, -m))
-        wrong = tl.where((p > 0.5) == pos, 0.0, 1.0)
-        d = m - y
-        tl.store(part_ptr + pid * 4 + 0, tl.sum(w * ll, axis=0))
-        tl.store(part_ptr + pid * 4 + 1, tl.sum(w * wrong, axis=0))
-        tl.store(part_ptr + pid * 4 + 2, tl.sum(w * d * d, axis=0))
-        tl.store(part_ptr + pid * 4 + 3, tl.sum(w, axis=0))
-        if WITH_GH:
-            if LOGISTIC_OBJ:
-                ww = w * tl.where(pos, spw, 1.0)
-                g = (p - y) * ww
-                h = tl.maximum(p * (1.0 - p), 1e-16) * ww
-            else:
-                g = d * w
-                h = w
-            tl.store(gh_ptr + offs * 2, g, mask=mask)
-            tl.store(gh_ptr + offs * 2 + 1, h, mask=mask)
-
-    _build.TRITON_KERNELS.append(k4)
-    return k4
+def k4_plan(n: int, sm_count: int) -> K4Plan:
+    """K4's persistent grid for N rows on a card of ``sm_count`` SMs: a CTA
+    a tile up to ``K4_CTAS_PER_SM`` CTAs an SM (at least one CTA, which
+    writes zero sums for N = 0). It depends on N and the card only, never
+    on the mode, so the eval mode sums the same rows in the same CTAs as
+    the gh mode: their partials are bitwise equal."""
+    tiles = -(-n // K4_TILE_ROWS)
+    return K4Plan(tiles, max(1, min(tiles, sm_count * K4_CTAS_PER_SM)))
 
 
-_K4_BLOCK = 1024
+@functools.lru_cache(maxsize=None)
+def _k4_sms(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _k4_workspace(device_index: int, stream: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(ticket [1] int32, zero between launches; partials [grid, 4] f32 for
+    the largest grid) of the launches on one stream of one card: launches
+    on one stream run in order, so they share them."""
+    dev = torch.device("cuda", device_index)
+    rows = _k4_sms(device_index) * K4_CTAS_PER_SM
+    return (torch.zeros(1, dtype=torch.int32, device=dev),
+            torch.empty((rows, 4), dtype=torch.float32, device=dev))
+
+
+def _k4_args(plan: K4Plan, margin: torch.Tensor, row_value: torch.Tensor,
+             label: torch.Tensor, weight: torch.Tensor,
+             gh: Optional[torch.Tensor], part: torch.Tensor,
+             ticket: torch.Tensor, out: torch.Tensor, logistic: bool,
+             scale_pos_weight: float) -> "_build.K4Args":
+    """One launch's ``XrtK4Args``: the eval mode where ``gh`` is None."""
+    a = _build.K4Args()
+    a.margin, a.row_value, a.label, a.weight, a.gh, a.part, a.ticket, a.out = (
+        _build.ptr(t) for t in (margin, row_value, label, weight, gh, part,
+                                ticket, out))
+    a.n, a.grid = margin.shape[0], plan.grid
+    a.mode = _K4_MODES["eval" if gh is None else
+                       "logistic" if logistic else "squared"]
+    a.scale_pos_weight = scale_pos_weight
+    return a
 
 
 def round_update(margin: torch.Tensor, row_value: torch.Tensor,
                  label: torch.Tensor, weight: torch.Tensor, logistic: bool,
                  scale_pos_weight: float = 1.0, with_gh: bool = True
                  ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
-    """K4 wrapper: CPU tensors take the plain version; CUDA tensors launch
-    the Triton kernel (``round_update.launches`` counts every launch,
-    ``round_update.eval_launches`` those of the eval mode, ``with_gh=False``:
-    no gradients, gh is None)."""
-    tensors = (margin, row_value, label, weight)
+    """K4 wrapper: updates ``margin`` in place; returns (gh [N, 2], or None
+    without ``with_gh``, partial sums [4] f64 in ``PARTIALS`` order). CPU
+    tensors take the plain version; CUDA tensors launch the kernel of
+    ``csrc/objective.cu`` once (``round_update.launches`` counts every
+    launch, ``round_update.eval_launches`` those of the eval mode)."""
     if not margin.is_cuda:
         return round_update_plain(margin, row_value, label, weight, logistic,
                                   scale_pos_weight, with_gh)
     n = margin.shape[0]
-    for t in tensors:
+    for t in (margin, row_value, label, weight):
         if (t.device != margin.device or t.dtype != torch.float32
                 or t.shape != (n,) or not t.is_contiguous()):
             raise ValueError(
                 "round_update: margin, row_value, label and weight must be "
                 "contiguous float32 [N] tensors on one CUDA device"
             )
-    n_blocks = max(1, math.ceil(n / _K4_BLOCK))
-    gh = (torch.empty((n, 2), dtype=torch.float32, device=margin.device)
+    dev = margin.device
+    stream = _build.stream_ptr(dev)
+    ticket, part = _k4_workspace(dev.index, stream)
+    gh = (torch.empty((n, 2), dtype=torch.float32, device=dev)
           if with_gh else None)
-    part = torch.empty((n_blocks, 4), dtype=torch.float32, device=margin.device)
-    with torch.cuda.device(margin.device):
-        _k4_kernel()[(n_blocks,)](
-            margin, row_value, label, weight, margin if gh is None else gh,
-            part, n, float(scale_pos_weight), LOGISTIC_OBJ=bool(logistic),
-            WITH_GH=bool(with_gh), BLOCK=_K4_BLOCK, num_warps=4,
-        )
+    out = torch.empty(4, dtype=torch.float64, device=dev)
+    a = _k4_args(k4_plan(n, _k4_sms(dev.index)), margin, row_value, label,
+                 weight, gh, part, ticket, out, logistic, scale_pos_weight)
+    with torch.cuda.device(dev):
+        code = _build.library("objective").xrt_k4(ctypes.byref(a), stream)
+    _build.check(code, "K4 (round_update)")
     round_update.launches += 1
     if not with_gh:
         round_update.eval_launches += 1
-    return gh, part.sum(0, dtype=torch.float64)
+    return gh, out
 
 
 round_update.launches = 0
@@ -321,12 +330,6 @@ round_update.eval_launches = 0
 # --------------------------------------------------------------------------
 # multi:softprob / multi:softmax and the softmax pass
 # --------------------------------------------------------------------------
-
-
-def _ftz(x: torch.Tensor) -> torch.Tensor:
-    """A subnormal float32 result flushed to a zero of its sign, as the
-    reference's CPU program flushes every one."""
-    return torch.where(x.abs() < _F32_TINY, x * 0.0, x)
 
 
 def label_class(label: torch.Tensor) -> torch.Tensor:

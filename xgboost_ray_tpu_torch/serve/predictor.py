@@ -16,9 +16,9 @@ served results are bitwise the batch path's (``RayXGBoostBooster.predict``
 on the same device).
 
 The reference counts XLA compiles; here the counterpart is a kernel
-build. ``compile_count()`` is the number of kernel builds (``nvcc`` runs and
-Triton compiles) this process made: ``warmup`` builds what the buckets
-need, and after it no request builds anything. SHAP output
+build. ``compile_count()`` is the number of kernel builds (``nvcc`` runs:
+the port has no JIT-compiled kernel) this process made: ``warmup`` builds
+what the buckets need, and after it no request builds anything. SHAP output
 (``contribs``) is ROADMAP queue A15 and raises ``NotImplementedError``.
 """
 
@@ -47,7 +47,7 @@ LAYOUTS = predict_ops.LAYOUTS
 
 
 def compile_count() -> int:
-    """Kernel builds (``nvcc`` and Triton compiles) made by this process."""
+    """Kernel builds (``nvcc`` runs) made by this process."""
     return _build.compile_count()
 
 
