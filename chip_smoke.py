@@ -175,6 +175,11 @@ into its root; there K4's gradients are held within 1e-6, as that tree's
 Triton K4 was), so two versions of K4's gh mode are timed in turns in one
 call.
 
+``--k4-variants`` runs the build and then times K4 as built against edits
+of its source compiled beside it (``K4_VARIANTS``: no last-CTA sum,
+streaming loads, streaming stores) in turns, in both modes, and prints one
+JSON line and no result line.
+
 ``--ranks-only`` runs the build, the 1-rank main path and the ranks phase
 (on a host of two or more cards also the NCCL path, against the 1-rank
 run) and prints no result line.
@@ -261,7 +266,13 @@ def device_ms(fn, iters=10, only=None, every=False):
     ``torch.profiler``: the port's own kernels, not the wrapper's
     allocations and fills (PyTorch's ``at::`` kernels, copies, memsets);
     with ``only``, the kernels whose name holds it (any case), PyTorch's
-    too (a library call's); with ``every``, all of its device work."""
+    too (a library call's); with ``every``, all of its device work.
+
+    Late in a long process the profiler drops an execution or two of the
+    ``iters`` calls now and then, so a kernel's time is its mean over the
+    executions recorded times its executions a call (the recorded count
+    over the calls, rounded); a drop is reported as a ``profiler_lost``
+    line."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -271,7 +282,7 @@ def device_ms(fn, iters=10, only=None, every=False):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    total = 0.0
+    times, counts = {}, {}
     seen = []
     for e in prof.key_averages():
         t = getattr(e, "self_device_time_total", None)
@@ -281,10 +292,16 @@ def device_ms(fn, iters=10, only=None, every=False):
                 not every and ((only.lower() not in e.key.lower()) if only else
                 ("at::" in e.key or e.key.startswith(("Memcpy", "Memset"))))):
             continue
-        total += t / 1e3
+        times[e.key] = times.get(e.key, 0.0) + t / 1e3
+        counts[e.key] = counts.get(e.key, 0) + e.count
+    total = sum(times.values())
     check(total > 0, f"torch.profiler saw no device time of the kernels; "
                      f"events: {sorted(seen, key=lambda v: -v[2])[:8]}")
-    return total / iters
+    if any(c % iters for c in counts.values()):
+        emit({"phase": "profiler_lost", "calls": iters,
+              "executions": {k[:80]: c for k, c in counts.items()}})
+    return sum(times[k] / counts[k] * max(1, round(counts[k] / iters))
+               for k in times if counts[k])
 
 
 def bound_ms(nbytes, nflops):
@@ -2257,6 +2274,128 @@ def read_flushed_ms(fn):
     return profiled_ms(lambda: (buf.sum(), fn()))
 
 
+#: K4 variants timed by ``--k4-variants``: edits of ``csrc/objective.cu``
+#: (old text, new text, how many times the old text occurs)
+K4_VARIANTS = {
+    "built": [],
+    # the CTAs' quadruples left in the partials: no ticket, no last CTA
+    "no_final_sum": [(
+        "    last = xrt_ticket(a.ticket, gridDim.x - 1) == gridDim.x - 1;",
+        "    last = false;", 1)],
+    # evict-first loads of the read-once inputs (row value, label, weight)
+    "streaming_loads": [("__ldg(", "__ldcs(", 6)],
+    # evict-first stores of the margins and the gradients
+    "streaming_stores": [
+        ("    reinterpret_cast<float4*>(a.margin)[q] = mo;",
+         "    __stcs(reinterpret_cast<float4*>(a.margin) + q, mo);", 1),
+        ("      gh[l] = stage[l];\n      gh[32 + l] = stage[32 + l];",
+         "      __stcs(gh + l, stage[l]);\n"
+         "      __stcs(gh + 32 + l, stage[32 + l]);", 1)],
+}
+
+
+def phase_k4_variants(n_eval=500_000, n_gh=11_000_000):
+    """K4 as built against edits of its source (``K4_VARIANTS``), each
+    compiled by ``nvcc`` as the package builds it and launched directly, in
+    turns (every variant, then every variant in reverse order): the eval
+    mode over HIGGS's 500,000 test rows and the gh mode over 11M rows,
+    device us with the L2 flushed by a write (W), by a read (R) and warm.
+    Margins and gradients must be bitwise the built kernel's, and the
+    partials too where a variant still sums them. A measurement only: the
+    package launches the kernel as built."""
+    import ctypes
+
+    import torch
+    from xgboost_ray_tpu_torch.ops import _build
+    from xgboost_ray_tpu_torch.ops import objectives as O
+
+    with open(os.path.join(_build.CSRC_DIR, "objective.cu")) as f:
+        src = f.read()
+    vdir = os.path.join(_build.BUILD_DIR, "k4_variants")
+    os.makedirs(vdir, exist_ok=True)
+    procs = {}
+    for name, edits in K4_VARIANTS.items():
+        text = src
+        for old, new, count in edits:
+            check(text.count(old) == count,
+                  f"K4 variant {name}: {old!r} occurs {text.count(old)} "
+                  f"times, not {count}")
+            text = text.replace(old, new)
+        cu = os.path.join(vdir, f"{name}.cu")
+        with open(cu, "w") as f:
+            f.write(text)
+        procs[name] = subprocess.Popen(
+            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-I", _build.CSRC_DIR,
+             "-o", os.path.join(vdir, f"{name}.so"), cu],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    libs, ptxas = {}, {}
+    for name, proc in procs.items():
+        out = proc.communicate()[0].decode(errors="replace")
+        check(proc.returncode == 0, f"K4 variant {name}: nvcc failed: {out}")
+        ptxas[name] = list(dict.fromkeys(
+            ln.split(":", 1)[-1].strip() for ln in out.splitlines()
+            if "registers" in ln or "spill" in ln))
+        lib = ctypes.CDLL(os.path.join(vdir, f"{name}.so"))
+        lib.xrt_k4.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        lib.xrt_k4.restype = ctypes.c_int
+        libs[name] = lib
+
+    dev = torch.device("cuda", 0)
+    stream = _build.stream_ptr(dev)
+    ticket, part = O._k4_workspace(0, stream)
+    sms = O._k4_sms(0)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    rbuf = torch.ones(16 << 20, dtype=torch.float32, device=dev)
+    g = torch.Generator(device=dev).manual_seed(0)
+    res = {"card": CARD, "ptxas": ptxas}
+    for mode, n in (("eval", n_eval), ("gh", n_gh)):
+        m0 = torch.randn(n, device=dev, generator=g)
+        rv = torch.randn(n, device=dev, generator=g) * 0.1
+        label = (torch.rand(n, device=dev, generator=g) > 0.5).float()
+        weight = torch.ones(n, device=dev)
+        m = m0.clone()
+        gh = (torch.empty((n, 2), device=dev) if mode == "gh" else None)
+        out = torch.empty(4, dtype=torch.float64, device=dev)
+        plan = O.k4_plan(n, sms)
+
+        def call(lib, m=m, rv=rv, label=label, weight=weight, gh=gh,
+                 out=out, plan=plan):
+            a = O._k4_args(plan, m, rv, label, weight, gh, part, ticket, out,
+                           True, 1.0)
+            check(lib.xrt_k4(ctypes.byref(a), stream) == 0,
+                  "K4 variant launch failed")
+
+        ref = {}
+        for name, lib in libs.items():
+            m.copy_(m0)
+            out.fill_(float("nan"))
+            call(lib)
+            got = (m.clone(), None if gh is None else gh.clone(), out.clone())
+            if not ref:
+                ref = {"m": got[0], "gh": got[1], "out": got[2]}
+                continue
+            check(torch.equal(bits(got[0]), bits(ref["m"])),
+                  f"K4 variant {name} ({mode}): margins differ")
+            if gh is not None:
+                check(torch.equal(bits(got[1]), bits(ref["gh"])),
+                      f"K4 variant {name} ({mode}): gradients differ")
+            if name != "no_final_sum":
+                check(torch.equal(got[2], ref["out"]),
+                      f"K4 variant {name} ({mode}): partials differ")
+        times = {name: [] for name in libs}
+        order = list(libs) + list(reversed(libs))
+        for name in order:
+            lib = libs[name]
+            times[name].append({
+                "W": profiled_ms(lambda: (flush.zero_(), call(lib))),
+                "R": profiled_ms(lambda: (rbuf.sum(), call(lib))),
+                "warm": profiled_ms(lambda: call(lib))})
+        res[mode] = {"rows": n, "grid": plan.grid, "times_ms": times}
+        del m0, rv, label, weight, m, gh
+    emit({"phase": "k4_variants", **res})
+    return res
+
+
 def _kernel_record(records, key, fn, plain, bound, flush, launches, err,
                    library=None):
     """Time ``fn`` (events, device time L2 flushed by a write and by a
@@ -3056,6 +3195,9 @@ def run(args):
         phase_evals(x, y, records)
         emit({"evals_kernels": {k: records[k] for k in ("B4", "K4eval")}})
         return
+    if args.k4_variants:
+        phase_k4_variants()
+        return
     if args.ranks_only:
         x, y = make_higgs_like(args.rows, 28, seed=0)
         bst, _, _, margins = phase_main(x, y, args.rounds, 6, 1)
@@ -3188,6 +3330,11 @@ def main():
                          "against its plain version, timed; works on an "
                          "older tree of the package too); prints no result "
                          "line")
+    ap.add_argument("--k4-variants", action="store_true",
+                    help="only the build and K4 as built against edits of "
+                         "its source (no last-CTA sum, streaming loads, "
+                         "streaming stores), timed in turns; prints no "
+                         "result line")
     ap.add_argument("--ranks-only", action="store_true",
                     help="only the 1-rank main path and the ranks phase (on "
                          "a host of two or more cards: the NCCL path); "

@@ -197,8 +197,13 @@ def test_partition_leaf_values_bitwise(cuda, n, n_nodes):
 
 
 #: K4's row counts at its vector (4 rows), warp (128 rows) and tile (2,048
-#: rows) boundaries and HIGGS's test set plus one
-K4_NS = [0, 1, 3, 4, 5, 127, 129, 2047, 2048, 2049, 100003, 500001]
+#: rows) boundaries, HIGGS's test set plus one, and more tiles than the
+#: grid holds (each CTA walks two)
+K4_NS = [0, 1, 3, 4, 5, 127, 129, 2047, 2048, 2049, 100003, 500001,
+         1000003]
+#: the rows of the edge-margin calls: the first vector path's tile and the
+#: scalar tail, two CTAs (their partial sums are NaN or swamped by 1e30)
+K4_EDGE_NS = [2048, 2049]
 #: margins at the sigmoid's edges: +-87, where p turns subnormal and is
 #: flushed (-87.3 .. -88.0), past the exp's clamp (+-88.5, +-100), NaN,
 #: +-inf, signed zeros, subnormal margins
@@ -232,10 +237,12 @@ def _ulps(a, b):
     return int(d.max()) if d.numel() else 0
 
 
-def _k4_hold(m, rv, y, w, cuda, logistic, spw=1.5):
+def _k4_hold(m, rv, y, w, cuda, logistic, spw=1.5, edges=False):
     """K4 on the card against its plain version on the CPU: margins and
     gradients bitwise (0 ulps on g and h; NaN where the plain version's is
-    NaN), the partials NaN where the plain ones are and elsewhere within
+    NaN). Without ``edges`` all four partials are finite and within 1e-5
+    relative of the plain sums; with them (NaN margins, a weight of 1e30)
+    the partials are NaN where the plain ones are and elsewhere within
     1e-5 relative. Returns the card's (margins, gh, partials)."""
     mp = m.clone()
     ghp, sp = to.round_update(mp, rv, y, w, logistic, spw)
@@ -247,6 +254,11 @@ def _k4_hold(m, rv, y, w, cuda, logistic, spw=1.5):
     assert _same_nan(ghk.cpu(), ghp), (
         f"{what}: gradients {_ulps(ghk.cpu(), ghp)} ulps from the plain "
         f"version's")
+    if not edges:
+        assert bool(torch.isfinite(sp).all()), what
+        assert torch.allclose(sk.cpu(), sp, rtol=1e-5, atol=0), (
+            f"{what}: partials {sk.cpu().tolist()} against {sp.tolist()}")
+        return mk, ghk, sk
     nan = torch.isnan(sp)
     assert torch.equal(torch.isnan(sk.cpu()), nan)
     assert torch.allclose(sk.cpu()[~nan], sp[~nan], rtol=1e-5, atol=0)
@@ -256,13 +268,16 @@ def _k4_hold(m, rv, y, w, cuda, logistic, spw=1.5):
 @pytest.mark.parametrize("logistic", [True, False])
 def test_round_update(cuda, logistic):
     """K4's gh mode against its plain version at row counts on its vector
-    and tile boundaries and at the sigmoid's edges: margins and gradients
-    bitwise (0 ulps), partials within 1e-5 relative and bitwise on a
-    rerun, one launch a call."""
-    for n in K4_NS:
-        m, rv, y, w = _k4_rows(n, seed=n, edges=n >= 2048)
+    and tile boundaries, up to grids of 245 and 264 CTAs (finite sums that
+    no one weight swamps), and, in calls of their own, at the sigmoid's
+    edges: margins and gradients bitwise (0 ulps), partials within 1e-5
+    relative and bitwise on a rerun, one launch a call."""
+    cases = ([(n, False) for n in K4_NS]
+             + [(n, True) for n in K4_EDGE_NS])
+    for n, edges in cases:
+        m, rv, y, w = _k4_rows(n, seed=n, edges=edges)
         before = to.round_update.launches
-        mk, ghk, sk = _k4_hold(m, rv, y, w, cuda, logistic)
+        mk, ghk, sk = _k4_hold(m, rv, y, w, cuda, logistic, edges=edges)
         assert to.round_update.launches == before + 1
         m2 = m.to(cuda)
         gh2, s2 = to.round_update(m2, rv.to(cuda), y.to(cuda), w.to(cuda),
@@ -274,11 +289,16 @@ def test_round_update(cuda, logistic):
 def test_round_update_unaligned_rows(cuda):
     """Inputs 4 bytes off 16-byte alignment take the kernel's scalar path:
     the same margins, gradients and partials bit for bit as the aligned
-    vector path, and both the plain version's."""
-    n = 100003
-    m, rv, y, w = _k4_rows(n, seed=9, edges=True)
+    vector path, and both the plain version's: over 49 CTAs of ordinary
+    rows (all four sums held) and, apart, two CTAs with the edge rows."""
+    for n, edges in ((100003, False), (2049, True)):
+        _k4_unaligned(cuda, n, edges)
+
+
+def _k4_unaligned(cuda, n, edges):
+    m, rv, y, w = _k4_rows(n, seed=9, edges=edges)
     for logistic in (True, False):
-        mk, ghk, sk = _k4_hold(m, rv, y, w, cuda, logistic)
+        mk, ghk, sk = _k4_hold(m, rv, y, w, cuda, logistic, edges=edges)
         off = [torch.zeros(n + 1, device=cuda)[1:] for _ in range(4)]
         for dst, src in zip(off, (m, rv, y, w)):
             dst.copy_(src)

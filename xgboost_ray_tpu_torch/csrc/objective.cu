@@ -49,7 +49,9 @@
 // vectors, the next tile's four loads issued before the current tile is
 // computed (registers double-buffered); the margins go back as one float4
 // a thread, and each warp's (g, h) pairs are staged through shared memory
-// so that a store instruction writes 512 contiguous bytes. Where a pointer
+// so that a store instruction writes 512 contiguous bytes. The loads and
+// stores carry no cache hint: evict-first ones lowered neither mode's time
+// (chip_smoke.py --k4-variants prices them). Where a pointer
 // is not 16-byte aligned the whole launch takes the scalar path (the same
 // rows for the same threads, so the same sums), and the vector that holds
 // the last row takes it inside the vector path. What is left above the
