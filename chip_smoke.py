@@ -134,6 +134,36 @@ is only where it may find ``cuobjdump``). Phases:
    a seeded score's quantiles), launches checked, against the CPU path
    summing in the card's fixed point by phase 4's rule.
 
+10. the facade (``facade``, right after phase 9), each step's launches
+   counted from 0 and checked exactly: ``RayXGBClassifier`` (10 rounds,
+   depth 6, 256 bins, ``eval_metric`` error then logloss) on phase 8's
+   HIGGS split with the test set as ``eval_set``: its model, test history
+   and launches equal to ``train()``'s with the test set, ``predict_proba``
+   bitwise ``booster.predict``, ``predict`` the classes of p > 0.5,
+   ``apply`` bitwise ``predict(pred_leaf=True)``, ``feature_importances_``
+   the normalised gain, the fit's wall time beside ``train()``'s and the
+   label encoding's (``np.unique``) beside the JAX module's per-row dict
+   loop; early stopping over 30 rounds (``best_iteration`` the argmin of
+   the test logloss, predictions from rounds [0, best + 1)); a pickle
+   round trip (bitwise predictions); ``RayXGBRegressor`` over all
+   11,000,000 rows with a numpy squared-error objective and with
+   ``reg:squarederror`` (``base_score`` 0.5): the same model and final
+   margins bit for bit, K4 only in its no-gradient mode in the custom run,
+   whose mode at this shape is held against its plain version and timed,
+   the two runs' rounds printed; the classifier on phase 9's Covertype
+   set with labels 1..7 (``classes_``, the ``train()`` model, predictions
+   the classes of the probabilities' argmax); a numpy softmax objective
+   and mlogloss ``custom_metric`` at Covertype's shape (history within
+   1e-5 of the built-in mlogloss; the softmax pass's no-gradient mode at
+   464,810 x 7 held and timed); Covertype's 116,202 test rows x 54 as 4
+   CSV files loaded centrally (the native parser read every file; the tune
+   report callback under a ``TuneSession`` reported every round) and by 2
+   gloo ranks sharing the card (``distributed=True``, 2 files a rank, each
+   rank's distributed callbacks in the JAX package's hook order), every
+   model the numpy-input model; Parquet where pyarrow imports; and, where
+   scikit-learn imports, ``clone`` and a 2-fold ``GridSearchCV`` over
+   ``max_depth`` {2, 3} on 50,000 rows.
+
 Phase 6's model is trained, and phase 7 run, right after phase 1: later in
 the process ``torch.profiler`` records no device activity for B8's
 full-size launches (not in a fresh process, nor after any one of phases
@@ -179,6 +209,9 @@ call.
 of its source compiled beside it (``K4_VARIANTS``: no last-CTA sum,
 streaming loads, streaming stores) in turns, in both modes, and prints one
 JSON line and no result line.
+
+``--facade-only`` runs the build and phase 10 alone and prints its kernel
+rows but no result line.
 
 ``--ranks-only`` runs the build, the 1-rank main path and the ranks phase
 (on a host of two or more cards also the NCCL path, against the 1-rank
@@ -3006,6 +3039,477 @@ def phase_k33(x, rows=10_000, rounds=3, depth=6, k=33):
     return res
 
 
+class HookRecorder:
+    """A distributed callback recording ``(hook, rank)`` of every hook it
+    receives (``after_round`` with the round's iteration); sent to the
+    ranks of a world and returned by them."""
+
+    def __init__(self):
+        self.calls = []
+
+    def on_init(self, actor, *args, **kwargs):
+        self.calls.append(("on_init", actor.rank))
+
+    def before_data_loading(self, actor, data, *args, **kwargs):
+        self.calls.append(("before_data_loading", actor.rank))
+
+    def after_data_loading(self, actor, data, *args, **kwargs):
+        self.calls.append(("after_data_loading", actor.rank))
+
+    def before_train(self, actor, *args, **kwargs):
+        self.calls.append(("before_train", actor.rank))
+
+    def after_round(self, actor, record, *args, **kwargs):
+        self.calls.append(("after_round", actor.rank, record["iteration"]))
+
+    def after_train(self, actor, result, *args, **kwargs):
+        self.calls.append(("after_train", actor.rank))
+
+
+def hook_order(rank, rounds):
+    """The JAX package's hook order for one rank that loads one matrix."""
+    return ([("on_init", rank), ("before_data_loading", rank),
+             ("after_data_loading", rank), ("before_train", rank)]
+            + [("after_round", rank, i) for i in range(rounds)]
+            + [("after_train", rank)])
+
+
+def custom_expect(rounds, depth, k=1, held_out=False):
+    """Launches of a ``train()`` with a custom objective: the built-in
+    run's tree kernels, and every round pass in its no-gradient mode (no
+    set-up pass): K4 (or with K outputs the softmax pass) once a round over
+    the training set, and once more over a held-out set."""
+    passes = rounds * (2 if held_out else 1)
+    out = {**train_expect(rounds * k, depth), "K4": 0, "K4eval": 0,
+           "SMX": 0, "SMXeval": 0, "B4": rounds if held_out else 0}
+    out.update({"SMX": passes, "SMXeval": passes} if k > 1
+               else {"K4": passes, "K4eval": passes})
+    return out
+
+
+def _np_softmax(m):
+    e = np.exp(m - m.max(axis=1, keepdims=True))
+    return e / e.sum(axis=1, keepdims=True)
+
+
+def sq_objective(y_true, y_pred):
+    """A squared-error objective in numpy f32 (sklearn's convention)."""
+    g = (y_pred - y_true).astype(np.float32)
+    return g, np.ones_like(g)
+
+
+def softmax_objective(preds, dtrain):
+    """The softmax objective in numpy (``train(obj=...)``'s convention)."""
+    p = _np_softmax(preds.astype(np.float64))
+    y = np.eye(preds.shape[1])[dtrain.get_label().astype(np.int64)]
+    return ((p - y).astype(np.float32),
+            np.maximum(2.0 * p * (1.0 - p), 1e-16).astype(np.float32))
+
+
+def mlogloss_metric(preds, dmat):
+    """mlogloss in numpy f64 (``custom_metric``'s convention)."""
+    m = preds.astype(np.float64)
+    mx = m.max(axis=1, keepdims=True)
+    lse = mx[:, 0] + np.log(np.exp(m - mx).sum(axis=1))
+    y = dmat.get_label().astype(np.int64)
+    return "my_mlogloss", float(np.mean(lse - m[np.arange(len(y)), y]))
+
+
+def phase_facade(x, y, records, rounds=10, depth=6, es_rounds=30,
+                 grid_rows=50_000, dev="cuda:0"):
+    """Phase 10, the facade at full width: the sklearn estimators against
+    ``train()`` on the HIGGS split (dumps equal, launches equal, predict /
+    predict_proba / apply / feature importances from the booster, early
+    stopping, the label encoding's time against the JAX module's per-row
+    dict loop) and on Covertype's labels 1..7; a custom squared-error
+    objective against ``reg:squarederror`` over every row (the same model
+    bit for bit, no gradient-mode launch; K4's no-gradient mode at the
+    training shape held against its plain version and timed); a custom
+    softmax objective and mlogloss metric at Covertype's shape (the softmax
+    pass's no-gradient mode held and timed); pickling; CSV (and Parquet
+    where pyarrow imports) files of Covertype's test rows loaded centrally
+    and by two gloo ranks, each rank's distributed callbacks' hooks in the
+    JAX package's order; the tune report callback; and, where scikit-learn
+    imports, ``clone`` and a ``GridSearchCV``."""
+    import pickle
+    import shutil
+    import tempfile
+
+    import pandas as pd
+    import torch
+
+    import xgboost_ray_tpu_torch as xrt
+    from xgboost_ray_tpu_torch import distributed as D
+    from xgboost_ray_tpu_torch import tune
+    from xgboost_ray_tpu_torch.data_sources.csv import read_csv_file
+    from xgboost_ray_tpu_torch.distributed import _KeepEngine
+    from xgboost_ray_tpu_torch.engine import (
+        kernel_launches,
+        reset_kernel_launches,
+    )
+    from xgboost_ray_tpu_torch.ops import grow as G
+    from xgboost_ray_tpu_torch.ops import objectives as O
+    from xgboost_ray_tpu_torch.sklearn import (
+        _SKLEARN_INSTALLED,
+        RayXGBClassifier,
+        RayXGBRegressor,
+    )
+
+    t_phase = time.perf_counter()
+    res = {"phase": "facade", "sklearn_installed": _SKLEARN_INSTALLED,
+           "rounds": rounds, "max_depth": depth}
+    n_test = min(TEST_ROWS, x.shape[0] // 10)
+    xt, yt, xv, yv = x[:-n_test], y[:-n_test], x[-n_test:], y[-n_test:]
+    params = {"objective": "binary:logistic",
+              "eval_metric": ["error", "logloss"], "max_depth": depth,
+              "max_bin": 256}
+    est_kw = dict(max_depth=depth, max_bin=256, device=dev)
+
+    def counted(fn):
+        """(fn(), its launches counted from 0, its wall seconds)."""
+        reset_kernel_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, kernel_launches(), time.perf_counter() - t0
+
+    def train_ref(p, xr, yr, n_rounds, evals_xy=None, **kw):
+        dtrain = xrt.RayDMatrix(xr, yr)
+        evals = [(dtrain, "train")]
+        if evals_xy is not None:
+            evals.append((xrt.RayDMatrix(*evals_xy), "test"))
+        ev, extra = {}, {}
+        bst = xrt.train(p, dtrain, n_rounds, evals=evals, evals_result=ev,
+                        additional_results=extra, device=dev,
+                        ray_params=xrt.RayParams(num_actors=1), **kw)
+        return bst, ev, extra
+
+    # 1. the binary classifier against train() with the test set
+    (ref, ref_ev, ref_extra), ref_launches, ref_wall = counted(
+        lambda: train_ref(params, xt, yt, rounds, (xv, yv)))
+    t0 = time.perf_counter()
+    classes, codes = np.unique(yt, return_inverse=True)
+    unique_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loop = {c: i for i, c in enumerate(classes)}
+    loop_codes = np.asarray([loop[v] for v in yt], dtype=np.float32)
+    loop_s = time.perf_counter() - t0
+    check(np.array_equal(codes.astype(np.float32), loop_codes),
+          "np.unique's codes differ from the per-row dict loop's")
+    del loop_codes
+    clf = RayXGBClassifier(n_estimators=rounds,
+                           eval_metric=["error", "logloss"], **est_kw)
+    _, fit_launches, fit_wall = counted(
+        lambda: clf.fit(xt, yt, eval_set=[(xv, yv)]))
+    bst = clf.get_booster()
+    check(bst.get_dump(with_stats=True) == ref.get_dump(with_stats=True),
+          "RayXGBClassifier's model differs from train()'s")
+    check(fit_launches == ref_launches,
+          f"RayXGBClassifier.fit launched {fit_launches}, train() "
+          f"{ref_launches}")
+    check_launches(fit_launches, evals_expect(rounds, depth),
+                   "RayXGBClassifier.fit")
+    check(clf.evals_result()["validation_0"] == ref_ev["test"],
+          "RayXGBClassifier's test history differs from train()'s")
+    proba = clf.predict_proba(xv)
+    value = bst.predict(xv, device=dev)
+    check(same_bits(proba[:, 1], value),
+          "predict_proba[:, 1] is not bitwise booster.predict")
+    check(np.array_equal(clf.predict(xv),
+                         clf.classes_[(value > 0.5).astype(int)]),
+          "predict is not (p > 0.5) mapped through classes_")
+    check(np.array_equal(clf.apply(xv),
+                         bst.predict(xv, pred_leaf=True, device=dev)),
+          "apply is not predict(pred_leaf=True)")
+    score = bst.get_score(importance_type="gain")
+    gains = np.array([score.get(f"f{i}", 0.0) for i in range(x.shape[1])])
+    check(np.array_equal(clf.feature_importances_, gains / gains.sum()),
+          "feature_importances_ is not the normalised gain")
+    test_ll = clf.evals_result()["validation_0"]["logloss"]
+    res["binary"] = {
+        "train_rows": int(xt.shape[0]), "test_rows": int(n_test),
+        "dump_equal_train": True, "launches": fit_launches,
+        "fit_wall_s": fit_wall, "train_wall_s": ref_wall,
+        "train_setup_s": ref_extra["setup_time_s"],
+        "label_encoding_np_unique_s": unique_s,
+        "label_encoding_dict_loop_s": loop_s,
+        "test_logloss": test_ll}
+
+    # 2. early stopping through the estimator
+    es = RayXGBClassifier(n_estimators=es_rounds, early_stopping_rounds=3,
+                          eval_metric=["error", "logloss"], **est_kw)
+    es.fit(xt, yt, eval_set=[(xv, yv)])
+    hist = es.evals_result()["validation_0"]["logloss"]
+    best = es.best_iteration
+    check(best == int(np.argmin(hist)),
+          f"best_iteration {best} is not the argmin of the test logloss")
+    check(len(hist) == min(es_rounds, best + 4),
+          f"stopped after {len(hist)} rounds, best {best}")
+    check(same_bits(es.predict_proba(xv)[:, 1], es.get_booster().predict(
+        xv, iteration_range=(0, best + 1), device=dev)),
+          "predict after early stopping does not use rounds [0, best + 1)")
+    res["early_stopping"] = {"rounds_run": len(hist), "best_iteration": best,
+                             "best_score": es.best_score}
+    del es
+
+    # 6. pickle (of step 1's estimator)
+    back = pickle.loads(pickle.dumps(clf))
+    check(same_bits(back.predict_proba(xv), proba),
+          "an unpickled estimator predicts otherwise")
+    res["pickle_bitwise"] = True
+    del clf, back, bst, ref, proba, value
+    torch.cuda.empty_cache()
+
+    # 4. a custom squared-error objective over every row
+    keeps = {}
+
+    def fit_reg(objective):
+        keeps[objective if isinstance(objective, str) else "custom"] = keep = (
+            _KeepEngine())
+        reg = RayXGBRegressor(n_estimators=rounds, base_score=0.5,
+                              objective=objective, **est_kw)
+        return reg.fit(x, y, callbacks=[keep])
+
+    custom, custom_launches, custom_wall = counted(
+        lambda: fit_reg(sq_objective))
+    builtin, builtin_launches, builtin_wall = counted(
+        lambda: fit_reg("reg:squarederror"))
+    eng = keeps["custom"].engine
+    margins = eng.get_margins()[:, 0]
+    builtin_margins = keeps["reg:squarederror"].engine.get_margins()[:, 0]
+    same_model = (custom.get_booster().get_dump(with_stats=True)
+                  == builtin.get_booster().get_dump(with_stats=True))
+    if not same_model:
+        # the built-in gradient flushes a subnormal m - y (C5); numpy does
+        # not: count the rows whose gradients differ at the final margins
+        g_np = sq_objective(y, margins)[0]
+        g_plain = O.grad_hess(torch.from_numpy(margins), torch.from_numpy(y),
+                              torch.ones(len(y)), False)[0].numpy()
+        res["custom_gradient_rows_differ"] = int(
+            np.sum(g_np.view(np.int32) != g_plain.view(np.int32)))
+        emit(res)
+    check(same_model, "the custom squared error trains another model than "
+                      "reg:squarederror")
+    check(same_bits(margins, builtin_margins),
+          "the custom objective's final margins are not the built-in's")
+    check_launches(custom_launches, custom_expect(rounds, depth),
+                   "the custom objective's fit")
+    check_launches(builtin_launches, train_expect(rounds, depth),
+                   "reg:squarederror's fit")
+    rt_c = [r * 1e3 for r in custom.additional_results_["round_times_s"]]
+    rt_b = [r * 1e3 for r in builtin.additional_results_["round_times_s"]]
+    res["custom_objective"] = {
+        "rows": int(x.shape[0]), "same_model_bitwise": True,
+        "launches": custom_launches, "builtin_launches": builtin_launches,
+        "round_ms_median": float(np.median(rt_c)),
+        "builtin_round_ms_median": float(np.median(rt_b)),
+        "round_ms": rt_c, "builtin_round_ms": rt_b,
+        "fit_wall_s": custom_wall, "builtin_fit_wall_s": builtin_wall}
+    # what a custom round adds: the margins' copy to the host, the user's
+    # objective, the gradients' copy to the card (medians of 5)
+    parts = {"margins_to_host_ms": [], "objective_ms": [],
+             "gradients_to_card_ms": []}
+    for _ in range(5):
+        t0 = time.perf_counter()
+        m_host = eng.get_margins()[:, 0]
+        t1 = time.perf_counter()
+        g, h = sq_objective(y, m_host)
+        t2 = time.perf_counter()
+        eng._user_gh(g, h)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        for key, dt in zip(parts, (t1 - t0, t2 - t1, t3 - t2)):
+            parts[key].append(dt * 1e3)
+    res["custom_objective"]["round_parts_ms"] = {
+        k: float(np.median(v)) for k, v in parts.items()}
+    del m_host, g, h
+    # K4's no-gradient mode over the training rows, against its plain
+    # version on the same card tensors
+    rv = G.predict_tree_binned(eng.trees[-1], eng.bins, depth, 256)
+    m0 = eng.margins.view(-1).clone()
+    mk, mp = m0.clone(), m0.clone()
+    gh, sk = O.round_update(mk, rv, eng.label, eng.weight, False,
+                            with_gh=False)
+    _, sp = O.round_update_plain(mp, rv, eng.label, eng.weight, False,
+                                 with_gh=False)
+    check(gh is None and torch.equal(bits(mk), bits(mp)),
+          "K4's no-gradient mode at the training shape: margins differ")
+    rel = float(((sk - sp).abs() / sp.abs().clamp_min(1e-30)).max())
+    check(rel <= 1e-5, f"K4's no-gradient mode at the training shape: "
+                       f"partials beyond 1e-5 relative ({rel})")
+    n = int(m0.shape[0])
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    _kernel_record(
+        records, "K4nograd",
+        lambda: O.round_update(mk, rv, eng.label, eng.weight, False,
+                               with_gh=False),
+        lambda: O.round_update_plain(mp, rv, eng.label, eng.weight, False,
+                                     with_gh=False),
+        # margin, row value, label, weight read, margin written: 20 B a row
+        bound_ms(n * 4 * 5, 45 * n), flush, custom_launches["K4eval"],
+        float((sk - sp).abs().max()))
+    records["K4nograd"]["partials_rel"] = rel
+    del custom, builtin, keeps, eng, rv, m0, mk, mp, margins, builtin_margins
+    torch.cuda.empty_cache()
+
+    # 3. the multiclass classifier on Covertype's labels 1..7
+    k = 7
+    xc, yc = make_covertype_like(COVERTYPE_ROWS, seed=0)
+    xct, yct = xc[:-COVERTYPE_TEST], yc[:-COVERTYPE_TEST]
+    xcv, ycv = xc[-COVERTYPE_TEST:], yc[-COVERTYPE_TEST:]
+    mc_params = {"objective": "multi:softprob", "num_class": k,
+                 "max_depth": depth, "max_bin": 256}
+    (mref, _, _), mref_launches, _ = counted(lambda: train_ref(
+        mc_params, xct, yct, rounds))
+    mclf = RayXGBClassifier(n_estimators=rounds, **est_kw)
+    _, mfit_launches, mfit_wall = counted(lambda: mclf.fit(xct, yct + 1))
+    check(list(mclf.classes_) == list(range(1, k + 1))
+          and mclf.n_classes_ == k,
+          f"classes_ {mclf.classes_}, n_classes_ {mclf.n_classes_}")
+    check(mclf.get_booster().get_dump(with_stats=True)
+          == mref.get_dump(with_stats=True),
+          "RayXGBClassifier's multiclass model differs from train()'s")
+    check(mfit_launches == mref_launches,
+          f"multiclass fit launched {mfit_launches}, train() {mref_launches}")
+    mproba = mclf.predict_proba(xcv)
+    mpred = mclf.predict(xcv)
+    check(np.array_equal(mpred, mclf.classes_[mproba.argmax(axis=1)])
+          and set(np.unique(mpred)) <= set(range(1, k + 1)),
+          "multiclass predict is not the classes_ of predict_proba's argmax")
+    res["multiclass"] = {"rows": int(xct.shape[0]), "classes": k,
+                         "launches": mfit_launches, "fit_wall_s": mfit_wall,
+                         "dump_equal_train": True}
+    del mref, mclf, mproba, mpred
+
+    # 5. a custom softmax objective and mlogloss metric, Covertype's shape
+    keep = _KeepEngine()
+    (mc_bst, mc_ev, mc_extra), mc_launches, _ = counted(lambda: train_ref(
+        dict(mc_params, eval_metric=["mlogloss"]), xct, yct, rounds,
+        (xcv, ycv), obj=softmax_objective, custom_metric=mlogloss_metric,
+        callbacks=[keep]))
+    check_launches(mc_launches, custom_expect(rounds, depth, k, True),
+                   "the custom softmax objective's train()")
+    for name in ("train", "test"):
+        got, want = mc_ev[name]["my_mlogloss"], mc_ev[name]["mlogloss"]
+        check(np.allclose(got, want, rtol=0, atol=1e-5),
+              f"custom mlogloss on {name} {got} is not the built-in {want}")
+    check(mc_ev["test"]["mlogloss"][-1] < mc_ev["test"]["mlogloss"][0],
+          f"the custom softmax objective did not learn: {mc_ev['test']}")
+    eng = keep.engine
+    rv = G.predict_tree_binned(eng.trees[-1], eng.bins, depth, 256)
+    err_s, rel_s, _ = hold_softmax_update(
+        eng.margins, rv, eng.label, eng.weight, False,
+        "no-gradient mode over the training rows")
+    m_train = eng.margins.clone()
+    n_tr = int(m_train.shape[0])
+    _kernel_record(
+        records, "SMXnograd", lambda: O.softmax_update(
+            m_train, rv, eng.label, eng.weight, with_gh=False),
+        lambda: O.softmax_update_plain(m_train.clone(), rv, eng.label,
+                                       eng.weight, with_gh=False),
+        bound_ms(n_tr * (12 * k + 8), 40 * k * n_tr), flush,
+        mc_launches["SMXeval"], err_s)
+    records["SMXnograd"]["partials_rel"] = rel_s
+    res["custom_multiclass"] = {
+        "launches": mc_launches, "history": mc_ev,
+        "round_ms_median": float(np.median(mc_extra["round_times_s"])) * 1e3}
+    del keep, eng, rv, m_train, mc_bst, flush
+    torch.cuda.empty_cache()
+
+    # 7 + 8. files, the 2-rank world's hooks, the tune callback
+    os.makedirs(OUT_DIR, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="facade_", dir=OUT_DIR)
+    try:
+        frame_cols = [f"f{i}" for i in range(xcv.shape[1])]
+        paths = []
+        for i, part in enumerate(np.array_split(np.arange(COVERTYPE_TEST), 4)):
+            df = pd.DataFrame(xcv[part], columns=frame_cols)
+            df["label"] = ycv[part]
+            paths.append(os.path.join(tmp, f"part{i}.csv"))
+            df.to_csv(paths[-1], index=False, float_format="%.9g")
+        file_params = dict(mc_params, eval_metric=["mlogloss"])
+        (np_bst, _, _), _, _ = counted(lambda: train_ref(
+            file_params, xcv, ycv, rounds))
+        read_csv_file.reads.update(native=0, pandas=0)
+        sess = tune.init_session(os.path.join(tmp, "trial"))
+        try:
+            central = xrt.RayDMatrix(paths, label="label", distributed=False)
+            c_bst = xrt.train(file_params, central, rounds,
+                              evals=[(central, "train")], device=dev,
+                              ray_params=xrt.RayParams(num_actors=1))
+        finally:
+            tune.shutdown_session()
+        reads = dict(read_csv_file.reads)
+        check(reads == {"native": 4, "pandas": 0},
+              f"the central CSV load's parsers: {reads}")
+        check(c_bst.get_dump() == np_bst.get_dump(),
+              "the central CSV model differs from the numpy-input model")
+        check([r["training_iteration"] for r in sess.results]
+              == list(range(1, rounds + 1))
+              and all("train-mlogloss" in r for r in sess.results),
+              f"the tune callback reported {sess.results}")
+        t0 = time.perf_counter()
+        out = D.launch_world(
+            D._train_rank, 2, "cuda", {"source": paths, "label": "label"},
+            file_params, rounds, {"distributed_callbacks": [HookRecorder()]})
+        world_s = time.perf_counter() - t0
+        for r, o in enumerate(out):
+            check(xrt.RayXGBoostBooster.load_raw(o["model"]).get_dump()
+                  == np_bst.get_dump(),
+                  f"rank {r}'s distributed CSV model differs from the "
+                  f"numpy-input model")
+            check(o["csv_reads"] == {"native": 2, "pandas": 0},
+                  f"rank {r} read its CSV files with {o['csv_reads']}")
+            calls = o["distributed_callbacks"][0].calls
+            check(calls == hook_order(r, rounds),
+                  f"rank {r}'s hooks: {calls}")
+            check(o["additional_results"]["world_size"] == 2
+                  and o["additional_results"]["backend"] == "gloo",
+                  f"rank {r}: {o['additional_results']['backend']}")
+        res["files"] = {
+            "csv_files": 4, "rows": int(COVERTYPE_TEST),
+            "features": int(xcv.shape[1]), "central_reads": reads,
+            "rank_reads": [o["csv_reads"] for o in out],
+            "world_wall_s": world_s, "hooks_in_order": True,
+            "tune_reports": len(sess.results)}
+        try:
+            import pyarrow  # noqa: F401
+        except ImportError:
+            emit({"parquet": "not installed"})
+            res["files"]["parquet"] = "not installed"
+        else:
+            pq = []
+            for i, src in enumerate(paths):
+                pq.append(os.path.join(tmp, f"part{i}.parquet"))
+                pd.read_csv(src).to_parquet(pq[-1])
+            p_bst = xrt.train(file_params, xrt.RayDMatrix(pq, label="label"),
+                              rounds, device=dev,
+                              ray_params=xrt.RayParams(num_actors=1))
+            check(p_bst.get_dump() == np_bst.get_dump(),
+                  "the Parquet model differs from the numpy-input model")
+            res["files"]["parquet"] = "equal"
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    if _SKLEARN_INSTALLED:
+        from sklearn.base import clone
+        from sklearn.model_selection import GridSearchCV
+
+        est = RayXGBClassifier(n_estimators=3, device=dev)
+        check(clone(est).get_params()["device"] == dev,
+              "clone lost the device")
+        gs = GridSearchCV(est, {"max_depth": [2, 3]}, cv=2,
+                          error_score="raise")
+        gs.fit(x[:grid_rows], y[:grid_rows])
+        res["grid_search"] = {"rows": grid_rows,
+                              "best_params": gs.best_params_,
+                              "best_score": float(gs.best_score_)}
+    res["phase_wall_s"] = time.perf_counter() - t_phase
+    emit(res)
+    return res
+
+
 def profiled_ms(fn):
     """``device_ms`` where ``torch.profiler`` records the kernel, None where
     it records no device time (``PERF.md`` §7)."""
@@ -3102,6 +3606,18 @@ KERNELS = {
                        "parents, 32 nodes)", route="cuda",
                        source="xgboost_ray_tpu_torch/csrc/split.cu",
                        replaces="xgboost_ray_tpu/ops/grow.py:570"),
+    "K4nograd": dict(name="K4 eval mode over the training rows: margin "
+                     "update + metric partials, no gradients (a custom "
+                     "objective's round pass, 11,000,000 rows)",
+                     route="cuda",
+                     source="xgboost_ray_tpu_torch/csrc/objective.cu",
+                     replaces="xgboost_ray_tpu/engine.py:1427"),
+    "SMXnograd": dict(name="softmax pass, eval mode over the training rows: "
+                      "margins += the round's row values, partials, no "
+                      "gradients (a custom objective's round pass, 464,810 "
+                      "Covertype rows x 7 classes)", route="cuda",
+                      source="xgboost_ray_tpu_torch/csrc/softmax.cu",
+                      replaces="xgboost_ray_tpu/ops/metrics.py:55"),
     **{f"B8serve{m}": dict(
         name=f"B8 forest walk: margins, heap layout, a serve batch of {m} "
              f"rows (windows mapping; launches: every batch of the heap "
@@ -3113,6 +3629,9 @@ KERNELS = {
 #: the kernel table's rows of phase 9
 MULTICLASS_KERNELS = ("SMX", "SMXeval", "SMXtransform", "B4k", "K1f54",
                       "K2levelf54")
+
+#: the kernel table's rows of phase 10
+FACADE_KERNELS = ("K4nograd", "SMXnograd")
 
 #: kernels of the training path (phase 3's counters)
 TRAIN_KERNELS = ("K1", "K1root", "K1deq", "K2", "K2level", "K2leaf", "K3",
@@ -3198,6 +3717,12 @@ def run(args):
     if args.k4_variants:
         phase_k4_variants()
         return
+    if args.facade_only:
+        records = {k: dict(v) for k, v in KERNELS.items()}
+        x, y = make_higgs_like(args.rows, 28, seed=0)
+        phase_facade(x, y, records)
+        emit({"facade_kernels": {k: records[k] for k in FACADE_KERNELS}})
+        return
     if args.ranks_only:
         x, y = make_higgs_like(args.rows, 28, seed=0)
         bst, _, _, margins = phase_main(x, y, args.rounds, 6, 1)
@@ -3223,6 +3748,9 @@ def run(args):
     phase_kernels(args.rows, {k: records[k] for k in TRAIN_KERNELS})
     results = {"evals": phase_evals(x, y, records),
                "multiclass": phase_multiclass(records)}
+    torch.cuda.empty_cache()
+    results["facade"] = phase_facade(x, y, records)
+    torch.cuda.empty_cache()
 
     if args.rows < 11_000_000:
         emit({"phase": "main_path_cut", "rows": args.rows,
@@ -3339,6 +3867,10 @@ def main():
                     help="only the 1-rank main path and the ranks phase (on "
                          "a host of two or more cards: the NCCL path); "
                          "prints no result line")
+    ap.add_argument("--facade-only", action="store_true",
+                    help="only the build and phase 10 (the sklearn "
+                         "estimators, custom objectives and metrics, files, "
+                         "callbacks); prints no result line")
     args = ap.parse_args()
     try:
         run(args)

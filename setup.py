@@ -8,8 +8,10 @@ setup(
         "xgboost_ray_tpu", "xgboost_ray_tpu.*",
         "xgboost_ray_tpu_torch", "xgboost_ray_tpu_torch.*",
     ]),
-    # the PyTorch/CUDA port compiles its kernels from these at first use
-    package_data={"xgboost_ray_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},
+    # the PyTorch/CUDA port compiles its kernels and its CSV parser from
+    # these at first use
+    package_data={"xgboost_ray_tpu_torch": ["csrc/*.cu", "csrc/*.cuh",
+                                            "native/*.cpp"]},
     version="0.1.0",
     author="xgboost_ray_tpu authors",
     description="TPU-native distributed gradient-boosted-tree training with "

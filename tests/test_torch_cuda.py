@@ -650,6 +650,41 @@ def test_round_update_eval_mode_bitwise(cuda):
         assert torch.equal(se, sg)
 
 
+def test_no_gradient_modes_at_training_shape(cuda):
+    """The passes a custom objective runs over the training set: K4's eval
+    mode at the HIGGS training shape (11,000,000 rows) and the softmax
+    pass's at Covertype's (464,810 x 7) against their plain versions
+    (margins bitwise, partials within 1e-5 relative), one eval-mode launch
+    each and no gradients."""
+    rng = np.random.default_rng(11)
+    n = 11_000_000
+    m, rv, y, w = (torch.from_numpy(a) for a in (
+        (rng.standard_normal(n) * 4).astype(np.float32),
+        (rng.standard_normal(n) * 0.2).astype(np.float32),
+        (rng.random(n) > 0.5).astype(np.float32),
+        np.ones(n, np.float32)))
+    mp = m.clone()
+    _, sp = to.round_update_plain(mp, rv, y, w, True, with_gh=False)
+    mk = m.to(cuda)
+    before = to.round_update.eval_launches
+    gh, sk = to.round_update(mk, rv.to(cuda), y.to(cuda), w.to(cuda), True,
+                             with_gh=False)
+    assert gh is None and to.round_update.eval_launches == before + 1
+    assert _same_bits(mk, mp)
+    assert torch.allclose(sk.cpu(), sp, rtol=1e-5, atol=0)
+    m, rv, y, w = _softmax_rows(464_810, 7, seed=12)
+    mp = m.to(cuda, copy=True)
+    _, sp = to.softmax_update_plain(mp, rv.to(cuda), y.to(cuda), w.to(cuda),
+                                    with_gh=False)
+    mk = m.to(cuda)
+    before = to.softmax_update.eval_launches
+    gh, sk = to.softmax_update(mk, rv.to(cuda), y.to(cuda), w.to(cuda),
+                               with_gh=False)
+    assert gh is None and to.softmax_update.eval_launches == before + 1
+    assert _same_bits(mk, mp)
+    assert torch.allclose(sk.cpu(), sp.cpu(), rtol=1e-5, atol=1e-6)
+
+
 def test_weighted_sketch_reruns_and_shards_bitwise(cuda):
     """ROADMAP C2: the sketch's weighted sums are int64 fixed point on the
     card, so a rerun and the rows in two shards folded give the same cuts

@@ -8,7 +8,8 @@ cuts and tree arrays bitwise. Models cross-load both ways. Importing the
 port pulls in no JAX module, training without ``device="cpu"`` on a host
 without CUDA raises, and every setting outside the slice raises
 ``NotImplementedError`` naming its key (held-out eval sets, early stopping
-and ``xgb_model`` are in: ``tests/test_torch_evals.py``).
+and ``xgb_model`` are in: ``tests/test_torch_evals.py``; custom objectives
+and metrics: ``tests/test_torch_callbacks.py``).
 """
 
 import dataclasses
@@ -112,6 +113,13 @@ def test_every_hist_impl_is_the_one_histogram(impl):
 def test_import_pulls_in_no_jax():
     code = (
         "import sys, xgboost_ray_tpu_torch, xgboost_ray_tpu_torch.convert\n"
+        "import xgboost_ray_tpu_torch.sklearn, xgboost_ray_tpu_torch.tune\n"
+        "import xgboost_ray_tpu_torch.callback, xgboost_ray_tpu_torch.compat\n"
+        "import xgboost_ray_tpu_torch.session, xgboost_ray_tpu_torch.util\n"
+        "import xgboost_ray_tpu_torch.native\n"
+        "from xgboost_ray_tpu_torch.data_sources import (\n"
+        "    csv, dask, modin, object_store, parquet, partitioned, petastorm,\n"
+        "    ray_dataset, _distributed)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'xgboost_ray_tpu' or m.startswith('xgboost_ray_tpu.')]\n"
         "print(bad)\n"
@@ -171,6 +179,8 @@ def test_out_of_slice_data_and_evals_raise():
         with pytest.raises(NotImplementedError, match=key):
             tx.RayDMatrix(x, y, **kwargs)
     dm = tx.RayDMatrix(x, y)
-    with pytest.raises(NotImplementedError, match="obj"):
+    # custom objectives and metrics are in (tests/test_torch_callbacks.py);
+    # the remote-execution tier is not
+    with pytest.raises(NotImplementedError, match="_remote"):
         tx.train({"objective": "binary:logistic"}, dm, 1, device="cpu",
-                 obj=lambda p, d: (p, p), ray_params=tx.RayParams(num_actors=1))
+                 _remote=True, ray_params=tx.RayParams(num_actors=1))

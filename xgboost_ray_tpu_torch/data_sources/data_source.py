@@ -1,22 +1,41 @@
-"""DataSource interface: polymorphic in-memory ingestion for RayDMatrix.
+"""DataSource interface: polymorphic ingestion for RayDMatrix.
 
-The part of ``xgboost_ray_tpu/data_sources/data_source.py`` that the
-numpy and pandas sources need: every source is a class of static methods,
-probed in order with ``is_data_type``.
+Port of ``xgboost_ray_tpu/data_sources/data_source.py`` (the reference's
+static-method DataSource, ``xgboost_ray/data_sources/data_source.py:22-155``):
+every source is a class of static methods, probed in the registry's order
+with ``is_data_type``; file and partition sources also give their file type
+(``get_filetype``), their count of files or partitions (``get_n``, what
+distributed loading shards) and, for distributed frames, their own
+partition-to-rank assignment (``get_actor_shards``).
 """
 
-from typing import Any, Optional, Sequence, Union
+import enum
+from typing import Any, List, Optional, Sequence, Union
 
 import numpy as np
 import pandas as pd
 
 
+class RayFileType(enum.Enum):
+    """File formats of file loading (``data_source.py:13-19``)."""
+
+    CSV = 1
+    PARQUET = 2
+    PETASTORM = 3
+
+
 class DataSource:
     """Interface for a supported data input type."""
 
+    supports_distributed_loading: bool = False
+
     @staticmethod
-    def is_data_type(data: Any, filetype: Optional[Any] = None) -> bool:
+    def is_data_type(data: Any, filetype: Optional[RayFileType] = None) -> bool:
         return False
+
+    @staticmethod
+    def get_filetype(data: Any) -> Optional[RayFileType]:
+        return None
 
     @staticmethod
     def load_data(
@@ -26,6 +45,14 @@ class DataSource:
         **kwargs,
     ) -> pd.DataFrame:
         raise NotImplementedError
+
+    @staticmethod
+    def update_feature_names(
+        x: pd.DataFrame, feature_names: Optional[List[str]]
+    ) -> pd.DataFrame:
+        if feature_names:
+            x.columns = feature_names
+        return x
 
     @staticmethod
     def convert_to_series(data: Any) -> pd.Series:
@@ -48,3 +75,22 @@ class DataSource:
         if column is not None:
             return cls.convert_to_series(column), None
         return None, None
+
+    @staticmethod
+    def get_n(data: Any) -> int:
+        return len(data)
+
+    @staticmethod
+    def get_actor_shards(data: Any, actors: Sequence[Any]) -> tuple:
+        """Distributed frames: (data, {rank: partitions}); others (data,
+        None)."""
+        return data, None
+
+
+def drop_ignored(df: pd.DataFrame, ignore: Optional[Sequence[str]]
+                 ) -> pd.DataFrame:
+    """``df`` without the columns named in ``ignore``."""
+    if not ignore:
+        return df
+    drop = set(ignore)
+    return df[[c for c in df.columns if c not in drop]]

@@ -4,7 +4,7 @@ from typing import Any, Optional, Sequence
 
 import pandas as pd
 
-from xgboost_ray_tpu_torch.data_sources.data_source import DataSource
+from xgboost_ray_tpu_torch.data_sources.data_source import DataSource, drop_ignored
 
 
 class Pandas(DataSource):
@@ -23,7 +23,4 @@ class Pandas(DataSource):
             data = pd.DataFrame(data)
         if indices is not None:
             data = data.iloc[list(indices)]
-        if ignore:
-            keep = [c for c in data.columns if c not in set(ignore)]
-            data = data[keep]
-        return data
+        return drop_ignored(data, ignore)

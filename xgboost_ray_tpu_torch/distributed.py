@@ -290,8 +290,18 @@ def _numpy(data: Dict[str, Optional[torch.Tensor]], key: str):
 
 
 def _matrix(data: Dict[str, Any], sharding: str, **kwargs):
+    """The RayDMatrix of ``data``: shared tensors (``x``, ``label``,
+    optional ``weight`` / ``base_margin``), or a distributed matrix's
+    ``source`` (files or partitions) with its column names, ``ignore``,
+    ``filetype``, ``missing`` and reader ``kwargs``."""
     from xgboost_ray_tpu_torch.matrix import RayDMatrix, RayShardingMode
 
+    if "source" in data:
+        spec = {k: v for k, v in data.items()
+                if k not in ("source", "kwargs", "sharding")}
+        return RayDMatrix(data["source"], distributed=True,
+                          sharding=RayShardingMode[sharding], **spec,
+                          **data.get("kwargs", {}), **kwargs)
     return RayDMatrix(_numpy(data, "x"), _numpy(data, "label"),
                       weight=_numpy(data, "weight"),
                       base_margin=_numpy(data, "base_margin"),
@@ -302,20 +312,26 @@ def _train_rank(rank: int, world: int, data: Dict[str, Optional[torch.Tensor]],
                 params: Dict, num_boost_round: int,
                 options: Optional[Dict] = None) -> Dict[str, Any]:
     """``train()`` inside the world on a RayDMatrix over ``data`` (``x``,
-    ``label``, optional ``weight`` / ``base_margin``; every rank gets the
-    whole set and loads only its own shards). ``options``: ``sharding`` (a
-    ``RayShardingMode`` name), ``num_actors`` (default: the world size),
-    ``device``, ``eval_names`` (default ``["train"]``), ``eval_data``
-    (beside the names: None for the training matrix, else a held-out set's
-    ``data`` with its ``sharding``; default all None), ``feature_names``,
-    ``feature_types``, ``callbacks``, ``verbose_eval``,
-    ``early_stopping_rounds``, ``maximize``, ``xgb_model`` (``save_raw``
-    bytes), ``keep_bins``.
+    ``label``, optional ``weight`` / ``base_margin``, where every rank gets
+    the whole set and loads only its own shards; or a distributed matrix's
+    ``source`` and column names, whose files each rank reads only its own
+    of: ``_matrix``). ``options``: ``sharding`` (a ``RayShardingMode``
+    name), ``num_actors`` (default: the world size), ``device``,
+    ``eval_names`` (default ``["train"]``), ``eval_data`` (beside the
+    names: None for the training matrix, else a held-out set's ``data``
+    with its ``sharding``; default all None), ``feature_names``,
+    ``feature_types``, ``callbacks``, ``distributed_callbacks``,
+    ``verbose_eval``, ``early_stopping_rounds``, ``maximize``, ``obj``,
+    ``feval``, ``xgb_model`` (``save_raw`` bytes), ``keep_bins``.
     Returns the model (``save_raw`` bytes), evals_result,
     additional_results, this rank's final training margins ([n] for one
     output, [n, K] for K), the launches of
     every training kernel in ``train()`` (``engine.kernel_launches``, set
-    to 0 just before it) and, with ``keep_bins``, its bins and the cuts."""
+    to 0 just before it), the CSV files each parser read in it
+    (``read_csv_file.reads``, likewise), the distributed callbacks after
+    training (what they recorded in this rank) and, with ``keep_bins``, its
+    bins and the cuts."""
+    from xgboost_ray_tpu_torch.data_sources.csv import read_csv_file
     from xgboost_ray_tpu_torch.engine import (
         kernel_launches,
         reset_kernel_launches,
@@ -327,6 +343,7 @@ def _train_rank(rank: int, world: int, data: Dict[str, Optional[torch.Tensor]],
     dm = _matrix(data, options.get("sharding", "INTERLEAVED"),
                  feature_names=options.get("feature_names"),
                  feature_types=options.get("feature_types"))
+    dcbs = options.get("distributed_callbacks")
     names = options.get("eval_names", ["train"])
     evals = [(dm if ed is None else _matrix(ed, ed["sharding"]), name)
              for ed, name in zip(options.get("eval_data") or
@@ -335,22 +352,27 @@ def _train_rank(rank: int, world: int, data: Dict[str, Optional[torch.Tensor]],
     keep = _KeepEngine()
     ev, extra = {}, {}
     reset_kernel_launches()
+    read_csv_file.reads.update(native=0, pandas=0)
     bst = train(params, dm, num_boost_round, evals=evals,
                 evals_result=ev, additional_results=extra,
                 ray_params=RayParams(num_actors=options.get("num_actors",
-                                                            world)),
+                                                            world),
+                                     distributed_callbacks=dcbs),
                 device=options.get("device"),
                 verbose_eval=options.get("verbose_eval", False),
                 callbacks=[*options.get("callbacks", ()), keep],
                 early_stopping_rounds=options.get("early_stopping_rounds"),
                 maximize=options.get("maximize"),
+                obj=options.get("obj"), feval=options.get("feval"),
                 xgb_model=None if raw is None else RayXGBoostBooster.load_raw(raw))
     launches = kernel_launches()
     eng = keep.engine
     margins = eng.get_margins()
     out = {"model": bst.save_raw(), "evals_result": ev,
            "additional_results": extra, "launches": launches,
-           "margins": margins[:, 0] if margins.shape[1] == 1 else margins}
+           "margins": margins[:, 0] if margins.shape[1] == 1 else margins,
+           "distributed_callbacks": dcbs,
+           "csv_reads": dict(read_csv_file.reads)}
     if options.get("keep_bins"):
         out["bins"] = eng.bins.cpu().numpy()
         out["cuts"] = eng.cuts.cpu().numpy()

@@ -47,6 +47,18 @@ sums.
 An init booster (``xgb_model``) starts every set's margins at ``base +
 booster.predict_margin(x) - its base margin`` (B8 on the card, the plain
 walk on the CPU) and its forest goes before the new trees.
+
+A custom objective (``custom_objective=True``; ``step(i, gh_custom=(g,
+h))``, the JAX engine's ``gh_custom``, ``engine.py:1864``): the round's
+gradients are the user's, f32 for this rank's rows, copied to the device
+and there made the [K, N, 2] planes K1 reads (K1's fixed-point scales
+come from them); the round pass over the training set runs in its
+no-gradient mode (K4's or the softmax pass's eval mode: the margin update
+and the metric sums), and the built-in gradients are neither computed nor
+read, round 0's included.
+The host keeps every set's labels and weights for the custom callables
+(``host_labels``), and ``combine_host_scalar`` merges a value each rank
+computed on its rows into their weighted mean.
 """
 
 import time
@@ -158,6 +170,9 @@ class _EvalSet:
         self.label: Optional[torch.Tensor] = None
         self.weight: Optional[torch.Tensor] = None
         self.margins: Optional[torch.Tensor] = None
+        # host copies for custom metrics: label, weight (None: all 1)
+        self.label_np: Optional[np.ndarray] = None
+        self.weight_np: Optional[np.ndarray] = None
 
 
 class TorchEngine:
@@ -171,10 +186,13 @@ class TorchEngine:
         init_booster: Optional[RayXGBoostBooster] = None,
         feature_names: Optional[List[str]] = None,
         feature_types: Optional[List[str]] = None,
+        custom_objective: bool = False,
     ):
         """``shards``: this rank's shard dicts; ``evals``: (shards, name)
         pairs, ``shards`` itself (the same object) for the training set;
-        ``init_booster``: the model training continues."""
+        ``init_booster``: the model training continues;
+        ``custom_objective``: every round's gradients come from
+        ``step(gh_custom=...)``."""
         self.params = params
         self.device = resolve_device(device)
         self.coll = Collectives()
@@ -203,7 +221,9 @@ class TorchEngine:
         self.metric_names = list(params.eval_metric) or [
             self.objective.default_metric]
 
+        self.custom_objective = custom_objective
         x, label, weight, base_margin = _concat_shards(shards)
+        self.label_np, self.weight_np = label, weight
         self.n_rows, self.n_features = x.shape
         dev = self.device
         self.n_global = int(self.coll.sum(torch.tensor(
@@ -238,12 +258,14 @@ class TorchEngine:
         for eval_shards, name in evals:
             self._add_eval_set(eval_shards, name, shards, init_booster)
 
-        # round 0's gradients: the round pass with zero trees
-        self.gh, _ = self._update(
-            self.margins, torch.zeros((self.n_outputs, self.n_rows),
-                                      dtype=torch.float32, device=dev),
-            self.label, self.weight)
-        self.qscale = self._scales()
+        self.gh = self.qscale = None
+        if not custom_objective:
+            # round 0's gradients: the round pass with zero trees
+            self.gh, _ = self._update(
+                self.margins, torch.zeros((self.n_outputs, self.n_rows),
+                                          dtype=torch.float32, device=dev),
+                self.label, self.weight)
+            self.qscale = self._scales()
 
     def _start_margins(self, x: np.ndarray, base_margin: Optional[np.ndarray],
                        init_booster: Optional[RayXGBoostBooster]) -> np.ndarray:
@@ -272,6 +294,7 @@ class TorchEngine:
         x_dev = _to_device(x, dev)
         es.bins = binning.bin_matrix(x_dev, self.cuts, self.params.max_bin)
         del x_dev
+        es.label_np, es.weight_np = label, weight
         es.label = _to_device(label, dev)
         es.weight = (_to_device(weight, dev) if weight is not None
                      else torch.ones(x.shape[0], dtype=torch.float32, device=dev))
@@ -301,9 +324,31 @@ class TorchEngine:
             return None
         return quant_scales(self.gh, self.n_global, self.coll.max)
 
-    def step(self, iteration: int) -> Dict[str, Dict[str, float]]:
-        """One boosting round (K trees); returns {eval_name: {metric:
-        value}}."""
+    def _user_gh(self, g, h) -> torch.Tensor:
+        """A custom objective's (g, h) for this rank's rows ([n] or [n, K]
+        each) as the [K, n, 2] f32 planes on the device: g and h are copied
+        as they are and interleaved there (an interleave on the host costs
+        more than both copies)."""
+        n, k = self.n_rows, self.n_outputs
+
+        def plane(a) -> torch.Tensor:  # [K, n]
+            return _to_device(np.asarray(a, np.float32).reshape(n, k),
+                              self.device).T
+
+        return torch.stack([plane(g), plane(h)], dim=2)
+
+    def step(self, iteration: int, gh_custom=None
+             ) -> Dict[str, Dict[str, float]]:
+        """One boosting round (K trees) on the built-in gradients, or with
+        ``custom_objective`` on ``gh_custom`` = (g, h); returns
+        {eval_name: {metric: value}}."""
+        if (gh_custom is not None) != self.custom_objective:
+            raise ValueError(
+                "step(): gh_custom is required with a custom objective and "
+                "refused without one")
+        if gh_custom is not None:
+            self.gh = self._user_gh(*gh_custom)
+            self.qscale = self._scales()
         coll = self.coll
         coll.bytes.total = 0
         k_out = self.n_outputs
@@ -322,8 +367,10 @@ class TorchEngine:
         walked = forest if k_out > 1 else Tree(*[f[0] for f in forest])
         self.trees.append(walked)
         self.gh, sums = self._update(self.margins, row_value, self.label,
-                                     self.weight)
-        self.qscale = self._scales()  # the next round's
+                                     self.weight,
+                                     with_gh=not self.custom_objective)
+        if not self.custom_objective:
+            self.qscale = self._scales()  # the next round's
         if not self.evals:
             self.allreduce_bytes_per_round = coll.bytes.total
             return {}
@@ -345,9 +392,41 @@ class TorchEngine:
                                        names)
                 for es in self.evals}
 
-    def get_margins(self) -> np.ndarray:
-        """This rank's training margins [n_rows, K]."""
-        return self.margins.cpu().numpy()
+    def get_margins(self, es: Optional[_EvalSet] = None) -> np.ndarray:
+        """This rank's margins [n_rows, K] of the training set (or of the
+        eval set ``es``)."""
+        if es is None or es.is_train:
+            return self.margins.cpu().numpy()
+        return es.margins.cpu().numpy()
+
+    def host_labels(self, es: Optional[_EvalSet] = None
+                    ) -> Tuple[np.ndarray, Optional[np.ndarray]]:
+        """(label, weight or None) of this rank's rows of the training set
+        (or of the eval set ``es``), on the host."""
+        if es is None or es.is_train:
+            return self.label_np, self.weight_np
+        return es.label_np, es.weight_np
+
+    def combine_host_scalar(self, value: float,
+                            es: Optional[_EvalSet] = None) -> float:
+        """A metric value each rank computed on its rows -> their mean
+        weighted by each rank's weight sum (or row count), the same on
+        every rank (the JAX engine's, ``engine.py:2018``); the identity at
+        world 1. The ranks' (value x weight, weight) pairs are summed in
+        rank order on the host: each rank all-reduces a [world, 2] f64
+        tensor holding only its own row, which adds nothing but zeros."""
+        if self.coll.world == 1:
+            return float(value)
+        label, weight = self.host_labels(es)
+        wt = float(np.sum(weight)) if weight is not None else float(len(label))
+        rows = torch.zeros((self.coll.world, 2), dtype=torch.float64,
+                           device=self.device)
+        rows[self.coll.rank, 0] = float(value) * wt
+        rows[self.coll.rank, 1] = wt
+        num, den = 0.0, 0.0
+        for v, w in self.coll.sum(rows).cpu().tolist():
+            num, den = num + v, den + w
+        return num / max(den, 1e-12)
 
     def get_booster(self) -> RayXGBoostBooster:
         booster = RayXGBoostBooster(

@@ -1,16 +1,28 @@
-"""``train()``, ``predict()`` and ``RayParams`` of the port.
+"""``train()``, ``predict()``, ``RayParams`` and the ranks' records of the
+port.
 
-Port of ``xgboost_ray_tpu/main.py`` for this slice: ``RayParams``
-(``:134``), ``_validate_ray_params`` (``:177``), ``train`` (``:1681``,
-driving the round loop of ``_train`` at ``:678``): validation, eval sets
-(the training matrix or held-out matrices, each loaded like ``dtrain``),
-``evals_result``, ``verbose_eval``, ``additional_results``, early stopping
-on the last metric of the last eval set (``early_stopping_rounds``,
-``maximize``; ``:1276-1285``, ``:1520-1534``, ``best_iteration`` and
-``best_score`` at ``:1558-1562``), warm start from ``xgb_model``, the
-``before_training``/``before_iteration``/``after_iteration``/
-``after_training`` hooks of training callbacks (``after_iteration``
-returning True stops training, as in xgboost) and ``serve_registry`` (the
+Port of ``xgboost_ray_tpu/main.py``: ``RayParams`` (``:134``),
+``_validate_ray_params`` (``:177``), ``RayXGBoostActor`` (``:222-264``: a
+rank's record, the training call's queue and stop event, its distributed
+callbacks and the shards it loads), ``train`` (``:1681``, driving the
+round loop of ``_train`` at ``:678``): validation, eval sets (the training matrix or
+held-out matrices, each loaded like ``dtrain``), ``evals_result``,
+``verbose_eval``, ``additional_results``, early stopping on the last metric
+of the last eval set (``early_stopping_rounds``, ``maximize``;
+``:1276-1285``, ``:1520-1534``, ``best_iteration`` and ``best_score`` at
+``:1558-1562``), warm start from ``xgb_model``, the training callbacks
+(``wrap_callbacks`` and the tune callback inside a tuning session,
+``:1789-1793``; ``before_training`` / ``before_iteration`` /
+``after_iteration`` / ``after_training``, ``after_iteration`` returning
+True stops training, as in xgboost) and the distributed callbacks' hooks
+where the JAX package fires them (``on_init`` and the data-loading hooks,
+``:236-264``; ``before_train``, ``:905``; ``after_round``, ``:927-938``;
+``after_train``, ``:1569``; ``before_predict`` / ``after_predict``,
+``:2145-2207``); a custom objective ``obj`` and metric ``feval`` /
+``custom_metric`` (``:1433-1472``: the objective takes this rank's
+training margins and gives its rows' gradients, which the engine trains
+on; the metric takes each eval set's margins, and a value a rank computed
+is combined across ranks as a weighted mean); ``serve_registry`` (the
 trained model is published into a ``serve.ModelRegistry``); and
 ``predict`` (``:2306``) with ``_predict`` (``:2137``): the ranks' shards
 are concatenated in rank order and walked in one pass on the device, as
@@ -23,9 +35,10 @@ multi-host flow), rank r trains on shard r of the RayDMatrix when
 ``num_actors`` equals W (with more actors, on the r-th of W contiguous
 groups of shards, folded in rank order; fewer raise) and evaluates on the
 same shards of every eval matrix, the ranks merge histograms, sketch and
-metrics by all-reduce, and every rank returns the same booster. Called
-alone with ``num_actors > 1`` on the cards of a host with two or more CUDA
-devices (``device`` None or ``"cuda"``), ``train`` spawns
+metrics by all-reduce, and every rank returns the same booster. Each
+process makes the records of the ranks it trains and fires their hooks.
+Called alone with ``num_actors > 1`` on the cards of a host with two or
+more CUDA devices (``device`` None or ``"cuda"``), ``train`` spawns
 ``min(num_actors, device_count)`` ranks over NCCL, one card each, runs
 itself inside that world (``distributed._train_rank``) and returns rank
 0's booster. On one card (the host's only one, or ``device="cuda:k"``) or
@@ -34,32 +47,45 @@ actors onto the available devices (``main.py:401-402``,
 ``engine.py:239-244``).
 """
 
+import logging
 import pickle
 import time
 import warnings
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional, Tuple, Union
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
-from xgboost_ray_tpu_torch import distributed
+from xgboost_ray_tpu_torch import distributed, session
+from xgboost_ray_tpu_torch import tune as tune_mod
+from xgboost_ray_tpu_torch.callback import (
+    DistributedCallback,
+    DistributedCallbackContainer,
+)
+from xgboost_ray_tpu_torch.compat import wrap_callbacks
 from xgboost_ray_tpu_torch.engine import TorchEngine
+from xgboost_ray_tpu_torch.exceptions import RayXGBoostTrainingStopped
 from xgboost_ray_tpu_torch.matrix import (
     RayDMatrix,
+    RayShardingMode,
     _get_sharding_indices,
     combine_data,
 )
 from xgboost_ray_tpu_torch.models.booster import RayXGBoostBooster, coerce_model
 from xgboost_ray_tpu_torch.ops.metrics import is_maximize_metric
 from xgboost_ray_tpu_torch.params import parse_params
+from xgboost_ray_tpu_torch.util import Event, Queue
+
+logger = logging.getLogger(__name__)
 
 
 @dataclass
 class RayParams:
     """Distributed-training parameters (API of ``xgboost_ray_tpu.RayParams``).
-    Only ``num_actors`` and ``verbose`` act in this slice; fault-tolerance
-    settings other than their defaults raise in ``train``."""
+    ``num_actors``, ``verbose`` and ``distributed_callbacks`` act; the
+    fault-tolerance settings other than their defaults raise in ``train``
+    (ROADMAP A18), and the placement settings have nothing to place."""
 
     num_actors: int = 0
     cpus_per_actor: int = 0
@@ -70,7 +96,7 @@ class RayParams:
     max_failed_actors: int = 0
     max_actor_restarts: int = 0
     checkpoint_frequency: int = 5
-    distributed_callbacks: Optional[List[Any]] = None
+    distributed_callbacks: Optional[List[DistributedCallback]] = None
     verbose: Optional[bool] = None
     placement_options: Optional[Dict[str, Any]] = None
 
@@ -108,7 +134,6 @@ def _validate_ray_params(ray_params: Union[None, RayParams, dict]) -> RayParams:
         ("elastic_training", ray_params.elastic_training),
         ("max_failed_actors", ray_params.max_failed_actors != 0),
         ("max_actor_restarts", ray_params.max_actor_restarts != 0),
-        ("distributed_callbacks", bool(ray_params.distributed_callbacks)),
     ):
         if bad:
             raise NotImplementedError(
@@ -118,11 +143,128 @@ def _validate_ray_params(ray_params: Union[None, RayParams, dict]) -> RayParams:
     return ray_params
 
 
+class RayXGBoostActor:
+    """One rank's record (``main.py:222-264``): its rank among
+    ``num_actors``, the training call's queue and stop event, the shards it
+    loaded, and its distributed callbacks, whose ``on_init`` fires when
+    the record is made. Its compute is the engine's; the record carries
+    the rank's lifecycle hooks."""
+
+    def __init__(self, rank: int, num_actors: int,
+                 queue: Optional[Queue] = None,
+                 stop_event: Optional[Event] = None,
+                 distributed_callbacks: Optional[
+                     List[DistributedCallback]] = None):
+        self.rank = rank
+        self.num_actors = num_actors
+        self.queue = queue
+        self.stop_event = stop_event
+        self._loaded: List[RayDMatrix] = []
+        self._distributed_callbacks = DistributedCallbackContainer(
+            distributed_callbacks)
+        self._distributed_callbacks.on_init(self)
+
+    def load_data(self, data: RayDMatrix) -> None:
+        """Load this rank's shard of ``data`` once, between the
+        data-loading hooks."""
+        if any(d is data for d in self._loaded):
+            return
+        self._distributed_callbacks.before_data_loading(self, data)
+        data.load_data(self.num_actors, ranks=[self.rank])
+        self._loaded.append(data)
+        self._distributed_callbacks.after_data_loading(self, data)
+
+    def get_shard(self, data: RayDMatrix) -> Dict[str, Optional[np.ndarray]]:
+        return data.shards([self.rank])[0]
+
+
+def _make_actors(ranks, num_actors: int, queue: Queue, stop_event: Event,
+                 distributed_callbacks) -> List[RayXGBoostActor]:
+    return [RayXGBoostActor(r, num_actors, queue, stop_event,
+                            distributed_callbacks) for r in ranks]
+
+
+def _handle_queue(queue: Queue, callback_returns: Dict) -> None:
+    """Drain the callback queue (``xgboost_ray/main.py:902-922``): a
+    callable runs, anything else is kept under its rank."""
+    while not queue.empty():
+        rank, item = queue.get()
+        if callable(item):
+            item()
+        else:
+            callback_returns.setdefault(rank, []).append(item)
+
+
+class _FauxDMatrix:
+    """What a custom objective or metric gets beside the predictions: the
+    xgboost DMatrix accessors they use, over this rank's rows."""
+
+    def __init__(self, label, weight):
+        self._label = label
+        self._weight = weight
+
+    def get_label(self):
+        return self._label
+
+    def get_weight(self):
+        return self._weight if self._weight is not None else np.array([])
+
+    def get_group(self):
+        return np.array([])
+
+    def num_row(self):
+        return len(self._label)
+
+
+class _EngineBoosterProxy:
+    """What training callbacks get as the model: the engine's attributes
+    (its margins, bins and cuts), and beyond them the booster of the
+    rounds so far (``save_model``, ``predict``, ...), made only when a
+    callback asks for one of its attributes and again only after another
+    round."""
+
+    def __init__(self, engine: TorchEngine):
+        self._engine = engine
+        self._cached: Optional[RayXGBoostBooster] = None
+        self._cached_rounds = -1
+
+    def _booster(self) -> RayXGBoostBooster:
+        n = len(self._engine.trees)
+        if self._cached is None or self._cached_rounds != n:
+            self._cached = self._engine.get_booster()
+            self._cached_rounds = n
+        return self._cached
+
+    def __getattr__(self, item):
+        if item.startswith("__") or "_engine" not in self.__dict__:
+            raise AttributeError(item)
+        try:
+            return getattr(self._engine, item)
+        except AttributeError:
+            return getattr(self._booster(), item)
+
+
 #: train() keyword arguments of this slice; anything else raises
 _KNOWN_KWARGS = {"verbose_eval", "callbacks", "serve_registry",
-                 "early_stopping_rounds", "maximize", "xgb_model"}
+                 "early_stopping_rounds", "maximize", "xgb_model", "obj",
+                 "feval", "custom_metric"}
 #: train() keyword arguments of the JAX package outside this slice
-_OUT_OF_SLICE_KWARGS = {"obj", "feval", "custom_metric", "_remote"}
+_OUT_OF_SLICE_KWARGS = {"_remote"}
+
+
+def _matrix_max_bin(params: Dict, dtrain: RayDMatrix) -> Dict:
+    """``params`` with a ``RayDeviceQuantileDMatrix``'s ``max_bin`` unless
+    they name another, which wins with a warning (``main.py:760-770``)."""
+    params = dict(params or {})
+    dm_max_bin = getattr(dtrain, "max_bin", None)
+    if dm_max_bin:
+        if "max_bin" in params and int(params["max_bin"]) != int(dm_max_bin):
+            logger.warning("params['max_bin']=%s overrides %s(max_bin=%s).",
+                           params["max_bin"], type(dtrain).__name__,
+                           dm_max_bin)
+        else:
+            params["max_bin"] = int(dm_max_bin)
+    return params
 
 
 def train(
@@ -154,6 +296,19 @@ def train(
     set has not improved for that many rounds (larger is better for the
     metrics of ``is_maximize_metric`` unless ``maximize`` says otherwise);
     the booster's ``best_iteration`` / ``best_score`` record the best round.
+    ``obj``: ``obj(margins, dtrain) -> (grad, hess)``, called every round
+    with this rank's training margins ([n] for one output, [n, K]) and a
+    ``_FauxDMatrix`` of its labels and weights; the gradients, f32 of the
+    same shape, are what the round's trees are grown on (the objective of
+    ``params`` still gives the base score, the transform and the default
+    metric). ``feval`` / ``custom_metric``: ``feval(margins, dmatrix) ->
+    (name, value)`` on every eval set's margins each round, its value
+    recorded under ``name`` (a weighted mean across ranks).
+    ``callbacks``: training callbacks, or legacy ``callback(env)``
+    functions (``compat.wrap_callbacks``); inside a tuning session a
+    ``tune.TuneReportCheckpointCallback`` is added unless one is given.
+    ``additional_results["callback_returns"]`` holds what callbacks put on
+    the training call's queue (``session.put_queue``), by rank.
     """
     start_time = time.time()
     if args:
@@ -163,7 +318,7 @@ def train(
         )
     for key in kwargs:
         if key in _OUT_OF_SLICE_KWARGS:
-            if kwargs[key] is not None:
+            if kwargs[key]:
                 raise NotImplementedError(
                     f"train({key}=...) is not supported by "
                     f"xgboost_ray_tpu_torch yet."
@@ -186,14 +341,19 @@ def train(
                 f"Evaluation data must be a RayDMatrix, got {type(deval)} "
                 f"for eval set {name!r}."
             )
+    callbacks = wrap_callbacks(kwargs.get("callbacks"), num_boost_round)
+    callbacks = tune_mod._try_add_tune_callback(callbacks)
+    params = _matrix_max_bin(params, dtrain)
     parsed = parse_params(params)
     init_booster = (None if kwargs.get("xgb_model") is None
                     else coerce_model(kwargs["xgb_model"]))
     run = dict(num_boost_round=num_boost_round,
                verbose_eval=kwargs.get("verbose_eval", False),
-               callbacks=list(kwargs.get("callbacks") or []),
+               callbacks=callbacks,
                early_stopping_rounds=kwargs.get("early_stopping_rounds"),
-               maximize=kwargs.get("maximize"))
+               maximize=kwargs.get("maximize"),
+               obj=kwargs.get("obj"),
+               feval=kwargs.get("feval") or kwargs.get("custom_metric"))
 
     t_load = time.time()
     world = distributed.process_count()
@@ -206,7 +366,9 @@ def train(
                  eval_matrices=[None if deval is dtrain else deval
                                 for deval, _ in evals],
                  xgb_model=None if init_booster is None
-                 else init_booster.save_raw(), **run))
+                 else init_booster.save_raw(),
+                 distributed_callbacks=ray_params.distributed_callbacks,
+                 **run))
     else:
         if world > 1:
             if num_actors < world:
@@ -216,22 +378,30 @@ def train(
             ranks = [int(r) for r in np.array_split(
                 np.arange(num_actors), world)[distributed.process_index()]]
         else:
-            ranks = None
-        dtrain.load_data(num_actors, ranks=ranks)
+            ranks = list(range(num_actors))
+        queue, stop_event = Queue(), Event()
+        actors = _make_actors(ranks, num_actors, queue, stop_event,
+                              ray_params.distributed_callbacks)
+        for dm in [dtrain] + [deval for deval, _ in evals]:
+            dm.assert_enough_shards_for_actors(num_actors)
+            dm.assign_shards_to_actors(num_actors)
+        for actor in actors:
+            actor.load_data(dtrain)
+            for deval, _ in evals:
+                actor.load_data(deval)
         shards = dtrain.shards(ranks)
-        eval_shards = []
-        for deval, name in evals:
-            if deval is not dtrain:
-                deval.load_data(num_actors, ranks=ranks)
-            eval_shards.append(
-                (shards if deval is dtrain else deval.shards(ranks), name))
+        eval_shards = [(shards if deval is dtrain else deval.shards(ranks),
+                        name) for deval, name in evals]
         engine = TorchEngine(
             shards, parsed, device=device, evals=eval_shards,
             init_booster=init_booster,
             feature_names=dtrain.resolved_feature_names,
-            feature_types=dtrain.feature_types)
-        booster, result, stats = _run_rounds(engine, time.time() - t_load,
-                                             **run)
+            feature_types=dtrain.feature_types,
+            custom_objective=run["obj"] is not None)
+        for actor in actors:
+            actor._distributed_callbacks.before_train(actor)
+        booster, result, stats = _run_rounds(
+            engine, time.time() - t_load, actors=actors, queue=queue, **run)
     serve_registry = kwargs.get("serve_registry")
     if evals_result is not None:
         evals_result.update(result)
@@ -245,12 +415,26 @@ def train(
     return booster
 
 
+def _host_preds(margins: np.ndarray) -> np.ndarray:
+    """[n] for one output, else [n, K]: what custom callables get."""
+    return margins[:, 0] if margins.shape[1] == 1 else margins
+
+
 def _run_rounds(engine: TorchEngine, setup_s: float, num_boost_round: int,
                 verbose_eval, callbacks, early_stopping_rounds=None,
-                maximize=None):
+                maximize=None, obj: Optional[Callable] = None,
+                feval: Optional[Callable] = None,
+                actors: List[RayXGBoostActor] = (),
+                queue: Optional[Queue] = None):
     """The round loop of one rank: (booster, evals_result, stats). Every
     rank sees the same all-reduced metrics, so callbacks and early stopping
-    that decide from them stop every rank in the same round."""
+    that decide from them stop every rank in the same round. With ``obj``
+    a round's time includes the objective (and its margin and gradient
+    copies), as in the JAX package."""
+    queue = queue if queue is not None else Queue()
+    session.init_session(queue=queue)
+    callback_returns: Dict[int, List[Any]] = {}
+    model = _EngineBoosterProxy(engine)
     result: Dict[str, Dict[str, List[float]]] = {}
     es_set = es_metric = None
     es_maximize, es_best, es_best_iter = False, None, -1
@@ -263,18 +447,39 @@ def _run_rounds(engine: TorchEngine, setup_s: float, num_boost_round: int,
     t_train = time.time()
     for cb in callbacks:
         if hasattr(cb, "before_training"):
-            cb.before_training(engine)
+            cb.before_training(model)
     for i in range(num_boost_round):
+        if any(a.stop_event is not None and a.stop_event.is_set()
+               for a in actors):
+            raise RayXGBoostTrainingStopped("Training was aborted.")
         for cb in callbacks:
             if hasattr(cb, "before_iteration"):
-                cb.before_iteration(engine, i, result)
+                cb.before_iteration(model, i, result)
         t0 = time.perf_counter()
-        metrics = engine.step(i)
+        if obj is not None:
+            label, weight = engine.host_labels()
+            metrics = engine.step(i, gh_custom=obj(
+                _host_preds(engine.get_margins()), _FauxDMatrix(label, weight)))
+        else:
+            metrics = engine.step(i)
         round_times.append(time.perf_counter() - t0)
+        if feval is not None:
+            for es in engine.evals:
+                label, weight = engine.host_labels(es)
+                name, value = feval(_host_preds(engine.get_margins(es)),
+                                    _FauxDMatrix(label, weight))
+                metrics.setdefault(es.name, {})[name] = (
+                    engine.combine_host_scalar(value, es))
         for set_name, row in metrics.items():
             for metric_name, value in row.items():
                 result.setdefault(set_name, {}).setdefault(
                     metric_name, []).append(value)
+        if actors and actors[0]._distributed_callbacks.callbacks:
+            record = {"round": engine.iteration_offset + i, "iteration": i,
+                      "duration_s": round_times[-1],
+                      "world": actors[0].num_actors, "metrics": metrics}
+            for actor in actors:
+                actor._distributed_callbacks.after_round(actor, record)
         if verbose_eval and engine.coll.rank == 0 and (
             verbose_eval is True or (i % max(int(verbose_eval), 1) == 0)
         ):
@@ -283,10 +488,11 @@ def _run_rounds(engine: TorchEngine, setup_s: float, num_boost_round: int,
                 for sn, ms in result.items() for mn, v in ms.items()
             )
             print(f"[{i}]\t{flat}")
+        _handle_queue(queue, callback_returns)
         stop = False
         for cb in callbacks:
             if hasattr(cb, "after_iteration"):
-                stop = bool(cb.after_iteration(engine, i, result)) or stop
+                stop = bool(cb.after_iteration(model, i, result)) or stop
         if es_metric is not None:
             cur = result[es_set][es_metric][-1]
             if (es_best is None or (es_maximize and cur > es_best)
@@ -303,7 +509,11 @@ def _run_rounds(engine: TorchEngine, setup_s: float, num_boost_round: int,
         booster.best_score = es_best
     for cb in callbacks:
         if hasattr(cb, "after_training"):
-            cb.after_training(engine)
+            cb.after_training(model)
+    for actor in actors:
+        actor._distributed_callbacks.after_train(actor,
+                                                 {"evals_result": result})
+    _handle_queue(queue, callback_returns)
     stats = {
         "train_n": engine.n_global,
         "device": str(engine.device),
@@ -314,6 +524,7 @@ def _run_rounds(engine: TorchEngine, setup_s: float, num_boost_round: int,
         "sketch_time_s": engine.sketch_seconds,
         "training_time_s": time.time() - t_train,
         "round_times_s": round_times,
+        "callback_returns": callback_returns,
     }
     return booster, result, stats
 
@@ -337,23 +548,28 @@ def _train_spawned(dtrain: RayDMatrix, params: Dict, num_actors: int,
     """Spawn ``n_ranks`` ranks (``distributed.World``: NCCL with a card
     each, gloo on the CPU) that run ``train()`` inside their world
     (``distributed._train_rank``) on ``dtrain``'s data and every held-out
-    eval matrix's, each shared once, each rank loading its own shards of
-    ``num_actors``; rank 0's (booster, evals_result, additional_results).
-    ``options``: ``eval_names``, ``eval_matrices`` (beside the names: None
-    for ``dtrain``, else the eval RayDMatrix; default all None),
-    ``num_boost_round``, ``verbose_eval``, ``callbacks``,
-    ``early_stopping_rounds``, ``maximize``, ``xgb_model`` (``save_raw``
-    bytes or None)."""
+    eval matrix's, each shared once (a matrix of files or partitions is
+    sent as its source, which each rank reads its shards of), each rank
+    loading its own shards of ``num_actors``; rank 0's (booster,
+    evals_result, additional_results). ``options``: ``eval_names``,
+    ``eval_matrices`` (beside the names: None for ``dtrain``, else the eval
+    RayDMatrix; default all None), ``num_boost_round``, ``verbose_eval``,
+    ``callbacks``, ``distributed_callbacks``, ``early_stopping_rounds``,
+    ``maximize``, ``obj``, ``feval``, ``xgb_model`` (``save_raw`` bytes or
+    None)."""
     options = dict(options)
+    sent = {k: options.get(k) for k in ("callbacks", "distributed_callbacks",
+                                       "obj", "feval")}
     try:
-        pickle.dumps(options["callbacks"])
+        pickle.dumps(sent)
     except (pickle.PicklingError, AttributeError, TypeError) as exc:
         raise ValueError(
             f"train() spawns {n_ranks} ranks here and sends them the "
-            f"callbacks, which must be picklable: {exc}") from exc
-    data = _share_fields(dtrain)
+            f"callbacks, objective and metric, which must be picklable: "
+            f"{exc}") from exc
+    data = _matrix_data(dtrain)
     options["eval_data"] = [
-        None if dm is None else dict(_share_fields(dm),
+        None if dm is None else dict(_matrix_data(dm),
                                      sharding=dm.sharding.name)
         for dm in options.pop("eval_matrices", None)
         or [None] * len(options["eval_names"])]
@@ -369,34 +585,45 @@ def _train_spawned(dtrain: RayDMatrix, params: Dict, num_actors: int,
             out[0]["evals_result"], out[0]["additional_results"])
 
 
-def _share_fields(dm: RayDMatrix):
-    """A matrix's loaded fields as tensors in shared memory, for the ranks
-    (each rank rebuilds the matrix and loads its own shards)."""
-    fields = dm.loader.load_fields()
+def _matrix_data(dm: RayDMatrix) -> Dict[str, Any]:
+    """What a rank rebuilds ``dm`` from (``distributed._matrix``): a
+    central matrix's loaded fields as tensors in shared memory, or a
+    distributed matrix's source and column names, which each rank reads
+    its own shards of."""
+    loader = dm.loader
+    if dm.distributed:
+        return {"source": loader.data, "label": loader.label,
+                "weight": loader.weight, "base_margin": loader.base_margin,
+                "ignore": loader.ignore, "filetype": loader.filetype,
+                "missing": loader.missing, "kwargs": loader.kwargs}
+    fields = loader.load_fields()
     return distributed.share({"x": fields["data"], "label": fields["label"],
                               "weight": fields["weight"],
                               "base_margin": fields["base_margin"]})
 
 
-def _user_base_margin_shards(data: RayDMatrix, user_bm, n_shards: int):
+def _user_base_margin_shards(data: RayDMatrix, user_bm, sizes: List[int]):
     """A user ``base_margin`` addresses global rows (original order): each
-    rank's shard gets its own rows' slice (``main.py:2172-2190``)."""
+    rank's shard gets its own rows' slice (``main.py:2172-2190``; under
+    FIXED sharding the shards are consecutive)."""
     user_bm = np.asarray(user_bm)
-    return [user_bm[_get_sharding_indices(data.sharding, r, n_shards,
+    if data.sharding == RayShardingMode.FIXED:
+        return np.split(user_bm, np.cumsum(sizes)[:-1], axis=0)
+    return [user_bm[_get_sharding_indices(data.sharding, r, len(sizes),
                                           len(user_bm))]
-            for r in range(n_shards)]
+            for r in range(len(sizes))]
 
 
 def _predict(model: RayXGBoostBooster, data: RayDMatrix, device,
-             **kwargs) -> np.ndarray:
-    shards = data.shards()
+             actors: List[RayXGBoostActor], **kwargs) -> np.ndarray:
+    shards = [actor.get_shard(data) for actor in actors]
     predict_kwargs = dict(kwargs)
     user_bm = predict_kwargs.pop("base_margin", None)
     xs = [model._coerce_features(sh["data"]) for sh in shards]
     sizes = [x.shape[0] for x in xs]
     x_all = np.concatenate(xs, axis=0) if len(xs) > 1 else xs[0]
     if user_bm is not None:
-        bms = _user_base_margin_shards(data, user_bm, len(shards))
+        bms = _user_base_margin_shards(data, user_bm, sizes)
     elif any(sh.get("base_margin") is not None for sh in shards):
         bms = [sh["base_margin"] for sh in shards]
     else:
@@ -409,6 +636,10 @@ def _predict(model: RayXGBoostBooster, data: RayDMatrix, device,
     pred = model.predict(x_all, base_margin=base_margin, device=device,
                          **predict_kwargs)
     results = np.split(pred, np.cumsum(sizes)[:-1], axis=0)
+    for actor, part in zip(actors, results):
+        actor._distributed_callbacks.after_predict(actor, part)
+    if data.sharding == RayShardingMode.FIXED:
+        return np.concatenate(results, axis=0)
     return combine_data(data.sharding, results)
 
 
@@ -422,9 +653,11 @@ def predict(
 ) -> Optional[np.ndarray]:
     """Distributed prediction (signature of ``xgboost_ray_tpu.predict``):
     every rank's shard in one walk on ``device`` (the card unless
-    ``device="cpu"``), returned in the matrix's original row order.
-    ``kwargs`` are ``RayXGBoostBooster.predict``'s (``output_margin``,
-    ``pred_leaf``, ``iteration_range``, ``ntree_limit``, ``base_margin``).
+    ``device="cpu"``), returned in the matrix's original row order, each
+    rank's records firing ``before_predict`` once its shard is loaded and
+    ``after_predict`` with its rows' predictions. ``kwargs`` are
+    ``RayXGBoostBooster.predict``'s (``output_margin``, ``pred_leaf``,
+    ``iteration_range``, ``ntree_limit``, ``base_margin``).
     """
     ray_params = _check_ray_params(ray_params)
     if _remote:
@@ -438,5 +671,11 @@ def predict(
             f"RayDMatrix first: `data = RayDMatrix(data)`."
         )
     model = coerce_model(model)
-    data.load_data(ray_params.num_actors)
-    return _predict(model, data, device, **kwargs)
+    num_actors = ray_params.num_actors
+    actors = _make_actors(range(num_actors), num_actors, Queue(), Event(),
+                          ray_params.distributed_callbacks)
+    data.assign_shards_to_actors(num_actors)
+    for actor in actors:
+        actor.load_data(data)
+        actor._distributed_callbacks.before_predict(actor)
+    return _predict(model, data, device, actors, **kwargs)

@@ -1,32 +1,50 @@
-"""RayDMatrix: the data handle for ``train()``.
+"""RayDMatrix: the data handle for ``train()`` and ``predict()``.
 
-Port of ``xgboost_ray_tpu/matrix.py`` (``:33`` ``RayShardingMode``,
-``:71`` ``combine_data``, ``:159``/``:320`` the central loader, ``:420``
-``RayDMatrix``) for this slice: the calling process loads in-memory numpy
-or pandas data once and row-shards it per actor rank (a rank of a
-``torch.distributed`` world takes only its own shard: no other rank's rows
-are copied); the engine concatenates the shards it is given in rank order
-and moves them to the training device (a RayDMatrix holds host arrays
-only, so it follows whatever device ``train`` uses). Distributed (per-rank file) loading, streaming, query
-groups, label bounds, categorical columns and feature weights raise
-``NotImplementedError``.
+Port of ``xgboost_ray_tpu/matrix.py``: ``RayShardingMode`` (``:33``),
+``combine_data`` (``:71``), the loaders (``:159`` the shared split of a
+frame into features, label, weight and base margin; ``:320`` central
+loading; ``:349-418`` distributed loading), ``RayDMatrix`` (``:420``, with
+``assert_enough_shards_for_actors`` ``:563`` and the FIXED assignment
+``assign_shards_to_actors``) and ``RayQuantileDMatrix`` /
+``RayDeviceQuantileDMatrix`` (``:838-851``). Sources are the registry of
+``data_sources``: numpy and pandas data, CSV and Parquet files (a path, a
+list of paths, a directory or a glob), partition lists and
+``__partitioned__`` objects.
+
+Central loading: the calling process reads the data once (cached on the
+loader while the matrix lives; each shard is a view of it) and row-shards
+it per actor rank. Distributed loading (``distributed=True``, the default
+for file lists, directories, single Parquet files and partition lists):
+each rank reads only its own files or partitions, chosen by the sharding
+mode over the file list, or by the locality assignment under
+``RayShardingMode.FIXED``; in a ``torch.distributed`` world a process
+reads only the files of the ranks it trains. The engine concatenates the
+shards it is given in rank order and moves them to the training device (a
+RayDMatrix holds host arrays only). Streaming, query groups, label bounds,
+categorical columns and feature weights raise ``NotImplementedError``.
 """
 
+import glob
+import os
 from enum import Enum
-from typing import Any, Dict, Iterable, List, Optional, Union
+from typing import Any, Dict, Iterable, List, Optional, Sequence, Union
 
 import numpy as np
 import pandas as pd
 
-from xgboost_ray_tpu_torch.data_sources import data_sources
+from xgboost_ray_tpu_torch.data_sources import RayFileType, data_sources
+from xgboost_ray_tpu_torch.data_sources._distributed import (
+    assign_partitions_to_actors,
+    get_actor_rank_hosts,
+)
 
-Data = Union[np.ndarray, pd.DataFrame, pd.Series]
+Data = Union[str, List[str], np.ndarray, pd.DataFrame, pd.Series, Sequence[Any]]
 
 
 class RayShardingMode(Enum):
-    """How rows map to actor ranks: INTERLEAVED strides rows over ranks,
-    BATCH gives contiguous blocks (FIXED pins partitions of distributed
-    sources, which this slice does not load)."""
+    """How rows (or files, for distributed loading) map to actor ranks:
+    INTERLEAVED strides over ranks, BATCH gives contiguous blocks, FIXED
+    pins partitions assigned by locality (``xgboost_ray/matrix.py:106-124``)."""
 
     INTERLEAVED = 1
     BATCH = 2
@@ -85,32 +103,51 @@ def _not_in_slice(what: str) -> NotImplementedError:
     )
 
 
-class _CentralRayDMatrixLoader:
-    """The driver loads the full dataset once, then row-shards per rank."""
+#: RayDMatrix keyword arguments of streaming (ROADMAP A17)
+_STREAM_KWARGS = ("chunk_rows", "budget_mb", "sketch_capacity")
+
+
+class _RayDMatrixLoader:
+    """Source resolution and the split of a loaded frame into fields."""
 
     def __init__(self, data, label=None, weight=None, base_margin=None,
-                 missing=None, feature_names=None, ignore=None):
+                 missing=None, feature_names=None, filetype=None, ignore=None,
+                 **kwargs):
         self.data = data
         self.label = label
         self.weight = weight
         self.base_margin = base_margin
         self.missing = missing
         self.feature_names = feature_names
+        self.filetype = filetype
         self.ignore = ignore
+        self.kwargs = kwargs
+        self.data_source: Optional[type] = None
         self._resolved_feature_names: Optional[List[str]] = None
 
-    def get_data_source(self):
+    def get_data_source(self) -> type:
+        if self.data_source is not None:
+            return self.data_source
+        filetype = self.filetype
         for source in data_sources:
-            if source.is_data_type(self.data, None):
+            if filetype is None:
+                filetype = source.get_filetype(self.data) or filetype
+        for source in data_sources:
+            if source.is_data_type(self.data, filetype):
+                self.data_source, self.filetype = source, filetype
                 return source
         raise ValueError(
-            f"Unable to infer data source for data of type {type(self.data)}. "
-            f"This port loads numpy arrays and pandas frames."
+            f"Unable to infer data source for data of type "
+            f"{type(self.data)}. Pass a supported data type (numpy array, "
+            f"pandas frame, csv/parquet path(s), partition list) or specify "
+            f"`filetype`."
         )
 
-    def load_fields(self) -> Dict[str, Optional[np.ndarray]]:
+    def _split_dataframe(self, df: pd.DataFrame) -> Dict[str, Optional[np.ndarray]]:
+        """Label, weight and base margin columns out of ``df`` (a string
+        names a column, which leaves the features; an array-like attaches
+        as is), ``ignore``'s columns dropped, the features f32."""
         source = self.get_data_source()
-        df = source.load_data(self.data, ignore=self.ignore)
         exclude: List[str] = []
 
         def pick(ref):
@@ -123,6 +160,8 @@ class _CentralRayDMatrixLoader:
         weight = pick(self.weight)
         base_margin = pick(self.base_margin)
         x = df.drop(columns=[c for c in exclude if c in df.columns])
+        if self.ignore:
+            x = x.drop(columns=[c for c in self.ignore if c in x.columns])
         non_numeric = [c for c in x.columns
                        if not pd.api.types.is_numeric_dtype(x[c].dtype)]
         if non_numeric:
@@ -139,9 +178,30 @@ class _CentralRayDMatrixLoader:
         return {"data": feats, "label": arr(label), "weight": arr(weight),
                 "base_margin": arr(base_margin)}
 
+
+class _CentralRayDMatrixLoader(_RayDMatrixLoader):
+    """The calling process loads the data once, then row-shards per rank
+    (``matrix.py:320``)."""
+
+    _fields: Optional[Dict[str, Optional[np.ndarray]]] = None
+
+    def load_fields(self) -> Dict[str, Optional[np.ndarray]]:
+        """Every row's fields, read once: the shards are views of them."""
+        if self._fields is None:
+            source = self.get_data_source()
+            df = source.load_data(self.data, ignore=self.ignore, **self.kwargs)
+            df = source.update_feature_names(df, None)
+            self._fields = self._split_dataframe(df)
+        return self._fields
+
     def load_data(self, num_actors: int, sharding: RayShardingMode,
                   ranks: Iterable[int]):
         """The shards of ``ranks`` only: {rank: fields}, and the row count."""
+        if sharding == RayShardingMode.FIXED:
+            raise ValueError(
+                "RayShardingMode.FIXED pins files or partitions to ranks; "
+                "pass file paths or a partition list (distributed loading), "
+                "or use BATCH / INTERLEAVED.")
         fields = self.load_fields()
         n = fields["data"].shape[0]
         if num_actors > n:
@@ -157,9 +217,85 @@ class _CentralRayDMatrixLoader:
         return refs, n
 
 
+class _DistributedRayDMatrixLoader(_RayDMatrixLoader):
+    """Each rank loads only its own files or partitions
+    (``matrix.py:349-418``)."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        # a rank's rows come from its files: an array cannot be aligned
+        # with them, only a column name can (``matrix.py:533-538``)
+        for field in ("label", "weight", "base_margin"):
+            val = getattr(self, field)
+            if val is not None and not isinstance(val, str):
+                raise ValueError(
+                    f"Distributed data loading only works with column names "
+                    f"for `{field}`, got {type(val)}. Pass the name of the "
+                    f"column in your data files, or use central loading "
+                    f"(`distributed=False`)."
+                )
+        self.actor_shards: Optional[Dict[int, List[Any]]] = None
+
+    def _expand(self) -> Any:
+        """A directory -> its files (recursively, sorted); a glob of more
+        than one file -> the files; anything else as given."""
+        data = self.data
+        if isinstance(data, str) and os.path.isdir(data):
+            files = sorted(glob.glob(os.path.join(data, "**", "*"),
+                                     recursive=True))
+            return [f for f in files if os.path.isfile(f)]
+        if isinstance(data, str):
+            hits = sorted(glob.glob(data))
+            if len(hits) > 1:
+                return hits
+        return data
+
+    def get_data_source(self) -> type:
+        if self.data_source is None:
+            self.data = self._expand()
+        return super().get_data_source()
+
+    def load_shard(self, rank: int, num_actors: int,
+                   sharding: RayShardingMode) -> Dict[str, Optional[np.ndarray]]:
+        source = self.get_data_source()
+        if sharding == RayShardingMode.FIXED:
+            if self.actor_shards is None:
+                self.assign_shards(num_actors)
+            indices = self.actor_shards.get(rank, [])
+        else:
+            n_parts = source.get_n(self.data)
+            if num_actors > n_parts:
+                raise RuntimeError(
+                    f"Trying to shard {n_parts} files/partitions across "
+                    f"{num_actors} actors: use fewer actors or central "
+                    f"loading."
+                )
+            indices = list(range(n_parts))[
+                _get_sharding_indices(sharding, rank, num_actors, n_parts)]
+        df = source.load_data(self.data, ignore=self.ignore, indices=indices,
+                              **self.kwargs)
+        df = source.update_feature_names(df, None)
+        return self._split_dataframe(df)
+
+    def assign_shards(self, num_actors: int) -> None:
+        """FIXED sharding: the locality assignment of files or partitions
+        to ranks (``matrix.py:595-612``, ``_distributed.py``); a
+        distributed frame source assigns its own partitions."""
+        source = self.get_data_source()
+        _, assignment = source.get_actor_shards(self.data,
+                                                list(range(num_actors)))
+        if assignment:
+            self.actor_shards = assignment
+            return
+        hosts = get_actor_rank_hosts(num_actors)
+        self.actor_shards = assign_partitions_to_actors(
+            {"localhost": list(range(source.get_n(self.data)))}, hosts)
+
+
 class RayDMatrix:
     """Data handle (API of ``xgboost_ray_tpu.RayDMatrix``). Lazy by default:
-    ``train()`` loads it with its actor count."""
+    ``train()`` / ``predict()`` load it with their actor count, each rank
+    (``RayXGBoostActor.load_data``) its own shard."""
 
     def __init__(
         self,
@@ -176,7 +312,7 @@ class RayDMatrix:
         qid: Optional[Data] = None,
         enable_categorical: Optional[bool] = None,
         num_actors: Optional[int] = None,
-        filetype: Optional[Any] = None,
+        filetype: Optional[RayFileType] = None,
         ignore: Optional[List[str]] = None,
         distributed: Optional[bool] = None,
         sharding: RayShardingMode = RayShardingMode.INTERLEAVED,
@@ -187,37 +323,91 @@ class RayDMatrix:
         for name, val in (("feature_weights", feature_weights),
                           ("label_lower_bound", label_lower_bound),
                           ("label_upper_bound", label_upper_bound),
-                          ("qid", qid), ("filetype", filetype)):
+                          ("qid", qid)):
             if val is not None:
                 raise _not_in_slice(name)
-        if stream:
+        if stream or any(k in kwargs for k in _STREAM_KWARGS):
             raise _not_in_slice("stream=True")
-        if distributed:
-            raise _not_in_slice("distributed=True")
         if enable_categorical:
             raise _not_in_slice("enable_categorical=True")
         if feature_types and any(str(t).lower() in ("c", "categorical")
                                  for t in feature_types):
             raise _not_in_slice("categorical feature_types")
-        if kwargs:
+        if kwargs.get("group") is not None:
+            raise ValueError(
+                "`group` parameter is not supported; use `qid` instead.")
+        kwargs.pop("group", None)
+        if distributed is None:
+            distributed = self._can_load_distributed(data)
+        elif distributed and not self._can_load_distributed(data):
+            raise ValueError(
+                f"Distributed loading is not supported for data of type "
+                f"{type(data)}; pass file paths or partition lists."
+            )
+        self.distributed = bool(distributed)
+        loader_cls = (_DistributedRayDMatrixLoader if self.distributed
+                      else _CentralRayDMatrixLoader)
+        self.loader = loader_cls(
+            data, label=label, weight=weight, base_margin=base_margin,
+            missing=missing, feature_names=feature_names, filetype=filetype,
+            ignore=ignore, **kwargs)
+        source = self.loader.get_data_source()
+        if kwargs and source.get_filetype(self.loader.data) is None \
+                and filetype is None:
+            # reader options go to the file readers; elsewhere they would
+            # be dropped unread
             raise _not_in_slice(", ".join(sorted(kwargs)))
-        if sharding not in (RayShardingMode.BATCH, RayShardingMode.INTERLEAVED):
-            raise _not_in_slice(f"sharding={sharding}")
-        if not any(s.is_data_type(data, None) for s in data_sources):
-            raise _not_in_slice(f"data of type {type(data).__name__}")
         self.feature_names = feature_names
         self.feature_types = feature_types
         self.missing = missing
         self.num_actors = num_actors
         self.sharding = sharding
-        self.loader = _CentralRayDMatrixLoader(
-            data, label=label, weight=weight, base_margin=base_margin,
-            missing=missing, feature_names=feature_names, ignore=ignore)
+        if self.distributed and source.__name__ in ("Modin", "Dask",
+                                                     "RayDataset"):
+            # distributed frames pin their partitions to ranks
+            self.sharding = RayShardingMode.FIXED
         self.refs: Dict[int, Dict[str, Optional[np.ndarray]]] = {}
         self.n: Optional[int] = None
         self.loaded = False
         if num_actors is not None and not lazy:
             self.load_data(num_actors)
+
+    @staticmethod
+    def _can_load_distributed(data: Data) -> bool:
+        if isinstance(data, str):
+            # one CSV cannot be split by rank; a Parquet file can, and
+            # directories expand to files (``matrix.py:1036-1060``)
+            return data.endswith(".parquet") or os.path.isdir(data)
+        if isinstance(data, (list, tuple)) and data:
+            return True  # file or partition list
+        if hasattr(data, "__partitioned__"):
+            return True
+        return any(source.supports_distributed_loading
+                   and source.is_data_type(data, None)
+                   for source in data_sources)
+
+    def assert_enough_shards_for_actors(self, num_actors: int) -> None:
+        """Distributed loading: fail fast when there are fewer files or
+        partitions than actors (``matrix.py:563``)."""
+        if not self.distributed:
+            return
+        n_shards = self.loader.get_data_source().get_n(self.loader.data)
+        if num_actors > n_shards:
+            raise RuntimeError(
+                f"Trying to shard data for {num_actors} actors, but it only "
+                f"has {n_shards} files/partitions. Use fewer actors, "
+                f"re-partition, or pass `distributed=False` for centralized "
+                f"row sharding."
+            )
+
+    def assign_shards_to_actors(self, num_actors: int) -> bool:
+        """FIXED sharding of distributed data: assign the files or
+        partitions to the ranks before they load (``matrix.py:595-612``)."""
+        if self.sharding != RayShardingMode.FIXED or not self.distributed:
+            return False
+        if self.loader.actor_shards is None:
+            self.loader.assign_shards(num_actors)
+        return True
 
     def load_data(self, num_actors: Optional[int] = None,
                   ranks: Optional[Iterable[int]] = None):
@@ -236,9 +426,14 @@ class RayDMatrix:
         todo = [r for r in wanted if r not in self.refs]
         if not todo:
             return
-        refs, self.n = self.loader.load_data(self.num_actors, self.sharding,
-                                             todo)
-        self.refs.update(refs)
+        if self.distributed:
+            for rank in todo:
+                self.refs[rank] = self.loader.load_shard(
+                    rank, self.num_actors, self.sharding)
+        else:
+            refs, self.n = self.loader.load_data(self.num_actors,
+                                                 self.sharding, todo)
+            self.refs.update(refs)
         self.loaded = len(self.refs) == self.num_actors
 
     def shards(self, ranks: Optional[Iterable[int]] = None
@@ -253,3 +448,22 @@ class RayDMatrix:
     @property
     def resolved_feature_names(self) -> Optional[List[str]]:
         return self.feature_names or self.loader._resolved_feature_names
+
+    @property
+    def has_label(self) -> bool:
+        return self.loader.label is not None
+
+
+class RayQuantileDMatrix(RayDMatrix):
+    """RayDMatrix under the reference's name (``matrix.py:971-975``): every
+    matrix of the port is quantile-binned on the device."""
+
+
+class RayDeviceQuantileDMatrix(RayDMatrix):
+    """RayDMatrix with a ``max_bin`` (``matrix.py:977-1033``): ``train()``
+    bins with it unless its params name another ``max_bin``, which wins
+    with a warning."""
+
+    def __init__(self, *args, max_bin: Optional[int] = None, **kwargs):
+        self.max_bin = max_bin
+        super().__init__(*args, **kwargs)

@@ -12,6 +12,11 @@ through B8 (``ops/predict.py``), on the card unless ``device="cpu"``.
 Rows go to the device in chunks of at most ``_CHUNK_BYTES`` of input and
 output, so a large ``pred_leaf`` (``[N, T]`` int32) never has to fit the
 card at once.
+The host API the sklearn estimators read is the JAX module's too:
+``get_score`` / ``get_fscore`` (``:968-996``), ``trees_to_dataframe``
+(``:932``), ``attributes`` / ``attr`` / ``set_attr`` (``:189-202``), and
+pickling through ``_to_dict`` (``:998-1004``), so a pickle holds host
+arrays only and loads on a host without a card.
 ``coerce_model`` turns the model forms ``predict()`` and the serving
 registry accept (booster, pickled bytes, saved-model path, JSON document)
 into a booster.
@@ -134,6 +139,19 @@ class RayXGBoostBooster:
     @property
     def num_trees(self) -> int:
         return int(self.forest.feature.shape[0])
+
+    def attributes(self) -> Dict[str, str]:
+        return dict(self._attributes)
+
+    def attr(self, key: str) -> Optional[str]:
+        return self._attributes.get(key)
+
+    def set_attr(self, **kwargs) -> None:
+        for k, v in kwargs.items():
+            if v is None:
+                self._attributes.pop(k, None)
+            else:
+                self._attributes[k] = str(v)
 
     @property
     def cat_features(self) -> tuple:
@@ -443,6 +461,75 @@ class RayXGBoostBooster:
             rec(0, 0)
             dumps.append("\n".join(lines) + "\n")
         return dumps
+
+    def trees_to_dataframe(self):
+        """Flat per-node table of the forest (xgboost analog); columns:
+        Tree, Node, ID, Feature, Split, Yes, No, Missing, Gain, IsLeaf,
+        Value."""
+        import pandas as pd
+
+        rows = []
+        fo = self.forest
+        heap = fo.feature.shape[1]
+        for t in range(self.num_trees):
+            for idx in range(heap):
+                is_leaf = bool(fo.is_leaf[t, idx])
+                feat = int(fo.feature[t, idx])
+                if not is_leaf and feat < 0:
+                    continue  # unused slot
+                yes, no = f"{t}-{2 * idx + 1}", f"{t}-{2 * idx + 2}"
+                rows.append({
+                    "Tree": t,
+                    "Node": idx,
+                    "ID": f"{t}-{idx}",
+                    "Feature": "Leaf" if is_leaf else (
+                        self.feature_names[feat] if self.feature_names
+                        else f"f{feat}"),
+                    "Split": None if is_leaf else float(fo.threshold[t, idx]),
+                    "Yes": None if is_leaf else yes,
+                    "No": None if is_leaf else no,
+                    "Missing": None if is_leaf else (
+                        yes if fo.default_left[t, idx] else no),
+                    "Gain": float(fo.gain[t, idx]),
+                    "IsLeaf": is_leaf,
+                    "Value": float(fo.value[t, idx]),
+                })
+        return pd.DataFrame(rows)
+
+    def get_score(self, importance_type: str = "weight") -> Dict[str, float]:
+        """Per-feature importance (xgboost ``Booster.get_score``): weight
+        (split counts), gain (mean split gain), total_gain."""
+        feat = self.forest.feature
+        internal = (feat >= 0) & (~self.forest.is_leaf)
+        used = feat[internal]
+        names = self.feature_names or [f"f{i}" for i in range(self.num_features)]
+        counts = np.bincount(used, minlength=self.num_features).astype(np.float64)
+        if importance_type == "weight":
+            vals = counts
+        elif importance_type in ("gain", "total_gain"):
+            total = np.zeros(self.num_features, np.float64)
+            np.add.at(total, used, self.forest.gain[internal])
+            vals = total if importance_type == "total_gain" else np.divide(
+                total, counts, out=np.zeros_like(total), where=counts > 0)
+        else:
+            raise ValueError(
+                f"Unsupported importance_type: {importance_type!r} "
+                f"(weight, gain, total_gain)"
+            )
+        return {names[i]: float(v) for i, v in enumerate(vals) if v > 0}
+
+    def get_fscore(self) -> Dict[str, float]:
+        """xgboost ``Booster.get_fscore``: split counts per feature."""
+        return self.get_score(importance_type="weight")
+
+    # -- pickling: the model document, so a pickle holds host arrays only
+    # and loads where there is no card
+
+    def __getstate__(self):
+        return self._to_dict()
+
+    def __setstate__(self, state):
+        self.__dict__.update(self._from_dict(state).__dict__)
 
 
 Booster = RayXGBoostBooster

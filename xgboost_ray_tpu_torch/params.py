@@ -87,7 +87,8 @@ class TrainParams:
     # every value resolves to the port's one histogram kernel on the card
     # and to its plain version on the CPU
     hist_impl: str = "auto"
-    # parsed for compatibility; the port always accumulates in f32
+    # parsed for compatibility; every value sums the same way: in f32 on
+    # the CPU, in int64 fixed point on the card
     hist_precision: str = "auto"
     hist_quant: str = "none"
     hist_quant_min_bytes: int = 32768
@@ -208,7 +209,7 @@ def parse_params(params: Optional[Dict[str, Any]]) -> TrainParams:
     if out.hist_precision not in ("auto", "highest", "fast"):
         raise ValueError(
             f"Unknown hist_precision {out.hist_precision!r}; use auto | "
-            f"highest | fast (the port accumulates in f32 for every value)."
+            f"highest | fast (the port sums the same way for every value)."
         )
     if out.hist_quant not in (
         "none", "int16", "int8", "int16_block", "int8_block"
