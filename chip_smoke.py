@@ -163,6 +163,44 @@ is only where it may find ``cuobjdump``). Phases:
    model the numpy-input model; Parquet where pyarrow imports; and, where
    scikit-learn imports, ``clone`` and a 2-fold ``GridSearchCV`` over
    ``max_depth`` {2, 3} on 50,000 rows.
+11. SHAP (``shap``, after phase 6's paths), B15's counters set to 0 just
+   before each path and checked exactly after it (one launch a chunk):
+   ``predict(bst, RayDMatrix(x[:1,048,576]), RayParams(num_actors=2),
+   pred_contribs=True)`` on phase 6's 500-tree model (122 MB out), again
+   with ``approx_contribs=True``, and ``pred_interactions=True`` over
+   65,536 rows (220 MB): every row sums to B8's margin within the f32
+   bound of ``shap_sum_bound``, each interaction row to its feature's
+   exact contribution; the exact result bitwise the booster's own call, a
+   rerun, and the rows at batch 8 and 256 bitwise inside the big call (all
+   three entry points); each entry point bitwise its plain version on the
+   card on 4,096 rows (exact and Saabas over the whole forest, the
+   interactions over the first 50 rounds: the plain version's D^2 loops
+   of PyTorch calls take minutes over 500 trees); Covertype's model
+   (``multi:softprob``, K = 7, 70 trees, F = 54, trained here) over its
+   116,202 test rows (179 MB) and interactions over 4,096 rows, their sums
+   checked and exact held against plain; each entry point timed at the
+   main path's shape (events; device time L2 flushed by a write, by a
+   read, and warm) and at 4,096 rows beside its plain version, its bound
+   from the forest's actual leaves (``ops/shap.leaf_ops``); no PyTorch
+   call computes TreeSHAP, so ``library_ms`` is null;
+12. the replica pool (``serve_pool``): ``create_server(bst,
+   n_replicas=1)`` and ``n_replicas=4`` under the 16-client closed loop
+   (1 s warmup, 3 s measured; qps and p50/p95/p99 side by side, no
+   claim), probes of all four kinds bitwise ``booster.predict`` on the
+   card and on the CPU (``contribs`` one B15 launch a batch), no kernel
+   build after warmup, one B8 value launch per batch, no client error;
+   a replica killed half-way through a 4-replica window and then
+   rejoined: no client error, the kill on the trace; an autoscaler up /
+   down cycle read back from the trace alone (scale events and the
+   replica count replayed from the membership events); the canary on a
+   2-replica server: a 20-round model on shuffled labels rolls back, a
+   ``refresh`` of the served model (5 rounds with ``xgb_model``, on the
+   card) is promoted and then served, counted in the serve metrics; the
+   served model exported to xgboost JSON and imported: margins and values
+   over 1,000,000 rows and contributions over 4,096 bitwise the
+   original's, and ``POST /models`` with the file hot-swaps a server
+   (margins bitwise); the whole trace valid against the schema and the
+   event names.
 
 Phase 6's model is trained, and phase 7 run, right after phase 1: later in
 the process ``torch.profiler`` records no device activity for B8's
@@ -216,6 +254,9 @@ rows but no result line.
 ``--ranks-only`` runs the build, the 1-rank main path and the ranks phase
 (on a host of two or more cards also the NCCL path, against the 1-rank
 run) and prints no result line.
+
+``--shap-only`` runs the build, phase 6's model and phase 11 and prints
+its kernel rows but no result line; ``--pool-only`` the same for phase 12.
 """
 
 import argparse
@@ -294,7 +335,8 @@ def host_call_us(fn, iters=200, runs=5):
     return float(np.median(per_call))
 
 
-def device_ms(fn, iters=10, only=None, every=False):
+def device_ms(fn, iters=10, only=None, every=False, blind="events",
+              tries=3):
     """Device time per call of ``fn`` of the kernels it launches, from
     ``torch.profiler``: the port's own kernels, not the wrapper's
     allocations and fills (PyTorch's ``at::`` kernels, copies, memsets);
@@ -305,36 +347,77 @@ def device_ms(fn, iters=10, only=None, every=False):
     ``iters`` calls now and then, so a kernel's time is its mean over the
     executions recorded times its executions a call (the recorded count
     over the calls, rounded); a drop is reported as a ``profiler_lost``
-    line."""
+    line. Now and then it records no device activity at all (its CUPTI
+    buffer comes back empty): it is asked ``tries`` times, and if it stays
+    blind the call is timed with CUDA events instead (``cuda_ms``: all of
+    the call's device work, the wrapper's fills too), reported as a
+    ``profiler_blind`` line; with ``blind="raise"`` it fails instead."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    times, counts = {}, {}
-    seen = []
-    for e in prof.key_averages():
-        t = getattr(e, "self_device_time_total", None)
-        t = e.self_cuda_time_total if t is None else t
-        seen.append((e.key[:60], str(e.device_type), t))
-        if e.device_type != torch.autograd.DeviceType.CUDA or (
-                not every and ((only.lower() not in e.key.lower()) if only else
-                ("at::" in e.key or e.key.startswith(("Memcpy", "Memset"))))):
-            continue
-        times[e.key] = times.get(e.key, 0.0) + t / 1e3
-        counts[e.key] = counts.get(e.key, 0) + e.count
-    total = sum(times.values())
-    check(total > 0, f"torch.profiler saw no device time of the kernels; "
-                     f"events: {sorted(seen, key=lambda v: -v[2])[:8]}")
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        times, counts = {}, {}
+        seen = []
+        for e in prof.key_averages():
+            t = getattr(e, "self_device_time_total", None)
+            t = e.self_cuda_time_total if t is None else t
+            seen.append((e.key[:60], str(e.device_type), t))
+            if e.device_type != torch.autograd.DeviceType.CUDA or (
+                    not every and ((only.lower() not in e.key.lower())
+                                   if only else
+                                   ("at::" in e.key or
+                                    e.key.startswith(("Memcpy", "Memset"))))):
+                continue
+            times[e.key] = times.get(e.key, 0.0) + t / 1e3
+            counts[e.key] = counts.get(e.key, 0) + e.count
+        if sum(times.values()) > 0:
+            break
+    else:
+        events = sorted(seen, key=lambda v: -v[2])[:8]
+        check(blind == "events",
+              f"torch.profiler saw no device time of the kernels in "
+              f"{tries} tries; events: {events}")
+        ms = cuda_ms(fn, iters=iters)
+        emit({"phase": "profiler_blind", "tries": tries, "calls": iters,
+              "events": events, "cuda_event_ms": ms})
+        return ms
     if any(c % iters for c in counts.values()):
         emit({"phase": "profiler_lost", "calls": iters,
               "executions": {k[:80]: c for k, c in counts.items()}})
     return sum(times[k] / counts[k] * max(1, round(counts[k] / iters))
                for k in times if counts[k])
+
+
+def profile_steps(step, first, rounds, tries=3):
+    """``torch.profiler`` over ``rounds`` calls of ``step(i)`` from round
+    ``first`` on: the profile and its wall ms. Where the profiler records no
+    device activity, the next ``rounds`` are profiled, up to ``tries``
+    times; a profile that stays blind is None (a ``profiler_blind``
+    line)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    cuda = torch.autograd.DeviceType.CUDA
+    for k in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for i in range(rounds):
+                step(first + k * rounds + i)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        if any(e.device_type == cuda for e in prof.key_averages()):
+            return prof, wall_ms
+    emit({"phase": "profiler_blind", "tries": tries, "rounds": rounds})
+    return None, wall_ms
 
 
 def bound_ms(nbytes, nflops):
@@ -1135,9 +1218,9 @@ def phase_profile(x, y, depth, round_ms, rounds=2):
     path (torch.profiler). The idle share is taken against ``round_ms``,
     the median round of the unprofiled run: the profiler slows the host
     side of a round, so its own wall time overstates the idle share (that
-    figure is kept as ``device_idle_share_profiled``)."""
+    figure is kept as ``device_idle_share_profiled``). A profile that stays
+    blind (``profile_steps``) leaves the device figures None."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     import xgboost_ray_tpu_torch as xrt
 
@@ -1152,17 +1235,11 @@ def phase_profile(x, y, depth, round_ms, rounds=2):
               evals=[(dm, "train")], callbacks=[Keep()],
               ray_params=xrt.RayParams(num_actors=1))
     engine = seen["engine"]
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for i in range(rounds):
-            engine.step(1 + i)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+    prof, wall_ms = profile_steps(engine.step, 1, rounds)
     cuda = torch.autograd.DeviceType.CUDA
     kern = {}
     syncs = 0  # host waits on the card: scalar reads, stream/device syncs
-    for e in prof.key_averages():
+    for e in (prof.key_averages() if prof else []):
         if e.key in ("aten::_local_scalar_dense", "cudaStreamSynchronize",
                      "cudaDeviceSynchronize", "cudaMemcpy"):
             syncs += e.count
@@ -1175,26 +1252,29 @@ def phase_profile(x, y, depth, round_ms, rounds=2):
                        kern.get(e.key, (0.0, 0))[1] + e.count)
     # K2's level step, device us per launch by tree level
     lvl = sorted((e.time_range.start, e.time_range.elapsed_us())
-                 for e in prof.events() if e.device_type == cuda
+                 for e in (prof.events() if prof else [])
+                 if e.device_type == cuda
                  and e.name.startswith("xrt_split_level_kernel"))
     by_level = ([float(np.mean([t for _, t in lvl[d::depth]]))
                  for d in range(depth)] if len(lvl) == rounds * depth else None)
     device_ms = sum(v[0] for v in kern.values())
+    blind = prof is None
     launches = sum(v[1] for v in kern.values())
     kernels = sum(v[1] for k, v in kern.items()
                   if not k.startswith(("Memcpy", "Memset")))
     top = sorted(kern.items(), key=lambda kv: -kv[1][0])[:20]
     out = {"phase": "profile", "rows": int(x.shape[0]), "rounds": rounds,
            "round_ms_unprofiled": round_ms,
-           "device_ms_per_round": device_ms / rounds,
-           "cuda_launches_per_round": launches / rounds,
-           "kernel_launches_per_round": kernels / rounds,
-           "host_syncs_per_round": syncs / rounds,
+           "device_ms_per_round": None if blind else device_ms / rounds,
+           "cuda_launches_per_round": None if blind else launches / rounds,
+           "kernel_launches_per_round": None if blind else kernels / rounds,
+           "host_syncs_per_round": None if blind else syncs / rounds,
            "split_level_us_by_level": by_level,
-           "device_idle_share": (None if round_ms is None else
+           "device_idle_share": (None if round_ms is None or blind else
                                  max(0.0, 1.0 - device_ms / rounds / round_ms)),
            "wall_ms_per_round_profiled": wall_ms / rounds,
-           "device_idle_share_profiled": max(0.0, 1.0 - device_ms / wall_ms),
+           "device_idle_share_profiled": (
+               None if blind else max(0.0, 1.0 - device_ms / wall_ms)),
            "top_kernels_ms_per_round": [
                [k[:80], v[0] / rounds, v[1] / rounds] for k, v in top]}
     emit(out)
@@ -1550,14 +1630,16 @@ def _probe(handle, bst, q):
     return ok
 
 
-def _closed_loop(handle, x, clients, req_rows_max, warm_s, duration_s):
+def _closed_loop(handle, x, clients, req_rows_max, warm_s, duration_s,
+                 mid=None):
     """``clients`` threads send 1-``req_rows_max``-row value requests to
     ``handle``. After ``warm_s`` the clients are parked until every request
     is answered; the serve metrics and B8's counters are set to 0 and the
     clients resume for ``duration_s``, then are parked again and the
     counters read: every launch of the window is one of its batches.
-    Returns (snapshot at the end of the window, snapshot once parked,
-    launches, client errors)."""
+    ``mid``, where given, is called half-way through the window. Returns
+    (snapshot at the end of the window, snapshot once parked, launches,
+    client errors)."""
     import threading
     import urllib.request
 
@@ -1603,7 +1685,12 @@ def _closed_loop(handle, x, clients, req_rows_max, warm_s, duration_s):
         reset_b8_counters()
         del errors[:]
         go.set()
-        time.sleep(duration_s)
+        if mid is not None:
+            time.sleep(duration_s / 2)
+            mid()
+            time.sleep(duration_s / 2)
+        else:
+            time.sleep(duration_s)
         snap = handle.metrics.snapshot()
         park()
         parked_snap = handle.metrics.snapshot()
@@ -1860,7 +1947,8 @@ def phase_late_profile(bst, x):
     fo = bst.device_forest("cuda")
     m0 = bst.base_score_margin_np()
     try:
-        ms = device_ms(lambda: PR.predict_margin(fo, xd, base0=m0), iters=3)
+        ms = device_ms(lambda: PR.predict_margin(fo, xd, base0=m0), iters=3,
+                       blind="raise")
     except SmokeFailure as exc:
         ms, seen = None, str(exc)[:300]
     else:
@@ -2295,7 +2383,7 @@ def multiclass_expect(rounds, depth, k, held_out):
     return out
 
 
-def read_flushed_ms(fn):
+def read_flushed_ms(fn, iters=10):
     """``fn``'s device time with the L2 flushed by reading 64 MB between
     launches. ``device_ms`` flushes by writing 64 MB (``zero_``), which
     leaves the L2 full of dirty lines that the kernel's own traffic then
@@ -2304,7 +2392,7 @@ def read_flushed_ms(fn):
     import torch
 
     buf = torch.ones(16 << 20, dtype=torch.float32, device="cuda")
-    return profiled_ms(lambda: (buf.sum(), fn()))
+    return profiled_ms(lambda: (buf.sum(), fn()), iters=iters)
 
 
 #: K4 variants timed by ``--k4-variants``: edits of ``csrc/objective.cu``
@@ -2729,18 +2817,9 @@ def phase_multiclass(records, rounds=10, depth=6, es_rounds=30,
                       "b4_visits_per_row_and_tree": visits / n_te / k}
 
     # a profile of two rounds with the test set: device time by kernel
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for i in range(2):
-            engine.step(rounds + i)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+    prof, wall_ms = profile_steps(engine.step, rounds, 2)
     kern, host = {}, {}
-    for e in prof.key_averages():
+    for e in (prof.key_averages() if prof else []):
         if e.device_type != torch.autograd.DeviceType.CUDA:
             # host time by op (where a round's host time goes)
             host[e.key] = host.get(e.key, 0.0) + e.self_cpu_time_total / 2e3
@@ -2751,11 +2830,14 @@ def phase_multiclass(records, rounds=10, depth=6, es_rounds=30,
                        kern.get(e.key, (0.0, 0))[1] + e.count / 2)
     dev_round = sum(v[0] for v in kern.values())
     med_with = float(np.median(res["round_ms_median_with_test"]))
+    blind = prof is None
     res["profile"] = {
-        "device_ms_per_round": dev_round,
-        "cuda_launches_per_round": sum(v[1] for v in kern.values()),
+        "device_ms_per_round": None if blind else dev_round,
+        "cuda_launches_per_round": (
+            None if blind else sum(v[1] for v in kern.values())),
         "round_ms_unprofiled": med_with,
-        "device_idle_share": max(0.0, 1.0 - dev_round / med_with),
+        "device_idle_share": (
+            None if blind else max(0.0, 1.0 - dev_round / med_with)),
         "wall_ms_per_round_profiled": wall_ms / 2,
         "top_kernels_ms_per_round": [
             [key[:80], v[0], v[1]] for key, v in
@@ -3510,11 +3592,538 @@ def phase_facade(x, y, records, rounds=10, depth=6, es_rounds=30,
     return res
 
 
-def profiled_ms(fn):
+# ---------------------------------------------------------------------------
+# phase 11: SHAP on the card (B15)
+# ---------------------------------------------------------------------------
+
+#: rows of each SHAP path of phase 11
+SHAP_ROWS = 1 << 20  # HIGGS contributions, exact and Saabas (122 MB out)
+SHAP_INTER_ROWS = 1 << 16  # HIGGS interactions (220 MB out)
+SHAP_COV_INTER_ROWS = 4096  # Covertype interactions
+SHAP_PLAIN_ROWS = 4096  # each entry point against its plain version
+#: rounds of the forest the plain interactions run over (its D^2 loops of
+#: PyTorch calls take minutes over all 500 trees)
+SHAP_PLAIN_INTER_ROUNDS = 50
+F32_EPS = float(np.finfo(np.float32).eps)
+
+
+def shap_counters():
+    from xgboost_ray_tpu_torch.ops import shap as SH
+
+    return dict(SH.LAUNCHES_BY_MODE)
+
+
+def shap_sum_bound(bst, sf, m, n_feat, interactions=False):
+    """The f32 bound a row's contributions must sum to its margin within:
+    each of a tree's SHAP values is at most twice its largest |leaf value|
+    B_t (a Shapley value averages differences of expectations over leaves),
+    so the terms summed over the T trees and F + 1 columns are at most
+    sum_t 2 D_t B_t, with D_t the tree's split features ((D_t + 1)^2 cells
+    of interaction values, a diagonal cell a row's remainder: 2 (D_t + 1)^2
+    B_t); every add rounds once (relative eps) and an output takes at most
+    T + C adds (C its columns: F + 2, or (F + 1)^2 + 1), plus the margin's
+    own T adds, so |sum phi - m| <= eps (2 T + C) (terms + |m|)."""
+    fo = bst.forest
+    big = np.where(fo.is_leaf, np.abs(fo.value), 0.0).max(axis=1)
+    d_t = sf.n_feats.cpu().numpy().astype(np.float64)
+    scale = 1.0 if bst.tree_weights is None else np.abs(bst.tree_weights)
+    per_tree = 2 * (d_t + 1) ** 2 if interactions else 2 * d_t
+    terms = float((per_tree * big * scale).sum())
+    cols = (n_feat + 1) ** 2 + 1 if interactions else n_feat + 2
+    return F32_EPS * (2 * bst.num_trees + cols) * (terms + np.abs(m))
+
+
+def _shap_record(records, key, fn, plain, bound, launches, err, fn4096):
+    """B15's row of the kernel table: events and device time (L2 flushed
+    by a write and by a read, and warm) at the main path's shape, the
+    kernel and its plain version at ``SHAP_PLAIN_ROWS`` rows."""
+    import torch
+
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    # one call a reading: a launch takes seconds at the main path's shapes
+    records[key].update(
+        launches=launches, max_abs_err=err, ms=cuda_ms(fn, iters=1,
+                                                      warmup=0),
+        device_ms=profiled_ms(lambda: (flush.zero_(), fn()), iters=1),
+        device_ms_read_flush=read_flushed_ms(fn, iters=1),
+        device_ms_l2_warm=profiled_ms(fn, iters=1),
+        ms_plain_rows=cuda_ms(fn4096, iters=2, warmup=1),
+        plain_ms=cuda_ms(plain, iters=1, warmup=0), plain_rows=SHAP_PLAIN_ROWS,
+        bound_ms=bound[0], bound_by=bound[1], library_ms=None)
+
+
+def train_covertype_model(rounds=10, depth=6):
+    """Phase 9's Covertype model (``multi:softprob``, K = 7, 70 trees,
+    F = 54) and its 116,202 test rows."""
+    import xgboost_ray_tpu_torch as xrt
+
+    x, y = make_covertype_like(COVERTYPE_ROWS, seed=0)
+    xt, yt = x[:-COVERTYPE_TEST], y[:-COVERTYPE_TEST]
+    bst = xrt.train({"objective": "multi:softprob", "num_class": 7,
+                     "max_depth": depth, "max_bin": 256},
+                    xrt.RayDMatrix(xt, yt), rounds,
+                    ray_params=xrt.RayParams(num_actors=1))
+    check(bst.num_trees == 7 * rounds, "wrong Covertype forest")
+    return bst, x[-COVERTYPE_TEST:]
+
+
+def phase_shap(bst, x, records):
+    """Phase 11: SHAP through ``predict()`` and the booster on the card with
+    B15, each path with B15's counters set to 0 just before it and read
+    just after; every entry point against its plain version; reruns and
+    row independence bitwise; sums to B8's margins within the f32 bound."""
+    import torch
+
+    import xgboost_ray_tpu_torch as xrt
+    from xgboost_ray_tpu_torch.ops import shap as SH
+
+    t_phase = time.perf_counter()
+    n = SHAP_ROWS
+    xs = np.ascontiguousarray(x[:n])
+    f = xs.shape[1]
+    rp = xrt.RayParams(num_actors=2)
+    res = {"phase": "shap", "trees": bst.num_trees, "rows": n,
+           "interaction_rows": SHAP_INTER_ROWS}
+    t0 = time.perf_counter()
+    sf = bst.shap_forest("cuda")
+    res["tables_s"] = time.perf_counter() - t0
+    res["leaves"] = int(sf.n_leaves.sum())
+    res["max_leaves"] = sf.max_leaves
+    res["max_tree_features"] = sf.max_feats
+    margin = bst.predict(xs, output_margin=True)
+    chunks = {mode: predict_chunks(
+        bst, n, 4 * (f + int(np.prod(SH.out_shape(1, f, 1, mode)[1:]))
+                     + SH.scratch_floats(sf, f, 1, mode)))
+        for mode in ("exact", "saabas")}
+
+    # the main paths: predict() over 1M rows, exact then Saabas, then the
+    # interaction values over 65,536 rows
+    SH.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    exact = xrt.predict(bst, xrt.RayDMatrix(xs), ray_params=rp,
+                        pred_contribs=True)
+    res["exact_wall_s"] = time.perf_counter() - t0
+    got = shap_counters()
+    check(got == {"saabas": 0, "exact": chunks["exact"], "interactions": 0},
+          f"B15 launches of predict(pred_contribs): {got}, expected "
+          f"{chunks['exact']} exact (one a chunk)")
+    main_launches = dict(got)
+    SH.reset_launches()
+    t0 = time.perf_counter()
+    approx = xrt.predict(bst, xrt.RayDMatrix(xs), ray_params=rp,
+                         pred_contribs=True, approx_contribs=True)
+    res["saabas_wall_s"] = time.perf_counter() - t0
+    got = shap_counters()
+    check(got == {"saabas": chunks["saabas"], "exact": 0, "interactions": 0},
+          f"B15 launches of approx_contribs: {got}")
+    main_launches["saabas"] = got["saabas"]
+    ni = SHAP_INTER_ROWS
+    SH.reset_launches()
+    t0 = time.perf_counter()
+    inter = xrt.predict(bst, xrt.RayDMatrix(xs[:ni]), ray_params=rp,
+                        pred_interactions=True)
+    res["interactions_wall_s"] = time.perf_counter() - t0
+    got = shap_counters()
+    check(got == {"saabas": 0, "exact": 0, "interactions": 1},
+          f"B15 launches of pred_interactions: {got}")
+    main_launches["interactions"] = 1
+    check(exact.shape == (n, f + 1) and approx.shape == (n, f + 1)
+          and inter.shape == (ni, f + 1, f + 1), "SHAP outputs' shapes")
+    check(all(bool(np.isfinite(a).all()) for a in (exact, approx, inter)),
+          "non-finite SHAP values")
+    res["output_mb"] = {"exact": exact.nbytes / 1e6,
+                        "interactions": inter.nbytes / 1e6}
+
+    # rows sum to B8's margin within the stated f32 bound
+    bound = shap_sum_bound(bst, sf, margin, f)
+    bound_i = shap_sum_bound(bst, sf, margin[:ni], f, interactions=True)
+    sums = {"exact": np.abs(exact.sum(1, dtype=np.float64) - margin),
+            "saabas": np.abs(approx.sum(1, dtype=np.float64) - margin),
+            "interactions": np.abs(inter.sum((1, 2), dtype=np.float64)
+                                   - margin[:ni])}
+    res["sum_err_max"] = {k: float(v.max()) for k, v in sums.items()}
+    res["sum_bound_min"] = [float(bound.min()), float(bound_i.min())]
+    for k, v in sums.items():
+        b = bound_i if k == "interactions" else bound
+        check(bool((v <= b).all()), f"{k} rows do not sum to the margin: "
+                                    f"{float(v.max())} > bound")
+    rows_err = np.abs(inter.sum(2, dtype=np.float64) - exact[:ni]).max(1)
+    res["interaction_rows_vs_exact_max"] = float(rows_err.max())
+    check(bool((rows_err <= bound_i).all()),
+          "interaction rows do not sum to the exact contributions")
+
+    # the booster's own call, reruns, and rows at other batch sizes
+    same = {"booster_exact": np.array_equal(
+        bst.predict(xs, pred_contribs=True), exact)}
+    same["rerun_exact"] = np.array_equal(
+        xrt.predict(bst, xrt.RayDMatrix(xs), ray_params=rp,
+                    pred_contribs=True), exact)
+    same["rerun_interactions"] = np.array_equal(
+        bst.predict(xs[:ni], pred_interactions=True), inter)
+    for b in (8, 256):
+        same[f"exact_batch_{b}"] = np.array_equal(
+            bst.predict(xs[77:77 + b], pred_contribs=True),
+            exact[77:77 + b])
+        same[f"saabas_batch_{b}"] = np.array_equal(
+            bst.predict(xs[77:77 + b], pred_contribs=True,
+                        approx_contribs=True), approx[77:77 + b])
+        same[f"interactions_batch_{b}"] = np.array_equal(
+            bst.predict(xs[77:77 + b], pred_interactions=True),
+            inter[77:77 + b])
+    res["bitwise"] = same
+    check(all(same.values()), f"B15 reruns / row independence: {same}")
+
+    # each entry point against its plain version on the card (bitwise: the
+    # kernel runs the plain version's f32 operations in its order, both
+    # unfused); the plain interactions over the first 50 rounds
+    sc = bst.tree_scales(sf)
+    sc50 = bst.tree_scales(sf, ntree_limit=SHAP_PLAIN_INTER_ROUNDS)
+    xp = torch.from_numpy(xs[:SHAP_PLAIN_ROWS]).cuda()
+    cases = {"saabas": (SH.predict_contribs, SH.predict_contribs_plain, sc),
+             "exact": (SH.predict_contribs_exact,
+                       SH.predict_contribs_exact_plain, sc),
+             "interactions": (SH.predict_interactions,
+                              SH.predict_interactions_plain, sc50)}
+    errs = {}
+    for mode, (kern, plain, scm) in cases.items():
+        a = kern(sf, xp, scm)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        b = plain(sf, xp, scm)
+        torch.cuda.synchronize()
+        res[f"plain_{mode}_s"] = time.perf_counter() - t0
+        errs[mode] = float((a - b).abs().max())
+        check(torch.equal(a, b), f"B15 {mode} differs from its plain "
+                                 f"version: max |d| {errs[mode]}")
+    res["plain_trees"] = {"saabas": bst.num_trees, "exact": bst.num_trees,
+                          "interactions": SHAP_PLAIN_INTER_ROUNDS}
+
+    # Covertype (multi:softprob, K = 7, F = 54): exact over the test rows,
+    # interactions over 4,096
+    t0 = time.perf_counter()
+    cov, xv = train_covertype_model()
+    res["covertype_train_s"] = time.perf_counter() - t0
+    sfc = cov.shap_forest("cuda")
+    mc = cov.predict(xv, output_margin=True)
+    SH.reset_launches()
+    cexact = cov.predict(xv, pred_contribs=True)
+    cinter = cov.predict(xv[:SHAP_COV_INTER_ROWS], pred_interactions=True)
+    got = shap_counters()
+    check(got == {"saabas": 0, "exact": 1, "interactions": 1},
+          f"B15 launches of the Covertype paths: {got}")
+    check(cexact.shape == (COVERTYPE_TEST, 7, 55)
+          and cinter.shape == (SHAP_COV_INTER_ROWS, 7, 55, 55),
+          "Covertype SHAP shapes")
+    cb = shap_sum_bound(cov, sfc, np.abs(mc).max(1), 54)[:, None]
+    cbi = shap_sum_bound(cov, sfc, np.abs(mc[:SHAP_COV_INTER_ROWS]).max(1),
+                         54, interactions=True)[:, None]
+    ce = np.abs(cexact.sum(2, dtype=np.float64) - mc)
+    ci = np.abs(cinter.sum((2, 3), dtype=np.float64)
+                - mc[:SHAP_COV_INTER_ROWS])
+    res["covertype"] = {"exact_rows": COVERTYPE_TEST,
+                        "interaction_rows": SHAP_COV_INTER_ROWS,
+                        "exact_mb": cexact.nbytes / 1e6,
+                        "sum_err_max": [float(ce.max()), float(ci.max())]}
+    check(bool((ce <= cb).all() and (ci <= cbi).all()),
+          f"Covertype contributions do not sum to the margins: "
+          f"{float(ce.max())}, {float(ci.max())}")
+    xcp = torch.from_numpy(np.ascontiguousarray(xv[:SHAP_PLAIN_ROWS])).cuda()
+    scc = cov.tree_scales(sfc)
+    a = SH.predict_contribs_exact(sfc, xcp, scc)
+    check(torch.equal(a, SH.predict_contribs_exact_plain(sfc, xcp, scc)),
+          "B15 exact differs from its plain version at K = 7, F = 54")
+
+    # times at the main path's shapes, bounds from this forest's leaves
+    xd = torch.from_numpy(xs).cuda()
+    xi = xd[:ni].contiguous()
+    outs = {"exact": (torch.empty((n, 1, f + 1), device="cuda"),
+                      torch.empty((SH.scratch_floats(sf, f, 1, "exact") * n,),
+                                  device="cuda"), xd),
+            "saabas": (torch.empty((n, 1, f + 1), device="cuda"),
+                       torch.empty((SH.scratch_floats(sf, f, 1, "saabas")
+                                    * n,), device="cuda"), xd),
+            "interactions": (
+                torch.empty((ni, 1, f + 1, f + 1), device="cuda"),
+                torch.empty((SH.scratch_floats(sf, f, 1, "interactions")
+                             * ni,), device="cuda"), xi)}
+    for mode, (kern, plain, scm) in cases.items():
+        out, scratch, xin = outs[mode]
+        rows = xin.shape[0]
+        nbytes = xin.numel() * 4 + out.numel() * 4
+        ops = SH.leaf_ops(sf, mode) * rows
+        key = {"saabas": "B15saabas", "exact": "B15exact",
+               "interactions": "B15interactions"}[mode]
+        _shap_record(
+            records, key,
+            lambda: kern(sf, xin, sc, out=out, scratch=scratch),
+            lambda: plain(sf, xp, scm),
+            bound_ms(nbytes, ops), main_launches[mode], errs[mode],
+            lambda: kern(sf, xp, scm))
+        records[key]["rows"] = rows
+        records[key]["ops_per_row"] = SH.leaf_ops(sf, mode)
+        records[key]["plain_trees"] = res["plain_trees"][mode]
+    res["kernels"] = {k: records[k] for k in SHAP_KERNELS}
+    del xd, xi, outs
+    torch.cuda.empty_cache()
+    res["phase_s"] = time.perf_counter() - t_phase
+    emit(res)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the replica pool, autoscaler, canary and xgboost JSON
+# ---------------------------------------------------------------------------
+
+
+def _probe_kinds(handle, bst, q, kinds):
+    """Each of ``kinds`` served for ``q`` against ``booster.predict`` on the
+    card and on the CPU, bitwise; and B15's launches for the served
+    requests alone (read before the references launch it again)."""
+    ok = {}
+    refs = {"value": {}, "margin": {"output_margin": True},
+            "leaf": {"pred_leaf": True}, "contribs": {"pred_contribs": True}}
+    served = {kind: _post_json(handle.url + "/predict",
+                               {"data": q.tolist(), "kind": kind})
+              for kind in kinds}
+    ok["b15_launches"] = shap_counters()["exact"]
+    for kind in kinds:
+        r = served[kind]
+        for where, dev in (("card", None), ("cpu", "cpu")):
+            ref = bst.predict(q, device=dev, **refs[kind])
+            got = np.asarray(r["predictions"], ref.dtype)
+            ok[f"{kind}_{where}"] = bool(got.shape == ref.shape
+                                         and np.array_equal(got, ref))
+    return ok
+
+
+def _serve_window(bst, x, n_replicas, warm_s, duration_s, mid=None):
+    """A closed loop of 16 clients against ``create_server(bst,
+    n_replicas=...)``; ``mid`` is called half-way through the window."""
+    from xgboost_ray_tpu_torch import serve
+    from xgboost_ray_tpu_torch.ops import shap as SH
+
+    builds0 = serve.compile_count()
+    handle = serve.create_server(bst, max_batch=256, max_delay_ms=2.0,
+                                 n_replicas=n_replicas)
+    warm_builds = serve.compile_count() - builds0
+    after_warm = serve.compile_count()
+    try:
+        SH.reset_launches()
+        probe = _probe_kinds(handle, bst, x[:37],
+                             ("value", "margin", "leaf", "contribs"))
+        contribs_launches = probe.pop("b15_launches")
+        snap, parked, launches, errors = _closed_loop(
+            handle, x, 16, 32, warm_s, duration_s, mid=(
+                None if mid is None else lambda: mid(handle)))
+        probe_after = _probe_kinds(handle, bst, x[37:74],
+                                   ("value", "contribs"))
+        probe_after.pop("b15_launches")
+        builds = serve.compile_count() - after_warm
+        replicas = handle.metrics.snapshot().get("replicas", 1)
+    finally:
+        handle.shutdown()
+    out = {"n_replicas": n_replicas, "client_errors": len(errors),
+           "errors_sample": errors[:3], "probe_bitwise": probe,
+           "probe_bitwise_after_load": probe_after,
+           "builds_at_start": warm_builds, "builds_after_warmup": builds,
+           "contribs_probe_launches": contribs_launches,
+           "b8_value_launches": launches["B8value"],
+           "batches_once_parked": parked["batches"], "replicas": replicas,
+           **{k: snap[k] for k in ("requests", "qps", "batches",
+                                   "mean_batch_rows", "latency_p50_ms",
+                                   "latency_p95_ms", "latency_p99_ms")}}
+    check(len(errors) == 0, f"{len(errors)} client errors at n_replicas="
+                            f"{n_replicas}: {errors[:3]}")
+    check(all(probe.values()) and all(probe_after.values()),
+          f"served probes not bitwise booster.predict: {probe} "
+          f"{probe_after}")
+    check(builds == 0, f"{builds} kernel builds after warmup")
+    # one probe per kind: contribs is one B15 exact launch per batch
+    check(contribs_launches == 1, f"contribs probe launched B15 "
+                                  f"{contribs_launches} times")
+    check(launches["B8value"] == parked["batches"],
+          f"B8 value launches {launches['B8value']} != batches "
+          f"{parked['batches']}")
+    return out
+
+
+def phase_serve_pool(bst, x, y):
+    """Phase 12: the replica pool on the one card (1 and 4 replicas under
+    the closed loop, a replica killed under load and rejoined), the
+    autoscaler's cycle read back from the trace, the canary (rollback of a
+    shuffled-label model, promotion of a ``refresh``-ed one) and the
+    xgboost-JSON round trip with a ``POST /models`` hot swap."""
+    import torch
+
+    import xgboost_ray_tpu_torch as xrt
+    from xgboost_ray_tpu_torch import obs, serve
+
+    t_phase = time.perf_counter()
+    res = {"phase": "serve_pool", "trees": bst.num_trees}
+    tracer = obs.Tracer(capacity=1 << 16, enabled=True, trace_dir="", rank=0)
+    obs.set_default_tracer(tracer)
+    try:
+        res["one"] = _serve_window(bst, x, 1, 1.0, 3.0)
+        res["four"] = _serve_window(bst, x, 4, 1.0, 3.0)
+
+        killed = {}
+
+        def kill_and_rejoin(handle):
+            router = handle.batcher
+            victim = router.replica_slots()[0]
+            router.kill(victim)
+            time.sleep(1.0)
+            killed["victim"] = victim
+            killed["live_after_kill"] = router.live_replicas()
+            killed["rejoined"] = router.rejoin()
+            killed["live_after_rejoin"] = router.live_replicas()
+
+        res["kill"] = _serve_window(bst, x, 4, 0.5, 3.0, mid=kill_and_rejoin)
+        res["kill"].update(killed)
+        check(killed.get("live_after_kill") == 3
+              and killed.get("live_after_rejoin") == 4,
+              f"replica kill / rejoin: {killed}")
+        recs = tracer.records()
+        down = [r["attrs"] for r in recs if r["name"] == "serve.replica_down"
+                and r["attrs"].get("reason") == "killed"]
+        check(len(down) == 1 and down[0]["replica"] == killed["victim"],
+              "the kill is not on the trace")
+
+        # the autoscaler: one up / down cycle, read back from the trace
+        metrics = serve.ServeMetrics(recompile_count_fn=serve.compile_count)
+        reg = serve.ModelRegistry(metrics=metrics, warm_kinds=("value",))
+        reg.load(bst)
+        seq0 = max((r["seq"] for r in tracer.records()), default=0)
+        router = serve.Router(reg, n_replicas=1, metrics=metrics)
+        scaler = serve.AutoScaler(router, metrics, min_replicas=1,
+                                  max_replicas=2, p99_high_ms=50.0,
+                                  p99_low_ms=5.0, up_after=2, down_after=3)
+        try:
+            ticks = []
+            for _ in range(10):
+                metrics.observe_request(0.2, 1)
+            ticks += [scaler.tick(), scaler.tick()]
+            metrics.reset()
+            for _ in range(10):
+                metrics.observe_request(0.0005, 1)
+            ticks += [scaler.tick(), scaler.tick(), scaler.tick()]
+        finally:
+            router.shutdown()
+        recs = [r for r in tracer.records() if r["seq"] > seq0]
+        scale = [r["attrs"] for r in recs if r["name"] == "serve.scale"]
+        live, replay = 0, []
+        for r in recs:
+            if r["name"] == "serve.replica_up":
+                live += 1
+            elif r["name"] == "serve.replica_down":
+                live -= 1
+            if r["name"] in ("serve.replica_up", "serve.replica_down"):
+                replay.append(live == r["attrs"]["live"])
+        res["autoscaler"] = {"ticks": ticks, "scale_events": scale,
+                             "membership_replayed": all(replay)}
+        check(ticks == [0, 1, 0, 0, -1] and [e["direction"] for e in scale]
+              == ["up", "down"] and scale[0]["to_replicas"] == 2
+              and scale[1]["to_replicas"] == 1 and all(replay) and live == 0,
+              f"autoscaler cycle not on the trace: {res['autoscaler']}")
+
+        # the canary: a shuffled-label model rolls back, a refreshed one
+        # (trained on the card, warm-started with xgb_model) is promoted
+        h = serve.create_server(bst, max_batch=256, n_replicas=2)
+        try:
+            ctl = serve.CanaryController(h.registry, metrics=h.metrics)
+            xc, yc = x[:200_000], y[:200_000]
+            rng = np.random.RandomState(7)
+            params = {"objective": "binary:logistic", "max_depth": 6,
+                      "max_bin": 256}
+            t0 = time.perf_counter()
+            bad = xrt.train(params, xrt.RayDMatrix(x[:1_000_000],
+                                                   rng.permutation(
+                                                       y[:1_000_000])),
+                            20, ray_params=xrt.RayParams(num_actors=1))
+            v_bad = ctl.publish(bad, xc, yc, shadow_x=x[:4096])
+            good = serve.refresh(bst, params,
+                                 xrt.RayDMatrix(x[:1_000_000],
+                                                y[:1_000_000]),
+                                 5, ray_params=xrt.RayParams(num_actors=1))
+            v_good = ctl.publish(good, xc, yc)
+            res["canary_s"] = time.perf_counter() - t0
+            r = _post_json(h.url + "/predict", {"data": x[:9].tolist()})
+            served_good = (r["model_version"] == 2 and np.array_equal(
+                np.asarray(r["predictions"], np.float32),
+                good.predict(x[:9])))
+            snap = h.metrics.snapshot()
+        finally:
+            h.shutdown()
+        res["canary"] = {
+            "rollback": {k: v_bad[k] for k in (
+                "promoted", "reason", "version", "live_metric",
+                "candidate_metric", "shadow_mean_abs_delta")},
+            "promote": {k: v_good[k] for k in (
+                "promoted", "reason", "version", "live_metric",
+                "candidate_metric")},
+            "refreshed_trees": good.num_trees, "served_refreshed": served_good,
+            "metrics": {k: snap[k] for k in ("canary_promotions",
+                                             "canary_rollbacks")}}
+        names = [r["name"] for r in tracer.records()]
+        check(v_bad["promoted"] is False and v_good["promoted"] is True
+              and good.num_trees == bst.num_trees + 5 and served_good
+              and snap["canary_rollbacks"] == 1
+              and snap["canary_promotions"] == 1
+              and "serve.rollback" in names and "serve.promote" in names,
+              f"canary: {res['canary']}")
+
+        # xgboost JSON: export, import bitwise, POST /models hot swap
+        os.makedirs(OUT_DIR, exist_ok=True)
+        path = os.path.abspath(os.path.join(OUT_DIR, "served.xgb.json"))
+        t0 = time.perf_counter()
+        bst.export_xgboost_json(path)
+        back = xrt.RayXGBoostBooster.import_xgboost_json(path)
+        res_x = {"export_import_s": time.perf_counter() - t0,
+                 "file_mb": os.path.getsize(path) / 1e6}
+        xs = x[:1_000_000]
+        res_x["margin_bitwise"] = bool(np.array_equal(
+            back.predict(xs, output_margin=True),
+            bst.predict(xs, output_margin=True)))
+        res_x["value_bitwise"] = bool(np.array_equal(back.predict(xs),
+                                                     bst.predict(xs)))
+        res_x["contribs_bitwise"] = bool(np.array_equal(
+            back.predict(xs[:4096], pred_contribs=True),
+            bst.predict(xs[:4096], pred_contribs=True)))
+        h = serve.create_server(bad, max_batch=256, n_replicas=2)
+        try:
+            r = _post_json(h.url + "/models", {"path": path}, timeout=300.0)
+            q = _post_json(h.url + "/predict",
+                           {"data": x[:9].tolist(), "kind": "margin"})
+            res_x["hot_swap_version"] = r["model_version"]
+            res_x["hot_swap_bitwise"] = bool(
+                q["model_version"] == 2 and np.array_equal(
+                    np.asarray(q["predictions"], np.float32),
+                    bst.predict(x[:9], output_margin=True)))
+        finally:
+            h.shutdown()
+        os.remove(path)
+        res["xgboost_json"] = res_x
+        check(all(res_x[k] for k in ("margin_bitwise", "value_bitwise",
+                                     "contribs_bitwise", "hot_swap_bitwise")),
+              f"xgboost JSON round trip: {res_x}")
+        problems = obs.validate_trace_records(tracer.records(),
+                                              known_names=obs.TRACE_NAMES)
+        res["trace_records"] = len(tracer.records())
+        check(not problems, f"trace records invalid: {problems[:3]}")
+    finally:
+        obs.set_default_tracer(None)
+    torch.cuda.empty_cache()
+    res["phase_s"] = time.perf_counter() - t_phase
+    emit(res)
+    return res
+
+
+def profiled_ms(fn, iters=10):
     """``device_ms`` where ``torch.profiler`` records the kernel, None where
     it records no device time (``PERF.md`` §7)."""
     try:
-        return device_ms(fn)
+        return device_ms(fn, iters=iters, blind="raise")
     except SmokeFailure:
         return None
 
@@ -3618,6 +4227,20 @@ KERNELS = {
                       "Covertype rows x 7 classes)", route="cuda",
                       source="xgboost_ray_tpu_torch/csrc/softmax.cu",
                       replaces="xgboost_ray_tpu/ops/metrics.py:55"),
+    "B15exact": dict(name="B15 exact TreeSHAP: contributions [N, 1, 29] "
+                     "(predict(pred_contribs=True) over 1,048,576 HIGGS "
+                     "rows, 500 trees)", route="cuda",
+                     source="xgboost_ray_tpu_torch/csrc/shap.cu",
+                     replaces="xgboost_ray_tpu/ops/predict.py:299"),
+    "B15saabas": dict(name="B15 Saabas contributions (approx_contribs over "
+                      "1,048,576 HIGGS rows, 500 trees)", route="cuda",
+                      source="xgboost_ray_tpu_torch/csrc/shap.cu",
+                      replaces="xgboost_ray_tpu/ops/predict.py:82"),
+    "B15interactions": dict(name="B15 SHAP interaction values [N, 1, 29, "
+                            "29] (pred_interactions over 65,536 HIGGS rows, "
+                            "500 trees)", route="cuda",
+                            source="xgboost_ray_tpu_torch/csrc/shap.cu",
+                            replaces="xgboost_ray_tpu/ops/predict.py:449"),
     **{f"B8serve{m}": dict(
         name=f"B8 forest walk: margins, heap layout, a serve batch of {m} "
              f"rows (windows mapping; launches: every batch of the heap "
@@ -3632,6 +4255,9 @@ MULTICLASS_KERNELS = ("SMX", "SMXeval", "SMXtransform", "B4k", "K1f54",
 
 #: the kernel table's rows of phase 10
 FACADE_KERNELS = ("K4nograd", "SMXnograd")
+
+#: the kernel table's rows of phase 11
+SHAP_KERNELS = ("B15exact", "B15saabas", "B15interactions")
 
 #: kernels of the training path (phase 3's counters)
 TRAIN_KERNELS = ("K1", "K1root", "K1deq", "K2", "K2level", "K2leaf", "K3",
@@ -3728,6 +4354,16 @@ def run(args):
         bst, _, _, margins = phase_main(x, y, args.rounds, 6, 1)
         phase_ranks(x, y, args.rounds, 6, bst, margins)
         return
+    if args.shap_only or args.pool_only:
+        records = {k: dict(v) for k, v in KERNELS.items()}
+        x, y = make_higgs_like(args.rows, 28, seed=0)
+        served, _, _ = phase_train_model(x, y, args.predict_rounds)
+        if args.shap_only:
+            phase_shap(served, x, records)
+            emit({"shap_kernels": {k: records[k] for k in SHAP_KERNELS}})
+        else:
+            phase_serve_pool(served, x, y)
+        return
     build_report = phase_build_report(args.predict_rounds, args.rows)
 
     x, y = make_higgs_like(args.rows, 28, seed=0)
@@ -3799,6 +4435,11 @@ def run(args):
     for m in SERVE_ROWS:  # the windows kernel of the heap server's batches
         records[f"B8serve{m}"]["launches"] = b8_launches["B8serve"]
     results["late_profile"] = phase_late_profile(served, x)
+    # phase 11: SHAP (B15), each path with B15's counters set to 0 just
+    # before it and read just after; phase 12: the replica pool,
+    # autoscaler, canary and xgboost JSON
+    results["shap"] = phase_shap(served, x, records)
+    results["serve_pool"] = phase_serve_pool(served, x, y)
     pr = results["predict"]
     emit({"phase": "predict_summary", "rows": pr["rows"], "trees": pr["trees"],
           "predict_value_wall_s": pr["predict_value_wall_s"],
@@ -3867,6 +4508,13 @@ def main():
                     help="only the 1-rank main path and the ranks phase (on "
                          "a host of two or more cards: the NCCL path); "
                          "prints no result line")
+    ap.add_argument("--shap-only", action="store_true",
+                    help="only the build, phase 6's model and phase 11 (SHAP "
+                         "with B15); prints no result line")
+    ap.add_argument("--pool-only", action="store_true",
+                    help="only the build, phase 6's model and phase 12 (the "
+                         "replica pool, autoscaler, canary and xgboost "
+                         "JSON); prints no result line")
     ap.add_argument("--facade-only", action="store_true",
                     help="only the build and phase 10 (the sklearn "
                          "estimators, custom objectives and metrics, files, "

@@ -34,7 +34,15 @@ gradients, probabilities and classes (NaN where the plain version's is
 NaN), its partial sums within 1e-5 relative (f32 sums per CTA) and
 bitwise from rerun to rerun, and its eval mode the training mode's
 margins and sums bit for bit; multiclass training on the card reruns bit
-for bit, with its rows in two shards folded too.
+for bit, with its rows in two shards folded too. B15's three entry points
+(Saabas, exact TreeSHAP, interactions) give the plain version's values bit
+for bit (the kernel runs the plain version's f32 operations in its order,
+unfused), on random forests with NaN, categorical splits, a depth-1 stump,
+depth 9 (the wide register arrays), F = 54 with K = 7, DART weights,
+``num_parallel_tree`` and ``ntree_limit``; reruns are bitwise, a row's
+result does not depend on the other rows of its launch, each call is one
+launch, and the booster's and the server's contributions on the card equal
+each other bit for bit.
 """
 
 import numpy as np
@@ -45,6 +53,7 @@ from xgboost_ray_tpu_torch.ops import grow as tg
 from xgboost_ray_tpu_torch.ops import histogram as th
 from xgboost_ray_tpu_torch.ops import objectives as to
 from xgboost_ray_tpu_torch.ops import predict as tp
+from xgboost_ray_tpu_torch.ops import shap as tsh
 from xgboost_ray_tpu_torch.ops import split as ts
 
 
@@ -1325,3 +1334,158 @@ def test_multiclass_training_reruns_bitwise(cuda):
     vals = bh.predict(xv)
     assert vals.shape == (9001, 5)
     assert np.array_equal(vals, bh.predict(xv, device="cpu"))
+
+
+# --------------------------------------------------------------------------
+# B15: SHAP values
+# --------------------------------------------------------------------------
+
+
+def _shap_forest_np(seed, n_trees, depth, nf, cat=(), p_leaf=0.2):
+    """A padded-heap forest with consistent node statistics: random splits
+    (categorical ones on a code), early leaves with probability p_leaf,
+    every node's cover the sum of its children's, random base weights."""
+    rng = np.random.default_rng(seed)
+    heap = (2 << depth) - 1
+    f = {k: np.zeros((n_trees, heap), dt) for k, dt in (
+        ("feature", np.int32), ("split_bin", np.int32),
+        ("threshold", np.float32), ("default_left", bool),
+        ("is_leaf", bool), ("value", np.float32), ("gain", np.float32),
+        ("cover", np.float32), ("base_weight", np.float32))}
+    f["feature"][:] = -1
+
+    def grow(t, i, level):
+        f["base_weight"][t, i] = rng.normal() * 0.3
+        if level == depth or (level > 0 and rng.random() < p_leaf):
+            f["is_leaf"][t, i] = True
+            f["value"][t, i] = rng.normal() * 0.3
+            f["cover"][t, i] = rng.uniform(1.0, 50.0)
+            return f["cover"][t, i]
+        feat = int(rng.integers(nf))
+        f["feature"][t, i] = feat
+        f["threshold"][t, i] = rng.choice([-1.0, -0.5, 0.0, 0.5, 1.0])
+        f["split_bin"][t, i] = int(rng.integers(0, 4))
+        f["default_left"][t, i] = rng.random() < 0.5
+        c = grow(t, 2 * i + 1, level + 1) + grow(t, 2 * i + 2, level + 1)
+        f["cover"][t, i] = c
+        return c
+
+    for t in range(n_trees):
+        grow(t, 0, 0)
+    return tg.Tree(**f)
+
+
+def _shap_rows(seed, n, nf, cat=()):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, nf)).astype(np.float32)
+    x[rng.random((n, nf)) < 0.1] = np.nan
+    for c in cat:
+        x[:, c] = rng.integers(0, 5, n) + np.where(rng.random(n) < 0.2, 0.5,
+                                                   0.0)
+    return x
+
+
+# (trees, depth, features, classes, categorical, npt, tree weights, limit)
+SHAP_CASES = [
+    (30, 6, 28, 1, (), 1, False, 0),
+    (14, 6, 54, 7, (), 1, False, 0),
+    (6, 1, 5, 1, (), 1, False, 0),
+    (12, 4, 9, 3, (2,), 2, True, 9),
+    (4, 9, 10, 1, (), 1, False, 0),
+]
+SHAP_FNS = {"saabas": (tsh.predict_contribs, tsh.predict_contribs_plain),
+            "exact": (tsh.predict_contribs_exact,
+                      tsh.predict_contribs_exact_plain),
+            "interactions": (tsh.predict_interactions,
+                             tsh.predict_interactions_plain)}
+
+
+def _shap_case(case, dev, n=300, seed=0):
+    t, depth, nf, k, cat, npt, tw, limit = case
+    forest = _shap_forest_np(seed, t, depth, nf, cat,
+                             p_leaf=0.45 if depth > 8 else 0.2)
+    weights = (np.random.default_rng(seed + 1).uniform(0.2, 1.5, t)
+               .astype(np.float32) if tw else None)
+    sf = tsh.shap_forest(forest, depth, dev, num_features=nf,
+                         cat_features=cat)
+    sc = tsh.tree_scales(sf, k, npt, limit, weights)
+    x = torch.from_numpy(_shap_rows(seed + 2, n, nf, cat)).to(dev)
+    return sf, sc, x
+
+
+# the plain interactions at depth 9 take minutes (D^2 loops of PyTorch
+# calls per leaf): that case is held for Saabas and exact only
+@pytest.mark.parametrize("case,mode", [
+    (case, mode) for case in SHAP_CASES for mode in SHAP_FNS
+    if not (mode == "interactions" and case[1] > 6)])
+def test_shap_kernels_bitwise_plain(cuda, case, mode):
+    sf, sc, x = _shap_case(case, cuda)
+    kernel, plain = SHAP_FNS[mode]
+    tsh.reset_launches()
+    got = kernel(sf, x, sc)
+    torch.cuda.synchronize()
+    assert kernel.launches == 1 and tsh.LAUNCHES_BY_MODE[mode] == 1
+    ref = plain(sf, x, sc)
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, ref), (mode, case, float((got - ref).abs().max()))
+    # the plain version on the card is the plain version on the CPU
+    sfc, scc, xc = _shap_case(case, "cpu")
+    assert torch.equal(plain(sfc, xc, scc), ref.cpu())
+
+
+def test_shap_reruns_and_row_independence(cuda):
+    sf, sc, x = _shap_case(SHAP_CASES[0], cuda, n=2000)
+    for mode, (kernel, _) in SHAP_FNS.items():
+        rows = 300 if mode == "interactions" else 2000
+        a = kernel(sf, x[:rows], sc)
+        b = kernel(sf, x[:rows], sc)
+        assert torch.equal(a, b), mode
+        for lo, hi in ((0, 8), (17, 25), (40, 296)):
+            part = kernel(sf, x[lo:hi].contiguous(), sc)
+            assert torch.equal(part, a[lo:hi]), (mode, lo, hi)
+
+
+def test_shap_wrappers_reject_bad_inputs(cuda):
+    sf, sc, x = _shap_case(SHAP_CASES[2], cuda, n=64)
+    with pytest.raises(ValueError, match="x must be"):
+        tsh.predict_contribs_exact(sf, x[:, :3].contiguous(), sc)
+    with pytest.raises(ValueError, match="out must be"):
+        tsh.predict_contribs_exact(sf, x, sc, out=torch.empty(
+            (64, 1, 3), device=cuda))
+    with pytest.raises(ValueError, match="scratch"):
+        tsh.predict_contribs_exact(sf, x, sc, scratch=torch.empty(
+            (5,), device=cuda))
+    sfc, scc, _ = _shap_case(SHAP_CASES[2], "cpu", n=64)
+    with pytest.raises(ValueError, match="SHAP forest"):
+        tsh.predict_contribs_exact(sfc, x, scc)
+
+
+def test_booster_and_server_contribs_on_card(cuda):
+    """pred_contribs / approx / interactions through the booster: one
+    launch a call, the sums to the margin, bitwise its CPU path within f32
+    rounding, and a served contribs batch bit for bit the booster's."""
+    import xgboost_ray_tpu_torch as tx
+    from xgboost_ray_tpu_torch import serve
+
+    rng = np.random.default_rng(3)
+    x = rng.normal(size=(3000, 8)).astype(np.float32)
+    y = (x[:, 0] + x[:, 1] * x[:, 2] > 0).astype(np.float32)
+    bst = tx.train({"objective": "binary:logistic", "max_depth": 5},
+                   tx.RayDMatrix(x, y), 8,
+                   ray_params=tx.RayParams(num_actors=1))
+    tsh.reset_launches()
+    c = bst.predict(x, pred_contribs=True)
+    a = bst.predict(x, pred_contribs=True, approx_contribs=True)
+    i = bst.predict(x[:500], pred_interactions=True)
+    assert tsh.LAUNCHES_BY_MODE == {"saabas": 1, "exact": 1,
+                                    "interactions": 1}
+    m = bst.predict(x, output_margin=True)
+    np.testing.assert_allclose(c.sum(1), m, atol=1e-5)
+    np.testing.assert_allclose(a.sum(1), m, atol=1e-5)
+    np.testing.assert_allclose(i.sum((1, 2)), m[:500], atol=1e-5)
+    np.testing.assert_allclose(i.sum(2), c[:500], atol=1e-5)
+    assert np.array_equal(c, bst.predict(x, pred_contribs=True,
+                                         device="cpu"))
+    pred = serve.CompiledPredictor(bst)
+    for n in (1, 8, 37):
+        assert np.array_equal(pred.predict(x[:n], "contribs"), c[:n])

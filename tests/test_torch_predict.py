@@ -647,10 +647,14 @@ def test_jax_categorical_model_carried_across():
 
 def test_guards(readme_models):
     jb, tb, _, x = readme_models
-    with pytest.raises(NotImplementedError, match="A15"):
-        tb.predict(x, pred_contribs=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="A15"):
-        tb.predict(x, pred_interactions=True, device="cpu")
+    # SHAP outputs (B15's plain versions here) sum to the margin
+    m = tb.predict(x, output_margin=True, device="cpu")
+    np.testing.assert_allclose(
+        tb.predict(x, pred_contribs=True, device="cpu").sum(-1), m,
+        rtol=1e-5, atol=2e-5)
+    np.testing.assert_allclose(
+        tb.predict(x[:20], pred_interactions=True, device="cpu").sum((-1, -2)),
+        m[:20], rtol=1e-5, atol=2e-5)
     with pytest.raises(ValueError, match="Feature shape mismatch"):
         tb.predict(x[:, :5], device="cpu")
     with pytest.raises(ValueError, match="RayDMatrix"):

@@ -30,7 +30,7 @@ from xgboost_ray_tpu_torch.serve.predictor import bucket_rows
 
 CPU = "cpu"
 RP = tx.RayParams(num_actors=2)
-SERVED = ("value", "margin", "leaf")
+SERVED = ("value", "margin", "leaf", "contribs")
 
 
 def _train_binary(seed=0, eta=0.3, rounds=4):
@@ -60,7 +60,8 @@ def binary_model_b():
 
 def _ref(bst, q, kind):
     kw = {"value": {}, "margin": {"output_margin": True},
-          "leaf": {"pred_leaf": True}}[kind]
+          "leaf": {"pred_leaf": True},
+          "contribs": {"pred_contribs": True}}[kind]
     return bst.predict(q, device=CPU, **kw)
 
 
@@ -107,8 +108,9 @@ def test_served_bitwise_equal_to_batch_predict(binary_model, layout):
     first = pred.predict(x[:5], "margin")
     pred.predict(x[5:10], "margin")
     assert np.array_equal(first, _ref(bst, x[:5], "margin"))
-    with pytest.raises(NotImplementedError, match="A15"):
-        pred.predict(x[:3], "contribs")
+    # contribs: B15's plain version over the bucket, as predict(pred_contribs)
+    assert np.array_equal(pred.predict(x[:3], "contribs"),
+                          _ref(bst, x[:3], "contribs"))
     with pytest.raises(ValueError, match="output kind"):
         pred.predict(x[:3], "nope")
     with pytest.raises(ValueError, match="feature shape mismatch"):
@@ -217,8 +219,9 @@ def test_microbatcher_coalesces_concurrent_requests(binary_model):
         # 8 near-simultaneous requests within one 50 ms window coalesce
         assert snap["batches"] < 8
         assert snap["mean_batch_rows"] > 3
-        with pytest.raises(NotImplementedError, match="A15"):
-            batcher.submit(x[:2], "contribs")
+        out, version = batcher.submit(x[:2], "contribs")
+        assert version == 1
+        assert np.array_equal(out, _ref(bst, x[:2], "contribs"))
     finally:
         batcher.shutdown()
 
@@ -316,7 +319,14 @@ def test_registry_loads_path_json_bytes_and_refuses_xgb_json(binary_model,
             got = entry.predictor.predict(x[:6], "margin")
         assert np.array_equal(got, _ref(bst, x[:6], "margin"))
     assert reg.version == 4
-    with pytest.raises(NotImplementedError, match="xgb_export"):
+    # xgboost's JSON schema loads too (models/xgb_export.py)
+    xgb_doc = json.loads(bst.export_xgboost_json())
+    reg.load(xgb_doc, warm=False)
+    with reg.lease() as entry:
+        got = entry.predictor.predict(x[:6], "margin")
+    assert np.array_equal(got, _ref(bst, x[:6], "margin"))
+    assert reg.version == 5
+    with pytest.raises(KeyError):
         serve.coerce_model({"learner": {"gradient_booster": {"name": "gbtree"}}})
     with pytest.raises(TypeError):
         serve.coerce_model(pickle.dumps({"not": "a booster"}))
@@ -373,9 +383,11 @@ def test_http_error_codes(binary_model, binary_model_b, tmp_path):
                 _post(h.url, "/predict", doc)
             assert ei.value.code == 400
             assert frag in json.loads(ei.value.read())["error"]
-        with pytest.raises(urllib.error.HTTPError) as ei:
-            _post(h.url, "/predict", {"data": q[:2].tolist(), "kind": "contribs"})
-        assert ei.value.code == 501
+        status, r = _post(h.url, "/predict", {"data": q[:2].tolist(),
+                                              "kind": "contribs"})
+        assert status == 200
+        assert np.array_equal(np.asarray(r["predictions"], np.float32),
+                              _ref(bst, q[:2], "contribs"))
         with pytest.raises(urllib.error.HTTPError) as ei:
             _get(h.url, "/nope")
         assert ei.value.code == 404
@@ -393,8 +405,14 @@ def test_http_error_codes(binary_model, binary_model_b, tmp_path):
         assert ei.value.code == 400
     finally:
         h.shutdown()
-    with pytest.raises(NotImplementedError, match="n_replicas"):
-        serve.create_server(bst, n_replicas=2, device=CPU)
+    h2 = serve.create_server(bst, n_replicas=2, device=CPU, max_batch=32)
+    try:
+        assert isinstance(h2.batcher, serve.Router)
+        status, r = _post(h2.url, "/predict", {"data": q[:3].tolist()})
+        assert status == 200 and r["model_version"] == 1
+        assert h2.metrics.snapshot()["replicas"] == 2
+    finally:
+        h2.shutdown()
     with pytest.raises(ValueError, match="layout"):
         serve.create_server(bst, layout="nope", device=CPU)
 

@@ -116,7 +116,10 @@ def test_import_pulls_in_no_jax():
         "import xgboost_ray_tpu_torch.sklearn, xgboost_ray_tpu_torch.tune\n"
         "import xgboost_ray_tpu_torch.callback, xgboost_ray_tpu_torch.compat\n"
         "import xgboost_ray_tpu_torch.session, xgboost_ray_tpu_torch.util\n"
-        "import xgboost_ray_tpu_torch.native\n"
+        "import xgboost_ray_tpu_torch.native, xgboost_ray_tpu_torch.obs.trace\n"
+        "import xgboost_ray_tpu_torch.ops.shap\n"
+        "import xgboost_ray_tpu_torch.models.xgb_export\n"
+        "from xgboost_ray_tpu_torch.serve import autoscale, canary, pool\n"
         "from xgboost_ray_tpu_torch.data_sources import (\n"
         "    csv, dask, modin, object_store, parquet, partitioned, petastorm,\n"
         "    ray_dataset, _distributed)\n"

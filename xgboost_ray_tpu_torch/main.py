@@ -657,7 +657,11 @@ def predict(
     rank's records firing ``before_predict`` once its shard is loaded and
     ``after_predict`` with its rows' predictions. ``kwargs`` are
     ``RayXGBoostBooster.predict``'s (``output_margin``, ``pred_leaf``,
-    ``iteration_range``, ``ntree_limit``, ``base_margin``).
+    ``pred_contribs``, ``pred_interactions``, ``approx_contribs``,
+    ``iteration_range``, ``ntree_limit``, ``base_margin``): SHAP outputs
+    (``xgboost_ray_tpu/main.py:2235-2292``) come from B15 over the shards
+    concatenated in rank order, a shard's ``base_margin`` in its rows' bias
+    column, and are split back per rank for ``after_predict``.
     """
     ray_params = _check_ray_params(ray_params)
     if _remote:

@@ -8,18 +8,25 @@ and prediction (``:145`` ``cat_features``, ``:156`` ``signature``, ``:204``
 ``_coerce_features``, ``:254`` ``slice_rounds``, ``:268``
 ``base_score_margin_np``, ``:277`` ``predict_margin_np``, ``:680``
 ``predict``, and ``:732`` ``_margin_to_prediction``, which B8 fuses)
-through B8 (``ops/predict.py``), on the card unless ``device="cpu"``.
-Rows go to the device in chunks of at most ``_CHUNK_BYTES`` of input and
-output, so a large ``pred_leaf`` (``[N, T]`` int32) never has to fit the
-card at once.
+through B8 (``ops/predict.py``), and SHAP contributions and interaction
+values (``:578-678``: ``_finalize_contribs``, ``_assert_node_stats``,
+``predict_contribs``, ``predict_interactions``) through B15
+(``ops/shap.py``, its tables built once per device and kept with the
+model), on the card unless ``device="cpu"``.
+Rows go to the device in chunks of at most ``_CHUNK_BYTES`` of input,
+output and kernel scratch, one launch a chunk, so a large ``pred_leaf``
+(``[N, T]`` int32) or interactions output never has to fit the card at
+once. ``get_dump`` writes text or xgboost's JSON dump (``:846-848``), and
+``export_xgboost_json`` / ``import_xgboost_json`` (``:744-756``) xgboost's
+model schema (``models/xgb_export.py``).
 The host API the sklearn estimators read is the JAX module's too:
 ``get_score`` / ``get_fscore`` (``:968-996``), ``trees_to_dataframe``
 (``:932``), ``attributes`` / ``attr`` / ``set_attr`` (``:189-202``), and
 pickling through ``_to_dict`` (``:998-1004``), so a pickle holds host
 arrays only and loads on a host without a card.
 ``coerce_model`` turns the model forms ``predict()`` and the serving
-registry accept (booster, pickled bytes, saved-model path, JSON document)
-into a booster.
+registry accept (booster, pickled bytes, saved-model path, JSON document
+of either schema) into a booster.
 The JSON is the JAX package's format (``"format":
 "xgboost_ray_tpu.booster"``), so files cross-load both ways. The arrays
 are written as an npz whose zip entries carry a fixed timestamp, so
@@ -32,6 +39,8 @@ import io
 import json
 import os
 import pickle
+import threading
+import warnings
 import zipfile
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -40,6 +49,7 @@ import torch
 
 from xgboost_ray_tpu_torch.device import resolve_device
 from xgboost_ray_tpu_torch.ops import predict as predict_ops
+from xgboost_ray_tpu_torch.ops import shap as shap_ops
 from xgboost_ray_tpu_torch.ops.grow import Tree
 from xgboost_ray_tpu_torch.ops.objectives import base_score_margin, get_objective
 from xgboost_ray_tpu_torch.params import TrainParams, cat_feature_indices
@@ -116,6 +126,9 @@ class RayXGBoostBooster:
         self.best_score: Optional[float] = None
         self._attributes: Dict[str, str] = {}
         self._has_node_stats: bool = True
+        # device -> the forest's SHAP tables there (ops.shap.shap_forest)
+        self._shap_forests: Dict[str, Any] = {}
+        self._shap_lock = threading.Lock()
 
     # -- introspection -----------------------------------------------------
 
@@ -318,6 +331,98 @@ class RayXGBoostBooster:
             out[lo:hi] = predict_ops.predict_leaf_index(fo, xd).cpu().numpy()
         return out
 
+    def shap_forest(self, device) -> "shap_ops.ShapForest":
+        """The forest's SHAP tables on ``device`` (``ops.shap.ShapForest``),
+        built on the first call and kept with the model, so every later
+        contributions call and every serve replica on that device reads the
+        same tables."""
+        dev = resolve_device(device)
+        with self._shap_lock:
+            sf = self._shap_forests.get(str(dev))
+            if sf is None:
+                sf = self._shap_forests[str(dev)] = shap_ops.shap_forest(
+                    self.forest, self.max_depth, dev,
+                    num_features=self.num_features,
+                    cat_features=self.cat_features)
+        return sf
+
+    def tree_scales(self, sf, ntree_limit: int = 0):
+        """``ops.shap.tree_scales`` of this model on ``sf``'s device."""
+        return shap_ops.tree_scales(
+            sf, self.num_outputs, self.params.num_parallel_tree,
+            int(ntree_limit), self.tree_weights)
+
+    def _assert_node_stats(self) -> None:
+        if not self._has_node_stats:
+            raise ValueError(
+                "This model was saved by a version without per-node "
+                "statistics (cover/base_weight); prediction contributions "
+                "would be all-zero. Re-train or re-save the model with this "
+                "version."
+            )
+
+    def _finalize_contribs(self, out: np.ndarray, kind: str,
+                           base_margin: Optional[np.ndarray]) -> np.ndarray:
+        """The base-score margin (and a user ``base_margin``) into the bias
+        slot, and the class axis squeezed for one output (the reference's
+        ``_finalize_contribs``; the serve predictor finalizes the same
+        way)."""
+        n = out.shape[0]
+        k = out.shape[1]
+        m0 = np.float32(self.base_score_margin_np())
+        if kind == "interactions":
+            out[:, :, -1, -1] += m0
+            if base_margin is not None:
+                out[:, :, -1, -1] += np.asarray(
+                    base_margin, np.float32).reshape(n, -1)
+            return out[:, 0] if k == 1 else out
+        out[:, :, -1] += m0
+        if base_margin is not None:
+            out[:, :, -1] += np.asarray(base_margin, np.float32).reshape(n, -1)
+        return out[:, 0, :] if k == 1 else out
+
+    def _shap(self, x: np.ndarray, mode: str, ntree_limit: int,
+              base_margin: Optional[np.ndarray], device) -> np.ndarray:
+        self._assert_node_stats()
+        dev = resolve_device(device)
+        n, num_features = x.shape
+        k = self.num_outputs
+        sf = self.shap_forest(dev)
+        sc = self.tree_scales(sf, ntree_limit)
+        shape = shap_ops.out_shape(n, num_features, k, mode)
+        width = int(np.prod(shape[1:]))
+        words = shap_ops.scratch_floats(sf, num_features, k, mode)
+        out = np.empty(shape, np.float32)
+        run = {"saabas": shap_ops.predict_contribs,
+               "exact": shap_ops.predict_contribs_exact,
+               "interactions": shap_ops.predict_interactions}[mode]
+        for lo, hi in self._chunks(n, 4 * (num_features + width + words)):
+            xd = torch.from_numpy(np.ascontiguousarray(x[lo:hi])).to(dev)
+            out[lo:hi] = run(sf, xd, sc).cpu().numpy()
+        return self._finalize_contribs(
+            out, "interactions" if mode == "interactions" else "contribs",
+            base_margin)
+
+    def predict_contribs(self, x: np.ndarray, ntree_limit: int = 0,
+                         base_margin: Optional[np.ndarray] = None,
+                         approx: bool = False, device=None) -> np.ndarray:
+        """Per-feature contributions [N, F+1] (one output) or [N, K, F+1],
+        bias last, rows summing to the margin: exact TreeSHAP, or with
+        ``approx`` the Saabas path attribution (xgboost
+        ``approx_contribs=True``); one B15 launch per chunk of rows, on
+        ``device`` (the card by default)."""
+        return self._shap(x, "saabas" if approx else "exact", ntree_limit,
+                          base_margin, device)
+
+    def predict_interactions(self, x: np.ndarray, ntree_limit: int = 0,
+                             base_margin: Optional[np.ndarray] = None,
+                             device=None) -> np.ndarray:
+        """SHAP interaction values [N, F+1, F+1] (or [N, K, F+1, F+1]):
+        each feature row sums to that feature's contribution and the grand
+        total equals the margin (xgboost ``pred_interactions``)."""
+        return self._shap(x, "interactions", ntree_limit, base_margin,
+                          device)
+
     def predict(
         self,
         data,
@@ -334,15 +439,23 @@ class RayXGBoostBooster:
         **_ignored,
     ) -> np.ndarray:
         """Predict (API of ``xgboost_ray_tpu.RayXGBoostBooster.predict``):
-        values, margins (``output_margin``) or leaf indices (``pred_leaf``),
+        values, margins (``output_margin``), leaf indices (``pred_leaf``),
+        SHAP contributions (``pred_contribs``, Saabas with
+        ``approx_contribs``) or interaction values (``pred_interactions``),
         on the card unless ``device="cpu"``."""
-        if pred_contribs or pred_interactions:
-            raise NotImplementedError(
-                "pred_contribs / pred_interactions (SHAP) are not supported "
-                "by xgboost_ray_tpu_torch yet (ROADMAP queue A15)."
-            )
         x = self._coerce_features(data)
         booster = self._rounds(iteration_range)
+        if pred_interactions:
+            if approx_contribs:
+                warnings.warn(
+                    "approx_contribs=True is ignored with pred_interactions: "
+                    "only the exact interactions kernel is implemented."
+                )
+            return booster.predict_interactions(x, ntree_limit, base_margin,
+                                                device)
+        if pred_contribs:
+            return booster.predict_contribs(x, ntree_limit, base_margin,
+                                            approx_contribs, device)
         if pred_leaf:
             return booster.predict_leaf(x, device=device)
         if output_margin:
@@ -422,12 +535,29 @@ class RayXGBoostBooster:
     def load_raw(cls, raw: bytes) -> "RayXGBoostBooster":
         return cls._from_dict(json.loads(raw.decode("utf-8")))
 
+    def export_xgboost_json(self, fname: Optional[str] = None) -> str:
+        """The model in xgboost's JSON model schema (``models/xgb_export``),
+        loadable by any xgboost runtime; also written to ``fname``."""
+        from xgboost_ray_tpu_torch.models.xgb_export import export_xgboost_json
+
+        return export_xgboost_json(self, fname)
+
+    @classmethod
+    def import_xgboost_json(cls, data) -> "RayXGBoostBooster":
+        """Load an xgboost JSON model (a path, JSON text or the parsed
+        document), written by either package or by xgboost."""
+        from xgboost_ray_tpu_torch.models.xgb_export import import_xgboost_json
+
+        return import_xgboost_json(data)
+
     # -- model dump ----------------------------------------------------------
 
     def get_dump(self, with_stats: bool = False, dump_format: str = "text") -> List[str]:
+        if dump_format == "json":
+            return self._get_dump_json(with_stats)
         if dump_format != "text":
-            raise NotImplementedError(
-                f"dump_format={dump_format!r} (the port dumps text only)")
+            raise ValueError(
+                f"Unsupported dump_format {dump_format!r} (text or json).")
         dumps = []
         heap = self.forest.feature.shape[1]
         fo = self.forest
@@ -460,6 +590,45 @@ class RayXGBoostBooster:
 
             rec(0, 0)
             dumps.append("\n".join(lines) + "\n")
+        return dumps
+
+    def _get_dump_json(self, with_stats: bool) -> List[str]:
+        """xgboost ``dump_format="json"``: one nested node document per
+        tree (``nodeid/depth/split/split_condition/yes/no/missing/
+        children`` for a split, ``nodeid/leaf`` for a leaf)."""
+        fo = self.forest
+        dumps = []
+        for t in range(self.num_trees):
+
+            def rec(idx: int, depth: int):
+                if bool(fo.is_leaf[t, idx]):
+                    node = {"nodeid": idx, "leaf": float(fo.value[t, idx])}
+                    if with_stats:
+                        node["cover"] = float(fo.cover[t, idx])
+                    return node
+                f = int(fo.feature[t, idx])
+                if f < 0:
+                    return None  # unused slot
+                miss = 2 * idx + 1 if bool(fo.default_left[t, idx]) else 2 * idx + 2
+                node = {
+                    "nodeid": idx,
+                    "depth": depth,
+                    "split": f"f{f}",
+                    "split_condition": float(fo.threshold[t, idx]),
+                    "yes": 2 * idx + 1,
+                    "no": 2 * idx + 2,
+                    "missing": miss,
+                }
+                if with_stats:
+                    node["gain"] = float(fo.gain[t, idx])
+                    node["cover"] = float(fo.cover[t, idx])
+                children = [rec(2 * idx + 1, depth + 1),
+                            rec(2 * idx + 2, depth + 1)]
+                node["children"] = [c for c in children if c is not None]
+                return node
+
+            root = rec(0, 0)
+            dumps.append(json.dumps(root if root is not None else {}))
         return dumps
 
     def trees_to_dataframe(self):
@@ -537,10 +706,10 @@ Booster = RayXGBoostBooster
 
 def coerce_model(model: Any) -> RayXGBoostBooster:
     """The booster that ``model`` names: a ``RayXGBoostBooster``, pickled
-    booster bytes, a saved-model path, or the model's JSON document (text or
-    dict), the format both packages write. xgboost's own JSON schema
-    (``models/xgb_export.py`` of the JAX package) comes in a later slice.
-    Used by ``predict()`` and by the serving registry."""
+    booster bytes, a saved-model path, or a JSON document (text or dict):
+    the format both packages write, or xgboost's own model schema
+    (``models/xgb_export.py``). Used by ``predict()`` and by the serving
+    registry."""
     if isinstance(model, RayXGBoostBooster):
         return model
     if isinstance(model, bytes):
@@ -575,8 +744,4 @@ def coerce_model(model: Any) -> RayXGBoostBooster:
         )
     if doc.get("format") == FORMAT:
         return RayXGBoostBooster._from_dict(doc)
-    raise NotImplementedError(
-        "loading xgboost's JSON model schema is not supported by "
-        "xgboost_ray_tpu_torch yet (a later slice ports "
-        "models/xgb_export.py); save the model with save_model() instead."
-    )
+    return RayXGBoostBooster.import_xgboost_json(doc)

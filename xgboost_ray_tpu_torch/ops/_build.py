@@ -80,6 +80,11 @@ SIGNATURES = {
     "objective": {
         "xrt_k4": ([P, P], I),
     },
+    "shap": {
+        "xrt_shap_saabas": ([P, P], I),
+        "xrt_shap_exact": ([P, P], I),
+        "xrt_shap_interactions": ([P, P], I),
+    },
 }
 
 
@@ -148,6 +153,20 @@ class K4Args(ctypes.Structure):
         "out")]
         + [("n", ctypes.c_longlong), ("grid", I), ("mode", I),
            ("scale_pos_weight", F)])
+
+
+class ShapArgs(ctypes.Structure):
+    """``XrtShapArgs`` of ``csrc/shap.cu``: one B15 launch, passed by
+    pointer (edit both together)."""
+
+    _fields_ = ([(name, P) for name in (
+        "x", "nodes", "base_weight", "steps", "elem_slot", "elem_z",
+        "leaf_value", "leaf_m", "n_leaves", "tree_feats", "n_feats",
+        "weights", "scale", "tree_class", "bias", "scratch", "out")]
+        + [("n_rows", ctypes.c_longlong)]
+        + [(name, I) for name in (
+            "n_features", "n_trees", "max_depth", "max_leaves", "max_feats",
+            "num_outputs", "has_cat", "weights_width")])
 
 
 _lock = threading.Lock()

@@ -26,7 +26,7 @@ import numpy as np
 
 import torch
 
-from xgboost_ray_tpu_torch.serve.predictor import KINDS, contribs_refused
+from xgboost_ray_tpu_torch.serve.predictor import KINDS
 from xgboost_ray_tpu_torch.serve.registry import ModelRegistry, NoModelError
 
 
@@ -97,8 +97,6 @@ class MicroBatcher:
             raise ValueError(
                 f"unknown serve output kind {kind!r}; one of {KINDS}"
             )
-        if kind == "contribs":
-            raise contribs_refused()
         req = _Pending(np.asarray(x, np.float32), kind)
         n_rows = int(req.x.shape[0])
         with self._cond:

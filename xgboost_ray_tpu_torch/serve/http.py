@@ -1,26 +1,29 @@
 """Threaded stdlib HTTP front-end for online inference.
 
 Port of ``xgboost_ray_tpu/serve/http.py`` (``ServeHandle`` ``:198``,
-``create_server`` ``:300``) for one replica. Endpoints (JSON in/out):
+``create_server`` ``:300``). Endpoints (JSON in/out):
 
 * ``POST /predict`` — body ``{"data": [[...], ...], "kind": "value"}``;
   responds ``{"predictions": [...], "model_version": v, "latency_ms": t}``.
-  ``kind`` is ``value | margin | leaf``; ``contribs`` (SHAP) answers 501.
-* ``POST /models`` — hot-swap: body ``{"path": "..."}`` (a saved model) or
-  ``{"model_json": {...}}``; drains in-flight batches, responds
-  ``{"model_version": v}``.
+  ``kind`` is ``value | margin | leaf | contribs`` (default ``value``).
+* ``POST /models`` — hot-swap: body ``{"path": "..."}`` (a saved model of
+  the port's format or xgboost's JSON schema) or ``{"model_json": {...}}``;
+  drains in-flight batches, responds ``{"model_version": v}``.
 * ``GET /healthz`` — 200 ``{"status": "ok", "model_version": v}`` when
   serving; 503 with ``status`` ``no_model`` / ``draining`` / ``degraded``
   (consecutive-predictor-failure breaker open).
 * ``GET /metrics`` — the ``ServeMetrics.snapshot()`` dict; with
   ``?format=prometheus`` the same counters as Prometheus text.
 
-Error codes: 400 on a feature-count mismatch, a bad kind or a bad body;
-503 before any model; 429 when the queue is over ``max_queue_rows``.
-Each HTTP request runs on its own thread (``ThreadingHTTPServer``, with a
-listen backlog of ``LISTEN_BACKLOG`` connections); the threads meet in the
-microbatcher, which turns them into padded batches.
-The replica pool (``n_replicas > 1``) is a later slice.
+Error codes: 400 on a feature-count mismatch, a bad kind, a bad body or a
+model without node statistics asked for ``contribs``; 503 before any
+model and with no live replica; 429 when the queue is over
+``max_queue_rows``. Each HTTP request runs on its own thread
+(``ThreadingHTTPServer``, with a listen backlog of ``LISTEN_BACKLOG``
+connections); the threads meet in the microbatcher, which turns them into
+padded batches. With ``n_replicas > 1`` a ``serve.pool.Router`` takes the
+batcher's place: N replicas, each its own batcher and predictor over the
+one registry, behind least-queue dispatch.
 """
 
 import json
@@ -37,7 +40,8 @@ from xgboost_ray_tpu_torch.serve.batcher import (
     ShuttingDownError,
 )
 from xgboost_ray_tpu_torch.serve.metrics import ServeMetrics
-from xgboost_ray_tpu_torch.serve.predictor import SERVED_KINDS, compile_count
+from xgboost_ray_tpu_torch.serve.pool import NoReplicasError, Router
+from xgboost_ray_tpu_torch.serve.predictor import KINDS, compile_count
 from xgboost_ray_tpu_torch.serve.registry import ModelRegistry, NoModelError
 
 
@@ -162,11 +166,8 @@ class _Handler(BaseHTTPRequestHandler):
             # shed counted once, in the batcher, when the cap rejected it
             self._reply(429, {"error": str(exc)})
             return
-        except (NoModelError, ShuttingDownError) as exc:
+        except (NoModelError, NoReplicasError, ShuttingDownError) as exc:
             self._reply(503, {"error": str(exc)})
-            return
-        except NotImplementedError as exc:
-            self._reply(501, {"error": str(exc)})
             return
         except (ValueError, TypeError) as exc:
             h.metrics.observe_error()
@@ -225,18 +226,12 @@ class ServeHandle:
         max_batch: int = 256,
         max_delay_ms: float = 2.0,
         min_bucket: int = 8,
-        warm_kinds: tuple = SERVED_KINDS,
+        warm_kinds: tuple = KINDS,
         max_queue_rows: int = 0,
         breaker_threshold: int = 5,
         n_replicas: int = 1,
         layout: str = "heap",
     ):
-        if n_replicas > 1:
-            raise NotImplementedError(
-                f"n_replicas={n_replicas}: the replica pool (serve/pool.py) "
-                f"is not supported by xgboost_ray_tpu_torch yet (ROADMAP "
-                f"queue A14)."
-            )
         self._draining = False
         self.metrics = ServeMetrics(recompile_count_fn=compile_count)
         self.registry = ModelRegistry(
@@ -256,14 +251,31 @@ class ServeHandle:
         try:
             if model is not None:
                 self.registry.load(model)
-            self.batcher = MicroBatcher(
-                self.registry,
-                max_batch=max_batch,
-                max_delay_ms=max_delay_ms,
-                metrics=self.metrics,
-                max_queue_rows=max_queue_rows,
-                breaker_threshold=breaker_threshold,
-            )
+            if n_replicas > 1:
+                # the router has the batcher's surface (submit, drain,
+                # shutdown, queue_depth, breaker_open, ...)
+                self.batcher = Router(
+                    self.registry,
+                    n_replicas=n_replicas,
+                    metrics=self.metrics,
+                    max_batch=max_batch,
+                    max_delay_ms=max_delay_ms,
+                    max_queue_rows=max_queue_rows,
+                    breaker_threshold=breaker_threshold,
+                    layout=layout,
+                    device=self.registry.device,
+                    min_bucket=min_bucket,
+                )
+                self.metrics.replica_count_fn = self.batcher.live_replicas
+            else:
+                self.batcher = MicroBatcher(
+                    self.registry,
+                    max_batch=max_batch,
+                    max_delay_ms=max_delay_ms,
+                    metrics=self.metrics,
+                    max_queue_rows=max_queue_rows,
+                    breaker_threshold=breaker_threshold,
+                )
         except BaseException:
             self._httpd.server_close()
             raise

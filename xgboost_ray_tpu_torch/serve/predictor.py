@@ -1,4 +1,4 @@
-"""Padded-bucket predictor: the serve layer's front of kernel B8.
+"""Padded-bucket predictor: the serve layer's front of kernels B8 and B15.
 
 Port of ``xgboost_ray_tpu/serve/predictor.py``: ``KINDS``, ``LAYOUTS``,
 ``bucket_rows`` (``:69``) and ``CompiledPredictor`` (``:101``). Online
@@ -18,8 +18,7 @@ on the same device).
 The reference counts XLA compiles; here the counterpart is a kernel
 build. ``compile_count()`` is the number of kernel builds (``nvcc`` runs:
 the port has no JIT-compiled kernel) this process made: ``warmup`` builds
-what the buckets need, and after it no request builds anything. SHAP output
-(``contribs``) is ROADMAP queue A15 and raises ``NotImplementedError``.
+what the buckets need, and after it no request builds anything.
 """
 
 import contextlib
@@ -32,13 +31,10 @@ import torch
 from xgboost_ray_tpu_torch.device import resolve_device
 from xgboost_ray_tpu_torch.ops import _build
 from xgboost_ray_tpu_torch.ops import predict as predict_ops
+from xgboost_ray_tpu_torch.ops import shap as shap_ops
 
-#: output kinds of the serve API (``contribs`` is refused until SHAP is
-#: ported)
+#: output kinds of the serve API
 KINDS = ("value", "margin", "leaf", "contribs")
-
-#: kinds this port serves
-SERVED_KINDS = ("value", "margin", "leaf")
 
 #: forest layouts the predictor can walk: the padded heap (the batch path's
 #: layout) and the breadth-first node array (``ops/node_array.py``); both
@@ -49,13 +45,6 @@ LAYOUTS = predict_ops.LAYOUTS
 def compile_count() -> int:
     """Kernel builds (``nvcc`` runs) made by this process."""
     return _build.compile_count()
-
-
-def contribs_refused() -> NotImplementedError:
-    return NotImplementedError(
-        "serve kind 'contribs' (SHAP) is not supported by "
-        "xgboost_ray_tpu_torch yet (ROADMAP queue A15)."
-    )
 
 
 def bucket_rows(n: int, min_bucket: int, n_dev: int = 1) -> int:
@@ -100,11 +89,19 @@ class CompiledPredictor:
         self.value_width = predict_ops.value_width(booster.params.objective,
                                                    booster.num_outputs)
         self.tw_dev = booster.device_tree_weights(self.device)
-        # (bucket, "margin" | "value" | "leaf") -> (rows buffer, output
-        # buffer)
-        self._buffers: Dict[Tuple[int, str], Tuple[torch.Tensor,
-                                                   torch.Tensor]] = {}
+        # contribs: the model's SHAP tables and tree scales, at first use
+        self._shap = None
+        # (bucket, kind) -> (rows buffer, output buffer, B15 scratch or None)
+        self._buffers: Dict[Tuple[int, str], Tuple] = {}
         self._lock = threading.Lock()
+
+    def _shap_tables(self):
+        if self._shap is None:
+            b = self.booster
+            b._assert_node_stats()
+            sf = b.shap_forest(self.device)
+            self._shap = (sf, b.tree_scales(sf))
+        return self._shap
 
     def _bucket_buffers(self, bucket: int, kind: str):
         b = self.booster
@@ -113,12 +110,23 @@ class CompiledPredictor:
         if bufs is None:
             x = torch.zeros((bucket, b.num_features), dtype=torch.float32,
                             device=self.device)
-            width = {"leaf": b.num_trees, "margin": b.num_outputs,
-                     "value": self.value_width}[kind]
-            out = torch.empty((bucket, width), device=self.device,
+            scratch = None
+            if kind == "contribs":
+                sf, _ = self._shap_tables()
+                shape = shap_ops.out_shape(bucket, b.num_features,
+                                           b.num_outputs, "exact")
+                words = shap_ops.scratch_floats(sf, b.num_features,
+                                                b.num_outputs, "exact")
+                scratch = torch.empty((words * bucket,), dtype=torch.float32,
+                                      device=self.device)
+            else:
+                shape = (bucket, {"leaf": b.num_trees,
+                                  "margin": b.num_outputs,
+                                  "value": self.value_width}[kind])
+            out = torch.empty(shape, device=self.device,
                               dtype=torch.int32 if kind == "leaf"
                               else torch.float32)
-            bufs = self._buffers[key] = (x, out)
+            bufs = self._buffers[key] = (x, out, scratch)
         return bufs
 
     def predict(self, x: np.ndarray, kind: str = "value",
@@ -138,9 +146,11 @@ class CompiledPredictor:
             raise ValueError(
                 f"unknown serve output kind {kind!r}; one of {KINDS}"
             )
-        if kind == "contribs":
-            raise contribs_refused()
         b = self.booster
+        if kind == "contribs":
+            # as the batch path: no all-zero SHAP values from a model
+            # without node statistics
+            b._assert_node_stats()
         x = np.asarray(x, np.float32)
         if x.ndim != 2 or x.shape[1] != b.num_features:
             raise ValueError(
@@ -152,11 +162,16 @@ class CompiledPredictor:
         ctx = (torch.cuda.stream(stream) if stream is not None
                else contextlib.nullcontext())
         with self._lock, ctx:
-            xb, ob = self._bucket_buffers(bucket, kind)
+            xb, ob, scratch = self._bucket_buffers(bucket, kind)
             xb[:n].copy_(torch.from_numpy(np.ascontiguousarray(x)))
             if n < bucket:
                 xb[n:].zero_()
-            if kind == "leaf":
+            if kind == "contribs":
+                sf, sc = self._shap_tables()
+                shap_ops.predict_contribs_exact(sf, xb, sc, out=ob,
+                                                scratch=scratch,
+                                                stream=stream)
+            elif kind == "leaf":
                 predict_ops.predict_leaf_index(self.forest_dev, xb, out=ob,
                                                stream=stream)
             else:
@@ -167,9 +182,11 @@ class CompiledPredictor:
                     tree_weights=self.tw_dev, out=ob, stream=stream,
                     transform=b.params.objective if kind == "value" else None)
             res = ob[:n]
-            if kind != "leaf" and res.shape[1] == 1:
+            if kind in ("margin", "value") and res.shape[1] == 1:
                 res = res[:, 0]
             out = res.to("cpu", copy=True).numpy()
+        if kind == "contribs":
+            out = b._finalize_contribs(out, "contribs", None)
         return out, bucket
 
     def warmup(self, kinds=("value",), max_batch: int = 256) -> int:

@@ -10,8 +10,9 @@ the entry its ``lease()`` took, so a response is wholly from one model
 version.
 
 Models load through ``models.booster.coerce_model``: the port's
-``RayXGBoostBooster``, pickled booster bytes, a saved-model path, or the
-model's JSON document (text or dict).
+``RayXGBoostBooster``, pickled booster bytes, a saved-model path, or a
+JSON document (text or dict) of the port's format or of xgboost's model
+schema (``import_xgboost_json``).
 """
 
 import threading
@@ -23,10 +24,7 @@ import torch
 
 from xgboost_ray_tpu_torch.device import resolve_device
 from xgboost_ray_tpu_torch.models.booster import RayXGBoostBooster, coerce_model
-from xgboost_ray_tpu_torch.serve.predictor import (
-    SERVED_KINDS,
-    CompiledPredictor,
-)
+from xgboost_ray_tpu_torch.serve.predictor import KINDS, CompiledPredictor
 
 
 class NoModelError(RuntimeError):
@@ -51,8 +49,9 @@ class ModelRegistry:
     min_bucket: int = 8
     #: forest layout of the predictor ("heap" or "node_array")
     layout: str = "heap"
-    #: kinds warmed on load (before the swap becomes visible)
-    warm_kinds: tuple = SERVED_KINDS
+    #: kinds warmed on load (before the swap becomes visible): all four, so
+    #: the first request of any kind after a publish finds its buffers
+    warm_kinds: tuple = KINDS
     #: largest batch the warmup covers; align with the batcher's max_batch
     warm_max_batch: int = 256
     metrics: Optional[Any] = None  # ServeMetrics, for the swap counter
@@ -85,7 +84,11 @@ class ModelRegistry:
                 layout=self.layout,
             )
             if warm and self.warm_kinds:
-                kinds = [k for k in self.warm_kinds if k in SERVED_KINDS]
+                kinds = [k for k in self.warm_kinds if k in KINDS]
+                if not booster._has_node_stats:
+                    # no SHAP without node statistics: contribs requests
+                    # are refused, so there is nothing to warm
+                    kinds = [k for k in kinds if k != "contribs"]
                 predictor.warmup(kinds=kinds, max_batch=self.warm_max_batch)
             with self._cond:
                 while self._swapping:
