@@ -181,13 +181,24 @@ is only where it may find ``cuobjdump``). Phases:
    checked and exact held against plain; each entry point timed at the
    main path's shape (events; device time L2 flushed by a write, by a
    read, and warm) and at 4,096 rows beside its plain version, its bound
-   from the forest's actual leaves (``ops/shap.leaf_ops``); no PyTorch
-   call computes TreeSHAP, so ``library_ms`` is null;
+   from the forest's actual leaves (``ops/shap.leaf_ops``) and, beside it,
+   the unfused ceiling (twice the operations bound: B15 builds with
+   --fmad=false); no PyTorch call computes TreeSHAP, so ``library_ms`` is
+   null. The exact and interaction kernels' launches are counted by
+   mapping on each path; each of their mappings is held bitwise against
+   the plain version and against the main path's mapping, and timed at the
+   main path's shape; each record carries its mapping and its kernel's
+   registers and spills (``-Xptxas -v``; no B15 kernel of a forest up to
+   depth 8 may spill), beside the seconds ``csrc/shap.cu`` alone takes to
+   build; then a 37-row serve ``contribs`` batch through
+   ``serve.CompiledPredictor`` (host clock) and its B15 launch (events);
 12. the replica pool (``serve_pool``): ``create_server(bst,
    n_replicas=1)`` and ``n_replicas=4`` under the 16-client closed loop
    (1 s warmup, 3 s measured; qps and p50/p95/p99 side by side, no
    claim), probes of all four kinds bitwise ``booster.predict`` on the
-   card and on the CPU (``contribs`` one B15 launch a batch), no kernel
+   card and on the CPU (``contribs`` one B15 launch a batch; the 37-row
+   probe's request and, before the windows, the predictor's call and its
+   B15 launch timed), no kernel
    build after warmup, one B8 value launch per batch, no client error;
    a replica killed half-way through a 4-replica window and then
    rejoined: no client error, the kill on the trace; an autoscaler up /
@@ -250,6 +261,14 @@ JSON line and no result line.
 
 ``--facade-only`` runs the build and phase 10 alone and prints its kernel
 rows but no result line.
+
+``--b15-variants`` runs the build, phase 6's model and then times B15's
+exact and interaction kernels (rows mapping, phase 11's shapes) as built
+against edits of ``csrc/shap.cu`` compiled beside it (``B15_VARIANTS``:
+the compiler's division for the quotients, warp votes around the UNWIND
+branches, the pair loop unrolled) and against every rows-mapping buffer on
+chip, in turns, bitwise checked, then both mappings across batch sizes;
+one JSON line and no result line.
 
 ``--ranks-only`` runs the build, the 1-rank main path and the ranks phase
 (on a host of two or more cards also the NCCL path, against the 1-rank
@@ -564,7 +583,7 @@ def phase_build_report(n_trees, n_rows):
     paths = _build.build_all()
     report = {}
     for stem in ("histogram", "partition", "predict", "walk", "softmax",
-                 "objective"):
+                 "objective", "shap"):
         if stem in paths:  # walk, softmax, objective: not in older trees
             report[stem] = {"ptxas": ptxas_report(_build.build_log(stem)),
                             "sass_atomics": sass_atomics(paths[stem])}
@@ -586,6 +605,12 @@ def phase_build_report(n_trees, n_rows):
         finding = "every shared add compiles to a native ATOMS add"
     report["k1_shared_atomic_finding"] = finding
     report["k1_shared_atomic_opcodes"] = shared
+    # B15 sums in a fixed order: no atomic of any kind
+    b15_atomics = {fn: ops for fn, ops in
+                   report.get("shap", {}).get("sass_atomics", {}).items()
+                   if isinstance(ops, dict) and ops}
+    report["b15_atomics"] = b15_atomics
+    check(not b15_atomics, f"B15 kernels use atomics: {b15_atomics}")
     emit({"phase": "build_report", **report})
     return report
 
@@ -2415,6 +2440,145 @@ K4_VARIANTS = {
 }
 
 
+#: B15 variants timed by ``--b15-variants``: edits of ``csrc/shap.cu``
+#: (old text, new text, how many times the old text occurs)
+_B15_RECURRENCE = """  float acc = q[N];
+#pragma unroll
+  for (int k = N - 1; k >= 0; --k) {
+    rr[k] = acc;
+    acc = q[k] - z * acc;
+  }
+"""
+_B15_QUOTIENTS = """  const float den = fmaxf(z, 1e-12f);
+  if (fast) {
+#pragma unroll
+    for (int k = 0; k < N; ++k) rq[k] = xrt_qdiv(q[k], den, y);
+  } else {
+    const bool pos = z > 0.f;
+#pragma unroll
+    for (int k = 0; k < N; ++k) rq[k] = pos ? q[k] / den : 0.f;
+  }
+"""
+_B15_PAIR_LOOP = "#pragma unroll 1\n        for (int j = 0; j < L.m; ++j) {"
+B15_VARIANTS = {
+    "built": [],
+    # the compiler's IEEE division in place of the 5-instruction quotient
+    "compiler_division": [(
+        "  const float q0 = __fmul_rn(a, y);\n"
+        "  const float q1 = __fmaf_rn(__fmaf_rn(-d, q0, a), y, q0);\n"
+        "  return __fmaf_rn(__fmaf_rn(-d, q1, a), y, q1);",
+        "  return a / d;", 1)],
+    # each UNWIND branch only where a lane of the warp takes it (a vote)
+    "warp_votes": [(
+        _B15_RECURRENCE + _B15_QUOTIENTS,
+        "  const unsigned active = __activemask();\n"
+        "  if (__any_sync(active, one)) {\n" + _B15_RECURRENCE + "  }\n"
+        "  if (__any_sync(active, !one)) {\n" + _B15_QUOTIENTS + "  }\n",
+        1)],
+    # the interactions' loop over the other element unrolled
+    "pair_loop_unrolled_2": [(_B15_PAIR_LOOP, _B15_PAIR_LOOP.replace(
+        "unroll 1", "unroll 2"), 1)],
+    "pair_loop_unrolled_4": [(_B15_PAIR_LOOP, _B15_PAIR_LOOP.replace(
+        "unroll 1", "unroll 4"), 1)],
+}
+
+
+def phase_b15_variants(bst, x):
+    """B15 as built against edits of its source (``B15_VARIANTS``) and a
+    shared-memory budget that keeps every rows-mapping buffer on chip, in
+    turns (every variant, then every variant in reverse order), events of
+    one call: exact TreeSHAP over 1,048,576 rows and interaction values over
+    65,536 (the rows mapping, phase 11's shapes); every output bitwise the
+    built kernel's. Then the mappings' times across batch sizes (where
+    ``shap_plan`` switches). A measurement only: the package launches the
+    kernel as built."""
+    import ctypes
+
+    import torch
+    from xgboost_ray_tpu_torch.ops import _build
+    from xgboost_ray_tpu_torch.ops import shap as SH
+
+    with open(os.path.join(_build.CSRC_DIR, "shap.cu")) as f:
+        src = f.read()
+    vdir = os.path.join(_build.BUILD_DIR, "b15_variants")
+    os.makedirs(vdir, exist_ok=True)
+    procs = {}
+    for name, edits in B15_VARIANTS.items():
+        text = src
+        for old, new, count in edits:
+            check(text.count(old) == count,
+                  f"B15 variant {name}: {old!r} occurs {text.count(old)} "
+                  f"times, not {count}")
+            text = text.replace(old, new)
+        cu = os.path.join(vdir, f"{name}.cu")
+        with open(cu, "w") as f:
+            f.write(text)
+        procs[name] = subprocess.Popen(
+            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-I", _build.CSRC_DIR,
+             "-o", os.path.join(vdir, f"{name}.so"), cu],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    libs, ptxas = {}, {}
+    for name, proc in procs.items():
+        out = proc.communicate()[0].decode(errors="replace")
+        check(proc.returncode == 0, f"B15 variant {name}: nvcc failed: {out}")
+        ptxas[name] = {k: [v.get("registers"), v.get("spill_stores", 0)]
+                       for k, v in ptxas_report(out).items()
+                       if "rows" in k or "lanes" in k}
+        lib = ctypes.CDLL(os.path.join(vdir, f"{name}.so"))
+        for fn, (argtypes, restype) in _build.SIGNATURES["shap"].items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = restype
+        libs[name] = lib
+    table = _build._libraries()
+    built = table["shap"]
+    sf = bst.shap_forest("cuda")
+    sc = bst.tree_scales(sf)
+    xd = torch.from_numpy(np.ascontiguousarray(x[:SHAP_ROWS])).cuda()
+    cases = {"exact": (SH.predict_contribs_exact, xd),
+             "interactions": (SH.predict_interactions,
+                              xd[:SHAP_INTER_ROWS].contiguous())}
+    budget = SH._ROWS_SHARED_MAX
+    runs = [(name, lib, budget) for name, lib in libs.items()]
+    runs.append(("rows_shared_112k", libs["built"], 112 << 10))
+    res = {"card": CARD, "ptxas": ptxas, "ms": {}, "bitwise": {}}
+    refs = {}
+    try:
+        for order in (runs, runs[::-1]):
+            for name, lib, bud in order:
+                table["shap"] = lib
+                SH._ROWS_SHARED_MAX = bud
+                for mode, (kern, xin) in cases.items():
+                    got = kern(sf, xin, sc, mapping="rows")
+                    torch.cuda.synchronize()
+                    ref = refs.setdefault(mode, got)
+                    same = bool(torch.equal(got, ref))
+                    res["bitwise"][f"{name}/{mode}"] = same
+                    check(same, f"B15 variant {name} differs in {mode}")
+                    del got
+                    res["ms"].setdefault(f"{name}/{mode}", []).append(
+                        cuda_ms(lambda: kern(sf, xin, sc, mapping="rows"),
+                                iters=1, warmup=0))
+    finally:
+        table["shap"] = built
+        SH._ROWS_SHARED_MAX = budget
+    del refs
+    # the mappings across batch sizes: a rows-mapping CTA walks the whole
+    # forest however few its rows; the lanes mapping's time grows with n
+    sizes = {"exact": (37, 1024, 8192, 16384, 32768),
+             "interactions": (37, 1024, 16384, 32768, 65536)}
+    res["by_batch"] = {}
+    for mode, ns in sizes.items():
+        kern = cases[mode][0]
+        for n in ns:
+            xq = xd[:n].contiguous()
+            res["by_batch"][f"{mode}/{n}"] = {m: cuda_ms(
+                lambda: kern(sf, xq, sc, mapping=m), iters=3, warmup=1)
+                for m in ("rows", "lanes")}
+    res["sms"] = torch.cuda.get_device_properties(0).multi_processor_count
+    emit({"phase": "b15_variants", **res})
+    return res
+
+
 def phase_k4_variants(n_eval=500_000, n_gh=11_000_000):
     """K4 as built against edits of its source (``K4_VARIANTS``), each
     compiled by ``nvcc`` as the package builds it and launched directly, in
@@ -3636,11 +3800,14 @@ def shap_sum_bound(bst, sf, m, n_feat, interactions=False):
 def _shap_record(records, key, fn, plain, bound, launches, err, fn4096):
     """B15's row of the kernel table: events and device time (L2 flushed
     by a write and by a read, and warm) at the main path's shape, the
-    kernel and its plain version at ``SHAP_PLAIN_ROWS`` rows."""
+    kernel and its plain version at ``SHAP_PLAIN_ROWS`` rows; beside the
+    operations bound the unfused ceiling (B15 builds with --fmad=false, so
+    every multiply and add is an instruction of its own: half the f32
+    rate)."""
     import torch
 
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
-    # one call a reading: a launch takes seconds at the main path's shapes
+    # one call a reading: a launch takes up to seconds at these shapes
     records[key].update(
         launches=launches, max_abs_err=err, ms=cuda_ms(fn, iters=1,
                                                       warmup=0),
@@ -3649,7 +3816,41 @@ def _shap_record(records, key, fn, plain, bound, launches, err, fn4096):
         device_ms_l2_warm=profiled_ms(fn, iters=1),
         ms_plain_rows=cuda_ms(fn4096, iters=2, warmup=1),
         plain_ms=cuda_ms(plain, iters=1, warmup=0), plain_rows=SHAP_PLAIN_ROWS,
-        bound_ms=bound[0], bound_by=bound[1], library_ms=None)
+        bound_ms=bound[0], bound_by=bound[1], library_ms=None,
+        unfused_ceiling_ms=(2 * bound[0] if bound[1] == "operations"
+                            else bound[0]))
+
+
+def b15_kernel_names(mode, mapping):
+    """The ``-Xptxas -v`` name of the B15 kernel a launch of ``mode`` takes
+    in ``mapping``."""
+    if mode == "saabas":
+        return "xrt_shap_saabas_kernel<8>"
+    inter = str(mode == "interactions").lower()
+    if mapping == "deep":
+        return f"xrt_shap_{mode}_kernel<16>"
+    return f"xrt_shap_{mapping}_kernel<{inter}>"
+
+
+def shap_build_report():
+    """Registers, shared memory and spills of every B15 instantiation
+    (``-Xptxas -v``), and the seconds of ``csrc/shap.cu``'s build alone."""
+    import tempfile
+
+    from xgboost_ray_tpu_torch.ops import _build
+
+    report = ptxas_report(_build.build_log("shap"))
+    # the build of csrc/shap.cu alone, timed into a directory of its own
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=OUT_DIR) as tmp:
+        t0 = time.perf_counter()
+        subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-I",
+                        _build.CSRC_DIR, "-o", os.path.join(tmp, "s.so"),
+                        os.path.join(_build.CSRC_DIR, "shap.cu")],
+                       capture_output=True, check=True, timeout=600)
+        shap_s = time.perf_counter() - t0
+    return {"kernels": {k: v for k, v in report.items()
+                        if k.startswith("xrt_shap")}, "shap_cu_build_s": shap_s}
 
 
 def train_covertype_model(rounds=10, depth=6):
@@ -3665,6 +3866,40 @@ def train_covertype_model(rounds=10, depth=6):
                     ray_params=xrt.RayParams(num_actors=1))
     check(bst.num_trees == 7 * rounds, "wrong Covertype forest")
     return bst, x[-COVERTYPE_TEST:]
+
+
+def shap_probe_times(bst, q, repeats=7):
+    """A serve ``contribs`` batch of ``len(q)`` rows: the predictor's call
+    (``serve.CompiledPredictor``, what a replica's flusher runs: copy-in,
+    padding to the bucket, one B15 exact launch, copy-out; host clock,
+    median of ``repeats``) and its B15 launch alone (events) on the
+    bucket's buffers."""
+    import torch
+
+    from xgboost_ray_tpu_torch import serve
+    from xgboost_ray_tpu_torch.ops import shap as SH
+
+    pred = serve.CompiledPredictor(bst)
+    pred.predict(q, "contribs")
+    walls = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pred.predict(q, "contribs")
+        walls.append((time.perf_counter() - t0) * 1e3)
+    sf, sc = pred._shap_tables()
+    bucket = next(k[0] for k in pred._buffers if k[1] == "contribs")
+    xb, ob, scratch = pred._bucket_buffers(bucket, "contribs")
+    out = {"rows": len(q), "bucket": bucket,
+           "predictor_ms_median": float(np.median(walls)),
+           "predictor_ms": walls,
+           "b15_ms": cuda_ms(lambda: SH.predict_contribs_exact(
+               sf, xb, sc, out=ob, scratch=scratch), iters=5, warmup=1)}
+    if hasattr(SH, "shap_plan"):
+        out["mapping"] = SH.shap_plan(
+            sf, "exact", bucket, bst.num_features, 1,
+            torch.cuda.get_device_properties(0).multi_processor_count).mapping
+    return out
 
 
 def phase_shap(bst, x, records):
@@ -3698,6 +3933,7 @@ def phase_shap(bst, x, records):
 
     # the main paths: predict() over 1M rows, exact then Saabas, then the
     # interaction values over 65,536 rows
+    by_mapping = hasattr(SH, "LAUNCHES_BY_MAPPING")  # not in an older tree
     SH.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3709,6 +3945,10 @@ def phase_shap(bst, x, records):
           f"B15 launches of predict(pred_contribs): {got}, expected "
           f"{chunks['exact']} exact (one a chunk)")
     main_launches = dict(got)
+    main_mapping = {}
+    if by_mapping:
+        main_mapping["exact"] = {k[1]: v for k, v in
+                                 SH.LAUNCHES_BY_MAPPING.items()}
     SH.reset_launches()
     t0 = time.perf_counter()
     approx = xrt.predict(bst, xrt.RayDMatrix(xs), ray_params=rp,
@@ -3728,6 +3968,13 @@ def phase_shap(bst, x, records):
     check(got == {"saabas": 0, "exact": 0, "interactions": 1},
           f"B15 launches of pred_interactions: {got}")
     main_launches["interactions"] = 1
+    if by_mapping:
+        main_mapping["interactions"] = {k[1]: v for k, v in
+                                        SH.LAUNCHES_BY_MAPPING.items()}
+        res["launches_by_mapping"] = main_mapping
+        for mode, cnt in main_mapping.items():
+            check(sum(cnt.values()) == main_launches[mode],
+                  f"B15 {mode} launches by mapping {cnt} do not add up")
     check(exact.shape == (n, f + 1) and approx.shape == (n, f + 1)
           and inter.shape == (ni, f + 1, f + 1), "SHAP outputs' shapes")
     check(all(bool(np.isfinite(a).all()) for a in (exact, approx, inter)),
@@ -3786,6 +4033,7 @@ def phase_shap(bst, x, records):
              "interactions": (SH.predict_interactions,
                               SH.predict_interactions_plain, sc50)}
     errs = {}
+    mappings = SH.MAPPINGS if by_mapping else ()
     for mode, (kern, plain, scm) in cases.items():
         a = kern(sf, xp, scm)
         torch.cuda.synchronize()
@@ -3796,6 +4044,11 @@ def phase_shap(bst, x, records):
         errs[mode] = float((a - b).abs().max())
         check(torch.equal(a, b), f"B15 {mode} differs from its plain "
                                  f"version: max |d| {errs[mode]}")
+        if mode != "saabas":  # each mapping, bitwise the plain version
+            for m in mappings:
+                check(torch.equal(kern(sf, xp, scm, mapping=m), b),
+                      f"B15 {mode} in the {m} mapping differs from its "
+                      f"plain version")
     res["plain_trees"] = {"saabas": bst.num_trees, "exact": bst.num_trees,
                           "interactions": SHAP_PLAIN_INTER_ROUNDS}
 
@@ -3847,6 +4100,8 @@ def phase_shap(bst, x, records):
                 torch.empty((ni, 1, f + 1, f + 1), device="cuda"),
                 torch.empty((SH.scratch_floats(sf, f, 1, "interactions")
                              * ni,), device="cuda"), xi)}
+    ptxas = shap_build_report() if by_mapping else None
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for mode, (kern, plain, scm) in cases.items():
         out, scratch, xin = outs[mode]
         rows = xin.shape[0]
@@ -3863,8 +4118,40 @@ def phase_shap(bst, x, records):
         records[key]["rows"] = rows
         records[key]["ops_per_row"] = SH.leaf_ops(sf, mode)
         records[key]["plain_trees"] = res["plain_trees"][mode]
+        if not by_mapping:
+            continue
+        mapping = ("rows" if mode == "saabas" else SH.shap_plan(
+            sf, mode, rows, f, 1, sms).mapping)
+        records[key]["mapping"] = mapping
+        records[key]["ptxas"] = ptxas["kernels"].get(
+            b15_kernel_names(mode, mapping), "not in the ptxas log")
+        if mode == "saabas":
+            continue
+        # the other mappings at the same shape, held to the main one's bits
+        ref = kern(sf, xin, sc, out=out, scratch=scratch).clone()
+        other = {}
+        for m in SH.MAPPINGS:
+            got = kern(sf, xin, sc, mapping=m)
+            torch.cuda.synchronize()
+            other[m] = {"ms": cuda_ms(lambda: kern(sf, xin, sc, mapping=m),
+                                      iters=1, warmup=0),
+                        "bitwise": bool(torch.equal(got, ref)),
+                        "ptxas": ptxas["kernels"].get(
+                            b15_kernel_names(mode, m), "not in the log")}
+            del got
+            check(other[m]["bitwise"], f"B15 {mode}: the {m} mapping "
+                                       f"differs from {mapping}")
+        records[key]["mappings"] = other
+        del ref
+    if ptxas is not None:
+        res["b15_build"] = ptxas
+        spills = {k: v for k, v in ptxas["kernels"].items()
+                  if v.get("spill_stores", 0) and not k.endswith("<16>")}
+        check(not spills, f"B15 kernels of forests up to depth 8 spill: "
+                          f"{spills}")
     res["kernels"] = {k: records[k] for k in SHAP_KERNELS}
     del xd, xi, outs
+    res["probe37"] = shap_probe_times(bst, x[:37])
     torch.cuda.empty_cache()
     res["phase_s"] = time.perf_counter() - t_phase
     emit(res)
@@ -3883,10 +4170,14 @@ def _probe_kinds(handle, bst, q, kinds):
     ok = {}
     refs = {"value": {}, "margin": {"output_margin": True},
             "leaf": {"pred_leaf": True}, "contribs": {"pred_contribs": True}}
-    served = {kind: _post_json(handle.url + "/predict",
-                               {"data": q.tolist(), "kind": kind})
-              for kind in kinds}
+    served, walls = {}, {}
+    for kind in kinds:
+        t0 = time.perf_counter()
+        served[kind] = _post_json(handle.url + "/predict",
+                                  {"data": q.tolist(), "kind": kind})
+        walls[kind] = (time.perf_counter() - t0) * 1e3
     ok["b15_launches"] = shap_counters()["exact"]
+    ok["request_ms"] = walls
     for kind in kinds:
         r = served[kind]
         for where, dev in (("card", None), ("cpu", "cpu")):
@@ -3913,12 +4204,14 @@ def _serve_window(bst, x, n_replicas, warm_s, duration_s, mid=None):
         probe = _probe_kinds(handle, bst, x[:37],
                              ("value", "margin", "leaf", "contribs"))
         contribs_launches = probe.pop("b15_launches")
+        request_ms = probe.pop("request_ms")
         snap, parked, launches, errors = _closed_loop(
             handle, x, 16, 32, warm_s, duration_s, mid=(
                 None if mid is None else lambda: mid(handle)))
         probe_after = _probe_kinds(handle, bst, x[37:74],
                                    ("value", "contribs"))
         probe_after.pop("b15_launches")
+        request_ms_after = probe_after.pop("request_ms")
         builds = serve.compile_count() - after_warm
         replicas = handle.metrics.snapshot().get("replicas", 1)
     finally:
@@ -3928,6 +4221,8 @@ def _serve_window(bst, x, n_replicas, warm_s, duration_s, mid=None):
            "probe_bitwise_after_load": probe_after,
            "builds_at_start": warm_builds, "builds_after_warmup": builds,
            "contribs_probe_launches": contribs_launches,
+           "probe_request_ms": request_ms,
+           "probe_request_ms_after_load": request_ms_after,
            "b8_value_launches": launches["B8value"],
            "batches_once_parked": parked["batches"], "replicas": replicas,
            **{k: snap[k] for k in ("requests", "qps", "batches",
@@ -3964,6 +4259,8 @@ def phase_serve_pool(bst, x, y):
     tracer = obs.Tracer(capacity=1 << 16, enabled=True, trace_dir="", rank=0)
     obs.set_default_tracer(tracer)
     try:
+        # the 37-row contribs probe: the predictor's call and its B15 launch
+        res["contribs_probe"] = shap_probe_times(bst, x[:37])
         res["one"] = _serve_window(bst, x, 1, 1.0, 3.0)
         res["four"] = _serve_window(bst, x, 4, 1.0, 3.0)
 
@@ -4343,6 +4640,11 @@ def run(args):
     if args.k4_variants:
         phase_k4_variants()
         return
+    if args.b15_variants:
+        x, y = make_higgs_like(args.rows, 28, seed=0)
+        served, _, _ = phase_train_model(x, y, args.predict_rounds)
+        phase_b15_variants(served, x)
+        return
     if args.facade_only:
         records = {k: dict(v) for k, v in KERNELS.items()}
         x, y = make_higgs_like(args.rows, 28, seed=0)
@@ -4504,6 +4806,11 @@ def main():
                          "its source (no last-CTA sum, streaming loads, "
                          "streaming stores), timed in turns; prints no "
                          "result line")
+    ap.add_argument("--b15-variants", action="store_true",
+                    help="only the build, phase 6's model and B15 as built "
+                         "against edits of its source and a larger shared-"
+                         "memory budget, timed in turns, then its mappings "
+                         "across batch sizes; prints no result line")
     ap.add_argument("--ranks-only", action="store_true",
                     help="only the 1-rank main path and the ranks phase (on "
                          "a host of two or more cards: the NCCL path); "

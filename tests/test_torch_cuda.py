@@ -39,10 +39,14 @@ for bit, with its rows in two shards folded too. B15's three entry points
 for bit (the kernel runs the plain version's f32 operations in its order,
 unfused), on random forests with NaN, categorical splits, a depth-1 stump,
 depth 9 (the wide register arrays), F = 54 with K = 7, DART weights,
-``num_parallel_tree`` and ``ntree_limit``; reruns are bitwise, a row's
-result does not depend on the other rows of its launch, each call is one
-launch, and the booster's and the server's contributions on the card equal
-each other bit for bit.
+``num_parallel_tree`` and ``ntree_limit``; the exact and interaction
+kernels do so in each of their mappings (a thread a row, a row a CTA, the
+rolled deep kernel), the mappings equal each other bit for bit, and a
+forest deeper than 8 refuses the two mappings it cannot take; reruns are
+bitwise, a row's result does not depend on the other rows of its launch or
+on the mapping its batch size picks, each call is one launch (counted by
+mode and mapping), and the booster's and the server's contributions on the
+card equal each other bit for bit.
 """
 
 import numpy as np
@@ -1452,12 +1456,80 @@ def test_shap_wrappers_reject_bad_inputs(cuda):
     with pytest.raises(ValueError, match="out must be"):
         tsh.predict_contribs_exact(sf, x, sc, out=torch.empty(
             (64, 1, 3), device=cuda))
+    # the lanes mapping of 64 rows keeps every sum on chip (no scratch);
+    # the deep kernel keeps them in the scratch
+    assert tsh.scratch_floats(sf, 5, 1, "exact", 64) == 0
     with pytest.raises(ValueError, match="scratch"):
         tsh.predict_contribs_exact(sf, x, sc, scratch=torch.empty(
-            (5,), device=cuda))
+            (5,), device=cuda), mapping="deep")
     sfc, scc, _ = _shap_case(SHAP_CASES[2], "cpu", n=64)
     with pytest.raises(ValueError, match="SHAP forest"):
         tsh.predict_contribs_exact(sfc, x, scc)
+
+
+MAPPED_FNS = {"exact": SHAP_FNS["exact"],
+              "interactions": SHAP_FNS["interactions"]}
+
+
+@pytest.mark.parametrize("case,mode,mapping", [
+    (case, mode, mapping) for case in SHAP_CASES for mode in MAPPED_FNS
+    for mapping in tsh.MAPPINGS
+    if not (mode == "interactions" and case[1] > 6)])
+def test_shap_mappings_bitwise_plain(cuda, case, mode, mapping):
+    """Each mapping of the exact and interaction kernels gives the plain
+    version's bits; a forest deeper than 8 refuses the two mappings of the
+    tree blobs."""
+    sf, sc, x = _shap_case(case, cuda)
+    kernel, plain = MAPPED_FNS[mode]
+    if case[1] > tsh.TAB_MAX_DEPTH and mapping != "deep":
+        with pytest.raises(ValueError, match="depth 8"):
+            kernel(sf, x, sc, mapping=mapping)
+        return
+    tsh.reset_launches()
+    got = kernel(sf, x, sc, mapping=mapping)
+    torch.cuda.synchronize()
+    assert tsh.LAUNCHES_BY_MAPPING == {(mode, mapping): 1}
+    ref = plain(sf, x, sc)
+    assert torch.equal(got, ref), (mode, mapping, case,
+                                   float((got - ref).abs().max()))
+
+
+@pytest.mark.parametrize("case", [SHAP_CASES[0], SHAP_CASES[1]])
+def test_shap_mappings_bitwise_each_other(cuda, case):
+    """The three mappings on the same 1,000 rows (several CTAs of the rows
+    mapping, its last one part full), bit for bit, and bitwise on a rerun."""
+    sf, sc, x = _shap_case(case, cuda, n=1000)
+    for mode, (kernel, _) in MAPPED_FNS.items():
+        rows = 1000 if mode == "exact" else 300
+        got = {m: kernel(sf, x[:rows], sc, mapping=m) for m in tsh.MAPPINGS}
+        for m in tsh.MAPPINGS:
+            assert torch.equal(got[m], got["rows"]), (mode, m)
+            assert torch.equal(kernel(sf, x[:rows], sc, mapping=m), got[m])
+
+
+def test_shap_rows_independent_across_the_mapping_switch(cuda):
+    """A batch of 8 (the lanes mapping) gives the rows of a large call (the
+    rows mapping) bit for bit, with the plans read from the wrapper's own
+    choice; one launch a call, counted by mode and mapping."""
+    sf, sc, x = _shap_case(SHAP_CASES[0], cuda, n=9000)
+    sms = tsh._sm_count(x.device.index or 0)
+    n_big = tsh.LANES_ROWS_PER_SM["exact"] * sms + 100
+    x = x.repeat(-(-n_big // 9000), 1)[:n_big].contiguous()
+    assert tsh.shap_plan(sf, "exact", n_big, 28, 1, sms).mapping == "rows"
+    assert tsh.shap_plan(sf, "exact", 8, 28, 1, sms).mapping == "lanes"
+    tsh.reset_launches()
+    big = tsh.predict_contribs_exact(sf, x, sc)
+    for lo in (0, 129, n_big - 8):
+        part = tsh.predict_contribs_exact(sf, x[lo:lo + 8].contiguous(), sc)
+        assert torch.equal(part, big[lo:lo + 8]), lo
+    inter = tsh.predict_interactions(sf, x[:8].contiguous(), sc)
+    assert tsh.LAUNCHES_BY_MAPPING == {("exact", "rows"): 1,
+                                       ("exact", "lanes"): 3,
+                                       ("interactions", "lanes"): 1}
+    assert tsh.LAUNCHES_BY_MODE == {"saabas": 0, "exact": 4,
+                                    "interactions": 1}
+    assert torch.equal(inter, tsh.predict_interactions(
+        sf, x[:8].contiguous(), sc, mapping="rows"))
 
 
 def test_booster_and_server_contribs_on_card(cuda):

@@ -166,7 +166,13 @@ class ShapArgs(ctypes.Structure):
         + [("n_rows", ctypes.c_longlong)]
         + [(name, I) for name in (
             "n_features", "n_trees", "max_depth", "max_leaves", "max_feats",
-            "num_outputs", "has_cat", "weights_width")])
+            "num_outputs", "has_cat", "weights_width")]
+        + [("tree_tab", P)]
+        + [(name, I) for name in (
+            "tab_words", "feat_off", "node_off", "leaf_off", "route_words",
+            "mapping", "threads", "grid", "shared_bytes", "off_tab",
+            "off_route", "off_x", "off_sums", "off_stage", "off_acc",
+            "acc_words", "sums_words", "scratch_words")])
 
 
 _lock = threading.Lock()

@@ -32,10 +32,24 @@ column) are taken once on the host in that order (:func:`tree_scales`).
 Each wrapper sends CPU tensors to its plain PyTorch version and CUDA
 tensors to kernel B15 (``csrc/shap.cu``), or raises: there is no
 fallback. ``launches`` counts kernel launches, ``launches_by_mode`` by
-entry point. The plain versions are vectorised over rows and groups of
-trees and loop over leaf positions and path elements; the tests use them,
-and ``chip_smoke.py`` holds the kernels against them on the card. Nothing
-on the card's path calls them.
+entry point, ``LAUNCHES_BY_MAPPING`` by (entry point, mapping). The plain
+versions are vectorised over rows and groups of trees and loop over leaf
+positions and path elements; the tests use them, and ``chip_smoke.py``
+holds the kernels against them on the card. Nothing on the card's path
+calls them.
+
+The exact and interaction kernels read, for forests up to depth 8, one
+blob a tree (``tree_tab``): its split nodes by ordinal, so a row tests
+each split once a tree into bits, and its leaves as records whose steps
+name those ordinals (:func:`leaf_indicators_plain` is the plain reading of
+the same bits). :func:`shap_plan` maps a launch from the row count, the
+shapes and the card's SM count: ``rows`` (a thread a row, 128 rows a CTA)
+for large batches, ``lanes`` (a row a CTA of 4 warps: warps take trees,
+lanes take leaves, every sum on chip) for small ones such as a served
+batch, ``deep`` (the rolled thread-a-row kernels) for deeper forests. All
+three keep the plain versions' per-leaf operations and fold orders, so
+they give the same bits, and a row's result does not depend on the
+mapping its batch takes.
 """
 
 import ctypes
@@ -63,6 +77,21 @@ _NODE_MASK = (1 << 24) - 1
 _BIT_SHIFT = 24
 _ELEM_SHIFT = 25
 MODES = ("saabas", "exact", "interactions")
+#: deepest forest the tree blobs and the two mappings of the exact and
+#: interaction kernels take (a split ordinal in a byte, 8 elements a leaf);
+#: deeper forests run the rolled kernel of a thread a row ("deep")
+TAB_MAX_DEPTH = 8
+#: words of a tree blob's header: split nodes, leaves, features, 0
+TAB_HEADER = 4
+#: words of a leaf record in the blob: m | steps << 8, v, z[8], the slots
+#: as 8 bytes, the steps as 8 halves (ordinal | bit << 8 | element << 9;
+#: element 8 past the leaf's depth), then RN(1 / max(z, 1e-12))[8], the
+#: reciprocals the kernels' quotients start from
+LEAF_WORDS = 24
+#: the exact and interaction kernels' mappings (``csrc/shap.cu``): a thread
+#: a row, a row a CTA (warps take trees, lanes take leaves), and the rolled
+#: thread-a-row kernel of forests deeper than TAB_MAX_DEPTH
+MAPPINGS = ("rows", "lanes", "deep")
 #: most f32 elements a plain step holds per tensor ([rows, trees, ...]):
 #: 64 MB on the host, 1 GB on a card
 _PLAIN_ELEMS = {"cpu": 1 << 24, "cuda": 1 << 28}
@@ -80,8 +109,17 @@ class ShapForest(NamedTuple):
     slot of each merged element), ``elem_z`` [T, L, D] f32, ``leaf_value``
     [T, L] f32 and ``leaf_m`` [T, L] (elements); ``tree_feats`` [T, U] the
     tree's split features ascending (-1 padding), ``n_feats`` [T];
-    ``weights`` [D + 1, max(D, 1)] f32 the Shapley weight table. Host
-    arrays: ``expectation`` [T] f32 and ``root_weight`` [T] f32."""
+    ``weights`` [D + 1, max(D, 1)] f32 the Shapley weight table. The node
+    bits: ``split_nodes`` [T, S, 2] int32, the records of each tree's split
+    nodes (those on a leaf's path) by split ordinal, ascending heap index,
+    ``n_splits`` [T], and ``step_ord`` [T, L, D] int32 each step's split
+    ordinal (-1 past the leaf's depth): a row's go-right bit at every
+    ordinal, tested once a tree, gives every leaf's ``o``
+    (:func:`leaf_indicators_plain`). ``tree_tab`` [T, W] int32 (trees up to
+    depth 8, else None): the kernel's blob of each tree, read whole by a CTA
+    (:data:`TAB_HEADER`, then the tree's features, its split records and
+    its leaves as 24-word records, see :func:`_leaf_record`). Host arrays:
+    ``expectation`` [T] f32 and ``root_weight`` [T] f32."""
 
     nodes: torch.Tensor
     base_weight: torch.Tensor
@@ -94,6 +132,10 @@ class ShapForest(NamedTuple):
     tree_feats: torch.Tensor
     n_feats: torch.Tensor
     weights: torch.Tensor
+    split_nodes: torch.Tensor
+    n_splits: torch.Tensor
+    step_ord: torch.Tensor
+    tree_tab: Optional[torch.Tensor]
     expectation: np.ndarray
     root_weight: np.ndarray
     n_trees: int
@@ -112,6 +154,10 @@ class ShapForest(NamedTuple):
     @property
     def max_feats(self) -> int:
         return int(self.tree_feats.shape[1])
+
+    @property
+    def max_splits(self) -> int:
+        return int(self.split_nodes.shape[1])
 
 
 class TreeScales(NamedTuple):
@@ -245,21 +291,113 @@ def shap_forest(forest, max_depth: int, device="cpu", *, num_features: int,
     for t, used in enumerate(feats):
         tree_feats[t, :len(used)] = used
     n_feats = np.asarray([len(u) for u in feats], np.int32)
+    nodes = _pack_split_nodes(forest, num_features, cat_features)
+    split_nodes, n_splits, step_ord = _node_bits(nodes.reshape(n_trees, heap,
+                                                               2), steps)
+    tree_tab = None
+    if d <= TAB_MAX_DEPTH:
+        tree_tab = _tree_blobs(tree_feats, n_feats, split_nodes, n_splits,
+                               n_leaves, steps, step_ord, elem_slot, elem_z,
+                               leaf_value, leaf_m)
 
     def put(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
     return ShapForest(
-        nodes=put(_pack_split_nodes(forest, num_features, cat_features)),
+        nodes=put(nodes),
         base_weight=put(np.asarray(forest.base_weight, np.float32).reshape(-1)),
         steps=put(steps), elem_slot=put(elem_slot), elem_z=put(elem_z),
         leaf_value=put(leaf_value), leaf_m=put(leaf_m),
         n_leaves=put(n_leaves), tree_feats=put(tree_feats),
         n_feats=put(n_feats), weights=put(weight_table(d)),
+        split_nodes=put(split_nodes), n_splits=put(n_splits),
+        step_ord=put(step_ord),
+        tree_tab=None if tree_tab is None else put(tree_tab),
         expectation=expectation,
         root_weight=np.asarray(forest.base_weight, np.float32)[:, 0].copy(),
         n_trees=int(n_trees), max_depth=d, num_features=int(num_features),
         has_cat=bool(len(cat_features)))
+
+
+def _node_bits(nodes: np.ndarray, steps: np.ndarray):
+    """Each tree's split nodes (the nodes on its leaves' paths) by ordinal,
+    ascending heap index: their records [T, S, 2], their count [T], and
+    every path step's ordinal [T, L, D] (-1 where ``steps`` is -1)."""
+    n_trees = steps.shape[0]
+    valid = steps >= 0
+    node = np.where(valid, steps & _NODE_MASK, 0)
+    per_tree = [np.unique(node[t][valid[t]]) for t in range(n_trees)]
+    n_splits = np.asarray([len(u) for u in per_tree], np.int32)
+    s_max = max(1, int(n_splits.max(initial=0)))
+    split_nodes = np.zeros((n_trees, s_max, 2), np.int32)
+    split_nodes[..., 1] = LEAF
+    step_ord = np.full(steps.shape, -1, np.int32)
+    for t, used in enumerate(per_tree):
+        split_nodes[t, :len(used)] = nodes[t, used]
+        ords = np.searchsorted(used, node[t])
+        step_ord[t] = np.where(valid[t], ords, -1)
+    return split_nodes, n_splits, step_ord
+
+
+def _leaf_record(m, v, z, slot, steps, ords) -> np.ndarray:
+    """One leaf's 24 words in a tree blob (trees up to depth 8): ``m |
+    len(steps) << 8``, v's bits, z[0..7]'s bits, the 8 slots a byte each,
+    the 8 steps a half each (split ordinal | branch bit << 8 | element
+    << 9; element 8 past the leaf's depth), the f32 reciprocals ``1 /
+    max(z, 1e-12)`` (IEEE-rounded)."""
+    rec = np.zeros(LEAF_WORDS, np.uint32)
+    n_steps = int((steps >= 0).sum())
+    rec[0] = int(m) | n_steps << 8
+    rec[1] = np.float32(v).view(np.uint32)
+    rec[2:2 + len(z)] = np.asarray(z, np.float32).view(np.uint32)
+    sl = np.zeros(8, np.uint32)
+    sl[:m] = slot[:m]
+    rec[10] = sl[0] | sl[1] << 8 | sl[2] << 16 | sl[3] << 24
+    rec[11] = sl[4] | sl[5] << 8 | sl[6] << 16 | sl[7] << 24
+    # a step past the leaf's depth tests ordinal 0 into element 8, a bit
+    # no leaf reads: the kernels run all 8 steps without a branch
+    half = np.full(8, 8 << 9, np.uint32)
+    for s in range(n_steps):
+        st = int(steps[s])
+        half[s] = (int(ords[s]) | ((st >> _BIT_SHIFT) & 1) << 8
+                   | (st >> _ELEM_SHIFT) << 9)
+    rec[12:16] = half[0::2] | half[1::2] << 16
+    zz = np.asarray(z, np.float32)
+    rec[16:16 + len(zz)] = (np.float32(1.0) / np.maximum(
+        zz, np.float32(1e-12))).view(np.uint32)
+    return rec.view(np.int32)
+
+
+def tab_layout(max_feats: int, max_splits: int, max_leaves: int):
+    """Word offsets of a tree blob: (features, split records, leaves, total),
+    each part 16-byte aligned."""
+    feat_off = TAB_HEADER
+    node_off = feat_off + -(-max_feats // 4) * 4
+    leaf_off = node_off + 2 * (-(-max_splits // 2) * 2)
+    return feat_off, node_off, leaf_off, leaf_off + LEAF_WORDS * max_leaves
+
+
+def _tree_blobs(tree_feats, n_feats, split_nodes, n_splits, n_leaves, steps,
+                step_ord, elem_slot, elem_z, leaf_value, leaf_m) -> np.ndarray:
+    """The kernel's blob of every tree [T, W] (:func:`tab_layout`)."""
+    n_trees, n_l = leaf_m.shape
+    feat_off, node_off, leaf_off, width = tab_layout(
+        tree_feats.shape[1], split_nodes.shape[1], n_l)
+    tab = np.zeros((n_trees, width), np.int32)
+    tab[:, 0] = n_splits
+    tab[:, 1] = n_leaves
+    tab[:, 2] = n_feats
+    tab[:, feat_off:feat_off + tree_feats.shape[1]] = tree_feats
+    tab[:, node_off:node_off + 2 * split_nodes.shape[1]] = split_nodes.reshape(
+        n_trees, -1)
+    for t in range(n_trees):
+        for l in range(int(n_leaves[t])):
+            m = int(leaf_m[t, l])
+            o = leaf_off + LEAF_WORDS * l
+            tab[t, o:o + LEAF_WORDS] = _leaf_record(
+                m, leaf_value[t, l], elem_z[t, l, :m], elem_slot[t, l],
+                steps[t, l], step_ord[t, l])
+    return tab
 
 
 def tree_scales(sf: ShapForest, num_outputs: int = 1,
@@ -343,6 +481,45 @@ def _leaf_paths(sf: ShapForest, x: torch.Tensor, t0: int, t1: int, l: int):
     ev = ks[None, :] < m[:, None]
     return (o, sf.elem_z[t0:t1, l, :], sf.elem_slot[t0:t1, l, :].long(), ev,
             sf.leaf_value[t0:t1, l], m)
+
+
+def split_route_plain(sf: ShapForest, x: torch.Tensor, t0: int, t1: int
+                      ) -> torch.Tensor:
+    """The node bits of trees [t0, t1) for the rows of ``x``: go-right
+    [n, G, S] at every split ordinal (False past a tree's splits), each
+    split tested once, as the kernels route a tree."""
+    rec = sf.split_nodes[t0:t1]  # [G, S, 2]
+    v = rec[..., 0].contiguous().view(torch.float32)
+    w = rec[..., 1]
+    xv = x[:, (w & FEATURE_MASK).long()]
+    s = torch.arange(rec.shape[1], device=x.device)
+    live = s[None, :] < sf.n_splits[t0:t1, None]
+    return _step_right(sf, v[None], w[None], xv) & live[None]
+
+
+def leaf_indicators_plain(sf: ShapForest, x: torch.Tensor, t0: int, t1: int,
+                          l: int) -> torch.Tensor:
+    """The merged indicators ``o`` [n, G, D] of leaf position l of trees
+    [t0, t1) from the node bits: an element's o is 1 where the row takes
+    the branch of every step of it (``_leaf_paths``'s o, from each split
+    tested once a tree)."""
+    route = split_route_plain(sf, x, t0, t1).long()  # [n, G, S]
+    st = sf.steps[t0:t1, l, :]
+    ords = sf.step_ord[t0:t1, l, :]  # [G, D]
+    valid = ords >= 0
+    bit = (st >> _BIT_SHIFT) & 1
+    elem = (st >> _ELEM_SHIFT).long()
+    rb = torch.gather(route, 2, torch.clamp(ords, min=0).long()[None].expand(
+        x.shape[0], -1, -1))  # [n, G, D]
+    fail = (rb != bit[None]) & valid[None]
+    d = st.shape[1]
+    ks = torch.arange(d, device=x.device)
+    o = torch.ones((x.shape[0], t1 - t0, d), dtype=torch.float32,
+                   device=x.device)
+    for s in range(d):
+        hit = (elem[:, s, None] == ks[None, :])[None]  # [1, G, D]
+        o = torch.where(hit & fail[:, :, s, None], 0.0, o)
+    return o
 
 
 def _extend(o, z, ev):
@@ -578,17 +755,164 @@ def predict_interactions_plain(sf: ShapForest, x: torch.Tensor,
 # --------------------------------------------------------------------------
 
 
-def scratch_floats(sf: ShapForest, num_features: int, num_outputs: int,
-                   mode: str) -> int:
-    """f32 words of a row's kernel scratch (``XrtShapArgs.scratch``): the
-    class accumulators, then the current tree's per-feature sums."""
+#: rows mapping: rows (threads) a CTA
+ROWS_CTA = 128
+#: lanes mapping: warps a CTA (one row; the warps take trees)
+LANES_WARPS = 4
+#: lanes mapping: staged f32 words a leaf (exact: its m contributions;
+#: interactions: 8 x 8 pair cells with the plain terms on the diagonal, then
+#: 8 feature-bias terms), odd pitches so the 32 lanes' rows hit distinct banks
+STAGE_WORDS = {"exact": 9, "interactions": 73}
+#: shared memory a CTA may take: the rows mapping keeps five CTAs an SM
+#: (what its registers allow; on the H100 the exact kernel over 1M rows of
+#: the 500-tree HIGGS forest took 871 ms with every buffer on chip, 57.6 KB
+#: a CTA, and 825 ms at 43.3 KB: ``chip_smoke.py --b15-variants``)
+_ROWS_SHARED_MAX = 44 << 10
+_LANES_SHARED_MAX = 200 << 10
+#: an x tile or a row of x larger than this stays in device memory
+_X_SHARED_MAX = 48 << 10
+#: below this many rows an SM the lanes mapping, above it the rows mapping.
+#: On the H100 with the 500-tree HIGGS forest (``chip_smoke.py
+#: --b15-variants``) the rows mapping takes 26 ms (exact) and 215-323 ms
+#: (interactions) up to 16k rows, as a CTA walks the whole forest however
+#: few its rows, while the lanes mapping takes 2.2 and 15 ms a thousand
+#: rows: they meet near 12k and 21k rows
+LANES_ROWS_PER_SM = {"exact": 88, "interactions": 160}
+
+
+class ShapPlan(NamedTuple):
+    """How one exact or interactions B15 launch maps its work: the mapping,
+    the CTA size and grid, and where each buffer lives: a word offset into
+    the CTA's dynamic shared memory, or -1 for the kernel's scratch in
+    device memory (``scratch_words`` a row)."""
+
+    mapping: str
+    threads: int
+    grid: int
+    shared_bytes: int
+    off_tab: int
+    off_route: int
+    off_x: int
+    off_sums: int
+    off_stage: int
+    off_acc: int
+    acc_words: int  # class accumulators a row
+    sums_words: int  # the tree's sums a row (a warp, lanes mapping)
+    scratch_words: int
+
+
+def _words(sf: ShapForest, num_features: int, num_outputs: int, mode: str):
     kf = num_outputs * num_features
     u = sf.max_feats
+    if mode == "exact":
+        return kf, u
+    return kf * num_features + kf, u * u + 2 * u
+
+
+def _layout(parts, budget):
+    """Word offsets of the parts [(name, words, required)] packed 16-byte
+    aligned in order; a part that is not required and does not fit the
+    budget (bytes) gets -1. Returns ({name: offset}, bytes) or None when a
+    required part does not fit."""
+    off, at = {}, 0
+    for name, words, required in parts:
+        words = -(-words // 4) * 4
+        if 4 * (at + words) <= budget:
+            off[name] = at
+            at += words
+        elif required:
+            return None
+        else:
+            off[name] = -1
+    return off, 4 * at
+
+
+def shap_plan(sf: ShapForest, mode: str, n: int, num_features: int,
+              num_outputs: int, sm_count: int,
+              mapping: Optional[str] = None) -> ShapPlan:
+    """The launch plan of B15's exact or interactions kernel for ``n``
+    rows, from the shapes and the card's SM count alone. Forests deeper
+    than TAB_MAX_DEPTH take "deep"; else both kernels take "lanes" (a row a
+    CTA, every sum on chip) below ``LANES_ROWS_PER_SM`` rows an SM where its
+    buffers fit, and "rows" (a thread a row) above. ``mapping`` forces one;
+    a mapping the shapes cannot take raises ValueError."""
+    _check(mode in ("exact", "interactions"), f"B15: no plan for {mode}")
+    _check(mapping is None or mapping in MAPPINGS,
+           f"B15: mapping {mapping!r} is not one of {MAPPINGS}")
+    acc_w, sums_w = _words(sf, num_features, num_outputs, mode)
+    rw = max(1, -(-sf.max_splits // 32))
+    x_w = num_features
+    deep = sf.max_depth > TAB_MAX_DEPTH
+    if mapping is None:
+        lanes = _lanes_layout(sf, mode, x_w, rw, acc_w, sums_w)
+        if deep:
+            mapping = "deep"
+        elif lanes is not None and n < LANES_ROWS_PER_SM[mode] * sm_count:
+            mapping = "lanes"
+        else:
+            mapping = "rows"
+    if mapping == "deep":
+        return ShapPlan("deep", ROWS_CTA, max(1, -(-n // ROWS_CTA)), 0,
+                        -1, -1, -1, -1, -1, -1, acc_w, sums_w,
+                        acc_w + sums_w)
+    _check(not deep, f"B15: the {mapping} mapping takes forests up to depth "
+                     f"{TAB_MAX_DEPTH}, not {sf.max_depth}")
+    if mapping == "lanes":
+        lay = _lanes_layout(sf, mode, x_w, rw, acc_w, sums_w)
+        _check(lay is not None,
+               f"B15: the lanes mapping's per-warp sums ({sums_w} words) do "
+               f"not fit a CTA's shared memory")
+        off, nbytes = lay
+        _check(n < 2 ** 31, "B15: the lanes mapping takes fewer than 2^31 "
+                            "rows")
+        return ShapPlan("lanes", 32 * LANES_WARPS, max(1, n), nbytes,
+                        -1, off["route"], off["x"], off["sums"],
+                        off["stage"], off["acc"], acc_w, sums_w,
+                        0 if off["acc"] >= 0 else acc_w)
+    r = ROWS_CTA
+    tab_w = tab_layout(sf.max_feats, sf.max_splits, sf.max_leaves)[3]
+    x_fits = 4 * x_w * r <= _X_SHARED_MAX
+    off, nbytes = _layout([("tab", 2 * tab_w, True), ("route", rw * r, True),
+                           ("x", x_w * r if x_fits else 1 << 40, False),
+                           ("sums", sums_w * r, False),
+                           ("acc", acc_w * r, False)], _ROWS_SHARED_MAX) or (
+        None, 0)
+    _check(off is not None, "B15: a tree's blob does not fit a CTA's shared "
+                            "memory")
+    scratch = ((0 if off["acc"] >= 0 else acc_w)
+               + (0 if off["sums"] >= 0 else sums_w))
+    return ShapPlan("rows", r, max(1, -(-n // r)), nbytes, off["tab"],
+                    off["route"], off["x"], off["sums"], -1, off["acc"],
+                    acc_w, sums_w, scratch)
+
+
+def _lanes_layout(sf, mode, x_w, rw, acc_w, sums_w):
+    if sf.max_depth > TAB_MAX_DEPTH:
+        return None
+    nw = LANES_WARPS
+    return _layout([("route", nw * rw, True),
+                    ("stage", nw * 32 * STAGE_WORDS[mode], True),
+                    ("sums", nw * sums_w, True),
+                    ("x", x_w if 4 * x_w <= _X_SHARED_MAX else 1 << 40,
+                     False),
+                    ("acc", acc_w, False)], _LANES_SHARED_MAX)
+
+
+def scratch_floats(sf: ShapForest, num_features: int, num_outputs: int,
+                   mode: str, n: Optional[int] = None,
+                   sm_count: int = 132) -> int:
+    """f32 words a row of the kernel's scratch (``XrtShapArgs.scratch``)
+    takes: the class accumulators and the current tree's sums that the
+    launch plan of ``n`` rows keeps in device memory (the Saabas kernel its
+    accumulators); with ``n`` None the most any plan takes."""
+    kf = num_outputs * num_features
     if mode == "saabas":
         return kf
-    if mode == "exact":
-        return kf + u
-    return kf * num_features + kf + u * u + 2 * u
+    if n is None:
+        acc_w, sums_w = _words(sf, num_features, num_outputs, mode)
+        return acc_w + sums_w
+    return shap_plan(sf, mode, n, num_features, num_outputs,
+                     sm_count).scratch_words
 
 
 def out_shape(n: int, num_features: int, num_outputs: int, mode: str):
@@ -603,7 +927,12 @@ def _check(cond: bool, what: str) -> None:
         raise ValueError(what)
 
 
-def _args(sf: ShapForest, x, sc: TreeScales, out, scratch, mode: str):
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _args(sf: ShapForest, x, sc: TreeScales, out, scratch, mode: str,
+          plan: Optional[ShapPlan]):
     a = _build.ShapArgs()
     for name in ("nodes", "base_weight", "steps", "elem_slot", "elem_z",
                  "leaf_value", "leaf_m", "n_leaves", "tree_feats", "n_feats",
@@ -624,12 +953,24 @@ def _args(sf: ShapForest, x, sc: TreeScales, out, scratch, mode: str):
     a.num_outputs = sc.num_outputs
     a.has_cat = int(sf.has_cat)
     a.weights_width = int(sf.weights.shape[1])
+    if plan is not None:
+        if sf.tree_tab is not None:
+            a.tree_tab = sf.tree_tab.data_ptr()
+            (a.feat_off, a.node_off, a.leaf_off,
+             a.tab_words) = tab_layout(sf.max_feats, sf.max_splits,
+                                       sf.max_leaves)
+        a.route_words = max(1, -(-sf.max_splits // 32))
+        a.mapping = MAPPINGS.index(plan.mapping)
+        for name in ("threads", "grid", "shared_bytes", "off_tab",
+                     "off_route", "off_x", "off_sums", "off_stage",
+                     "off_acc", "acc_words", "sums_words", "scratch_words"):
+            setattr(a, name, getattr(plan, name))
     return a
 
 
 def _run(mode: str, sf: ShapForest, x: torch.Tensor, sc: TreeScales,
          out: Optional[torch.Tensor], scratch: Optional[torch.Tensor],
-         stream, plain):
+         stream, plain, mapping: Optional[str] = None):
     n = x.shape[0]
     _check(x.dtype == torch.float32 and x.dim() == 2 and x.is_contiguous()
            and x.shape[1] == sf.num_features,
@@ -651,7 +992,13 @@ def _run(mode: str, sf: ShapForest, x: torch.Tensor, sc: TreeScales,
            f"{MAX_DEPTH}")
     _check(sc.num_outputs < 1 << 16 and sf.n_trees * sf.heap < 2 ** 31,
            "B15: forest or classes out of range")
-    words = scratch_floats(sf, sf.num_features, sc.num_outputs, mode)
+    plan = None
+    if mode == "saabas":
+        words = scratch_floats(sf, sf.num_features, sc.num_outputs, mode)
+    else:
+        plan = shap_plan(sf, mode, n, sf.num_features, sc.num_outputs,
+                         _sm_count(dev.index or 0), mapping)
+        words = plan.scratch_words
     _check(n * words < 2 ** 62 and n * shape[-1] < 2 ** 62,
            "B15: launch too large")
     if out is None:
@@ -665,7 +1012,7 @@ def _run(mode: str, sf: ShapForest, x: torch.Tensor, sc: TreeScales,
            f"elements on {dev}")
     if n == 0:
         return out
-    a = _args(sf, x, sc, out, scratch, mode)
+    a = _args(sf, x, sc, out, scratch, mode, plan)
     s = (stream if stream is not None
          else torch.cuda.current_stream(dev)).cuda_stream
     with torch.cuda.device(dev):
@@ -675,6 +1022,8 @@ def _run(mode: str, sf: ShapForest, x: torch.Tensor, sc: TreeScales,
     wrapper = _WRAPPERS[mode]
     wrapper.launches += 1
     LAUNCHES_BY_MODE[mode] += 1
+    key = (mode, "rows" if plan is None else plan.mapping)
+    LAUNCHES_BY_MAPPING[key] = LAUNCHES_BY_MAPPING.get(key, 0) + 1
     return out
 
 
@@ -693,31 +1042,38 @@ def predict_contribs(sf: ShapForest, x: torch.Tensor, sc: TreeScales,
 def predict_contribs_exact(sf: ShapForest, x: torch.Tensor, sc: TreeScales,
                            out: Optional[torch.Tensor] = None,
                            scratch: Optional[torch.Tensor] = None,
-                           stream: Optional[torch.cuda.Stream] = None
-                           ) -> torch.Tensor:
-    """B15 exact TreeSHAP wrapper: [N, K, F + 1]."""
+                           stream: Optional[torch.cuda.Stream] = None,
+                           mapping: Optional[str] = None) -> torch.Tensor:
+    """B15 exact TreeSHAP wrapper: [N, K, F + 1]. ``mapping`` forces one of
+    :data:`MAPPINGS` (default: :func:`shap_plan`'s choice); a mapping the
+    shapes cannot take raises ValueError."""
     return _run("exact", sf, x, sc, out, scratch, stream,
-                predict_contribs_exact_plain)
+                predict_contribs_exact_plain, mapping)
 
 
 def predict_interactions(sf: ShapForest, x: torch.Tensor, sc: TreeScales,
                          out: Optional[torch.Tensor] = None,
                          scratch: Optional[torch.Tensor] = None,
-                         stream: Optional[torch.cuda.Stream] = None
-                         ) -> torch.Tensor:
-    """B15 interactions wrapper: [N, K, F + 1, F + 1]."""
+                         stream: Optional[torch.cuda.Stream] = None,
+                         mapping: Optional[str] = None) -> torch.Tensor:
+    """B15 interactions wrapper: [N, K, F + 1, F + 1]; ``mapping`` as
+    :func:`predict_contribs_exact`'s."""
     return _run("interactions", sf, x, sc, out, scratch, stream,
-                predict_interactions_plain)
+                predict_interactions_plain, mapping)
 
 
 #: B15 launches by entry point; each wrapper's ``launches`` counts its own,
 #: and its ``launches_by_mode`` is this dict, shared by the three
 LAUNCHES_BY_MODE = dict.fromkeys(MODES, 0)
+#: B15 launches by (entry point, mapping); the Saabas kernel has one
+#: mapping, "rows"
+LAUNCHES_BY_MAPPING = {}
 _WRAPPERS = {"saabas": predict_contribs, "exact": predict_contribs_exact,
              "interactions": predict_interactions}
 for _w in _WRAPPERS.values():
     _w.launches = 0
     _w.launches_by_mode = LAUNCHES_BY_MODE
+    _w.launches_by_mapping = LAUNCHES_BY_MAPPING
 
 
 def reset_launches() -> None:
@@ -725,6 +1081,7 @@ def reset_launches() -> None:
     for mode, w in _WRAPPERS.items():
         w.launches = 0
         LAUNCHES_BY_MODE[mode] = 0
+    LAUNCHES_BY_MAPPING.clear()
 
 
 def leaf_ops(sf: ShapForest, mode: str, n_trees: Optional[int] = None

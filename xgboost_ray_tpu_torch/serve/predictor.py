@@ -115,10 +115,14 @@ class CompiledPredictor:
                 sf, _ = self._shap_tables()
                 shape = shap_ops.out_shape(bucket, b.num_features,
                                            b.num_outputs, "exact")
+                # what B15's launch plan for the bucket keeps off chip
+                sms = (shap_ops._sm_count(self.device.index or 0)
+                       if self.device.type == "cuda" else 132)
                 words = shap_ops.scratch_floats(sf, b.num_features,
-                                                b.num_outputs, "exact")
-                scratch = torch.empty((words * bucket,), dtype=torch.float32,
-                                      device=self.device)
+                                                b.num_outputs, "exact",
+                                                bucket, sms)
+                scratch = torch.empty((max(words, 1) * bucket,),
+                                      dtype=torch.float32, device=self.device)
             else:
                 shape = (bucket, {"leaf": b.num_trees,
                                   "margin": b.num_outputs,
