@@ -177,15 +177,20 @@ is only where it may find ``cuobjdump``). Phases:
    interactions over the first 50 rounds: the plain version's D^2 loops
    of PyTorch calls take minutes over 500 trees); Covertype's model
    (``multi:softprob``, K = 7, 70 trees, F = 54, trained here) over its
-   116,202 test rows (179 MB) and interactions over 4,096 rows, their sums
-   checked and exact held against plain; each entry point timed at the
+   116,202 test rows (179 MB, exact and Saabas) and interactions over
+   4,096 rows, their sums checked, exact and Saabas held against plain
+   (Saabas over all the test rows, and in each mapping over 4,096); the
+   Saabas walk tables' bytes and each call's scratch bytes recorded; each
+   entry point timed at the
    main path's shape (events; device time L2 flushed by a write, by a
-   read, and warm) and at 4,096 rows beside its plain version, its bound
-   from the forest's actual leaves (``ops/shap.leaf_ops``) and, beside it,
-   the unfused ceiling (twice the operations bound: B15 builds with
-   --fmad=false); no PyTorch call computes TreeSHAP, so ``library_ms`` is
-   null. The exact and interaction kernels' launches are counted by
-   mapping on each path; each of their mappings is held bitwise against
+   read, and warm) and at 4,096 rows (the same) beside its plain version,
+   its bound from the forest's actual leaves (``ops/shap.leaf_ops``;
+   Saabas from the leaf each row reaches, ``ops/shap.saabas_ops``, with
+   the count of ``leaf_ops`` beside it) and,
+   beside it, the unfused ceiling (twice the operations bound: B15 builds
+   with --fmad=false) and the bytes bound; no PyTorch call computes
+   TreeSHAP, so ``library_ms`` is null. Every entry point's launches are
+   counted by mapping on each path; each mapping is held bitwise against
    the plain version and against the main path's mapping, and timed at the
    main path's shape; each record carries its mapping and its kernel's
    registers and spills (``-Xptxas -v``; no B15 kernel of a forest up to
@@ -266,9 +271,14 @@ rows but no result line.
 exact and interaction kernels (rows mapping, phase 11's shapes) as built
 against edits of ``csrc/shap.cu`` compiled beside it (``B15_VARIANTS``:
 the compiler's division for the quotients, warp votes around the UNWIND
-branches, the pair loop unrolled) and against every rows-mapping buffer on
-chip, in turns, bitwise checked, then both mappings across batch sizes;
-one JSON line and no result line.
+branches, the pair loop unrolled, the Saabas fold's reads before its
+writes) and
+against every rows-mapping buffer on
+chip, in turns, bitwise checked; the Saabas rows mapping at 256 or 128
+rows a CTA and 8, 4 or 2 trees a tile, in turns, bitwise checked, and its
+lanes mapping at 1, 2, 4 and 8 rows a CTA over 37 to 16,384 rows; then
+the rows and lanes mappings of all three entry points across batch
+sizes; one JSON line and no result line.
 
 ``--ranks-only`` runs the build, the 1-rank main path and the ranks phase
 (on a host of two or more cards also the NCCL path, against the 1-rank
@@ -2460,6 +2470,17 @@ _B15_QUOTIENTS = """  const float den = fmaxf(z, 1e-12f);
   }
 """
 _B15_PAIR_LOOP = "#pragma unroll 1\n        for (int j = 0; j < L.m; ++j) {"
+_B15_SAABAS_FOLD = """#pragma unroll
+  for (int j = 0; j < XRT_SAABAS_MAX_DEPTH; ++j) {
+    if (j < a.max_depth) {
+      const unsigned f = (half[j >> 1] >> (16 * (j & 1))) & XRT_SAABAS_PAD;
+      if (f != XRT_SAABAS_PAD) {
+        float* c = acc_k + (int)f * pitch;
+        *c = *c + credit[j] * sc;
+      }
+    }
+  }
+"""
 B15_VARIANTS = {
     "built": [],
     # the compiler's IEEE division in place of the 5-instruction quotient
@@ -2480,7 +2501,67 @@ B15_VARIANTS = {
         "unroll 1", "unroll 2"), 1)],
     "pair_loop_unrolled_4": [(_B15_PAIR_LOOP, _B15_PAIR_LOOP.replace(
         "unroll 1", "unroll 4"), 1)],
+    # the Saabas rows mapping's fold reading every accumulator of a leaf
+    # before writing any (its features are distinct) in place of a pair at
+    # a time
+    "saabas_batched_fold": [(_B15_SAABAS_FOLD, _B15_SAABAS_FOLD.replace(
+        "        float* c = acc_k + (int)f * pitch;\n"
+        "        *c = *c + credit[j] * sc;\n",
+        "        at[j] = (int)f * pitch;\n"
+        "        v[j] = acc_k[at[j]];\n").replace(
+        "#pragma unroll\n  for (int j = 0;",
+        "  int at[XRT_SAABAS_MAX_DEPTH];\n  float v[XRT_SAABAS_MAX_DEPTH];\n"
+        "#pragma unroll\n  for (int j = 0;").replace(
+        "    if (j < a.max_depth) {",
+        "    at[j] = -1;\n    if (j < a.max_depth) {") + (
+        "#pragma unroll\n  for (int j = 0; j < XRT_SAABAS_MAX_DEPTH; ++j)\n"
+        "    if (at[j] >= 0) acc_k[at[j]] = v[j] + credit[j] * sc;\n"), 1)],
 }
+
+
+def saabas_small_walls(bst, x, reps=7):
+    """``predict(pred_contribs=True, approx_contribs=True)`` at 37 and
+    4,096 rows, the booster's call and ``predict()`` through the facade,
+    with the plan's mapping (lanes) and with the rows mapping forced
+    (``LANES_ROWS_PER_SM["saabas"] = 0``), in turns: host clock, ms, every
+    reading, and the mappings' outputs bitwise each other."""
+    import xgboost_ray_tpu_torch as xrt
+    from xgboost_ray_tpu_torch.ops import shap as SH
+
+    rp = xrt.RayParams(num_actors=2)
+    keep = SH.LANES_ROWS_PER_SM["saabas"]
+    walls = {}
+    try:
+        for n in (37, 4096):
+            xq = np.ascontiguousarray(x[:n])
+            calls = {
+                "booster": lambda: bst.predict(
+                    xq, pred_contribs=True, approx_contribs=True),
+                "predict": lambda: xrt.predict(
+                    bst, xrt.RayDMatrix(xq), ray_params=rp,
+                    pred_contribs=True, approx_contribs=True)}
+            for entry, call in calls.items():
+                outs = {}
+                for i in range(2 * reps + 2):
+                    m = ("lanes", "rows", "rows", "lanes")[i % 4]
+                    SH.LANES_ROWS_PER_SM["saabas"] = keep if m == "lanes" else 0
+                    SH.reset_launches()
+                    t0 = time.perf_counter()
+                    got = call()
+                    ms = (time.perf_counter() - t0) * 1e3
+                    check(set(k[1] for k in SH.LAUNCHES_BY_MAPPING) == {m},
+                          f"B15 Saabas at {n} rows took "
+                          f"{dict(SH.LAUNCHES_BY_MAPPING)}, not {m}")
+                    if i >= 2:  # the first of each mapping warms it
+                        walls.setdefault(f"{entry}/{n}/{m}", []).append(ms)
+                    outs.setdefault(m, got)
+                check(np.array_equal(outs["lanes"], outs["rows"]),
+                      f"B15 Saabas {entry} at {n} rows: lanes and rows "
+                      f"differ")
+    finally:
+        SH.LANES_ROWS_PER_SM["saabas"] = keep
+    return {k: {"median_ms": float(np.median(v)), "ms": v}
+            for k, v in walls.items()}
 
 
 def phase_b15_variants(bst, x):
@@ -2488,8 +2569,12 @@ def phase_b15_variants(bst, x):
     shared-memory budget that keeps every rows-mapping buffer on chip, in
     turns (every variant, then every variant in reverse order), events of
     one call: exact TreeSHAP over 1,048,576 rows and interaction values over
-    65,536 (the rows mapping, phase 11's shapes); every output bitwise the
-    built kernel's. Then the mappings' times across batch sizes (where
+    65,536 and Saabas over 1,048,576 (the rows mapping, phase 11's shapes);
+    every output bitwise the built kernel's. Then the Saabas rows mapping
+    with 256 or 128 rows a CTA
+    and 8, 4 or 2 trees a tile over 1,048,576 rows, in turns and bitwise;
+    its lanes mapping at 1, 2, 4 and 8 rows a CTA over 37 to 16,384 rows;
+    then the mappings' times across batch sizes, Saabas's too (where
     ``shap_plan`` switches). A measurement only: the package launches the
     kernel as built."""
     import ctypes
@@ -2537,6 +2622,8 @@ def phase_b15_variants(bst, x):
     cases = {"exact": (SH.predict_contribs_exact, xd),
              "interactions": (SH.predict_interactions,
                               xd[:SHAP_INTER_ROWS].contiguous())}
+    if hasattr(SH, "saabas_layout"):
+        cases["saabas"] = (SH.predict_contribs, xd)
     budget = SH._ROWS_SHARED_MAX
     runs = [(name, lib, budget) for name, lib in libs.items()]
     runs.append(("rows_shared_112k", libs["built"], 112 << 10))
@@ -2562,10 +2649,56 @@ def phase_b15_variants(bst, x):
         table["shap"] = built
         SH._ROWS_SHARED_MAX = budget
     del refs
+    if hasattr(SH, "saabas_layout"):
+        # the Saabas rows mapping's rows a CTA and trees a tile over
+        # phase 11's 1,048,576 rows, in turns, bitwise the plan's choice
+        ref = SH.predict_contribs(sf, xd, sc, mapping="rows")
+        combos = [(r, tt) for r in (256, 128) for tt in (8, 4, 2)]
+        keep = SH.SAABAS_ROWS, SH.SAABAS_TILE_TREES
+        res["saabas_rows_tiles"] = {}
+        try:
+            for order in (combos, combos[::-1]):
+                for r, tt in order:
+                    SH.SAABAS_ROWS, SH.SAABAS_TILE_TREES = (r,), (tt,)
+                    got = SH.predict_contribs(sf, xd, sc, mapping="rows")
+                    check(torch.equal(got, ref), f"B15 Saabas with {r} rows "
+                                                 f"and {tt} trees a tile "
+                                                 f"differs")
+                    del got
+                    res["saabas_rows_tiles"].setdefault(
+                        f"{r}x{tt}", []).append(cuda_ms(
+                            lambda: SH.predict_contribs(sf, xd, sc,
+                                                        mapping="rows"),
+                            iters=3, warmup=1))
+        finally:
+            SH.SAABAS_ROWS, SH.SAABAS_TILE_TREES = keep
+        del ref
+        # the lanes mapping's rows a CTA across batch sizes
+        keep = SH.SAABAS_LANES_ROWS, SH._SAABAS_LANES_CTAS_PER_SM
+        res["saabas_lanes_rows"] = {}
+        try:
+            SH._SAABAS_LANES_CTAS_PER_SM = 0
+            for n in (37, 1024, 4096, 16384):
+                xq = xd[:n].contiguous()
+                ref = SH.predict_contribs(sf, xq, sc, mapping="rows")
+                for rc in (1, 2, 4, 8):
+                    SH.SAABAS_LANES_ROWS = (rc,)
+                    check(torch.equal(SH.predict_contribs(
+                        sf, xq, sc, mapping="lanes"), ref),
+                        f"B15 Saabas lanes with {rc} rows a CTA differs")
+                    res["saabas_lanes_rows"][f"{n}/{rc}"] = cuda_ms(
+                        lambda: SH.predict_contribs(sf, xq, sc,
+                                                    mapping="lanes"),
+                        iters=5, warmup=1)
+        finally:
+            SH.SAABAS_LANES_ROWS, SH._SAABAS_LANES_CTAS_PER_SM = keep
     # the mappings across batch sizes: a rows-mapping CTA walks the whole
     # forest however few its rows; the lanes mapping's time grows with n
     sizes = {"exact": (37, 1024, 8192, 16384, 32768),
              "interactions": (37, 1024, 16384, 32768, 65536)}
+    if hasattr(SH, "saabas_layout"):
+        sizes["saabas"] = (37, 1024, 4096, 8192, 16384, 24576, 32768,
+                           65536, 131072)
     res["by_batch"] = {}
     for mode, ns in sizes.items():
         kern = cases[mode][0]
@@ -2574,6 +2707,8 @@ def phase_b15_variants(bst, x):
             res["by_batch"][f"{mode}/{n}"] = {m: cuda_ms(
                 lambda: kern(sf, xq, sc, mapping=m), iters=3, warmup=1)
                 for m in ("rows", "lanes")}
+    if hasattr(SH, "saabas_layout"):
+        res["saabas_small_walls"] = saabas_small_walls(bst, x)
     res["sms"] = torch.cuda.get_device_properties(0).multi_processor_count
     emit({"phase": "b15_variants", **res})
     return res
@@ -3800,10 +3935,10 @@ def shap_sum_bound(bst, sf, m, n_feat, interactions=False):
 def _shap_record(records, key, fn, plain, bound, launches, err, fn4096):
     """B15's row of the kernel table: events and device time (L2 flushed
     by a write and by a read, and warm) at the main path's shape, the
-    kernel and its plain version at ``SHAP_PLAIN_ROWS`` rows; beside the
-    operations bound the unfused ceiling (B15 builds with --fmad=false, so
-    every multiply and add is an instruction of its own: half the f32
-    rate)."""
+    kernel (events and the same device times) and its plain version at
+    ``SHAP_PLAIN_ROWS`` rows; beside the operations bound the unfused
+    ceiling (B15 builds with --fmad=false, so every multiply and add is an
+    instruction of its own: half the f32 rate)."""
     import torch
 
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
@@ -3815,6 +3950,9 @@ def _shap_record(records, key, fn, plain, bound, launches, err, fn4096):
         device_ms_read_flush=read_flushed_ms(fn, iters=1),
         device_ms_l2_warm=profiled_ms(fn, iters=1),
         ms_plain_rows=cuda_ms(fn4096, iters=2, warmup=1),
+        device_ms_plain_rows=[
+            profiled_ms(lambda: (flush.zero_(), fn4096()), iters=3),
+            read_flushed_ms(fn4096, iters=3), profiled_ms(fn4096, iters=3)],
         plain_ms=cuda_ms(plain, iters=1, warmup=0), plain_rows=SHAP_PLAIN_ROWS,
         bound_ms=bound[0], bound_by=bound[1], library_ms=None,
         unfused_ceiling_ms=(2 * bound[0] if bound[1] == "operations"
@@ -3823,9 +3961,11 @@ def _shap_record(records, key, fn, plain, bound, launches, err, fn4096):
 
 def b15_kernel_names(mode, mapping):
     """The ``-Xptxas -v`` name of the B15 kernel a launch of ``mode`` takes
-    in ``mapping``."""
+    in ``mapping`` (Saabas: its variant without categorical splits)."""
     if mode == "saabas":
-        return "xrt_shap_saabas_kernel<8>"
+        return {"rows": "xrt_shap_saabas_rows_kernel<false>",
+                "lanes": "xrt_shap_saabas_lanes_kernel<false>"}.get(
+                    mapping, "xrt_shap_saabas_kernel<16>")
     inter = str(mode == "interactions").lower()
     if mapping == "deep":
         return f"xrt_shap_{mode}_kernel<16>"
@@ -3926,10 +4066,15 @@ def phase_shap(bst, x, records):
     res["max_leaves"] = sf.max_leaves
     res["max_tree_features"] = sf.max_feats
     margin = bst.predict(xs, output_margin=True)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     chunks = {mode: predict_chunks(
         bst, n, 4 * (f + int(np.prod(SH.out_shape(1, f, 1, mode)[1:]))
-                     + SH.scratch_floats(sf, f, 1, mode)))
+                     + SH.scratch_floats(sf, f, 1, mode, n, sms)))
         for mode in ("exact", "saabas")}
+    # the Saabas kernel's mappings and walk tables (not in an older tree)
+    saabas_mapped = hasattr(SH, "saabas_layout")
+    if saabas_mapped:
+        res["saabas_table_bytes"] = sf.saabas_tab.numel() * 4
 
     # the main paths: predict() over 1M rows, exact then Saabas, then the
     # interaction values over 65,536 rows
@@ -3958,6 +4103,9 @@ def phase_shap(bst, x, records):
     check(got == {"saabas": chunks["saabas"], "exact": 0, "interactions": 0},
           f"B15 launches of approx_contribs: {got}")
     main_launches["saabas"] = got["saabas"]
+    if by_mapping:
+        main_mapping["saabas"] = {k[1]: v for k, v in
+                                  SH.LAUNCHES_BY_MAPPING.items()}
     ni = SHAP_INTER_ROWS
     SH.reset_launches()
     t0 = time.perf_counter()
@@ -4000,9 +4148,16 @@ def phase_shap(bst, x, records):
     check(bool((rows_err <= bound_i).all()),
           "interaction rows do not sum to the exact contributions")
 
-    # the booster's own call, reruns, and rows at other batch sizes
+    # the booster's own call, reruns, and rows at other batch sizes; the
+    # booster's Saabas call timed (the predict() wall less it: the matrix,
+    # the actors and the shards' concatenation)
     same = {"booster_exact": np.array_equal(
         bst.predict(xs, pred_contribs=True), exact)}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    same["booster_saabas"] = np.array_equal(
+        bst.predict(xs, pred_contribs=True, approx_contribs=True), approx)
+    res["saabas_booster_s"] = time.perf_counter() - t0
     same["rerun_exact"] = np.array_equal(
         xrt.predict(bst, xrt.RayDMatrix(xs), ray_params=rp,
                     pred_contribs=True), exact)
@@ -4033,7 +4188,8 @@ def phase_shap(bst, x, records):
              "interactions": (SH.predict_interactions,
                               SH.predict_interactions_plain, sc50)}
     errs = {}
-    mappings = SH.MAPPINGS if by_mapping else ()
+    mapped = [m for m in cases if by_mapping
+              and (m != "saabas" or saabas_mapped)]
     for mode, (kern, plain, scm) in cases.items():
         a = kern(sf, xp, scm)
         torch.cuda.synchronize()
@@ -4044,11 +4200,11 @@ def phase_shap(bst, x, records):
         errs[mode] = float((a - b).abs().max())
         check(torch.equal(a, b), f"B15 {mode} differs from its plain "
                                  f"version: max |d| {errs[mode]}")
-        if mode != "saabas":  # each mapping, bitwise the plain version
-            for m in mappings:
-                check(torch.equal(kern(sf, xp, scm, mapping=m), b),
-                      f"B15 {mode} in the {m} mapping differs from its "
-                      f"plain version")
+        for m in SH.MAPPINGS if mode in mapped else ():
+            # each mapping, bitwise the plain version
+            check(torch.equal(kern(sf, xp, scm, mapping=m), b),
+                  f"B15 {mode} in the {m} mapping differs from its plain "
+                  f"version")
     res["plain_trees"] = {"saabas": bst.num_trees, "exact": bst.num_trees,
                           "interactions": SHAP_PLAIN_INTER_ROUNDS}
 
@@ -4061,10 +4217,13 @@ def phase_shap(bst, x, records):
     mc = cov.predict(xv, output_margin=True)
     SH.reset_launches()
     cexact = cov.predict(xv, pred_contribs=True)
+    capprox = cov.predict(xv, pred_contribs=True, approx_contribs=True)
     cinter = cov.predict(xv[:SHAP_COV_INTER_ROWS], pred_interactions=True)
     got = shap_counters()
-    check(got == {"saabas": 0, "exact": 1, "interactions": 1},
+    check(got == {"saabas": 1, "exact": 1, "interactions": 1},
           f"B15 launches of the Covertype paths: {got}")
+    check(capprox.shape == (COVERTYPE_TEST, 7, 55)
+          and bool(np.isfinite(capprox).all()), "Covertype Saabas output")
     check(cexact.shape == (COVERTYPE_TEST, 7, 55)
           and cinter.shape == (SHAP_COV_INTER_ROWS, 7, 55, 55),
           "Covertype SHAP shapes")
@@ -4072,41 +4231,64 @@ def phase_shap(bst, x, records):
     cbi = shap_sum_bound(cov, sfc, np.abs(mc[:SHAP_COV_INTER_ROWS]).max(1),
                          54, interactions=True)[:, None]
     ce = np.abs(cexact.sum(2, dtype=np.float64) - mc)
+    ca = np.abs(capprox.sum(2, dtype=np.float64) - mc)
     ci = np.abs(cinter.sum((2, 3), dtype=np.float64)
                 - mc[:SHAP_COV_INTER_ROWS])
     res["covertype"] = {"exact_rows": COVERTYPE_TEST,
                         "interaction_rows": SHAP_COV_INTER_ROWS,
                         "exact_mb": cexact.nbytes / 1e6,
-                        "sum_err_max": [float(ce.max()), float(ci.max())]}
-    check(bool((ce <= cb).all() and (ci <= cbi).all()),
+                        "sum_err_max": [float(ce.max()), float(ci.max()),
+                                        float(ca.max())]}
+    check(bool((ce <= cb).all() and (ci <= cbi).all()
+               and (ca <= cb).all()),
           f"Covertype contributions do not sum to the margins: "
-          f"{float(ce.max())}, {float(ci.max())}")
+          f"{float(ce.max())}, {float(ci.max())}, {float(ca.max())}")
     xcp = torch.from_numpy(np.ascontiguousarray(xv[:SHAP_PLAIN_ROWS])).cuda()
     scc = cov.tree_scales(sfc)
     a = SH.predict_contribs_exact(sfc, xcp, scc)
     check(torch.equal(a, SH.predict_contribs_exact_plain(sfc, xcp, scc)),
           "B15 exact differs from its plain version at K = 7, F = 54")
+    # Saabas over the test rows (the plan's mapping: rows), each mapping
+    # at 4,096 rows, all bitwise the plain version
+    xcd = torch.from_numpy(np.ascontiguousarray(xv)).cuda()
+    cplain = SH.predict_contribs_plain(sfc, xcd, scc)
+    check(torch.equal(SH.predict_contribs(sfc, xcd, scc), cplain),
+          "B15 Saabas differs from its plain version at K = 7, F = 54")
+    if saabas_mapped:
+        res["covertype"]["saabas_mapping"] = SH.shap_plan(
+            sfc, "saabas", COVERTYPE_TEST, 54, 7, sms).mapping
+        for m in SH.MAPPINGS:
+            check(torch.equal(SH.predict_contribs(sfc, xcp, scc, mapping=m),
+                              cplain[:SHAP_PLAIN_ROWS]),
+                  f"B15 Saabas in the {m} mapping differs from its plain "
+                  f"version at K = 7, F = 54")
+    del xcd, cplain
 
     # times at the main path's shapes, bounds from this forest's leaves
     xd = torch.from_numpy(xs).cuda()
     xi = xd[:ni].contiguous()
+    def scratch_for(mode, rows):  # what the plan of the call keeps off chip
+        return torch.empty((SH.scratch_floats(sf, f, 1, mode, rows, sms)
+                            * rows,), device="cuda")
+
     outs = {"exact": (torch.empty((n, 1, f + 1), device="cuda"),
-                      torch.empty((SH.scratch_floats(sf, f, 1, "exact") * n,),
-                                  device="cuda"), xd),
+                      scratch_for("exact", n), xd),
             "saabas": (torch.empty((n, 1, f + 1), device="cuda"),
-                       torch.empty((SH.scratch_floats(sf, f, 1, "saabas")
-                                    * n,), device="cuda"), xd),
+                       scratch_for("saabas", n), xd),
             "interactions": (
                 torch.empty((ni, 1, f + 1, f + 1), device="cuda"),
-                torch.empty((SH.scratch_floats(sf, f, 1, "interactions")
-                             * ni,), device="cuda"), xi)}
+                scratch_for("interactions", ni), xi)}
+    res["scratch_bytes"] = {k: v[1].numel() * 4 for k, v in outs.items()}
     ptxas = shap_build_report() if by_mapping else None
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for mode, (kern, plain, scm) in cases.items():
         out, scratch, xin = outs[mode]
         rows = xin.shape[0]
         nbytes = xin.numel() * 4 + out.numel() * 4
         ops = SH.leaf_ops(sf, mode) * rows
+        tight = mode == "saabas" and hasattr(SH, "saabas_ops")
+        if tight:  # the leaf each row reaches (not in an older tree)
+            loose_ms = bound_ms(nbytes, ops)[0]
+            ops = SH.saabas_ops(sf, xin)
         key = {"saabas": "B15saabas", "exact": "B15exact",
                "interactions": "B15interactions"}[mode]
         _shap_record(
@@ -4116,17 +4298,20 @@ def phase_shap(bst, x, records):
             bound_ms(nbytes, ops), main_launches[mode], errs[mode],
             lambda: kern(sf, xp, scm))
         records[key]["rows"] = rows
-        records[key]["ops_per_row"] = SH.leaf_ops(sf, mode)
+        records[key]["ops_per_row"] = ops / rows
+        if tight:  # the thread-a-row kernel's count, for comparison
+            records[key]["leaf_ops_per_row"] = SH.leaf_ops(sf, mode)
+            records[key]["leaf_ops_bound_ms"] = loose_ms
+        records[key]["bytes_bound_ms"] = nbytes / H100_BYTES_PER_S * 1e3
         records[key]["plain_trees"] = res["plain_trees"][mode]
-        if not by_mapping:
+        if mode not in mapped:
             continue
-        mapping = ("rows" if mode == "saabas" else SH.shap_plan(
-            sf, mode, rows, f, 1, sms).mapping)
+        mapping = SH.shap_plan(sf, mode, rows, f, 1, sms).mapping
         records[key]["mapping"] = mapping
+        records[key]["mapping_plain_rows"] = SH.shap_plan(
+            sf, mode, SHAP_PLAIN_ROWS, f, 1, sms).mapping
         records[key]["ptxas"] = ptxas["kernels"].get(
             b15_kernel_names(mode, mapping), "not in the ptxas log")
-        if mode == "saabas":
-            continue
         # the other mappings at the same shape, held to the main one's bits
         ref = kern(sf, xin, sc, out=out, scratch=scratch).clone()
         other = {}

@@ -39,10 +39,11 @@ for bit, with its rows in two shards folded too. B15's three entry points
 for bit (the kernel runs the plain version's f32 operations in its order,
 unfused), on random forests with NaN, categorical splits, a depth-1 stump,
 depth 9 (the wide register arrays), F = 54 with K = 7, DART weights,
-``num_parallel_tree`` and ``ntree_limit``; the exact and interaction
-kernels do so in each of their mappings (a thread a row, a row a CTA, the
-rolled deep kernel), the mappings equal each other bit for bit, and a
-forest deeper than 8 refuses the two mappings it cannot take; reruns are
+``num_parallel_tree`` and ``ntree_limit``; each kernel does so in each of
+its mappings (a thread a row, a row a CTA, the thread-a-row deep kernel),
+Saabas also at 1, 37 and 4,096 rows and on each side of its plan's switch,
+the mappings equal each other bit for bit, and a forest deeper than the
+tables refuses the two mappings it cannot take; reruns are
 bitwise, a row's result does not depend on the other rows of its launch or
 on the mapping its batch size picks, each call is one launch (counted by
 mode and mapping), and the booster's and the server's contributions on the
@@ -1468,7 +1469,8 @@ def test_shap_wrappers_reject_bad_inputs(cuda):
 
 
 MAPPED_FNS = {"exact": SHAP_FNS["exact"],
-              "interactions": SHAP_FNS["interactions"]}
+              "interactions": SHAP_FNS["interactions"],
+              "saabas": SHAP_FNS["saabas"]}
 
 
 @pytest.mark.parametrize("case,mode,mapping", [
@@ -1476,12 +1478,13 @@ MAPPED_FNS = {"exact": SHAP_FNS["exact"],
     for mapping in tsh.MAPPINGS
     if not (mode == "interactions" and case[1] > 6)])
 def test_shap_mappings_bitwise_plain(cuda, case, mode, mapping):
-    """Each mapping of the exact and interaction kernels gives the plain
-    version's bits; a forest deeper than 8 refuses the two mappings of the
-    tree blobs."""
+    """Each mapping of each kernel gives the plain version's bits; a forest
+    deeper than 8 refuses the exact and interaction kernels' two mappings
+    of the tree blobs (Saabas's walk tables go to depth 10)."""
     sf, sc, x = _shap_case(case, cuda)
     kernel, plain = MAPPED_FNS[mode]
-    if case[1] > tsh.TAB_MAX_DEPTH and mapping != "deep":
+    if (mode != "saabas" and case[1] > tsh.TAB_MAX_DEPTH
+            and mapping != "deep"):
         with pytest.raises(ValueError, match="depth 8"):
             kernel(sf, x, sc, mapping=mapping)
         return
@@ -1530,6 +1533,83 @@ def test_shap_rows_independent_across_the_mapping_switch(cuda):
                                     "interactions": 1}
     assert torch.equal(inter, tsh.predict_interactions(
         sf, x[:8].contiguous(), sc, mapping="rows"))
+
+
+#: and depth 10 at F = 28 with a categorical feature: the deepest walk
+#: tables, 1-tree tiles under the larger shared-memory budget
+SAABAS_BATCH_CASES = [SHAP_CASES[0], SHAP_CASES[1], SHAP_CASES[3],
+                      SHAP_CASES[4], (4, 10, 28, 1, (3,), 1, False, 0)]
+
+
+@pytest.mark.parametrize("case", SAABAS_BATCH_CASES)
+def test_shap_saabas_mappings_at_batch_sizes(cuda, case, monkeypatch):
+    """Each Saabas mapping at 1, 37 and 4,096 rows (K = 1 at F = 28, K = 7
+    at F = 54, categorical splits with K = 3, npt 2, tree weights and
+    ntree_limit, depth 9, depth 10 with a categorical feature; NaN in
+    every case), the lanes mapping also at
+    each of its rows a CTA, bitwise the plain version, one launch a call
+    counted by its mapping."""
+    sf, sc, x = _shap_case(case, cuda, n=4096)
+    assert sf.saabas_tab is not None
+    for n in (1, 37, 4096):
+        xn = x[:n].contiguous()
+        ref = tsh.predict_contribs_plain(sf, xn, sc)
+        for m in tsh.MAPPINGS:
+            tsh.reset_launches()
+            got = tsh.predict_contribs(sf, xn, sc, mapping=m)
+            torch.cuda.synchronize()
+            assert tsh.LAUNCHES_BY_MAPPING == {("saabas", m): 1}
+            assert torch.equal(got, ref), (case, n, m, float(
+                (got - ref).abs().max()))
+        for rc in tsh.SAABAS_LANES_ROWS:
+            monkeypatch.setattr(tsh, "SAABAS_LANES_ROWS", (rc,))
+            monkeypatch.setattr(tsh, "_SAABAS_LANES_CTAS_PER_SM", 0)
+            got = tsh.predict_contribs(sf, xn, sc, mapping="lanes")
+            assert torch.equal(got, ref), (case, n, rc)
+            monkeypatch.undo()
+
+
+@pytest.mark.parametrize("case", [SHAP_CASES[0], SHAP_CASES[1]])
+def test_shap_saabas_across_the_mapping_switch(cuda, case):
+    """Rows on each side of the Saabas plan's switch, with the wrapper's
+    own choice (lanes one row below it, rows at it), bitwise the plain
+    version; a batch of 8 gives the rows of the large call bit for bit."""
+    sf, sc, x = _shap_case(case, cuda, n=9000)
+    f, k = case[2], case[3]
+    sms = tsh._sm_count(x.device.index or 0)
+    edge = tsh.LANES_ROWS_PER_SM["saabas"] * sms
+    x = x.repeat(-(-edge // 9000), 1)[:edge].contiguous()
+    below = x[:edge - 1].contiguous()
+    assert tsh.shap_plan(sf, "saabas", edge - 1, f, k, sms).mapping == "lanes"
+    assert tsh.shap_plan(sf, "saabas", edge, f, k, sms).mapping == "rows"
+    tsh.reset_launches()
+    big = tsh.predict_contribs(sf, x, sc)
+    small = tsh.predict_contribs(sf, below, sc)
+    torch.cuda.synchronize()
+    assert tsh.LAUNCHES_BY_MAPPING == {("saabas", "rows"): 1,
+                                       ("saabas", "lanes"): 1}
+    assert torch.equal(big, tsh.predict_contribs_plain(sf, x, sc))
+    assert torch.equal(small, big[:edge - 1])
+    for lo in (0, 255, edge - 8):
+        part = tsh.predict_contribs(sf, x[lo:lo + 8].contiguous(), sc)
+        assert torch.equal(part, big[lo:lo + 8]), lo
+
+
+def test_shap_saabas_deeper_than_its_tables(cuda):
+    """A depth-11 forest has no walk tables: Saabas takes the deep kernel,
+    bitwise the plain version, and refuses the other two mappings."""
+    forest = _shap_forest_np(5, 3, 11, 6, p_leaf=0.5)
+    sf = tsh.shap_forest(forest, 11, cuda, num_features=6)
+    sc = tsh.tree_scales(sf)
+    x = torch.from_numpy(_shap_rows(6, 200, 6)).to(cuda)
+    assert sf.saabas_tab is None
+    tsh.reset_launches()
+    got = tsh.predict_contribs(sf, x, sc)
+    assert tsh.LAUNCHES_BY_MAPPING == {("saabas", "deep"): 1}
+    assert torch.equal(got, tsh.predict_contribs_plain(sf, x, sc))
+    for m in ("rows", "lanes"):
+        with pytest.raises(ValueError, match="depth 10"):
+            tsh.predict_contribs(sf, x, sc, mapping=m)
 
 
 def test_booster_and_server_contribs_on_card(cuda):

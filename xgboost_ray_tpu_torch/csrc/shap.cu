@@ -8,7 +8,13 @@
 // one launch each: xrt_shap_saabas, xrt_shap_exact, xrt_shap_interactions.
 //
 // Inputs: the forest's SHAP tables (ops/shap.py shap_forest, built once per
-// model). For forests up to depth 8 the exact and interaction kernels read
+// model). For forests up to depth 10 the Saabas kernel reads one walk table
+// a tree (saabas_tab, ops/shap.py saabas_layout): the node records of
+// levels 0..D-1, then for each last-level position p of a D-step walk (one
+// that goes on below a leaf ends under it) an entry of the credits of the
+// leaf above p, at most D (feature, credit) pairs, features distinct, at
+// an odd pitch. For forests up to
+// depth 8 the exact and interaction kernels read
 // one blob a tree (tree_tab): a header (split nodes, leaves, features), the
 // tree's features ascending (its slots), its split nodes' packed 8-byte
 // records by split ordinal (ascending heap index), and its leaves in slot
@@ -65,15 +71,44 @@
 // Forests deeper than 8 take the rolled thread-a-row kernels (a thread a row,
 // every step re-tested, the sums in the scratch): "deep".
 //
+// Design (Saabas, forests up to depth 10). What fixes the bits
+// (predict_contribs_plain): per tree a row's credit vector, +0.0 then
+// bw[child] - bw[node] added into its feature step by step, then acc[k_t] +
+// credit * scale_t over every feature, trees in order. Given the leaf a row
+// reaches, the credits are fixed, so the host builds them once per model
+// with the same f32 operations (the walk tables); a credit off the path is
+// +0.0, and +0.0 * scale_t added to an accumulator that starts at +0.0 (so
+// is never -0.0) changes no bits: the rows mapping adds only the leaf's
+// pairs, the lanes mapping every credit, as the plain version does.
+// - rows: a thread a row, 256 rows a CTA (fewer where the class
+//   accumulators of K * F words a row do not fit); the CTA's rows of x
+//   feature-major and the accumulators ([K * F][rows]: lanes at any
+//   features hit distinct banks) in shared memory, written out once,
+//   row-contiguous; the walk tables staged in tiles of whole trees by
+//   cp.async, double-buffered; a thread walks two trees in lock step, D
+//   levels without a leaf test, then adds each leaf's pairs (B8's rows
+//   mapping, csrc/predict.cu, with the credits in place of the value).
+// - lanes: 1-8 rows a CTA of 128 threads; each walks a tree of the group
+//   for a row from device memory and stages its credit vector densely in
+//   shared memory, then threads over the rows' class accumulators add the
+//   group's trees in order. A small batch spreads over whole CTAs.
+// Deeper forests take the thread-a-row kernel (the accumulators in the
+// scratch): "deep".
+//
 // What bounds it: operations. Per row and tree, exact TreeSHAP needs about
 // sum over leaves of 4 m^2 + 1.5 m^2 f32 operations (EXTEND, then an
 // UNWIND and a weighted sum per element), interactions about m times that;
-// Saabas a few per step of one walk (chip_smoke.py counts them from the
-// forest's actual leaves: ops/shap.leaf_ops). Unfused, each multiply and
-// add is an instruction of its own, so the card's f32 rate halves (33.5 T
-// a second): the unfused ceiling is twice the bound. The o == 0 quotient is
-// an IEEE division of about ten instructions a coefficient, and the rows
-// of a warp take both UNWIND branches where their o differ.
+// Saabas a compare per split test of the walk to the row's leaf and a
+// multiply and an add per pair of that leaf (chip_smoke.py counts them
+// from the leaves the rows reach: ops/shap.saabas_ops); what holds the
+// Saabas rows mapping is shared-memory wavefronts, as B8's walk (a record
+// and a gather a level), and the read-modify-write of an accumulator a
+// pair. Unfused,
+// each multiply and add is an instruction of its own, so the card's f32
+// rate halves (33.5 T a second): the unfused ceiling is twice the bound.
+// The o == 0 quotient is an IEEE division of about ten instructions a
+// coefficient, and the rows of a warp take both UNWIND branches where
+// their o differ.
 #include "common.cuh"
 
 #define XRT_SHAP_THREADS 128
@@ -122,6 +157,12 @@ struct XrtShapArgs {
   // word offsets into the dynamic shared memory, -1: in the scratch
   int off_tab, off_route, off_x, off_sums, off_stage, off_acc;
   int acc_words, sums_words, scratch_words;
+  // the Saabas kernel's walk tables (ops/shap.py saabas_layout; forests up
+  // to depth 10): entries at sb_entry_off, each sb_pitch words, its feature
+  // halves at sb_half_off within it; the rows mapping's trees a staged tile
+  const int* saabas_tab;  // [T][sb_words]
+  int sb_words, sb_entry_off, sb_half_off, sb_pitch, tile_trees;
+  int cta_rows;  // the Saabas lanes mapping's rows a CTA
 };
 
 // The port's routing rule (ops/predict._step_right), as B8's xrt_right;
@@ -134,9 +175,9 @@ __device__ __forceinline__ bool xrt_shap_right(uint2 nd, float xv, bool cat) {
   return xv >= v || nan_right;
 }
 
-// The thread-a-row kernels: the Saabas kernel (both widths), and the
-// exact and interaction kernels at width 16, the "deep" mapping of forests
-// deeper than 8 (any forest when forced). Loops over path elements
+// The thread-a-row kernels at width 16: the "deep" mapping of forests
+// without walk tables (Saabas) or tree blobs (exact and interactions), and
+// of any forest when forced. Loops over path elements
 // (#pragma unroll (MAXD <= 8 ? MAXD : 1)) stay rolled at width 16 and the
 // arrays go to local memory: fully unrolled, the interactions kernel's three
 // nested element loops took minutes to compile.
@@ -1118,18 +1159,206 @@ __global__ void __launch_bounds__(XRT_LANES_WARPS * 32)
 }
 
 // ---------------------------------------------------------------------------
-// Entry points
+// The Saabas kernels for forests with walk tables (depth <= 10)
 // ---------------------------------------------------------------------------
 
-#define XRT_SHAP_LAUNCH(KERNEL, A, STREAM)                                  \
-  do {                                                                      \
-    const unsigned blocks = (unsigned)(((A).n_rows + XRT_SHAP_THREADS - 1) / \
-                                       XRT_SHAP_THREADS);                   \
-    if ((A).max_depth <= 8)                                                 \
-      KERNEL<8><<<blocks, XRT_SHAP_THREADS, 0, STREAM>>>(A);                \
-    else                                                                    \
-      KERNEL<16><<<blocks, XRT_SHAP_THREADS, 0, STREAM>>>(A);               \
-  } while (0)
+#define XRT_SAABAS_MAX_DEPTH 10
+#define XRT_SAABAS_PAD 0xffffu  // a feature half past the leaf's pairs
+
+// rows mapping: entry p of a staged walk table into the row's class
+// accumulators (word j at acc[j * pitch]): acc += credit * scale for each
+// of the leaf's pairs, at most D, a pair at a time (on the H100 all reads
+// before all writes took 6.74-6.75 ms over 1M HIGGS rows, this 5.87 ms:
+// chip_smoke.py --b15-variants).
+__device__ __forceinline__ void xrt_saabas_fold(const XrtShapArgs& a,
+                                                const int* tab, int p, int t,
+                                                float* acc, int pitch) {
+  const float sc = __ldg(a.scale + t);
+  float* acc_k = acc + __ldg(a.tree_class + t) * a.n_features * pitch;
+  const int* entry = tab + a.sb_entry_off + p * a.sb_pitch;
+  const float* credit = reinterpret_cast<const float*>(entry);
+  const unsigned* half =
+      reinterpret_cast<const unsigned*>(entry + a.sb_half_off);
+#pragma unroll
+  for (int j = 0; j < XRT_SAABAS_MAX_DEPTH; ++j) {
+    if (j < a.max_depth) {
+      const unsigned f = (half[j >> 1] >> (16 * (j & 1))) & XRT_SAABAS_PAD;
+      if (f != XRT_SAABAS_PAD) {
+        float* c = acc_k + (int)f * pitch;
+        *c = *c + credit[j] * sc;
+      }
+    }
+  }
+}
+
+// rows mapping: a thread a row, the CTA's rows (a.threads) through every
+// tree. Tiles of tile_trees walk tables are staged by cp.async, double-
+// buffered; each thread walks two trees in lock step over the staged node
+// records (D levels, on below a leaf) and its row of the feature-major x
+// tile, then folds the two entries in tree order into its accumulators.
+template <bool CAT>
+__global__ void __launch_bounds__(256) xrt_shap_saabas_rows_kernel(
+    const XrtShapArgs a) {
+  extern __shared__ __align__(16) int xrt_smem[];
+  const int rc = a.threads;
+  const int tid = threadIdx.x;
+  const long long n = a.n_rows;
+  const long long row0 = (long long)blockIdx.x * rc;
+  const int f_ = a.n_features;
+  const int kf = a.num_outputs * f_;
+  const int depth = a.max_depth;
+  const int words = a.sb_words, tt = a.tile_trees, n_trees = a.n_trees;
+  float* xt = reinterpret_cast<float*>(xrt_smem + a.off_x);
+  float* acc = reinterpret_cast<float*>(xrt_smem + a.off_acc);
+  int* tiles = xrt_smem + a.off_tab;
+  const int n_tiles = (n_trees + tt - 1) / tt;
+  if (n_tiles > 0)
+    xrt_stage_blob(tiles, a.saabas_tab, min(tt, n_trees) * words, tid, rc);
+  {
+    // the thread's own row, feature-major ([F][rows]): lanes at any
+    // features read distinct banks
+    const long long g = row0 + tid;
+    const bool live = g < n;
+    const float* xr = a.x + (live ? g : 0) * f_;
+    for (int f = 0; f < f_; ++f) xt[f * rc + tid] = live ? __ldg(xr + f) : 0.f;
+  }
+  for (int j = 0; j < kf; ++j) acc[j * rc + tid] = 0.f;
+  const float* xm = xt + tid;
+  float* am = acc + tid;
+  const int top = (1 << depth) - 1;
+  for (int i = 0; i < n_tiles; ++i) {
+    const int t0 = i * tt;
+    const int nt = min(tt, n_trees - t0);
+    // tile i has landed, and every thread is done with tile i - 1's
+    // buffer, which tile i + 1 takes
+    asm volatile("cp.async.wait_group 0;\n" ::);
+    __syncthreads();
+    if (i + 1 < n_tiles)
+      xrt_stage_blob(tiles + ((i + 1) & 1) * tt * words,
+                     a.saabas_tab + (long long)(t0 + tt) * words,
+                     min(tt, n_trees - t0 - tt) * words, tid, rc);
+    const int* tile = tiles + (i & 1) * tt * words;
+    for (int j = 0; j < nt; j += 2) {
+      const int j1 = min(j + 1, nt - 1);
+      const int* tab0 = tile + j * words;
+      const int* tab1 = tile + j1 * words;
+      const uint2* nd0 = reinterpret_cast<const uint2*>(tab0);
+      const uint2* nd1 = reinterpret_cast<const uint2*>(tab1);
+      int h0 = 0, h1 = 0;
+      for (int k = 0; k < depth; ++k) {
+        const uint2 r0 = nd0[h0];
+        const uint2 r1 = nd1[h1];
+        const bool b0 =
+            xrt_shap_right(r0, xm[(r0.y & XRT_FEATURE_MASK) * rc], CAT);
+        const bool b1 =
+            xrt_shap_right(r1, xm[(r1.y & XRT_FEATURE_MASK) * rc], CAT);
+        h0 = 2 * h0 + (b0 ? 2 : 1);
+        h1 = 2 * h1 + (b1 ? 2 : 1);
+      }
+      xrt_saabas_fold(a, tab0, h0 - top, t0 + j, am, rc);
+      if (j + 1 < nt) xrt_saabas_fold(a, tab1, h1 - top, t0 + j1, am, rc);
+    }
+  }
+  __syncthreads();
+  // the CTA's rows out, row-contiguous: the accumulators, then the bias
+  const int rows = (int)min((long long)rc, n - row0);
+  const int wd = a.num_outputs * (f_ + 1);
+  float* ob = a.out + row0 * wd;
+  for (int i = tid; i < rows * wd; i += rc) {
+    const int r = i / wd, c = i - r * wd;
+    const int k = c / (f_ + 1), f = c - k * (f_ + 1);
+    ob[i] = f < f_ ? acc[(k * f_ + f) * rc + r] : __ldg(a.bias + k);
+  }
+}
+
+// lanes mapping: a.cta_rows rows a CTA (R, a power of two up to 8), 128 / R
+// trees a group. Thread (tree slot s, row r) = (tid / R, tid % R) walks
+// its tree of the group for its row (the node records from device memory:
+// a warp's 32 loads touch 32 / R trees' lines) and stages the tree's
+// credit vector densely (+0.0 off the leaf's path, an odd pitch of F | 1
+// words), slot s its scale and class; then threads over the rows' class
+// accumulators add every tree of their class, trees in order: the plain
+// version's operations one for one.
+template <bool CAT>
+__global__ void __launch_bounds__(XRT_LANES_WARPS * 32)
+    xrt_shap_saabas_lanes_kernel(const XrtShapArgs a) {
+  extern __shared__ __align__(16) int xrt_smem[];
+  constexpr int NT = XRT_LANES_WARPS * 32;
+  const int rc = a.cta_rows;
+  const int group = NT / rc;
+  const long long n = a.n_rows;
+  const long long row0 = (long long)blockIdx.x * rc;
+  const int rows = (int)min((long long)rc, n - row0);
+  const int tid = threadIdx.x;
+  const int r = tid & (rc - 1), slot = tid / rc;
+  const int f_ = a.n_features;
+  const int kf = a.num_outputs * f_;
+  const int depth = a.max_depth;
+  const int top = (1 << depth) - 1;
+  const int sp = f_ | 1;
+  float* xs = reinterpret_cast<float*>(xrt_smem + a.off_x);  // [R][F]
+  float* acc = reinterpret_cast<float*>(xrt_smem + a.off_acc);  // [R][K * F]
+  float* stage = reinterpret_cast<float*>(xrt_smem + a.off_stage);
+  float* st_scale = stage + NT * sp;
+  int* st_class = reinterpret_cast<int*>(st_scale + NT);
+  for (int i = tid; i < rc * f_; i += NT)
+    xs[i] = i < rows * f_ ? __ldg(a.x + row0 * f_ + i) : 0.f;
+  for (int j = tid; j < rc * kf; j += NT) acc[j] = 0.f;
+  __syncthreads();
+  const float* xr = xs + r * f_;
+  for (int g = 0; g < a.n_trees; g += group) {
+    const int cnt = min(group, a.n_trees - g);
+    if (slot < cnt) {
+      const int t = g + slot;
+      const int* tab = a.saabas_tab + (long long)t * a.sb_words;
+      const uint2* nodes = reinterpret_cast<const uint2*>(tab);
+      int h = 0;
+      for (int k = 0; k < depth; ++k) {
+        const uint2 nd = __ldg(nodes + h);
+        h = 2 * h + (xrt_shap_right(nd, xr[nd.y & XRT_FEATURE_MASK], CAT)
+                         ? 2
+                         : 1);
+      }
+      float* srow = stage + tid * sp;  // (slot * R + r) * sp
+      for (int f = 0; f < f_; ++f) srow[f] = 0.f;
+      const int* entry = tab + a.sb_entry_off + (h - top) * a.sb_pitch;
+      const float* credit = reinterpret_cast<const float*>(entry);
+      const unsigned* half =
+          reinterpret_cast<const unsigned*>(entry + a.sb_half_off);
+      for (int j = 0; j < depth; ++j) {
+        const unsigned f =
+            (__ldg(half + (j >> 1)) >> (16 * (j & 1))) & XRT_SAABAS_PAD;
+        if (f != XRT_SAABAS_PAD) srow[f] = __ldg(credit + j);
+      }
+      if (r == 0) {
+        st_scale[slot] = __ldg(a.scale + t);
+        st_class[slot] = __ldg(a.tree_class + t);
+      }
+    }
+    __syncthreads();
+    for (int c = tid; c < rows * kf; c += NT) {
+      const int rr = c / kf, ck = c - rr * kf;
+      const int k = ck / f_, f = ck - k * f_;
+      const float* sr = stage + rr * sp + f;
+      float s = acc[c];
+      for (int j = 0; j < cnt; ++j)
+        if (st_class[j] == k) s = s + sr[j * rc * sp] * st_scale[j];
+      acc[c] = s;
+    }
+    __syncthreads();
+  }
+  const int wd = a.num_outputs * (f_ + 1);
+  float* ob = a.out + row0 * wd;
+  for (int i = tid; i < rows * wd; i += NT) {
+    const int rr = i / wd, c = i - rr * wd;
+    const int k = c / (f_ + 1), f = c - k * (f_ + 1);
+    ob[i] = f < f_ ? acc[rr * kf + k * f_ + f] : __ldg(a.bias + k);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Entry points
+// ---------------------------------------------------------------------------
 
 template <class K>
 static int xrt_shap_launch_planned(K kernel, const XrtShapArgs* a,
@@ -1162,7 +1391,20 @@ static int xrt_shap_planned(const XrtShapArgs* a, cudaStream_t stream) {
 }
 
 extern "C" int xrt_shap_saabas(const XrtShapArgs* a, cudaStream_t stream) {
-  if (a->n_rows > 0) XRT_SHAP_LAUNCH(xrt_shap_saabas_kernel, *a, stream);
+  if (a->n_rows <= 0) return (int)cudaGetLastError();
+  const bool cat = a->has_cat != 0;
+  if (a->mapping == 0)
+    return xrt_shap_launch_planned(cat ? xrt_shap_saabas_rows_kernel<true>
+                                       : xrt_shap_saabas_rows_kernel<false>,
+                                   a, stream);
+  if (a->mapping == 1)
+    return xrt_shap_launch_planned(cat ? xrt_shap_saabas_lanes_kernel<true>
+                                       : xrt_shap_saabas_lanes_kernel<false>,
+                                   a, stream);
+  // deep: the kernel of a thread a row, the accumulators in the scratch
+  const unsigned blocks =
+      (unsigned)((a->n_rows + XRT_SHAP_THREADS - 1) / XRT_SHAP_THREADS);
+  xrt_shap_saabas_kernel<16><<<blocks, XRT_SHAP_THREADS, 0, stream>>>(*a);
   return (int)cudaGetLastError();
 }
 

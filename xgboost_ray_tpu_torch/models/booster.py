@@ -391,7 +391,10 @@ class RayXGBoostBooster:
         sc = self.tree_scales(sf, ntree_limit)
         shape = shap_ops.out_shape(n, num_features, k, mode)
         width = int(np.prod(shape[1:]))
-        words = shap_ops.scratch_floats(sf, num_features, k, mode)
+        # the scratch of the launch plan of all n rows: no chunk needs more
+        sms = (shap_ops._sm_count(dev.index or 0) if dev.type == "cuda"
+               else 132)
+        words = shap_ops.scratch_floats(sf, num_features, k, mode, n, sms)
         out = np.empty(shape, np.float32)
         run = {"saabas": shap_ops.predict_contribs,
                "exact": shap_ops.predict_contribs_exact,

@@ -172,7 +172,11 @@ class ShapArgs(ctypes.Structure):
             "tab_words", "feat_off", "node_off", "leaf_off", "route_words",
             "mapping", "threads", "grid", "shared_bytes", "off_tab",
             "off_route", "off_x", "off_sums", "off_stage", "off_acc",
-            "acc_words", "sums_words", "scratch_words")])
+            "acc_words", "sums_words", "scratch_words")]
+        + [("saabas_tab", P)]
+        + [(name, I) for name in (
+            "sb_words", "sb_entry_off", "sb_half_off", "sb_pitch",
+            "tile_trees", "cta_rows")])
 
 
 _lock = threading.Lock()

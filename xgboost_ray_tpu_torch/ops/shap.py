@@ -50,10 +50,20 @@ batch, ``deep`` (the rolled thread-a-row kernels) for deeper forests. All
 three keep the plain versions' per-leaf operations and fold orders, so
 they give the same bits, and a row's result does not depend on the
 mapping its batch takes.
+
+The Saabas kernel reads, for forests up to depth :data:`SAABAS_MAX_DEPTH`,
+a walk table a tree (``saabas_tab``): its node records, and for every
+last-level position of a walk that goes on below leaves the leaf's path
+credits, built on the host by the plain version's own f32 operations
+(:func:`saabas_walk` finds the entry a row reads). Its
+``rows`` mapping walks tiles of staged tables with the class accumulators
+on chip and adds each leaf's pairs; its ``lanes`` mapping (a row a CTA)
+stages each tree's credit vector and folds it in tree order; ``deep`` is
+the thread-a-row kernel of deeper forests.
 """
 
 import ctypes
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -88,13 +98,21 @@ TAB_HEADER = 4
 #: element 8 past the leaf's depth), then RN(1 / max(z, 1e-12))[8], the
 #: reciprocals the kernels' quotients start from
 LEAF_WORDS = 24
-#: the exact and interaction kernels' mappings (``csrc/shap.cu``): a thread
-#: a row, a row a CTA (warps take trees, lanes take leaves), and the rolled
-#: thread-a-row kernel of forests deeper than TAB_MAX_DEPTH
+#: the kernels' mappings (``csrc/shap.cu``): a thread a row, a row a CTA
+#: (exact and interactions: warps take trees, lanes take leaves; Saabas:
+#: threads take trees, lanes take the class accumulators), and the
+#: thread-a-row kernels of forests without tree blobs or walk tables
 MAPPINGS = ("rows", "lanes", "deep")
 #: most f32 elements a plain step holds per tensor ([rows, trees, ...]):
 #: 64 MB on the host, 1 GB on a card
 _PLAIN_ELEMS = {"cpu": 1 << 24, "cuda": 1 << 28}
+#: deepest forest whose Saabas walk tables (``ShapForest.saabas_tab``) are
+#: built: a tree's table has an entry for each of its 2^D last-level
+#: positions, and two tables of depth 10 (68 KB each) still fit a CTA's
+#: shared memory; deeper forests take the thread-a-row kernel ("deep")
+SAABAS_MAX_DEPTH = 10
+#: a walk-table entry's feature half past the leaf's pairs
+SAABAS_PAD = 0xFFFF
 
 
 class ShapForest(NamedTuple):
@@ -118,7 +136,12 @@ class ShapForest(NamedTuple):
     (:func:`leaf_indicators_plain`). ``tree_tab`` [T, W] int32 (trees up to
     depth 8, else None): the kernel's blob of each tree, read whole by a CTA
     (:data:`TAB_HEADER`, then the tree's features, its split records and
-    its leaves as 24-word records, see :func:`_leaf_record`). Host arrays:
+    its leaves as 24-word records, see :func:`_leaf_record`).
+    ``saabas_tab`` [T, W] int32 (trees up to depth
+    :data:`SAABAS_MAX_DEPTH`, else None): the Saabas kernel's walk table of
+    each tree (:func:`saabas_layout`): its node records of levels 0..D-1,
+    then for every last-level position p of a D-step walk the credits of
+    the leaf above p, at most D (feature, credit) pairs. Host arrays:
     ``expectation`` [T] f32 and ``root_weight`` [T] f32."""
 
     nodes: torch.Tensor
@@ -136,6 +159,7 @@ class ShapForest(NamedTuple):
     n_splits: torch.Tensor
     step_ord: torch.Tensor
     tree_tab: Optional[torch.Tensor]
+    saabas_tab: Optional[torch.Tensor]
     expectation: np.ndarray
     root_weight: np.ndarray
     n_trees: int
@@ -300,6 +324,12 @@ def shap_forest(forest, max_depth: int, device="cpu", *, num_features: int,
                                n_leaves, steps, step_ord, elem_slot, elem_z,
                                leaf_value, leaf_m)
 
+    saabas_tab = None
+    if d <= SAABAS_MAX_DEPTH and num_features < SAABAS_PAD:
+        saabas_tab = _saabas_tables(
+            nodes.reshape(n_trees, heap, 2),
+            np.asarray(forest.base_weight, np.float32), d)
+
     def put(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
@@ -313,6 +343,7 @@ def shap_forest(forest, max_depth: int, device="cpu", *, num_features: int,
         split_nodes=put(split_nodes), n_splits=put(n_splits),
         step_ord=put(step_ord),
         tree_tab=None if tree_tab is None else put(tree_tab),
+        saabas_tab=None if saabas_tab is None else put(saabas_tab),
         expectation=expectation,
         root_weight=np.asarray(forest.base_weight, np.float32)[:, 0].copy(),
         n_trees=int(n_trees), max_depth=d, num_features=int(num_features),
@@ -397,6 +428,77 @@ def _tree_blobs(tree_feats, n_feats, split_nodes, n_splits, n_leaves, steps,
             tab[t, o:o + LEAF_WORDS] = _leaf_record(
                 m, leaf_value[t, l], elem_z[t, l, :m], elem_slot[t, l],
                 steps[t, l], step_ord[t, l])
+    return tab
+
+
+def saabas_layout(max_depth: int):
+    """Word offsets of a tree's Saabas walk table: (entries, feature halves
+    within an entry, entry pitch, total). The node records of levels
+    0..D-1 come first (two words each, the heap order of
+    ``ShapForest.nodes``), then an entry for each last-level position p at
+    ``entries + p * pitch``: D credits, then ceil(D / 2) feature halves
+    (pair 2h in the low half of word h, pair 2h + 1 in the high one,
+    :data:`SAABAS_PAD` past the leaf's pairs). The pitch is odd, so lanes
+    at entries that differ mod 32 read distinct banks, and an entry spans
+    two 32-byte sectors where a walk reads it from device memory; the
+    parts and the total are 16-byte aligned."""
+    d = int(max_depth)
+    rows = max(d, 1)
+    pitch = (rows + -(-rows // 2)) | 1
+    entries = -(-2 * ((1 << d) - 1) // 4) * 4
+    return entries, rows, pitch, -(-(entries + (pitch << d)) // 4) * 4
+
+
+def _saabas_tables(nodes: np.ndarray, base_weight: np.ndarray, d: int
+                   ) -> np.ndarray:
+    """Every tree's Saabas walk table [T, W] (:func:`saabas_layout`) from
+    its packed node records [T, heap, 2] and base weights [T, heap].
+
+    A D-step walk that goes on below a leaf ends at a last-level position
+    under that leaf, so position p names the leaf that the bits of p reach
+    from the root. Its entry holds the leaf's path features in order of
+    first occurrence with their credits, each built as
+    :func:`predict_contribs_plain` builds a row's credit vector for the
+    tree: +0.0, then for every step at that feature ``+ (bw[child] -
+    bw[node])`` in step order, f32 (one IEEE subtraction and add a step)."""
+    n_trees = nodes.shape[0]
+    entries, halves, pitch, width = saabas_layout(d)
+    n_pos = 1 << d
+    rows = max(d, 1)
+    words = nodes[..., 1]
+    tt = np.arange(n_trees)[:, None]
+    pos = np.arange(n_pos)[None, :]
+    idx = np.zeros((n_trees, n_pos), np.int64)
+    feats = np.full((n_trees, n_pos, rows), -1, np.int64)
+    vals = np.zeros((n_trees, n_pos, rows), np.float32)
+    n_used = np.zeros((n_trees, n_pos), np.int64)
+    for s in range(d):
+        w = words[tt, idx]
+        stepped = (w & LEAF) == 0
+        f = (w & FEATURE_MASK).astype(np.int64)
+        nxt = np.where(stepped, 2 * idx + 1 + ((pos >> (d - 1 - s)) & 1),
+                       idx)
+        delta = base_weight[tt, nxt] - base_weight[tt, idx]
+        match = feats == f[..., None]
+        has = match.any(-1)
+        j = np.where(has, match.argmax(-1), n_used)
+        ti, pi = np.nonzero(stepped)
+        jj = j[ti, pi]
+        vals[ti, pi, jj] = vals[ti, pi, jj] + delta[ti, pi]
+        feats[ti, pi, jj] = f[ti, pi]
+        n_used = n_used + (stepped & ~has)
+        idx = nxt
+    tab = np.zeros((n_trees, width), np.int32)
+    top = n_pos - 1
+    tab[:, :2 * top] = nodes[:, :top].reshape(n_trees, -1)
+    half = np.full((n_trees, n_pos, 2 * -(-rows // 2)), SAABAS_PAD, np.int64)
+    half[..., :rows] = np.where(feats >= 0, feats, SAABAS_PAD)
+    entry = np.zeros((n_trees, n_pos, pitch), np.int32)
+    entry[..., :rows] = vals.view(np.int32)
+    entry[..., halves:halves + half.shape[2] // 2] = (
+        half[..., 0::2] | half[..., 1::2] << 16).astype(np.uint32).view(
+            np.int32)
+    tab[:, entries:entries + n_pos * pitch] = entry.reshape(n_trees, -1)
     return tab
 
 
@@ -776,15 +878,35 @@ _X_SHARED_MAX = 48 << 10
 #: --b15-variants``) the rows mapping takes 26 ms (exact) and 215-323 ms
 #: (interactions) up to 16k rows, as a CTA walks the whole forest however
 #: few its rows, while the lanes mapping takes 2.2 and 15 ms a thousand
-#: rows: they meet near 12k and 21k rows
-LANES_ROWS_PER_SM = {"exact": 88, "interactions": 160}
+#: rows: they meet near 12k and 21k rows; Saabas's rows mapping takes
+#: 0.42-0.44 ms up to 32k rows, its lanes mapping 0.41 ms at 16,384 and
+#: 0.55 ms at 24,576
+LANES_ROWS_PER_SM = {"exact": 88, "interactions": 160, "saabas": 128}
+#: Saabas rows mapping: rows (threads) a CTA, tried largest first, and
+#: trees a staged tile (a thread walks two in lock step), tried largest
+#: first, under the first shared-memory budget that holds the x tile, the
+#: class accumulators and two tiles (the first budget keeps two CTAs an
+#: SM). On the H100 over 1,048,576 HIGGS rows (``chip_smoke.py
+#: --b15-variants``) 256 rows and 2 trees took 5.6-5.7 ms, 8 trees 6.6 ms
+#: (two CTAs an SM instead of three), 128 rows 6.2-8.2 ms
+SAABAS_ROWS = (256, 128, 64, 32)
+SAABAS_TILE_TREES = (2, 1)
+#: Saabas lanes mapping: rows a CTA (the 128 threads walk 128 / R trees a
+#: group, so a warp's loads touch 32 / R trees), the largest that still
+#: gives every SM this many CTAs (on the H100, 4,096 HIGGS rows took 0.25,
+#: 0.18, 0.12 and 0.15 ms at 1, 2, 4 and 8 rows a CTA, 16,384 rows 0.84,
+#: 0.63, 0.46 and 0.40 ms: ``chip_smoke.py --b15-variants``)
+SAABAS_LANES_ROWS = (8, 4, 2, 1)
+_SAABAS_LANES_CTAS_PER_SM = 4
+_SAABAS_SHARED_MAX = (112 << 10, 227 << 10)
 
 
 class ShapPlan(NamedTuple):
-    """How one exact or interactions B15 launch maps its work: the mapping,
-    the CTA size and grid, and where each buffer lives: a word offset into
-    the CTA's dynamic shared memory, or -1 for the kernel's scratch in
-    device memory (``scratch_words`` a row)."""
+    """How one B15 launch maps its work: the mapping, the CTA size and
+    grid, and where each buffer lives: a word offset into the CTA's dynamic
+    shared memory, or -1 for the kernel's scratch in device memory
+    (``scratch_words`` a row); the Saabas rows mapping also stages
+    ``tile_trees`` trees a tile."""
 
     mapping: str
     threads: int
@@ -799,6 +921,8 @@ class ShapPlan(NamedTuple):
     acc_words: int  # class accumulators a row
     sums_words: int  # the tree's sums a row (a warp, lanes mapping)
     scratch_words: int
+    tile_trees: int = 1
+    cta_rows: int = 1  # the Saabas lanes mapping's rows a CTA
 
 
 def _words(sf: ShapForest, num_features: int, num_outputs: int, mode: str):
@@ -830,15 +954,19 @@ def _layout(parts, budget):
 def shap_plan(sf: ShapForest, mode: str, n: int, num_features: int,
               num_outputs: int, sm_count: int,
               mapping: Optional[str] = None) -> ShapPlan:
-    """The launch plan of B15's exact or interactions kernel for ``n``
-    rows, from the shapes and the card's SM count alone. Forests deeper
-    than TAB_MAX_DEPTH take "deep"; else both kernels take "lanes" (a row a
-    CTA, every sum on chip) below ``LANES_ROWS_PER_SM`` rows an SM where its
-    buffers fit, and "rows" (a thread a row) above. ``mapping`` forces one;
-    a mapping the shapes cannot take raises ValueError."""
-    _check(mode in ("exact", "interactions"), f"B15: no plan for {mode}")
+    """The launch plan of a B15 kernel for ``n`` rows, from the shapes and
+    the card's SM count alone. Exact and interactions: forests deeper than
+    TAB_MAX_DEPTH take "deep"; else "lanes" (a row a CTA, every sum on
+    chip) below ``LANES_ROWS_PER_SM`` rows an SM where its buffers fit, and
+    "rows" (a thread a row) above. Saabas: :func:`_saabas_plan`.
+    ``mapping`` forces one; a mapping the shapes cannot take raises
+    ValueError."""
+    _check(mode in MODES, f"B15: no plan for {mode}")
     _check(mapping is None or mapping in MAPPINGS,
            f"B15: mapping {mapping!r} is not one of {MAPPINGS}")
+    if mode == "saabas":
+        return _saabas_plan(sf, n, num_features, num_outputs, sm_count,
+                            mapping)
     acc_w, sums_w = _words(sf, num_features, num_outputs, mode)
     rw = max(1, -(-sf.max_splits // 32))
     x_w = num_features
@@ -898,17 +1026,88 @@ def _lanes_layout(sf, mode, x_w, rw, acc_w, sums_w):
                     ("acc", acc_w, False)], _LANES_SHARED_MAX)
 
 
+def _saabas_plan(sf, n, num_features, num_outputs, sm_count, mapping):
+    """Saabas: forests with walk tables take "lanes" (1-8 rows a CTA:
+    threads walk trees, the tree's credits staged densely, threads over the
+    class accumulators fold them in tree order) below ``LANES_ROWS_PER_SM``
+    rows an SM and "rows" (a thread a row; trees staged in tiles; the
+    class accumulators on chip, ``[K * F][rows]``) above, where their
+    buffers fit; else "deep" (the thread-a-row kernel, the
+    accumulators in the scratch)."""
+    kf = num_outputs * num_features
+    rc, lanes = next(
+        ((r, lay) for r in SAABAS_LANES_ROWS
+         if (n >= r * _SAABAS_LANES_CTAS_PER_SM * sm_count or r == 1)
+         and (lay := _saabas_lanes_layout(sf, num_features, kf, r))
+         is not None), (1, None))
+    rows = _saabas_rows_layout(sf, num_features, kf)
+    if mapping is None:
+        if lanes is not None and (n < LANES_ROWS_PER_SM["saabas"] * sm_count
+                                  or rows is None):
+            mapping = "lanes"
+        else:
+            mapping = "rows" if rows is not None else "deep"
+    if mapping == "deep":
+        return ShapPlan("deep", ROWS_CTA, max(1, -(-n // ROWS_CTA)), 0, -1,
+                        -1, -1, -1, -1, -1, kf, 0, kf)
+    _check(sf.saabas_tab is not None,
+           f"B15: the Saabas {mapping} mapping takes forests up to depth "
+           f"{SAABAS_MAX_DEPTH} with walk tables, not depth {sf.max_depth}")
+    if mapping == "lanes":
+        _check(lanes is not None, "B15: the Saabas lanes mapping's buffers "
+                                  "do not fit a CTA's shared memory")
+        _check(n < 2 ** 31, "B15: the lanes mapping takes fewer than 2^31 "
+                            "rows")
+        off, nbytes = lanes
+        return ShapPlan("lanes", 32 * LANES_WARPS, max(1, -(-n // rc)),
+                        nbytes, -1, -1, off["x"], -1, off["stage"],
+                        off["acc"], kf, 0, 0, 1, rc)
+    _check(rows is not None, "B15: the Saabas rows mapping's buffers do not "
+                             "fit a CTA's shared memory")
+    r, tt, (off, nbytes) = rows
+    return ShapPlan("rows", r, max(1, -(-n // r)), nbytes, off["tab"], -1,
+                    off["x"], -1, -1, off["acc"], kf, 0, 0, tt)
+
+
+def _saabas_lanes_layout(sf, num_features, kf, rc):
+    """The ``rc`` rows' x and class accumulators, and the dense credits of
+    a tree a thread (an odd pitch of ``F | 1`` words) with the group's
+    scales and classes."""
+    if sf.saabas_tab is None:
+        return None
+    nt = 32 * LANES_WARPS
+    return _layout([("x", rc * num_features, True), ("acc", rc * kf, True),
+                    ("stage", nt * ((num_features | 1) + 2), True)],
+                   _LANES_SHARED_MAX)
+
+
+def _saabas_rows_layout(sf, num_features, kf):
+    """(rows a CTA, trees a tile, layout) of the Saabas rows mapping."""
+    if sf.saabas_tab is None:
+        return None
+    width = saabas_layout(sf.max_depth)[3]
+    for budget in _SAABAS_SHARED_MAX:
+        for r in SAABAS_ROWS:
+            for tt in SAABAS_TILE_TREES:
+                lay = _layout([("tab", 2 * tt * width, True),
+                               ("x", num_features * r, True),
+                               ("acc", kf * r, True)], budget)
+                if lay is not None:
+                    return r, tt, lay
+    return None
+
+
 def scratch_floats(sf: ShapForest, num_features: int, num_outputs: int,
                    mode: str, n: Optional[int] = None,
                    sm_count: int = 132) -> int:
     """f32 words a row of the kernel's scratch (``XrtShapArgs.scratch``)
     takes: the class accumulators and the current tree's sums that the
-    launch plan of ``n`` rows keeps in device memory (the Saabas kernel its
-    accumulators); with ``n`` None the most any plan takes."""
-    kf = num_outputs * num_features
-    if mode == "saabas":
-        return kf
+    launch plan of ``n`` rows keeps in device memory; with ``n`` None the
+    most any plan takes. It does not fall as ``n`` grows, so the words of a
+    call's n cover every chunk of it."""
     if n is None:
+        if mode == "saabas":
+            return num_outputs * num_features
         acc_w, sums_w = _words(sf, num_features, num_outputs, mode)
         return acc_w + sums_w
     return shap_plan(sf, mode, n, num_features, num_outputs,
@@ -932,7 +1131,7 @@ def _sm_count(index: int) -> int:
 
 
 def _args(sf: ShapForest, x, sc: TreeScales, out, scratch, mode: str,
-          plan: Optional[ShapPlan]):
+          plan: ShapPlan):
     a = _build.ShapArgs()
     for name in ("nodes", "base_weight", "steps", "elem_slot", "elem_z",
                  "leaf_value", "leaf_m", "n_leaves", "tree_feats", "n_feats",
@@ -953,18 +1152,22 @@ def _args(sf: ShapForest, x, sc: TreeScales, out, scratch, mode: str,
     a.num_outputs = sc.num_outputs
     a.has_cat = int(sf.has_cat)
     a.weights_width = int(sf.weights.shape[1])
-    if plan is not None:
-        if sf.tree_tab is not None:
-            a.tree_tab = sf.tree_tab.data_ptr()
-            (a.feat_off, a.node_off, a.leaf_off,
-             a.tab_words) = tab_layout(sf.max_feats, sf.max_splits,
-                                       sf.max_leaves)
-        a.route_words = max(1, -(-sf.max_splits // 32))
-        a.mapping = MAPPINGS.index(plan.mapping)
-        for name in ("threads", "grid", "shared_bytes", "off_tab",
-                     "off_route", "off_x", "off_sums", "off_stage",
-                     "off_acc", "acc_words", "sums_words", "scratch_words"):
-            setattr(a, name, getattr(plan, name))
+    if sf.tree_tab is not None:
+        a.tree_tab = sf.tree_tab.data_ptr()
+        (a.feat_off, a.node_off, a.leaf_off,
+         a.tab_words) = tab_layout(sf.max_feats, sf.max_splits,
+                                   sf.max_leaves)
+    if sf.saabas_tab is not None:
+        a.saabas_tab = sf.saabas_tab.data_ptr()
+        (a.sb_entry_off, a.sb_half_off, a.sb_pitch,
+         a.sb_words) = saabas_layout(sf.max_depth)
+    a.route_words = max(1, -(-sf.max_splits // 32))
+    a.mapping = MAPPINGS.index(plan.mapping)
+    for name in ("threads", "grid", "shared_bytes", "off_tab",
+                 "off_route", "off_x", "off_sums", "off_stage",
+                 "off_acc", "acc_words", "sums_words", "scratch_words",
+                 "tile_trees", "cta_rows"):
+        setattr(a, name, getattr(plan, name))
     return a
 
 
@@ -992,20 +1195,16 @@ def _run(mode: str, sf: ShapForest, x: torch.Tensor, sc: TreeScales,
            f"{MAX_DEPTH}")
     _check(sc.num_outputs < 1 << 16 and sf.n_trees * sf.heap < 2 ** 31,
            "B15: forest or classes out of range")
-    plan = None
-    if mode == "saabas":
-        words = scratch_floats(sf, sf.num_features, sc.num_outputs, mode)
-    else:
-        plan = shap_plan(sf, mode, n, sf.num_features, sc.num_outputs,
-                         _sm_count(dev.index or 0), mapping)
-        words = plan.scratch_words
+    plan = shap_plan(sf, mode, n, sf.num_features, sc.num_outputs,
+                     _sm_count(dev.index or 0), mapping)
+    words = plan.scratch_words
     _check(n * words < 2 ** 62 and n * shape[-1] < 2 ** 62,
            "B15: launch too large")
     if out is None:
         out = torch.empty(shape, dtype=torch.float32, device=dev)
     if scratch is None:
-        scratch = torch.empty((max(words, 1) * max(n, 1),),
-                              dtype=torch.float32, device=dev)
+        scratch = torch.empty((max(words * n, 1),), dtype=torch.float32,
+                              device=dev)
     _check(scratch.dtype == torch.float32 and scratch.is_contiguous()
            and scratch.device == dev and scratch.numel() >= words * n,
            f"B15: scratch must be contiguous f32 of at least {words * n} "
@@ -1022,7 +1221,7 @@ def _run(mode: str, sf: ShapForest, x: torch.Tensor, sc: TreeScales,
     wrapper = _WRAPPERS[mode]
     wrapper.launches += 1
     LAUNCHES_BY_MODE[mode] += 1
-    key = (mode, "rows" if plan is None else plan.mapping)
+    key = (mode, plan.mapping)
     LAUNCHES_BY_MAPPING[key] = LAUNCHES_BY_MAPPING.get(key, 0) + 1
     return out
 
@@ -1030,13 +1229,14 @@ def _run(mode: str, sf: ShapForest, x: torch.Tensor, sc: TreeScales,
 def predict_contribs(sf: ShapForest, x: torch.Tensor, sc: TreeScales,
                      out: Optional[torch.Tensor] = None,
                      scratch: Optional[torch.Tensor] = None,
-                     stream: Optional[torch.cuda.Stream] = None
-                     ) -> torch.Tensor:
+                     stream: Optional[torch.cuda.Stream] = None,
+                     mapping: Optional[str] = None) -> torch.Tensor:
     """B15 Saabas wrapper: [N, K, F + 1] (see :func:`predict_contribs_plain`).
-    ``scratch``: at least ``scratch_floats(...) * N`` f32 on the device
-    (allocated when None); ``stream`` defaults to the current one."""
+    ``scratch``: at least ``scratch_floats(..., N) * N`` f32 on the device
+    (allocated when None); ``stream`` defaults to the current one;
+    ``mapping`` as :func:`predict_contribs_exact`'s."""
     return _run("saabas", sf, x, sc, out, scratch, stream,
-                predict_contribs_plain)
+                predict_contribs_plain, mapping)
 
 
 def predict_contribs_exact(sf: ShapForest, x: torch.Tensor, sc: TreeScales,
@@ -1065,8 +1265,7 @@ def predict_interactions(sf: ShapForest, x: torch.Tensor, sc: TreeScales,
 #: B15 launches by entry point; each wrapper's ``launches`` counts its own,
 #: and its ``launches_by_mode`` is this dict, shared by the three
 LAUNCHES_BY_MODE = dict.fromkeys(MODES, 0)
-#: B15 launches by (entry point, mapping); the Saabas kernel has one
-#: mapping, "rows"
+#: B15 launches by (entry point, mapping)
 LAUNCHES_BY_MAPPING = {}
 _WRAPPERS = {"saabas": predict_contribs, "exact": predict_contribs_exact,
              "interactions": predict_interactions}
@@ -1095,7 +1294,9 @@ def leaf_ops(sf: ShapForest, mode: str, n_trees: Optional[int] = None
     others' z (m), the bias term (3), the UNWIND and weighted sum (4 m + 4)
     and per other element j an UNWIND and weighted sum of the polynomial
     without i (4 (m - 1) + 6), then 3 a cell of the tree's block;
-    ``saabas``: 8 a step of one walk and 2 a feature."""
+    ``saabas``: 8 a step of one walk and 2 a feature (the thread-a-row
+    kernel's count, kept for comparison beside the tight one,
+    :func:`saabas_ops`)."""
     t_read = sf.n_trees if n_trees is None else n_trees
     m = sf.leaf_m.cpu().numpy()[:t_read].astype(np.int64)
     steps = (sf.steps.cpu().numpy()[:t_read] >= 0).sum(-1)
@@ -1113,3 +1314,58 @@ def leaf_ops(sf: ShapForest, mode: str, n_trees: Optional[int] = None
                       + np.maximum(mm - 1, 0) * (4 * np.maximum(mm - 1, 0)
                                                  + 6))
     return int(ops.sum() + 3 * (nf * nf).sum())
+
+
+def saabas_walk(sf: ShapForest, x: torch.Tensor,
+                n_trees: Optional[int] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each row's walk through the first ``n_trees`` trees' Saabas walk
+    tables (``sf.saabas_tab``), as the rows mapping takes it: D levels of
+    node records (on below a leaf) to a last-level position p [N, T], and
+    the split tests [N, T] taken before the leaf."""
+    _check(sf.saabas_tab is not None,
+           f"B15: no Saabas walk tables above depth {SAABAS_MAX_DEPTH}")
+    n = x.shape[0]
+    d = sf.max_depth
+    width = saabas_layout(d)[3]
+    t_read = sf.n_trees if n_trees is None else n_trees
+    flat = sf.saabas_tab[:t_read].reshape(-1)
+    values = flat.view(torch.float32)
+    base = (torch.arange(t_read, device=x.device) * width)[None, :]
+    h = torch.zeros((n, t_read), dtype=torch.long, device=x.device)
+    tests = torch.zeros((n, t_read), dtype=torch.int32, device=x.device)
+    live = torch.ones((n, t_read), dtype=torch.bool, device=x.device)
+    for _ in range(d):
+        v = values[base + 2 * h]
+        w = flat[base + 2 * h + 1]
+        xv = torch.gather(x, 1, (w & FEATURE_MASK).long().reshape(n, -1)
+                          ).reshape(w.shape)
+        live = live & ((w & LEAF) == 0)
+        tests += live
+        h = 2 * h + 1 + _step_right(sf, v, w, xv).long()
+    return h - ((1 << d) - 1), tests
+
+
+def saabas_ops(sf: ShapForest, x: torch.Tensor,
+               n_trees: Optional[int] = None, chunk: int = 1 << 16) -> int:
+    """f32 operations Saabas needs over these rows with the leaves' credits
+    built once per model (what ``chip_smoke.py`` bounds B15 Saabas with):
+    per row and tree one compare a split test on the way to the leaf the
+    row reaches (:func:`saabas_walk`), and a multiply and an add for each of
+    that leaf's (feature, credit) pairs."""
+    d = sf.max_depth
+    entries, halves, pitch, width = saabas_layout(d)
+    t_read = sf.n_trees if n_trees is None else n_trees
+    tab = sf.saabas_tab[:t_read]
+    at = (entries + torch.arange(1 << d, device=tab.device)[:, None] * pitch
+          + halves + torch.arange(-(-halves // 2), device=tab.device))
+    half = tab[:, at]  # [T, 2^D, ceil(D / 2)]
+    pairs = (((half & SAABAS_PAD) != SAABAS_PAD).sum(-1)
+             + (((half >> 16) & SAABAS_PAD) != SAABAS_PAD).sum(-1))
+    tt = torch.arange(t_read, device=tab.device)[None, :]
+    ops = 0
+    for lo in range(0, x.shape[0], chunk):
+        p, tests = saabas_walk(sf, x[lo:lo + chunk], t_read)
+        ops += int(tests.sum(dtype=torch.int64)) + 2 * int(
+            pairs[tt, p].sum(dtype=torch.int64))
+    return ops
