@@ -217,6 +217,25 @@ is only where it may find ``cuobjdump``). Phases:
    original's, and ``POST /models`` with the file hot-swaps a server
    (margins bitwise); the whole trace valid against the schema and the
    event names.
+13. the row-elementwise objectives (``objectives``, after phase 10;
+   ``--objectives-only`` runs the build and it alone): at the HIGGS shape
+   and split (10,500,000 + 500,000 rows, depth 6, 256 bins, 10 rounds,
+   ``evals=[(dtrain, "train"), (dtest, "test")]``) one ``train()`` per
+   objective of ``OBJ_RUNS`` (absolute, pseudo-Huber, squared log,
+   Poisson, gamma, Tweedie rho 1.5, hinge and logitraw with auc / aucpr,
+   quantiles at alphas 0.1 / 0.5 / 0.9, AFT normal and logistic), labels
+   made from the seed by ``objective_labels`` (30 % of the AFT times
+   right-censored, 10 % interval-censored); each run's launches counted
+   from 0 and checked exactly (``objectives_expect``), no kernel build
+   inside it; K4 in each mode, the AFT pass and the K-output kernel
+   against their plain versions over the run's rows (margins and
+   gradients bitwise, partial sums within 1e-5 relative), B9a against its
+   plain version over the training and the test margins (bitwise),
+   timed with B8's exp fused; auc and aucpr bitwise on a rerun and over 2
+   gloo ranks sharing the card; early stopping on the test auc; the
+   Poisson, AFT and quantile models equal to the fixed-point CPU path's on
+   ``--compare-rows`` rows; ``predict()`` and a served ``value`` probe of
+   the Poisson and the quantile model.
 
 Phase 6's model is trained, and phase 7 run, right after phase 1: later in
 the process ``torch.profiler`` records no device activity for B8's
@@ -286,6 +305,7 @@ run) and prints no result line.
 
 ``--shap-only`` runs the build, phase 6's model and phase 11 and prints
 its kernel rows but no result line; ``--pool-only`` the same for phase 12.
+
 """
 
 import argparse
@@ -1483,6 +1503,9 @@ def reset_b8_counters():
         fn.launches_by_layout = dict.fromkeys(PR.LAYOUTS, 0)
         fn.launches_by_plan = dict.fromkeys(PR.PLANS, 0)
     PR.predict_margin.launches_by_mode = dict.fromkeys(("margin", "value"), 0)
+    if hasattr(PR.predict_margin, "launches_by_value_fn"):  # not in an older
+        PR.predict_margin.launches_by_value_fn = dict.fromkeys(
+            PR.predict_margin.launches_by_value_fn, 0)
     if _softmax_transform() is not None:
         _softmax_transform().launches = 0
 
@@ -4601,6 +4624,424 @@ def phase_serve_pool(bst, x, y):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the row-elementwise objectives, the AFT pass and the AUC metrics
+# ---------------------------------------------------------------------------
+
+#: reg:tweedie's variance power and reg:quantileerror's alphas of phase 13
+OBJ_RHO = 1.5
+QUANTILE_ALPHAS = (0.1, 0.5, 0.9)
+
+#: phase 13's runs: (key, params, label kind); each trains with its default
+#: metric, the binary ones with auc and aucpr besides
+OBJ_RUNS = (
+    ("absolute", {"objective": "reg:absoluteerror"}, "reg"),
+    ("pseudohuber", {"objective": "reg:pseudohubererror"}, "reg"),
+    ("squaredlog", {"objective": "reg:squaredlogerror"}, "reg"),
+    ("poisson", {"objective": "count:poisson"}, "count"),
+    ("gamma", {"objective": "reg:gamma"}, "gamma"),
+    ("tweedie", {"objective": "reg:tweedie",
+                 "tweedie_variance_power": OBJ_RHO}, "tweedie"),
+    ("hinge", {"objective": "binary:hinge",
+               "eval_metric": ["error", "auc", "aucpr"]}, "bin"),
+    ("logitraw", {"objective": "binary:logitraw",
+                  "eval_metric": ["logloss", "auc", "aucpr"]}, "bin"),
+    ("quantile", {"objective": "reg:quantileerror",
+                  "quantile_alpha": list(QUANTILE_ALPHAS)}, "reg"),
+    ("aft_normal", {"objective": "survival:aft",
+                    "aft_loss_distribution": "normal",
+                    "aft_loss_distribution_scale": 1.0}, "aft"),
+    ("aft_logistic", {"objective": "survival:aft",
+                      "aft_loss_distribution": "logistic",
+                      "aft_loss_distribution_scale": 1.0}, "aft"),
+)
+
+#: the kernel table's rows of phase 13, by the run whose kernel they time
+OBJECTIVE_KERNELS = ("K4loglink", "K4rest", "K4quantile", "AFTnormal",
+                     "AFTlogistic", "B9a", "B9atest", "B8exp")
+
+
+def objective_labels(x, y, seed=0):
+    """Phase 13's labels over the HIGGS-shaped rows, made from ``seed``:
+    the log-mean ``lin`` a function of three features (clipped to +-3);
+    non-negative regression targets ``|lin + 0.5 e|``; Poisson counts of
+    mean ``e^lin``; Gamma targets (shape 2) of that mean; compound
+    Poisson-Gamma targets with zeros (``N ~ Poisson(0.8 e^lin)``, a Gamma of
+    shape 2N); the HIGGS labels; for AFT log-normal event times ``e^(lin +
+    0.5 e)``, 30 % right-censored (lower a uniform share of the time, upper
+    +inf), 10 % interval-censored ([0.7 t, 1.3 t]), the rest uncensored."""
+    rng = np.random.default_rng(seed + 13)
+    n = x.shape[0]
+    lin = np.clip(0.4 * x[:, 0] - 0.3 * x[:, 1] + 0.2 * x[:, 2], -3.0, 3.0)
+    mu = np.exp(lin)
+    noise = rng.standard_normal(n)
+    counts = rng.poisson(0.8 * mu)
+    tweedie = np.zeros(n)
+    pos = counts > 0
+    tweedie[pos] = rng.gamma(2.0 * counts[pos], 0.6)
+    t = np.exp(lin + 0.5 * noise)
+    u = rng.uniform(size=n)
+    lower, upper = t.copy(), t.copy()
+    right = u < 0.3
+    lower[right] = t[right] * rng.uniform(0.2, 1.0, int(right.sum()))
+    upper[right] = np.inf
+    interval = (u >= 0.3) & (u < 0.4)
+    lower[interval] = t[interval] * 0.7
+    upper[interval] = t[interval] * 1.3
+
+    def f32(a):
+        return np.ascontiguousarray(a, dtype=np.float32)
+
+    return ({"reg": f32(np.abs(lin + 0.5 * noise)), "count": f32(counts),
+             "gamma": f32(rng.gamma(2.0, mu / 2.0)), "tweedie": f32(tweedie),
+             "bin": y, "lower": f32(lower), "upper": f32(upper)},
+            {"right_censored": float(right.mean()),
+             "interval_censored": float(interval.mean()),
+             "tweedie_zeros": float((tweedie == 0).mean())})
+
+
+def objectives_expect(rounds, depth, k=1, auc=False):
+    """Launches of a ``train()`` of ``rounds`` rounds at ``depth`` with the
+    test set: per tree (K a round for K quantiles) the main path's K1-K3,
+    K4 once a round (its K-output kernel for K quantiles, its AFT modes for
+    survival:aft) and once at set-up, one B4 and one K4 eval-mode pass a
+    round over the test set; with auc / aucpr one B9a launch a set a
+    round."""
+    base = train_expect(rounds * k, depth)
+    return {**base, "K4": 2 * rounds + 1, "B4": rounds, "K4eval": rounds,
+            "B9a": 2 * rounds if auc else 0}
+
+
+def hold_k4(engine, obj_metrics, rng, what, records=None, key=None,
+            flush=None, launches=0):
+    """K4 (its mode of the engine's objective, the AFT pass, or the
+    K-output kernel) over the engine's training rows and final margins
+    against its plain version on the same card tensors: margins and
+    gradients bitwise (0 ulps), the partial sums within 1e-5 relative;
+    with ``key``, timed into ``records[key]``. Returns the hold's
+    summary."""
+    import torch
+
+    from xgboost_ray_tpu_torch.ops import objectives as O
+
+    obj = engine.k4_objective
+    n, k = engine.margins.shape
+    rv = torch.from_numpy((rng.standard_normal((k, n)) * 0.05).astype(
+        np.float32)).cuda()
+    lab, w, lo, hi = engine.label, engine.weight, engine.lower, engine.upper
+    m0 = engine.margins.clone()
+    mk, mp = m0.clone(), m0.clone()
+    if k > 1:
+        def kern():
+            return O.round_update_multi(mk, rv, lab, w, obj,
+                                        metrics=obj_metrics)
+
+        def plain():
+            return O.round_update_multi_plain(mp, rv, lab, w, obj,
+                                              metrics=obj_metrics)
+    else:
+        def kern():
+            return O.round_update(mk.view(-1), rv.view(-1), lab, w, obj,
+                                  metrics=obj_metrics, lower=lo, upper=hi)
+
+        def plain():
+            return O.round_update_plain(mp.view(-1), rv.view(-1), lab, w, obj,
+                                        metrics=obj_metrics, lower=lo,
+                                        upper=hi)
+    ghk, sk = kern()
+    ghp, sp = plain()
+    torch.cuda.synchronize()
+    check(torch.equal(bits(mk), bits(mp)), f"K4 ({what}): margins differ")
+    ulps = int((bits(ghk).long() - bits(ghp).long()).abs().max())
+    nan_same = torch.equal(torch.isnan(ghk), torch.isnan(ghp))
+    check(nan_same and torch.equal(bits(ghk), bits(ghp)),
+          f"K4 ({what}): gradients {ulps} ulps from the plain version's")
+    live = sp != 0
+    rel = float(((sk - sp).abs()[live] / sp.abs()[live].clamp_min(1e-30)
+                 ).max()) if bool(live.any()) else 0.0
+    check(rel <= 1e-5, f"K4 ({what}): partial sums beyond 1e-5 relative "
+                       f"({rel})")
+    err = max(float((ghk - ghp).abs().nan_to_num().max()),
+              float((sk - sp).abs().max()))
+    out = {"rows": n, "outputs": k, "gh_ulps": ulps, "partials_rel": rel,
+           "max_abs_err": err}
+    if key is not None:
+        cols = 4 * k  # margin read + written, row value, gh pair (2 words)
+        nbytes = n * (4 * (2 * k + k + 2 * k) + 8)
+        if lo is not None:
+            nbytes += 8 * n  # the two bounds
+        flops = {"AFTnormal": 160, "AFTlogistic": 120}.get(key, 60) * n * k
+        _kernel_record(records, key, kern, plain, bound_ms(nbytes, flops),
+                       flush, launches, err)
+        records[key].update(partials_rel=rel, bytes_per_row=nbytes // n,
+                            columns=cols)
+    return out
+
+
+def phase_objectives(x, y, records, rounds=10, depth=6, es_rounds=30,
+                     compare_rows=200_000):
+    """Phase 13 at full width: every row-elementwise objective trained at
+    the HIGGS shape and split (``OBJ_RUNS``; 10,500,000 rows train, the
+    last 500,000 the test set, ``evals=[(dtrain, "train"), (dtest,
+    "test")]``, depth 6, 256 bins, 10 rounds), each run's launches counted
+    from 0 and checked exactly, no kernel build in any of them; each K4
+    mode, the AFT pass and the K-output kernel against their plain versions
+    over the run's rows (bitwise margins and gradients); B9a against its
+    plain version (bitwise) over the training and the test margins; auc
+    bitwise on a rerun and in a 2-rank gloo world; early stopping on the
+    test auc; the card's model equal to the fixed-point CPU path's on
+    ``compare_rows`` rows for count:poisson (K4), survival:aft (the AFT
+    pass) and the quantiles (K4's K-output kernel); ``predict()`` and a
+    served ``value`` probe of the Poisson and the quantile model (B8's
+    exp fused, and the K-output identity)."""
+    import torch
+
+    import xgboost_ray_tpu_torch as xrt
+    from xgboost_ray_tpu_torch import distributed as D
+    from xgboost_ray_tpu_torch import serve
+    from xgboost_ray_tpu_torch.distributed import _KeepEngine
+    from xgboost_ray_tpu_torch.engine import (
+        kernel_launches,
+        reset_kernel_launches,
+    )
+    from xgboost_ray_tpu_torch.ops import _build
+    from xgboost_ray_tpu_torch.ops import metrics as M
+    from xgboost_ray_tpu_torch.ops import objectives as O
+    from xgboost_ray_tpu_torch.ops import predict as PR
+
+    n = x.shape[0]
+    n_train = n - TEST_ROWS
+    t0 = time.perf_counter()
+    labels, shares = objective_labels(x, y)
+    res = {"phase": "objectives", "rows": n, "train_rows": n_train,
+           "test_rows": TEST_ROWS, "rounds": rounds, "max_depth": depth,
+           "labels_s": time.perf_counter() - t0, **shares, "runs": {}}
+    rng = np.random.default_rng(13)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+
+    def matrices(kind, rows=None):
+        lo_, hi_ = (0, n_train) if rows is None else (0, rows)
+        if kind == "aft":
+            def dm(a, b):
+                return xrt.RayDMatrix(
+                    x[a:b], label_lower_bound=labels["lower"][a:b],
+                    label_upper_bound=labels["upper"][a:b])
+        else:
+            def dm(a, b):
+                return xrt.RayDMatrix(x[a:b], labels[kind][a:b])
+        return dm(lo_, hi_), (dm(n_train, n) if rows is None else None)
+
+    def train(params, kind, n_rounds, **kw):
+        dtrain, dtest = matrices(kind)
+        ev, extra = {}, {}
+        keep = _KeepEngine()
+        builds = _build.compile_count()
+        reset_kernel_launches()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        bst = xrt.train({"max_depth": depth, "max_bin": 256, **params},
+                        dtrain, n_rounds,
+                        evals=[(dtrain, "train"), (dtest, "test")],
+                        evals_result=ev, additional_results=extra,
+                        callbacks=[keep], device="cuda:0",
+                        ray_params=xrt.RayParams(num_actors=1), **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches = kernel_launches()
+        check(_build.compile_count() == builds,
+              f"{params['objective']}: a kernel build inside train()")
+        return {"bst": bst, "ev": ev, "launches": launches, "wall_s": wall,
+                "round_ms": [r * 1e3 for r in extra["round_times_s"]],
+                "engine": keep.engine}
+
+    timed = {"poisson": "K4loglink", "squaredlog": "K4rest",
+             "quantile": "K4quantile", "aft_normal": "AFTnormal",
+             "aft_logistic": "AFTlogistic"}
+    runs = {}
+    for key, params, kind in OBJ_RUNS:
+        r = train(params, kind, rounds)
+        eng = r.pop("engine")
+        k = eng.n_outputs
+        auc = any(m in ("auc", "aucpr") for m in eng.metric_names)
+        expect = objectives_expect(rounds, depth, k, auc)
+        for name in expect:
+            check(r["launches"][name] == expect[name],
+                  f"{key}: {name} launched {r['launches'][name]} times, "
+                  f"expected {expect[name]}")
+        hist = {s: {m: v for m, v in ms.items()} for s, ms in r["ev"].items()}
+        for s, ms in hist.items():
+            for m, v in ms.items():
+                check(all(np.isfinite(v)), f"{key}: non-finite {s}-{m} {v}")
+        hold = hold_k4(eng, eng.device_metrics, rng, key, records,
+                       timed.get(key), flush, r["launches"]["K4"])
+        out = {"objective": params["objective"], "outputs": k,
+               "launches": r["launches"], "expected": expect,
+               "history": hist, "round_ms": r["round_ms"],
+               "round_ms_median": float(np.median(r["round_ms"])),
+               "train_wall_s": r["wall_s"], "k4_hold": hold}
+        if key == "logitraw":
+            # B9a over the training and the test margins, and a rerun
+            es = [e for e in eng.evals if not e.is_train][0]
+            for rec, (m, lab, w, scale) in (
+                    ("B9a", (eng.margins, eng.label, eng.weight,
+                             eng.auc_scale)),
+                    ("B9atest", (es.margins, es.label, es.weight,
+                                 es.auc_scale))):
+                score = M.auc_score(m)
+
+                def kern(score=score, lab=lab, w=w, scale=scale):
+                    return M.auc_histogram(score, lab, w, scale)
+
+                def plain(score=score, lab=lab, w=w, scale=scale):
+                    return M.auc_histogram_plain(score, lab, w, scale)
+                hk, hp = kern(), plain()
+                check(torch.equal(hk, hp),
+                      f"B9a ({rec}): histogram differs from the plain one")
+                check(torch.equal(kern(), hk), f"B9a ({rec}): a rerun differs")
+                bins = M.auc_bins(score)
+                q = torch.round(w.double() * scale)
+                rows = score.shape[0]
+                _kernel_record(records, rec, kern, plain,
+                               bound_ms(12 * rows + 2 * M.AUC_BINS * 8,
+                                        30 * rows),
+                               flush, r["launches"]["B9a"], 0.0,
+                               library=cuda_ms(lambda: torch.bincount(
+                                   bins, q, minlength=M.AUC_BINS)))
+                records[rec].update(rows=rows)
+            rerun = train(params, kind, rounds)
+            rerun.pop("engine")
+            out["auc_rerun_bitwise"] = all(
+                rerun["ev"][s][m] == r["ev"][s][m] for s in r["ev"]
+                for m in ("auc", "aucpr"))
+            check(out["auc_rerun_bitwise"], "auc / aucpr differ on a rerun")
+        del eng
+        torch.cuda.empty_cache()
+        res["runs"][key] = out
+        runs[key] = r
+
+    # 2 gloo ranks sharing the card: the auc history is the 1-rank run's
+    logitraw = dict(OBJ_RUNS[[k for k, _, _ in OBJ_RUNS].index("logitraw")][1],
+                    max_depth=depth, max_bin=256)
+    wr = 3
+    data = D.share({"x": x[:n_train], "label": labels["bin"][:n_train]})
+    test = dict(D.share({"x": x[n_train:], "label": labels["bin"][n_train:]}),
+                sharding="INTERLEAVED")
+    t = time.perf_counter()
+    out = D.launch_world(D._train_rank, 2, "cuda", data, logitraw, wr,
+                         {"eval_names": ["train", "test"],
+                          "eval_data": [None, test]}, backend="gloo")
+    one = runs["logitraw"]["ev"]
+    two = out[0]["evals_result"]
+    res["auc_two_ranks"] = {
+        "rounds": wr, "wall_s": time.perf_counter() - t,
+        "bitwise": all(two[s][m] == one[s][m][:wr] for s in one
+                       for m in ("auc", "aucpr")),
+        "auc_test_two_ranks": two["test"]["auc"],
+        "auc_test_one_rank": one["test"]["auc"][:wr]}
+    del data, test, out
+    check(res["auc_two_ranks"]["bitwise"],
+          f"auc over 2 gloo ranks differs from 1 rank: "
+          f"{res['auc_two_ranks']}")
+
+    # early stopping on the test auc (maximised)
+    es_run = train({"objective": "binary:logistic",
+                    "eval_metric": ["logloss", "auc"]}, "bin", es_rounds,
+                   early_stopping_rounds=3)
+    es_run.pop("engine")
+    hist = es_run["ev"]["test"]["auc"]
+    best = es_run["bst"].best_iteration
+    res["early_stopping_auc"] = {"rounds_run": len(hist),
+                                 "best_iteration": best,
+                                 "best_score": es_run["bst"].best_score,
+                                 "test_auc": hist}
+    check(best == int(np.argmax(hist)),
+          f"best_iteration {best} is not the argmax of the test auc {hist}")
+    check(len(hist) in (es_rounds, best + 4),
+          f"early stopping ran {len(hist)} rounds (best {best})")
+
+    # the card against the CPU path summing in its fixed point
+    fixed = {}
+    for key in ("poisson", "aft_normal", "quantile"):
+        params, kind = [(p, kd) for k_, p, kd in OBJ_RUNS if k_ == key][0]
+        got = {}
+        for device in ("cuda", "cpu"):
+            keep = _KeepEngine()
+            dm, _ = matrices(kind, compare_rows)
+            with _cpu_fixed_point(device == "cpu"):
+                b = xrt.train({"max_depth": depth, "max_bin": 256, **params},
+                              dm, 3, device=device, callbacks=[keep],
+                              ray_params=xrt.RayParams(num_actors=1))
+            got[device] = (b.get_dump(), keep.engine.get_margins())
+        fixed[key] = {"dump_equal": got["cuda"][0] == got["cpu"][0],
+                      "margins_bitwise": same_bits(got["cuda"][1],
+                                                   got["cpu"][1])}
+    res["cpu_fixed_point"] = {"rows": compare_rows, "rounds": 3, **fixed}
+    check(all(v["dump_equal"] and v["margins_bitwise"]
+              for v in fixed.values()),
+          f"the card's model is not the fixed-point CPU path's: {fixed}")
+
+    # predict() and a served value probe: Poisson (B8's exp fused) and the
+    # quantiles (K outputs, the identity)
+    served = {}
+    xt = x[n_train:]
+    for key in ("poisson", "quantile"):
+        bst = runs[key]["bst"]
+        reset_b8_counters()
+        t = time.perf_counter()
+        vals = xrt.predict(bst, xrt.RayDMatrix(xt),
+                           ray_params=xrt.RayParams(num_actors=1))
+        wall = time.perf_counter() - t
+        launches = (PR.predict_margin.launches,
+                    dict(PR.predict_margin.launches_by_value_fn))
+        margins = bst.predict(xt, output_margin=True)
+        if key == "poisson":
+            ref = O.value_transform(torch.from_numpy(margins), "exp").numpy()
+            check(launches == (1, {"sigmoid": 0, "exp": 1, "hinge": 0}),
+                  f"predict() of the Poisson model: B8 launches {launches}")
+            records["B8exp"]["launches"] = launches[0]
+        else:
+            ref = margins
+            check(launches[0] == 1,
+                  f"predict() of the quantile model: B8 launches {launches}")
+        check(vals.shape == ref.shape and same_bits(vals, ref),
+              f"predict() of the {key} model: values not the transform of "
+              f"its margins")
+        handle = serve.create_server(bst, max_batch=64, max_delay_ms=1.0)
+        try:
+            probe = _probe(handle, bst, xt[:37])
+        finally:
+            handle.shutdown()
+        check(all(probe.values()), f"served {key} probe: {probe}")
+        served[key] = {"predict_wall_s": wall, "b8_launches": launches,
+                       "values_shape": list(vals.shape), "probe": probe}
+    res["predict"] = served
+    # B8's value mode with the exp over the test rows, timed
+    bst = runs["poisson"]["bst"]
+    fo = bst.device_forest(torch.device("cuda"))
+    xd = torch.from_numpy(np.ascontiguousarray(xt)).cuda()
+    m0 = float(bst.base_score_margin_np())
+
+    def b8exp():
+        return PR.predict_margin(fo, xd, None, base0=m0,
+                                 transform="count:poisson")
+
+    def b8plain():
+        return PR.predict_margin_plain(fo, xd, None, base0=m0,
+                                       transform="count:poisson")
+    vk, vp = b8exp(), b8plain()
+    check(same_bits(vk.cpu().numpy(), vp.cpu().numpy()),
+          "B8's exp values differ from the plain version's")
+    _kernel_record(records, "B8exp", b8exp, b8plain,
+                   bound_ms(xt.shape[0] * (28 + 1) * 4,
+                            xt.shape[0] * bst.num_trees * 12),
+                   flush, records["B8exp"]["launches"], 0.0)
+    records["B8exp"].update(rows=xt.shape[0], trees=bst.num_trees)
+    del runs, fo, xd, flush
+    torch.cuda.empty_cache()
+    emit(res)
+    return res
+
+
 def profiled_ms(fn, iters=10):
     """``device_ms`` where ``torch.profiler`` records the kernel, None where
     it records no device time (``PERF.md`` §7)."""
@@ -4723,6 +5164,45 @@ KERNELS = {
                             "500 trees)", route="cuda",
                             source="xgboost_ray_tpu_torch/csrc/shap.cu",
                             replaces="xgboost_ray_tpu/ops/predict.py:449"),
+    "K4loglink": dict(name="K4 objective family, log-link class: "
+                      "count:poisson margins + gradients + poisson-nloglik "
+                      "partials (10,500,000 rows)", route="cuda",
+                      source="xgboost_ray_tpu_torch/csrc/objective.cu",
+                      replaces="xgboost_ray_tpu/ops/objectives.py:162"),
+    "K4rest": dict(name="K4 objective family, the other one-output class: "
+                   "reg:squaredlogerror margins + gradients + rmsle partials "
+                   "(10,500,000 rows)", route="cuda",
+                   source="xgboost_ray_tpu_torch/csrc/objective.cu",
+                   replaces="xgboost_ray_tpu/ops/objectives.py:242"),
+    "K4quantile": dict(name="K4's K-output kernel: reg:quantileerror, 3 "
+                       "alphas ([N, 3] margins, [3, N, 2] gradients, "
+                       "pinball partials; 10,500,000 rows)", route="cuda",
+                       source="xgboost_ray_tpu_torch/csrc/objective.cu",
+                       replaces="xgboost_ray_tpu/ops/objectives.py:131"),
+    "AFTnormal": dict(name="AFT pass (K4's AFT mode), normal: gradients "
+                      "over the label bounds + aft-nloglik partials "
+                      "(10,500,000 rows)", route="cuda",
+                      source="xgboost_ray_tpu_torch/csrc/objective.cu",
+                      replaces="xgboost_ray_tpu/ops/survival.py:49"),
+    "AFTlogistic": dict(name="AFT pass (K4's AFT mode), logistic: gradients "
+                        "over the label bounds + aft-nloglik partials "
+                        "(10,500,000 rows)", route="cuda",
+                        source="xgboost_ray_tpu_torch/csrc/objective.cu",
+                        replaces="xgboost_ray_tpu/ops/survival.py:49"),
+    "B9a": dict(name="B9a binned AUC histogram, [2, 4096] int64 fixed point "
+                "(10,500,000 training rows; launches: both sets of the "
+                "binary:logitraw run)", route="cuda",
+                source="xgboost_ray_tpu_torch/csrc/auc.cu",
+                replaces="xgboost_ray_tpu/ops/metrics.py:147"),
+    "B9atest": dict(name="B9a binned AUC histogram (500,000 test rows; "
+                    "launches: both sets of the binary:logitraw run)",
+                    route="cuda", source="xgboost_ray_tpu_torch/csrc/auc.cu",
+                    replaces="xgboost_ray_tpu/ops/metrics.py:147"),
+    "B8exp": dict(name="B8 forest walk, value mode with the exp fused "
+                  "(count:poisson, 10 trees, predict() over the 500,000 "
+                  "test rows)", route="cuda",
+                  source="xgboost_ray_tpu_torch/csrc/predict.cu",
+                  replaces="xgboost_ray_tpu/models/booster.py:733"),
     **{f"B8serve{m}": dict(
         name=f"B8 forest walk: margins, heap layout, a serve batch of {m} "
              f"rows (windows mapping; launches: every batch of the heap "
@@ -4830,6 +5310,14 @@ def run(args):
         served, _, _ = phase_train_model(x, y, args.predict_rounds)
         phase_b15_variants(served, x)
         return
+    if args.objectives_only:
+        records = {k: dict(v) for k, v in KERNELS.items()}
+        x, y = make_higgs_like(args.rows, 28, seed=0)
+        phase_objectives(x, y, records, compare_rows=min(args.compare_rows,
+                                                         args.rows))
+        emit({"objectives_kernels": {k: records[k]
+                                     for k in OBJECTIVE_KERNELS}})
+        return
     if args.facade_only:
         records = {k: dict(v) for k, v in KERNELS.items()}
         x, y = make_higgs_like(args.rows, 28, seed=0)
@@ -4873,6 +5361,9 @@ def run(args):
                "multiclass": phase_multiclass(records)}
     torch.cuda.empty_cache()
     results["facade"] = phase_facade(x, y, records)
+    torch.cuda.empty_cache()
+    results["objectives"] = phase_objectives(
+        x, y, records, compare_rows=min(args.compare_rows, args.rows))
     torch.cuda.empty_cache()
 
     if args.rows < 11_000_000:
@@ -5007,6 +5498,10 @@ def main():
                     help="only the build, phase 6's model and phase 12 (the "
                          "replica pool, autoscaler, canary and xgboost "
                          "JSON); prints no result line")
+    ap.add_argument("--objectives-only", action="store_true",
+                    help="only the build and phase 13 (every row-elementwise "
+                         "objective, the AFT pass and the AUC metrics at the "
+                         "HIGGS shape); prints no result line")
     ap.add_argument("--facade-only", action="store_true",
                     help="only the build and phase 10 (the sklearn "
                          "estimators, custom objectives and metrics, files, "

@@ -752,7 +752,7 @@ def test_gloo_world_on_one_card_equals_one_rank(cuda):
     # main path's launches (depth 6, 5 rounds; K3 chose from merged counts)
     expect = {"K1": 35, "K1deq": 35, "K2": 0, "K2level": 30, "K2leaf": 5,
               "K3": 30, "K3leaf": 5, "K4": 6, "B4": 0, "K4eval": 0,
-              "SMX": 0, "SMXeval": 0}
+              "SMX": 0, "SMXeval": 0, "B9a": 0}
     # int64 histograms and totals, int64 child counts, the f32 MAX of
     # (max|g|, max|h|) for the round's scales, the four f64 metric sums
     hist_cells = 10 * 257 * 2 * (1 + sum(1 << (d - 1) for d in range(1, 6)))
@@ -1006,7 +1006,7 @@ def test_predict_wrappers_reject_bad_inputs(cuda):
     assert probs.shape == (50, 7)
     assert _same_bits(probs, to.softmax_transform_plain(margins.cpu(), True))
     with pytest.raises(NotImplementedError):  # an objective outside the port
-        tp.predict_margin(pk, x, transform="reg:gamma")
+        tp.predict_margin(pk, x, transform="rank:pairwise")
     with pytest.raises(NotImplementedError):  # a transform of K = 3
         tp.predict_margin(pk, x, torch.zeros(50, 3, device=cuda),
                           num_outputs=3, transform=LOGISTIC)
@@ -1641,3 +1641,217 @@ def test_booster_and_server_contribs_on_card(cuda):
     pred = serve.CompiledPredictor(bst)
     for n in (1, 8, 37):
         assert np.array_equal(pred.predict(x[:n], "contribs"), c[:n])
+
+
+# --------------------------------------------------------------------------
+# K4's objective family, the AFT pass, B9a and B8's value transforms
+# --------------------------------------------------------------------------
+
+import dataclasses  # noqa: E402
+
+from xgboost_ray_tpu_torch.ops import metrics as tmet  # noqa: E402
+
+#: (objective, parameters, label kind) of K4's one-output modes
+OBJ_CASES = [("reg:absoluteerror", {}, "reg"),
+             ("reg:pseudohubererror", {"huber_slope": 0.7}, "reg"),
+             ("reg:squaredlogerror", {}, "pos"),
+             ("count:poisson", {}, "count"),
+             ("reg:gamma", {}, "pos"),
+             ("reg:tweedie", {}, "count"),
+             ("reg:tweedie", {"tweedie_variance_power": 1.3}, "count"),
+             ("binary:hinge", {}, "bin"),
+             ("binary:logitraw", {}, "bin")]
+#: every metric K4 sums past the first four
+EXT_METRICS = ["mae", "rmsle", "mphe", "mape", "poisson-nloglik",
+               "error@0.7", "quantile"]
+OBJ_NS = [1, 2047, 2049, 100003]
+
+
+def _obj_rows(n, kind, seed, edges=False):
+    rng = np.random.default_rng(seed)
+    m = (rng.standard_normal(n) * 2).astype(np.float32)
+    rv = (rng.standard_normal(n) * 0.2).astype(np.float32)
+    y = {"reg": lambda: rng.standard_normal(n) * 2,
+         "pos": lambda: rng.gamma(2.0, 1.5, n),
+         "count": lambda: rng.poisson(2.0, n),
+         "bin": lambda: rng.random(n) > 0.5}[kind]().astype(np.float32)
+    w = rng.uniform(0.5, 2, n).astype(np.float32)
+    if edges and n >= 16:
+        m[:12] = [np.nan, np.inf, -np.inf, 31.0, -31.0, 1e-40, -1e-40, 0.0,
+                  -0.0, 88.5, -88.5, 29.9]
+        rv[:12] = 0.0
+        w[12:14] = [0.0, 1e-40]
+        y[14] = 1e-40
+    return [torch.from_numpy(a) for a in (m, rv, y, w)]
+
+
+def _hold_partials(sk, sp, what):
+    """NaN where the plain sums are NaN, elsewhere within 1e-5 relative."""
+    nan = torch.isnan(sp)
+    assert torch.equal(torch.isnan(sk.cpu()), nan), what
+    assert torch.allclose(sk.cpu()[~nan], sp[~nan], rtol=1e-5, atol=1e-30), (
+        f"{what}: {sk.cpu().tolist()} against {sp.tolist()}")
+
+
+@pytest.mark.parametrize("name,kw,kind", OBJ_CASES)
+def test_objective_modes_bitwise(cuda, name, kw, kind):
+    """K4 in each objective mode: margins and (g, h) bitwise the plain
+    version's (NaN where it is NaN), at row counts on the vector and tile
+    boundaries and, in calls of their own, with NaN / inf / subnormal
+    margins, zero and subnormal weights; every extra partial sum within
+    1e-5 relative; the eval mode's margins and sums bitwise the gh
+    mode's; one launch a call."""
+    obj = to.get_objective(name, **kw)
+    # the engine's constant for error@0.7 (ops/metrics.error_threshold)
+    obj = dataclasses.replace(obj, consts=obj.consts._replace(
+        threshold=tmet.error_threshold(["error@0.7"])))
+    cases = [(n, False) for n in OBJ_NS] + [(2049, True)]
+    for n, edges in cases:
+        m, rv, y, w = _obj_rows(n, kind, seed=n, edges=edges)
+        mp = m.clone()
+        ghp, sp = to.round_update(mp, rv, y, w, obj, metrics=EXT_METRICS)
+        mk = m.to(cuda)
+        before = to.round_update.launches
+        ghk, sk = to.round_update(mk, rv.to(cuda), y.to(cuda), w.to(cuda),
+                                  obj, metrics=EXT_METRICS)
+        assert to.round_update.launches == before + 1
+        what = f"{name} n = {n} edges = {edges}"
+        assert _same_nan(mk.cpu(), mp), what
+        assert _same_nan(ghk.cpu(), ghp), (
+            f"{what}: gradients {_ulps(ghk.cpu(), ghp)} ulps off")
+        _hold_partials(sk, sp, what)
+        me = m.to(cuda)
+        gh_e, se = to.round_update(me, rv.to(cuda), y.to(cuda), w.to(cuda),
+                                   obj, with_gh=False, metrics=EXT_METRICS)
+        assert gh_e is None and _same_bits(me, mk)
+        assert torch.equal(se.view(torch.int64), sk.view(torch.int64)), what
+
+
+def _aft_rows(n, seed):
+    rng = np.random.default_rng(seed)
+    m = rng.standard_normal(n).astype(np.float32)
+    rv = (rng.standard_normal(n) * 0.1).astype(np.float32)
+    t = np.exp(rng.standard_normal(n) * 0.8 + 0.3).astype(np.float32)
+    lo, hi = t.copy(), t.copy()
+    u = rng.uniform(size=n)
+    hi[u < 0.3] = np.inf
+    iv = (u >= 0.3) & (u < 0.4)
+    lo[iv], hi[iv] = t[iv] * 0.6, t[iv] * 1.7
+    w = rng.uniform(0.5, 2, n).astype(np.float32)
+    if n >= 8:
+        m[:3] = [np.nan, 1e-40, 40.0]
+        lo[3:5] = [0.0, 1e-40]
+        w[5] = 0.0
+    return [torch.from_numpy(a) for a in (m, rv, t, w, lo, hi)]
+
+
+@pytest.mark.parametrize("dist,sigma", [("normal", 1.0), ("normal", 1.3),
+                                        ("logistic", 1.0),
+                                        ("logistic", 0.5)])
+def test_aft_pass_bitwise(cuda, dist, sigma):
+    """K4's AFT modes (label bounds read besides): margins and (g, h)
+    bitwise the plain version's with right-, interval- and un-censored
+    rows, +inf upper bounds, zero lower bounds; aft-nloglik within 1e-5
+    relative."""
+    obj = to.get_objective("survival:aft", aft_loss_distribution=dist,
+                           aft_loss_distribution_scale=sigma)
+    for n in OBJ_NS:
+        m, rv, y, w, lo, hi = _aft_rows(n, seed=n)
+        mp = m.clone()
+        ghp, sp = to.round_update(mp, rv, y, w, obj, metrics=["aft-nloglik"],
+                                  lower=lo, upper=hi)
+        mk = m.to(cuda)
+        ghk, sk = to.round_update(mk, rv.to(cuda), y.to(cuda), w.to(cuda),
+                                  obj, metrics=["aft-nloglik"],
+                                  lower=lo.to(cuda), upper=hi.to(cuda))
+        what = f"{dist} {sigma} n = {n}"
+        assert _same_nan(mk.cpu(), mp), what
+        assert _same_nan(ghk.cpu(), ghp), (
+            f"{what}: gradients {_ulps(ghk.cpu(), ghp)} ulps off")
+        _hold_partials(sk, sp, what)
+
+
+@pytest.mark.parametrize("k", [1, 3])
+def test_quantile_kernel_bitwise(cuda, k):
+    """K4's K-output kernel: [N, K] margins and [K, N, 2] gradients bitwise
+    the plain version's, the pinball sum within 1e-5, the eval mode's
+    margins and sums bitwise the gh mode's."""
+    alphas = [0.1, 0.5, 0.9][:k] if k > 1 else 0.3
+    obj = to.get_objective("reg:quantileerror", quantile_alpha=alphas)
+    for n in OBJ_NS:
+        rng = np.random.default_rng(n)
+        m = torch.from_numpy((rng.standard_normal((n, k)) * 2).astype(
+            np.float32))
+        rv = torch.from_numpy((rng.standard_normal((k, n)) * 0.2).astype(
+            np.float32))
+        y = torch.from_numpy(rng.standard_normal(n).astype(np.float32))
+        w = torch.from_numpy(rng.uniform(0.5, 2, n).astype(np.float32))
+        if n > 4:
+            m[:3, 0] = torch.tensor([float("nan"), 1e-40, 0.0])
+            w[3] = 0.0
+        mp = m.clone()
+        ghp, sp = to.round_update_multi(mp, rv, y, w, obj,
+                                        metrics=["quantile", "mae"])
+        mk = m.to(cuda)
+        ghk, sk = to.round_update_multi(mk, rv.to(cuda), y.to(cuda),
+                                        w.to(cuda), obj,
+                                        metrics=["quantile", "mae"])
+        assert _same_nan(mk.cpu(), mp) and _same_nan(ghk.cpu(), ghp), n
+        _hold_partials(sk, sp, f"K = {k}, n = {n}")
+        me = m.to(cuda)
+        _, se = to.round_update_multi(me, rv.to(cuda), y.to(cuda), w.to(cuda),
+                                      obj, with_gh=False,
+                                      metrics=["quantile", "mae"])
+        assert _same_bits(me, mk)
+        assert torch.equal(se.view(torch.int64), sk.view(torch.int64))
+
+
+@pytest.mark.parametrize("n", [1, 2047, 2049, 500_001])
+def test_auc_histogram_bitwise(cuda, n):
+    """B9a: the int64 histogram equals the plain version's (NaN scores and
+    labels, zero weights, a strided column of [N, 3] margins), on a rerun
+    too, one launch a call."""
+    rng = np.random.default_rng(n)
+    m = torch.from_numpy((rng.standard_normal((n, 3)) * 3).astype(np.float32))
+    y = torch.from_numpy((rng.random(n) > 0.4).astype(np.float32))
+    w = torch.from_numpy(rng.uniform(0.2, 3.0, n).astype(np.float32))
+    if n > 8:
+        m[:4, 1] = torch.tensor([float("nan"), 1e-40, 40.0, -40.0])
+        y[4] = float("nan")
+        w[5] = 0.0
+    scale = tmet.auc_scale(float(w.abs().max()), n)
+    for col in (m[:, :1].contiguous()[:, 0], m[:, 1]):
+        ref = tmet.auc_histogram(col, y, w, scale)
+        ck = col.to(cuda) if col.is_contiguous() else m.to(cuda)[:, 1]
+        before = tmet.auc_histogram.launches
+        hk = tmet.auc_histogram(ck, y.to(cuda), w.to(cuda), scale)
+        assert tmet.auc_histogram.launches == before + 1
+        assert torch.equal(hk.cpu(), ref), n
+        assert torch.equal(tmet.auc_histogram(ck, y.to(cuda), w.to(cuda),
+                                              scale), hk)
+
+
+@pytest.mark.parametrize("objective,k", [("count:poisson", 1),
+                                         ("survival:aft", 1),
+                                         ("binary:hinge", 1),
+                                         ("reg:quantileerror", 3)])
+def test_predict_value_transforms_bitwise(cuda, monkeypatch, objective, k):
+    """B8's value mode with the exp, hinge's 0/1 and the K-output identity
+    fused into its epilogue: bitwise the plain version on both mappings
+    and layouts."""
+    rng = np.random.default_rng(7)
+    f, depth, n_trees = 28, 6, 60
+    fo = _forest(rng, n_trees, depth, f)
+    x = torch.from_numpy(_rows(rng, 3001, f))
+    xk = x.to(cuda)
+    for layout in tp.LAYOUTS:
+        pc = _pf(fo, depth, layout, f, ())
+        pk = _pf(fo, depth, layout, f, (), cuda)
+        ref = tp.predict_margin_plain(pc, x, base0=0.3, num_outputs=k,
+                                      transform=objective)
+        for mapping in tp.MAPPINGS:
+            _force(monkeypatch, mapping)
+            got = tp.predict_margin(pk, xk, base0=0.3, num_outputs=k,
+                                    transform=objective)
+            torch.cuda.synchronize()
+            assert _same_nan(got.cpu(), ref), (objective, layout, mapping)

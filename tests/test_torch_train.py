@@ -157,9 +157,9 @@ def test_train_without_cuda_raises():
     ("booster", "gblinear"),
     ("monotone_constraints", "(1,0,0)"),
     ("interaction_constraints", [[0, 1]]),
-    ("objective", "reg:absoluteerror"),
-    ("objective", "reg:gamma"),
-    ("eval_metric", "auc"),
+    ("objective", "rank:pairwise"),
+    ("objective", "survival:cox"),
+    ("eval_metric", "ndcg"),
     ("num_parallel_tree", 2),
     ("feature_parallel", 2),
 ])

@@ -8,12 +8,21 @@ SHARD_COLUMN_FILLS = {
     "label": 0.0,
     "weight": 1.0,
     "base_margin": 0.0,
+    "label_lower_bound": 0.0,
+    "label_upper_bound": float("inf"),
 }
 
-#: the objectives, metrics and histogram-impl names of this slice
-SUPPORTED_OBJECTIVES = ("binary:logistic", "reg:squarederror",
-                        "multi:softprob", "multi:softmax")
-SUPPORTED_METRICS = ("logloss", "error", "rmse", "mlogloss", "merror")
+#: the objectives the port trains (``ops/objectives.OBJECTIVES``), the
+#: metrics it computes (``error@t`` too) and the histogram-impl names
+SUPPORTED_OBJECTIVES = (
+    "binary:logistic", "reg:logistic", "binary:logitraw",
+    "reg:squarederror", "reg:linear", "reg:absoluteerror",
+    "reg:pseudohubererror", "reg:squaredlogerror", "count:poisson",
+    "reg:gamma", "reg:tweedie", "binary:hinge", "reg:quantileerror",
+    "survival:aft", "multi:softprob", "multi:softmax")
+SUPPORTED_METRICS = ("logloss", "error", "rmse", "mae", "rmsle", "mphe",
+                     "mape", "poisson-nloglik", "quantile", "aft-nloglik",
+                     "auc", "aucpr", "auc_exact", "mlogloss", "merror")
 HIST_IMPLS = ("auto", "scatter", "onehot", "partition", "mixed")
 
 __all__ = [

@@ -34,7 +34,10 @@
 // changes nothing, so such trees are skipped, and a window tree still open
 // after the last tree is closed by carrying each level's partial sum up in
 // order. Then base + sum / num_parallel_tree, and for XRT_VALUE the
-// sigmoid, computed step by step as ops/objectives.sigmoid (every fused
+// objective's transform (value_fn: the sigmoid, the exp of the log-link
+// objectives and survival:aft, hinge's 0/1; replaces
+// xgboost_ray_tpu/models/booster.py:733-742 for them), computed step by
+// step as ops/objectives.value_transform (every fused
 // multiply-add of the plain version rounded as it rounds it: the exact
 // product and the add in double, then to float; NaN propagated through
 // the clamp and the max; results below 2^-126 flushed to +0.0).
@@ -94,6 +97,8 @@ enum { XRT_HEAP = 0, XRT_NODE_ARRAY = 1 };
 enum { XRT_MARGIN = 0, XRT_LEAF_INDEX = 1, XRT_VALUE = 2 };
 enum { XRT_ROWS = 0, XRT_WINDOWS = 1 };
 enum { XRT_SUM = 0, XRT_LEAVES = 1 };  // kernel template: sums or leaves
+// the one-output transforms of XRT_VALUE (ops/objectives.VALUE_FNS)
+enum { XRT_FN_SIGMOID = 0, XRT_FN_EXP = 1, XRT_FN_HINGE = 2 };
 
 // Mirrors ops/_build.PredictArgs field by field: edit both together.
 struct XrtPredictArgs {
@@ -114,6 +119,7 @@ struct XrtPredictArgs {
   int front0, padded, top;  // the window tree (ops/predict.tree_windows)
   int m[XRT_LEVELS], front[XRT_LEVELS];
   float base0;
+  int value_fn;  // XRT_VALUE: XRT_FN_* (ops/objectives.VALUE_FNS)
 };
 
 // Record of tree t, level k, slot p in device memory, in the layout's order.
@@ -219,9 +225,9 @@ __device__ __forceinline__ float xrt_fma_f32(float a, float b, float c) {
   return __double2float_rn((double)a * (double)b + (double)c);
 }
 
-// ops/objectives.sigmoid: 1 / (1 + exp_f32(-m)), flushed below 2^-126.
-__device__ float xrt_sigmoid(float m) {
-  const float v = -m;
+// ops/objectives.exp_f32: Cephes' exp, every fused multiply-add rounded as
+// the plain version rounds it, then torch.maximum(e, v).
+__device__ float xrt_exp(float v) {
   const float xc =
       isnan(v) ? v : fminf(fmaxf(v, -88.3762626647949f), 88.3762626647950f);
   const float fx = floorf(xrt_fma_f32(xc, 1.44269504088896341f, 0.5f));
@@ -234,10 +240,27 @@ __device__ float xrt_sigmoid(float m) {
   y = xrt_fma_f32(y, x, 1.6666665459e-1f);
   y = xrt_fma_f32(y, x, 5.0000001201e-1f);
   y = 1.0f + xrt_fma_f32(y, z, x);
-  float e = y * __int_as_float(((int)fx + 127) << 23);
-  e = isnan(e) ? e : (isnan(v) ? v : fmaxf(e, v));  // torch.maximum
-  const float p = 1.0f / (1.0f + e);
+  const float e = y * __int_as_float(((int)fx + 127) << 23);
+  return isnan(e) ? e : (isnan(v) ? v : fmaxf(e, v));  // torch.maximum
+}
+
+// ops/objectives.sigmoid: 1 / (1 + exp_f32(-m)), flushed below 2^-126.
+__device__ float xrt_sigmoid(float m) {
+  const float p = 1.0f / (1.0f + xrt_exp(-m));
   return p < 1.17549435e-38f ? 0.f : p;
+}
+
+// ops/objectives.value_transform of one output: the sigmoid, the exp (a
+// subnormal result flushed to a zero of its sign, as _ftz), or hinge's 0/1
+// (a subnormal margin read as zero).
+__device__ __forceinline__ float xrt_value(int fn, float m) {
+  constexpr float kTiny = 1.17549435e-38f;
+  if (fn == XRT_FN_EXP) {
+    const float e = xrt_exp(m);
+    return fabsf(e) < kTiny ? e * 0.0f : e;
+  }
+  if (fn == XRT_FN_HINGE) return (fabsf(m) >= kTiny && m > 0.0f) ? 1.0f : 0.0f;
+  return xrt_sigmoid(m);
 }
 
 __device__ __forceinline__ void xrt_write(const XrtPredictArgs& a,
@@ -245,7 +268,8 @@ __device__ __forceinline__ void xrt_write(const XrtPredictArgs& a,
   const long long o = row * a.num_outputs + k;
   const float b = a.base != nullptr ? a.base[o] : a.base0;
   const float margin = b + s / (float)a.num_parallel_tree;
-  a.out_margin[o] = a.mode == XRT_VALUE ? xrt_sigmoid(margin) : margin;
+  a.out_margin[o] = a.mode == XRT_VALUE ? xrt_value(a.value_fn, margin)
+                                        : margin;
 }
 
 // Trees the margins walk: ntree_limit cuts them (the rest add +0.0).
@@ -561,6 +585,9 @@ extern "C" int xrt_predict(const XrtPredictArgs* a, void* stream) {
   const int R = a->rows_per_block;
   const int TT = a->trees_per_tile;
   if (R < 1 || R > 8 || (R & (R - 1)) != 0 || TT < 2 || (TT & (TT - 1)) != 0)
+    return (int)cudaErrorInvalidValue;
+  if (a->mode == XRT_VALUE &&
+      (a->value_fn < XRT_FN_SIGMOID || a->value_fn > XRT_FN_HINGE))
     return (int)cudaErrorInvalidValue;
   const int mode = a->mode == XRT_LEAF_INDEX ? XRT_LEAVES : XRT_SUM;
   if (mode == XRT_LEAVES)

@@ -305,6 +305,8 @@ def _matrix(data: Dict[str, Any], sharding: str, **kwargs):
     return RayDMatrix(_numpy(data, "x"), _numpy(data, "label"),
                       weight=_numpy(data, "weight"),
                       base_margin=_numpy(data, "base_margin"),
+                      label_lower_bound=_numpy(data, "label_lower_bound"),
+                      label_upper_bound=_numpy(data, "label_upper_bound"),
                       sharding=RayShardingMode[sharding], **kwargs)
 
 

@@ -44,6 +44,19 @@ package), so a round on the card gives the same bits at every world size
 and on every rerun. The only device -> host read per round is the metric
 sums.
 
+Every row-elementwise objective takes K4 (``ops/objectives.round_update``)
+in its own mode; ``survival:aft`` reads each set's label bounds on the
+device besides (``label_lower_bound`` / ``label_upper_bound``, lower
+defaulting to the label, upper to lower; also for the ``aft-nloglik``
+metric), and ``reg:quantileerror``'s K alphas take K4's K-output kernel
+(``round_update_multi``) on the K-tree round. With ``auc`` / ``aucpr``
+each set adds B9a's [2, 4096] histogram of its updated margins
+(``ops/metrics.auc_histogram``, int64 fixed point at the set's
+``auc_scale``) as float64 to its partial sums in the round's one
+all-reduce; the host reads the areas from the merged bins. ``auc_exact``
+is a host metric: each rank's rows' rank statistic, combined over the
+ranks like a custom metric (``engine.py:1953-1990``).
+
 An init booster (``xgb_model``) starts every set's margins at ``base +
 booster.predict_margin(x) - its base margin`` (B8 on the card, the plain
 walk on the CPU) and its forest goes before the new trees.
@@ -61,6 +74,7 @@ The host keeps every set's labels and weights for the custom callables
 computed on its rows into their weighted mean.
 """
 
+import dataclasses
 import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -86,10 +100,24 @@ from xgboost_ray_tpu_torch.ops.histogram import (
     partition_level,
     quant_scales,
 )
-from xgboost_ray_tpu_torch.ops.metrics import metric_values
+from xgboost_ray_tpu_torch.ops.metrics import (
+    AUC_BINS,
+    HIST_METRICS,
+    HOST_METRICS,
+    auc_exact_np,
+    auc_histogram,
+    auc_scale,
+    auc_score,
+    error_threshold,
+    k4_slot,
+    metric_values,
+    parse_metric_name,
+)
 from xgboost_ray_tpu_torch.ops.objectives import (
-    get_objective,
+    as_alphas,
+    objective_from_params,
     round_update,
+    round_update_multi,
     softmax_update,
 )
 from xgboost_ray_tpu_torch.ops.split import (
@@ -108,7 +136,7 @@ def kernel_counters() -> Dict[str, Callable]:
             "K2level": split_level, "K2leaf": leaf_records,
             "K3": partition_level, "K3leaf": partition_leaf_values,
             "K4": round_update, "B4": predict_tree_binned,
-            "SMX": softmax_update}
+            "SMX": softmax_update, "B9a": auc_histogram}
 
 
 def kernel_launches() -> Dict[str, int]:
@@ -129,8 +157,9 @@ def reset_kernel_launches() -> None:
 
 
 def _concat_shards(shards: Sequence[Dict[str, Optional[np.ndarray]]]):
-    """Merge shard dicts (rank order) into host arrays (x, label, weight or
-    None, base_margin or None)."""
+    """Merge shard dicts (rank order) into host arrays (x, label or None,
+    weight or None, base_margin or None, label_lower_bound or None,
+    label_upper_bound or None)."""
     fills = SHARD_COLUMN_FILLS
     xs = [np.asarray(sh["data"], np.float32) for sh in shards]
 
@@ -145,10 +174,8 @@ def _concat_shards(shards: Sequence[Dict[str, Optional[np.ndarray]]]):
         ])
 
     x = np.concatenate(xs, axis=0) if len(xs) > 1 else xs[0]
-    label = column("label")
-    if label is None:
-        label = np.full(x.shape[0], fills["label"], np.float32)
-    return x, label, column("weight"), column("base_margin")
+    return (x, column("label"), column("weight"), column("base_margin"),
+            column("label_lower_bound"), column("label_upper_bound"))
 
 
 def _to_device(arr: np.ndarray, dev: torch.device) -> torch.Tensor:
@@ -170,7 +197,13 @@ class _EvalSet:
         self.label: Optional[torch.Tensor] = None
         self.weight: Optional[torch.Tensor] = None
         self.margins: Optional[torch.Tensor] = None
-        # host copies for custom metrics: label, weight (None: all 1)
+        # label bounds on the device (survival:aft, aft-nloglik)
+        self.lower: Optional[torch.Tensor] = None
+        self.upper: Optional[torch.Tensor] = None
+        # B9a's fixed-point scale of this set's weights (auc / aucpr)
+        self.auc_scale = 1.0
+        # host copies for custom and host metrics: label, weight (None: all
+        # 1)
         self.label_np: Optional[np.ndarray] = None
         self.weight_np: Optional[np.ndarray] = None
 
@@ -199,7 +232,7 @@ class TorchEngine:
         self.allreduce_bytes_per_round = 0
         self.feature_names = feature_names
         self.feature_types = feature_types
-        self.objective = get_objective(params.objective, params.num_class)
+        self.objective = objective_from_params(params)
         self.n_outputs = self.objective.num_outputs
         base_score = (params.base_score if params.base_score is not None
                       else self.objective.default_base_score)
@@ -220,9 +253,56 @@ class TorchEngine:
         )
         self.metric_names = list(params.eval_metric) or [
             self.objective.default_metric]
+        # the round pass's metrics (K4's partial sums, the softmax pass's,
+        # B9a's histogram) first, then the host metrics, as the reference
+        # orders a round's row (``engine.py:1942-1960``)
+        self.host_metrics = [m for m in self.metric_names
+                             if parse_metric_name(m)[0] in HOST_METRICS]
+        self.device_metrics = [m for m in self.metric_names
+                               if m not in self.host_metrics]
+        self.with_auc = any(parse_metric_name(m)[0] in HIST_METRICS
+                            for m in self.device_metrics)
+        # the partial sums the all-reduce carries: K4's first four and the
+        # others the metrics read (the softmax pass's three)
+        n_parts = len(self.objective.partials)
+        self.live_parts = (tuple(range(n_parts)) if self.objective.softmax
+                           else tuple(sorted({0, 1, 2, 3} | {
+                               k4_slot(m) for m in self.device_metrics}
+                               - {None})))
+        alpha0 = as_alphas(params.quantile_alpha)
+        # the objective K4 runs, with this run's metric constants (error@t's
+        # threshold, the quantile metric's alpha)
+        self.k4_objective = dataclasses.replace(
+            self.objective, consts=self.objective.consts._replace(
+                threshold=error_threshold(self.metric_names),
+                alpha0=float(np.float32(alpha0[0])) if len(alpha0) == 1
+                else 0.5))
+        if (any(parse_metric_name(m)[0] == "quantile"
+                for m in self.metric_names) and len(alpha0) != 1
+                and self.objective.kind != "quantile"):
+            raise ValueError(
+                f"quantile metric got 1 margin column but {len(alpha0)} "
+                f"quantile_alpha values; they must align.")
+        # the label bounds go to the device for survival:aft's gradients
+        # and for the aft-nloglik metric
+        self.with_bounds = self.objective.survival or (
+            "aft-nloglik" in self.metric_names)
+        if self.with_bounds and self.n_outputs > 1:
+            raise NotImplementedError(
+                f"eval_metric='aft-nloglik' with {params.objective}: the "
+                f"port sums it over one output only")
 
         self.custom_objective = custom_objective
-        x, label, weight, base_margin = _concat_shards(shards)
+        x, label, weight, base_margin, lo, hi = _concat_shards(shards)
+        if self.objective.survival and lo is None and label is None:
+            raise ValueError(
+                "survival:aft requires label_lower_bound/label_upper_bound "
+                "(or a plain label, interpreted as uncensored times).")
+        label = self._host_label(label, x.shape[0])
+        if (self.objective.kind == "squaredlog"
+                and bool((label <= -1).any())):
+            # xgboost rejects these at data load (``engine.py:498-505``)
+            raise ValueError("reg:squaredlogerror requires all labels > -1.")
         self.label_np, self.weight_np = label, weight
         self.n_rows, self.n_features = x.shape
         dev = self.device
@@ -233,6 +313,8 @@ class TorchEngine:
         self.label = _to_device(label, dev)
         self.weight = (_to_device(weight, dev) if weight is not None
                        else torch.ones(self.n_rows, dtype=torch.float32, device=dev))
+        self.lower, self.upper = self._bounds(label, lo, hi)
+        self.auc_scale = self._auc_scale(weight, self.n_rows)
         t0 = time.perf_counter()
         self.bins, self.cuts, self.feat_has_missing = binning.sketch_and_bin(
             x_dev, self.weight, params.max_bin, coll, self.n_global)
@@ -264,8 +346,38 @@ class TorchEngine:
             self.gh, _ = self._update(
                 self.margins, torch.zeros((self.n_outputs, self.n_rows),
                                           dtype=torch.float32, device=dev),
-                self.label, self.weight)
+                self.label, self.weight, lower=self.lower, upper=self.upper)
             self.qscale = self._scales()
+
+    @staticmethod
+    def _host_label(label: Optional[np.ndarray], n: int) -> np.ndarray:
+        """A set's labels: its label column, else zeros (the reference's
+        fill, also for survival data given by its bounds alone)."""
+        return label if label is not None else np.full(n, 0.0, np.float32)
+
+    def _bounds(self, label: np.ndarray, lo: Optional[np.ndarray],
+                hi: Optional[np.ndarray]):
+        """A set's (lower, upper) on the device where the objective or a
+        metric reads them (lower defaults to the label, upper to lower:
+        uncensored times), else (None, None)."""
+        if not self.with_bounds:
+            return None, None
+        lo = label if lo is None else lo
+        hi = lo if hi is None else hi
+        return _to_device(lo, self.device), _to_device(hi, self.device)
+
+    def _auc_scale(self, weight: Optional[np.ndarray], n: int) -> float:
+        """B9a's scale for a set of ``n`` rows on this rank (``auc_scale``
+        over the world's largest |weight| and global row count)."""
+        if not self.with_auc:
+            return 1.0
+        wmax = float(np.max(np.abs(weight))) if weight is not None and n \
+            else (1.0 if n else 0.0)
+        both = self.coll.max(torch.tensor([wmax], dtype=torch.float64,
+                                          device=self.device))
+        n_global = self.coll.sum(torch.tensor([n], dtype=torch.int64,
+                                              device=self.device))
+        return auc_scale(float(both.item()), int(n_global.item()))
 
     def _start_margins(self, x: np.ndarray, base_margin: Optional[np.ndarray],
                        init_booster: Optional[RayXGBoostBooster]) -> np.ndarray:
@@ -288,7 +400,8 @@ class TorchEngine:
         if eval_shards is train_shards:
             self.evals.append(_EvalSet(name, True))
             return
-        x, label, weight, base_margin = _concat_shards(eval_shards)
+        x, label, weight, base_margin, lo, hi = _concat_shards(eval_shards)
+        label = self._host_label(label, x.shape[0])
         dev = self.device
         es = _EvalSet(name, False)
         x_dev = _to_device(x, dev)
@@ -298,22 +411,47 @@ class TorchEngine:
         es.label = _to_device(label, dev)
         es.weight = (_to_device(weight, dev) if weight is not None
                      else torch.ones(x.shape[0], dtype=torch.float32, device=dev))
+        es.lower, es.upper = self._bounds(label, lo, hi)
+        es.auc_scale = self._auc_scale(weight, x.shape[0])
         es.margins = _to_device(
             self._start_margins(x, base_margin, init_booster), dev)
         self.evals.append(es)
 
     def _update(self, margins: torch.Tensor, row_value: torch.Tensor,
                 label: torch.Tensor, weight: torch.Tensor,
-                with_gh: bool = True):
+                with_gh: bool = True, lower: Optional[torch.Tensor] = None,
+                upper: Optional[torch.Tensor] = None):
         """The round pass over one set: ``margins`` [N, K] += ``row_value``
         [K, N].T in place; (gh [K, N, 2] or None, its metric partial sums).
-        K4 for one output, the softmax pass for K."""
-        if self.objective.softmax:
+        K4 for one output (its AFT modes with the label bounds), K4's
+        K-output kernel for K quantiles, the softmax pass for K classes."""
+        obj = self.objective
+        if obj.softmax:
             return softmax_update(margins, row_value, label, weight, with_gh)
+        if obj.kind == "quantile":
+            return round_update_multi(margins, row_value, label, weight,
+                                      self.k4_objective,
+                                      with_gh, self.device_metrics)
         gh, sums = round_update(margins.view(-1), row_value.view(-1), label,
-                                weight, self.objective.logistic,
-                                self.params.scale_pos_weight, with_gh)
+                                weight, self.k4_objective,
+                                self.params.scale_pos_weight, with_gh,
+                                self.device_metrics, lower, upper)
         return (None if gh is None else gh.view(1, -1, 2)), sums
+
+    def _set_parts(self, sums: torch.Tensor, margins: torch.Tensor,
+                   label: torch.Tensor, weight: torch.Tensor,
+                   scale: float) -> torch.Tensor:
+        """A set's contribution to the round's metric all-reduce: its live
+        partial sums (``live_parts``: a slice where they are the first ones)
+        and, with auc / aucpr, B9a's histogram of its updated margins as
+        float64 (exact: ``auc_scale``)."""
+        live = self.live_parts
+        sums = (sums[:len(live)] if live == tuple(range(len(live)))
+                else sums[list(live)])
+        if not self.with_auc:
+            return sums
+        hist = auc_histogram(auc_score(margins), label, weight, scale)
+        return torch.cat([sums, hist.view(-1).to(torch.float64)])
 
     def _scales(self) -> Optional[torch.Tensor]:
         """K1's fixed-point scales [K, 4] of the gradients ``self.gh`` on
@@ -368,29 +506,50 @@ class TorchEngine:
         self.trees.append(walked)
         self.gh, sums = self._update(self.margins, row_value, self.label,
                                      self.weight,
-                                     with_gh=not self.custom_objective)
+                                     with_gh=not self.custom_objective,
+                                     lower=self.lower, upper=self.upper)
         if not self.custom_objective:
             self.qscale = self._scales()  # the next round's
         if not self.evals:
             self.allreduce_bytes_per_round = coll.bytes.total
             return {}
-        parts = [sums]
+        parts = [self._set_parts(sums, self.margins, self.label, self.weight,
+                                 self.auc_scale)]
         for es in self.evals:
             if not es.is_train:
                 value = predict_tree_binned(walked, es.bins,
                                             self.cfg.max_depth,
                                             self.cfg.max_bin)
-                parts.append(self._update(es.margins,
-                                          value.view(k_out, -1), es.label,
-                                          es.weight, with_gh=False)[1])
+                es_sums = self._update(es.margins, value.view(k_out, -1),
+                                       es.label, es.weight, with_gh=False,
+                                       lower=es.lower, upper=es.upper)[1]
+                parts.append(self._set_parts(es_sums, es.margins, es.label,
+                                             es.weight, es.auc_scale))
         parts = coll.sum(torch.stack(parts)).cpu()
         self.allreduce_bytes_per_round = coll.bytes.total
         held_out = iter(parts[1:])
         names = self.objective.partials
-        return {es.name: metric_values(parts[0] if es.is_train
-                                       else next(held_out), self.metric_names,
-                                       names)
-                for es in self.evals}
+        out = {}
+        n_live = len(self.live_parts)
+        for es in self.evals:
+            row = parts[0] if es.is_train else next(held_out)
+            hist = (row[n_live:].numpy().reshape(2, AUC_BINS)
+                    if self.with_auc else None)
+            sums = torch.zeros(len(names), dtype=torch.float64)
+            sums[list(self.live_parts)] = row[:n_live]
+            out[es.name] = metric_values(sums, self.device_metrics, names,
+                                         hist)
+            for name in self.host_metrics:
+                out[es.name][name] = self.combine_host_scalar(
+                    self._host_metric(es), es)
+        return out
+
+    def _host_metric(self, es: _EvalSet) -> float:
+        """``auc_exact`` of this rank's rows of ``es`` (``_auc_np`` on the
+        host, as the reference's host path computes it)."""
+        label, weight = self.host_labels(es)
+        score = auc_score(torch.from_numpy(self.get_margins(es))).numpy()
+        return auc_exact_np(score, label, weight)
 
     def get_margins(self, es: Optional[_EvalSet] = None) -> np.ndarray:
         """This rank's margins [n_rows, K] of the training set (or of the

@@ -20,8 +20,11 @@ mode over the file list, or by the locality assignment under
 ``RayShardingMode.FIXED``; in a ``torch.distributed`` world a process
 reads only the files of the ranks it trains. The engine concatenates the
 shards it is given in rank order and moves them to the training device (a
-RayDMatrix holds host arrays only). Streaming, query groups, label bounds,
-categorical columns and feature weights raise ``NotImplementedError``.
+RayDMatrix holds host arrays only). Label bounds (``label_lower_bound``,
+``label_upper_bound``: survival:aft) are carried, sharded and loaded like
+labels (``matrix.py:238-241``, ``:313-316``, ``:356``). Streaming,
+categorical columns and feature weights raise ``NotImplementedError``;
+query groups (``qid``) are ROADMAP A10's last part.
 """
 
 import glob
@@ -103,6 +106,11 @@ def _not_in_slice(what: str) -> NotImplementedError:
     )
 
 
+#: the per-row fields besides the features: each a column name of the
+#: source, or an array-like (central loading only)
+ROW_FIELDS = ("label", "weight", "base_margin", "label_lower_bound",
+                "label_upper_bound")
+
 #: RayDMatrix keyword arguments of streaming (ROADMAP A17)
 _STREAM_KWARGS = ("chunk_rows", "budget_mb", "sketch_capacity")
 
@@ -112,11 +120,13 @@ class _RayDMatrixLoader:
 
     def __init__(self, data, label=None, weight=None, base_margin=None,
                  missing=None, feature_names=None, filetype=None, ignore=None,
-                 **kwargs):
+                 label_lower_bound=None, label_upper_bound=None, **kwargs):
         self.data = data
         self.label = label
         self.weight = weight
         self.base_margin = base_margin
+        self.label_lower_bound = label_lower_bound
+        self.label_upper_bound = label_upper_bound
         self.missing = missing
         self.feature_names = feature_names
         self.filetype = filetype
@@ -159,6 +169,8 @@ class _RayDMatrixLoader:
         label = pick(self.label)
         weight = pick(self.weight)
         base_margin = pick(self.base_margin)
+        lower = pick(self.label_lower_bound)
+        upper = pick(self.label_upper_bound)
         x = df.drop(columns=[c for c in exclude if c in df.columns])
         if self.ignore:
             x = x.drop(columns=[c for c in self.ignore if c in x.columns])
@@ -176,7 +188,9 @@ class _RayDMatrixLoader:
             return None if v is None else np.asarray(v, dtype=np.float32).ravel()
 
         return {"data": feats, "label": arr(label), "weight": arr(weight),
-                "base_margin": arr(base_margin)}
+                "base_margin": arr(base_margin),
+                "label_lower_bound": arr(lower),
+                "label_upper_bound": arr(upper)}
 
 
 class _CentralRayDMatrixLoader(_RayDMatrixLoader):
@@ -225,7 +239,7 @@ class _DistributedRayDMatrixLoader(_RayDMatrixLoader):
         super().__init__(*args, **kwargs)
         # a rank's rows come from its files: an array cannot be aligned
         # with them, only a column name can (``matrix.py:533-538``)
-        for field in ("label", "weight", "base_margin"):
+        for field in ROW_FIELDS:
             val = getattr(self, field)
             if val is not None and not isinstance(val, str):
                 raise ValueError(
@@ -320,12 +334,12 @@ class RayDMatrix:
         stream: bool = False,
         **kwargs,
     ):
-        for name, val in (("feature_weights", feature_weights),
-                          ("label_lower_bound", label_lower_bound),
-                          ("label_upper_bound", label_upper_bound),
-                          ("qid", qid)):
-            if val is not None:
-                raise _not_in_slice(name)
+        if feature_weights is not None:
+            raise _not_in_slice("feature_weights")
+        if qid is not None:
+            from xgboost_ray_tpu_torch.ops.objectives import a10_last_part
+
+            raise a10_last_part("RayDMatrix(qid=...)")
         if stream or any(k in kwargs for k in _STREAM_KWARGS):
             raise _not_in_slice("stream=True")
         if enable_categorical:
@@ -350,7 +364,8 @@ class RayDMatrix:
         self.loader = loader_cls(
             data, label=label, weight=weight, base_margin=base_margin,
             missing=missing, feature_names=feature_names, filetype=filetype,
-            ignore=ignore, **kwargs)
+            ignore=ignore, label_lower_bound=label_lower_bound,
+            label_upper_bound=label_upper_bound, **kwargs)
         source = self.loader.get_data_source()
         if kwargs and source.get_filetype(self.loader.data) is None \
                 and filetype is None:

@@ -51,7 +51,11 @@ from xgboost_ray_tpu_torch.device import resolve_device
 from xgboost_ray_tpu_torch.ops import predict as predict_ops
 from xgboost_ray_tpu_torch.ops import shap as shap_ops
 from xgboost_ray_tpu_torch.ops.grow import Tree
-from xgboost_ray_tpu_torch.ops.objectives import base_score_margin, get_objective
+from xgboost_ray_tpu_torch.ops.objectives import (
+    QUANTILE,
+    base_score_margin,
+    transform_kind,
+)
 from xgboost_ray_tpu_torch.params import TrainParams, cat_feature_indices
 
 FORMAT = "xgboost_ray_tpu.booster"
@@ -138,6 +142,9 @@ class RayXGBoostBooster:
 
     @property
     def num_outputs(self) -> int:
+        if self.params.objective == QUANTILE:
+            qa = self.params.quantile_alpha
+            return len(qa) if isinstance(qa, (list, tuple)) else 1
         return max(self.params.num_class, 1)
 
     @property
@@ -287,10 +294,11 @@ class RayXGBoostBooster:
     ) -> np.ndarray:
         """[N, K] raw margins of f32 rows ``x`` (the reference's
         ``predict_margin_np``), or with ``transform`` the objective's
-        predictions: [N] (the sigmoid fused into B8; ``multi:softmax``'s
-        classes) or [N, K] (``multi:softprob``'s probabilities; the softmax
-        objectives' transform is the softmax pass after B8), computed on
-        ``device`` (the card by default)."""
+        predictions: [N] (the sigmoid, exp or hinge's 0/1 fused into B8;
+        ``multi:softmax``'s classes) or [N, K] (``multi:softprob``'s
+        probabilities, the softmax pass after B8; ``reg:quantileerror``'s K
+        quantiles, the margins themselves), computed on ``device`` (the card
+        by default)."""
         dev = resolve_device(device)
         n, num_features = x.shape
         k = self.num_outputs
@@ -298,7 +306,7 @@ class RayXGBoostBooster:
         objective = self.params.objective if transform else None
         width = k
         if transform:
-            get_objective(objective, k)  # raises outside the slice
+            transform_kind(objective)  # raises outside the port
             width = predict_ops.value_width(objective, k)
         fo = self.device_forest(dev)
         tw = self.device_tree_weights(dev)

@@ -80,6 +80,9 @@ SIGNATURES = {
     "objective": {
         "xrt_k4": ([P, P], I),
     },
+    "auc": {
+        "xrt_auc_hist": ([P, P], I),
+    },
     "shap": {
         "xrt_shap_saabas": ([P, P], I),
         "xrt_shap_exact": ([P, P], I),
@@ -114,7 +117,16 @@ class PredictArgs(ctypes.Structure):
             "num_parallel_tree", "num_outputs", "layout", "mode", "mapping",
             "has_cat", "rows_per_block", "trees_per_tile", "staged",
             "shared_bytes", "front0", "padded", "top")]
-        + [("m", I * 4), ("front", I * 4), ("base0", F)])
+        + [("m", I * 4), ("front", I * 4), ("base0", F), ("value_fn", I)])
+
+
+class AucArgs(ctypes.Structure):
+    """``XrtAucArgs`` of ``csrc/auc.cu``: one B9a launch, passed by pointer
+    (edit both together)."""
+
+    _fields_ = ([(name, P) for name in ("score", "label", "weight", "hist")]
+                + [("n", ctypes.c_longlong), ("scale", ctypes.c_double)]
+                + [(name, I) for name in ("stride", "grid")])
 
 
 class WalkArgs(ctypes.Structure):
@@ -152,7 +164,10 @@ class K4Args(ctypes.Structure):
         "margin", "row_value", "label", "weight", "gh", "part", "ticket",
         "out")]
         + [("n", ctypes.c_longlong), ("grid", I), ("mode", I),
-           ("scale_pos_weight", F)])
+           ("scale_pos_weight", F)]
+        + [(name, P) for name in ("lower", "upper", "alpha")]
+        + [(name, I) for name in ("k", "metrics", "multi")]
+        + [("c", F * 18)])
 
 
 class ShapArgs(ctypes.Structure):

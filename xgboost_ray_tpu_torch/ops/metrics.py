@@ -1,25 +1,51 @@
-"""Evaluation metrics of this slice: logloss, error, rmse, mlogloss, merror.
+"""Evaluation metrics of the port.
 
-Port of ``xgboost_ray_tpu/ops/metrics.py`` ``_logloss`` (``:36``),
-``_error`` (``:43``), ``_rmse`` (``:27``), ``_merror`` (``:49``) and
-``_mlogloss`` (``:55``), and the direction early
-stopping takes (``parse_metric_name``, ``:442``; ``is_maximize_metric``,
-``:452``). Each metric reduces to a
-(numerator, denominator) pair of weighted sums; the engine divides on the
-host, as ``engine.TpuEngine.step`` does. On the card the sums come out of
-K4 (``ops/objectives.round_update``: the kernel adds its CTAs' partials) or,
-for K outputs, the softmax pass (``ops/objectives.softmax_update``: per-CTA
-partials the wrapper adds).
+Port of ``xgboost_ray_tpu/ops/metrics.py``: the elementwise metrics
+``logloss`` (``:36``), ``error`` and ``error@t`` (``:43``), ``rmse``
+(``:27``), ``mae``, ``rmsle``, ``mphe``, ``mape``, ``poisson-nloglik``,
+``quantile`` (``:32-105``), ``mlogloss`` / ``merror`` (``:49-55``), the
+survival metric ``aft-nloglik`` (``ops/survival.py:101-140``), the binned
+``auc`` / ``aucpr`` (``:144-181``: a [2, 4096] (positive, negative) weight
+histogram over sigmoid-score bins, merged over the ranks, the areas from
+the merged bins) and the host metric ``auc_exact`` (``_auc_np``,
+``:326``), with the direction early stopping takes
+(``parse_metric_name``, ``is_maximize_metric``). Each elementwise metric
+reduces to a (numerator, denominator) pair of weighted sums; the engine
+divides on the host, as ``engine.TpuEngine.step`` does. On the card the
+sums come out of K4 (``ops/objectives.round_update``: the kernel adds its
+CTAs' partials) or, for K outputs, the softmax pass
+(``ops/objectives.softmax_update``), and the AUC histogram out of B9a
+(``auc_histogram``, ``csrc/auc.cu``).
+
+B9a sums weights in int64 fixed point: each row's weight times a power of
+two (``auc_scale``: the set's largest |weight| times its global row count
+stays below 2^52), rounded to an integer, so a bin's sum does not depend
+on the order its rows are added in (CTAs, ranks) and, below 2^53, is
+exact in float64: the histogram joins the round's one metric all-reduce as
+float64 and the merged sums are the same bits at every world size and on
+every rerun. The bins are the JAX package's bit for bit
+(``ops/objectives.sigmoid`` is its sigmoid); its float32 sums differ from
+the exact ones by their own rounding.
 """
 
+import ctypes
+import functools
+import math
 from typing import Dict, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
+from xgboost_ray_tpu_torch.ops import _build
 from xgboost_ray_tpu_torch.ops.objectives import (
     PARTIALS,
+    ObjConsts,
+    a10_last_part,
     first_argmax,
     label_class,
+    log1p_f32,
+    objective_consts,
+    sigmoid,
     softmax_parts,
 )
 
@@ -34,23 +60,83 @@ def logloss_terms(margin, label):
 
 
 def error_terms(margin, label, threshold: float = 0.5):
-    from xgboost_ray_tpu_torch.ops.objectives import sigmoid
-
     p = sigmoid(margin)
     return torch.where((p > threshold) != (label > 0.5), 1.0, 0.0)
 
 
+def pinball_terms(margins: torch.Tensor, label: torch.Tensor,
+                  alphas: Sequence[float]) -> torch.Tensor:
+    """[N] mean over the K outputs of the pinball loss ``max(a d, (a - 1)
+    d)``, d = y - m (``_quantile_pinball``)."""
+    if margins.dim() == 1:
+        margins = margins[:, None]
+    if len(alphas) != margins.shape[1]:
+        if len(alphas) != 1:
+            raise ValueError(
+                f"quantile metric got {margins.shape[1]} margin columns but "
+                f"{len(alphas)} quantile_alpha values; they must align.")
+        alphas = tuple(alphas) * margins.shape[1]
+    total = torch.zeros_like(label)
+    for k, a in enumerate(alphas):
+        a = float(np.float32(a))
+        d = label - margins[:, k]
+        total = total + torch.maximum(a * d, (a - 1.0) * d)
+    return total / margins.shape[1]
+
+
 def metric_partials(margin: torch.Tensor, label: torch.Tensor,
-                    weight: torch.Tensor) -> torch.Tensor:
-    """[4] float64: sum(w * logloss), sum(w * wrong), sum(w * d^2), sum(w)
-    over [N] f32 margins (float32 sums, as the JAX metrics take them)."""
-    d = margin - label
-    return torch.stack([
-        torch.sum(weight * logloss_terms(margin, label)),
-        torch.sum(weight * error_terms(margin, label)),
-        torch.sum(weight * d * d),
-        torch.sum(weight),
-    ]).to(torch.float64)
+                    weight: torch.Tensor, metrics: Sequence[str] = (),
+                    consts: Optional[ObjConsts] = None,
+                    lower: Optional[torch.Tensor] = None,
+                    upper: Optional[torch.Tensor] = None,
+                    alphas: Sequence[float] = (),
+                    margins: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """[12] float64 in ``PARTIALS`` order over [N] f32 margins (float32
+    sums, as the JAX metrics take them): sum(w * logloss), sum(w * wrong),
+    sum(w * d^2), sum(w) always; the sums of the other terms only where
+    ``metrics`` names a metric that reads them (zero elsewhere, as K4
+    leaves them). ``consts``: the objective's (huber slope, AFT sigma and
+    distribution, error@t's threshold, the quantile alpha of one output);
+    ``lower`` / ``upper``: the label bounds; ``margins`` [N, K] and
+    ``alphas``: the quantile metric over K outputs."""
+    c = consts if consts is not None else objective_consts()
+    m, y, w = margin, label, weight
+    d = m - y
+    sums = [torch.sum(w * logloss_terms(m, y)),
+             torch.sum(w * error_terms(m, y)), torch.sum(w * d * d),
+             torch.sum(w)]
+    zero = torch.zeros((), dtype=torch.float32, device=m.device)
+    sums += [zero] * (len(PARTIALS) - 4)
+    slots = {k4_slot(name) for name in metrics} - {None}
+    if 4 in slots:
+        sums[4] = torch.sum(w * d.abs())
+    if 5 in slots:
+        ls = (log1p_f32(torch.clamp(m, min=float(np.float32(-1.0 + 1e-6))))
+              - log1p_f32(y))
+        sums[5] = torch.sum(w * ls * ls)
+    if 6 in slots:
+        s = c.huber_slope
+        sums[6] = torch.sum(w * (s * s * (torch.sqrt(1.0 + (d / s) ** 2)
+                                          - 1.0)))
+    if 7 in slots:
+        sums[7] = torch.sum(w * (d / torch.clamp(y.abs(), min=1e-10)).abs())
+    if 8 in slots:
+        mc = torch.clamp(m, -30.0, 30.0)
+        sums[8] = torch.sum(w * (torch.exp(mc) - y * mc
+                                 + torch.lgamma(y + 1.0)))
+    if 9 in slots:
+        sums[9] = torch.sum(w * error_terms(m, y, c.threshold))
+    if 10 in slots:
+        from xgboost_ray_tpu_torch.ops.survival import aft_nloglik_terms
+
+        if lower is None or upper is None:
+            raise ValueError("aft-nloglik needs label_lower_bound / "
+                             "label_upper_bound")
+        sums[10] = torch.sum(w * aft_nloglik_terms(m, lower, upper, c))
+    if 11 in slots:
+        sums[11] = torch.sum(w * pinball_terms(
+            m if margins is None else margins, y, alphas or (c.alpha0,)))
+    return torch.stack(sums).to(torch.float64)
 
 
 def mlogloss_terms(margin: torch.Tensor, label: torch.Tensor) -> torch.Tensor:
@@ -84,29 +170,6 @@ def softmax_partials(margin: torch.Tensor, label: torch.Tensor,
     ]).to(torch.float64)
 
 
-#: the partial sum each metric divides by the weight sum
-_NUMERATOR = {"logloss": "logloss", "error": "error", "rmse": "sqerr",
-              "mlogloss": "mlogloss", "merror": "merror"}
-
-
-def metric_values(sums: torch.Tensor, names: Sequence[str],
-                  partials: Sequence[str] = PARTIALS) -> Dict[str, float]:
-    """Host values of the named metrics from partial sums named by
-    ``partials`` (``metric_partials``' order, or the softmax pass's
-    ``SOFTMAX_PARTIALS``; one device -> host read)."""
-    s = dict(zip(partials, sums.cpu().tolist()))
-    den = max(s["weight"], 1e-12)
-    out = {}
-    for name in names:
-        num = _NUMERATOR.get(name)
-        if num not in s:
-            raise NotImplementedError(f"eval_metric={name!r}")
-        out[name] = s[num] / den
-        if name == "rmse":
-            out[name] = float(out[name]) ** 0.5
-    return out
-
-
 def parse_metric_name(name: str) -> Tuple[str, Optional[float]]:
     """Split 'ndcg@10' / 'error@0.7' style names into (base, arg)."""
     if "@" in name:
@@ -120,3 +183,232 @@ def is_maximize_metric(name: str) -> bool:
     """Whether a larger value of the metric is better (early stopping)."""
     base, _ = parse_metric_name(name)
     return base in ("auc", "ndcg", "map", "aucpr", "auc_exact")
+
+
+#: the partial sum each K4 metric divides by the weight sum
+_K4_NUMERATOR = {"logloss": "logloss", "error": "error", "rmse": "sqerr",
+                 "mae": "abserr", "rmsle": "sqlogerr", "mphe": "phe",
+                 "mape": "ape", "poisson-nloglik": "poisson",
+                 "aft-nloglik": "aft", "quantile": "pinball"}
+_SOFTMAX_NUMERATOR = {"mlogloss": "mlogloss", "merror": "merror"}
+#: the metrics read from the AUC histogram (``auc_from_hist`` and
+#: ``aucpr_from_hist``) and the host metrics (computed from margins on the
+#: host, combined over the ranks)
+HIST_METRICS = ("auc", "aucpr")
+HOST_METRICS = ("auc_exact",)
+#: ROADMAP A10's last part
+_A10_METRICS = ("ndcg", "map", "cox-nloglik", "pre")
+
+
+def k4_slot(name: str) -> Optional[int]:
+    """The index in ``PARTIALS`` of the numerator of a K4 metric (``error``
+    at a threshold other than 0.5 has its own sum), None for a metric K4
+    does not sum."""
+    base, arg = parse_metric_name(name)
+    if base == "error" and arg is not None and float(
+            np.float32(arg)) != 0.5:
+        return PARTIALS.index("error_t")
+    num = _K4_NUMERATOR.get(base)
+    return None if num is None else PARTIALS.index(num)
+
+
+def check_metric(name: str, softmax: bool) -> None:
+    """Raise for a metric the port does not compute for this kind of
+    objective (the softmax metrics go with the softmax objectives, every
+    other with the one-output and quantile ones)."""
+    base, _ = parse_metric_name(name)
+    if base in _A10_METRICS:
+        raise a10_last_part(f"eval_metric={name!r}")
+    if softmax:
+        ok = base in _SOFTMAX_NUMERATOR
+    else:
+        ok = (base in _K4_NUMERATOR or base in HIST_METRICS
+              or base in HOST_METRICS)
+    if not ok or (parse_metric_name(name)[1] is not None and base != "error"):
+        raise NotImplementedError(
+            f"eval_metric={name!r} is not supported by xgboost_ray_tpu_torch "
+            f"with {'a softmax' if softmax else 'a one-output'} objective.")
+
+
+def error_threshold(names: Sequence[str]) -> float:
+    """The one threshold of the ``error@t`` metrics (t != 0.5) of a run
+    (K4 sums one of them); 0.5 without one."""
+    ts = {float(np.float32(parse_metric_name(n)[1])) for n in names
+          if k4_slot(n) == PARTIALS.index("error_t")}
+    if len(ts) > 1:
+        raise NotImplementedError(
+            f"eval_metric: error@t at {len(ts)} thresholds; the port sums "
+            f"one threshold besides 0.5 a run.")
+    return ts.pop() if ts else 0.5
+
+
+def metric_values(sums: torch.Tensor, names: Sequence[str],
+                  partials: Sequence[str] = PARTIALS,
+                  hist: Optional[np.ndarray] = None) -> Dict[str, float]:
+    """Host values of the named metrics from partial sums named by
+    ``partials`` (``metric_partials``' order, or the softmax pass's
+    ``SOFTMAX_PARTIALS``; one device -> host read) and, for ``auc`` /
+    ``aucpr``, the merged [2, 4096] AUC histogram ``hist``."""
+    s = dict(zip(partials, torch.as_tensor(sums).cpu().tolist()))
+    den = max(s["weight"], 1e-12)
+    out = {}
+    for name in names:
+        base, _ = parse_metric_name(name)
+        if base in HIST_METRICS:
+            if hist is None:
+                raise ValueError(f"metric_values: {name} needs the AUC "
+                                 f"histogram")
+            out[name] = (auc_from_hist(hist) if base == "auc"
+                         else aucpr_from_hist(hist))
+            continue
+        slot = k4_slot(name) if partials == PARTIALS else None
+        num = (PARTIALS[slot] if slot is not None
+               else _SOFTMAX_NUMERATOR.get(base))
+        if num not in s:
+            raise NotImplementedError(f"eval_metric={name!r}")
+        out[name] = s[num] / den
+        if base in ("rmse", "rmsle"):
+            out[name] = float(out[name]) ** 0.5
+    return out
+
+
+# --------------------------------------------------------------------------
+# auc / aucpr: B9a's histogram and the areas from it
+# --------------------------------------------------------------------------
+
+#: sigmoid-score bins of the AUC histogram (``AUC_BINS``, ``:142``)
+AUC_BINS = 4096
+
+
+def auc_score(margins: torch.Tensor) -> torch.Tensor:
+    """The score column AUC ranks: the margin of one output, else output
+    1's (``auc_hist``)."""
+    return margins[:, 0] if margins.shape[1] == 1 else margins[:, 1]
+
+
+def auc_scale(max_abs_weight: float, n_global: int) -> float:
+    """The power of two B9a multiplies weights by: the largest |weight|
+    times the set's global row count times it stays at or below 2^52, so
+    every bin's integer sum (each row rounded by at most 1/2) is exact in
+    float64 after the merge."""
+    total = float(max_abs_weight) * max(int(n_global), 1)
+    if not total > 0 or not math.isfinite(total):
+        return 1.0
+    return 2.0 ** (52 - math.ceil(math.log2(total)))
+
+
+def auc_bins(score: torch.Tensor) -> torch.Tensor:
+    """[N] int64 bin of each score: ``clip(int(sigmoid(s) * 4096), 0,
+    4095)``, the float32 -> int32 cast as XLA's (truncated, NaN to 0)."""
+    p = torch.nan_to_num(sigmoid(score) * float(AUC_BINS), nan=0.0)
+    return p.long().clamp(0, AUC_BINS - 1)
+
+
+def auc_histogram_plain(score: torch.Tensor, label: torch.Tensor,
+                        weight: torch.Tensor, scale: float) -> torch.Tensor:
+    """Plain B9a: [2, 4096] int64 (positive, negative) sums of
+    ``rint(w * scale)`` over the rows' bins (a label above 0.5 positive,
+    one at or below it negative, NaN neither)."""
+    q = torch.round(weight.double() * scale).long()
+    b = auc_bins(score)
+    h = torch.zeros((2, AUC_BINS), dtype=torch.int64, device=score.device)
+    h[0].index_add_(0, b, torch.where(label > 0.5, q, 0))
+    h[1].index_add_(0, b, torch.where(label <= 0.5, q, 0))
+    return h
+
+
+#: CTAs an SM of B9a (``kCtasPerSm`` of ``csrc/auc.cu``)
+AUC_CTAS_PER_SM = 2
+
+
+@functools.lru_cache(maxsize=None)
+def _auc_sms(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def auc_histogram(score: torch.Tensor, label: torch.Tensor,
+                  weight: torch.Tensor, scale: float) -> torch.Tensor:
+    """B9a wrapper: [2, 4096] int64 (positive, negative) weight histogram
+    of ``score`` [N] (a view with any row stride, e.g. a column of [N, K]
+    margins) over the sigmoid bins, weights in fixed point (``scale``:
+    ``auc_scale``). CPU tensors take ``auc_histogram_plain``; CUDA tensors
+    launch the kernel of ``csrc/auc.cu`` once (``auc_histogram.launches``)."""
+    if not score.is_cuda:
+        return auc_histogram_plain(score, label, weight, scale)
+    n = score.shape[0]
+    dev = score.device
+    if score.dtype != torch.float32 or score.dim() != 1 or (
+            n > 1 and score.stride(0) < 1):
+        raise ValueError("auc_histogram: score must be float32 [N]")
+    for t in (label, weight):
+        if (t.device != dev or t.dtype != torch.float32 or t.shape != (n,)
+                or not t.is_contiguous()):
+            raise ValueError("auc_histogram: label and weight must be "
+                             "contiguous float32 [N] on the score's device")
+    hist = torch.zeros((2, AUC_BINS), dtype=torch.int64, device=dev)
+    a = _build.AucArgs()
+    a.score, a.label, a.weight, a.hist = (
+        _build.ptr(t) for t in (score, label, weight, hist))
+    a.n, a.scale = n, float(scale)
+    a.stride = score.stride(0) if n > 1 else 1
+    a.grid = max(1, min(-(-n // 1024),
+                        _auc_sms(dev.index) * AUC_CTAS_PER_SM))
+    with torch.cuda.device(dev):
+        code = _build.library("auc").xrt_auc_hist(ctypes.byref(a),
+                                                  _build.stream_ptr(dev))
+    _build.check(code, "B9a (auc_histogram)")
+    auc_histogram.launches += 1
+    return hist
+
+
+auc_histogram.launches = 0
+
+
+def auc_from_hist(h: np.ndarray) -> float:
+    """ROC AUC from a merged [2, B] histogram (midrank ties within bins),
+    ``auc_from_hist`` (``:160``) in float64 on the host."""
+    pos, neg = np.asarray(h[0], np.float64), np.asarray(h[1], np.float64)
+    cneg_before = np.cumsum(neg) - neg
+    num = np.sum(pos * (cneg_before + 0.5 * neg))
+    denom = pos.sum() * neg.sum()
+    return float(num / max(denom, 1e-12)) if denom > 0 else 0.5
+
+
+def aucpr_from_hist(h: np.ndarray) -> float:
+    """PR AUC from a merged [2, B] histogram (step integration, high to
+    low), ``aucpr_from_hist`` (``:171``) in float64 on the host."""
+    pos = np.asarray(h[0], np.float64)[::-1]
+    neg = np.asarray(h[1], np.float64)[::-1]
+    tp, fp = np.cumsum(pos), np.cumsum(neg)
+    if not h[0].sum() > 0:
+        return 0.0
+    precision = tp / np.maximum(tp + fp, 1e-12)
+    recall = tp / max(tp[-1], 1e-12)
+    d_recall = np.diff(recall, prepend=0.0)
+    return float(np.sum(precision * d_recall))
+
+
+def auc_exact_np(score: np.ndarray, label: np.ndarray,
+                 weight: Optional[np.ndarray]) -> float:
+    """``auc_exact``: the weighted ROC AUC as a rank statistic, ties by
+    weighted midranks (``_auc_np``, ``:326``), on the host in float64."""
+    score = np.asarray(score, np.float64)
+    label = np.asarray(label, np.float32)
+    weight = (np.ones(score.shape[0]) if weight is None or np.size(weight) == 0
+              else np.asarray(weight, np.float32).astype(np.float64))
+    order = np.argsort(score, kind="stable")
+    s, y, w = score[order], label[order], weight[order]
+    cw = np.cumsum(w)
+    ranks = cw - w / 2.0
+    _, inv, counts = np.unique(s, return_inverse=True, return_counts=True)
+    grp_sum = np.zeros(counts.shape[0])
+    grp_w = np.zeros(counts.shape[0])
+    np.add.at(grp_sum, inv, ranks * w)
+    np.add.at(grp_w, inv, w)
+    ranks = (grp_sum / np.maximum(grp_w, 1e-12))[inv]
+    pos_w = np.sum(w * (y > 0.5))
+    neg_w = np.sum(w * (y <= 0.5))
+    if pos_w <= 0 or neg_w <= 0:
+        return 0.5
+    return float((np.sum(ranks * w * (y > 0.5)) - pos_w * pos_w / 2.0)
+                 / (pos_w * neg_w))

@@ -43,8 +43,12 @@ whose order the CPU GEMM picks; there the two agree within float32
 summation error. ``tests/test_torch_predict.py`` pins where they are
 bitwise. Values: with ``transform`` (an objective's name) the margins go
 through the objective's prediction transform (``Objective.transform``:
-the sigmoid of ``binary:logistic``), which the kernel fuses into its
-epilogue. The softmax of ``multi:softprob`` / ``multi:softmax`` cannot be
+the sigmoid of ``binary:logistic``, the exp of the log-link objectives and
+``survival:aft`` with the reference's own exp, hinge's 0/1; ``VALUE_FNS``),
+which the kernel fuses into its epilogue (replacing
+``xgboost_ray_tpu/models/booster.py:733-742``); an identity transform,
+``reg:quantileerror``'s K outputs included, launches plain margins. The
+softmax of ``multi:softprob`` / ``multi:softmax`` cannot be
 fused: the kernel lays classes out as ``blockIdx.y``, so no thread holds a
 row's K sums; their values are B8's margins, then the softmax pass in its
 transform mode (``ops/objectives.softmax_transform``), two launches.
@@ -53,7 +57,7 @@ Each wrapper sends CPU tensors to its plain PyTorch version and CUDA
 tensors to the kernel (or raises): there is no fallback. ``launches``
 counts kernel launches (``launches_by_layout`` splits them by forest
 layout, ``launches_by_plan`` by layout and mapping, ``launches_by_mode``
-margins from values). Kernel: ``csrc/predict.cu``; ``launch_plan`` picks
+margins from values, ``launches_by_value_fn`` the values by transform). Kernel: ``csrc/predict.cu``; ``launch_plan`` picks
 its mapping.
 """
 
@@ -69,8 +73,11 @@ from xgboost_ray_tpu_torch.ops import _build
 from xgboost_ray_tpu_torch.ops.node_array import level_major
 from xgboost_ray_tpu_torch.ops.objectives import (
     SOFTPROB,
-    get_objective,
+    VALUE_FNS,
     softmax_transform,
+    softmax_transform_plain,
+    transform_kind,
+    value_transform,
 )
 from xgboost_ray_tpu_torch.ops.split import tree_sum
 
@@ -273,10 +280,12 @@ def predict_margin_plain(
         b = base[lo:hi] if base is not None else base0
         out[lo:hi] = b + s / num_parallel_tree
     if transform is not None:
-        obj = get_objective(transform, k)
-        if obj.softmax:
-            return obj.transform(out).reshape(n, -1)
-        out[:, 0] = obj.transform(out)
+        kind = transform_kind(transform)
+        if kind == "softmax":
+            return softmax_transform_plain(out, transform == SOFTPROB
+                                           ).reshape(n, -1)
+        if k == 1:
+            out[:, 0] = value_transform(out[:, 0], kind)
     return out
 
 
@@ -399,27 +408,34 @@ def _check_forest(fo: PredictForest, x: torch.Tensor) -> None:
 
 
 def _transform_mode(transform: Optional[str], k: int) -> str:
-    """The kernel mode of a margin call: ``value`` for the sigmoid of
-    ``binary:logistic``; the identity of ``reg:squarederror`` launches
-    plain margins; ``softmax`` for the softmax objectives (margins, then the
-    softmax pass). Raises for an objective outside the slice and for a
-    one-output transform of K > 1 outputs."""
+    """The kernel mode of a margin call: ``value`` for a one-output
+    transform fused into the kernel's epilogue (the sigmoid of
+    ``binary:logistic``, the exp of the log-link objectives and
+    ``survival:aft``, hinge's 0/1); the identity (``reg:squarederror`` and
+    the other margin-valued objectives, ``reg:quantileerror``'s K outputs)
+    launches plain margins; ``softmax`` for the softmax objectives (margins,
+    then the softmax pass). Raises for an objective the port does not
+    predict values of and for a one-output transform of K > 1 outputs."""
     if transform is None:
         return "margin"
-    obj = get_objective(transform, k)
-    if obj.softmax:
+    kind = transform_kind(transform)
+    if kind == "softmax":
         return "softmax"
-    if k != 1:
+    if k != 1 and kind != "identity":
         raise NotImplementedError(
             f"B8: {transform!r} transforms one output, not K = {k} (the "
-            f"other K-output transforms are ROADMAP queue A10)")
-    return "value" if obj.logistic else "margin"
+            f"port's K-output values are the softmax objectives' and "
+            f"reg:quantileerror's, ROADMAP A10)")
+    return "margin" if kind == "identity" else "value"
 
 
 def value_width(transform: str, k: int) -> int:
     """Columns of the values of a ``transform`` call over K outputs: K
-    probabilities for ``multi:softprob``, else one."""
-    return k if transform == SOFTPROB else 1
+    probabilities for ``multi:softprob``, K quantiles for
+    ``reg:quantileerror`` with K alphas, else one."""
+    if transform == SOFTPROB:
+        return k
+    return k if transform_kind(transform) == "identity" else 1
 
 
 def _args(fo: PredictForest, x: torch.Tensor, plan: LaunchPlan, mode: str,
@@ -530,16 +546,22 @@ def predict_margin(
               base=_build.ptr(base), out_margin=out.data_ptr(),
               ntree_limit=int(ntree_limit),
               num_parallel_tree=int(num_parallel_tree), num_outputs=k,
-              base0=float(base0))
+              base0=float(base0),
+              value_fn=VALUE_FNS.index(transform_kind(transform))
+              if mode == "value" else 0)
     _launch(a, dev, stream, f"B8 predict {mode}")
     predict_margin.launches += 1
     predict_margin.launches_by_layout[fo.layout] += 1
     predict_margin.launches_by_mode[mode] += 1
     predict_margin.launches_by_plan[fo.layout, plan.mapping] += 1
+    if mode == "value":
+        predict_margin.launches_by_value_fn[VALUE_FNS[a.value_fn]] += 1
     return out
 
 
 predict_margin.launches = 0
+#: value-mode launches by the transform fused into the epilogue
+predict_margin.launches_by_value_fn = dict.fromkeys(VALUE_FNS, 0)
 predict_margin.launches_by_layout = dict.fromkeys(LAYOUTS, 0)
 predict_margin.launches_by_mode = dict.fromkeys(("margin", "value"), 0)
 predict_margin.launches_by_plan = dict.fromkeys(PLANS, 0)

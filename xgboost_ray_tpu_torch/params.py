@@ -13,11 +13,7 @@ import dataclasses
 import logging
 from typing import Any, Dict, List, Optional, Sequence
 
-from xgboost_ray_tpu_torch.constants import (
-    HIST_IMPLS,
-    SUPPORTED_METRICS,
-    SUPPORTED_OBJECTIVES,
-)
+from xgboost_ray_tpu_torch.constants import HIST_IMPLS, SUPPORTED_OBJECTIVES
 
 logger = logging.getLogger(__name__)
 
@@ -254,6 +250,15 @@ def parse_params(params: Optional[Dict[str, Any]]) -> TrainParams:
         raise ValueError("multi:* objectives require num_class >= 2")
 
     # --- outside this slice: raise, naming the key -------------------------
+    from xgboost_ray_tpu_torch.ops.metrics import check_metric, error_threshold
+    from xgboost_ray_tpu_torch.ops.objectives import (
+        A10_LAST_PART,
+        a10_last_part,
+        objective_from_params,
+    )
+
+    if out.objective in A10_LAST_PART:
+        raise a10_last_part(f"objective={out.objective!r}")
     for key, bad in (
         ("objective", out.objective not in SUPPORTED_OBJECTIVES),
         ("booster", out.booster != "gbtree"),
@@ -276,7 +281,8 @@ def parse_params(params: Optional[Dict[str, Any]]) -> TrainParams:
     multi = out.objective.startswith("multi:")
     for m in out.eval_metric:
         # the softmax metrics go with the softmax objectives, the others
-        # with the one-output ones
-        if m not in SUPPORTED_METRICS or (m in ("mlogloss", "merror")) != multi:
-            raise _not_in_slice("eval_metric", m)
+        # with the one-output and quantile ones
+        check_metric(m, multi)
+    error_threshold(out.eval_metric)
+    objective_from_params(out)  # the objective's own checks (alphas, AFT)
     return out

@@ -8,9 +8,11 @@ The forest goes to the device packed once per model (for ``node_array``,
 in its order), and each bucket has preallocated device buffers for its
 rows and its outputs: a batch is copied into its bucket's buffer, zero
 rows pad it, B8 walks the bucket (for ``value`` with the objective's
-transform fused into it; a ``multi:softprob`` / ``multi:softmax`` model's
-``value`` is B8's margins, then the softmax pass: [rows, K] probabilities
-or [rows] classes), and the real rows are sliced back. The
+transform fused into it: the sigmoid, the exp of the log-link objectives
+and ``survival:aft``, hinge's 0/1; a ``reg:quantileerror`` model's
+``value`` is its [rows, K] margins; a ``multi:softprob`` / ``multi:softmax``
+model's ``value`` is B8's margins, then the softmax pass: [rows, K]
+probabilities or [rows] classes), and the real rows are sliced back. The
 walk is row-independent, so padding changes nothing in the real rows:
 served results are bitwise the batch path's (``RayXGBoostBooster.predict``
 on the same device).

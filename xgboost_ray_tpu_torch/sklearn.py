@@ -155,11 +155,22 @@ class _SklearnMetricAdapter:
         else:
             import torch
 
-            from xgboost_ray_tpu_torch.ops.objectives import get_objective
+            from xgboost_ray_tpu_torch.ops.objectives import (
+                get_objective,
+                transform_kind,
+                value_transform,
+            )
 
-            o = get_objective(self.obj_name, self.num_class)
-            yp = o.transform(torch.from_numpy(np.ascontiguousarray(
-                np.asarray(preds, np.float32).reshape(len(y), -1)))).numpy()
+            m = torch.from_numpy(np.ascontiguousarray(
+                np.asarray(preds, np.float32).reshape(len(y), -1)))
+            kind = transform_kind(self.obj_name)
+            if kind == "softmax":
+                yp = get_objective(self.obj_name, self.num_class).transform(m)
+            elif m.shape[1] > 1:  # reg:quantileerror's K quantiles
+                yp = m
+            else:
+                yp = value_transform(m[:, 0], kind)
+            yp = yp.numpy()
         w = dmat.get_weight()
         if w is not None and np.asarray(w).size:
             # xgboost's _metric_decorator passes eval-set weights through
@@ -807,8 +818,7 @@ class RayXGBRanker(_RayXGBEstimator):
     def fit(self, X, y=None, *, qid=None, **kwargs):
         params = self.get_xgb_params()
         params.setdefault("objective", self._default_objective)
-        raise NotImplementedError(
-            f"RayXGBRanker: objective={params['objective']!r} and qid "
-            f"(query groups) are not supported by xgboost_ray_tpu_torch yet "
-            f"(ROADMAP A10)."
-        )
+        from xgboost_ray_tpu_torch.ops.objectives import a10_last_part
+
+        raise a10_last_part(f"RayXGBRanker: objective="
+                            f"{params['objective']!r} with qid")
