@@ -236,6 +236,30 @@ is only where it may find ``cuobjdump``). Phases:
    Poisson, AFT and quantile models equal to the fixed-point CPU path's on
    ``--compare-rows`` rows; ``predict()`` and a served ``value`` probe of
    the Poisson and the quantile model.
+14. learning to rank and survival:cox (``ranking``, after phase 13;
+   ``--ranking-only`` runs the build and it alone): path R at
+   MSLR-WEB30K's shape (``make_mslr_like`` of
+   ``tests/release/benchmark_ranking.py``: 30,000 queries of about 120
+   documents x 136 features, a 10,000-query test fold from seed 1),
+   ``rank:ndcg``, ``rank:pairwise`` and ``rank:map`` with ``ndcg@10`` and
+   ``map@10``, depth 8, eta 0.1, 256 bins, 10 rounds, each run's launches
+   counted from 0 and checked exactly (``ranking_expect``), the test
+   ndcg@10 rising; B13 in both modes and B9r for both metrics bitwise their
+   plain versions on the run's rows and timed, and on edge cases (queries
+   of 1, 2, 1,300 and 2,500 documents, tied scores, equal labels, zero
+   weights); K1 at F = 136 with 128 nodes and B4's 511-node heap held once;
+   ``predict()`` over the test fold within 1e-3 of its training margins,
+   a served probe, ``RayXGBRanker`` equal to ``train()``; on a 300-query
+   cut (and 200,000 Cox rows) the card's models at ``num_actors=2`` equal
+   to the fixed-point CPU path's, and 2 gloo ranks equal to it too (Cox's
+   margins gathered every round). Path C: ``survival:cox`` with
+   ``cox-nloglik`` at the HIGGS split (``cox_labels``: phase 13's AFT
+   times, censored ones right-censored at their lower bound), launches
+   exact (``cox_expect``), B14 bitwise its plain version and timed beside
+   the set-up's ``torch.sort``, on edge cases too (all censored, ties,
+   zero-weight rows holding the largest margin); ``predict()`` values
+   bitwise exp of the margins, and B8's exp finite up to a margin of 88.72
+   and inf above (C7).
 
 Phase 6's model is trained, and phase 7 run, right after phase 1: later in
 the process ``torch.profiler`` records no device activity for B8's
@@ -305,6 +329,9 @@ run) and prints no result line.
 
 ``--shap-only`` runs the build, phase 6's model and phase 11 and prints
 its kernel rows but no result line; ``--pool-only`` the same for phase 12.
+
+``--ranking-only`` runs the build and phase 14 and prints its kernel rows
+but no result line.
 
 """
 
@@ -2840,18 +2867,27 @@ def phase_k4_variants(n_eval=500_000, n_gh=11_000_000):
 
 
 def _kernel_record(records, key, fn, plain, bound, flush, launches, err,
-                   library=None):
+                   library=None, iters=None):
     """Time ``fn`` (events, device time L2 flushed by a write and by a
     read, and warm) beside its plain version, then the host time a
     call (last: its 1,000 calls change the margins a pass updates in
-    place, and with them its device time); fill ``records[key]``."""
+    place, and with them its device time); fill ``records[key]``.
+    ``plain`` is the plain version, or the ms of its one run
+    (``timed_once``) where it is too slow to loop. A slow kernel passes
+    ``iters``: that many calls a time, and no host time (1,000 calls of
+    B13 would take seconds)."""
+    slow = iters is not None
+    n, k = (iters, iters) if slow else (20, 10)
     records[key].update(
-        launches=launches, max_abs_err=err, ms=cuda_ms(fn, iters=20),
-        device_ms=profiled_ms(lambda: (flush.zero_(), fn())),
-        device_ms_read_flush=read_flushed_ms(fn),
-        device_ms_l2_warm=profiled_ms(fn),
-        plain_ms=cuda_ms(plain, iters=3), bound_ms=bound[0],
-        bound_by=bound[1], library_ms=library, host_us=host_call_us(fn))
+        launches=launches, max_abs_err=err,
+        ms=cuda_ms(fn, iters=n, warmup=1 if slow else 2),
+        device_ms=profiled_ms(lambda: (flush.zero_(), fn()), iters=k),
+        device_ms_read_flush=read_flushed_ms(fn, iters=k),
+        device_ms_l2_warm=profiled_ms(fn, iters=k),
+        plain_ms=cuda_ms(plain, iters=3) if callable(plain) else plain,
+        bound_ms=bound[0], bound_by=bound[1], library_ms=library)
+    if not slow:
+        records[key]["host_us"] = host_call_us(fn)
 
 
 def phase_k1_k2_f54(n, records, launches):
@@ -5042,6 +5078,508 @@ def phase_objectives(x, y, records, rounds=10, depth=6, es_rounds=30,
     return res
 
 
+#: phase 14's MSLR-WEB30K shape (BASELINE.md target 4: 30,000 training
+#: queries of about 120 documents, 136 features) and its test fold's share
+#: (MSLR's folds split 3 : 1 : 1)
+MSLR_QUERIES = 30_000
+MSLR_TEST_QUERIES = 10_000
+MSLR_GROUP = 120
+MSLR_FEATURES = 136
+RANK_DEPTH = 8
+RANK_METRICS = ["ndcg@10", "map@10"]
+RANK_OBJECTIVES = ("rank:ndcg", "rank:pairwise", "rank:map")
+#: the kernel table's rows of phase 14
+RANKING_KERNELS = ("B13", "B13pair", "B9r", "B9rmap", "B14")
+
+
+def make_mslr_like(n_groups, group_size, n_features, seed=0):
+    """The MSLR-WEB30K-shaped recipe of tests/release/benchmark_ranking.py:
+    query sizes a normal of mean ``group_size`` and sd a quarter of it,
+    clipped at 4; features standard normal; relevance 0-4 from a noisy
+    score of three features."""
+    rng = np.random.RandomState(seed)
+    sizes = np.clip(
+        rng.normal(group_size, group_size / 4, n_groups).astype(int), 4, None
+    )
+    n = int(sizes.sum())
+    qid = np.repeat(np.arange(n_groups), sizes)
+    x = rng.randn(n, n_features).astype(np.float32)
+    score = 1.2 * x[:, 0] - 0.8 * x[:, 1] + 0.5 * x[:, 2] + rng.randn(n) * 0.7
+    rel = np.clip(np.digitize(score, [-1.5, -0.3, 0.7, 1.8]), 0, 4)
+    return x, rel.astype(np.float32), qid
+
+
+def cox_labels(x, y):
+    """Path C's labels over the HIGGS rows: phase 13's AFT times
+    (``objective_labels``), an uncensored time t as t, a right-censored one
+    as -lower (xgboost's convention), an interval-censored one as its lower
+    bound right-censored (-lower)."""
+    labels, shares = objective_labels(x, y)
+    lo, hi = labels["lower"], labels["upper"]
+    lab = np.where(lo == hi, lo, -lo).astype(np.float32)
+    return lab, {**shares, "event_share": float((lab > 0).mean())}
+
+
+def ranking_expect(rounds, depth, metrics=2):
+    """Launches of a ranking ``train()`` with the test set: per tree the
+    main path's K1-K3; K4 in its eval mode only, once a round a set (no
+    set-up pass); B13 once a round and at set-up; B9r once a set a round
+    for each ndcg / map metric; B4 once a round over the test set."""
+    base = train_expect(rounds, depth)
+    return {**base, "K4": 2 * rounds, "K4eval": 2 * rounds, "B4": rounds,
+            "B13": rounds + 1, "B9r": 2 * metrics * rounds, "B14": 0,
+            "B9a": 0}
+
+
+def cox_expect(rounds, depth):
+    """Launches of a survival:cox ``train()`` with the test set and
+    cox-nloglik: K4's eval mode once a round a set, B14 once a round and at
+    set-up (the training gradients and metric) and once a round for the
+    test set's metric, B4 once a round."""
+    base = train_expect(rounds, depth)
+    return {**base, "K4": 2 * rounds, "K4eval": 2 * rounds, "B4": rounds,
+            "B13": 0, "B9r": 0, "B14": 2 * rounds + 1, "B9a": 0}
+
+
+def timed_once(fn):
+    """(fn(), its ms by CUDA events): a plain version's one run."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def _rank_edge_sets():
+    """B13 / B9r edge cases on the card: groups of 1, 2 and 1,300
+    documents and one larger than the shared staging (2,500), all scores
+    equal (round 0), every label equal, zero weights."""
+    rng = np.random.default_rng(14)
+    sizes = [1, 2, 1300, 2500, 37, 5, 60]
+    n = int(sum(sizes))
+    qid = np.repeat(np.arange(len(sizes)), sizes)
+    m = rng.standard_normal(n).astype(np.float32)
+    y = rng.integers(0, 5, n).astype(np.float32)
+    w = rng.uniform(0.5, 2.0, n).astype(np.float32)
+    w[::9] = 0.0
+    cases = {"mixed": (m, y, w)}
+    cases["tied_scores"] = (np.zeros(n, np.float32), y, w)
+    cases["equal_labels"] = (m, np.full(n, 2.0, np.float32), w)
+    return qid, cases
+
+
+def _cox_edge_sets():
+    """B14 edge cases: every row censored, ties in time, and w = 0 rows
+    holding the largest margin."""
+    rng = np.random.default_rng(15)
+    n = 5000
+    t = (np.round(rng.exponential(2.0, n) * 4) / 4 + 0.25).astype(np.float32)
+    m = rng.standard_normal(n).astype(np.float32)
+    w = rng.uniform(0.5, 2.0, n).astype(np.float32)
+    w[::7] = 0.0
+    m[::7] = 60.0
+    lab = np.where(rng.uniform(size=n) < 0.3, -t, t).astype(np.float32)
+    return {"ties_and_zero_weights": (m, lab, w),
+            "all_censored": (m, -t, w)}
+
+
+def phase_ranking(x_higgs, y_higgs, records, rounds=10, depth=RANK_DEPTH,
+                  cut_queries=300, cox_cut=200_000, cox_depth=6,
+                  cut_rounds=2):
+    """Phase 14: learning to rank (path R) and survival:cox (path C) at full
+    width through ``train()``, ``predict()``, serve and ``RayXGBRanker``,
+    B13 / B9r / B14 against their plain versions, launches exact, the
+    models equal to the fixed-point CPU path's, 2 gloo ranks."""
+    import torch
+
+    import xgboost_ray_tpu_torch as xrt
+    from xgboost_ray_tpu_torch import distributed as D
+    from xgboost_ray_tpu_torch import serve
+    from xgboost_ray_tpu_torch.distributed import _KeepEngine
+    from xgboost_ray_tpu_torch.engine import (
+        kernel_launches,
+        reset_kernel_launches,
+    )
+    from xgboost_ray_tpu_torch.ops import _build
+    from xgboost_ray_tpu_torch.ops import cox as CX
+    from xgboost_ray_tpu_torch.ops import grow as G
+    from xgboost_ray_tpu_torch.ops import metrics as M
+    from xgboost_ray_tpu_torch.ops import objectives as O
+    from xgboost_ray_tpu_torch.ops import predict as PR
+    from xgboost_ray_tpu_torch.ops import ranking as R
+    from xgboost_ray_tpu_torch.sklearn import RayXGBRanker
+
+    t_phase = time.perf_counter()
+    res = {"phase": "ranking"}
+    steps = res["step_s"] = {}
+
+    def lap(name, since):
+        steps[name] = time.perf_counter() - since
+        return time.perf_counter()
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+
+    # ---- path R: MSLR-WEB30K's shape ------------------------------------
+    t0 = time.perf_counter()
+    x, rel, qid = make_mslr_like(MSLR_QUERIES, MSLR_GROUP, MSLR_FEATURES, 0)
+    xt, relt, qidt = make_mslr_like(MSLR_TEST_QUERIES, MSLR_GROUP,
+                                    MSLR_FEATURES, 1)
+    sizes = np.bincount(qid)
+    res["mslr"] = {"docs": int(x.shape[0]), "queries": MSLR_QUERIES,
+                   "test_docs": int(xt.shape[0]),
+                   "test_queries": MSLR_TEST_QUERIES,
+                   "features": MSLR_FEATURES, "largest_query":
+                   int(sizes.max()), "mean_query": float(sizes.mean()),
+                   "data_s": time.perf_counter() - t0}
+
+    def train(params, dtrain, dtest, n_rounds, test_name="test"):
+        ev, extra = {}, {}
+        keep = _KeepEngine()
+        builds = _build.compile_count()
+        reset_kernel_launches()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        bst = xrt.train(params, dtrain, n_rounds,
+                        evals=[(dtrain, "train"), (dtest, test_name)],
+                        evals_result=ev, additional_results=extra,
+                        callbacks=[keep], device="cuda:0",
+                        ray_params=xrt.RayParams(num_actors=1))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches = kernel_launches()
+        check(_build.compile_count() == builds,
+              f"{params['objective']}: a kernel build inside train()")
+        return {"bst": bst, "ev": ev, "launches": launches, "wall_s": wall,
+                "setup_s": extra["setup_time_s"],
+                "round_ms": [r * 1e3 for r in extra["round_times_s"]],
+                "engine": keep.engine}
+
+    dtrain = xrt.RayDMatrix(x, rel, qid=qid)
+    dtest = xrt.RayDMatrix(xt, relt, qid=qidt)
+    rank_params = {"eval_metric": RANK_METRICS, "max_depth": depth,
+                   "eta": 0.1, "max_bin": 256}
+    runs = {}
+    for name in RANK_OBJECTIVES:
+        r = train({"objective": name, **rank_params}, dtrain, dtest, rounds)
+        expect = ranking_expect(rounds, depth)
+        check_launches(r["launches"], expect, f"{name} at MSLR's shape")
+        for s, ms in r["ev"].items():
+            for m, v in ms.items():
+                check(all(np.isfinite(v)) and all(0 <= u <= 1 for u in v),
+                      f"{name}: {s}-{m} not in [0, 1]: {v}")
+        res[name] = {"launches": r["launches"], "expected": expect,
+                     "history": r["ev"], "round_ms": r["round_ms"],
+                     "round_ms_median": float(np.median(r["round_ms"])),
+                     "setup_s": r["setup_s"], "train_wall_s": r["wall_s"]}
+        runs[name] = r
+    hist = runs["rank:ndcg"]["ev"]["test"]["ndcg@10"]
+    check(hist[-1] > hist[0], f"rank:ndcg: test ndcg@10 did not rise {hist}")
+    t0 = lap("data_and_trains", t_phase)
+
+    # B13 (both modes) and B9r (both metrics) against their plain versions
+    # on one round's inputs at full size
+    eng = runs["rank:ndcg"]["engine"]
+    m_now = eng.margins.view(-1)
+    lay = eng.groups
+    for key, name in (("B13", "rank:ndcg"), ("B13pair", "rank:pairwise")):
+        def kern(name=name):
+            return R.rank_grad_hess(m_now, eng.label, eng.weight, lay, name)
+
+        def plain(name=name):
+            return R.rank_grad_hess_plain(m_now, eng.label, eng.weight, lay,
+                                          name)
+        gk = kern()
+        gp, plain_ms = timed_once(plain)
+        check(torch.equal(bits(gk), bits(gp)),
+              f"{key}: gradients differ from the plain version's "
+              f"({float((gk - gp).abs().max())})")
+        check(torch.equal(bits(kern()), bits(gk)), f"{key}: a rerun differs")
+        nbytes = eng.n_rows * (3 * 4 + 8) + (lay.n_groups + 1) * 8
+        _kernel_record(records, key, kern, plain_ms,
+                       bound_ms(nbytes, R.pair_operations(
+                           lay, eng.label, name != "rank:pairwise")),
+                       flush, runs[name]["launches"]["B13"], 0.0, iters=5)
+        records[key].update(docs=eng.n_rows, queries=lay.n_groups,
+                            width=lay.width)
+    for key, kind in (("B9r", "ndcg"), ("B9rmap", "map")):
+        def kern(kind=kind):
+            return M.rank_metric_contrib(kind, m_now, eng.label, lay, 10)
+
+        def plain(kind=kind):
+            return M.rank_metric_plain(kind, m_now, eng.label, lay, 10)
+        ok = kern()
+        op, plain_ms = timed_once(plain)
+        check(torch.equal(ok.cpu(), op.cpu()),
+              f"{key}: ({ok.tolist()}) differs from the plain version "
+              f"({op.tolist()})")
+        _kernel_record(records, key, kern, plain_ms,
+                       bound_ms(eng.n_rows * 8 + lay.n_groups * 12,
+                                R.rank_metric_operations(lay, kind, 10)),
+                       flush, runs["rank:ndcg"]["launches"]["B9r"], 0.0,
+                       iters=5)
+        records[key].update(docs=eng.n_rows, queries=lay.n_groups)
+    # the edge cases, each mode and metric
+    eq, ecases = _rank_edge_sets()
+    elay = R.GroupLayout(torch.from_numpy(R.shard_group_offsets([eq])).cuda(),
+                         int(np.bincount(eq).max()))
+    edges = {}
+    for case, (m, y, w) in ecases.items():
+        mt, yt, wt = (torch.from_numpy(a).cuda() for a in (m, y, w))
+        for name in RANK_OBJECTIVES:
+            same = torch.equal(
+                bits(R.rank_grad_hess(mt, yt, wt, elay, name)),
+                bits(R.rank_grad_hess_plain(mt, yt, wt, elay, name)))
+            edges[f"{case}_{name}"] = same
+        for kind in ("ndcg", "map"):
+            for k in (None, 3):
+                edges[f"{case}_{kind}@{k}"] = torch.equal(
+                    M.rank_metric_contrib(kind, mt, yt, elay, k).cpu(),
+                    M.rank_metric_plain(kind, mt, yt, elay, k).cpu())
+    res["b13_b9r_edges"] = {"sizes": np.bincount(eq).tolist(), **edges}
+    check(all(edges.values()), f"B13 / B9r edge cases: {edges}")
+    t0 = lap("b13_b9r_holds", t0)
+
+    # K1 at F = 136 (level 7: 128 nodes, over the first 1,000,000 rows) and
+    # B4's 511-node heap against their plain versions once (K2 at 128 and K3
+    # at 256 nodes are held by the fixed-point CPU path's models below)
+    k1_rows = min(eng.n_rows, 1_000_000)
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    node = torch.randint(0, 128, (k1_rows,), generator=gen, device="cuda")
+    order = torch.sort(node, stable=True).indices.to(torch.int32)
+    seg = torch.cat([torch.zeros(1, device="cuda", dtype=torch.long),
+                     torch.cumsum(torch.bincount(node, minlength=128), 0)]
+                    ).to(torch.int32)
+    k1_err, _ = hold_k1(eng.bins[:k1_rows], eng.gh[0, :k1_rows].contiguous(),
+                        order, seg, 128, 257, eng.qscale[0], False,
+                        "F=136, 128 nodes")
+    es = [e for e in eng.evals if not e.is_train][0]
+    tree = eng.trees[-1]
+    b4k = G.predict_tree_binned(tree, es.bins, depth, 256)
+    b4p = G.predict_tree_binned_plain(tree, es.bins, depth, 256)
+    check(torch.equal(bits(b4k), bits(b4p)),
+          "B4 at depth 8 (511-node heap) differs from its plain version")
+    res["depth8_f136"] = {"k1_rows": k1_rows, "k1_level7_err": k1_err,
+                          "b4_bitwise": True,
+                          "bins_dtype": str(eng.bins.dtype)}
+    del node, order, seg
+    t0 = lap("k1_b4_holds", t0)
+
+    # predict() over the test rows (B8's margins: the ranking value is the
+    # margin) against the engine's test margins; a served probe
+    bst = runs["rank:ndcg"]["bst"]
+    reset_b8_counters()
+    t = time.perf_counter()
+    pred = xrt.predict(bst, xrt.RayDMatrix(xt),
+                       ray_params=xrt.RayParams(num_actors=1))
+    pwall = time.perf_counter() - t
+    b8n = PR.predict_margin.launches
+    diff = float(np.abs(pred - es.margins.cpu().numpy()[:, 0]).max())
+    check(diff <= 1e-3, f"rank:ndcg predict() is {diff} from the test "
+                        f"margins")
+    handle = serve.create_server(bst, max_batch=64, max_delay_ms=1.0)
+    try:
+        probe = _probe(handle, bst, xt[:37])
+    finally:
+        handle.shutdown()
+    check(all(probe.values()), f"served rank:ndcg probe: {probe}")
+    res["predict"] = {"rows": int(xt.shape[0]), "wall_s": pwall,
+                      "b8_launches": b8n, "max_diff_to_train_margins": diff,
+                      "probe": probe}
+    del eng, es, m_now, lay
+    runs = {k: {kk: vv for kk, vv in v.items() if kk != "engine"}
+            for k, v in runs.items()}
+    torch.cuda.empty_cache()
+
+    # RayXGBRanker over the same data: train()'s model and history
+    est = RayXGBRanker(n_estimators=rounds, max_depth=depth,
+                       objective="rank:ndcg", learning_rate=0.1, max_bin=256,
+                       eval_metric=RANK_METRICS, device="cuda:0")
+    reset_kernel_launches()
+    t = time.perf_counter()
+    est.fit(x, rel, qid=qid, eval_set=[(xt, relt)], eval_qid=[qidt])
+    fit_wall = time.perf_counter() - t
+    ref = runs["rank:ndcg"]
+    same_model = est.get_booster().get_dump() == ref["bst"].get_dump()
+    ev = est.evals_result()
+    same_hist = ev["validation_0"] == ref["ev"]["test"]
+    res["ranker"] = {"fit_wall_s": fit_wall, "model_equal": same_model,
+                     "history_equal": same_hist,
+                     "launches": kernel_launches()}
+    check(same_model and same_hist,
+          "RayXGBRanker's model or history differs from train()'s")
+    del est, dtrain, dtest
+    torch.cuda.empty_cache()
+    t0 = lap("predict_serve_ranker", t0)
+
+    # the card's models against the fixed-point CPU path's on a cut, both at
+    # num_actors=2 (two shards folded: each shard's queries its own groups),
+    # then 2 gloo ranks sharing the card against the same CPU run
+    cut = int(np.searchsorted(qid, cut_queries))
+    xc, rc, qc = x[:cut], rel[:cut], qid[:cut]
+    x_cox = x_higgs[:cox_cut]
+    lab_cox, _ = cox_labels(x_cox, y_higgs[:cox_cut])
+    cox_params = {"objective": "survival:cox", "eval_metric": ["cox-nloglik"],
+                  "max_depth": cox_depth, "max_bin": 256}
+    fixed, cpu2 = {}, {}
+    for name in RANK_OBJECTIVES + ("survival:cox",):
+        cox = name == "survival:cox"
+        params = cox_params if cox else {"objective": name, **rank_params}
+        got = {}
+        for device in ("cuda:0", "cpu"):
+            keep = _KeepEngine()
+            dm = (xrt.RayDMatrix(x_cox, lab_cox) if cox
+                  else xrt.RayDMatrix(xc, rc, qid=qc))
+            ev = {}
+            with _cpu_fixed_point(device == "cpu"):
+                b = xrt.train(params, dm, cut_rounds, device=device,
+                              callbacks=[keep], evals=[(dm, "train")],
+                              evals_result=ev,
+                              ray_params=xrt.RayParams(num_actors=2))
+            got[device] = (b.get_dump(), keep.engine.get_margins(), ev)
+        card, cpu = got["cuda:0"], got["cpu"]
+        fixed[name] = {"dump_equal": card[0] == cpu[0],
+                       "margins_bitwise": same_bits(card[1], cpu[1])}
+        if cox:
+            fixed[name]["history_equal"] = card[2] == cpu[2]
+        cpu2[name] = cpu
+    t0 = lap("cpu_fixed_point", t0)
+    res["cpu_fixed_point"] = {"queries": cut_queries, "docs": cut,
+                              "cox_rows": cox_cut, "rounds": cut_rounds,
+                              "num_actors": 2, **fixed}
+    check(all(v["dump_equal"] and v["margins_bitwise"]
+              for v in fixed.values()) and fixed["survival:cox"][
+                  "history_equal"],
+          f"the card's models are not the fixed-point CPU path's: {fixed}")
+
+    two = {}
+    t = time.perf_counter()
+    with D.World(2, "cuda", backend="gloo") as w:
+        for name in RANK_OBJECTIVES + ("survival:cox",):
+            if name == "survival:cox":
+                data = D.share({"x": x_cox, "label": lab_cox})
+                params = cox_params
+            else:
+                data = D.share({"x": xc, "label": rc, "qid": qc})
+                params = {"objective": name, **rank_params}
+            out = w.run(D._train_rank, data, params, cut_rounds,
+                        {"sharding": "INTERLEAVED"})
+            dump = xrt.RayXGBoostBooster.load_raw(out[0]["model"]).get_dump()
+            ref_dump, _, ref_ev = cpu2[name]
+            hist = out[0]["evals_result"]["train"]
+            rel_err = max(abs(a - b) / max(abs(b), 1e-30)
+                          for m in hist for a, b in zip(hist[m],
+                                                        ref_ev["train"][m]))
+            two[name] = {
+                "dump_equal": dump == ref_dump,
+                "history": hist, "history_rel_to_cpu": rel_err,
+                "launches_rank0": out[0]["launches"],
+                "allreduce_bytes_per_round": out[0]["additional_results"][
+                    "allreduce_bytes_per_round"]}
+            tol = 0.0 if name == "survival:cox" else 1e-9
+            check(two[name]["dump_equal"] and rel_err <= tol,
+                  f"{name} over 2 gloo ranks differs from the fixed-point "
+                  f"CPU path at num_actors=2: {two[name]}")
+    cox_gather = 4 * cox_cut // 2  # (n - 1) / n of the gathered margins
+    check(two["survival:cox"]["allreduce_bytes_per_round"] >= cox_gather,
+          "survival:cox over 2 ranks: no margin all-gather in the round's "
+          "bytes")
+    res["two_ranks"] = {"wall_s": time.perf_counter() - t, **two}
+    t0 = lap("two_ranks", t0)
+    del x, rel, qid, xt, relt, qidt, xc, rc, qc, runs
+    torch.cuda.empty_cache()
+
+    # ---- path C: survival:cox at the HIGGS shape and split ---------------
+    n = x_higgs.shape[0]
+    n_train = n - TEST_ROWS
+    t0 = time.perf_counter()
+    lab, shares = cox_labels(x_higgs, y_higgs)
+    res["cox"] = {"rows": n_train, "test_rows": TEST_ROWS,
+                  "labels_s": time.perf_counter() - t0, **shares}
+    ctrain = xrt.RayDMatrix(x_higgs[:n_train], lab[:n_train])
+    ctest = xrt.RayDMatrix(x_higgs[n_train:], lab[n_train:])
+    r = train({**cox_params, "max_depth": 6}, ctrain, ctest, rounds)
+    expect = cox_expect(rounds, 6)
+    check_launches(r["launches"], expect, "survival:cox at HIGGS shape")
+    for s, ms in r["ev"].items():
+        check(all(np.isfinite(ms["cox-nloglik"])),
+              f"survival:cox: {s} cox-nloglik not finite")
+    eng = r.pop("engine")
+    res["cox"].update(launches=r["launches"], expected=expect,
+                      history=r["ev"], round_ms=r["round_ms"],
+                      round_ms_median=float(np.median(r["round_ms"])),
+                      setup_s=r["setup_s"], train_wall_s=r["wall_s"])
+    cox = eng.cox
+    m_now = eng.margins.view(-1)
+
+    def kern():
+        return CX.cox_round(m_now, cox.label, cox.weight, cox.setup,
+                            with_metric=True)
+
+    def plain():
+        return CX.cox_round_plain(m_now, cox.label, cox.weight, cox.setup,
+                                  with_metric=True)
+    gk, sk = kern()
+    (gp, sp), plain_ms = timed_once(plain)
+    check(torch.equal(bits(gk), bits(gp)) and torch.equal(sk.cpu(), sp.cpu()),
+          f"B14: gradients or metric sums differ from the plain version's "
+          f"({float((gk - gp).abs().max())}, {sk.tolist()} {sp.tolist()})")
+    neg_t = -cox.label.abs()
+    _kernel_record(records, "B14", kern, plain_ms,
+                   bound_ms(CX.cox_round_bytes(n_train, n_train, True),
+                            60 * n_train),
+                   flush, r["launches"]["B14"], 0.0,
+                   library=cuda_ms(lambda: torch.sort(neg_t, stable=True),
+                                   iters=5, warmup=1), iters=5)
+    records["B14"].update(rows=n_train, setup_sort="torch.sort(stable)")
+    cedges = {}
+    for case, (m, lb, w) in _cox_edge_sets().items():
+        mt, lt, wt = (torch.from_numpy(a).cuda() for a in (m, lb, w))
+        su = CX.cox_setup(lt)
+        (a, sa), (b, sb) = (CX.cox_round(mt, lt, wt, su, with_metric=True),
+                            CX.cox_round_plain(mt, lt, wt, su,
+                                               with_metric=True))
+        cedges[case] = bool(torch.equal(bits(a), bits(b))
+                            and torch.equal(sa.cpu(), sb.cpu()))
+    res["b14_edges"] = cedges
+    check(all(cedges.values()), f"B14 edge cases: {cedges}")
+
+    # predict(): the hazard ratio exp(margin), B8's exp fused; C7: finite up
+    # to 88.72
+    bst = r["bst"]
+    xct = x_higgs[n_train:]
+    reset_b8_counters()
+    vals = xrt.predict(bst, xrt.RayDMatrix(xct),
+                       ray_params=xrt.RayParams(num_actors=1))
+    launches = dict(PR.predict_margin.launches_by_value_fn)
+    margins = bst.predict(xct, output_margin=True)
+    want = O.value_transform(torch.from_numpy(margins), "exp").numpy()
+    check(same_bits(vals, want) and np.isfinite(vals).all(),
+          "survival:cox predict(): values not exp of the margins")
+    fo = bst.device_forest(torch.device("cuda"))
+    big = torch.linspace(80.0, 89.0, 901, device="cuda")[:, None]
+    xb = torch.zeros((901, 28), device="cuda")
+    vb = PR.predict_margin(fo, xb, big, transform="survival:cox")[:, 0]
+    vpb = PR.predict_margin_plain(fo, xb, big, transform="survival:cox")[:, 0]
+    mb = PR.predict_margin(fo, xb, big)[:, 0]
+    finite = bool(torch.isfinite(vb[mb <= 88.72]).all())
+    above = bool(torch.isinf(vb[mb > 88.723]).all())
+    check(finite and above and torch.equal(bits(vb), bits(vpb)),
+          "B8's exp at margins 80 .. 89: not finite up to 88.72, inf above, "
+          "and bitwise its plain version")
+    res["cox_predict"] = {"b8_launches_by_value_fn": launches,
+                          "finite_to_88_72": finite, "inf_above": above}
+    del eng, cox, m_now, fo, ctrain, ctest
+    torch.cuda.empty_cache()
+    lap("cox_path", t0)
+    res["phase_s"] = time.perf_counter() - t_phase
+    emit(res)
+    return res
+
+
 def profiled_ms(fn, iters=10):
     """``device_ms`` where ``torch.profiler`` records the kernel, None where
     it records no device time (``PERF.md`` §7)."""
@@ -5203,6 +5741,28 @@ KERNELS = {
                   "test rows)", route="cuda",
                   source="xgboost_ray_tpu_torch/csrc/predict.cu",
                   replaces="xgboost_ray_tpu/models/booster.py:733"),
+    "B13": dict(name="B13 pairwise lambda gradients, rank:ndcg (|delta "
+                "NDCG| weights; MSLR shape: ~3.6M docs, 30,000 queries)",
+                route="cuda", source="xgboost_ray_tpu_torch/csrc/ranking.cu",
+                replaces="xgboost_ray_tpu/ops/ranking.py:81"),
+    "B13pair": dict(name="B13 pairwise lambda gradients, rank:pairwise "
+                    "(MSLR shape)", route="cuda",
+                    source="xgboost_ray_tpu_torch/csrc/ranking.cu",
+                    replaces="xgboost_ray_tpu/ops/ranking.py:46"),
+    "B9r": dict(name="B9r per-group ndcg@10, summed in f64 (MSLR training "
+                "groups; launches: both metrics, both sets of the rank:ndcg "
+                "run)", route="cuda",
+                source="xgboost_ray_tpu_torch/csrc/ranking.cu",
+                replaces="xgboost_ray_tpu/ops/metrics.py:183"),
+    "B9rmap": dict(name="B9r per-group map@10, summed in f64 (MSLR "
+                   "training groups; launches: as B9r's)", route="cuda",
+                   source="xgboost_ray_tpu_torch/csrc/ranking.cu",
+                   replaces="xgboost_ray_tpu/ops/metrics.py:183"),
+    "B14": dict(name="B14 survival:cox Breslow pass: scans, gradients, "
+                "cox-nloglik (10,500,000 HIGGS rows; launches: the training "
+                "and the test set's of the run)", route="cuda",
+                source="xgboost_ray_tpu_torch/csrc/cox.cu",
+                replaces="xgboost_ray_tpu/ops/objectives.py:399"),
     **{f"B8serve{m}": dict(
         name=f"B8 forest walk: margins, heap layout, a serve batch of {m} "
              f"rows (windows mapping; launches: every batch of the heap "
@@ -5318,6 +5878,12 @@ def run(args):
         emit({"objectives_kernels": {k: records[k]
                                      for k in OBJECTIVE_KERNELS}})
         return
+    if args.ranking_only:
+        records = {k: dict(v) for k, v in KERNELS.items()}
+        x, y = make_higgs_like(args.rows, 28, seed=0)
+        phase_ranking(x, y, records)
+        emit({"ranking_kernels": {k: records[k] for k in RANKING_KERNELS}})
+        return
     if args.facade_only:
         records = {k: dict(v) for k, v in KERNELS.items()}
         x, y = make_higgs_like(args.rows, 28, seed=0)
@@ -5364,6 +5930,8 @@ def run(args):
     torch.cuda.empty_cache()
     results["objectives"] = phase_objectives(
         x, y, records, compare_rows=min(args.compare_rows, args.rows))
+    torch.cuda.empty_cache()
+    results["ranking"] = phase_ranking(x, y, records)
     torch.cuda.empty_cache()
 
     if args.rows < 11_000_000:
@@ -5502,6 +6070,10 @@ def main():
                     help="only the build and phase 13 (every row-elementwise "
                          "objective, the AFT pass and the AUC metrics at the "
                          "HIGGS shape); prints no result line")
+    ap.add_argument("--ranking-only", action="store_true",
+                    help="only the build and phase 14 (learning to rank at "
+                         "MSLR-WEB30K's shape and survival:cox at the HIGGS "
+                         "shape); prints no result line")
     ap.add_argument("--facade-only", action="store_true",
                     help="only the build and phase 10 (the sklearn "
                          "estimators, custom objectives and metrics, files, "

@@ -47,7 +47,13 @@ tables refuses the two mappings it cannot take; reruns are
 bitwise, a row's result does not depend on the other rows of its launch or
 on the mapping its batch size picks, each call is one launch (counted by
 mode and mapping), and the booster's and the server's contributions on the
-card equal each other bit for bit.
+card equal each other bit for bit. B13 (both modes), B9r (ndcg / map, with
+and without @k) and B14 give their plain versions' values bit for bit
+(queries of 1 to 2,100 documents, above the shared staging too, tied
+scores, equal labels, zero weights; Cox's scans at the 16-block edges,
+all censored, a rank's slice; a NaN equal to any NaN, where a zero-weight
+latest risk set makes every gradient NaN as in the reference), and B8's
+exp transform is finite up to a margin of 88.72 (C7).
 """
 
 import numpy as np
@@ -749,10 +755,11 @@ def test_gloo_world_on_one_card_equals_one_rank(cuda):
     import xgboost_ray_tpu_torch as tx
 
     # each rank's kernels, counted from 0 just before its train(): the
-    # main path's launches (depth 6, 5 rounds; K3 chose from merged counts)
+    # main path's launches (depth 6, 5 rounds; K3 chose from merged counts;
+    # no ranking or Cox kernel)
     expect = {"K1": 35, "K1deq": 35, "K2": 0, "K2level": 30, "K2leaf": 5,
               "K3": 30, "K3leaf": 5, "K4": 6, "B4": 0, "K4eval": 0,
-              "SMX": 0, "SMXeval": 0, "B9a": 0}
+              "SMX": 0, "SMXeval": 0, "B9a": 0, "B13": 0, "B9r": 0, "B14": 0}
     # int64 histograms and totals, int64 child counts, the f32 MAX of
     # (max|g|, max|h|) for the round's scales, the four f64 metric sums
     hist_cells = 10 * 257 * 2 * (1 + sum(1 << (d - 1) for d in range(1, 6)))
@@ -1006,7 +1013,7 @@ def test_predict_wrappers_reject_bad_inputs(cuda):
     assert probs.shape == (50, 7)
     assert _same_bits(probs, to.softmax_transform_plain(margins.cpu(), True))
     with pytest.raises(NotImplementedError):  # an objective outside the port
-        tp.predict_margin(pk, x, transform="rank:pairwise")
+        tp.predict_margin(pk, x, transform="reg:nope")
     with pytest.raises(NotImplementedError):  # a transform of K = 3
         tp.predict_margin(pk, x, torch.zeros(50, 3, device=cuda),
                           num_outputs=3, transform=LOGISTIC)
@@ -1855,3 +1862,149 @@ def test_predict_value_transforms_bitwise(cuda, monkeypatch, objective, k):
                                     transform=objective)
             torch.cuda.synchronize()
             assert _same_nan(got.cpu(), ref), (objective, layout, mapping)
+
+
+# --------------------------------------------------------------------------
+# ranking (B13, B9r), survival:cox (B14) and the exp up to 88.72 (C7)
+# --------------------------------------------------------------------------
+
+RANK_SIZES = {
+    "small": [1, 2, 3, 5, 8, 13, 21, 34, 70],
+    "staging_edge": [2048, 1, 2049, 40],
+    "large": [1300, 2100, 7, 33],
+}
+
+
+def _rank_case(case, ties=False, equal_labels=False, seed=0):
+    from xgboost_ray_tpu_torch.ops import ranking as tr
+
+    rng = np.random.default_rng(seed)
+    sizes = RANK_SIZES[case]
+    qid = np.repeat(np.arange(len(sizes)), sizes)
+    n = qid.size
+    m = np.zeros(n, np.float32) if ties else rng.standard_normal(n).astype(
+        np.float32)
+    y = (np.full(n, 2.0, np.float32) if equal_labels
+         else rng.integers(0, 5, n).astype(np.float32))
+    w = rng.uniform(0.5, 2.0, n).astype(np.float32)
+    w[::11] = 0.0
+    lay = tr.GroupLayout(torch.from_numpy(tr.shard_group_offsets([qid])),
+                         max(sizes))
+    return lay, [torch.from_numpy(a) for a in (m, y, w)]
+
+
+@pytest.mark.parametrize("case", list(RANK_SIZES))
+@pytest.mark.parametrize("variant", ["random", "ties", "equal_labels"])
+def test_rank_kernels_bitwise_plain(cuda, case, variant):
+    """B13 in both modes and B9r (ndcg / map, with and without @k) bitwise
+    their plain versions: groups of 1 document to 2,100 (above the shared
+    staging of 2,048), round 0's tied scores, all labels equal, zero
+    weights; one launch a call; reruns bitwise."""
+    from xgboost_ray_tpu_torch.ops import metrics as tm
+    from xgboost_ray_tpu_torch.ops import ranking as tr
+
+    lay, (m, y, w) = _rank_case(case, variant == "ties",
+                                variant == "equal_labels")
+    layk = tr.GroupLayout(lay.offsets.to(cuda), lay.width)
+    mk, yk, wk = (t.to(cuda) for t in (m, y, w))
+    for name in tr.RANKING_OBJECTIVES:
+        before = tr.rank_grad_hess.launches
+        got = tr.rank_grad_hess(mk, yk, wk, layk, name)
+        assert tr.rank_grad_hess.launches == before + 1
+        ref = tr.rank_grad_hess_plain(m, y, w, lay, name)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu().view(torch.int32),
+                           ref.view(torch.int32)), (case, variant, name)
+        assert torch.equal(tr.rank_grad_hess(mk, yk, wk, layk, name), got)
+    for kind in ("ndcg", "map"):
+        for k in (None, 1, 10):
+            got = tm.rank_metric_contrib(kind, mk, yk, layk, k)
+            ref = tm.rank_metric_plain(kind, m, y, lay, k)
+            assert torch.equal(got.cpu(), ref), (case, variant, kind, k)
+
+
+def test_rank_kernels_reject_bad_inputs(cuda):
+    from xgboost_ray_tpu_torch.ops import metrics as tm
+    from xgboost_ray_tpu_torch.ops import ranking as tr
+
+    lay, (m, y, w) = _rank_case("small")
+    layk = tr.GroupLayout(lay.offsets.to(cuda), lay.width)
+    mk, yk, wk = (t.to(cuda) for t in (m, y, w))
+    with pytest.raises(ValueError):  # offsets on the CPU
+        tr.rank_grad_hess(mk, yk, wk, lay, "rank:ndcg")
+    with pytest.raises(ValueError):  # f64 margins
+        tr.rank_grad_hess(mk.double(), yk, wk, layk, "rank:ndcg")
+    with pytest.raises(ValueError):
+        tr.rank_grad_hess(mk, yk, wk, layk, "rank:nope")
+    with pytest.raises(ValueError):
+        tm.rank_metric_contrib("pre", mk, yk, layk)
+
+
+def _cox_case(n, seed, censored=False, zero_last=False):
+    rng = np.random.default_rng(seed)
+    t = (np.round(rng.exponential(2.0, n) * 4) / 4 + 0.25).astype(np.float32)
+    m = rng.standard_normal(n).astype(np.float32)
+    w = rng.uniform(0.5, 2.0, n).astype(np.float32)
+    w[::7] = 0.0
+    m[::7] = 60.0  # w = 0 rows hold the largest margin
+    # the latest time's risk set weighted (zero_last: of weight 0, whose D
+    # is 0 and makes every gradient NaN, as in the reference)
+    w[t == t.max()] = 0.0 if zero_last else 1.0
+    lab = -t if censored else np.where(rng.uniform(size=n) < 0.3, -t, t)
+    return [torch.from_numpy(np.asarray(a, np.float32)) for a in (m, lab, w)]
+
+
+@pytest.mark.parametrize("n,censored,zero_last", [
+    (1, False, False), (16, False, False), (17, False, False),
+    (4099, False, False), (70_001, False, False), (5000, True, False),
+    (300, False, True)])
+def test_cox_kernel_bitwise_plain(cuda, n, censored, zero_last):
+    """B14's gradients of this rank's rows and the cox-nloglik sums bitwise
+    its plain version's (a NaN equal to any NaN: the payloads differ
+    between CPU and card): scan lengths at the 16-block edges, ties in time,
+    every row censored, w = 0 rows holding the largest margin, a
+    zero-weight latest risk set, a rank's slice of the rows; one call
+    counted a round."""
+    from xgboost_ray_tpu_torch.ops import cox as tc
+
+    m, lab, w = _cox_case(n, n, censored, zero_last)
+    mk, lk, wk = (t.to(cuda) for t in (m, lab, w))
+    su, suk = tc.cox_setup(lab), tc.cox_setup(lk)
+    for off, nl in ((0, n), (n // 3, n - n // 3)):
+        before = tc.cox_round.launches
+        gk, sk = tc.cox_round(mk, lk, wk, suk, off, nl, with_metric=True)
+        assert tc.cox_round.launches == before + 1
+        gp, sp = tc.cox_round_plain(m, lab, w, su, off, nl, with_metric=True)
+        torch.cuda.synchronize()
+        assert _same_nan(gk.cpu(), gp)
+        assert torch.equal(sk.cpu(), sp) or bool(
+            torch.isnan(sk).any() and torch.isnan(sp).any()), (sk, sp)
+        assert bool(torch.isnan(gp).all()) == zero_last
+    gk2, none = tc.cox_round(mk, lk, wk, suk)
+    assert none is None
+    assert torch.equal(gk2.view(torch.int32),
+                       tc.cox_round(mk, lk, wk, suk)[0].view(torch.int32))
+
+
+def test_exp_transform_above_the_old_clamp(cuda):
+    """C7: B8's exp (and K4's, through count:poisson's predictions) at
+    margins 80 .. 89 in steps of 0.01, +-inf and NaN: bitwise the plain
+    version, finite up to 88.72 and inf above."""
+    from xgboost_ray_tpu_torch.ops import objectives as tob
+
+    rng = np.random.default_rng(3)
+    f, depth = 5, 2
+    fo = _forest(rng, 3, depth, f)
+    fo.value[:] = 0.0
+    m = np.concatenate([np.arange(8000, 8901) / 100.0,
+                        [np.inf, -np.inf, np.nan]]).astype(np.float32)
+    x = torch.from_numpy(_rows(rng, m.size, f))
+    base = torch.from_numpy(m[:, None].copy())
+    pk = _pf(fo, depth, "heap", f, (), cuda)
+    got = tp.predict_margin(pk, x.to(cuda), base.to(cuda),
+                            transform="survival:cox")[:, 0].cpu()
+    ref = tob.value_transform(torch.from_numpy(m), "exp")
+    assert _same_nan(got, ref)
+    finite = torch.from_numpy(m) <= 88.72
+    assert torch.isfinite(got[finite]).all()
+    assert torch.isinf(got[torch.from_numpy(m) > 88.73]).all()

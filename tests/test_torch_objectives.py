@@ -93,5 +93,16 @@ def test_objective_envelopes():
             if name == "binary:logistic" and s >= 1:
                 continue
             assert t.base_score_to_margin(s) == j.base_score_to_margin(s)
-    with pytest.raises(NotImplementedError, match="rank:pairwise"):
-        to.get_objective("rank:pairwise")
+    # ranking and survival:cox train now: their envelopes are the JAX
+    # package's; an objective outside the port still raises
+    from xgboost_ray_tpu.ops.ranking import get_ranking_objective
+
+    for name in ("rank:pairwise", "rank:ndcg", "rank:map", "survival:cox"):
+        j = (get_ranking_objective(name) if name.startswith("rank:")
+             else jo.get_objective(name))
+        t = to.get_objective(name)
+        assert t.default_metric == j.default_metric, name
+        for s in (0.5, 0.2, 0.93, 1.7, 1e-20):
+            assert t.base_score_to_margin(s) == j.base_score_to_margin(s)
+    with pytest.raises(NotImplementedError, match="rank:nope"):
+        to.get_objective("rank:nope")

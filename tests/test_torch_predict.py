@@ -375,8 +375,10 @@ def _same(a, b):
 def test_plain_transform_is_the_sigmoid_bitwise():
     """The value mode's plain version: the objective's transform of the
     margins, bitwise ops/objectives.sigmoid and jax.nn.sigmoid, at NaN,
-    +-inf, +-88.4, results that flush to zero and random margins."""
-    from xgboost_ray_tpu_torch.ops.objectives import sigmoid
+    +-inf, +-88.4, results that flush to zero and random margins; ranking's
+    values are the margins, survival:cox's exp(m) bitwise jnp.exp (a
+    subnormal flushed)."""
+    from xgboost_ray_tpu_torch.ops.objectives import sigmoid, value_transform
 
     rng = np.random.default_rng(9)
     special = np.array([np.nan, np.inf, -np.inf, 88.4, -88.4, 88.38, -88.38,
@@ -404,9 +406,18 @@ def test_plain_transform_is_the_sigmoid_bitwise():
         assert _same(ident.numpy(), margin.numpy())
     flushed = got[np.isin(m, [-87.4, -103.0])]
     assert (flushed == 0).all() and not np.signbit(flushed).any()
-    with pytest.raises(NotImplementedError, match="A10"):
-        tp.predict_margin(pf, torch.from_numpy(x), transform="rank:pairwise")
-    with pytest.raises(NotImplementedError, match="A10"):
+    # ranking predicts its margins, survival:cox the hazard ratio exp(m)
+    rank = tp.predict_margin(pf, torch.from_numpy(x), base,
+                             transform="rank:pairwise")
+    assert _same(rank.numpy(), margin.numpy())
+    cox = tp.predict_margin(pf, torch.from_numpy(x), base,
+                            transform="survival:cox")
+    want = value_transform(margin[:, 0], "exp").numpy()
+    assert _same(cox.numpy()[:, 0], want)
+    ref = np.asarray(jax.jit(jnp.exp)(jnp.asarray(margin.numpy()[:, 0])))
+    ref = np.where(np.abs(ref) < np.finfo(np.float32).tiny, 0.0 * ref, ref)
+    assert _same(want, ref.astype(np.float32))
+    with pytest.raises(NotImplementedError, match="transforms one output"):
         tp.predict_margin(pf, torch.from_numpy(x), num_outputs=3,
                           transform="binary:logistic")
 

@@ -310,10 +310,12 @@ def test_feature_weights_and_ranker_raise():
             x, y, feature_weights=np.ones(x.shape[1]))
     ranker = ts.RayXGBRanker(n_estimators=2, device="cpu")
     assert ranker._default_objective == js.RayXGBRanker._default_objective
-    with pytest.raises(NotImplementedError, match="qid"):
-        ranker.fit(x, y, qid=np.zeros(len(y)))
-    with pytest.raises(NotImplementedError, match="objective"):
-        ranker.fit(x, y, qid=np.zeros(len(y)))
+    # the ranker trains now; it needs qid and a rank:* objective
+    with pytest.raises(ValueError, match="qid"):
+        ranker.fit(x, y)
+    with pytest.raises(ValueError, match="rank:"):
+        ts.RayXGBRanker(n_estimators=2, objective="binary:logistic",
+                        device="cpu").fit(x, y, qid=np.zeros(len(y)))
 
 
 def test_rf_defaults_are_the_jax_modules():

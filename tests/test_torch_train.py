@@ -157,9 +157,9 @@ def test_train_without_cuda_raises():
     ("booster", "gblinear"),
     ("monotone_constraints", "(1,0,0)"),
     ("interaction_constraints", [[0, 1]]),
-    ("objective", "rank:pairwise"),
-    ("objective", "survival:cox"),
-    ("eval_metric", "ndcg"),
+    ("objective", "reg:nope"),
+    ("eval_metric", "pre"),
+    ("eval_metric", ["error@0.3", "error@0.7"]),
     ("num_parallel_tree", 2),
     ("feature_parallel", 2),
 ])
@@ -176,7 +176,8 @@ def test_out_of_slice_data_and_evals_raise():
     x = np.random.default_rng(0).standard_normal((50, 3)).astype(np.float32)
     y = (x[:, 0] > 0).astype(np.float32)
     for kwargs, key in ((dict(stream=True), "stream"),
-                        (dict(qid=np.zeros(50)), "qid"),
+                        (dict(qid=np.zeros(50), weight=np.ones(50)),
+                         "per-group weight"),
                         (dict(feature_types=["c", "q", "q"]), "categorical"),
                         (dict(feature_weights=np.ones(3)), "feature_weights")):
         with pytest.raises(NotImplementedError, match=key):

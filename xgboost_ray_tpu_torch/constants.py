@@ -10,6 +10,7 @@ SHARD_COLUMN_FILLS = {
     "base_margin": 0.0,
     "label_lower_bound": 0.0,
     "label_upper_bound": float("inf"),
+    "qid": 0,
 }
 
 #: the objectives the port trains (``ops/objectives.OBJECTIVES``), the
@@ -19,10 +20,12 @@ SUPPORTED_OBJECTIVES = (
     "reg:squarederror", "reg:linear", "reg:absoluteerror",
     "reg:pseudohubererror", "reg:squaredlogerror", "count:poisson",
     "reg:gamma", "reg:tweedie", "binary:hinge", "reg:quantileerror",
-    "survival:aft", "multi:softprob", "multi:softmax")
+    "survival:aft", "multi:softprob", "multi:softmax", "rank:pairwise",
+    "rank:ndcg", "rank:map", "survival:cox")
 SUPPORTED_METRICS = ("logloss", "error", "rmse", "mae", "rmsle", "mphe",
                      "mape", "poisson-nloglik", "quantile", "aft-nloglik",
-                     "auc", "aucpr", "auc_exact", "mlogloss", "merror")
+                     "auc", "aucpr", "auc_exact", "mlogloss", "merror",
+                     "ndcg", "map", "cox-nloglik")
 HIST_IMPLS = ("auto", "scatter", "onehot", "partition", "mixed")
 
 __all__ = [

@@ -28,9 +28,7 @@
 // compare-and-swap loop on sm_90 (ATOMS.CAST.SPIN.64), and scores that
 // crowd into few bins serialise on them: a simple kernel, right first.
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "common.cuh"
 
 constexpr int kThreads = 512;
 constexpr int kCtasPerSm = 2;  // ops/metrics.AUC_CTAS_PER_SM
@@ -50,28 +48,6 @@ struct XrtAucArgs {
 };
 
 constexpr float kTiny = 1.17549435e-38f;
-
-__device__ __forceinline__ float xrt_max_nan(float a, float b) {
-  return a != a ? a : (b != b ? b : fmaxf(a, b));
-}
-
-// ops/objectives.exp_f32, as K4's.
-__device__ __forceinline__ float xrt_exp_f32(float v) {
-  const float xc =
-      v != v ? v : fminf(fmaxf(v, -88.3762626647949f), 88.3762626647950f);
-  const float fx = floorf(__fmaf_rn(xc, 1.44269504088896341f, 0.5f));
-  float x = __fmaf_rn(fx, -0.693359375f, xc);
-  x = __fmaf_rn(fx, 2.12194440e-4f, x);
-  const float z = __fmul_rn(x, x);
-  float y = __fmaf_rn(x, 1.9875691500e-4f, 1.3981999507e-3f);
-  y = __fmaf_rn(y, x, 8.3334519073e-3f);
-  y = __fmaf_rn(y, x, 4.1665795894e-2f);
-  y = __fmaf_rn(y, x, 1.6666665459e-1f);
-  y = __fmaf_rn(y, x, 5.0000001201e-1f);
-  y = __fadd_rn(1.0f, __fmaf_rn(y, z, x));
-  const unsigned bits = (unsigned)((int)fx + 127) << 23;
-  return xrt_max_nan(__fmul_rn(y, __int_as_float((int)bits)), v);
-}
 
 // ops/metrics.auc_bins of one score.
 __device__ __forceinline__ int xrt_auc_bin(float s) {

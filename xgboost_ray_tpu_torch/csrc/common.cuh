@@ -1,8 +1,11 @@
 // Shared device helpers for the hand-written Hopper kernels of
-// xgboost_ray_tpu_torch (block scans and reductions over 256-thread CTAs).
+// xgboost_ray_tpu_torch: block scans and reductions over 256-thread CTAs,
+// XLA's float32 exp and log as the plain versions evaluate them, and the
+// window-32 sum tree of ops/split.tree_sum.
 #pragma once
 
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 #define XRT_THREADS 256
@@ -87,4 +90,154 @@ __device__ __forceinline__ void xrt_block_excl_scan2(float g, float h,
   *eg = lane > 0 ? pg + ig : pg;
   *eh = lane > 0 ? ph + ih : ph;
   __syncthreads();
+}
+
+// ---------------------------------------------------------------------------
+// XLA's float32 transcendentals (ops/objectives.exp_f32 / log_f32). Every
+// source is compiled with --fmad=false: a multiply-add fuses only where
+// __fmaf_rn stands, as XLA's CPU program fuses it.
+// ---------------------------------------------------------------------------
+
+constexpr float kXrtTiny = 1.17549435e-38f;  // smallest normal float
+
+// a subnormal flushed to a zero of its sign, as XLA's CPU program flushes
+__device__ __forceinline__ float xrt_ftz(float x) {
+  return fabsf(x) < kXrtTiny ? x * 0.0f : x;
+}
+
+// torch.maximum / torch.clamp(min=): NaN if either is NaN
+__device__ __forceinline__ float xrt_max_nan(float a, float b) {
+  return a != a ? a : (b != b ? b : fmaxf(a, b));
+}
+
+// ops/objectives.exp_f32, XLA's CPU exp: the operand clamped to
+// [-87.8, 88.8] (NaN stays NaN), Cephes' range reduction with the
+// exponent clamped to [-127, 127], the degree-5 polynomial with every
+// multiply-add fused, the scale 2^fx from the exponent bits. Finite up to
+// 88.72 (2^127 times a polynomial below 2), inf above; a result below
+// 2^-126 is subnormal or zero (the callers flush it where XLA does).
+__device__ __forceinline__ float xrt_exp_f32(float v) {
+  if (v != v) return v;
+  const float xc = fminf(fmaxf(v, -87.8f), 88.8f);
+  float fx = floorf(__fmaf_rn(xc, 1.44269504088896341f, 0.5f));
+  fx = fminf(fmaxf(fx, -127.0f), 127.0f);
+  float x = __fmaf_rn(fx, -0.693359375f, xc);
+  x = __fmaf_rn(fx, 2.12194440e-4f, x);
+  const float z = __fmul_rn(x, x);
+  float y = __fmaf_rn(x, 1.9875691500e-4f, 1.3981999507e-3f);
+  y = __fmaf_rn(y, x, 8.3334519073e-3f);
+  y = __fmaf_rn(y, x, 4.1665795894e-2f);
+  y = __fmaf_rn(y, x, 1.6666665459e-1f);
+  y = __fmaf_rn(y, x, 5.0000001201e-1f);
+  y = __fadd_rn(1.0f, __fmaf_rn(y, z, x));
+  return __fmul_rn(y, __int_as_float(((int)fx + 127) << 23));
+}
+
+// ops/objectives.log_f32: XLA's float32 log (Cephes), DAZ.
+__device__ __forceinline__ float xrt_log_f32(float v) {
+  v = xrt_ftz(v);
+  const float xm = v > kXrtTiny ? v : kXrtTiny;
+  const int b = __float_as_int(xm);
+  float e = __fadd_rn((float)((b >> 23) - 127), 1.0f);
+  const float mant = __int_as_float((b & 0x007FFFFF) | 0x3F000000);
+  const bool small = mant < 0.7071067690849304f;
+  float x = __fadd_rn(__fsub_rn(mant, 1.0f), small ? mant : 0.0f);
+  e = __fsub_rn(e, small ? 1.0f : 0.0f);
+  const float x2 = __fmul_rn(x, x);
+  const float x3 = __fmul_rn(x2, x);
+  float y = __fmaf_rn(x, 0.07037683576345444f, -0.11514610052108765f);
+  float y1 = __fmaf_rn(x, -0.12420140951871872f, 0.14249323308467865f);
+  float y2 = __fmaf_rn(x, 0.2000071406364441f, -0.24999994039535522f);
+  y = __fmaf_rn(y, x, 0.11676998436450958f);
+  y1 = __fmaf_rn(y1, x, -0.16668057441711426f);
+  y2 = __fmaf_rn(y2, x, 0.3333333134651184f);
+  y = __fmaf_rn(y, x3, y1);
+  y = __fmaf_rn(y, x3, y2);
+  y = __fmaf_rn(y, x3, __fmul_rn(e, -0.00021219444170128554f));
+  x = __fadd_rn(__fmaf_rn(x2, -0.5f, x), y);
+  float r = __fmaf_rn(e, 0.693359375f, x);
+  r = v > 0.0f ? r : __int_as_float(0x7fc00000);
+  r = v == 0.0f ? -INFINITY : r;
+  return v == INFINITY ? v : r;
+}
+
+// ---------------------------------------------------------------------------
+// The window-32 sum tree of ops/split.tree_sum (the order of XLA's CPU
+// reduce over more than 32 values), fed one value at a time by one thread:
+// m values are padded with zeros to whole windows of 32, (padded - m) / 2
+// of them in front; each window is summed in order (its first value
+// assigned, the others added), then the window sums the same way while
+// there are more than 32 of them, then the last level in order.
+// ---------------------------------------------------------------------------
+
+#define XRT_TREE_LEVELS 6  // windowed levels: m up to 2^30
+
+struct XrtTreeShape {
+  int levels;                     // windowed levels (0: m <= 32)
+  int width[XRT_TREE_LEVELS + 1];  // values at each level (width[0] = m)
+  int front[XRT_TREE_LEVELS];     // zeros in front at each windowed level
+};
+
+__host__ __device__ __forceinline__ XrtTreeShape xrt_tree_shape(int m) {
+  XrtTreeShape t;
+  t.levels = 0;
+  t.width[0] = m;
+  while (m > 32 && t.levels < XRT_TREE_LEVELS) {
+    const int nw = (m + 31) / 32;
+    t.front[t.levels] = (nw * 32 - m) / 2;
+    m = nw;
+    t.width[++t.levels] = m;
+  }
+  return t;
+}
+
+struct XrtTreeAcc {
+  float acc[XRT_TREE_LEVELS + 1];
+  int cnt[XRT_TREE_LEVELS + 1];  // values taken at each level, padding too
+};
+
+// add v at level l (a window that fills goes up)
+__device__ __forceinline__ void xrt_tree_push(XrtTreeAcc& t,
+                                              const XrtTreeShape& s, int l,
+                                              float v) {
+  while (true) {
+    t.acc[l] = (t.cnt[l] % 32 == 0) ? v : __fadd_rn(t.acc[l], v);
+    ++t.cnt[l];
+    if (l == s.levels || t.cnt[l] % 32 != 0) return;
+    v = t.acc[l];
+    ++l;
+  }
+}
+
+__device__ __forceinline__ void xrt_tree_init(XrtTreeAcc& t,
+                                              const XrtTreeShape& s) {
+  for (int l = 0; l <= s.levels; ++l) {
+    t.acc[l] = 0.0f;
+    t.cnt[l] = 0;
+  }
+  for (int l = 0; l < s.levels; ++l)
+    for (int i = 0; i < s.front[l]; ++i) xrt_tree_push(t, s, l, 0.0f);
+}
+
+// the sum, once the values fed are followed by zeros up to m: a partial
+// window adds a zero once (the rest add nothing), then the windows of
+// zeros go up one by one
+__device__ __forceinline__ float xrt_tree_finish(XrtTreeAcc& t,
+                                                 const XrtTreeShape& s) {
+  for (int l = 0; l < s.levels; ++l) {
+    const int total = 32 * s.width[l + 1];
+    if (t.cnt[l] % 32 != 0) {
+      t.acc[l] = __fadd_rn(t.acc[l], 0.0f);
+      t.cnt[l] += 32 - t.cnt[l] % 32;
+      xrt_tree_push(t, s, l + 1, t.acc[l]);
+    }
+    while (t.cnt[l] < total) {
+      t.cnt[l] += 32;
+      xrt_tree_push(t, s, l + 1, 0.0f);
+    }
+  }
+  const int top = s.levels;
+  if (t.cnt[top] == 0) return 0.0f;
+  if (t.cnt[top] < s.width[top]) return __fadd_rn(t.acc[top], 0.0f);
+  return t.acc[top];
 }

@@ -87,9 +87,7 @@
 // ticket's and the partials' round trips to L2) and the launch's ramp:
 // PERF.md.
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "common.cuh"
 
 constexpr int kThreads = 512;
 constexpr int kTileRows = kThreads * 4;  // ops/objectives.K4_TILE_ROWS
@@ -154,72 +152,14 @@ constexpr float kTiny = 1.17549435e-38f;  // smallest normal float
 // the least float32 margin m with sigmoid(m) > 0.5 (0x33c00001)
 constexpr float kHalfMargin = 8.9406974e-08f;
 
-// a subnormal flushed to a zero of its sign, as XLA's CPU program flushes
-__device__ __forceinline__ float xrt_ftz(float x) {
-  return fabsf(x) < kTiny ? x * 0.0f : x;
-}
-
-// torch.maximum / torch.clamp(min=): NaN if either is NaN
-__device__ __forceinline__ float xrt_max_nan(float a, float b) {
-  return a != a ? a : (b != b ? b : fmaxf(a, b));
-}
-
 __device__ __forceinline__ float xrt_min_nan(float a, float b) {
   return a != a ? a : (b != b ? b : fminf(a, b));
-}
-
-// ops/objectives.exp_f32: the clamp (NaN stays NaN), Cephes' range
-// reduction and degree-5 polynomial with every multiply-add fused, the
-// scale 2^fx from the exponent bits, then torch.maximum(y * 2^fx, v).
-__device__ __forceinline__ float xrt_exp_f32(float v) {
-  const float xc =
-      v != v ? v : fminf(fmaxf(v, -88.3762626647949f), 88.3762626647950f);
-  const float fx = floorf(__fmaf_rn(xc, 1.44269504088896341f, 0.5f));
-  float x = __fmaf_rn(fx, -0.693359375f, xc);
-  x = __fmaf_rn(fx, 2.12194440e-4f, x);
-  const float z = __fmul_rn(x, x);
-  float y = __fmaf_rn(x, 1.9875691500e-4f, 1.3981999507e-3f);
-  y = __fmaf_rn(y, x, 8.3334519073e-3f);
-  y = __fmaf_rn(y, x, 4.1665795894e-2f);
-  y = __fmaf_rn(y, x, 1.6666665459e-1f);
-  y = __fmaf_rn(y, x, 5.0000001201e-1f);
-  y = __fadd_rn(1.0f, __fmaf_rn(y, z, x));
-  const unsigned bits = (unsigned)((int)fx + 127) << 23;
-  return xrt_max_nan(__fmul_rn(y, __int_as_float((int)bits)), v);
 }
 
 // ops/objectives.sigmoid: 1 / (1 + exp_f32(-m)), flushed below 2^-126.
 __device__ __forceinline__ float xrt_sigmoid(float m) {
   const float p = __fdiv_rn(1.0f, __fadd_rn(1.0f, xrt_exp_f32(-m)));
   return p < kTiny ? 0.0f : p;
-}
-
-// ops/objectives.log_f32: XLA's float32 log (Cephes), DAZ.
-__device__ __forceinline__ float xrt_log_f32(float v) {
-  v = xrt_ftz(v);
-  const float xm = v > kTiny ? v : kTiny;
-  const int b = __float_as_int(xm);
-  float e = __fadd_rn((float)((b >> 23) - 127), 1.0f);
-  const float mant = __int_as_float((b & 0x007FFFFF) | 0x3F000000);
-  const bool small = mant < 0.7071067690849304f;
-  float x = __fadd_rn(__fsub_rn(mant, 1.0f), small ? mant : 0.0f);
-  e = __fsub_rn(e, small ? 1.0f : 0.0f);
-  const float x2 = __fmul_rn(x, x);
-  const float x3 = __fmul_rn(x2, x);
-  float y = __fmaf_rn(x, 0.07037683576345444f, -0.11514610052108765f);
-  float y1 = __fmaf_rn(x, -0.12420140951871872f, 0.14249323308467865f);
-  float y2 = __fmaf_rn(x, 0.2000071406364441f, -0.24999994039535522f);
-  y = __fmaf_rn(y, x, 0.11676998436450958f);
-  y1 = __fmaf_rn(y1, x, -0.16668057441711426f);
-  y2 = __fmaf_rn(y2, x, 0.3333333134651184f);
-  y = __fmaf_rn(y, x3, y1);
-  y = __fmaf_rn(y, x3, y2);
-  y = __fmaf_rn(y, x3, __fmul_rn(e, -0.00021219444170128554f));
-  x = __fadd_rn(__fmaf_rn(x2, -0.5f, x), y);
-  float r = __fmaf_rn(e, 0.693359375f, x);
-  r = v > 0.0f ? r : __int_as_float(0x7fc00000);
-  r = v == 0.0f ? -INFINITY : r;
-  return v == INFINITY ? v : r;
 }
 
 // ops/objectives.log1p_f32: XLA's float32 log1p, DAZ.

@@ -219,34 +219,9 @@ __device__ __forceinline__ float xrt_total(const XrtPredictArgs& a,
   return a.top == 1 ? part[1] : a.top == 2 ? part[2] : part[3];
 }
 
-// fma as the plain version's _fma rounds it: the product of two floats is
-// exact in double, the add rounds there, then to float.
-__device__ __forceinline__ float xrt_fma_f32(float a, float b, float c) {
-  return __double2float_rn((double)a * (double)b + (double)c);
-}
-
-// ops/objectives.exp_f32: Cephes' exp, every fused multiply-add rounded as
-// the plain version rounds it, then torch.maximum(e, v).
-__device__ float xrt_exp(float v) {
-  const float xc =
-      isnan(v) ? v : fminf(fmaxf(v, -88.3762626647949f), 88.3762626647950f);
-  const float fx = floorf(xrt_fma_f32(xc, 1.44269504088896341f, 0.5f));
-  float x = xrt_fma_f32(fx, -0.693359375f, xc);
-  x = xrt_fma_f32(fx, 2.12194440e-4f, x);
-  const float z = x * x;
-  float y = xrt_fma_f32(x, 1.9875691500e-4f, 1.3981999507e-3f);
-  y = xrt_fma_f32(y, x, 8.3334519073e-3f);
-  y = xrt_fma_f32(y, x, 4.1665795894e-2f);
-  y = xrt_fma_f32(y, x, 1.6666665459e-1f);
-  y = xrt_fma_f32(y, x, 5.0000001201e-1f);
-  y = 1.0f + xrt_fma_f32(y, z, x);
-  const float e = y * __int_as_float(((int)fx + 127) << 23);
-  return isnan(e) ? e : (isnan(v) ? v : fmaxf(e, v));  // torch.maximum
-}
-
 // ops/objectives.sigmoid: 1 / (1 + exp_f32(-m)), flushed below 2^-126.
 __device__ float xrt_sigmoid(float m) {
-  const float p = 1.0f / (1.0f + xrt_exp(-m));
+  const float p = 1.0f / (1.0f + xrt_exp_f32(-m));
   return p < 1.17549435e-38f ? 0.f : p;
 }
 
@@ -256,7 +231,7 @@ __device__ float xrt_sigmoid(float m) {
 __device__ __forceinline__ float xrt_value(int fn, float m) {
   constexpr float kTiny = 1.17549435e-38f;
   if (fn == XRT_FN_EXP) {
-    const float e = xrt_exp(m);
+    const float e = xrt_exp_f32(m);
     return fabsf(e) < kTiny ? e * 0.0f : e;
   }
   if (fn == XRT_FN_HINGE) return (fabsf(m) >= kTiny && m > 0.0f) ? 1.0f : 0.0f;

@@ -48,9 +48,7 @@
 // re-reading them from memory (L1 / L2): the general path, off the main
 // path's shapes.
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "common.cuh"
 
 constexpr int kThreads = 256;  // rows per CTA, one a thread
 constexpr int kWin = 32;       // the reference's reduce window
@@ -80,35 +78,6 @@ struct XrtSoftmaxArgs {
 };
 
 constexpr float kTiny = 1.17549435e-38f;  // smallest normal float
-
-__device__ __forceinline__ float xrt_ftz(float x) {
-  return fabsf(x) < kTiny ? x * 0.0f : x;
-}
-
-// torch.maximum: NaN if either is NaN
-__device__ __forceinline__ float xrt_max_nan(float a, float b) {
-  return a != a ? a : (b != b ? b : fmaxf(a, b));
-}
-
-// ops/objectives.exp_f32 of a shifted margin v = m - max, which is at
-// most 0 or NaN: Cephes' range reduction and degree-5 polynomial, every
-// multiply-add fused. There the clamp's upper bound never applies, and the
-// final torch.maximum(y * 2^fx, v) is y * 2^fx (a number >= 0 >= v, or NaN
-// with v), so neither is evaluated.
-__device__ __forceinline__ float xrt_exp_f32(float v) {
-  const float xc = v != v ? v : fmaxf(v, -88.3762626647949f);
-  const float fx = floorf(__fmaf_rn(xc, 1.44269504088896341f, 0.5f));
-  float x = __fmaf_rn(fx, -0.693359375f, xc);
-  x = __fmaf_rn(fx, 2.12194440e-4f, x);
-  const float z = __fmul_rn(x, x);
-  float y = __fmaf_rn(x, 1.9875691500e-4f, 1.3981999507e-3f);
-  y = __fmaf_rn(y, x, 8.3334519073e-3f);
-  y = __fmaf_rn(y, x, 4.1665795894e-2f);
-  y = __fmaf_rn(y, x, 1.6666665459e-1f);
-  y = __fmaf_rn(y, x, 5.0000001201e-1f);
-  y = __fadd_rn(1.0f, __fmaf_rn(y, z, x));
-  return __fmul_rn(y, __int_as_float(((int)fx + 127) << 23));
-}
 
 // the flushed exp of a flushed shifted margin: e_k of softmax_parts
 __device__ __forceinline__ float xrt_e(float v, float mx) {

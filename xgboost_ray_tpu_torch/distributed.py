@@ -103,9 +103,10 @@ def process_index() -> int:
 
 class Collectives:
     """The engine's collectives over the default process group: in-place
-    all-reduce SUM / MIN / MAX of a contiguous tensor, each recording its
-    ring-model bytes in ``bytes`` (:class:`AllreduceBytes`). At world 1
-    every one is the identity and moves nothing."""
+    all-reduce SUM / MIN / MAX of a contiguous tensor and the all-gather of
+    each rank's rows in rank order, each recording its ring-model bytes in
+    ``bytes`` (:class:`AllreduceBytes`). At world 1 every one is the
+    identity and moves nothing."""
 
     def __init__(self):
         self.world = process_count()
@@ -131,6 +132,36 @@ class Collectives:
 
     def max(self, t: torch.Tensor) -> torch.Tensor:
         return self._reduce(t, dist.ReduceOp.MAX)
+
+    def row_counts(self, n: int, device) -> List[int]:
+        """Every rank's row count ``n``, in rank order (one all-gather)."""
+        if self.world == 1:
+            return [int(n)]
+        return self.all_gather(torch.tensor([n], dtype=torch.int64,
+                                            device=device)).tolist()
+
+    def all_gather(self, t: torch.Tensor,
+                   counts: Optional[List[int]] = None) -> torch.Tensor:
+        """The ranks' tensors concatenated along dim 0 in rank order (the
+        JAX ``lax.all_gather`` of ``gather_global_rows``). ``counts``: each
+        rank's rows where they differ (``row_counts``): every rank's rows are
+        padded to the largest for the collective and cut after it."""
+        if self.world == 1:
+            return t
+        if not t.is_contiguous():
+            raise ValueError("Collectives: all-gather of a non-contiguous "
+                             "tensor")
+        counts = counts or [t.shape[0]] * self.world
+        if counts[self.rank] != t.shape[0]:
+            raise ValueError("Collectives: all-gather with the wrong row "
+                             "count for this rank")
+        top = max(counts)
+        if t.shape[0] < top:
+            t = torch.cat([t, t.new_zeros((top - t.shape[0],) + t.shape[1:])])
+        parts = [torch.empty_like(t) for _ in range(self.world)]
+        dist.all_gather(parts, t)
+        self.bytes.add_allgather(torch.cat(parts))
+        return torch.cat([p[:c] for p, c in zip(parts, counts)])
 
 
 # --------------------------------------------------------------------------
@@ -291,9 +322,9 @@ def _numpy(data: Dict[str, Optional[torch.Tensor]], key: str):
 
 def _matrix(data: Dict[str, Any], sharding: str, **kwargs):
     """The RayDMatrix of ``data``: shared tensors (``x``, ``label``,
-    optional ``weight`` / ``base_margin``), or a distributed matrix's
-    ``source`` (files or partitions) with its column names, ``ignore``,
-    ``filetype``, ``missing`` and reader ``kwargs``."""
+    optional ``weight`` / ``base_margin`` / label bounds / ``qid``), or a
+    distributed matrix's ``source`` (files or partitions) with its column
+    names, ``ignore``, ``filetype``, ``missing`` and reader ``kwargs``."""
     from xgboost_ray_tpu_torch.matrix import RayDMatrix, RayShardingMode
 
     if "source" in data:
@@ -307,6 +338,7 @@ def _matrix(data: Dict[str, Any], sharding: str, **kwargs):
                       base_margin=_numpy(data, "base_margin"),
                       label_lower_bound=_numpy(data, "label_lower_bound"),
                       label_upper_bound=_numpy(data, "label_upper_bound"),
+                      qid=_numpy(data, "qid"),
                       sharding=RayShardingMode[sharding], **kwargs)
 
 

@@ -72,6 +72,28 @@ read, round 0's included.
 The host keeps every set's labels and weights for the custom callables
 (``host_labels``), and ``combine_host_scalar`` merges a value each rank
 computed on its rows into their weighted mean.
+
+Learning to rank (``rank:pairwise`` / ``rank:ndcg`` / ``rank:map``) and
+``survival:cox`` take the custom objective's structure
+(``engine.py:465-490``): the round pass over the training set is K4's eval
+mode (the margin update and the elementwise metric sums), then B13
+(``ops/ranking.rank_grad_hess``) or B14 (``ops/cox.cox_round``) computes
+the next round's [1, N, 2] gradient plane from the updated margins, and
+round 0's from the base margins the same way (no K4 pass). A set with
+``qid`` has its query groups (``ops/ranking.GroupLayout``) built per shard,
+as the JAX engine builds them per device block (``engine.py:1054-1103``,
+``:1154-1157``), padded to the world's largest group (one all-reduce MAX
+at set-up). ``ndcg`` / ``map`` (``@k`` too) are B9r
+(``ops/metrics.rank_metric_contrib``) over each set's groups, a set's (sum
+over groups, groups) joining the round's one all-reduce as f64 partials;
+where some set has no groups they are host metrics (``ndcg_np`` /
+``map_np`` over each rank's rows, the whole set one group without qid,
+combined over the ranks weighted by their groups), as the JAX engine
+chooses (``engine.py:748-766``). Cox's risk sets span every row: each rank
+gathers a set's labels and weights once (``Collectives.all_gather``) and
+its margins every round; ``cox-nloglik`` comes out of B14 over the
+gathered rows, the same on every rank, and is not summed over the ranks
+again (``ops/metrics.py:301-306``).
 """
 
 import dataclasses
@@ -86,6 +108,7 @@ from xgboost_ray_tpu_torch.device import resolve_device
 from xgboost_ray_tpu_torch.distributed import Collectives
 from xgboost_ray_tpu_torch.models.booster import RayXGBoostBooster, stack_trees
 from xgboost_ray_tpu_torch.ops import binning
+from xgboost_ray_tpu_torch.ops.cox import CoxSetup, cox_round, cox_setup
 from xgboost_ray_tpu_torch.ops.grow import (
     GrowConfig,
     Tree,
@@ -102,8 +125,10 @@ from xgboost_ray_tpu_torch.ops.histogram import (
 )
 from xgboost_ray_tpu_torch.ops.metrics import (
     AUC_BINS,
+    COX_METRIC,
     HIST_METRICS,
     HOST_METRICS,
+    RANK_METRICS,
     auc_exact_np,
     auc_histogram,
     auc_scale,
@@ -112,6 +137,8 @@ from xgboost_ray_tpu_torch.ops.metrics import (
     k4_slot,
     metric_values,
     parse_metric_name,
+    rank_metric_contrib,
+    rank_metric_np,
 )
 from xgboost_ray_tpu_torch.ops.objectives import (
     as_alphas,
@@ -119,6 +146,12 @@ from xgboost_ray_tpu_torch.ops.objectives import (
     round_update,
     round_update_multi,
     softmax_update,
+)
+from xgboost_ray_tpu_torch.ops.ranking import (
+    GroupLayout,
+    build_group_rows,
+    rank_grad_hess,
+    shard_group_offsets,
 )
 from xgboost_ray_tpu_torch.ops.split import (
     SplitParams,
@@ -136,7 +169,9 @@ def kernel_counters() -> Dict[str, Callable]:
             "K2level": split_level, "K2leaf": leaf_records,
             "K3": partition_level, "K3leaf": partition_leaf_values,
             "K4": round_update, "B4": predict_tree_binned,
-            "SMX": softmax_update, "B9a": auc_histogram}
+            "SMX": softmax_update, "B9a": auc_histogram,
+            "B13": rank_grad_hess, "B9r": rank_metric_contrib,
+            "B14": cox_round}
 
 
 def kernel_launches() -> Dict[str, int]:
@@ -178,6 +213,18 @@ def _concat_shards(shards: Sequence[Dict[str, Optional[np.ndarray]]]):
             column("label_lower_bound"), column("label_upper_bound"))
 
 
+def _shard_qids(shards: Sequence[Dict[str, Optional[np.ndarray]]]
+                ) -> Optional[List[np.ndarray]]:
+    """Each shard's ``qid`` (rank order), or None where no shard has one."""
+    qids = [sh.get("qid") for sh in shards]
+    if all(q is None for q in qids):
+        return None
+    if any(q is None for q in qids):
+        raise ValueError("qid is given for some shards of a set but not "
+                         "for others")
+    return [np.asarray(q) for q in qids]
+
+
 def _to_device(arr: np.ndarray, dev: torch.device) -> torch.Tensor:
     if not arr.flags.writeable:
         arr = arr.copy()
@@ -206,6 +253,32 @@ class _EvalSet:
         # 1)
         self.label_np: Optional[np.ndarray] = None
         self.weight_np: Optional[np.ndarray] = None
+        # query groups (qid): per shard on the device, and the host offsets
+        # over this rank's rows concatenated (host ndcg / map)
+        self.groups: Optional[GroupLayout] = None
+        self.group_ptr: Optional[np.ndarray] = None
+        # the world's rows for survival:cox / cox-nloglik
+        self.cox: Optional["_CoxRows"] = None
+
+
+class _CoxRows:
+    """A set's world-wide rows for Cox (``ops/cox.py``): labels and weights
+    gathered once, the time order of them (``cox_setup``), every rank's row
+    count and this rank's first row in the gathered order."""
+
+    def __init__(self, label: torch.Tensor, weight: torch.Tensor,
+                 coll: Collectives):
+        self.counts = coll.row_counts(label.shape[0], label.device)
+        self.offset = sum(self.counts[:coll.rank])
+        self.n_local = label.shape[0]
+        self.label = coll.all_gather(label, self.counts)
+        self.weight = coll.all_gather(weight, self.counts)
+        self.setup: CoxSetup = cox_setup(self.label)
+
+    def margins(self, margins: torch.Tensor, coll: Collectives
+                ) -> torch.Tensor:
+        """The world's margins [N] (gathered at world > 1)."""
+        return coll.all_gather(margins.reshape(-1), self.counts)
 
 
 class TorchEngine:
@@ -283,6 +356,12 @@ class TorchEngine:
             raise ValueError(
                 f"quantile metric got 1 margin column but {len(alpha0)} "
                 f"quantile_alpha values; they must align.")
+        # ranking and Cox gradients come from B13 / B14 after K4's eval
+        # mode (the custom objective's structure)
+        self.pair_gh = not custom_objective and (
+            self.objective.ranking or self.objective.cox)
+        # the world's rows of every set for survival:cox and cox-nloglik
+        self.with_cox = self.objective.cox or COX_METRIC in self.metric_names
         # the label bounds go to the device for survival:aft's gradients
         # and for the aft-nloglik metric
         self.with_bounds = self.objective.survival or (
@@ -332,6 +411,12 @@ class TorchEngine:
                 self._init_trees = [init_booster.forest]
         self.margins = _to_device(
             self._start_margins(x, base_margin, init_booster), dev)
+        self.groups, self.group_ptr = self._groups(shards)
+        if self.objective.ranking and self.groups is None:
+            raise ValueError(
+                f"objective {params.objective!r} requires qid")
+        self.cox = (_CoxRows(self.label, self.weight, self.coll)
+                    if self.with_cox else None)
         # one entry a round: its tree, or with K outputs its K trees
         # ([K, heap] fields)
         self.trees: List[Tree] = []
@@ -339,9 +424,26 @@ class TorchEngine:
         self.evals: List[_EvalSet] = []
         for eval_shards, name in evals:
             self._add_eval_set(eval_shards, name, shards, init_booster)
+        # ndcg / map on the device where every set has its groups, else on
+        # the host (``engine.py:748-766``)
+        if not all(es.groups is not None for es in self.evals):
+            self.host_metrics += [
+                m for m in self.device_metrics
+                if parse_metric_name(m)[0] in RANK_METRICS]
+            self.device_metrics = [m for m in self.device_metrics
+                                   if m not in self.host_metrics]
+        self.rank_device = [m for m in self.device_metrics
+                            if parse_metric_name(m)[0] in RANK_METRICS]
+        # the training set's cox-nloglik comes out of its B14 gradient call
+        self.cox_train_metric = COX_METRIC in self.device_metrics and any(
+            es.is_train for es in self.evals)
 
         self.gh = self.qscale = None
-        if not custom_objective:
+        if self.pair_gh:
+            # round 0's gradients: B13 / B14 on the base margins
+            self.gh = self._pair_gh(False)[0]
+            self.qscale = self._scales()
+        elif not custom_objective:
             # round 0's gradients: the round pass with zero trees
             self.gh, _ = self._update(
                 self.margins, torch.zeros((self.n_outputs, self.n_rows),
@@ -395,10 +497,52 @@ class TorchEngine:
                                  - init_booster.base_score_margin_np())
         return margins
 
+    def _groups(self, shards) -> Tuple[Optional[GroupLayout],
+                                       Optional[np.ndarray]]:
+        """A set's query groups (None without qid): the device layout, each
+        shard's groups on its own rows, padded to the world's largest group
+        (an all-reduce MAX), and the host offsets over this rank's rows
+        concatenated (``build_group_rows``' group_ptr, for host ndcg / map)."""
+        qids = _shard_qids(shards)
+        if qids is None:
+            return None, None
+        offsets = shard_group_offsets(qids)
+        sizes = np.diff(offsets)
+        local = torch.tensor([int(sizes.max()) if sizes.size else 0],
+                             dtype=torch.int64, device=self.device)
+        width = int(self.coll.max(local).item())
+        ptr = build_group_rows(np.concatenate(qids))[1]
+        layout = GroupLayout(_to_device(offsets, self.device), max(width, 1))
+        return layout, ptr
+
+    def _pair_gh(self, with_metric: bool):
+        """The next round's [1, N, 2] gradients of a ranking objective (B13
+        over the groups) or of survival:cox (B14 over the world's gathered
+        margins, with the cox-nloglik sums where ``with_metric``), from the
+        current margins: (gh, sums or None)."""
+        if self.objective.ranking:
+            gh = rank_grad_hess(self.margins, self.label, self.weight,
+                                self.groups, self.objective.name)
+            return gh.view(1, -1, 2), None
+        cox = self.cox
+        gh, sums = cox_round(cox.margins(self.margins, self.coll), cox.label,
+                             cox.weight, cox.setup, cox.offset, cox.n_local,
+                             with_metric)
+        return gh.view(1, -1, 2), sums
+
+    def _cox_metric(self, cox: _CoxRows, margins: torch.Tensor
+                    ) -> torch.Tensor:
+        """A set's cox-nloglik sums [2] f64 (B14 over its world's rows)."""
+        return cox_round(cox.margins(margins, self.coll), cox.label,
+                         cox.weight, cox.setup, cox.offset, 0, True)[1]
+
     def _add_eval_set(self, eval_shards, name: str, train_shards,
                       init_booster: Optional[RayXGBoostBooster]) -> None:
         if eval_shards is train_shards:
-            self.evals.append(_EvalSet(name, True))
+            es = _EvalSet(name, True)
+            es.groups, es.group_ptr, es.cox = (self.groups, self.group_ptr,
+                                               self.cox)
+            self.evals.append(es)
             return
         x, label, weight, base_margin, lo, hi = _concat_shards(eval_shards)
         label = self._host_label(label, x.shape[0])
@@ -415,6 +559,9 @@ class TorchEngine:
         es.auc_scale = self._auc_scale(weight, x.shape[0])
         es.margins = _to_device(
             self._start_margins(x, base_margin, init_booster), dev)
+        es.groups, es.group_ptr = self._groups(eval_shards)
+        if self.with_cox:
+            es.cox = _CoxRows(es.label, es.weight, self.coll)
         self.evals.append(es)
 
     def _update(self, margins: torch.Tensor, row_value: torch.Tensor,
@@ -440,18 +587,24 @@ class TorchEngine:
 
     def _set_parts(self, sums: torch.Tensor, margins: torch.Tensor,
                    label: torch.Tensor, weight: torch.Tensor,
-                   scale: float) -> torch.Tensor:
+                   scale: float, groups: Optional[GroupLayout] = None
+                   ) -> torch.Tensor:
         """A set's contribution to the round's metric all-reduce: its live
-        partial sums (``live_parts``: a slice where they are the first ones)
-        and, with auc / aucpr, B9a's histogram of its updated margins as
-        float64 (exact: ``auc_scale``)."""
+        partial sums (``live_parts``: a slice where they are the first ones),
+        with auc / aucpr B9a's histogram of its updated margins as float64
+        (exact: ``auc_scale``), then B9r's (sum, groups) of each ndcg / map
+        metric."""
         live = self.live_parts
         sums = (sums[:len(live)] if live == tuple(range(len(live)))
                 else sums[list(live)])
-        if not self.with_auc:
-            return sums
-        hist = auc_histogram(auc_score(margins), label, weight, scale)
-        return torch.cat([sums, hist.view(-1).to(torch.float64)])
+        out = [sums]
+        if self.with_auc:
+            hist = auc_histogram(auc_score(margins), label, weight, scale)
+            out.append(hist.view(-1).to(torch.float64))
+        for name in self.rank_device:
+            base, k = parse_metric_name(name)
+            out.append(rank_metric_contrib(base, margins, label, groups, k))
+        return out[0] if len(out) == 1 else torch.cat(out)
 
     def _scales(self) -> Optional[torch.Tensor]:
         """K1's fixed-point scales [K, 4] of the gradients ``self.gh`` on
@@ -504,17 +657,23 @@ class TorchEngine:
         # one output: the round's tree itself ([heap] fields), as before
         walked = forest if k_out > 1 else Tree(*[f[0] for f in forest])
         self.trees.append(walked)
-        self.gh, sums = self._update(self.margins, row_value, self.label,
-                                     self.weight,
-                                     with_gh=not self.custom_objective,
-                                     lower=self.lower, upper=self.upper)
+        self.gh, sums = self._update(
+            self.margins, row_value, self.label, self.weight,
+            with_gh=not (self.custom_objective or self.pair_gh),
+            lower=self.lower, upper=self.upper)
+        cox_sums = None
+        if self.pair_gh:
+            self.gh, cox_sums = self._pair_gh(self.cox_train_metric)
         if not self.custom_objective:
             self.qscale = self._scales()  # the next round's
         if not self.evals:
             self.allreduce_bytes_per_round = coll.bytes.total
             return {}
+        if self.cox_train_metric and cox_sums is None:
+            cox_sums = self._cox_metric(self.cox, self.margins)
         parts = [self._set_parts(sums, self.margins, self.label, self.weight,
-                                 self.auc_scale)]
+                                 self.auc_scale, self.groups)]
+        cox_parts = [cox_sums]
         for es in self.evals:
             if not es.is_train:
                 value = predict_tree_binned(walked, es.bins,
@@ -524,31 +683,58 @@ class TorchEngine:
                                        es.label, es.weight, with_gh=False,
                                        lower=es.lower, upper=es.upper)[1]
                 parts.append(self._set_parts(es_sums, es.margins, es.label,
-                                             es.weight, es.auc_scale))
+                                             es.weight, es.auc_scale,
+                                             es.groups))
+                cox_parts.append(self._cox_metric(es.cox, es.margins)
+                                 if COX_METRIC in self.device_metrics
+                                 else None)
         parts = coll.sum(torch.stack(parts)).cpu()
         self.allreduce_bytes_per_round = coll.bytes.total
-        held_out = iter(parts[1:])
-        names = self.objective.partials
+        held_out = iter(zip(parts[1:], cox_parts[1:]))
         out = {}
-        n_live = len(self.live_parts)
         for es in self.evals:
-            row = parts[0] if es.is_train else next(held_out)
-            hist = (row[n_live:].numpy().reshape(2, AUC_BINS)
-                    if self.with_auc else None)
-            sums = torch.zeros(len(names), dtype=torch.float64)
-            sums[list(self.live_parts)] = row[:n_live]
-            out[es.name] = metric_values(sums, self.device_metrics, names,
-                                         hist)
+            row, cox = ((parts[0], cox_parts[0]) if es.is_train
+                        else next(held_out))
+            out[es.name] = self._set_metrics(row, cox)
             for name in self.host_metrics:
                 out[es.name][name] = self.combine_host_scalar(
-                    self._host_metric(es), es)
+                    self._host_metric(es, name), es,
+                    groups=parse_metric_name(name)[0] in RANK_METRICS)
         return out
 
-    def _host_metric(self, es: _EvalSet) -> float:
-        """``auc_exact`` of this rank's rows of ``es`` (``_auc_np`` on the
-        host, as the reference's host path computes it)."""
+    def _set_metrics(self, row: torch.Tensor, cox: Optional[torch.Tensor]
+                     ) -> Dict[str, float]:
+        """A set's device metrics, in ``device_metrics`` order, from its row
+        of the merged partial sums (``_set_parts``' layout) and its
+        cox-nloglik sums (not merged: the same on every rank)."""
+        names = self.objective.partials
+        n_live = len(self.live_parts)
+        sums = torch.zeros(len(names), dtype=torch.float64)
+        sums[list(self.live_parts)] = row[:n_live]
+        off = n_live + (2 * AUC_BINS if self.with_auc else 0)
+        hist = (row[n_live:off].numpy().reshape(2, AUC_BINS)
+                if self.with_auc else None)
+        vals = metric_values(sums, [
+            m for m in self.device_metrics
+            if m not in self.rank_device and m != COX_METRIC], names, hist)
+        for i, name in enumerate(self.rank_device):
+            num, den = row[off + 2 * i:off + 2 * i + 2].tolist()
+            vals[name] = num / max(den, 1e-12)
+        if cox is not None:
+            num, den = cox.cpu().tolist()
+            vals[COX_METRIC] = num / max(den, 1e-12)
+        return {m: vals[m] for m in self.device_metrics}
+
+    def _host_metric(self, es: _EvalSet, name: str) -> float:
+        """A host metric of this rank's rows of ``es``: ``auc_exact``
+        (``_auc_np``, as the reference's host path computes it), or ndcg /
+        map over the set's groups (``ndcg_np`` / ``map_np``; the whole set
+        one group without qid)."""
         label, weight = self.host_labels(es)
-        score = auc_score(torch.from_numpy(self.get_margins(es))).numpy()
+        margins = self.get_margins(es)
+        if parse_metric_name(name)[0] in RANK_METRICS:
+            return rank_metric_np(name, margins, label, es.group_ptr)
+        score = auc_score(torch.from_numpy(margins)).numpy()
         return auc_exact_np(score, label, weight)
 
     def get_margins(self, es: Optional[_EvalSet] = None) -> np.ndarray:
@@ -567,17 +753,25 @@ class TorchEngine:
         return es.label_np, es.weight_np
 
     def combine_host_scalar(self, value: float,
-                            es: Optional[_EvalSet] = None) -> float:
+                            es: Optional[_EvalSet] = None,
+                            groups: bool = False) -> float:
         """A metric value each rank computed on its rows -> their mean
-        weighted by each rank's weight sum (or row count), the same on
-        every rank (the JAX engine's, ``engine.py:2018``); the identity at
-        world 1. The ranks' (value x weight, weight) pairs are summed in
-        rank order on the host: each rank all-reduces a [world, 2] f64
+        weighted by each rank's weight sum (or row count; with ``groups``
+        and a set with qid, its query groups), the same on every rank (the
+        JAX engine's, ``engine.py:2018``); the identity at world 1. The
+        ranks' (value x weight, weight) pairs are summed in rank order on
+        the host: each rank all-reduces a [world, 2] f64
         tensor holding only its own row, which adds nothing but zeros."""
         if self.coll.world == 1:
             return float(value)
         label, weight = self.host_labels(es)
-        wt = float(np.sum(weight)) if weight is not None else float(len(label))
+        ptr = (self.group_ptr if es is None or es.is_train
+               else es.group_ptr)
+        if groups and ptr is not None:
+            wt = float(len(ptr) - 1)
+        else:
+            wt = (float(np.sum(weight)) if weight is not None
+                  else float(len(label)))
         rows = torch.zeros((self.coll.world, 2), dtype=torch.float64,
                            device=self.device)
         rows[self.coll.rank, 0] = float(value) * wt

@@ -596,14 +596,16 @@ def _matrix_data(dm: RayDMatrix) -> Dict[str, Any]:
                 "weight": loader.weight, "base_margin": loader.base_margin,
                 "label_lower_bound": loader.label_lower_bound,
                 "label_upper_bound": loader.label_upper_bound,
-                "ignore": loader.ignore, "filetype": loader.filetype,
+                "qid": loader.qid, "ignore": loader.ignore,
+                "filetype": loader.filetype,
                 "missing": loader.missing, "kwargs": loader.kwargs}
     fields = loader.load_fields()
     return distributed.share({"x": fields["data"], "label": fields["label"],
                               "weight": fields["weight"],
                               "base_margin": fields["base_margin"],
                               "label_lower_bound": fields["label_lower_bound"],
-                              "label_upper_bound": fields["label_upper_bound"]})
+                              "label_upper_bound": fields["label_upper_bound"],
+                              "qid": fields["qid"]})
 
 
 def _user_base_margin_shards(data: RayDMatrix, user_bm, sizes: List[int]):

@@ -22,9 +22,12 @@ reads only the files of the ranks it trains. The engine concatenates the
 shards it is given in rank order and moves them to the training device (a
 RayDMatrix holds host arrays only). Label bounds (``label_lower_bound``,
 ``label_upper_bound``: survival:aft) are carried, sharded and loaded like
-labels (``matrix.py:238-241``, ``:313-316``, ``:356``). Streaming,
-categorical columns and feature weights raise ``NotImplementedError``;
-query groups (``qid``) are ROADMAP A10's last part.
+labels (``matrix.py:238-241``, ``:313-316``, ``:356``), and so are query
+ids (``qid``: an array, or a column name under distributed loading): a
+loaded frame's rows are stable-sorted by ``qid`` first, so each query's
+rows are contiguous (``matrix.py:98-113``, ``:241-256``); ``qid`` with
+``weight`` raises (per-group weights are not implemented). Streaming,
+categorical columns and feature weights raise ``NotImplementedError``.
 """
 
 import glob
@@ -99,6 +102,15 @@ def combine_data(sharding: RayShardingMode, data: Iterable) -> np.ndarray:
     return res
 
 
+def qid_sort_order(qid) -> Optional[np.ndarray]:
+    """Stable order making query groups contiguous, or None if already sorted
+    (``matrix.py:98-104``)."""
+    order = np.argsort(np.asarray(qid), kind="stable")
+    if np.all(order == np.arange(len(order))):
+        return None
+    return order
+
+
 def _not_in_slice(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"RayDMatrix({what}) is not supported by xgboost_ray_tpu_torch yet; "
@@ -109,7 +121,7 @@ def _not_in_slice(what: str) -> NotImplementedError:
 #: the per-row fields besides the features: each a column name of the
 #: source, or an array-like (central loading only)
 ROW_FIELDS = ("label", "weight", "base_margin", "label_lower_bound",
-                "label_upper_bound")
+              "label_upper_bound", "qid")
 
 #: RayDMatrix keyword arguments of streaming (ROADMAP A17)
 _STREAM_KWARGS = ("chunk_rows", "budget_mb", "sketch_capacity")
@@ -120,13 +132,15 @@ class _RayDMatrixLoader:
 
     def __init__(self, data, label=None, weight=None, base_margin=None,
                  missing=None, feature_names=None, filetype=None, ignore=None,
-                 label_lower_bound=None, label_upper_bound=None, **kwargs):
+                 label_lower_bound=None, label_upper_bound=None, qid=None,
+                 **kwargs):
         self.data = data
         self.label = label
         self.weight = weight
         self.base_margin = base_margin
         self.label_lower_bound = label_lower_bound
         self.label_upper_bound = label_upper_bound
+        self.qid = qid
         self.missing = missing
         self.feature_names = feature_names
         self.filetype = filetype
@@ -154,9 +168,10 @@ class _RayDMatrixLoader:
         )
 
     def _split_dataframe(self, df: pd.DataFrame) -> Dict[str, Optional[np.ndarray]]:
-        """Label, weight and base margin columns out of ``df`` (a string
-        names a column, which leaves the features; an array-like attaches
-        as is), ``ignore``'s columns dropped, the features f32."""
+        """Label, weight, base margin, label bound and qid columns out of
+        ``df`` (a string names a column, which leaves the features; an
+        array-like attaches as is), ``ignore``'s columns dropped, the
+        features f32; with a qid, every field's rows stable-sorted by it."""
         source = self.get_data_source()
         exclude: List[str] = []
 
@@ -171,6 +186,7 @@ class _RayDMatrixLoader:
         base_margin = pick(self.base_margin)
         lower = pick(self.label_lower_bound)
         upper = pick(self.label_upper_bound)
+        qid = pick(self.qid)
         x = df.drop(columns=[c for c in exclude if c in df.columns])
         if self.ignore:
             x = x.drop(columns=[c for c in self.ignore if c in x.columns])
@@ -184,13 +200,20 @@ class _RayDMatrixLoader:
         if self.missing is not None and not np.isnan(self.missing):
             feats = np.where(feats == np.float32(self.missing), np.nan, feats)
 
-        def arr(v):
-            return None if v is None else np.asarray(v, dtype=np.float32).ravel()
+        order = None if qid is None else qid_sort_order(qid)
 
-        return {"data": feats, "label": arr(label), "weight": arr(weight),
+        def arr(v, dtype=np.float32):
+            if v is None:
+                return None
+            v = np.asarray(v, dtype=dtype).ravel()
+            return v if order is None else v[order]
+
+        return {"data": feats if order is None else feats[order],
+                "label": arr(label), "weight": arr(weight),
                 "base_margin": arr(base_margin),
                 "label_lower_bound": arr(lower),
-                "label_upper_bound": arr(upper)}
+                "label_upper_bound": arr(upper),
+                "qid": arr(qid, None)}
 
 
 class _CentralRayDMatrixLoader(_RayDMatrixLoader):
@@ -336,10 +359,8 @@ class RayDMatrix:
     ):
         if feature_weights is not None:
             raise _not_in_slice("feature_weights")
-        if qid is not None:
-            from xgboost_ray_tpu_torch.ops.objectives import a10_last_part
-
-            raise a10_last_part("RayDMatrix(qid=...)")
+        if qid is not None and weight is not None:
+            raise NotImplementedError("per-group weight is not implemented.")
         if stream or any(k in kwargs for k in _STREAM_KWARGS):
             raise _not_in_slice("stream=True")
         if enable_categorical:
@@ -365,7 +386,7 @@ class RayDMatrix:
             data, label=label, weight=weight, base_margin=base_margin,
             missing=missing, feature_names=feature_names, filetype=filetype,
             ignore=ignore, label_lower_bound=label_lower_bound,
-            label_upper_bound=label_upper_bound, **kwargs)
+            label_upper_bound=label_upper_bound, qid=qid, **kwargs)
         source = self.loader.get_data_source()
         if kwargs and source.get_filetype(self.loader.data) is None \
                 and filetype is None:

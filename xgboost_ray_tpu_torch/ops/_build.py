@@ -83,6 +83,13 @@ SIGNATURES = {
     "auc": {
         "xrt_auc_hist": ([P, P], I),
     },
+    "ranking": {
+        "xrt_rank_gh": ([P, P], I),
+        "xrt_rank_metric": ([P, P], I),
+    },
+    "cox": {
+        "xrt_cox_round": ([P, P], I),
+    },
     "shap": {
         "xrt_shap_saabas": ([P, P], I),
         "xrt_shap_exact": ([P, P], I),

@@ -300,7 +300,8 @@ build_histogram.launches = 0
 class AllreduceBytes:
     """Per-rank wire bytes of the collectives, under the ring model of the
     reference's ``AllreduceBytes`` (``xgboost_ray_tpu/ops/histogram.py:96``):
-    an all-reduce moves ``2 (n - 1) / n x bytes(operand)``; 0 at world 1."""
+    an all-reduce moves ``2 (n - 1) / n x bytes(operand)``, an all-gather
+    ``(n - 1) / n x bytes(output)``; 0 at world 1."""
 
     def __init__(self, n_actors: int):
         self.n = max(1, int(n_actors))
@@ -308,6 +309,10 @@ class AllreduceBytes:
 
     def add_allreduce(self, t: torch.Tensor) -> None:
         self.total += int(2 * (self.n - 1) * t.numel() * t.element_size()
+                          / self.n)
+
+    def add_allgather(self, out: torch.Tensor) -> None:
+        self.total += int((self.n - 1) * out.numel() * out.element_size()
                           / self.n)
 
 

@@ -8,7 +8,10 @@ survival metric ``aft-nloglik`` (``ops/survival.py:101-140``), the binned
 ``auc`` / ``aucpr`` (``:144-181``: a [2, 4096] (positive, negative) weight
 histogram over sigmoid-score bins, merged over the ranks, the areas from
 the merged bins) and the host metric ``auc_exact`` (``_auc_np``,
-``:326``), with the direction early stopping takes
+``:326``), the per-group ``ndcg`` / ``map`` (``rank_metric_contrib``,
+``:183``: B9r in ``csrc/ranking.cu``; ``_ndcg_np`` / ``_map_np``, ``:376``,
+``:392``, on the host for a set without groups; ``cox-nloglik`` is B14's,
+``ops/cox.py``), with the direction early stopping takes
 (``parse_metric_name``, ``is_maximize_metric``). Each elementwise metric
 reduces to a (numerator, denominator) pair of weighted sums; the engine
 divides on the host, as ``engine.TpuEngine.step`` does. On the card the
@@ -40,7 +43,6 @@ from xgboost_ray_tpu_torch.ops import _build
 from xgboost_ray_tpu_torch.ops.objectives import (
     PARTIALS,
     ObjConsts,
-    a10_last_part,
     first_argmax,
     label_class,
     log1p_f32,
@@ -196,8 +198,10 @@ _SOFTMAX_NUMERATOR = {"mlogloss": "mlogloss", "merror": "merror"}
 #: host, combined over the ranks)
 HIST_METRICS = ("auc", "aucpr")
 HOST_METRICS = ("auc_exact",)
-#: ROADMAP A10's last part
-_A10_METRICS = ("ndcg", "map", "cox-nloglik", "pre")
+#: the per-group ranking metrics (B9r over a set's groups, ``ndcg_np`` /
+#: ``map_np`` on the host for a set without them) and Cox's metric (B14)
+RANK_METRICS = ("ndcg", "map")
+COX_METRIC = "cox-nloglik"
 
 
 def k4_slot(name: str) -> Optional[int]:
@@ -216,15 +220,15 @@ def check_metric(name: str, softmax: bool) -> None:
     """Raise for a metric the port does not compute for this kind of
     objective (the softmax metrics go with the softmax objectives, every
     other with the one-output and quantile ones)."""
-    base, _ = parse_metric_name(name)
-    if base in _A10_METRICS:
-        raise a10_last_part(f"eval_metric={name!r}")
+    base, arg = parse_metric_name(name)
     if softmax:
         ok = base in _SOFTMAX_NUMERATOR
     else:
         ok = (base in _K4_NUMERATOR or base in HIST_METRICS
-              or base in HOST_METRICS)
-    if not ok or (parse_metric_name(name)[1] is not None and base != "error"):
+              or base in HOST_METRICS or base in RANK_METRICS
+              or name == COX_METRIC)
+    if not ok or (arg is not None and base not in ("error",)
+                  + RANK_METRICS):
         raise NotImplementedError(
             f"eval_metric={name!r} is not supported by xgboost_ray_tpu_torch "
             f"with {'a softmax' if softmax else 'a one-output'} objective.")
@@ -412,3 +416,194 @@ def auc_exact_np(score: np.ndarray, label: np.ndarray,
         return 0.5
     return float((np.sum(ranks * w * (y > 0.5)) - pos_w * pos_w / 2.0)
                  / (pos_w * neg_w))
+
+
+# --------------------------------------------------------------------------
+# ndcg / map: B9r over a set's groups, and the host versions
+# --------------------------------------------------------------------------
+
+#: threads of a B9r CTA (``kRankThreads`` of ``csrc/ranking.cu``): the last
+#: CTA sums the groups' values in that many contiguous runs
+RANK_SUM_THREADS = 128
+
+
+def rank_metric_cut(k: Optional[float], width: int) -> int:
+    """The positions a metric reads: G without ``@k``, else ``max(1,
+    min(k, G))`` over the padded G (``kk``, ``:192``)."""
+    return width if k is None else max(1, min(int(k), width))
+
+
+def rank_metric_groups_plain(kind: str, margin: torch.Tensor,
+                             label: torch.Tensor, layout,
+                             k: Optional[float] = None) -> torch.Tensor:
+    """[NG] f32 ndcg@k or map@k of each group (the per-group ``val`` of the
+    JAX ``rank_metric_contrib``, ``:183-246``): the group ordered by
+    descending score, stable, its padding last; ndcg's DCG over the first
+    ``kk`` positions with the discount 1 / log2(2 + i), 1 where the ideal
+    DCG is 0; map's AP 0 where no document is relevant. Sums over the
+    padded axis take ``ops/split.tree_sum``'s order."""
+    from xgboost_ray_tpu_torch.ops.ranking import _log2_recip, gain_of
+    from xgboost_ray_tpu_torch.ops.split import tree_sum
+
+    n = label.shape[0]
+    gsz = layout.width
+    kk = rank_metric_cut(k, gsz)
+    dev = label.device
+    pos = torch.arange(gsz, dtype=torch.float32, device=dev)
+    disc = torch.where(pos < kk, _log2_recip(2.0 + pos), 0.0)
+    topk = (pos < kk).to(torch.float32)
+    s_ext = torch.cat([margin.reshape(-1), margin.new_zeros(1)])
+    y_ext = torch.cat([label, label.new_zeros(1)])
+    rows_all = layout.padded_rows(n)
+    chunk = int(np.clip(4_000_000 // max(gsz, 1), 1, 4096))
+    vals = []
+    for lo in range(0, layout.n_groups, chunk):
+        r = rows_all[lo:lo + chunk]
+        v = r < n
+        s = torch.where(v, s_ext[r], float("-inf"))
+        y = torch.where(v, y_ext[r], 0.0)
+        order = torch.argsort(s, dim=1, descending=True, stable=True)
+        ys = torch.gather(y, 1, order)
+        if kind == "ndcg":
+            dcg = tree_sum(gain_of(ys) * disc[None, :])
+            y_ideal = torch.sort(y, dim=1, descending=True).values
+            idcg = tree_sum(gain_of(y_ideal) * disc[None, :])
+            val = torch.where(idcg > 0, dcg / torch.clamp(idcg, min=1e-12),
+                              1.0)
+        else:
+            rel = (ys > 0).to(torch.float32) * topk[None, :]
+            prec = torch.cumsum(rel, dim=1) / (pos + 1.0)[None, :]
+            ap_num = tree_sum(prec * rel)
+            ap_den = tree_sum(rel)
+            val = torch.where(ap_den > 0,
+                              ap_num / torch.clamp(ap_den, min=1e-12), 0.0)
+        vals.append(val)
+    if not vals:
+        return label.new_zeros(0)
+    return torch.cat(vals)
+
+
+def rank_metric_sum_plain(vals: torch.Tensor) -> torch.Tensor:
+    """[2] f64 (sum of the groups' values, groups) in B9r's fixed order:
+    ``RANK_SUM_THREADS`` contiguous runs of ceil(NG / threads) groups, each
+    summed in order in f64, then the runs' sums in order."""
+    ng = vals.shape[0]
+    v = vals.double().cpu().tolist()
+    per = -(-ng // RANK_SUM_THREADS) if ng else 0
+    total = 0.0
+    for t in range(RANK_SUM_THREADS):
+        part = 0.0
+        for x in v[t * per:(t + 1) * per]:
+            part += x
+        total += part
+    return torch.tensor([total, float(ng)], dtype=torch.float64)
+
+
+def rank_metric_plain(kind: str, margin: torch.Tensor, label: torch.Tensor,
+                      layout, k: Optional[float] = None) -> torch.Tensor:
+    """Plain B9r: [2] f64 (sum of the groups' ndcg@k / map@k, groups)."""
+    return rank_metric_sum_plain(
+        rank_metric_groups_plain(kind, margin, label, layout, k))
+
+
+def rank_metric_contrib(kind: str, margin: torch.Tensor, label: torch.Tensor,
+                        layout, k: Optional[float] = None) -> torch.Tensor:
+    """B9r wrapper: [2] f64 (sum over the set's groups of ndcg@k or map@k,
+    groups) for margins [N] (or [N, 1]) and labels [N], on their device.
+    CPU tensors take ``rank_metric_plain``; CUDA tensors launch the kernel
+    of ``csrc/ranking.cu`` once (``rank_metric_contrib.launches``)."""
+    from xgboost_ray_tpu_torch.ops.ranking import (
+        check_group_inputs,
+        rank_args,
+        rank_scratch,
+    )
+
+    if kind not in RANK_METRICS:
+        raise ValueError(f"rank_metric_contrib: not a ranking metric {kind!r}")
+    margin = margin.reshape(-1)
+    if not label.is_cuda:
+        return rank_metric_plain(kind, margin, label, layout, k)
+    check_group_inputs("rank_metric_contrib", margin, label, layout)
+    dev = label.device
+    out = torch.zeros(2, dtype=torch.float64, device=dev)
+    ng = layout.n_groups
+    if ng == 0:
+        return out
+    vals = torch.empty(ng, dtype=torch.float32, device=dev)
+    ticket = torch.zeros(1, dtype=torch.int32, device=dev)
+    scratch = rank_scratch(layout, label.shape[0], dev)
+    a = rank_args(margin, label, layout, RANK_METRICS.index(kind),
+                  rank_metric_cut(k, layout.width))
+    a.scratch, a.vals, a.ticket, a.out = (_build.ptr(t) for t in (
+        scratch, vals, ticket, out))
+    a.threads = RANK_SUM_THREADS
+    with torch.cuda.device(dev):
+        code = _build.library("ranking").xrt_rank_metric(
+            ctypes.byref(a), _build.stream_ptr(dev))
+    _build.check(code, "B9r (rank_metric_contrib)")
+    rank_metric_contrib.launches += 1
+    return out
+
+
+rank_metric_contrib.launches = 0
+
+
+def _dcg_at(labels: np.ndarray, k: int) -> float:
+    labels = labels[:k]
+    gains = (2.0 ** labels - 1.0) / np.log2(np.arange(2, labels.size + 2))
+    return float(np.sum(gains))
+
+
+def ndcg_np(score: np.ndarray, label: np.ndarray, group_ptr: np.ndarray,
+            k: int) -> float:
+    """Mean NDCG@k over query groups on the host in float64 (``_ndcg_np``,
+    ``:376``). group_ptr: [n_groups+1] row offsets."""
+    total, n_groups = 0.0, 0
+    for g in range(group_ptr.size - 1):
+        lo, hi = group_ptr[g], group_ptr[g + 1]
+        if hi <= lo:
+            continue
+        ls, ss = label[lo:hi], score[lo:hi]
+        order = np.argsort(-ss, kind="stable")
+        dcg = _dcg_at(ls[order], k)
+        ideal = _dcg_at(np.sort(ls)[::-1], k)
+        total += (dcg / ideal) if ideal > 0 else 1.0
+        n_groups += 1
+    return total / max(n_groups, 1)
+
+
+def map_np(score: np.ndarray, label: np.ndarray, group_ptr: np.ndarray,
+           k: int) -> float:
+    """Mean average precision@k over groups (binary relevance: label > 0)
+    on the host in float64 (``_map_np``, ``:392``)."""
+    total, n_groups = 0.0, 0
+    for g in range(group_ptr.size - 1):
+        lo, hi = group_ptr[g], group_ptr[g + 1]
+        if hi <= lo:
+            continue
+        ls = (label[lo:hi] > 0).astype(np.float64)
+        order = np.argsort(-score[lo:hi], kind="stable")
+        rel = ls[order][:k]
+        if rel.sum() == 0:
+            total += 0.0
+        else:
+            prec = np.cumsum(rel) / np.arange(1, rel.size + 1)
+            total += float(np.sum(prec * rel) / rel.sum())
+        n_groups += 1
+    return total / max(n_groups, 1)
+
+
+def rank_metric_np(name: str, margin: np.ndarray, label: np.ndarray,
+                   group_ptr: Optional[np.ndarray]) -> float:
+    """A ranking metric of a set on the host (``compute_metric``,
+    ``:521-526``): its groups, or the whole set as one group without."""
+    base, arg = parse_metric_name(name)
+    label = np.asarray(label, np.float32)
+    if group_ptr is None:
+        group_ptr = np.array([0, label.shape[0]], dtype=np.int64)
+    k = int(arg) if arg is not None else (2 ** 31 - 1)
+    fn = ndcg_np if base == "ndcg" else map_np
+    margin = np.asarray(margin, np.float32)
+    score = margin[:, 0] if margin.ndim == 2 else margin
+    return fn(score.astype(np.float64), label.astype(np.float64), group_ptr,
+              k)

@@ -11,7 +11,9 @@ aliases ``reg:logistic`` / ``binary:logitraw`` (``_make_logistic``,
 and ``survival:aft`` (its plain gradients and metric in ``ops/survival.py``)
 — with the base_score -> margin maps, the
 prediction transforms and ``get_objective`` (``:485``). Ranking and
-``survival:cox`` raise, naming ROADMAP A10's last part.
+``survival:cox`` are in the table too (their gradients are B13's,
+``ops/ranking.py``, and B14's, ``ops/cox.py``; K4 runs for them in its
+eval mode only: the margin add and the elementwise metric sums).
 
 K4 (CUDA C++, ``csrc/objective.cu``) fuses the end of boosting round i
 with the start of round i+1 in one pass over the rows: ``margin +=
@@ -86,6 +88,7 @@ SOFTPROB = "multi:softprob"
 SOFTMAX = "multi:softmax"
 QUANTILE = "reg:quantileerror"
 AFT = "survival:aft"
+COX = "survival:cox"
 
 #: metric partial sums written by K4, in this order: the first four always,
 #: the others where a metric needs them (``ops/metrics.K4_METRIC_SLOT``)
@@ -114,22 +117,16 @@ _TABLE = {
     AFT: ("aft", "aft-nloglik", "exp", "value"),
     SOFTPROB: ("softmax", "mlogloss", "softmax", "prob"),
     SOFTMAX: ("softmax", "merror", "softmax", "class"),
+    # the gradients need the query groups (B13, ops/ranking.py)
+    "rank:pairwise": ("rank", "ndcg", "identity", "value"),
+    "rank:ndcg": ("rank", "ndcg", "identity", "value"),
+    "rank:map": ("rank", "map", "identity", "value"),
+    # the gradients need every row of the world (B14, ops/cox.py)
+    COX: ("cox", "cox-nloglik", "exp", "value"),
 }
-
-#: objectives of ROADMAP A10's last part (ranking with B13, Cox with B14's
-#: risk terms), the next slice of the port
-A10_LAST_PART = ("rank:pairwise", "rank:ndcg", "rank:map", "survival:cox")
 
 #: the objectives the port trains
 OBJECTIVES = tuple(_TABLE)
-
-
-def a10_last_part(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not supported by xgboost_ray_tpu_torch yet: ranking "
-        f"(rank:*, ndcg, map, qid) and survival:cox (cox-nloglik) are "
-        f"ROADMAP queue A10's last part; use the JAX package xgboost_ray_tpu "
-        f"for them.")
 
 
 def _f32(v: float) -> float:
@@ -239,8 +236,22 @@ class Objective:
         return self.kind == "aft"
 
     @property
+    def ranking(self) -> bool:
+        """The gradients need the query groups (``rank:*``: B13)."""
+        return self.kind == "rank"
+
+    @property
+    def cox(self) -> bool:
+        """The gradients need every row of the world (``survival:cox``:
+        B14)."""
+        return self.kind == "cox"
+
+    @property
     def k4_mode(self) -> str:
-        """The K4 mode of its gradients (``K4_MODES``)."""
+        """The K4 mode of its gradients (``K4_MODES``; K4 computes no
+        gradients of ranking or Cox: its eval mode)."""
+        if self.kind in ("rank", "cox"):
+            return "eval"
         if self.kind == "aft":
             return ("aft_logistic" if self.aft_distribution == "logistic"
                     else "aft_normal")
@@ -264,8 +275,10 @@ class Objective:
             # float(jnp.log(jnp.maximum(s, 1e-16))): a float32 log
             return float(log_f32(torch.tensor(max(s, 1e-16),
                                               dtype=torch.float32)))
-        if self.kind == "aft":
+        if self.kind in ("aft", "cox"):
             return float(np.log(max(s, 1e-16)))  # np.log in float64
+        if self.kind == "rank":
+            return 0.0
         return float(s)
 
     def transform(self, margin: torch.Tensor) -> torch.Tensor:
@@ -284,9 +297,8 @@ class Objective:
 def value_transform(m: torch.Tensor, kind: str) -> torch.Tensor:
     """One output's transform (B8's value mode computes the same in its
     epilogue): ``sigmoid``, ``exp`` (the reference's exp, a subnormal
-    result flushed; bitwise for margins up to 88.376, beyond which this
-    gives inf where the reference is finite up to 88.72), ``hinge`` (1.0
-    where m > 0, else 0.0) or ``identity``."""
+    result flushed: bitwise ``jnp.exp``, finite up to 88.72), ``hinge``
+    (1.0 where m > 0, else 0.0) or ``identity``."""
     if kind == "sigmoid":
         return sigmoid(m)
     if kind == "exp":
@@ -304,8 +316,6 @@ VALUE_FNS = ("sigmoid", "exp", "hinge")
 def transform_kind(name: str) -> str:
     """The transform of objective ``name`` (``_TABLE``): raises for one the
     port does not predict values of."""
-    if name in A10_LAST_PART:
-        raise a10_last_part(f"objective={name!r}")
     if name not in _TABLE:
         raise NotImplementedError(
             f"objective={name!r}: xgboost_ray_tpu_torch has no transform "
@@ -322,8 +332,6 @@ def get_objective(name: str, num_class: int = 0, scale_pos_weight: float = 1.0,
     ``get_objective`` resolves it (and with its checks); the softmax
     objectives take ``num_class`` (>= 2) outputs, ``reg:quantileerror`` one
     output per alpha."""
-    if name in A10_LAST_PART:
-        raise a10_last_part(f"objective={name!r}")
     if name not in _TABLE:
         raise NotImplementedError(
             f"objective={name!r} is not supported by xgboost_ray_tpu_torch "
@@ -367,13 +375,8 @@ def objective_from_params(params) -> Objective:
 
 
 def base_score_margin(name: str, base_score: float) -> float:
-    """The margin a model starts from (``Objective.base_score_to_margin``),
-    also for a model of an objective the port predicts margins of but does
-    not train (ranking: 0; ``survival:cox``: a float64 log)."""
-    if name.startswith("rank:"):
-        return 0.0
-    if name == "survival:cox":
-        return float(np.log(max(float(base_score), 1e-16)))
+    """The margin a model starts from (``Objective.base_score_to_margin``;
+    ranking: 0; ``survival:cox``: a float64 log)."""
     return get_objective(name, num_class=2).base_score_to_margin(base_score)
 
 
@@ -391,12 +394,15 @@ _EXP_P = (1.9875691500e-4, 1.3981999507e-3, 8.3334519073e-3, 4.1665795894e-2,
 
 def exp_f32(v: torch.Tensor) -> torch.Tensor:
     """float32 exp as the JAX package's compiled CPU program evaluates it:
-    Cephes' range reduction and degree-5 polynomial, every multiply-add
-    fused. Bitwise equal to it for |v| <= 87 (beyond, the reference flushes
-    subnormal results and clamps later; ``sigmoid`` is equal either way), so
-    the plain path's gradients are the reference's."""
-    xc = torch.clamp(v, _f32(-88.3762626647949), _f32(88.3762626647950))
+    the operand clamped to [-87.8, 88.8] (NaN kept), Cephes' range
+    reduction with the exponent clamped to [-127, 127], the degree-5
+    polynomial with every multiply-add fused, the scale 2^fx from the
+    exponent bits. Bitwise equal to it wherever its result is normal (a
+    subnormal result the reference flushes, as ``_ftz`` does): finite up to
+    88.72, inf above, 0 at -inf."""
+    xc = torch.clamp(v, _f32(-87.8), _f32(88.8))
     fx = torch.floor(_fma(xc, _f32(1.44269504088896341), 0.5))
+    fx = torch.clamp(fx, -127.0, 127.0)
     x = _fma(fx, -_f32(0.693359375), xc)
     x = _fma(fx, _f32(2.12194440e-4), x)
     z = x * x
@@ -404,8 +410,9 @@ def exp_f32(v: torch.Tensor) -> torch.Tensor:
     for c in _EXP_P[2:]:
         y = _fma(y, x, _f32(c))
     y = 1.0 + _fma(y, z, x)
-    scale = ((fx.to(torch.int32) + 127) << 23).view(torch.float32)
-    return torch.maximum(y * scale, v)
+    fxi = torch.nan_to_num(fx, nan=0.0).to(torch.int32)
+    scale = ((fxi + 127) << 23).view(torch.float32)
+    return torch.where(torch.isnan(v), v, y * scale)
 
 
 _F32_TINY = 2.0 ** -126  # smallest normal float32

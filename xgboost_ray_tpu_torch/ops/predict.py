@@ -425,7 +425,7 @@ def _transform_mode(transform: Optional[str], k: int) -> str:
         raise NotImplementedError(
             f"B8: {transform!r} transforms one output, not K = {k} (the "
             f"port's K-output values are the softmax objectives' and "
-            f"reg:quantileerror's, ROADMAP A10)")
+            f"reg:quantileerror's)")
     return "margin" if kind == "identity" else "value"
 
 

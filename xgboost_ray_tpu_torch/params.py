@@ -251,14 +251,8 @@ def parse_params(params: Optional[Dict[str, Any]]) -> TrainParams:
 
     # --- outside this slice: raise, naming the key -------------------------
     from xgboost_ray_tpu_torch.ops.metrics import check_metric, error_threshold
-    from xgboost_ray_tpu_torch.ops.objectives import (
-        A10_LAST_PART,
-        a10_last_part,
-        objective_from_params,
-    )
+    from xgboost_ray_tpu_torch.ops.objectives import objective_from_params
 
-    if out.objective in A10_LAST_PART:
-        raise a10_last_part(f"objective={out.objective!r}")
     for key, bad in (
         ("objective", out.objective not in SUPPORTED_OBJECTIVES),
         ("booster", out.booster != "gbtree"),

@@ -15,10 +15,9 @@ card; ``"cpu"``: the plain PyTorch path), passed to ``train()`` and
 encodes its labels with ``np.unique(..., return_inverse=True)``: the codes
 of the JAX module's per-row dict loop, without its per-row Python cost.
 The random-forest pair (``subsample``, ``colsample_bynode``,
-``num_parallel_tree``: ROADMAP A11) and the ranker (``rank:*`` and
-``qid``: ROADMAP A10) are defined with the JAX module's defaults, and
-their ``fit`` raises ``NotImplementedError`` naming the key the port
-refuses.
+``num_parallel_tree``: ROADMAP A11) is defined with the JAX module's
+defaults, and its ``fit`` raises ``NotImplementedError`` naming the key
+the port refuses. ``RayXGBRanker`` trains ``rank:*`` over ``qid`` groups.
 """
 
 import logging
@@ -811,14 +810,61 @@ class RayXGBRFClassifier(RayXGBClassifier):
 
 
 class RayXGBRanker(_RayXGBEstimator):
-    """Learning-to-rank estimator (mirror ``sklearn.py:921-1040``)."""
+    """Learning-to-rank estimator (mirror ``sklearn.py:921-1040``): ``qid``
+    (and ``eval_qid``, one per eval set) groups the rows into queries."""
 
     _default_objective = "rank:pairwise"
 
-    def fit(self, X, y=None, *, qid=None, **kwargs):
+    def fit(
+        self,
+        X,
+        y=None,
+        *,
+        qid=None,
+        sample_weight=None,
+        base_margin=None,
+        eval_set=None,
+        eval_qid=None,
+        sample_weight_eval_set=None,
+        base_margin_eval_set=None,
+        verbose=False,
+        xgb_model=None,
+        feature_weights=None,
+        callbacks=None,
+        early_stopping_rounds=None,
+        ray_params=None,
+        _remote=None,
+        ray_dmatrix_params=None,
+    ):
         params = self.get_xgb_params()
         params.setdefault("objective", self._default_objective)
-        from xgboost_ray_tpu_torch.ops.objectives import a10_last_part
-
-        raise a10_last_part(f"RayXGBRanker: objective="
-                            f"{params['objective']!r} with qid")
+        if not params["objective"].startswith("rank:"):
+            raise ValueError(
+                "RayXGBRanker requires a rank:* objective, got "
+                f"{params['objective']!r}"
+            )
+        dm, evals = _check_if_params_are_ray_dmatrix(
+            X, sample_weight, base_margin, eval_set,
+            sample_weight_eval_set, base_margin_eval_set,
+        )
+        if dm is None:
+            if qid is None:
+                raise ValueError(
+                    "RayXGBRanker requires the `qid` argument (or a RayDMatrix "
+                    "constructed with qid)."
+                )
+            dm, evals = self._build_matrices(
+                X, y, sample_weight=sample_weight, base_margin=base_margin,
+                qid=qid, eval_set=eval_set, eval_qid=eval_qid,
+                sample_weight_eval_set=sample_weight_eval_set,
+                base_margin_eval_set=base_margin_eval_set,
+                feature_weights=feature_weights,
+                ray_dmatrix_params=ray_dmatrix_params,
+            )
+        elif dm.loader.qid is None:
+            raise ValueError("RayXGBRanker requires a RayDMatrix with qid.")
+        return self._fit_common(
+            params, dm, list(evals), verbose=verbose, xgb_model=xgb_model,
+            callbacks=callbacks, early_stopping_rounds=early_stopping_rounds,
+            ray_params=ray_params, _remote=_remote,
+        )
