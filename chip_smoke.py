@@ -260,6 +260,24 @@ is only where it may find ``cuobjdump``). Phases:
    zero-weight rows holding the largest margin); ``predict()`` values
    bitwise exp of the margins, and B8's exp finite up to a margin of 88.72
    and inf above (C7).
+15. stochastic boosting and random forests (``sampling``, after phase 14;
+   ``--sampling-only`` runs the build and it alone): at the HIGGS split,
+   10 rounds at depth 6, the unsampled main path and S1 (``subsample``
+   0.8, ``colsample_bytree`` and ``colsample_bynode`` 0.8, ``error@0.3``
+   and ``error@0.7`` beside ``logloss`` and ``auc``), S2 (GOSS 0.2 / 0.1,
+   ``colsample_bylevel`` 0.7) and S3 (``colsample_bynode`` 0.5 over
+   ``feature_weights``, a quarter of them 0), each run's launches counted
+   from 0 and checked exactly (``sampling_expect``), the test logloss
+   falling, no split on a zero-weight feature; B12r (both policies, the
+   rows compared sorted and their gradients by row), B12f, K2's masked
+   level step and K4's T-tree add bitwise their plain versions at the
+   runs' shapes and timed (B12r beside ``torch.topk`` over its keys);
+   every configuration (2 rounds) and a 6-tree forest equal to the
+   fixed-point CPU path's on a 200,000-row cut; S4 ``RayXGBRFClassifier(n_estimators=100,
+   max_depth=8).fit`` and ``predict_proba`` on the test rows (B8); S5 a
+   sampled Covertype ``multi:softprob`` with ``logloss`` (column 0) and
+   ``auc`` (column 1), equal to the fixed-point CPU path on a cut; S6 S1
+   over 2 gloo ranks equal to one rank at ``num_actors=2``.
 
 Phase 6's model is trained, and phase 7 run, right after phase 1: later in
 the process ``torch.profiler`` records no device activity for B8's
@@ -2450,6 +2468,10 @@ class _cpu_fixed_point:
                       (E.TorchEngine, "_scales", E.TorchEngine._scales)]
         G.build_histogram, G.dequantize = fixed, H.dequantize_plain
         E.TorchEngine._scales = scales
+        if hasattr(E.TorchEngine, "_tree_scales"):  # a sampled tree's
+            self.saved.append((E.TorchEngine, "_tree_scales",
+                               E.TorchEngine._tree_scales))
+            E.TorchEngine._tree_scales = sampling_fixed_point_scales
         return self
 
     def __exit__(self, *exc):
@@ -5580,6 +5602,467 @@ def phase_ranking(x_higgs, y_higgs, records, rounds=10, depth=RANK_DEPTH,
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 15: stochastic boosting and random forests (B12r, B12f, K2's masked
+# level step, K4's T-tree add)
+# ---------------------------------------------------------------------------
+
+#: phase 15's configurations at the HIGGS split (10 rounds, depth 6)
+SAMPLING_RUNS = (
+    ("S1", {"objective": "binary:logistic", "subsample": 0.8,
+            "colsample_bytree": 0.8, "colsample_bynode": 0.8,
+            "eval_metric": ["logloss", "error@0.3", "error@0.7", "auc"]}),
+    ("S2", {"objective": "binary:logistic",
+            "sampling_method": "gradient_based", "top_rate": 0.2,
+            "other_rate": 0.1, "colsample_bylevel": 0.7}),
+    ("S3", {"objective": "binary:logistic", "colsample_bynode": 0.5}),
+)
+#: the kernel table's rows of phase 15
+SAMPLING_KERNELS = ("B12r", "B12rgoss", "B12f", "K2masked", "K4trees")
+RF_TREES = 100
+RF_DEPTH = 8
+#: int32 operations an H100 SXM issues a second: 64 INT32 lanes an SM
+#: (Hopper white paper) x 132 SMs x 1.98 GHz boost
+H100_INT32_OPS = 64 * 132 * 1.98e9
+#: integer operations of one threefry2x32 draw: 20 rounds of add, rotate
+#: (a funnel shift) and xor, 6 key injections of two adds, the final xor
+THREEFRY_OPS = 20 * 3 + 6 * 2 + 1
+
+
+def sampling_bound_ms(nbytes, int_ops):
+    """``bound_ms`` for integer work: bytes over the memory rate against
+    int32 operations over the card's int32 rate."""
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = int_ops / H100_INT32_OPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def sampling_fixed_point_scales(engine, gh_sel):
+    """A sampled tree's fixed-point scales on the CPU path that sums in the
+    card's fixed point (``_cpu_fixed_point``)."""
+    from xgboost_ray_tpu_torch.ops import histogram as H
+
+    return H.quant_scales(gh_sel, engine.sample_rows_global, engine.coll.max)
+
+
+def sampling_expect(params, rounds, depth, held_out=True, trees=1):
+    """Exact launches of a binary ``train()`` of ``rounds`` rounds with
+    ``params``' sampling: per tree the main path's K1-K3, B12r once a block
+    (uniform) or twice (GOSS), B12f once a tree for bytree and once a level
+    for bylevel and for bynode, K2 masked on every level any mask covers;
+    K4 a round and round 0's, with a held-out set one eval-mode K4 and one
+    B4 a round; a sampled round walks its trees over the training rows (one
+    B4 a round); T > 1 trees take K4's T-tree add."""
+    n_trees = rounds * trees
+    out = train_expect(n_trees, depth)
+    out["K4"] = rounds + 1 + (rounds if held_out else 0)
+    out["K4eval"] = rounds if held_out else 0
+    goss = params.get("sampling_method") == "gradient_based"
+    sampled = goss or params.get("subsample", 1.0) < 1.0
+    out["B12r"] = n_trees * (2 if goss else 1) if sampled else 0
+    per_tree = ((1 if params.get("colsample_bytree", 1.0) < 1.0 else 0)
+                + depth * ((params.get("colsample_bylevel", 1.0) < 1.0)
+                           + (params.get("colsample_bynode", 1.0) < 1.0)))
+    out["B12f"] = n_trees * per_tree
+    out["K2masked"] = n_trees * depth if per_tree else 0
+    out["B4"] = rounds * ((1 if sampled else 0) + (1 if held_out else 0))
+    out["K4trees"] = ((rounds + (rounds if held_out else 0))
+                      if trees > 1 else 0)
+    return out
+
+
+def phase_sampling(x, y, records, rounds=10, depth=6, compare_rows=200_000):
+    """Phase 15 at full width: ``train()`` at the HIGGS split (10,500,000
+    rows train, the last 500,000 the test set, depth 6, 10 rounds, seed 7)
+    unsampled (the main path) and with S1 (uniform rows 0.8, bytree and
+    bynode 0.8, error@t at two thresholds), S2 (GOSS 0.2 / 0.1, bylevel
+    0.7) and S3 (bynode 0.5 over feature weights, a quarter of them 0),
+    each run's launches counted from 0 and checked exactly; B12r (both
+    policies), B12f, K2's masked level step and K4's T-tree add bitwise
+    their plain versions at the runs' shapes and timed; each configuration
+    against the CPU path summing in the card's fixed point on a
+    ``compare_rows``-row cut (2 rounds; dumps equal); S4
+    ``RayXGBRFClassifier(n_estimators=100, max_depth=8)`` fit on the
+    training rows, ``predict_proba`` on the test rows (B8), and a 6-tree
+    forest against the fixed-point CPU path; S5 a sampled Covertype
+    ``multi:softprob`` with ``logloss`` and ``auc``; S6 S1 over 2 gloo ranks
+    against one rank at ``num_actors=2``. The logloss falls in every
+    run."""
+    import torch
+
+    import xgboost_ray_tpu_torch as xrt
+    from xgboost_ray_tpu_torch import distributed as D
+    from xgboost_ray_tpu_torch.distributed import _KeepEngine
+    from xgboost_ray_tpu_torch.engine import (
+        kernel_launches,
+        reset_kernel_launches,
+    )
+    from xgboost_ray_tpu_torch.ops import _build
+    from xgboost_ray_tpu_torch.ops import grow as G
+    from xgboost_ray_tpu_torch.ops import histogram as H
+    from xgboost_ray_tpu_torch.ops import objectives as O
+    from xgboost_ray_tpu_torch.ops import predict as PR
+    from xgboost_ray_tpu_torch.ops import random as R
+    from xgboost_ray_tpu_torch.ops import sampling as SM
+    from xgboost_ray_tpu_torch.ops import split as S
+    from xgboost_ray_tpu_torch.sklearn import RayXGBRFClassifier
+
+    t_phase = time.perf_counter()
+    n = x.shape[0]
+    n_train = n - TEST_ROWS
+    f = x.shape[1]
+    rng = np.random.default_rng(15)
+    fw = rng.random(f).astype(np.float32)
+    fw[rng.permutation(f)[:f // 4]] = 0.0
+    res = {"phase": "sampling", "rows": n, "train_rows": n_train,
+           "test_rows": TEST_ROWS, "rounds": rounds, "max_depth": depth,
+           "feature_weights_zero": int((fw == 0).sum()), "runs": {},
+           "steps_s": {}}
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+
+    def lap(name, since):
+        res["steps_s"][name] = time.perf_counter() - since
+        return time.perf_counter()
+
+    def train(params, rows=None, weights=None, n_rounds=rounds,
+              device="cuda:0", actors=1, held_out=True):
+        hi = n_train if rows is None else rows
+        dtrain = xrt.RayDMatrix(x[:hi], y[:hi], feature_weights=weights)
+        evals = [(dtrain, "train")]
+        if held_out:
+            evals.append((xrt.RayDMatrix(x[n_train:], y[n_train:]), "test"))
+        ev, extra = {}, {}
+        keep = _KeepEngine()
+        builds = _build.compile_count()
+        reset_kernel_launches()
+        if device != "cpu":
+            torch.cuda.synchronize()
+        t = time.perf_counter()
+        bst = xrt.train({"max_depth": depth, "max_bin": 256, "seed": 7,
+                         **params}, dtrain, n_rounds, evals=evals,
+                        evals_result=ev, additional_results=extra,
+                        callbacks=[keep], device=device,
+                        ray_params=xrt.RayParams(num_actors=actors))
+        if device != "cpu":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        check(_build.compile_count() == builds,
+              "phase 15: a kernel build inside train()")
+        return {"bst": bst, "ev": ev, "launches": kernel_launches(),
+                "wall_s": wall, "engine": keep.engine,
+                "round_ms": [r * 1e3 for r in extra["round_times_s"]]}
+
+    def falls(ev, key):
+        ll = ev["test"]["logloss"]
+        check(all(np.isfinite(ll)) and ll[-1] < ll[0],
+              f"{key}: the test logloss does not fall: {ll}")
+        return ll
+
+    # the main path and S1-S3 in turns; each run's launches checked
+    base = train({"objective": "binary:logistic"})
+    base.pop("engine")
+    res["main_path_round_ms_median"] = float(np.median(base["round_ms"]))
+    res["main_path_round_ms"] = base["round_ms"]
+    engines = {}
+    for key, params in SAMPLING_RUNS:
+        r = train(params, weights=fw if key == "S3" else None)
+        engines[key] = r.pop("engine")
+        expect = sampling_expect(params, rounds, depth)
+        for k, v in expect.items():
+            check(r["launches"][k] == v,
+                  f"{key}: {k} launched {r['launches'][k]} times, expected "
+                  f"{v}")
+        out = {"params": params, "launches": r["launches"],
+               "expected": expect, "round_ms": r["round_ms"],
+               "round_ms_median": float(np.median(r["round_ms"])),
+               "train_wall_s": r["wall_s"],
+               "test_logloss": falls(r["ev"], key)}
+        if key == "S1":
+            out["test_error_at"] = {m: r["ev"]["test"][m]
+                                    for m in ("error@0.3", "error@0.7")}
+            check(r["ev"]["test"]["error@0.3"] != r["ev"]["test"]["error@0.7"],
+                  "S1: error@0.3 and error@0.7 are the same sums")
+        if key == "S3":
+            used = set(np.asarray(r["bst"].forest.feature).ravel().tolist())
+            out["zero_weight_features_split"] = sorted(
+                used & set(np.flatnonzero(fw == 0).tolist()))
+            check(not out["zero_weight_features_split"],
+                  f"S3: a feature of weight 0 was split on: {used}")
+        res["runs"][key] = out
+        if key == "S1":
+            for k in ("B12r", "B12f", "K2masked"):
+                records[k]["launches"] = r["launches"][k]
+        if key == "S2":
+            records["B12rgoss"]["launches"] = r["launches"]["B12r"]
+        del r
+    t0 = lap("main_path_and_s1_s3", t_phase)
+    emit({"phase": "sampling_rounds", "card": CARD,
+          "main_path_round_ms_median": res["main_path_round_ms_median"],
+          **{k: res["runs"][k]["round_ms_median"] for k, _ in SAMPLING_RUNS}})
+
+    # B12r against its plain version at the runs' shape (the engine's next
+    # gradients over the 10.5M training rows)
+    e1, e2, e3 = engines["S1"], engines["S2"], engines["S3"]
+    key = R.fold_in(R.fold_in(R.prng_key(7), rounds), G.SALT_SUBSAMPLE)
+    for rec, eng in (("B12r", e1), ("B12rgoss", e2)):
+        gh = eng.gh[0]
+        spec = eng.samp_spec
+        m = SM.row_budget(n_train, spec)
+        cut = SM.goss_counts(n_train, spec)[0] if rec == "B12rgoss" else m
+
+        def kern(gh=gh, spec=spec):
+            return SM.sample_rows(gh, n_train, key, spec)
+
+        def plain(gh=gh, spec=spec):
+            return SM.sample_rows_plain(gh, n_train, key, spec)
+        (rk, gk), (rp, gp) = kern(), plain()
+        torch.cuda.synchronize()
+        for sl in (slice(0, cut), slice(cut, m)):
+            ok = torch.argsort(rk[sl].long(), stable=True)
+            op = torch.argsort(rp[sl].long(), stable=True)
+            check(torch.equal(rk[sl][ok], rp[sl][op]),
+                  f"{rec}: the selected rows differ from the plain version's")
+            check(torch.equal(bits(gk[sl][ok]), bits(gp[sl][op])),
+                  f"{rec}: gh_sel differs from the plain version's")
+        again = kern()
+        check(torch.equal(again[0], rk) and torch.equal(bits(again[1]),
+                                                        bits(gk)),
+              f"{rec}: a rerun differs")
+        u = R.uniform(key, (n_train,), device="cuda")
+        # the function's own work: a draw a row (GOSS: its sampled stage;
+        # the top stage's score is 5 operations a row), the selected rows
+        # and gradients written, GOSS's gradients read once
+        if rec == "B12r":
+            lib = cuda_ms(lambda u=u, m=m: torch.topk(u, m), iters=3)
+            nbytes, ops = m * 12, n_train * THREEFRY_OPS
+        else:
+            score = SM.goss_score(gh)
+            top_n, rand_n = SM.goss_counts(n_train, spec)
+            lib = cuda_ms(lambda: (torch.topk(score, top_n),
+                                   torch.topk(u, rand_n)), iters=3)
+            nbytes = n_train * 8 + m * 12
+            ops = n_train * (THREEFRY_OPS + 5)
+        _kernel_record(records, rec, kern, plain,
+                       sampling_bound_ms(nbytes, ops),
+                       flush, records[rec]["launches"], 0.0, library=lib,
+                       iters=5)
+        records[rec].update(rows=n_train, selected=m)
+        del rk, gk, rp, gp, again, u
+    # B12f: a level's bynode masks (64 x 28) over S3's weights, and S1's
+    # Bernoulli ones
+    log_fw = e3.log_fw
+    nkey = R.fold_in(R.fold_in(key, G.SALT_BYNODE), 5)
+    for lw, rate in ((log_fw, 0.5), (None, 0.8)):
+        mk = G.sample_feature_mask(nkey, f, rate, lw, 64, device="cuda")
+        mp = G.sample_feature_mask_plain(nkey, f, rate, lw, 64,
+                                         device="cuda")
+        check(torch.equal(mk, mp), "B12f: masks differ from the plain ones")
+    _kernel_record(
+        records, "B12f",
+        lambda: G.sample_feature_mask(nkey, f, 0.5, log_fw, 64,
+                                      device="cuda"),
+        lambda: G.sample_feature_mask_plain(nkey, f, 0.5, log_fw, 64,
+                                            device="cuda"),
+        sampling_bound_ms(f * 4 + 64 * f, 64 * f * (THREEFRY_OPS + f)),
+        flush, records["B12f"]["launches"], 0.0)
+    # K2's masked level step at level 5 (32 nodes) of the main path's
+    # shape, a node mask [32, 28]
+    nbt, n_nodes = 257, 32
+    bins, ghl, order, seg = level_inputs(n_train, f, n_nodes, 9, False)
+    hp, _ = H.build_histogram_plain(bins, ghl, order, seg, n_nodes, nbt)
+    del bins, ghl, order, seg
+    g2 = torch.Generator(device="cuda").manual_seed(21)
+    level = dict(
+        hist=hp[0::2].contiguous(), prev_hist=hp[0::2] + hp[1::2],
+        small_is_right=torch.rand(16, generator=g2, device="cuda") < 0.5,
+        active=torch.arange(32, device="cuda") % 13 != 5,
+        feature_mask=G.sample_feature_mask(nkey, f, 0.5, None, n_nodes,
+                                           device="cuda"))
+    cuts = torch.sort(torch.randn(f, nbt - 2, generator=g2, device="cuda"),
+                      dim=1).values
+    p = S.SplitParams()
+    rec_k = S.TreeRecords(G.empty_tree(127, "cuda"), cuts, None, p)
+    rec_p = S.TreeRecords(G.empty_tree(127, "cuda"), cuts, None, p)
+    lk = S.split_level(**level, rec=rec_k)
+    lp = S.split_level_plain(**level, rec=rec_p)
+    torch.cuda.synchronize()
+    pairs = ([(getattr(lk.splits, k), getattr(lp.splits, k))
+              for k in lk.splits._fields]
+             + [(getattr(lk, k), getattr(lp, k))
+                for k in ("node_value", "state", "active", "hist")]
+             + list(zip(rec_k.tree, rec_p.tree)))
+    check(all(torch.equal(bits(a), bits(b)) for a, b in pairs),
+          "K2's masked level step not bitwise equal to its plain version")
+    hist_bytes = n_nodes * f * nbt * 2 * 4
+    _kernel_record(
+        records, "K2masked", lambda: S.split_level(**level, rec=rec_k),
+        lambda: S.split_level_plain(**level, rec=rec_p),
+        bound_ms(2 * hist_bytes + 16 + 32 + 32 * (4 + 38) + n_nodes * f,
+                 n_nodes * f * (3 * nbt + 30 * (nbt - 2))),
+        flush, records["K2masked"]["launches"], 0.0)
+    del hp, level, lk, lp
+    torch.cuda.empty_cache()
+    t0 = lap("b12_k2_holds", t0)
+
+    # S4: the random forest (100 parallel trees, depth 8) fit and predict
+    builds = _build.compile_count()
+    reset_kernel_launches()
+    PR.predict_margin.launches = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    clf = RayXGBRFClassifier(n_estimators=RF_TREES, max_depth=RF_DEPTH,
+                             random_state=7, device="cuda:0")
+    clf.fit(x[:n_train], y[:n_train])
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t
+    rf_launches = kernel_launches()
+    t = time.perf_counter()
+    proba = clf.predict_proba(x[n_train:])
+    predict_s = time.perf_counter() - t
+    b8 = PR.predict_margin.launches
+    check(_build.compile_count() == builds, "S4: a kernel build in fit")
+    pe = np.clip(proba[:, 1], 1e-7, 1 - 1e-7)
+    yt = y[n_train:]
+    rf_ll = float(-np.mean(yt * np.log(pe) + (1 - yt) * np.log(1 - pe)))
+    check(proba.shape == (TEST_ROWS, 2) and np.isfinite(proba).all()
+          and rf_ll < np.log(2.0), f"S4: predict_proba {proba.shape}, "
+                                   f"test logloss {rf_ll}")
+    rf_expect = sampling_expect({"subsample": 0.8, "colsample_bynode": 0.8},
+                                1, RF_DEPTH, held_out=False, trees=RF_TREES)
+    for k, v in rf_expect.items():
+        check(rf_launches[k] == v,
+              f"S4: {k} launched {rf_launches[k]} times, expected {v}")
+    check(b8 >= 1, "S4: predict_proba launched no B8")
+    records["K4trees"]["launches"] = rf_launches["K4trees"]
+    res["S4"] = {"n_estimators": RF_TREES, "max_depth": RF_DEPTH,
+                 "fit_s": fit_s, "predict_proba_s": predict_s,
+                 "b8_launches": b8, "launches": rf_launches,
+                 "test_logloss": rf_ll}
+    emit({"phase": "sampling_forest", **res["S4"]})
+    # K4's T-tree add at the forest's shape: the 100 trees' values over the
+    # training rows
+    del clf, proba
+    torch.cuda.empty_cache()
+    g3 = torch.Generator(device="cuda").manual_seed(23)
+    m0 = torch.randn(n_train, generator=g3, device="cuda")
+    rv = torch.randn((RF_TREES, n_train), generator=g3, device="cuda")
+    lab = (torch.rand(n_train, generator=g3, device="cuda") < 0.5).float()
+    w = torch.ones(n_train, device="cuda")
+    mk, mp = m0.clone(), m0.clone()
+    ghk, sk = O.round_update(mk, rv, lab, w, True)
+    ghp, sp = O.round_update_plain(mp, rv, lab, w, True)
+    torch.cuda.synchronize()
+    check(torch.equal(bits(mk), bits(mp)) and torch.equal(bits(ghk),
+                                                          bits(ghp)),
+          "K4's T-tree add: margins or gradients differ from the plain ones")
+    rel = float(((sk - sp).abs() / sp.abs().clamp_min(1e-30)).max())
+    check(rel <= 1e-5, f"K4's T-tree add: partial sums {rel} relative off")
+    _kernel_record(
+        records, "K4trees",
+        lambda: O.round_update(mk, rv, lab, w, True),
+        lambda: O.round_update_plain(mp, rv, lab, w, True),
+        bound_ms(n_train * (4 * RF_TREES + 16 + 4 + 8),
+                 n_train * (2 * RF_TREES + 40)),
+        flush, records["K4trees"]["launches"], float((sk - sp).abs().max()),
+        iters=5)
+    records["K4trees"].update(trees=RF_TREES, rows=n_train)
+    del m0, rv, lab, w, mk, mp, ghk, ghp
+    torch.cuda.empty_cache()
+    t0 = lap("s4_forest_and_k4_hold", t0)
+
+    # every configuration against the fixed-point CPU path on a cut
+    cmp = {}
+    cmp_runs = list(SAMPLING_RUNS) + [
+        ("S4cut", {"objective": "binary:logistic", "subsample": 0.8,
+                   "colsample_bynode": 0.8, "num_parallel_tree": 6,
+                   "learning_rate": 1.0, "reg_lambda": 1e-5,
+                   "max_depth": RF_DEPTH})]
+    for key, params in cmp_runs:
+        nr = 1 if key == "S4cut" else 2
+        weights = fw if key == "S3" else None
+        card = train(params, rows=compare_rows, weights=weights, n_rounds=nr,
+                     held_out=False)
+        with _cpu_fixed_point(True):
+            cpu = train(params, rows=compare_rows, weights=weights,
+                        n_rounds=nr, device="cpu", held_out=False)
+        same = (card["bst"].get_dump(with_stats=True)
+                == cpu["bst"].get_dump(with_stats=True))
+        cmp[key] = {"rows": compare_rows, "rounds": nr, "dumps_equal": same}
+        check(same, f"{key}: the card's model differs from the fixed-point "
+                    f"CPU path's on {compare_rows} rows")
+        del card, cpu
+    res["cpu_fixed_point"] = cmp
+    t0 = lap("cpu_fixed_point", t0)
+
+    # S5: a sampled Covertype multi:softprob with logloss and auc
+    xc, yc = make_covertype_like(COVERTYPE_ROWS)
+    nc = COVERTYPE_ROWS - COVERTYPE_TEST
+    s5p = {"objective": "multi:softprob", "num_class": 7, "subsample": 0.8,
+           "eval_metric": ["mlogloss", "logloss", "auc"], "max_depth": depth,
+           "max_bin": 256, "seed": 7}
+    dtr = xrt.RayDMatrix(xc[:nc], yc[:nc])
+    dte = xrt.RayDMatrix(xc[nc:], yc[nc:])
+    ev = {}
+    reset_kernel_launches()
+    t = time.perf_counter()
+    xrt.train(s5p, dtr, rounds, evals=[(dtr, "train"), (dte, "test")],
+              evals_result=ev, device="cuda:0",
+              ray_params=xrt.RayParams(num_actors=1))
+    s5_wall = time.perf_counter() - t
+    s5l = kernel_launches()
+    mll = ev["test"]["mlogloss"]
+    check(mll[-1] < mll[0] and all(np.isfinite(ev["test"]["auc"])),
+          f"S5: test mlogloss {mll}, auc {ev['test']['auc']}")
+    check(s5l["B12r"] == rounds * 7 and s5l["SMX"] == 2 * rounds + 1,
+          f"S5: launches {s5l}")
+    cut = 100_000
+    with _cpu_fixed_point(False):
+        card5 = xrt.train(dict(s5p), xrt.RayDMatrix(xc[:cut], yc[:cut]), 2,
+                          device="cuda:0",
+                          ray_params=xrt.RayParams(num_actors=1))
+    with _cpu_fixed_point(True):
+        cpu5 = xrt.train(dict(s5p), xrt.RayDMatrix(xc[:cut], yc[:cut]), 2,
+                         device="cpu", ray_params=xrt.RayParams(num_actors=1))
+    s5_same = (card5.get_dump(with_stats=True)
+               == cpu5.get_dump(with_stats=True))
+    check(s5_same, "S5: the card's model differs from the fixed-point CPU "
+                   "path's")
+    res["S5"] = {"rows": COVERTYPE_ROWS, "train_wall_s": s5_wall,
+                 "launches": s5l, "test_mlogloss": mll,
+                 "test_logloss_column0": ev["test"]["logloss"],
+                 "test_auc_column1": ev["test"]["auc"],
+                 "cut_rows": cut, "cut_dumps_equal_cpu_fixed_point": s5_same}
+    del xc, yc, dtr, dte, card5, cpu5
+    t0 = lap("s5_covertype", t0)
+
+    # S6: S1 over 2 gloo ranks sharing the card, against one rank at
+    # num_actors=2 (the same two blocks)
+    wr = 3
+    s1 = dict(SAMPLING_RUNS[0][1], max_depth=depth, max_bin=256, seed=7)
+    one = train(SAMPLING_RUNS[0][1], n_rounds=wr, actors=2, held_out=False)
+    data = D.share({"x": x[:n_train], "label": y[:n_train]})
+    t = time.perf_counter()
+    out = D.launch_world(D._train_rank, 2, "cuda", data, s1, wr,
+                         {"num_actors": 2}, backend="gloo")
+    two = xrt.RayXGBoostBooster.load_raw(out[0]["model"])
+    same = (two.get_dump(with_stats=True)
+            == one["bst"].get_dump(with_stats=True))
+    res["S6"] = {"rounds": wr, "wall_s": time.perf_counter() - t,
+                 "ranks_equal": out[0]["model"] == out[1]["model"],
+                 "equals_one_rank": same,
+                 "launches_rank0": out[0]["launches"]}
+    check(same and res["S6"]["ranks_equal"],
+          "S6: 2 gloo ranks differ from one rank at num_actors=2")
+    check(out[0]["launches"]["B12r"] == wr,
+          f"S6: rank 0 launched B12r {out[0]['launches']['B12r']} times")
+    del data, out, one, engines, e1, e2, e3
+    torch.cuda.empty_cache()
+    lap("s6_two_ranks", t0)
+    res["phase_s"] = time.perf_counter() - t_phase
+    emit(res)
+    return res
+
+
 def profiled_ms(fn, iters=10):
     """``device_ms`` where ``torch.profiler`` records the kernel, None where
     it records no device time (``PERF.md`` §7)."""
@@ -5763,6 +6246,31 @@ KERNELS = {
                 "and the test set's of the run)", route="cuda",
                 source="xgboost_ray_tpu_torch/csrc/cox.cu",
                 replaces="xgboost_ray_tpu/ops/objectives.py:399"),
+    "B12r": dict(name="B12r row sample, uniform: subsample 0.8 of the "
+                 "10,500,000 HIGGS training rows (threefry keys, radix "
+                 "select, compaction; launches: S1's)", route="cuda",
+                 source="xgboost_ray_tpu_torch/csrc/sampling.cu",
+                 replaces="xgboost_ray_tpu/ops/sampling.py:105"),
+    "B12rgoss": dict(name="B12r row sample, GOSS 0.2 / 0.1: its two stages "
+                     "over the 10,500,000 HIGGS training rows (launches: "
+                     "S2's)", route="cuda",
+                     source="xgboost_ray_tpu_torch/csrc/sampling.cu",
+                     replaces="xgboost_ray_tpu/ops/sampling.py:105"),
+    "B12f": dict(name="B12f feature masks: a level's bynode draw, 64 nodes "
+                 "x 28 features, Gumbel-top-k over feature weights "
+                 "(launches: S1's bytree and bynode draws)", route="cuda",
+                 source="xgboost_ray_tpu_torch/csrc/sampling.cu",
+                 replaces="xgboost_ray_tpu/ops/grow.py:132"),
+    "K2masked": dict(name="K2 level step, masked instantiation: level 5 "
+                     "(16 parents, 32 nodes) under a [32, 28] node mask "
+                     "(launches: S1's)", route="cuda",
+                     source="xgboost_ray_tpu_torch/csrc/split.cu",
+                     replaces="xgboost_ray_tpu/ops/split.py:148"),
+    "K4trees": dict(name="K4 T-tree add: 100 parallel trees' values over "
+                    "the 10,500,000 HIGGS training rows, gh mode "
+                    "(launches: S4's random forest)", route="cuda",
+                    source="xgboost_ray_tpu_torch/csrc/objective.cu",
+                    replaces="xgboost_ray_tpu/engine.py:1413"),
     **{f"B8serve{m}": dict(
         name=f"B8 forest walk: margins, heap layout, a serve batch of {m} "
              f"rows (windows mapping; launches: every batch of the heap "
@@ -5884,6 +6392,13 @@ def run(args):
         phase_ranking(x, y, records)
         emit({"ranking_kernels": {k: records[k] for k in RANKING_KERNELS}})
         return
+    if args.sampling_only:
+        records = {k: dict(v) for k, v in KERNELS.items()}
+        x, y = make_higgs_like(args.rows, 28, seed=0)
+        phase_sampling(x, y, records, compare_rows=min(args.compare_rows,
+                                                        args.rows))
+        emit({"sampling_kernels": {k: records[k] for k in SAMPLING_KERNELS}})
+        return
     if args.facade_only:
         records = {k: dict(v) for k, v in KERNELS.items()}
         x, y = make_higgs_like(args.rows, 28, seed=0)
@@ -5932,6 +6447,9 @@ def run(args):
         x, y, records, compare_rows=min(args.compare_rows, args.rows))
     torch.cuda.empty_cache()
     results["ranking"] = phase_ranking(x, y, records)
+    torch.cuda.empty_cache()
+    results["sampling"] = phase_sampling(
+        x, y, records, compare_rows=min(args.compare_rows, args.rows))
     torch.cuda.empty_cache()
 
     if args.rows < 11_000_000:
@@ -6074,6 +6592,10 @@ def main():
                     help="only the build and phase 14 (learning to rank at "
                          "MSLR-WEB30K's shape and survival:cox at the HIGGS "
                          "shape); prints no result line")
+    ap.add_argument("--sampling-only", action="store_true",
+                    help="only the build and phase 15 (row and column "
+                         "sampling, feature weights, random forests at the "
+                         "HIGGS shape); prints no result line")
     ap.add_argument("--facade-only", action="store_true",
                     help="only the build and phase 10 (the sklearn "
                          "estimators, custom objectives and metrics, files, "

@@ -258,9 +258,13 @@ def test_params_and_objectives_of_the_slice():
             parse_params(bad)
         with pytest.raises(ValueError, match="num_class"):
             jax_parse_params(bad)
+    # logloss (column 0) and auc / aucpr (column 1) train with a softmax
+    # objective (tests/test_torch_sampling_train.py); rmse and error@t do not
+    for ok in ("logloss", "auc", "aucpr"):
+        assert parse_params({**_params(3), "eval_metric": [ok]}).eval_metric
     for bad in ({"objective": "binary:logistic", "eval_metric": "mlogloss"},
-                {**_params(3), "eval_metric": ["logloss"]},
-                {**_params(3), "eval_metric": "auc"},
+                {**_params(3), "eval_metric": ["rmse"]},
+                {**_params(3), "eval_metric": "error@0.7"},
                 {"objective": "binary:logistic", "num_class": 3}):
         with pytest.raises(NotImplementedError):
             parse_params(bad)

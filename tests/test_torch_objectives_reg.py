@@ -245,17 +245,22 @@ def test_xla_transcendentals_bitwise():
 
 
 def test_a10_last_part_raises():
-    """ROADMAP A10's last part trains now (ranking, survival:cox and their
-    metrics, qid); what the port still refuses of it raises: two error@t
-    thresholds in one run, the metrics softmax objectives do not sum, and
+    """Ranking, survival:cox and their metrics, qid, error@t at up to four
+    thresholds a run, and logloss and the AUCs with a softmax objective
+    train now; what the port still refuses of these raises: a fifth
+    error@t threshold, the metrics a softmax objective does not sum, and
     qid with weights (per-group weights)."""
     for name in ("rank:pairwise", "survival:cox"):
         assert to.get_objective(name).name == name
     for metric in ("ndcg", "map@5", "cox-nloglik"):
         tm.check_metric(metric, False)
+    for metric in ("logloss", "auc", "aucpr"):
+        tm.check_metric(metric, True)
+    assert len(tm.error_thresholds(["error@0.3", "error@0.7"])) == 2
     with pytest.raises(NotImplementedError, match="thresholds"):
-        tm.error_threshold(["error@0.3", "error@0.7"])
-    for metric in ("logloss", "auc", "ndcg"):
+        tm.error_thresholds(["error@0.1", "error@0.2", "error@0.3",
+                             "error@0.4", "error@0.6"])
+    for metric in ("rmse", "error", "ndcg"):
         with pytest.raises(NotImplementedError, match="softmax"):
             tm.check_metric(metric, True)
     with pytest.raises(NotImplementedError, match="per-group weight"):

@@ -291,6 +291,27 @@ def test_sample_weight_eval_set_flows_into_metric(binary):
     ("RayXGBRFRegressor", {}, "subsample"),
     ("RayXGBRFClassifier", dict(subsample=1.0, colsample_bynode=1.0),
      "num_parallel_tree"),
+])
+def test_rf_estimators_match_jax(name, kwargs, key):
+    """The random-forest estimators train (their sampled rows and columns,
+    their ``num_parallel_tree``, named by ``key``): the JAX package's model,
+    ``random_state`` its seed, predictions within 1e-6."""
+    x, y = _bc()
+    if name == "RayXGBRFRegressor":
+        y = x[:, 0] * 0.01 + y
+    t, j = _both(name, dict(n_estimators=2, max_depth=2, random_state=4,
+                            **kwargs), x, y)
+    _assert_same_model(t, j)
+    assert t.get_xgb_params()[key] == j.get_xgb_params()[key]
+    assert t.get_booster().num_boosted_rounds() == 1
+    np.testing.assert_allclose(t.predict(x), j.predict(x), rtol=1e-6,
+                               atol=ATOL)
+
+
+@pytest.mark.parametrize("name,kwargs,key", [
+    ("RayXGBClassifier", dict(grow_policy="lossguide"), "grow_policy"),
+    ("RayXGBRegressor", dict(gh_precision="int8"), "gh_precision"),
+    ("RayXGBRFClassifier", dict(booster="dart"), "booster"),
     ("RayXGBClassifier", dict(monotone_constraints="(1,)"),
      "monotone_constraints"),
     ("RayXGBClassifier", dict(interaction_constraints=[[0, 1]]),
@@ -304,10 +325,21 @@ def test_out_of_slice_estimators_raise(name, kwargs, key):
 
 
 def test_feature_weights_and_ranker_raise():
+    """``feature_weights`` in ``fit`` bias the column draws as the JAX
+    package's (a zero-weight feature is never split on); weights of the
+    wrong length raise; the ranker needs qid and a rank:* objective."""
     x, y = _bc()
-    with pytest.raises(NotImplementedError, match="feature_weights"):
+    fw = np.ones(x.shape[1], np.float32)
+    fw[[0, 7, 20, 27]] = 0.0
+    t, j = _both("RayXGBClassifier", dict(n_estimators=3, max_depth=3,
+                                          colsample_bynode=0.5),
+                 x, y, feature_weights=fw)
+    _assert_same_model(t, j)
+    used = set(np.asarray(t.get_booster().forest.feature).ravel().tolist())
+    assert not used & {0, 7, 20, 27}
+    with pytest.raises(ValueError, match="feature_weights"):
         ts.RayXGBClassifier(n_estimators=2, device="cpu").fit(
-            x, y, feature_weights=np.ones(x.shape[1]))
+            x, y, feature_weights=np.ones(3))
     ranker = ts.RayXGBRanker(n_estimators=2, device="cpu")
     assert ranker._default_objective == js.RayXGBRanker._default_objective
     # the ranker trains now; it needs qid and a rank:* objective

@@ -144,14 +144,47 @@ def test_train_without_cuda_raises():
                  ray_params=tx.RayParams(num_actors=1))
 
 
-@pytest.mark.parametrize("key,value", [
-    ("gh_precision", "int8"),
-    ("hist_quant", "int8_block"),
+#: settings the port refused before it sampled rows and columns and grew
+#: parallel trees; each trains now as the JAX package does
+SAMPLING_SETTINGS = [
     ("subsample", 0.5),
     ("colsample_bytree", 0.5),
     ("colsample_bylevel", 0.5),
     ("colsample_bynode", 0.5),
     ("sampling_method", "gradient_based"),
+    ("eval_metric", ["error@0.3", "error@0.7"]),
+    ("num_parallel_tree", 2),
+]
+
+
+@pytest.mark.parametrize("key,value", SAMPLING_SETTINGS)
+def test_sampling_settings_train_like_jax(key, value):
+    """Each setting through ``train()`` on 200 rows, 3 rounds (GOSS with its
+    rates): ``get_dump(with_stats=True)`` equal, history within 1e-6."""
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((200, 4)).astype(np.float32)
+    y = (x[:, 0] + 0.3 * rng.standard_normal(200) > 0).astype(np.float32)
+    params = {"objective": "binary:logistic", "max_depth": 3, "seed": 5,
+              key: value}
+    if key == "sampling_method":
+        params.update(top_rate=0.3, other_rate=0.2)
+    runs = []
+    for pkg, kw in ((jx, {}), (tx, {"device": "cpu"})):
+        dm = pkg.RayDMatrix(x, y)
+        ev = {}
+        bst = pkg.train(params, dm, 3, evals=[(dm, "train")], evals_result=ev,
+                        ray_params=pkg.RayParams(num_actors=1), **kw)
+        runs.append((bst, ev))
+    (jb, jev), (tb, tev) = runs
+    assert tb.get_dump(with_stats=True) == jb.get_dump(with_stats=True)
+    for m in jev["train"]:
+        assert np.allclose(tev["train"][m], jev["train"][m], rtol=0,
+                           atol=1e-6), m
+
+
+@pytest.mark.parametrize("key,value", [
+    ("gh_precision", "int8"),
+    ("hist_quant", "int8_block"),
     ("grow_policy", "lossguide"),
     ("booster", "dart"),
     ("booster", "gblinear"),
@@ -159,8 +192,8 @@ def test_train_without_cuda_raises():
     ("interaction_constraints", [[0, 1]]),
     ("objective", "reg:nope"),
     ("eval_metric", "pre"),
-    ("eval_metric", ["error@0.3", "error@0.7"]),
-    ("num_parallel_tree", 2),
+    ("eval_metric", ["error@0.1", "error@0.2", "error@0.3", "error@0.4",
+                     "error@0.6"]),
     ("feature_parallel", 2),
 ])
 def test_out_of_slice_params_raise(key, value):
@@ -179,7 +212,8 @@ def test_out_of_slice_data_and_evals_raise():
                         (dict(qid=np.zeros(50), weight=np.ones(50)),
                          "per-group weight"),
                         (dict(feature_types=["c", "q", "q"]), "categorical"),
-                        (dict(feature_weights=np.ones(3)), "feature_weights")):
+                        (dict(enable_categorical=True),
+                         "enable_categorical")):
         with pytest.raises(NotImplementedError, match=key):
             tx.RayDMatrix(x, y, **kwargs)
     dm = tx.RayDMatrix(x, y)

@@ -161,6 +161,18 @@ __device__ __forceinline__ float xrt_log_f32(float v) {
   return v == INFINITY ? v : r;
 }
 
+// The logloss term of the metric partial sums (K4's, ops/metrics.py:36): y
+// > 0.5 is the positive class; softplus(z), z = -m for it, m otherwise, as
+// max(z, 0) + log1p(exp(-|z|)), the log1p as log(u) e / (u - 1), u = 1 + e.
+__device__ __forceinline__ float xrt_binary_logloss(float m, float y) {
+  const float z = y > 0.5f ? -m : m;
+  const float e = __expf(-fabsf(z));
+  const float u = __fadd_rn(1.0f, e);
+  const float l1p =
+      u == 1.0f ? e : __fmul_rn(__logf(u), __fdividef(e, __fsub_rn(u, 1.0f)));
+  return __fadd_rn(fmaxf(z, 0.0f), l1p);
+}
+
 // ---------------------------------------------------------------------------
 // The window-32 sum tree of ops/split.tree_sum (the order of XLA's CPU
 // reduce over more than 32 values), fed one value at a time by one thread:
@@ -240,4 +252,49 @@ __device__ __forceinline__ float xrt_tree_finish(XrtTreeAcc& t,
   if (t.cnt[top] == 0) return 0.0f;
   if (t.cnt[top] < s.width[top]) return __fadd_rn(t.acc[top], 0.0f);
   return t.acc[top];
+}
+
+// ---------------------------------------------------------------------------
+// JAX's threefry2x32 (20 rounds) of ops/random.threefry2x32: the one device
+// copy, which the sampling kernels (csrc/sampling.cu) draw their bits from.
+// Element i of a draw of key (k0, k1) has the bits y0 ^ y1 of
+// threefry2x32(key, (i >> 32, i mod 2^32)) (jax_threefry_partitionable).
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t xrt_rotl32(uint32_t x, int r) {
+  return __funnelshift_l(x, x, r);
+}
+
+__device__ __forceinline__ void xrt_threefry2x32(uint32_t k0, uint32_t k1,
+                                                 uint32_t x0, uint32_t x1,
+                                                 uint32_t* y0, uint32_t* y1) {
+  const uint32_t ks[3] = {k0, k1, k0 ^ k1 ^ 0x1BD11BDAu};
+  const int rot[2][4] = {{13, 15, 26, 6}, {17, 29, 16, 24}};
+  x0 += k0;
+  x1 += k1;
+#pragma unroll
+  for (int i = 0; i < 5; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      x0 += x1;
+      x1 = xrt_rotl32(x1, rot[i % 2][j]) ^ x0;
+    }
+    x0 += ks[(i + 1) % 3];
+    x1 += ks[(i + 2) % 3] + (uint32_t)(i + 1);
+  }
+  *y0 = x0;
+  *y1 = x1;
+}
+
+// the 32 random bits of flat element i of a draw
+__device__ __forceinline__ uint32_t xrt_random_bits(uint32_t k0, uint32_t k1,
+                                                    unsigned long long i) {
+  uint32_t y0, y1;
+  xrt_threefry2x32(k0, k1, (uint32_t)(i >> 32), (uint32_t)i, &y0, &y1);
+  return y0 ^ y1;
+}
+
+// jax.random.uniform's float in [0, 1) of the bits: (bits >> 9) * 2^-23
+__device__ __forceinline__ float xrt_bits_to_unit(uint32_t bits) {
+  return __fsub_rn(__uint_as_float((bits >> 9) | 0x3F800000u), 1.0f);
 }

@@ -16,11 +16,20 @@
 // _make_tweedie, _make_hinge, _make_squaredlogerror, _make_pseudohuber),
 // ops/survival.py:49-140 (the AFT pass: survival:aft's gradients over the
 // label bounds, normal and logistic, and aft-nloglik) and the elementwise
-// metrics the round reads, ops/metrics.py:27-105, as twelve sums (PARTIALS
+// metrics the round reads, ops/metrics.py:27-105, as fifteen sums (PARTIALS
 // of ops/objectives.py): sum(w logloss), sum(w wrong), sum(w d^2), sum(w)
 // always, then where the caller's mask names them sum(w |d|), sum(w
 // (log1p m - log1p y)^2), sum(w pseudo-Huber), sum(w |d / y|), sum(w
-// Poisson nll), sum(w wrong at error@t), sum(w AFT nll), sum(w pinball).
+// Poisson nll), sum(w wrong at error@t), sum(w AFT nll), sum(w pinball),
+// and sum(w wrong) at a run's second, third and fourth error@t threshold.
+//
+// With T parallel trees a round (num_parallel_tree, XrtK4Args.n_trees > 1)
+// the one-output kernel adds the round's T row values [T, N] to each
+// margin in turn, m = fma(v_t, 1 / T, m) (XLA's program for the
+// reference's margins.at[:, k].add(row_value / t_par): the division folded
+// into a multiply by the float32 1 / T, which fuses with the add), in
+// registers; that path takes the scalar instantiation (a branch there on
+// the launch's T). T = 1 is the launch as before.
 // The margins and the gradients are bitwise the plain version
 // (ops/objectives.round_update_plain, ops/survival.aft_grad_hess), which
 // is bitwise the reference's compiled CPU program:
@@ -92,7 +101,7 @@
 constexpr int kThreads = 512;
 constexpr int kTileRows = kThreads * 4;  // ops/objectives.K4_TILE_ROWS
 constexpr int kCtasPerSm = 2;            // ops/objectives.K4_CTAS_PER_SM
-constexpr int kParts = 12;               // ops/objectives.PARTIALS
+constexpr int kParts = 15;               // ops/objectives.PARTIALS
 constexpr int kMaxOutputs = 16;          // ops/objectives.K4_MAX_OUTPUTS
 
 // ops/objectives._K4_MODES
@@ -115,14 +124,16 @@ enum {
 // the partial sums (ops/objectives.PARTIALS)
 enum {
   P_LOGLOSS = 0, P_ERROR, P_SQERR, P_WEIGHT, P_ABSERR, P_SQLOGERR, P_PHE,
-  P_APE, P_POISSON, P_ERROR_T, P_AFT, P_PINBALL
+  P_APE, P_POISSON, P_ERROR_T, P_AFT, P_PINBALL, P_ERROR_T2, P_ERROR_T3,
+  P_ERROR_T4
 };
 
 // the objective's folded constants (ops/objectives.K4_CONSTS)
 enum {
   C_HUBER_RECIP = 0, C_HUBER_SLOPE, C_TW_E1, C_TW_E2, C_TW_H1, C_TW_H2,
   C_TW_FACTORED, C_AFT_R, C_AFT_RC, C_AFT_HR, C_AFT_S, C_AFT_S2, C_AFT_HU,
-  C_AFT_LOG_SIGMA, C_THRESHOLD, C_AFT_LOGISTIC, C_ALPHA0, C_SPW, C_COUNT
+  C_AFT_LOG_SIGMA, C_THRESHOLD, C_AFT_LOGISTIC, C_ALPHA0, C_SPW,
+  C_THRESHOLD2, C_THRESHOLD3, C_THRESHOLD4, C_COUNT
 };
 
 // Mirrors ops/_build.K4Args field by field: edit both together.
@@ -146,6 +157,8 @@ struct XrtK4Args {
   int metrics;             // bit i: the partial sum i (i >= 4) is wanted
   int multi;               // 1: the K-output kernel
   float c[C_COUNT];
+  int n_trees;             // T: row_value holds [T, n] (one output)
+  float inv_trees;         // float32 1 / T
 };
 
 constexpr float kTiny = 1.17549435e-38f;  // smallest normal float
@@ -416,6 +429,19 @@ __device__ __forceinline__ void xrt_metrics_ext(float m, float y, float w,
     const bool up = xrt_sigmoid(m) > a.c[C_THRESHOLD];
     acc[P_ERROR_T] += w * (up != (y > 0.5f) ? 1.0f : 0.0f);
   }
+  constexpr int kMoreT =
+      (1 << P_ERROR_T2) | (1 << P_ERROR_T3) | (1 << P_ERROR_T4);
+  if (mask & kMoreT) {
+    const float p = xrt_sigmoid(m);
+    const bool pos = y > 0.5f;
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      if (mask & (1 << (P_ERROR_T2 + j))) {
+        const bool up = p > a.c[C_THRESHOLD2 + j];
+        acc[P_ERROR_T2 + j] += w * (up != pos ? 1.0f : 0.0f);
+      }
+    }
+  }
   if (mask & (1 << P_AFT)) acc[P_AFT] += w * xrt_aft_nll(m, lo, hi, a);
   if ((mask & (1 << P_PINBALL)) && !a.multi) {
     const float al = a.c[C_ALPHA0];
@@ -471,7 +497,9 @@ __device__ __forceinline__ void xrt_set(float4& v, int j, float x) {
 // The rows 4q .. 4q + 3 (q: the thread's vector), by one 16-byte load of
 // each input where all four rows exist and the pointers are aligned (VEC),
 // else row by row; rows past n read as 0. The margins are written by this
-// kernel, so only the other inputs take the read-only path.
+// kernel, so only the other inputs take the read-only path. With T > 1
+// trees (the scalar instantiation only) r.m is the margin with the T row
+// values added in turn, r.r unused.
 template <bool VEC, bool EXT>
 __device__ __forceinline__ void xrt_load(const XrtK4Args& a, long long q,
                                          XrtRows& r) {
@@ -493,8 +521,16 @@ __device__ __forceinline__ void xrt_load(const XrtK4Args& a, long long q,
   for (int j = 0; j < 4; ++j) {
     const long long row = 4 * q + j;
     if (row < a.n) {
-      xrt_set(r.m, j, a.margin[row]);
-      xrt_set(r.r, j, __ldg(a.row_value + row));
+      if (!VEC && a.n_trees > 1) {
+        float m = a.margin[row];
+        for (int t = 0; t < a.n_trees; ++t)
+          m = __fmaf_rn(__ldg(a.row_value + (long long)t * a.n + row),
+                        a.inv_trees, m);
+        xrt_set(r.m, j, m);
+      } else {
+        xrt_set(r.m, j, a.margin[row]);
+        xrt_set(r.r, j, __ldg(a.row_value + row));
+      }
       xrt_set(r.y, j, __ldg(a.label + row));
       xrt_set(r.w, j, __ldg(a.weight + row));
       if (bounds) {
@@ -520,7 +556,9 @@ __device__ __forceinline__ void xrt_rows(const XrtK4Args& a, long long q,
   for (int j = 0; j < 4; ++j) {
     const long long row = 4 * q + j;
     if (row < a.n) {
-      const float m = __fadd_rn(xrt_lane(r.m, j), xrt_lane(r.r, j));
+      const float m = !VEC && a.n_trees > 1
+                          ? xrt_lane(r.m, j)
+                          : __fadd_rn(xrt_lane(r.m, j), xrt_lane(r.r, j));
       xrt_set(mo, j, m);
       const float2 gh = xrt_row<MODE, EXT>(
           m, xrt_lane(r.y, j), xrt_lane(r.w, j),
@@ -782,13 +820,20 @@ extern "C" int xrt_k4(const XrtK4Args* a, void* stream) {
       xrt_k4_multi_kernel<true><<<(unsigned)a->grid, kThreads, 0, s>>>(*a);
     return (int)cudaGetLastError();
   }
-  if (a->mode == XRT_K4_QUANTILE) return (int)cudaErrorInvalidValue;
+  if (a->mode == XRT_K4_QUANTILE || a->n_trees < 1)
+    return (int)cudaErrorInvalidValue;
+  const bool ext = a->metrics != 0 || a->lower != nullptr;
+  if (a->n_trees > 1) {  // T parallel trees: the scalar instantiation
+    const XrtK4Kernel kernel = ext ? k4_kernel<false, true>(a->mode)
+                                   : k4_kernel<false, false>(a->mode);
+    kernel<<<(unsigned)a->grid, kThreads, 0, s>>>(*a);
+    return (int)cudaGetLastError();
+  }
   const bool vec = aligned16(a->margin) && aligned16(a->row_value) &&
                    aligned16(a->label) && aligned16(a->weight) &&
                    aligned16(a->lower) && aligned16(a->upper) &&
                    (a->mode == XRT_K4_EVAL || aligned16(a->gh));
   // EXT: the sums past the first four, or the bounds (aft-nloglik, AFT)
-  const bool ext = a->metrics != 0 || a->lower != nullptr;
   const XrtK4Kernel kernel =
       vec ? (ext ? k4_kernel<true, true>(a->mode)
                  : k4_kernel<true, false>(a->mode))

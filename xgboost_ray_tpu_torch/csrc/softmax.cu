@@ -3,7 +3,9 @@
 // modes:
 //   training (XRT_SMX_TRAIN): margins += the round's K row values [K, N],
 //     written back; the mlogloss / merror / weight partial sums of the new
-//     margins; the next round's gradients as [K, N, 2] planes (class k's
+//     margins (with logloss0, also the binary logloss of column 0, the
+//     reference's logloss metric under a softmax objective,
+//     ops/metrics.py:36); the next round's gradients as [K, N, 2] planes (class k's
 //     [N, 2] contiguous, what K1-K3 read);
 //   eval (XRT_SMX_EVAL): the same without gradients (a held-out set);
 //   transform (XRT_SMX_PROB / XRT_SMX_CLASS): probabilities [N, K] or the
@@ -28,8 +30,10 @@
 //   - labels cast as label_class casts them (cvt.rzi: truncated,
 //     saturated, NaN to 0); the mlogloss term's class wraps in [-K, 0) and
 //     is NaN beyond, as take_along_axis gives.
-// The partial sums are one f32 triple per CTA, reduced in a fixed order (no
-// float atomics: reruns are bitwise); the wrapper adds them in f64.
+// The partial sums are four f32 per CTA, reduced in a fixed order (no
+// float atomics: reruns are bitwise); the wrapper adds them in f64. The
+// column-0 logloss term is K4's (xrt_binary_logloss): within 1e-5 relative
+// of the plain sum, like K4's.
 //
 // What bounds it on an H100: bytes (training at K = 7: 148 bytes a row,
 // margins read and written, K row values, label and weight, K (g, h)
@@ -64,7 +68,7 @@ struct XrtSoftmaxArgs {
   const float* label;      // [n] (training, eval)
   const float* weight;     // [n] (training, eval)
   float* gh;               // [k, n, 2] (training)
-  float* part;             // [grid, 3] (training, eval)
+  float* part;             // [grid, 4] (training, eval)
   float* out;              // [n, k] probabilities or [n] classes
   long long n;
   int k, mode;
@@ -75,6 +79,7 @@ struct XrtSoftmaxArgs {
   int front0, top;         // the window tree over classes (wide path)
   int front[kLevels];
   int grid;                // CTAs: the register path's persistent grid
+  int logloss0;            // 1: the fourth partial sum (column 0's logloss)
 };
 
 constexpr float kTiny = 1.17549435e-38f;  // smallest normal float
@@ -97,35 +102,39 @@ __device__ __forceinline__ float2 xrt_gh(float p, bool hot, float w) {
   return make_float2(g, xrt_ftz(__fmul_rn(t, w)));
 }
 
-// The CTA's three partial sums in a fixed order (xor tree in each warp,
+// The CTA's four partial sums in a fixed order (xor tree in each warp,
 // then the warps' sums in order), written by thread 0.
 __device__ __forceinline__ void xrt_partials(float a, float b, float c,
-                                             float* part) {
-  __shared__ float ws[3][kThreads / 32];
+                                             float d, float* part) {
+  __shared__ float ws[4][kThreads / 32];
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) {
     a = __fadd_rn(a, __shfl_xor_sync(0xffffffffu, a, o));
     b = __fadd_rn(b, __shfl_xor_sync(0xffffffffu, b, o));
     c = __fadd_rn(c, __shfl_xor_sync(0xffffffffu, c, o));
+    d = __fadd_rn(d, __shfl_xor_sync(0xffffffffu, d, o));
   }
   const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
   if (lane == 0) {
     ws[0][wid] = a;
     ws[1][wid] = b;
     ws[2][wid] = c;
+    ws[3][wid] = d;
   }
   __syncthreads();
   if (threadIdx.x == 0) {
-    float s0 = ws[0][0], s1 = ws[1][0], s2 = ws[2][0];
+    float s0 = ws[0][0], s1 = ws[1][0], s2 = ws[2][0], s3 = ws[3][0];
     for (int i = 1; i < kThreads / 32; ++i) {
       s0 = __fadd_rn(s0, ws[0][i]);
       s1 = __fadd_rn(s1, ws[1][i]);
       s2 = __fadd_rn(s2, ws[2][i]);
+      s3 = __fadd_rn(s3, ws[3][i]);
     }
-    float* p = part + (long long)blockIdx.x * 3;
+    float* p = part + (long long)blockIdx.x * 4;
     p[0] = s0;
     p[1] = s1;
     p[2] = s2;
+    p[3] = s3;
   }
 }
 
@@ -221,7 +230,8 @@ __global__ void __launch_bounds__(kThreads)
   const int stage_floats = a.shared_bytes / (2 * (int)sizeof(float));
   const long long n_tiles = (a.n + kThreads - 1) / kThreads;
   const int r = threadIdx.x;
-  float acc_ll = 0.f, acc_wrong = 0.f, acc_w = 0.f;  // this thread's rows
+  // this thread's rows' sums
+  float acc_ll = 0.f, acc_wrong = 0.f, acc_w = 0.f, acc_l0 = 0.f;
   long long tile = blockIdx.x;
   if (tile < n_tiles) xrt_stage<kLabels>(a, smem, tile);
   for (int b = 0; tile < n_tiles; tile += gridDim.x, b ^= 1) {
@@ -260,6 +270,9 @@ __global__ void __launch_bounds__(kThreads)
         v[k] = x;
       }
     }
+    if (kLabels && live && a.logloss0)
+      acc_l0 = __fadd_rn(acc_l0, __fmul_rn(w, xrt_binary_logloss(
+                                              v[0], rest[K * kThreads + r])));
     // the max, the first argmax (merror) and the label's shifted margin
     float mx = v[0], best = v[0];
     int arg = 0;
@@ -317,7 +330,7 @@ __global__ void __launch_bounds__(kThreads)
     }
     __syncthreads();  // the buffer is free for the copy after the next
   }
-  if (kLabels) xrt_partials(acc_ll, acc_wrong, acc_w, a.part);
+  if (kLabels) xrt_partials(acc_ll, acc_wrong, acc_w, acc_l0, a.part);
 }
 
 // ---------------------------------------------------------------------------
@@ -419,7 +432,10 @@ __global__ void __launch_bounds__(kThreads)
         yk >= 0 ? xrt_ftz(__fsub_rn(my, mx)) : __int_as_float(0x7fc00000);
     const float ll = live ? __fmul_rn(w, __fsub_rn(logf(s), dy)) : 0.f;
     const float wrong = live && arg != yi ? w : 0.f;
-    xrt_partials(ll, wrong, w, a.part);
+    const float l0 = live && a.logloss0
+                         ? __fmul_rn(w, xrt_binary_logloss(m[0], a.label[row]))
+                         : 0.f;
+    xrt_partials(ll, wrong, w, l0, a.part);
   }
 }
 
@@ -500,7 +516,7 @@ extern "C" int xrt_softmax_ctas(const XrtSoftmaxArgs* a, int* ctas) {
 
 // One launch of the pass over a->n rows: a->grid CTAs (register path,
 // from xrt_softmax_ctas, which also set the kernel's attributes) or
-// ceil(n / 256) (wide path), a->part holding that many triples
+// ceil(n / 256) (wide path), a->part holding that many quadruples
 // (ops/objectives.softmax_update).
 extern "C" int xrt_softmax(const XrtSoftmaxArgs* a, void* stream) {
   if (a->n <= 0) return 0;

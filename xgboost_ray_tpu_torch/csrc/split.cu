@@ -45,6 +45,11 @@
 // shared memory), and CTA 0 elects the node's split and writes it, its
 // leaf value, the nine tree records, the state code K3 reads and the next
 // level's active flags.
+// Column sampling takes the masked instantiation (MASKED): one predicated
+// load of the [F] or [n_nodes, F] mask a (node, feature), and a masked
+// feature's candidates score -inf (ops/split.py:148-155), still in the
+// election, so the first-max rule is the reference's; the unmasked
+// instantiation is the main path's kernel as it was.
 // What bounds it: bytes are tiny (the level's histogram read once, the
 // formed one written once: 3.7 MB at level 5 of the main path, about a
 // microsecond); the scoring is a few dozen float ops per candidate with
@@ -98,6 +103,8 @@ struct XrtLevelIn {
   int base;     // heap offset of the level: n_nodes - 1
   int cluster;  // CTAs per node
   int fpc;      // features per CTA
+  const uint8_t* mask;  // [mask_rows, F] feature mask (column sampling) or
+  int mask_rows;        // null; 1: one row for every node, else n_nodes
 };
 
 struct XrtLevelOut {
@@ -344,10 +351,13 @@ __device__ __forceinline__ void xrt_block_prefix(const float* tg,
 // feature f, as (gain, flat index, default_left), the same in every lane.
 // Lane c scores half-block c: bins [8 (c % 2), 8 (c % 2) + 8) of block
 // c / 2, so every lane scores its candidates in the same loop steps.
+// A masked feature's candidates score -inf (their default_left as
+// computed), so they still take part in the first-max election.
+template <bool MASKED>
 __device__ __forceinline__ void xrt_score_feature(
     const XrtTreeArgs& t, int f, const float* sg, const float* sh,
     const float* tg, const float* th, float gp, float hp, float parent,
-    float* out_gain, int* out_idx, int* out_dl) {
+    bool masked, float* out_gain, int* out_idx, int* out_dl) {
   const int lane = threadIdx.x & 31;
   const int nb = t.nbt - 1;
   const int ncand = nb - 1;  // candidate s: bins <= s go left
@@ -391,7 +401,7 @@ __device__ __forceinline__ void xrt_score_feature(
       const float HL = has_pre ? lh + ph : lh;
       const float gml = xrt_gain(GL + gm, HL + hm, gp, hp, parent, t);
       const float gmr = xrt_gain(GL, HL, gp, hp, parent, t);
-      const float gain = fmaxf(gml, gmr);
+      const float gain = MASKED && masked ? -INFINITY : fmaxf(gml, gmr);
       if (cand && xrt_better(gain, base_idx + i, best, bidx)) {
         best = gain;
         bidx = base_idx + i;
@@ -423,6 +433,9 @@ __device__ __forceinline__ void xrt_cluster_wait() {
   asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
+// MASKED: the feature-masked instantiation (column sampling); the
+// unmasked one is the main path's kernel as it was.
+template <bool MASKED>
 __global__ void __launch_bounds__(XRT_SPLIT_MAX_WARPS * 32)
 xrt_split_level_kernel(XrtTreeArgs t, XrtLevelIn in, XrtLevelOut out) {
   extern __shared__ float smem[];
@@ -485,7 +498,11 @@ xrt_split_level_kernel(XrtTreeArgs t, XrtLevelIn in, XrtLevelOut out) {
     __syncwarp();
     float g;
     int idx, dl;
-    xrt_score_feature(t, f, sg, sh, tg, th, gp, hp, parent, &g, &idx, &dl);
+    const bool masked =
+        MASKED &&
+        __ldg(in.mask + (in.mask_rows > 1 ? (size_t)node * F : 0) + f) == 0;
+    xrt_score_feature<MASKED>(t, f, sg, sh, tg, th, gp, hp, parent, masked,
+                              &g, &idx, &dl);
     if (xrt_better(g, idx, best, bidx)) {
       best = g;
       bidx = idx;
@@ -596,8 +613,11 @@ static int xrt_launch_level(const XrtTreeArgs& t, XrtLevelIn in,
   const int plane = (t.nbt - 1) + ((t.nbt - 1) >> 4) + 1;
   const size_t smem =
       (size_t)nwarps * (2 * plane + 2 * XRT_MAX_SCAN_BLOCKS) * sizeof(float);
+  const bool masked = in.mask != nullptr;
+  void (*kernel)(XrtTreeArgs, XrtLevelIn, XrtLevelOut) =
+      masked ? xrt_split_level_kernel<true> : xrt_split_level_kernel<false>;
   if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(xrt_split_level_kernel,
+    err = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
     if (err != cudaSuccess) return (int)err;
@@ -614,7 +634,7 @@ static int xrt_launch_level(const XrtTreeArgs& t, XrtLevelIn in,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, xrt_split_level_kernel, t, in, out);
+  err = cudaLaunchKernelEx(&cfg, kernel, t, in, out);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -622,7 +642,8 @@ static int xrt_launch_level(const XrtTreeArgs& t, XrtLevelIn in,
 // One level: hist is K1's full histogram [n_nodes, F, nbt, 2] (prev_hist
 // null), or the smaller children's [n_nodes / 2, ...] with prev_hist and
 // small_is_right. active [n_nodes]; outputs [n_nodes] (node_gh [n_nodes, 2],
-// active_next [2 n_nodes]); hist_out [n_nodes, F, nbt, 2] or null.
+// active_next [2 n_nodes]); hist_out [n_nodes, F, nbt, 2] or null; mask
+// [mask_rows, F] (mask_rows 1 or n_nodes) or null.
 extern "C" int xrt_split_level(const XrtTreeArgs* t, const float* hist,
                                const float* prev_hist,
                                const uint8_t* small_is_right,
@@ -631,9 +652,12 @@ extern "C" int xrt_split_level(const XrtTreeArgs* t, const float* hist,
                                uint8_t* default_left, uint8_t* valid,
                                float* node_gh, float* node_value,
                                uint8_t* state, uint8_t* active_next,
-                               float* hist_out, void* stream) {
+                               float* hist_out, const uint8_t* mask,
+                               int mask_rows, void* stream) {
+  if (mask != nullptr && mask_rows != 1 && mask_rows != n_nodes)
+    return (int)cudaErrorInvalidValue;
   XrtLevelIn in = {hist, prev_hist, small_is_right, active, n_nodes,
-                   n_nodes - 1, 1, 1};
+                   n_nodes - 1, 1, 1, mask, mask_rows};
   XrtLevelOut out = {gain, feature, split_bin, default_left, valid,
                      node_gh, node_value, state, active_next, hist_out};
   return xrt_launch_level(*t, in, out, (cudaStream_t)stream);
@@ -654,7 +678,8 @@ extern "C" int xrt_find_splits(const float* hist, int n_nodes, int n_features,
   t.reg_alpha = reg_alpha;
   t.gamma = gamma;
   t.min_child_weight = min_child_weight;
-  XrtLevelIn in = {hist, nullptr, nullptr, nullptr, n_nodes, n_nodes - 1, 1, 1};
+  XrtLevelIn in = {hist,    nullptr,     nullptr, nullptr, n_nodes,
+                   n_nodes - 1, 1, 1,     nullptr, 0};
   XrtLevelOut out = {gain, feature, split_bin, default_left, valid,
                      node_gh, nullptr, nullptr, nullptr, nullptr};
   return xrt_launch_level(t, in, out, (cudaStream_t)stream);

@@ -354,7 +354,8 @@ def _train_rank(rank: int, world: int, data: Dict[str, Optional[torch.Tensor]],
     ``eval_names`` (default ``["train"]``), ``eval_data`` (beside the
     names: None for the training matrix, else a held-out set's ``data``
     with its ``sharding``; default all None), ``feature_names``,
-    ``feature_types``, ``callbacks``, ``distributed_callbacks``,
+    ``feature_types``, ``feature_weights``, ``callbacks``,
+    ``distributed_callbacks``,
     ``verbose_eval``, ``early_stopping_rounds``, ``maximize``, ``obj``,
     ``feval``, ``xgb_model`` (``save_raw`` bytes), ``keep_bins``.
     Returns the model (``save_raw`` bytes), evals_result,
@@ -376,7 +377,8 @@ def _train_rank(rank: int, world: int, data: Dict[str, Optional[torch.Tensor]],
     options = dict(options or {})
     dm = _matrix(data, options.get("sharding", "INTERLEAVED"),
                  feature_names=options.get("feature_names"),
-                 feature_types=options.get("feature_types"))
+                 feature_types=options.get("feature_types"),
+                 feature_weights=options.get("feature_weights"))
     dcbs = options.get("distributed_callbacks")
     names = options.get("eval_names", ["train"])
     evals = [(dm if ed is None else _matrix(ed, ed["sharding"]), name)

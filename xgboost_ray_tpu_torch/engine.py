@@ -57,6 +57,18 @@ all-reduce; the host reads the areas from the merged bins. ``auc_exact``
 is a host metric: each rank's rows' rank statistic, combined over the
 ranks like a custom metric (``engine.py:1953-1990``).
 
+Stochastic boosting (``engine.py:1315-1420``): a round grows K x T trees
+(``num_parallel_tree`` T, one output when T > 1), tree k T + t with the key
+``fold_in(fold_in(PRNGKey(seed), iteration_offset + i), k T + t)``. A
+row-sampled tree draws each of this rank's blocks of the JAX layout (the
+world's rows in shard order, padded to ``num_actors`` blocks;
+``_sample_blocks``) with B12r, grows over the compacted rows (their bins
+gathered, a drawn padding slot a row of missing bins and zero gradients)
+at its own fixed-point scales (``_tree_scales``), and every training
+row's value comes from one B4 walk of the round's trees. The column masks
+are B12f's (``ops/grow.build_tree``). K4 adds a round's T trees' values
+in turn (its T-tree add), on the training set and each held-out set.
+
 An init booster (``xgb_model``) starts every set's margins at ``base +
 booster.predict_margin(x) - its base margin`` (B8 on the card, the plain
 walk on the CPU) and its forest goes before the new trees.
@@ -110,11 +122,15 @@ from xgboost_ray_tpu_torch.models.booster import RayXGBoostBooster, stack_trees
 from xgboost_ray_tpu_torch.ops import binning
 from xgboost_ray_tpu_torch.ops.cox import CoxSetup, cox_round, cox_setup
 from xgboost_ray_tpu_torch.ops.grow import (
+    SALT_BYTREE,
+    SALT_GOSS,
+    SALT_SUBSAMPLE,
     GrowConfig,
     Tree,
     build_tree,
     empty_tree,
     predict_tree_binned,
+    sample_feature_mask,
 )
 from xgboost_ray_tpu_torch.ops.histogram import (
     build_histogram,
@@ -133,12 +149,12 @@ from xgboost_ray_tpu_torch.ops.metrics import (
     auc_histogram,
     auc_scale,
     auc_score,
-    error_threshold,
     k4_slot,
     metric_values,
     parse_metric_name,
     rank_metric_contrib,
     rank_metric_np,
+    threshold_consts,
 )
 from xgboost_ray_tpu_torch.ops.objectives import (
     as_alphas,
@@ -147,11 +163,17 @@ from xgboost_ray_tpu_torch.ops.objectives import (
     round_update_multi,
     softmax_update,
 )
+from xgboost_ray_tpu_torch.ops.random import fold_in, prng_key
 from xgboost_ray_tpu_torch.ops.ranking import (
     GroupLayout,
     build_group_rows,
     rank_grad_hess,
     shard_group_offsets,
+)
+from xgboost_ray_tpu_torch.ops.sampling import (
+    row_budget,
+    sample_rows,
+    spec_from_params,
 )
 from xgboost_ray_tpu_torch.ops.split import (
     SplitParams,
@@ -171,7 +193,8 @@ def kernel_counters() -> Dict[str, Callable]:
             "K4": round_update, "B4": predict_tree_binned,
             "SMX": softmax_update, "B9a": auc_histogram,
             "B13": rank_grad_hess, "B9r": rank_metric_contrib,
-            "B14": cox_round}
+            "B14": cox_round, "B12r": sample_rows,
+            "B12f": sample_feature_mask}
 
 
 def kernel_launches() -> Dict[str, int]:
@@ -181,6 +204,8 @@ def kernel_launches() -> Dict[str, int]:
     out = {k: fn.launches for k, fn in kernel_counters().items()}
     out["K4eval"] = round_update.eval_launches
     out["SMXeval"] = softmax_update.eval_launches
+    out["K2masked"] = split_level.launches_masked
+    out["K4trees"] = round_update.tree_launches
     return out
 
 
@@ -189,6 +214,8 @@ def reset_kernel_launches() -> None:
         fn.launches = 0
     round_update.eval_launches = 0
     softmax_update.eval_launches = 0
+    split_level.launches_masked = 0
+    round_update.tree_launches = 0
 
 
 def _concat_shards(shards: Sequence[Dict[str, Optional[np.ndarray]]]):
@@ -293,12 +320,14 @@ class TorchEngine:
         feature_names: Optional[List[str]] = None,
         feature_types: Optional[List[str]] = None,
         custom_objective: bool = False,
+        feature_weights: Optional[np.ndarray] = None,
     ):
         """``shards``: this rank's shard dicts; ``evals``: (shards, name)
         pairs, ``shards`` itself (the same object) for the training set;
         ``init_booster``: the model training continues;
         ``custom_objective``: every round's gradients come from
-        ``step(gh_custom=...)``."""
+        ``step(gh_custom=...)``; ``feature_weights``: [F] non-negative
+        weights of the column-sampling draws."""
         self.params = params
         self.device = resolve_device(device)
         self.coll = Collectives()
@@ -337,17 +366,21 @@ class TorchEngine:
                             for m in self.device_metrics)
         # the partial sums the all-reduce carries: K4's first four and the
         # others the metrics read (the softmax pass's three)
-        n_parts = len(self.objective.partials)
-        self.live_parts = (tuple(range(n_parts)) if self.objective.softmax
+        # the softmax pass's column-0 logloss (the reference's logloss
+        # under a softmax objective) only where a metric reads it
+        self.logloss0 = self.objective.softmax and any(
+            parse_metric_name(m)[0] == "logloss" for m in self.metric_names)
+        self.live_parts = ((0, 1, 2) + ((3,) if self.logloss0 else ())
+                           if self.objective.softmax
                            else tuple(sorted({0, 1, 2, 3} | {
-                               k4_slot(m) for m in self.device_metrics}
-                               - {None})))
+                               k4_slot(m, self.device_metrics)
+                               for m in self.device_metrics} - {None})))
         alpha0 = as_alphas(params.quantile_alpha)
         # the objective K4 runs, with this run's metric constants (error@t's
         # threshold, the quantile metric's alpha)
         self.k4_objective = dataclasses.replace(
             self.objective, consts=self.objective.consts._replace(
-                threshold=error_threshold(self.metric_names),
+                **threshold_consts(self.metric_names),
                 alpha0=float(np.float32(alpha0[0])) if len(alpha0) == 1
                 else 0.5))
         if (any(parse_metric_name(m)[0] == "quantile"
@@ -372,6 +405,15 @@ class TorchEngine:
                 f"port sums it over one output only")
 
         self.custom_objective = custom_objective
+        # parallel trees (num_parallel_tree T: a round grows K x T trees,
+        # tree k T + t for output k) and the round's random draws
+        self.t_par = max(1, int(params.num_parallel_tree))
+        if self.t_par > 1 and self.n_outputs > 1:
+            raise NotImplementedError(
+                f"num_parallel_tree={self.t_par} with {params.objective} "
+                f"({self.n_outputs} outputs): the port adds parallel trees "
+                f"of one output only (K4's T-tree add).")
+        self.samp_spec = spec_from_params(params)
         x, label, weight, base_margin, lo, hi = _concat_shards(shards)
         if self.objective.survival and lo is None and label is None:
             raise ValueError(
@@ -417,6 +459,9 @@ class TorchEngine:
                 f"objective {params.objective!r} requires qid")
         self.cox = (_CoxRows(self.label, self.weight, self.coll)
                     if self.with_cox else None)
+        self.log_fw = self._log_feature_weights(feature_weights)
+        self.blocks = (self._sample_blocks(len(shards))
+                       if self.samp_spec is not None else ())
         # one entry a round: its tree, or with K outputs its K trees
         # ([K, heap] fields)
         self.trees: List[Tree] = []
@@ -450,6 +495,56 @@ class TorchEngine:
                                           dtype=torch.float32, device=dev),
                 self.label, self.weight, lower=self.lower, upper=self.upper)
             self.qscale = self._scales()
+
+    def _log_feature_weights(self, feature_weights: Optional[np.ndarray]
+                             ) -> Optional[torch.Tensor]:
+        """log(feature_weights) [F] f32 on the device (-inf at weight 0),
+        taken on the host as the reference takes it, after its checks
+        (``engine.py:475-490``); None without weights."""
+        if feature_weights is None:
+            return None
+        fw = np.asarray(feature_weights, np.float32).ravel()
+        if fw.shape[0] != self.n_features:
+            raise ValueError(
+                f"feature_weights has {fw.shape[0]} entries but the data "
+                f"has {self.n_features} features.")
+        if (fw < 0).any():
+            raise ValueError("feature_weights must be non-negative.")
+        if fw.sum() <= 0:
+            raise ValueError("feature_weights must not be all zero.")
+        with np.errstate(divide="ignore"):
+            return _to_device(np.log(fw), self.device)
+
+    def _sample_blocks(self, n_shards: int) -> Tuple[Tuple[int, int, int], ...]:
+        """The row-sampling blocks this rank draws: the JAX package's device
+        blocks (``engine.py:827-856``: the world's rows in shard order,
+        padded to ``num_actors`` blocks of ``slots`` rows, the padding at the
+        end), each (block index, its first row in this rank's rows, its real
+        rows). Each rank's rows must be whole blocks: at world 1 they are;
+        above it, shards of the block size (``num_actors`` 2, or rows a
+        multiple of ``num_actors``)."""
+        dev = self.device
+        n_actors = int(self.coll.sum(torch.tensor(
+            [n_shards], dtype=torch.int64, device=dev)).item())
+        counts = self.coll.row_counts(self.n_rows, dev)
+        start = sum(counts[:self.coll.rank])
+        end = start + self.n_rows
+        n = self.n_global
+        slots = -(-max(n, n_actors) // n_actors)
+        if start % slots or (end % slots and end != n):
+            raise NotImplementedError(
+                f"row sampling: this rank's rows [{start}, {end}) are not "
+                f"whole blocks of {slots} rows (the reference's device "
+                f"blocks at num_actors={n_actors}); use num_actors 1 or 2 "
+                f"or a row count divisible by num_actors.")
+        last = n_actors if end == n else end // slots
+        self.sample_slots = slots
+        self.sample_rows_global = n_actors * row_budget(slots,
+                                                        self.samp_spec)
+        self.sample_padding = last * slots > end
+        return tuple((d, d * slots - start,
+                      max(0, min(slots, n - d * slots)))
+                     for d in range(start // slots, last))
 
     @staticmethod
     def _host_label(label: Optional[np.ndarray], n: int) -> np.ndarray:
@@ -569,17 +664,20 @@ class TorchEngine:
                 with_gh: bool = True, lower: Optional[torch.Tensor] = None,
                 upper: Optional[torch.Tensor] = None):
         """The round pass over one set: ``margins`` [N, K] += ``row_value``
-        [K, N].T in place; (gh [K, N, 2] or None, its metric partial sums).
-        K4 for one output (its AFT modes with the label bounds), K4's
-        K-output kernel for K quantiles, the softmax pass for K classes."""
+        [K, N].T in place (one output's T parallel trees: [T, N], added
+        tree by tree); (gh [K, N, 2] or None, its metric partial sums). K4
+        for one output (its AFT modes with the label bounds), K4's K-output
+        kernel for K quantiles, the softmax pass for K classes."""
         obj = self.objective
         if obj.softmax:
-            return softmax_update(margins, row_value, label, weight, with_gh)
+            return softmax_update(margins, row_value, label, weight, with_gh,
+                                  self.logloss0)
         if obj.kind == "quantile":
             return round_update_multi(margins, row_value, label, weight,
                                       self.k4_objective,
                                       with_gh, self.device_metrics)
-        gh, sums = round_update(margins.view(-1), row_value.view(-1), label,
+        rv = row_value if row_value.shape[0] > 1 else row_value.view(-1)
+        gh, sums = round_update(margins.view(-1), rv, label,
                                 weight, self.k4_objective,
                                 self.params.scale_pos_weight, with_gh,
                                 self.device_metrics, lower, upper)
@@ -642,21 +740,53 @@ class TorchEngine:
             self.qscale = self._scales()
         coll = self.coll
         coll.bytes.total = 0
-        k_out = self.n_outputs
-        forest = empty_tree(self.cfg.heap_size, self.device, k_out)
-        row_value = torch.empty((k_out, self.n_rows), dtype=torch.float32,
-                                device=self.device)
+        p = self.params
+        k_out, t_par = self.n_outputs, self.t_par
+        n_trees = k_out * t_par
+        forest = empty_tree(self.cfg.heap_size, self.device, n_trees)
+        sampled = self.samp_spec is not None
+        row_value = (None if sampled else
+                     torch.empty((n_trees, self.n_rows), dtype=torch.float32,
+                                 device=self.device))
+        per_level = p.colsample_bylevel < 1.0 or p.colsample_bynode < 1.0
+        # the round's key (``engine.py:1884``), only where a draw reads it;
+        # tree k T + t folds in its index (``:1317``)
+        rng = (fold_in(prng_key(p.seed), self.iteration_offset + iteration)
+               if sampled or per_level or p.colsample_bytree < 1.0 else None)
         for k in range(k_out):
-            build_tree(
-                self.bins, self.gh[k], self.cuts, self.cfg,
-                feat_has_missing=self.feat_has_missing,
-                allreduce=coll.sum if coll.world > 1 else None,
-                qscale=None if self.qscale is None else self.qscale[k],
-                tree=Tree(*[f[k] for f in forest]), row_value=row_value[k],
-            )
-        # one output: the round's tree itself ([heap] fields), as before
-        walked = forest if k_out > 1 else Tree(*[f[0] for f in forest])
+            for t in range(t_par):
+                i = k * t_par + t
+                key = None if rng is None else fold_in(rng, i)
+                bins, gh = self.bins, self.gh[k]
+                qscale = None if self.qscale is None else self.qscale[k]
+                if sampled:
+                    bins, gh, qscale = self._sample(key, gh)
+                fmask = None
+                if p.colsample_bytree < 1.0:
+                    fmask = sample_feature_mask(
+                        fold_in(key, SALT_BYTREE), self.n_features,
+                        p.colsample_bytree, self.log_fw, device=self.device)
+                build_tree(
+                    bins, gh, self.cuts, self.cfg,
+                    feat_has_missing=self.feat_has_missing,
+                    allreduce=coll.sum if coll.world > 1 else None,
+                    qscale=qscale, tree=Tree(*[f[i] for f in forest]),
+                    row_value=None if sampled else row_value[i],
+                    feature_mask=fmask,
+                    level_key=key if per_level else None,
+                    colsample_bylevel=p.colsample_bylevel,
+                    colsample_bynode=p.colsample_bynode,
+                    feature_log_weights=self.log_fw,
+                )
+        # one tree a round: the round's tree itself ([heap] fields)
+        walked = forest if n_trees > 1 else Tree(*[f[0] for f in forest])
         self.trees.append(walked)
+        if sampled:
+            # a sampled tree holds only its rows' values: every training
+            # row's comes from a walk of the round's trees (``:1412``)
+            row_value = predict_tree_binned(
+                walked, self.bins, self.cfg.max_depth,
+                self.cfg.max_bin).view(n_trees, -1)
         self.gh, sums = self._update(
             self.margins, row_value, self.label, self.weight,
             with_gh=not (self.custom_objective or self.pair_gh),
@@ -679,7 +809,7 @@ class TorchEngine:
                 value = predict_tree_binned(walked, es.bins,
                                             self.cfg.max_depth,
                                             self.cfg.max_bin)
-                es_sums = self._update(es.margins, value.view(k_out, -1),
+                es_sums = self._update(es.margins, value.view(n_trees, -1),
                                        es.label, es.weight, with_gh=False,
                                        lower=es.lower, upper=es.upper)[1]
                 parts.append(self._set_parts(es_sums, es.margins, es.label,
@@ -701,6 +831,40 @@ class TorchEngine:
                     self._host_metric(es, name), es,
                     groups=parse_metric_name(name)[0] in RANK_METRICS)
         return out
+
+    def _sample(self, key, gh: torch.Tensor):
+        """One tree's row sample (``engine.py:1340-1361``): each of this
+        rank's blocks draws with the tree's key folded with the policy's
+        salt and the block's index (B12r); returns the compacted (bins [M,
+        F], gh [M, 2], K1's scales or None). A selected padding slot is a
+        row of missing bins and zero gradients, as the reference's."""
+        spec = self.samp_spec
+        skey = fold_in(key, SALT_GOSS if spec.policy == "gradient_based"
+                       else SALT_SUBSAMPLE)
+        parts = [sample_rows(gh[off:off + n_valid], self.sample_slots,
+                             fold_in(skey, d), spec, row_offset=off)
+                 for d, off, n_valid in self.blocks]
+        rows = torch.cat([r for r, _ in parts]) if len(parts) > 1 \
+            else parts[0][0]
+        gh_sel = torch.cat([g for _, g in parts]) if len(parts) > 1 \
+            else parts[0][1]
+        rows = rows.long()
+        if self.sample_padding:
+            pad = rows >= self.n_rows
+            bins = self.bins[rows.clamp(max=self.n_rows - 1)]
+            bins[pad] = self.params.max_bin
+        else:
+            bins = self.bins[rows]
+        return bins, gh_sel, self._tree_scales(gh_sel)
+
+    def _tree_scales(self, gh_sel: torch.Tensor) -> Optional[torch.Tensor]:
+        """K1's fixed-point scales [4] of a sampled tree on the card: from
+        its compacted gradients over the world's compacted rows, merged by
+        one all-reduce MAX (GOSS amplifies rows beyond the round's maxima);
+        None on the CPU."""
+        if self.device.type != "cuda":
+            return None
+        return quant_scales(gh_sel, self.sample_rows_global, self.coll.max)
 
     def _set_metrics(self, row: torch.Tensor, cox: Optional[torch.Tensor]
                      ) -> Dict[str, float]:

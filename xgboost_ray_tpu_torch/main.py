@@ -397,7 +397,8 @@ def train(
             init_booster=init_booster,
             feature_names=dtrain.resolved_feature_names,
             feature_types=dtrain.feature_types,
-            custom_objective=run["obj"] is not None)
+            custom_objective=run["obj"] is not None,
+            feature_weights=dtrain.feature_weights)
         for actor in actors:
             actor._distributed_callbacks.before_train(actor)
         booster, result, stats = _run_rounds(
@@ -578,7 +579,8 @@ def _train_spawned(dtrain: RayDMatrix, params: Dict, num_actors: int,
         sharding=dtrain.sharding.name, num_actors=num_actors,
         device=None if device_type == "cuda" else device_type,
         feature_names=dtrain.resolved_feature_names,
-        feature_types=dtrain.feature_types)
+        feature_types=dtrain.feature_types,
+        feature_weights=dtrain.feature_weights)
     out = distributed.launch_world(distributed._train_rank, n_ranks,
                                    device_type, data, params, rounds, options)
     return (RayXGBoostBooster.load_raw(out[0]["model"]),

@@ -357,8 +357,6 @@ class RayDMatrix:
         stream: bool = False,
         **kwargs,
     ):
-        if feature_weights is not None:
-            raise _not_in_slice("feature_weights")
         if qid is not None and weight is not None:
             raise NotImplementedError("per-group weight is not implemented.")
         if stream or any(k in kwargs for k in _STREAM_KWARGS):
@@ -395,6 +393,7 @@ class RayDMatrix:
             raise _not_in_slice(", ".join(sorted(kwargs)))
         self.feature_names = feature_names
         self.feature_types = feature_types
+        self._feature_weights = feature_weights
         self.missing = missing
         self.num_actors = num_actors
         self.sharding = sharding
@@ -407,6 +406,15 @@ class RayDMatrix:
         self.loaded = False
         if num_actors is not None and not lazy:
             self.load_data(num_actors)
+
+    @property
+    def feature_weights(self) -> Optional[np.ndarray]:
+        """Per-feature weights of the column-sampling draws (length
+        n_features) as float32, or None (``matrix.py:534``); the engine
+        checks them."""
+        if self._feature_weights is None:
+            return None
+        return np.asarray(self._feature_weights, dtype=np.float32).ravel()
 
     @staticmethod
     def _can_load_distributed(data: Data) -> bool:

@@ -52,7 +52,7 @@ SIGNATURES = {
     },
     "split": {
         "xrt_split_level": (
-            [P, P, P, P, P, I, P, P, P, P, P, P, P, P, P, P, P], I),
+            [P, P, P, P, P, I, P, P, P, P, P, P, P, P, P, P, P, I, P], I),
         "xrt_leaf_records": ([P, P, P, I, P, P, P], I),
         "xrt_find_splits": (
             [P, I, I, I, F, F, F, F, P, P, P, P, P, P, P], I),
@@ -89,6 +89,11 @@ SIGNATURES = {
     },
     "cox": {
         "xrt_cox_round": ([P, P], I),
+    },
+    "sampling": {
+        "xrt_sample_rows": ([P, P], I),
+        "xrt_sample_ctas": ([P], I),
+        "xrt_feature_mask": ([P, P], I),
     },
     "shap": {
         "xrt_shap_saabas": ([P, P], I),
@@ -160,7 +165,8 @@ class SoftmaxArgs(ctypes.Structure):
         + [(name, I) for name in (
             "k", "mode", "kmax", "pitch", "shared_bytes")]
         + [("kmagic", ctypes.c_uint)]
-        + [("front0", I), ("top", I), ("front", I * 6), ("grid", I)])
+        + [("front0", I), ("top", I), ("front", I * 6), ("grid", I),
+           ("logloss0", I)])
 
 
 class K4Args(ctypes.Structure):
@@ -174,7 +180,29 @@ class K4Args(ctypes.Structure):
            ("scale_pos_weight", F)]
         + [(name, P) for name in ("lower", "upper", "alpha")]
         + [(name, I) for name in ("k", "metrics", "multi")]
-        + [("c", F * 18)])
+        + [("c", F * 21), ("n_trees", I), ("inv_trees", F)])
+
+
+class SampleArgs(ctypes.Structure):
+    """``XrtSampleArgs`` of ``csrc/sampling.cu``: one B12r launch, passed by
+    pointer (edit both together)."""
+
+    _fields_ = ([(name, P) for name in (
+        "gh", "taken", "rows", "gh_sel", "work")]
+        + [(name, ctypes.c_longlong) for name in (
+            "n_slots", "n_valid", "k", "row_offset")]
+        + [("key0", ctypes.c_uint), ("key1", ctypes.c_uint),
+           ("mode", I), ("grid", I)])
+
+
+class MaskArgs(ctypes.Structure):
+    """``XrtMaskArgs`` of ``csrc/sampling.cu``: one B12f launch, passed by
+    pointer (edit both together)."""
+
+    _fields_ = ([(name, P) for name in ("log_fw", "base", "out")]
+                + [(name, I) for name in ("rows", "n_features", "k")]
+                + [("rate", F), ("key0", ctypes.c_uint),
+                   ("key1", ctypes.c_uint)])
 
 
 class ShapArgs(ctypes.Structure):

@@ -28,6 +28,13 @@ hands every row its final leaf value (no row moves, so that pass routes,
 scans and scatters nothing). Nothing here reads a device value on the
 host: a tree is launches only.
 
+Column sampling (``colsample_bytree`` / ``_bylevel`` / ``_bynode``,
+``ops/grow.py:132-161``, ``:610-623``): the tree's mask, and each level's
+draws ANDed into it (B12f, ``sample_feature_mask``; the keys fold in
+``SALT_BYLEVEL`` / ``SALT_BYNODE`` and the level), go to K2's masked
+instantiation. A row-sampled tree is grown over its compacted rows
+(``ops/sampling.py``), which nothing here needs to know.
+
 ``allreduce`` is the merge across ranks (the ``allreduce`` argument of
 ``ops/grow.py:269``): None at world 1, else the engine's all-reduce SUM,
 which counts its bytes. It merges every histogram and the final totals
@@ -48,6 +55,7 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from xgboost_ray_tpu_torch.ops import _build
+from xgboost_ray_tpu_torch.ops.random import Key, fold_in, gumbel, uniform
 from xgboost_ray_tpu_torch.ops.histogram import (
     build_histogram,
     dequantize,
@@ -61,6 +69,16 @@ from xgboost_ray_tpu_torch.ops.split import (
     leaf_records,
     split_level,
 )
+
+
+# Disjoint fold_in domains of the per-tree draws (``ops/grow.py:57-62``):
+# row subsampling, GOSS and the three column-sampling masks never share a
+# stream
+SALT_SUBSAMPLE = 0x51D1
+SALT_BYTREE = 0x51D2
+SALT_BYLEVEL = 0x51D3
+SALT_BYNODE = 0x51D4
+SALT_GOSS = 0x51D5
 
 
 def route_right_binned(bin_vals, split_bin, default_left, missing_bin: int):
@@ -113,6 +131,97 @@ def empty_tree(heap_size: int, device, n_trees: Optional[int] = None) -> Tree:
     )
 
 
+def sample_feature_mask_plain(key: Key, n_features: int, rate: float,
+                              log_fw: Optional[torch.Tensor] = None,
+                              batch: Optional[int] = None,
+                              base: Optional[torch.Tensor] = None,
+                              device=None) -> torch.Tensor:
+    """The reference's ``sample_feature_mask`` (``ops/grow.py:132``), bool
+    [F] or [batch, F], ANDed with ``base`` [F] where given: without
+    ``log_fw`` a Bernoulli(rate) draw and its first kept feature (feature 0
+    where none is); with ``log_fw`` (log of ``feature_weights``, -inf at 0)
+    the features whose Gumbel-perturbed score reaches the k-th largest, k =
+    max(1, round(rate F)), at a finite weight, and the first maximum."""
+    shape = (n_features,) if batch is None else (batch, n_features)
+    if log_fw is None:
+        drawn = uniform(key, shape, device=device) < torch.tensor(
+            rate, dtype=torch.float32, device=device)
+        first = drawn.to(torch.uint8).argmax(dim=-1, keepdim=True)
+    else:
+        k = max(1, int(round(rate * n_features)))
+        scores = log_fw + gumbel(key, shape, device=device)
+        kth = torch.sort(scores, dim=-1, descending=True).values[..., k - 1:k]
+        drawn = (scores >= kth) & torch.isfinite(log_fw)
+        first = scores.argmax(dim=-1, keepdim=True)
+    guard = torch.arange(n_features, device=drawn.device) == first
+    mask = drawn | guard
+    return mask if base is None else mask & base
+
+
+def sample_feature_mask(key: Key, n_features: int, rate: float,
+                        log_fw: Optional[torch.Tensor] = None,
+                        batch: Optional[int] = None,
+                        base: Optional[torch.Tensor] = None,
+                        device=None) -> torch.Tensor:
+    """B12f wrapper: ``sample_feature_mask_plain``'s bool mask on
+    ``device``. On the CPU the plain version; on a CUDA device one launch
+    of ``xrt_feature_mask`` (``csrc/sampling.cu``), a CTA a row, or raise.
+    ``log_fw`` and ``base`` lie on ``device``. ``sample_feature_mask
+    .launches`` counts the launches."""
+    device = torch.device(device if device is not None else "cpu")
+    if device.type != "cuda":
+        return sample_feature_mask_plain(key, n_features, rate, log_fw, batch,
+                                         base, device)
+    if device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    rows = 1 if batch is None else int(batch)
+    for name, t, dtype in (("log_fw", log_fw, torch.float32),
+                           ("base", base, torch.bool)):
+        if t is not None and not (t.device == device and t.dtype == dtype
+                                  and t.shape == (n_features,)
+                                  and t.is_contiguous()):
+            raise ValueError(f"sample_feature_mask: {name} must be a "
+                             f"contiguous {dtype} [F] on {device}")
+    out = torch.empty((rows, n_features), dtype=torch.bool, device=device)
+    a = _build.MaskArgs()
+    a.log_fw, a.base, a.out = (_build.ptr(log_fw), _build.ptr(base),
+                               out.data_ptr())
+    a.rows, a.n_features = rows, n_features
+    a.k = max(1, int(round(rate * n_features)))
+    a.rate = rate
+    a.key0, a.key1 = key
+    with torch.cuda.device(device):
+        code = _build.library("sampling").xrt_feature_mask(
+            ctypes.byref(a), _build.stream_ptr(device))
+    _build.check(code, "B12f feature mask")
+    sample_feature_mask.launches += 1
+    return out[0] if batch is None else out
+
+
+sample_feature_mask.launches = 0
+
+
+def level_feature_mask(tree_mask: Optional[torch.Tensor], level_key: Key,
+                       depth: int, n_nodes: int, n_features: int,
+                       bylevel: float, bynode: float,
+                       log_fw: Optional[torch.Tensor], device
+                       ) -> Optional[torch.Tensor]:
+    """A level's feature mask (``ops/grow.py:610-623``): the tree's
+    (``colsample_bytree``), ANDed with the level's draw (``colsample_bylevel``,
+    [F]), then with each node's (``colsample_bynode``, [n_nodes, F], node k
+    row k over every heap slot of the level); None where nothing masks."""
+    fmask = tree_mask
+    if bylevel < 1.0:
+        k = fold_in(fold_in(level_key, SALT_BYLEVEL), depth)
+        fmask = sample_feature_mask(k, n_features, bylevel, log_fw,
+                                    base=fmask, device=device)
+    if bynode < 1.0:
+        k = fold_in(fold_in(level_key, SALT_BYNODE), depth)
+        fmask = sample_feature_mask(k, n_features, bynode, log_fw,
+                                    batch=n_nodes, base=fmask, device=device)
+    return fmask
+
+
 def build_tree(
     bins: torch.Tensor,  # [N, F] int16/uint8 bins (max_bin == missing)
     gh: torch.Tensor,  # [N, 2] float32 (grad, hess)
@@ -123,6 +232,11 @@ def build_tree(
     qscale: Optional[torch.Tensor] = None,  # [4] f32 fixed-point scales
     tree: Optional[Tree] = None,  # [heap] fields to write the tree into
     row_value: Optional[torch.Tensor] = None,  # [N] f32 to write into
+    feature_mask: Optional[torch.Tensor] = None,  # [F] bool (bytree)
+    level_key: Optional[Key] = None,  # the tree's key (bylevel / bynode)
+    colsample_bylevel: float = 1.0,
+    colsample_bynode: float = 1.0,
+    feature_log_weights: Optional[torch.Tensor] = None,  # [F] log(fw)
 ):
     """Grow one tree. Returns (Tree, row_value [N]): the learning-rate
     scaled leaf value each row lands in. ``tree`` and ``row_value``, where
@@ -131,7 +245,11 @@ def build_tree(
 
     With ``qscale`` (always on the card; there this rank's own scales when
     the caller passes none) the histograms are summed in fixed point and
-    dequantised after ``allreduce``; without it, on the CPU, they are f32."""
+    dequantised after ``allreduce``; without it, on the CPU, they are f32.
+
+    Column sampling: ``feature_mask`` (the tree's), and with ``level_key``
+    each level's bylevel / bynode draws (B12f, ``level_feature_mask``),
+    take K2's masked level step."""
     n = bins.shape[0]
     dev = bins.device
     if qscale is None and bins.is_cuda:
@@ -153,8 +271,16 @@ def build_tree(
     active = torch.ones(1, dtype=torch.bool, device=dev)
     prev_hist = part = None
 
+    num_features = bins.shape[1]
+    per_level = level_key is not None and (colsample_bylevel < 1.0
+                                           or colsample_bynode < 1.0)
     for d in range(cfg.max_depth):
         n_nodes = 1 << d
+        fmask = (level_feature_mask(feature_mask, level_key, d, n_nodes,
+                                    num_features, colsample_bylevel,
+                                    colsample_bynode, feature_log_weights,
+                                    dev)
+                 if per_level else feature_mask)
         # the formed histogram is the next level's parent, unless none comes
         keep = cfg.sibling_subtract and d < cfg.max_depth - 1
         if d > 0 and cfg.sibling_subtract:
@@ -164,11 +290,12 @@ def build_tree(
                 bins, gh, part.small_rows, part.small_seg, n_nodes // 2, nbt,
                 qscale=qscale)
             step = split_level(merged(hist_small), prev_hist,
-                               part.small_is_right, active, rec, keep)
+                               part.small_is_right, active, rec, keep, fmask)
         else:
             hist, _ = build_histogram(bins, gh, order, seg, n_nodes, nbt,
                                       qscale=qscale)
-            step = split_level(merged(hist), None, None, active, rec, keep)
+            step = split_level(merged(hist), None, None, active, rec, keep,
+                               fmask)
         sp = step.splits
         part = partition_level(
             order, seg, bins, sp.feature, sp.split_bin, sp.default_left,

@@ -93,12 +93,13 @@ def metric_partials(margin: torch.Tensor, label: torch.Tensor,
                     upper: Optional[torch.Tensor] = None,
                     alphas: Sequence[float] = (),
                     margins: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """[12] float64 in ``PARTIALS`` order over [N] f32 margins (float32
+    """[15] float64 in ``PARTIALS`` order over [N] f32 margins (float32
     sums, as the JAX metrics take them): sum(w * logloss), sum(w * wrong),
     sum(w * d^2), sum(w) always; the sums of the other terms only where
     ``metrics`` names a metric that reads them (zero elsewhere, as K4
     leaves them). ``consts``: the objective's (huber slope, AFT sigma and
-    distribution, error@t's threshold, the quantile alpha of one output);
+    distribution, error@t's thresholds in ``error_thresholds(metrics)``'s
+    order, the quantile alpha of one output);
     ``lower`` / ``upper``: the label bounds; ``margins`` [N, K] and
     ``alphas``: the quantile metric over K outputs."""
     c = consts if consts is not None else objective_consts()
@@ -109,7 +110,7 @@ def metric_partials(margin: torch.Tensor, label: torch.Tensor,
              torch.sum(w)]
     zero = torch.zeros((), dtype=torch.float32, device=m.device)
     sums += [zero] * (len(PARTIALS) - 4)
-    slots = {k4_slot(name) for name in metrics} - {None}
+    slots = {k4_slot(name, metrics) for name in metrics} - {None}
     if 4 in slots:
         sums[4] = torch.sum(w * d.abs())
     if 5 in slots:
@@ -126,8 +127,10 @@ def metric_partials(margin: torch.Tensor, label: torch.Tensor,
         mc = torch.clamp(m, -30.0, 30.0)
         sums[8] = torch.sum(w * (torch.exp(mc) - y * mc
                                  + torch.lgamma(y + 1.0)))
-    if 9 in slots:
-        sums[9] = torch.sum(w * error_terms(m, y, c.threshold))
+    thresholds = (c.threshold, c.threshold2, c.threshold3, c.threshold4)
+    for slot, t in zip(ERROR_T_SLOTS, thresholds):
+        if slot in slots:
+            sums[slot] = torch.sum(w * error_terms(m, y, t))
     if 10 in slots:
         from xgboost_ray_tpu_torch.ops.survival import aft_nloglik_terms
 
@@ -162,14 +165,18 @@ def merror_terms(margin: torch.Tensor, label: torch.Tensor) -> torch.Tensor:
 
 
 def softmax_partials(margin: torch.Tensor, label: torch.Tensor,
-                     weight: torch.Tensor) -> torch.Tensor:
+                     weight: torch.Tensor, logloss0: bool = False
+                     ) -> torch.Tensor:
     """[3] float64: sum(w * mlogloss), sum(w * wrong), sum(w) over [N, K]
-    f32 margins (float32 sums, as the JAX metrics take them)."""
-    return torch.stack([
-        torch.sum(weight * mlogloss_terms(margin, label)),
-        torch.sum(weight * merror_terms(margin, label)),
-        torch.sum(weight),
-    ]).to(torch.float64)
+    f32 margins (float32 sums, as the JAX metrics take them); with
+    ``logloss0`` [4], sum(w * logloss) of column 0 last (the reference's
+    ``logloss`` under a softmax objective, ``ops/metrics.py:36``)."""
+    sums = [torch.sum(weight * mlogloss_terms(margin, label)),
+            torch.sum(weight * merror_terms(margin, label)),
+            torch.sum(weight)]
+    if logloss0:
+        sums.append(torch.sum(weight * logloss_terms(margin[:, 0], label)))
+    return torch.stack(sums).to(torch.float64)
 
 
 def parse_metric_name(name: str) -> Tuple[str, Optional[float]]:
@@ -192,7 +199,8 @@ _K4_NUMERATOR = {"logloss": "logloss", "error": "error", "rmse": "sqerr",
                  "mae": "abserr", "rmsle": "sqlogerr", "mphe": "phe",
                  "mape": "ape", "poisson-nloglik": "poisson",
                  "aft-nloglik": "aft", "quantile": "pinball"}
-_SOFTMAX_NUMERATOR = {"mlogloss": "mlogloss", "merror": "merror"}
+_SOFTMAX_NUMERATOR = {"mlogloss": "mlogloss", "merror": "merror",
+                      "logloss": "logloss"}
 #: the metrics read from the AUC histogram (``auc_from_hist`` and
 #: ``aucpr_from_hist``) and the host metrics (computed from margins on the
 #: host, combined over the ranks)
@@ -204,14 +212,49 @@ RANK_METRICS = ("ndcg", "map")
 COX_METRIC = "cox-nloglik"
 
 
-def k4_slot(name: str) -> Optional[int]:
-    """The index in ``PARTIALS`` of the numerator of a K4 metric (``error``
-    at a threshold other than 0.5 has its own sum), None for a metric K4
-    does not sum."""
+#: K4's sums of ``error@t`` (t != 0.5), one a threshold, in the order the
+#: run's ``eval_metric`` names the thresholds (``error_thresholds``)
+ERROR_T_SLOTS = tuple(PARTIALS.index(n) for n in (
+    "error_t", "error_t2", "error_t3", "error_t4"))
+
+
+def error_thresholds(names: Sequence[str]) -> Tuple[float, ...]:
+    """The distinct float32 thresholds t != 0.5 of the ``error@t`` metrics
+    of a run, in the order ``names`` gives them (at most four: K4 has a sum
+    for each)."""
+    ts = []
+    for name in names:
+        base, arg = parse_metric_name(name)
+        if base == "error" and arg is not None:
+            t = float(np.float32(arg))
+            if t != 0.5 and t not in ts:
+                ts.append(t)
+    if len(ts) > len(ERROR_T_SLOTS):
+        raise NotImplementedError(
+            f"eval_metric: error@t at {len(ts)} thresholds; the port sums "
+            f"at most {len(ERROR_T_SLOTS)} thresholds besides 0.5 a run.")
+    return tuple(ts)
+
+
+def threshold_consts(names: Sequence[str]) -> Dict[str, float]:
+    """``ObjConsts``' threshold fields for a run's metrics (0.5 where a slot
+    is unused)."""
+    ts = error_thresholds(names) + (0.5,) * len(ERROR_T_SLOTS)
+    return dict(zip(("threshold", "threshold2", "threshold3", "threshold4"),
+                    ts))
+
+
+def k4_slot(name: str, names: Optional[Sequence[str]] = None
+            ) -> Optional[int]:
+    """The index in ``PARTIALS`` of the numerator of a K4 metric, None for
+    a metric K4 does not sum. ``error`` at a threshold other than 0.5 has
+    its own sum, its slot by the threshold's place among the run's
+    (``names``: the run's metrics; ``name`` alone by default)."""
     base, arg = parse_metric_name(name)
     if base == "error" and arg is not None and float(
             np.float32(arg)) != 0.5:
-        return PARTIALS.index("error_t")
+        ts = error_thresholds(names if names is not None else [name])
+        return ERROR_T_SLOTS[ts.index(float(np.float32(arg)))]
     num = _K4_NUMERATOR.get(base)
     return None if num is None else PARTIALS.index(num)
 
@@ -222,7 +265,10 @@ def check_metric(name: str, softmax: bool) -> None:
     other with the one-output and quantile ones)."""
     base, arg = parse_metric_name(name)
     if softmax:
-        ok = base in _SOFTMAX_NUMERATOR
+        # the softmax pass's sums, and as the reference reads a softmax
+        # model's margins: logloss on column 0, the AUCs on column 1
+        ok = (base in _SOFTMAX_NUMERATOR or base in HIST_METRICS
+              or base in HOST_METRICS)
     else:
         ok = (base in _K4_NUMERATOR or base in HIST_METRICS
               or base in HOST_METRICS or base in RANK_METRICS
@@ -235,15 +281,10 @@ def check_metric(name: str, softmax: bool) -> None:
 
 
 def error_threshold(names: Sequence[str]) -> float:
-    """The one threshold of the ``error@t`` metrics (t != 0.5) of a run
-    (K4 sums one of them); 0.5 without one."""
-    ts = {float(np.float32(parse_metric_name(n)[1])) for n in names
-          if k4_slot(n) == PARTIALS.index("error_t")}
-    if len(ts) > 1:
-        raise NotImplementedError(
-            f"eval_metric: error@t at {len(ts)} thresholds; the port sums "
-            f"one threshold besides 0.5 a run.")
-    return ts.pop() if ts else 0.5
+    """The first threshold of the ``error@t`` metrics (t != 0.5) of a run
+    (K4's first ``error_t`` sum); 0.5 without one."""
+    ts = error_thresholds(names)
+    return ts[0] if ts else 0.5
 
 
 def metric_values(sums: torch.Tensor, names: Sequence[str],
@@ -265,7 +306,7 @@ def metric_values(sums: torch.Tensor, names: Sequence[str],
             out[name] = (auc_from_hist(hist) if base == "auc"
                          else aucpr_from_hist(hist))
             continue
-        slot = k4_slot(name) if partials == PARTIALS else None
+        slot = k4_slot(name, names) if partials == PARTIALS else None
         num = (PARTIALS[slot] if slot is not None
                else _SOFTMAX_NUMERATOR.get(base))
         if num not in s:

@@ -93,9 +93,12 @@ COX = "survival:cox"
 #: metric partial sums written by K4, in this order: the first four always,
 #: the others where a metric needs them (``ops/metrics.K4_METRIC_SLOT``)
 PARTIALS = ("logloss", "error", "sqerr", "weight", "abserr", "sqlogerr",
-            "phe", "ape", "poisson", "error_t", "aft", "pinball")
-#: metric partial sums written by the softmax pass, in this order
-SOFTMAX_PARTIALS = ("mlogloss", "merror", "weight")
+            "phe", "ape", "poisson", "error_t", "aft", "pinball",
+            "error_t2", "error_t3", "error_t4")
+#: metric partial sums written by the softmax pass, in this order (the last
+#: only where the run's metrics name ``logloss``: column 0's binary logloss,
+#: as the reference's metric reads a softmax model's margins)
+SOFTMAX_PARTIALS = ("mlogloss", "merror", "weight", "logloss")
 
 #: objective -> (K4 mode, default metric, transform, output kind). The
 #: transforms: ``sigmoid``, ``identity``, ``exp`` (log-link objectives and
@@ -147,7 +150,8 @@ def _f32_div(a: float, b: float) -> float:
 K4_CONSTS = (
     "huber_recip", "huber_slope", "tw_e1", "tw_e2", "tw_h1", "tw_h2",
     "tw_factored", "aft_r", "aft_rc", "aft_hr", "aft_s", "aft_s2", "aft_hu",
-    "aft_log_sigma", "threshold", "aft_logistic", "alpha0", "spw")
+    "aft_log_sigma", "threshold", "aft_logistic", "alpha0", "spw",
+    "threshold2", "threshold3", "threshold4")
 
 
 class ObjConsts(NamedTuple):
@@ -173,6 +177,9 @@ class ObjConsts(NamedTuple):
     aft_logistic: float = 0.0  # 1: the logistic distribution
     alpha0: float = 0.5        # the quantile metric's alpha, one output
     spw: float = 1.0           # scale_pos_weight
+    threshold2: float = 0.5    # error@t's second, third and fourth
+    threshold3: float = 0.5    # thresholds of a run
+    threshold4: float = 0.5
 
 
 def objective_consts(huber_slope: float = 1.0, rho: float = 1.5,
@@ -636,17 +643,33 @@ def round_update_plain(margin: torch.Tensor, row_value: torch.Tensor,
                        upper: Optional[torch.Tensor] = None
                        ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
     """Plain PyTorch K4: updates ``margin`` in place; returns (gh [N, 2], or
-    None without ``with_gh``, partial sums [12] f64 in ``PARTIALS``
-    order)."""
+    None without ``with_gh``, partial sums [15] f64 in ``PARTIALS``
+    order). ``row_value`` [N], or [T, N] for T parallel trees
+    (``add_tree_values``)."""
     from xgboost_ray_tpu_torch.ops.metrics import metric_partials
 
     obj, c = _k4_objective(logistic, scale_pos_weight)
-    margin.add_(row_value)
+    add_tree_values(margin, row_value)
     sums = metric_partials(margin, label, weight, metrics, c, lower, upper)
     if not with_gh:
         return None, sums
     g, h = grad_hess(margin, label, weight, obj, lower=lower, upper=upper)
     return torch.stack([g, h], dim=1), sums
+
+
+def add_tree_values(margin: torch.Tensor, row_value: torch.Tensor) -> None:
+    """``margin`` [N] += a round's tree values in place: ``row_value`` [N]
+    (or [1, N]) as one add; [T, N] (``num_parallel_tree`` T > 1) as the
+    reference's program adds ``row_value / T`` tree by tree, the division
+    folded into the float32 1 / T and fused with the add: ``margin =
+    fma(v_t, 1 / T, margin)`` for t in order."""
+    rv = row_value if row_value.dim() == 2 else row_value[None]
+    if rv.shape[0] == 1:
+        margin.add_(rv[0])
+        return
+    inv = _f32_div(1.0, rv.shape[0])
+    for t in range(rv.shape[0]):
+        margin.copy_(_fma(rv[t], inv, margin))
 
 
 def round_update_multi_plain(margin: torch.Tensor, row_value: torch.Tensor,
@@ -718,7 +741,7 @@ def metric_mask(metrics: Sequence[str]) -> int:
 
     mask = 0
     for name in metrics:
-        slot = k4_slot(name)
+        slot = k4_slot(name, metrics)
         if slot is not None and slot >= 4:
             mask |= 1 << slot
     return mask
@@ -780,6 +803,9 @@ def _k4_args(plan: K4Plan, margin: torch.Tensor, row_value: torch.Tensor,
                                 ticket, out))
     a.lower, a.upper, a.alpha = (_build.ptr(t) for t in (lower, upper, alphas))
     a.n, a.grid = margin.shape[0], plan.grid
+    a.n_trees = (1 if multi or not margin.shape[0]
+                 else row_value.numel() // margin.shape[0])
+    a.inv_trees = _f32_div(1.0, max(a.n_trees, 1))
     a.mode = _K4_MODES["eval"] if gh is None else mode
     a.scale_pos_weight, a.k, a.multi, a.metrics = spw, k, multi, mask
     a.c[:] = consts
@@ -805,6 +831,8 @@ def _k4_launch(a, dev, stream: int, with_gh: bool, what: str) -> None:
     round_update.launches += 1
     if not with_gh:
         round_update.eval_launches += 1
+    if a.n_trees > 1:
+        round_update.tree_launches += 1
 
 
 def round_update(margin: torch.Tensor, row_value: torch.Tensor,
@@ -815,8 +843,11 @@ def round_update(margin: torch.Tensor, row_value: torch.Tensor,
                  upper: Optional[torch.Tensor] = None
                  ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
     """K4 wrapper: updates ``margin`` in place; returns (gh [N, 2], or None
-    without ``with_gh``, partial sums [12] f64 in ``PARTIALS`` order: the
+    without ``with_gh``, partial sums [15] f64 in ``PARTIALS`` order: the
     first four always, the others of ``metrics``, zero elsewhere).
+    ``row_value``: [N], or a round's [T, N] values of T parallel trees,
+    added tree by tree as ``add_tree_values`` adds them (the kernel's T-tree
+    path; T = 1 is the launch as before).
     ``logistic``: an ``Objective`` of one output, or True / False for
     binary:logistic / reg:squarederror; ``lower`` / ``upper``: the label
     bounds (``survival:aft``'s gradients, the ``aft-nloglik`` metric). CPU
@@ -829,8 +860,17 @@ def round_update(margin: torch.Tensor, row_value: torch.Tensor,
                                   upper)
     obj, _ = _k4_objective(logistic, scale_pos_weight)
     n = margin.shape[0]
-    _check_rows("round_update", n, margin.device, margin, row_value, label,
-                weight, lower, upper)
+    if row_value.dim() == 2 and row_value.shape[0] == 1:
+        row_value = row_value[0]
+    _check_rows("round_update", n, margin.device, margin, label, weight,
+                lower, upper)
+    if not (row_value.device == margin.device
+            and row_value.dtype == torch.float32
+            and row_value.is_contiguous()
+            and (row_value.shape == (n,) or (row_value.dim() == 2
+                                             and row_value.shape[1] == n))):
+        raise ValueError("round_update: row_value must be contiguous "
+                         "float32 [N] or [T, N] on the margins' device")
     if (obj.survival and with_gh) and (lower is None or upper is None):
         raise ValueError("round_update: survival:aft needs lower and upper")
     if obj.num_outputs != 1 or obj.softmax:
@@ -850,6 +890,7 @@ def round_update(margin: torch.Tensor, row_value: torch.Tensor,
 
 round_update.launches = 0
 round_update.eval_launches = 0
+round_update.tree_launches = 0  # the T-tree add's (num_parallel_tree > 1)
 
 
 @functools.lru_cache(maxsize=None)
@@ -974,16 +1015,16 @@ def softmax_transform_plain(margin: torch.Tensor, prob: bool) -> torch.Tensor:
 
 def softmax_update_plain(margin: torch.Tensor, row_value: torch.Tensor,
                          label: torch.Tensor, weight: torch.Tensor,
-                         with_gh: bool = True
+                         with_gh: bool = True, logloss0: bool = False
                          ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
     """Plain softmax pass, training and eval modes: adds ``row_value``
     [K, N] to ``margin`` [N, K] in place; returns (gh [K, N, 2], or None
-    without ``with_gh``, partial sums [3] f64 in ``SOFTMAX_PARTIALS``
-    order)."""
+    without ``with_gh``, partial sums f64 in ``SOFTMAX_PARTIALS`` order:
+    [4] with ``logloss0``, else the first [3])."""
     from xgboost_ray_tpu_torch.ops.metrics import softmax_partials
 
     margin.add_(row_value.T)
-    sums = softmax_partials(margin, label, weight)
+    sums = softmax_partials(margin, label, weight, logloss0)
     if not with_gh:
         return None, sums
     g, h = softmax_grad_hess(margin, label, weight)
@@ -1090,9 +1131,11 @@ def _smx_grid(margin: torch.Tensor, mode: str) -> int:
     return min(tiles, _smx_ctas(margin.device.index or 0, k, mode))
 
 
-def _smx_launch(mode: str, margin: torch.Tensor, grid: int, **tensors) -> None:
+def _smx_launch(mode: str, margin: torch.Tensor, grid: int,
+                logloss0: bool = False, **tensors) -> None:
     a = _smx_args(mode, margin, **tensors)
     a.grid = grid
+    a.logloss0 = int(logloss0)
     dev = margin.device
     with torch.cuda.device(dev):
         code = _build.library("softmax").xrt_softmax(
@@ -1109,17 +1152,19 @@ def _check_margin(margin: torch.Tensor, what: str) -> None:
 
 def softmax_update(margin: torch.Tensor, row_value: torch.Tensor,
                    label: torch.Tensor, weight: torch.Tensor,
-                   with_gh: bool = True
+                   with_gh: bool = True, logloss0: bool = False
                    ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
     """Softmax pass wrapper, training mode (eval mode with
     ``with_gh=False``): ``margin`` [N, K] += ``row_value`` [K, N].T in
-    place; returns (gh [K, N, 2] or None, partial sums [3] f64 in
-    ``SOFTMAX_PARTIALS`` order). CPU tensors take
-    ``softmax_update_plain``; CUDA tensors launch the kernel of
-    ``csrc/softmax.cu`` (``softmax_update.launches`` counts every launch,
-    ``softmax_update.eval_launches`` those of the eval mode)."""
+    place; returns (gh [K, N, 2] or None, partial sums f64 in
+    ``SOFTMAX_PARTIALS`` order: [4] with ``logloss0`` (column 0's
+    logloss), else the first [3]). CPU tensors take ``softmax_update_plain``; CUDA tensors
+    launch the kernel of ``csrc/softmax.cu`` (``softmax_update.launches``
+    counts every launch, ``softmax_update.eval_launches`` those of the
+    eval mode)."""
     if not margin.is_cuda:
-        return softmax_update_plain(margin, row_value, label, weight, with_gh)
+        return softmax_update_plain(margin, row_value, label, weight, with_gh,
+                                    logloss0)
     _check_margin(margin, "softmax_update")
     n, k = margin.shape
     for t, shape in ((row_value, (k, n)), (label, (n,)), (weight, (n,))):
@@ -1130,17 +1175,20 @@ def softmax_update(margin: torch.Tensor, row_value: torch.Tensor,
                 "must be contiguous float32 on the margins' CUDA device")
     gh = (torch.empty((k, n, 2), dtype=torch.float32, device=margin.device)
           if with_gh else None)
+    n_parts = len(SOFTMAX_PARTIALS) - (0 if logloss0 else 1)
     if n == 0:
-        return gh, torch.zeros(3, dtype=torch.float64, device=margin.device)
+        return gh, torch.zeros(n_parts, dtype=torch.float64,
+                               device=margin.device)
     mode = "train" if with_gh else "eval"
     grid = _smx_grid(margin, mode)
-    part = torch.empty((grid, 3), dtype=torch.float32, device=margin.device)
-    _smx_launch(mode, margin, grid, row_value=row_value, label=label,
-                weight=weight, gh=gh, part=part)
+    part = torch.empty((grid, len(SOFTMAX_PARTIALS)), dtype=torch.float32,
+                       device=margin.device)
+    _smx_launch(mode, margin, grid, logloss0, row_value=row_value,
+                label=label, weight=weight, gh=gh, part=part)
     softmax_update.launches += 1
     if not with_gh:
         softmax_update.eval_launches += 1
-    return gh, part.sum(0, dtype=torch.float64)
+    return gh, part[:, :n_parts].sum(0, dtype=torch.float64)
 
 
 softmax_update.launches = 0

@@ -139,9 +139,13 @@ def _seq_cumsum(x: torch.Tensor) -> torch.Tensor:
     return torch.stack(cols, dim=-1)
 
 
-def find_splits_plain(hist: torch.Tensor, p: SplitParams) -> LevelSplits:
+def find_splits_plain(hist: torch.Tensor, p: SplitParams,
+                      feature_mask: Optional[torch.Tensor] = None
+                      ) -> LevelSplits:
     """The JAX ``find_splits`` (numeric, unconstrained) in PyTorch, with the
-    node totals read off feature 0's buckets as ``build_tree`` does."""
+    node totals read off feature 0's buckets as ``build_tree`` does.
+    ``feature_mask`` [F] or [n_nodes, F] bool: a masked feature's
+    candidates score -inf (``:148-155``), then the first maximum wins."""
     n_nodes, num_features, nbt, _ = hist.shape
     n_bins = nbt - 1
     node_gh = tree_sum(hist[:, 0])
@@ -165,6 +169,10 @@ def find_splits_plain(hist: torch.Tensor, p: SplitParams) -> LevelSplits:
     gain_missing_right = gain_for(gl, hl)
     default_left = gain_missing_left >= gain_missing_right
     gain = torch.maximum(gain_missing_left, gain_missing_right)
+    if feature_mask is not None:
+        mask = (feature_mask[None, :, None] if feature_mask.dim() == 1
+                else feature_mask[:, :, None])
+        gain = torch.where(mask, gain, neg_inf)
 
     flat = gain.reshape(n_nodes, -1)
     best = torch.argmax(flat, dim=-1)  # first max: deterministic ties
@@ -295,11 +303,14 @@ def _interleave(left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
 
 
 def split_level_plain(hist, prev_hist, small_is_right, active,
-                      rec: TreeRecords, keep_hist: bool = True) -> LevelStep:
+                      rec: TreeRecords, keep_hist: bool = True,
+                      feature_mask: Optional[torch.Tensor] = None
+                      ) -> LevelStep:
     """The level step in PyTorch ops, as the JAX grower composes it: the
     sibling as parent - smaller child (``prev_hist`` given), the phantom
-    missing bucket zeroed, the readout and split search, and the records
-    of ``ops/grow.py:661-684`` written into ``rec.tree``."""
+    missing bucket zeroed, the readout and split search (under
+    ``feature_mask``, [F] or [n_nodes, F] bool, where given), and the
+    records of ``ops/grow.py:661-684`` written into ``rec.tree``."""
     tree, cuts, p = rec.tree, rec.cuts, rec.p
     if prev_hist is not None:
         hist_small = hist
@@ -314,7 +325,7 @@ def split_level_plain(hist, prev_hist, small_is_right, active,
     lr = p.learning_rate
     zero = torch.zeros((), dtype=torch.float32, device=hist.device)
 
-    sp = find_splits_plain(hist, p)
+    sp = find_splits_plain(hist, p, feature_mask)
     node_gh = sp.node_gh
     valid_split = sp.valid & active
     node_value = lr * leaf_weight(node_gh[:, 0], node_gh[:, 1], p)
@@ -342,16 +353,20 @@ def split_level_plain(hist, prev_hist, small_is_right, active,
 
 def split_level(hist: torch.Tensor, prev_hist: Optional[torch.Tensor],
                 small_is_right: Optional[torch.Tensor], active: torch.Tensor,
-                rec: TreeRecords, keep_hist: bool = True) -> LevelStep:
+                rec: TreeRecords, keep_hist: bool = True,
+                feature_mask: Optional[torch.Tensor] = None) -> LevelStep:
     """K2 for one tree level, one launch: ``hist`` is K1's (all-reduced)
     histogram of the level's ``n_nodes`` nodes, or with ``prev_hist`` and
     ``small_is_right`` that of each parent's smaller child. ``active``
     [n_nodes] bool. Writes the level's slice of ``rec.tree``; the formed
     histogram comes back as ``hist`` when ``keep_hist`` (the next level's
-    ``prev_hist``). CPU tensors -> plain version, CUDA tensors -> kernel."""
+    ``prev_hist``). ``feature_mask`` ([F] or [n_nodes, F] bool, column
+    sampling) takes K2's masked instantiation: a masked feature's
+    candidates score -inf. CPU tensors -> plain version, CUDA tensors ->
+    kernel (``launches_masked`` counts the masked launches)."""
     if not hist.is_cuda:
         return split_level_plain(hist, prev_hist, small_is_right, active,
-                                 rec, keep_hist)
+                                 rec, keep_hist, feature_mask)
     n_nodes = active.shape[0]
     dev = hist.device
     _check_hist(hist, "split_level")
@@ -369,6 +384,15 @@ def split_level(hist: torch.Tensor, prev_hist: Optional[torch.Tensor],
     _check(rec.cuts.device == dev and rec.cuts.shape == (num_features, nbt - 2)
            and rec.tree.feature.shape[0] >= 2 * n_nodes - 1,
            "split_level: cuts [F, max_bin - 1] and the tree must match hist")
+    mask_rows = 0
+    if feature_mask is not None:
+        mask_rows = 1 if feature_mask.dim() == 1 else n_nodes
+        _check(feature_mask.dtype == torch.bool and feature_mask.device == dev
+               and feature_mask.is_contiguous()
+               and feature_mask.shape[-1] == num_features
+               and feature_mask.numel() == mask_rows * num_features,
+               "split_level: feature_mask must be contiguous bool [F] or "
+               "[n_nodes, F] on the histogram's device")
     args = rec.c_args()
     f32 = dict(dtype=torch.float32, device=dev)
     i32 = dict(dtype=torch.int32, device=dev)
@@ -392,15 +416,19 @@ def split_level(hist: torch.Tensor, prev_hist: Optional[torch.Tensor],
             gain.data_ptr(), feature.data_ptr(), split_bin.data_ptr(),
             default_left.data_ptr(), valid.data_ptr(), node_gh.data_ptr(),
             node_value.data_ptr(), state.data_ptr(), active_next.data_ptr(),
-            _build.ptr(hist_out), _build.stream_ptr(dev))
+            _build.ptr(hist_out), _build.ptr(feature_mask), mask_rows,
+            _build.stream_ptr(dev))
     _build.check(code, "K2 split level")
     split_level.launches += 1
+    if mask_rows:
+        split_level.launches_masked += 1
     return LevelStep(
         LevelSplits(gain, feature, split_bin, default_left, valid, node_gh),
         node_value, state, active_next, hist_out)
 
 
 split_level.launches = 0
+split_level.launches_masked = 0
 
 
 def leaf_records_plain(node_gh: torch.Tensor, active: torch.Tensor,

@@ -112,9 +112,10 @@ def cat_feature_indices(feature_types: Optional[Sequence[Any]]) -> tuple:
 def _not_in_slice(key: str, value: Any) -> NotImplementedError:
     return NotImplementedError(
         f"{key}={value!r} is not supported by xgboost_ray_tpu_torch yet "
-        f"(this port runs gbtree depthwise growth with f32 gradients, no "
-        f"sampling and objectives {' | '.join(SUPPORTED_OBJECTIVES)}); use "
-        f"the JAX package xgboost_ray_tpu for it."
+        f"(this port runs gbtree depthwise growth with f32 gradients, "
+        f"numeric features without constraints, and objectives "
+        f"{' | '.join(SUPPORTED_OBJECTIVES)}); use the JAX package "
+        f"xgboost_ray_tpu for it."
     )
 
 
@@ -127,6 +128,63 @@ def _is_empty(val, empty_strs) -> bool:
         return len(val) == 0
     except TypeError:
         return False
+
+
+def _check_sampling(out: TrainParams, params: Dict[str, Any]) -> None:
+    """Row and column sampling and parallel trees: the reference's defaults
+    for None and its checks (``xgboost_ray_tpu/params.py:433-510``),
+    ``gradient_based`` driven by ``subsample`` as xgboost drives it."""
+    for key, default in (("subsample", 1.0), ("sampling_method", "uniform"),
+                         ("top_rate", 0.2), ("other_rate", 0.1),
+                         ("colsample_bytree", 1.0),
+                         ("colsample_bylevel", 1.0),
+                         ("colsample_bynode", 1.0),
+                         ("num_parallel_tree", 1)):
+        if getattr(out, key) is None:
+            setattr(out, key, default)
+    if not 0.0 < out.subsample <= 1.0:
+        raise ValueError(f"subsample must be in (0, 1]; got {out.subsample}")
+    if out.sampling_method not in ("uniform", "gradient_based"):
+        raise ValueError(
+            f"Unknown sampling_method {out.sampling_method!r}; use uniform "
+            f"(subsample-rate row sampling) | gradient_based (GOSS: "
+            f"top_rate/other_rate).")
+    if not 0.0 <= out.top_rate <= 1.0 or not 0.0 <= out.other_rate <= 1.0:
+        raise ValueError(
+            f"top_rate/other_rate must be in [0, 1]; got "
+            f"top_rate={out.top_rate} other_rate={out.other_rate}")
+    had_rates = (params.get("top_rate") is not None
+                 or params.get("other_rate") is not None)
+    if out.sampling_method != "gradient_based" and had_rates:
+        logger.warning(
+            "top_rate/other_rate have no effect without "
+            "sampling_method='gradient_based'; ignoring them.")
+    if out.sampling_method == "gradient_based":
+        if out.subsample < 1.0:
+            if had_rates:
+                raise ValueError(
+                    "subsample < 1 is ambiguous with explicit "
+                    "top_rate/other_rate under "
+                    "sampling_method='gradient_based'; set either the "
+                    "GOSS rates or subsample, not both.")
+            out.top_rate = out.subsample / 2.0
+            out.other_rate = out.subsample / 2.0
+            out.subsample = 1.0
+        elif not had_rates:
+            logger.warning(
+                "sampling_method='gradient_based' with subsample=1.0 and "
+                "no top_rate/other_rate samples nothing (xgboost parity); "
+                "set top_rate/other_rate (or subsample < 1) to enable "
+                "GOSS.")
+            out.sampling_method = "uniform"
+    if out.sampling_method == "gradient_based":
+        rate_sum = out.top_rate + out.other_rate
+        if not 0.0 < rate_sum <= 1.0:
+            raise ValueError(
+                f"top_rate + other_rate must be in (0, 1] for "
+                f"sampling_method='gradient_based'; got {rate_sum}")
+    if int(out.num_parallel_tree) < 1:
+        raise ValueError("num_parallel_tree must be >= 1")
 
 
 def parse_params(params: Optional[Dict[str, Any]]) -> TrainParams:
@@ -231,10 +289,7 @@ def parse_params(params: Optional[Dict[str, Any]]) -> TrainParams:
             f"Unsupported booster: {out.booster!r} (gbtree, dart, or "
             f"gblinear)."
         )
-    if out.subsample is None:
-        out.subsample = 1.0
-    if not 0.0 < out.subsample <= 1.0:
-        raise ValueError(f"subsample must be in (0, 1]; got {out.subsample}")
+    _check_sampling(out, params)
     if out.max_leaves < 0:
         raise ValueError("max_leaves must be >= 0")
     if out.max_depth < 1:
@@ -250,7 +305,7 @@ def parse_params(params: Optional[Dict[str, Any]]) -> TrainParams:
         raise ValueError("multi:* objectives require num_class >= 2")
 
     # --- outside this slice: raise, naming the key -------------------------
-    from xgboost_ray_tpu_torch.ops.metrics import check_metric, error_threshold
+    from xgboost_ray_tpu_torch.ops.metrics import check_metric, error_thresholds
     from xgboost_ray_tpu_torch.ops.objectives import objective_from_params
 
     for key, bad in (
@@ -260,12 +315,6 @@ def parse_params(params: Optional[Dict[str, Any]]) -> TrainParams:
         ("max_leaves", out.max_leaves > 0),
         ("gh_precision", out.gh_precision != "float32"),
         ("hist_quant", out.hist_quant != "none"),
-        ("subsample", out.subsample < 1.0),
-        ("sampling_method", out.sampling_method != "uniform"),
-        ("colsample_bytree", out.colsample_bytree < 1.0),
-        ("colsample_bylevel", out.colsample_bylevel < 1.0),
-        ("colsample_bynode", out.colsample_bynode < 1.0),
-        ("num_parallel_tree", out.num_parallel_tree != 1),
         ("num_class", out.num_class not in (0, 1)
          and not out.objective.startswith("multi:")),
         ("feature_parallel", int(out.feature_parallel or 1) != 1),
@@ -277,6 +326,6 @@ def parse_params(params: Optional[Dict[str, Any]]) -> TrainParams:
         # the softmax metrics go with the softmax objectives, the others
         # with the one-output and quantile ones
         check_metric(m, multi)
-    error_threshold(out.eval_metric)
+    error_thresholds(out.eval_metric)
     objective_from_params(out)  # the objective's own checks (alphas, AFT)
     return out

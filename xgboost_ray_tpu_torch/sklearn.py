@@ -29,7 +29,6 @@ import numpy as np
 from xgboost_ray_tpu_torch.main import RayParams, predict as ray_predict, train as ray_train
 from xgboost_ray_tpu_torch.matrix import RayDMatrix
 from xgboost_ray_tpu_torch.models.booster import RayXGBoostBooster
-from xgboost_ray_tpu_torch.params import parse_params
 
 logger = logging.getLogger(__name__)
 
@@ -779,12 +778,6 @@ class RayXGBRFRegressor(RayXGBRegressor):
     def _num_boost_round(self):
         return 1
 
-    def fit(self, X, y=None, **kwargs):
-        # the port trains no sampled or parallel trees yet (ROADMAP A11):
-        # parse_params raises naming the first key it refuses
-        parse_params(self.get_xgb_params())
-        return super().fit(X, y, **kwargs)
-
 
 class RayXGBRFClassifier(RayXGBClassifier):
     """Random-forest classifier variant (mirror ``sklearn.py:631-637``)."""
@@ -802,11 +795,6 @@ class RayXGBRFClassifier(RayXGBClassifier):
 
     def _num_boost_round(self):
         return 1
-
-    def fit(self, X, y=None, **kwargs):
-        # ROADMAP A11, as RayXGBRFRegressor.fit
-        parse_params(self.get_xgb_params())
-        return super().fit(X, y, **kwargs)
 
 
 class RayXGBRanker(_RayXGBEstimator):
