@@ -279,6 +279,25 @@ is only where it may find ``cuobjdump``). Phases:
    ``auc`` (column 1), equal to the fixed-point CPU path on a cut; S6 S1
    over 2 gloo ranks equal to one rank at ``num_actors=2``.
 
+16. monotone and interaction constraints, parallel trees of K outputs
+   (``constraints``, after phase 15; ``--constraints-only`` runs the build
+   and it alone): at the HIGGS split, 10 rounds at depth 6, M1 monotone
+   (+1 on four features, -1 on three), M2 interaction groups covering all
+   28 features, M3 both with ``colsample_bynode`` 0.8, each run's launches
+   counted from 0 and checked exactly (``constraints_expect``), the test
+   logloss falling, the card's margins along a grid in each constrained
+   feature monotone exactly, every root-to-leaf path inside one group;
+   K2's constrained level step at level 5 (unmasked and masked) bitwise its
+   plain version, the next level's bounds included, and timed in turns with
+   the unconstrained step on the same inputs; P1 a Covertype-shaped
+   ``multi:softprob`` with 4 parallel trees a class (``subsample`` and
+   ``colsample_bynode`` 0.8) and P2 ``reg:quantileerror`` at three alphas
+   with 2 parallel trees each, their launches exact (``forest_expect``);
+   the T-tree modes of the softmax pass and of K4's K-output kernel bitwise
+   their plain versions at the runs' shapes and timed; every configuration
+   equal to the fixed-point CPU path's on a cut (200,000 HIGGS rows, 20,000
+   Covertype rows for P1, 50,000 for P2; 2 rounds).
+
 Phase 6's model is trained, and phase 7 run, right after phase 1: later in
 the process ``torch.profiler`` records no device activity for B8's
 full-size launches (not in a fresh process, nor after any one of phases
@@ -348,6 +367,8 @@ run) and prints no result line.
 ``--shap-only`` runs the build, phase 6's model and phase 11 and prints
 its kernel rows but no result line; ``--pool-only`` the same for phase 12.
 
+``--constraints-only`` runs the build and phase 16 and prints its kernel
+rows but no result line.
 ``--ranking-only`` runs the build and phase 14 and prints its kernel rows
 but no result line.
 
@@ -648,8 +669,9 @@ def b8_main_path_kernels(n_trees, n_rows):
 
 
 def phase_build_report(n_trees, n_rows):
-    """Registers, shared memory and spills of every kernel (K1, K3, B8, B4,
-    the softmax pass, K4; B8's main-path kernels with their dynamic shared
+    """Registers, shared memory and spills of every kernel (K1, K2's four
+    instantiations, K3, B8, B4, the softmax pass, K4; B8's main-path
+    kernels with their dynamic shared
     memory per CTA), and whether K1's shared adds compile to native adds or
     a compare-and-swap loop."""
     from xgboost_ray_tpu_torch.ops import _build
@@ -657,8 +679,8 @@ def phase_build_report(n_trees, n_rows):
 
     paths = _build.build_all()
     report = {}
-    for stem in ("histogram", "partition", "predict", "walk", "softmax",
-                 "objective", "shap"):
+    for stem in ("histogram", "split", "partition", "predict", "walk",
+                 "softmax", "objective", "shap"):
         if stem in paths:  # walk, softmax, objective: not in older trees
             report[stem] = {"ptxas": ptxas_report(_build.build_log(stem)),
                             "sass_atomics": sass_atomics(paths[stem])}
@@ -6063,6 +6085,423 @@ def phase_sampling(x, y, records, rounds=10, depth=6, compare_rows=200_000):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 16: monotone and interaction constraints (K2's constrained level
+# step) and parallel trees of K outputs (the T-tree modes of the softmax
+# pass and of K4's K-output kernel)
+# ---------------------------------------------------------------------------
+
+#: M1's signs over the 28 HIGGS columns: +1 on four, -1 on three
+HIGGS_MONOTONE = tuple({0: 1, 2: 1, 4: 1, 5: 1, 1: -1, 3: -1, 6: -1}.get(i, 0)
+                       for i in range(28))
+#: M2's groups, covering all 28 columns (0 and 2 in two groups each)
+HIGGS_GROUPS = [[0, 1, 4, 8, 9, 10, 11, 12], [2, 3, 13, 14, 15, 16, 17, 18],
+                [5, 6, 7, 19, 20, 21, 22, 23], [0, 2, 24, 25, 26, 27]]
+#: phase 16's binary configurations at the HIGGS split (10 rounds, depth 6)
+CONSTRAINT_RUNS = (
+    ("M1", {"objective": "binary:logistic",
+            "monotone_constraints": HIGGS_MONOTONE}),
+    ("M2", {"objective": "binary:logistic",
+            "interaction_constraints": HIGGS_GROUPS}),
+    ("M3", {"objective": "binary:logistic",
+            "monotone_constraints": HIGGS_MONOTONE,
+            "interaction_constraints": HIGGS_GROUPS,
+            "colsample_bynode": 0.8}),
+)
+#: P1 (Covertype's shape, K = 7, T = 4) and P2 (three quantiles, T = 2)
+FOREST_P1 = {"objective": "multi:softprob", "num_class": 7,
+             "num_parallel_tree": 4, "subsample": 0.8,
+             "colsample_bynode": 0.8}
+QUANTILE_P2 = {"objective": "reg:quantileerror",
+               "quantile_alpha": [0.1, 0.5, 0.9], "num_parallel_tree": 2}
+#: the kernel table's rows of phase 16
+CONSTRAINT_KERNELS = ("K2cons", "K2consmasked", "SMXtrees", "K4multitrees")
+
+
+def constraints_expect(params, rounds, depth, held_out=True):
+    """Exact launches of a binary ``train()`` with constraints: the
+    sampling phase's count (``sampling_expect``) and K2's constrained
+    level step at every level of every tree."""
+    out = sampling_expect(params, rounds, depth, held_out)
+    out["K2cons"] = rounds * depth
+    return out
+
+
+def forest_expect(rounds, depth, k, t, sampled, softmax):
+    """Exact launches of a ``train()`` of K outputs and T parallel trees an
+    output with the test set: the main path's K1-K3 per tree; the round
+    pass (the softmax pass, or K4's K-output kernel) a round, at set-up and
+    over the test set, in its T-tree mode on both sets; B4 over the test
+    set, and over the training rows where rows are sampled (B12r a tree,
+    B12f and K2 masked a level under ``colsample_bynode``)."""
+    n_trees = rounds * k * t
+    out = train_expect(n_trees, depth)
+    out.update(B12r=n_trees if sampled else 0,
+               B12f=n_trees * depth if sampled else 0,
+               K2masked=n_trees * depth if sampled else 0, K2cons=0,
+               B4=rounds * (2 if sampled else 1))
+    if softmax:
+        out.update(K4=0, K4eval=0, K4trees=0, SMX=2 * rounds + 1,
+                   SMXeval=rounds, SMXtrees=2 * rounds)
+    else:
+        out.update(K4=2 * rounds + 1, K4eval=rounds, K4trees=2 * rounds,
+                   SMX=0, SMXeval=0, SMXtrees=0)
+    return out
+
+
+def tree_paths(forest):
+    """The feature sets of every root-to-leaf path of every tree of a
+    forest's [T, heap] arrays."""
+    feature = np.asarray(forest.feature)
+    is_leaf = np.asarray(forest.is_leaf)
+    paths = []
+    for t in range(feature.shape[0]):
+        stack = [(0, frozenset())]
+        while stack:
+            i, used = stack.pop()
+            if is_leaf[t, i] or feature[t, i] < 0:
+                paths.append(used)
+                continue
+            used = used | {int(feature[t, i])}
+            stack += [(2 * i + 1, used), (2 * i + 2, used)]
+    return paths
+
+
+def monotone_grid(bst, x, signs, rows=200, points=64):
+    """The card's margins along a grid in each constrained feature (the
+    other features from ``rows`` rows): the steps against each sign, and
+    the features the model moved on. A sum of monotone terms in a fixed
+    order rounds monotonically, so any step against the sign is a
+    fault."""
+    grid = np.linspace(-3.0, 3.0, points, dtype=np.float32)
+    base = x[:rows]
+    wrong, moved = {}, []
+    for fi, sign in enumerate(signs):
+        if not sign:
+            continue
+        xg = np.repeat(base, points, axis=0)
+        xg[:, fi] = np.tile(grid, rows)
+        m = np.asarray(bst.predict(xg, output_margin=True)).reshape(rows,
+                                                                    points)
+        steps = np.diff(m, axis=1) * sign
+        if (steps < 0).any():
+            wrong[fi] = float(steps.min())
+        if (steps > 0).any():
+            moved.append(fi)
+    return wrong, moved
+
+
+def phase_constraints(x, y, records, rounds=10, depth=6,
+                      compare_rows=200_000):
+    """Phase 16 at full width. Path M at the HIGGS split (10,500,000 rows
+    train, the last 500,000 the test set, depth 6, 10 rounds, seed 7): M1
+    monotone (+1 on four features, -1 on three), M2 interaction groups
+    covering all 28 features, M3 both with ``colsample_bynode`` 0.8; each
+    run's launches counted from 0 and checked exactly, the test logloss
+    falling, the card's margins along a grid in each constrained feature
+    monotone exactly, every root-to-leaf path inside one group; K2's
+    constrained level step at level 5 (unmasked and masked) bitwise its
+    plain version, timed beside the unconstrained one; every
+    configuration (2 rounds) equal to the fixed-point CPU path on a
+    ``compare_rows``-row cut. Path P: P1 Covertype's shape
+    ``multi:softprob`` with T = 4, ``subsample`` and ``colsample_bynode``
+    0.8; P2 ``reg:quantileerror`` at alphas 0.1 / 0.5 / 0.9 with T = 2 at
+    the HIGGS split; the softmax pass and K4's K-output kernel in their
+    T-tree modes bitwise their plain versions at the runs' shapes, timed
+    and counted; each model equal to the fixed-point CPU path on a cut."""
+    import torch
+
+    import xgboost_ray_tpu_torch as xrt
+    from xgboost_ray_tpu_torch.distributed import _KeepEngine
+    from xgboost_ray_tpu_torch.engine import (
+        kernel_launches,
+        reset_kernel_launches,
+    )
+    from xgboost_ray_tpu_torch.ops import _build
+    from xgboost_ray_tpu_torch.ops import grow as G
+    from xgboost_ray_tpu_torch.ops import histogram as H
+    from xgboost_ray_tpu_torch.ops import objectives as O
+    from xgboost_ray_tpu_torch.ops import split as S
+
+    t_phase = time.perf_counter()
+    n = x.shape[0]
+    n_train = n - TEST_ROWS
+    f = x.shape[1]
+    res = {"phase": "constraints", "rows": n, "train_rows": n_train,
+           "test_rows": TEST_ROWS, "rounds": rounds, "max_depth": depth,
+           "runs": {}, "steps_s": {}}
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+
+    def lap(name, since):
+        res["steps_s"][name] = time.perf_counter() - since
+        return time.perf_counter()
+
+    def train(params, xs, ys, n_test, n_rounds=rounds, device="cuda:0",
+              held_out=True):
+        hi = xs.shape[0] - n_test
+        dtrain = xrt.RayDMatrix(xs[:hi], ys[:hi])
+        evals = [(dtrain, "train")]
+        if held_out:
+            evals.append((xrt.RayDMatrix(xs[hi:], ys[hi:]), "test"))
+        ev, extra = {}, {}
+        keep = _KeepEngine()
+        builds = _build.compile_count()
+        reset_kernel_launches()
+        if device != "cpu":
+            torch.cuda.synchronize()
+        t = time.perf_counter()
+        bst = xrt.train({"max_depth": depth, "max_bin": 256, "seed": 7,
+                         **params}, dtrain, n_rounds, evals=evals,
+                        evals_result=ev, additional_results=extra,
+                        callbacks=[keep], device=device,
+                        ray_params=xrt.RayParams(num_actors=1))
+        if device != "cpu":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        check(_build.compile_count() == builds,
+              "phase 16: a kernel build inside train()")
+        return {"bst": bst, "ev": ev, "launches": kernel_launches(),
+                "wall_s": wall, "engine": keep.engine,
+                "round_ms": [r * 1e3 for r in extra["round_times_s"]]}
+
+    def same_on_cpu(key, params, xs, ys, nr=2):
+        card = train(params, xs, ys, 0, n_rounds=nr, held_out=False)
+        with _cpu_fixed_point(True):
+            cpu = train(params, xs, ys, 0, n_rounds=nr, device="cpu",
+                        held_out=False)
+        same = (card["bst"].get_dump(with_stats=True)
+                == cpu["bst"].get_dump(with_stats=True))
+        check(same, f"{key}: the card's model differs from the fixed-point "
+                    f"CPU path's on {xs.shape[0]} rows")
+        return {"rows": int(xs.shape[0]), "rounds": nr, "dumps_equal": same}
+
+    def exact(launches, expect, key):
+        for k, v in expect.items():
+            check(launches[k] == v,
+                  f"{key}: {k} launched {launches[k]} times, expected {v}")
+
+    def falls(hist, key):
+        check(all(np.isfinite(hist)) and hist[-1] < hist[0],
+              f"{key}: the test loss does not fall: {hist}")
+        return hist
+
+    # path M: M1-M3 at full size, each run's launches checked
+    groups = [frozenset(g) for g in HIGGS_GROUPS]
+    for key, params in CONSTRAINT_RUNS:
+        r = train(params, x, y, TEST_ROWS)
+        expect = constraints_expect(params, rounds, depth)
+        exact(r["launches"], expect, key)
+        out = {"launches": r["launches"], "expected": expect,
+               "round_ms": r["round_ms"],
+               "round_ms_median": float(np.median(r["round_ms"])),
+               "train_wall_s": r["wall_s"],
+               "test_logloss": falls(r["ev"]["test"]["logloss"], key)}
+        signs = params.get("monotone_constraints")
+        if signs:
+            wrong, moved = monotone_grid(r["bst"], x[n_train:], signs)
+            out.update(grid_steps_against_sign=wrong, grid_moved=moved)
+            check(not wrong, f"{key}: margins step against the sign: {wrong}")
+            check(moved, f"{key}: no constrained feature moves the margins")
+        if "interaction_constraints" in params:
+            paths = tree_paths(r["bst"].forest)
+            outside = [sorted(p) for p in paths
+                       if not any(p <= g for g in groups)]
+            out.update(paths=len(paths), paths_outside_groups=outside[:5],
+                       deepest_path=max(len(p) for p in paths))
+            check(not outside, f"{key}: paths outside every group: "
+                               f"{outside[:5]}")
+        res["runs"][key] = out
+        if key == "M1":
+            records["K2cons"]["launches"] = r["launches"]["K2cons"]
+        if key == "M3":
+            records["K2consmasked"]["launches"] = r["launches"]["K2cons"]
+        del r
+    t0 = lap("m1_m3", t_phase)
+    emit({"phase": "constraints_rounds", "card": CARD,
+          **{k: res["runs"][k]["round_ms_median"]
+             for k, _ in CONSTRAINT_RUNS}})
+
+    # K2's constrained level step at level 5 (32 nodes) of the main path's
+    # shape under M3's constraints, the ancestors a random tree's, the
+    # bounds random (infinite, crossing and equal ones among them)
+    nbt, n_nodes = 257, 32
+    bins, ghl, order, seg = level_inputs(n_train, f, n_nodes, 16, False)
+    hp, _ = H.build_histogram_plain(bins, ghl, order, seg, n_nodes, nbt)
+    del bins, ghl, order, seg
+    g2 = torch.Generator(device="cuda").manual_seed(31)
+    lo = torch.randn(n_nodes, generator=g2, device="cuda") * 0.2 - 0.1
+    hi_b = lo + torch.rand(n_nodes, generator=g2, device="cuda") * 0.3
+    lo[::3] = float("-inf")
+    hi_b[1::4] = float("inf")
+    lo[2], hi_b[2] = 0.2, -0.2
+    hi_b[-1] = lo[-1]
+    level = dict(
+        hist=hp[0::2].contiguous(), prev_hist=hp[0::2] + hp[1::2],
+        small_is_right=torch.rand(16, generator=g2, device="cuda") < 0.5,
+        active=torch.arange(32, device="cuda") % 13 != 5,
+        bounds=(lo, hi_b))
+    mask = G.sample_feature_mask((7, 16), f, 0.8, None, n_nodes,
+                                 device="cuda")
+    cuts = torch.sort(torch.randn(f, nbt - 2, generator=g2, device="cuda"),
+                      dim=1).values
+    p = S.SplitParams()
+    cons = S.TreeConstraints(HIGGS_MONOTONE,
+                             tuple(tuple(g) for g in HIGGS_GROUPS), f, "cuda")
+    tree0 = G.empty_tree(127, "cuda")
+    top = torch.randint(0, f, (31,), generator=g2, device="cuda",
+                        dtype=torch.int32)
+    top[torch.rand(31, generator=g2, device="cuda") < 0.15] = -1
+    tree0.feature[:31] = top
+    hold = {}
+    for rec_key, fmask in (("K2cons", None), ("K2consmasked", mask)):
+        rec_k = S.TreeRecords(G.Tree(*[t.clone() for t in tree0]), cuts,
+                              None, p, cons)
+        rec_p = S.TreeRecords(G.Tree(*[t.clone() for t in tree0]), cuts,
+                              None, p, cons)
+        lk = S.split_level(**level, rec=rec_k, feature_mask=fmask)
+        lp = S.split_level_plain(**level, rec=rec_p, feature_mask=fmask)
+        torch.cuda.synchronize()
+        pairs = ([(getattr(lk.splits, k), getattr(lp.splits, k))
+                  for k in lk.splits._fields]
+                 + [(getattr(lk, k), getattr(lp, k))
+                    for k in ("node_value", "state", "active", "hist")]
+                 + list(zip(lk.bounds, lp.bounds))
+                 + list(zip(rec_k.tree, rec_p.tree)))
+        check(all(torch.equal(bits(a), bits(b)) for a, b in pairs),
+              f"{rec_key}: K2's constrained level step not bitwise equal to "
+              f"its plain version")
+        hist_bytes = n_nodes * f * nbt * 2 * 4
+        # per candidate and direction the constrained gain adds two leaf
+        # weights (a division each), four clamps and two fused
+        # score_given_weight terms to the unconstrained one's ~30 ops
+        _kernel_record(
+            records, rec_key,
+            lambda fm=fmask, rk=rec_k: S.split_level(**level, rec=rk,
+                                                     feature_mask=fm),
+            lambda fm=fmask, rp=rec_p: S.split_level_plain(
+                **level, rec=rp, feature_mask=fm),
+            bound_ms(2 * hist_bytes + 16 + 32 + 32 * (4 + 38) + 32 * 16
+                     + (n_nodes * f if fmask is not None else 0),
+                     n_nodes * f * (3 * nbt + 62 * (nbt - 2))),
+            flush, records[rec_key]["launches"], 0.0)
+        rec_u = S.TreeRecords(G.empty_tree(127, "cuda"), cuts, None, p)
+        plain_level = {k: v for k, v in level.items() if k != "bounds"}
+        # the unconstrained step on the same inputs, in turns with it
+        times = []
+        for _ in range(2):
+            times.append(cuda_ms(lambda fm=fmask, rk=rec_k: S.split_level(
+                **level, rec=rk, feature_mask=fm), iters=20))
+            times.append(cuda_ms(lambda fm=fmask: S.split_level(
+                **plain_level, rec=rec_u, feature_mask=fm), iters=20))
+        hold[rec_key] = {"constrained_ms": times[0::2],
+                         "unconstrained_ms": times[1::2]}
+        records[rec_key]["unconstrained_ms"] = times[1::2]
+    res["k2_level5"] = hold
+    emit({"phase": "constraints_k2", **hold})
+    del hp, level, lk, lp
+    torch.cuda.empty_cache()
+    t0 = lap("k2_holds", t0)
+
+    # path P: P1 (Covertype's shape, K = 7, T = 4) and P2 (three quantiles,
+    # T = 2) at full size, each run's launches checked
+    xc, yc = make_covertype_like(COVERTYPE_ROWS)
+    p1 = train(FOREST_P1, xc, yc, COVERTYPE_TEST)
+    exact(p1["launches"], forest_expect(rounds, depth, 7, 4, True, True),
+          "P1")
+    res["runs"]["P1"] = {
+        "launches": p1["launches"], "round_ms": p1["round_ms"],
+        "round_ms_median": float(np.median(p1["round_ms"])),
+        "train_wall_s": p1["wall_s"], "trees": p1["bst"].num_trees,
+        "test_mlogloss": falls(p1["ev"]["test"]["mlogloss"], "P1")}
+    records["SMXtrees"]["launches"] = p1["launches"]["SMXtrees"]
+    rng = np.random.default_rng(16)
+    yq = (0.4 * x[:, 0] - 0.3 * x[:, 1] + 0.2 * x[:, 2]
+          + 0.5 * rng.standard_normal(n)).astype(np.float32)
+    p2 = train(QUANTILE_P2, x, yq, TEST_ROWS)
+    exact(p2["launches"], forest_expect(rounds, depth, 3, 2, False, False),
+          "P2")
+    res["runs"]["P2"] = {
+        "launches": p2["launches"], "round_ms": p2["round_ms"],
+        "round_ms_median": float(np.median(p2["round_ms"])),
+        "train_wall_s": p2["wall_s"], "trees": p2["bst"].num_trees,
+        "test_quantile": falls(p2["ev"]["test"]["quantile"], "P2")}
+    records["K4multitrees"]["launches"] = p2["launches"]["K4trees"]
+    del p1, p2
+    torch.cuda.empty_cache()
+    t0 = lap("p1_p2", t0)
+
+    # the T-tree modes at the runs' shapes: the softmax pass over P1's
+    # training rows (K = 7, T = 4), K4's K-output kernel over P2's (K = 3,
+    # T = 2); margins and gradients bitwise, sums within 1e-5 relative
+    g3 = torch.Generator(device="cuda").manual_seed(33)
+    nc = COVERTYPE_ROWS - COVERTYPE_TEST
+    for rec_key, rows, k, t in (("SMXtrees", nc, 7, 4),
+                                ("K4multitrees", n_train, 3, 2)):
+        m0 = torch.randn((rows, k), generator=g3, device="cuda")
+        rv = torch.randn((k * t, rows), generator=g3, device="cuda") * 0.1
+        w = torch.ones(rows, device="cuda")
+        if rec_key == "SMXtrees":
+            lab = torch.randint(0, k, (rows,), generator=g3,
+                                device="cuda").float()
+
+            def kern(m, rv=rv, lab=lab, w=w):
+                return O.softmax_update(m, rv, lab, w, True)
+
+            def plain(m, rv=rv, lab=lab, w=w):
+                return O.softmax_update_plain(m, rv, lab, w, True)
+            # margins read and written, K T values, label and weight, K gh
+            nbytes = rows * (8 * k + 4 * k * t + 8 + 8 * k)
+            ops = rows * k * (2 * t + 40)
+        else:
+            lab = torch.randn(rows, generator=g3, device="cuda")
+            obj = O.get_objective("reg:quantileerror",
+                                  quantile_alpha=[0.1, 0.5, 0.9])
+
+            def kern(m, rv=rv, lab=lab, w=w, obj=obj):
+                return O.round_update_multi(m, rv, lab, w, obj, True,
+                                            ["quantile"])
+
+            def plain(m, rv=rv, lab=lab, w=w, obj=obj):
+                return O.round_update_multi_plain(m, rv, lab, w, obj, True,
+                                                  ["quantile"])
+            nbytes = rows * (8 * k + 4 * k * t + 8 + 8 * k)
+            ops = rows * k * (2 * t + 20)
+        mk, mp = m0.clone(), m0.clone()
+        ghk, sk = kern(mk)
+        ghp, sp = plain(mp)
+        torch.cuda.synchronize()
+        check(torch.equal(bits(mk), bits(mp))
+              and torch.equal(bits(ghk), bits(ghp)),
+              f"{rec_key}: margins or gradients differ from the plain ones")
+        rel = float(((sk - sp).abs() / sp.abs().clamp_min(1e-30)).max())
+        check(rel <= 1e-5, f"{rec_key}: partial sums {rel} relative off")
+        _kernel_record(records, rec_key, lambda mk=mk, kern=kern: kern(mk),
+                       lambda mp=mp, plain=plain: plain(mp),
+                       bound_ms(nbytes, ops), flush,
+                       records[rec_key]["launches"],
+                       float((sk - sp).abs().max()))
+        records[rec_key].update(rows=rows, outputs=k, trees=t)
+        del m0, rv, lab, w, mk, mp, ghk, ghp
+        torch.cuda.empty_cache()
+    t0 = lap("t_tree_holds", t0)
+
+    # every configuration against the fixed-point CPU path on a cut
+    cmp = {}
+    for key, params in CONSTRAINT_RUNS:
+        cmp[key] = same_on_cpu(key, params, x[:compare_rows],
+                               y[:compare_rows])
+    cut = 20_000
+    cmp["P1"] = same_on_cpu("P1", FOREST_P1, xc[:cut], yc[:cut])
+    cut = 50_000
+    cmp["P2"] = same_on_cpu("P2", QUANTILE_P2, x[:cut], yq[:cut])
+    res["cpu_fixed_point"] = cmp
+    del xc, yc, yq
+    lap("cpu_fixed_point", t0)
+    res["phase_s"] = time.perf_counter() - t_phase
+    emit(res)
+    return res
+
+
 def profiled_ms(fn, iters=10):
     """``device_ms`` where ``torch.profiler`` records the kernel, None where
     it records no device time (``PERF.md`` §7)."""
@@ -6271,6 +6710,26 @@ KERNELS = {
                     "(launches: S4's random forest)", route="cuda",
                     source="xgboost_ray_tpu_torch/csrc/objective.cu",
                     replaces="xgboost_ray_tpu/engine.py:1413"),
+    "K2cons": dict(name="K2 level step, constrained instantiation: "
+                   "monotone signs on 7 of 28 features and 4 interaction "
+                   "groups, level 5 (16 parents, 32 nodes; launches: M1)",
+                   route="cuda", source="xgboost_ray_tpu_torch/csrc/split.cu",
+                   replaces="xgboost_ray_tpu/ops/split.py:116"),
+    "K2consmasked": dict(name="K2 level step, constrained and masked "
+                         "instantiation: the same under a [32, 28] node mask "
+                         "(launches: M3)", route="cuda",
+                         source="xgboost_ray_tpu_torch/csrc/split.cu",
+                         replaces="xgboost_ray_tpu/ops/grow.py:634"),
+    "SMXtrees": dict(name="softmax pass, training mode, T-tree add: 464,810 "
+                     "x 7 classes x 4 parallel trees (launches: P1)",
+                     route="cuda",
+                     source="xgboost_ray_tpu_torch/csrc/softmax.cu",
+                     replaces="xgboost_ray_tpu/engine.py:1413"),
+    "K4multitrees": dict(name="K4 K-output kernel, T-tree add: 10,500,000 "
+                         "rows x 3 quantiles x 2 parallel trees, gh mode "
+                         "(launches: P2)", route="cuda",
+                         source="xgboost_ray_tpu_torch/csrc/objective.cu",
+                         replaces="xgboost_ray_tpu/engine.py:1413"),
     **{f"B8serve{m}": dict(
         name=f"B8 forest walk: margins, heap layout, a serve batch of {m} "
              f"rows (windows mapping; launches: every batch of the heap "
@@ -6392,6 +6851,14 @@ def run(args):
         phase_ranking(x, y, records)
         emit({"ranking_kernels": {k: records[k] for k in RANKING_KERNELS}})
         return
+    if args.constraints_only:
+        records = {k: dict(v) for k, v in KERNELS.items()}
+        x, y = make_higgs_like(args.rows, 28, seed=0)
+        phase_constraints(x, y, records,
+                          compare_rows=min(args.compare_rows, args.rows))
+        emit({"constraints_kernels": {k: records[k]
+                                      for k in CONSTRAINT_KERNELS}})
+        return
     if args.sampling_only:
         records = {k: dict(v) for k, v in KERNELS.items()}
         x, y = make_higgs_like(args.rows, 28, seed=0)
@@ -6449,6 +6916,9 @@ def run(args):
     results["ranking"] = phase_ranking(x, y, records)
     torch.cuda.empty_cache()
     results["sampling"] = phase_sampling(
+        x, y, records, compare_rows=min(args.compare_rows, args.rows))
+    torch.cuda.empty_cache()
+    results["constraints"] = phase_constraints(
         x, y, records, compare_rows=min(args.compare_rows, args.rows))
     torch.cuda.empty_cache()
 
@@ -6596,6 +7066,11 @@ def main():
                     help="only the build and phase 15 (row and column "
                          "sampling, feature weights, random forests at the "
                          "HIGGS shape); prints no result line")
+    ap.add_argument("--constraints-only", action="store_true",
+                    help="only the build and phase 16 (monotone and "
+                         "interaction constraints at the HIGGS shape, "
+                         "parallel trees of K outputs); prints no result "
+                         "line")
     ap.add_argument("--facade-only", action="store_true",
                     help="only the build and phase 10 (the sklearn "
                          "estimators, custom objectives and metrics, files, "

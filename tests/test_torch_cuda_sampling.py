@@ -1,6 +1,9 @@
-"""The kernels of stochastic boosting against their plain versions on a
-CUDA device: B12r (row selection, ``ops/sampling.sample_rows``), B12f
-(feature masks, ``ops/grow.sample_feature_mask``), K2's masked level step,
+"""The kernels of stochastic boosting and of the constraints against their
+plain versions on a CUDA device: B12r (row selection,
+``ops/sampling.sample_rows``), B12f (feature masks,
+``ops/grow.sample_feature_mask``), K2's masked and constrained level steps
+(the next level's monotone bounds, the final level's clamped leaf values),
+the T-tree modes of the softmax pass and of K4's K-output kernel,
 K4's T-tree add and extra ``error@t`` sums, and the softmax pass's column-0
 logloss. Every test skips without a CUDA device (the kernels have no CPU
 mode); run them on the card with ``python -m pytest
@@ -333,3 +336,238 @@ def test_sampled_training_on_card(cuda, name, monkeypatch):
     if fw is not None:
         used = set(np.asarray(bk.forest.feature).ravel().tolist())
         assert not used & {2, 5}
+
+
+# --------------------------------------------------------------------------
+# K2's constrained level step and the K-output T-tree modes
+# --------------------------------------------------------------------------
+
+
+def _ancestors(tree, level, f, rng):
+    """Split features of the levels above ``level`` (a fifth of them -1:
+    leaves, whose descendants K2 still scores)."""
+    top = (1 << level) - 1
+    feat = rng.integers(0, f, top)
+    feat[rng.random(top) < 0.2] = -1
+    tree.feature[:top] = torch.from_numpy(feat.astype(np.int32))
+
+
+def _level_bounds(n_nodes, kind, rng):
+    if kind == "inf":
+        return (torch.full((n_nodes,), float("-inf")),
+                torch.full((n_nodes,), float("inf")))
+    lo = (rng.standard_normal(n_nodes) * 0.2 - 0.1).astype(np.float32)
+    hi = (lo + np.abs(rng.standard_normal(n_nodes)) * 0.3).astype(np.float32)
+    if n_nodes > 2:  # crossing and (finite) equal intervals
+        lo[2], hi[2] = 0.2, -0.2
+        hi[-1] = lo[-1]
+    # one-sided intervals; never both ends the same infinity, which no
+    # grower makes (the children's bounds are finite midpoints) and where
+    # every weight is infinite and every gain NaN (jnp.argmax then takes
+    # the first NaN, the kernel's election keeps -inf)
+    lo[::3] = -np.inf
+    hi[1::4] = np.inf
+    return torch.from_numpy(lo), torch.from_numpy(hi)
+
+
+@pytest.mark.parametrize("f", [28, 33, 75])
+@pytest.mark.parametrize("level", [0, 1, 2, 3, 4, 5])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("bounds", ["inf", "crossing"])
+def test_split_level_constrained_bitwise(cuda, f, level, masked, bounds):
+    """K2's constrained instantiations (monotone signs and 40 interaction
+    groups, unmasked and under a node mask) against the plain level step:
+    every output, the records, the next level's bounds bitwise; the final
+    level's leaf records under the bounds too."""
+    rng = np.random.default_rng(100 * f + 10 * level + masked)
+    n_nodes = 1 << level
+    if level:
+        small, prev, sir, active = _level_inputs(
+            6000 + 3000 * n_nodes, f, 256, n_nodes // 2, seed=f + level)
+    else:
+        small, _, _, _ = _level_inputs(6000, f, 256, 1, seed=f)
+        prev = sir = None
+        active = torch.ones(1, dtype=torch.bool)
+    cuts = torch.from_numpy(
+        np.sort(rng.standard_normal((f, 255)), 1).astype(np.float32))
+    mono = tuple(int(c) for c in rng.choice([-1, 0, 0, 1], f))
+    groups = tuple(tuple(sorted(set(rng.choice(f, rng.integers(1, 6)))))
+                   for _ in range(40))
+    # reg_alpha 0 with max_delta_step on: the children's other fma order
+    p = ts.SplitParams(min_child_weight=2.0, reg_alpha=0.0,
+                       max_delta_step=0.5 if level % 2 else 0.0)
+    heap = (2 << level) - 1
+    tree_p = tg.empty_tree(heap, "cpu")
+    _ancestors(tree_p, level, f, rng)
+    tree_k = tg.Tree(*[t.to(cuda) for t in tree_p])
+    lo, hi = _level_bounds(n_nodes, bounds, rng)
+    mask = (torch.from_numpy(rng.random((n_nodes, f)) < 0.6)
+            if masked else None)
+    cons_p = ts.TreeConstraints(mono, groups, f, "cpu")
+    cons_k = ts.TreeConstraints(mono, groups, f, cuda)
+    sp = ts.split_level(small, prev, sir, active,
+                        ts.TreeRecords(tree_p, cuts, None, p, cons_p),
+                        feature_mask=mask, bounds=(lo, hi))
+    ts.split_level.launches_constrained = 0
+    ts.split_level.launches_masked = 0
+    dev = [None if t is None else t.to(cuda)
+           for t in (small, prev, sir, active, mask, lo, hi)]
+    sk = ts.split_level(*dev[:4],
+                        ts.TreeRecords(tree_k, cuts.to(cuda), None, p,
+                                       cons_k),
+                        feature_mask=dev[4], bounds=(dev[5], dev[6]))
+    assert ts.split_level.launches_constrained == 1
+    assert ts.split_level.launches_masked == int(masked)
+    for name in sp.splits._fields:
+        assert _same_bits(getattr(sk.splits, name),
+                          getattr(sp.splits, name)), name
+    for name in ("node_value", "state", "active", "hist"):
+        assert _same_bits(getattr(sk, name), getattr(sp, name)), name
+    for a, b in zip(sk.bounds, sp.bounds):
+        assert _same_bits(a, b)
+    for name in tg.Tree._fields:
+        assert _same_bits(getattr(tree_k, name), getattr(tree_p, name)), name
+    # the next level as a final one: leaf values clamped to its bounds
+    gh = torch.from_numpy(np.stack([rng.standard_normal(2 * n_nodes),
+                                    rng.uniform(0, 3, 2 * n_nodes)], 1)
+                          .astype(np.float32))
+    big = tg.empty_tree((4 << level) - 1, "cpu")
+    big_k = tg.empty_tree((4 << level) - 1, cuda)
+    vp = ts.leaf_records(gh, sp.active,
+                         ts.TreeRecords(big, cuts, None, p, cons_p),
+                         sp.bounds)
+    vk = ts.leaf_records(gh.to(cuda), sk.active,
+                         ts.TreeRecords(big_k, cuts.to(cuda), None, p,
+                                        cons_k), sk.bounds)
+    for a, b in zip(vk, vp):
+        assert _same_bits(a, b)
+    for name in tg.Tree._fields:
+        assert _same_bits(getattr(big_k, name), getattr(big, name)), name
+
+
+@pytest.mark.parametrize("k", [3, 7])
+@pytest.mark.parametrize("t", [2, 4])
+@pytest.mark.parametrize("n", [8192, 70_001])
+@pytest.mark.parametrize("with_gh", [True, False])
+def test_softmax_tree_add_bitwise(cuda, k, t, n, with_gh):
+    """The softmax pass over a round's K x T trees: margins and gradients
+    bitwise the plain version's, sums within 1e-5 relative."""
+    rng = np.random.default_rng(k * t + n)
+    m = torch.from_numpy(rng.standard_normal((n, k)).astype(np.float32))
+    rv = torch.from_numpy(rng.standard_normal((k * t, n)).astype(np.float32))
+    y = torch.from_numpy(rng.integers(0, k, n).astype(np.float32))
+    w = torch.from_numpy(rng.uniform(0.5, 2.0, n).astype(np.float32))
+    mp, mk = m.clone(), m.cuda()
+    ghp, sp = to.softmax_update(mp, rv, y, w, with_gh)
+    to.softmax_update.tree_launches = 0
+    ghk, sk = to.softmax_update(mk, rv.cuda(), y.cuda(), w.cuda(), with_gh)
+    assert to.softmax_update.tree_launches == 1
+    assert _same_bits(mk, mp)
+    if with_gh:
+        assert _same_bits(ghk, ghp)
+    np.testing.assert_allclose(sk.cpu().numpy(), sp.numpy(), rtol=1e-5)
+
+
+@pytest.mark.parametrize("k", [3, 7])
+@pytest.mark.parametrize("t", [2, 4])
+@pytest.mark.parametrize("n", [8192, 70_001])
+@pytest.mark.parametrize("with_gh", [True, False])
+def test_quantile_tree_add_bitwise(cuda, k, t, n, with_gh):
+    """K4's K-output kernel over a round's K x T trees (K alphas): margins
+    and gradients bitwise the plain version's, sums within 1e-5
+    relative."""
+    rng = np.random.default_rng(k * t + n + 1)
+    obj = to.get_objective("reg:quantileerror",
+                           quantile_alpha=[float(a) for a in
+                                           np.linspace(0.1, 0.9, k)])
+    m = torch.from_numpy(rng.standard_normal((n, k)).astype(np.float32))
+    rv = torch.from_numpy(rng.standard_normal((k * t, n)).astype(np.float32))
+    y = torch.from_numpy(rng.standard_normal(n).astype(np.float32))
+    w = torch.from_numpy(rng.uniform(0.5, 2.0, n).astype(np.float32))
+    metrics = ["quantile"]
+    mp, mk = m.clone(), m.cuda()
+    ghp, sp = to.round_update_multi(mp, rv, y, w, obj, with_gh, metrics)
+    to.round_update.tree_launches = 0
+    ghk, sk = to.round_update_multi(mk, rv.cuda(), y.cuda(), w.cuda(), obj,
+                                    with_gh, metrics)
+    assert to.round_update.tree_launches == 1
+    assert _same_bits(mk, mp)
+    if with_gh:
+        assert _same_bits(ghk, ghp)
+    np.testing.assert_allclose(sk.cpu().numpy(), sp.numpy(), rtol=1e-5,
+                               atol=1e-6)
+
+
+CONSTRAINED = {
+    "monotone": dict(monotone_constraints="(1,-1,0,1,0,0,-1)"),
+    "interaction": dict(interaction_constraints=[[0, 1], [2, 3, 4],
+                                                 [1, 5, 6, 7, 8]]),
+    "both_masked": dict(monotone_constraints=(1, 0, -1),
+                        interaction_constraints=[[0, 1], [2, 3, 4],
+                                                 [1, 5, 6, 7, 8]],
+                        colsample_bynode=0.8, subsample=0.8),
+    "softprob_forest": dict(objective="multi:softprob", num_class=3,
+                            num_parallel_tree=3, subsample=0.8,
+                            monotone_constraints="(1,0,-1)"),
+    "quantile_forest": dict(objective="reg:quantileerror",
+                            quantile_alpha=[0.1, 0.5, 0.9],
+                            num_parallel_tree=2),
+}
+
+
+@pytest.mark.parametrize("name", list(CONSTRAINED))
+def test_constrained_training_on_card(cuda, name, monkeypatch):
+    """train() with constraints, and with parallel trees of K outputs, on
+    the card reruns bit for bit and equals the CPU path summing K1's
+    histograms in the card's fixed point (dumps equal, history within
+    1e-6)."""
+    import xgboost_ray_tpu_torch as tx
+    from xgboost_ray_tpu_torch import engine as E
+    from xgboost_ray_tpu_torch.ops import grow as G
+
+    rng = np.random.default_rng(1)
+    n, f = 30_001, 9
+    x = rng.standard_normal((n, f)).astype(np.float32)
+    lin = x[:, 0] + 0.5 * x[:, 1] - 0.3 * x[:, 6]
+    y = (lin + rng.standard_normal(n) > 0).astype(np.float32)
+    params = {"objective": "binary:logistic", "max_depth": 5, "seed": 3,
+              **CONSTRAINED[name]}
+    if params["objective"] == "multi:softprob":
+        y = np.clip(np.round(lin + 1.0), 0, 2).astype(np.float32)
+    if params["objective"] == "reg:quantileerror":
+        y = (lin + rng.standard_normal(n)).astype(np.float32)
+
+    def run(device):
+        dm = tx.RayDMatrix(x, y)
+        ev = {}
+        bst = tx.train(params, dm, 3, evals=[(dm, "train")], evals_result=ev,
+                       ray_params=tx.RayParams(num_actors=2), device=device)
+        return bst, ev
+
+    E.reset_kernel_launches()
+    bk, evk = run("cuda")
+    launches = E.kernel_launches()
+    bk2, _ = run("cuda")
+    assert bk.get_dump(with_stats=True) == bk2.get_dump(with_stats=True)
+    constrained = "monotone_constraints" in params or (
+        "interaction_constraints" in params)
+    assert (launches["K2cons"] > 0) == constrained
+    if params.get("num_parallel_tree", 1) > 1:
+        key = "SMXtrees" if name.startswith("softprob") else "K4trees"
+        assert launches[key] == 3
+
+    def fixed(bins, gh, rows, seg, n_nodes, nbt, with_hist=True, qscale=None):
+        return th.build_histogram_fixed_plain(bins, gh, rows, seg, n_nodes,
+                                              nbt, qscale, with_hist)
+
+    monkeypatch.setattr(G, "build_histogram", fixed)
+    monkeypatch.setattr(G, "dequantize", th.dequantize_plain)
+    monkeypatch.setattr(E.TorchEngine, "_scales", lambda e: th.quant_scales(
+        e.gh, e.n_global, e.coll.max))
+    monkeypatch.setattr(E.TorchEngine, "_tree_scales", lambda e, g:
+                        th.quant_scales(g, e.sample_rows_global, e.coll.max))
+    bc, evc = run("cpu")
+    assert bk.get_dump(with_stats=True) == bc.get_dump(with_stats=True)
+    for m in evc["train"]:
+        np.testing.assert_allclose(evk["train"][m], evc["train"][m],
+                                   rtol=1e-6, atol=1e-6)

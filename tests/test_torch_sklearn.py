@@ -312,10 +312,8 @@ def test_rf_estimators_match_jax(name, kwargs, key):
     ("RayXGBClassifier", dict(grow_policy="lossguide"), "grow_policy"),
     ("RayXGBRegressor", dict(gh_precision="int8"), "gh_precision"),
     ("RayXGBRFClassifier", dict(booster="dart"), "booster"),
-    ("RayXGBClassifier", dict(monotone_constraints="(1,)"),
-     "monotone_constraints"),
-    ("RayXGBClassifier", dict(interaction_constraints=[[0, 1]]),
-     "interaction_constraints"),
+    ("RayXGBClassifier", dict(max_leaves=4), "max_leaves"),
+    ("RayXGBRegressor", dict(booster="gblinear"), "booster"),
 ])
 def test_out_of_slice_estimators_raise(name, kwargs, key):
     x, y = _bc()

@@ -188,8 +188,8 @@ def test_sampling_settings_train_like_jax(key, value):
     ("grow_policy", "lossguide"),
     ("booster", "dart"),
     ("booster", "gblinear"),
-    ("monotone_constraints", "(1,0,0)"),
-    ("interaction_constraints", [[0, 1]]),
+    ("max_leaves", 4),
+    ("hist_quant", "int16"),
     ("objective", "reg:nope"),
     ("eval_metric", "pre"),
     ("eval_metric", ["error@0.1", "error@0.2", "error@0.3", "error@0.4",

@@ -157,7 +157,7 @@ struct XrtK4Args {
   int metrics;             // bit i: the partial sum i (i >= 4) is wanted
   int multi;               // 1: the K-output kernel
   float c[C_COUNT];
-  int n_trees;             // T: row_value holds [T, n] (one output)
+  int n_trees;             // T: row_value holds [T, n] or [k T, n]
   float inv_trees;         // float32 1 / T
 };
 
@@ -716,7 +716,10 @@ __global__ void __launch_bounds__(kThreads, EXT ? 1 : kCtasPerSm)
 }
 
 // K4's K-output kernel (reg:quantileerror): row r's K margins at
-// margin[r * K + k], its K row values at row_value[k * n + r], its (g, h)
+// margin[r * K + k], its K row values at row_value[k * n + r] (with T
+// parallel trees an output, n_trees > 1: output k's T values at
+// row_value[(k T + t) n + r], added in order as the one-output T-tree
+// add adds them), its (g, h)
 // for output k at gh[2 (k * n + r)]: g = (1{m_k >= y} - alpha_k) w, h = w
 // (ops/objectives.quantile_grad_hess), the pinball loss's mean over K
 // besides the row metrics of output 0. The same plan and reduction as
@@ -742,8 +745,14 @@ __global__ void __launch_bounds__(kThreads, 1)
       float m0 = 0.0f, pin = 0.0f;
       for (int k = 0; k < K; ++k) {
         const long long o = row * K + k;
-        const float m =
-            __fadd_rn(a.margin[o], __ldg(a.row_value + (long long)k * a.n + row));
+        float m = a.margin[o];
+        if (a.n_trees == 1) {
+          m = __fadd_rn(m, __ldg(a.row_value + (long long)k * a.n + row));
+        } else {  // output k's T trees in order: fma(v, 1 / T, m)
+          const float* v = a.row_value + (long long)k * a.n_trees * a.n + row;
+          for (int t = 0; t < a.n_trees; ++t)
+            m = __fmaf_rn(__ldg(v + (long long)t * a.n), a.inv_trees, m);
+        }
         a.margin[o] = m;
         if (k == 0) m0 = m;
         const float al = alpha[k];
@@ -812,7 +821,7 @@ extern "C" int xrt_k4(const XrtK4Args* a, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
   if (a->multi) {
     if ((a->mode != XRT_K4_EVAL && a->mode != XRT_K4_QUANTILE) || a->k < 1 ||
-        a->k > kMaxOutputs || a->alpha == nullptr)
+        a->k > kMaxOutputs || a->alpha == nullptr || a->n_trees < 1)
       return (int)cudaErrorInvalidValue;
     if (a->mode == XRT_K4_EVAL)
       xrt_k4_multi_kernel<false><<<(unsigned)a->grid, kThreads, 0, s>>>(*a);

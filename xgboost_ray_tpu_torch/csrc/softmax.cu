@@ -2,8 +2,11 @@
 // CUDA C++ for sm_90a. One pass over the rows of [N, K] margins, in four
 // modes:
 //   training (XRT_SMX_TRAIN): margins += the round's K row values [K, N],
-//     written back; the mlogloss / merror / weight partial sums of the new
-//     margins (with logloss0, also the binary logloss of column 0, the
+//     written back (with T parallel trees a class, n_trees > 1: [K T, N],
+//     class k's T values added in order, each as fma(v, 1 / T, m), the
+//     reference's margin add, xgboost_ray_tpu/engine.py:1413; at T = 1 the
+//     one add as before); the mlogloss / merror / weight partial sums of
+//     the new margins (with logloss0, also the binary logloss of column 0, the
 //     reference's logloss metric under a softmax objective,
 //     ops/metrics.py:36); the next round's gradients as [K, N, 2] planes (class k's
 //     [N, 2] contiguous, what K1-K3 read);
@@ -80,6 +83,8 @@ struct XrtSoftmaxArgs {
   int front[kLevels];
   int grid;                // CTAs: the register path's persistent grid
   int logloss0;            // 1: the fourth partial sum (column 0's logloss)
+  int n_trees;             // T: row_value holds [k T, n] (training, eval)
+  float inv_trees;         // float32 1 / T
 };
 
 constexpr float kTiny = 1.17549435e-38f;  // smallest normal float
@@ -138,6 +143,17 @@ __device__ __forceinline__ void xrt_partials(float a, float b, float c,
   }
 }
 
+// Class k's margin x plus its T trees' row values, added in order, each as
+// fma(v, 1 / T, x): coalesced across the CTA's rows for each (k, t).
+__device__ __forceinline__ float xrt_add_trees(const XrtSoftmaxArgs& a,
+                                               float x, int k,
+                                               long long row) {
+  const float* v = a.row_value + (long long)k * a.n_trees * a.n + row;
+  for (int t = 0; t < a.n_trees; ++t)
+    x = __fmaf_rn(__ldg(v + (long long)t * a.n), a.inv_trees, x);
+  return x;
+}
+
 // The label's class and its wrap: (yi, yk), yk = -1 where no class.
 __device__ __forceinline__ void xrt_label(const XrtSoftmaxArgs& a,
                                           long long row, float* w, int* yi,
@@ -192,9 +208,10 @@ __device__ __forceinline__ void xrt_stage(const XrtSoftmaxArgs& a,
   if (kLabels && (int)threadIdx.x < nr) {
     float* rest = buf + kThreads * a.pitch;
     const long long row = row0 + threadIdx.x;
-    for (int k = 0; k < a.k; ++k)
-      xrt_cp4(rest + k * kThreads + threadIdx.x,
-              a.row_value + (long long)k * a.n + row);
+    if (a.n_trees == 1)  // T-tree rows read theirs from device memory
+      for (int k = 0; k < a.k; ++k)
+        xrt_cp4(rest + k * kThreads + threadIdx.x,
+                a.row_value + (long long)k * a.n + row);
     xrt_cp4(rest + a.k * kThreads + threadIdx.x, a.label + row);
     xrt_cp4(rest + (a.k + 1) * kThreads + threadIdx.x, a.weight + row);
   }
@@ -264,7 +281,8 @@ __global__ void __launch_bounds__(kThreads)
       if (k < K) {
         float x = live ? mine[k] : 0.f;
         if (kLabels && live) {
-          x = __fadd_rn(x, rest[k * kThreads + r]);
+          x = a.n_trees == 1 ? __fadd_rn(x, rest[k * kThreads + r])
+                             : xrt_add_trees(a, x, k, row);
           mine[k] = x;
         }
         v[k] = x;
@@ -385,7 +403,9 @@ __global__ void __launch_bounds__(kThreads)
   for (int k = 0; k < kk; ++k) {
     float x = m[k];
     if (MODE <= XRT_SMX_EVAL) {
-      x = __fadd_rn(x, a.row_value[(long long)k * a.n + row]);
+      x = a.n_trees == 1
+              ? __fadd_rn(x, a.row_value[(long long)k * a.n + row])
+              : xrt_add_trees(a, x, k, row);
       m[k] = x;
     }
     if (k == 0) {
@@ -521,6 +541,7 @@ extern "C" int xrt_softmax_ctas(const XrtSoftmaxArgs* a, int* ctas) {
 extern "C" int xrt_softmax(const XrtSoftmaxArgs* a, void* stream) {
   if (a->n <= 0) return 0;
   if (a->k < 2 || a->mode < 0 || a->mode > XRT_SMX_CLASS ||
+      a->n_trees < 1 ||
       (a->kmax != 0 && (a->k > a->kmax || a->pitch < a->k || a->grid < 1 ||
                         !smem_fits(a))) ||
       (a->kmax == 0 && (a->top < 1 || a->top >= kLevels)))

@@ -50,6 +50,24 @@
 // feature's candidates score -inf (ops/split.py:148-155), still in the
 // election, so the first-max rule is the reference's; the unmasked
 // instantiation is the main path's kernel as it was.
+// Constraints take the constrained instantiation (CONS, with or without
+// MASKED): the tree's monotone signs (int8 [F]) and interaction groups (a
+// membership bit row of ic_words words a feature) in XrtTreeArgs, the
+// level's monotone bounds lower / upper [n_nodes] in XrtLevelIn. With
+// monotone signs every candidate is scored as the reference's constrained
+// gain_for (ops/split.py:116-134): child weights clamped to the node's
+// interval, -inf where they break the feature's sign, the gain from
+// score_given_weight, -fma(2 T(g), w, ((h + lambda) w) w), the fma where
+// XLA's CPU program fuses it; the parent score and the node value from the
+// clamped parent weight. The winner's clamped (w_left, w_right) ride with
+// its gain through the shuffle and cluster elections, and CTA 0 writes the
+// next level's bounds [2 n_nodes] at their midpoint (ops/grow.py:710-748).
+// The interaction mask is read off the node's ancestors in the tree being
+// written (their split features: the reference's ic_used; the groups
+// holding all of them: its ic_active; any split above: ic_has_used,
+// ops/grow.py:625-641, :750-760), a word of groups a lane, and ANDed with
+// the column-sampling mask. The final level clamps its leaf values to the
+// final bounds (xrt_leaf_records).
 // What bounds it: bytes are tiny (the level's histogram read once, the
 // formed one written once: 3.7 MB at level 5 of the main path, about a
 // microsecond); the scoring is a few dozen float ops per candidate with
@@ -92,6 +110,9 @@ struct XrtTreeArgs {
   float min_child_weight;
   float max_delta_step;  // 0: no clamp
   float learning_rate;
+  const int8_t* monotone;    // [F] -1 / 0 / +1 or null: no monotone
+  const uint32_t* ic_bits;   // [F, ic_words] group membership or null
+  int ic_words;
 };
 
 struct XrtLevelIn {
@@ -105,6 +126,8 @@ struct XrtLevelIn {
   int fpc;      // features per CTA
   const uint8_t* mask;  // [mask_rows, F] feature mask (column sampling) or
   int mask_rows;        // null; 1: one row for every node, else n_nodes
+  const float* lower;   // [n_nodes] monotone bounds (with t.monotone)
+  const float* upper;
 };
 
 struct XrtLevelOut {
@@ -118,6 +141,8 @@ struct XrtLevelOut {
   uint8_t* state;
   uint8_t* active_next;  // [2 n_nodes]
   float* hist_out;     // [n_nodes, F, nbt, 2] or null
+  float* lower_next;   // [2 n_nodes] with t.monotone
+  float* upper_next;
 };
 
 __device__ __forceinline__ float xrt_soft_threshold(float g, float alpha) {
@@ -132,15 +157,61 @@ __device__ __forceinline__ float xrt_score(float g, float h,
   return den > 0.f ? (t * t) / fmaxf(den, 1e-38f) : 0.f;
 }
 
-// lr * leaf_weight(g, h), max_delta_step clamp included
-__device__ __forceinline__ float xrt_node_value(float g, float h,
-                                                const XrtTreeArgs& p) {
+// leaf_weight(g, h), max_delta_step clamp included
+__device__ __forceinline__ float xrt_leaf_weight(float g, float h,
+                                                 const XrtTreeArgs& p) {
   const float den = h + p.reg_lambda;
   float w = den > 0.f ? -xrt_soft_threshold(g, p.reg_alpha) / fmaxf(den, 1e-38f)
                       : 0.f;
   if (p.max_delta_step > 0.f)
     w = fminf(fmaxf(w, -p.max_delta_step), p.max_delta_step);
-  return p.learning_rate * w;
+  return w;
+}
+
+// lr * leaf_weight(g, h)
+__device__ __forceinline__ float xrt_node_value(float g, float h,
+                                                const XrtTreeArgs& p) {
+  return p.learning_rate * xrt_leaf_weight(g, h, p);
+}
+
+// bounded_weight: jnp.clip(w, lo, hi) = minimum(hi, maximum(lo, w))
+__device__ __forceinline__ float xrt_bounded_weight(float g, float h, float lo,
+                                                    float hi,
+                                                    const XrtTreeArgs& p) {
+  return fminf(hi, fmaxf(lo, xrt_leaf_weight(g, h, p)));
+}
+
+// score_given_weight: -(2 T(g) w + (h + lambda) w w), the one fma where
+// XLA's CPU program fuses it (the library is built with --fmad=false):
+// -fma(2 T, w, ((h + lambda) w) w); a child's term with reg_alpha 0 and
+// max_delta_step on fuses the other product, -fma(w, (h + lambda) w,
+// w 2 T) (ops/split.score_given_weight)
+__device__ __forceinline__ float xrt_score_given_weight(float g, float h,
+                                                        float w,
+                                                        const XrtTreeArgs& p,
+                                                        bool child = false) {
+  const float t = xrt_soft_threshold(g, p.reg_alpha);
+  if (child && p.reg_alpha == 0.f && p.max_delta_step > 0.f)
+    return -__fmaf_rn(w, (h + p.reg_lambda) * w, w * (2.f * t));
+  return -__fmaf_rn(2.f * t, w, ((h + p.reg_lambda) * w) * w);
+}
+
+// The monotone branch's gain_for: (gain, clamped w_left, w_right)
+__device__ __forceinline__ float xrt_gain_mono(float gl, float hl, float gp,
+                                               float hp, float parent,
+                                               float lo, float hi, int sign,
+                                               const XrtTreeArgs& p,
+                                               float* wl, float* wr) {
+  const float gr = gp - gl;
+  const float hr = hp - hl;
+  const bool ok = (hl >= p.min_child_weight) && (hr >= p.min_child_weight);
+  *wl = xrt_bounded_weight(gl, hl, lo, hi, p);
+  *wr = xrt_bounded_weight(gr, hr, lo, hi, p);
+  const bool viol = (sign > 0 && *wl > *wr) || (sign < 0 && *wl < *wr);
+  const float gain = (xrt_score_given_weight(gl, hl, *wl, p, true) +
+                      xrt_score_given_weight(gr, hr, *wr, p, true)) -
+                     parent;
+  return ok && !viol ? gain : -INFINITY;
 }
 
 __device__ __forceinline__ float xrt_gain(float gl, float hl, float gp,
@@ -352,12 +423,15 @@ __device__ __forceinline__ void xrt_block_prefix(const float* tg,
 // Lane c scores half-block c: bins [8 (c % 2), 8 (c % 2) + 8) of block
 // c / 2, so every lane scores its candidates in the same loop steps.
 // A masked feature's candidates score -inf (their default_left as
-// computed), so they still take part in the first-max election.
-template <bool MASKED>
+// computed), so they still take part in the first-max election. CONS with
+// monotone signs (mono): the constrained gain, the winner's clamped child
+// weights in its chosen direction into out_wl / out_wr.
+template <bool MASKED, bool CONS>
 __device__ __forceinline__ void xrt_score_feature(
     const XrtTreeArgs& t, int f, const float* sg, const float* sh,
     const float* tg, const float* th, float gp, float hp, float parent,
-    bool masked, float* out_gain, int* out_idx, int* out_dl) {
+    bool masked, bool mono, int sign, float lo, float hi, float* out_gain,
+    int* out_idx, int* out_dl, float* out_wl, float* out_wr) {
   const int lane = threadIdx.x & 31;
   const int nb = t.nbt - 1;
   const int ncand = nb - 1;  // candidate s: bins <= s go left
@@ -368,6 +442,7 @@ __device__ __forceinline__ void xrt_score_feature(
   float best = -INFINITY;
   int bidx = 0x7fffffff;
   int bdl = 1;
+  float bwl = 0.f, bwr = 0.f;
   const int base_idx = f * ncand;
   for (int c = lane; c < 2 * nblk; c += 32) {
     const int b = c >> 1;
@@ -399,13 +474,26 @@ __device__ __forceinline__ void xrt_score_feature(
       }
       const float GL = has_pre ? lg + pg : lg;
       const float HL = has_pre ? lh + ph : lh;
-      const float gml = xrt_gain(GL + gm, HL + hm, gp, hp, parent, t);
-      const float gmr = xrt_gain(GL, HL, gp, hp, parent, t);
-      const float gain = MASKED && masked ? -INFINITY : fmaxf(gml, gmr);
+      float gml, gmr, wl_ml = 0.f, wr_ml = 0.f, wl_mr = 0.f, wr_mr = 0.f;
+      if (CONS && mono) {
+        gml = xrt_gain_mono(GL + gm, HL + hm, gp, hp, parent, lo, hi, sign,
+                            t, &wl_ml, &wr_ml);
+        gmr = xrt_gain_mono(GL, HL, gp, hp, parent, lo, hi, sign, t, &wl_mr,
+                            &wr_mr);
+      } else {
+        gml = xrt_gain(GL + gm, HL + hm, gp, hp, parent, t);
+        gmr = xrt_gain(GL, HL, gp, hp, parent, t);
+      }
+      const float gain =
+          (MASKED || CONS) && masked ? -INFINITY : fmaxf(gml, gmr);
       if (cand && xrt_better(gain, base_idx + i, best, bidx)) {
         best = gain;
         bidx = base_idx + i;
         bdl = gml >= gmr ? 1 : 0;
+        if (CONS) {
+          bwl = bdl ? wl_ml : wl_mr;
+          bwr = bdl ? wr_ml : wr_mr;
+        }
       }
     }
   }
@@ -414,15 +502,54 @@ __device__ __forceinline__ void xrt_score_feature(
     const float og = __shfl_xor_sync(0xffffffffu, best, o);
     const int oi = __shfl_xor_sync(0xffffffffu, bidx, o);
     const int od = __shfl_xor_sync(0xffffffffu, bdl, o);
+    float owl = 0.f, owr = 0.f;
+    if (CONS) {
+      owl = __shfl_xor_sync(0xffffffffu, bwl, o);
+      owr = __shfl_xor_sync(0xffffffffu, bwr, o);
+    }
     if (xrt_better(og, oi, best, bidx)) {
       best = og;
       bidx = oi;
       bdl = od;
+      bwl = owl;
+      bwr = owr;
     }
   }
   *out_gain = best;
   *out_idx = bidx;
   *out_dl = bdl;
+  *out_wl = bwl;
+  *out_wr = bwr;
+}
+
+// One warp: whether the node may split on feature f under the interaction
+// constraints, read off its ancestors in the tree being written (heap
+// feature -1: no split there). A lane takes every 32nd word of groups: the
+// groups holding every ancestor's feature (all groups below no split),
+// ANDed with f's own row; f is allowed where a group is left, where an
+// ancestor split on f itself, or where no ancestor split at all.
+__device__ __forceinline__ bool xrt_interaction_allowed(const XrtTreeArgs& t,
+                                                        int n_nodes, int node,
+                                                        int f) {
+  const int lane = threadIdx.x & 31;
+  const int depth = 31 - __clz(n_nodes);
+  bool has_used = false, used = false, shared = false;
+  for (int w0 = 0; w0 < t.ic_words; w0 += 32) {
+    const int w = w0 + lane;
+    uint32_t act = 0xffffffffu;
+    for (int j = 1; j <= depth; ++j) {
+      const int fa = t.feature[(1 << (depth - j)) - 1 + (node >> j)];
+      if (fa >= 0) {
+        has_used = true;
+        used = used || fa == f;
+        if (w < t.ic_words) act &= t.ic_bits[(size_t)fa * t.ic_words + w];
+      }
+    }
+    if (w < t.ic_words && (act & t.ic_bits[(size_t)f * t.ic_words + w]) != 0)
+      shared = true;
+  }
+  shared = __any_sync(0xffffffffu, shared);
+  return !has_used || used || shared;
 }
 
 __device__ __forceinline__ void xrt_cluster_arrive() {
@@ -433,9 +560,10 @@ __device__ __forceinline__ void xrt_cluster_wait() {
   asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
-// MASKED: the feature-masked instantiation (column sampling); the
-// unmasked one is the main path's kernel as it was.
-template <bool MASKED>
+// MASKED: the feature-masked instantiation (column sampling); CONS: the
+// constrained one (monotone and / or interaction constraints); the
+// <false, false> one is the main path's kernel as it was.
+template <bool MASKED, bool CONS>
 __global__ void __launch_bounds__(XRT_SPLIT_MAX_WARPS * 32)
 xrt_split_level_kernel(XrtTreeArgs t, XrtLevelIn in, XrtLevelOut out) {
   extern __shared__ float smem[];
@@ -443,9 +571,13 @@ xrt_split_level_kernel(XrtTreeArgs t, XrtLevelIn in, XrtLevelOut out) {
   __shared__ float w_gain[XRT_SPLIT_MAX_WARPS];
   __shared__ int w_idx[XRT_SPLIT_MAX_WARPS];
   __shared__ int w_dl[XRT_SPLIT_MAX_WARPS];
+  __shared__ float w_wl[XRT_SPLIT_MAX_WARPS];  // CONS: the winners' weights
+  __shared__ float w_wr[XRT_SPLIT_MAX_WARPS];
   __shared__ float c_gain[XRT_MAX_CLUSTER];  // every CTA's best: CTA 0
   __shared__ int c_idx[XRT_MAX_CLUSTER];
   __shared__ int c_dl[XRT_MAX_CLUSTER];
+  __shared__ float c_wl[XRT_MAX_CLUSTER];
+  __shared__ float c_wr[XRT_MAX_CLUSTER];
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
   const int node = blockIdx.x / in.cluster;
@@ -483,10 +615,18 @@ xrt_split_level_kernel(XrtTreeArgs t, XrtLevelIn in, XrtLevelOut out) {
   xrt_cluster_wait();
   const float gp = *cluster.map_shared_rank(&s_tot[0], 0);
   const float hp = *cluster.map_shared_rank(&s_tot[1], 0);
-  const float parent = xrt_score(gp, hp, t);
+  // the node's monotone interval (CONS with monotone signs)
+  const bool mono = CONS && t.monotone != nullptr;
+  const float lo = mono ? __ldg(in.lower + node) : -INFINITY;
+  const float hi = mono ? __ldg(in.upper + node) : INFINITY;
+  const float parent =
+      mono ? xrt_score_given_weight(gp, hp,
+                                    xrt_bounded_weight(gp, hp, lo, hi, t), t)
+           : xrt_score(gp, hp, t);
   float best = -INFINITY;
   int bidx = 0x7fffffff;
   int bdl = 1;
+  float bwl = 0.f, bwr = 0.f;
   for (int f = first; f < f1; f += nwarps) {
     if (f != first) {
       __syncwarp();
@@ -496,23 +636,33 @@ xrt_split_level_kernel(XrtTreeArgs t, XrtLevelIn in, XrtLevelOut out) {
       xrt_block_totals(nbt, sg, sh, tg, th);
     }
     __syncwarp();
-    float g;
+    float g, wl, wr;
     int idx, dl;
-    const bool masked =
+    bool masked =
         MASKED &&
         __ldg(in.mask + (in.mask_rows > 1 ? (size_t)node * F : 0) + f) == 0;
-    xrt_score_feature<MASKED>(t, f, sg, sh, tg, th, gp, hp, parent, masked,
-                              &g, &idx, &dl);
+    if (CONS && t.ic_bits != nullptr)
+      masked = !xrt_interaction_allowed(t, in.n_nodes, node, f) || masked;
+    xrt_score_feature<MASKED, CONS>(
+        t, f, sg, sh, tg, th, gp, hp, parent, masked, mono,
+        mono ? (int)__ldg(t.monotone + f) : 0, lo, hi, &g, &idx, &dl, &wl,
+        &wr);
     if (xrt_better(g, idx, best, bidx)) {
       best = g;
       bidx = idx;
       bdl = dl;
+      bwl = wl;
+      bwr = wr;
     }
   }
   if (lane == 0) {
     w_gain[warp] = best;
     w_idx[warp] = bidx;
     w_dl[warp] = bdl;
+    if (CONS) {
+      w_wl[warp] = bwl;
+      w_wr[warp] = bwr;
+    }
   }
   __syncthreads();
   if (threadIdx.x == 0) {  // this CTA's best, into CTA 0's shared memory
@@ -521,22 +671,38 @@ xrt_split_level_kernel(XrtTreeArgs t, XrtLevelIn in, XrtLevelOut out) {
         best = w_gain[w];
         bidx = w_idx[w];
         bdl = w_dl[w];
+        if (CONS) {
+          bwl = w_wl[w];
+          bwr = w_wr[w];
+        }
       }
     }
     *cluster.map_shared_rank(&c_gain[rank], 0) = best;
     *cluster.map_shared_rank(&c_idx[rank], 0) = bidx;
     *cluster.map_shared_rank(&c_dl[rank], 0) = bdl;
+    if (CONS) {
+      *cluster.map_shared_rank(&c_wl[rank], 0) = bwl;
+      *cluster.map_shared_rank(&c_wr[rank], 0) = bwr;
+    }
   }
   cluster.sync();  // CTA 0 holds every CTA's best; the others may leave
   if (rank != 0 || threadIdx.x != 0) return;
   best = c_gain[0];
   bidx = c_idx[0];
   bdl = c_dl[0];
+  if (CONS) {
+    bwl = c_wl[0];
+    bwr = c_wr[0];
+  }
   for (int r = 1; r < in.cluster; ++r) {
     if (xrt_better(c_gain[r], c_idx[r], best, bidx)) {
       best = c_gain[r];
       bidx = c_idx[r];
       bdl = c_dl[r];
+      if (CONS) {
+        bwl = c_wl[r];
+        bwr = c_wr[r];
+      }
     }
   }
   const int ncand = nbt - 2;
@@ -554,7 +720,9 @@ xrt_split_level_kernel(XrtTreeArgs t, XrtLevelIn in, XrtLevelOut out) {
   if (in.active == nullptr) return;
   const bool vs = valid && act;
   const bool new_leaf = act && !vs;
-  const float nv = xrt_node_value(gp, hp, t);
+  const float nv = mono ? t.learning_rate *
+                              xrt_bounded_weight(gp, hp, lo, hi, t)
+                        : xrt_node_value(gp, hp, t);
   const int fs = min(max(feat, 0), F - 1);
   const int bs = min(max(sbin, 0), nbt - 3);
   const float thr = t.cuts[(size_t)fs * (nbt - 2) + bs];
@@ -572,19 +740,36 @@ xrt_split_level_kernel(XrtTreeArgs t, XrtLevelIn in, XrtLevelOut out) {
   out.state[node] = vs ? XRT_SPLIT : (new_leaf ? XRT_LEAF : XRT_INACTIVE);
   out.active_next[2 * node] = vs ? 1 : 0;
   out.active_next[2 * node + 1] = vs ? 1 : 0;
+  if (mono) {  // the children's intervals, narrowed at the midpoint
+    const float mid = 0.5f * (bwl + bwr);
+    const int c = vs ? (int)t.monotone[fs] : 0;
+    out.lower_next[2 * node] = c < 0 ? fmaxf(lo, mid) : lo;
+    out.upper_next[2 * node] = c > 0 ? fminf(hi, mid) : hi;
+    out.lower_next[2 * node + 1] = c > 0 ? fmaxf(lo, mid) : lo;
+    out.upper_next[2 * node + 1] = c < 0 ? fminf(hi, mid) : hi;
+  }
 }
 
+// lower / upper: the final level's monotone bounds, or null (no clamp)
 __global__ void xrt_leaf_records_kernel(XrtTreeArgs t,
                                         const float* __restrict__ node_gh,
                                         const uint8_t* __restrict__ active,
                                         int n_nodes, int base,
+                                        const float* __restrict__ lower,
+                                        const float* __restrict__ upper,
                                         float* __restrict__ node_value,
                                         uint8_t* __restrict__ state) {
   const int node = blockIdx.x * blockDim.x + threadIdx.x;
   if (node >= n_nodes) return;
   const bool act = active[node] != 0;
+  const float g = node_gh[2 * node];
   const float h = node_gh[2 * node + 1];
-  const float nv = act ? xrt_node_value(node_gh[2 * node], h, t) : 0.f;
+  const float nv =
+      !act ? 0.f
+           : (lower != nullptr
+                  ? t.learning_rate *
+                        xrt_bounded_weight(g, h, lower[node], upper[node], t)
+                  : xrt_node_value(g, h, t));
   const int i = base + node;
   t.is_leaf[i] = act ? 1 : 0;
   t.value[i] = nv;
@@ -614,8 +799,18 @@ static int xrt_launch_level(const XrtTreeArgs& t, XrtLevelIn in,
   const size_t smem =
       (size_t)nwarps * (2 * plane + 2 * XRT_MAX_SCAN_BLOCKS) * sizeof(float);
   const bool masked = in.mask != nullptr;
+  const bool cons = t.monotone != nullptr || t.ic_bits != nullptr;
+  if (t.monotone != nullptr &&
+      (in.lower == nullptr || in.upper == nullptr || in.active == nullptr ||
+       out.lower_next == nullptr || out.upper_next == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (t.ic_bits != nullptr && (t.ic_words < 1 || in.active == nullptr))
+    return (int)cudaErrorInvalidValue;
   void (*kernel)(XrtTreeArgs, XrtLevelIn, XrtLevelOut) =
-      masked ? xrt_split_level_kernel<true> : xrt_split_level_kernel<false>;
+      cons ? (masked ? xrt_split_level_kernel<true, true>
+                     : xrt_split_level_kernel<false, true>)
+           : (masked ? xrt_split_level_kernel<true, false>
+                     : xrt_split_level_kernel<false, false>);
   if (smem > 48 * 1024) {
     err = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -643,7 +838,9 @@ static int xrt_launch_level(const XrtTreeArgs& t, XrtLevelIn in,
 // null), or the smaller children's [n_nodes / 2, ...] with prev_hist and
 // small_is_right. active [n_nodes]; outputs [n_nodes] (node_gh [n_nodes, 2],
 // active_next [2 n_nodes]); hist_out [n_nodes, F, nbt, 2] or null; mask
-// [mask_rows, F] (mask_rows 1 or n_nodes) or null.
+// [mask_rows, F] (mask_rows 1 or n_nodes) or null; with the tree's monotone
+// signs the level's bounds lower / upper [n_nodes] and the next level's
+// lower_next / upper_next [2 n_nodes], else null.
 extern "C" int xrt_split_level(const XrtTreeArgs* t, const float* hist,
                                const float* prev_hist,
                                const uint8_t* small_is_right,
@@ -653,13 +850,17 @@ extern "C" int xrt_split_level(const XrtTreeArgs* t, const float* hist,
                                float* node_gh, float* node_value,
                                uint8_t* state, uint8_t* active_next,
                                float* hist_out, const uint8_t* mask,
-                               int mask_rows, void* stream) {
+                               int mask_rows, const float* lower,
+                               const float* upper, float* lower_next,
+                               float* upper_next, void* stream) {
   if (mask != nullptr && mask_rows != 1 && mask_rows != n_nodes)
     return (int)cudaErrorInvalidValue;
-  XrtLevelIn in = {hist, prev_hist, small_is_right, active, n_nodes,
-                   n_nodes - 1, 1, 1, mask, mask_rows};
-  XrtLevelOut out = {gain, feature, split_bin, default_left, valid,
-                     node_gh, node_value, state, active_next, hist_out};
+  XrtLevelIn in = {hist,        prev_hist, small_is_right, active, n_nodes,
+                   n_nodes - 1, 1,         1,              mask,   mask_rows,
+                   lower,       upper};
+  XrtLevelOut out = {gain,       feature,   split_bin,   default_left,
+                     valid,      node_gh,   node_value,  state,
+                     active_next, hist_out, lower_next,  upper_next};
   return xrt_launch_level(*t, in, out, (cudaStream_t)stream);
 }
 
@@ -679,21 +880,28 @@ extern "C" int xrt_find_splits(const float* hist, int n_nodes, int n_features,
   t.gamma = gamma;
   t.min_child_weight = min_child_weight;
   XrtLevelIn in = {hist,    nullptr,     nullptr, nullptr, n_nodes,
-                   n_nodes - 1, 1, 1,     nullptr, 0};
-  XrtLevelOut out = {gain, feature, split_bin, default_left, valid,
-                     node_gh, nullptr, nullptr, nullptr, nullptr};
+                   n_nodes - 1, 1, 1,     nullptr, 0,      nullptr, nullptr};
+  XrtLevelOut out = {gain,    feature, split_bin, default_left,
+                     valid,   node_gh, nullptr,   nullptr,
+                     nullptr, nullptr, nullptr,   nullptr};
   return xrt_launch_level(t, in, out, (cudaStream_t)stream);
 }
 
-// The final level: node_gh [n_nodes, 2] (K1's totals), active [n_nodes];
-// writes node_value and state [n_nodes] and the level's records.
+// The final level: node_gh [n_nodes, 2] (K1's totals), active [n_nodes],
+// the monotone bounds lower / upper [n_nodes] with the tree's monotone
+// signs (else null); writes node_value and state [n_nodes] and the level's
+// records.
 extern "C" int xrt_leaf_records(const XrtTreeArgs* t, const float* node_gh,
                                 const uint8_t* active, int n_nodes,
+                                const float* lower, const float* upper,
                                 float* node_value, uint8_t* state,
                                 void* stream) {
+  if ((t->monotone != nullptr) != (lower != nullptr && upper != nullptr))
+    return (int)cudaErrorInvalidValue;
   const int threads = 128;
   xrt_leaf_records_kernel<<<(n_nodes + threads - 1) / threads, threads, 0,
                             (cudaStream_t)stream>>>(
-      *t, node_gh, active, n_nodes, n_nodes - 1, node_value, state);
+      *t, node_gh, active, n_nodes, n_nodes - 1, lower, upper, node_value,
+      state);
   return (int)cudaGetLastError();
 }

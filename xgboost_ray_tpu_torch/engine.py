@@ -58,7 +58,7 @@ is a host metric: each rank's rows' rank statistic, combined over the
 ranks like a custom metric (``engine.py:1953-1990``).
 
 Stochastic boosting (``engine.py:1315-1420``): a round grows K x T trees
-(``num_parallel_tree`` T, one output when T > 1), tree k T + t with the key
+(``num_parallel_tree`` T), tree k T + t with the key
 ``fold_in(fold_in(PRNGKey(seed), iteration_offset + i), k T + t)``. A
 row-sampled tree draws each of this rank's blocks of the JAX layout (the
 world's rows in shard order, padded to ``num_actors`` blocks;
@@ -67,7 +67,14 @@ gathered, a drawn padding slot a row of missing bins and zero gradients)
 at its own fixed-point scales (``_tree_scales``), and every training
 row's value comes from one B4 walk of the round's trees. The column masks
 are B12f's (``ops/grow.build_tree``). K4 adds a round's T trees' values
-in turn (its T-tree add), on the training set and each held-out set.
+in turn (its T-tree add), on the training set and each held-out set; with
+K outputs the softmax pass and K4's K-output kernel add each output's T
+trees the same way.
+
+Monotone and interaction constraints (``engine.py:440-470``) are
+validated against the feature count and carried in the grow config; their
+device form (``ops/split.TreeConstraints``) is made once and every tree
+takes K2's constrained level step (``ops/grow.build_tree``).
 
 An init booster (``xgb_model``) starts every set's margins at ``base +
 booster.predict_margin(x) - its base margin`` (B8 on the card, the plain
@@ -177,6 +184,7 @@ from xgboost_ray_tpu_torch.ops.sampling import (
 )
 from xgboost_ray_tpu_torch.ops.split import (
     SplitParams,
+    TreeConstraints,
     find_splits,
     leaf_records,
     split_level,
@@ -205,7 +213,9 @@ def kernel_launches() -> Dict[str, int]:
     out["K4eval"] = round_update.eval_launches
     out["SMXeval"] = softmax_update.eval_launches
     out["K2masked"] = split_level.launches_masked
+    out["K2cons"] = split_level.launches_constrained
     out["K4trees"] = round_update.tree_launches
+    out["SMXtrees"] = softmax_update.tree_launches
     return out
 
 
@@ -215,7 +225,9 @@ def reset_kernel_launches() -> None:
     round_update.eval_launches = 0
     softmax_update.eval_launches = 0
     split_level.launches_masked = 0
+    split_level.launches_constrained = 0
     round_update.tree_launches = 0
+    softmax_update.tree_launches = 0
 
 
 def _concat_shards(shards: Sequence[Dict[str, Optional[np.ndarray]]]):
@@ -408,11 +420,6 @@ class TorchEngine:
         # parallel trees (num_parallel_tree T: a round grows K x T trees,
         # tree k T + t for output k) and the round's random draws
         self.t_par = max(1, int(params.num_parallel_tree))
-        if self.t_par > 1 and self.n_outputs > 1:
-            raise NotImplementedError(
-                f"num_parallel_tree={self.t_par} with {params.objective} "
-                f"({self.n_outputs} outputs): the port adds parallel trees "
-                f"of one output only (K4's T-tree add).")
         self.samp_spec = spec_from_params(params)
         x, label, weight, base_margin, lo, hi = _concat_shards(shards)
         if self.objective.survival and lo is None and label is None:
@@ -426,6 +433,7 @@ class TorchEngine:
             raise ValueError("reg:squaredlogerror requires all labels > -1.")
         self.label_np, self.weight_np = label, weight
         self.n_rows, self.n_features = x.shape
+        self._constrain(params)
         dev = self.device
         self.n_global = int(self.coll.sum(torch.tensor(
             [self.n_rows], dtype=torch.int64, device=dev)).item())
@@ -495,6 +503,36 @@ class TorchEngine:
                                           dtype=torch.float32, device=dev),
                 self.label, self.weight, lower=self.lower, upper=self.upper)
             self.qscale = self._scales()
+
+    def _constrain(self, params: TrainParams) -> None:
+        """Monotone and interaction constraints, validated against the
+        feature count as the reference validates them
+        (``engine.py:440-470``: monotone padded with 0 to F, all zeros no
+        constraint) and carried in the grow config; their device form
+        (``TreeConstraints``) is made once here."""
+        self.constraints = None
+        if not (params.monotone_constraints
+                or params.interaction_constraints):
+            return
+        mono = tuple(int(c) for c in params.monotone_constraints)
+        if len(mono) > self.n_features:
+            raise ValueError(
+                f"monotone_constraints has {len(mono)} entries but the "
+                f"data has {self.n_features} features.")
+        mono = mono + (0,) * (self.n_features - len(mono))
+        ic = params.interaction_constraints
+        bad = [i for grp in ic for i in grp if i >= self.n_features]
+        if bad:
+            raise ValueError(
+                f"interaction_constraints reference feature indices "
+                f"{sorted(set(bad))} but the data has "
+                f"{self.n_features} features.")
+        self.cfg = dataclasses.replace(
+            self.cfg, monotone_constraints=mono if any(mono) else (),
+            interaction_constraints=ic)
+        cons = TreeConstraints(self.cfg.monotone_constraints, ic,
+                               self.n_features, self.device)
+        self.constraints = cons if cons.on else None
 
     def _log_feature_weights(self, feature_weights: Optional[np.ndarray]
                              ) -> Optional[torch.Tensor]:
@@ -664,10 +702,11 @@ class TorchEngine:
                 with_gh: bool = True, lower: Optional[torch.Tensor] = None,
                 upper: Optional[torch.Tensor] = None):
         """The round pass over one set: ``margins`` [N, K] += ``row_value``
-        [K, N].T in place (one output's T parallel trees: [T, N], added
-        tree by tree); (gh [K, N, 2] or None, its metric partial sums). K4
-        for one output (its AFT modes with the label bounds), K4's K-output
-        kernel for K quantiles, the softmax pass for K classes."""
+        [K T, N] in place (T parallel trees an output, tree k T + t of
+        output k, added tree by tree where T > 1); (gh [K, N, 2] or None,
+        its metric partial sums). K4 for one output (its AFT modes with the
+        label bounds), K4's K-output kernel for K quantiles, the softmax
+        pass for K classes."""
         obj = self.objective
         if obj.softmax:
             return softmax_update(margins, row_value, label, weight, with_gh,
@@ -777,6 +816,7 @@ class TorchEngine:
                     colsample_bylevel=p.colsample_bylevel,
                     colsample_bynode=p.colsample_bynode,
                     feature_log_weights=self.log_fw,
+                    constraints=self.constraints,
                 )
         # one tree a round: the round's tree itself ([heap] fields)
         walked = forest if n_trees > 1 else Tree(*[f[0] for f in forest])

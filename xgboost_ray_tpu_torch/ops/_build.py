@@ -52,8 +52,9 @@ SIGNATURES = {
     },
     "split": {
         "xrt_split_level": (
-            [P, P, P, P, P, I, P, P, P, P, P, P, P, P, P, P, P, I, P], I),
-        "xrt_leaf_records": ([P, P, P, I, P, P, P], I),
+            [P, P, P, P, P, I, P, P, P, P, P, P, P, P, P, P, P, I, P, P, P,
+             P, P], I),
+        "xrt_leaf_records": ([P, P, P, I, P, P, P, P, P], I),
         "xrt_find_splits": (
             [P, I, I, I, F, F, F, F, P, P, P, P, P, P, P], I),
     },
@@ -105,8 +106,9 @@ SIGNATURES = {
 
 class TreeArgs(ctypes.Structure):
     """``XrtTreeArgs`` of ``csrc/split.cu``: what every level of one tree
-    shares (the heap arrays it writes, cuts, feat_has_missing, sizes and
-    split parameters), filled once per tree and passed by pointer."""
+    shares (the heap arrays it writes, cuts, feat_has_missing, sizes, split
+    parameters and the constraints), filled once per tree and passed by
+    pointer."""
 
     _fields_ = ([(name, P) for name in (
         "feature", "split_bin", "threshold", "default_left", "is_leaf",
@@ -114,7 +116,8 @@ class TreeArgs(ctypes.Structure):
         + [("n_features", I), ("nbt", I)]
         + [(name, F) for name in (
             "reg_lambda", "reg_alpha", "gamma", "min_child_weight",
-            "max_delta_step", "learning_rate")])
+            "max_delta_step", "learning_rate")]
+        + [("monotone", P), ("ic_bits", P), ("ic_words", I)])
 
 
 class PredictArgs(ctypes.Structure):
@@ -166,7 +169,7 @@ class SoftmaxArgs(ctypes.Structure):
             "k", "mode", "kmax", "pitch", "shared_bytes")]
         + [("kmagic", ctypes.c_uint)]
         + [("front0", I), ("top", I), ("front", I * 6), ("grid", I),
-           ("logloss0", I)])
+           ("logloss0", I), ("n_trees", I), ("inv_trees", F)])
 
 
 class K4Args(ctypes.Structure):

@@ -35,6 +35,14 @@ draws ANDed into it (B12f, ``sample_feature_mask``; the keys fold in
 instantiation. A row-sampled tree is grown over its compacted rows
 (``ops/sampling.py``), which nothing here needs to know.
 
+Constraints (``GrowConfig.monotone_constraints`` /
+``interaction_constraints``, ``ops/grow.py:396-430``): K2's constrained
+instantiation scores and values each node within its monotone bounds,
+[1] at the root and doubling each level on the device (each level step
+returns the next level's), and reads each node's interaction mask off its
+ancestors in the tree it writes; the plain grower (CPU tensors) keeps the
+reference's own interaction state instead (``InteractionState``).
+
 ``allreduce`` is the merge across ranks (the ``allreduce`` argument of
 ``ops/grow.py:269``): None at world 1, else the engine's all-reduce SUM,
 which counts its bytes. It merges every histogram and the final totals
@@ -57,6 +65,7 @@ import torch
 from xgboost_ray_tpu_torch.ops import _build
 from xgboost_ray_tpu_torch.ops.random import Key, fold_in, gumbel, uniform
 from xgboost_ray_tpu_torch.ops.histogram import (
+    SPLIT,
     build_histogram,
     dequantize,
     partition_leaf_values,
@@ -65,6 +74,7 @@ from xgboost_ray_tpu_torch.ops.histogram import (
 )
 from xgboost_ray_tpu_torch.ops.split import (
     SplitParams,
+    TreeConstraints,
     TreeRecords,
     leaf_records,
     split_level,
@@ -94,6 +104,10 @@ class GrowConfig:
     max_bin: int = 256
     split: SplitParams = dataclasses.field(default_factory=SplitParams)
     sibling_subtract: bool = True
+    # per-feature monotone constraints (len == F, values -1/0/+1) or ();
+    # tuple of feature-index groups of the interaction constraints or ()
+    monotone_constraints: tuple = ()
+    interaction_constraints: tuple = ()
 
     @property
     def heap_size(self) -> int:
@@ -222,6 +236,45 @@ def level_feature_mask(tree_mask: Optional[torch.Tensor], level_key: Key,
     return fmask
 
 
+class InteractionState:
+    """The reference's per-node interaction state of one level
+    (``ops/grow.py:414-430``, ``:625-641``, ``:750-760``): ``active`` [n,
+    S] the groups holding every feature split on above the node, ``used``
+    [n, F] those features, ``has_used`` [n] whether any split is above it;
+    the plain grower's, where K2 reads the same off the tree
+    (``ops/split.interaction_mask``)."""
+
+    def __init__(self, membership: torch.Tensor):
+        n_sets, num_features = membership.shape
+        dev = membership.device
+        self.membership = membership
+        self.active = torch.ones((1, n_sets), dtype=torch.bool, device=dev)
+        self.used = torch.zeros((1, num_features), dtype=torch.bool,
+                                device=dev)
+        self.has_used = torch.zeros(1, dtype=torch.bool, device=dev)
+
+    def allowed(self) -> torch.Tensor:
+        """[n, F] bool: the union of the still-active groups and the path's
+        features; a node below no split may use any feature."""
+        union = (self.active[:, :, None] & self.membership[None]).any(dim=1)
+        return torch.where(self.has_used[:, None], union | self.used, True)
+
+    def split(self, valid_split: torch.Tensor, feature: torch.Tensor):
+        """Advance to the next level after the level's splits."""
+        num_features = self.membership.shape[1]
+        fsafe = feature.clamp(0, num_features - 1).long()
+        vs = valid_split[:, None]
+        self.active = torch.where(vs, self.active & self.membership.T[fsafe],
+                                  self.active)
+        onehot = (torch.arange(num_features, device=fsafe.device)[None, :]
+                  == fsafe[:, None])
+        self.used = self.used | (vs & onehot)
+        self.has_used = self.has_used | valid_split
+        self.active, self.used, self.has_used = (
+            torch.repeat_interleave(t, 2, dim=0)
+            for t in (self.active, self.used, self.has_used))
+
+
 def build_tree(
     bins: torch.Tensor,  # [N, F] int16/uint8 bins (max_bin == missing)
     gh: torch.Tensor,  # [N, 2] float32 (grad, hess)
@@ -237,6 +290,7 @@ def build_tree(
     colsample_bylevel: float = 1.0,
     colsample_bynode: float = 1.0,
     feature_log_weights: Optional[torch.Tensor] = None,  # [F] log(fw)
+    constraints: Optional[TreeConstraints] = None,  # cfg's, made once
 ):
     """Grow one tree. Returns (Tree, row_value [N]): the learning-rate
     scaled leaf value each row lands in. ``tree`` and ``row_value``, where
@@ -249,7 +303,9 @@ def build_tree(
 
     Column sampling: ``feature_mask`` (the tree's), and with ``level_key``
     each level's bylevel / bynode draws (B12f, ``level_feature_mask``),
-    take K2's masked level step."""
+    take K2's masked level step. ``cfg``'s constraints take its
+    constrained level step (``constraints``: their device form, made here
+    where the caller passes none)."""
     n = bins.shape[0]
     dev = bins.device
     if qscale is None and bins.is_cuda:
@@ -263,7 +319,21 @@ def build_tree(
     nbt = cfg.max_bin + 1
     if tree is None:
         tree = empty_tree(cfg.heap_size, dev)
-    rec = TreeRecords(tree, cuts, feat_has_missing, cfg.split)
+    if constraints is None and (cfg.monotone_constraints
+                                or cfg.interaction_constraints):
+        constraints = TreeConstraints(cfg.monotone_constraints,
+                                      cfg.interaction_constraints,
+                                      bins.shape[1], dev)
+    rec = TreeRecords(tree, cuts, feat_has_missing, cfg.split, constraints)
+    cons = rec.cons
+    # monotone bounds: [1] at the root, the next level's from each step
+    bounds = None
+    if cons is not None and cons.monotone is not None:
+        inf = torch.full((1,), float("inf"), device=dev)
+        bounds = (-inf, inf)
+    ic = (InteractionState(cons.membership)
+          if cons is not None and cons.membership is not None
+          and not bins.is_cuda else None)
     if row_value is None:
         row_value = torch.empty(n, dtype=torch.float32, device=dev)
     order = torch.arange(n, dtype=torch.int32, device=dev)
@@ -281,6 +351,7 @@ def build_tree(
                                     colsample_bynode, feature_log_weights,
                                     dev)
                  if per_level else feature_mask)
+        allowed = None if ic is None else ic.allowed()
         # the formed histogram is the next level's parent, unless none comes
         keep = cfg.sibling_subtract and d < cfg.max_depth - 1
         if d > 0 and cfg.sibling_subtract:
@@ -290,13 +361,17 @@ def build_tree(
                 bins, gh, part.small_rows, part.small_seg, n_nodes // 2, nbt,
                 qscale=qscale)
             step = split_level(merged(hist_small), prev_hist,
-                               part.small_is_right, active, rec, keep, fmask)
+                               part.small_is_right, active, rec, keep, fmask,
+                               bounds, allowed)
         else:
             hist, _ = build_histogram(bins, gh, order, seg, n_nodes, nbt,
                                       qscale=qscale)
             step = split_level(merged(hist), None, None, active, rec, keep,
-                               fmask)
+                               fmask, bounds, allowed)
         sp = step.splits
+        bounds = step.bounds
+        if ic is not None:
+            ic.split(step.state == SPLIT, sp.feature)
         part = partition_level(
             order, seg, bins, sp.feature, sp.split_bin, sp.default_left,
             step.state, step.node_value, row_value,
@@ -311,7 +386,7 @@ def build_tree(
     n_nodes = 1 << cfg.max_depth
     _, totals = build_histogram(bins, gh, order, seg, n_nodes, nbt,
                                 with_hist=False, qscale=qscale)
-    node_value, state = leaf_records(merged(totals), active, rec)
+    node_value, state = leaf_records(merged(totals), active, rec, bounds)
     partition_leaf_values(order, seg, state, node_value, row_value)
     return tree, row_value
 

@@ -672,18 +672,35 @@ def add_tree_values(margin: torch.Tensor, row_value: torch.Tensor) -> None:
         margin.copy_(_fma(rv[t], inv, margin))
 
 
+def add_class_values(margin: torch.Tensor, row_value: torch.Tensor) -> None:
+    """``margin`` [N, K] += a round's K-output tree values in place:
+    ``row_value`` [K, N] as one add; [K T, N] (``num_parallel_tree`` T >
+    1, output k's trees at rows k T .. k T + T - 1) output by output, each
+    output's T values in order as ``add_tree_values`` adds them
+    (``margin[:, k] = fma(v_t, 1 / T, margin[:, k])``, the reference's
+    ``engine.py:1413``)."""
+    k = margin.shape[1]
+    t_par = row_value.shape[0] // k
+    if t_par == 1:
+        margin.add_(row_value.T)
+        return
+    for c in range(k):
+        add_tree_values(margin[:, c], row_value[c * t_par:(c + 1) * t_par])
+
+
 def round_update_multi_plain(margin: torch.Tensor, row_value: torch.Tensor,
                              label: torch.Tensor, weight: torch.Tensor,
                              objective: Objective, with_gh: bool = True,
                              metrics: Sequence[str] = ()
                              ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
     """Plain K4 over K outputs (``reg:quantileerror``): ``margin`` [N, K]
-    += ``row_value`` [K, N].T in place; returns (gh [K, N, 2] or None,
-    partial sums [12] f64: the row metrics of output 0, the pinball loss's
-    mean over the K outputs)."""
+    += ``row_value`` [K, N].T in place (or [K T, N] of T parallel trees an
+    output: ``add_class_values``); returns (gh [K, N, 2] or None, partial
+    sums [12] f64: the row metrics of output 0, the pinball loss's mean
+    over the K outputs)."""
     from xgboost_ray_tpu_torch.ops.metrics import metric_partials
 
-    margin.add_(row_value.T)
+    add_class_values(margin, row_value)
     sums = metric_partials(margin[:, 0], label, weight, metrics,
                            objective.consts, alphas=objective.alphas,
                            margins=margin)
@@ -803,8 +820,8 @@ def _k4_args(plan: K4Plan, margin: torch.Tensor, row_value: torch.Tensor,
                                 ticket, out))
     a.lower, a.upper, a.alpha = (_build.ptr(t) for t in (lower, upper, alphas))
     a.n, a.grid = margin.shape[0], plan.grid
-    a.n_trees = (1 if multi or not margin.shape[0]
-                 else row_value.numel() // margin.shape[0])
+    a.n_trees = (1 if not margin.shape[0]
+                 else row_value.numel() // margin.numel())
     a.inv_trees = _f32_div(1.0, max(a.n_trees, 1))
     a.mode = _K4_MODES["eval"] if gh is None else mode
     a.scale_pos_weight, a.k, a.multi, a.metrics = spw, k, multi, mask
@@ -906,10 +923,12 @@ def round_update_multi(margin: torch.Tensor, row_value: torch.Tensor,
                        metrics: Sequence[str] = ()
                        ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
     """K4 over K outputs (``reg:quantileerror``, K alphas): ``margin`` [N,
-    K] += ``row_value`` [K, N].T in place; returns (gh [K, N, 2] or None,
-    partial sums [12] f64). CPU tensors take
+    K] += ``row_value`` [K, N].T in place, or with T parallel trees an
+    output [K T, N] (``add_class_values``' order); returns (gh [K, N, 2] or
+    None, partial sums [12] f64). CPU tensors take
     ``round_update_multi_plain``; CUDA tensors launch K4's K-output kernel
-    once (counted in ``round_update.launches`` like K4's other modes)."""
+    once (counted in ``round_update.launches`` like K4's other modes, its
+    T-tree mode also in ``round_update.tree_launches``)."""
     if not margin.is_cuda:
         return round_update_multi_plain(margin, row_value, label, weight,
                                         objective, with_gh, metrics)
@@ -922,10 +941,12 @@ def round_update_multi(margin: torch.Tensor, row_value: torch.Tensor,
                          f"{K4_MAX_OUTPUTS}, one per alpha)")
     dev = margin.device
     if (margin.dtype != torch.float32 or not margin.is_contiguous()
-            or row_value.shape != (k, n) or not row_value.is_contiguous()
+            or row_value.dim() != 2 or row_value.shape[1] != n
+            or row_value.shape[0] % k or not row_value.shape[0]
+            or not row_value.is_contiguous()
             or row_value.dtype != torch.float32 or row_value.device != dev):
         raise ValueError("round_update_multi: margin [N, K] and row_value "
-                         "[K, N] must be contiguous float32 on one device")
+                         "[K T, N] must be contiguous float32 on one device")
     _check_rows("round_update_multi", n, dev, label, weight)
     stream = _build.stream_ptr(dev)
     ticket, part = _k4_workspace(dev.index, stream)
@@ -1018,12 +1039,13 @@ def softmax_update_plain(margin: torch.Tensor, row_value: torch.Tensor,
                          with_gh: bool = True, logloss0: bool = False
                          ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
     """Plain softmax pass, training and eval modes: adds ``row_value``
-    [K, N] to ``margin`` [N, K] in place; returns (gh [K, N, 2], or None
-    without ``with_gh``, partial sums f64 in ``SOFTMAX_PARTIALS`` order:
-    [4] with ``logloss0``, else the first [3])."""
+    [K, N] to ``margin`` [N, K] in place (or [K T, N], T parallel trees a
+    class: ``add_class_values``); returns (gh [K, N, 2], or None without
+    ``with_gh``, partial sums f64 in ``SOFTMAX_PARTIALS`` order: [4] with
+    ``logloss0``, else the first [3])."""
     from xgboost_ray_tpu_torch.ops.metrics import softmax_partials
 
-    margin.add_(row_value.T)
+    add_class_values(margin, row_value)
     sums = softmax_partials(margin, label, weight, logloss0)
     if not with_gh:
         return None, sums
@@ -1091,6 +1113,9 @@ def _smx_args(mode: str, margin: torch.Tensor, row_value=None, label=None,
     n, k = margin.shape
     plan = softmax_plan(k, mode)
     a = _build.SoftmaxArgs()
+    a.n_trees = (row_value.shape[0] // k if row_value is not None and n
+                 else 1)
+    a.inv_trees = _f32_div(1.0, a.n_trees)
     a.margin = margin.data_ptr()
     a.row_value, a.label, a.weight, a.gh, a.part, a.out = (
         _build.ptr(t) for t in (row_value, label, weight, gh, part, out))
@@ -1156,7 +1181,9 @@ def softmax_update(margin: torch.Tensor, row_value: torch.Tensor,
                    ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
     """Softmax pass wrapper, training mode (eval mode with
     ``with_gh=False``): ``margin`` [N, K] += ``row_value`` [K, N].T in
-    place; returns (gh [K, N, 2] or None, partial sums f64 in
+    place (or [K T, N], T parallel trees a class, added as
+    ``add_class_values`` adds them: the kernel's T-tree mode, counted in
+    ``softmax_update.tree_launches``); returns (gh [K, N, 2] or None, partial sums f64 in
     ``SOFTMAX_PARTIALS`` order: [4] with ``logloss0`` (column 0's
     logloss), else the first [3]). CPU tensors take ``softmax_update_plain``; CUDA tensors
     launch the kernel of ``csrc/softmax.cu`` (``softmax_update.launches``
@@ -1167,12 +1194,14 @@ def softmax_update(margin: torch.Tensor, row_value: torch.Tensor,
                                     logloss0)
     _check_margin(margin, "softmax_update")
     n, k = margin.shape
-    for t, shape in ((row_value, (k, n)), (label, (n,)), (weight, (n,))):
+    t_par = row_value.shape[0] // k if row_value.dim() == 2 else 0
+    for t, shape in ((row_value, (k * max(t_par, 1), n)), (label, (n,)),
+                     (weight, (n,))):
         if (t.device != margin.device or t.dtype != torch.float32
                 or t.shape != shape or not t.is_contiguous()):
             raise ValueError(
-                "softmax_update: row_value [K, N], label [N] and weight [N] "
-                "must be contiguous float32 on the margins' CUDA device")
+                "softmax_update: row_value [K T, N], label [N] and weight "
+                "[N] must be contiguous float32 on the margins' CUDA device")
     gh = (torch.empty((k, n, 2), dtype=torch.float32, device=margin.device)
           if with_gh else None)
     n_parts = len(SOFTMAX_PARTIALS) - (0 if logloss0 else 1)
@@ -1188,11 +1217,14 @@ def softmax_update(margin: torch.Tensor, row_value: torch.Tensor,
     softmax_update.launches += 1
     if not with_gh:
         softmax_update.eval_launches += 1
+    if t_par > 1:
+        softmax_update.tree_launches += 1
     return gh, part[:, :n_parts].sum(0, dtype=torch.float64)
 
 
 softmax_update.launches = 0
 softmax_update.eval_launches = 0
+softmax_update.tree_launches = 0  # the T-tree add's (num_parallel_tree > 1)
 
 
 def softmax_transform(margin: torch.Tensor, prob: bool,

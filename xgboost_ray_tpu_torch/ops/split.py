@@ -1,11 +1,14 @@
 """Split search (K2): one tree level's per-node work.
 
 Port of ``xgboost_ray_tpu/ops/split.py``: ``SplitParams`` (``:27``),
-``score`` (``:50``), ``leaf_weight`` (``:56``) and the unconstrained numeric
-``find_splits`` (``:79``); and of the per-node part of a level of the JAX
-``build_tree`` around it (``ops/grow.py:565-690``: the sibling histogram,
-the readout, the records), which ``split_level`` does in one launch per
-level, and of its final level (``:765-780``, ``leaf_records``).
+``score`` (``:50``), ``leaf_weight`` (``:56``), ``bounded_weight``
+(``:64``), ``score_given_weight`` (``:69``) and the numeric
+``find_splits`` (``:79``, with its monotone branch); and of the per-node
+part of a level of the JAX ``build_tree`` around it
+(``ops/grow.py:565-771``: the sibling histogram, the readout, the
+interaction mask, the records, the children's monotone bounds), which
+``split_level`` does in one launch per level, and of its final level
+(``:765-780``, ``leaf_records``).
 
 Per (node, feature) a prefix scan over the present bins gives every
 candidate's left child; the gain is scored with the missing bucket sent
@@ -24,11 +27,23 @@ Scores use the xgboost leaf objective with L1/L2 regularization:
   w*(G,H)  = -T(G) / (H + lambda),    T(G) = soft-threshold by alpha
   score    = T(G)^2 / (H + lambda)
   gain     = score_L + score_R - score_parent    (accepted iff > gamma)
+
+Constraints (``TreeConstraints``, made once a run): with a monotone
+constraint on any feature every candidate of every feature is scored from
+child weights clamped to the node's [lower, upper] interval
+(``score_given_weight``), a candidate whose clamped weights break its
+feature's sign scores -inf, node values are clamped too, and each split
+narrows its children's intervals at the midpoint of the winner's two
+weights (``ops/grow.py:710-748``). Interaction constraints mask the
+features a node may split on: those of the groups that hold every feature
+split on above it, and those features themselves (``:625-641``,
+``:750-760``); K2 reads them off the node's ancestors in the tree it
+writes (``interaction_mask``).
 """
 
 import ctypes
 import dataclasses
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -90,6 +105,35 @@ def leaf_weight(g, h, p: SplitParams):
     return w
 
 
+def bounded_weight(g, h, p: SplitParams, lower, upper):
+    """Leaf weight clamped to a node's feasible interval (monotone bounds):
+    ``jnp.clip``, ``minimum(upper, maximum(lower, w))``."""
+    return torch.minimum(upper, torch.maximum(lower, leaf_weight(g, h, p)))
+
+
+def score_given_weight(g, h, p: SplitParams, w, child: bool = False):
+    """Objective reduction of a (possibly bound-clamped) weight w:
+    -(2 T(g) w + (h + lambda) w^2) (equal to ``score`` in exact arithmetic
+    only), rounded as the reference's compiled CPU program rounds it
+    (``find_splits`` compiled alone): -fma(2 T(g), w, ((h + lambda) w) w);
+    a ``child``'s term, where ``reg_alpha`` is 0 and ``max_delta_step`` is
+    on, -fma(w, (h + lambda) w, w 2 T(g)) (XLA's simplified soft threshold
+    and clip leave its operands in the other order, and LLVM fuses the
+    first product)."""
+    from xgboost_ray_tpu_torch.ops.objectives import _fma
+
+    t = _soft_threshold(g, p.reg_alpha)
+    if child and _child_hw_first(p):
+        return -_fma(w, (h + p.reg_lambda) * w, w * (2.0 * t))
+    return -_fma(2.0 * t, w, (h + p.reg_lambda) * w * w)
+
+
+def _child_hw_first(p: SplitParams) -> bool:
+    """Whether the children's ``score_given_weight`` fuses its other
+    product (``reg_alpha`` 0, ``max_delta_step`` on)."""
+    return p.reg_alpha == 0.0 and p.max_delta_step > 0.0
+
+
 def _seq_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
     """Sum along ``dim`` strictly in order, from 0."""
     x = x.movedim(dim, 0)
@@ -140,12 +184,22 @@ def _seq_cumsum(x: torch.Tensor) -> torch.Tensor:
 
 
 def find_splits_plain(hist: torch.Tensor, p: SplitParams,
-                      feature_mask: Optional[torch.Tensor] = None
-                      ) -> LevelSplits:
-    """The JAX ``find_splits`` (numeric, unconstrained) in PyTorch, with the
-    node totals read off feature 0's buckets as ``build_tree`` does.
+                      feature_mask: Optional[torch.Tensor] = None,
+                      monotone: Optional[torch.Tensor] = None,
+                      lower: Optional[torch.Tensor] = None,
+                      upper: Optional[torch.Tensor] = None) -> LevelSplits:
+    """The JAX ``find_splits`` (numeric) in PyTorch, with the node totals
+    read off feature 0's buckets as ``build_tree`` does.
     ``feature_mask`` [F] or [n_nodes, F] bool: a masked feature's
-    candidates score -inf (``:148-155``), then the first maximum wins."""
+    candidates score -inf (``:148-155``), then the first maximum wins.
+    ``monotone`` [F] (-1 / 0 / +1) with ``lower`` / ``upper`` [n_nodes]
+    (default -inf / +inf): the constrained branch (``:116-134``)."""
+    return _search_plain(hist, p, feature_mask, monotone, lower, upper)[0]
+
+
+def _search_plain(hist, p: SplitParams, feature_mask, monotone, lower, upper):
+    """``find_splits_plain`` and, with ``monotone``, the winner's clamped
+    (w_left, w_right) [n_nodes] in the direction it chose (None without)."""
     n_nodes, num_features, nbt, _ = hist.shape
     n_bins = nbt - 1
     node_gh = tree_sum(hist[:, 0])
@@ -156,17 +210,37 @@ def find_splits_plain(hist: torch.Tensor, p: SplitParams,
     hl = blocked_cumsum(h[..., :n_bins])[..., : n_bins - 1]
     gp = node_gh[:, 0][:, None, None]
     hp = node_gh[:, 1][:, None, None]
-    parent = score(node_gh[:, 0], node_gh[:, 1], p)[:, None, None]
     neg_inf = torch.tensor(float("-inf"), device=hist.device)
 
-    def gain_for(gl_, hl_):
-        gr_, hr_ = gp - gl_, hp - hl_
-        ok = (hl_ >= p.min_child_weight) & (hr_ >= p.min_child_weight)
-        gain = score(gl_, hl_, p) + score(gr_, hr_, p) - parent
-        return torch.where(ok, gain, neg_inf)
+    if monotone is not None:
+        inf = torch.full((n_nodes,), float("inf"), device=hist.device)
+        lo = (-inf if lower is None else lower)[:, None, None]
+        hi = (inf if upper is None else upper)[:, None, None]
+        mono = monotone.to(torch.float32)[None, :, None]
+        parent = score_given_weight(gp, hp, p,
+                                    bounded_weight(gp, hp, p, lo, hi))
 
-    gain_missing_left = gain_for(gl + gm[..., None], hl + hm[..., None])
-    gain_missing_right = gain_for(gl, hl)
+        def gain_for(gl_, hl_):
+            gr_, hr_ = gp - gl_, hp - hl_
+            ok = (hl_ >= p.min_child_weight) & (hr_ >= p.min_child_weight)
+            wl = bounded_weight(gl_, hl_, p, lo, hi)
+            wr = bounded_weight(gr_, hr_, p, lo, hi)
+            viol = ((mono > 0) & (wl > wr)) | ((mono < 0) & (wl < wr))
+            gain = (score_given_weight(gl_, hl_, p, wl, child=True)
+                    + score_given_weight(gr_, hr_, p, wr, child=True)
+                    - parent)
+            return torch.where(ok & ~viol, gain, neg_inf), (wl, wr)
+    else:
+        parent = score(node_gh[:, 0], node_gh[:, 1], p)[:, None, None]
+
+        def gain_for(gl_, hl_):
+            gr_, hr_ = gp - gl_, hp - hl_
+            ok = (hl_ >= p.min_child_weight) & (hr_ >= p.min_child_weight)
+            gain = score(gl_, hl_, p) + score(gr_, hr_, p) - parent
+            return torch.where(ok, gain, neg_inf), None
+
+    gain_missing_left, w_ml = gain_for(gl + gm[..., None], hl + hm[..., None])
+    gain_missing_right, w_mr = gain_for(gl, hl)
     default_left = gain_missing_left >= gain_missing_right
     gain = torch.maximum(gain_missing_left, gain_missing_right)
     if feature_mask is not None:
@@ -177,8 +251,15 @@ def find_splits_plain(hist: torch.Tensor, p: SplitParams,
     flat = gain.reshape(n_nodes, -1)
     best = torch.argmax(flat, dim=-1)  # first max: deterministic ties
     best_gain = torch.gather(flat, 1, best[:, None])[:, 0]
-    dl = torch.gather(default_left.reshape(n_nodes, -1), 1, best[:, None])[:, 0]
+    dl_all = default_left.reshape(n_nodes, -1)
+    dl = torch.gather(dl_all, 1, best[:, None])[:, 0]
     valid = torch.isfinite(best_gain) & (best_gain > p.gamma)
+    child_w = None
+    if w_ml is not None:
+        child_w = tuple(
+            torch.gather(torch.where(default_left, a, b).reshape(n_nodes, -1),
+                         1, best[:, None])[:, 0]
+            for a, b in zip(w_ml, w_mr))
     return LevelSplits(
         gain=best_gain,
         feature=(best // (n_bins - 1)).to(torch.int32),
@@ -186,7 +267,7 @@ def find_splits_plain(hist: torch.Tensor, p: SplitParams,
         default_left=dl,
         valid=valid,
         node_gh=node_gh,
-    )
+    ), child_w
 
 
 def _check_node_array(t, n: int, dtype, dev, what: str) -> None:
@@ -239,6 +320,70 @@ find_splits.launches = 0
 # one tree level: sibling formation + split search + records (K2)
 # --------------------------------------------------------------------------
 
+class TreeConstraints:
+    """What K2 reads of ``monotone_constraints`` and
+    ``interaction_constraints`` (the engine's validated, zero-padded tuples
+    of ``GrowConfig``), made once a run on ``device``: ``monotone`` int8
+    [F] (None where every entry is 0: the reference's ``mono_on``),
+    ``membership`` bool [S, F] (group s holds feature f) and ``ic_bits``
+    int32 [F, ceil(S / 32)] (bit s % 32 of word s // 32 set where group s
+    holds feature f), both None without interaction constraints."""
+
+    def __init__(self, monotone: tuple, interaction: tuple, n_features: int,
+                 device):
+        self.monotone = (torch.tensor(monotone, dtype=torch.int8,
+                                      device=device)
+                         if any(int(c) != 0 for c in monotone) else None)
+        self.membership = self.ic_bits = None
+        if interaction:
+            n_sets = len(interaction)
+            mem = torch.zeros((n_sets, n_features), dtype=torch.bool)
+            for s, grp in enumerate(interaction):
+                for fi in grp:
+                    if fi < n_features:
+                        mem[s, fi] = True
+            words = torch.zeros((n_features, -(-n_sets // 32)),
+                                dtype=torch.int64)
+            for s in range(n_sets):
+                words[:, s // 32] |= mem[s].to(torch.int64) << (s % 32)
+            # the words' bit patterns as int32 (two's complement)
+            words = torch.where(words >= 1 << 31, words - (1 << 32), words)
+            self.membership = mem.to(device)
+            self.ic_bits = words.to(torch.int32).to(device)
+
+    @property
+    def on(self) -> bool:
+        return self.monotone is not None or self.membership is not None
+
+
+def interaction_mask(tree_feature: torch.Tensor, n_nodes: int,
+                     membership: torch.Tensor) -> torch.Tensor:
+    """The features each node of the level of ``n_nodes`` nodes may split
+    on, bool [n_nodes, F], from its ancestors in the tree being written
+    (``tree_feature`` [heap] int32, -1 where a node did not split): K2's
+    derivation. The ancestors' features are the reference's ``ic_used``,
+    the groups holding every one of them its ``ic_active``, and a node
+    with a split ancestor its ``ic_has_used`` (``ops/grow.py:625-641``,
+    ``:750-760``): such a node may use the features of those groups and
+    the ancestors' own; the root, and a node below no split, any."""
+    n_sets, num_features = membership.shape
+    dev = membership.device
+    node = torch.arange(n_nodes, device=dev)
+    depth = n_nodes.bit_length() - 1
+    used = torch.zeros((n_nodes, num_features), dtype=torch.bool, device=dev)
+    has_used = torch.zeros(n_nodes, dtype=torch.bool, device=dev)
+    active = torch.ones((n_nodes, n_sets), dtype=torch.bool, device=dev)
+    for j in range(1, depth + 1):
+        fa = tree_feature[(1 << (depth - j)) - 1 + (node >> j)].long()
+        split = fa >= 0
+        f0 = fa.clamp(min=0)
+        used[split, f0[split]] = True
+        has_used |= split
+        active &= torch.where(split[:, None], membership.T[f0], True)
+    union = (active[:, :, None] & membership[None]).any(dim=1)
+    return torch.where(has_used[:, None], union | used, True)
+
+
 _TREE_DTYPES = (("feature", torch.int32), ("split_bin", torch.int32),
                 ("threshold", torch.float32), ("default_left", torch.bool),
                 ("is_leaf", torch.bool), ("value", torch.float32),
@@ -250,15 +395,17 @@ class TreeRecords:
     """The tree a grower writes, level by level, and what its levels share:
     ``tree`` (the padded-heap ``Tree`` of ``ops/grow.py``, written in
     place), ``cuts`` [F, max_bin - 1] f32, ``feat_has_missing`` [F] bool or
-    None, and the split parameters. On a CUDA device the C struct of their
-    pointers is checked and filled once per tree (:meth:`c_args`)."""
+    None, the split parameters and the constraints (``TreeConstraints``
+    or None). On a CUDA device the C struct of their pointers is checked
+    and filled once per tree (:meth:`c_args`)."""
 
     def __init__(self, tree, cuts: torch.Tensor, feat_has_missing,
-                 p: SplitParams):
+                 p: SplitParams, cons: Optional[TreeConstraints] = None):
         self.tree = tree
         self.cuts = cuts
         self.feat_has_missing = feat_has_missing
         self.p = p
+        self.cons = cons if cons is not None and cons.on else None
         self._c = None
 
     def c_args(self) -> int:
@@ -276,13 +423,25 @@ class TreeRecords:
             if fhm is not None:
                 _check_node_array(fhm, cuts.shape[0], torch.bool, dev,
                                   "feat_has_missing")
+            mono = bits = None
+            if self.cons is not None:
+                mono, bits = self.cons.monotone, self.cons.ic_bits
+                if mono is not None:
+                    _check_node_array(mono, cuts.shape[0], torch.int8, dev,
+                                      "monotone")
+                _check(bits is None or (
+                    bits.dtype == torch.int32 and bits.is_contiguous()
+                    and bits.device == dev and bits.dim() == 2
+                    and bits.shape[0] == cuts.shape[0]),
+                    "ic_bits must be contiguous int32 [F, words]")
             p = self.p
             self._c = _build.TreeArgs(
                 *(getattr(t, name).data_ptr() for name, _ in _TREE_DTYPES),
                 cuts.data_ptr(), _build.ptr(fhm), cuts.shape[0],
                 cuts.shape[1] + 2, p.reg_lambda, p.reg_alpha, p.gamma,
                 p.min_child_weight, max(p.max_delta_step, 0.0),
-                p.learning_rate)
+                p.learning_rate, _build.ptr(mono), _build.ptr(bits),
+                0 if bits is None else bits.shape[1])
         return ctypes.addressof(self._c)
 
 
@@ -294,6 +453,8 @@ class LevelStep(NamedTuple):
     state: torch.Tensor  # [n_nodes] uint8 SPLIT / LEAF / INACTIVE for K3
     active: torch.Tensor  # [2 n_nodes] bool: the next level's active nodes
     hist: Optional[torch.Tensor]  # the formed histogram: the next prev_hist
+    # monotone constraints: the next level's (lower, upper) [2 n_nodes] f32
+    bounds: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
 
 
 def _interleave(left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
@@ -302,15 +463,61 @@ def _interleave(left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
         (2 * left.shape[0],) + left.shape[1:])
 
 
+def _level_constraints(rec: TreeRecords, n_nodes: int, feature_mask,
+                       bounds, ic_allowed, what: str):
+    """(monotone or None, lower, upper, the search's feature mask) of one
+    level: the column-sampling mask ANDed with the interaction mask
+    (``ic_allowed`` where the caller holds it, else derived from the
+    tree's ancestors: ``interaction_mask``) as ``ops/grow.py:634-637``
+    combines them."""
+    cons = rec.cons
+    mono = lower = upper = None
+    if cons is None:
+        _check(bounds is None and ic_allowed is None,
+               f"{what}: bounds and ic_allowed need the tree's constraints")
+        return mono, lower, upper, feature_mask
+    if cons.monotone is not None:
+        _check(bounds is not None, f"{what}: monotone constraints need the "
+                                   f"level's (lower, upper) bounds")
+        mono, (lower, upper) = cons.monotone, bounds
+    fmask = feature_mask
+    if cons.membership is not None:
+        allowed = (ic_allowed if ic_allowed is not None else
+                   interaction_mask(rec.tree.feature, n_nodes,
+                                    cons.membership))
+        fmask = allowed if fmask is None else (
+            (fmask[None, :] if fmask.dim() == 1 else fmask) & allowed)
+    return mono, lower, upper, fmask
+
+
+def child_bounds(mono, feature, valid_split, lower, upper, wl, wr):
+    """The children's (lower, upper) [2 n_nodes] (``ops/grow.py:736-748``):
+    a split on a feature of sign c narrows one side of each child's
+    interval to the midpoint of its winner's clamped child weights."""
+    mid = 0.5 * (wl + wr)
+    c = torch.where(valid_split, mono.long()[feature.long()], 0)
+    lower_l = torch.where(c < 0, torch.maximum(lower, mid), lower)
+    upper_l = torch.where(c > 0, torch.minimum(upper, mid), upper)
+    lower_r = torch.where(c > 0, torch.maximum(lower, mid), lower)
+    upper_r = torch.where(c < 0, torch.minimum(upper, mid), upper)
+    return _interleave(lower_l, lower_r), _interleave(upper_l, upper_r)
+
+
 def split_level_plain(hist, prev_hist, small_is_right, active,
                       rec: TreeRecords, keep_hist: bool = True,
-                      feature_mask: Optional[torch.Tensor] = None
+                      feature_mask: Optional[torch.Tensor] = None,
+                      bounds: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                      ic_allowed: Optional[torch.Tensor] = None
                       ) -> LevelStep:
     """The level step in PyTorch ops, as the JAX grower composes it: the
     sibling as parent - smaller child (``prev_hist`` given), the phantom
     missing bucket zeroed, the readout and split search (under
-    ``feature_mask``, [F] or [n_nodes, F] bool, where given), and the
-    records of ``ops/grow.py:661-684`` written into ``rec.tree``."""
+    ``feature_mask``, [F] or [n_nodes, F] bool, where given, and the
+    constraints of ``rec.cons``: ``bounds`` the level's (lower, upper)
+    [n_nodes], ``ic_allowed`` [n_nodes, F] an interaction mask the caller
+    keeps, else ``interaction_mask``), the records of
+    ``ops/grow.py:661-684`` written into ``rec.tree``, and with monotone
+    constraints the next level's bounds."""
     tree, cuts, p = rec.tree, rec.cuts, rec.p
     if prev_hist is not None:
         hist_small = hist
@@ -324,11 +531,16 @@ def split_level_plain(hist, prev_hist, small_is_right, active,
     base = n_nodes - 1
     lr = p.learning_rate
     zero = torch.zeros((), dtype=torch.float32, device=hist.device)
+    mono, lower, upper, fmask = _level_constraints(
+        rec, n_nodes, feature_mask, bounds, ic_allowed, "split_level")
 
-    sp = find_splits_plain(hist, p, feature_mask)
+    sp, child_w = _search_plain(hist, p, fmask, mono, lower, upper)
     node_gh = sp.node_gh
     valid_split = sp.valid & active
-    node_value = lr * leaf_weight(node_gh[:, 0], node_gh[:, 1], p)
+    node_value = lr * (leaf_weight(node_gh[:, 0], node_gh[:, 1], p)
+                       if mono is None else
+                       bounded_weight(node_gh[:, 0], node_gh[:, 1], p, lower,
+                                      upper))
     is_new_leaf = active & ~valid_split
     fsafe = sp.feature.clamp(0, num_features - 1).long()
     thr = cuts[fsafe, sp.split_bin.clamp(0, max_bin - 2).long()]
@@ -346,15 +558,19 @@ def split_level_plain(hist, prev_hist, small_is_right, active,
     state = torch.where(
         valid_split, SPLIT, torch.where(is_new_leaf, LEAF, INACTIVE)
     ).to(torch.uint8)
+    nxt = (None if mono is None else
+           child_bounds(mono, fsafe, valid_split, lower, upper, *child_w))
     return LevelStep(sp, node_value, state,
                      torch.repeat_interleave(valid_split, 2),
-                     hist if keep_hist else None)
+                     hist if keep_hist else None, nxt)
 
 
 def split_level(hist: torch.Tensor, prev_hist: Optional[torch.Tensor],
                 small_is_right: Optional[torch.Tensor], active: torch.Tensor,
                 rec: TreeRecords, keep_hist: bool = True,
-                feature_mask: Optional[torch.Tensor] = None) -> LevelStep:
+                feature_mask: Optional[torch.Tensor] = None,
+                bounds: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                ic_allowed: Optional[torch.Tensor] = None) -> LevelStep:
     """K2 for one tree level, one launch: ``hist`` is K1's (all-reduced)
     histogram of the level's ``n_nodes`` nodes, or with ``prev_hist`` and
     ``small_is_right`` that of each parent's smaller child. ``active``
@@ -362,11 +578,20 @@ def split_level(hist: torch.Tensor, prev_hist: Optional[torch.Tensor],
     histogram comes back as ``hist`` when ``keep_hist`` (the next level's
     ``prev_hist``). ``feature_mask`` ([F] or [n_nodes, F] bool, column
     sampling) takes K2's masked instantiation: a masked feature's
-    candidates score -inf. CPU tensors -> plain version, CUDA tensors ->
-    kernel (``launches_masked`` counts the masked launches)."""
+    candidates score -inf. The tree's constraints (``rec.cons``) take its
+    constrained instantiation: ``bounds`` is the level's (lower, upper)
+    [n_nodes] f32 under monotone constraints, the next level's come back
+    in ``LevelStep.bounds``; the kernel reads each node's interaction mask
+    off its ancestors in ``rec.tree`` (``ic_allowed``, a mask the caller
+    keeps, is for the plain version only). CPU tensors -> plain version,
+    CUDA tensors -> kernel (``launches_masked`` counts the masked
+    launches, ``launches_constrained`` the constrained ones)."""
     if not hist.is_cuda:
         return split_level_plain(hist, prev_hist, small_is_right, active,
-                                 rec, keep_hist, feature_mask)
+                                 rec, keep_hist, feature_mask, bounds,
+                                 ic_allowed)
+    _check(ic_allowed is None, "split_level: ic_allowed is the plain "
+                               "version's; the kernel derives the mask")
     n_nodes = active.shape[0]
     dev = hist.device
     _check_hist(hist, "split_level")
@@ -393,11 +618,20 @@ def split_level(hist: torch.Tensor, prev_hist: Optional[torch.Tensor],
                and feature_mask.numel() == mask_rows * num_features,
                "split_level: feature_mask must be contiguous bool [F] or "
                "[n_nodes, F] on the histogram's device")
+    mono = rec.cons is not None and rec.cons.monotone is not None
+    _check(mono == (bounds is not None),
+           "split_level: bounds go with monotone constraints, and only")
+    if mono:
+        for b in bounds:
+            _check_node_array(b, n_nodes, torch.float32, dev,
+                              "split_level: bounds")
     args = rec.c_args()
     f32 = dict(dtype=torch.float32, device=dev)
     i32 = dict(dtype=torch.int32, device=dev)
     u8 = dict(dtype=torch.uint8, device=dev)
     b8 = dict(dtype=torch.bool, device=dev)
+    nxt = ((torch.empty(2 * n_nodes, **f32), torch.empty(2 * n_nodes, **f32))
+           if mono else None)
     gain = torch.empty(n_nodes, **f32)
     feature = torch.empty(n_nodes, **i32)
     split_bin = torch.empty(n_nodes, **i32)
@@ -417,32 +651,40 @@ def split_level(hist: torch.Tensor, prev_hist: Optional[torch.Tensor],
             default_left.data_ptr(), valid.data_ptr(), node_gh.data_ptr(),
             node_value.data_ptr(), state.data_ptr(), active_next.data_ptr(),
             _build.ptr(hist_out), _build.ptr(feature_mask), mask_rows,
+            *(_build.ptr(b) for b in (bounds or (None, None))),
+            *(_build.ptr(b) for b in (nxt or (None, None))),
             _build.stream_ptr(dev))
     _build.check(code, "K2 split level")
     split_level.launches += 1
     if mask_rows:
         split_level.launches_masked += 1
+    if rec.cons is not None:
+        split_level.launches_constrained += 1
     return LevelStep(
         LevelSplits(gain, feature, split_bin, default_left, valid, node_gh),
-        node_value, state, active_next, hist_out)
+        node_value, state, active_next, hist_out, nxt)
 
 
 split_level.launches = 0
 split_level.launches_masked = 0
+split_level.launches_constrained = 0
 
 
 def leaf_records_plain(node_gh: torch.Tensor, active: torch.Tensor,
-                       rec: TreeRecords):
+                       rec: TreeRecords,
+                       bounds: Optional[Tuple[torch.Tensor,
+                                              torch.Tensor]] = None):
     """The final level in PyTorch ops (``ops/grow.py:765-780``): every
-    active node is a leaf valued from its (G, H). Writes the level's
-    records into ``rec.tree``; returns (node_value [n_nodes] f32, state
-    [n_nodes] uint8 LEAF / INACTIVE for K3's leaf-value mode)."""
+    active node is a leaf valued from its (G, H), clamped to ``bounds``
+    (lower, upper) [n_nodes] under monotone constraints. Writes the
+    level's records into ``rec.tree``; returns (node_value [n_nodes] f32,
+    state [n_nodes] uint8 LEAF / INACTIVE for K3's leaf-value mode)."""
     tree, p = rec.tree, rec.p
     n_nodes = active.shape[0]
     zero = torch.zeros((), dtype=torch.float32, device=node_gh.device)
-    node_value = torch.where(
-        active, p.learning_rate * leaf_weight(node_gh[:, 0], node_gh[:, 1], p),
-        zero)
+    w = (leaf_weight(node_gh[:, 0], node_gh[:, 1], p) if bounds is None
+         else bounded_weight(node_gh[:, 0], node_gh[:, 1], p, *bounds))
+    node_value = torch.where(active, p.learning_rate * w, zero)
     sl = slice(n_nodes - 1, 2 * n_nodes - 1)
     tree.is_leaf[sl] = active
     tree.value[sl] = node_value
@@ -452,18 +694,23 @@ def leaf_records_plain(node_gh: torch.Tensor, active: torch.Tensor,
 
 
 def leaf_records(node_gh: torch.Tensor, active: torch.Tensor,
-                 rec: TreeRecords):
+                 rec: TreeRecords,
+                 bounds: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
     """K2's final-level form, one launch per tree: ``node_gh`` [n_nodes, 2]
-    (K1's all-reduced totals), ``active`` [n_nodes] bool. CPU tensors ->
-    plain version, CUDA tensors -> kernel."""
+    (K1's all-reduced totals), ``active`` [n_nodes] bool, ``bounds`` the
+    level's (lower, upper) [n_nodes] f32 under monotone constraints. CPU
+    tensors -> plain version, CUDA tensors -> kernel."""
     if not node_gh.is_cuda:
-        return leaf_records_plain(node_gh, active, rec)
+        return leaf_records_plain(node_gh, active, rec, bounds)
     n_nodes = active.shape[0]
     dev = node_gh.device
     _check(node_gh.dtype == torch.float32 and node_gh.shape == (n_nodes, 2)
            and node_gh.is_contiguous(),
            "leaf_records: node_gh must be contiguous f32 [n_nodes, 2]")
     _check_node_array(active, n_nodes, torch.bool, dev, "leaf_records: active")
+    for b in bounds or ():
+        _check_node_array(b, n_nodes, torch.float32, dev,
+                          "leaf_records: bounds")
     _check(rec.cuts.device == dev
            and rec.tree.feature.shape[0] >= 2 * n_nodes - 1,
            "leaf_records: the tree must hold the level")
@@ -473,6 +720,7 @@ def leaf_records(node_gh: torch.Tensor, active: torch.Tensor,
     with torch.cuda.device(dev):
         code = _build.library("split").xrt_leaf_records(
             args, node_gh.data_ptr(), active.data_ptr(), n_nodes,
+            *(_build.ptr(b) for b in (bounds or (None, None))),
             node_value.data_ptr(), state.data_ptr(), _build.stream_ptr(dev))
     _build.check(code, "K2 leaf records")
     leaf_records.launches += 1

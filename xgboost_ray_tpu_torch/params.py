@@ -9,6 +9,7 @@ checks) and raises ``NotImplementedError`` naming the key for every setting
 the port does not run yet: nothing is silently ignored.
 """
 
+import ast
 import dataclasses
 import logging
 from typing import Any, Dict, List, Optional, Sequence
@@ -113,7 +114,7 @@ def _not_in_slice(key: str, value: Any) -> NotImplementedError:
     return NotImplementedError(
         f"{key}={value!r} is not supported by xgboost_ray_tpu_torch yet "
         f"(this port runs gbtree depthwise growth with f32 gradients, "
-        f"numeric features without constraints, and objectives "
+        f"numeric features, and objectives "
         f"{' | '.join(SUPPORTED_OBJECTIVES)}); use the JAX package "
         f"xgboost_ray_tpu for it."
     )
@@ -128,6 +129,56 @@ def _is_empty(val, empty_strs) -> bool:
         return len(val) == 0
     except TypeError:
         return False
+
+
+def _parse_monotone_constraints(val: Any) -> tuple:
+    """xgboost formats: "(1,-1,0)" string, or a sequence of -1/0/+1 ints
+    (``xgboost_ray_tpu/params.py:204``). Length may be shorter than the
+    feature count; the engine pads with 0 (unconstrained), matching
+    xgboost."""
+    if isinstance(val, str):
+        items = [s for s in val.strip().strip("()").split(",") if s.strip()]
+    elif isinstance(val, dict):
+        raise ValueError(
+            "dict-form monotone_constraints (by feature name) are not "
+            "supported; pass a tuple/list indexed by feature position."
+        )
+    else:
+        items = list(val)
+    try:
+        out = tuple(int(v) for v in items)
+    except (TypeError, ValueError):
+        raise ValueError(f"could not parse monotone_constraints: {val!r}")
+    if any(c not in (-1, 0, 1) for c in out):
+        raise ValueError(
+            f"monotone_constraints entries must be -1, 0, or +1; got {out}"
+        )
+    return out
+
+
+def _parse_interaction_constraints(val: Any) -> tuple:
+    """xgboost format: "[[0, 1], [2, 3, 4]]" string or a nested sequence of
+    feature indices (``xgboost_ray_tpu/params.py:228``). Feature names are
+    not supported (index positions only)."""
+    if isinstance(val, str):
+        try:
+            val = ast.literal_eval(val)
+        except (SyntaxError, ValueError):
+            raise ValueError(
+                f"could not parse interaction_constraints string: {val!r}"
+            )
+    try:
+        groups = tuple(
+            tuple(sorted({int(i) for i in grp})) for grp in val
+        )
+    except (TypeError, ValueError):
+        raise ValueError(
+            f"interaction_constraints must be a sequence of index groups "
+            f"(feature names are not supported); got {val!r}"
+        )
+    if any(i < 0 for grp in groups for i in grp):
+        raise ValueError("interaction_constraints indices must be >= 0")
+    return tuple(g for g in groups if g)
 
 
 def _check_sampling(out: TrainParams, params: Dict[str, Any]) -> None:
@@ -204,11 +255,12 @@ def parse_params(params: Optional[Dict[str, Any]]) -> TrainParams:
         raise ValueError(f"Unsupported tree_method: {tree_method!r}")
     out.tree_method = tree_method
 
-    for key, empty in (("monotone_constraints", ("", "()")),
-                       ("interaction_constraints", ("", "()", "[]"))):
-        val = params.pop(key, None)
-        if not _is_empty(val, empty):
-            raise _not_in_slice(key, val)
+    mono = params.pop("monotone_constraints", None)
+    if not _is_empty(mono, ("", "()")):
+        out.monotone_constraints = _parse_monotone_constraints(mono)
+    ic = params.pop("interaction_constraints", None)
+    if not _is_empty(ic, ("", "()", "[]")):
+        out.interaction_constraints = _parse_interaction_constraints(ic)
 
     updater = params.pop("updater", None)
     if updater and "grow_colmaker" in str(updater):
