@@ -296,7 +296,34 @@ is only where it may find ``cuobjdump``). Phases:
    the T-tree modes of the softmax pass and of K4's K-output kernel bitwise
    their plain versions at the runs' shapes and timed; every configuration
    equal to the fixed-point CPU path's on a cut (200,000 HIGGS rows, 20,000
-   Covertype rows for P1, 50,000 for P2; 2 rounds).
+   Covertype rows for P1, 50,000 for P2; 2 rounds);
+17. categorical one-vs-rest splits (``categorical``, after phase 16;
+   ``--categorical-only`` runs the build and it alone): a seeded
+   airline-shaped set (``make_airline_like``: the ASA Data Expo 2009
+   on-time data's columns as NVIDIA gbm-bench's "airline" set uses them,
+   Month, DayofMonth, DayOfWeek, UniqueCarrier, Origin and Dest as
+   categories, CRSDepTime, CRSArrTime and Distance numeric; Origin and
+   Dest cut to 254 codes, the rarest airports NaN), 11,000,000 rows split
+   as HIGGS's, depth 6, 10 rounds: C1 from the pandas ``category`` frame
+   (its set-up auto-encodes it), C2 the same codes with ``feature_types``
+   (its model C1's), C3 C1 with ``colsample_bynode`` 0.8 and a monotone
+   sign on Distance; launches exact (``categorical_expect``), the test
+   logloss falling and recorded beside the same columns coded as numbers;
+   K2's categorical level step (unmasked and masked), K3's categorical
+   route and B4's categorical walk bitwise their plain versions and timed
+   beside their numeric forms; predict on a frame of another category
+   order equal to predict on the codes; pred_contribs summing to the
+   margins; each configuration equal to the fixed-point CPU path on a
+   200,000-row cut;
+18. lossguide growth (``lossguide``, after phase 17; ``--lossguide-only``
+   runs the build and it alone): L1 the HIGGS split at depth 6 and
+   ``max_leaves`` 64 against the depthwise model (the same leaf
+   structure, margins within 1e-4), L2 depth 10 and 255 leaves (the
+   budget binds, leaves below depth 6), L3 phase 17's set with 255
+   leaves, ``subsample`` and ``colsample_bytree`` 0.8; launches exact
+   (``lossguide_expect``), the test logloss falling, a tree's host syncs
+   counted; the frontier-step kernel bitwise its plain version and timed;
+   each run equal to the fixed-point CPU path on a 50,000-row cut.
 
 Phase 6's model is trained, and phase 7 run, right after phase 1: later in
 the process ``torch.profiler`` records no device activity for B8's
@@ -368,7 +395,9 @@ run) and prints no result line.
 its kernel rows but no result line; ``--pool-only`` the same for phase 12.
 
 ``--constraints-only`` runs the build and phase 16 and prints its kernel
-rows but no result line.
+rows but no result line; ``--categorical-only`` and ``--lossguide-only``
+the same for phases 17 and 18 (with the registers and spills of K2's
+instantiations, K3's route, B4 and the frontier step).
 ``--ranking-only`` runs the build and phase 14 and prints its kernel rows
 but no result line.
 
@@ -668,6 +697,23 @@ def b8_main_path_kernels(n_trees, n_rows):
     return out
 
 
+def k2_ptxas():
+    """Registers and spills of K2's level-step instantiations (<MASKED,
+    CONS, CAT>; <false, false, false> is the main path's) and of the
+    categorical route, the walk and the frontier step."""
+    from xgboost_ray_tpu_torch.ops import _build
+
+    out = {}
+    for stem, prefix in (("split", "xrt_split_level_kernel"),
+                         ("partition", "xrt_part_route_kernel"),
+                         ("walk", "xrt_walk_kernel"),
+                         ("lossguide", "xrt_lossguide_step_kernel")):
+        for name, v in ptxas_report(_build.build_log(stem)).items():
+            if name.startswith(prefix):
+                out[name] = v
+    return out
+
+
 def phase_build_report(n_trees, n_rows):
     """Registers, shared memory and spills of every kernel (K1, K2's four
     instantiations, K3, B8, B4, the softmax pass, K4; B8's main-path
@@ -680,7 +726,7 @@ def phase_build_report(n_trees, n_rows):
     paths = _build.build_all()
     report = {}
     for stem in ("histogram", "split", "partition", "predict", "walk",
-                 "softmax", "objective", "shap"):
+                 "softmax", "objective", "shap", "lossguide"):
         if stem in paths:  # walk, softmax, objective: not in older trees
             report[stem] = {"ptxas": ptxas_report(_build.build_log(stem)),
                             "sass_atomics": sass_atomics(paths[stem])}
@@ -2100,11 +2146,12 @@ def evals_expect(rounds, depth):
             "K4": 2 * rounds + 1, "K4eval": rounds}
 
 
-def b4_work(tree, bins, depth, missing_bin):
+def b4_work(tree, bins, depth, missing_bin, cat=None):
     """(distinct 32-byte sectors of ``bins`` the walk reads, node visits)
     of one B4 walk on this data: the bytes and operations of its bound. A
     tree of [T, heap] fields is a launch over T trees: the sectors of all
-    T walks together."""
+    T walks together. ``cat`` [F] bool: the categorical features, routed
+    one-vs-rest."""
     import torch
 
     n, f = bins.shape
@@ -2121,8 +2168,12 @@ def b4_work(tree, bins, depth, missing_bin):
             addrs.append(((rows * f + feat) * bins.element_size())[live] // 32)
             visits += int(live.sum())
             bv = bins.gather(1, feat[:, None])[:, 0].int()
+            present = bv > tr.split_bin[idx]
+            if cat is not None:
+                present = torch.where(cat[feat], bv != tr.split_bin[idx],
+                                      present)
             right = torch.where(bv == missing_bin, ~tr.default_left[idx],
-                                bv > tr.split_bin[idx])
+                                present)
             idx = torch.where(live, 2 * idx + 1 + right.long(), idx)
     return int(torch.unique(torch.cat(addrs)).numel()), visits
 
@@ -2477,6 +2528,11 @@ class _cpu_fixed_point:
         from xgboost_ray_tpu_torch.ops import grow as G
         from xgboost_ray_tpu_torch.ops import histogram as H
 
+        try:  # the lossguide grower (not in an older tree)
+            from xgboost_ray_tpu_torch.ops import grow_lossguide as LG
+        except ImportError:
+            LG = None
+
         def fixed(bins, gh, rows, seg, n_nodes, nbt, with_hist=True,
                   qscale=None):
             return H.build_histogram_fixed_plain(bins, gh, rows, seg, n_nodes,
@@ -2489,6 +2545,10 @@ class _cpu_fixed_point:
                       (G, "dequantize", G.dequantize),
                       (E.TorchEngine, "_scales", E.TorchEngine._scales)]
         G.build_histogram, G.dequantize = fixed, H.dequantize_plain
+        if LG is not None:
+            self.saved += [(LG, "build_histogram", LG.build_histogram),
+                           (LG, "dequantize", LG.dequantize)]
+            LG.build_histogram, LG.dequantize = fixed, H.dequantize_plain
         E.TorchEngine._scales = scales
         if hasattr(E.TorchEngine, "_tree_scales"):  # a sampled tree's
             self.saved.append((E.TorchEngine, "_tree_scales",
@@ -6502,6 +6562,718 @@ def phase_constraints(x, y, records, rounds=10, depth=6,
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 17: categorical one-vs-rest splits (K2's categorical instantiation,
+# K3's and B4's equality rule, category codes through load, eval sets and
+# predict); phase 18: leaf-wise lossguide growth (the frontier step over
+# K1-K3)
+# ---------------------------------------------------------------------------
+
+#: the airline set's columns (the ASA Data Expo 2009 on-time data, as NVIDIA
+#: gbm-bench's "airline" set uses them): name -> category count, 0 numeric
+AIRLINE_COLUMNS = (("Month", 12), ("DayofMonth", 31), ("DayOfWeek", 7),
+                   ("UniqueCarrier", 20), ("Origin", 254), ("Dest", 254),
+                   ("CRSDepTime", 0), ("CRSArrTime", 0), ("Distance", 0))
+#: airports drawn for Origin and Dest; the codes of the rarest 46 (254 and
+#: up: max_bin 256's limit) become NaN
+AIRLINE_AIRPORTS = 300
+AIRLINE_CAT = tuple(i for i, (_, k) in enumerate(AIRLINE_COLUMNS) if k)
+AIRLINE_DISTANCE = 8
+#: phase 17's configurations: C1 the frame, C2 the same codes as numpy
+#: with feature_types, C3 C1 with colsample_bynode and a monotone sign on
+#: Distance
+CAT_RUNS = (
+    ("C1", "frame", {"objective": "binary:logistic"}),
+    ("C2", "codes", {"objective": "binary:logistic"}),
+    ("C3", "frame", {"objective": "binary:logistic",
+                     "colsample_bynode": 0.8,
+                     "monotone_constraints": tuple(
+                         1 if i == AIRLINE_DISTANCE else 0
+                         for i in range(len(AIRLINE_COLUMNS)))}),
+)
+#: phase 18's configurations (L1 against the depthwise model of its run)
+LOSSGUIDE_RUNS = (
+    ("L1", "higgs", 6, {"objective": "binary:logistic",
+                        "grow_policy": "lossguide", "max_leaves": 64}),
+    ("L2", "higgs", 10, {"objective": "binary:logistic",
+                         "grow_policy": "lossguide", "max_leaves": 255}),
+    ("L3", "airline", 10, {"objective": "binary:logistic",
+                           "grow_policy": "lossguide", "max_leaves": 255,
+                           "subsample": 0.8, "colsample_bytree": 0.8}),
+)
+#: the kernel table's rows of phases 17 and 18
+CATEGORICAL_KERNELS = ("K2cat", "K2catmasked", "K3cat", "B4cat")
+LOSSGUIDE_KERNELS = ("LGstep",)
+
+
+def _zipf(k, s, rng):
+    """Draw probabilities of k categories, falling as rank^-s, shuffled
+    labels kept in rank order (code 0 the most frequent)."""
+    p = 1.0 / np.arange(1, k + 1) ** s
+    return p / p.sum()
+
+
+def make_airline_like(n_rows, seed=0):
+    """A seeded airline-shaped set: (x [N, 9] f32 category codes and
+    numbers, NaN for the airports cut, label [N] f32 delayed, the frame
+    with the six categorical columns as pandas ``category`` columns of
+    names). The delay comes from per-category effects (carrier, airports,
+    month, day of week) and their interactions (carrier x month, origin x
+    hour), so one-vs-rest splits bind."""
+    import pandas as pd
+
+    rng = np.random.default_rng(seed)
+    n = n_rows
+    month = rng.integers(0, 12, n)
+    dom = rng.integers(0, 31, n)
+    dow = rng.integers(0, 7, n)
+    carrier = rng.choice(20, n, p=_zipf(20, 0.8, rng))
+    origin = rng.choice(AIRLINE_AIRPORTS, n, p=_zipf(AIRLINE_AIRPORTS, 1.1,
+                                                      rng))
+    dest = rng.choice(AIRLINE_AIRPORTS, n, p=_zipf(AIRLINE_AIRPORTS, 1.1,
+                                                    rng))
+    dep = rng.integers(5, 24, n) * 100 + rng.integers(0, 60, n)
+    dist = rng.gamma(2.0, 400.0, n).astype(np.float32) + 50.0
+    arr = (dep + (dist / 8.0).astype(np.int64) + 40) % 2400
+    e_carrier = rng.normal(0, 0.5, 20)
+    e_airport = rng.normal(0, 0.4, AIRLINE_AIRPORTS)
+    e_month = rng.normal(0, 0.3, 12)
+    e_dow = rng.normal(0, 0.2, 7)
+    e_cm = rng.normal(0, 0.4, (20, 12))
+    e_oh = rng.normal(0, 0.3, (AIRLINE_AIRPORTS, 24))
+    score = (e_carrier[carrier] + e_airport[origin] + 0.7 * e_airport[dest]
+             + e_month[month] + e_dow[dow] + e_cm[carrier, month]
+             + e_oh[origin, dep // 100] + 0.0004 * (dep - 1200)
+             + 0.0002 * dist - 1.0)
+    y = (rng.random(n) < 1.0 / (1.0 + np.exp(-score))).astype(np.float32)
+    codes = [month, dom, dow, carrier, origin, dest]
+    x = np.empty((n, len(AIRLINE_COLUMNS)), np.float32)
+    for i, c in enumerate(codes):
+        x[:, i] = c
+    x[:, 4][origin >= 254] = np.nan
+    x[:, 5][dest >= 254] = np.nan
+    x[:, 6], x[:, 7], x[:, 8] = dep, arr, dist
+    frame = {}
+    for i, (name, k) in enumerate(AIRLINE_COLUMNS):
+        if k:
+            c = codes[i].copy()
+            c[c >= k] = -1
+            frame[name] = pd.Categorical.from_codes(
+                c, categories=[f"{name[:2]}{j:03d}" for j in range(k)])
+        else:
+            frame[name] = x[:, i]
+    return x, y, pd.DataFrame(frame)
+
+
+def categorical_expect(params, rounds, depth, held_out=True):
+    """Exact launches of a binary ``train()`` with categorical features:
+    the sampling phase's count (``sampling_expect``), with K2's categorical
+    instantiation at every level (constrained where signs are given), K3's
+    at every routed level and B4's categorical walk wherever B4 runs."""
+    out = sampling_expect(params, rounds, depth, held_out)
+    out["K2cat"] = rounds * depth
+    out["K3cat"] = rounds * depth
+    out["B4cat"] = out["B4"]
+    out["K2cons"] = (rounds * depth if params.get("monotone_constraints")
+                     else 0)
+    out["K2nodes"] = out["LGstep"] = 0
+    return out
+
+
+def lossguide_expect(params, rounds, leaves, held_out=True, cat=False):
+    """Exact launches of a binary lossguide ``train()`` of ``rounds`` trees
+    of ``leaves`` leaves' budget: a tree is ``leaves`` frontier steps and
+    K1 / dequantise / K2 without records, ``leaves - 1`` K3 and one K3
+    leaf-value pass (no level step, no final records); K4, B4 and the
+    draws as ``sampling_expect`` counts them (colsample_bytree: one B12f a
+    tree, no masked level step)."""
+    out = sampling_expect(params, rounds, 1, held_out)
+    out.update(K1=rounds * leaves, K1deq=rounds * leaves, K2level=0,
+               K2leaf=0, K2=0, K2masked=0, K3=rounds * (leaves - 1),
+               K3leaf=rounds, K2nodes=rounds * leaves,
+               LGstep=rounds * leaves,
+               K2nodescat=rounds * leaves if cat else 0,
+               K3cat=rounds * (leaves - 1) if cat else 0,
+               B4cat=out["B4"] if cat else 0)
+    return out
+
+
+def _phase_train(res, rounds, depth):
+    """The ``train()`` of phases 17-18 on the card (or the CPU): launches
+    counted from 0 just before it and read just after, no kernel build in
+    it, the round times, the engine kept."""
+    import torch
+
+    import xgboost_ray_tpu_torch as xrt
+    from xgboost_ray_tpu_torch.distributed import _KeepEngine
+    from xgboost_ray_tpu_torch.engine import (
+        kernel_launches,
+        reset_kernel_launches,
+    )
+    from xgboost_ray_tpu_torch.ops import _build
+
+    def train(params, dtrain, dtest, n_rounds=rounds, device="cuda:0",
+              tdepth=depth):
+        evals = [(dtrain, "train")]
+        if dtest is not None:
+            evals.append((dtest, "test"))
+        ev, extra = {}, {}
+        keep = _KeepEngine()
+        builds = _build.compile_count()
+        reset_kernel_launches()
+        if device != "cpu":
+            torch.cuda.synchronize()
+        t = time.perf_counter()
+        bst = xrt.train({"max_depth": tdepth, "max_bin": 256, "seed": 7,
+                         "eval_metric": ["logloss"], **params}, dtrain,
+                        n_rounds, evals=evals, evals_result=ev,
+                        additional_results=extra, callbacks=[keep],
+                        device=device, ray_params=xrt.RayParams(num_actors=1))
+        if device != "cpu":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        check(_build.compile_count() == builds,
+              f"phase {res['phase']}: a kernel build inside train()")
+        return {"bst": bst, "ev": ev, "launches": kernel_launches(),
+                "wall_s": wall, "engine": keep.engine,
+                "round_ms": [r * 1e3 for r in extra["round_times_s"]]}
+
+    return train
+
+
+def _exact(launches, expect, key):
+    for k, v in expect.items():
+        check(launches[k] == v,
+              f"{key}: {k} launched {launches[k]} times, expected {v}")
+
+
+def _falls(hist, key):
+    check(all(np.isfinite(hist)) and hist[-1] < hist[0],
+          f"{key}: the test loss does not fall: {hist}")
+    return hist
+
+
+def _same_on_cpu(train, key, params, make, rounds=2, depth=None):
+    """The card's model against the CPU path summing in the card's fixed
+    point (``_cpu_fixed_point``), dumps with stats equal."""
+    kw = {} if depth is None else {"tdepth": depth}
+    card = train(params, make(), None, n_rounds=rounds, **kw)
+    with _cpu_fixed_point(True):
+        cpu = train(params, make(), None, n_rounds=rounds, device="cpu",
+                    **kw)
+    same = (card["bst"].get_dump(with_stats=True)
+            == cpu["bst"].get_dump(with_stats=True))
+    check(same, f"{key}: the card's model differs from the fixed-point "
+                f"CPU path's")
+    return {"rounds": rounds, "dumps_equal": same}
+
+
+def phase_categorical(records, rounds=10, depth=6, n_rows=None,
+                      compare_rows=200_000):
+    """Phase 17 at full width: a seeded airline-shaped set
+    (``make_airline_like``, 11,000,000 rows: the first 10,500,000 train,
+    the last 500,000 the test set, the HIGGS protocol's split), depth 6, 10
+    rounds. C1 ``binary:logistic`` from the pandas ``category`` frame (its
+    set-up auto-encodes 11,000,000 rows), C2 the same codes as numpy with
+    ``feature_types`` (its model equal to C1's), C3 C1 with
+    ``colsample_bynode`` 0.8 and a monotone sign on Distance; each run's
+    launches counted and checked exactly, the test logloss falling; the
+    test logloss of the same columns coded as numbers recorded beside
+    C1's; K2's categorical level step at level 5 (unmasked and masked),
+    K3's categorical route and B4's categorical walk bitwise their plain
+    versions and timed beside their numeric forms; predict on a frame of
+    another category order equal to predict on the codes; pred_contribs
+    rows summing to the margins within ``shap_sum_bound``; each
+    configuration (2 rounds) equal to the fixed-point CPU path on a
+    ``compare_rows`` cut. Returns (its record, the airline data)."""
+    import torch
+
+    import xgboost_ray_tpu_torch as xrt
+    from xgboost_ray_tpu_torch.ops import grow as G
+    from xgboost_ray_tpu_torch.ops import histogram as H
+    from xgboost_ray_tpu_torch.ops import split as S
+
+    t_phase = time.perf_counter()
+    n = n_rows or 11_000_000
+    x, y, frame = make_airline_like(n)
+    n_train = n - TEST_ROWS
+    f = x.shape[1]
+    ft = ["c" if k else "q" for _, k in AIRLINE_COLUMNS]
+    res = {"phase": "categorical", "rows": n, "train_rows": n_train,
+           "test_rows": TEST_ROWS, "rounds": rounds, "max_depth": depth,
+           "features": [c for c, _ in AIRLINE_COLUMNS],
+           "categories": [k for _, k in AIRLINE_COLUMNS],
+           "reduced": {"Origin/Dest": f"{AIRLINE_AIRPORTS} airports drawn, "
+                       f"codes >= 254 (the rarest "
+                       f"{AIRLINE_AIRPORTS - 254}) NaN: max_bin 256 holds "
+                       f"codes 0-254",
+                       "rows": "synthetic, seeded: the airline set's "
+                       "columns and category counts, not its data"},
+           "nan_share_origin": float(np.isnan(x[:, 4]).mean()),
+           "runs": {}, "steps_s": {}, "data_s": time.perf_counter() - t_phase}
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    train = _phase_train(res, rounds, depth)
+
+    def lap(name, since):
+        res["steps_s"][name] = time.perf_counter() - since
+        return time.perf_counter()
+
+    def matrices(form, hi=n_train, lo=None):
+        if form == "frame":
+            tr = xrt.RayDMatrix(frame.iloc[:hi], y[:hi],
+                                enable_categorical=True)
+            te = (None if lo is None else
+                  xrt.RayDMatrix(frame.iloc[lo:], y[lo:],
+                                 enable_categorical=True))
+        else:
+            tr = xrt.RayDMatrix(x[:hi], y[:hi], feature_types=ft)
+            te = (None if lo is None else
+                  xrt.RayDMatrix(x[lo:], y[lo:], feature_types=ft))
+        return tr, te
+
+    t0 = time.perf_counter()
+    keep = {}
+    for key, form, params in CAT_RUNS:
+        t = time.perf_counter()
+        dtrain, dtest = matrices(form, lo=n_train)
+        dtrain.load_data(1)
+        dtest.load_data(1)
+        setup = time.perf_counter() - t
+        r = train(params, dtrain, dtest)
+        expect = categorical_expect(params, rounds, depth)
+        _exact(r["launches"], expect, key)
+        res["runs"][key] = {
+            "launches": r["launches"], "expected": expect,
+            "round_ms": r["round_ms"],
+            "round_ms_median": float(np.median(r["round_ms"])),
+            "train_wall_s": r["wall_s"], "matrix_load_s": setup,
+            "test_logloss": _falls(r["ev"]["test"]["logloss"], key)}
+        if key == "C1":
+            check(r["bst"].categories == dtrain.resolved_categories
+                  and len(r["bst"].categories) == len(AIRLINE_CAT),
+                  "C1: the model lost the category mapping")
+            records["K2cat"]["launches"] = r["launches"]["K2cat"]
+            records["K3cat"]["launches"] = r["launches"]["K3cat"]
+            records["B4cat"]["launches"] = r["launches"]["B4cat"]
+        if key == "C3":
+            records["K2catmasked"]["launches"] = r["launches"]["K2masked"]
+            wrong, moved = monotone_grid(r["bst"], x[n_train:],
+                                         params["monotone_constraints"])
+            check(not wrong, f"C3: margins step against the sign: {wrong}")
+        keep[key] = r
+        del dtrain, dtest
+    check(keep["C1"]["bst"].get_dump(with_stats=True)
+          == keep["C2"]["bst"].get_dump(with_stats=True),
+          "C2: the codes' model differs from the frame's")
+    res["c2_equals_c1"] = True
+    num = train({"objective": "binary:logistic"},
+                xrt.RayDMatrix(x[:n_train], y[:n_train]),
+                xrt.RayDMatrix(x[n_train:], y[n_train:]))
+    res["numeric_coding_test_logloss"] = num["ev"]["test"]["logloss"]
+    res["numeric_coding_round_ms_median"] = float(np.median(num["round_ms"]))
+    del num
+    emit({"phase": "categorical_rounds", "card": CARD,
+          **{k: res["runs"][k]["round_ms_median"] for k, _, _ in CAT_RUNS},
+          "test_logloss_C1": res["runs"]["C1"]["test_logloss"][-1],
+          "test_logloss_numeric_coding":
+              res["numeric_coding_test_logloss"][-1]})
+    t0 = lap("c1_c3", t0)
+
+    # predict: a frame of another category order (translated onto the
+    # model's mapping) equals the codes; contributions sum to the margins
+    bst = keep["C1"]["bst"]
+    test = frame.iloc[n_train:].copy()
+    for name in ("UniqueCarrier", "Origin"):
+        test[name] = test[name].cat.reorder_categories(
+            list(test[name].cat.categories[::-1]))
+    pf = xrt.predict(bst, xrt.RayDMatrix(test, enable_categorical=True),
+                     ray_params=xrt.RayParams(num_actors=1))
+    pc = xrt.predict(bst, xrt.RayDMatrix(x[n_train:], feature_types=ft),
+                     ray_params=xrt.RayParams(num_actors=1))
+    check(np.array_equal(pf, pc), "predict on a frame of another category "
+                                  "order differs from predict on the codes")
+    q = x[n_train:n_train + 20_000]
+    m = np.asarray(bst.predict(q, output_margin=True))
+    contribs = np.asarray(bst.predict(q, pred_contribs=True))
+    sf = bst.shap_forest("cuda")
+    bound = shap_sum_bound(bst, sf, m, f)
+    gap = np.abs(contribs.sum(1) - m)
+    check((gap <= bound).all(), f"pred_contribs rows miss the margins by "
+                                f"{gap.max()}")
+    res["predict"] = {"shuffled_order_equal": True,
+                      "contribs_rows": int(q.shape[0]),
+                      "contribs_max_gap": float(gap.max()),
+                      "contribs_bound_max": float(np.max(bound))}
+    t0 = lap("predict", t0)
+
+    # K2's categorical level step at level 5 (16 parents, 32 nodes) of C1's
+    # shape, beside the numeric one in turns
+    nbt, n_nodes = 257, 32
+    bins, ghl, order, seg = level_inputs(n_train, f, n_nodes, 17, False)
+    hp, _ = H.build_histogram_plain(bins, ghl, order, seg, n_nodes, nbt)
+    g2 = torch.Generator(device="cuda").manual_seed(41)
+    level = dict(
+        hist=hp[0::2].contiguous(), prev_hist=hp[0::2] + hp[1::2],
+        small_is_right=torch.rand(16, generator=g2, device="cuda") < 0.5,
+        active=torch.arange(32, device="cuda") % 13 != 5)
+    mask = G.sample_feature_mask((7, 17), f, 0.8, None, n_nodes,
+                                 device="cuda")
+    cuts = torch.sort(torch.randn(f, nbt - 2, generator=g2, device="cuda"),
+                      dim=1).values
+    cat = G.cat_flags(AIRLINE_CAT, f, "cuda")
+    p = S.SplitParams()
+    hold = {}
+    for rec_key, fmask in (("K2cat", None), ("K2catmasked", mask)):
+        rec_k = S.TreeRecords(G.empty_tree(127, "cuda"), cuts, None, p,
+                              cat=cat)
+        rec_p = S.TreeRecords(G.empty_tree(127, "cuda"), cuts, None, p,
+                              cat=cat)
+        lk = S.split_level(**level, rec=rec_k, feature_mask=fmask)
+        lp = S.split_level_plain(**level, rec=rec_p, feature_mask=fmask)
+        torch.cuda.synchronize()
+        pairs = ([(getattr(lk.splits, k), getattr(lp.splits, k))
+                  for k in lk.splits._fields]
+                 + [(getattr(lk, k), getattr(lp, k))
+                    for k in ("node_value", "state", "active", "hist")]
+                 + list(zip(rec_k.tree, rec_p.tree)))
+        check(all(torch.equal(bits(a), bits(b)) for a, b in pairs),
+              f"{rec_key}: K2's categorical level step not bitwise equal to "
+              f"its plain version")
+        check(bool(cat[lk.splits.feature.long()].any()),
+              f"{rec_key}: no node split on a categorical feature")
+        hist_bytes = n_nodes * f * nbt * 2 * 4
+        _kernel_record(
+            records, rec_key,
+            lambda fm=fmask, rk=rec_k: S.split_level(**level, rec=rk,
+                                                     feature_mask=fm),
+            lambda fm=fmask, rp=rec_p: S.split_level_plain(
+                **level, rec=rp, feature_mask=fm),
+            bound_ms(2 * hist_bytes + 16 + 32 + 32 * (4 + 38) + f
+                     + (n_nodes * f if fmask is not None else 0),
+                     n_nodes * f * (3 * nbt + 30 * (nbt - 2))),
+            flush, records[rec_key]["launches"], 0.0)
+        rec_u = S.TreeRecords(G.empty_tree(127, "cuda"), cuts, None, p)
+        times = []
+        for _ in range(2):
+            times.append(cuda_ms(lambda fm=fmask, rk=rec_k: S.split_level(
+                **level, rec=rk, feature_mask=fm), iters=20))
+            times.append(cuda_ms(lambda fm=fmask: S.split_level(
+                **level, rec=rec_u, feature_mask=fm), iters=20))
+        hold[rec_key] = {"categorical_ms": times[0::2],
+                         "numeric_ms": times[1::2],
+                         "numeric_device_ms": profiled_ms(
+                             lambda fm=fmask: S.split_level(
+                                 **level, rec=rec_u, feature_mask=fm))}
+        records[rec_key]["numeric_ms"] = times[1::2]
+    # K3's categorical route on the step's splits (categorical winners),
+    # beside the numeric route of the same splits in turns
+    st = lk.splits
+    nval = lk.node_value
+    rvk = torch.zeros(n_train, device="cuda")
+    rvp = torch.zeros(n_train, device="cuda")
+    args = (order, seg, bins, st.feature, st.split_bin, st.default_left,
+            lk.state, nval)
+    pk = H.partition_level(*args, rvk, True, nbt - 1, cat=cat)
+    pp = H.partition_level_plain(*args, rvp, True, nbt - 1, cat=cat)
+    torch.cuda.synchronize()
+    used = int(pk.small_seg[-1])
+    check(torch.equal(pk.order, pp.order) and torch.equal(pk.seg, pp.seg)
+          and torch.equal(pk.small_seg, pp.small_seg)
+          and torch.equal(pk.small_rows[:used], pp.small_rows[:used])
+          and torch.equal(pk.small_is_right, pp.small_is_right)
+          and torch.equal(bits(rvk), bits(rvp)),
+          "K3cat: the categorical route differs from the plain version")
+    leaf_rows = int((lk.state[H._node_of_slot(seg, n_nodes)] == H.LEAF).sum())
+    k3_times = []
+    for _ in range(2):
+        k3_times.append(cuda_ms(lambda: H.partition_level(
+            *args, rvk, True, nbt - 1, cat=cat), iters=10))
+        k3_times.append(cuda_ms(lambda: H.partition_level(
+            *args, rvk, True, nbt - 1), iters=10))
+    key_sort = (2 * H._node_of_slot(seg, n_nodes)).to(torch.int32)
+    lib_k3 = cuda_ms(lambda: torch.sort(key_sort, stable=True), iters=5)
+    _kernel_record(records, "K3cat",
+                   lambda: H.partition_level(*args, rvk, True, nbt - 1,
+                                             cat=cat),
+                   lambda: H.partition_level_plain(*args, rvp, True, nbt - 1,
+                                                   cat=cat),
+                   bound_ms(n_train * 4 + n_train * 2 + n_train * 4
+                            + used * 4 + leaf_rows * 4, n_train),
+                   flush, records["K3cat"]["launches"], 0.0, library=lib_k3)
+    records["K3cat"]["numeric_ms"] = k3_times[1::2]
+    hold["K3cat"] = {"categorical_ms": k3_times[0::2],
+                     "numeric_ms": k3_times[1::2],
+                     "numeric_device_ms": profiled_ms(
+                         lambda: H.partition_level(*args, rvk, True,
+                                                   nbt - 1))}
+    del hp, level, lk, lp, pk, pp, bins, ghl, order, seg, rvk, rvp, args
+    torch.cuda.empty_cache()
+    # B4's categorical walk: C1's last round's tree over the test set
+    eng = keep["C1"]["engine"]
+    tb = eng.evals[1].bins
+    tree = eng.trees[-1]
+    wk = G.predict_tree_binned(tree, tb, depth, 256, cat=cat)
+    wp = G.predict_tree_binned_plain(tree, tb, depth, 256, cat=cat)
+    torch.cuda.synchronize()
+    check(torch.equal(bits(wk), bits(wp)),
+          "B4cat: the categorical walk differs from the plain version")
+    b4_times = []
+    for _ in range(2):
+        b4_times.append(cuda_ms(lambda: G.predict_tree_binned(
+            tree, tb, depth, 256, cat=cat), iters=20))
+        b4_times.append(cuda_ms(lambda: G.predict_tree_binned(
+            tree, tb, depth, 256), iters=20))
+    sectors, visits = b4_work(tree, tb, depth, 256, cat)
+    _kernel_record(records, "B4cat",
+                   lambda: G.predict_tree_binned(tree, tb, depth, 256,
+                                                 cat=cat),
+                   lambda: G.predict_tree_binned_plain(tree, tb, depth, 256,
+                                                       cat=cat),
+                   bound_ms(sectors * 32 + 4 * tb.shape[0] + 13 * 127,
+                            visits * 4),
+                   flush, records["B4cat"]["launches"], 0.0)
+    records["B4cat"]["numeric_ms"] = b4_times[1::2]
+    hold["B4cat"] = {"categorical_ms": b4_times[0::2],
+                     "numeric_ms": b4_times[1::2],
+                     "numeric_device_ms": profiled_ms(
+                         lambda: G.predict_tree_binned(tree, tb, depth,
+                                                       256))}
+    res["holds"] = hold
+    emit({"phase": "categorical_kernels", "card": CARD, **hold})
+    del keep, eng, tb, tree, wk, wp
+    torch.cuda.empty_cache()
+    t0 = lap("kernel_holds", t0)
+
+    # every configuration against the fixed-point CPU path on a cut
+    cmp = {}
+    cut = min(compare_rows, n)
+    for key, form, params in CAT_RUNS:
+        cmp[key] = _same_on_cpu(train, key, params,
+                                lambda form=form: matrices(form, hi=cut)[0])
+    res["cpu_fixed_point"] = dict(cmp, rows=cut)
+    lap("cpu_fixed_point", t0)
+    res["phase_s"] = time.perf_counter() - t_phase
+    emit(res)
+    return res, (x, y, frame)
+
+
+def phase_lossguide(x, y, records, airline=None, rounds=10,
+                    compare_rows=50_000):
+    """Phase 18 at full width. L1 the HIGGS split (10,500,000 rows train,
+    the last 500,000 the test set), depth 6, ``max_leaves`` 64 (the full
+    budget), against the depthwise model of the same data: the same leaf
+    structure, margins within 1e-4; L2 the HIGGS split at depth 10 and
+    ``max_leaves`` 255, where the budget binds (every tree at most 255
+    leaves, some deeper than 6); L3 phase 17's airline set with
+    ``max_leaves`` 255, depth 10, ``subsample`` and ``colsample_bytree``
+    0.8. Each run's launches counted and checked exactly (a tree's
+    launches recorded), the test logloss falling; the host syncs of one
+    tree counted (``torch.cuda.set_sync_debug_mode``); the frontier-step
+    kernel bitwise its plain version on a live frontier and timed; each
+    run (2 rounds) equal to the fixed-point CPU path on a
+    ``compare_rows`` cut."""
+    import warnings
+
+    import torch
+
+    import xgboost_ray_tpu_torch as xrt
+    from xgboost_ray_tpu_torch.ops import grow as G
+    from xgboost_ray_tpu_torch.ops import grow_lossguide as LG
+    from xgboost_ray_tpu_torch.ops import histogram as H
+    from xgboost_ray_tpu_torch.ops import split as S
+
+    t_phase = time.perf_counter()
+    if airline is None:
+        airline = make_airline_like(x.shape[0])
+    xa, ya, _ = airline
+    n = x.shape[0]
+    n_train = n - TEST_ROWS
+    ft = ["c" if k else "q" for _, k in AIRLINE_COLUMNS]
+    res = {"phase": "lossguide", "rows": n, "train_rows": n_train,
+           "test_rows": TEST_ROWS, "rounds": rounds, "runs": {},
+           "steps_s": {}}
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    train = _phase_train(res, rounds, 6)
+
+    def lap(name, since):
+        res["steps_s"][name] = time.perf_counter() - since
+        return time.perf_counter()
+
+    def data(kind, hi=n_train, lo=None):
+        xs, ys, types = ((x, y, None) if kind == "higgs"
+                         else (xa, ya, ft))
+        tr = xrt.RayDMatrix(xs[:hi], ys[:hi], feature_types=types)
+        te = (None if lo is None else
+              xrt.RayDMatrix(xs[lo:], ys[lo:], feature_types=types))
+        return tr, te
+
+    t0 = time.perf_counter()
+    keep = {}
+    for key, kind, depth, params in LOSSGUIDE_RUNS:
+        r = train(params, *data(kind, lo=n_train), tdepth=depth)
+        leaves = params["max_leaves"]
+        expect = lossguide_expect(params, rounds, leaves,
+                                  cat=kind == "airline")
+        _exact(r["launches"], expect, key)
+        counts = [int(c) for c in np.asarray(r["bst"].forest.is_leaf).sum(1)]
+        check(max(counts) <= leaves, f"{key}: a tree of more than {leaves} "
+                                     f"leaves: {counts}")
+        slots = [np.nonzero(t)[0] for t in np.asarray(r["bst"].forest.is_leaf)]
+        deepest = [int(np.floor(np.log2(s + 1)).max()) for s in slots]
+        tree_ms = float(np.median(r["round_ms"]))
+        res["runs"][key] = {
+            "max_depth": depth, "max_leaves": leaves,
+            "launches": r["launches"], "expected": expect,
+            "launches_a_tree": {k: v // rounds for k, v in expect.items()
+                                if v},
+            "round_ms": r["round_ms"], "round_ms_median": tree_ms,
+            "step_ms": tree_ms / max(leaves - 1, 1),
+            "train_wall_s": r["wall_s"], "leaves": counts,
+            "deepest_leaf": deepest,
+            "test_logloss": _falls(r["ev"]["test"]["logloss"], key)}
+        if key == "L2":
+            check(max(deepest) > 6, f"L2: no leaf below depth 6: {deepest}")
+        if key == "L1":
+            records["LGstep"]["launches"] = r["launches"]["LGstep"]
+        keep[key] = r
+    # L1 against the depthwise model of the same run
+    dw = train({"objective": "binary:logistic"}, *data("higgs", lo=n_train))
+    a, b = keep["L1"]["bst"].forest, dw["bst"].forest
+    same = {k: bool(np.array_equal(getattr(a, k), getattr(b, k)))
+            for k in ("feature", "split_bin", "is_leaf", "default_left")}
+    check(all(same.values()), f"L1: the leaf structure differs from the "
+                              f"depthwise model's: {same}")
+    # the first tree's gains: a later tree grows on margins whose final
+    # leaves differ in their last bits (K2's readout against K1's totals)
+    internal = ~np.asarray(a.is_leaf[0]) & (np.asarray(a.feature[0]) >= 0)
+    xt = x[n_train:]
+    ma = np.asarray(keep["L1"]["bst"].predict(xt, output_margin=True))
+    mb = np.asarray(dw["bst"].predict(xt, output_margin=True))
+    gap = float(np.abs(ma - mb).max())
+    check(gap <= 1e-4, f"L1: margins {gap} from the depthwise model's")
+    res["l1_vs_depthwise"] = {
+        "structure_equal": same, "margin_max_gap": gap,
+        "margins_bitwise": bool(np.array_equal(ma, mb)),
+        "first_tree_gains_bitwise": bool(np.array_equal(
+            np.asarray(a.gain[0])[internal], np.asarray(b.gain[0])[internal])),
+        "leaf_values_bitwise": bool(np.array_equal(
+            np.asarray(a.value), np.asarray(b.value))),
+        "depthwise_round_ms_median": float(np.median(dw["round_ms"]))}
+    del dw
+    emit({"phase": "lossguide_rounds", "card": CARD,
+          **{k: res["runs"][k]["round_ms_median"]
+             for k, _, _, _ in LOSSGUIDE_RUNS},
+          "l1_vs_depthwise": res["l1_vs_depthwise"]})
+    t0 = lap("l1_l3", t0)
+
+    # one L2 tree built directly: the host syncs it makes, and a live
+    # frontier for the frontier step's hold
+    eng = keep["L2"]["engine"]
+    cfg = eng.cfg
+    gh = eng.gh[0]
+    qs = eng.qscale[0]
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            LG.build_tree_lossguide(eng.bins, gh, eng.cuts, cfg,
+                                    feat_has_missing=eng.feat_has_missing,
+                                    qscale=qs)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = [str(w.message) for w in caught
+             if "called a synchronizing" in str(w.message)]
+    res["host_syncs_a_tree"] = len(syncs)
+    res["host_sync_kinds"] = sorted(set(s[:200] for s in syncs))[:5]
+    # the frontier step on a live frontier: L2's root and one step
+    leaves = cfg.max_leaves
+    nbt = cfg.max_bin + 1
+    frs, recs = [], []
+    for _ in range(2):
+        tree = G.empty_tree(cfg.heap_size, "cuda")
+        rec = S.TreeRecords(tree, eng.cuts, eng.feat_has_missing, cfg.split)
+        fr = LG.new_frontier(leaves, n_train, x.shape[1], nbt, "cuda")
+        frs.append(fr)
+        recs.append(rec)
+    order = torch.arange(n_train, dtype=torch.int32, device="cuda")
+    root_seg = torch.tensor([0, n_train], dtype=torch.int32, device="cuda")
+    hist, _ = LG.build_histogram(eng.bins, gh, order, root_seg, 1, nbt,
+                                 qscale=qs)
+    sp = S.split_nodes(LG.dequantize(hist, qs), None, None, recs[0],
+                       frs[0].store[0:1])
+    frs[1].store.copy_(frs[0].store)
+    LG.frontier_step(frs[0], recs[0], sp, None, 0, True, False)
+    LG.frontier_step_plain(frs[1], recs[1], sp, None, 0, True, False)
+    part = H.partition_level(order, frs[0].seg, eng.bins, frs[0].feature,
+                             frs[0].split_bin, frs[0].default_left,
+                             frs[0].state, frs[0].value,
+                             torch.zeros(n_train, device="cuda"), True, 256)
+    small, _ = LG.build_histogram(eng.bins, gh, part.small_rows,
+                                  part.small_seg[1:3], 1, nbt, qscale=qs)
+    sp2 = S.split_nodes(LG.dequantize(small, qs), frs[0].parent,
+                        part.small_is_right[1:2], recs[0],
+                        frs[0].store[1:3])
+    frs[1].store.copy_(frs[0].store)
+    args = (sp2, part.seg, 1, True, False)
+    # what a step writes (not the store it reads, nor the parent buffer it
+    # overwrites with the same entry's histogram), restored before each
+    # timed call
+    small_fields = [i for i, k in enumerate(LG.Frontier._fields)
+                    if k not in ("store", "parent")]
+    snap = [[fr[i].clone() for i in small_fields] for fr in frs]
+    tsnap = [tuple(t.clone() for t in rec.tree) for rec in recs]
+    LG.frontier_step(frs[0], recs[0], *args)
+    LG.frontier_step_plain(frs[1], recs[1], *args)
+    torch.cuda.synchronize()
+    ok = (all(torch.equal(bits(a), bits(b)) for a, b in zip(frs[0], frs[1]))
+          and all(torch.equal(bits(a), bits(b))
+                  for a, b in zip(recs[0].tree, recs[1].tree)))
+    check(ok, "LGstep: the frontier step differs from its plain version")
+    # the last launch of a tree (finish) on the same frontier
+    fin = [LG.Frontier(*[t.clone() for t in fr]) for fr in frs]
+    LG.frontier_step(fin[0], recs[0], sp2, part.seg, 1, False, True)
+    LG.frontier_step_plain(fin[1], recs[1], sp2, part.seg, 1, False, True)
+    torch.cuda.synchronize()
+    check(all(torch.equal(bits(a), bits(b)) for a, b in zip(fin[0], fin[1])),
+          "LGstep: the finishing step differs from its plain version")
+
+    def restore(i):
+        for j, src in zip(small_fields, snap[i]):
+            frs[i][j].copy_(src)
+        for dst, src in zip(recs[i].tree, tsnap[i]):
+            dst.copy_(src)
+
+    n_ent = 2 * leaves - 1
+    hist_bytes = x.shape[1] * nbt * 8
+    _kernel_record(records, "LGstep",
+                   lambda: (restore(0), LG.frontier_step(frs[0], recs[0],
+                                                         *args)),
+                   lambda: (restore(1), LG.frontier_step_plain(
+                       frs[1], recs[1], *args)),
+                   bound_ms(n_ent * 22 + 2 * hist_bytes + 64, n_ent * 4),
+                   flush, records["LGstep"]["launches"], 0.0)
+    # ms (events) includes the restore copies; device_ms the kernel alone
+    records["LGstep"]["ms_includes_restore"] = True
+    del frs, recs, fin, snap, tsnap, part, small, hist, eng
+    torch.cuda.empty_cache()
+    t0 = lap("frontier_hold", t0)
+
+    cmp = {}
+    cut = min(compare_rows, n)
+    for key, kind, depth, params in LOSSGUIDE_RUNS:
+        cmp[key] = _same_on_cpu(train, key, params,
+                                lambda kind=kind: data(kind, hi=cut)[0],
+                                depth=depth)
+    res["cpu_fixed_point"] = dict(cmp, rows=cut)
+    lap("cpu_fixed_point", t0)
+    del keep
+    torch.cuda.empty_cache()
+    res["phase_s"] = time.perf_counter() - t_phase
+    emit(res)
+    return res
+
+
 def profiled_ms(fn, iters=10):
     """``device_ms`` where ``torch.profiler`` records the kernel, None where
     it records no device time (``PERF.md`` §7)."""
@@ -6730,6 +7502,29 @@ KERNELS = {
                          "(launches: P2)", route="cuda",
                          source="xgboost_ray_tpu_torch/csrc/objective.cu",
                          replaces="xgboost_ray_tpu/engine.py:1413"),
+    "K2cat": dict(name="K2 level step, categorical instantiation: 6 of 9 "
+                  "airline features one-vs-rest, level 5 (16 parents, 32 "
+                  "nodes; launches: C1)", route="cuda",
+                  source="xgboost_ray_tpu_torch/csrc/split.cu",
+                  replaces="xgboost_ray_tpu/ops/split.py:108"),
+    "K2catmasked": dict(name="K2 level step, categorical and masked "
+                        "instantiation: the same under a [32, 9] node mask "
+                        "(launches: C3)", route="cuda",
+                        source="xgboost_ray_tpu_torch/csrc/split.cu",
+                        replaces="xgboost_ray_tpu/ops/split.py:108"),
+    "K3cat": dict(name="K3 routing + stable partition, categorical route: "
+                  "level 5 of the 10,500,000 airline training rows "
+                  "(launches: C1)", route="cuda",
+                  source="xgboost_ray_tpu_torch/csrc/partition.cu",
+                  replaces="xgboost_ray_tpu/ops/grow.py:65"),
+    "B4cat": dict(name="B4 binned walk, categorical records: a depth-6 tree "
+                  "over the 500,000 airline test rows (launches: C1)",
+                  route="cuda", source="xgboost_ray_tpu_torch/csrc/walk.cu",
+                  replaces="xgboost_ray_tpu/ops/grow.py:786"),
+    "LGstep": dict(name="lossguide frontier step: 509 entries, F = 28 "
+                   "(launches: L1)", route="cuda",
+                   source="xgboost_ray_tpu_torch/csrc/lossguide.cu",
+                   replaces="xgboost_ray_tpu/ops/grow_lossguide.py:200"),
     **{f"B8serve{m}": dict(
         name=f"B8 forest walk: margins, heap layout, a serve batch of {m} "
              f"rows (windows mapping; launches: every batch of the heap "
@@ -6859,6 +7654,20 @@ def run(args):
         emit({"constraints_kernels": {k: records[k]
                                       for k in CONSTRAINT_KERNELS}})
         return
+    if args.categorical_only or args.lossguide_only:
+        records = {k: dict(v) for k, v in KERNELS.items()}
+        emit({"phase": "ptxas", **k2_ptxas()})
+        if args.categorical_only:
+            phase_categorical(records, n_rows=args.rows,
+                              compare_rows=min(args.compare_rows, args.rows))
+            keys = CATEGORICAL_KERNELS
+        else:
+            x, y = make_higgs_like(args.rows, 28, seed=0)
+            phase_lossguide(x, y, records,
+                            compare_rows=min(50_000, args.rows))
+            keys = LOSSGUIDE_KERNELS
+        emit({"phase_kernels": {k: records[k] for k in keys}})
+        return
     if args.sampling_only:
         records = {k: dict(v) for k, v in KERNELS.items()}
         x, y = make_higgs_like(args.rows, 28, seed=0)
@@ -6920,6 +7729,14 @@ def run(args):
     torch.cuda.empty_cache()
     results["constraints"] = phase_constraints(
         x, y, records, compare_rows=min(args.compare_rows, args.rows))
+    torch.cuda.empty_cache()
+    results["categorical"], airline = phase_categorical(
+        records, n_rows=args.rows,
+        compare_rows=min(args.compare_rows, args.rows))
+    torch.cuda.empty_cache()
+    results["lossguide"] = phase_lossguide(
+        x, y, records, airline=airline, compare_rows=min(50_000, args.rows))
+    del airline
     torch.cuda.empty_cache()
 
     if args.rows < 11_000_000:
@@ -7071,6 +7888,14 @@ def main():
                          "interaction constraints at the HIGGS shape, "
                          "parallel trees of K outputs); prints no result "
                          "line")
+    ap.add_argument("--categorical-only", action="store_true",
+                    help="only the build and phase 17 (categorical "
+                         "one-vs-rest splits at the airline set's shape); "
+                         "prints no result line")
+    ap.add_argument("--lossguide-only", action="store_true",
+                    help="only the build and phase 18 (lossguide growth at "
+                         "the HIGGS split and the airline set's shape); "
+                         "prints no result line")
     ap.add_argument("--facade-only", action="store_true",
                     help="only the build and phase 10 (the sklearn "
                          "estimators, custom objectives and metrics, files, "

@@ -309,10 +309,10 @@ def test_rf_estimators_match_jax(name, kwargs, key):
 
 
 @pytest.mark.parametrize("name,kwargs,key", [
-    ("RayXGBClassifier", dict(grow_policy="lossguide"), "grow_policy"),
+    ("RayXGBClassifier", dict(hist_quant="int8"), "hist_quant"),
     ("RayXGBRegressor", dict(gh_precision="int8"), "gh_precision"),
     ("RayXGBRFClassifier", dict(booster="dart"), "booster"),
-    ("RayXGBClassifier", dict(max_leaves=4), "max_leaves"),
+    ("RayXGBClassifier", dict(gh_precision="int16"), "gh_precision"),
     ("RayXGBRegressor", dict(booster="gblinear"), "booster"),
 ])
 def test_out_of_slice_estimators_raise(name, kwargs, key):

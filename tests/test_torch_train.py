@@ -185,10 +185,10 @@ def test_sampling_settings_train_like_jax(key, value):
 @pytest.mark.parametrize("key,value", [
     ("gh_precision", "int8"),
     ("hist_quant", "int8_block"),
-    ("grow_policy", "lossguide"),
+    ("gh_precision", "int16"),
     ("booster", "dart"),
     ("booster", "gblinear"),
-    ("max_leaves", 4),
+    ("hist_quant", "int8"),
     ("hist_quant", "int16"),
     ("objective", "reg:nope"),
     ("eval_metric", "pre"),
@@ -210,10 +210,7 @@ def test_out_of_slice_data_and_evals_raise():
     y = (x[:, 0] > 0).astype(np.float32)
     for kwargs, key in ((dict(stream=True), "stream"),
                         (dict(qid=np.zeros(50), weight=np.ones(50)),
-                         "per-group weight"),
-                        (dict(feature_types=["c", "q", "q"]), "categorical"),
-                        (dict(enable_categorical=True),
-                         "enable_categorical")):
+                         "per-group weight")):
         with pytest.raises(NotImplementedError, match=key):
             tx.RayDMatrix(x, y, **kwargs)
     dm = tx.RayDMatrix(x, y)

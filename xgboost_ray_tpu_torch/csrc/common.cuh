@@ -105,6 +105,26 @@ __device__ __forceinline__ float xrt_ftz(float x) {
   return fabsf(x) < kXrtTiny ? x * 0.0f : x;
 }
 
+// ops/split._soft_threshold with jnp.sign's semantics (-0.0 and NaN keep
+// themselves)
+__device__ __forceinline__ float xrt_soft_threshold(float g, float alpha) {
+  const float s = g > 0.f ? 1.f : (g < 0.f ? -1.f : g);
+  return s * fmaxf(fabsf(g) - alpha, 0.f);
+}
+
+// ops/split.leaf_weight, the max_delta_step clamp (0: none) included
+__device__ __forceinline__ float xrt_leaf_weight_of(float g, float h,
+                                                    float reg_lambda,
+                                                    float reg_alpha,
+                                                    float max_delta_step) {
+  const float den = h + reg_lambda;
+  float w = den > 0.f ? -xrt_soft_threshold(g, reg_alpha) / fmaxf(den, 1e-38f)
+                      : 0.f;
+  if (max_delta_step > 0.f)
+    w = fminf(fmaxf(w, -max_delta_step), max_delta_step);
+  return w;
+}
+
 // torch.maximum / torch.clamp(min=): NaN if either is NaN
 __device__ __forceinline__ float xrt_max_nan(float a, float b) {
   return a != a ? a : (b != b ? b : fmaxf(a, b));

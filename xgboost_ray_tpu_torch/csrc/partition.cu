@@ -42,6 +42,12 @@
 // The grower's last call, where every node is a leaf or inactive and no row
 // moves, takes the leaf-value pass alone (xrt_leaf_values): one light pass
 // that writes row_value[order[p]] = node_value[node(p)] for leaf nodes.
+// Categorical features (the reference's route_right_binned with is_cat,
+// grow.py:65-75) take the route kernel's categorical instantiation: the
+// [F] flags `cat`, read beside default_left for the node's split feature,
+// send a present bin right unless it equals split_bin (one-vs-rest); the
+// missing bin follows default_left as before. The main path (cat null)
+// takes the numeric instantiation as it was.
 // What bounds it: the routing gather. It needs 2 bytes per row, but the
 // memory system moves at least one 32-byte sector per row, so with 56-byte
 // rows (28 int16 features) the pass reads about all of bins at every
@@ -103,7 +109,7 @@ __device__ __forceinline__ void xrt_load_rows(const int* __restrict__ order,
   }
 }
 
-template <typename BinT>
+template <typename BinT, bool CAT>
 __global__ void __launch_bounds__(XRT_THREADS)
 xrt_part_route_kernel(const int* __restrict__ order, const int* __restrict__ seg,
                       int n_nodes, int n, const BinT* __restrict__ bins,
@@ -111,6 +117,7 @@ xrt_part_route_kernel(const int* __restrict__ order, const int* __restrict__ seg
                       const int* __restrict__ split_bin,
                       const uint8_t* __restrict__ default_left,
                       const uint8_t* __restrict__ state, int missing_bin,
+                      const uint8_t* __restrict__ cat,
                       uint8_t* __restrict__ mask, int* __restrict__ tile_left,
                       int* __restrict__ bnd_left) {
   __shared__ int s_off[XRT_THREADS];
@@ -122,7 +129,7 @@ xrt_part_route_kernel(const int* __restrict__ order, const int* __restrict__ seg
   int node = p0 < n ? xrt_node_of(seg, n_nodes, p0) : 0;
   // gather the routing bins of all positions first (independent loads)
   int b[XRT_ITEMS], sb[XRT_ITEMS];
-  uint32_t valid = 0, split_bits = 0, dl_bits = 0;
+  uint32_t valid = 0, split_bits = 0, dl_bits = 0, cat_bits = 0;
 #pragma unroll
   for (int j = 0; j < XRT_ITEMS; ++j) {
     b[j] = 0;
@@ -134,13 +141,17 @@ xrt_part_route_kernel(const int* __restrict__ order, const int* __restrict__ seg
     split_bits |= 1u << j;
     dl_bits |= (uint32_t)(__ldg(default_left + node) != 0) << j;
     sb[j] = __ldg(split_bin + node);
-    b[j] = (int)bins[(size_t)rows[j] * n_features + __ldg(feature + node)];
+    const int fe = __ldg(feature + node);
+    if (CAT) cat_bits |= (uint32_t)(__ldg(cat + fe) != 0) << j;
+    b[j] = (int)bins[(size_t)rows[j] * n_features + fe];
   }
   uint32_t right = 0;
 #pragma unroll
   for (int j = 0; j < XRT_ITEMS; ++j) {
     if (!(split_bits >> j & 1u)) continue;
-    const bool r = b[j] == missing_bin ? !(dl_bits >> j & 1u) : b[j] > sb[j];
+    const bool present_right =
+        CAT && (cat_bits >> j & 1u) ? b[j] != sb[j] : b[j] > sb[j];
+    const bool r = b[j] == missing_bin ? !(dl_bits >> j & 1u) : present_right;
     right |= (uint32_t)r << j;
   }
   if (p0 < n) mask[p0 / XRT_ITEMS] = (uint8_t)right;
@@ -373,14 +384,22 @@ template <typename BinT>
 static int launch_route(const int* order, const int* seg, int n_nodes, int n,
                         const void* bins, int n_features, const int* feature,
                         const int* split_bin, const uint8_t* default_left,
-                        const uint8_t* state, int missing_bin, uint8_t* mask,
+                        const uint8_t* state, int missing_bin,
+                        const uint8_t* cat, uint8_t* mask,
                         int* tile_left, int* bnd_left, int* node_left0,
                         int* new_seg, int choose, int* small_seg,
                         uint8_t* small_is_right, cudaStream_t s) {
   const int n_tiles = (n + XRT_TILE - 1) / XRT_TILE;
-  xrt_part_route_kernel<BinT><<<n_tiles, XRT_THREADS, 0, s>>>(
-      order, seg, n_nodes, n, (const BinT*)bins, n_features, feature,
-      split_bin, default_left, state, missing_bin, mask, tile_left, bnd_left);
+  if (cat != nullptr)
+    xrt_part_route_kernel<BinT, true><<<n_tiles, XRT_THREADS, 0, s>>>(
+        order, seg, n_nodes, n, (const BinT*)bins, n_features, feature,
+        split_bin, default_left, state, missing_bin, cat, mask, tile_left,
+        bnd_left);
+  else
+    xrt_part_route_kernel<BinT, false><<<n_tiles, XRT_THREADS, 0, s>>>(
+        order, seg, n_nodes, n, (const BinT*)bins, n_features, feature,
+        split_bin, default_left, state, missing_bin, nullptr, mask,
+        tile_left, bnd_left);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   xrt_part_scan_kernel<<<1, 1024, 0, s>>>(n_tiles, n, seg, n_nodes, state,
@@ -395,13 +414,15 @@ static int launch_route(const int* order, const int* seg, int n_nodes, int n,
 // [n_tiles], bnd_left [n_nodes + 1], node_left0 [n_nodes + 1] (n_tiles =
 // ceil(n / tile)); phase 3 reads them. Outputs: new_seg [2 n_nodes + 1]
 // and, with `choose` (one rank), small_seg [n_nodes + 1] and
-// small_is_right [n_nodes] from this rank's counts.
+// small_is_right [n_nodes] from this rank's counts. cat: the [F]
+// categorical flags, or null (no categorical feature).
 extern "C" int xrt_partition_route(const int* order, const int* seg,
                                    int n_nodes, int n, const void* bins,
                                    int bin_bytes, int n_features,
                                    const int* feature, const int* split_bin,
                                    const uint8_t* default_left,
                                    const uint8_t* state, int missing_bin,
+                                   const uint8_t* cat,
                                    uint8_t* mask, int* tile_left,
                                    int* bnd_left, int* node_left0,
                                    int* new_seg, int choose, int* small_seg,
@@ -410,11 +431,11 @@ extern "C" int xrt_partition_route(const int* order, const int* seg,
   if (bin_bytes == 1)
     return launch_route<uint8_t>(
         order, seg, n_nodes, n, bins, n_features, feature, split_bin,
-        default_left, state, missing_bin, mask, tile_left, bnd_left,
+        default_left, state, missing_bin, cat, mask, tile_left, bnd_left,
         node_left0, new_seg, choose, small_seg, small_is_right, s);
   return launch_route<int16_t>(
       order, seg, n_nodes, n, bins, n_features, feature, split_bin,
-      default_left, state, missing_bin, mask, tile_left, bnd_left,
+      default_left, state, missing_bin, cat, mask, tile_left, bnd_left,
       node_left0, new_seg, choose, small_seg, small_is_right, s);
 }
 

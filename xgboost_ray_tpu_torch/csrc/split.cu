@@ -68,6 +68,14 @@
 // ops/grow.py:625-641, :750-760), a word of groups a lane, and ANDed with
 // the column-sampling mask. The final level clamps its leaf values to the
 // final bounds (xrt_leaf_records).
+// Categorical features take the categorical instantiation (CAT, beside
+// MASKED and CONS): XrtTreeArgs' [F] categorical flags (null on the main
+// path), a warp-uniform branch a feature, where candidate s is the
+// one-vs-rest split "category s goes left" (ops/split.py:108-110): the left
+// child is the single slot (g[s], h[s]), with no block prefix and no
+// running sum. Under CONS the winner's carried (w_left, w_right) are then
+// the single slot's (plus the missing bucket where it goes left), what the
+// reference recomputes (ops/grow.py:726-735).
 // What bounds it: bytes are tiny (the level's histogram read once, the
 // formed one written once: 3.7 MB at level 5 of the main path, about a
 // microsecond); the scoring is a few dozen float ops per candidate with
@@ -113,6 +121,7 @@ struct XrtTreeArgs {
   const int8_t* monotone;    // [F] -1 / 0 / +1 or null: no monotone
   const uint32_t* ic_bits;   // [F, ic_words] group membership or null
   int ic_words;
+  const uint8_t* categorical;  // [F] 1: categorical feature; null: none
 };
 
 struct XrtLevelIn {
@@ -145,11 +154,6 @@ struct XrtLevelOut {
   float* upper_next;
 };
 
-__device__ __forceinline__ float xrt_soft_threshold(float g, float alpha) {
-  const float s = g > 0.f ? 1.f : (g < 0.f ? -1.f : g);  // jnp.sign: keeps -0
-  return s * fmaxf(fabsf(g) - alpha, 0.f);
-}
-
 __device__ __forceinline__ float xrt_score(float g, float h,
                                            const XrtTreeArgs& p) {
   const float t = xrt_soft_threshold(g, p.reg_alpha);
@@ -160,12 +164,8 @@ __device__ __forceinline__ float xrt_score(float g, float h,
 // leaf_weight(g, h), max_delta_step clamp included
 __device__ __forceinline__ float xrt_leaf_weight(float g, float h,
                                                  const XrtTreeArgs& p) {
-  const float den = h + p.reg_lambda;
-  float w = den > 0.f ? -xrt_soft_threshold(g, p.reg_alpha) / fmaxf(den, 1e-38f)
-                      : 0.f;
-  if (p.max_delta_step > 0.f)
-    w = fminf(fmaxf(w, -p.max_delta_step), p.max_delta_step);
-  return w;
+  return xrt_leaf_weight_of(g, h, p.reg_lambda, p.reg_alpha,
+                            p.max_delta_step);
 }
 
 // lr * leaf_weight(g, h)
@@ -425,13 +425,16 @@ __device__ __forceinline__ void xrt_block_prefix(const float* tg,
 // A masked feature's candidates score -inf (their default_left as
 // computed), so they still take part in the first-max election. CONS with
 // monotone signs (mono): the constrained gain, the winner's clamped child
-// weights in its chosen direction into out_wl / out_wr.
+// weights in its chosen direction into out_wl / out_wr. A categorical
+// feature (cat, only in the CAT instantiation): candidate i's left child is
+// slot i alone.
 template <bool MASKED, bool CONS>
 __device__ __forceinline__ void xrt_score_feature(
     const XrtTreeArgs& t, int f, const float* sg, const float* sh,
     const float* tg, const float* th, float gp, float hp, float parent,
-    bool masked, bool mono, int sign, float lo, float hi, float* out_gain,
-    int* out_idx, int* out_dl, float* out_wl, float* out_wr) {
+    bool masked, bool mono, int sign, float lo, float hi, bool cat,
+    float* out_gain, int* out_idx, int* out_dl, float* out_wl,
+    float* out_wr) {
   const int lane = threadIdx.x & 31;
   const int nb = t.nbt - 1;
   const int ncand = nb - 1;  // candidate s: bins <= s go left
@@ -472,8 +475,10 @@ __device__ __forceinline__ void xrt_score_feature(
         lg += sg[xrt_pad(min(i, nb))];
         lh += sh[xrt_pad(min(i, nb))];
       }
-      const float GL = has_pre ? lg + pg : lg;
-      const float HL = has_pre ? lh + ph : lh;
+      const float GL =
+          cat ? sg[xrt_pad(min(i, nb))] : (has_pre ? lg + pg : lg);
+      const float HL =
+          cat ? sh[xrt_pad(min(i, nb))] : (has_pre ? lh + ph : lh);
       float gml, gmr, wl_ml = 0.f, wr_ml = 0.f, wl_mr = 0.f, wr_mr = 0.f;
       if (CONS && mono) {
         gml = xrt_gain_mono(GL + gm, HL + hm, gp, hp, parent, lo, hi, sign,
@@ -561,9 +566,10 @@ __device__ __forceinline__ void xrt_cluster_wait() {
 }
 
 // MASKED: the feature-masked instantiation (column sampling); CONS: the
-// constrained one (monotone and / or interaction constraints); the
-// <false, false> one is the main path's kernel as it was.
-template <bool MASKED, bool CONS>
+// constrained one (monotone and / or interaction constraints); CAT: the
+// categorical one; the <false, false, false> one is the main path's kernel
+// as it was.
+template <bool MASKED, bool CONS, bool CAT>
 __global__ void __launch_bounds__(XRT_SPLIT_MAX_WARPS * 32)
 xrt_split_level_kernel(XrtTreeArgs t, XrtLevelIn in, XrtLevelOut out) {
   extern __shared__ float smem[];
@@ -643,10 +649,11 @@ xrt_split_level_kernel(XrtTreeArgs t, XrtLevelIn in, XrtLevelOut out) {
         __ldg(in.mask + (in.mask_rows > 1 ? (size_t)node * F : 0) + f) == 0;
     if (CONS && t.ic_bits != nullptr)
       masked = !xrt_interaction_allowed(t, in.n_nodes, node, f) || masked;
+    const bool cat = CAT && __ldg(t.categorical + f) != 0;
     xrt_score_feature<MASKED, CONS>(
         t, f, sg, sh, tg, th, gp, hp, parent, masked, mono,
-        mono ? (int)__ldg(t.monotone + f) : 0, lo, hi, &g, &idx, &dl, &wl,
-        &wr);
+        mono ? (int)__ldg(t.monotone + f) : 0, lo, hi, cat, &g, &idx, &dl,
+        &wl, &wr);
     if (xrt_better(g, idx, best, bidx)) {
       best = g;
       bidx = idx;
@@ -806,11 +813,19 @@ static int xrt_launch_level(const XrtTreeArgs& t, XrtLevelIn in,
     return (int)cudaErrorInvalidValue;
   if (t.ic_bits != nullptr && (t.ic_words < 1 || in.active == nullptr))
     return (int)cudaErrorInvalidValue;
-  void (*kernel)(XrtTreeArgs, XrtLevelIn, XrtLevelOut) =
-      cons ? (masked ? xrt_split_level_kernel<true, true>
-                     : xrt_split_level_kernel<false, true>)
-           : (masked ? xrt_split_level_kernel<true, false>
-                     : xrt_split_level_kernel<false, false>);
+  typedef void (*XrtLevelKernel)(XrtTreeArgs, XrtLevelIn, XrtLevelOut);
+  static const XrtLevelKernel kernels[8] = {
+      xrt_split_level_kernel<false, false, false>,
+      xrt_split_level_kernel<true, false, false>,
+      xrt_split_level_kernel<false, true, false>,
+      xrt_split_level_kernel<true, true, false>,
+      xrt_split_level_kernel<false, false, true>,
+      xrt_split_level_kernel<true, false, true>,
+      xrt_split_level_kernel<false, true, true>,
+      xrt_split_level_kernel<true, true, true>};
+  const XrtLevelKernel kernel =
+      kernels[(masked ? 1 : 0) + (cons ? 2 : 0) +
+              (t.categorical != nullptr ? 4 : 0)];
   if (smem > 48 * 1024) {
     err = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -865,14 +880,17 @@ extern "C" int xrt_split_level(const XrtTreeArgs* t, const float* hist,
 }
 
 // find_splits alone: hist [n_nodes, F, nbt, 2]; outputs node_gh [n_nodes, 2]
-// and [n_nodes] split records; no prologue, no tree records.
+// and [n_nodes] split records; no prologue, no tree records. categorical:
+// [F] flags or null.
 extern "C" int xrt_find_splits(const float* hist, int n_nodes, int n_features,
                                int nbt, float reg_lambda, float reg_alpha,
                                float gamma, float min_child_weight,
                                float* node_gh, float* gain, int* feature,
                                int* split_bin, uint8_t* default_left,
-                               uint8_t* valid, void* stream) {
+                               uint8_t* valid, const uint8_t* categorical,
+                               void* stream) {
   XrtTreeArgs t = {};
+  t.categorical = categorical;
   t.n_features = n_features;
   t.nbt = nbt;
   t.reg_lambda = reg_lambda;

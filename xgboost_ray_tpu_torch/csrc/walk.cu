@@ -5,7 +5,11 @@
 //
 // Replaces xgboost_ray_tpu/ops/grow.py:786 predict_tree_binned with the rule
 // of route_right_binned (:65): a numeric bin > split_bin goes right, the
-// missing bin (max_bin) follows the learned default; a leaf keeps its index
+// missing bin (max_bin) follows the learned default, a categorical bin goes
+// left only where it equals split_bin (one-vs-rest: the node record's
+// categorical flag, set from the [F] flags `cat` as B8 sets
+// XRT_F_CATEGORICAL, csrc/predict.cu:94; a kCat instantiation of its own,
+// so the numeric walk compiles as it was); a leaf keeps its index
 // for the remaining steps (jnp.where(is_leaf[idx], idx, nxt)). The result
 // is integer routing plus one read of value[leaf]: bitwise the plain
 // version (ops/grow.predict_tree_binned_plain).
@@ -46,6 +50,7 @@ constexpr int kStages = 2;
 constexpr unsigned kFeatureMask = 0x00FFFFFFu;
 constexpr unsigned kLeaf = 1u << 24;
 constexpr unsigned kDefaultLeft = 1u << 25;
+constexpr unsigned kCategorical = 1u << 26;
 
 enum { XRT_WALK_TILED = 0, XRT_WALK_GATHER = 1 };
 
@@ -65,29 +70,44 @@ struct XrtWalkArgs {
   int trees_per_group;  // G: trees staged at once; 0: the forest unstaged
   int shared_bytes;     // dynamic shared memory a CTA
   int grid;             // CTAs all SMs hold at shared_bytes (xrt_walk_ctas)
+  const uint8_t* cat;   // [n_features] categorical flags (a launch) or null
+  int categorical;      // 1: the categorical instantiation (cat non-null)
 };
 
 __device__ __forceinline__ long long xrt_round16(long long b) {
   return (b + 15) & ~15LL;
 }
 
-// the packed record of node i of the forest arrays
+// the packed record of node i of the forest arrays (its categorical bit
+// only in the categorical instantiation)
+template <bool kCat>
 __device__ __forceinline__ uint2 xrt_record(const XrtWalkArgs& a,
                                             long long i) {
   const int f = min(max(__ldg(a.feature + i), 0), a.n_features - 1);
   return make_uint2((unsigned)f | (__ldg(a.is_leaf + i) ? kLeaf : 0u) |
-                        (__ldg(a.default_left + i) ? kDefaultLeft : 0u),
+                        (__ldg(a.default_left + i) ? kDefaultLeft : 0u) |
+                        (kCat && __ldg(a.cat + f) ? kCategorical : 0u),
                     (unsigned)__ldg(a.split_bin + i));
 }
 
+// the routing rule on a packed record: the missing bin follows the default,
+// a numeric bin goes right above split_bin, and in the categorical
+// instantiation (kCat) a categorical one unless it is split_bin
+template <bool kCat>
+__device__ __forceinline__ bool xrt_right(uint2 nd, int b, int missing_bin) {
+  if (b == missing_bin) return !(nd.x & kDefaultLeft);
+  return kCat && (nd.x & kCategorical) ? b != (int)nd.y : b > (int)nd.y;
+}
+
 // trees [t0, t0 + nt) into recs / vals ([nt][heap] each)
+template <bool kCat>
 __device__ __forceinline__ void xrt_stage_forest(const XrtWalkArgs& a,
                                                  uint2* recs, float* vals,
                                                  int t0, int nt, int heap) {
   const long long base = (long long)t0 * heap;
 #pragma unroll 4
   for (int i = threadIdx.x; i < nt * heap; i += kThreads) {
-    recs[i] = xrt_record(a, base + i);
+    recs[i] = xrt_record<kCat>(a, base + i);
     vals[i] = __ldg(a.value + base + i);
   }
 }
@@ -126,7 +146,7 @@ __device__ __forceinline__ void xrt_stage_tile(const XrtWalkArgs& a,
 // as B8's does (csrc/predict.cu xrt_walk_shared): a node at heap index h
 // of a tree at byte tb sits at tb + 8h, its child 2h + 1 + right at
 // 2 (tb + 8h) + 8 - tb + 8 right: a select and a shift-add a step.
-template <typename BinT, bool kTiled, bool kForestShared>
+template <typename BinT, bool kTiled, bool kForestShared, bool kCat>
 __device__ __forceinline__ void xrt_walk_items(
     const XrtWalkArgs& a, const unsigned char* smem, const uint2* recs,
     const float* vals, const BinT* tile_bins, long long row0, int n_valid,
@@ -157,8 +177,7 @@ __device__ __forceinline__ void xrt_walk_items(
           const uint2 nd = *reinterpret_cast<const uint2*>(smem + at[c]);
           const int b = (int)*reinterpret_cast<const BinT*>(
               smem + row_at[c] + (nd.x & kFeatureMask) * sizeof(BinT));
-          const bool right = b == a.missing_bin ? !(nd.x & kDefaultLeft)
-                                                : b > (int)nd.y;
+          const bool right = xrt_right<kCat>(nd, b, a.missing_bin);
           const unsigned nxt = 2u * at[c] + 8u - tb[c] + (right ? 8u : 0u);
           at[c] = (nd.x & kLeaf) ? at[c] : nxt;
         }
@@ -180,11 +199,11 @@ __device__ __forceinline__ void xrt_walk_items(
           const uint2 nd =
               kForestShared
                   ? recs[t[c] * heap + idx[c]]
-                  : xrt_record(a, (long long)(t0 + t[c]) * heap + idx[c]);
+                  : xrt_record<kCat>(a, (long long)(t0 + t[c]) * heap +
+                                           idx[c]);
           const unsigned f = nd.x & kFeatureMask;
           const int b = kTiled ? (int)rb[c][f] : (int)__ldg(rb[c] + f);
-          const bool right = b == a.missing_bin ? !(nd.x & kDefaultLeft)
-                                                : b > (int)nd.y;
+          const bool right = xrt_right<kCat>(nd, b, a.missing_bin);
           const int nxt = 2 * idx[c] + 1 + (right ? 1 : 0);
           idx[c] = (nd.x & kLeaf) ? idx[c] : nxt;
         }
@@ -203,7 +222,7 @@ __device__ __forceinline__ void xrt_walk_items(
   }
 }
 
-template <typename BinT, bool kTiled, bool kForestShared>
+template <typename BinT, bool kTiled, bool kForestShared, bool kCat>
 __global__ void __launch_bounds__(kThreads)
     xrt_walk_kernel(const XrtWalkArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -227,7 +246,7 @@ __global__ void __launch_bounds__(kThreads)
       xrt_stage_tile(a, tiles + j * tile_bytes,
                      blockIdx.x + (long long)j * gridDim.x);
   if (kForestShared && n_groups == 1)
-    xrt_stage_forest(a, recs, vals, 0, a.n_trees, heap);
+    xrt_stage_forest<kCat>(a, recs, vals, 0, a.n_trees, heap);
   int buf = 0;
   for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     if (kTiled) {
@@ -243,10 +262,10 @@ __global__ void __launch_bounds__(kThreads)
     for (int g = 0; g < n_groups; ++g) {
       const int t0 = g * G, nt = min(G, a.n_trees - t0);
       if (kForestShared && n_groups > 1) {
-        xrt_stage_forest(a, recs, vals, t0, nt, heap);
+        xrt_stage_forest<kCat>(a, recs, vals, t0, nt, heap);
         __syncthreads();
       }
-      xrt_walk_items<BinT, kTiled, kForestShared>(
+      xrt_walk_items<BinT, kTiled, kForestShared, kCat>(
           a, smem, recs, vals, tb, row0, n_valid, t0, nt, heap, lg_r);
       if (kForestShared && n_groups > 1) __syncthreads();
     }
@@ -257,20 +276,27 @@ __global__ void __launch_bounds__(kThreads)
 
 typedef void (*XrtWalkKernel)(const XrtWalkArgs);
 
-template <typename BinT>
+template <typename BinT, bool kCat>
 static XrtWalkKernel walk_kernel(bool tiled, bool forest_shared) {
   if (tiled)
-    return forest_shared ? xrt_walk_kernel<BinT, true, true>
-                         : xrt_walk_kernel<BinT, true, false>;
-  return forest_shared ? xrt_walk_kernel<BinT, false, true>
-                       : xrt_walk_kernel<BinT, false, false>;
+    return forest_shared ? xrt_walk_kernel<BinT, true, true, kCat>
+                         : xrt_walk_kernel<BinT, true, false, kCat>;
+  return forest_shared ? xrt_walk_kernel<BinT, false, true, kCat>
+                       : xrt_walk_kernel<BinT, false, false, kCat>;
 }
 
+// the instantiation of a launch: bins' width, mapping, forest staging, and
+// the categorical one where a->categorical is set (the numeric walk is
+// compiled as it was without categorical features)
 static XrtWalkKernel pick_kernel(const XrtWalkArgs* a) {
   const bool tiled = a->mapping == XRT_WALK_TILED;
   const bool forest_shared = a->trees_per_group > 0;
-  return a->bin_bytes == 1 ? walk_kernel<uint8_t>(tiled, forest_shared)
-                           : walk_kernel<int16_t>(tiled, forest_shared);
+  if (a->categorical)
+    return a->bin_bytes == 1 ? walk_kernel<uint8_t, true>(tiled, forest_shared)
+                             : walk_kernel<int16_t, true>(tiled,
+                                                          forest_shared);
+  return a->bin_bytes == 1 ? walk_kernel<uint8_t, false>(tiled, forest_shared)
+                           : walk_kernel<int16_t, false>(tiled, forest_shared);
 }
 
 // The persistent grid's most for a->shared_bytes into *ctas: the CTAs
@@ -312,6 +338,8 @@ extern "C" int xrt_walk_ctas(const XrtWalkArgs* a, int* ctas) {
 // tiles in turn.
 extern "C" int xrt_walk_binned(const XrtWalkArgs* a, void* stream) {
   if (a->n_rows <= 0) return 0;
+  if ((a->cat != nullptr) != (a->categorical != 0))
+    return (int)cudaErrorInvalidValue;
   const int R = a->rows_per_tile;
   if (a->n_features < 1 || a->n_trees < 1 || a->max_depth < 1 ||
       (a->bin_bytes != 1 && a->bin_bytes != 2) || R < 1 || (R & (R - 1)) ||

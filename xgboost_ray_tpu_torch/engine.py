@@ -76,6 +76,19 @@ validated against the feature count and carried in the grow config; their
 device form (``ops/split.TreeConstraints``) is made once and every tree
 takes K2's constrained level step (``ops/grow.build_tree``).
 
+Categorical features (``feature_types`` 'c', ``engine.py:432-462``): their
+columns are checked to hold codes in [0, max_bin - 2] at load, take the
+code cuts (bin c is category c, ``ops/binning.code_cuts``), refuse a
+monotone sign, and are carried in the grow config and as [F] flags on the
+device (``cat``): K2's categorical search, K3's and B4's one-vs-rest
+route. The booster keeps the feature types and the training category
+mapping (``categories``, ``engine.py:2151-2155``).
+
+``grow_policy="lossguide"`` grows each tree leaf-wise
+(``ops/grow_lossguide.build_tree_lossguide``, the same contract as
+``build_tree``) up to the leaf budget ``params.leaf_budget``
+(``engine.py:314-322``); everything around the grower is the same.
+
 An init booster (``xgb_model``) starts every set's margins at ``base +
 booster.predict_margin(x) - its base margin`` (B8 on the card, the plain
 walk on the CPU) and its forest goes before the new trees.
@@ -135,9 +148,14 @@ from xgboost_ray_tpu_torch.ops.grow import (
     GrowConfig,
     Tree,
     build_tree,
+    cat_flags,
     empty_tree,
     predict_tree_binned,
     sample_feature_mask,
+)
+from xgboost_ray_tpu_torch.ops.grow_lossguide import (
+    build_tree_lossguide,
+    frontier_step,
 )
 from xgboost_ray_tpu_torch.ops.histogram import (
     build_histogram,
@@ -188,8 +206,13 @@ from xgboost_ray_tpu_torch.ops.split import (
     find_splits,
     leaf_records,
     split_level,
+    split_nodes,
 )
-from xgboost_ray_tpu_torch.params import TrainParams
+from xgboost_ray_tpu_torch.params import (
+    TrainParams,
+    cat_feature_indices,
+    leaf_budget,
+)
 
 
 def kernel_counters() -> Dict[str, Callable]:
@@ -202,7 +225,8 @@ def kernel_counters() -> Dict[str, Callable]:
             "SMX": softmax_update, "B9a": auc_histogram,
             "B13": rank_grad_hess, "B9r": rank_metric_contrib,
             "B14": cox_round, "B12r": sample_rows,
-            "B12f": sample_feature_mask}
+            "B12f": sample_feature_mask, "K2nodes": split_nodes,
+            "LGstep": frontier_step}
 
 
 def kernel_launches() -> Dict[str, int]:
@@ -214,6 +238,10 @@ def kernel_launches() -> Dict[str, int]:
     out["SMXeval"] = softmax_update.eval_launches
     out["K2masked"] = split_level.launches_masked
     out["K2cons"] = split_level.launches_constrained
+    out["K2cat"] = split_level.launches_categorical
+    out["K2nodescat"] = split_nodes.launches_categorical
+    out["K3cat"] = partition_level.launches_categorical
+    out["B4cat"] = predict_tree_binned.launches_categorical
     out["K4trees"] = round_update.tree_launches
     out["SMXtrees"] = softmax_update.tree_launches
     return out
@@ -226,6 +254,10 @@ def reset_kernel_launches() -> None:
     softmax_update.eval_launches = 0
     split_level.launches_masked = 0
     split_level.launches_constrained = 0
+    split_level.launches_categorical = 0
+    split_nodes.launches_categorical = 0
+    partition_level.launches_categorical = 0
+    predict_tree_binned.launches_categorical = 0
     round_update.tree_launches = 0
     softmax_update.tree_launches = 0
 
@@ -333,19 +365,24 @@ class TorchEngine:
         feature_types: Optional[List[str]] = None,
         custom_objective: bool = False,
         feature_weights: Optional[np.ndarray] = None,
+        categories: Optional[Dict[int, tuple]] = None,
     ):
         """``shards``: this rank's shard dicts; ``evals``: (shards, name)
         pairs, ``shards`` itself (the same object) for the training set;
         ``init_booster``: the model training continues;
         ``custom_objective``: every round's gradients come from
         ``step(gh_custom=...)``; ``feature_weights``: [F] non-negative
-        weights of the column-sampling draws."""
+        weights of the column-sampling draws; ``feature_types``: 'c' marks
+        a categorical feature; ``categories``: the training category
+        mapping the booster keeps."""
         self.params = params
         self.device = resolve_device(device)
         self.coll = Collectives()
         self.allreduce_bytes_per_round = 0
         self.feature_names = feature_names
         self.feature_types = feature_types
+        self.categories = categories
+        self.cat_features = cat_feature_indices(feature_types)
         self.objective = objective_from_params(params)
         self.n_outputs = self.objective.num_outputs
         base_score = (params.base_score if params.base_score is not None
@@ -364,6 +401,8 @@ class TorchEngine:
                 max_delta_step=params.max_delta_step,
             ),
             sibling_subtract=params.sibling_subtract,
+            cat_features=self.cat_features,
+            max_leaves=leaf_budget(params),
         )
         self.metric_names = list(params.eval_metric) or [
             self.objective.default_metric]
@@ -433,8 +472,11 @@ class TorchEngine:
             raise ValueError("reg:squaredlogerror requires all labels > -1.")
         self.label_np, self.weight_np = label, weight
         self.n_rows, self.n_features = x.shape
+        binning.validate_categorical_codes(x, self.cat_features,
+                                           params.max_bin)
         self._constrain(params)
         dev = self.device
+        self.cat = cat_flags(self.cat_features, self.n_features, dev)
         self.n_global = int(self.coll.sum(torch.tensor(
             [self.n_rows], dtype=torch.int64, device=dev)).item())
         coll = self.coll if self.coll.world > 1 else None
@@ -446,7 +488,8 @@ class TorchEngine:
         self.auc_scale = self._auc_scale(weight, self.n_rows)
         t0 = time.perf_counter()
         self.bins, self.cuts, self.feat_has_missing = binning.sketch_and_bin(
-            x_dev, self.weight, params.max_bin, coll, self.n_global)
+            x_dev, self.weight, params.max_bin, coll, self.n_global,
+            self.cat_features)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         self.sketch_seconds = time.perf_counter() - t0
@@ -520,6 +563,12 @@ class TorchEngine:
                 f"monotone_constraints has {len(mono)} entries but the "
                 f"data has {self.n_features} features.")
         mono = mono + (0,) * (self.n_features - len(mono))
+        for fi in self.cat_features:
+            if mono[fi] != 0:
+                raise ValueError(
+                    f"monotone constraint on categorical feature {fi} is "
+                    f"not supported (one-vs-rest category splits have no "
+                    f"order to be monotone in).")
         ic = params.interaction_constraints
         bad = [i for grp in ic for i in grp if i >= self.n_features]
         if bad:
@@ -805,18 +854,26 @@ class TorchEngine:
                     fmask = sample_feature_mask(
                         fold_in(key, SALT_BYTREE), self.n_features,
                         p.colsample_bytree, self.log_fw, device=self.device)
+                tree = Tree(*[f[i] for f in forest])
+                rv = None if sampled else row_value[i]
+                allreduce = coll.sum if coll.world > 1 else None
+                if self.cfg.max_leaves:
+                    build_tree_lossguide(
+                        bins, gh, self.cuts, self.cfg,
+                        feat_has_missing=self.feat_has_missing,
+                        allreduce=allreduce, qscale=qscale, tree=tree,
+                        row_value=rv, feature_mask=fmask, cat=self.cat)
+                    continue
                 build_tree(
                     bins, gh, self.cuts, self.cfg,
                     feat_has_missing=self.feat_has_missing,
-                    allreduce=coll.sum if coll.world > 1 else None,
-                    qscale=qscale, tree=Tree(*[f[i] for f in forest]),
-                    row_value=None if sampled else row_value[i],
-                    feature_mask=fmask,
+                    allreduce=allreduce, qscale=qscale, tree=tree,
+                    row_value=rv, feature_mask=fmask,
                     level_key=key if per_level else None,
                     colsample_bylevel=p.colsample_bylevel,
                     colsample_bynode=p.colsample_bynode,
                     feature_log_weights=self.log_fw,
-                    constraints=self.constraints,
+                    constraints=self.constraints, cat=self.cat,
                 )
         # one tree a round: the round's tree itself ([heap] fields)
         walked = forest if n_trees > 1 else Tree(*[f[0] for f in forest])
@@ -826,7 +883,7 @@ class TorchEngine:
             # row's comes from a walk of the round's trees (``:1412``)
             row_value = predict_tree_binned(
                 walked, self.bins, self.cfg.max_depth,
-                self.cfg.max_bin).view(n_trees, -1)
+                self.cfg.max_bin, cat=self.cat).view(n_trees, -1)
         self.gh, sums = self._update(
             self.margins, row_value, self.label, self.weight,
             with_gh=not (self.custom_objective or self.pair_gh),
@@ -848,7 +905,7 @@ class TorchEngine:
             if not es.is_train:
                 value = predict_tree_binned(walked, es.bins,
                                             self.cfg.max_depth,
-                                            self.cfg.max_bin)
+                                            self.cfg.max_bin, cat=self.cat)
                 es_sums = self._update(es.margins, value.view(n_trees, -1),
                                        es.label, es.weight, with_gh=False,
                                        lower=es.lower, upper=es.upper)[1]
@@ -995,4 +1052,5 @@ class TorchEngine:
             feature_types=self.feature_types,
         )
         booster._has_node_stats = self._init_has_stats
+        booster.categories = self.categories
         return booster

@@ -45,6 +45,13 @@ itself inside that world (``distributed._train_rank``) and returns rank
 on the CPU the shards fold onto the one device, as the JAX package folds
 actors onto the available devices (``main.py:401-402``,
 ``engine.py:239-244``).
+
+Categorical data (``main.py:775-860``, ``:2150-2170``): an eval set whose
+auto-encoded category set differs from the training matrix's is
+translated onto the training mapping (``translate_shard_categories``),
+and one that auto-encoded where the training matrix was built from codes
+is refused; ``predict`` translates a frame's categories onto the model's
+the same way. The booster keeps the training feature types and mapping.
 """
 
 import logging
@@ -71,6 +78,7 @@ from xgboost_ray_tpu_torch.matrix import (
     RayShardingMode,
     _get_sharding_indices,
     combine_data,
+    translate_shard_categories,
 )
 from xgboost_ray_tpu_torch.models.booster import RayXGBoostBooster, coerce_model
 from xgboost_ray_tpu_torch.ops.metrics import is_maximize_metric
@@ -390,15 +398,20 @@ def train(
             for deval, _ in evals:
                 actor.load_data(deval)
         shards = dtrain.shards(ranks)
-        eval_shards = [(shards if deval is dtrain else deval.shards(ranks),
+        train_cats = dtrain.resolved_categories
+        eval_shards = [(shards if deval is dtrain else
+                        [translate_shard_categories(
+                            sh, _eval_categories(deval, name, train_cats),
+                            train_cats) for sh in deval.shards(ranks)],
                         name) for deval, name in evals]
         engine = TorchEngine(
             shards, parsed, device=device, evals=eval_shards,
             init_booster=init_booster,
             feature_names=dtrain.resolved_feature_names,
-            feature_types=dtrain.feature_types,
+            feature_types=dtrain.resolved_feature_types,
             custom_objective=run["obj"] is not None,
-            feature_weights=dtrain.feature_weights)
+            feature_weights=dtrain.feature_weights,
+            categories=train_cats)
         for actor in actors:
             actor._distributed_callbacks.before_train(actor)
         booster, result, stats = _run_rounds(
@@ -414,6 +427,20 @@ def train(
         if additional_results is not None:
             additional_results["serve_model_version"] = version
     return booster
+
+
+def _eval_categories(deval: RayDMatrix, name: str, train_cats):
+    """A loaded eval matrix's auto-encoded categories, refused where the
+    training matrix was built from codes (``main.py:808-816``)."""
+    ecats = deval.resolved_categories
+    if ecats and not train_cats:
+        raise ValueError(
+            f"eval set {name!r} auto-encoded categorical columns, "
+            f"but the training matrix was built from integer "
+            f"codes — the mappings cannot be aligned. Encode the "
+            f"eval set with the same codes, or train from a "
+            f"DataFrame with enable_categorical=True.")
+    return ecats
 
 
 def _host_preds(margins: np.ndarray) -> np.ndarray:
@@ -569,29 +596,34 @@ def _train_spawned(dtrain: RayDMatrix, params: Dict, num_actors: int,
             f"callbacks, objective and metric, which must be picklable: "
             f"{exc}") from exc
     data = _matrix_data(dtrain)
+    train_cats = dtrain.resolved_categories
     options["eval_data"] = [
-        None if dm is None else dict(_matrix_data(dm),
-                                     sharding=dm.sharding.name)
-        for dm in options.pop("eval_matrices", None)
-        or [None] * len(options["eval_names"])]
+        None if dm is None else dict(
+            _matrix_data(dm, train_cats, name), sharding=dm.sharding.name)
+        for dm, name in zip(options.pop("eval_matrices", None)
+                            or [None] * len(options["eval_names"]),
+                            options["eval_names"])]
     rounds = options.pop("num_boost_round")
     options.update(
         sharding=dtrain.sharding.name, num_actors=num_actors,
         device=None if device_type == "cuda" else device_type,
         feature_names=dtrain.resolved_feature_names,
-        feature_types=dtrain.feature_types,
+        feature_types=dtrain.resolved_feature_types,
         feature_weights=dtrain.feature_weights)
     out = distributed.launch_world(distributed._train_rank, n_ranks,
                                    device_type, data, params, rounds, options)
-    return (RayXGBoostBooster.load_raw(out[0]["model"]),
-            out[0]["evals_result"], out[0]["additional_results"])
+    booster = RayXGBoostBooster.load_raw(out[0]["model"])
+    booster.categories = train_cats
+    return (booster, out[0]["evals_result"], out[0]["additional_results"])
 
 
-def _matrix_data(dm: RayDMatrix) -> Dict[str, Any]:
+def _matrix_data(dm: RayDMatrix, train_cats=None,
+                 name: Optional[str] = None) -> Dict[str, Any]:
     """What a rank rebuilds ``dm`` from (``distributed._matrix``): a
-    central matrix's loaded fields as tensors in shared memory, or a
-    distributed matrix's source and column names, which each rank reads
-    its own shards of."""
+    central matrix's loaded fields as tensors in shared memory (an eval
+    set's, ``name``, with its category codes translated onto
+    ``train_cats``), or a distributed matrix's source and column names,
+    which each rank reads its own shards of."""
     loader = dm.loader
     if dm.distributed:
         return {"source": loader.data, "label": loader.label,
@@ -602,6 +634,9 @@ def _matrix_data(dm: RayDMatrix) -> Dict[str, Any]:
                 "filetype": loader.filetype,
                 "missing": loader.missing, "kwargs": loader.kwargs}
     fields = loader.load_fields()
+    if name is not None:
+        fields = translate_shard_categories(
+            fields, _eval_categories(dm, name, train_cats), train_cats)
     return distributed.share({"x": fields["data"], "label": fields["label"],
                               "weight": fields["weight"],
                               "base_margin": fields["base_margin"],
@@ -624,7 +659,15 @@ def _user_base_margin_shards(data: RayDMatrix, user_bm, sizes: List[int]):
 
 def _predict(model: RayXGBoostBooster, data: RayDMatrix, device,
              actors: List[RayXGBoostActor], **kwargs) -> np.ndarray:
-    shards = [actor.get_shard(data) for actor in actors]
+    model_cats = getattr(model, "categories", None)
+    if data.resolved_categories and not model_cats and model.cat_features:
+        raise ValueError(
+            "the prediction data auto-encoded categorical columns, but the "
+            "model was trained on integer codes — the mappings cannot be "
+            "aligned. Encode the data with the training codes instead.")
+    shards = [translate_shard_categories(actor.get_shard(data),
+                                         data.resolved_categories,
+                                         model_cats) for actor in actors]
     predict_kwargs = dict(kwargs)
     user_bm = predict_kwargs.pop("base_margin", None)
     xs = [model._coerce_features(sh["data"]) for sh in shards]

@@ -26,8 +26,15 @@ labels (``matrix.py:238-241``, ``:313-316``, ``:356``), and so are query
 ids (``qid``: an array, or a column name under distributed loading): a
 loaded frame's rows are stable-sorted by ``qid`` first, so each query's
 rows are contiguous (``matrix.py:98-113``, ``:241-256``); ``qid`` with
-``weight`` raises (per-group weights are not implemented). Streaming,
-categorical columns and feature weights raise ``NotImplementedError``.
+``weight`` raises (per-group weights are not implemented). Categorical
+columns (``matrix.py:255-300``): a frame's ``category`` and object columns
+are encoded as f32 codes of their sorted categories (a missing value NaN)
+under ``enable_categorical=True`` and central loading, and recorded in
+``resolved_feature_types`` / ``resolved_categories``; numeric codes with
+``feature_types=["c", ...]`` need no encoding. ``translate_category_codes``
+/ ``translate_shard_categories`` (``matrix.py:116-160``) map codes of one
+category set onto another (eval sets and predict frames onto the
+training mapping). Streaming raises ``NotImplementedError``.
 """
 
 import glob
@@ -111,6 +118,44 @@ def qid_sort_order(qid) -> Optional[np.ndarray]:
     return order
 
 
+def translate_category_codes(col: np.ndarray, from_cats: Sequence[Any],
+                             to_cats: Sequence[Any]) -> np.ndarray:
+    """Codes of ``col`` encoded against ``from_cats`` re-mapped onto
+    ``to_cats``; a category absent from ``to_cats`` becomes NaN (missing),
+    as xgboost treats an unseen category at predict time."""
+    mapping = np.full(len(from_cats), np.nan, np.float32)
+    to_index = {v: i for i, v in enumerate(to_cats)}
+    for i, v in enumerate(from_cats):
+        if v in to_index:
+            mapping[i] = to_index[v]
+    out = np.full(col.shape, np.nan, np.float32)
+    valid = ~np.isnan(col)
+    out[valid] = mapping[col[valid].astype(np.int64)]
+    return out
+
+
+def translate_shard_categories(
+        shard: Dict[str, Optional[np.ndarray]],
+        from_cats: Optional[Dict[int, Sequence[Any]]],
+        to_cats: Optional[Dict[int, Sequence[Any]]]
+) -> Dict[str, Optional[np.ndarray]]:
+    """A shard whose auto-encoded codes (``from_cats``) are aligned with a
+    reference mapping (``to_cats``, the training matrix's): frames with
+    other category sets would give the same value other codes. The shard
+    itself where there is nothing to translate."""
+    if not from_cats or not to_cats or from_cats == to_cats:
+        return shard
+    data = np.array(shard["data"], copy=True)
+    for col, cats in from_cats.items():
+        target = to_cats.get(col)
+        if target is None or tuple(cats) == tuple(target):
+            continue
+        data[:, col] = translate_category_codes(data[:, col], cats, target)
+    out = dict(shard)
+    out["data"] = data
+    return out
+
+
 def _not_in_slice(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"RayDMatrix({what}) is not supported by xgboost_ray_tpu_torch yet; "
@@ -133,7 +178,7 @@ class _RayDMatrixLoader:
     def __init__(self, data, label=None, weight=None, base_margin=None,
                  missing=None, feature_names=None, filetype=None, ignore=None,
                  label_lower_bound=None, label_upper_bound=None, qid=None,
-                 **kwargs):
+                 feature_types=None, enable_categorical=False, **kwargs):
         self.data = data
         self.label = label
         self.weight = weight
@@ -146,8 +191,12 @@ class _RayDMatrixLoader:
         self.filetype = filetype
         self.ignore = ignore
         self.kwargs = kwargs
+        self.feature_types = feature_types
+        self.enable_categorical = enable_categorical
         self.data_source: Optional[type] = None
         self._resolved_feature_names: Optional[List[str]] = None
+        self._resolved_feature_types: Optional[List[str]] = None
+        self._resolved_categories: Optional[Dict[int, tuple]] = None
 
     def get_data_source(self) -> type:
         if self.data_source is not None:
@@ -171,7 +220,9 @@ class _RayDMatrixLoader:
         """Label, weight, base margin, label bound and qid columns out of
         ``df`` (a string names a column, which leaves the features; an
         array-like attaches as is), ``ignore``'s columns dropped, the
-        features f32; with a qid, every field's rows stable-sorted by it."""
+        ``category`` and object columns encoded (``_encode_categories``),
+        the features f32; with a qid, every field's rows stable-sorted by
+        it."""
         source = self.get_data_source()
         exclude: List[str] = []
 
@@ -190,12 +241,9 @@ class _RayDMatrixLoader:
         x = df.drop(columns=[c for c in exclude if c in df.columns])
         if self.ignore:
             x = x.drop(columns=[c for c in self.ignore if c in x.columns])
-        non_numeric = [c for c in x.columns
-                       if not pd.api.types.is_numeric_dtype(x[c].dtype)]
-        if non_numeric:
-            raise _not_in_slice(f"categorical/object columns {non_numeric}")
         self._resolved_feature_names = (
             self.feature_names or [str(c) for c in x.columns])
+        x = self._encode_categories(x)
         feats = x.to_numpy(dtype=np.float32, copy=False)
         if self.missing is not None and not np.isnan(self.missing):
             feats = np.where(feats == np.float32(self.missing), np.nan, feats)
@@ -214,6 +262,46 @@ class _RayDMatrixLoader:
                 "label_lower_bound": arr(lower),
                 "label_upper_bound": arr(upper),
                 "qid": arr(qid, None)}
+
+    def _encode_categories(self, x: pd.DataFrame) -> pd.DataFrame:
+        """The reference's encoding (``matrix.py:258-300``): each
+        ``category`` or object column becomes the f32 codes of its sorted
+        categories (-1, a missing value, NaN), recorded in
+        ``_resolved_categories``; the feature types ('c' for those columns)
+        in ``_resolved_feature_types``. Refused without
+        ``enable_categorical`` and under distributed loading (each shard's
+        category set would differ)."""
+        cat_cols = [c for c in x.columns
+                    if isinstance(x[c].dtype, pd.CategoricalDtype)
+                    or not pd.api.types.is_numeric_dtype(x[c].dtype)]
+        ftypes = list(self.feature_types) if self.feature_types else None
+        if cat_cols:
+            if not self.enable_categorical:
+                raise ValueError(
+                    f"DataFrame has categorical/object columns {cat_cols}; "
+                    f"pass enable_categorical=True (or encode them "
+                    f"numerically) — mirroring xgboost.DMatrix semantics.")
+            if isinstance(self, _DistributedRayDMatrixLoader):
+                raise ValueError(
+                    "categorical columns cannot be auto-encoded under "
+                    "distributed loading (per-shard category sets would "
+                    "disagree); encode to integer codes and pass "
+                    "feature_types, or use central loading.")
+            if ftypes is None:
+                ftypes = ["c" if c in cat_cols else "q" for c in x.columns]
+            x = x.copy()
+            categories: Dict[int, tuple] = {}
+            col_pos = {c: i for i, c in enumerate(x.columns)}
+            for c in cat_cols:
+                as_cat = x[c].astype("category")
+                categories[col_pos[c]] = tuple(as_cat.cat.categories.tolist())
+                codes = as_cat.cat.codes.astype(np.float32)
+                x[c] = codes.where(codes >= 0, np.nan)  # -1 == missing
+            self._resolved_categories = categories
+        elif self.enable_categorical and ftypes is None:
+            ftypes = ["q"] * len(x.columns)
+        self._resolved_feature_types = ftypes
+        return x
 
 
 class _CentralRayDMatrixLoader(_RayDMatrixLoader):
@@ -361,11 +449,6 @@ class RayDMatrix:
             raise NotImplementedError("per-group weight is not implemented.")
         if stream or any(k in kwargs for k in _STREAM_KWARGS):
             raise _not_in_slice("stream=True")
-        if enable_categorical:
-            raise _not_in_slice("enable_categorical=True")
-        if feature_types and any(str(t).lower() in ("c", "categorical")
-                                 for t in feature_types):
-            raise _not_in_slice("categorical feature_types")
         if kwargs.get("group") is not None:
             raise ValueError(
                 "`group` parameter is not supported; use `qid` instead.")
@@ -384,7 +467,9 @@ class RayDMatrix:
             data, label=label, weight=weight, base_margin=base_margin,
             missing=missing, feature_names=feature_names, filetype=filetype,
             ignore=ignore, label_lower_bound=label_lower_bound,
-            label_upper_bound=label_upper_bound, qid=qid, **kwargs)
+            label_upper_bound=label_upper_bound, qid=qid,
+            feature_types=feature_types,
+            enable_categorical=bool(enable_categorical), **kwargs)
         source = self.loader.get_data_source()
         if kwargs and source.get_filetype(self.loader.data) is None \
                 and filetype is None:
@@ -492,6 +577,21 @@ class RayDMatrix:
     @property
     def resolved_feature_names(self) -> Optional[List[str]]:
         return self.feature_names or self.loader._resolved_feature_names
+
+    @property
+    def resolved_feature_types(self) -> Optional[List[str]]:
+        """Per-feature types ('c' categorical, 'q' numeric): the user's
+        ``feature_types``, or those of the loaded frame's encoded
+        columns."""
+        if self.feature_types:
+            return list(self.feature_types)
+        return self.loader._resolved_feature_types
+
+    @property
+    def resolved_categories(self) -> Optional[Dict[int, tuple]]:
+        """Column index -> category values of the auto-encoded columns (the
+        mapping eval sets and predict frames are translated onto)."""
+        return self.loader._resolved_categories
 
     @property
     def has_label(self) -> bool:

@@ -56,15 +56,15 @@ SIGNATURES = {
              P, P], I),
         "xrt_leaf_records": ([P, P, P, I, P, P, P, P, P], I),
         "xrt_find_splits": (
-            [P, I, I, I, F, F, F, F, P, P, P, P, P, P, P], I),
+            [P, I, I, I, F, F, F, F, P, P, P, P, P, P, P, P], I),
     },
     "predict": {
         "xrt_predict": ([P, P], I),
     },
     "partition": {
         "xrt_partition_route": (
-            [P, P, I, I, P, I, I, P, P, P, P, I, P, P, P, P, P, I, P, P, P],
-            I),
+            [P, P, I, I, P, I, I, P, P, P, P, I, P, P, P, P, P, P, I, P, P,
+             P], I),
         "xrt_partition_scatter": (
             [P, P, I, I, P, P, I, P, P, P, P, P, P, P, P, P, P, P], I),
         "xrt_leaf_values": ([P, P, I, I, P, P, P, P], I),
@@ -96,6 +96,9 @@ SIGNATURES = {
         "xrt_sample_ctas": ([P], I),
         "xrt_feature_mask": ([P, P], I),
     },
+    "lossguide": {
+        "xrt_lossguide_step": ([P, P], I),
+    },
     "shap": {
         "xrt_shap_saabas": ([P, P], I),
         "xrt_shap_exact": ([P, P], I),
@@ -107,8 +110,8 @@ SIGNATURES = {
 class TreeArgs(ctypes.Structure):
     """``XrtTreeArgs`` of ``csrc/split.cu``: what every level of one tree
     shares (the heap arrays it writes, cuts, feat_has_missing, sizes, split
-    parameters and the constraints), filled once per tree and passed by
-    pointer."""
+    parameters, the constraints and the categorical flags), filled once per
+    tree and passed by pointer."""
 
     _fields_ = ([(name, P) for name in (
         "feature", "split_bin", "threshold", "default_left", "is_leaf",
@@ -117,7 +120,27 @@ class TreeArgs(ctypes.Structure):
         + [(name, F) for name in (
             "reg_lambda", "reg_alpha", "gamma", "min_child_weight",
             "max_delta_step", "learning_rate")]
-        + [("monotone", P), ("ic_bits", P), ("ic_words", I)])
+        + [("monotone", P), ("ic_bits", P), ("ic_words", I),
+           ("categorical", P)])
+
+
+class LossguideArgs(ctypes.Structure):
+    """``XrtLossguideArgs`` of ``csrc/lossguide.cu``: one frontier step,
+    passed by pointer (edit both together)."""
+
+    _fields_ = ([(name, P) for name in (
+        "feature", "split_bin", "threshold", "default_left", "is_leaf",
+        "value", "gain", "cover", "base_weight", "cuts", "ent_slot",
+        "ent_active", "ent_gain", "ent_feat", "ent_bin", "ent_dl",
+        "ent_start", "ent_end", "last", "sp_gain", "sp_feat", "sp_bin",
+        "sp_dl", "sp_valid", "sp_gh", "new_seg", "seg3", "feature3",
+        "split_bin3", "dl3", "state3", "store", "parent", "leaf_seg",
+        "leaf_state", "leaf_value")]
+        + [("hist_pairs", ctypes.c_longlong)]
+        + [(name, I) for name in (
+            "n_ent", "heap", "n_features", "nbt", "t", "select", "finish")]
+        + [(name, F) for name in (
+            "reg_lambda", "reg_alpha", "max_delta_step", "learning_rate")])
 
 
 class PredictArgs(ctypes.Structure):
@@ -155,7 +178,8 @@ class WalkArgs(ctypes.Structure):
         + [(name, I) for name in (
             "n_features", "bin_bytes", "n_trees", "max_depth", "missing_bin",
             "mapping", "rows_per_tile", "trees_per_group", "shared_bytes",
-            "grid")])
+            "grid")]
+        + [("cat", P), ("categorical", I)])
 
 
 class SoftmaxArgs(ctypes.Structure):

@@ -10,6 +10,11 @@ Port of the device half of ``xgboost_ray_tpu/ops/binning.py`` (``:264``
 3. cut points read off its CDF at the equi-weight quantiles;
 4. ``bin = #cuts <= x`` (``searchsorted`` right), NaN -> ``max_bin``.
 
+A categorical feature's cuts are the codes' midpoints ``k + 0.5``
+(``engine.py:885-894``), so bin c is category c and NaN the missing bin;
+``validate_categorical_codes`` (``ops/binning.py:164``) first checks that
+its column holds integer codes in [0, max_bin - 2].
+
 Across ranks (``coll``, the engine's collectives) the min/max go through
 an all-reduce MIN/MAX, the fine histogram and the per-feature missing-value
 counts through an all-reduce SUM: the ``pmin``/``pmax``/``psum`` of
@@ -161,12 +166,52 @@ def bin_matrix(x: torch.Tensor, cuts: torch.Tensor, max_bin: int) -> torch.Tenso
     return out
 
 
+def validate_feature_types_count(cat_features, n_features: int) -> None:
+    """Every categorical feature index must name a real column."""
+    if any(i >= n_features for i in cat_features):
+        raise ValueError("feature_types has more entries than features.")
+
+
+def validate_categorical_codes(x: np.ndarray, cat_features,
+                               max_bin: int) -> None:
+    """Categorical columns must hold integer codes in [0, max_bin-2]
+    (NaN = missing is fine)."""
+    validate_feature_types_count(cat_features, x.shape[1])
+    for fi in cat_features:
+        col = x[:, fi]
+        vals = col[~np.isnan(col)]
+        if vals.size and (
+            (vals < 0).any()
+            or (vals != np.round(vals)).any()
+            or vals.max() > max_bin - 2
+        ):
+            raise ValueError(
+                f"categorical feature {fi} must hold integer codes in "
+                f"[0, {max_bin - 2}] (max_bin={max_bin}); raise max_bin or "
+                f"re-encode the column."
+            )
+
+
+def code_cuts(cuts: torch.Tensor, cat_features, max_bin: int) -> torch.Tensor:
+    """``cuts`` with each categorical feature's row the codes' midpoints
+    ``arange(max_bin - 1) + 0.5``: bin c is category c."""
+    if not cat_features:
+        return cuts
+    cuts = cuts.clone()
+    cuts[list(cat_features)] = (
+        torch.arange(max_bin - 1, dtype=torch.float32, device=cuts.device)
+        + 0.5)
+    return cuts
+
+
 def sketch_and_bin(x: torch.Tensor, weight: Optional[torch.Tensor],
-                   max_bin: int, coll=None, n_global: Optional[int] = None):
+                   max_bin: int, coll=None, n_global: Optional[int] = None,
+                   cat_features: tuple = ()):
     """The sketch -> cuts -> bins pipeline over this rank's rows ``x``, its
     merges through ``coll`` (the engine's ``distributed.Collectives``; None
     at world 1). On the card the fine histogram is summed in fixed point
-    for ``n_global`` rows in the world (default: this rank's). Returns
+    for ``n_global`` rows in the world (default: this rank's). The
+    ``cat_features`` take the code cuts (``code_cuts``). Returns
     (bins [N, F], cuts [F, max_bin - 1] f32, feat_has_missing [F] bool),
     cuts and the mask the same on every rank."""
     mn, mx = feature_min_max(x)
@@ -182,7 +227,8 @@ def sketch_and_bin(x: torch.Tensor, weight: Optional[torch.Tensor],
         hist = coll.sum(hist)
     if qscale is not None:
         hist = dequantize_sketch(hist, qscale)
-    cuts = cuts_from_sketch(mn, mx, hist, max_bin)
+    cuts = code_cuts(cuts_from_sketch(mn, mx, hist, max_bin), cat_features,
+                     max_bin)
     bins = bin_matrix(x, cuts, max_bin)
     missing = torch.zeros(x.shape[1], dtype=torch.int64, device=x.device)
     for lo in range(0, x.shape[0], _BLOCK_ROWS):

@@ -91,10 +91,16 @@ SALT_BYNODE = 0x51D4
 SALT_GOSS = 0x51D5
 
 
-def route_right_binned(bin_vals, split_bin, default_left, missing_bin: int):
-    """The binned routing rule: numeric bin > split_bin goes right, the
-    missing bucket follows the learned default."""
+def route_right_binned(bin_vals, split_bin, default_left, missing_bin: int,
+                       is_cat=None):
+    """The binned routing rule: numeric bin > split_bin goes right, a
+    categorical one (``is_cat``, broadcast like the others; None: no
+    categorical feature) goes left only at bin == split_bin (one-vs-rest),
+    the missing bucket follows the learned default."""
     present_right = bin_vals > split_bin
+    if is_cat is not None:
+        present_right = torch.where(is_cat, bin_vals != split_bin,
+                                    present_right)
     return torch.where(bin_vals == missing_bin, ~default_left, present_right)
 
 
@@ -108,6 +114,11 @@ class GrowConfig:
     # tuple of feature-index groups of the interaction constraints or ()
     monotone_constraints: tuple = ()
     interaction_constraints: tuple = ()
+    # indices of the categorical features (bins are category codes, splits
+    # one-vs-rest, ``ops/grow.py:178-181``)
+    cat_features: tuple = ()
+    # the lossguide leaf budget (0: depthwise growth, ``engine.py:314-322``)
+    max_leaves: int = 0
 
     @property
     def heap_size(self) -> int:
@@ -236,6 +247,17 @@ def level_feature_mask(tree_mask: Optional[torch.Tensor], level_key: Key,
     return fmask
 
 
+def cat_flags(cat_features: tuple, n_features: int,
+              device) -> Optional[torch.Tensor]:
+    """[F] bool marking the categorical features (None where there are
+    none): the reference's ``cat_mask_const`` (``ops/grow.py:78``)."""
+    if not cat_features:
+        return None
+    out = torch.zeros(n_features, dtype=torch.bool)
+    out[list(cat_features)] = True
+    return out.to(device)
+
+
 class InteractionState:
     """The reference's per-node interaction state of one level
     (``ops/grow.py:414-430``, ``:625-641``, ``:750-760``): ``active`` [n,
@@ -291,6 +313,7 @@ def build_tree(
     colsample_bynode: float = 1.0,
     feature_log_weights: Optional[torch.Tensor] = None,  # [F] log(fw)
     constraints: Optional[TreeConstraints] = None,  # cfg's, made once
+    cat: Optional[torch.Tensor] = None,  # [F] bool of cfg.cat_features
 ):
     """Grow one tree. Returns (Tree, row_value [N]): the learning-rate
     scaled leaf value each row lands in. ``tree`` and ``row_value``, where
@@ -305,7 +328,9 @@ def build_tree(
     each level's bylevel / bynode draws (B12f, ``level_feature_mask``),
     take K2's masked level step. ``cfg``'s constraints take its
     constrained level step (``constraints``: their device form, made here
-    where the caller passes none)."""
+    where the caller passes none). ``cat`` (``cat_flags`` of
+    ``cfg.cat_features``, made here where the caller passes none) takes
+    K2's categorical search and K3's categorical route."""
     n = bins.shape[0]
     dev = bins.device
     if qscale is None and bins.is_cuda:
@@ -324,7 +349,10 @@ def build_tree(
         constraints = TreeConstraints(cfg.monotone_constraints,
                                       cfg.interaction_constraints,
                                       bins.shape[1], dev)
-    rec = TreeRecords(tree, cuts, feat_has_missing, cfg.split, constraints)
+    if cat is None and cfg.cat_features:
+        cat = cat_flags(cfg.cat_features, bins.shape[1], dev)
+    rec = TreeRecords(tree, cuts, feat_has_missing, cfg.split, constraints,
+                      cat)
     cons = rec.cons
     # monotone bounds: [1] at the root, the next level's from each step
     bounds = None
@@ -376,7 +404,7 @@ def build_tree(
             order, seg, bins, sp.feature, sp.split_bin, sp.default_left,
             step.state, step.node_value, row_value,
             write_small=keep, missing_bin=cfg.max_bin,
-            merge_counts=allreduce if keep else None,
+            merge_counts=allreduce if keep else None, cat=cat,
         )
         order, seg = part.order, part.seg
         prev_hist, active = step.hist, step.active
@@ -397,15 +425,18 @@ def build_tree(
 
 
 def predict_tree_binned_plain(tree: Tree, bins: torch.Tensor, max_depth: int,
-                              missing_bin: int) -> torch.Tensor:
+                              missing_bin: int,
+                              cat: Optional[torch.Tensor] = None
+                              ) -> torch.Tensor:
     """Walk one tree over binned rows ``bins`` [N, F]; the leaf value of
-    every row [N] f32 (the JAX ``predict_tree_binned``, numeric features):
-    ``max_depth`` steps, a leaf keeping its index. A tree of [T, heap]
-    fields is T trees, walked one after the other: [T, N]."""
+    every row [N] f32 (the JAX ``predict_tree_binned``; ``cat`` [F] bool
+    the categorical features): ``max_depth`` steps, a leaf keeping its
+    index. A tree of [T, heap] fields is T trees, walked one after the
+    other: [T, N]."""
     if tree.feature.dim() == 2:
         return torch.stack([
             predict_tree_binned_plain(Tree(*[f[t] for f in tree]), bins,
-                                      max_depth, missing_bin)
+                                      max_depth, missing_bin, cat)
             for t in range(tree.feature.shape[0])])
     n, num_features = bins.shape
     idx = torch.zeros(n, dtype=torch.int64, device=bins.device)
@@ -413,7 +444,8 @@ def predict_tree_binned_plain(tree: Tree, bins: torch.Tensor, max_depth: int,
         f = tree.feature[idx].clamp(0, num_features - 1).long()
         bv = bins.gather(1, f[:, None])[:, 0].to(torch.int32)
         go_right = route_right_binned(bv, tree.split_bin[idx],
-                                      tree.default_left[idx], missing_bin)
+                                      tree.default_left[idx], missing_bin,
+                                      None if cat is None else cat[f])
         nxt = 2 * idx + 1 + go_right.long()
         idx = torch.where(tree.is_leaf[idx], idx, nxt)
     return tree.value[idx]
@@ -493,13 +525,16 @@ def walk_plan(num_features: int, bin_bytes: int, n_trees: int,
 
 
 @functools.lru_cache(maxsize=None)
-def _walk_ctas(device_index: int, bin_bytes: int, plan: WalkPlan) -> int:
-    """The persistent grid's most on this device for ``plan``: the CTAs
-    its SMs hold at the plan's shared memory. The C call also sets the
-    kernel's attributes for every later launch, so it is made once a
-    device and plan."""
+def _walk_ctas(device_index: int, bin_bytes: int, plan: WalkPlan,
+               categorical: bool = False) -> int:
+    """The persistent grid's most on this device for ``plan`` (and the
+    categorical instantiation where ``categorical``): the CTAs its SMs
+    hold at the plan's shared memory. The C call also sets the kernel's
+    attributes for every later launch, so it is made once a device, plan
+    and instantiation."""
     a = _build.WalkArgs()
     a.bin_bytes = bin_bytes
+    a.categorical = int(categorical)
     a.mapping = WALK_MAPPINGS.index(plan.mapping)
     a.trees_per_group = plan.trees_per_group
     a.shared_bytes = plan.shared_bytes
@@ -515,18 +550,21 @@ def _walk_ctas(device_index: int, bin_bytes: int, plan: WalkPlan) -> int:
 
 def predict_tree_binned(tree: Tree, bins: torch.Tensor, max_depth: int,
                         missing_bin: int,
-                        plan: Optional[WalkPlan] = None) -> torch.Tensor:
+                        plan: Optional[WalkPlan] = None,
+                        cat: Optional[torch.Tensor] = None) -> torch.Tensor:
     """B4 wrapper: row values [N] f32 of ``tree`` (a heap of
     ``2^(max_depth + 1) - 1`` nodes) over ``bins`` [N, F] (uint8 or int16);
     for a tree of [T, heap] fields (a round's T trees of equal depth) the
     row values [T, N] of all T in one launch. CPU tensors take
     ``predict_tree_binned_plain``; CUDA tensors launch the kernel of
     ``csrc/walk.cu`` with ``plan`` (default ``walk_plan``; bins that are not
-    16-byte aligned take the gather mapping) or raise.
+    16-byte aligned take the gather mapping) or raise. ``cat`` [F] bool:
+    the categorical features (one-vs-rest routing; None: none).
     ``predict_tree_binned.launches`` counts the launches,
     ``.launches_by_mapping`` them by mapping."""
     if not bins.is_cuda:
-        return predict_tree_binned_plain(tree, bins, max_depth, missing_bin)
+        return predict_tree_binned_plain(tree, bins, max_depth, missing_bin,
+                                         cat)
     n, num_features = bins.shape
     dev = bins.device
     heap = (1 << (max_depth + 1)) - 1
@@ -564,15 +602,24 @@ def predict_tree_binned(tree: Tree, bins: torch.Tensor, max_depth: int,
     a.rows_per_tile = plan.rows_per_tile
     a.trees_per_group = plan.trees_per_group
     a.shared_bytes = plan.shared_bytes
-    a.grid = _walk_ctas(dev.index or 0, a.bin_bytes, plan)
+    a.grid = _walk_ctas(dev.index or 0, a.bin_bytes, plan, cat is not None)
+    if cat is not None:  # a bool's bytes are the kernel's uint8 flags
+        if not (cat.dtype == torch.bool and cat.shape == (num_features,)
+                and cat.device == dev and cat.is_contiguous()):
+            raise ValueError("predict_tree_binned: cat must be contiguous "
+                             "bool [F] on the bins' device")
+        a.cat, a.categorical = cat.data_ptr(), 1
     with torch.cuda.device(dev):
         code = _build.library("walk").xrt_walk_binned(
             ctypes.byref(a), _build.stream_ptr(dev))
     _build.check(code, "B4 binned walk")
     predict_tree_binned.launches += 1
     predict_tree_binned.launches_by_mapping[plan.mapping] += 1
+    if cat is not None:
+        predict_tree_binned.launches_categorical += 1
     return out
 
 
 predict_tree_binned.launches = 0
 predict_tree_binned.launches_by_mapping = dict.fromkeys(WALK_MAPPINGS, 0)
+predict_tree_binned.launches_categorical = 0

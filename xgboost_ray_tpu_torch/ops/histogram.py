@@ -417,8 +417,8 @@ def select_small_child_rows(order: torch.Tensor, counts: torch.Tensor,
 
 def partition_level_plain(order, seg, bins, feature, split_bin, default_left,
                           state, node_value, row_value, write_small: bool,
-                          missing_bin: int,
-                          merge_counts=None) -> LevelPartition:
+                          missing_bin: int, merge_counts=None,
+                          cat=None) -> LevelPartition:
     """Plain PyTorch K3, composed from the JAX package's functions."""
     from xgboost_ray_tpu_torch.ops.grow import route_right_binned
 
@@ -429,9 +429,12 @@ def partition_level_plain(order, seg, bins, feature, split_bin, default_left,
     node = _node_of_slot(seg, n_nodes)
     rows = order.long()
     st = state[node].long()
-    b = bins[rows, feature.long()[node]].long()
+    f_row = feature.long()[node]
+    b = bins[rows, f_row].long()
     right = route_right_binned(b, split_bin[node], default_left[node],
-                               missing_bin) & (st == SPLIT)
+                               missing_bin,
+                               None if cat is None else cat[f_row]
+                               ) & (st == SPLIT)
     go_right = torch.zeros(n, dtype=torch.bool, device=dev)
     go_right[rows] = right
     new_order, new_counts = update_partition_order(order, counts, go_right)
@@ -464,9 +467,11 @@ def partition_level(order: torch.Tensor, seg: torch.Tensor, bins: torch.Tensor,
                     node_value: torch.Tensor, row_value: torch.Tensor,
                     write_small: bool, missing_bin: int,
                     merge_counts: Optional[
-                        Callable[[torch.Tensor], torch.Tensor]] = None
+                        Callable[[torch.Tensor], torch.Tensor]] = None,
+                    cat: Optional[torch.Tensor] = None
                     ) -> LevelPartition:
     """K3 wrapper. ``state`` [n_nodes] uint8 (INACTIVE / SPLIT / LEAF);
+    ``cat`` [F] bool: the categorical features, routed one-vs-rest;
     ``row_value`` [N] f32 is written in place for the rows of LEAF nodes
     (``node_value``). ``merge_counts`` (above one rank: the all-reduce SUM)
     takes the children's row counts, int64 [2 n_nodes], and returns them
@@ -476,7 +481,7 @@ def partition_level(order: torch.Tensor, seg: torch.Tensor, bins: torch.Tensor,
         return partition_level_plain(order, seg, bins, feature, split_bin,
                                      default_left, state, node_value,
                                      row_value, write_small, missing_bin,
-                                     merge_counts)
+                                     merge_counts, cat)
     n, num_features = bins.shape
     n_nodes = feature.shape[0]
     dev = order.device
@@ -499,6 +504,10 @@ def partition_level(order: torch.Tensor, seg: torch.Tensor, bins: torch.Tensor,
     _check(row_value.device == dev and row_value.dtype == torch.float32
            and row_value.shape == (n,) and row_value.is_contiguous(),
            "partition_level: row_value f32 [N]")
+    if cat is not None:  # a bool's bytes are the kernel's uint8 flags
+        _check(cat.dtype == torch.bool and cat.shape == (num_features,)
+               and cat.device == dev and cat.is_contiguous(),
+               "partition_level: cat contiguous bool [F]")
     n_tiles = max(1, -(-n // lib.xrt_partition_tile()))
     i32 = dict(dtype=torch.int32, device=dev)
     mask = torch.empty(-(-n // 8), dtype=torch.uint8, device=dev)  # go-right bits
@@ -517,7 +526,8 @@ def partition_level(order: torch.Tensor, seg: torch.Tensor, bins: torch.Tensor,
             order.data_ptr(), seg.data_ptr(), n_nodes, n, bins.data_ptr(),
             bins.element_size(), num_features, feature.data_ptr(),
             split_bin.data_ptr(), default_left.data_ptr(), state.data_ptr(),
-            missing_bin, mask.data_ptr(), tile_left.data_ptr(),
+            missing_bin, _build.ptr(cat), mask.data_ptr(),
+            tile_left.data_ptr(),
             bnd_left.data_ptr(), node_left0.data_ptr(), new_seg.data_ptr(),
             int(merge_counts is None), small_seg.data_ptr(),
             small_is_right.data_ptr(), stream)
@@ -539,11 +549,14 @@ def partition_level(order: torch.Tensor, seg: torch.Tensor, bins: torch.Tensor,
             small_rows.data_ptr(), row_value.data_ptr(), stream)
     _build.check(code, "K3 partition (scatter)")
     partition_level.launches += 1
+    if cat is not None:
+        partition_level.launches_categorical += 1
     return LevelPartition(new_order, new_seg, small_rows, small_seg,
                           small_is_right)
 
 
 partition_level.launches = 0
+partition_level.launches_categorical = 0
 
 
 def partition_leaf_values_plain(order, seg, state, node_value,

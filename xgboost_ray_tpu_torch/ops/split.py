@@ -39,6 +39,15 @@ features a node may split on: those of the groups that hold every feature
 split on above it, and those features themselves (``:625-641``,
 ``:750-760``); K2 reads them off the node's ancestors in the tree it
 writes (``interaction_mask``).
+
+Categorical features (``TreeRecords.cat``, the reference's ``cat_mask``,
+``ops/split.py:84-110``): bins are category codes and candidate s is the
+one-vs-rest split "category s goes left", so its left child is the single
+slot (g[s], h[s]) and not the prefix sum; everything else (both missing
+directions, the gate, the constraints, the first-max rule) is unchanged,
+and under monotone constraints the winner's carried child weights are the
+single slot's. ``split_nodes`` is the level kernel without records, for
+the lossguide grower's two children a step.
 """
 
 import ctypes
@@ -187,17 +196,22 @@ def find_splits_plain(hist: torch.Tensor, p: SplitParams,
                       feature_mask: Optional[torch.Tensor] = None,
                       monotone: Optional[torch.Tensor] = None,
                       lower: Optional[torch.Tensor] = None,
-                      upper: Optional[torch.Tensor] = None) -> LevelSplits:
-    """The JAX ``find_splits`` (numeric) in PyTorch, with the node totals
-    read off feature 0's buckets as ``build_tree`` does.
+                      upper: Optional[torch.Tensor] = None,
+                      cat: Optional[torch.Tensor] = None) -> LevelSplits:
+    """The JAX ``find_splits`` in PyTorch, with the node totals read off
+    feature 0's buckets as ``build_tree`` does.
     ``feature_mask`` [F] or [n_nodes, F] bool: a masked feature's
     candidates score -inf (``:148-155``), then the first maximum wins.
     ``monotone`` [F] (-1 / 0 / +1) with ``lower`` / ``upper`` [n_nodes]
-    (default -inf / +inf): the constrained branch (``:116-134``)."""
-    return _search_plain(hist, p, feature_mask, monotone, lower, upper)[0]
+    (default -inf / +inf): the constrained branch (``:116-134``).
+    ``cat`` [F] bool: the categorical features' one-vs-rest candidates
+    (``:108-110``)."""
+    return _search_plain(hist, p, feature_mask, monotone, lower, upper,
+                         cat)[0]
 
 
-def _search_plain(hist, p: SplitParams, feature_mask, monotone, lower, upper):
+def _search_plain(hist, p: SplitParams, feature_mask, monotone, lower, upper,
+                  cat=None):
     """``find_splits_plain`` and, with ``monotone``, the winner's clamped
     (w_left, w_right) [n_nodes] in the direction it chose (None without)."""
     n_nodes, num_features, nbt, _ = hist.shape
@@ -208,6 +222,10 @@ def _search_plain(hist, p: SplitParams, feature_mask, monotone, lower, upper):
     gm, hm = g[..., n_bins], h[..., n_bins]
     gl = blocked_cumsum(g[..., :n_bins])[..., : n_bins - 1]
     hl = blocked_cumsum(h[..., :n_bins])[..., : n_bins - 1]
+    if cat is not None:
+        cm = cat[None, :, None]
+        gl = torch.where(cm, g[..., : n_bins - 1], gl)
+        hl = torch.where(cm, h[..., : n_bins - 1], hl)
     gp = node_gh[:, 0][:, None, None]
     hp = node_gh[:, 1][:, None, None]
     neg_inf = torch.tensor(float("-inf"), device=hist.device)
@@ -276,6 +294,19 @@ def _check_node_array(t, n: int, dtype, dev, what: str) -> None:
            f"on {dev}")
 
 
+def _cat_row(cat: Optional[torch.Tensor], n_features: int, dev,
+             what: str) -> Optional[torch.Tensor]:
+    """The [F] categorical flags as the kernels read them (a bool tensor's
+    bytes are 0 / 1: its storage is the kernels' uint8 row), checked; None
+    where no feature is categorical."""
+    if cat is None:
+        return None
+    _check(cat.dtype == torch.bool and cat.shape == (n_features,)
+           and cat.device == dev and cat.is_contiguous(),
+           f"{what}: cat must be contiguous bool [F] on {dev}")
+    return cat
+
+
 def _check_hist(hist: torch.Tensor, what: str) -> None:
     _check(hist.dtype == torch.float32 and hist.dim() == 4
            and hist.shape[3] == 2 and hist.is_contiguous()
@@ -285,14 +316,17 @@ def _check_hist(hist: torch.Tensor, what: str) -> None:
     _check(2 < hist.shape[2] <= 1025, f"{what}: max_bin must be in (1, 1024]")
 
 
-def find_splits(hist: torch.Tensor, p: SplitParams) -> LevelSplits:
-    """K2 alone (no sibling formation, no records): CPU tensors -> plain
-    version, CUDA tensors -> one launch of the level kernel."""
+def find_splits(hist: torch.Tensor, p: SplitParams,
+                cat: Optional[torch.Tensor] = None) -> LevelSplits:
+    """K2 alone (no sibling formation, no records), ``cat`` [F] bool the
+    categorical features: CPU tensors -> plain version, CUDA tensors ->
+    one launch of the level kernel."""
     if not hist.is_cuda:
-        return find_splits_plain(hist, p)
+        return find_splits_plain(hist, p, cat=cat)
     _check_hist(hist, "find_splits")
     n_nodes, num_features, nbt, _ = hist.shape
     dev = hist.device
+    cat_row = _cat_row(cat, num_features, dev, "find_splits")
     f32 = dict(dtype=torch.float32, device=dev)
     i32 = dict(dtype=torch.int32, device=dev)
     node_gh = torch.empty((n_nodes, 2), **f32)
@@ -307,7 +341,7 @@ def find_splits(hist: torch.Tensor, p: SplitParams) -> LevelSplits:
             float(p.reg_alpha), float(p.gamma), float(p.min_child_weight),
             node_gh.data_ptr(), gain.data_ptr(), feature.data_ptr(),
             split_bin.data_ptr(), default_left.data_ptr(), valid.data_ptr(),
-            _build.stream_ptr(dev))
+            _build.ptr(cat_row), _build.stream_ptr(dev))
     _build.check(code, "K2 split search")
     find_splits.launches += 1
     return LevelSplits(gain, feature, split_bin, default_left, valid, node_gh)
@@ -395,17 +429,20 @@ class TreeRecords:
     """The tree a grower writes, level by level, and what its levels share:
     ``tree`` (the padded-heap ``Tree`` of ``ops/grow.py``, written in
     place), ``cuts`` [F, max_bin - 1] f32, ``feat_has_missing`` [F] bool or
-    None, the split parameters and the constraints (``TreeConstraints``
-    or None). On a CUDA device the C struct of their pointers is checked
-    and filled once per tree (:meth:`c_args`)."""
+    None, the split parameters, the constraints (``TreeConstraints`` or
+    None) and ``cat``, the categorical features' flags (bool [F], or None:
+    none). On a CUDA device the C struct of their pointers is checked and
+    filled once per tree (:meth:`c_args`)."""
 
     def __init__(self, tree, cuts: torch.Tensor, feat_has_missing,
-                 p: SplitParams, cons: Optional[TreeConstraints] = None):
+                 p: SplitParams, cons: Optional[TreeConstraints] = None,
+                 cat: Optional[torch.Tensor] = None):
         self.tree = tree
         self.cuts = cuts
         self.feat_has_missing = feat_has_missing
         self.p = p
         self.cons = cons if cons is not None and cons.on else None
+        self.cat = cat
         self._c = None
 
     def c_args(self) -> int:
@@ -434,6 +471,7 @@ class TreeRecords:
                     and bits.device == dev and bits.dim() == 2
                     and bits.shape[0] == cuts.shape[0]),
                     "ic_bits must be contiguous int32 [F, words]")
+            cat = _cat_row(self.cat, cuts.shape[0], dev, "TreeRecords")
             p = self.p
             self._c = _build.TreeArgs(
                 *(getattr(t, name).data_ptr() for name, _ in _TREE_DTYPES),
@@ -441,7 +479,8 @@ class TreeRecords:
                 cuts.shape[1] + 2, p.reg_lambda, p.reg_alpha, p.gamma,
                 p.min_child_weight, max(p.max_delta_step, 0.0),
                 p.learning_rate, _build.ptr(mono), _build.ptr(bits),
-                0 if bits is None else bits.shape[1])
+                0 if bits is None else bits.shape[1],
+                _build.ptr(cat))
         return ctypes.addressof(self._c)
 
 
@@ -503,6 +542,18 @@ def child_bounds(mono, feature, valid_split, lower, upper, wl, wr):
     return _interleave(lower_l, lower_r), _interleave(upper_l, upper_r)
 
 
+def _formed(hist, prev_hist, small_is_right, feat_has_missing):
+    """The level's histogram as K2's prologue forms it: with ``prev_hist``
+    each parent's children, the smaller one as given and its sibling as
+    parent - smaller child; the phantom missing bucket zeroed."""
+    if prev_hist is not None:
+        big = prev_hist - hist
+        sir = small_is_right[:, None, None, None]
+        hist = _interleave(torch.where(sir, big, hist),
+                           torch.where(sir, hist, big))
+    return zero_phantom_missing(hist, feat_has_missing)
+
+
 def split_level_plain(hist, prev_hist, small_is_right, active,
                       rec: TreeRecords, keep_hist: bool = True,
                       feature_mask: Optional[torch.Tensor] = None,
@@ -519,13 +570,7 @@ def split_level_plain(hist, prev_hist, small_is_right, active,
     ``ops/grow.py:661-684`` written into ``rec.tree``, and with monotone
     constraints the next level's bounds."""
     tree, cuts, p = rec.tree, rec.cuts, rec.p
-    if prev_hist is not None:
-        hist_small = hist
-        hist_big = prev_hist - hist_small
-        sir = small_is_right[:, None, None, None]
-        hist = _interleave(torch.where(sir, hist_big, hist_small),
-                           torch.where(sir, hist_small, hist_big))
-    hist = zero_phantom_missing(hist, rec.feat_has_missing)
+    hist = _formed(hist, prev_hist, small_is_right, rec.feat_has_missing)
     n_nodes, num_features, nbt, _ = hist.shape
     max_bin = nbt - 1
     base = n_nodes - 1
@@ -534,7 +579,7 @@ def split_level_plain(hist, prev_hist, small_is_right, active,
     mono, lower, upper, fmask = _level_constraints(
         rec, n_nodes, feature_mask, bounds, ic_allowed, "split_level")
 
-    sp, child_w = _search_plain(hist, p, fmask, mono, lower, upper)
+    sp, child_w = _search_plain(hist, p, fmask, mono, lower, upper, rec.cat)
     node_gh = sp.node_gh
     valid_split = sp.valid & active
     node_value = lr * (leaf_weight(node_gh[:, 0], node_gh[:, 1], p)
@@ -585,7 +630,8 @@ def split_level(hist: torch.Tensor, prev_hist: Optional[torch.Tensor],
     off its ancestors in ``rec.tree`` (``ic_allowed``, a mask the caller
     keeps, is for the plain version only). CPU tensors -> plain version,
     CUDA tensors -> kernel (``launches_masked`` counts the masked
-    launches, ``launches_constrained`` the constrained ones)."""
+    launches, ``launches_constrained`` the constrained ones,
+    ``launches_categorical`` those with categorical features)."""
     if not hist.is_cuda:
         return split_level_plain(hist, prev_hist, small_is_right, active,
                                  rec, keep_hist, feature_mask, bounds,
@@ -660,6 +706,8 @@ def split_level(hist: torch.Tensor, prev_hist: Optional[torch.Tensor],
         split_level.launches_masked += 1
     if rec.cons is not None:
         split_level.launches_constrained += 1
+    if rec.cat is not None:
+        split_level.launches_categorical += 1
     return LevelStep(
         LevelSplits(gain, feature, split_bin, default_left, valid, node_gh),
         node_value, state, active_next, hist_out, nxt)
@@ -668,6 +716,94 @@ def split_level(hist: torch.Tensor, prev_hist: Optional[torch.Tensor],
 split_level.launches = 0
 split_level.launches_masked = 0
 split_level.launches_constrained = 0
+split_level.launches_categorical = 0
+
+
+def split_nodes_plain(hist, prev_hist, small_is_right, rec: TreeRecords,
+                      hist_out: torch.Tensor,
+                      feature_mask: Optional[torch.Tensor] = None
+                      ) -> LevelSplits:
+    """``split_nodes`` in PyTorch ops: the nodes' histogram formed as
+    ``split_level_plain`` forms it (the sibling as parent - smaller child
+    where ``prev_hist`` is given, the phantom missing bucket zeroed) and
+    written to ``hist_out``, then the search under ``feature_mask`` and
+    ``rec.cat``."""
+    hist = _formed(hist if prev_hist is not None else hist.clone(),
+                   prev_hist, small_is_right, rec.feat_has_missing)
+    hist_out.copy_(hist)
+    return _search_plain(hist, rec.p, feature_mask, None, None, None,
+                         rec.cat)[0]
+
+
+def split_nodes(hist: torch.Tensor, prev_hist: Optional[torch.Tensor],
+                small_is_right: Optional[torch.Tensor], rec: TreeRecords,
+                hist_out: torch.Tensor,
+                feature_mask: Optional[torch.Tensor] = None) -> LevelSplits:
+    """K2's level kernel without records (the lossguide grower's search of
+    a step's two children, or of the root): ``hist`` [n, F, nbt, 2] the
+    nodes' histogram, or with ``prev_hist`` [1, F, nbt, 2] (the parent's
+    formed histogram) and ``small_is_right`` [1] bool the smaller child's
+    [1, F, nbt, 2], from which the two children are formed as the level
+    step forms siblings. The formed histogram goes to ``hist_out`` [n or 2,
+    F, nbt, 2] (a slice of the grower's store). ``feature_mask`` [F]
+    bool takes the masked instantiation; ``rec.cat`` the categorical
+    candidates. No tree record is written. CPU tensors -> plain version,
+    CUDA tensors -> kernel."""
+    if not hist.is_cuda:
+        return split_nodes_plain(hist, prev_hist, small_is_right, rec,
+                                 hist_out, feature_mask)
+    _check(rec.cons is None, "split_nodes: the lossguide grower takes no "
+                             "constraints")
+    _check_hist(hist, "split_nodes")
+    dev = hist.device
+    _, num_features, nbt, _ = hist.shape
+    n_nodes = hist.shape[0] if prev_hist is None else 2
+    if prev_hist is not None:
+        _check(hist.shape[0] == 1 and prev_hist.shape == hist.shape
+               and prev_hist.device == dev,
+               "split_nodes: prev_hist and hist must be [1, F, nbt, 2]")
+        _check_hist(prev_hist, "split_nodes")
+        _check_node_array(small_is_right, 1, torch.bool, dev,
+                          "split_nodes: small_is_right")
+    _check_hist(hist_out, "split_nodes")
+    _check(hist_out.shape == (n_nodes, num_features, nbt, 2)
+           and hist_out.device == dev,
+           "split_nodes: hist_out must be [n_nodes, F, nbt, 2]")
+    _check(rec.cuts.device == dev and rec.cuts.shape == (num_features,
+                                                         nbt - 2),
+           "split_nodes: cuts [F, max_bin - 1] must match hist")
+    if feature_mask is not None:
+        _check(feature_mask.dtype == torch.bool and feature_mask.device == dev
+               and feature_mask.shape == (num_features,)
+               and feature_mask.is_contiguous(),
+               "split_nodes: feature_mask must be contiguous bool [F]")
+    args = rec.c_args()
+    f32 = dict(dtype=torch.float32, device=dev)
+    b8 = dict(dtype=torch.bool, device=dev)
+    gain = torch.empty(n_nodes, **f32)
+    feature = torch.empty(n_nodes, dtype=torch.int32, device=dev)
+    split_bin = torch.empty(n_nodes, dtype=torch.int32, device=dev)
+    default_left = torch.empty(n_nodes, **b8)
+    valid = torch.empty(n_nodes, **b8)
+    node_gh = torch.empty((n_nodes, 2), **f32)
+    with torch.cuda.device(dev):
+        code = _build.library("split").xrt_split_level(
+            args, hist.data_ptr(), _build.ptr(prev_hist),
+            _build.ptr(small_is_right), None, n_nodes, gain.data_ptr(),
+            feature.data_ptr(), split_bin.data_ptr(),
+            default_left.data_ptr(), valid.data_ptr(), node_gh.data_ptr(),
+            None, None, None, hist_out.data_ptr(),
+            _build.ptr(feature_mask), 0 if feature_mask is None else 1,
+            None, None, None, None, _build.stream_ptr(dev))
+    _build.check(code, "K2 split nodes")
+    split_nodes.launches += 1
+    if rec.cat is not None:
+        split_nodes.launches_categorical += 1
+    return LevelSplits(gain, feature, split_bin, default_left, valid, node_gh)
+
+
+split_nodes.launches = 0
+split_nodes.launches_categorical = 0
 
 
 def leaf_records_plain(node_gh: torch.Tensor, active: torch.Tensor,

@@ -110,11 +110,50 @@ def cat_feature_indices(feature_types: Optional[Sequence[Any]]) -> tuple:
     )
 
 
+def _check_lossguide(out: TrainParams) -> None:
+    """``max_leaves`` only with ``grow_policy='lossguide'``, and what the
+    leaf-wise grower does not run, refused with the reference's messages
+    (``xgboost_ray_tpu/params.py:522-545``)."""
+    if out.grow_policy == "depthwise" and out.max_leaves > 0:
+        raise NotImplementedError(
+            "max_leaves with grow_policy='depthwise' (leaf-budget pruning of "
+            "level-wise growth) is not supported; use "
+            "grow_policy='lossguide' for a leaf budget, or drop max_leaves. "
+            "Silently ignoring it would change model semantics."
+        )
+    if out.grow_policy != "lossguide":
+        return
+    for bad, name in (
+        (out.colsample_bylevel < 1.0, "colsample_bylevel"),
+        (out.colsample_bynode < 1.0, "colsample_bynode"),
+        (bool(out.monotone_constraints) and any(out.monotone_constraints),
+         "monotone_constraints"),
+        (bool(out.interaction_constraints), "interaction_constraints"),
+        (out.hist_impl not in ("auto", "onehot"),
+         f"hist_impl={out.hist_impl!r}"),
+    ):
+        if bad:
+            raise NotImplementedError(
+                f"{name} is not supported with grow_policy='lossguide' "
+                f"yet (level-wise only); silently ignoring it would "
+                f"change model semantics."
+            )
+
+
+def leaf_budget(p: TrainParams) -> int:
+    """The lossguide grower's leaf budget (``engine.py:314-322``):
+    ``max_leaves`` (0: no budget) capped at 2^max_depth; 0 for depthwise
+    growth."""
+    if p.grow_policy != "lossguide":
+        return 0
+    full = 1 << p.max_depth
+    return min(p.max_leaves or full, full)
+
+
 def _not_in_slice(key: str, value: Any) -> NotImplementedError:
     return NotImplementedError(
         f"{key}={value!r} is not supported by xgboost_ray_tpu_torch yet "
-        f"(this port runs gbtree depthwise growth with f32 gradients, "
-        f"numeric features, and objectives "
+        f"(this port runs gbtree with f32 gradients and objectives "
         f"{' | '.join(SUPPORTED_OBJECTIVES)}); use the JAX package "
         f"xgboost_ray_tpu for it."
     )
@@ -344,6 +383,7 @@ def parse_params(params: Optional[Dict[str, Any]]) -> TrainParams:
     _check_sampling(out, params)
     if out.max_leaves < 0:
         raise ValueError("max_leaves must be >= 0")
+    _check_lossguide(out)
     if out.max_depth < 1:
         raise ValueError("max_depth must be >= 1")
     if out.max_depth > 14:
@@ -363,8 +403,6 @@ def parse_params(params: Optional[Dict[str, Any]]) -> TrainParams:
     for key, bad in (
         ("objective", out.objective not in SUPPORTED_OBJECTIVES),
         ("booster", out.booster != "gbtree"),
-        ("grow_policy", out.grow_policy != "depthwise"),
-        ("max_leaves", out.max_leaves > 0),
         ("gh_precision", out.gh_precision != "float32"),
         ("hist_quant", out.hist_quant != "none"),
         ("num_class", out.num_class not in (0, 1)
