@@ -324,6 +324,23 @@ is only where it may find ``cuobjdump``). Phases:
    (``lossguide_expect``), the test logloss falling, a tree's host syncs
    counted; the frontier-step kernel bitwise its plain version and timed;
    each run equal to the fixed-point CPU path on a 50,000-row cut.
+19. quantized gradients and the quantized histogram wire (``quantized``,
+   after phase 18; ``--quantized-only`` runs the build and it alone): the
+   HIGGS split at depth 6, Q0 the f32 main path of the call, Q1 / Q2
+   ``gh_precision`` int8 / int16 (qmax 204 at 10,500,000 rows), Q3
+   ``hist_quant="int8"`` at one rank, Q4 int8 gradients on the
+   ``int8_block`` wire as 2 gloo ranks sharing the card, Q5 L1's lossguide
+   with int8 gradients on the int8 wire; launches exact
+   (``quantized_expect``), the test logloss falling beside Q0's,
+   ``hist_allreduce_bytes_per_round`` (``quant_world_bytes``) and
+   ``gh_plane_bytes_per_shard`` against their formulas; Q1 and Q4 equal
+   to the port's CPU path (Q4: the CPU's 2-rank world) on a 200,000-row
+   cut, and Q5 on a 50,000-row cut, with no fixed-point patch, Q3 to the
+   fixed-point CPU path;
+   B10 (two blocks, int8 and int16), K1's integer instantiation (level 5
+   and the root at F = 28, level 5 at F = 54), the form-and-dequantise
+   step and B11's three kernels (every mode at blocks 64, 512 and 4096 on
+   a level-5 HIGGS histogram) bitwise their plain versions and timed.
 
 Phase 6's model is trained, and phase 7 run, right after phase 1: later in
 the process ``torch.profiler`` records no device activity for B8's
@@ -389,7 +406,8 @@ sizes; one JSON line and no result line.
 
 ``--ranks-only`` runs the build, the 1-rank main path and the ranks phase
 (on a host of two or more cards also the NCCL path, against the 1-rank
-run) and prints no result line.
+run, and phase 19's Q4 over NCCL against the same over gloo) and prints no
+result line.
 
 ``--shap-only`` runs the build, phase 6's model and phase 11 and prints
 its kernel rows but no result line; ``--pool-only`` the same for phase 12.
@@ -714,6 +732,22 @@ def k2_ptxas():
     return out
 
 
+def quant_ptxas():
+    """Registers and spills of phase 19's kernels: B10 and B11's
+    (``csrc/quant.cu``), K1's integer instantiations, its totals pass and
+    the form-and-dequantise step (``csrc/histogram.cu``)."""
+    from xgboost_ray_tpu_torch.ops import _build
+
+    out = {}
+    for name, v in ptxas_report(_build.build_log("quant")).items():
+        out[name] = v
+    for name, v in ptxas_report(_build.build_log("histogram")).items():
+        if name.startswith(("xrt_hist_int_kernel", "xrt_node_totals_int",
+                            "xrt_form_dequant")):
+            out[name] = v
+    return out
+
+
 def phase_build_report(n_trees, n_rows):
     """Registers, shared memory and spills of every kernel (K1, K2's four
     instantiations, K3, B8, B4, the softmax pass, K4; B8's main-path
@@ -726,7 +760,7 @@ def phase_build_report(n_trees, n_rows):
     paths = _build.build_all()
     report = {}
     for stem in ("histogram", "split", "partition", "predict", "walk",
-                 "softmax", "objective", "shap", "lossguide"):
+                 "softmax", "objective", "shap", "lossguide", "quant"):
         if stem in paths:  # walk, softmax, objective: not in older trees
             report[stem] = {"ptxas": ptxas_report(_build.build_log(stem)),
                             "sass_atomics": sass_atomics(paths[stem])}
@@ -748,6 +782,16 @@ def phase_build_report(n_trees, n_rows):
         finding = "every shared add compiles to a native ATOMS add"
     report["k1_shared_atomic_finding"] = finding
     report["k1_shared_atomic_opcodes"] = shared
+    # K1's integer instantiation: native 32-bit shared adds, no CAS loop
+    shared_int = {op: c for fn, ops in
+                  report["histogram"]["sass_atomics"].items()
+                  if fn.startswith("xrt_hist_int_kernel")
+                  and isinstance(ops, dict)
+                  for op, c in ops.items() if op.startswith("ATOMS")}
+    if shared_int:
+        report["k1int_shared_atomic_opcodes"] = shared_int
+        check(not any("CAS" in op for op in shared_int),
+              f"K1int's shared adds compile to a CAS loop: {shared_int}")
     # B15 sums in a fixed order: no atomic of any kind
     b15_atomics = {fn: ops for fn, ops in
                    report.get("shap", {}).get("sass_atomics", {}).items()
@@ -1025,7 +1069,7 @@ def phase_kernels(n, records):
         # yardstick: one int64 index_add_ of the quantised rows (the
         # quantisation and the bucket ids precomputed)
         flat = H.flat_bucket_ids(bins, order, seg, n_nodes, nbt)
-        src = H.quantize_gh(gh[order.long()], qs)[:, None, :].expand(
+        src = H.fixed_point_gh(gh[order.long()], qs)[:, None, :].expand(
             n, f, 2).reshape(-1, 2)
         out = torch.zeros((n_nodes * f * nbt, 2), dtype=torch.int64,
                           device="cuda")
@@ -1036,7 +1080,7 @@ def phase_kernels(n, records):
                        cuda_ms(lambda: H.build_histogram_fixed_plain(
                            bins, gh, ident, seg1, 1, nbt, qs), iters=3))
         flat = H.flat_bucket_ids(bins, ident, seg1, 1, nbt)
-        src = H.quantize_gh(gh, qs)[:, None, :].expand(n, f, 2).reshape(-1, 2)
+        src = H.fixed_point_gh(gh, qs)[:, None, :].expand(n, f, 2).reshape(-1, 2)
         out1 = torch.zeros((f * nbt, 2), dtype=torch.int64, device="cuda")
         lib_k1root = cuda_ms(lambda: out1.index_add_(0, flat, src), iters=3)
         del flat, src, out1
@@ -1194,14 +1238,17 @@ def train_expect(rounds, depth):
     return {"K1": rounds * (depth + 1), "K1deq": rounds * (depth + 1),
             "K2": 0, "K2level": rounds * depth,
             "K2leaf": rounds, "K3": rounds * depth, "K3leaf": rounds,
-            "K4": rounds + 1, "B4": 0, "K4eval": 0, "SMX": 0, "SMXeval": 0}
+            "K4": rounds + 1, "B4": 0, "K4eval": 0, "SMX": 0, "SMXeval": 0,
+            # quantized gradients and the quantized wire: off the path
+            **dict.fromkeys(QUANT_COUNTERS[2:], 0)}
 
 
 def check_launches(launches, expect, what):
     for k in expect:
-        check(launches[k] > 0 or expect[k] == 0,
+        got = launches.get(k, 0)  # an older tree lacks the newer counters
+        check(got > 0 or expect[k] == 0,
               f"{k} never launched on {what}")
-        check(launches[k] == expect[k],
+        check(got == expect[k],
               f"{k} launched {launches[k]} times on {what}, expected "
               f"{expect[k]}")
 
@@ -2535,11 +2582,11 @@ class _cpu_fixed_point:
 
         def fixed(bins, gh, rows, seg, n_nodes, nbt, with_hist=True,
                   qscale=None):
+            if not gh.is_floating_point():  # quantized gradients: int32
+                return H.build_histogram_plain(bins, gh, rows, seg, n_nodes,
+                                               nbt, with_hist)
             return H.build_histogram_fixed_plain(bins, gh, rows, seg, n_nodes,
                                                  nbt, qscale, with_hist)
-
-        def scales(engine):
-            return H.quant_scales(engine.gh, engine.n_global, engine.coll.max)
 
         self.saved = [(G, "build_histogram", G.build_histogram),
                       (G, "dequantize", G.dequantize),
@@ -2549,7 +2596,7 @@ class _cpu_fixed_point:
             self.saved += [(LG, "build_histogram", LG.build_histogram),
                            (LG, "dequantize", LG.dequantize)]
             LG.build_histogram, LG.dequantize = fixed, H.dequantize_plain
-        E.TorchEngine._scales = scales
+        E.TorchEngine._scales = _gh_absmax_scales
         if hasattr(E.TorchEngine, "_tree_scales"):  # a sampled tree's
             self.saved.append((E.TorchEngine, "_tree_scales",
                                E.TorchEngine._tree_scales))
@@ -3033,7 +3080,7 @@ def phase_k1_k2_f54(n, records, launches):
     check(all(torch.equal(bits(a), bits(b)) for a, b in pairs),
           "K2 level step at F = 54 not bitwise equal to its plain version")
     flat = H.flat_bucket_ids(bins, order, seg, n_nodes, nbt)
-    src = H.quantize_gh(gh[order.long()], qs)[:, None, :].expand(
+    src = H.fixed_point_gh(gh[order.long()], qs)[:, None, :].expand(
         n, f, 2).reshape(-1, 2)
     out = torch.zeros((n_nodes * f * nbt, 2), dtype=torch.int64,
                       device="cuda")
@@ -6743,8 +6790,8 @@ def _phase_train(res, rounds, depth):
 
 def _exact(launches, expect, key):
     for k, v in expect.items():
-        check(launches[k] == v,
-              f"{key}: {k} launched {launches[k]} times, expected {v}")
+        got = launches.get(k, 0)  # an older tree lacks the newer counters
+        check(got == v, f"{key}: {k} launched {got} times, expected {v}")
 
 
 def _falls(hist, key):
@@ -7274,6 +7321,573 @@ def phase_lossguide(x, y, records, airline=None, rounds=10,
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 19: quantized gradients and the quantized histogram wire
+# ---------------------------------------------------------------------------
+
+#: phase 19's runs: (key, params, ranks); Q0 the f32 main path of the call
+QUANT_RUNS = (
+    ("Q0", {}, 1),
+    ("Q1", {"gh_precision": "int8"}, 1),
+    ("Q2", {"gh_precision": "int16"}, 1),
+    ("Q3", {"hist_quant": "int8"}, 1),
+    ("Q4", {"gh_precision": "int8", "hist_quant": "int8_block"}, 2),
+    ("Q5", {"gh_precision": "int8", "hist_quant": "int8",
+            "grow_policy": "lossguide", "max_leaves": 64}, 1),
+)
+#: the kernel table's rows of phase 19
+QUANT_KERNELS = ("B10", "K1int", "K1form", "B11q", "B11acc", "B11deq")
+QUANT_COUNTERS = ("K1", "K1deq", "K1int", "K1form", "B10", "B11q", "B11acc",
+                  "B11deq")
+
+
+def _wire_launches(mode, world):
+    """(B11q, B11acc, B11deq) of one merge on a quantized wire."""
+    if mode.endswith("_block"):
+        return (2, 0, 2) if world == 1 else (world, world - 1, 1)
+    return (3, 0, 2) if world == 1 else (3, 1, 1)
+
+
+def quantized_expect(params, rounds, depth, n_features, nbt=257, world=1,
+                     held_out=True):
+    """Exact launches a rank of a binary ``train()`` with ``params``'
+    quantization (one device block a rank): per tree B10 once; K1 (int64
+    fixed point) or its integer instantiation at every level, plus a
+    totals-only pass over every node where a sibling level's histogram
+    takes the quantized wire and at the final level; the dequantise step
+    (f32 gradients: the merged sums, the local sums before a wire, the
+    exact totals) or the form-and-dequantise step (integer gradients: a
+    level's formation, the exact totals); B11's kernels per quantized
+    merge (``_wire_launches``). Lossguide: the root, then ``max_leaves -
+    1`` steps whose histogram the wire decides on the reference's two
+    nodes, one K1 launch a step (the smaller child, or both children and
+    their totals on the quantized wire); the rest as ``sampling_expect``
+    and ``lossguide_expect``."""
+    from xgboost_ray_tpu_torch.ops.histogram import wire_quantized
+
+    mode = params.get("hist_quant", "none")
+    min_bytes = params.get("hist_quant_min_bytes", 32768)
+    gh_int = params.get("gh_precision", "float32") != "float32"
+    k1 = "K1int" if gh_int else "K1"
+    c = dict.fromkeys(QUANT_COUNTERS, 0)
+    per_node = n_features * nbt * 2
+
+    def merge(qw, exact_totals):
+        """One histogram's merge (and its exact totals where quantized)."""
+        if qw:
+            q, a, d = _wire_launches(mode, world)
+            c["B11q"] += q
+            c["B11acc"] += a
+            c["B11deq"] += d
+            c["K1deq"] += 0 if gh_int else 1  # the local sums, dequantised
+            if exact_totals:
+                c["K1form" if gh_int else "K1deq"] += 1
+        elif not gh_int:
+            c["K1deq"] += 1
+
+    leaves = params.get("max_leaves", 0)
+    if params.get("grow_policy") == "lossguide":
+        out = lossguide_expect(params, rounds, leaves, held_out)
+        q_root = wire_quantized(mode, per_node, min_bytes)
+        q_step = wire_quantized(mode, 2 * per_node, min_bytes)
+        c[k1] += 1
+        merge(q_root, True)
+        c["K1form"] += 1 if gh_int else 0  # the search's dequantisation
+        for _ in range(leaves - 1):
+            c[k1] += 1
+            merge(q_step, True)
+            c["K1form"] += 1 if gh_int else 0
+    else:
+        out = sampling_expect(params, rounds, depth, held_out)
+        for d in range(depth):
+            built = (1 << d) // 2 if d else 1
+            qw = wire_quantized(mode, built * per_node, min_bytes)
+            c[k1] += 1 + (1 if qw and d else 0)
+            merge(qw, True)
+            c["K1form"] += 1 if gh_int else 0  # the level's formation
+        c[k1] += 1
+        c["K1form" if gh_int else "K1deq"] += 1
+    c["B10"] = 1 if gh_int else 0
+    out.update({k: v * rounds for k, v in c.items()})
+    return out
+
+
+def _gh_absmax_scales(engine):
+    """The round's fixed-point scales on the CPU path that sums in the
+    card's fixed point, the merged absmax kept for B10 as the engine keeps
+    it (``TorchEngine._round_absmax``)."""
+    from xgboost_ray_tpu_torch.ops import histogram as H
+
+    if not hasattr(H, "gh_absmax"):  # an older tree
+        return H.quant_scales(engine.gh, engine.n_global, engine.coll.max)
+    engine.gh_absmax = engine.coll.max(H.gh_absmax(engine.gh))
+    return H.scales_for(engine.gh_absmax, engine.n_global)
+
+
+def _quant_holds(eng, records, flush, n_rows):
+    """B10, K1's integer instantiation, the form-and-dequantise step and
+    B11's kernels against their plain versions on the card, at the HIGGS
+    split's shapes, and timed (``_kernel_record``)."""
+    import torch
+
+    from xgboost_ray_tpu_torch.ops import histogram as H
+    from xgboost_ray_tpu_torch.ops import objectives as O
+    from xgboost_ray_tpu_torch.ops.grow import SALT_SR
+    from xgboost_ray_tpu_torch.ops.random import fold_in
+
+    res = {}
+    gh = eng.gh[0]
+    amax = eng.gh_absmax[0]
+    n = gh.shape[0]
+    key = fold_in((0, 7), SALT_SR)
+    # B10 at int8 and int16 over the training rows, as a 2-block layout's
+    # two ranks (each block its key), zero rows kept zero
+    ghz = gh.clone()
+    ghz[::1000] = 0.0
+    half = n // 2
+    qmax16 = O.gh_qmax("int16", n)
+    for mode in ("int8", "int16"):
+        for lo, hi, d in ((0, half, 0), (half, n, 1)):
+            part = ghz[lo:hi]
+            qc, sc = O.quantize_gh(part, mode, fold_in(key, d), amax, n)
+            qp = O.quantize_gh_plain(part, O.gh_qmax(mode, n), sc,
+                                     fold_in(key, d), qc.dtype)
+            torch.cuda.synchronize()
+            check(torch.equal(qc, qp), f"B10 ({mode}, block {d}) differs "
+                                       f"from its plain version")
+            check(bool((qc[::1000] == 0).all()), f"B10 ({mode}): a zero row "
+                                                 f"does not stay zero")
+    res["b10_qmax_int16"] = qmax16
+    q8, s8 = O.quantize_gh(gh, "int8", key, amax, n)
+    qmax8 = O.gh_qmax("int8", n)
+    _kernel_record(
+        records, "B10", lambda: O.quantize_gh(gh, "int8", key, amax, n),
+        lambda: O.quantize_gh_plain(gh, qmax8, s8, key, torch.int8),
+        sampling_bound_ms(n * (8 + 2), 2 * n * (THREEFRY_OPS + 8)), flush,
+        records["B10"]["launches"], 0.0)
+    # K1's integer instantiation: level 5 (32 nodes) and the root, F = 28
+    # over the training rows' bins, and F = 54 on a cut of 2M rows
+    nbt = 257
+    bins = eng.bins
+    f = bins.shape[1]
+    node = torch.randint(0, 32, (n,), device="cuda",
+                         generator=torch.Generator(device="cuda")
+                         .manual_seed(5))
+    order = torch.sort(node, stable=True).indices.to(torch.int32)
+    seg = torch.cat([torch.zeros(1, dtype=torch.long, device="cuda"),
+                     torch.cumsum(torch.bincount(node, minlength=32), 0)]
+                    ).to(torch.int32)
+    ident = torch.arange(n, dtype=torch.int32, device="cuda")
+    seg1 = torch.tensor([0, n], dtype=torch.int32, device="cuda")
+    for rows, sg, nn, what in ((order, seg, 32, "level 5"),
+                               (ident, seg1, 1, "root")):
+        hc, tc = H.build_histogram(bins, q8, rows, sg, nn, nbt)
+        hp, tp = H.build_histogram_plain(bins, q8, rows, sg, nn, nbt)
+        torch.cuda.synchronize()
+        check(torch.equal(hc, hp) and torch.equal(tc, tp),
+              f"K1int ({what}, F = {f}) differs from its plain version")
+    n54 = min(2_000_000, n)
+    b54, _, o54, s54 = level_inputs(n54, 54, 32, 3, True)
+    q54 = q8[:n54]
+    hc, tc = H.build_histogram(b54, q54, o54, s54, 32, nbt)
+    hp, tp = H.build_histogram_plain(b54, q54, o54, s54, 32, nbt)
+    check(torch.equal(hc, hp) and torch.equal(tc, tp),
+          "K1int (level 5, F = 54) differs from its plain version")
+    del b54, o54, s54, hc, hp
+    flat = H.flat_bucket_ids(bins, order, seg, 32, nbt)
+    src = q8.to(torch.int32)[order.long()][:, None, :].expand(
+        n, f, 2).reshape(-1, 2)
+    out = torch.zeros((32 * f * nbt, 2), dtype=torch.int32, device="cuda")
+    lib_k1int = cuda_ms(lambda: out.index_add_(0, flat, src), iters=3)
+    del flat, src, out
+    hist_bytes = 32 * f * nbt * 2 * 4
+    _kernel_record(
+        records, "K1int",
+        lambda: H.build_histogram(bins, q8, order, seg, 32, nbt),
+        lambda: H.build_histogram_plain(bins, q8, order, seg, 32, nbt),
+        sampling_bound_ms(n * f * 2 + n * 4 + n * 2 + hist_bytes + 32 * 8,
+                          2 * n * f), flush, records["K1int"]["launches"],
+        0.0, library=lib_k1int)
+    # the form-and-dequantise step at level 5: 16 parents, their smaller
+    # children (int32 sums), formed and dequantised with the totals
+    small = H.build_histogram(bins, q8, order, seg, 32, nbt)[0][:16]
+    small = small.contiguous()
+    prev = (small * 2 + 1).contiguous()
+    sir = torch.arange(16, device="cuda") % 3 == 0
+    for args in ((small, prev, sir, s8, torch.int32, True),
+                 (small, None, None, s8, torch.int32, True),
+                 (small.float(), prev, sir, s8, torch.float32, False)):
+        c = H.form_dequantize(*args)
+        p = H.form_dequantize_plain(*args)
+        torch.cuda.synchronize()
+        check(all((a is None and b is None) or torch.equal(bits(a), bits(b))
+                  for a, b in zip(c, p)),
+              "K1form differs from its plain version")
+    cells = 16 * f * nbt * 2
+    _kernel_record(
+        records, "K1form",
+        lambda: H.form_dequantize(small, prev, sir, s8, torch.int32, True),
+        lambda: H.form_dequantize_plain(small, prev, sir, s8, torch.int32,
+                                        True),
+        bound_ms(cells * 4 * 2 + 2 * cells * 4 * 2 + 16, 2 * cells * 3),
+        flush, records["K1form"]["launches"], 0.0)
+    # B11 on a level-5 HIGGS histogram (16 smaller children x 28 x 257 x
+    # 2) in every mode at hist_quant_block 64, 512 and 4096
+    hl = H.dequantize_gh_sums(small, s8) if hasattr(
+        H, "dequantize_gh_sums") else small.float() * s8
+    hl = hl.contiguous()
+    v = hl.numel()
+    for mode in ("int8", "int16"):
+        qmax, qdt = H._QMAX[mode], H._QDTYPE[mode]
+        hr = hl.view(16 * f, nbt * 2)
+        checks = [
+            (lambda: H.wire_quantize(hr, nbt * 2, qmax, qdt,
+                                     absmax_only=True),
+             lambda: H.wire_quantize_plain(hr, nbt * 2, qmax, qdt,
+                                           absmax_only=True)),
+            (lambda: H.wire_quantize(hr, nbt * 2, qmax, qdt, inband=True),
+             lambda: H.wire_quantize_plain(hr, nbt * 2, qmax, qdt,
+                                           inband=True))]
+        q_r, s_r = H.wire_quantize_plain(hr, nbt * 2, qmax, qdt)
+        recv = torch.stack([q_r, q_r.flip(0)])
+        checks.append((lambda: H.wire_accumulate(recv, s_r),
+                       lambda: H.wire_accumulate_plain(recv, s_r)))
+        checks.append((lambda: H.wire_dequantize(q_r, nbt * 2, nbt * 2, s_r),
+                       lambda: H.wire_dequantize_plain(q_r, nbt * 2,
+                                                       nbt * 2, s_r)))
+        for block in (64, 512, 4096):
+            flat = hl.view(1, -1)
+            pay = H.wire_quantize_plain(flat, block, qmax, qdt, inband=True)
+            checks += [
+                (lambda b=block: H.wire_quantize(flat, b, qmax, qdt,
+                                                 inband=True),
+                 lambda b=block: H.wire_quantize_plain(flat, b, qmax, qdt,
+                                                       inband=True)),
+                (lambda b=block, p=pay: H.wire_accumulate(
+                    p.view(-1), flat.view(-1), b),
+                 lambda b=block, p=pay: H.wire_accumulate_plain(
+                    p.view(-1), flat.view(-1), b)),
+                (lambda b=block, p=pay: H.wire_dequantize(p, v, b),
+                 lambda b=block, p=pay: H.wire_dequantize_plain(p, v, b))]
+        for kern, plain in checks:
+            a, b = kern(), plain()
+            torch.cuda.synchronize()
+            same = (all(torch.equal(bits(x), bits(y)) for x, y in zip(a, b))
+                    if isinstance(a, tuple) else torch.equal(bits(a),
+                                                             bits(b)))
+            check(same, f"B11 ({mode}) differs from its plain version")
+    flat = hl.view(1, -1)
+    pay = H.wire_quantize_plain(flat, 512, 127, torch.int8, inband=True)
+    sw = -(-v // 512) * 4
+    _kernel_record(
+        records, "B11q",
+        lambda: H.wire_quantize(flat, 512, 127, torch.int8, inband=True),
+        lambda: H.wire_quantize_plain(flat, 512, 127, torch.int8,
+                                      inband=True),
+        bound_ms(v * 4 + v + sw, 4 * v), flush,
+        records["B11q"]["launches"], 0.0)
+    _kernel_record(
+        records, "B11acc",
+        lambda: H.wire_accumulate(pay.view(-1), flat.view(-1), 512),
+        lambda: H.wire_accumulate_plain(pay.view(-1), flat.view(-1), 512),
+        bound_ms(v + sw + v * 4 + v * 4, 2 * v), flush,
+        records["B11acc"]["launches"], 0.0)
+    _kernel_record(
+        records, "B11deq", lambda: H.wire_dequantize(pay, v, 512),
+        lambda: H.wire_dequantize_plain(pay, v, 512),
+        bound_ms(v + sw + v * 4, 2 * v), flush,
+        records["B11deq"]["launches"], 0.0)
+    del hl, small, prev, pay, q8, node, order, ident, ghz
+    torch.cuda.empty_cache()
+    return res
+
+
+def _quant_world(world, data, params, rounds, options):
+    """One ``train()`` in the 2-rank ``world``: rank 0's result, the ranks'
+    models checked equal."""
+    from xgboost_ray_tpu_torch import distributed as D
+
+    out = world.run(D._train_rank, data, params, rounds, options)
+    check(out[0]["model"] == out[1]["model"],
+          "Q4: the ranks' models differ")
+    return out
+
+
+def phase_quantized(x, y, records, rounds=10, depth=6, compare_rows=200_000,
+                    lossguide_rows=50_000):
+    """Phase 19 at full width: the HIGGS split (10,500,000 rows train, the
+    last 500,000 the test set), depth 6, 10 rounds, ``logloss`` on the test
+    set. Q0 the f32 main path of the call; Q1 ``gh_precision="int8"``; Q2
+    ``"int16"`` (qmax 204 at these rows); Q3 ``hist_quant="int8"`` at one
+    rank; Q4 int8 gradients on the ``int8_block`` wire as 2 gloo ranks
+    sharing the card (the NCCL wire needs a call of two or more cards:
+    ``--ranks-only`` there); Q5 L1's lossguide (64 leaves) with int8
+    gradients on the int8 wire. Each run's launches counted and checked
+    exactly (``quantized_expect``), the test logloss falling and recorded
+    beside Q0's, ``hist_allreduce_bytes_per_round`` and
+    ``gh_plane_bytes_per_shard`` against their formulas. Q1 (2 rounds on a
+    ``compare_rows`` cut) and Q5 (``lossguide_rows``) equal the port's CPU
+    path bit for bit with no fixed-point patch, Q4 the CPU path's 2-rank
+    gloo world; Q3 the fixed-point CPU path (``_cpu_fixed_point``).
+    Then B10, K1's integer instantiation, the form-and-dequantise step and
+    B11's kernels against their plain versions and timed
+    (``_quant_holds``)."""
+    import torch
+
+    import xgboost_ray_tpu_torch as xrt
+    from xgboost_ray_tpu_torch import distributed as D
+    from xgboost_ray_tpu_torch.ops import objectives as O
+
+    t_phase = time.perf_counter()
+    n = x.shape[0]
+    n_train = n - TEST_ROWS
+    f = x.shape[1]
+    res = {"phase": "quantized", "card": CARD, "rows": n,
+           "train_rows": n_train, "test_rows": TEST_ROWS, "rounds": rounds,
+           "runs": {}, "steps_s": {}}
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    train = _phase_train(res, rounds, depth)
+    # both worlds boot while the one-rank runs go: the card's (Q4) and the
+    # CPU's (Q4's CPU path)
+    world_gpu = D.World(2, "cuda", backend="gloo")
+    world_cpu = D.World(2, "cpu")
+    cut = min(compare_rows, n_train)
+    try:
+        t0 = time.perf_counter()
+        data = D.share({"x": x[:n_train], "label": y[:n_train]})
+        test = D.share({"x": x[n_train:], "label": y[n_train:]})
+        cut_data = D.share({"x": x[:cut], "label": y[:cut]})
+        opts = {"device": "cuda", "num_actors": 2,
+                "eval_names": ["train", "test"],
+                "eval_data": [None, dict(test, sharding="INTERLEAVED")]}
+        res["steps_s"]["share"] = time.perf_counter() - t0
+        keep = {}
+        ref_ll = None
+        for key, extra, ranks in QUANT_RUNS:
+            params = {"objective": "binary:logistic", **extra}
+            tdepth = depth
+            t0 = time.perf_counter()
+            if ranks == 1:
+                r = train(params, xrt.RayDMatrix(x[:n_train], y[:n_train]),
+                          xrt.RayDMatrix(x[n_train:], y[n_train:]),
+                          tdepth=tdepth)
+                launches, ev, extra_res = r["launches"], r["ev"], None
+                bytes_round = None
+                keep[key] = r
+                round_ms = r["round_ms"]
+            else:
+                out = _quant_world(world_gpu, data, dict(
+                    params, max_depth=tdepth, max_bin=256, seed=7,
+                    eval_metric=["logloss"]), rounds, opts)
+                launches = out[0]["launches"]
+                ev = out[0]["evals_result"]
+                extra_res = out[0]["additional_results"]
+                round_ms = [s * 1e3 for s in extra_res["round_times_s"]]
+            expect = quantized_expect(params, rounds, tdepth, f, world=ranks)
+            _exact(launches, expect, key)
+            ll = _falls(ev["test"]["logloss"], key)
+            if key == "Q0":
+                ref_ll = ll[-1]
+            run = {"params": params, "ranks": ranks, "launches": {
+                       k: launches[k] for k in expect},
+                   "round_ms": round_ms,
+                   "round_ms_median": float(np.median(round_ms)),
+                   "test_logloss": ll, "test_logloss_f32_main_path": ref_ll,
+                   "wall_s": time.perf_counter() - t0}
+            if extra_res is not None:
+                run["hist_allreduce_bytes_per_round"] = extra_res[
+                    "hist_allreduce_bytes_per_round"]
+                run["gh_plane_bytes_per_shard"] = extra_res[
+                    "gh_plane_bytes_per_shard"]
+            else:
+                eng = r["engine"]
+                run["hist_allreduce_bytes_per_round"] = (
+                    eng.hist_allreduce_bytes_per_round)
+                run["gh_plane_bytes_per_shard"] = (
+                    eng.gh_plane_bytes_per_shard())
+            slots = -(-n_train // ranks)
+            itemsize = O.gh_plane_itemsize(params.get("gh_precision",
+                                                      "float32"))
+            check(run["gh_plane_bytes_per_shard"] == slots * 2 * itemsize,
+                  f"{key}: gh_plane_bytes_per_shard "
+                  f"{run['gh_plane_bytes_per_shard']}, expected "
+                  f"{slots * 2 * itemsize}")
+            if ranks == 1:
+                # one rank: no wire; the card's round-scale MAX moves
+                # nothing at world 1 either
+                check(run["hist_allreduce_bytes_per_round"] == 0,
+                      f"{key}: bytes on one rank")
+            else:
+                run["bytes_expected"] = quant_world_bytes(params, tdepth, f)
+                check(run["hist_allreduce_bytes_per_round"]
+                      == run["bytes_expected"],
+                      f"{key}: hist_allreduce_bytes_per_round "
+                      f"{run['hist_allreduce_bytes_per_round']}, expected "
+                      f"{run['bytes_expected']}")
+            if key == "Q2":
+                # 204 at the HIGGS split's 10,500,000 rows
+                run["qmax"] = O.gh_qmax("int16", n_train)
+                check(run["qmax"] == min(32767, (2 ** 31 - 1) // n_train),
+                      f"Q2: qmax {run['qmax']}")
+            res["runs"][key] = run
+        for k in QUANT_KERNELS:  # Q4's: its rank 0's
+            records[k]["launches"] = sum(
+                res["runs"][q]["launches"].get(k, 0) for q, _, _ in QUANT_RUNS)
+        emit({"phase": "quantized_rounds", "card": CARD,
+              **{k: res["runs"][k]["round_ms_median"]
+                 for k, _, _ in QUANT_RUNS},
+              "test_logloss": {k: res["runs"][k]["test_logloss"][-1]
+                               for k, _, _ in QUANT_RUNS}})
+        t0 = time.perf_counter()
+        res.update(_quant_holds(keep["Q1"]["engine"], records, flush,
+                                n_train))
+        res["steps_s"]["holds"] = time.perf_counter() - t0
+        keep.clear()
+        torch.cuda.empty_cache()
+        # the CPU paths on cuts (2 rounds)
+        t0 = time.perf_counter()
+        cmp = {}
+        runs = {k: v for k, v, _ in QUANT_RUNS}
+        for key, rows in (("Q1", cut), ("Q5", min(lossguide_rows, n_train))):
+            # quantized gradients: the CPU path as it is, no patch
+            params = dict(runs[key], objective="binary:logistic")
+            card = train(params, xrt.RayDMatrix(x[:rows], y[:rows]), None,
+                         n_rounds=2)
+            cpu = train(params, xrt.RayDMatrix(x[:rows], y[:rows]), None,
+                        n_rounds=2, device="cpu")
+            same = (card["bst"].get_dump(with_stats=True)
+                    == cpu["bst"].get_dump(with_stats=True))
+            check(same, f"{key}: the card's model differs from the CPU "
+                        f"path's")
+            cmp[key] = {"rows": rows, "rounds": 2, "dumps_equal_cpu": same}
+        q4 = dict(QUANT_RUNS[4][1], objective="binary:logistic",
+                  max_depth=depth, max_bin=256, seed=7)
+        outs = [_quant_world(w, cut_data, q4, 2, {"device": dev})
+                for w, dev in ((world_gpu, "cuda"), (world_cpu, "cpu"))]
+        same = outs[0][0]["model"] == outs[1][0]["model"]
+        check(same, "Q4: the card's 2-rank model differs from the CPU "
+                    "path's 2-rank world")
+        cmp["Q4"] = {"rows": cut, "rounds": 2,
+                     "models_equal_cpu_world": same}
+        cmp["Q3"] = dict(_same_on_cpu(
+            train, "Q3", dict(runs["Q3"], objective="binary:logistic"),
+            lambda: xrt.RayDMatrix(x[:cut], y[:cut])), rows=cut)
+        res["cpu_paths"] = cmp
+        res["steps_s"]["cpu_paths"] = time.perf_counter() - t0
+    finally:
+        world_gpu.close()
+        world_cpu.close()
+    res["phase_s"] = time.perf_counter() - t_phase
+    emit(res)
+    return res
+
+
+def phase_quant_nccl(x, y, rounds, depth=6):
+    """Phase 19's Q4 (int8 gradients on the ``int8_block`` wire) as 2 NCCL
+    ranks, a card each, against the same run as 2 gloo ranks (a card each
+    too: the same kernels, another transport): the same model, each rank's
+    launches and bytes as ``quantized_expect`` / ``quant_world_bytes``
+    count them. With one card: reported as not run."""
+    import torch
+
+    from xgboost_ray_tpu_torch import distributed as D
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        emit({"phase": "quant_nccl", "not_run": f"{cards} device"})
+        return None
+    params = {"objective": "binary:logistic", "gh_precision": "int8",
+              "hist_quant": "int8_block", "max_depth": depth, "max_bin": 256,
+              "seed": 7, "eval_metric": ["logloss"]}
+    data = D.share({"x": x, "label": y})
+    res = {"phase": "quant_nccl", "rows": int(x.shape[0]), "card": CARD}
+    models = {}
+    for backend in ("nccl", "gloo"):
+        t0 = time.perf_counter()
+        out = D.launch_world(D._train_rank, 2, "cuda", data, params, rounds,
+                             backend=backend)
+        extra = out[0]["additional_results"]
+        check(extra["backend"] == backend, f"Q4 over {extra['backend']}")
+        expect = quantized_expect(params, rounds, depth, x.shape[1], world=2,
+                                  held_out=False)
+        for r, o in enumerate(out):
+            _exact(o["launches"], expect, f"Q4 {backend} rank {r}")
+        nbytes = quant_world_bytes(params, depth, x.shape[1])
+        check(extra["hist_allreduce_bytes_per_round"] == nbytes,
+              f"Q4 {backend}: bytes {extra['hist_allreduce_bytes_per_round']}"
+              f", expected {nbytes}")
+        models[backend] = out[0]["model"]
+        rt = [t * 1e3 for t in extra["round_times_s"]]
+        res[backend] = {"round_ms": rt, "round_ms_median": float(np.median(rt)),
+                        "hist_allreduce_bytes_per_round": nbytes,
+                        "wall_s": time.perf_counter() - t0}
+    check(models["nccl"] == models["gloo"],
+          "Q4: the NCCL ranks' model differs from the gloo ranks'")
+    res["models_equal"] = True
+    emit(res)
+    return res
+
+
+def quant_world_bytes(params, depth, n_features, nbt=257, world=2):
+    """``hist_allreduce_bytes_per_round`` of one binary tree at ``world``
+    ranks on the card (ring factor 2 (n - 1) / n for all-reduces): the
+    round's scales' MAX of (max|g|, max|h|) (f32 [1, 2]); per level the
+    merged histogram (int32 with integer gradients, else int64; on a
+    quantized wire its bytes), the children's row counts (int64, levels
+    below the root), the exact totals where quantized (int32 / int64
+    [n, 2]); the final totals."""
+    import torch
+
+    from xgboost_ray_tpu_torch.ops import histogram as H
+
+    mode = params.get("hist_quant", "none")
+    min_bytes = params.get("hist_quant_min_bytes", 32768)
+    gh_int = params.get("gh_precision", "float32") != "float32"
+    item = 4 if gh_int else 8
+    ring = 2 * (world - 1) / world
+    total = int(ring * 2 * 4)
+    for d in range(depth):
+        built = (1 << d) // 2 if d else 1
+        cells = built * n_features * nbt * 2
+        if H.wire_quantized(mode, cells, min_bytes):
+            counter = H.AllreduceBytes(world)
+
+            class _Count:
+                world, rank, bytes = 2, 0, counter
+
+                def sum(self, t):
+                    counter.add_allreduce(t)
+                    return t
+
+                def max(self, t):
+                    counter.add_allreduce(t)
+                    return t
+
+                def all_to_all(self, t):
+                    counter.add_all_to_all(t)
+                    return t
+
+                def ring_exchange(self, t):
+                    counter.add_ppermute(t)
+                    return t
+
+                def all_gather(self, t):
+                    out = torch.cat([t] * world)
+                    counter.add_allgather(out)
+                    return out
+
+            H.quantized_hist_allreduce(
+                torch.zeros((built, n_features, nbt, 2)), mode, _Count(), 0,
+                params.get("hist_quant_block", 512))
+            total += counter.total + int(ring * (1 << d) * 2 * item)
+        else:
+            total += int(ring * cells * item)
+        if d:
+            total += int(ring * (1 << d) * 8)
+    total += int(ring * (1 << depth) * 2 * item)
+    return total
+
+
 def profiled_ms(fn, iters=10):
     """``device_ms`` where ``torch.profiler`` records the kernel, None where
     it records no device time (``PERF.md`` §7)."""
@@ -7525,6 +8139,38 @@ KERNELS = {
                    "(launches: L1)", route="cuda",
                    source="xgboost_ray_tpu_torch/csrc/lossguide.cu",
                    replaces="xgboost_ray_tpu/ops/grow_lossguide.py:200"),
+    "B10": dict(name="B10 quantized gradients at the source: stochastic "
+                "rounding of the 10,500,000 HIGGS training rows' (g, h) to "
+                "int8 (launches: Q1-Q5, Q4's rank 0)", route="cuda",
+                source="xgboost_ray_tpu_torch/csrc/quant.cu",
+                replaces="xgboost_ray_tpu/ops/objectives.py:316"),
+    "K1int": dict(name="K1 integer instantiation: int8 gh, exact int32 sums "
+                  "(level 5: 32 nodes over 10,500,000 rows; launches: "
+                  "Q1-Q5, Q4's rank 0)", route="cuda",
+                  source="xgboost_ray_tpu_torch/csrc/histogram.cu",
+                  replaces="46abde5^:xgboost_ray_tpu/ops/hist_pallas.py:105"),
+    "K1form": dict(name="K1 form and dequantise: the sibling formed in the "
+                   "integer domain and the level dequantised once, node "
+                   "totals (level 5: 16 parents; launches: Q1-Q5, Q4's "
+                   "rank 0)", route="cuda",
+                   source="xgboost_ray_tpu_torch/csrc/histogram.cu",
+                   replaces="xgboost_ray_tpu/ops/grow.py:577"),
+    "B11q": dict(name="B11 wire quantise: block absmax, scale, round-half-"
+                 "even to int8, scales in-band (a level-5 HIGGS histogram, "
+                 "230,272 values, block 512; launches: Q1-Q5, Q4's rank "
+                 "0)",
+                 route="cuda", source="xgboost_ray_tpu_torch/csrc/quant.cu",
+                 replaces="xgboost_ray_tpu/ops/histogram.py:188"),
+    "B11acc": dict(name="B11 wire dequantise-accumulate: a ring hop's "
+                   "fma(q, scale, x) (the same histogram; launches: Q4's "
+                   "rank 0: one rank has no hop)", route="cuda",
+                   source="xgboost_ray_tpu_torch/csrc/quant.cu",
+                   replaces="xgboost_ray_tpu/ops/histogram.py:367"),
+    "B11deq": dict(name="B11 wire dequantise: a gathered int8 payload to "
+                   "f32 (the same histogram; launches: Q1-Q5, Q4's rank "
+                   "0)",
+                   route="cuda", source="xgboost_ray_tpu_torch/csrc/quant.cu",
+                   replaces="xgboost_ray_tpu/ops/histogram.py:269"),
     **{f"B8serve{m}": dict(
         name=f"B8 forest walk: margins, heap layout, a serve batch of {m} "
              f"rows (windows mapping; launches: every batch of the heap "
@@ -7668,6 +8314,14 @@ def run(args):
             keys = LOSSGUIDE_KERNELS
         emit({"phase_kernels": {k: records[k] for k in keys}})
         return
+    if args.quantized_only:
+        records = {k: dict(v) for k, v in KERNELS.items()}
+        emit({"phase": "ptxas", **k2_ptxas(), **quant_ptxas()})
+        x, y = make_higgs_like(args.rows, 28, seed=0)
+        phase_quantized(x, y, records,
+                        compare_rows=min(args.compare_rows, args.rows))
+        emit({"quantized_kernels": {k: records[k] for k in QUANT_KERNELS}})
+        return
     if args.sampling_only:
         records = {k: dict(v) for k, v in KERNELS.items()}
         x, y = make_higgs_like(args.rows, 28, seed=0)
@@ -7685,6 +8339,8 @@ def run(args):
         x, y = make_higgs_like(args.rows, 28, seed=0)
         bst, _, _, margins = phase_main(x, y, args.rounds, 6, 1)
         phase_ranks(x, y, args.rounds, 6, bst, margins)
+        if hasattr(_build, "SIGNATURES") and "quant" in _build.SIGNATURES:
+            phase_quant_nccl(x, y, args.rounds)
         return
     if args.shap_only or args.pool_only:
         records = {k: dict(v) for k, v in KERNELS.items()}
@@ -7737,6 +8393,9 @@ def run(args):
     results["lossguide"] = phase_lossguide(
         x, y, records, airline=airline, compare_rows=min(50_000, args.rows))
     del airline
+    torch.cuda.empty_cache()
+    results["quantized"] = phase_quantized(
+        x, y, records, compare_rows=min(args.compare_rows, args.rows))
     torch.cuda.empty_cache()
 
     if args.rows < 11_000_000:
@@ -7896,6 +8555,10 @@ def main():
                     help="only the build and phase 18 (lossguide growth at "
                          "the HIGGS split and the airline set's shape); "
                          "prints no result line")
+    ap.add_argument("--quantized-only", action="store_true",
+                    help="only the build and phase 19 (quantized gradients "
+                         "and the quantized histogram wire at the HIGGS "
+                         "split); prints no result line")
     ap.add_argument("--facade-only", action="store_true",
                     help="only the build and phase 10 (the sklearn "
                          "estimators, custom objectives and metrics, files, "

@@ -762,7 +762,9 @@ def test_gloo_world_on_one_card_equals_one_rank(cuda):
               "SMX": 0, "SMXeval": 0, "B9a": 0, "B13": 0, "B9r": 0, "B14": 0,
               "B12r": 0, "B12f": 0, "K2masked": 0, "K4trees": 0,
               "K2cons": 0, "SMXtrees": 0, "K2cat": 0, "K2nodes": 0,
-              "K2nodescat": 0, "K3cat": 0, "B4cat": 0, "LGstep": 0}
+              "K2nodescat": 0, "K3cat": 0, "B4cat": 0, "LGstep": 0,
+              "B10": 0, "K1int": 0, "K1form": 0, "B11q": 0, "B11acc": 0,
+              "B11deq": 0}
     # int64 histograms and totals, int64 child counts, the f32 MAX of
     # (max|g|, max|h|) for the round's scales, the four f64 metric sums
     hist_cells = 10 * 257 * 2 * (1 + sum(1 << (d - 1) for d in range(1, 6)))

@@ -301,7 +301,7 @@ def test_fixed_histogram_no_overflow_at_the_bound():
     assert int(h[0, 0, 0, 0]) == q * (n - 2 * n_neg)
     assert int(h[0, 0, 0, 1]) == int(t[0, 1]) == q * n < 2 ** 62
     assert n * (q + 1) >= 2 ** 61  # the bound is tight: e is the largest
-    assert torch.equal(th.quantize_gh(gh, qs)[:2, 1],
+    assert torch.equal(th.fixed_point_gh(gh, qs)[:2, 1],
                        torch.tensor([q, q], dtype=torch.int64))
 
 
@@ -394,3 +394,28 @@ def test_build_histogram_on_the_cpu_takes_no_qscale():
         th.build_histogram(bins, gh, order, seg, 6, 257, qscale=qs)
     h, t = th.build_histogram(bins, gh, order, seg, 6, 257)
     assert h.dtype == torch.float32 and t.dtype == torch.float32
+
+
+def test_histogram_of_middle_nodes_equals_their_slice_of_the_level():
+    """``seg[0]`` past 0 (the lossguide grower's two children, the middle
+    of its three-node level): the nodes' rows only, in the f32, integer
+    and fixed-point plain versions."""
+    bins, gh, order, seg, qs = _fixed_inputs(21)
+    bins_i, gh_f, pos = _level(22)
+    order_i, seg_i = _sorted_layout(pos, 8)
+    gh_i = torch.from_numpy(gh_f).to(torch.int8)
+    cases = (
+        (lambda o, s, k: th.build_histogram_plain(
+            torch.from_numpy(bins_i), gh_i, o, s, k, 257), order_i, seg_i),
+        (lambda o, s, k: th.build_histogram_plain(
+            torch.from_numpy(bins_i), torch.from_numpy(gh_f), o, s, k, 257),
+         order_i, seg_i),
+        (lambda o, s, k: th.build_histogram_fixed_plain(
+            bins, gh, o, s, k, 257, qs), order, seg),
+    )
+    for build, o, s in cases:
+        whole, whole_tot = build(o, s, s.shape[0] - 1)
+        mid, mid_tot = build(o, s[2:5].contiguous(), 2)
+        assert int(s[2]) > 0
+        assert torch.equal(mid, whole[2:4])
+        assert torch.equal(mid_tot, whole_tot[2:4])

@@ -311,8 +311,22 @@ def test_rf_estimators_match_jax(name, kwargs, key):
 @pytest.mark.parametrize("name,kwargs,key", [
     ("RayXGBClassifier", dict(hist_quant="int8"), "hist_quant"),
     ("RayXGBRegressor", dict(gh_precision="int8"), "gh_precision"),
-    ("RayXGBRFClassifier", dict(booster="dart"), "booster"),
     ("RayXGBClassifier", dict(gh_precision="int16"), "gh_precision"),
+])
+def test_quantized_estimators_fit(name, kwargs, key):
+    """The estimators train with quantized gradients or the quantized
+    histogram wire (``key``): one round on the CPU, and they predict."""
+    x, y = _bc()
+    est = getattr(ts, name)(n_estimators=1, device="cpu",
+                            hist_quant_min_bytes=0, **kwargs)
+    est.fit(x, y)
+    assert est.get_xgb_params()[key] == kwargs[key]
+    pred = est.predict(x)
+    assert pred.shape == (x.shape[0],) and np.isfinite(pred).all()
+
+
+@pytest.mark.parametrize("name,kwargs,key", [
+    ("RayXGBRFClassifier", dict(booster="dart"), "booster"),
     ("RayXGBRegressor", dict(booster="gblinear"), "booster"),
 ])
 def test_out_of_slice_estimators_raise(name, kwargs, key):

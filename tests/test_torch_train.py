@@ -186,10 +186,26 @@ def test_sampling_settings_train_like_jax(key, value):
     ("gh_precision", "int8"),
     ("hist_quant", "int8_block"),
     ("gh_precision", "int16"),
-    ("booster", "dart"),
-    ("booster", "gblinear"),
     ("hist_quant", "int8"),
     ("hist_quant", "int16"),
+])
+def test_quantized_params_train(key, value):
+    """Quantized gradients and the quantized histogram wire train: one
+    round on the CPU, and the model predicts."""
+    x = np.random.default_rng(0).standard_normal((50, 3)).astype(np.float32)
+    dm = tx.RayDMatrix(x, (x[:, 0] > 0).astype(np.float32))
+    params = {"objective": "binary:logistic", key: value,
+              "hist_quant_min_bytes": 0}
+    bst = tx.train(params, dm, 1, device="cpu",
+                   ray_params=tx.RayParams(num_actors=1))
+    assert bst.num_boosted_rounds() == 1
+    pred = bst.predict(x, device="cpu")
+    assert pred.shape == (50,) and np.isfinite(pred).all()
+
+
+@pytest.mark.parametrize("key,value", [
+    ("booster", "dart"),
+    ("booster", "gblinear"),
     ("objective", "reg:nope"),
     ("eval_metric", "pre"),
     ("eval_metric", ["error@0.1", "error@0.2", "error@0.3", "error@0.4",

@@ -346,5 +346,406 @@ extern "C" int xrt_hist_dequant(const long long* in, float* out,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// K1's integer instantiation (gh_precision): int8 / int16 gradients, exact
+// int32 sums. The reference's max_rows cap (qmax * global rows < 2^31)
+// proves that no sum overflows, so each cell is one 32-bit word a channel:
+// two planes (g, h), bin-major [nbt][nf] as above, taken by native shared
+// ATOMS.ADD with no carry word, flushed with native 32-bit global atomics
+// (RED.E.ADD) into the int32 [.., nbt, 2] layout. Integer adds are
+// associative: any order of the atomics gives the same bits, and so does
+// the plain version's scatter.
+// ---------------------------------------------------------------------------
+
+template <typename BinT, typename QT>
+__device__ __forceinline__ void xrt_hist_accumulate_int(
+    const BinT* __restrict__ bins, const QT* __restrict__ gh,
+    const int (&r)[XRT_HIST_UNROLL], int n_features, int f0, int fl, int nf,
+    int plane, unsigned* sh) {
+  int qg[XRT_HIST_UNROLL], qh[XRT_HIST_UNROLL];
+  int bv[XRT_HIST_UNROLL];
+#pragma unroll
+  for (int u = 0; u < XRT_HIST_UNROLL; ++u) {
+    qg[u] = qh[u] = 0;
+    bv[u] = 0;
+    if (r[u] >= 0) {
+      qg[u] = (int)gh[2 * (size_t)r[u]];
+      qh[u] = (int)gh[2 * (size_t)r[u] + 1];
+      bv[u] = (int)bins[(size_t)r[u] * n_features + f0 + fl];
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < XRT_HIST_UNROLL; ++u) {
+    if (r[u] < 0) continue;
+    const int c = bv[u] * nf + fl;
+    atomicAdd(sh + c, (unsigned)qg[u]);
+    atomicAdd(sh + plane + c, (unsigned)qh[u]);
+  }
+}
+
+template <typename BinT, typename QT>
+__global__ void __launch_bounds__(XRT_HIST_THREADS, XRT_HIST_CTAS_PER_SM)
+xrt_hist_int_kernel(const BinT* __restrict__ bins, const QT* __restrict__ gh,
+                    const int* __restrict__ rows, const int* __restrict__ seg,
+                    int n_nodes, int n_features, int nbt, int ftile,
+                    int min_rows, int* __restrict__ hist,
+                    int* __restrict__ totals) {
+  extern __shared__ unsigned xrt_hist_smem[];
+  __shared__ unsigned wtot[XRT_HIST_WARPS][2];
+  const int f0 = blockIdx.y * ftile;
+  const int nf = min(ftile, n_features - f0);
+  const int plane = nf * nbt;
+  unsigned* sh = xrt_hist_smem;  // g, h planes
+  // the CTAs split [seg[0], seg[n_nodes]): the first node may start past 0
+  // (the lossguide grower's two children, the middle of a three-node level)
+  const int base = seg[0];
+  const int m = seg[n_nodes];
+  int per = (m - base + gridDim.x - 1) / gridDim.x;
+  per = max(per, min_rows);
+  const int p0 = base + blockIdx.x * per;
+  const int p1 = min(m, p0 + per);
+  if (p0 >= p1) return;
+  for (int i = threadIdx.x; i < 2 * plane; i += blockDim.x) sh[i] = 0;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int rpw = 32 / nf;
+  const int sub = lane / nf;
+  const int fl = lane - sub * nf;
+  const bool on = sub < rpw;
+  const int step = rpw * XRT_HIST_UNROLL;
+  const int stride = XRT_HIST_WARPS * step;
+  const int cells = nf * nbt;
+  __syncthreads();
+
+  for (int node = xrt_hist_node_of(seg, n_nodes, p0);
+       node < n_nodes && seg[node] < p1; ++node) {
+    const int a = max(p0, seg[node]);
+    const int b = min(p1, seg[node + 1]);
+    if (a >= b) continue;
+    int r[XRT_HIST_UNROLL];
+    int q = a + warp * step;
+#pragma unroll
+    for (int u = 0; u < XRT_HIST_UNROLL; ++u) {
+      const int p = q + u * rpw + sub;
+      r[u] = (on && p < b) ? __ldg(rows + p) : -1;
+    }
+    for (; q < b; q += stride) {
+      int rn[XRT_HIST_UNROLL];
+#pragma unroll
+      for (int u = 0; u < XRT_HIST_UNROLL; ++u) {
+        const int p = q + stride + u * rpw + sub;
+        rn[u] = (on && p < b) ? __ldg(rows + p) : -1;
+      }
+      xrt_hist_accumulate_int<BinT, QT>(bins, gh, r, n_features, f0, fl, nf,
+                                        plane, sh);
+#pragma unroll
+      for (int u = 0; u < XRT_HIST_UNROLL; ++u) r[u] = rn[u];
+    }
+    __syncthreads();
+    int* out = hist + ((size_t)node * n_features + f0) * nbt * 2;
+    unsigned tg = 0, th = 0;
+    for (int i = threadIdx.x; i < cells; i += blockDim.x) {
+      const int bin = i / nf;
+      const int f = i - bin * nf;
+      const unsigned g = sh[i];
+      const unsigned h = sh[plane + i];
+      sh[i] = 0;
+      sh[plane + i] = 0;
+      if (g != 0 || h != 0) {
+        atomicAdd((unsigned*)out + 2 * (f * nbt + bin), g);
+        atomicAdd((unsigned*)out + 2 * (f * nbt + bin) + 1, h);
+      }
+      if (f == 0) {
+        tg += g;
+        th += h;
+      }
+    }
+    if (blockIdx.y == 0) {
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) {
+        tg += __shfl_down_sync(0xffffffffu, tg, o);
+        th += __shfl_down_sync(0xffffffffu, th, o);
+      }
+      if (lane == 0) {
+        wtot[warp][0] = tg;
+        wtot[warp][1] = th;
+      }
+    }
+    __syncthreads();
+    if (blockIdx.y == 0 && threadIdx.x == 0) {
+      tg = 0;
+      th = 0;
+      for (int w = 0; w < XRT_HIST_WARPS; ++w) {
+        tg += wtot[w][0];
+        th += wtot[w][1];
+      }
+      if (tg != 0 || th != 0) {
+        atomicAdd((unsigned*)totals + 2 * node, tg);
+        atomicAdd((unsigned*)totals + 2 * node + 1, th);
+      }
+    }
+    __syncthreads();
+  }
+}
+
+template <typename QT>
+__global__ void __launch_bounds__(XRT_HIST_THREADS)
+xrt_node_totals_int_kernel(const QT* __restrict__ gh,
+                           const int* __restrict__ rows,
+                           const int* __restrict__ seg, int n_nodes,
+                           int min_rows, int* __restrict__ totals) {
+  const int m = seg[n_nodes];
+  int per = (m + gridDim.x - 1) / gridDim.x;
+  per = max(per, min_rows);
+  const int p0 = blockIdx.x * per;
+  const int p1 = min(m, p0 + per);
+  if (p0 >= p1) return;
+  for (int node = xrt_hist_node_of(seg, n_nodes, p0);
+       node < n_nodes && seg[node] < p1; ++node) {
+    const int a = max(p0, seg[node]);
+    const int b = min(p1, seg[node + 1]);
+    if (a >= b) continue;
+    unsigned tg = 0, th = 0;
+    for (int p = a + threadIdx.x; p < b; p += blockDim.x) {
+      const int r = __ldg(rows + p);
+      tg += (unsigned)(int)gh[2 * (size_t)r];
+      th += (unsigned)(int)gh[2 * (size_t)r + 1];
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      tg += __shfl_down_sync(0xffffffffu, tg, o);
+      th += __shfl_down_sync(0xffffffffu, th, o);
+    }
+    if ((threadIdx.x & 31) == 0 && (tg != 0 || th != 0)) {
+      atomicAdd((unsigned*)totals + 2 * node, tg);
+      atomicAdd((unsigned*)totals + 2 * node + 1, th);
+    }
+  }
+}
+
+template <typename BinT, typename QT>
+static int launch_hist_int(const void* bins, const void* gh, const int* rows,
+                           const int* seg, int n_nodes, int n_features,
+                           int nbt, int ftile, int grid_x, int min_rows,
+                           int* hist, int* totals, cudaStream_t stream) {
+  const size_t smem = (size_t)2 * ftile * nbt * sizeof(unsigned);
+  auto kernel = xrt_hist_int_kernel<BinT, QT>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             (int)cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(grid_x, (n_features + ftile - 1) / ftile);
+  kernel<<<grid, XRT_HIST_THREADS, smem, stream>>>(
+      (const BinT*)bins, (const QT*)gh, rows, seg, n_nodes, n_features, nbt,
+      ftile, min_rows, hist, totals);
+  return (int)cudaGetLastError();
+}
+
+// K1 over integer gradients: gh [N, 2] int8 (gh_bytes 1) or int16 (2);
+// hist [n_nodes, F, nbt, 2] and totals [n_nodes, 2] int32, zeroed by the
+// caller; the rest as xrt_hist_build (two word planes: 8 x ftile x nbt
+// bytes of shared memory).
+extern "C" int xrt_hist_build_int(const void* bins, int bin_bytes,
+                                  const void* gh, int gh_bytes,
+                                  const int* rows, const int* seg,
+                                  int n_nodes, int n_features, int nbt,
+                                  int ftile, int grid_x, int min_rows,
+                                  int with_hist, int* hist, int* totals,
+                                  void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (gh_bytes != 1 && gh_bytes != 2) return (int)cudaErrorInvalidValue;
+  if (!with_hist) {
+    if (gh_bytes == 1)
+      xrt_node_totals_int_kernel<int8_t><<<grid_x, XRT_HIST_THREADS, 0, s>>>(
+          (const int8_t*)gh, rows, seg, n_nodes, min_rows, totals);
+    else
+      xrt_node_totals_int_kernel<int16_t><<<grid_x, XRT_HIST_THREADS, 0, s>>>(
+          (const int16_t*)gh, rows, seg, n_nodes, min_rows, totals);
+    return (int)cudaGetLastError();
+  }
+  if (ftile < 1 || ftile > 32) return (int)cudaErrorInvalidValue;
+  auto launch = bin_bytes == 1
+                    ? (gh_bytes == 1 ? launch_hist_int<uint8_t, int8_t>
+                                     : launch_hist_int<uint8_t, int16_t>)
+                    : (gh_bytes == 1 ? launch_hist_int<int16_t, int8_t>
+                                     : launch_hist_int<int16_t, int16_t>);
+  return launch(bins, gh, rows, seg, n_nodes, n_features, nbt, ftile, grid_x,
+                min_rows, hist, totals, s);
+}
+
+// ---------------------------------------------------------------------------
+// The one dequantisation point of the quantized-gradient path
+// (xgboost_ray_tpu/ops/grow.py:577-601): a level's histogram formed in the
+// integer domain (each parent's smaller child as merged, its sibling as
+// parent - smaller child: int32 where both are int32, else f32 of each),
+// kept as int32 or f32 for the next level, and dequantised once, f32(v) *
+// scale[c]; with `totals`, each node's (G, H) as the exact int32 sum of
+// feature 0's buckets, dequantised. Blocks [0, n_nodes) take the totals
+// (one a node, an int32 block sum: any order gives the same bits), the
+// others the pairs, grid-stride.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void xrt_formed_pair(
+    const void* small, int small_int, const void* prev, int prev_int,
+    const uint8_t* sir, long long node, long long rest, long long per_node,
+    int* iv, float* fv, bool* is_int) {
+  // rest: the pair's index within its node, (f * nbt + b)
+  if (prev == nullptr) {
+    const long long k = node * per_node + rest;
+    if (small_int) {
+      const int2 v = ((const int2*)small)[k];
+      iv[0] = v.x;
+      iv[1] = v.y;
+      *is_int = true;
+    } else {
+      const float2 v = ((const float2*)small)[k];
+      fv[0] = v.x;
+      fv[1] = v.y;
+      *is_int = false;
+    }
+    return;
+  }
+  const long long par = node >> 1;
+  const bool right = (node & 1) != 0;
+  const bool small_here = right == (sir[par] != 0);
+  const long long k = par * per_node + rest;
+  if (small_int && prev_int) {
+    const int2 s = ((const int2*)small)[k];
+    if (small_here) {
+      iv[0] = s.x;
+      iv[1] = s.y;
+    } else {
+      const int2 p = ((const int2*)prev)[k];
+      iv[0] = (int)((unsigned)p.x - (unsigned)s.x);
+      iv[1] = (int)((unsigned)p.y - (unsigned)s.y);
+    }
+    *is_int = true;
+    return;
+  }
+  float s0, s1;
+  if (small_int) {
+    const int2 s = ((const int2*)small)[k];
+    s0 = __int2float_rn(s.x);
+    s1 = __int2float_rn(s.y);
+  } else {
+    const float2 s = ((const float2*)small)[k];
+    s0 = s.x;
+    s1 = s.y;
+  }
+  if (small_here) {
+    fv[0] = s0;
+    fv[1] = s1;
+  } else {
+    float p0, p1;
+    if (prev_int) {
+      const int2 p = ((const int2*)prev)[k];
+      p0 = __int2float_rn(p.x);
+      p1 = __int2float_rn(p.y);
+    } else {
+      const float2 p = ((const float2*)prev)[k];
+      p0 = p.x;
+      p1 = p.y;
+    }
+    fv[0] = __fsub_rn(p0, s0);
+    fv[1] = __fsub_rn(p1, s1);
+  }
+  *is_int = false;
+}
+
+__global__ void __launch_bounds__(256)
+xrt_form_dequant_kernel(const void* __restrict__ small, int small_int,
+                        const void* __restrict__ prev, int prev_int,
+                        const uint8_t* __restrict__ sir, int n_nodes,
+                        int n_features, int nbt,
+                        const float* __restrict__ scale,
+                        void* __restrict__ formed, int formed_int,
+                        float2* __restrict__ values,
+                        float* __restrict__ totals) {
+  const float2 sc = make_float2(scale[0], scale[1]);
+  const long long per_node = (long long)n_features * nbt;
+  if (totals != nullptr && blockIdx.x < (unsigned)n_nodes) {
+    __shared__ unsigned red[2][8];
+    const int node = blockIdx.x;
+    unsigned tg = 0, th = 0;
+    for (int b = threadIdx.x; b < nbt; b += blockDim.x) {
+      int iv[2];
+      float fv[2];
+      bool is_int;
+      xrt_formed_pair(small, small_int, prev, prev_int, sir, node, b,
+                      per_node, iv, fv, &is_int);
+      tg += (unsigned)iv[0];
+      th += (unsigned)iv[1];
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      tg += __shfl_down_sync(0xffffffffu, tg, o);
+      th += __shfl_down_sync(0xffffffffu, th, o);
+    }
+    if ((threadIdx.x & 31) == 0) {
+      red[0][threadIdx.x >> 5] = tg;
+      red[1][threadIdx.x >> 5] = th;
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      tg = th = 0;
+      for (int w = 0; w < 8; ++w) {
+        tg += red[0][w];
+        th += red[1][w];
+      }
+      totals[2 * node] = __fmul_rn(__int2float_rn((int)tg), sc.x);
+      totals[2 * node + 1] = __fmul_rn(__int2float_rn((int)th), sc.y);
+    }
+    return;
+  }
+  const int first = totals != nullptr ? n_nodes : 0;
+  const long long pairs = (long long)n_nodes * per_node;
+  for (long long i = (blockIdx.x - first) * (long long)blockDim.x +
+                     threadIdx.x;
+       i < pairs; i += (long long)(gridDim.x - first) * blockDim.x) {
+    const long long node = i / per_node;
+    int iv[2];
+    float fv[2];
+    bool is_int;
+    xrt_formed_pair(small, small_int, prev, prev_int, sir, node,
+                    i - node * per_node, per_node, iv, fv, &is_int);
+    if (is_int && !formed_int) {
+      fv[0] = __int2float_rn(iv[0]);
+      fv[1] = __int2float_rn(iv[1]);
+    }
+    if (formed_int) {
+      ((int2*)formed)[i] = make_int2(iv[0], iv[1]);
+      values[i] = make_float2(__fmul_rn(__int2float_rn(iv[0]), sc.x),
+                              __fmul_rn(__int2float_rn(iv[1]), sc.y));
+    } else {
+      ((float2*)formed)[i] = make_float2(fv[0], fv[1]);
+      values[i] = make_float2(__fmul_rn(fv[0], sc.x), __fmul_rn(fv[1], sc.y));
+    }
+  }
+}
+
+// small [n, F, nbt, 2] int32 (small_int) or f32; prev the same shape
+// (int32 with prev_int, else f32) or null; sir [n] bool with prev; n_nodes
+// = 2n with prev, else n; scale [2] f32; formed [n_nodes, F, nbt, 2] int32
+// (formed_int: only from int32 inputs) or f32; values the same f32; totals
+// [n_nodes, 2] f32 or null (int32 inputs only). grid: the pairs' blocks
+// (the totals take n_nodes more).
+extern "C" int xrt_hist_form_dequant(const void* small, int small_int,
+                                     const void* prev, int prev_int,
+                                     const uint8_t* sir, int n_nodes,
+                                     int n_features, int nbt,
+                                     const float* scale, void* formed,
+                                     int formed_int, float* values,
+                                     float* totals, int grid, void* stream) {
+  if (n_nodes <= 0) return 0;
+  const int blocks = grid + (totals != nullptr ? n_nodes : 0);
+  xrt_form_dequant_kernel<<<blocks, 256, 0, (cudaStream_t)stream>>>(
+      small, small_int, prev, prev_int, sir, n_nodes, n_features, nbt, scale,
+      formed, formed_int, (float2*)values, totals);
+  return (int)cudaGetLastError();
+}
+
 // The CTAs per SM the wrapper sizes its persistent grid with.
 extern "C" int xrt_hist_ctas_per_sm() { return XRT_HIST_CTAS_PER_SM; }

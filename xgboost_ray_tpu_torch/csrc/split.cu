@@ -45,6 +45,10 @@
 // shared memory), and CTA 0 elects the node's split and writes it, its
 // leaf value, the nine tree records, the state code K3 reads and the next
 // level's active flags.
+// Given node totals (in.totals: the exact totals of a level merged on the
+// quantized wire, or the dequantised integer sums of quantized gradients,
+// ops/grow.py:459-481 and :594-601 of the reference), warp 0 of CTA 0
+// publishes those instead of its readout; the main path passes none.
 // Column sampling takes the masked instantiation (MASKED): one predicated
 // load of the [F] or [n_nodes, F] mask a (node, feature), and a masked
 // feature's candidates score -inf (ops/split.py:148-155), still in the
@@ -137,6 +141,8 @@ struct XrtLevelIn {
   int mask_rows;        // null; 1: one row for every node, else n_nodes
   const float* lower;   // [n_nodes] monotone bounds (with t.monotone)
   const float* upper;
+  const float* totals;  // [n_nodes, 2] node (G, H) given, or null: read
+                        // off feature 0's buckets
 };
 
 struct XrtLevelOut {
@@ -613,7 +619,11 @@ xrt_split_level_kernel(XrtTreeArgs t, XrtLevelIn in, XrtLevelOut out) {
               hout != nullptr ? hout + (size_t)first * nbt : nullptr);
   __syncwarp();
   if (rank == 0 && warp == 0) {
-    xrt_readout(nbt, sg, sh, tg, th, s_tot);
+    const int l = threadIdx.x & 31;
+    if (in.totals == nullptr)
+      xrt_readout(nbt, sg, sh, tg, th, s_tot);
+    else if (l < 2)  // the totals the caller merged exactly
+      s_tot[l] = __ldg(in.totals + 2 * node + l);
     __syncwarp();
   }
   xrt_cluster_arrive();
@@ -855,7 +865,8 @@ static int xrt_launch_level(const XrtTreeArgs& t, XrtLevelIn in,
 // active_next [2 n_nodes]); hist_out [n_nodes, F, nbt, 2] or null; mask
 // [mask_rows, F] (mask_rows 1 or n_nodes) or null; with the tree's monotone
 // signs the level's bounds lower / upper [n_nodes] and the next level's
-// lower_next / upper_next [2 n_nodes], else null.
+// lower_next / upper_next [2 n_nodes], else null; totals [n_nodes, 2] the
+// node totals (null: read off the histogram).
 extern "C" int xrt_split_level(const XrtTreeArgs* t, const float* hist,
                                const float* prev_hist,
                                const uint8_t* small_is_right,
@@ -867,12 +878,13 @@ extern "C" int xrt_split_level(const XrtTreeArgs* t, const float* hist,
                                float* hist_out, const uint8_t* mask,
                                int mask_rows, const float* lower,
                                const float* upper, float* lower_next,
-                               float* upper_next, void* stream) {
+                               float* upper_next, const float* totals,
+                               void* stream) {
   if (mask != nullptr && mask_rows != 1 && mask_rows != n_nodes)
     return (int)cudaErrorInvalidValue;
   XrtLevelIn in = {hist,        prev_hist, small_is_right, active, n_nodes,
                    n_nodes - 1, 1,         1,              mask,   mask_rows,
-                   lower,       upper};
+                   lower,       upper,     totals};
   XrtLevelOut out = {gain,       feature,   split_bin,   default_left,
                      valid,      node_gh,   node_value,  state,
                      active_next, hist_out, lower_next,  upper_next};
@@ -898,7 +910,8 @@ extern "C" int xrt_find_splits(const float* hist, int n_nodes, int n_features,
   t.gamma = gamma;
   t.min_child_weight = min_child_weight;
   XrtLevelIn in = {hist,    nullptr,     nullptr, nullptr, n_nodes,
-                   n_nodes - 1, 1, 1,     nullptr, 0,      nullptr, nullptr};
+                   n_nodes - 1, 1, 1,     nullptr, 0,      nullptr, nullptr,
+                   nullptr};
   XrtLevelOut out = {gain,    feature, split_bin, default_left,
                      valid,   node_gh, nullptr,   nullptr,
                      nullptr, nullptr, nullptr,   nullptr};

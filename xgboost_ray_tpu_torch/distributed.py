@@ -103,10 +103,14 @@ def process_index() -> int:
 
 class Collectives:
     """The engine's collectives over the default process group: in-place
-    all-reduce SUM / MIN / MAX of a contiguous tensor and the all-gather of
-    each rank's rows in rank order, each recording its ring-model bytes in
-    ``bytes`` (:class:`AllreduceBytes`). At world 1 every one is the
-    identity and moves nothing."""
+    all-reduce SUM / MIN / MAX of a contiguous tensor, the all-gather of
+    each rank's rows in rank order, and for the quantized histogram wire
+    an all-to-all of equal chunks and a one-hop ring exchange, each
+    recording its ring-model bytes in ``bytes`` (:class:`AllreduceBytes`).
+    At world 1 every one is the identity and moves nothing. Over gloo the
+    all-to-all and the ring exchange stage CUDA tensors through pinned host
+    buffers (gloo's point-to-point calls take CPU tensors); the bytes
+    recorded are the wire's, not the copies'."""
 
     def __init__(self):
         self.world = process_count()
@@ -133,6 +137,57 @@ class Collectives:
     def max(self, t: torch.Tensor) -> torch.Tensor:
         return self._reduce(t, dist.ReduceOp.MAX)
 
+    def _host(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` as the backend takes it: its bytes where it is int16
+        (gloo has no int16), and over gloo a pinned host copy of a CUDA
+        tensor, else itself."""
+        if t.dtype == torch.int16:
+            t = t.view(torch.uint8)
+        if t.is_cuda and self.backend == "gloo":
+            out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            return out.copy_(t)
+        return t
+
+    @staticmethod
+    def _back(out: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+        """What :meth:`_host` sent, received into ``out``, as ``like``'s
+        dtype on ``like``'s device."""
+        out = out.to(like.device)
+        return out.view(like.dtype) if out.dtype != like.dtype else out
+
+    def all_to_all(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` [world, ...]: chunk j goes to rank j; returns the [world,
+        ...] chunks received, chunk i from rank i (``lax.all_to_all``)."""
+        if self.world == 1:
+            return t
+        if not t.is_contiguous() or t.shape[0] != self.world:
+            raise ValueError("Collectives: all-to-all of a contiguous "
+                             "[world, ...] tensor")
+        self.bytes.add_all_to_all(t)
+        src = self._host(t)
+        out = torch.empty_like(src)
+        dist.all_to_all_single(out, src)
+        return self._back(out, t)
+
+    def ring_exchange(self, t: torch.Tensor) -> torch.Tensor:
+        """One ring hop (``lax.ppermute`` with p -> p + 1): ``t`` goes to
+        rank + 1; returns what rank - 1 sent."""
+        if self.world == 1:
+            return t
+        if not t.is_contiguous():
+            raise ValueError("Collectives: ring exchange of a "
+                             "non-contiguous tensor")
+        self.bytes.add_ppermute(t)
+        src = self._host(t)
+        out = torch.empty_like(src)
+        nxt = (self.rank + 1) % self.world
+        prv = (self.rank - 1) % self.world
+        ops = [dist.P2POp(dist.isend, src, nxt),
+               dist.P2POp(dist.irecv, out, prv)]
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        return self._back(out, t)
+
     def row_counts(self, n: int, device) -> List[int]:
         """Every rank's row count ``n``, in rank order (one all-gather)."""
         if self.world == 1:
@@ -158,8 +213,10 @@ class Collectives:
         top = max(counts)
         if t.shape[0] < top:
             t = torch.cat([t, t.new_zeros((top - t.shape[0],) + t.shape[1:])])
-        parts = [torch.empty_like(t) for _ in range(self.world)]
-        dist.all_gather(parts, t)
+        src = t.view(torch.uint8) if t.dtype == torch.int16 else t
+        parts = [torch.empty_like(src) for _ in range(self.world)]
+        dist.all_gather(parts, src)
+        parts = [p.view(t.dtype) for p in parts]
         self.bytes.add_allgather(torch.cat(parts))
         return torch.cat([p[:c] for p, c in zip(parts, counts)])
 
@@ -413,3 +470,20 @@ def _train_rank(rank: int, world: int, data: Dict[str, Optional[torch.Tensor]],
         out["bins"] = eng.bins.cpu().numpy()
         out["cuts"] = eng.cuts.cpu().numpy()
     return out
+
+
+def _hist_wire_rank(rank: int, world: int, local: torch.Tensor, mode: str,
+                    min_bytes: int, block: int,
+                    device: str = "cpu") -> Dict[str, Any]:
+    """One rank's merge of its histogram ``local[rank]`` on the ``mode``
+    wire (``ops/histogram.quantized_hist_allreduce``) over the world, on
+    ``device``: the merged histogram (on the host) and the bytes recorded."""
+    from xgboost_ray_tpu_torch.ops.histogram import quantized_hist_allreduce
+
+    coll = Collectives()
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", torch.cuda.current_device())
+    h = local[rank].to(dev).contiguous()
+    out = quantized_hist_allreduce(h, mode, coll, min_bytes, block)
+    return {"merged": out.cpu(), "bytes": coll.bytes.total}

@@ -89,6 +89,18 @@ mapping (``categories``, ``engine.py:2151-2155``).
 ``build_tree``) up to the leaf budget ``params.leaf_budget``
 (``engine.py:314-322``); everything around the grower is the same.
 
+Quantized gradients (``gh_precision`` int8 / int16, ``engine.py:1320-1335``):
+each tree's (g, h) is rounded at the source by B10 (``_quantize``), each of
+this rank's device blocks of the reference's layout with the tree's key
+folded with ``SALT_SR`` and the block, at the scales of the round's merged
+absmax (the MAX all-reduce that also gives K1's fixed-point scales on the
+card; ``_round_absmax``), the grid capped by the padded global rows; the
+tree grows on the narrow buffer (uniform row sampling gathers it, GOSS
+grows on its dequantized values). The quantized histogram wire
+(``hist_quant``) is the grower's (``coll``). ``additional_results`` report
+the tree path's bytes a round (``hist_allreduce_bytes_per_round``) and a
+device block's gh plane (``gh_plane_bytes_per_shard``).
+
 An init booster (``xgb_model``) starts every set's margins at ``base +
 booster.predict_margin(x) - its base margin`` (B8 on the card, the plain
 walk on the CPU) and its forest goes before the new trees.
@@ -144,6 +156,7 @@ from xgboost_ray_tpu_torch.ops.cox import CoxSetup, cox_round, cox_setup
 from xgboost_ray_tpu_torch.ops.grow import (
     SALT_BYTREE,
     SALT_GOSS,
+    SALT_SR,
     SALT_SUBSAMPLE,
     GrowConfig,
     Tree,
@@ -160,9 +173,15 @@ from xgboost_ray_tpu_torch.ops.grow_lossguide import (
 from xgboost_ray_tpu_torch.ops.histogram import (
     build_histogram,
     dequantize,
+    form_dequantize,
+    gh_absmax,
     partition_leaf_values,
     partition_level,
     quant_scales,
+    scales_for,
+    wire_accumulate,
+    wire_dequantize,
+    wire_quantize,
 )
 from xgboost_ray_tpu_torch.ops.metrics import (
     AUC_BINS,
@@ -183,7 +202,10 @@ from xgboost_ray_tpu_torch.ops.metrics import (
 )
 from xgboost_ray_tpu_torch.ops.objectives import (
     as_alphas,
+    dequantize_gh_sums,
+    gh_plane_itemsize,
     objective_from_params,
+    quantize_gh,
     round_update,
     round_update_multi,
     softmax_update,
@@ -226,7 +248,9 @@ def kernel_counters() -> Dict[str, Callable]:
             "B13": rank_grad_hess, "B9r": rank_metric_contrib,
             "B14": cox_round, "B12r": sample_rows,
             "B12f": sample_feature_mask, "K2nodes": split_nodes,
-            "LGstep": frontier_step}
+            "LGstep": frontier_step, "B10": quantize_gh,
+            "K1form": form_dequantize, "B11q": wire_quantize,
+            "B11acc": wire_accumulate, "B11deq": wire_dequantize}
 
 
 def kernel_launches() -> Dict[str, int]:
@@ -244,6 +268,7 @@ def kernel_launches() -> Dict[str, int]:
     out["B4cat"] = predict_tree_binned.launches_categorical
     out["K4trees"] = round_update.tree_launches
     out["SMXtrees"] = softmax_update.tree_launches
+    out["K1int"] = build_histogram.launches_int
     return out
 
 
@@ -260,6 +285,7 @@ def reset_kernel_launches() -> None:
     predict_tree_binned.launches_categorical = 0
     round_update.tree_launches = 0
     softmax_update.tree_launches = 0
+    build_histogram.launches_int = 0
 
 
 def _concat_shards(shards: Sequence[Dict[str, Optional[np.ndarray]]]):
@@ -403,6 +429,9 @@ class TorchEngine:
             sibling_subtract=params.sibling_subtract,
             cat_features=self.cat_features,
             max_leaves=leaf_budget(params),
+            hist_quant=params.hist_quant,
+            hist_quant_min_bytes=int(params.hist_quant_min_bytes),
+            hist_quant_block=int(params.hist_quant_block),
         )
         self.metric_names = list(params.eval_metric) or [
             self.objective.default_metric]
@@ -456,6 +485,13 @@ class TorchEngine:
                 f"port sums it over one output only")
 
         self.custom_objective = custom_objective
+        # quantized gradients at the source (``engine.py:266-276``)
+        self.gh_mode = params.gh_precision
+        if self.gh_mode != "float32" and custom_objective:
+            raise NotImplementedError(
+                "gh_precision (quantized-gradient training) is not "
+                "supported with a custom objective; set "
+                "gh_precision='float32' or use a built-in objective.")
         # parallel trees (num_parallel_tree T: a round grows K x T trees,
         # tree k T + t for output k) and the round's random draws
         self.t_par = max(1, int(params.num_parallel_tree))
@@ -511,8 +547,17 @@ class TorchEngine:
         self.cox = (_CoxRows(self.label, self.weight, self.coll)
                     if self.with_cox else None)
         self.log_fw = self._log_feature_weights(feature_weights)
-        self.blocks = (self._sample_blocks(len(shards))
-                       if self.samp_spec is not None else ())
+        # the reference's device blocks: num_actors blocks of ``slots`` rows
+        self.n_actors = int(self.coll.sum(torch.tensor(
+            [len(shards)], dtype=torch.int64, device=dev)).item())
+        self.slots = -(-max(self.n_global, self.n_actors) // self.n_actors)
+        self.blocks = (self._sample_blocks()
+                       if self.samp_spec is not None
+                       or self.gh_mode != "float32" else ())
+        # the round's merged (max|g|, max|h|) [K, 2]: B10's scales
+        self.gh_absmax = None
+        self._absmax_bytes = 0
+        self.hist_allreduce_bytes_per_round = 0
         # one entry a round: its tree, or with K outputs its K trees
         # ([K, heap] fields)
         self.trees: List[Tree] = []
@@ -602,32 +647,32 @@ class TorchEngine:
         with np.errstate(divide="ignore"):
             return _to_device(np.log(fw), self.device)
 
-    def _sample_blocks(self, n_shards: int) -> Tuple[Tuple[int, int, int], ...]:
-        """The row-sampling blocks this rank draws: the JAX package's device
-        blocks (``engine.py:827-856``: the world's rows in shard order,
-        padded to ``num_actors`` blocks of ``slots`` rows, the padding at the
-        end), each (block index, its first row in this rank's rows, its real
-        rows). Each rank's rows must be whole blocks: at world 1 they are;
-        above it, shards of the block size (``num_actors`` 2, or rows a
-        multiple of ``num_actors``)."""
+    def _sample_blocks(self) -> Tuple[Tuple[int, int, int], ...]:
+        """The blocks this rank draws row samples and gradient roundings
+        over: the JAX package's device blocks (``engine.py:827-856``: the
+        world's rows in shard order, padded to ``num_actors`` blocks of
+        ``slots`` rows, the padding at the end), each (block index, its
+        first row in this rank's rows, its real rows). Each rank's rows must
+        be whole blocks: at world 1 they are; above it, shards of the block
+        size (``num_actors`` 2, or rows a multiple of ``num_actors``)."""
         dev = self.device
-        n_actors = int(self.coll.sum(torch.tensor(
-            [n_shards], dtype=torch.int64, device=dev)).item())
+        n_actors, slots = self.n_actors, self.slots
         counts = self.coll.row_counts(self.n_rows, dev)
         start = sum(counts[:self.coll.rank])
         end = start + self.n_rows
         n = self.n_global
-        slots = -(-max(n, n_actors) // n_actors)
         if start % slots or (end % slots and end != n):
             raise NotImplementedError(
-                f"row sampling: this rank's rows [{start}, {end}) are not "
-                f"whole blocks of {slots} rows (the reference's device "
-                f"blocks at num_actors={n_actors}); use num_actors 1 or 2 "
-                f"or a row count divisible by num_actors.")
+                f"row sampling / gh_precision: this rank's rows [{start}, "
+                f"{end}) are not whole blocks of {slots} rows (the "
+                f"reference's device blocks at num_actors={n_actors}); use "
+                f"num_actors 1 or 2 or a row count divisible by "
+                f"num_actors.")
         last = n_actors if end == n else end // slots
         self.sample_slots = slots
-        self.sample_rows_global = n_actors * row_budget(slots,
-                                                        self.samp_spec)
+        if self.samp_spec is not None:
+            self.sample_rows_global = n_actors * row_budget(slots,
+                                                            self.samp_spec)
         self.sample_padding = last * slots > end
         return tuple((d, d * slots - start,
                       max(0, min(slots, n - d * slots)))
@@ -796,10 +841,50 @@ class TorchEngine:
         """K1's fixed-point scales [K, 4] of the gradients ``self.gh`` on
         the card, one row a class (None on the CPU, which sums f32): issued
         as soon as the round pass has produced them, so their few launches
-        queue behind it rather than after the round's metric read."""
+        queue behind it rather than after the round's metric read. Their
+        merged (max|g|, max|h|) is also B10's under ``gh_precision``
+        (``_round_absmax``)."""
+        absmax = self._round_absmax()
         if self.device.type != "cuda":
             return None
-        return quant_scales(self.gh, self.n_global, self.coll.max)
+        return scales_for(absmax, self.n_global)
+
+    def _round_absmax(self) -> Optional[torch.Tensor]:
+        """The world's per-class (max|g|, max|h|) [K, 2] of ``self.gh``, one
+        all-reduce MAX (kept in ``gh_absmax`` for B10's scales, its bytes in
+        ``_absmax_bytes``): on the card, and on the CPU under
+        ``gh_precision`` (None there otherwise)."""
+        if self.device.type != "cuda" and self.gh_mode == "float32":
+            return None
+        before = self.coll.bytes.total
+        absmax = self.coll.max(gh_absmax(self.gh))
+        self._absmax_bytes = self.coll.bytes.total - before
+        self.gh_absmax = absmax
+        return absmax
+
+    def _quantize(self, key, gh: torch.Tensor, k: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One tree's quantized gradients (``engine.py:1320-1335``): each of
+        this rank's device blocks rounds its rows with the tree's key folded
+        with ``SALT_SR`` and the block (B10), at the scales of output
+        ``k``'s merged absmax, the grid capped by the padded global rows.
+        Returns (gh_q [n, 2] int8 / int16, scale [2] f32)."""
+        skey = fold_in(key, SALT_SR)
+        amax = self.gh_absmax[k]
+        max_rows = self.n_actors * self.slots
+        parts = [quantize_gh(gh[off:off + n_valid], self.gh_mode,
+                             fold_in(skey, d), amax, max_rows)
+                 for d, off, n_valid in self.blocks]
+        scale = parts[0][1]
+        q = (torch.cat([q for q, _ in parts]) if len(parts) > 1
+             else parts[0][0])
+        return q, scale
+
+    def gh_plane_bytes_per_shard(self) -> int:
+        """One tree's (g, h) plane of a device block of the reference's
+        layout: ``slots * 2 * itemsize`` of the ``gh_precision`` dtype
+        (``engine.py:2118-2127``)."""
+        return self.slots * 2 * gh_plane_itemsize(self.gh_mode)
 
     def _user_gh(self, g, h) -> torch.Tensor:
         """A custom objective's (g, h) for this rank's rows ([n] or [n, K]
@@ -833,6 +918,7 @@ class TorchEngine:
         n_trees = k_out * t_par
         forest = empty_tree(self.cfg.heap_size, self.device, n_trees)
         sampled = self.samp_spec is not None
+        quant_gh = self.gh_mode != "float32"
         row_value = (None if sampled else
                      torch.empty((n_trees, self.n_rows), dtype=torch.float32,
                                  device=self.device))
@@ -840,15 +926,22 @@ class TorchEngine:
         # the round's key (``engine.py:1884``), only where a draw reads it;
         # tree k T + t folds in its index (``:1317``)
         rng = (fold_in(prng_key(p.seed), self.iteration_offset + iteration)
-               if sampled or per_level or p.colsample_bytree < 1.0 else None)
+               if sampled or per_level or p.colsample_bytree < 1.0
+               or quant_gh else None)
+        tree_bytes0 = coll.bytes.total
         for k in range(k_out):
             for t in range(t_par):
                 i = k * t_par + t
                 key = None if rng is None else fold_in(rng, i)
                 bins, gh = self.bins, self.gh[k]
                 qscale = None if self.qscale is None else self.qscale[k]
+                gh_scale = None
+                if quant_gh:
+                    gh, gh_scale = self._quantize(key, gh, k)
+                    qscale = None
                 if sampled:
-                    bins, gh, qscale = self._sample(key, gh)
+                    bins, gh, qscale, gh_scale = self._sample(key, gh,
+                                                              gh_scale)
                 fmask = None
                 if p.colsample_bytree < 1.0:
                     fmask = sample_feature_mask(
@@ -862,7 +955,8 @@ class TorchEngine:
                         bins, gh, self.cuts, self.cfg,
                         feat_has_missing=self.feat_has_missing,
                         allreduce=allreduce, qscale=qscale, tree=tree,
-                        row_value=rv, feature_mask=fmask, cat=self.cat)
+                        row_value=rv, feature_mask=fmask, cat=self.cat,
+                        gh_scale=gh_scale, coll=coll)
                     continue
                 build_tree(
                     bins, gh, self.cuts, self.cfg,
@@ -874,7 +968,13 @@ class TorchEngine:
                     colsample_bynode=p.colsample_bynode,
                     feature_log_weights=self.log_fw,
                     constraints=self.constraints, cat=self.cat,
+                    gh_scale=gh_scale, coll=coll,
                 )
+        # the tree path's bytes (``main.py:497-507``): the merges of every
+        # histogram and exact reduction, and the absmax merge of the
+        # round's scales
+        self.hist_allreduce_bytes_per_round = (
+            coll.bytes.total - tree_bytes0 + self._absmax_bytes)
         # one tree a round: the round's tree itself ([heap] fields)
         walked = forest if n_trees > 1 else Tree(*[f[0] for f in forest])
         self.trees.append(walked)
@@ -929,15 +1029,26 @@ class TorchEngine:
                     groups=parse_metric_name(name)[0] in RANK_METRICS)
         return out
 
-    def _sample(self, key, gh: torch.Tensor):
+    def _sample(self, key, gh: torch.Tensor,
+                gh_scale: Optional[torch.Tensor] = None):
         """One tree's row sample (``engine.py:1340-1361``): each of this
         rank's blocks draws with the tree's key folded with the policy's
         salt and the block's index (B12r); returns the compacted (bins [M,
-        F], gh [M, 2], K1's scales or None). A selected padding slot is a
-        row of missing bins and zero gradients, as the reference's."""
+        F], gh [M, 2], K1's scales or None, the quantized gradients' scales
+        or None). A selected padding slot is a row of missing bins and zero
+        gradients, as the reference's. Quantized gradients (``gh`` int8 /
+        int16 with ``gh_scale``): the uniform draw gathers the narrow
+        buffer; GOSS draws over their dequantized values and grows on the
+        f32 path (its amplification is real-valued; ``sampling.py:144-190``
+        of the reference)."""
         spec = self.samp_spec
         skey = fold_in(key, SALT_GOSS if spec.policy == "gradient_based"
                        else SALT_SUBSAMPLE)
+        narrow = None
+        if gh_scale is not None:
+            narrow, gh = gh, dequantize_gh_sums(gh, gh_scale)
+            if spec.policy == "gradient_based":
+                narrow = gh_scale = None
         parts = [sample_rows(gh[off:off + n_valid], self.sample_slots,
                              fold_in(skey, d), spec, row_offset=off)
                  for d, off, n_valid in self.blocks]
@@ -952,7 +1063,12 @@ class TorchEngine:
             bins[pad] = self.params.max_bin
         else:
             bins = self.bins[rows]
-        return bins, gh_sel, self._tree_scales(gh_sel)
+        if narrow is not None:
+            gh_sel = narrow[rows.clamp(max=self.n_rows - 1)]
+            if self.sample_padding:
+                gh_sel[rows >= self.n_rows] = 0
+            return bins, gh_sel, None, gh_scale
+        return bins, gh_sel, self._tree_scales(gh_sel), None
 
     def _tree_scales(self, gh_sel: torch.Tensor) -> Optional[torch.Tensor]:
         """K1's fixed-point scales [4] of a sampled tree on the card: from

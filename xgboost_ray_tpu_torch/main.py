@@ -548,6 +548,11 @@ def _run_rounds(engine: TorchEngine, setup_s: float, num_boost_round: int,
         "world_size": engine.coll.world,
         "backend": engine.coll.backend,
         "allreduce_bytes_per_round": engine.allreduce_bytes_per_round,
+        # the tree path's bytes and the gh plane a device block holds
+        # (``main.py:484-507`` of the reference)
+        "hist_allreduce_bytes_per_round":
+            engine.hist_allreduce_bytes_per_round,
+        "gh_plane_bytes_per_shard": engine.gh_plane_bytes_per_shard(),
         "setup_time_s": setup_s,
         "sketch_time_s": engine.sketch_seconds,
         "training_time_s": time.time() - t_train,

@@ -49,11 +49,26 @@ SIGNATURES = {
             [P, I, P, P, P, I, I, I, I, I, I, I, P, P, P, P], I),
         "xrt_hist_dequant": ([P, P, ctypes.c_longlong, P, I, P], I),
         "xrt_hist_ctas_per_sm": ([], I),
+        "xrt_hist_build_int": (
+            [P, I, P, I, P, P, I, I, I, I, I, I, I, P, P, P], I),
+        "xrt_hist_form_dequant": (
+            [P, I, P, I, P, I, I, I, P, P, I, P, P, I, P], I),
+    },
+    "quant": {
+        "xrt_quantize_gh": (
+            [P, P, ctypes.c_longlong, I, P, I, ctypes.c_uint, ctypes.c_uint,
+             P], I),
+        "xrt_wire_quant": (
+            [P, ctypes.c_longlong, I, I, P, P, P, I, ctypes.c_longlong, P, I,
+             F, P], I),
+        "xrt_wire_acc": ([P, I, I, ctypes.c_longlong, I, I, P, P, P], I),
+        "xrt_wire_deq": (
+            [P, I, ctypes.c_longlong, ctypes.c_longlong, I, I, P, P, P], I),
     },
     "split": {
         "xrt_split_level": (
             [P, P, P, P, P, I, P, P, P, P, P, P, P, P, P, P, P, I, P, P, P,
-             P, P], I),
+             P, P, P], I),
         "xrt_leaf_records": ([P, P, P, I, P, P, P, P, P], I),
         "xrt_find_splits": (
             [P, I, I, I, F, F, F, F, P, P, P, P, P, P, P, P], I),

@@ -43,6 +43,16 @@ returns the next level's), and reads each node's interaction mask off its
 ancestors in the tree it writes; the plain grower (CPU tensors) keeps the
 reference's own interaction state instead (``InteractionState``).
 
+Quantized gradients (``gh_scale``; ``ops/grow.py:340-360``, ``:577-601``):
+K1's integer instantiation sums the int8 / int16 buffer exactly, the merge
+is an exact int32 all-reduce, and the level's histogram is formed in the
+integer domain and dequantized once (``form_dequantize``), which also
+hands K2 the nodes' (G, H). The quantized wire (``cfg.hist_quant``): a
+level whose built histogram reaches ``hist_quant_min_bytes`` (at the
+reference's 4 bytes a value) merges on ``quantized_hist_allreduce``, and
+its node totals come exact from K1's totals pass merged by one more
+all-reduce (``:441-481``), into K2's totals input.
+
 ``allreduce`` is the merge across ranks (the ``allreduce`` argument of
 ``ops/grow.py:269``): None at world 1, else the engine's all-reduce SUM,
 which counts its bytes. It merges every histogram and the final totals
@@ -68,9 +78,12 @@ from xgboost_ray_tpu_torch.ops.histogram import (
     SPLIT,
     build_histogram,
     dequantize,
+    form_dequantize,
     partition_leaf_values,
     partition_level,
     quant_scales,
+    quantized_hist_allreduce,
+    wire_quantized,
 )
 from xgboost_ray_tpu_torch.ops.split import (
     SplitParams,
@@ -89,6 +102,7 @@ SALT_BYTREE = 0x51D2
 SALT_BYLEVEL = 0x51D3
 SALT_BYNODE = 0x51D4
 SALT_GOSS = 0x51D5
+SALT_SR = 0x51D6  # stochastic rounding of quantized gradients (gh_precision)
 
 
 def route_right_binned(bin_vals, split_bin, default_left, missing_bin: int,
@@ -119,6 +133,10 @@ class GrowConfig:
     cat_features: tuple = ()
     # the lossguide leaf budget (0: depthwise growth, ``engine.py:314-322``)
     max_leaves: int = 0
+    # the histogram merge's wire (``ops/histogram.quantized_hist_allreduce``)
+    hist_quant: str = "none"
+    hist_quant_min_bytes: int = 32768
+    hist_quant_block: int = 512
 
     @property
     def heap_size(self) -> int:
@@ -314,6 +332,8 @@ def build_tree(
     feature_log_weights: Optional[torch.Tensor] = None,  # [F] log(fw)
     constraints: Optional[TreeConstraints] = None,  # cfg's, made once
     cat: Optional[torch.Tensor] = None,  # [F] bool of cfg.cat_features
+    gh_scale: Optional[torch.Tensor] = None,  # [2] f32: gh is int8/int16
+    coll=None,  # the ranks' Collectives: the quantized wire's
 ):
     """Grow one tree. Returns (Tree, row_value [N]): the learning-rate
     scaled leaf value each row lands in. ``tree`` and ``row_value``, where
@@ -330,16 +350,56 @@ def build_tree(
     constrained level step (``constraints``: their device form, made here
     where the caller passes none). ``cat`` (``cat_flags`` of
     ``cfg.cat_features``, made here where the caller passes none) takes
-    K2's categorical search and K3's categorical route."""
+    K2's categorical search and K3's categorical route.
+
+    Quantized gradients (``gh_scale``: ``gh`` is the int8 / int16 buffer
+    of ``ops/objectives.quantize_gh`` and its [2] scales): K1 sums exact
+    int32 (no fixed point), the merge is exact in int32, and each level's
+    histogram is formed in the integer domain and dequantized once
+    (``form_dequantize``, the reference's ``ops/grow.py:577-601``), which
+    also gives K2 the nodes' (G, H) as the dequantized exact sums.
+
+    The quantized wire (``cfg.hist_quant``; ``coll`` the ranks'
+    ``Collectives``, this process's where None): a level whose built
+    histogram reaches ``cfg.hist_quant_min_bytes`` at 4 bytes a value
+    merges its f32 values (the card's fixed-point sums dequantized first;
+    the integer sums as f32) on the wire, and its node totals come exact
+    from one more all-reduce of every node's sums (K1 without the
+    histogram), as the reference's packed side-psum
+    (``ops/grow.py:441-481``); after a quantized wire the integer-domain
+    histogram is f32."""
     n = bins.shape[0]
     dev = bins.device
-    if qscale is None and bins.is_cuda:
+    quant_gh = gh_scale is not None
+    if qscale is None and bins.is_cuda and not quant_gh:
         qscale = quant_scales(gh, n)
 
     def merged(h):
         if allreduce is not None:
             h = allreduce(h)
         return h if qscale is None else dequantize(h, qscale)
+
+    def exact_totals(t):
+        """Every node's (G, H) summed exactly over the ranks, as f32 (the
+        integer sums of quantized gradients dequantized once)."""
+        if not quant_gh:
+            return merged(t)
+        if allreduce is not None:
+            t = allreduce(t)
+        return form_dequantize(t.view(-1, 1, 1, 2), None, None, gh_scale,
+                               torch.int32, False)[1].view(-1, 2)
+
+    if coll is None and cfg.hist_quant != "none":
+        from xgboost_ray_tpu_torch.distributed import Collectives
+
+        coll = Collectives()  # this process's world: one rank without one
+
+    def on_wire(h):
+        """A quantized level's merge: the local f32 values on the wire."""
+        if qscale is not None:
+            h = dequantize(h, qscale)
+        return quantized_hist_allreduce(h, cfg.hist_quant, coll, 0,
+                                        cfg.hist_quant_block)
 
     nbt = cfg.max_bin + 1
     if tree is None:
@@ -382,20 +442,50 @@ def build_tree(
         allowed = None if ic is None else ic.allowed()
         # the formed histogram is the next level's parent, unless none comes
         keep = cfg.sibling_subtract and d < cfg.max_depth - 1
-        if d > 0 and cfg.sibling_subtract:
-            # build each parent's smaller child; K2 forms the sibling as
-            # parent - it
-            hist_small, _ = build_histogram(
+        sib = d > 0 and cfg.sibling_subtract
+        n_built = n_nodes // 2 if sib else n_nodes
+        qwire = wire_quantized(cfg.hist_quant,
+                               n_built * num_features * nbt * 2,
+                               cfg.hist_quant_min_bytes)
+        if sib:
+            # build each parent's smaller child; the sibling is parent - it
+            hist, totals = build_histogram(
                 bins, gh, part.small_rows, part.small_seg, n_nodes // 2, nbt,
                 qscale=qscale)
-            step = split_level(merged(hist_small), prev_hist,
-                               part.small_is_right, active, rec, keep, fmask,
-                               bounds, allowed)
         else:
-            hist, _ = build_histogram(bins, gh, order, seg, n_nodes, nbt,
-                                      qscale=qscale)
-            step = split_level(merged(hist), None, None, active, rec, keep,
-                               fmask, bounds, allowed)
+            hist, totals = build_histogram(bins, gh, order, seg, n_nodes, nbt,
+                                           qscale=qscale)
+        node_gh = None
+        if qwire:
+            if sib:  # every node's sums, not only the smaller children's
+                _, totals = build_histogram(bins, gh, order, seg, n_nodes,
+                                            nbt, with_hist=False,
+                                            qscale=qscale)
+            node_gh = exact_totals(totals)
+            hist = on_wire(hist)
+        elif quant_gh:
+            if allreduce is not None:
+                hist = allreduce(hist)
+        else:
+            hist = merged(hist)
+        sir = part.small_is_right if sib else None
+        if quant_gh:
+            # the integer domain: form, keep, dequantize once
+            formed_int = hist.dtype == torch.int32 and (
+                not sib or prev_hist.dtype == torch.int32)
+            formed, values, tot = form_dequantize(
+                hist, prev_hist if sib else None, sir, gh_scale,
+                torch.int32 if formed_int else torch.float32,
+                with_totals=not qwire)
+            step = split_level(values, None, None, active, rec, False, fmask,
+                               bounds, allowed,
+                               totals=node_gh if qwire else tot)
+            next_hist = formed if keep else None
+        else:
+            step = split_level(hist, prev_hist if sib else None, sir, active,
+                               rec, keep, fmask, bounds, allowed,
+                               totals=node_gh)
+            next_hist = step.hist
         sp = step.splits
         bounds = step.bounds
         if ic is not None:
@@ -407,14 +497,15 @@ def build_tree(
             merge_counts=allreduce if keep else None, cat=cat,
         )
         order, seg = part.order, part.seg
-        prev_hist, active = step.hist, step.active
+        prev_hist, active = next_hist, step.active
 
     # final level: every still-active node is a leaf, valued from its rows'
     # (g, h) totals (K1 without the histogram), and its rows take the value
     n_nodes = 1 << cfg.max_depth
     _, totals = build_histogram(bins, gh, order, seg, n_nodes, nbt,
                                 with_hist=False, qscale=qscale)
-    node_value, state = leaf_records(merged(totals), active, rec, bounds)
+    node_value, state = leaf_records(exact_totals(totals), active, rec,
+                                     bounds)
     partition_leaf_values(order, seg, state, node_value, row_value)
     return tree, row_value
 

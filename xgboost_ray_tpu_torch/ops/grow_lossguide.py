@@ -40,6 +40,15 @@ and ``max_leaves - 1`` launches each of K3, K1, the dequantise step and
 K2, besides the root's K1, dequantise and K2, and the final K3 leaf-value
 pass.
 
+Quantized gradients and the quantized wire (``ops/grow_lossguide.py:63-146``
+of the reference) as ``build_tree``: the step's histogram formed in the
+integer domain and dequantized once (the store keeps integer-domain
+histograms), the wire decided on the reference's step histogram (two
+nodes; the root one). A step on the quantized wire sums both children
+in one K1 launch and merges both, as the reference does (steps 3-4 then
+take no sibling), and their totals from that launch come exact from one
+more all-reduce.
+
 On the CPU without fixed-point scales (the plain versions, f32 sums: the
 JAX package's arithmetic) both children's histograms are summed from
 their rows, as the reference builds both (``:218-221``); the reference's
@@ -62,9 +71,12 @@ from xgboost_ray_tpu_torch.ops.histogram import (
     _check,
     build_histogram,
     dequantize,
+    form_dequantize,
     partition_leaf_values,
     partition_level,
     quant_scales,
+    quantized_hist_allreduce,
+    wire_quantized,
 )
 from xgboost_ray_tpu_torch.ops.split import (
     LevelSplits,
@@ -109,9 +121,11 @@ class Frontier(NamedTuple):
 
 
 def new_frontier(leaves: int, n_rows: int, n_features: int, nbt: int,
-                 device) -> Frontier:
+                 device, store_dtype: torch.dtype = torch.float32
+                 ) -> Frontier:
     """An empty frontier of ``2 * leaves - 1`` entries (the step's first
-    launch fills entry 0 from the root)."""
+    launch fills entry 0 from the root); ``store_dtype`` the formed
+    histograms' (int32: the sums of quantized gradients)."""
     n_ent = 2 * leaves - 1
     i32 = dict(dtype=torch.int32, device=device)
     # [0, 0, 0, N] made on the device: no copy from the host
@@ -130,8 +144,10 @@ def new_frontier(leaves: int, n_rows: int, n_features: int, nbt: int,
         feature=torch.zeros(3, **i32), split_bin=torch.zeros(3, **i32),
         default_left=torch.zeros(3, **b8), state=torch.zeros(3, **u8),
         value=torch.zeros(3, **f32),
-        store=torch.empty((n_ent, n_features, nbt, 2), **f32),
-        parent=torch.zeros((1, n_features, nbt, 2), **f32),
+        store=torch.empty((n_ent, n_features, nbt, 2), dtype=store_dtype,
+                          device=device),
+        parent=torch.zeros((1, n_features, nbt, 2), dtype=store_dtype,
+                           device=device),
         leaf_seg=torch.zeros(n_ent + 1, **i32),
         leaf_state=torch.zeros(n_ent, **u8),
         leaf_value=torch.zeros(n_ent, **f32))
@@ -293,7 +309,7 @@ frontier_step.launches = 0
 
 def build_tree_lossguide(
     bins: torch.Tensor,  # [N, F] int16/uint8 bins (max_bin == missing)
-    gh: torch.Tensor,  # [N, 2] float32 (grad, hess)
+    gh: torch.Tensor,  # [N, 2] float32 (grad, hess), or int8/int16
     cuts: torch.Tensor,  # [F, max_bin - 1] raw cut values
     cfg: GrowConfig,
     feat_has_missing: Optional[torch.Tensor] = None,  # [F] bool
@@ -303,6 +319,8 @@ def build_tree_lossguide(
     row_value: Optional[torch.Tensor] = None,  # [N] f32 to write into
     feature_mask: Optional[torch.Tensor] = None,  # [F] bool (bytree)
     cat: Optional[torch.Tensor] = None,  # [F] bool: categorical features
+    gh_scale: Optional[torch.Tensor] = None,  # [2] f32: gh is int8/int16
+    coll=None,  # the ranks' Collectives: the quantized wire's
 ):
     """Grow one leaf-wise tree of at most ``cfg.max_leaves`` leaves in the
     heap of depth ``cfg.max_depth``. Returns (Tree, row_value [N]), the
@@ -310,58 +328,109 @@ def build_tree_lossguide(
     (column sampling by tree only; no constraints: ``params`` refuses
     them with lossguide).
 
-    With ``qscale`` (always on the card) K1 sums the smaller child in
-    fixed point, and the sibling is formed from the parent's histogram as
-    the depthwise grower forms it; without it (the CPU's plain versions)
-    both children are summed in f32, as the reference builds both."""
+    On the card, and wherever ``qscale`` is given, K1 sums the smaller
+    child (in fixed point, or int32 for integer gradients), and the
+    sibling is formed from the parent's histogram as the depthwise grower
+    forms it; on the CPU's plain versions both children are summed, as
+    the reference builds both. Quantized gradients (``gh_scale``) and the
+    quantized wire (``cfg.hist_quant``, over ``coll``) as ``build_tree``:
+    the step's histogram is formed in the integer domain and dequantized
+    once. Where the reference's step histogram (two nodes, the root one)
+    reaches ``cfg.hist_quant_min_bytes`` its merge takes the wire: then
+    every path sums both children, as the reference does (a sibling
+    formed from a parent that came off the wire would carry its
+    ancestors' rounding), and their totals from the same K1 launch come
+    exact from one more all-reduce. The frontier keeps integer-domain
+    histograms: int32, or f32 once a step's wire is quantized."""
     n, num_features = bins.shape
     dev = bins.device
-    if qscale is None and bins.is_cuda:
+    quant_gh = gh_scale is not None
+    if qscale is None and bins.is_cuda and not quant_gh:
         qscale = quant_scales(gh, n)
-    fixed = qscale is not None
     nbt = cfg.max_bin + 1
     leaves = max(1, int(cfg.max_leaves))
+    per_node = num_features * nbt * 2
+    # the reference's step histograms: the root's, then two children's
+    q_root = wire_quantized(cfg.hist_quant, per_node,
+                            cfg.hist_quant_min_bytes)
+    q_step = wire_quantized(cfg.hist_quant, 2 * per_node,
+                            cfg.hist_quant_min_bytes)
+    store_int = quant_gh and not (q_root or (leaves > 1 and q_step))
+    subtract = not q_step and (bins.is_cuda or qscale is not None)
+    store_dtype = torch.int32 if store_int else torch.float32
     if tree is None:
         tree = empty_tree(cfg.heap_size, dev)
     if row_value is None:
         row_value = torch.empty(n, dtype=torch.float32, device=dev)
     rec = TreeRecords(tree, cuts, feat_has_missing, cfg.split, None, cat)
-    fr = new_frontier(leaves, n, num_features, nbt, dev)
+    fr = new_frontier(leaves, n, num_features, nbt, dev, store_dtype)
+    if coll is None and cfg.hist_quant != "none":
+        from xgboost_ray_tpu_torch.distributed import Collectives
 
-    def merged(h):
+        coll = Collectives()  # this process's world: one rank without one
+
+    def merged(h, qwire):
+        """The step histogram merged over the ranks: on the wire where it
+        is quantized (the card's fixed-point sums dequantized first), else
+        exactly (int32 for integer gradients)."""
+        if qwire:
+            if qscale is not None:
+                h = dequantize(h, qscale)
+            return quantized_hist_allreduce(h, cfg.hist_quant, coll, 0,
+                                            cfg.hist_quant_block)
         if allreduce is not None:
             h = allreduce(h)
         return h if qscale is None else dequantize(h, qscale)
 
+    def exact_totals(t):
+        """Nodes' (G, H) summed exactly over the ranks, as f32."""
+        if allreduce is not None:
+            t = allreduce(t)
+        if quant_gh:
+            return form_dequantize(t.view(-1, 1, 1, 2), None, None, gh_scale,
+                                   torch.int32, False)[1].view(-1, 2)
+        return t if qscale is None else dequantize(t, qscale)
+
+    def search(h, prev, sir, out, qwire, totals):
+        """The nodes' search: with integer gradients their histogram
+        formed, kept in ``out`` and dequantized once first."""
+        if not quant_gh:
+            return split_nodes(h, prev, sir, rec, out, feature_mask,
+                               totals=totals)
+        formed, values, tot = form_dequantize(h, prev, sir, gh_scale,
+                                              store_dtype,
+                                              with_totals=not qwire)
+        out.copy_(formed)
+        return split_nodes(values, None, None, rec, torch.empty_like(values),
+                           feature_mask, totals=totals if qwire else tot)
+
     order = torch.arange(n, dtype=torch.int32, device=dev)
     root_seg = torch.arange(2, dtype=torch.int32, device=dev).mul_(n)
-    hist, _ = build_histogram(bins, gh, order, root_seg, 1, nbt,
-                              qscale=qscale)
-    sp = split_nodes(merged(hist), None, None, rec, fr.store[0:1],
-                     feature_mask)
+    hist, totals = build_histogram(bins, gh, order, root_seg, 1, nbt,
+                                   qscale=qscale)
+    sp = search(merged(hist, q_root), None, None, fr.store[0:1], q_root,
+                exact_totals(totals) if q_root else None)
     frontier_step(fr, rec, sp, None, 0, leaves > 1, leaves == 1)
     for t in range(leaves - 1):
         part = partition_level(
             order, fr.seg, bins, fr.feature, fr.split_bin, fr.default_left,
-            fr.state, fr.value, row_value, write_small=fixed,
+            fr.state, fr.value, row_value, write_small=subtract,
             missing_bin=cfg.max_bin,
-            merge_counts=allreduce if fixed else None, cat=cat)
+            merge_counts=allreduce if subtract else None, cat=cat)
         order = part.order
         kids = fr.store[1 + 2 * t:3 + 2 * t]
-        if fixed:
+        if subtract:
             small, _ = build_histogram(bins, gh, part.small_rows,
                                        part.small_seg[1:3], 1, nbt,
                                        qscale=qscale)
-            sp = split_nodes(merged(small), fr.parent,
-                             part.small_is_right[1:2], rec, kids,
-                             feature_mask)
+            sp = search(merged(small, False), fr.parent,
+                        part.small_is_right[1:2], kids, False, None)
         else:
-            # the plain path's rows: both children's, summed in f32
-            s0 = int(part.seg[2])
-            both, _ = build_histogram(bins, gh, order[s0:],
-                                      part.seg[2:5] - s0, 2, nbt)
-            sp = split_nodes(merged(both), None, None, rec, kids,
-                             feature_mask)
+            # both children: the middle node's two, in K3's order
+            both, two = build_histogram(bins, gh, order, part.seg[2:5], 2,
+                                        nbt, qscale=qscale)
+            sp = search(merged(both, q_step), None, None, kids, q_step,
+                        exact_totals(two) if q_step else None)
         frontier_step(fr, rec, sp, part.seg, t + 1, t + 2 < leaves,
                       t + 2 == leaves)
     partition_leaf_values(order, fr.leaf_seg, fr.leaf_state, fr.leaf_value,

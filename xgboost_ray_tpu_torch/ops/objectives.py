@@ -51,6 +51,10 @@ held by the tests), so on the CPU they equal the JAX package's bit for
 bit, and the kernel's (``__fmaf_rn`` exactly where ``_fma`` stands,
 ``--fmad=false`` elsewhere) equal the plain version's.
 
+Quantized gradients (``gh_precision``, B10: ``quantize_gh``, kernel in
+``csrc/quant.cu``): each tree's (g, h) rounded stochastically onto an int8
+/ int16 grid at the source, the reference's ``quantize_gh`` bit for bit.
+
 ``multi:softprob`` / ``multi:softmax`` with K = ``num_class`` outputs
 (``_make_softmax``, ``:107-128``): ``p = softmax(m)``, ``g = (p -
 onehot(y)) w``, ``h = max(2 p (1 - p), 1e-16) w``, a zero base margin, the
@@ -1252,3 +1256,120 @@ def softmax_transform(margin: torch.Tensor, prob: bool,
 
 
 softmax_transform.launches = 0
+
+
+# --------------------------------------------------------------------------
+# Quantized gradients at the source (``gh_precision``; B10)
+# --------------------------------------------------------------------------
+#
+# The reference's ``quantize_gh`` (``ops/objectives.py:316-381``): each
+# tree's (g, h) goes onto a symmetric int8 / int16 grid with one scale a
+# channel from the world's absmax, ``s = amax / qmax`` (1 where amax is 0),
+# and stochastic rounding ``clip(floor(g / s + u), -qmax, qmax)``, u the
+# draw of the tree's key folded with ``SALT_SR`` and the device block, over
+# the block's [slots, 2] (``jax.random.uniform``: element (r, c) takes the
+# bits of flat index 2 r + c). Histograms and node totals of the quantized
+# values are then exact int32 sums, dequantized once
+# (``dequantize_gh_sums``). As the reference's jitted round computes it:
+# ``amax / qmax`` is ``amax * f32(1 / qmax)`` (XLA folds the constant
+# divisor), ``g / s`` a true division, operands and results flushed to zero.
+
+GH_PRECISION_MODES = ("float32", "int16", "int8")
+_GH_QMAX = {"int16": 32767, "int8": 127}
+_GH_QDTYPE = {"int16": torch.int16, "int8": torch.int8}
+
+
+def gh_plane_itemsize(mode: str) -> int:
+    """Bytes per stored g (or h) value under a ``gh_precision`` mode: the
+    per-shard gh plane is ``rows * 2 * this``."""
+    return {"float32": 4, "int16": 2, "int8": 1}[mode]
+
+
+def gh_qmax(mode: str, max_rows: Optional[int] = None) -> int:
+    """The grid's qmax of ``mode``, capped so that ``max_rows`` rows of it
+    sum below 2^31: ``max(1, min(qmax, (2^31 - 1) // max_rows))``."""
+    if mode not in _GH_QMAX:
+        raise ValueError(
+            f"unknown gh_precision mode {mode!r}; use one of "
+            f"{GH_PRECISION_MODES}")
+    qmax = _GH_QMAX[mode]
+    if max_rows:
+        qmax = max(1, min(qmax, (2 ** 31 - 1) // int(max_rows)))
+    return qmax
+
+
+def gh_scale(amax: torch.Tensor, qmax: int) -> torch.Tensor:
+    """The per-channel scales [..., 2] f32 of an absmax [..., 2]:
+    ``amax * f32(1 / qmax)`` where amax > 0, else 1."""
+    r = float(np.float32(1.0) / np.float32(qmax))
+    return torch.where(amax > 0, _ftz(amax * r),
+                       torch.ones((), dtype=torch.float32,
+                                  device=amax.device))
+
+
+def quantize_gh_plain(gh: torch.Tensor, qmax: int, scale: torch.Tensor,
+                      key, dtype: torch.dtype) -> torch.Tensor:
+    """The rounding of ``quantize_gh`` over the first ``n`` rows of a block
+    (``gh`` [n, 2] f32; the block's padding rows would round to 0):
+    ``clip(floor(g / s + u), -qmax, qmax)`` as ``dtype``."""
+    from xgboost_ray_tpu_torch.ops.random import bits_to_unit, random_bits
+
+    n = gh.shape[0]
+    u = bits_to_unit(random_bits(key, (n, 2), device=gh.device))
+    x = _ftz(_ftz(gh) / scale)
+    q = torch.floor(_ftz(x + u)).clamp(-qmax, qmax)
+    return q.to(dtype)
+
+
+def quantize_gh(gh: torch.Tensor, mode: str, key, amax: Optional[torch.Tensor]
+                = None, max_rows: Optional[int] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """B10 wrapper: ``(gh_q [n, 2] int8 / int16, scale [2] f32)`` with
+    ``gh ~= gh_q * scale``. ``gh`` [n, 2] f32 holds the first n rows of one
+    device block of the reference's layout and ``key`` (a (k0, k1) pair) is
+    the tree's key folded with ``SALT_SR`` and the block; ``amax`` [2] is
+    the world's per-channel absmax (this block's where None); ``max_rows``
+    the reference's padded global row count (the cap of ``gh_qmax``). CPU
+    tensors take ``quantize_gh_plain``; CUDA tensors launch
+    ``xrt_quantize_gh`` (``csrc/quant.cu``) or raise.
+    ``quantize_gh.launches`` counts the launches."""
+    qmax = gh_qmax(mode, max_rows)
+    if amax is None:
+        amax = (gh.abs().amax(dim=0) if gh.shape[0]
+                else torch.zeros(2, dtype=torch.float32, device=gh.device))
+    scale = gh_scale(amax, qmax)
+    dtype = _GH_QDTYPE[mode]
+    if not gh.is_cuda:
+        return quantize_gh_plain(gh, qmax, scale, key, dtype), scale
+    from xgboost_ray_tpu_torch.ops import _build
+
+    dev = gh.device
+    if not (gh.dtype == torch.float32 and gh.dim() == 2 and gh.shape[1] == 2
+            and gh.is_contiguous() and gh.data_ptr() % 8 == 0):
+        raise ValueError("quantize_gh: gh must be 8-byte aligned contiguous "
+                         "f32 [n, 2]")
+    scale = scale.contiguous()
+    if scale.device != dev or scale.shape != (2,):
+        raise ValueError("quantize_gh: amax must be [2] on gh's device")
+    n = gh.shape[0]
+    out = torch.empty((n, 2), dtype=dtype, device=dev)
+    if n:
+        with torch.cuda.device(dev):
+            code = _build.library("quant").xrt_quantize_gh(
+                gh.data_ptr(), out.data_ptr(), n, out.element_size(),
+                scale.data_ptr(), qmax, key[0], key[1],
+                _build.stream_ptr(dev))
+        _build.check(code, "B10 quantize gh")
+        quantize_gh.launches += 1
+    return out, scale
+
+
+quantize_gh.launches = 0
+
+
+def dequantize_gh_sums(sums: torch.Tensor, scale: torch.Tensor
+                       ) -> torch.Tensor:
+    """Integer (or integer-domain f32) (g, h) sums [..., 2] -> f32, times
+    the per-channel ``scale``: the one dequantization point of the
+    quantized-gradient path."""
+    return sums.to(torch.float32) * scale

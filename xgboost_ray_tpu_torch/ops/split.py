@@ -211,12 +211,14 @@ def find_splits_plain(hist: torch.Tensor, p: SplitParams,
 
 
 def _search_plain(hist, p: SplitParams, feature_mask, monotone, lower, upper,
-                  cat=None):
+                  cat=None, totals=None):
     """``find_splits_plain`` and, with ``monotone``, the winner's clamped
-    (w_left, w_right) [n_nodes] in the direction it chose (None without)."""
+    (w_left, w_right) [n_nodes] in the direction it chose (None without).
+    ``totals`` [n_nodes, 2]: the node totals given (the reference's exact
+    totals), else read off feature 0's buckets."""
     n_nodes, num_features, nbt, _ = hist.shape
     n_bins = nbt - 1
-    node_gh = tree_sum(hist[:, 0])
+    node_gh = tree_sum(hist[:, 0]) if totals is None else totals
     g = hist[..., 0]
     h = hist[..., 1]
     gm, hm = g[..., n_bins], h[..., n_bins]
@@ -305,6 +307,14 @@ def _cat_row(cat: Optional[torch.Tensor], n_features: int, dev,
            and cat.device == dev and cat.is_contiguous(),
            f"{what}: cat must be contiguous bool [F] on {dev}")
     return cat
+
+
+def _check_totals(totals: Optional[torch.Tensor], n_nodes: int, dev,
+                  what: str) -> None:
+    _check(totals is None or (
+        totals.dtype == torch.float32 and totals.shape == (n_nodes, 2)
+        and totals.device == dev and totals.is_contiguous()),
+        f"{what}: totals must be contiguous f32 [n_nodes, 2] on {dev}")
 
 
 def _check_hist(hist: torch.Tensor, what: str) -> None:
@@ -558,7 +568,8 @@ def split_level_plain(hist, prev_hist, small_is_right, active,
                       rec: TreeRecords, keep_hist: bool = True,
                       feature_mask: Optional[torch.Tensor] = None,
                       bounds: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-                      ic_allowed: Optional[torch.Tensor] = None
+                      ic_allowed: Optional[torch.Tensor] = None,
+                      totals: Optional[torch.Tensor] = None
                       ) -> LevelStep:
     """The level step in PyTorch ops, as the JAX grower composes it: the
     sibling as parent - smaller child (``prev_hist`` given), the phantom
@@ -579,7 +590,8 @@ def split_level_plain(hist, prev_hist, small_is_right, active,
     mono, lower, upper, fmask = _level_constraints(
         rec, n_nodes, feature_mask, bounds, ic_allowed, "split_level")
 
-    sp, child_w = _search_plain(hist, p, fmask, mono, lower, upper, rec.cat)
+    sp, child_w = _search_plain(hist, p, fmask, mono, lower, upper, rec.cat,
+                                totals)
     node_gh = sp.node_gh
     valid_split = sp.valid & active
     node_value = lr * (leaf_weight(node_gh[:, 0], node_gh[:, 1], p)
@@ -615,7 +627,8 @@ def split_level(hist: torch.Tensor, prev_hist: Optional[torch.Tensor],
                 rec: TreeRecords, keep_hist: bool = True,
                 feature_mask: Optional[torch.Tensor] = None,
                 bounds: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-                ic_allowed: Optional[torch.Tensor] = None) -> LevelStep:
+                ic_allowed: Optional[torch.Tensor] = None,
+                totals: Optional[torch.Tensor] = None) -> LevelStep:
     """K2 for one tree level, one launch: ``hist`` is K1's (all-reduced)
     histogram of the level's ``n_nodes`` nodes, or with ``prev_hist`` and
     ``small_is_right`` that of each parent's smaller child. ``active``
@@ -628,14 +641,17 @@ def split_level(hist: torch.Tensor, prev_hist: Optional[torch.Tensor],
     [n_nodes] f32 under monotone constraints, the next level's come back
     in ``LevelStep.bounds``; the kernel reads each node's interaction mask
     off its ancestors in ``rec.tree`` (``ic_allowed``, a mask the caller
-    keeps, is for the plain version only). CPU tensors -> plain version,
-    CUDA tensors -> kernel (``launches_masked`` counts the masked
-    launches, ``launches_constrained`` the constrained ones,
-    ``launches_categorical`` those with categorical features)."""
+    keeps, is for the plain version only). ``totals`` [n_nodes, 2] f32:
+    the nodes' (G, H) given (the exact totals of a quantized wire, or the
+    dequantized integer sums of quantized gradients), else read off the
+    histogram (the main path). CPU tensors -> plain version, CUDA tensors
+    -> kernel (``launches_masked`` counts the masked launches,
+    ``launches_constrained`` the constrained ones, ``launches_categorical``
+    those with categorical features)."""
     if not hist.is_cuda:
         return split_level_plain(hist, prev_hist, small_is_right, active,
                                  rec, keep_hist, feature_mask, bounds,
-                                 ic_allowed)
+                                 ic_allowed, totals)
     _check(ic_allowed is None, "split_level: ic_allowed is the plain "
                                "version's; the kernel derives the mask")
     n_nodes = active.shape[0]
@@ -667,6 +683,7 @@ def split_level(hist: torch.Tensor, prev_hist: Optional[torch.Tensor],
     mono = rec.cons is not None and rec.cons.monotone is not None
     _check(mono == (bounds is not None),
            "split_level: bounds go with monotone constraints, and only")
+    _check_totals(totals, n_nodes, dev, "split_level")
     if mono:
         for b in bounds:
             _check_node_array(b, n_nodes, torch.float32, dev,
@@ -699,7 +716,7 @@ def split_level(hist: torch.Tensor, prev_hist: Optional[torch.Tensor],
             _build.ptr(hist_out), _build.ptr(feature_mask), mask_rows,
             *(_build.ptr(b) for b in (bounds or (None, None))),
             *(_build.ptr(b) for b in (nxt or (None, None))),
-            _build.stream_ptr(dev))
+            _build.ptr(totals), _build.stream_ptr(dev))
     _build.check(code, "K2 split level")
     split_level.launches += 1
     if mask_rows:
@@ -721,7 +738,8 @@ split_level.launches_categorical = 0
 
 def split_nodes_plain(hist, prev_hist, small_is_right, rec: TreeRecords,
                       hist_out: torch.Tensor,
-                      feature_mask: Optional[torch.Tensor] = None
+                      feature_mask: Optional[torch.Tensor] = None,
+                      totals: Optional[torch.Tensor] = None
                       ) -> LevelSplits:
     """``split_nodes`` in PyTorch ops: the nodes' histogram formed as
     ``split_level_plain`` forms it (the sibling as parent - smaller child
@@ -732,13 +750,14 @@ def split_nodes_plain(hist, prev_hist, small_is_right, rec: TreeRecords,
                    prev_hist, small_is_right, rec.feat_has_missing)
     hist_out.copy_(hist)
     return _search_plain(hist, rec.p, feature_mask, None, None, None,
-                         rec.cat)[0]
+                         rec.cat, totals)[0]
 
 
 def split_nodes(hist: torch.Tensor, prev_hist: Optional[torch.Tensor],
                 small_is_right: Optional[torch.Tensor], rec: TreeRecords,
                 hist_out: torch.Tensor,
-                feature_mask: Optional[torch.Tensor] = None) -> LevelSplits:
+                feature_mask: Optional[torch.Tensor] = None,
+                totals: Optional[torch.Tensor] = None) -> LevelSplits:
     """K2's level kernel without records (the lossguide grower's search of
     a step's two children, or of the root): ``hist`` [n, F, nbt, 2] the
     nodes' histogram, or with ``prev_hist`` [1, F, nbt, 2] (the parent's
@@ -747,11 +766,12 @@ def split_nodes(hist: torch.Tensor, prev_hist: Optional[torch.Tensor],
     step forms siblings. The formed histogram goes to ``hist_out`` [n or 2,
     F, nbt, 2] (a slice of the grower's store). ``feature_mask`` [F]
     bool takes the masked instantiation; ``rec.cat`` the categorical
-    candidates. No tree record is written. CPU tensors -> plain version,
-    CUDA tensors -> kernel."""
+    candidates; ``totals`` [n, 2] the nodes' (G, H) given (else read off
+    the histogram, as ``split_level``). No tree record is written. CPU
+    tensors -> plain version, CUDA tensors -> kernel."""
     if not hist.is_cuda:
         return split_nodes_plain(hist, prev_hist, small_is_right, rec,
-                                 hist_out, feature_mask)
+                                 hist_out, feature_mask, totals)
     _check(rec.cons is None, "split_nodes: the lossguide grower takes no "
                              "constraints")
     _check_hist(hist, "split_nodes")
@@ -772,6 +792,7 @@ def split_nodes(hist: torch.Tensor, prev_hist: Optional[torch.Tensor],
     _check(rec.cuts.device == dev and rec.cuts.shape == (num_features,
                                                          nbt - 2),
            "split_nodes: cuts [F, max_bin - 1] must match hist")
+    _check_totals(totals, n_nodes, dev, "split_nodes")
     if feature_mask is not None:
         _check(feature_mask.dtype == torch.bool and feature_mask.device == dev
                and feature_mask.shape == (num_features,)
@@ -794,7 +815,8 @@ def split_nodes(hist: torch.Tensor, prev_hist: Optional[torch.Tensor],
             default_left.data_ptr(), valid.data_ptr(), node_gh.data_ptr(),
             None, None, None, hist_out.data_ptr(),
             _build.ptr(feature_mask), 0 if feature_mask is None else 1,
-            None, None, None, None, _build.stream_ptr(dev))
+            None, None, None, None, _build.ptr(totals),
+            _build.stream_ptr(dev))
     _build.check(code, "K2 split nodes")
     split_nodes.launches += 1
     if rec.cat is not None:

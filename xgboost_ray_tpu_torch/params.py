@@ -87,6 +87,8 @@ class TrainParams:
     # parsed for compatibility; every value sums the same way: in f32 on
     # the CPU, in int64 fixed point on the card
     hist_precision: str = "auto"
+    # the histogram merge's wire (ops/histogram.quantized_hist_allreduce)
+    # and the gradients' precision at the source (ops/objectives.quantize_gh)
     hist_quant: str = "none"
     hist_quant_min_bytes: int = 32768
     hist_quant_block: int = 512
@@ -153,7 +155,7 @@ def leaf_budget(p: TrainParams) -> int:
 def _not_in_slice(key: str, value: Any) -> NotImplementedError:
     return NotImplementedError(
         f"{key}={value!r} is not supported by xgboost_ray_tpu_torch yet "
-        f"(this port runs gbtree with f32 gradients and objectives "
+        f"(this port runs gbtree with the objectives "
         f"{' | '.join(SUPPORTED_OBJECTIVES)}); use the JAX package "
         f"xgboost_ray_tpu for it."
     )
@@ -356,19 +358,41 @@ def parse_params(params: Optional[Dict[str, Any]]) -> TrainParams:
             f"Unknown hist_precision {out.hist_precision!r}; use auto | "
             f"highest | fast (the port sums the same way for every value)."
         )
+    # the reference's checks and messages (xgboost_ray_tpu/params.py:361-396)
     if out.hist_quant not in (
         "none", "int16", "int8", "int16_block", "int8_block"
     ):
         raise ValueError(
             f"Unknown hist_quant {out.hist_quant!r}; use none | int16 | "
-            f"int8 | int16_block | int8_block."
+            f"int8 | int16_block | int8_block (quantized histogram "
+            f"allreduce wire format)."
+        )
+    if out.hist_quant_block is None:
+        out.hist_quant_block = 512
+    out.hist_quant_block = int(out.hist_quant_block)
+    if (
+        out.hist_quant_block < 64
+        or out.hist_quant_block > (1 << 20)
+        or out.hist_quant_block & (out.hist_quant_block - 1)
+    ):
+        raise ValueError(
+            f"hist_quant_block must be a power of two in [64, 2^20], got "
+            f"{out.hist_quant_block!r} (elements per in-band scale block "
+            f"of the *_block wire modes)."
         )
     if out.gh_precision is None:
         out.gh_precision = "float32"
     if out.gh_precision not in ("float32", "int16", "int8"):
         raise ValueError(
             f"Unknown gh_precision {out.gh_precision!r}; use float32 | "
-            f"int16 | int8."
+            f"int16 | int8 (on-chip quantized-gradient training)."
+        )
+    if out.gh_precision != "float32" and out.booster == "gblinear":
+        raise NotImplementedError(
+            "gh_precision quantizes the per-tree gradient/hessian plane; "
+            "booster='gblinear' has no gh histogram plane to quantize. "
+            "Use gh_precision='float32' (silently ignoring the knob would "
+            "misreport the training precision)."
         )
     if out.grow_policy not in ("depthwise", "lossguide"):
         raise ValueError(
@@ -403,8 +427,6 @@ def parse_params(params: Optional[Dict[str, Any]]) -> TrainParams:
     for key, bad in (
         ("objective", out.objective not in SUPPORTED_OBJECTIVES),
         ("booster", out.booster != "gbtree"),
-        ("gh_precision", out.gh_precision != "float32"),
-        ("hist_quant", out.hist_quant != "none"),
         ("num_class", out.num_class not in (0, 1)
          and not out.objective.startswith("multi:")),
         ("feature_parallel", int(out.feature_parallel or 1) != 1),
