@@ -28,8 +28,8 @@ is only where it may find ``cuobjdump``). Phases:
    kernel is timed with
    CUDA events around its wrapper (``ms``: the host's issue time shows
    where it is the slower) and by ``torch.profiler`` (``device_ms``: the
-   kernels' own device time per launch; K4 also with the L2 flushed by a
-   write and by a read, warm, and its host time a call), beside its plain
+   kernels' own device time per launch, the L2 flushed by a write; K4
+   also its host time a call), beside its plain
    version and,
    where one PyTorch call computes the same function, that call (K1: an
    int64 ``index_add_``; the dequantise step: int64 times f32; K3: a
@@ -49,7 +49,7 @@ is only where it may find ``cuobjdump``). Phases:
    with two or more cards and are reported as not run otherwise); then
    two more rounds under ``torch.profiler`` (device time by kernel, CUDA
    launches per round, idle share against the unprofiled round);
-4. the card against the port's CPU path on a 200,000-row slice (3 rounds):
+4. the card against the port's CPU path on a 50,000-row slice (3 rounds):
    against the f32 CPU path the first tree equal, logloss within 1e-5 and
    margins within 1e-3; against the CPU path summing in the card's fixed
    point the whole model (dumps equal, final margins bitwise);
@@ -100,9 +100,9 @@ is only where it may find ``cuobjdump``). Phases:
    also on each mapping of its launch plan, each bitwise, beside the plan's
    choice and the bytes a tiled walk reads); the
    test margins within 1e-4 of ``booster.predict(x_test,
-   output_margin=True)``; 30 rounds with ``early_stopping_rounds=3``
+   output_margin=True)``; 15 rounds with ``early_stopping_rounds=3``
    (``best_iteration`` the argmin of the test logloss, stopped 3 rounds
-   after it or at round 30); a warm start, 5 rounds then 5 more through
+   after it or at round 15); a warm start, 5 rounds then 5 more through
    ``xgb_model``, twice (10 trees, the first 5 the uninterrupted run's, the
    rerun bitwise; the margin difference to the uninterrupted run printed);
    and ROADMAP C2, every row sketched with random positive weights twice
@@ -143,7 +143,7 @@ is only where it may find ``cuobjdump``). Phases:
    ``apply`` bitwise ``predict(pred_leaf=True)``, ``feature_importances_``
    the normalised gain, the fit's wall time beside ``train()``'s and the
    label encoding's (``np.unique``) beside the JAX module's per-row dict
-   loop; early stopping over 30 rounds (``best_iteration`` the argmin of
+   loop; early stopping over 15 rounds (``best_iteration`` the argmin of
    the test logloss, predictions from rounds [0, best + 1)); a pickle
    round trip (bitwise predictions); ``RayXGBRegressor`` over all
    11,000,000 rows with a numpy squared-error objective and with
@@ -182,8 +182,8 @@ is only where it may find ``cuobjdump``). Phases:
    (Saabas over all the test rows, and in each mapping over 4,096); the
    Saabas walk tables' bytes and each call's scratch bytes recorded; each
    entry point timed at the
-   main path's shape (events; device time L2 flushed by a write, by a
-   read, and warm) and at 4,096 rows (the same) beside its plain version,
+   main path's shape (events; device time L2 flushed by a write) and at
+   4,096 rows (the same) beside its plain version,
    its bound from the forest's actual leaves (``ops/shap.leaf_ops``;
    Saabas from the leaf each row reaches, ``ops/shap.saabas_ops``, with
    the count of ``leaf_ops`` beside it) and,
@@ -223,7 +223,9 @@ is only where it may find ``cuobjdump``). Phases:
    ``evals=[(dtrain, "train"), (dtest, "test")]``) one ``train()`` per
    objective of ``OBJ_RUNS`` (absolute, pseudo-Huber, squared log,
    Poisson, gamma, Tweedie rho 1.5, hinge and logitraw with auc / aucpr,
-   quantiles at alphas 0.1 / 0.5 / 0.9, AFT normal and logistic), labels
+   quantiles at alphas 0.1 / 0.5 / 0.9, AFT normal and logistic; the five
+   whose kernel no row of the table times on the first 2,000,000 training
+   rows, ``OBJ_CUT_ROWS``), labels
    made from the seed by ``objective_labels`` (30 % of the AFT times
    right-censored, 10 % interval-censored); each run's launches counted
    from 0 and checked exactly (``objectives_expect``), no kernel build
@@ -273,7 +275,7 @@ is only where it may find ``cuobjdump``). Phases:
    level step and K4's T-tree add bitwise their plain versions at the
    runs' shapes and timed (B12r beside ``torch.topk`` over its keys);
    every configuration (2 rounds) and a 6-tree forest equal to the
-   fixed-point CPU path's on a 200,000-row cut; S4 ``RayXGBRFClassifier(n_estimators=100,
+   fixed-point CPU path's on a 50,000-row cut; S4 ``RayXGBRFClassifier(n_estimators=100,
    max_depth=8).fit`` and ``predict_proba`` on the test rows (B8); S5 a
    sampled Covertype ``multi:softprob`` with ``logloss`` (column 0) and
    ``auc`` (column 1), equal to the fixed-point CPU path on a cut; S6 S1
@@ -295,7 +297,7 @@ is only where it may find ``cuobjdump``). Phases:
    with 2 parallel trees each, their launches exact (``forest_expect``);
    the T-tree modes of the softmax pass and of K4's K-output kernel bitwise
    their plain versions at the runs' shapes and timed; every configuration
-   equal to the fixed-point CPU path's on a cut (200,000 HIGGS rows, 20,000
+   equal to the fixed-point CPU path's on a cut (50,000 HIGGS rows, 20,000
    Covertype rows for P1, 50,000 for P2; 2 rounds);
 17. categorical one-vs-rest splits (``categorical``, after phase 16;
    ``--categorical-only`` runs the build and it alone): a seeded
@@ -314,7 +316,7 @@ is only where it may find ``cuobjdump``). Phases:
    beside their numeric forms; predict on a frame of another category
    order equal to predict on the codes; pred_contribs summing to the
    margins; each configuration equal to the fixed-point CPU path on a
-   200,000-row cut;
+   50,000-row cut;
 18. lossguide growth (``lossguide``, after phase 17; ``--lossguide-only``
    runs the build and it alone): L1 the HIGGS split at depth 6 and
    ``max_leaves`` 64 against the depthwise model (the same leaf
@@ -334,13 +336,35 @@ is only where it may find ``cuobjdump``). Phases:
    (``quantized_expect``), the test logloss falling beside Q0's,
    ``hist_allreduce_bytes_per_round`` (``quant_world_bytes``) and
    ``gh_plane_bytes_per_shard`` against their formulas; Q1 and Q4 equal
-   to the port's CPU path (Q4: the CPU's 2-rank world) on a 200,000-row
+   to the port's CPU path (Q4: the CPU's 2-rank world) on a 50,000-row
    cut, and Q5 on a 50,000-row cut, with no fixed-point patch, Q3 to the
    fixed-point CPU path;
    B10 (two blocks, int8 and int16), K1's integer instantiation (level 5
    and the root at F = 28, level 5 at F = 54), the form-and-dequantise
    step and B11's three kernels (every mode at blocks 64, 512 and 4096 on
    a level-5 HIGGS histogram) bitwise their plain versions and timed.
+20. dart and gblinear (``dart_gblinear``, after phase 19;
+   ``--dart-gblinear-only`` runs the build and it alone): D1 dart
+   ``binary:logistic`` at the HIGGS split, depth 6, ``rate_drop`` 0.1; D2
+   with weighted drops, forest normalisation, ``one_drop`` and
+   ``skip_drop`` 0.5; D3 dart ``multi:softprob`` at Covertype's shape (K =
+   7); G1 gblinear ``reg:squarederror`` at the HIGGS split (``eta`` 0.5,
+   ``lambda`` 0.01, ``alpha`` 0.001), G2 ``binary:logistic`` with the test
+   set, G3 ``multi:softprob`` at Covertype's 54 features, G4 G1 as 2 gloo
+   ranks sharing the card; launches exact (``dart_expect``,
+   ``linear_expect``: B4w twice a dart round and once a held-out set, but
+   not over round 0's empty forest, B16
+   once a gblinear round at world 1 and F + 2 times at world 2), every
+   loss falling; B4w and B16 bitwise their plain versions, on reruns, B16
+   also in its world mode, both timed with their bounds; D1, D3 and G1-G3
+   on a 50,000-row cut (2 rounds) run twice on the card and equal to the
+   port's CPU path (dart: summing in the card's fixed point), G4 to the
+   CPU's 2-rank world; ``predict()`` equal to the booster's own call and a
+   gblinear model's xgboost JSON predicting bitwise; the round medians
+   beside the main path's gbtree median.
+
+Every phase's seconds are printed on one line (``phase_seconds``) before
+the ``kernels`` line.
 
 Phase 6's model is trained, and phase 7 run, right after phase 1: later in
 the process ``torch.profiler`` records no device activity for B8's
@@ -438,8 +462,22 @@ OUT_DIR = "chiprun_out"
 CARD = None
 
 
+#: seconds of each phase of the full run, printed on one line before the
+#: kernels line
+PHASE_SECONDS = {}
+T_START = time.perf_counter()
+
+
 class SmokeFailure(Exception):
     pass
+
+
+def timed(name, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, its seconds recorded under ``name``."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    PHASE_SECONDS[name] = time.perf_counter() - t0
+    return out
 
 
 def check(cond, what):
@@ -478,9 +516,9 @@ def cuda_ms(fn, iters=10, warmup=2):
     return start.elapsed_time(end) / iters
 
 
-def host_call_us(fn, iters=200, runs=5):
+def host_call_us(fn, iters=100, runs=3):
     """Host time per call of ``fn`` called back to back, in us: its Python,
-    argument set-up and launch, not the device's work (200 launches stay
+    argument set-up and launch, not the device's work (100 launches stay
     far from the launch queue's bound). The median of ``runs`` runs, each
     followed by a synchronize."""
     import torch
@@ -1153,16 +1191,12 @@ def phase_kernels(n, records):
             "K3leaf": device_ms(lambda: H.partition_leaf_values(
                 order64, seg64, state64, nval64, rvk)),
         }
-        # K4 with the L2 flushed by a write (device_ms) and by a read, and
-        # warm; its host time a call is taken last, below
+        # K4 with the L2 flushed by a write (device_ms); its host time a
+        # call is taken last, below
         k4 = lambda: O.round_update(mk, rv, label, weight, True)  # noqa: E731
         flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
         dev_ms["K4"] = profiled_ms(lambda: (flush.zero_(), k4()))
-        k4_more = {"device_ms_read_flush": read_flushed_ms(k4),
-                   "device_ms_l2_warm": profiled_ms(k4),
-                   # every kernel of a call (a Triton K4's sum kernel too)
-                   "call_device_ms_l2_warm": device_ms(k4, every=True),
-                   "gradient_ulps": ulps4, "partials_rel": rel}
+        k4_more = {"gradient_ulps": ulps4, "partials_rel": rel}
         del flush
         emit({"phase": "kernel_context", "k3_root_ms": k3_root_ms,
               "k3_level5_ms": t["K3"][0],
@@ -1215,9 +1249,8 @@ def phase_kernels(n, records):
         # last: its 1,000 calls change the margins K4 updates in place
         records["K4"].update(k4_more, host_us=host_call_us(k4))
         emit({"phase": "k4_gh_mode", **{k: records["K4"][k] for k in (
-            "ms", "host_us", "device_ms", "device_ms_read_flush",
-            "device_ms_l2_warm", "call_device_ms_l2_warm", "plain_ms",
-            "bound_ms", "gradient_ulps", "partials_rel")}})
+            "ms", "host_us", "device_ms", "plain_ms", "bound_ms",
+            "gradient_ulps", "partials_rel")}})
     for k in records:
         records[k]["max_abs_err"] = max(res["int"][k], res["rand"][k])
     return res
@@ -2228,7 +2261,7 @@ def b4_work(tree, bins, depth, missing_bin, cat=None):
 def b4_mappings(forest, bins, depth, flush):
     """B4 on each mapping of its launch plan (``ops/grow.walk_plan``), each
     held bitwise against the plain version and timed (device time L2
-    flushed and warm, events), beside the plan's own choice and the bytes a
+    flushed, events), beside the plan's own choice and the bytes a
     tiled walk reads (every byte of the bins, the row values written, the
     forest's 13 bytes a node). Empty for a tree of the package without
     launch plans (the first B4, one mapping)."""
@@ -2259,13 +2292,11 @@ def b4_mappings(forest, bins, depth, flush):
                         "trees_per_group": plan.trees_per_group,
                         "ms": cuda_ms(fn, iters=20),
                         "device_ms": profiled_ms(
-                            lambda: (flush.zero_(), fn())),
-                        "device_ms_read_flush": read_flushed_ms(fn),
-                        "device_ms_l2_warm": profiled_ms(fn)}
+                            lambda: (flush.zero_(), fn()))}
     return out
 
 
-def phase_evals(x, y, records, rounds=10, depth=6, es_rounds=30):
+def phase_evals(x, y, records, rounds=10, depth=6, es_rounds=15):
     """The HIGGS protocol with its test set: the first rows train, the last
     ``TEST_ROWS`` are ``evals=[(dtrain, "train"), (dtest, "test")]``. Round
     times without and with the test set in turns (without, with, with,
@@ -2384,8 +2415,7 @@ def phase_evals(x, y, records, rounds=10, depth=6, es_rounds=30):
     # on the path the test set's 28 MB of bins and 10 MB of K4 inputs are
     # cold: the round before streamed ~0.6 GB of training bins through the
     # 50 MB L2. device_ms writes 64 MB between launches (a fill kernel,
-    # which device_ms does not count); device_ms_l2_warm repeats the
-    # launch on the same inputs
+    # which device_ms does not count)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     sectors, visits = b4_work(tree, es.bins, depth, 256)
     heap = tree.feature.shape[0]
@@ -2394,8 +2424,6 @@ def phase_evals(x, y, records, rounds=10, depth=6, es_rounds=30):
         launches=first["launches"]["B4"], max_abs_err=err_b4,
         ms=cuda_ms(walk, iters=20),
         device_ms=profiled_ms(lambda: (flush.zero_(), walk())),
-        device_ms_read_flush=read_flushed_ms(walk),
-        device_ms_l2_warm=profiled_ms(walk),
         plain_ms=cuda_ms(lambda: G.predict_tree_binned_plain(
             tree, es.bins, depth, 256), iters=3),
         bound_ms=b4_bound[0], bound_by=b4_bound[1], library_ms=None,
@@ -2421,18 +2449,15 @@ def phase_evals(x, y, records, rounds=10, depth=6, es_rounds=30):
                                      with_gh=False),
         k4_bound, flush, first["launches"]["K4eval"],
         float((sk - sp).abs().max()))
-    records["K4eval"].update(partials_rel=rel,
-                             call_device_ms_l2_warm=device_ms(k4e, every=True))
+    records["K4eval"].update(partials_rel=rel)
     res.update(b4_sectors=sectors, b4_visits=visits,
                b4_visits_per_row=visits / n_test,
                b4={k: records["B4"][k] for k in (
-                   "ms", "host_us", "device_ms", "device_ms_read_flush",
-                   "device_ms_l2_warm", "plain_ms", "bound_ms", "bound_by",
-                   "mappings")},
+                   "ms", "host_us", "device_ms", "plain_ms", "bound_ms",
+                   "bound_by", "mappings")},
                k4_eval={k: records["K4eval"][k] for k in (
-                   "ms", "host_us", "device_ms", "device_ms_read_flush",
-                   "device_ms_l2_warm", "call_device_ms_l2_warm", "plain_ms",
-                   "bound_ms", "max_abs_err", "partials_rel")})
+                   "ms", "host_us", "device_ms", "plain_ms", "bound_ms",
+                   "max_abs_err", "partials_rel")})
     del engine, es, tree, value, m0, mk, mp, walk, k4e, flush
     torch.cuda.empty_cache()
 
@@ -2617,18 +2642,6 @@ def multiclass_expect(rounds, depth, k, held_out):
     if held_out:
         out.update(B4=rounds, SMX=2 * rounds + 1, SMXeval=rounds)
     return out
-
-
-def read_flushed_ms(fn, iters=10):
-    """``fn``'s device time with the L2 flushed by reading 64 MB between
-    launches. ``device_ms`` flushes by writing 64 MB (``zero_``), which
-    leaves the L2 full of dirty lines that the kernel's own traffic then
-    writes back to device memory; a read leaves clean lines, so this is
-    the kernel's cold time without that write-back."""
-    import torch
-
-    buf = torch.ones(16 << 20, dtype=torch.float32, device="cuda")
-    return profiled_ms(lambda: (buf.sum(), fn()), iters=iters)
 
 
 #: K4 variants timed by ``--k4-variants``: edits of ``csrc/objective.cu``
@@ -3019,10 +3032,10 @@ def phase_k4_variants(n_eval=500_000, n_gh=11_000_000):
 
 def _kernel_record(records, key, fn, plain, bound, flush, launches, err,
                    library=None, iters=None):
-    """Time ``fn`` (events, device time L2 flushed by a write and by a
-    read, and warm) beside its plain version, then the host time a
-    call (last: its 1,000 calls change the margins a pass updates in
-    place, and with them its device time); fill ``records[key]``.
+    """Time ``fn`` (events, and device time with the L2 flushed by a
+    write) beside its plain version, then the host time a call (last: its
+    300 calls change the margins a pass updates in place, and with them
+    its device time); fill ``records[key]``.
     ``plain`` is the plain version, or the ms of its one run
     (``timed_once``) where it is too slow to loop. A slow kernel passes
     ``iters``: that many calls a time, and no host time (1,000 calls of
@@ -3033,8 +3046,6 @@ def _kernel_record(records, key, fn, plain, bound, flush, launches, err,
         launches=launches, max_abs_err=err,
         ms=cuda_ms(fn, iters=n, warmup=1 if slow else 2),
         device_ms=profiled_ms(lambda: (flush.zero_(), fn()), iters=k),
-        device_ms_read_flush=read_flushed_ms(fn, iters=k),
-        device_ms_l2_warm=profiled_ms(fn, iters=k),
         plain_ms=cuda_ms(plain, iters=3) if callable(plain) else plain,
         bound_ms=bound[0], bound_by=bound[1], library_ms=library)
     if not slow:
@@ -3134,7 +3145,7 @@ def hold_softmax_update(m0, rv, lab, w, with_gh, what):
     return err, rel, ulps
 
 
-def phase_multiclass(records, rounds=10, depth=6, es_rounds=30,
+def phase_multiclass(records, rounds=10, depth=6, es_rounds=15,
                      cmp_rows=50_000, cmp_rounds=3):
     """Covertype's configuration: ``multi:softprob``, K = 7, depth 6, 256
     bins, ``eval_metric`` merror then mlogloss, 464,810 rows train and the
@@ -3316,8 +3327,7 @@ def phase_multiclass(records, rounds=10, depth=6, es_rounds=30,
     emit({"phase": "multiclass_kernels", **{
         key: {f: records[key].get(f) for f in (
             "launches", "max_abs_err", "ms", "host_us", "device_ms",
-            "device_ms_read_flush", "device_ms_l2_warm", "plain_ms",
-            "bound_ms", "mappings")}
+            "plain_ms", "bound_ms", "mappings")}
         for key in ("B4k", "SMX", "SMXeval")}})
     res["kernels"] = {"softmax_training_partials_rel": rel_t,
                       "softmax_training_gradient_ulps": ulps_t,
@@ -3412,14 +3422,8 @@ def phase_multiclass(records, rounds=10, depth=6, es_rounds=30,
         launches["SMXtransform"], 0.0,
         library=cuda_ms(lambda: torch.softmax(md, 1), iters=20))
     # the yardstick's device time, measured as the kernel's
-    rbuf = torch.ones(16 << 20, dtype=torch.float32, device="cuda")
-    records["SMXtransform"]["library_device_ms"] = {
-        "write_flush": device_ms(lambda: (flush.zero_(), torch.softmax(md, 1)),
-                                 only="softmax"),
-        "read_flush": device_ms(lambda: (rbuf.sum(), torch.softmax(md, 1)),
-                                only="softmax"),
-        "l2_warm": device_ms(lambda: torch.softmax(md, 1), only="softmax")}
-    del rbuf
+    records["SMXtransform"]["library_device_ms"] = device_ms(
+        lambda: (flush.zero_(), torch.softmax(md, 1)), only="softmax")
     del md, got, got_c, flush, values, plain, margins, classes, soft
     torch.cuda.empty_cache()
 
@@ -3706,7 +3710,7 @@ def mlogloss_metric(preds, dmat):
     return "my_mlogloss", float(np.mean(lse - m[np.arange(len(y)), y]))
 
 
-def phase_facade(x, y, records, rounds=10, depth=6, es_rounds=30,
+def phase_facade(x, y, records, rounds=10, depth=6, es_rounds=15,
                  grid_rows=50_000, dev="cuda:0"):
     """Phase 10, the facade at full width: the sklearn estimators against
     ``train()`` on the HIGGS split (dumps equal, launches equal, predict /
@@ -4144,9 +4148,8 @@ def shap_sum_bound(bst, sf, m, n_feat, interactions=False):
 
 def _shap_record(records, key, fn, plain, bound, launches, err, fn4096):
     """B15's row of the kernel table: events and device time (L2 flushed
-    by a write and by a read, and warm) at the main path's shape, the
-    kernel (events and the same device times) and its plain version at
-    ``SHAP_PLAIN_ROWS`` rows; beside the operations bound the unfused
+    by a write) at the main path's shape, the kernel (events and the same
+    device time) and its plain version at ``SHAP_PLAIN_ROWS`` rows; beside the operations bound the unfused
     ceiling (B15 builds with --fmad=false, so every multiply and add is an
     instruction of its own: half the f32 rate)."""
     import torch
@@ -4157,12 +4160,9 @@ def _shap_record(records, key, fn, plain, bound, launches, err, fn4096):
         launches=launches, max_abs_err=err, ms=cuda_ms(fn, iters=1,
                                                       warmup=0),
         device_ms=profiled_ms(lambda: (flush.zero_(), fn()), iters=1),
-        device_ms_read_flush=read_flushed_ms(fn, iters=1),
-        device_ms_l2_warm=profiled_ms(fn, iters=1),
         ms_plain_rows=cuda_ms(fn4096, iters=2, warmup=1),
-        device_ms_plain_rows=[
-            profiled_ms(lambda: (flush.zero_(), fn4096()), iters=3),
-            read_flushed_ms(fn4096, iters=3), profiled_ms(fn4096, iters=3)],
+        device_ms_plain_rows=profiled_ms(lambda: (flush.zero_(), fn4096()),
+                                         iters=3),
         plain_ms=cuda_ms(plain, iters=1, warmup=0), plain_rows=SHAP_PLAIN_ROWS,
         bound_ms=bound[0], bound_by=bound[1], library_ms=None,
         unfused_ceiling_ms=(2 * bound[0] if bound[1] == "operations"
@@ -4184,23 +4184,12 @@ def b15_kernel_names(mode, mapping):
 
 def shap_build_report():
     """Registers, shared memory and spills of every B15 instantiation
-    (``-Xptxas -v``), and the seconds of ``csrc/shap.cu``'s build alone."""
-    import tempfile
-
+    (``-Xptxas -v``, from the log the build keeps)."""
     from xgboost_ray_tpu_torch.ops import _build
 
     report = ptxas_report(_build.build_log("shap"))
-    # the build of csrc/shap.cu alone, timed into a directory of its own
-    os.makedirs(OUT_DIR, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=OUT_DIR) as tmp:
-        t0 = time.perf_counter()
-        subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-I",
-                        _build.CSRC_DIR, "-o", os.path.join(tmp, "s.so"),
-                        os.path.join(_build.CSRC_DIR, "shap.cu")],
-                       capture_output=True, check=True, timeout=600)
-        shap_s = time.perf_counter() - t0
     return {"kernels": {k: v for k, v in report.items()
-                        if k.startswith("xrt_shap")}, "shap_cu_build_s": shap_s}
+                        if k.startswith("xrt_shap")}}
 
 
 def train_covertype_model(rounds=10, depth=6):
@@ -4843,6 +4832,10 @@ OBJ_RUNS = (
                       "aft_loss_distribution_scale": 1.0}, "aft"),
 )
 
+#: training rows of phase 13's runs whose kernel no row of the kernel
+#: table times (their launches and holds are checked all the same)
+OBJ_CUT_ROWS = 2_000_000
+
 #: the kernel table's rows of phase 13, by the run whose kernel they time
 OBJECTIVE_KERNELS = ("K4loglink", "K4rest", "K4quantile", "AFTnormal",
                      "AFTlogistic", "B9a", "B9atest", "B8exp")
@@ -4965,11 +4958,12 @@ def hold_k4(engine, obj_metrics, rng, what, records=None, key=None,
     return out
 
 
-def phase_objectives(x, y, records, rounds=10, depth=6, es_rounds=30,
-                     compare_rows=200_000):
+def phase_objectives(x, y, records, rounds=10, depth=6, es_rounds=15,
+                     compare_rows=50_000):
     """Phase 13 at full width: every row-elementwise objective trained at
-    the HIGGS shape and split (``OBJ_RUNS``; 10,500,000 rows train, the
-    last 500,000 the test set, ``evals=[(dtrain, "train"), (dtest,
+    the HIGGS shape and split (``OBJ_RUNS``; 10,500,000 rows train, or
+    ``OBJ_CUT_ROWS`` for the runs no kernel row times, the last 500,000
+    the test set, ``evals=[(dtrain, "train"), (dtest,
     "test")]``, depth 6, 256 bins, 10 rounds), each run's launches counted
     from 0 and checked exactly, no kernel build in any of them; each K4
     mode, the AFT pass and the K-output kernel against their plain versions
@@ -5018,8 +5012,10 @@ def phase_objectives(x, y, records, rounds=10, depth=6, es_rounds=30,
                 return xrt.RayDMatrix(x[a:b], labels[kind][a:b])
         return dm(lo_, hi_), (dm(n_train, n) if rows is None else None)
 
-    def train(params, kind, n_rounds, **kw):
+    def train(params, kind, n_rounds, train_rows=None, **kw):
         dtrain, dtest = matrices(kind)
+        if train_rows is not None:
+            dtrain = matrices(kind, train_rows)[0]
         ev, extra = {}, {}
         keep = _KeepEngine()
         builds = _build.compile_count()
@@ -5046,7 +5042,10 @@ def phase_objectives(x, y, records, rounds=10, depth=6, es_rounds=30,
              "aft_logistic": "AFTlogistic"}
     runs = {}
     for key, params, kind in OBJ_RUNS:
-        r = train(params, kind, rounds)
+        # the runs no kernel row times train on a cut of the rows
+        r = train(params, kind, rounds,
+                  None if key in timed or key == "logitraw"
+                  else OBJ_CUT_ROWS)
         eng = r.pop("engine")
         k = eng.n_outputs
         auc = any(m in ("auc", "aucpr") for m in eng.metric_names)
@@ -5800,7 +5799,7 @@ def sampling_expect(params, rounds, depth, held_out=True, trees=1):
     return out
 
 
-def phase_sampling(x, y, records, rounds=10, depth=6, compare_rows=200_000):
+def phase_sampling(x, y, records, rounds=10, depth=6, compare_rows=50_000):
     """Phase 15 at full width: ``train()`` at the HIGGS split (10,500,000
     rows train, the last 500,000 the test set, depth 6, 10 rounds, seed 7)
     unsampled (the main path) and with S1 (uniform rows 0.8, bytree and
@@ -6299,7 +6298,7 @@ def monotone_grid(bst, x, signs, rows=200, points=64):
 
 
 def phase_constraints(x, y, records, rounds=10, depth=6,
-                      compare_rows=200_000):
+                      compare_rows=50_000):
     """Phase 16 at full width. Path M at the HIGGS split (10,500,000 rows
     train, the last 500,000 the test set, depth 6, 10 rounds, seed 7): M1
     monotone (+1 on four features, -1 on three), M2 interaction groups
@@ -6816,7 +6815,7 @@ def _same_on_cpu(train, key, params, make, rounds=2, depth=None):
 
 
 def phase_categorical(records, rounds=10, depth=6, n_rows=None,
-                      compare_rows=200_000):
+                      compare_rows=50_000):
     """Phase 17 at full width: a seeded airline-shaped set
     (``make_airline_like``, 11,000,000 rows: the first 10,500,000 train,
     the last 500,000 the test set, the HIGGS protocol's split), depth 6, 10
@@ -7613,7 +7612,7 @@ def _quant_world(world, data, params, rounds, options):
     return out
 
 
-def phase_quantized(x, y, records, rounds=10, depth=6, compare_rows=200_000,
+def phase_quantized(x, y, records, rounds=10, depth=6, compare_rows=50_000,
                     lossguide_rows=50_000):
     """Phase 19 at full width: the HIGGS split (10,500,000 rows train, the
     last 500,000 the test set), depth 6, 10 rounds, ``logloss`` on the test
@@ -7886,6 +7885,370 @@ def quant_world_bytes(params, depth, n_features, nbt=257, world=2):
             total += int(ring * (1 << d) * 8)
     total += int(ring * (1 << depth) * 2 * item)
     return total
+
+
+# ---------------------------------------------------------------------------
+# phase 20: dart and gblinear (B4w, B16)
+# ---------------------------------------------------------------------------
+
+DART_RUNS = (
+    ("D1", {"objective": "binary:logistic", "booster": "dart",
+            "rate_drop": 0.1}, "higgs"),
+    ("D2", {"objective": "binary:logistic", "booster": "dart",
+            "rate_drop": 0.1, "sample_type": "weighted",
+            "normalize_type": "forest", "one_drop": 1, "skip_drop": 0.5},
+     "higgs"),
+    ("D3", {"objective": "multi:softprob", "num_class": 7, "booster": "dart",
+            "rate_drop": 0.1, "eval_metric": ["mlogloss"]}, "covertype"),
+)
+LINEAR_PARAMS = {"booster": "gblinear", "eta": 0.5, "reg_lambda": 0.01,
+                 "reg_alpha": 0.001}
+LINEAR_RUNS = (
+    ("G1", {"objective": "reg:squarederror", "eval_metric": ["rmse"]},
+     "higgs", False),
+    ("G2", {"objective": "binary:logistic", "eval_metric": ["logloss"]},
+     "higgs", True),
+    ("G3", {"objective": "multi:softprob", "num_class": 7,
+            "eval_metric": ["mlogloss"]}, "covertype", True),
+)
+DART_GBLINEAR_KERNELS = ("B4w", "B16")
+
+
+def dart_expect(rounds, depth, k, held_out=True):
+    """Launches of a dart ``train()`` with the training set (and a held-out
+    set) among its evals: per tree the gbtree path's (``train_expect`` over
+    rounds x K trees); per round the round pass over B4w's margins under
+    the drops (the gradients), and its eval mode over each set's margins
+    under the round's weights (K4, or the softmax pass with K outputs); B4w
+    over the training rows twice and once a held-out set, but for the first
+    round's margins under the drops (no tree yet: no launch); no set-up
+    pass."""
+    sets = 1 + held_out
+    out = {**train_expect(rounds * k, depth), "B4": 0, "B4w": rounds *
+           (1 + sets) - 1, "K4": 0, "K4eval": 0, "SMX": 0, "SMXeval": 0}
+    gh, ev = ("K4", "K4eval") if k == 1 else ("SMX", "SMXeval")
+    out.update({gh: rounds * (1 + sets), ev: rounds * sets})
+    return out
+
+
+def linear_expect(rounds, k, held_out, n_features, world=1):
+    """Launches of a gblinear ``train()`` with the training set (and a
+    held-out set) among its evals: per round the round pass's gradients
+    (K4, or the softmax pass with K outputs) and its eval mode over each
+    set's new margins; B16 once a round at world 1, else once for the
+    bias's sums and once a coordinate (F + 2); no tree kernel."""
+    sets = 1 + held_out
+    gh, ev = ("K4", "K4eval") if k == 1 else ("SMX", "SMXeval")
+    out = dict.fromkeys(("K1", "K1deq", "K2level", "K2leaf", "K3", "K3leaf",
+                         "B4", "B4w", "K4", "K4eval", "SMX", "SMXeval"), 0)
+    out.update({gh: rounds * (1 + sets), ev: rounds * sets,
+                "B16": rounds * (1 if world == 1 else n_features + 2)})
+    return out
+
+
+def _linear_same(train, key, params, make, rounds=2):
+    """A gblinear model on the card twice and on the CPU path: weights and
+    bias bitwise (the margins' elementwise sums, K4's gradients and B16
+    are bitwise their plain versions; nothing needs a patch)."""
+    runs = [train(params, make(), None, n_rounds=rounds, device=dev)
+            for dev in ("cuda:0", "cuda:0", "cpu")]
+    w = [(r["bst"].weights, r["bst"].bias) for r in runs]
+    rerun = all(np.array_equal(a, b) for a, b in zip(w[0], w[1]))
+    same = all(np.array_equal(a, b) for a, b in zip(w[0], w[2]))
+    check(rerun, f"{key}: a rerun on the card differs")
+    check(same, f"{key}: the card's weights differ from the CPU path's")
+    return {"rounds": rounds, "rerun_bitwise": rerun, "weights_equal": same}
+
+
+def _dart_same(train, key, params, make, rounds=2):
+    """A dart model on the card twice and on the CPU path summing in the
+    card's fixed point: dumps with stats and tree weights equal."""
+    card = [train(params, make(), None, n_rounds=rounds) for _ in range(2)]
+    with _cpu_fixed_point(True):
+        cpu = train(params, make(), None, n_rounds=rounds, device="cpu")
+
+    def model(r):
+        return (r["bst"].get_dump(with_stats=True),
+                r["bst"].tree_weights.tolist())
+
+    rerun = model(card[0]) == model(card[1])
+    same = model(card[0]) == model(cpu)
+    check(rerun, f"{key}: a rerun on the card differs")
+    check(same, f"{key}: the card's model differs from the fixed-point CPU "
+                f"path's")
+    return {"rounds": rounds, "rerun_bitwise": rerun, "dumps_equal": same}
+
+
+def _dart_linear_holds(d_eng, g_eng, records, flush, launches):
+    """B4w over the D1 engine's forest (every slot so far, its final
+    weights) on the training rows, and B16 over the G1 engine's rows at its
+    final weights and gradients: bitwise their plain versions (the plain
+    versions on the card: the same torch operations as on the CPU), each
+    timed with its bound; B16 also in the world mode's launches with an
+    identity all-reduce."""
+    import torch
+
+    from xgboost_ray_tpu_torch.ops import grow as G
+    from xgboost_ray_tpu_torch.ops import linear as L
+
+    out = {}
+    bins, base = d_eng.bins, d_eng.margins_static
+    n, f = bins.shape
+    t = d_eng.dart_t
+    w = torch.from_numpy(d_eng.dart_weights).cuda()
+    fo = d_eng.dart_forest
+
+    def b4w():
+        return G.predict_forest_weighted(fo, t, bins, base, w,
+                                         d_eng.cfg.max_depth,
+                                         d_eng.cfg.max_bin)
+
+    got = b4w()
+    want, plain_ms = timed_once(lambda: G.predict_forest_weighted_plain(
+        fo, t, bins, base, w, d_eng.cfg.max_depth, d_eng.cfg.max_bin))
+    check(torch.equal(bits(got), bits(want)),
+          "B4w not bitwise its plain version")
+    check(all(torch.equal(bits(b4w()), bits(got)) for _ in range(2)),
+          "B4w reruns differ")
+    heap = fo.feature.shape[1]
+    k = base.shape[1]
+    b4w_bytes = (n * f * bins.element_size() + 2 * n * k * 4 + t * 4
+                 + t * heap * 13)
+    _kernel_record(records, "B4w", b4w, plain_ms,
+                   bound_ms(b4w_bytes, 2 * n * t), flush, launches["B4w"],
+                   float((got - want).abs().max()), None, iters=5)
+    records["B4w"]["bytes"] = b4w_bytes
+    out["B4w"] = {"rows": n, "trees": t, "bitwise_plain": True}
+
+    xt, gw, gb = g_eng.xt, g_eng.w, g_eng.b
+    m = g_eng._margins(xt, g_eng.user_margin)
+    z = torch.zeros((1, m.shape[0]), dtype=torch.float32, device="cuda")
+    gh0 = g_eng._update(m, z, g_eng.label, g_eng.weight)[0].contiguous()
+    p = g_eng.params
+    lam, alp = p.reg_lambda * g_eng.sum_w, p.reg_alpha * g_eng.sum_w
+    gh_k = gh0.clone()
+    wk, bk = L.linear_round(xt, gh_k, gw, gb, p.learning_rate, lam, alp)
+    gh_p = gh0.clone()
+    (wp, bp), plain_ms = timed_once(lambda: L.linear_round_plain(
+        xt, gh_p, gw, gb, p.learning_rate, lam, alp))
+    gh_s = gh0.clone()
+    ws, bs = L.linear_round(xt, gh_s, gw, gb, p.learning_rate, lam, alp,
+                            lambda s: s)
+    same = all(torch.equal(bits(a), bits(b)) for a, b in (
+        (wk, wp), (bk, bp), (gh_k, gh_p), (ws, wp), (bs, bp), (gh_s, gh_p)))
+    check(same, "B16 not bitwise its plain version")
+    reruns = []
+    for _ in range(2):
+        g2 = gh0.clone()
+        reruns.append(L.linear_round(xt, g2, gw, gb, p.learning_rate, lam,
+                                     alp))
+    check(all(torch.equal(bits(a[0]), bits(wk)) for a in reruns),
+          "B16 reruns differ")
+    nr, nf = xt.shape[1], xt.shape[0]
+    kk = gh0.shape[0]
+    gh_t = gh0.clone()
+    # each input read once, each output written once; the cyclic pass
+    # itself reads (g, h) and writes g a coordinate (``per_pass``)
+    b16_bytes = 4 * nr * nf + 8 * nr * kk + 4 * nr * kk + 8 * nf * kk
+    pass_bytes = 8 * nr * kk + (nf + 1) * 12 * nr * kk + 4 * nr * nf
+    g_col = gh0[0, :, 0].contiguous()
+    lib = cuda_ms(lambda: torch.mv(xt, g_col), iters=5)
+    _kernel_record(records, "B16",
+                   lambda: L.linear_round(xt, gh_t, gw, gb, p.learning_rate,
+                                          lam, alp),
+                   plain_ms, bound_ms(b16_bytes, 5 * nr * nf * kk), flush,
+                   launches["B16"], float((wk - wp).abs().max()), lib,
+                   iters=5)
+    records["B16"]["bound_ms_per_pass"] = bound_ms(pass_bytes, 0)[0]
+    records["B16"]["bytes"] = b16_bytes
+    records["B16"]["bytes_per_pass"] = pass_bytes
+    out["B16"] = {"rows": nr, "features": nf, "outputs": kk,
+                  "bitwise_plain": same, "world_mode_bitwise": same}
+    del gh_k, gh_p, gh_s, gh_t, gh0, m
+    return out
+
+
+def phase_dart_gblinear(x, y, records, rounds=10, depth=6,
+                        compare_rows=50_000):
+    """Phase 20 at full width: dart and gblinear through ``train()`` and
+    ``predict()`` on the card. D1 dart ``binary:logistic`` at the HIGGS
+    split (10,500,000 rows train, the last 500,000 the test set), depth 6,
+    10 rounds, ``rate_drop`` 0.1; D2 D1 with weighted drops, forest
+    normalisation, ``one_drop`` and ``skip_drop`` 0.5; D3 dart
+    ``multi:softprob`` at Covertype's shape (K = 7); G1 gblinear
+    ``reg:squarederror`` at the HIGGS split (``eta`` 0.5, ``lambda`` 0.01,
+    ``alpha`` 0.001), G2 ``binary:logistic`` with the test set, G3
+    ``multi:softprob`` at Covertype's 54 features, G4 G1 as 2 gloo ranks
+    sharing the card. Each run's launches checked exactly
+    (``dart_expect`` / ``linear_expect``), its loss falling; B4w and B16
+    bitwise their plain versions, on reruns and timed
+    (``_dart_linear_holds``); the models on ``compare_rows`` rows (2
+    rounds) equal the port's CPU path (dart: summing in the card's fixed
+    point) and reruns; G4 the CPU path's 2-rank world; a gblinear model's
+    xgboost JSON predicts bitwise; ``predict()`` equals the booster's own
+    call."""
+    import torch
+
+    import xgboost_ray_tpu_torch as xrt
+    from xgboost_ray_tpu_torch import distributed as D
+    from xgboost_ray_tpu_torch.linear import RayLinearBooster
+
+    t_phase = time.perf_counter()
+    n = x.shape[0]
+    n_train = n - TEST_ROWS
+    f = x.shape[1]
+    res = {"phase": "dart_gblinear", "card": CARD, "rows": n,
+           "train_rows": n_train, "test_rows": TEST_ROWS, "rounds": rounds,
+           "runs": {}, "steps_s": {}}
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    train = _phase_train(res, rounds, depth)
+    world_gpu = D.World(2, "cuda", backend="gloo")
+    world_cpu = D.World(2, "cpu")
+    t0 = time.perf_counter()
+    xc, yc = make_covertype_like(COVERTYPE_ROWS, seed=0)
+    nc = COVERTYPE_ROWS - COVERTYPE_TEST
+    sets = {"higgs": (x[:n_train], y[:n_train], x[n_train:], y[n_train:]),
+            "covertype": (xc[:nc], yc[:nc], xc[nc:], yc[nc:])}
+    res["steps_s"]["data"] = time.perf_counter() - t0
+    cut = min(compare_rows, n_train)
+    keep = {}
+    try:
+        totals = {"B4w": 0, "B16": 0}
+        for key, params, data in DART_RUNS:
+            xt_, yt_, xv, yv = sets[data]
+            k = params.get("num_class", 1)
+            t0 = time.perf_counter()
+            r = train(params, xrt.RayDMatrix(xt_, yt_),
+                      xrt.RayDMatrix(xv, yv))
+            _exact(r["launches"], dart_expect(rounds, depth, k), key)
+            metric = next(iter(r["ev"]["test"]))
+            hist = _falls(r["ev"]["test"][metric], key)
+            tw = r["bst"].tree_weights
+            check(tw is not None and tw.shape == (rounds * k,)
+                  and np.all(tw > 0) and np.all(tw <= 1),
+                  f"{key}: tree weights {tw}")
+            totals["B4w"] += r["launches"]["B4w"]
+            res["runs"][key] = {
+                "params": params, "launches": {
+                    kk: r["launches"][kk] for kk in
+                    dart_expect(rounds, depth, k)},
+                "round_ms": r["round_ms"],
+                "round_ms_median": float(np.median(r["round_ms"])),
+                "test_" + metric: hist, "wall_s": time.perf_counter() - t0,
+                "tree_weights": tw.tolist()}
+            if key == "D1":
+                keep["D1"] = r
+        for key, params, data, held in LINEAR_RUNS:
+            xt_, yt_, xv, yv = sets[data]
+            k = params.get("num_class", 1)
+            t0 = time.perf_counter()
+            r = train({**LINEAR_PARAMS, **params}, xrt.RayDMatrix(xt_, yt_),
+                      xrt.RayDMatrix(xv, yv) if held else None)
+            check(isinstance(r["bst"], RayLinearBooster),
+                  f"{key}: not a gblinear model")
+            _exact(r["launches"], linear_expect(rounds, k, held,
+                                                xt_.shape[1]), key)
+            s = "test" if held else "train"
+            metric = params["eval_metric"][0]
+            hist = _falls(r["ev"][s][metric], key)
+            totals["B16"] += r["launches"]["B16"]
+            res["runs"][key] = {
+                "params": {**LINEAR_PARAMS, **params},
+                "launches": {kk: r["launches"][kk] for kk in linear_expect(
+                    rounds, k, held, xt_.shape[1])},
+                "round_ms": r["round_ms"],
+                "round_ms_median": float(np.median(r["round_ms"])),
+                f"{s}_{metric}": hist, "wall_s": time.perf_counter() - t0}
+            if key in ("G1", "G2"):
+                keep[key] = r
+        # G4: G1 as 2 gloo ranks sharing the card
+        t0 = time.perf_counter()
+        g1 = {**LINEAR_PARAMS, **LINEAR_RUNS[0][1]}
+        data = D.share({"x": x[:n_train], "label": y[:n_train]})
+        out = world_gpu.run(D._train_rank, data, g1, rounds,
+                            {"device": "cuda", "num_actors": 2})
+        check(out[0]["model"] == out[1]["model"],
+              "G4: the ranks' models differ")
+        _exact(out[0]["launches"], linear_expect(rounds, 1, False, f,
+                                                 world=2), "G4")
+        g4 = RayLinearBooster.load_raw(out[0]["model"])
+        g1w = keep["G1"]["bst"].weights
+        res["runs"]["G4"] = {
+            "params": g1, "ranks": 2,
+            "launches": {kk: out[0]["launches"][kk] for kk in linear_expect(
+                rounds, 1, False, f, world=2)},
+            "round_ms": [s * 1e3 for s in
+                         out[0]["additional_results"]["round_times_s"]],
+            "max_abs_weight_diff_vs_G1": float(np.abs(g4.weights
+                                                      - g1w).max()),
+            "wall_s": time.perf_counter() - t0}
+        res["runs"]["G4"]["round_ms_median"] = float(np.median(
+            res["runs"]["G4"]["round_ms"]))
+        del data
+        for kk in DART_GBLINEAR_KERNELS:
+            records[kk]["launches"] = totals[kk]
+        emit({"phase": "dart_gblinear_rounds", "card": CARD,
+              **{kk: v["round_ms_median"] for kk, v in res["runs"].items()}})
+        # predict() against the booster's own call; a gblinear model's
+        # xgboost JSON round trip
+        t0 = time.perf_counter()
+        xv = x[n_train:]
+        for key in ("D1", "G2"):
+            bst = keep[key]["bst"]
+            own = bst.predict(xv)
+            via = xrt.predict(bst, xrt.RayDMatrix(xv),
+                              ray_params=xrt.RayParams(num_actors=2))
+            check(np.array_equal(own, via),
+                  f"{key}: predict() differs from the booster's own call")
+            check(np.isfinite(own).all() and own.shape == (xv.shape[0],),
+                  f"{key}: predictions")
+        g2 = keep["G2"]["bst"]
+        back = RayLinearBooster.import_xgboost_json(g2.export_xgboost_json())
+        check(np.array_equal(back.predict(xv), g2.predict(xv)),
+              "G2: the xgboost JSON round trip predicts otherwise")
+        res["predict_checks"] = {"predict_equals_booster": True,
+                                 "xgboost_json_round_trip_bitwise": True}
+        res["steps_s"]["predict"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res.update(_dart_linear_holds(keep["D1"]["engine"],
+                                      keep["G1"]["engine"], records, flush,
+                                      totals))
+        res["steps_s"]["holds"] = time.perf_counter() - t0
+        keep.clear()
+        torch.cuda.empty_cache()
+        # the CPU paths on cuts (2 rounds), each card run twice
+        t0 = time.perf_counter()
+        cmp = {}
+        ccut = min(compare_rows, nc)
+        for key, params, data in DART_RUNS:
+            xt_, yt_, _, _ = sets[data]
+            rows = cut if data == "higgs" else ccut
+            if key == "D2":
+                continue  # D1's kernels and path; its drops are the host's
+            cmp[key] = dict(_dart_same(
+                train, key, params,
+                lambda: xrt.RayDMatrix(xt_[:rows], yt_[:rows])), rows=rows)
+        for key, params, data, _ in LINEAR_RUNS:
+            xt_, yt_, _, _ = sets[data]
+            rows = cut if data == "higgs" else ccut
+            cmp[key] = dict(_linear_same(
+                train, key, {**LINEAR_PARAMS, **params},
+                lambda: xrt.RayDMatrix(xt_[:rows], yt_[:rows])), rows=rows)
+        cut_data = D.share({"x": x[:cut], "label": y[:cut]})
+        outs = [world.run(D._train_rank, cut_data, g1, 2, {"device": dev})
+                for world, dev in ((world_gpu, "cuda"), (world_cpu, "cpu"))]
+        same = outs[0][0]["model"] == outs[1][0]["model"]
+        check(same, "G4: the card's 2-rank model differs from the CPU "
+                    "path's 2-rank world")
+        cmp["G4"] = {"rows": cut, "rounds": 2, "models_equal_cpu_world": same}
+        res["cpu_paths"] = cmp
+        res["steps_s"]["cpu_paths"] = time.perf_counter() - t0
+    finally:
+        world_gpu.close()
+        world_cpu.close()
+    res["phase_s"] = time.perf_counter() - t_phase
+    emit(res)
+    return res
 
 
 def profiled_ms(fn, iters=10):
@@ -8171,6 +8534,16 @@ KERNELS = {
                    "0)",
                    route="cuda", source="xgboost_ray_tpu_torch/csrc/quant.cu",
                    replaces="xgboost_ray_tpu/ops/histogram.py:269"),
+    "B4w": dict(name="B4w weighted-forest walk (dart): the 10.5M HIGGS "
+                "training rows' margins over D1's 10 depth-6 trees under "
+                "their weights (int16 bins, 28 features; launches: D1-D3)",
+                route="cuda", source="xgboost_ray_tpu_torch/csrc/walk.cu",
+                replaces="xgboost_ray_tpu/engine.py:2880"),
+    "B16": dict(name="B16 gblinear coordinate-descent round: the bias and "
+                "28 features over the 10.5M HIGGS training rows, K = 1 "
+                "(launches: G1-G3)", route="cuda",
+                source="xgboost_ray_tpu_torch/csrc/linear.cu",
+                replaces="xgboost_ray_tpu/linear.py:460"),
     **{f"B8serve{m}": dict(
         name=f"B8 forest walk: margins, heap layout, a serve batch of {m} "
              f"rows (windows mapping; launches: every batch of the heap "
@@ -8352,7 +8725,17 @@ def run(args):
         else:
             phase_serve_pool(served, x, y)
         return
-    build_report = phase_build_report(args.predict_rounds, args.rows)
+    if args.dart_gblinear_only:
+        records = {k: dict(v) for k, v in KERNELS.items()}
+        x, y = make_higgs_like(args.rows, 28, seed=0)
+        phase_dart_gblinear(x, y, records,
+                            compare_rows=min(args.compare_rows, args.rows))
+        emit({"dart_gblinear_kernels": {k: records[k]
+                                        for k in DART_GBLINEAR_KERNELS}})
+        return
+    PHASE_SECONDS["build"] = time.perf_counter() - t0
+    build_report = timed("build_report", phase_build_report,
+                         args.predict_rounds, args.rows)
 
     x, y = make_higgs_like(args.rows, 28, seed=0)
     if args.profile_only:
@@ -8362,46 +8745,53 @@ def run(args):
     # times) before the other phases: later in the process torch.profiler
     # records no device activity for B8's full-size launches (PERF.md §7)
     records = {k: dict(v) for k, v in KERNELS.items()}
-    served, train_margin, last_ll = phase_train_model(x, y,
-                                                      args.predict_rounds)
-    b8 = phase_b8(served, x, records)
+    served, train_margin, last_ll = timed(
+        "train_model", phase_train_model, x, y, args.predict_rounds)
+    b8 = timed("b8", phase_b8, served, x, records)
     torch.cuda.empty_cache()
     if args.b8_only:
         return
 
-    phase_kernels(args.rows, {k: records[k] for k in TRAIN_KERNELS})
-    results = {"evals": phase_evals(x, y, records),
-               "multiclass": phase_multiclass(records)}
+    cmp_rows = min(args.compare_rows, args.rows)
+    timed("kernels", phase_kernels, args.rows,
+          {k: records[k] for k in TRAIN_KERNELS})
+    results = {"evals": timed("evals", phase_evals, x, y, records),
+               "multiclass": timed("multiclass", phase_multiclass, records)}
     torch.cuda.empty_cache()
-    results["facade"] = phase_facade(x, y, records)
+    results["facade"] = timed("facade", phase_facade, x, y, records)
     torch.cuda.empty_cache()
-    results["objectives"] = phase_objectives(
-        x, y, records, compare_rows=min(args.compare_rows, args.rows))
+    results["objectives"] = timed("objectives", phase_objectives, x, y,
+                                  records, compare_rows=cmp_rows)
     torch.cuda.empty_cache()
-    results["ranking"] = phase_ranking(x, y, records)
+    results["ranking"] = timed("ranking", phase_ranking, x, y, records)
     torch.cuda.empty_cache()
-    results["sampling"] = phase_sampling(
-        x, y, records, compare_rows=min(args.compare_rows, args.rows))
+    results["sampling"] = timed("sampling", phase_sampling, x, y, records,
+                                compare_rows=cmp_rows)
     torch.cuda.empty_cache()
-    results["constraints"] = phase_constraints(
-        x, y, records, compare_rows=min(args.compare_rows, args.rows))
+    results["constraints"] = timed("constraints", phase_constraints, x, y,
+                                   records, compare_rows=cmp_rows)
     torch.cuda.empty_cache()
-    results["categorical"], airline = phase_categorical(
-        records, n_rows=args.rows,
-        compare_rows=min(args.compare_rows, args.rows))
+    results["categorical"], airline = timed(
+        "categorical", phase_categorical, records, n_rows=args.rows,
+        compare_rows=cmp_rows)
     torch.cuda.empty_cache()
-    results["lossguide"] = phase_lossguide(
-        x, y, records, airline=airline, compare_rows=min(50_000, args.rows))
+    results["lossguide"] = timed(
+        "lossguide", phase_lossguide, x, y, records, airline=airline,
+        compare_rows=min(50_000, args.rows))
     del airline
     torch.cuda.empty_cache()
-    results["quantized"] = phase_quantized(
-        x, y, records, compare_rows=min(args.compare_rows, args.rows))
+    results["quantized"] = timed("quantized", phase_quantized, x, y, records,
+                                 compare_rows=cmp_rows)
+    torch.cuda.empty_cache()
+    results["dart_gblinear"] = timed("dart_gblinear", phase_dart_gblinear,
+                                     x, y, records, compare_rows=cmp_rows)
     torch.cuda.empty_cache()
 
     if args.rows < 11_000_000:
         emit({"phase": "main_path_cut", "rows": args.rows,
               "reason": "--rows below the 11,000,000-row HIGGS protocol"})
     runs = []
+    t_main = time.perf_counter()
     for i, (key, actors) in enumerate((("1", 1), ("1_rerun", 1), ("2", 2))):
         b, launches, rt, margins = phase_main(x, y, args.rounds, 6, actors)
         results[key] = {"launches": launches, "round_ms": rt}
@@ -8410,24 +8800,32 @@ def run(args):
             for k in TRAIN_KERNELS:
                 # the root row is K1 at another shape: the same launches
                 records[k]["launches"] = launches[k.replace("root", "")]
+    PHASE_SECONDS["main"] = time.perf_counter() - t_main
     bst = runs[0][0]
-    results["determinism"] = phase_determinism(runs)
-    results["ranks"] = phase_ranks(x, y, args.rounds, 6, bst, runs[0][1])
+    gbtree_ms = float(np.median(results["1"]["round_ms"]))
+    emit({"phase": "dart_gblinear_vs_gbtree", "gbtree_round_ms_median":
+          gbtree_ms, **{k: v["round_ms_median"] for k, v in
+                        results["dart_gblinear"]["runs"].items()}})
+    results["determinism"] = timed("determinism", phase_determinism, runs)
+    results["ranks"] = timed("ranks", phase_ranks, x, y, args.rounds, 6, bst,
+                             runs[0][1])
     del runs
-    results["profile"] = phase_profile(x, y, 6,
-                                       float(np.median(results["1"]["round_ms"])))
-    cmp_rows = min(args.compare_rows, args.rows)
-    cmp = phase_cpu_vs_card(x[:cmp_rows], y[:cmp_rows])
-    phase_save_load(bst)
+    results["profile"] = timed("profile", phase_profile, x, y, 6, gbtree_ms)
+    cmp = timed("cpu_vs_card", phase_cpu_vs_card, x[:cmp_rows],
+                y[:cmp_rows])
+    timed("save_load", phase_save_load, bst)
 
     # phase 6: predict and serve, each path with B8's counters set to 0
     # just before it and read just after
     results["b8"] = b8
-    results["predict"] = phase_predict(served, x, y, train_margin, last_ll)
-    results["predict_leaf"] = phase_predict_leaf(served, x)
-    results["serve"] = phase_serve(served, x)
-    results["serve_node_array"] = phase_serve(
-        served, x, layout="node_array", warm_s=0.5, duration_s=2.0)
+    results["predict"] = timed("predict", phase_predict, served, x, y,
+                               train_margin, last_ll)
+    results["predict_leaf"] = timed("predict_leaf", phase_predict_leaf,
+                                    served, x)
+    results["serve"] = timed("serve", phase_serve, served, x)
+    results["serve_node_array"] = timed(
+        "serve_node_array", phase_serve, served, x, layout="node_array",
+        warm_s=0.5, duration_s=2.0)
     by_path = {p: results[p]["b8_launches"] for p in (
         "predict", "predict_leaf", "serve", "serve_node_array")}
     b8_launches = {k: sum(v[k] for v in by_path.values())
@@ -8444,12 +8842,14 @@ def run(args):
         records[k]["launches"] = b8_launches[k]
     for m in SERVE_ROWS:  # the windows kernel of the heap server's batches
         records[f"B8serve{m}"]["launches"] = b8_launches["B8serve"]
-    results["late_profile"] = phase_late_profile(served, x)
+    results["late_profile"] = timed("late_profile", phase_late_profile,
+                                    served, x)
     # phase 11: SHAP (B15), each path with B15's counters set to 0 just
     # before it and read just after; phase 12: the replica pool,
     # autoscaler, canary and xgboost JSON
-    results["shap"] = phase_shap(served, x, records)
-    results["serve_pool"] = phase_serve_pool(served, x, y)
+    results["shap"] = timed("shap", phase_shap, served, x, records)
+    results["serve_pool"] = timed("serve_pool", phase_serve_pool, served, x,
+                                  y)
     pr = results["predict"]
     emit({"phase": "predict_summary", "rows": pr["rows"], "trees": pr["trees"],
           "predict_value_wall_s": pr["predict_value_wall_s"],
@@ -8465,6 +8865,8 @@ def run(args):
              "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")
     kernels = [{k: records[key][k] for k in order} for key in sorted(records)]
+    emit({"phase_seconds": PHASE_SECONDS,
+          "script_s": time.perf_counter() - T_START})
     emit({"kernels": kernels})
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
@@ -8482,7 +8884,9 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rows", type=int, default=11_000_000)
     ap.add_argument("--rounds", type=int, default=10)
-    ap.add_argument("--compare-rows", type=int, default=200_000)
+    ap.add_argument("--compare-rows", type=int, default=50_000,
+                    help="rows of the cuts the card's models are held "
+                         "against the CPU path on")
     ap.add_argument("--predict-rounds", type=int, default=500,
                     help="rounds of phase 6's served model")
     ap.add_argument("--b8-only", action="store_true",
@@ -8559,6 +8963,10 @@ def main():
                     help="only the build and phase 19 (quantized gradients "
                          "and the quantized histogram wire at the HIGGS "
                          "split); prints no result line")
+    ap.add_argument("--dart-gblinear-only", action="store_true",
+                    help="only the build and phase 20 (dart and gblinear at "
+                         "the HIGGS split and Covertype's shape: B4w and "
+                         "B16); prints no result line")
     ap.add_argument("--facade-only", action="store_true",
                     help="only the build and phase 10 (the sklearn "
                          "estimators, custom objectives and metrics, files, "

@@ -764,7 +764,7 @@ def test_gloo_world_on_one_card_equals_one_rank(cuda):
               "K2cons": 0, "SMXtrees": 0, "K2cat": 0, "K2nodes": 0,
               "K2nodescat": 0, "K3cat": 0, "B4cat": 0, "LGstep": 0,
               "B10": 0, "K1int": 0, "K1form": 0, "B11q": 0, "B11acc": 0,
-              "B11deq": 0}
+              "B11deq": 0, "B4w": 0, "B16": 0}
     # int64 histograms and totals, int64 child counts, the f32 MAX of
     # (max|g|, max|h|) for the round's scales, the four f64 metric sums
     hist_cells = 10 * 257 * 2 * (1 + sum(1 << (d - 1) for d in range(1, 6)))

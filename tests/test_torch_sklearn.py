@@ -325,17 +325,6 @@ def test_quantized_estimators_fit(name, kwargs, key):
     assert pred.shape == (x.shape[0],) and np.isfinite(pred).all()
 
 
-@pytest.mark.parametrize("name,kwargs,key", [
-    ("RayXGBRFClassifier", dict(booster="dart"), "booster"),
-    ("RayXGBRegressor", dict(booster="gblinear"), "booster"),
-])
-def test_out_of_slice_estimators_raise(name, kwargs, key):
-    x, y = _bc()
-    est = getattr(ts, name)(n_estimators=3, device="cpu", **kwargs)
-    with pytest.raises(NotImplementedError, match=key):
-        est.fit(x, y)
-
-
 def test_feature_weights_and_ranker_raise():
     """``feature_weights`` in ``fit`` bias the column draws as the JAX
     package's (a zero-weight feature is never split on); weights of the

@@ -204,8 +204,6 @@ def test_quantized_params_train(key, value):
 
 
 @pytest.mark.parametrize("key,value", [
-    ("booster", "dart"),
-    ("booster", "gblinear"),
     ("objective", "reg:nope"),
     ("eval_metric", "pre"),
     ("eval_metric", ["error@0.1", "error@0.2", "error@0.3", "error@0.4",

@@ -92,6 +92,28 @@ __device__ __forceinline__ void xrt_block_excl_scan2(float g, float h,
   __syncthreads();
 }
 
+// A grid-wide barrier of a cooperative launch (B12r, B16): bar[0] counts the CTAs
+// arrived (back to 0 when the last arrives), bar[1] is the generation the
+// waiters watch. Writes before it are visible to reads after it that do
+// not go through L1 (__ldcg, atomics).
+__device__ __forceinline__ void xrt_grid_sync(unsigned* bar) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    volatile unsigned* gen = bar + 1;
+    const unsigned g = *gen;
+    __threadfence();
+    if (atomicAdd(bar, 1u) == gridDim.x - 1) {
+      atomicExch(bar, 0u);
+      __threadfence();
+      atomicAdd(bar + 1, 1u);
+    } else {
+      while (*gen == g) __nanosleep(64);
+    }
+    __threadfence();
+  }
+  __syncthreads();
+}
+
 // ---------------------------------------------------------------------------
 // XLA's float32 transcendentals (ops/objectives.exp_f32 / log_f32). Every
 // source is compiled with --fmad=false: a multiply-add fuses only where

@@ -72,28 +72,6 @@ struct XrtSampleArgs {
   int grid;
 };
 
-// A grid-wide barrier of a cooperative launch: bar[0] counts the CTAs
-// arrived (back to 0 when the last arrives), bar[1] is the generation the
-// waiters watch. Writes before it are visible to reads after it that do
-// not go through L1 (__ldcg, atomics).
-__device__ __forceinline__ void xrt_grid_sync(unsigned* bar) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    volatile unsigned* gen = bar + 1;
-    const unsigned g = *gen;
-    __threadfence();
-    if (atomicAdd(bar, 1u) == gridDim.x - 1) {
-      atomicExch(bar, 0u);
-      __threadfence();
-      atomicAdd(bar + 1, 1u);
-    } else {
-      while (*gen == g) __nanosleep(64);
-    }
-    __threadfence();
-  }
-  __syncthreads();
-}
-
 // |g| sqrt(max(h, 0)) as ops/sampling.goss_score (operands and result
 // flushed, the sqrt correctly rounded)
 __device__ __forceinline__ float xrt_goss_score(float2 v) {

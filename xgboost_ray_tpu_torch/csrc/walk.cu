@@ -79,10 +79,10 @@ __device__ __forceinline__ long long xrt_round16(long long b) {
 }
 
 // the packed record of node i of the forest arrays (its categorical bit
-// only in the categorical instantiation)
-template <bool kCat>
-__device__ __forceinline__ uint2 xrt_record(const XrtWalkArgs& a,
-                                            long long i) {
+// only in the categorical instantiation) of a launch's args (XrtWalkArgs,
+// XrtWalkWeightedArgs)
+template <bool kCat, typename Args>
+__device__ __forceinline__ uint2 xrt_record(const Args& a, long long i) {
   const int f = min(max(__ldg(a.feature + i), 0), a.n_features - 1);
   return make_uint2((unsigned)f | (__ldg(a.is_leaf + i) ? kLeaf : 0u) |
                         (__ldg(a.default_left + i) ? kDefaultLeft : 0u) |
@@ -350,5 +350,119 @@ extern "C" int xrt_walk_binned(const XrtWalkArgs* a, void* stream) {
   const long long n_tiles = (a->n_rows + R - 1) / R;
   pick_kernel(a)<<<(unsigned)min(n_tiles, (long long)a->grid), kThreads,
                    a->shared_bytes, (cudaStream_t)stream>>>(*a);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// B4w, the weighted-forest mode (dart): per row and output k,
+//   out[r][k] = base[r][k] + sum over t < n_trees, t mod n_out = k, in
+//               order, of w_t * value_t[leaf_t(r)]
+// (the sum from +0; each term fused into it, fma(v, w_t, acc), with one
+// output, else rounded and added; a forest of one slot and one output is
+// fma(v, w_0, base), the order XLA gives that einsum). Replaces the forest_margin of
+// xgboost_ray_tpu/engine.py:2880-2892 (a vmap of predict_tree_binned and
+// an einsum over the [t_cap] weights); the order is XLA's CPU order there
+// (ops/grow.predict_forest_weighted_plain). It writes [n_rows][n_out], not
+// B4's [T][n_rows]: at 11M rows and 100 trees that would be 4.4 GB.
+//
+// What bounds it: bytes, in principle (a row's bins, its base and its out,
+// 28 + 8 bytes a HIGGS row); the first version is a thread a row walking
+// the trees in turn (the sum's order is a row's own, so no atomics and no
+// cross-thread reduction), the forest staged in shared memory as packed
+// records where it fits in 48 KB, else read through L1; each visit gathers
+// its bin from device memory (the row's sector stays in L1): a dependent
+// load a visit, so the walk's latency rather than the bytes sets its time
+// (about a quarter of the bytes bound at the HIGGS split, PERF.md §6).
+// ---------------------------------------------------------------------------
+
+// Mirrors ops/_build.WalkWeightedArgs field by field: edit both together.
+struct XrtWalkWeightedArgs {
+  const int* feature;           // [t_cap][heap] int32 (the first n_trees)
+  const int* split_bin;         // [t_cap][heap] int32
+  const uint8_t* default_left;  // [t_cap][heap] bool
+  const uint8_t* is_leaf;       // [t_cap][heap] bool
+  const float* value;           // [t_cap][heap] f32
+  const void* bins;             // [n_rows][n_features] uint8 or int16
+  const float* weights;         // [n_trees] f32
+  const float* base;            // [n_rows][n_out] f32
+  float* out;                   // [n_rows][n_out] f32
+  const uint8_t* cat;           // [n_features] categorical flags or null
+  long long n_rows;
+  int n_features, bin_bytes, n_trees, heap, max_depth, missing_bin;
+  int n_out;   // K: tree t adds to output t mod K
+  int fused;   // 0: acc + round(v w); 1: fma(v, w, acc); 2: fma from base
+  int staged;  // 1: the forest in shared memory (12 bytes a node)
+  int grid;
+};
+
+template <typename BinT, bool kStaged, bool kCat>
+__global__ void __launch_bounds__(kThreads)
+    xrt_walk_weighted_kernel(const XrtWalkWeightedArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint2* recs = reinterpret_cast<uint2*>(smem);
+  float* vals = reinterpret_cast<float*>(recs + (kStaged ? a.n_trees * a.heap
+                                                         : 0));
+  if (kStaged) {
+    for (int i = threadIdx.x; i < a.n_trees * a.heap; i += kThreads) {
+      recs[i] = xrt_record<kCat>(a, i);
+      vals[i] = __ldg(a.value + i);
+    }
+    __syncthreads();
+  }
+  const BinT* bins = static_cast<const BinT*>(a.bins);
+  const int K = a.n_out;
+  for (long long r = (long long)blockIdx.x * kThreads + threadIdx.x;
+       r < a.n_rows; r += (long long)gridDim.x * kThreads) {
+    const BinT* rb = bins + r * a.n_features;
+    for (int k = 0; k < K; ++k) {
+      const float base = __ldg(a.base + r * K + k);
+      float acc = a.fused == 2 ? base : 0.0f;
+      for (int t = k; t < a.n_trees; t += K) {
+        const long long t0 = (long long)t * a.heap;
+        int idx = 0;
+        for (int d = 0; d < a.max_depth; ++d) {
+          const uint2 nd = kStaged ? recs[t0 + idx]
+                                   : xrt_record<kCat>(a, t0 + idx);
+          const int b = (int)__ldg(rb + (nd.x & kFeatureMask));
+          const bool right = xrt_right<kCat>(nd, b, a.missing_bin);
+          const int nxt = 2 * idx + 1 + (right ? 1 : 0);
+          idx = (nd.x & kLeaf) ? idx : nxt;
+        }
+        const float v = kStaged ? vals[t0 + idx] : __ldg(a.value + t0 + idx);
+        const float wt = __ldg(a.weights + t);
+        acc = a.fused ? __fmaf_rn(v, wt, acc) : __fadd_rn(acc, __fmul_rn(v, wt));
+      }
+      a.out[r * K + k] = a.fused == 2 ? acc : __fadd_rn(base, acc);
+    }
+  }
+}
+
+typedef void (*XrtWalkWeightedKernel)(const XrtWalkWeightedArgs);
+
+template <typename BinT>
+static XrtWalkWeightedKernel weighted_kernel(bool staged, bool cat) {
+  if (cat)
+    return staged ? xrt_walk_weighted_kernel<BinT, true, true>
+                  : xrt_walk_weighted_kernel<BinT, false, true>;
+  return staged ? xrt_walk_weighted_kernel<BinT, true, false>
+                : xrt_walk_weighted_kernel<BinT, false, false>;
+}
+
+extern "C" int xrt_walk_weighted(const XrtWalkWeightedArgs* a, void* stream) {
+  if (a->n_rows <= 0 || a->n_trees <= 0) return 0;
+  if (a->n_features < 1 || a->n_out < 1 || a->max_depth < 1 ||
+      a->heap != (2 << a->max_depth) - 1 || a->grid < 1 ||
+      (a->bin_bytes != 1 && a->bin_bytes != 2) ||
+      a->n_features > (int)kFeatureMask + 1 || a->weights == nullptr ||
+      a->base == nullptr || a->out == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem =
+      a->staged ? (size_t)12 * a->n_trees * a->heap : (size_t)0;
+  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
+  const bool cat = a->cat != nullptr;
+  const XrtWalkWeightedKernel kernel =
+      a->bin_bytes == 1 ? weighted_kernel<uint8_t>(a->staged != 0, cat)
+                        : weighted_kernel<int16_t>(a->staged != 0, cat);
+  kernel<<<a->grid, kThreads, smem, (cudaStream_t)stream>>>(*a);
   return (int)cudaGetLastError();
 }

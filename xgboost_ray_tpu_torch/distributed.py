@@ -429,7 +429,7 @@ def _train_rank(rank: int, world: int, data: Dict[str, Optional[torch.Tensor]],
         reset_kernel_launches,
     )
     from xgboost_ray_tpu_torch.main import RayParams, train
-    from xgboost_ray_tpu_torch.models.booster import RayXGBoostBooster
+    from xgboost_ray_tpu_torch.models.booster import load_raw_model
 
     options = dict(options or {})
     dm = _matrix(data, options.get("sharding", "INTERLEAVED"),
@@ -457,7 +457,7 @@ def _train_rank(rank: int, world: int, data: Dict[str, Optional[torch.Tensor]],
                 early_stopping_rounds=options.get("early_stopping_rounds"),
                 maximize=options.get("maximize"),
                 obj=options.get("obj"), feval=options.get("feval"),
-                xgb_model=None if raw is None else RayXGBoostBooster.load_raw(raw))
+                xgb_model=None if raw is None else load_raw_model(raw))
     launches = kernel_launches()
     eng = keep.engine
     margins = eng.get_margins()

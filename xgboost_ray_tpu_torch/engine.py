@@ -101,6 +101,16 @@ grows on its dequantized values). The quantized histogram wire
 the tree path's bytes a round (``hist_allreduce_bytes_per_round``) and a
 device block's gh plane (``gh_plane_bytes_per_shard``).
 
+``booster="dart"`` (``engine.py:2830-3090``): the forest lives on the
+device in ``n_init + total_rounds K`` slots beside the host's tree weights.
+A round draws its drops on the host (``RandomState`` of (seed, iteration)),
+takes the training margins under the drops from B4w (``ops/grow.
+predict_forest_weighted``) and their gradients from the round pass with
+zero trees, grows its K trees into the next slots (the round's tree loop,
+so the gbtree options ride along), and gives every set its margins under
+the round's weights by B4w again; the booster keeps the weights as
+``tree_weights``. ``booster="gblinear"`` is ``linear.LinearEngine``.
+
 An init booster (``xgb_model``) starts every set's margins at ``base +
 booster.predict_margin(x) - its base margin`` (B8 on the card, the plain
 walk on the CPU) and its forest goes before the new trees.
@@ -163,6 +173,7 @@ from xgboost_ray_tpu_torch.ops.grow import (
     build_tree,
     cat_flags,
     empty_tree,
+    predict_forest_weighted,
     predict_tree_binned,
     sample_feature_mask,
 )
@@ -183,6 +194,7 @@ from xgboost_ray_tpu_torch.ops.histogram import (
     wire_dequantize,
     wire_quantize,
 )
+from xgboost_ray_tpu_torch.ops.linear import linear_round
 from xgboost_ray_tpu_torch.ops.metrics import (
     AUC_BINS,
     COX_METRIC,
@@ -250,7 +262,8 @@ def kernel_counters() -> Dict[str, Callable]:
             "B12f": sample_feature_mask, "K2nodes": split_nodes,
             "LGstep": frontier_step, "B10": quantize_gh,
             "K1form": form_dequantize, "B11q": wire_quantize,
-            "B11acc": wire_accumulate, "B11deq": wire_dequantize}
+            "B11acc": wire_accumulate, "B11deq": wire_dequantize,
+            "B4w": predict_forest_weighted, "B16": linear_round}
 
 
 def kernel_launches() -> Dict[str, int]:
@@ -341,6 +354,8 @@ class _EvalSet:
         self.label: Optional[torch.Tensor] = None
         self.weight: Optional[torch.Tensor] = None
         self.margins: Optional[torch.Tensor] = None
+        # dart: the margins without trees the forest's sum starts from
+        self.static: Optional[torch.Tensor] = None
         # label bounds on the device (survival:aft, aft-nloglik)
         self.lower: Optional[torch.Tensor] = None
         self.upper: Optional[torch.Tensor] = None
@@ -392,6 +407,7 @@ class TorchEngine:
         custom_objective: bool = False,
         feature_weights: Optional[np.ndarray] = None,
         categories: Optional[Dict[int, tuple]] = None,
+        total_rounds: Optional[int] = None,
     ):
         """``shards``: this rank's shard dicts; ``evals``: (shards, name)
         pairs, ``shards`` itself (the same object) for the training set;
@@ -400,7 +416,8 @@ class TorchEngine:
         ``step(gh_custom=...)``; ``feature_weights``: [F] non-negative
         weights of the column-sampling draws; ``feature_types``: 'c' marks
         a categorical feature; ``categories``: the training category
-        mapping the booster keeps."""
+        mapping the booster keeps; ``total_rounds``: the rounds this run
+        boosts (dart's forest capacity)."""
         self.params = params
         self.device = resolve_device(device)
         self.coll = Collectives()
@@ -433,42 +450,7 @@ class TorchEngine:
             hist_quant_min_bytes=int(params.hist_quant_min_bytes),
             hist_quant_block=int(params.hist_quant_block),
         )
-        self.metric_names = list(params.eval_metric) or [
-            self.objective.default_metric]
-        # the round pass's metrics (K4's partial sums, the softmax pass's,
-        # B9a's histogram) first, then the host metrics, as the reference
-        # orders a round's row (``engine.py:1942-1960``)
-        self.host_metrics = [m for m in self.metric_names
-                             if parse_metric_name(m)[0] in HOST_METRICS]
-        self.device_metrics = [m for m in self.metric_names
-                               if m not in self.host_metrics]
-        self.with_auc = any(parse_metric_name(m)[0] in HIST_METRICS
-                            for m in self.device_metrics)
-        # the partial sums the all-reduce carries: K4's first four and the
-        # others the metrics read (the softmax pass's three)
-        # the softmax pass's column-0 logloss (the reference's logloss
-        # under a softmax objective) only where a metric reads it
-        self.logloss0 = self.objective.softmax and any(
-            parse_metric_name(m)[0] == "logloss" for m in self.metric_names)
-        self.live_parts = ((0, 1, 2) + ((3,) if self.logloss0 else ())
-                           if self.objective.softmax
-                           else tuple(sorted({0, 1, 2, 3} | {
-                               k4_slot(m, self.device_metrics)
-                               for m in self.device_metrics} - {None})))
-        alpha0 = as_alphas(params.quantile_alpha)
-        # the objective K4 runs, with this run's metric constants (error@t's
-        # threshold, the quantile metric's alpha)
-        self.k4_objective = dataclasses.replace(
-            self.objective, consts=self.objective.consts._replace(
-                **threshold_consts(self.metric_names),
-                alpha0=float(np.float32(alpha0[0])) if len(alpha0) == 1
-                else 0.5))
-        if (any(parse_metric_name(m)[0] == "quantile"
-                for m in self.metric_names) and len(alpha0) != 1
-                and self.objective.kind != "quantile"):
-            raise ValueError(
-                f"quantile metric got 1 margin column but {len(alpha0)} "
-                f"quantile_alpha values; they must align.")
+        self._setup_metrics(params)
         # ranking and Cox gradients come from B13 / B14 after K4's eval
         # mode (the custom objective's structure)
         self.pair_gh = not custom_objective and (
@@ -485,6 +467,9 @@ class TorchEngine:
                 f"port sums it over one output only")
 
         self.custom_objective = custom_objective
+        self.dart = params.booster == "dart"
+        if self.dart and custom_objective:
+            raise ValueError("custom objectives are not supported with dart")
         # quantized gradients at the source (``engine.py:266-276``)
         self.gh_mode = params.gh_precision
         if self.gh_mode != "float32" and custom_objective:
@@ -540,6 +525,10 @@ class TorchEngine:
                 self._init_trees = [init_booster.forest]
         self.margins = _to_device(
             self._start_margins(x, base_margin, init_booster), dev)
+        if self.dart:
+            self.margins_static = _to_device(
+                self._static_margins(x.shape[0], base_margin), dev)
+            self._init_dart_forest(init_booster, total_rounds)
         self.groups, self.group_ptr = self._groups(shards)
         if self.objective.ranking and self.groups is None:
             raise ValueError(
@@ -565,6 +554,66 @@ class TorchEngine:
         self.evals: List[_EvalSet] = []
         for eval_shards, name in evals:
             self._add_eval_set(eval_shards, name, shards, init_booster)
+        self._place_metrics()
+        self.gh = self.qscale = None
+        if self.pair_gh:
+            # round 0's gradients: B13 / B14 on the base margins
+            self.gh = self._pair_gh(False)[0]
+            self.qscale = self._scales()
+        elif not (custom_objective or self.dart):
+            # round 0's gradients: the round pass with zero trees
+            self.gh, _ = self._update(
+                self.margins, torch.zeros((self.n_outputs, self.n_rows),
+                                          dtype=torch.float32, device=dev),
+                self.label, self.weight, lower=self.lower, upper=self.upper)
+            self.qscale = self._scales()
+
+    def _setup_metrics(self, params: TrainParams) -> None:
+        """The metrics of a run: their names, which the round pass sums on
+        the device and which the host computes, the partial sums the
+        all-reduce carries, and the objective K4 runs with this run's
+        metric constants."""
+        self.metric_names = list(params.eval_metric) or [
+            self.objective.default_metric]
+        # the round pass's metrics (K4's partial sums, the softmax pass's,
+        # B9a's histogram) first, then the host metrics, as the reference
+        # orders a round's row (``engine.py:1942-1960``)
+        self.host_metrics = [m for m in self.metric_names
+                             if parse_metric_name(m)[0] in HOST_METRICS]
+        self.device_metrics = [m for m in self.metric_names
+                               if m not in self.host_metrics]
+        self.with_auc = any(parse_metric_name(m)[0] in HIST_METRICS
+                            for m in self.device_metrics)
+        # the partial sums the all-reduce carries: K4's first four and the
+        # others the metrics read (the softmax pass's three)
+        # the softmax pass's column-0 logloss (the reference's logloss
+        # under a softmax objective) only where a metric reads it
+        self.logloss0 = self.objective.softmax and any(
+            parse_metric_name(m)[0] == "logloss" for m in self.metric_names)
+        self.live_parts = ((0, 1, 2) + ((3,) if self.logloss0 else ())
+                           if self.objective.softmax
+                           else tuple(sorted({0, 1, 2, 3} | {
+                               k4_slot(m, self.device_metrics)
+                               for m in self.device_metrics} - {None})))
+        alpha0 = as_alphas(params.quantile_alpha)
+        # the objective K4 runs, with this run's metric constants (error@t's
+        # threshold, the quantile metric's alpha)
+        self.k4_objective = dataclasses.replace(
+            self.objective, consts=self.objective.consts._replace(
+                **threshold_consts(self.metric_names),
+                alpha0=float(np.float32(alpha0[0])) if len(alpha0) == 1
+                else 0.5))
+        if (any(parse_metric_name(m)[0] == "quantile"
+                for m in self.metric_names) and len(alpha0) != 1
+                and self.objective.kind != "quantile"):
+            raise ValueError(
+                f"quantile metric got 1 margin column but {len(alpha0)} "
+                f"quantile_alpha values; they must align.")
+
+    def _place_metrics(self) -> None:
+        """After the eval sets: the rank metrics move to the host unless
+        every set has its query groups, and the device metrics the round
+        passes and B9r sum are fixed."""
         # ndcg / map on the device where every set has its groups, else on
         # the host (``engine.py:748-766``)
         if not all(es.groups is not None for es in self.evals):
@@ -578,19 +627,6 @@ class TorchEngine:
         # the training set's cox-nloglik comes out of its B14 gradient call
         self.cox_train_metric = COX_METRIC in self.device_metrics and any(
             es.is_train for es in self.evals)
-
-        self.gh = self.qscale = None
-        if self.pair_gh:
-            # round 0's gradients: B13 / B14 on the base margins
-            self.gh = self._pair_gh(False)[0]
-            self.qscale = self._scales()
-        elif not custom_objective:
-            # round 0's gradients: the round pass with zero trees
-            self.gh, _ = self._update(
-                self.margins, torch.zeros((self.n_outputs, self.n_rows),
-                                          dtype=torch.float32, device=dev),
-                self.label, self.weight, lower=self.lower, upper=self.upper)
-            self.qscale = self._scales()
 
     def _constrain(self, params: TrainParams) -> None:
         """Monotone and interaction constraints, validated against the
@@ -708,15 +744,22 @@ class TorchEngine:
                                               device=self.device))
         return auc_scale(float(both.item()), int(n_global.item()))
 
-    def _start_margins(self, x: np.ndarray, base_margin: Optional[np.ndarray],
-                       init_booster: Optional[RayXGBoostBooster]) -> np.ndarray:
-        """A set's first margins [N, K] f32 on the host: the base margin,
-        plus the rows' ``base_margin``, plus the init booster's trees (its
-        margin less its base; ``engine.py:700-728``, ``:1172-1183``)."""
-        n = x.shape[0]
+    def _static_margins(self, n: int, base_margin: Optional[np.ndarray]
+                        ) -> np.ndarray:
+        """A set's margins without trees [N, K] f32 on the host: the base
+        margin, plus the rows' ``base_margin`` (``engine.py:699-706``)."""
         margins = np.full((n, self.n_outputs), self.base_margin0, np.float32)
         if base_margin is not None:
             margins = margins + base_margin.reshape(n, -1).astype(np.float32)
+        return margins
+
+    def _start_margins(self, x: np.ndarray, base_margin: Optional[np.ndarray],
+                       init_booster: Optional[RayXGBoostBooster]) -> np.ndarray:
+        """A set's first margins [N, K] f32 on the host: the static margins
+        plus the init booster's trees (its margin less its base;
+        ``engine.py:700-728``, ``:1172-1183``)."""
+        n = x.shape[0]
+        margins = self._static_margins(n, base_margin)
         if init_booster is not None and init_booster.num_trees:
             pm = init_booster.predict_margin(
                 init_booster._coerce_features(x), device=self.device)
@@ -786,6 +829,9 @@ class TorchEngine:
         es.auc_scale = self._auc_scale(weight, x.shape[0])
         es.margins = _to_device(
             self._start_margins(x, base_margin, init_booster), dev)
+        if self.dart:
+            es.static = _to_device(
+                self._static_margins(x.shape[0], base_margin), dev)
         es.groups, es.group_ptr = self._groups(eval_shards)
         if self.with_cox:
             es.cox = _CoxRows(es.label, es.weight, self.coll)
@@ -911,8 +957,37 @@ class TorchEngine:
         if gh_custom is not None:
             self.gh = self._user_gh(*gh_custom)
             self.qscale = self._scales()
+        if self.dart:
+            return self._step_dart(iteration)
+        self.coll.bytes.total = 0
+        walked, row_value = self._grow_round(iteration, True)
+        self.gh, sums = self._update(
+            self.margins, row_value, self.label, self.weight,
+            with_gh=not (self.custom_objective or self.pair_gh),
+            lower=self.lower, upper=self.upper)
+        cox_sums = None
+        if self.pair_gh:
+            self.gh, cox_sums = self._pair_gh(self.cox_train_metric)
+        if not self.custom_objective:
+            self.qscale = self._scales()  # the next round's
+        n_trees = self.n_outputs * self.t_par
+
+        def held_out(es):
+            value = predict_tree_binned(walked, es.bins, self.cfg.max_depth,
+                                        self.cfg.max_bin, cat=self.cat)
+            return self._update(es.margins, value.view(n_trees, -1),
+                                es.label, es.weight, with_gh=False,
+                                lower=es.lower, upper=es.upper)[1]
+
+        return self._round_metrics(sums, cox_sums, held_out)
+
+    def _grow_round(self, iteration: int, with_row_value: bool):
+        """Grow the round's K x T trees on ``self.gh`` (the tree loop of the
+        round, ``engine.py:1315-1420``), appending them to ``trees``:
+        (the round's forest, [heap] fields for one tree, else [K T, heap];
+        every training row's values [K T, N] where ``with_row_value``, else
+        None)."""
         coll = self.coll
-        coll.bytes.total = 0
         p = self.params
         k_out, t_par = self.n_outputs, self.t_par
         n_trees = k_out * t_par
@@ -978,21 +1053,22 @@ class TorchEngine:
         # one tree a round: the round's tree itself ([heap] fields)
         walked = forest if n_trees > 1 else Tree(*[f[0] for f in forest])
         self.trees.append(walked)
-        if sampled:
+        if sampled and with_row_value:
             # a sampled tree holds only its rows' values: every training
             # row's comes from a walk of the round's trees (``:1412``)
             row_value = predict_tree_binned(
                 walked, self.bins, self.cfg.max_depth,
                 self.cfg.max_bin, cat=self.cat).view(n_trees, -1)
-        self.gh, sums = self._update(
-            self.margins, row_value, self.label, self.weight,
-            with_gh=not (self.custom_objective or self.pair_gh),
-            lower=self.lower, upper=self.upper)
-        cox_sums = None
-        if self.pair_gh:
-            self.gh, cox_sums = self._pair_gh(self.cox_train_metric)
-        if not self.custom_objective:
-            self.qscale = self._scales()  # the next round's
+        return walked, row_value
+
+    def _round_metrics(self, sums: torch.Tensor,
+                       cox_sums: Optional[torch.Tensor],
+                       held_out: Callable) -> Dict[str, Dict[str, float]]:
+        """The round's metrics: the training set's from its round pass's
+        ``sums`` (and ``cox_sums``), each held-out set's from
+        ``held_out(es)`` (its margin update; its pass's sums), merged over
+        the world in one all-reduce."""
+        coll = self.coll
         if not self.evals:
             self.allreduce_bytes_per_round = coll.bytes.total
             return {}
@@ -1003,12 +1079,7 @@ class TorchEngine:
         cox_parts = [cox_sums]
         for es in self.evals:
             if not es.is_train:
-                value = predict_tree_binned(walked, es.bins,
-                                            self.cfg.max_depth,
-                                            self.cfg.max_bin, cat=self.cat)
-                es_sums = self._update(es.margins, value.view(n_trees, -1),
-                                       es.label, es.weight, with_gh=False,
-                                       lower=es.lower, upper=es.upper)[1]
+                es_sums = held_out(es)
                 parts.append(self._set_parts(es_sums, es.margins, es.label,
                                              es.weight, es.auc_scale,
                                              es.groups))
@@ -1028,6 +1099,151 @@ class TorchEngine:
                     self._host_metric(es, name), es,
                     groups=parse_metric_name(name)[0] in RANK_METRICS)
         return out
+
+    # ------------------------------------------------------------------
+    # dart (``engine.py:2830-3090``): the round's margins come from the
+    # forest so far under the round's tree weights (B4w), so dropping trees
+    # is a weight-vector edit.
+    # ------------------------------------------------------------------
+
+    def _init_dart_forest(self, init_booster: Optional[RayXGBoostBooster],
+                          total_rounds: Optional[int]) -> None:
+        """The capacity-padded forest on the device (``_init_dart_forest``,
+        ``engine.py:2838``): ``n_init + max(1, total_rounds) K`` slots, the
+        init booster's trees first, empty slots a root leaf of value 0; the
+        host's tree weights (the init booster's, or 1), 0 beyond them."""
+        k_out = self.n_outputs
+        heap = self.cfg.heap_size
+        init = self._init_trees[0] if self._init_trees else None
+        n_init = 0 if init is None else int(np.asarray(init.feature).shape[0])
+        t_cap = n_init + max(1, int(total_rounds or 0)) * k_out
+        forest = empty_tree(heap, self.device, t_cap)
+        forest.is_leaf[:, 0] = True
+        if n_init:
+            for name, field in zip(Tree._fields, forest):
+                field[:n_init] = torch.as_tensor(
+                    np.asarray(getattr(init, name)), device=self.device)
+        self.dart_forest = forest
+        self.dart_weights = np.zeros(t_cap, np.float32)
+        if n_init:
+            self.dart_weights[:n_init] = (
+                init_booster.tree_weights
+                if init_booster.tree_weights is not None
+                else np.ones(n_init, np.float32))
+        self.dart_t = n_init
+        self.dart_t_cap = t_cap
+
+    def _dart_sample_drops(self, iteration: int) -> np.ndarray:
+        """The round's dropped slots [t_cap] bool (``engine.py:2969-2991``):
+        host draws of ``RandomState((seed * 1_000_003 + iteration_offset +
+        iteration) mod 2^31)``, bitwise the reference's."""
+        params = self.params
+        t = self.dart_t
+        rng = np.random.RandomState(
+            (params.seed * 1_000_003 + self.iteration_offset + iteration)
+            % (2 ** 31))
+        drop = np.zeros(self.dart_t_cap, bool)
+        if t == 0 or (params.skip_drop > 0 and rng.rand() < params.skip_drop):
+            return drop
+        weights = np.maximum(self.dart_weights[:t], 0.0)
+        if params.sample_type == "weighted":
+            probs = weights / max(weights.sum(), 1e-12)
+            drop[:t] = rng.rand(t) < np.minimum(probs * t * params.rate_drop,
+                                                1.0)
+        else:
+            drop[:t] = rng.rand(t) < params.rate_drop
+        if params.one_drop and not drop.any():
+            if params.sample_type == "weighted" and weights.sum() > 0:
+                idx = rng.choice(t, p=weights / weights.sum())
+            else:
+                idx = rng.randint(t)
+            drop[idx] = True
+        return drop
+
+    def _dart_weights(self, iteration: int):
+        """(w_eff, w_full) [t_cap] f32 of the round (``step_dart``,
+        ``engine.py:3008-3020``): the drops' weights 0 for growing, and
+        after the round the dropped ones scaled and the K new slots at
+        ``new_w``, with the tree / forest normalisation."""
+        lr = self.params.learning_rate
+        drop = self._dart_sample_drops(iteration)
+        k_dropped = int(drop.sum())
+        if k_dropped:
+            if self.params.normalize_type == "forest":
+                new_w, drop_scale = 1.0 / (1.0 + lr), 1.0 / (1.0 + lr)
+            else:  # "tree"
+                new_w = 1.0 / (k_dropped + lr)
+                drop_scale = k_dropped / (k_dropped + lr)
+        else:
+            new_w, drop_scale = 1.0, 1.0
+        w_eff = self.dart_weights.copy()
+        w_eff[drop] = 0.0
+        w_full = self.dart_weights.copy()
+        w_full[drop] *= drop_scale
+        w_full[self.dart_t:self.dart_t + self.n_outputs] = new_w
+        return w_eff, w_full
+
+    def _forest_margins(self, bins: torch.Tensor, static: torch.Tensor,
+                        weights: torch.Tensor, n_trees: int) -> torch.Tensor:
+        """A set's margins [N, K] from the dart forest's first ``n_trees``
+        slots under ``weights`` (B4w)."""
+        return predict_forest_weighted(
+            self.dart_forest, n_trees, bins, static, weights,
+            self.cfg.max_depth, self.cfg.max_bin, cat=self.cat)
+
+    def _step_dart(self, iteration: int) -> Dict[str, Dict[str, float]]:
+        """One dart round (``step_dart``, ``engine.py:2993-3075``): the
+        margins under the drops (B4w over the slots so far), their
+        gradients (the round pass with zero trees; B13 / B14 for ranking
+        and Cox), the K trees grown on them into slots [dart_t, dart_t +
+        K), then every set's margins under the round's final weights (B4w
+        over the slots so far and the new ones) and their metrics."""
+        k_out = self.n_outputs
+        if self.dart_t + k_out > self.dart_t_cap:
+            raise RuntimeError(
+                f"dart forest capacity exhausted: slot {self.dart_t} + "
+                f"{k_out} trees > t_cap {self.dart_t_cap}")
+        self.coll.bytes.total = 0
+        dev = self.device
+        w_eff, w_full = self._dart_weights(iteration)
+        m_eff = self._forest_margins(self.bins, self.margins_static,
+                                     _to_device(w_eff, dev), self.dart_t)
+        zeros = torch.zeros((k_out, self.n_rows), dtype=torch.float32,
+                            device=dev)
+        if self.pair_gh:
+            self.margins = m_eff
+            self.gh = self._pair_gh(False)[0]
+        else:
+            self.gh = self._update(m_eff, zeros, self.label, self.weight,
+                                   lower=self.lower, upper=self.upper)[0]
+        self.qscale = self._scales()
+        walked, _ = self._grow_round(iteration, False)
+        slots = slice(self.dart_t, self.dart_t + k_out)
+        for field, new in zip(self.dart_forest, walked):
+            field[slots] = new.view((k_out, -1))
+        n_trees = self.dart_t + k_out
+        w_dev = _to_device(w_full, dev)
+        self.margins = self._forest_margins(self.bins, self.margins_static,
+                                            w_dev, n_trees)
+        self.dart_weights = w_full
+        self.dart_t = n_trees
+        if not self.evals:
+            self.allreduce_bytes_per_round = self.coll.bytes.total
+            return {}
+        sums = self._update(self.margins, zeros, self.label, self.weight,
+                            with_gh=False, lower=self.lower,
+                            upper=self.upper)[1]
+
+        def held_out(es):
+            es.margins = self._forest_margins(es.bins, es.static, w_dev,
+                                              n_trees)
+            zero = torch.zeros((k_out, es.margins.shape[0]),
+                               dtype=torch.float32, device=dev)
+            return self._update(es.margins, zero, es.label, es.weight,
+                                with_gh=False, lower=es.lower,
+                                upper=es.upper)[1]
+
+        return self._round_metrics(sums, None, held_out)
 
     def _sample(self, key, gh: torch.Tensor,
                 gh_scale: Optional[torch.Tensor] = None):
@@ -1114,6 +1330,12 @@ class TorchEngine:
         score = auc_score(torch.from_numpy(margins)).numpy()
         return auc_exact_np(score, label, weight)
 
+    @property
+    def rounds_done(self) -> int:
+        """Rounds boosted by this engine (a booster of them differs from one
+        of fewer)."""
+        return len(self.trees)
+
     def get_margins(self, es: Optional[_EvalSet] = None) -> np.ndarray:
         """This rank's margins [n_rows, K] of the training set (or of the
         eval set ``es``)."""
@@ -1166,6 +1388,8 @@ class TorchEngine:
             self.base_score,
             feature_names=self.feature_names,
             feature_types=self.feature_types,
+            tree_weights=(self.dart_weights[:self.dart_t].copy()
+                          if self.dart else None),
         )
         booster._has_node_stats = self._init_has_stats
         booster.categories = self.categories

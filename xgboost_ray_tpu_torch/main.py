@@ -80,7 +80,12 @@ from xgboost_ray_tpu_torch.matrix import (
     combine_data,
     translate_shard_categories,
 )
-from xgboost_ray_tpu_torch.models.booster import RayXGBoostBooster, coerce_model
+from xgboost_ray_tpu_torch.linear import LinearEngine, RayLinearBooster
+from xgboost_ray_tpu_torch.models.booster import (
+    RayXGBoostBooster,
+    coerce_model,
+    load_raw_model,
+)
 from xgboost_ray_tpu_torch.ops.metrics import is_maximize_metric
 from xgboost_ray_tpu_torch.params import parse_params
 from xgboost_ray_tpu_torch.util import Event, Queue
@@ -237,7 +242,7 @@ class _EngineBoosterProxy:
         self._cached_rounds = -1
 
     def _booster(self) -> RayXGBoostBooster:
-        n = len(self._engine.trees)
+        n = self._engine.rounds_done
         if self._cached is None or self._cached_rounds != n:
             self._cached = self._engine.get_booster()
             self._cached_rounds = n
@@ -353,6 +358,14 @@ def train(
     callbacks = tune_mod._try_add_tune_callback(callbacks)
     params = _matrix_max_bin(params, dtrain)
     parsed = parse_params(params)
+    if (kwargs.get("serve_registry") is not None
+            and parsed.booster == "gblinear"):
+        # before training: the serving layer walks forests, which a linear
+        # model lacks (``main.py:1796-1800``)
+        raise ValueError(
+            "serve_registry is not supported with booster='gblinear' "
+            "(the serving layer compiles tree-walk programs). Train "
+            "without serve_registry and serve the model another way.")
     init_booster = (None if kwargs.get("xgb_model") is None
                     else coerce_model(kwargs["xgb_model"]))
     run = dict(num_boost_round=num_boost_round,
@@ -404,14 +417,16 @@ def train(
                             sh, _eval_categories(deval, name, train_cats),
                             train_cats) for sh in deval.shards(ranks)],
                         name) for deval, name in evals]
-        engine = TorchEngine(
+        engine_cls = (LinearEngine if parsed.booster == "gblinear"
+                      else TorchEngine)
+        engine = engine_cls(
             shards, parsed, device=device, evals=eval_shards,
             init_booster=init_booster,
             feature_names=dtrain.resolved_feature_names,
             feature_types=dtrain.resolved_feature_types,
             custom_objective=run["obj"] is not None,
             feature_weights=dtrain.feature_weights,
-            categories=train_cats)
+            categories=train_cats, total_rounds=num_boost_round)
         for actor in actors:
             actor._distributed_callbacks.before_train(actor)
         booster, result, stats = _run_rounds(
@@ -617,8 +632,9 @@ def _train_spawned(dtrain: RayDMatrix, params: Dict, num_actors: int,
         feature_weights=dtrain.feature_weights)
     out = distributed.launch_world(distributed._train_rank, n_ranks,
                                    device_type, data, params, rounds, options)
-    booster = RayXGBoostBooster.load_raw(out[0]["model"])
-    booster.categories = train_cats
+    booster = load_raw_model(out[0]["model"])
+    if not isinstance(booster, RayLinearBooster):
+        booster.categories = train_cats
     return (booster, out[0]["evals_result"], out[0]["additional_results"])
 
 

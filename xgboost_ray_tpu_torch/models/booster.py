@@ -715,19 +715,22 @@ class RayXGBoostBooster:
 Booster = RayXGBoostBooster
 
 
-def coerce_model(model: Any) -> RayXGBoostBooster:
-    """The booster that ``model`` names: a ``RayXGBoostBooster``, pickled
-    booster bytes, a saved-model path, or a JSON document (text or dict):
-    the format both packages write, or xgboost's own model schema
-    (``models/xgb_export.py``). Used by ``predict()`` and by the serving
-    registry."""
-    if isinstance(model, RayXGBoostBooster):
+def coerce_model(model: Any):
+    """The booster that ``model`` names: a ``RayXGBoostBooster`` or a
+    ``linear.RayLinearBooster``, pickled booster bytes, a saved-model path,
+    or a JSON document (text or dict): the format both packages write, or
+    xgboost's own model schema (``models/xgb_export.py``), a gblinear
+    document giving a ``RayLinearBooster`` (``main.py:628-646``). Used by
+    ``train(xgb_model=)``, ``predict()`` and the serving registry."""
+    from xgboost_ray_tpu_torch.linear import RAW_FORMAT, RayLinearBooster
+
+    if isinstance(model, (RayXGBoostBooster, RayLinearBooster)):
         return model
     if isinstance(model, bytes):
         # checkpoint bytes this program wrote (pickle runs code: load only
         # bytes of a trusted source)
         booster = pickle.loads(model)
-        if not isinstance(booster, RayXGBoostBooster):
+        if not isinstance(booster, (RayXGBoostBooster, RayLinearBooster)):
             raise TypeError(
                 f"checkpoint bytes hold a {type(booster).__name__}, not an "
                 f"xgboost_ray_tpu_torch RayXGBoostBooster"
@@ -755,4 +758,15 @@ def coerce_model(model: Any) -> RayXGBoostBooster:
         )
     if doc.get("format") == FORMAT:
         return RayXGBoostBooster._from_dict(doc)
+    if doc.get("format") == RAW_FORMAT:
+        return RayLinearBooster._from_dict(doc)
+    gb = doc.get("learner", {}).get("gradient_booster", {})
+    if gb.get("name") == "gblinear":
+        return RayLinearBooster.import_xgboost_json(doc)
     return RayXGBoostBooster.import_xgboost_json(doc)
+
+
+def load_raw_model(raw: bytes):
+    """The booster of ``save_raw`` bytes: a tree booster's document, or a
+    gblinear model's (``linear.RAW_FORMAT``)."""
+    return coerce_model(json.loads(raw.decode("utf-8")))

@@ -92,6 +92,7 @@ SIGNATURES = {
     "walk": {
         "xrt_walk_binned": ([P, P], I),
         "xrt_walk_ctas": ([P, P], I),
+        "xrt_walk_weighted": ([P, P], I),
     },
     "objective": {
         "xrt_k4": ([P, P], I),
@@ -113,6 +114,10 @@ SIGNATURES = {
     },
     "lossguide": {
         "xrt_lossguide_step": ([P, P], I),
+    },
+    "linear": {
+        "xrt_linear": ([P, P], I),
+        "xrt_linear_ctas": ([P], I),
     },
     "shap": {
         "xrt_shap_saabas": ([P, P], I),
@@ -195,6 +200,31 @@ class WalkArgs(ctypes.Structure):
             "mapping", "rows_per_tile", "trees_per_group", "shared_bytes",
             "grid")]
         + [("cat", P), ("categorical", I)])
+
+
+class WalkWeightedArgs(ctypes.Structure):
+    """``XrtWalkWeightedArgs`` of ``csrc/walk.cu``: one launch of B4's
+    weighted-forest mode, passed by pointer (edit both together)."""
+
+    _fields_ = ([(name, P) for name in (
+        "feature", "split_bin", "default_left", "is_leaf", "value", "bins",
+        "weights", "base", "out", "cat")]
+        + [("n_rows", ctypes.c_longlong)]
+        + [(name, I) for name in (
+            "n_features", "bin_bytes", "n_trees", "heap", "max_depth",
+            "missing_bin", "n_out", "fused", "staged", "grid")])
+
+
+class LinearArgs(ctypes.Structure):
+    """``XrtLinearArgs`` of ``csrc/linear.cu``: one B16 launch, passed by
+    pointer (edit both together)."""
+
+    _fields_ = ([(name, P) for name in (
+        "x", "gh", "w", "b", "w_out", "b_out", "part", "sums", "bar")]
+        + [("n", ctypes.c_longlong)]
+        + [(name, I) for name in ("n_features", "k", "n_chunks")]
+        + [(name, F) for name in ("eta", "lam", "alp")]
+        + [(name, I) for name in ("mode", "coord", "grid")])
 
 
 class SoftmaxArgs(ctypes.Structure):

@@ -73,6 +73,7 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from xgboost_ray_tpu_torch.ops import _build
+from xgboost_ray_tpu_torch.ops.objectives import _fma
 from xgboost_ray_tpu_torch.ops.random import Key, fold_in, gumbel, uniform
 from xgboost_ray_tpu_torch.ops.histogram import (
     SPLIT,
@@ -714,3 +715,116 @@ def predict_tree_binned(tree: Tree, bins: torch.Tensor, max_depth: int,
 predict_tree_binned.launches = 0
 predict_tree_binned.launches_by_mapping = dict.fromkeys(WALK_MAPPINGS, 0)
 predict_tree_binned.launches_categorical = 0
+
+
+def predict_forest_weighted_plain(forest: Tree, n_trees: int,
+                                  bins: torch.Tensor, base: torch.Tensor,
+                                  weights: torch.Tensor, max_depth: int,
+                                  missing_bin: int,
+                                  cat: Optional[torch.Tensor] = None
+                                  ) -> torch.Tensor:
+    """Plain B4w: ``base`` [N, K] plus, for each output k, the weighted
+    values of the first ``n_trees`` trees of ``forest`` ([t_cap, heap]
+    fields; tree t adds to output t mod K) over ``bins`` [N, F]: summed in
+    tree order from +0, each term fused into the sum (``fma(v, w_t,
+    acc)``) with one output, rounded and added with more, then added to
+    ``base`` (a forest of one slot and one output: ``fma(v, w_0, base)``).
+    That is the JAX dart step's ``forest_margin`` (``engine.py:2880-2892``,
+    an einsum over every slot) as XLA's CPU program sums it up to 48 slots
+    with one output and 60 with more (beyond them XLA blocks the sum, and
+    the two agree within the f32 summation bound); the empty slots beyond
+    ``n_trees`` (weight 0, value 0) add nothing."""
+    n, k_out = base.shape
+    out = base.clone()
+    if n_trees == 0:
+        return out
+    if k_out == 1 and forest.feature.shape[0] == 1:
+        v = predict_tree_binned_plain(Tree(*[f[0] for f in forest]), bins,
+                                      max_depth, missing_bin, cat)
+        return _fma(v, weights[0], base[:, 0])[:, None]
+    values = predict_tree_binned_plain(
+        Tree(*[f[:n_trees] for f in forest]), bins, max_depth, missing_bin,
+        cat)
+    w = weights[:n_trees]
+    for k in range(k_out):
+        acc = torch.zeros(n, dtype=torch.float32, device=bins.device)
+        for t in range(k, n_trees, k_out):
+            acc = (_fma(values[t], w[t], acc) if k_out == 1
+                   else acc + values[t] * w[t])
+        out[:, k] = base[:, k] + acc
+    return out
+
+
+#: B4w stages the forest in shared memory up to this many bytes
+_WEIGHTED_STAGE_BYTES = 48 * 1024
+
+
+def predict_forest_weighted(forest: Tree, n_trees: int, bins: torch.Tensor,
+                            base: torch.Tensor, weights: torch.Tensor,
+                            max_depth: int, missing_bin: int,
+                            cat: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
+    """B4w wrapper, B4's weighted-forest mode: the [N, K] margins of
+    ``predict_forest_weighted_plain``, without B4's [T, N] values. CPU
+    tensors take the plain version; CUDA tensors launch
+    ``xrt_walk_weighted`` of ``csrc/walk.cu`` once, or raise.
+    ``predict_forest_weighted.launches`` counts the launches."""
+    if not bins.is_cuda:
+        return predict_forest_weighted_plain(forest, n_trees, bins, base,
+                                             weights, max_depth, missing_bin,
+                                             cat)
+    n, num_features = bins.shape
+    k_out = base.shape[1]
+    dev = bins.device
+    heap = (2 << max_depth) - 1
+    if not (bins.dtype in (torch.uint8, torch.int16) and bins.is_contiguous()
+            and 1 <= num_features <= WALK_MAX_FEATURES):
+        raise ValueError("predict_forest_weighted: bins must be contiguous "
+                         "uint8 or int16 [N, F], 1 <= F <= 2^24")
+    t_cap = forest.feature.shape[0]
+    for name, dtype in _WALK_DTYPES.items():
+        t = getattr(forest, name)
+        if (t.device != dev or t.dtype != dtype or t.shape != (t_cap, heap)
+                or not t.is_contiguous()):
+            raise ValueError(
+                f"predict_forest_weighted: forest.{name} must be a "
+                f"contiguous {dtype} [t_cap, {heap}] on the bins' device")
+    if not (0 <= n_trees <= t_cap and weights.dtype == torch.float32
+            and weights.device == dev and weights.is_contiguous()
+            and weights.shape[0] >= n_trees
+            and base.dtype == torch.float32 and base.device == dev
+            and base.is_contiguous() and base.shape == (n, k_out)):
+        raise ValueError("predict_forest_weighted: n_trees <= t_cap, "
+                         "weights [>= n_trees] and base [N, K] contiguous "
+                         "float32 on the bins' device")
+    if cat is not None and not (cat.dtype == torch.bool and cat.device == dev
+                                and cat.shape == (num_features,)
+                                and cat.is_contiguous()):
+        raise ValueError("predict_forest_weighted: cat must be contiguous "
+                         "bool [F] on the bins' device")
+    out = torch.empty_like(base)
+    if n == 0:
+        return out
+    if n_trees == 0:
+        return out.copy_(base)
+    a = _build.WalkWeightedArgs()
+    a.feature, a.split_bin, a.default_left, a.is_leaf, a.value = (
+        getattr(forest, name).data_ptr() for name in _WALK_DTYPES)
+    a.bins, a.weights = bins.data_ptr(), weights.data_ptr()
+    a.base, a.out, a.cat = base.data_ptr(), out.data_ptr(), _build.ptr(cat)
+    a.n_rows, a.n_features, a.bin_bytes = n, num_features, bins.element_size()
+    a.n_trees, a.heap, a.max_depth = n_trees, heap, max_depth
+    a.missing_bin, a.n_out = missing_bin, k_out
+    a.fused = (0 if k_out > 1 else 2 if t_cap == 1 else 1)
+    a.staged = int(_NODE_BYTES * n_trees * heap <= _WEIGHTED_STAGE_BYTES)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    a.grid = max(1, min(-(-n // 256), 8 * sms))
+    with torch.cuda.device(dev):
+        code = _build.library("walk").xrt_walk_weighted(
+            ctypes.byref(a), _build.stream_ptr(dev))
+    _build.check(code, "B4w weighted-forest walk")
+    predict_forest_weighted.launches += 1
+    return out
+
+
+predict_forest_weighted.launches = 0

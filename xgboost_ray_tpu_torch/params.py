@@ -308,11 +308,8 @@ def parse_params(params: Optional[Dict[str, Any]]) -> TrainParams:
         raise ValueError(
             "`grow_colmaker` updater doesn't support distributed training."
         )
-    if updater is not None:
-        raise _not_in_slice("updater", updater)
     feature_selector = params.pop("feature_selector", None)
-    if feature_selector is not None:
-        raise _not_in_slice("feature_selector", feature_selector)
+    had_lambda = any(k in params for k in ("lambda", "reg_lambda"))
 
     em = params.pop("eval_metric", None)
     if em is not None:
@@ -404,6 +401,34 @@ def parse_params(params: Optional[Dict[str, Any]]) -> TrainParams:
             f"Unsupported booster: {out.booster!r} (gbtree, dart, or "
             f"gblinear)."
         )
+    if out.booster == "gblinear":
+        if not had_lambda:
+            out.reg_lambda = 0.0  # xgboost LinearTrainParam default
+        if updater is not None and str(updater) not in ("shotgun",
+                                                        "coord_descent"):
+            raise ValueError(
+                f"gblinear updater must be 'shotgun' or 'coord_descent'; "
+                f"got {updater!r}"
+            )
+        if feature_selector is not None and str(feature_selector) != "cyclic":
+            raise NotImplementedError(
+                "gblinear feature_selector other than 'cyclic' is not "
+                "supported (both updaters run the deterministic cyclic "
+                "pass here)."
+            )
+        if out.grow_policy == "lossguide" or out.monotone_constraints or \
+                out.interaction_constraints:
+            raise NotImplementedError(
+                "tree growth options (grow_policy/constraints) do not apply "
+                "to booster='gblinear'."
+            )
+    if out.booster == "dart":
+        if out.num_parallel_tree != 1:
+            raise ValueError("dart does not support num_parallel_tree > 1")
+        if out.normalize_type not in ("tree", "forest"):
+            raise ValueError("normalize_type must be 'tree' or 'forest'")
+        if out.sample_type not in ("uniform", "weighted"):
+            raise ValueError("sample_type must be 'uniform' or 'weighted'")
     _check_sampling(out, params)
     if out.max_leaves < 0:
         raise ValueError("max_leaves must be >= 0")
@@ -426,7 +451,6 @@ def parse_params(params: Optional[Dict[str, Any]]) -> TrainParams:
 
     for key, bad in (
         ("objective", out.objective not in SUPPORTED_OBJECTIVES),
-        ("booster", out.booster != "gbtree"),
         ("num_class", out.num_class not in (0, 1)
          and not out.objective.startswith("multi:")),
         ("feature_parallel", int(out.feature_parallel or 1) != 1),
